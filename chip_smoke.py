@@ -6,14 +6,20 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``layoutdit_tpu_torch/csrc`` (one
-nvcc per source, in parallel), holds each kernel against its plain
-PyTorch version at the serving path's shapes and times both, then serves
-requests through ``BatchInferenceEngine`` with dit-base Faster R-CNN at
-full width (``configs/serving_1024.json``, random weights from a seed) in
-the 224 and 1024 px buckets, checks the detections and the encoder
-against a float32 CPU reference, and checks that every kernel ran on that
-path. It prints one JSON line describing the kernels, the card's name and
-power limit, and as its last line ``{"ok": true, "device": {...}}``.
+nvcc per source, in parallel), holds each forward and backward kernel
+against its plain PyTorch version at the shapes of the serving and
+training paths and times both (phases ``kernels`` and ``kernels_bwd``),
+then serves requests through ``BatchInferenceEngine`` with dit-base
+Faster R-CNN at full width (``configs/serving_1024.json``, random weights
+from a seed) in the 224 and 1024 px buckets and checks the detections
+and the encoder against a float32 CPU reference (phase ``serving``),
+then trains the port's default config (dit-base, 224 px, batch 16) with
+``Trainer`` over synthetic pages: one epoch, then steps on a repeated
+batch whose loss must fall, and the encoder's gradients against a
+float32 CPU reference (phase ``train``). It checks that every kernel ran
+on its path, the right number of times a train step. It prints JSON
+lines for serving, training and the kernels, the card's name and power
+limit, and as its last line ``{"ok": true, "device": {...}}``.
 Any failed check raises, and the exit code is not 0. It imports nothing
 of JAX or of ``layoutdit_tpu``, and it exits non-zero without a GPU.
 """
@@ -24,6 +30,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -35,6 +42,7 @@ CONFIG = ROOT / "configs" / "serving_1024.json"
 
 # NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12  # outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 
 # bf16 outputs of a kernel vs its plain version (both accumulate in fp32
@@ -45,9 +53,20 @@ BF16_REL_TOL = 1.0 / 64
 # encoder taps, bf16 on the card vs float32 on the CPU, after 12 layers:
 # ||card - cpu|| / ||cpu|| (Frobenius)
 ENCODER_REL_TOL = 5e-2
+# encoder + FPN gradients, bf16 on the card vs float32 on the CPU, same
+# weights and cotangent, after 12 layers forward and back
+GRAD_REL_TOL = 5e-2
 # each serving request is timed this many times (host clock, one request
 # at a time); the spread between runs is printed beside the median
 REQUEST_REPEATS = 5
+SERVING_KERNELS = ("short_attention", "flash_attention", "roi_align")
+# train phase: one epoch of this many steps through Trainer.train(), then
+# steps on one repeated batch (the first TRAIN_WARMUP not timed), over
+# which the loss must fall by TRAIN_MIN_DROP (the JAX e2e overfit check)
+TRAIN_EPOCH_STEPS = 4
+TRAIN_REPEATS = 20
+TRAIN_WARMUP = 2
+TRAIN_MIN_DROP = 0.10
 
 
 def _bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -90,7 +109,7 @@ def _qkv(gen, b, n, h, d):
 def phase_short(gen) -> dict:
     from layoutdit_tpu_torch.ops import short_attention as sa
 
-    b, n, h, d = 4, 197, 12, 64
+    b, n, h, d = 16, 197, 12, 64
     q, k, v = _qkv(gen, b, n, h, d)
     err, tol = _check_close("short_attention", sa.short_attention(q, k, v),
                             sa.short_attention_plain(q, k, v))
@@ -201,8 +220,10 @@ def phase_roi(gen) -> dict:
         "replaces": "layoutdit_tpu/ops/roi_align_pallas.py:49",
         "library_ms": None,
     }
-    for image in (224, 1024):
-        feats, rois, mask = _roi_inputs(gen, image)
+    # 224 px at the train step's B=16 (serving's batch is 4), 1024 px at
+    # serving's B=4
+    for image, b in ((224, 16), (1024, 4)):
+        feats, rois, mask = _roi_inputs(gen, image, b=b)
         scales = [1 / 4, 1 / 8, 1 / 16, 1 / 32, 1 / 64]
         levels = ra.roi_levels(rois, 5, float(image), roi_mask=mask)
         got = ra.roi_align_fwd(feats, rois, levels, scales, p, g)
@@ -231,27 +252,116 @@ def phase_roi(gen) -> dict:
     return entry
 
 
-def _counts() -> dict:
+def phase_short_bwd(gen) -> dict:
+    """Short attention backward at the train step's shape: q, k, v as
+    strided views of one fused projection, the gradient written into one
+    fused [B, N, 3*H*D] tensor, against the plain version on the same
+    bf16 inputs."""
+    from layoutdit_tpu_torch.ops import short_attention as sa
+
+    b, n, h, d = 16, 197, 12, 64
+    q, k, v = _qkv(gen, b, n, h, d)
+    o = sa.short_attention(q, k, v)
+    do = torch.randn(b, n, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+    dqkv = torch.empty(b, n, 3 * h * d, dtype=torch.bfloat16, device="cuda")
+    out = tuple(sa.split_qkv(dqkv, h))
+    got = sa.short_attention_bwd(q, k, v, o, do, out=out)
+    want = sa.short_attention_bwd_plain(q, k, v, o, do)
+    errs, tols = zip(*(_check_close(f"short_attention_bwd {name}", g, w)
+                       for name, g, w in zip(("dq", "dk", "dv"), got, want)))
+    del want
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    ot = sdpa(qt, kt, vt)
+    dot = do.transpose(1, 2)
+    nbytes = 8 * b * n * h * d * 2  # q, k, v, o, dO in; dq, dk, dv out
+    bound, by = _bound_ms(nbytes, 10 * b * h * n * n * d)
+    return {
+        "name": "short_attention_bwd", "route": "cuda",
+        "source": "layoutdit_tpu_torch/csrc/short_attention.cu",
+        "replaces": "layoutdit_tpu/ops/short_attention.py:90",
+        "shape": f"B={b} N={n} H={h} D={d} bf16, q/k/v and dq/dk/dv strided in fused [B, N, 3HD]",
+        "max_abs_err": max(errs), "tolerance": tols[errs.index(max(errs))],
+        "ms": _time_ms(lambda: sa.short_attention_bwd(q, k, v, o, do, out=out), 20),
+        "plain_ms": _time_ms(lambda: sa.short_attention_bwd_plain(q, k, v, o, do), 5),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": _time_ms(
+            lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True), 20),
+    }
+
+
+def phase_roi_bwd(gen) -> dict:
+    """RoIAlign backward at the train step's shape (B=16, K=512, the 224 px
+    pyramid, a fifth of the RoIs invalid) against the plain version on the
+    same bf16 dout. The kernel adds with fp32 atomics in an order that
+    changes from run to run: that moves the fp32 sum by a few ulps, far
+    inside the one bf16 rounding of the output the tolerance allows."""
+    from layoutdit_tpu_torch.ops import roi_align as ra
+
+    p, g, b, k, image = 7, 2, 16, 512, 224
+    feats, rois, mask = _roi_inputs(gen, image, b=b, k=k)
+    scales = [1 / 4, 1 / 8, 1 / 16, 1 / 32, 1 / 64]
+    levels = ra.roi_levels(rois, 5, float(image), roi_mask=mask)
+    c = feats[0].shape[1]
+    dout = torch.randn(b, k, p, p, c, generator=gen, device="cuda").to(torch.bfloat16)
+    got = ra.roi_align_bwd(dout, rois, levels, feats, scales, p, g)
+    want = ra.roi_align_bwd_plain(dout, rois, levels, feats, scales, p, g)
+    errs, tols = zip(*(_check_close(f"roi_align_bwd level {i}", gl, wl)
+                       for i, (gl, wl) in enumerate(zip(got, want))))
+    # a second run must agree within the atomics' reordering
+    again = ra.roi_align_bwd(dout, rois, levels, feats, scales, p, g)
+    rerun = max((x.float() - y.float()).abs().max().item() for x, y in zip(got, again))
+    print(f"  roi_align_bwd: two runs differ by at most {rerun:.6g}")
+    del want, again
+
+    n_valid = int((levels >= 0).sum())
+    pyramid = sum(f.numel() for f in feats) * 2
+    nbytes = n_valid * p * p * c * 2 + pyramid + rois.numel() * 4 + levels.numel() * 4
+    # 4 taps x G^2 samples of one multiply-add each per dout element, fp32
+    # outside the tensor cores
+    t_ops = n_valid * p * p * c * g * g * 4 * 2 / PEAK_FP32_FLOPS * 1e3
+    bound, by = _bound_ms(nbytes, 0.0)
+    if t_ops > bound:
+        bound, by = t_ops, "operations"
+    return {
+        "name": "roi_align_bwd", "route": "cuda",
+        "source": "layoutdit_tpu_torch/csrc/roi_align.cu",
+        "replaces": "layoutdit_tpu/ops/roi_align_pallas.py:67",
+        "shape": f"B={b} K={k} ({n_valid} valid) C={c} P={p} pyramid {image} px bf16",
+        "max_abs_err": max(errs), "tolerance": tols[errs.index(max(errs))],
+        "rerun_max_abs_diff": rerun,
+        "ms": _time_ms(lambda: ra.roi_align_bwd(dout, rois, levels, feats, scales, p, g), 10),
+        "plain_ms": _time_ms(
+            lambda: ra.roi_align_bwd_plain(dout, rois, levels, feats, scales, p, g), 2),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": None,
+    }
+
+
+def _counters():
     from layoutdit_tpu_torch.ops import flash_attention as fa
     from layoutdit_tpu_torch.ops import roi_align as ra
     from layoutdit_tpu_torch.ops import short_attention as sa
 
     return {
-        "short_attention": sa.short_attention.launches,
-        "flash_attention": fa.flash_attention_fwd.launches,
-        "roi_align": ra.roi_align_fwd.launches,
+        "short_attention": sa.short_attention,
+        "short_attention_bwd": sa.short_attention_bwd,
+        "flash_attention": fa.flash_attention_fwd,
+        "roi_align": ra.roi_align_fwd,
+        "roi_align_bwd": ra.roi_align_bwd,
     }
 
 
-def _reset_counts() -> None:
-    from layoutdit_tpu_torch.ops import flash_attention as fa
-    from layoutdit_tpu_torch.ops import nms
-    from layoutdit_tpu_torch.ops import roi_align as ra
-    from layoutdit_tpu_torch.ops import short_attention as sa
+def _counts() -> dict:
+    return {name: fn.launches for name, fn in _counters().items()}
 
-    sa.short_attention.launches = 0
-    fa.flash_attention_fwd.launches = 0
-    ra.roi_align_fwd.launches = 0
+
+def _reset_counts() -> None:
+    from layoutdit_tpu_torch.ops import nms
+
+    for fn in _counters().values():
+        fn.launches = 0
     nms.nms_mask.host_syncs = 0
 
 
@@ -279,12 +389,12 @@ def _check_pages(pages, results) -> int:
 def _encoder_reference(model, images: dict) -> None:
     """Encoder taps of one page per bucket: bf16 with the kernels on the
     card vs float32 plain versions on the CPU, same weights."""
-    from layoutdit_tpu_torch.eval.serving import _to_device
     from layoutdit_tpu_torch.models.detection.detector import _normalize
     from layoutdit_tpu_torch.models.vit import vit_forward
+    from layoutdit_tpu_torch.models.weights_io import tree_map
 
     cfg = model.cfg
-    vit_cpu = _to_device(model.params["backbone"]["vit"], torch.device("cpu"))
+    vit_cpu = tree_map(lambda t: t.cpu(), model.params["backbone"]["vit"])
     for size, img in images.items():
         x = _normalize(img[None].cpu(), cfg)
         with torch.inference_mode():
@@ -292,11 +402,161 @@ def _encoder_reference(model, images: dict) -> None:
                               cfg.backbone.vit, cfg.backbone.taps, torch.bfloat16)
             want = vit_forward(vit_cpu, x, cfg.backbone.vit, cfg.backbone.taps, torch.float32)
         for tap, gt, wt in zip(cfg.backbone.taps, got, want):
-            rel = ((gt.float().cpu() - wt).norm() / wt.norm()).item()
+            rel = _rel_err(gt, wt)
             print(f"  encoder {size} px tap {tap}: relative error {rel:.4g} "
                   f"(tolerance {ENCODER_REL_TOL})")
             if not rel <= ENCODER_REL_TOL:
                 raise RuntimeError("encoder on the card disagrees with the CPU reference")
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got.float().cpu() - want.float()).norm() / want.float().norm()).item()
+
+
+def _gradient_reference(backbone_params: dict, cfg, images: torch.Tensor) -> dict:
+    """Encoder + FPN gradients under a fixed cotangent on the FPN outputs
+    (no sampling involved): bf16 with the kernels on the card against
+    float32 plain versions on the CPU, same weights, for the patch
+    embedding, layer 1's qkv and the last layer's mlp_out."""
+    from layoutdit_tpu_torch.models.backbone import backbone_forward
+    from layoutdit_tpu_torch.models.detection.detector import _normalize
+    from layoutdit_tpu_torch.models.weights_io import tree_map
+
+    def grads(p, x, dtype, cots):
+        vit = p["vit"]
+        wanted = [vit["patch_embed"]["weight"], vit["layers"][0]["qkv"]["weight"],
+                  vit["layers"][-1]["mlp_out"]["weight"]]
+        feats = backbone_forward(p, x.to(dtype), cfg.backbone, compute_dtype=dtype)
+        total = sum((f.float() * c).sum() for f, c in zip(feats, cots))
+        return torch.autograd.grad(total, wanted)
+
+    x = _normalize(images.float(), cfg)
+    gen = torch.Generator().manual_seed(1)
+    c = cfg.backbone.fpn_out_channels
+    # bf16-representable, so both sides see the same cotangent
+    cots = [torch.randn((x.shape[0], c, h, w), generator=gen).to(torch.bfloat16).float()
+            for h, w in cfg.grid_sizes]
+    got = grads(tree_map(lambda t: t.detach().clone().requires_grad_(True), backbone_params),
+                x, torch.bfloat16, [t.cuda() for t in cots])
+    want = grads(tree_map(lambda t: t.detach().cpu().requires_grad_(True), backbone_params),
+                 x.cpu(), torch.float32, cots)
+    out = {}
+    for name, g, w in zip(("patch_embed", "layer 1 qkv", "layer 12 mlp_out"), got, want):
+        rel = _rel_err(g, w)
+        print(f"  gradient of {name}: relative error {rel:.4g} (tolerance {GRAD_REL_TOL})")
+        if not rel <= GRAD_REL_TOL:
+            raise RuntimeError(f"gradient of {name} on the card disagrees with the CPU reference")
+        out[name] = rel
+    return out
+
+
+def phase_train(kernels: list[dict]) -> dict:
+    """The port's default training config (dit-base at full width, 224 px,
+    batch 16, bf16 over fp32 masters, random weights from seed 0) through
+    ``Trainer(config, model).train()`` for one epoch over synthetic pages,
+    then ``TRAIN_REPEATS`` steps on one repeated batch (timed, losses
+    finite and falling), launch counts per step, and a gradient check
+    against the CPU."""
+    from layoutdit_tpu_torch.config import RunConfig, TrainingConfig
+    from layoutdit_tpu_torch.models.detection.detector import (
+        DetectorConfig,
+        DetectorModel,
+        init_detector,
+    )
+    from layoutdit_tpu_torch.ops import nms
+    from layoutdit_tpu_torch.tools.make_fixture import make_fixture
+    from layoutdit_tpu_torch.train.trainer import Trainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rc = RunConfig(
+            train=TrainingConfig(train_base_path=tmp, train_input="samples", num_epochs=1,
+                                 checkpoint_interval=1),
+            run_name="chip_smoke", eval_base_path=tmp,
+        )
+        b = rc.data.batch_size
+        make_fixture(tmp, n_images=TRAIN_EPOCH_STEPS * b, split="samples", seed=0)
+        cfg = DetectorConfig.from_model_config(rc.model, precision_dtype=rc.compute_dtype)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        model = DetectorModel(init_detector(cfg, gen, device="cuda"), cfg)
+        trainer = Trainer(rc, model)
+        vit = cfg.backbone.vit
+        print(f"  dit-base Faster R-CNN, hidden {vit.hidden_size}, {vit.num_hidden_layers} "
+              f"layers, {vit.num_attention_heads} heads, MLP {vit.intermediate_size}, image "
+              f"{cfg.image_size} px, batch {b}, {rc.compute_dtype} over fp32 parameters, "
+              f"pre/post-NMS {cfg.budget.rpn_pre_nms_top_n_train}/"
+              f"{cfg.budget.rpn_post_nms_top_n_train}")
+
+        # the main path: the trainer's own epoch loop
+        _reset_counts()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        counts, steps = _counts(), trainer.updates
+        epoch_syncs = nms.nms_mask.host_syncs
+        print(f"  Trainer.train(): {steps} steps in {epoch_s:.3f} s (first steps include "
+              f"cuBLAS/cuDNN set-up), loss {trainer.loss_history}, launches {counts}, "
+              f"NMS host syncs {epoch_syncs}")
+        per_step = {"short_attention": vit.num_hidden_layers,
+                    "short_attention_bwd": vit.num_hidden_layers,
+                    "roi_align": 1, "roi_align_bwd": 1, "flash_attention": 0}
+        for name, want in per_step.items():
+            if counts[name] != want * steps:
+                raise RuntimeError(f"train: {name} launched {counts[name]} times in {steps} "
+                                   f"steps, expected {want} a step")
+        for k in kernels:
+            k["train_launches"] = counts[k["name"]]
+            k["launches"] = k.get("serving_launches", 0) + k["train_launches"]
+        ckpt = Path(trainer.checkpoint_path(1))
+        metrics = Path(rc.artifact_dir) / "metrics" / "metrics.jsonl"
+        if not (ckpt.is_file() and metrics.is_file() and np.isfinite(trainer.loss_history).all()):
+            raise RuntimeError("train: no checkpoint, no metrics or a non-finite epoch loss")
+
+        # one repeated batch: timing, finite losses, the overfit check
+        it = iter(trainer.dataloader)
+        batch = next(it)
+        it.close()
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        times, history = [], []
+        for _ in range(TRAIN_REPEATS):
+            t0 = time.perf_counter()
+            loss, parts = trainer.train_step(batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            history.append({"loss": float(loss), **{k: float(v) for k, v in parts.items()}})
+        peak = torch.cuda.max_memory_allocated()
+        counts = _counts()
+        syncs = nms.nms_mask.host_syncs / TRAIN_REPEATS
+        for name, want in per_step.items():
+            if counts[name] != want * TRAIN_REPEATS:
+                raise RuntimeError(f"train: {name} launched {counts[name]} times in "
+                                   f"{TRAIN_REPEATS} steps, expected {want} a step")
+        if not all(np.isfinite(list(h.values())).all() for h in history):
+            raise RuntimeError(f"train: a non-finite loss: {history}")
+        first, last = history[0]["loss"], np.mean([h["loss"] for h in history[-3:]])
+        print(f"  repeated batch, {TRAIN_REPEATS} steps: loss {first:.4f} -> {last:.4f} "
+              f"(mean of the last 3; must fall by {TRAIN_MIN_DROP:.0%})")
+        for h in (history[0], history[-1]):
+            print("    " + ", ".join(f"{k} {v:.4f}" for k, v in h.items()))
+        if not last <= (1 - TRAIN_MIN_DROP) * first:
+            raise RuntimeError("train: the loss did not fall on a repeated batch")
+        timed = sorted(times[TRAIN_WARMUP:])
+        med = float(np.median(timed))
+        print(f"  step time median {med * 1e3:.3f} ms (min {timed[0] * 1e3:.3f}, max "
+              f"{timed[-1] * 1e3:.3f}, {len(timed)} steps), {b / med:.2f} images/s, peak "
+              f"memory {peak / 2**30:.3f} GiB, NMS host syncs {syncs:.1f} a step")
+
+        images = batch.images[:2]
+        grads = _gradient_reference(trainer.params["backbone"], cfg, images)
+    return {
+        "config": "default RunConfig: dit-base, 224 px, batch 16, bf16 over fp32",
+        "epoch_steps": steps, "epoch_s": epoch_s, "epoch_loss": trainer.loss_history,
+        "step_ms": [t * 1e3 for t in times], "median_step_ms": med * 1e3,
+        "images_per_s": b / med, "peak_memory_bytes": peak,
+        "nms_host_syncs_per_step": syncs, "loss_first": first, "loss_last3_mean": last,
+        "losses": history, "gradient_rel_err": grads,
+    }
 
 
 def phase_serving(kernels: list[dict]) -> dict:
@@ -349,10 +609,11 @@ def phase_serving(kernels: list[dict]) -> dict:
     syncs = nms.nms_mask.host_syncs
     print(f"  launches during serving ({REQUEST_REPEATS} rounds of the requests): {counts}; "
           f"NMS host syncs: {syncs}")
+    for name in SERVING_KERNELS:
+        if counts[name] <= 0:
+            raise RuntimeError(f"{name} was not launched on the serving path")
     for k in kernels:
-        k["launches"] = counts[k["name"]]
-        if k["launches"] <= 0:
-            raise RuntimeError(f"{k['name']} was not launched on the serving path")
+        k["serving_launches"] = counts[k["name"]]
 
     _encoder_reference(model, {
         s: engine._upload_batch([engine._decode_page(p)], s)[0][0]
@@ -398,12 +659,20 @@ def main() -> int:
     print("phase kernels")
     kernels = [phase_short(gen), phase_flash(gen), phase_roi(gen)]
     torch.cuda.empty_cache()
+    print("phase kernels_bwd")
+    kernels += [phase_short_bwd(gen), phase_roi_bwd(gen)]
+    torch.cuda.empty_cache()
 
     print("phase serving")
     serving = phase_serving(kernels)
+    torch.cuda.empty_cache()
 
-    print(json.dumps({"kernels": kernels}))
+    print("phase train")
+    train = phase_train(kernels)
+
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"train": train}))
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({
         "ok": True,

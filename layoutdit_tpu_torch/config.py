@@ -2,12 +2,14 @@
 
 A subset of the JAX package's pydantic schema (``config/constructs.py``)
 with the same defaults: the two-stage ``DetectionBudget``, the serving
-fields of ``ModelConfig`` and ``DataLoaderConfig``. The machine with the
-GPU has no pydantic, so these are plain frozen dataclasses, and
-``load_config`` reads ``detection_model_config`` and
-``data_loader_config`` from the same JSON files the JAX package reads
-(e.g. ``configs/serving_1024.json``). A key the port does not know
-raises instead of being dropped.
+fields of ``ModelConfig`` and ``DataLoaderConfig``, and the training
+fields of ``TrainingConfig``. The machine with the GPU has no pydantic,
+so these are plain frozen dataclasses. ``load_config`` reads
+``detection_model_config`` and ``data_loader_config`` from the same JSON
+files the JAX package reads (e.g. ``configs/serving_1024.json``);
+``load_run_config`` reads a whole training config. A key the port does
+not know raises instead of being dropped, and a JAX field the port does
+not act on yet loads only at its default value.
 """
 
 from __future__ import annotations
@@ -84,19 +86,95 @@ class ModelConfig:
     vit_overrides: Optional[dict] = None
 
 
+@dataclasses.dataclass(frozen=True)
+class TrainingConfig:
+    """The fields of ``constructs.py::TrainingConfig`` the training slice
+    uses, same defaults. ``train_base_path``/``train_input`` locate the
+    data as in the JAX package (``{base}/{input}/`` images,
+    ``{base}/{input}.json`` annotations)."""
+
+    train_base_path: str = "gs://layoutdit/data"
+    train_input: str = "single"
+    num_epochs: int = 25
+    learning_rate: float = 1e-4
+    weight_decay: float = 0.0
+    step_size: int = 10
+    gamma: float = 0.1
+    checkpoint_interval: int = 10
+    seed: int = 0
+    grad_clip_norm: float = 0.0
+    lr_schedule: str = "step"
+    warmup_steps: int = 0
+
+    def __post_init__(self):
+        if self.lr_schedule not in ("step", "cosine"):
+            raise ValueError(f"lr_schedule must be 'step' or 'cosine', got {self.lr_schedule!r}")
+
+
+# Fields of the JAX schema the port reads but does not act on yet: each
+# maps to (its JAX default, what it waits for). A config that leaves one
+# at its default loads; one that sets it otherwise is refused, naming the
+# work it waits for, rather than silently trained without it.
+_LATER = "a later slice of the port"
+_WAITING = {
+    "train_config": {
+        "device": ("auto", "the port runs on the CUDA card (no device field)"),
+        "async_checkpoint": (True, "asynchronous checkpoint writes (" + _LATER + ")"),
+        "keep_checkpoints": (0, "checkpoint retention (" + _LATER + ")"),
+        "enable_profile": (False, "tools/profile_train.py; the trainer writes no traces"),
+        "trace_log_dir": ("./log/traces", "tools/profile_train.py"),
+        "tensorboard": (True, "TensorBoard output (" + _LATER + ")"),
+        "lora_freeze_base": (True, "LoRA training (" + _LATER + ")"),
+        "adam_mu_dtype": ("float32", "bf16 optimizer moments (" + _LATER + ")"),
+        "skip_nonfinite_updates": (0, "non-finite update skipping (" + _LATER + ")"),
+        "steps_per_dispatch": (0, "multi-step dispatch (" + _LATER + ")"),
+        "grad_accumulation_steps": (1, "gradient accumulation (" + _LATER + ")"),
+        "eval_interval": (0, "mid-training evaluation, which needs the evaluator"),
+        "early_stop_patience": (0, "mid-training evaluation, which needs the evaluator"),
+        "ema_decay": (0.0, "parameter EMA (" + _LATER + ")"),
+    },
+    "precision": {
+        "param_dtype": ("float32", "the port keeps fp32 parameters"),
+    },
+    "eval_config": {
+        "device": ("auto", "the port runs on the CUDA card (no device field)"),
+        "score_thresh": (0.0, "the evaluator (" + _LATER + ")"),
+        "max_per_image": (10, "the evaluator (" + _LATER + ")"),
+        "visualize_dirpath_prefix": ("visualizations", "the evaluator (" + _LATER + ")"),
+        "num_images": (20, "the evaluator (" + _LATER + ")"),
+        "per_category_metrics": (True, "the evaluator (" + _LATER + ")"),
+        "segm_metrics": (True, "the evaluator (" + _LATER + ")"),
+    },
+}
+
+
 def _tupled(v: Any) -> Any:
     if isinstance(v, list):
         return tuple(_tupled(x) for x in v)
     return v
 
 
-def _build(cls, data: dict, where: str):
-    known = {f.name for f in dataclasses.fields(cls)}
-    unknown = sorted(set(data) - known)
+def _check_keys(data: dict, known: set, where: str, waiting: Optional[dict] = None) -> None:
+    """Raise on a key that is neither ``known`` nor waiting, and on a
+    waiting key set to anything but its JAX default."""
+    waiting = waiting or {}
+    unknown = sorted(set(data) - known - set(waiting))
     if unknown:
         raise ValueError(f"{where}: keys not supported by the port: {unknown}")
+    for k, v in data.items():
+        if k in waiting and k not in known and v != waiting[k][0]:
+            raise ValueError(
+                f"{where}.{k}={v!r}: not supported by the port yet; it waits for {waiting[k][1]}"
+            )
+
+
+def _build(cls, data: dict, where: str, waiting: Optional[dict] = None):
+    known = {f.name for f in dataclasses.fields(cls)}
+    _check_keys(data, known, where, waiting)
     kwargs = {}
     for k, v in data.items():
+        if k not in known:
+            continue
         if k == "detection_budget":
             v = _build(DetectionBudget, v, f"{where}.detection_budget")
         elif k != "vit_overrides":
@@ -119,3 +197,78 @@ def load_config(path: str) -> tuple[ModelConfig, DataLoaderConfig]:
     dl = _build(DataLoaderConfig, raw.get("data_loader_config", {}),
                 "data_loader_config")
     return mc, dl
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """What the trainer reads from a config file: the model, loader and
+    training sections, the compute dtype (``precision.compute_dtype``),
+    and where the data and the run's artifacts live.
+
+    ``local_mode`` switches the training data to the eval split, as the
+    JAX package's ``resolve_split`` does; artifacts go to
+    ``{eval_base_path or "."}/{run_name}`` (``metrics/metrics.jsonl``,
+    ``model_checkpoints/epoch_{n}.pt``)."""
+
+    model: ModelConfig = ModelConfig()
+    data: DataLoaderConfig = DataLoaderConfig()
+    train: TrainingConfig = TrainingConfig()
+    compute_dtype: str = "bfloat16"
+    run_name: str = "test"
+    local_mode: bool = False
+    eval_input: str = "samples"
+    eval_base_path: Optional[str] = "gs://layoutdit"
+
+    @property
+    def artifact_dir(self) -> str:
+        return f"{self.eval_base_path or '.'}/{self.run_name}"
+
+    def train_split(self) -> tuple[str, str]:
+        """(images_root, annotations_json) of the training data."""
+        base = self.train.train_base_path
+        segment = self.eval_input if self.local_mode else self.train.train_input
+        return f"{base}/{segment}/", f"{base}/{segment}.json"
+
+
+_RUN_KEYS = {"train_config", "data_loader_config", "detection_model_config",
+             "precision", "run_name", "local_mode", "eval_config", "mesh_config"}
+
+
+def run_config_from_dict(raw: dict) -> RunConfig:
+    """A ``RunConfig`` from a parsed config JSON (the JAX package's
+    ``LayoutDitConfig`` layout); absent sections take their defaults."""
+    unknown = sorted(set(raw) - _RUN_KEYS)
+    if unknown:
+        raise ValueError(f"keys not supported by the port: {unknown}")
+    if raw.get("mesh_config"):
+        raise ValueError(
+            "mesh_config: not supported by the port yet; it waits for the "
+            "multi-card slice (the port trains on one card)"
+        )
+    mc = _build(ModelConfig, raw.get("detection_model_config", {}), "detection_model_config")
+    if mc.backbone_type != "dit":
+        raise ValueError(
+            f"backbone_type {mc.backbone_type!r}: the port runs dit-base only"
+        )
+    precision = raw.get("precision", {})
+    _check_keys(precision, {"compute_dtype"}, "precision", _WAITING["precision"])
+    ev = raw.get("eval_config", {})
+    _check_keys(ev, {"eval_input", "eval_base_path"}, "eval_config", _WAITING["eval_config"])
+    return RunConfig(
+        model=mc,
+        data=_build(DataLoaderConfig, raw.get("data_loader_config", {}), "data_loader_config"),
+        train=_build(TrainingConfig, raw.get("train_config", {}), "train_config",
+                     _WAITING["train_config"]),
+        compute_dtype=precision.get("compute_dtype", "bfloat16"),
+        run_name=raw.get("run_name", "test"),
+        local_mode=bool(raw.get("local_mode") or False),
+        eval_input=ev.get("eval_input", "samples"),
+        eval_base_path=ev.get("eval_base_path", "gs://layoutdit"),
+    )
+
+
+def load_run_config(path: str) -> RunConfig:
+    """``run_config_from_dict`` of a config JSON file."""
+    with open(path) as f:
+        return run_config_from_dict(json.load(f))
+

@@ -40,6 +40,7 @@ from layoutdit_tpu_torch.models.detection.detector import (
     params_for_inference,
     rescale_detections,
 )
+from layoutdit_tpu_torch.models.weights_io import tree_map
 from layoutdit_tpu_torch.ops.interpolate import resize_bilinear
 
 logger = get_logger(__name__)
@@ -60,14 +61,6 @@ def _open_jpeg(data: bytes):
             "JPEG pages need PIL; pass decoded uint8/float arrays instead"
         ) from e
     return Image.open(io.BytesIO(data))
-
-
-def _to_device(tree, device: torch.device):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to_device(v, device) for v in tree]
-    return tree.to(device)
 
 
 class BatchInferenceEngine:
@@ -109,7 +102,7 @@ class BatchInferenceEngine:
         self.decode_workers = decode_workers
         self.max_in_flight = max(1, max_in_flight)
         self.params = params_for_inference(
-            _to_device(model.params, self.device), model.cfg.dtype
+            tree_map(lambda t: t.to(self.device), model.params), model.cfg.dtype
         )
         self._cfgs: dict[int, object] = {}
 

@@ -1,10 +1,11 @@
-"""The DiT + FPN + Faster R-CNN detector at inference (port of the
-``faster_rcnn`` path of ``layoutdit_tpu/models/detection/detector.py``).
+"""The DiT + FPN + Faster R-CNN detector (port of the ``faster_rcnn``
+path of ``layoutdit_tpu/models/detection/detector.py``).
 
 ``detector_predict(params, images, cfg)``: images [B, 3, S, S] in [0, 1]
 -> padded per-image ``Detections`` in S-space; ``rescale_detections``
-maps them back to page coordinates. Cascade, masks and the single-stage
-families are not ported yet.
+maps them back to page coordinates. ``detector_loss(params, images, gt
+..., cfg, priorities)`` -> the four training losses. Cascade, masks and
+the single-stage families are not ported yet.
 """
 
 from __future__ import annotations
@@ -34,9 +35,11 @@ from layoutdit_tpu_torch.models.detection.heads import (
 )
 from layoutdit_tpu_torch.models.detection.roi_heads import (
     Detections,
+    fastrcnn_loss,
     postprocess_detections,
+    select_training_samples,
 )
-from layoutdit_tpu_torch.models.detection.rpn import filter_proposals
+from layoutdit_tpu_torch.models.detection.rpn import filter_proposals, rpn_loss
 from layoutdit_tpu_torch.ops.roi_align import multiscale_roi_align
 
 BOX_HEAD_REP = 1024
@@ -198,6 +201,86 @@ def detector_predict(
             class_logits.reshape(b, k, -1), box_regression.reshape(b, k, -1),
             props.boxes, props.valid, size, cfg.budget,
         )
+
+
+class SamplerPriorities(NamedTuple):
+    """Uniform [0, 1) draws for the two samplers: slot ``[:, 0]`` ranks
+    the positives, ``[:, 1]`` the negatives."""
+
+    rpn: torch.Tensor  # [B, 2, num_anchors]
+    roi: torch.Tensor  # [B, 2, rpn_post_nms_top_n_train + G]
+
+
+def draw_priorities(
+    cfg: DetectorConfig, batch: int, max_gt: int, generator: torch.Generator
+) -> SamplerPriorities:
+    """Sampler priorities from ``generator`` (on the device it names).
+    The JAX package draws these with ``jax.random.uniform``, which torch
+    cannot reproduce; tests pass JAX's draws in instead."""
+    device = generator.device
+    n_anchors = sum(h * w for h, w in cfg.grid_sizes) * cfg.num_anchors_per_cell
+    n_cand = cfg.budget.rpn_post_nms_top_n_train + max_gt
+    return SamplerPriorities(
+        rpn=torch.rand((batch, 2, n_anchors), generator=generator, device=device),
+        roi=torch.rand((batch, 2, n_cand), generator=generator, device=device),
+    )
+
+
+def detector_loss(
+    params: dict,
+    images: torch.Tensor,  # [B, 3, S, S] in [0, 1]
+    gt_boxes: torch.Tensor,  # [B, G, 4] xyxy in S-space
+    gt_labels: torch.Tensor,  # [B, G] int 1..NC
+    gt_valid: torch.Tensor,  # [B, G] bool
+    cfg: DetectorConfig,
+    priorities: SamplerPriorities,
+) -> dict[str, torch.Tensor]:
+    """Training forward of the ``faster_rcnn`` detector -> the four-loss
+    dict of the JAX package's ``detector_loss`` (and the reference
+    trainer): ``loss_objectness``, ``loss_rpn_box_reg``,
+    ``loss_classifier``, ``loss_box_reg``, fp32 scalars.
+
+    The predictions run under a ``record_function("forward")`` range and
+    the two losses under ``"loss"``."""
+    anchors, counts = _anchors(cfg, images.device)
+    size = (cfg.image_size, cfg.image_size)
+    b = images.shape[0]
+    with record_function("forward"):
+        x = _normalize(images.float(), cfg).to(cfg.dtype)
+        feats = backbone_forward(params["backbone"], x, cfg.backbone, compute_dtype=cfg.dtype)
+        objectness, deltas = rpn_head_forward(params["rpn_head"], feats, cfg.num_anchors_per_cell)
+        props = filter_proposals(objectness, deltas, anchors, counts, size, cfg.budget,
+                                 training=True)
+        samples = select_training_samples(
+            props.boxes, props.valid, gt_boxes, gt_labels, gt_valid, cfg.budget,
+            priorities.roi,
+        )
+        k = samples.rois.shape[1]
+        pooled = multiscale_roi_align(
+            feats, samples.rois, list(cfg.backbone.spatial_scales),
+            output_size=cfg.roi_output_size,
+            sampling_ratio=cfg.roi_sampling_ratio,
+            canonical_scale=float(cfg.image_size),
+            roi_mask=samples.valid,
+            native_layout=True,
+        )  # [B, K, Px, Py, C]
+        rep = box_head_forward(
+            params["box_head"], pooled.reshape(b * k, *pooled.shape[2:]).to(cfg.dtype)
+        )
+        class_logits, box_regression = predictor_forward(params["box_predictor"], rep)
+    with record_function("loss"):
+        loss_obj, loss_rpn_box = rpn_loss(
+            objectness, deltas, anchors, gt_boxes, gt_valid, cfg.budget, priorities.rpn
+        )
+        loss_cls, loss_box = fastrcnn_loss(
+            class_logits.reshape(b, k, -1), box_regression.reshape(b, k, -1), samples
+        )
+    return {
+        "loss_objectness": loss_obj,
+        "loss_rpn_box_reg": loss_rpn_box,
+        "loss_classifier": loss_cls,
+        "loss_box_reg": loss_box,
+    }
 
 
 def rescale_detections(

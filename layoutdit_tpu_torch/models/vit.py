@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from layoutdit_tpu_torch.ops.flash_attention import flash_attention
 from layoutdit_tpu_torch.ops.interpolate import resize_bicubic
 from layoutdit_tpu_torch.ops.short_attention import MAX_N as SHORT_MAX_N
-from layoutdit_tpu_torch.ops.short_attention import short_attention
+from layoutdit_tpu_torch.ops.short_attention import short_attention_qkv, split_qkv
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,23 +129,27 @@ def patchify(pixels: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(b, gh * gw, c * patch * patch)
 
 
-def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """softmax(q k^T / sqrt(D)) v on [B, N, H, D]: the short kernel for
-    N <= 256, the flash kernel beyond."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.shape[1] <= SHORT_MAX_N:
-        return short_attention(q, k, v, scale=scale)
-    return flash_attention(q, k, v, scale=scale)
+def attention_core(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """softmax(q k^T / sqrt(D)) v from the fused projection [B, N, 3*H*D]
+    -> [B, N, H, D]: the short kernels (differentiable) for N <= 256, the
+    flash forward kernel beyond. The flash backward is not ported, so a
+    gradient through N > 256 raises instead of taking a plain version."""
+    scale = 1.0 / math.sqrt(qkv.shape[-1] // (3 * heads))
+    if qkv.shape[1] <= SHORT_MAX_N:
+        return short_attention_qkv(qkv, heads, scale=scale)
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        raise NotImplementedError(
+            f"attention over N={qkv.shape[1]} > {SHORT_MAX_N} tokens needs the flash "
+            "backward kernel, which is not ported yet; train at a size whose "
+            "token count fits the short kernel (224 px)"
+        )
+    return flash_attention(*split_qkv(qkv, heads), scale=scale)
 
 
 def _attention(x: torch.Tensor, layer: dict, cfg: ViTConfig) -> torch.Tensor:
     b, n, d = x.shape
-    h, hd = cfg.num_attention_heads, cfg.head_dim
     qkv = _linear(x, layer["qkv"])  # [B, N, 3D]
-    q = qkv[..., :d].view(b, n, h, hd)
-    k = qkv[..., d:2 * d].view(b, n, h, hd)
-    v = qkv[..., 2 * d:].view(b, n, h, hd)
-    ctx = attention_core(q, k, v)
+    ctx = attention_core(qkv, cfg.num_attention_heads)
     return _linear(ctx.reshape(b, n, d), layer["attn_out"])
 
 

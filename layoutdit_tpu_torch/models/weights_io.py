@@ -1,9 +1,11 @@
-"""Parameters from the JAX package's pytree layout.
+"""Parameters to and from the JAX package's pytree layout.
 
 ``params_from_jax`` takes the tree that ``init_detector_params``
 (``layoutdit_tpu/models/detection/detector.py``) returns for a
 ``faster_rcnn`` DiT detector, as numpy arrays, and builds the port's
-parameter dictionary, so both packages compute the same function:
+parameter dictionary, so both packages compute the same function;
+``params_to_jax`` maps port parameters, or their gradients, back leaf
+by leaf:
 
   * linear kernels are [in, out] in JAX and become [out, in] weights;
   * conv kernels are already OIHW and pass through;
@@ -19,6 +21,26 @@ from typing import Mapping
 
 import numpy as np
 import torch
+
+
+def tree_map(fn, tree):
+    """``fn`` applied to every tensor of a parameter tree (nested dicts
+    and lists), same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list[torch.Tensor]:
+    """The tensors of a parameter tree in a fixed order (dict keys in
+    insertion order, lists in order)."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in tree_leaves(v)]
+    return [tree]
 
 
 def _t(a, device) -> torch.Tensor:
@@ -86,5 +108,86 @@ def params_from_jax(tree: Mapping, device="cpu") -> dict:
         },
         "box_predictor": {
             n: _linear(tree["box_predictor"][n], device) for n in ("cls", "bbox")
+        },
+    }
+
+
+def k_bias_slots(params: dict) -> list[tuple[torch.Tensor, slice]]:
+    """(fused qkv bias, its K slice) per encoder layer: the slot that has
+    no counterpart in the JAX tree (BEiT's K has no bias). It stays zero
+    in training: its gradient, zero in exact arithmetic (the softmax is
+    invariant to a row-constant shift of the scores), is rounding noise,
+    and the trainer holds it at zero (``train/trainer.py``)."""
+    slots = []
+    for layer in params["backbone"]["vit"]["layers"]:
+        bias = layer["qkv"]["bias"]
+        d = bias.shape[0] // 3
+        slots.append((bias, slice(d, 2 * d)))
+    return slots
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def _linear_to_jax(p: dict) -> dict:
+    return {"kernel": _np(p["weight"]).T, "bias": _np(p["bias"])}
+
+
+def _conv_to_jax(p: dict) -> dict:
+    return {"kernel": _np(p["weight"]), "bias": _np(p["bias"])}
+
+
+def _vit_layer_to_jax(layer: dict) -> dict:
+    w, b = _np(layer["qkv"]["weight"]), _np(layer["qkv"]["bias"])
+    d = w.shape[1]
+    return {
+        "ln1": {"scale": _np(layer["ln1"]["weight"]), "bias": _np(layer["ln1"]["bias"])},
+        "ln2": {"scale": _np(layer["ln2"]["weight"]), "bias": _np(layer["ln2"]["bias"])},
+        "q": {"kernel": w[:d].T, "bias": b[:d]},
+        "k": {"kernel": w[d:2 * d].T},
+        "v": {"kernel": w[2 * d:].T, "bias": b[2 * d:]},
+        "attn_out": _linear_to_jax(layer["attn_out"]),
+        "mlp_in": _linear_to_jax(layer["mlp_in"]),
+        "mlp_out": _linear_to_jax(layer["mlp_out"]),
+        "lambda_1": _np(layer["lambda_1"]),
+        "lambda_2": _np(layer["lambda_2"]),
+    }
+
+
+def params_to_jax(params: dict) -> dict:
+    """Port params (or a tree of their gradients, same layout) -> the
+    JAX ``init_detector_params`` layout with numpy leaves: the inverse of
+    ``params_from_jax``. The fused qkv's K-bias slot has no JAX
+    counterpart and is dropped; fc6 goes back to [Px, Py, C, rep]."""
+    vit = params["backbone"]["vit"]
+    fpn = params["backbone"]["fpn"]
+    fc6 = params["box_head"]["fc6"]
+    c = fpn["layer"][0]["weight"].shape[0]
+    in_features = fc6["weight"].shape[1]
+    p = int(round((in_features // c) ** 0.5))
+    return {
+        "backbone": {
+            "vit": {
+                "cls_token": _np(vit["cls_token"]),
+                "patch_embed": _linear_to_jax(vit["patch_embed"]),
+                "pos_embed": _np(vit["pos_embed"]),
+                "layers": [_vit_layer_to_jax(layer) for layer in vit["layers"]],
+            },
+            "fpn": {
+                "inner": [_conv_to_jax(q) for q in fpn["inner"]],
+                "layer": [_conv_to_jax(q) for q in fpn["layer"]],
+            },
+        },
+        "rpn_head": {n: _conv_to_jax(params["rpn_head"][n]) for n in ("conv", "cls", "bbox")},
+        "box_head": {
+            "fc6": {
+                "kernel": _np(fc6["weight"]).T.reshape(p, p, c, -1),
+                "bias": _np(fc6["bias"]),
+            },
+            "fc7": _linear_to_jax(params["box_head"]["fc7"]),
+        },
+        "box_predictor": {
+            n: _linear_to_jax(params["box_predictor"][n]) for n in ("cls", "bbox")
         },
     }

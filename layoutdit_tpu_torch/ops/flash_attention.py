@@ -70,7 +70,15 @@ def flash_attention_fwd(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """-> (o [B, N, H, D], lse [B*H, N] fp32). bf16 q/k/v on the card
     (rows 16-byte aligned, as the fused QKV projection's slices are);
-    any float type on the CPU."""
+    any float type on the CPU. Forward only: the flash backward is not
+    ported, so inputs that require a gradient raise on every device."""
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (q, k, v, bias)
+    ):
+        raise NotImplementedError(
+            "flash_attention: the backward kernel is not ported yet; it runs "
+            "forward only (under torch.no_grad or inference_mode)"
+        )
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, bias, scale)
     if q.device.type != "cuda":

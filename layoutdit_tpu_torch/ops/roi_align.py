@@ -1,4 +1,5 @@
-"""Multiscale RoIAlign forward: CUDA kernel and its plain version.
+"""Multiscale RoIAlign, forward and backward: CUDA kernels and their plain
+versions.
 
 Port of ``layoutdit_tpu/ops/roi_align.py`` (``multiscale_roi_align``
 with its FPN level mapper) and of the Pallas forward in
@@ -8,7 +9,8 @@ with its FPN level mapper) and of the Pallas forward in
 clipped to the levels given; its P x P bins each average
 ``sampling_ratio^2`` bilinear samples.
 
-The kernel (``csrc/roi_align.cu``) replaces the Pallas ``_fwd_kernel``.
+The kernels (``csrc/roi_align.cu``) replace the Pallas ``_fwd_kernel``
+and ``_bwd_kernel``.
 The TPU kernel multiplies a level atlas by separable, level-masked weight
 matrices; the CUDA kernel samples the assigned level directly (one block
 per RoI, fp32 accumulation), the same function without the atlas, which
@@ -24,6 +26,13 @@ to bf16 and so sits a few bf16 roundings away from either.
 
 The vmap of the JAX version over images is written out: features are
 [B, C, H, W] and RoIs [B, K, 4].
+
+``multiscale_roi_align`` is differentiable with respect to the features
+only (``_RoIAlign``): the backward kernel scatters dout through the same
+taps with fp32 atomics, so its sum order, and the last bits of dF, change
+from run to run; its plain version is dF = sum_k Wy^T . dout . Wx over
+``build_roi_weights``. The RoIs get no gradient, as in the JAX package
+(stop-gradient proposals, zero cotangents for the weights).
 """
 
 from __future__ import annotations
@@ -37,6 +46,12 @@ from layoutdit_tpu_torch.ops.boxes import box_area
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p,
+]
+_BWD_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p,
@@ -136,12 +151,43 @@ def roi_align_plain(
     return out.to(features[0].dtype)
 
 
+def roi_align_bwd_plain(
+    dout: torch.Tensor,
+    rois: torch.Tensor,
+    levels: torch.Tensor,
+    features: list[torch.Tensor],
+    spatial_scales: list[float],
+    output_size: int = 7,
+    sampling_ratio: int = 2,
+) -> list[torch.Tensor]:
+    """dF per level [B, C, H_l, W_l] in the features' dtype from dout
+    [B, K, Px, Py, C]: dF = sum_k Wy^T . dout . Wx over
+    ``build_roi_weights``, level-masked, fp32 math. ``features`` give
+    only shapes and dtypes."""
+    b, k = rois.shape[:2]
+    p = output_size
+    g = dout.float()
+    grads = []
+    for li, (f, scale) in enumerate(zip(features, spatial_scales)):
+        wy, wx = build_roi_weights(
+            rois.reshape(-1, 4), scale, tuple(f.shape[-2:]), p, sampling_ratio
+        )
+        m = (levels.reshape(-1) == li).float()[:, None, None]
+        wy = (wy * m).reshape(b, k, p, -1)
+        wx = (wx * m).reshape(b, k, p, -1)
+        # dF[c, h, w] = sum_{k, px, py} wy[k, py, h] wx[k, px, w] dout[k, px, py, c]
+        t = torch.einsum("bkqw,bkqpc->bkpcw", wx, g)
+        grads.append(torch.einsum("bkph,bkpcw->bchw", wy, t).to(f.dtype))
+    return grads
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("roi_align")
-    fn = lib.roi_align_fwd
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+    if lib.roi_align_fwd.argtypes is None:
+        lib.roi_align_fwd.argtypes = _ARGTYPES
+        lib.roi_align_fwd.restype = ctypes.c_int
+        lib.roi_align_bwd.argtypes = _BWD_ARGTYPES
+        lib.roi_align_bwd.restype = ctypes.c_int
     return lib
 
 
@@ -193,6 +239,89 @@ def roi_align_fwd(
 roi_align_fwd.launches = 0
 
 
+def roi_align_bwd(
+    dout: torch.Tensor,
+    rois: torch.Tensor,
+    levels: torch.Tensor,
+    features: list[torch.Tensor],
+    spatial_scales: list[float],
+    output_size: int = 7,
+    sampling_ratio: int = 2,
+) -> list[torch.Tensor]:
+    """dF per level [B, C, H_l, W_l], each in its feature's dtype and
+    memory format: the kernel for CUDA tensors, the plain version for
+    CPU tensors. The kernel adds into one zeroed fp32 channels-last
+    scratch with atomics (see the source on determinism) and the result
+    is cast once."""
+    if rois.device.type == "cpu":
+        return roi_align_bwd_plain(
+            dout, rois, levels, features, spatial_scales, output_size, sampling_ratio
+        )
+    if rois.device.type != "cuda":
+        raise ValueError(f"roi_align_bwd: unsupported device {rois.device}")
+    b, k = rois.shape[:2]
+    c = features[0].shape[1]
+    p = output_size
+    if (dout.shape != (b, k, p, p, c) or dout.dtype != torch.bfloat16
+            or dout.device != rois.device):
+        raise ValueError(
+            f"roi_align_bwd: dout must be bf16 [{b}, {k}, {p}, {p}, {c}] on {rois.device}, "
+            f"got {dout.dtype} {tuple(dout.shape)} on {dout.device}"
+        )
+    for f in features:
+        if f.device != rois.device or f.shape[:2] != (b, c):
+            raise ValueError(f"roi_align_bwd: features must be [{b}, {c}, H, W] on {rois.device}")
+    sizes = [f.shape[-2] * f.shape[-1] for f in features]
+    scratch = torch.zeros(b * c * sum(sizes), dtype=torch.float32, device=rois.device)
+    parts, start = [], 0
+    for f, hw in zip(features, sizes):
+        parts.append(scratch[start:start + b * hw * c].view(b, f.shape[-2], f.shape[-1], c))
+        start += b * hw * c
+    n = len(features)
+    ptrs = (ctypes.c_void_p * n)(*[t.data_ptr() for t in parts])
+    hw = (ctypes.c_int * (2 * n))(*[s for f in features for s in f.shape[-2:]])
+    scales = (ctypes.c_float * n)(*spatial_scales)
+    rois_c = rois.float().contiguous()
+    levels_c = levels.to(torch.int32).contiguous()
+    dout_c = dout.contiguous()
+    lib = _lib()
+    code = lib.roi_align_bwd(
+        ptrs, hw, scales, n, rois_c.data_ptr(), levels_c.data_ptr(), dout_c.data_ptr(),
+        b * k, k, c, p, sampling_ratio, _build.stream_ptr(rois),
+    )
+    _build.check(lib, code, "roi_align_bwd")
+    roi_align_bwd.launches += 1
+    grads = []
+    for f, part in zip(features, parts):
+        df = torch.empty_like(f)
+        df.copy_(part.permute(0, 3, 1, 2))
+        grads.append(df)
+    return grads
+
+
+roi_align_bwd.launches = 0
+
+
+class _RoIAlign(torch.autograd.Function):
+    """Pooled = RoIAlign(features); the gradient flows to the features
+    only. RoIs and levels get none: the JAX package stop-gradients the
+    proposals and returns zero cotangents for the weights."""
+
+    @staticmethod
+    def forward(ctx, rois, levels, spatial_scales, output_size, sampling_ratio, *features):
+        # the features are saved for their shapes, dtypes and layouts only
+        # (the backward never reads them; the RPN convs keep them alive)
+        ctx.save_for_backward(rois, levels, *features)
+        ctx.args = (list(spatial_scales), output_size, sampling_ratio)
+        return roi_align_fwd(list(features), rois, levels, *ctx.args)
+
+    @staticmethod
+    def backward(ctx, dout):
+        rois, levels, *features = ctx.saved_tensors
+        grads = roi_align_bwd(dout, rois, levels, features, *ctx.args)
+        return (None, None, None, None, None, *grads)
+
+
 def multiscale_roi_align(
     features: list[torch.Tensor],
     rois: torch.Tensor,
@@ -214,11 +343,12 @@ def multiscale_roi_align(
     Returns: [B, K, C, P, P], or [B, K, P(x), P(y), C] when
     ``native_layout=True`` (the layout the box head consumes).
     """
+    rois = rois.detach()
     levels = roi_levels(
         rois, len(features), canonical_scale, canonical_level, roi_mask
     )
-    out = roi_align_fwd(
-        features, rois, levels, spatial_scales, output_size, sampling_ratio
+    out = _RoIAlign.apply(
+        rois, levels, tuple(spatial_scales), output_size, sampling_ratio, *features
     )
     if native_layout:
         return out

@@ -5,11 +5,11 @@ Builds the detector of a config at full width (random weights from
 serves each bucket's request again under ``torch.profiler`` and prints,
 per bucket, from the request's chrome trace: its wall time, the host
 time before the first device work (page decode, H2D), the device's busy
-time (union of kernel and copy intervals) and idle share, host time and
-device span of each detector stage (``detector_predict``'s
-``record_function`` ranges), the kernels that take the most device time,
-and the NMS host syncs. The last line is one JSON object with the same
-numbers.
+time (union of kernel and copy intervals) and idle share, host time,
+device span and device work launched of each detector stage
+(``detector_predict``'s ``record_function`` ranges), the kernels that
+take the most device time, and the NMS host syncs. The last line is one
+JSON object with the same numbers.
 
     python -m layoutdit_tpu_torch.tools.profile_serving \\
         [--config configs/serving_1024.json] [--buckets 224 1024] \\
@@ -61,19 +61,34 @@ def _union_ms(intervals: list[tuple[float, float]]) -> float:
     return total / 1e3
 
 
-def summarize_trace(trace: dict) -> dict:
-    """Stage and device times from a chrome trace of one request
-    (microsecond timestamps; categories as torch.profiler writes them)."""
+def summarize_trace(trace: dict, stages: tuple[str, ...] = STAGES) -> dict:
+    """Stage and device times from a chrome trace of one request (or one
+    train step, with its stage names); microsecond timestamps, categories
+    as torch.profiler writes them."""
     ev = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
     t0 = min(e["ts"] for e in ev)
     t1 = max(e["ts"] + e["dur"] for e in ev)
     work = [e for e in ev if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     busy = _union_ms([(e["ts"], e["ts"] + e["dur"]) for e in work])
-    stages = {}
+    # host time of each launch, by correlation id: a stage's device time is
+    # the work launched inside its host range, on any thread (autograd
+    # launches the backward's kernels from its own thread, outside the
+    # range's device-side annotation)
+    launched = {e["args"]["correlation"]: e["ts"] for e in ev
+                if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+    by_stage: dict[str, dict] = {}
     for e in ev:
-        if e["name"] in STAGES and e.get("cat") in ("user_annotation", "gpu_user_annotation"):
-            side = "host_ms" if e["cat"] == "user_annotation" else "device_span_ms"
-            stages.setdefault(e["name"], {})[side] = e["dur"] / 1e3
+        if e["name"] in stages and e.get("cat") in ("user_annotation", "gpu_user_annotation"):
+            st = by_stage.setdefault(e["name"], {})
+            if e["cat"] == "gpu_user_annotation":
+                st["device_span_ms"] = e["dur"] / 1e3
+                continue
+            st["host_ms"] = e["dur"] / 1e3
+            lo, hi = e["ts"], e["ts"] + e["dur"]
+            st["device_ms"] = sum(
+                w["dur"] for w in work
+                if lo <= launched.get(w.get("args", {}).get("correlation"), -1) <= hi
+            ) / 1e3
     by_name: dict[str, list[float]] = {}
     for e in work:
         by_name.setdefault(e["name"], []).append(e["dur"] / 1e3)
@@ -83,7 +98,7 @@ def summarize_trace(trace: dict) -> dict:
         "device_busy_ms": busy,
         "device_idle_share": 1.0 - busy * 1e3 / (t1 - t0),
         "host_before_device_ms": (min(e["ts"] for e in work) - t0) / 1e3,
-        "stages": stages,
+        "stages": by_stage,
         "top_kernels": [
             {"name": n[:90], "calls": len(d), "device_ms": sum(d)} for n, d in top
         ],
@@ -137,7 +152,8 @@ def main() -> None:
               f"idle share {r['device_idle_share']:.3f}, NMS host syncs {r['nms_host_syncs']}")
         for name, st in r["stages"].items():
             print(f"  stage {name}: host {st.get('host_ms', 0):.3f} ms, device span "
-                  f"{st.get('device_span_ms', 0):.3f} ms")
+                  f"{st.get('device_span_ms', 0):.3f} ms, device work launched "
+                  f"{st.get('device_ms', 0):.3f} ms")
         for k in r["top_kernels"]:
             print(f"  kernel {k['device_ms']:9.3f} ms  x{k['calls']:<5d} {k['name']}")
     print(json.dumps(out))

@@ -104,3 +104,64 @@ def test_flash_kernel_matches_plain(cuda, rng, with_bias):
     torch.cuda.synchronize()
     assert (got.float() - want.float()).abs().max() <= want.float().abs().max() / 64
     assert (lse - want_lse).abs().max() <= 1e-2
+
+
+@pytest.mark.parametrize("n", [7, 197])  # below and above 128: both pad in the Pallas kernel
+def test_short_bwd_plain_and_function_match_pallas(rng, n):
+    import jax
+
+    b, h, d = 2, 3, 64
+    q, k, v = _qkv(rng, b, n, h, d)
+    do = rng.standard_normal((b, n, h, d)).astype(np.float32)
+    o, vjp = jax.vjp(lambda *x: jax_short(*x, interpret=True), *map(jnp.asarray, (q, k, v)))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    np.testing.assert_allclose(
+        port_short.short_attention_plain(*map(torch.from_numpy, (q, k, v))).numpy(),
+        np.asarray(o), atol=TOL, rtol=TOL)
+    got = port_short.short_attention_bwd_plain(
+        *map(torch.from_numpy, (q, k, v, np.array(o), do)))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, atol=TOL, rtol=TOL)
+
+    # the autograd Function from the fused projection: its gradient is the
+    # three slices of one [B, N, 3*H*D] tensor
+    qkv = torch.from_numpy(np.concatenate([x.reshape(b, n, h * d) for x in (q, k, v)], -1))
+    qkv.requires_grad_(True)
+    ctx = port_short.short_attention_qkv(qkv, h)
+    (dqkv,) = torch.autograd.grad(ctx, qkv, torch.from_numpy(do))
+    for i, w in enumerate(want):
+        np.testing.assert_allclose(dqkv[..., i * h * d:(i + 1) * h * d].reshape(b, n, h, d)
+                                   .numpy(), w, atol=TOL, rtol=TOL)
+
+
+def test_gradient_through_flash_path_raises(rng):
+    from layoutdit_tpu_torch.models.vit import attention_core
+
+    qkv = torch.from_numpy(rng.standard_normal((1, 300, 3 * 32)).astype(np.float32))
+    with torch.no_grad():
+        assert attention_core(qkv, 2).shape == (1, 300, 2, 16)  # forward only is fine
+    qkv.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="flash backward"):
+        attention_core(qkv, 2)
+    q = qkv[..., :32].reshape(1, 300, 2, 16)
+    with pytest.raises(NotImplementedError, match="backward kernel is not ported"):
+        port_flash.flash_attention(q, q, q)
+    assert attention_core(qkv[:, :200], 2).requires_grad  # the short kernels have one
+
+
+@pytest.mark.cuda
+def test_short_bwd_kernel_matches_plain(cuda, rng):
+    b, n, h, d = 4, 197, 12, 64
+    qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * h * d)).astype(np.float32))
+    qkv = qkv.to(cuda, torch.bfloat16).requires_grad_(True)
+    do = torch.from_numpy(rng.standard_normal((b, n, h, d)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    ctx = port_short.short_attention_qkv(qkv, h)
+    before = port_short.short_attention_bwd.launches
+    (dqkv,) = torch.autograd.grad(ctx, qkv, do)
+    assert port_short.short_attention_bwd.launches == before + 1
+    q, k, v = port_short.split_qkv(qkv.detach(), h)
+    want = port_short.short_attention_bwd_plain(q, k, v, ctx.detach(), do)
+    torch.cuda.synchronize()
+    for got, w in zip(port_short.split_qkv(dqkv, h), want):
+        assert (got.float() - w.float()).abs().max() <= w.float().abs().max() / 64

@@ -84,3 +84,51 @@ def test_kernel_matches_plain(cuda, rng):
     want = port_roi.roi_align_plain(tf, rois, levels, SCALES)
     torch.cuda.synchronize()
     assert (got.float() - want.float()).abs().max() <= want.float().abs().max() / 64
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas_interpret"])
+def test_bwd_plain_matches_jax(rng, impl):
+    feats, boxes, mask = _setup(rng, k=48)
+    # RoIs on every level the 224 px mapper reaches (p2..p4), one of them
+    # larger than the image
+    boxes[:, 4:7] = [[10, 10, 150, 130], [0, 0, 224, 224], [-10, -10, 250, 240]]
+    mask[:, 4:7] = True
+    assert set(port_roi.roi_levels(torch.from_numpy(boxes), 5, 224.0).unique().tolist()) >= {0, 1, 2}
+    dout = rng.standard_normal((2, 48, 7, 7, 16)).astype(np.float32)
+    tf = [torch.from_numpy(f).requires_grad_(True) for f in feats]
+    rois = torch.from_numpy(boxes).requires_grad_(True)
+    out = port_roi.multiscale_roi_align(
+        tf, rois, SCALES, canonical_scale=224.0, roi_mask=torch.from_numpy(mask),
+        native_layout=True,
+    )
+    got = torch.autograd.grad(out, tf, torch.from_numpy(dout))
+    assert rois.grad is None and all(not t.grad_fn for t in got)
+    lv = port_roi.roi_levels(torch.from_numpy(boxes), 5, 224.0, roi_mask=torch.from_numpy(mask))
+    plain = port_roi.roi_align_bwd_plain(torch.from_numpy(dout), torch.from_numpy(boxes), lv,
+                                         tf, SCALES)
+    for i in range(2):
+        fn = functools.partial(jax_roi_align, spatial_scales=SCALES, canonical_scale=224.0,
+                               impl=impl, native_layout=True, roi_mask=jnp.asarray(mask[i]))
+        _, vjp = jax.vjp(lambda fs: fn(fs, jnp.asarray(boxes[i])), [jnp.asarray(f[i]) for f in feats])
+        (want,) = vjp(jnp.asarray(dout[i]))
+        for g, p, w in zip(got, plain, want):
+            np.testing.assert_allclose(g[i].numpy(), np.asarray(w), atol=TOL, rtol=TOL)
+            np.testing.assert_allclose(p[i].numpy(), np.asarray(w), atol=TOL, rtol=TOL)
+    assert all(float(g.abs().sum()) > 0 for g in got[:3])
+
+
+@pytest.mark.cuda
+def test_bwd_kernel_matches_plain(cuda, rng):
+    feats, boxes, mask = _setup(rng, b=4, k=512, c=256)
+    tf = [torch.from_numpy(f).to(cuda, torch.bfloat16) for f in feats]
+    rois, m = torch.from_numpy(boxes).to(cuda), torch.from_numpy(mask).to(cuda)
+    levels = port_roi.roi_levels(rois, 5, 224.0, roi_mask=m)
+    dout = torch.from_numpy(rng.standard_normal((4, 512, 7, 7, 256)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    got = port_roi.roi_align_bwd(dout, rois, levels, tf, SCALES)
+    want = port_roi.roi_align_bwd_plain(dout, rois, levels, tf, SCALES)
+    torch.cuda.synchronize()
+    for g, w, f in zip(got, want, tf):
+        assert g.dtype == f.dtype and g.stride() == f.stride()
+        # bf16 output; fp32 atomics reorder the sum from run to run
+        assert (g.float() - w.float()).abs().max() <= w.float().abs().max() / 64
