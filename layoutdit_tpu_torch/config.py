@@ -63,12 +63,14 @@ class DataLoaderConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Serving fields of ``constructs.py::ModelConfig``, same defaults.
+    """Serving and training fields of ``constructs.py::ModelConfig``,
+    same defaults.
 
     ``attention_impl`` and ``roi_impl`` pick implementations of one
     function in the JAX package; the port keeps them for the config
     files' sake and routes by sequence length on the card
-    (``models/vit.py``)."""
+    (``models/vit.py``). ``window_size`` and ``window_global_layers``
+    are the ViTDet windows of ``constructs.py:440-443``."""
 
     backbone_type: str = "dit"
     num_classes: int = 5
@@ -83,6 +85,8 @@ class ModelConfig:
     detection_budget: DetectionBudget = DetectionBudget()
     attention_impl: str = "auto"
     roi_impl: str = "xla"
+    window_size: int = 0
+    window_global_layers: tuple[int, ...] = ()
     vit_overrides: Optional[dict] = None
 
 
@@ -117,6 +121,10 @@ class TrainingConfig:
 # work it waits for, rather than silently trained without it.
 _LATER = "a later slice of the port"
 _WAITING = {
+    "detection_model_config": {
+        "remat": (False, "activation checkpointing of the encoder (" + _LATER + ")"),
+        "remat_policy": ("full", "activation checkpointing of the encoder (" + _LATER + ")"),
+    },
     "train_config": {
         "device": ("auto", "the port runs on the CUDA card (no device field)"),
         "async_checkpoint": (True, "asynchronous checkpoint writes (" + _LATER + ")"),
@@ -189,7 +197,7 @@ def load_config(path: str) -> tuple[ModelConfig, DataLoaderConfig]:
     with open(path) as f:
         raw = json.load(f)
     mc = _build(ModelConfig, raw.get("detection_model_config", {}),
-                "detection_model_config")
+                "detection_model_config", _WAITING["detection_model_config"])
     if mc.backbone_type != "dit":
         raise ValueError(
             f"backbone_type {mc.backbone_type!r}: the port serves dit-base only"
@@ -245,7 +253,8 @@ def run_config_from_dict(raw: dict) -> RunConfig:
             "mesh_config: not supported by the port yet; it waits for the "
             "multi-card slice (the port trains on one card)"
         )
-    mc = _build(ModelConfig, raw.get("detection_model_config", {}), "detection_model_config")
+    mc = _build(ModelConfig, raw.get("detection_model_config", {}), "detection_model_config",
+                _WAITING["detection_model_config"])
     if mc.backbone_type != "dit":
         raise ValueError(
             f"backbone_type {mc.backbone_type!r}: the port runs dit-base only"

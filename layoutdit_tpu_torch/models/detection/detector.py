@@ -86,7 +86,12 @@ class DetectorConfig:
                 f"vit_overrides.image_size={ov_size} conflicts with "
                 f"detection_model_config.image_size={mc.image_size}"
             )
+        if "global_attn_layers" in overrides:  # JSON carries a list
+            overrides["global_attn_layers"] = tuple(overrides["global_attn_layers"])
         vit_cfg = dataclasses.replace(vit_cfg, image_size=mc.image_size, **overrides)
+        if mc.window_size > 0:  # JAX detector.py:189-194
+            vit_cfg = dataclasses.replace(vit_cfg, window_size=mc.window_size,
+                                          global_attn_layers=tuple(mc.window_global_layers))
         return cls(
             backbone=BackboneConfig(vit=vit_cfg, fpn_out_channels=mc.fpn_out_channels),
             num_classes=mc.num_classes,

@@ -8,11 +8,18 @@ a fused QKV projection whose K part has no bias, layer scale, and
 ``hidden_states`` taps (0 = embedding output, i = output of layer i).
 
 Attention goes to the port's kernels: N <= 256 to the short kernel,
-longer sequences to the flash kernel (on the CPU both wrappers run
-their plain versions). That departs on purpose from the JAX package's
-XLA-below-2048-tokens routing, which was measured on a TPU. The
-projection and MLP matmuls stay ``torch`` matmuls, as the JAX package
-leaves them to XLA.
+longer sequences to the flash kernel, both differentiable (on the CPU
+both wrappers run their plain versions). That departs on purpose from
+the JAX package's XLA-below-2048-tokens routing, which was measured on a
+TPU. The projection and MLP matmuls stay ``torch`` matmuls, as the JAX
+package leaves them to XLA.
+
+ViTDet windows (``window_size`` > 0, ``vit.py:69-108, 192-293`` of the
+JAX package): layers other than the global ones attend within
+``window_size`` x ``window_size`` patch windows (ws^2 tokens each, the
+short kernel's range at ws 16) and the CLS token attends to itself alone;
+the global layers (by default the tap layers) attend over the whole
+grid.
 
 Precision policy as in the JAX package: parameters fp32, matmul inputs
 cast to ``compute_dtype``, LayerNorm/softmax/GELU statistics in fp32.
@@ -27,10 +34,14 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
-from layoutdit_tpu_torch.ops.flash_attention import flash_attention
+from layoutdit_tpu_torch.ops.flash_attention import flash_attention_qkv
 from layoutdit_tpu_torch.ops.interpolate import resize_bicubic
 from layoutdit_tpu_torch.ops.short_attention import MAX_N as SHORT_MAX_N
-from layoutdit_tpu_torch.ops.short_attention import short_attention_qkv, split_qkv
+from layoutdit_tpu_torch.ops.short_attention import (
+    short_attention_plain,
+    short_attention_qkv,
+    split_qkv,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +56,17 @@ class ViTConfig:
     layer_norm_eps: float = 1e-12
     layer_scale_init_value: float = 0.1
     initializer_range: float = 0.02
+    # ViTDet windows: 0 = full attention in every layer; W > 0 = W x W
+    # patch windows in the layers that are not global. global_attn_layers
+    # are 1-based; empty = the tap layers [L/3, L/2, 2L/3, L].
+    window_size: int = 0
+    global_attn_layers: tuple[int, ...] = ()
+
+    def is_global_layer(self, layer_idx_1based: int) -> bool:
+        if self.window_size <= 0:
+            return True
+        n = self.num_hidden_layers
+        return layer_idx_1based in (self.global_attn_layers or (n // 3, n // 2, 2 * n // 3, n))
 
     @property
     def grid_size(self) -> int:
@@ -129,28 +151,93 @@ def patchify(pixels: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(b, gh * gw, c * patch * patch)
 
 
-def attention_core(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+def attention_core(
+    qkv: torch.Tensor, heads: int, key_mask: torch.Tensor | None = None
+) -> torch.Tensor:
     """softmax(q k^T / sqrt(D)) v from the fused projection [B, N, 3*H*D]
-    -> [B, N, H, D]: the short kernels (differentiable) for N <= 256, the
-    flash forward kernel beyond. The flash backward is not ported, so a
-    gradient through N > 256 raises instead of taking a plain version."""
+    -> [B, N, H, D], differentiable: the short kernels for N <= 256, the
+    flash kernels beyond. ``key_mask`` [B, N] bool drops the False keys
+    from every softmax row (padded window slots); only the plain version
+    takes one, so a CUDA tensor with a mask raises."""
     scale = 1.0 / math.sqrt(qkv.shape[-1] // (3 * heads))
+    if key_mask is not None:
+        if qkv.device.type != "cpu":
+            raise NotImplementedError(
+                "windows over a grid the window size does not divide need a key mask in "
+                "the short-attention kernels, which they do not take yet (ROADMAP.md, "
+                "queue 1: a key mask in the short kernels); use a window size that "
+                "divides the patch grid"
+            )
+        return short_attention_plain(*split_qkv(qkv, heads), scale=scale, key_mask=key_mask)
     if qkv.shape[1] <= SHORT_MAX_N:
         return short_attention_qkv(qkv, heads, scale=scale)
-    if torch.is_grad_enabled() and qkv.requires_grad:
-        raise NotImplementedError(
-            f"attention over N={qkv.shape[1]} > {SHORT_MAX_N} tokens needs the flash "
-            "backward kernel, which is not ported yet; train at a size whose "
-            "token count fits the short kernel (224 px)"
-        )
-    return flash_attention(*split_qkv(qkv, heads), scale=scale)
+    return flash_attention_qkv(qkv, heads, scale=scale)
 
 
-def _attention(x: torch.Tensor, layer: dict, cfg: ViTConfig) -> torch.Tensor:
+def _attention(
+    x: torch.Tensor, layer: dict, cfg: ViTConfig, key_mask: torch.Tensor | None = None
+) -> torch.Tensor:
     b, n, d = x.shape
     qkv = _linear(x, layer["qkv"])  # [B, N, 3D]
-    ctx = attention_core(qkv, cfg.num_attention_heads)
+    ctx = attention_core(qkv, cfg.num_attention_heads, key_mask)
     return _linear(ctx.reshape(b, n, d), layer["attn_out"])
+
+
+def _window_partition(
+    tokens: torch.Tensor, gh: int, gw: int, ws: int
+) -> tuple[torch.Tensor, tuple[int, int, int, int]]:
+    """[B, gh*gw, D] -> [B*nh*nw, ws*ws, D], the grid zero-padded up to a
+    multiple of ws (JAX ``vit.py:192``)."""
+    b, _, d = tokens.shape
+    ph, pw = (-gh) % ws, (-gw) % ws
+    hp, wp = gh + ph, gw + pw
+    nh, nw = hp // ws, wp // ws
+    x = tokens.reshape(b, gh, gw, d)
+    if ph or pw:
+        x = F.pad(x, (0, 0, 0, pw, 0, ph))
+    x = x.reshape(b, nh, ws, nw, ws, d).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b * nh * nw, ws * ws, d), (hp, wp, nh, nw)
+
+
+def _window_merge(
+    xw: torch.Tensor, b: int, gh: int, gw: int, ws: int, dims: tuple[int, int, int, int]
+) -> torch.Tensor:
+    """Inverse of ``_window_partition``; crops the padding back off (JAX
+    ``vit.py:210``)."""
+    hp, wp, nh, nw = dims
+    d = xw.shape[-1]
+    x = xw.reshape(b, nh, nw, ws, ws, d).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, hp, wp, d)[:, :gh, :gw].reshape(b, gh * gw, d)
+
+
+def _window_key_mask(gh: int, gw: int, ws: int) -> torch.Tensor | None:
+    """[nh*nw, ws*ws] bool, True where a window slot holds a real token;
+    None when ws divides the grid (JAX ``vit.py:222``)."""
+    ph, pw = (-gh) % ws, (-gw) % ws
+    if not (ph or pw):
+        return None
+    valid = torch.zeros((gh + ph, gw + pw), dtype=torch.bool)
+    valid[:gh, :gw] = True
+    nh, nw = (gh + ph) // ws, (gw + pw) // ws
+    return valid.reshape(nh, ws, nw, ws).permute(0, 2, 1, 3).reshape(nh * nw, ws * ws)
+
+
+def _windowed_attention(
+    x: torch.Tensor, layer: dict, cfg: ViTConfig, gh: int, gw: int
+) -> torch.Tensor:
+    """Attention restricted to ws x ws patch windows (JAX ``vit.py:238``).
+    x is the post-LN [B, 1+gh*gw, D] stream. The CLS token is in no
+    window: it attends to itself alone (a 1-token sequence through the
+    same projections), and patch tokens do not see it. Padded window
+    slots are masked out of the softmax."""
+    b = x.shape[0]
+    ws = cfg.window_size
+    xw, dims = _window_partition(x[:, 1:], gh, gw, ws)
+    key_mask = _window_key_mask(gh, gw, ws)
+    if key_mask is not None:
+        key_mask = key_mask.to(x.device).repeat(b, 1)
+    merged = _window_merge(_attention(xw, layer, cfg, key_mask), b, gh, gw, ws, dims)
+    return torch.cat([_attention(x[:, :1], layer, cfg), merged], dim=1)
 
 
 def _pos_embed_for_grid(pos_embed: torch.Tensor, gh: int, gw: int) -> torch.Tensor:
@@ -168,9 +255,17 @@ def _pos_embed_for_grid(pos_embed: torch.Tensor, gh: int, gw: int) -> torch.Tens
     return torch.cat([pos_embed[:1], patch], dim=0)
 
 
-def encoder_block(x: torch.Tensor, layer: dict, cfg: ViTConfig) -> torch.Tensor:
-    """One pre-LN block: attention + MLP with BEiT layer scale."""
-    attn = _attention(_layer_norm(x, layer["ln1"], cfg.layer_norm_eps), layer, cfg)
+def encoder_block(
+    x: torch.Tensor, layer: dict, cfg: ViTConfig, window: tuple[int, int] | None = None
+) -> torch.Tensor:
+    """One pre-LN block: attention + MLP with BEiT layer scale.
+    ``window`` = the patch grid (gh, gw) restricts the attention to
+    ``cfg.window_size`` windows; None = full attention."""
+    x_ln = _layer_norm(x, layer["ln1"], cfg.layer_norm_eps)
+    if window is None:
+        attn = _attention(x_ln, layer, cfg)
+    else:
+        attn = _windowed_attention(x_ln, layer, cfg, *window)
     x = x + attn * layer["lambda_1"].to(attn.dtype)
     y = _layer_norm(x, layer["ln2"], cfg.layer_norm_eps)
     y = _linear(y, layer["mlp_in"])
@@ -188,7 +283,8 @@ def vit_forward(
 ) -> list[torch.Tensor]:
     """Run the encoder on normalized pixels [B, C, H, W] (H, W multiples
     of the patch size); return hidden states [B, 1+P, D] at ``taps``
-    (empty -> [final])."""
+    (empty -> [final]). Windows apply only where they are smaller than
+    the grid, so a window that covers it changes nothing."""
     taps = tuple(taps) or (cfg.num_hidden_layers,)
     _, _, img_h, img_w = pixels.shape
     gh, gw = img_h // cfg.patch_size, img_w // cfg.patch_size
@@ -198,11 +294,13 @@ def vit_forward(
     x = torch.cat([cls, x], dim=1)
     x = x + _pos_embed_for_grid(params["pos_embed"], gh, gw).to(compute_dtype)
 
+    win_active = 0 < cfg.window_size < max(gh, gw)
     collected: dict[int, torch.Tensor] = {}
     if 0 in taps:
         collected[0] = x
     for li, layer in enumerate(params["layers"], start=1):
-        x = encoder_block(x, layer, cfg)
+        windowed = win_active and not cfg.is_global_layer(li)
+        x = encoder_block(x, layer, cfg, (gh, gw) if windowed else None)
         if li in taps:
             collected[li] = x
     return [collected[t] for t in taps]

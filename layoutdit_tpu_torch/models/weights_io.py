@@ -77,9 +77,20 @@ def _vit_layer(layer: Mapping, device) -> dict:
     }
 
 
+def vit_params_from_jax(vit: Mapping, device="cpu") -> dict:
+    """JAX ``init_vit_params`` tree (numpy leaves) -> the port's encoder
+    params. Windows add no parameters; ``pos_embed`` is [1 + P, D] at the
+    configured grid (e.g. [4097, 768] at 1024 px)."""
+    return {
+        "cls_token": _t(vit["cls_token"], device),
+        "patch_embed": _linear(vit["patch_embed"], device),
+        "pos_embed": _t(vit["pos_embed"], device),
+        "layers": [_vit_layer(layer, device) for layer in vit["layers"]],
+    }
+
+
 def params_from_jax(tree: Mapping, device="cpu") -> dict:
     """JAX ``init_detector_params`` tree (numpy leaves) -> port params."""
-    vit = tree["backbone"]["vit"]
     fpn = tree["backbone"]["fpn"]
     fc6 = np.asarray(tree["box_head"]["fc6"]["kernel"])
     if fc6.ndim != 4:
@@ -87,12 +98,7 @@ def params_from_jax(tree: Mapping, device="cpu") -> dict:
     rep = fc6.shape[-1]
     return {
         "backbone": {
-            "vit": {
-                "cls_token": _t(vit["cls_token"], device),
-                "patch_embed": _linear(vit["patch_embed"], device),
-                "pos_embed": _t(vit["pos_embed"], device),
-                "layers": [_vit_layer(layer, device) for layer in vit["layers"]],
-            },
+            "vit": vit_params_from_jax(tree["backbone"]["vit"], device),
             "fpn": {
                 "inner": [_conv(p, device) for p in fpn["inner"]],
                 "layer": [_conv(p, device) for p in fpn["layer"]],
@@ -155,12 +161,22 @@ def _vit_layer_to_jax(layer: dict) -> dict:
     }
 
 
+def vit_params_to_jax(vit: dict) -> dict:
+    """The port's encoder params (or their gradients) -> the JAX
+    ``init_vit_params`` layout with numpy leaves."""
+    return {
+        "cls_token": _np(vit["cls_token"]),
+        "patch_embed": _linear_to_jax(vit["patch_embed"]),
+        "pos_embed": _np(vit["pos_embed"]),
+        "layers": [_vit_layer_to_jax(layer) for layer in vit["layers"]],
+    }
+
+
 def params_to_jax(params: dict) -> dict:
     """Port params (or a tree of their gradients, same layout) -> the
     JAX ``init_detector_params`` layout with numpy leaves: the inverse of
     ``params_from_jax``. The fused qkv's K-bias slot has no JAX
     counterpart and is dropped; fc6 goes back to [Px, Py, C, rep]."""
-    vit = params["backbone"]["vit"]
     fpn = params["backbone"]["fpn"]
     fc6 = params["box_head"]["fc6"]
     c = fpn["layer"][0]["weight"].shape[0]
@@ -168,12 +184,7 @@ def params_to_jax(params: dict) -> dict:
     p = int(round((in_features // c) ** 0.5))
     return {
         "backbone": {
-            "vit": {
-                "cls_token": _np(vit["cls_token"]),
-                "patch_embed": _linear_to_jax(vit["patch_embed"]),
-                "pos_embed": _np(vit["pos_embed"]),
-                "layers": [_vit_layer_to_jax(layer) for layer in vit["layers"]],
-            },
+            "vit": vit_params_to_jax(params["backbone"]["vit"]),
             "fpn": {
                 "inner": [_conv_to_jax(q) for q in fpn["inner"]],
                 "layer": [_conv_to_jax(q) for q in fpn["layer"]],

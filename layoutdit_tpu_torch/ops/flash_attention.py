@@ -1,17 +1,28 @@
-"""Blockwise flash attention forward: CUDA kernel and its plain version.
+"""Blockwise flash attention, forward and backward: CUDA kernels and their
+plain versions.
 
-Port of ``layoutdit_tpu/ops/flash_attention.py`` (forward only). The
-kernel (``csrc/flash_attention.cu``) replaces the Pallas ``_fwd_kernel``
-and ``_fwd_kernel_nobias`` (via ``_flash_fwd``): online softmax over
-64-key tiles with an optional additive bias [H, N, N], the ragged edge
-masked in the kernel, o and a per-row lse [B*H, N] out. It is bound by
-operations on the H100 (4*B*H*N^2*D FLOPs against O(N*D) bytes), so
-both products run on the tensor cores (mma.sync, bf16 in, fp32
-accumulate) with the online softmax in registers; see the source for
-the design.
+Port of ``layoutdit_tpu/ops/flash_attention.py``. The kernels
+(``csrc/flash_attention.cu``) replace the Pallas ``_fwd_kernel`` (:64)
+and ``_fwd_kernel_nobias`` (:180, via ``_flash_fwd`` :112): online
+softmax over 64-key tiles with an optional additive bias [H, N, N], the
+ragged edge masked in the kernel, o and a per-row lse [B*H, N] out; and
+``_bwd_dq_kernel`` / ``_bwd_dq_nobias`` (:253, :286) and
+``_bwd_dkdv_kernel`` / ``_bwd_dkdv_nobias`` (:217, :280, via
+``_flash_bwd`` :317): dQ sweeping the key tiles, dK and dV sweeping the
+query tiles, P recomputed from lse, no atomics. The plain backward has
+the algebra of the oracle ``_bwd_reference`` (:460). All are bound by
+operations on the H100, so every product runs on the tensor cores
+(mma.sync, bf16 in, fp32 accumulate); see the source for the design. The
+bias gradient (``_dbias_kernel``) is not ported: a bias that requires a
+gradient raises.
 
-``flash_attention`` launches the kernel for CUDA tensors and takes the
-plain version only for CPU tensors.
+``flash_attention_fwd`` and ``flash_attention_bwd`` launch the kernels
+for CUDA tensors and take the plain versions only for CPU tensors.
+``flash_attention_qkv`` is the differentiable entry point: a
+``torch.autograd.Function`` from the fused projection [B, N, 3*H*D] to
+the context [B, N, H, D], whose backward writes dq, dk and dv straight
+into one [B, N, 3*H*D] gradient; ``flash_attention`` is the same over
+separate q, k, v.
 """
 
 from __future__ import annotations
@@ -22,13 +33,32 @@ import math
 import torch
 
 from layoutdit_tpu_torch.ops import _build
+from layoutdit_tpu_torch.ops.short_attention import split_qkv
 
-HEAD_DIM = 64  # dit-base; the kernel is compiled for this width only
+HEAD_DIM = 64  # dit-base; the kernels are compiled for this width only
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 12
     + [ctypes.c_float, ctypes.c_void_p]
 )
+_BWD_ARGTYPES = (
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    + [ctypes.c_float, ctypes.c_void_p]
+)
+_DBIAS = (
+    "a bias that requires a gradient needs the flash dbias kernel "
+    "(_dbias_kernel, kernel-table row 6), which is not ported yet"
+)
+
+
+def _scale(q: torch.Tensor, scale: float | None) -> float:
+    return 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+
+
+def _scores(q, k, bias, scale) -> torch.Tensor:
+    """[B, H, N, N] fp32 scores q k^T * scale (+ bias)."""
+    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
+    return s if bias is None else s + bias.float()[None]
 
 
 def flash_attention_plain(
@@ -40,25 +70,82 @@ def flash_attention_plain(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """softmax(q k^T * scale + bias) v over [B, N, H, D] with fp32 math
     -> (o [B, N, H, D] in q.dtype, lse [B*H, N] fp32)."""
-    b, n, h, d = q.shape
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
-    if bias is not None:
-        s = s + bias.float()[None]
+    b, n, h, _ = q.shape
+    s = _scores(q, k, bias, _scale(q, scale))
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     o = torch.einsum("bhnm,bmhd->bnhd", p, v.float()).to(q.dtype)
     return o, lse.reshape(b * h, n)
 
 
+def flash_attention_bwd_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    bias: torch.Tensor | None = None,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) over [B, N, H, D] in fp32 math, out in q.dtype: the
+    algebra of the Pallas backward (and of its oracle ``_bwd_reference``),
+    P = exp(q k^T * scale + bias - lse), D = rowsum(dO o O),
+    dV = P^T dO, dS = P o (dO V^T - D), dQ = dS K s, dK = dS^T Q s."""
+    b, n, h, _ = q.shape
+    scale = _scale(q, scale)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    p = torch.exp(_scores(q, k, bias, scale) - lse.float().reshape(b, h, n, 1))
+    dv = torch.einsum("bhnm,bnhd->bmhd", p, dof)
+    dp = torch.einsum("bnhd,bmhd->bhnm", dof, vf)
+    delta = (dof * o.float()).sum(-1).permute(0, 2, 1)[..., None]  # [B, H, N, 1]
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds, kf) * scale
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
-    fn = lib.flash_attention_fwd
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+    if lib.flash_attention_fwd.argtypes is None:
+        lib.flash_attention_fwd.argtypes = _ARGTYPES
+        lib.flash_attention_fwd.restype = ctypes.c_int
+        for fn in (lib.flash_attention_bwd_dq, lib.flash_attention_bwd_dkdv):
+            fn.argtypes = _BWD_ARGTYPES
+            fn.restype = ctypes.c_int
     return lib
+
+
+def _check_rows(what: str, ref: torch.Tensor, **tensors: torch.Tensor) -> None:
+    """bf16 [B, N, H, D] like ``ref`` on its device, rows contiguous and
+    16-byte aligned (as the fused QKV projection's slices are)."""
+    d = ref.shape[-1]
+    if d != HEAD_DIM:
+        raise ValueError(f"{what}: head dim {d}, the kernels take {HEAD_DIM}")
+    for name, t in tensors.items():
+        if t.shape != ref.shape or t.dtype != torch.bfloat16 or t.device != ref.device:
+            raise ValueError(
+                f"{what}: {name} must be bf16 {tuple(ref.shape)} on "
+                f"{ref.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+        if t.stride(3) != 1 or t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+            raise ValueError(f"{what}: {name} rows must be contiguous and 16-byte aligned")
+
+
+def _check_bias(what: str, bias: torch.Tensor | None, ref: torch.Tensor):
+    """The bias as the kernels read it: fp32 [H, N, N] contiguous, or None."""
+    if bias is None:
+        return None
+    _, n, h, _ = ref.shape
+    if bias.shape != (h, n, n) or bias.device != ref.device:
+        raise ValueError(f"{what}: bias must be [{h}, {n}, {n}] on {ref.device}")
+    return bias.float().contiguous()
+
+
+def _check_lse(what: str, t: torch.Tensor, ref: torch.Tensor, name: str) -> None:
+    b, n, h, _ = ref.shape
+    if t.shape != (b * h, n) or t.dtype != torch.float32 or not t.is_contiguous():
+        raise ValueError(f"{what}: {name} must be contiguous fp32 [{b * h}, {n}]")
 
 
 def flash_attention_fwd(
@@ -70,40 +157,16 @@ def flash_attention_fwd(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """-> (o [B, N, H, D], lse [B*H, N] fp32). bf16 q/k/v on the card
     (rows 16-byte aligned, as the fused QKV projection's slices are);
-    any float type on the CPU. Forward only: the flash backward is not
-    ported, so inputs that require a gradient raise on every device."""
-    if torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in (q, k, v, bias)
-    ):
-        raise NotImplementedError(
-            "flash_attention: the backward kernel is not ported yet; it runs "
-            "forward only (under torch.no_grad or inference_mode)"
-        )
+    any float type on the CPU. Not differentiable by itself on the card:
+    ``flash_attention`` and ``flash_attention_qkv`` are."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, bias, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     b, n, h, d = q.shape
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    if d != HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim {d}, the kernel takes {HEAD_DIM}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.shape != q.shape or t.dtype != torch.bfloat16 or t.device != q.device:
-            raise ValueError(
-                f"flash_attention: {name} must be bf16 {tuple(q.shape)} on "
-                f"{q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
-            )
-        if t.stride(3) != 1 or t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
-            raise ValueError(
-                f"flash_attention: {name} rows must be contiguous and 16-byte aligned"
-            )
-    if bias is not None:
-        if bias.shape != (h, n, n) or bias.device != q.device:
-            raise ValueError(
-                f"flash_attention: bias must be [{h}, {n}, {n}] on {q.device}"
-            )
-        bias = bias.float().contiguous()
+    scale = _scale(q, scale)
+    _check_rows("flash_attention", q, q=q, k=k, v=v)
+    bias = _check_bias("flash_attention", bias, q)
     o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, n), dtype=torch.float32, device=q.device)
     lib = _lib()
@@ -122,6 +185,130 @@ def flash_attention_fwd(
 flash_attention_fwd.launches = 0
 
 
+def _strides(*tensors: torch.Tensor):
+    return (ctypes.c_longlong * (3 * len(tensors)))(*[s for t in tensors for s in t.stride()[:3]])
+
+
+def flash_attention_bwd_dq(q, k, v, o, lse, do, bias, scale, dq, delta) -> None:
+    """Launch the dq kernel of ``flash_attention_bwd``: writes dq (bf16
+    [B, N, H, D], any row strides) and delta = rowsum(dO o O) (fp32
+    [B*H, N], read by ``flash_attention_bwd_dkdv``). CUDA tensors as
+    ``flash_attention_bwd`` checks them; bias fp32 [H, N, N] or None."""
+    b, n, h, d = q.shape
+    _check_rows("flash_attention_bwd", q, q=q, k=k, v=v, o=o, do=do, dq=dq)
+    _check_lse("flash_attention_bwd", lse, q, "lse")
+    _check_lse("flash_attention_bwd", delta, q, "delta")
+    lib = _lib()
+    code = lib.flash_attention_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), None if bias is None else bias.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), b, n, h, d, _strides(q, k, v, o, do, dq), float(scale),
+        _build.stream_ptr(q),
+    )
+    _build.check(lib, code, "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkdv(q, k, v, lse, do, delta, bias, scale, dk, dv) -> None:
+    """Launch the dkdv kernel of ``flash_attention_bwd`` after the dq
+    kernel (it reads that kernel's delta): writes dk and dv."""
+    b, n, h, d = q.shape
+    _check_rows("flash_attention_bwd", q, q=q, k=k, v=v, do=do, dk=dk, dv=dv)
+    _check_lse("flash_attention_bwd", lse, q, "lse")
+    _check_lse("flash_attention_bwd", delta, q, "delta")
+    lib = _lib()
+    code = lib.flash_attention_bwd_dkdv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), None if bias is None else bias.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, n, h, d, _strides(q, k, v, do, dk, dv), float(scale),
+        _build.stream_ptr(q),
+    )
+    _build.check(lib, code, "flash_attention_bwd_dkdv")
+    flash_attention_bwd_dkdv.launches += 1
+
+
+flash_attention_bwd_dkdv.launches = 0
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    bias: torch.Tensor | None = None,
+    scale: float | None = None,
+    out: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of flash attention; [B, N, H, D] each, from the
+    forward's o and lse [B*H, N]. The bias [H, N, N] is a constant here
+    (its own gradient is not ported). On the card ``out`` may name three
+    bf16 [B, N, H, D] views to write into (the slices of a fused QKV
+    gradient); they are returned."""
+    if q.device.type == "cpu":
+        grads = flash_attention_bwd_plain(q, k, v, o, lse, do, bias, scale)
+        if out is None:
+            return grads
+        for dst, src in zip(out, grads):
+            dst.copy_(src)
+        return out
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
+    b, n, h, d = q.shape
+    scale = _scale(q, scale)
+    bias = _check_bias("flash_attention_bwd", bias, q)
+    if out is None:
+        out = tuple(torch.empty((b, n, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
+    dq, dk, dv = out
+    delta = torch.empty((b * h, n), dtype=torch.float32, device=q.device)
+    flash_attention_bwd_dq(q, k, v, o, lse, do, bias, scale, dq, delta)
+    flash_attention_bwd_dkdv(q, k, v, lse, do, delta, bias, scale, dk, dv)
+    return out
+
+
+def _check_bias_grad(bias: torch.Tensor | None) -> None:
+    if bias is not None and bias.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError(_DBIAS)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        o, lse = flash_attention_fwd(q, k, v, bias, scale)
+        ctx.save_for_backward(q, k, v, o, lse, bias)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, bias = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, o, lse, do.contiguous(), bias, ctx.scale),
+                None, None)
+
+
+class _FlashAttentionQKV(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, heads, scale, bias):
+        o, lse = flash_attention_fwd(*split_qkv(qkv, heads), bias, scale)
+        ctx.save_for_backward(qkv, o, lse, bias)
+        ctx.heads, ctx.scale = heads, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, o, lse, bias = ctx.saved_tensors
+        dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
+        flash_attention_bwd(
+            *split_qkv(qkv, ctx.heads), o, lse, do.contiguous(), bias, ctx.scale,
+            out=tuple(split_qkv(dqkv, ctx.heads)),
+        )
+        return dqkv, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -130,5 +317,23 @@ def flash_attention(
     scale: float | None = None,
 ) -> torch.Tensor:
     """Fused attention; [B, N, H, D] in and out, optional additive bias
-    [H, N, N]."""
-    return flash_attention_fwd(q, k, v, bias, scale)[0]
+    [H, N, N] (a constant: one that requires a gradient raises).
+    Differentiable in q, k and v."""
+    _check_bias_grad(bias)
+    return _FlashAttention.apply(q, k, v, bias, _scale(q, scale))
+
+
+def flash_attention_qkv(
+    qkv: torch.Tensor,
+    heads: int,
+    scale: float | None = None,
+    bias: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Differentiable flash attention from the fused projection
+    [B, N, 3*H*D] (rows [q | k | v]) to the context [B, N, H, D];
+    optional constant bias [H, N, N] (one that requires a gradient
+    raises)."""
+    _check_bias_grad(bias)
+    if scale is None:
+        scale = 1.0 / math.sqrt(qkv.shape[-1] // (3 * heads))
+    return _FlashAttentionQKV.apply(qkv, heads, scale, bias)

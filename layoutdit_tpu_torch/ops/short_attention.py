@@ -42,13 +42,21 @@ _BWD_ARGTYPES = (
 
 
 def short_attention_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: float | None = None,
+    key_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """softmax(q k^T * scale) v over [B, N, H, D], fp32 math, out in
-    q.dtype (the function of the Pallas kernel, without its padding)."""
+    q.dtype (the function of the Pallas kernel, without its padding).
+    ``key_mask`` [B, N] bool drops the False keys from every row, as the
+    JAX encoder's XLA path does for padded window slots (-inf scores)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
+    if key_mask is not None:
+        s = s.masked_fill(~key_mask[:, None, None, :], float("-inf"))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhnm,bmhd->bnhd", p, v.float()).to(q.dtype)
 

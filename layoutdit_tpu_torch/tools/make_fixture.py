@@ -10,6 +10,7 @@ quickly — which is exactly what end-to-end checks need.
 The drawing is numpy; the JPEG writing imports PIL when it runs.
 
 Usage: python -m layoutdit_tpu_torch.tools.make_fixture OUT_DIR [--n 16] [--split samples]
+           [--image-size 224]
 """
 
 from __future__ import annotations
@@ -178,11 +179,14 @@ def main():
     ap.add_argument("--n", type=int, default=16)
     ap.add_argument("--split", default="samples")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--image-size", type=int, default=224,
+                    help="page side in pixels (e.g. 1024 for the high-res train config)")
     ap.add_argument("--epochs", type=int, default=2)
     ap.add_argument("--batch-size", type=int, default=4)
     ap.add_argument("--tiny-model", action="store_true")
     args = ap.parse_args()
-    json_path = make_fixture(args.out_dir, args.n, args.split, seed=args.seed)
+    json_path = make_fixture(args.out_dir, args.n, args.split, image_size=args.image_size,
+                             seed=args.seed)
     cfg_path = write_fixture_config(
         args.out_dir, args.split, args.epochs, args.batch_size,
         tiny_model=args.tiny_model,

@@ -134,19 +134,112 @@ def test_short_bwd_plain_and_function_match_pallas(rng, n):
                                    .numpy(), w, atol=TOL, rtol=TOL)
 
 
+def _fused(b, n, h, d, *xs):
+    """[B, N, H, D] arrays -> one fused [B, N, 3*H*D] projection."""
+    return torch.from_numpy(np.concatenate([x.reshape(b, n, h * d) for x in xs], -1))
+
+
+@pytest.mark.parametrize("n", [130, 300])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_flash_bwd_plain_matches_pallas(rng, n, with_bias):
+    import jax
+
+    b, h, d = 2, 3, 32
+    q, k, v = _qkv(rng, b, n, h, d)
+    do = rng.standard_normal((b, n, h, d)).astype(np.float32)
+    bias = rng.standard_normal((h, n, n)).astype(np.float32) if with_bias else None
+    jb = None if bias is None else jnp.asarray(bias)
+    o, vjp = jax.vjp(lambda *x: jax_flash.flash_attention(*x, bias=jb, interpret=True),
+                     *map(jnp.asarray, (q, k, v)))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    tb = None if bias is None else torch.from_numpy(bias)
+    po, lse = port_flash.flash_attention_plain(*map(torch.from_numpy, (q, k, v)), bias=tb)
+    got = port_flash.flash_attention_bwd_plain(
+        *map(torch.from_numpy, (q, k, v)), po, lse, torch.from_numpy(do), tb)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, atol=TOL, rtol=TOL)
+
+    # the oracle of the Pallas backward, on [B*H, N, D] slices
+    to_bh = lambda x: jnp.asarray(x).transpose(0, 2, 1, 3).reshape(b * h, n, d)  # noqa: E731
+    ref = jax_flash._bwd_reference(to_bh(q), to_bh(k), to_bh(v), jb, 1.0 / np.sqrt(d),
+                                   to_bh(np.asarray(o)), to_bh(do), n)
+    for g, w in zip(got, ref[:3]):
+        w = np.asarray(w).reshape(b, h, n, d).transpose(0, 2, 1, 3)
+        np.testing.assert_allclose(g.numpy(), w, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("n", [130, 300])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_flash_qkv_gradient_matches_pallas(rng, n, with_bias):
+    """The autograd Function from the fused projection: its gradient is
+    the three slices of one [B, N, 3*H*D] tensor."""
+    import jax
+
+    b, h, d = 2, 3, 32
+    q, k, v = _qkv(rng, b, n, h, d)
+    do = rng.standard_normal((b, n, h, d)).astype(np.float32)
+    bias = rng.standard_normal((h, n, n)).astype(np.float32) if with_bias else None
+    jb = None if bias is None else jnp.asarray(bias)
+    o, vjp = jax.vjp(lambda *x: jax_flash.flash_attention(*x, bias=jb, interpret=True),
+                     *map(jnp.asarray, (q, k, v)))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    tb = None if bias is None else torch.from_numpy(bias)
+    qkv = _fused(b, n, h, d, q, k, v).requires_grad_(True)
+    ctx = port_flash.flash_attention_qkv(qkv, h, bias=tb)
+    np.testing.assert_allclose(ctx.detach().numpy(), np.asarray(o), atol=TOL, rtol=TOL)
+    (dqkv,) = torch.autograd.grad(ctx, qkv, torch.from_numpy(do))
+    for i, w in enumerate(want):
+        np.testing.assert_allclose(dqkv[..., i * h * d:(i + 1) * h * d].reshape(b, n, h, d)
+                                   .numpy(), w, atol=TOL, rtol=TOL)
+    # the same function over separate q, k, v
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    grads = torch.autograd.grad(port_flash.flash_attention(qt, kt, vt, bias=tb), (qt, kt, vt),
+                                torch.from_numpy(do))
+    for g, w in zip(grads, want):
+        np.testing.assert_allclose(g.numpy(), w, atol=TOL, rtol=TOL)
+
+
 def test_gradient_through_flash_path_raises(rng):
+    """attention_core gives gradients past 256 tokens (the flash route);
+    what still raises is a gradient asked of the bias, whose kernel
+    (dbias, kernel-table row 6) is not ported."""
     from layoutdit_tpu_torch.models.vit import attention_core
 
     qkv = torch.from_numpy(rng.standard_normal((1, 300, 3 * 32)).astype(np.float32))
     with torch.no_grad():
         assert attention_core(qkv, 2).shape == (1, 300, 2, 16)  # forward only is fine
     qkv.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="flash backward"):
-        attention_core(qkv, 2)
-    q = qkv[..., :32].reshape(1, 300, 2, 16)
-    with pytest.raises(NotImplementedError, match="backward kernel is not ported"):
-        port_flash.flash_attention(q, q, q)
-    assert attention_core(qkv[:, :200], 2).requires_grad  # the short kernels have one
+    ctx = attention_core(qkv, 2)
+    (g,) = torch.autograd.grad(ctx.sum(), qkv)
+    assert torch.isfinite(g).all() and g.abs().sum() > 0
+    assert attention_core(qkv[:, :200], 2).requires_grad  # the short kernels have one too
+    q = qkv.detach()[..., :32].reshape(1, 300, 2, 16)
+    bias = torch.zeros(2, 300, 300, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="row 6"):
+        port_flash.flash_attention(q, q, q, bias)
+    with pytest.raises(NotImplementedError, match="row 6"):
+        port_flash.flash_attention_qkv(qkv, 2, bias=bias)
+    with torch.no_grad():  # no gradient asked: the bias is a constant
+        port_flash.flash_attention(q, q, q, bias)
+
+
+def test_cpu_bwd_wrapper_takes_the_plain_version_and_fills_out(rng):
+    b, n, h, d = 1, 70, 2, 16
+    q, k, v, do = (torch.from_numpy(x) for x in _qkv(rng, b, n, h, d) + [
+        rng.standard_normal((b, n, h, d)).astype(np.float32)])
+    o, lse = port_flash.flash_attention_plain(q, k, v)
+    counters = (port_flash.flash_attention_bwd_dq, port_flash.flash_attention_bwd_dkdv)
+    before = [c.launches for c in counters]
+    dqkv = torch.empty(b, n, 3 * h * d)
+    out = tuple(port_short.split_qkv(dqkv, h))
+    got = port_flash.flash_attention_bwd(q, k, v, o, lse, do, out=out)
+    assert all(g is t for g, t in zip(got, out))
+    for g, w in zip(out, port_flash.flash_attention_bwd_plain(q, k, v, o, lse, do)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert [c.launches for c in counters] == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        m = torch.empty(1, 8, 2, 16, device="meta")
+        port_flash.flash_attention_bwd(m, m, m, m, m, m)
 
 
 @pytest.mark.cuda
@@ -165,3 +258,57 @@ def test_short_bwd_kernel_matches_plain(cuda, rng):
     torch.cuda.synchronize()
     for got, w in zip(port_short.split_qkv(dqkv, h), want):
         assert (got.float() - w.float()).abs().max() <= w.float().abs().max() / 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_flash_bwd_kernel_matches_plain(cuda, rng, with_bias):
+    """Both backward kernels against the plain version at a ragged N, q/k/v
+    and dq/dk/dv strided in fused [B, N, 3*H*D] tensors, through the
+    autograd Function; the gradients are the same bits on a second run
+    (no atomics)."""
+    b, n, h, d = 2, 600, 4, 64
+    qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * h * d)).astype(np.float32))
+    qkv = qkv.to(cuda, torch.bfloat16).requires_grad_(True)
+    do = torch.from_numpy(rng.standard_normal((b, n, h, d)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    bias = torch.randn(h, n, n, device=cuda) if with_bias else None
+    ctx = port_flash.flash_attention_qkv(qkv, h, bias=bias)
+    counters = (port_flash.flash_attention_bwd_dq, port_flash.flash_attention_bwd_dkdv)
+    before = [c.launches for c in counters]
+    (dqkv,) = torch.autograd.grad(ctx, qkv, do, retain_graph=True)
+    (again,) = torch.autograd.grad(ctx, qkv, do)
+    assert [c.launches - c0 for c, c0 in zip(counters, before)] == [2, 2]
+    q, k, v = port_short.split_qkv(qkv.detach(), h)
+    _, lse = port_flash.flash_attention_plain(q, k, v, bias)
+    want = port_flash.flash_attention_bwd_plain(q, k, v, ctx.detach(), lse, do, bias)
+    # the same kernels over separate q, k, v (the views' strides) give the same bits
+    views = [x.requires_grad_(True) for x in port_short.split_qkv(qkv.detach(), h)]
+    grads = torch.autograd.grad(port_flash.flash_attention(*views, bias), views, do)
+    torch.cuda.synchronize()
+    assert torch.equal(dqkv, again)
+    assert all(torch.equal(g, s) for g, s in zip(grads, port_short.split_qkv(dqkv, h)))
+    for got, w in zip(port_short.split_qkv(dqkv, h), want):
+        assert (got.float() - w.float()).abs().max() <= w.float().abs().max() / 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(64, 256), (4, 1)])  # 1024 px windows of 16x16; the CLS token
+def test_short_kernels_at_window_shapes(cuda, rng, b, n):
+    h, d = 12, 64
+    qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * h * d)).astype(np.float32))
+    qkv = qkv.to(cuda, torch.bfloat16).requires_grad_(True)
+    do = torch.from_numpy(rng.standard_normal((b, n, h, d)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    ctx = port_short.short_attention_qkv(qkv, h)
+    (dqkv,) = torch.autograd.grad(ctx, qkv, do)
+    q, k, v = port_short.split_qkv(qkv.detach(), h)
+    want_o = port_short.short_attention_plain(q, k, v)
+    want = port_short.short_attention_bwd_plain(q, k, v, ctx.detach(), do)
+    torch.cuda.synchronize()
+    assert (ctx.float() - want_o.float()).abs().max() <= want_o.float().abs().max() / 64
+    # at N=1 dq and dk are 0 in exact arithmetic (fp32 rounding noise of
+    # dO.v - dO.o on both sides): an absolute floor far below a bf16 ulp of dv
+    floor = 1e-4 if n == 1 else 0.0
+    for got, w in zip(port_short.split_qkv(dqkv, h), want):
+        assert (got.float() - w.float()).abs().max() <= max(w.float().abs().max() / 64, floor)

@@ -266,9 +266,26 @@ def test_port_imports_with_jax_blocked():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "print('imported', len(sys.modules))\n"
+        # and runs: a windowed encoder (layer 1: padded 4 x 4 windows and
+        # the CLS token; layer 2: global over 290 tokens, the flash route)
+        # forward and backward on the CPU
+        "import torch\n"
+        "from layoutdit_tpu_torch.models import vit, weights_io\n"
+        "cfg = vit.ViTConfig(hidden_size=32, num_hidden_layers=2, num_attention_heads=2,\n"
+        "                    intermediate_size=64, image_size=272, window_size=4,\n"
+        "                    global_attn_layers=(2,))\n"
+        "p = vit.init_vit_params(cfg, torch.Generator().manual_seed(0), 'cpu')\n"
+        "leaves = weights_io.tree_leaves(p)\n"
+        "for t in leaves:\n"
+        "    t.requires_grad_(True)\n"
+        "(out,) = vit.vit_forward(p, torch.randn(1, 3, 272, 272), cfg)\n"
+        "assert out.shape == (1, 290, 32)\n"
+        "out.square().sum().backward()\n"
+        "assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in leaves)\n"
+        "print('trained')\n"
     )
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert "imported" in out.stdout
+    assert "imported" in out.stdout and "trained" in out.stdout

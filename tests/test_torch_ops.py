@@ -199,9 +199,12 @@ def test_load_serving_config(tmp_path):
     assert dl.batch_size == jax_cfg.data_loader_config.batch_size == 4
 
     bad = tmp_path / "bad.json"
-    bad.write_text(json.dumps({"detection_model_config": {"window_size": 16}}))
-    with pytest.raises(ValueError, match="window_size"):
+    bad.write_text(json.dumps({"detection_model_config": {"with_mask": True}}))
+    with pytest.raises(ValueError, match="with_mask"):
         port_config.load_config(str(bad))
+    # windows are ported: the field loads
+    bad.write_text(json.dumps({"detection_model_config": {"window_size": 16}}))
+    assert port_config.load_config(str(bad))[0].window_size == 16
     bad.write_text(json.dumps({"detection_model_config": {"backbone_type": "dit-large"}}))
     with pytest.raises(ValueError, match="dit-base only"):
         port_config.load_config(str(bad))

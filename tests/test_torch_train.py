@@ -136,8 +136,17 @@ def _rel_frob(got, want):
 
 def test_detector_loss_grads_and_update_match_jax(models):
     jparams, jcfg, pcfg = models
-    images, gt_boxes, gt_labels, gt_valid = _batch()
+    assert_loss_grads_and_update_match(jparams, jcfg, pcfg, *_batch())
+
+
+def assert_loss_grads_and_update_match(jparams, jcfg, pcfg, images, gt_boxes, gt_labels,
+                                       gt_valid):
+    """The port's ``detector_loss`` against the JAX package's on the same
+    weights, batch and sampler draws: the four losses, every gradient
+    leaf (via ``params_to_jax``) and one AdamW update through each
+    package's optimizer."""
     rng = jax.random.PRNGKey(7)
+    b, g = gt_labels.shape
     (_, want), jgrads = _jax_loss_and_grads(jcfg)(jparams, rng, images, gt_boxes, gt_labels,
                                                   gt_valid)
 
@@ -146,7 +155,7 @@ def test_detector_loss_grads_and_update_match_jax(models):
     for t in leaves:
         t.requires_grad_(True)
     n_anchors = sum(h * w for h, w in pcfg.grid_sizes) * pcfg.num_anchors_per_cell
-    pri = _jax_priorities(rng, 2, n_anchors, BUDGET["rpn_post_nms_top_n_train"] + 4)
+    pri = _jax_priorities(rng, b, n_anchors, pcfg.budget.rpn_post_nms_top_n_train + g)
     got = port_det.detector_loss(params, _t(images), _t(gt_boxes), _t(gt_labels),
                                  _t(gt_valid), pcfg, pri)
     assert set(got) == set(want)
