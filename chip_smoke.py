@@ -19,8 +19,12 @@ batch whose loss must fall, and the encoder's gradients against a
 float32 CPU reference (phase ``train``), and does the same with the
 windowed high-res config ``configs/train_1024_window.json`` (dit-base,
 1024 px, batch 4, 16 x 16 windows, four global layers; phase
-``train_1024``). It checks that every kernel ran on its path, the right
-number of times a train step. It prints JSON lines for serving, training
+``train_1024``) and with its BEiT-layout variant
+``configs/train_1024_window_relpos.json`` (a relative-position table in
+every layer: every biased attention on the flash kernels, the bias
+gradient on the dbias kernel; phase ``train_1024_relpos``). It checks
+that every kernel ran on its path, the right number of times a train
+step. It prints JSON lines for serving, training
 and the kernels, the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the exit
 code is not 0. It imports nothing of JAX or of ``layoutdit_tpu``, and it
@@ -44,6 +48,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "serving_1024.json"
 TRAIN_1024_CONFIG = ROOT / "configs" / "train_1024_window.json"
+RELPOS_CONFIG = ROOT / "configs" / "train_1024_window_relpos.json"
 
 # NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit
 PEAK_BF16_FLOPS = 989e12
@@ -55,6 +60,12 @@ PEAK_BYTES_PER_S = 3.35e12
 # before the P V product): max |kernel - plain| <= max |plain| / 64,
 # i.e. a few bf16 roundings at the top of the output's range.
 BF16_REL_TOL = 1.0 / 64
+# dbias, fp32 out, kernel vs plain version: both form S and dP from the
+# same bf16 inputs in fp32 and keep dS in fp32, so they differ by fp32
+# summation order only (measured about 1e-6 of max |plain|). Its values
+# are heavy-tailed (max |plain| far above the mean, printed beside), so
+# the bf16 rule above would pass a tile wrong by a typical value.
+DBIAS_REL_TOL = 1e-4
 # absolute floor of the tolerance for gradients that are 0 in exact
 # arithmetic (the short backward's dq and dk at N=1)
 SINGLE_TOKEN_FLOOR = 1e-4
@@ -97,11 +108,11 @@ def _time_ms(fn, iters: int) -> float:
 
 
 def _check_close(name: str, got: torch.Tensor, want: torch.Tensor,
-                 floor: float = 0.0) -> tuple[float, float]:
+                 floor: float = 0.0, rel: float = BF16_REL_TOL) -> tuple[float, float]:
     """-> (max |got - want|, its tolerance); raises past the tolerance,
-    max |want| * BF16_REL_TOL or ``floor`` if that is larger."""
+    max |want| * ``rel`` or ``floor`` if that is larger."""
     err = (got.float() - want.float()).abs().max().item()
-    tol = max(want.float().abs().max().item() * BF16_REL_TOL, floor)
+    tol = max(want.float().abs().max().item() * rel, floor)
     print(f"  {name}: max_abs_err {err:.6g} (tolerance {tol:.6g})")
     if not err <= tol:
         raise RuntimeError(f"{name}: kernel disagrees with its plain version")
@@ -167,19 +178,10 @@ def phase_flash(gen) -> dict:
         raise RuntimeError("flash_attention: lse disagrees with its plain version")
     del o_ref, lse_ref
 
-    bias = 0.5 * torch.randn(h, n, n, generator=gen, device="cuda")
-    ob, _ = fa.flash_attention_fwd(q, k, v, bias)
-    bias_err, bias_tol = _check_close("flash_attention (bias)", ob,
-                                      fa.flash_attention_plain(q, k, v, bias)[0])
-
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    io_bytes = 4 * b * n * h * d * 2 + b * h * n * 4
-    flops = 4 * b * h * n * n * d
-    bound, by = _bound_ms(io_bytes, flops)
-    bias_bound, bias_by = _bound_ms(io_bytes + h * n * n * 4, flops)
-    mask = bias[None].to(torch.bfloat16)
-    return {
+    bound, by = _bound_ms(4 * b * n * h * d * 2 + b * h * n * 4, 4 * b * h * n * n * d)
+    entry = {
         "name": "flash_attention", "route": "cuda",
         "source": "layoutdit_tpu_torch/csrc/flash_attention.cu",
         "replaces": "layoutdit_tpu/ops/flash_attention.py:180",
@@ -190,11 +192,38 @@ def phase_flash(gen) -> dict:
         "bound_ms": bound, "bound_by": by,
         "library_ms": _time_ms(lambda: sdpa(qt, kt, vt), 10),
         "bias_replaces": "layoutdit_tpu/ops/flash_attention.py:64",
-        "bias_max_abs_err": bias_err, "bias_tolerance": bias_tol,
-        "bias_ms": _time_ms(lambda: fa.flash_attention_fwd(q, k, v, bias), 5),
-        "bias_plain_ms": _time_ms(lambda: fa.flash_attention_plain(q, k, v, bias), 2),
-        "bias_bound_ms": bias_bound, "bias_bound_by": bias_by,
-        "bias_library_ms": _time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask), 5),
+    }
+    # with a [12, N, N] bias: the rel-pos step's global layers (B=4 N=4097)
+    # and its 16 x 16 windows (B=64 N=256, one bias for all windows)
+    entry.update({f"bias_{k}": v for k, v in _flash_bias_fwd_case(gen, q, k, v, 5).items()})
+    wb, wn = WINDOW_SHAPES["w256"]
+    entry.update({f"w256_bias_{k}": v for k, v in
+                  _flash_bias_fwd_case(gen, *_qkv(gen, wb, wn, h, d), 20).items()})
+    return entry
+
+
+def _flash_bias_fwd_case(gen, q, k, v, iters: int) -> dict:
+    """The flash forward with a random [H, N, N] fp32 bias against its
+    plain version, timed beside SDPA with the bias as a bf16 attn_mask."""
+    from layoutdit_tpu_torch.ops import flash_attention as fa
+
+    b, n, h, d = q.shape
+    bias = 0.5 * torch.randn(h, n, n, generator=gen, device="cuda")
+    o, _ = fa.flash_attention_fwd(q, k, v, bias)
+    err, tol = _check_close(f"flash_attention (bias) B={b} N={n}", o,
+                            fa.flash_attention_plain(q, k, v, bias)[0])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = bias[None].to(torch.bfloat16)
+    bound, by = _bound_ms(4 * b * n * h * d * 2 + b * h * n * 4 + h * n * n * 4,
+                          4 * b * h * n * n * d)
+    return {
+        "shape": f"B={b} N={n} H={h} D={d} bf16, fp32 bias [{h}, {n}, {n}]",
+        "max_abs_err": err, "tolerance": tol,
+        "ms": _time_ms(lambda: fa.flash_attention_fwd(q, k, v, bias), iters),
+        "plain_ms": _time_ms(lambda: fa.flash_attention_plain(q, k, v, bias), 2),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": _time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask), iters),
     }
 
 
@@ -327,92 +356,145 @@ def phase_short_bwd(gen) -> dict:
     return entry
 
 
-def phase_flash_bwd(gen) -> list[dict]:
-    """Flash attention backward at the 1024 px train step's shape (B=4,
-    N=4097, H=12, D=64), with and without a [H, N, N] bias: q, k, v as
-    strided views of one fused projection, dq, dk, dv written into one
-    fused [B, N, 3*H*D] gradient, against the plain version on the same
-    bf16 inputs; a second run must give the same bits (no atomics). Each
-    of its two kernels is timed alone (dq first: it writes the delta the
-    dkdv kernel reads). The plain version and SDPA's backward compute
-    dq, dk and dv in one call, so their times stand beside the pair's."""
+def _flash_bwd_case(gen, b: int, n: int, with_bias: bool, h=12, d=64) -> dict:
+    """Flash attention backward at one shape: q, k, v as strided views of
+    one fused projection, dq, dk, dv written into one fused [B, N, 3*H*D]
+    gradient, and with a bias [H, N, N] its fp32 gradient, each against
+    the plain version on the same bf16 inputs; a second run must give the
+    same bits (no atomics). Each kernel is timed alone (dq first: it
+    writes the delta the others read). The plain version computes every
+    gradient in one call; so does SDPA's backward, the yardstick, timed
+    with the bias as a constant attn_mask and, for dbias, as one that
+    requires a gradient."""
     from layoutdit_tpu_torch.ops import flash_attention as fa
     from layoutdit_tpu_torch.ops import short_attention as sa
 
-    b, n, h, d = 4, 4097, 12, 64
     scale = 1.0 / math.sqrt(d)
     q, k, v = _qkv(gen, b, n, h, d)
     do = torch.randn(b, n, h, d, generator=gen, device="cuda").to(torch.bfloat16)
     dqkv = torch.empty(b, n, 3 * h * d, dtype=torch.bfloat16, device="cuda")
     again = torch.empty_like(dqkv)
     out = tuple(sa.split_qkv(dqkv, h))
-    bias = 0.5 * torch.randn(h, n, n, generator=gen, device="cuda")
-    res = {}
-    for key, bb in (("", None), ("bias_", bias)):
-        o, lse = fa.flash_attention_fwd(q, k, v, bb)
-        fa.flash_attention_bwd(q, k, v, o, lse, do, bb, out=out)
-        fa.flash_attention_bwd(q, k, v, o, lse, do, bb, out=tuple(sa.split_qkv(again, h)))
-        want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, bb)
-        label = "flash_attention_bwd" + (" (bias)" if bb is not None else "")
-        errs = {name: _check_close(f"{label} {name}", g, w)
-                for name, g, w in zip(("dq", "dk", "dv"), out, want)}
-        del want
-        if not torch.equal(dqkv, again):
-            raise RuntimeError(f"{label}: two runs gave different gradients")
-        delta = torch.empty(b * h, n, dtype=torch.float32, device="cuda")
-        dq, dk, dv = out
-        res[key + "dq"] = (errs["dq"], _time_ms(
-            lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do, bb, scale, dq, delta), 5))
-        res[key + "dkdv"] = (max(errs["dk"], errs["dv"]), _time_ms(
-            lambda: fa.flash_attention_bwd_dkdv(q, k, v, lse, do, delta, bb, scale, dk, dv), 5))
-        res[key + "plain"] = _time_ms(
-            lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do, bb), 2)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
+    bias = 0.5 * torch.randn(h, n, n, generator=gen, device="cuda") if with_bias else None
+    o, lse = fa.flash_attention_fwd(q, k, v, bias)
+    dbias = fa.flash_attention_bwd(q, k, v, o, lse, do, bias, out=out, bias_grad=with_bias)[3]
+    dbias2 = fa.flash_attention_bwd(q, k, v, o, lse, do, bias, out=tuple(sa.split_qkv(again, h)),
+                                    bias_grad=with_bias)[3]
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, bias)
+    label = f"flash_attention_bwd B={b} N={n}" + (" (bias)" if with_bias else "")
+    errs = {name: _check_close(f"{label} {name}", g, w)
+            for name, g, w in zip(("dq", "dk", "dv"), out, want)}
+    if with_bias:
+        errs["dbias"] = _check_close(f"{label} dbias", dbias, want[3], rel=DBIAS_REL_TOL)
+        fro = ((dbias - want[3]).norm() / want[3].norm()).item()
+        print(f"    mean |plain| {want[3].abs().mean().item():.6g}, relative Frobenius {fro:.6g}")
+    del want
+    if not (torch.equal(dqkv, again) and (not with_bias or torch.equal(dbias, dbias2))):
+        raise RuntimeError(f"{label}: two runs gave different gradients")
+    del dbias2
+    delta = torch.empty(b * h, n, dtype=torch.float32, device="cuda")
+    dq, dk, dv = out
+    res = {
+        "dq": (errs["dq"], _time_ms(
+            lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do, bias, scale, dq, delta), 5)),
+        "dkdv": (max(errs["dk"], errs["dv"]), _time_ms(
+            lambda: fa.flash_attention_bwd_dkdv(q, k, v, lse, do, delta, bias, scale, dk, dv),
+            5)),
+        "plain": _time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do, bias), 2),
+    }
+    if with_bias:
+        res["dbias"] = (errs["dbias"], _time_ms(
+            lambda: fa.flash_attention_bwd_dbias(q, k, v, lse, do, delta, bias, scale, dbias),
+            5))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dot = do.transpose(1, 2)
+    masks = {"library": None if bias is None else bias[None].to(torch.bfloat16)}
+    if with_bias:
+        masks["library_dbias"] = masks["library"].clone().requires_grad_(True)
+    for key, mask in masks.items():
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-        ot = sdpa(qt, kt, vt, attn_mask=None if bb is None else bb[None].to(torch.bfloat16))
-        res[key + "library"] = _time_ms(
-            lambda: torch.autograd.grad(ot, (qt, kt, vt), do.transpose(1, 2), retain_graph=True),
-            5)
-        del ot, qt, kt, vt, o, lse
-        torch.cuda.empty_cache()
+        ot = sdpa(qt, kt, vt, attn_mask=mask)
+        wrt = (qt, kt, vt) if mask is None or not mask.requires_grad else (qt, kt, vt, mask)
+        res[key] = _time_ms(lambda: torch.autograd.grad(ot, wrt, dot, retain_graph=True), 5)
+        del ot, qt, kt, vt
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_flash_bwd(gen) -> list[dict]:
+    """The flash backward kernels at the 1024 px train steps' shapes: the
+    global layers (B=4, N=4097, H=12, D=64) without and with a bias, and
+    the rel-pos step's 16 x 16 windows (B=64, N=256) with one (each
+    ``_flash_bwd_case``): rows dkdv, dq and dbias of the kernel table."""
+    b, n, h, d = 4, 4097, 12, 64
+    res = {"": _flash_bwd_case(gen, b, n, False), "bias_": _flash_bwd_case(gen, b, n, True)}
+    wb, wn = WINDOW_SHAPES["w256"]
+    res["w256_bias_"] = _flash_bwd_case(gen, wb, wn, True)
     print("  flash_attention_bwd: two runs gave the same bits, with and without bias")
 
-    row = b * n * h * d * 2  # one bf16 [B, N, H, D] tensor
-    vec = b * h * n * 4  # one fp32 [B*H, N] vector
-    bias_bytes = h * n * n * 4
-    flops = 2 * b * h * n * n * d  # one N x N x D product over all heads
-    # dq: S, dP and dQ from q, k, v, o, dO, lse; out dq and delta.
-    # dkdv: S, dP, dV and dK from q, k, v, dO, lse, delta; out dk and dv.
-    work = {"dq": (6 * row + 2 * vec, 3 * flops), "dkdv": (6 * row + 2 * vec, 4 * flops)}
-    pair_bound, pair_by = _bound_ms(8 * row + vec, 5 * flops)
-    pair_bias_bound, pair_bias_by = _bound_ms(8 * row + vec + bias_bytes, 5 * flops)
+    def work(b, n):
+        """(bytes, operations) of each kernel and of the whole backward at
+        one shape, without the bias's bytes; the bias [H, N, N] fp32."""
+        row = b * n * h * d * 2  # one bf16 [B, N, H, D] tensor
+        vec = b * h * n * 4  # one fp32 [B*H, N] vector
+        flops = 2 * b * h * n * n * d  # one N x N x D product over all heads
+        # dq: S, dP and dQ from q, k, v, o, dO, lse; out dq and delta.
+        # dkdv: S, dP, dV and dK from q, k, v, dO, lse, delta; out dk and dv.
+        # dbias: S and dP from q, k, v, dO, lse, delta; out dbias (the bias
+        # read and dbias written counted by the caller).
+        return {"dq": (6 * row + 2 * vec, 3 * flops), "dkdv": (6 * row + 2 * vec, 4 * flops),
+                "dbias": (4 * row + 2 * vec, 2 * flops),
+                "pair": (8 * row + vec, 5 * flops)}, h * n * n * 4
+
     entries = []
     # (no-bias kernel body, bias kernel body) lines in the JAX source
     for part, (line, bias_line) in (("dkdv", (280, 217)), ("dq", (286, 253))):
-        nbytes, ops = work[part]
-        bound, by = _bound_ms(nbytes, ops)
-        bias_bound, bias_by = _bound_ms(nbytes + bias_bytes, ops)
-        (err, tol), ms = res[part]
-        (bias_err, bias_tol), bias_ms = res["bias_" + part]
-        entries.append({
+        entry = {
             "name": f"flash_attention_bwd_{part}", "route": "cuda",
             "source": "layoutdit_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"layoutdit_tpu/ops/flash_attention.py:{line}",
-            "shape": f"B={b} N={n} H={h} D={d} bf16, no bias, q/k/v and dq/dk/dv strided in "
-                     "fused [B, N, 3HD]",
-            "max_abs_err": err, "tolerance": tol, "ms": ms,
-            "plain_ms": res["plain"], "bound_ms": bound, "bound_by": by,
-            "library_ms": res["library"],
-            "plain_and_library_compute": "dq, dk and dv in one call (compare with pair_ms)",
-            "pair_ms": res["dq"][1] + res["dkdv"][1],
-            "pair_bound_ms": pair_bound, "pair_bound_by": pair_by,
             "bias_replaces": f"layoutdit_tpu/ops/flash_attention.py:{bias_line}",
-            "bias_max_abs_err": bias_err, "bias_tolerance": bias_tol, "bias_ms": bias_ms,
-            "bias_plain_ms": res["bias_plain"], "bias_bound_ms": bias_bound,
-            "bias_bound_by": bias_by, "bias_library_ms": res["bias_library"],
-            "bias_pair_ms": res["bias_dq"][1] + res["bias_dkdv"][1],
-            "bias_pair_bound_ms": pair_bias_bound, "bias_pair_bound_by": pair_bias_by,
+            "plain_and_library_compute": "every gradient in one call (compare with pair_ms)",
+        }
+        for key, bb, nn in (("", b, n), ("bias_", b, n), ("w256_bias_", wb, wn)):
+            w, bias_bytes = work(bb, nn)
+            if not key:
+                bias_bytes = 0
+            (err, tol), ms = res[key][part]
+            bound, by = _bound_ms(w[part][0] + bias_bytes, w[part][1])
+            pair_bound, pair_by = _bound_ms(w["pair"][0] + bias_bytes, w["pair"][1])
+            entry.update({
+                f"{key}shape": f"B={bb} N={nn} H={h} D={d} bf16"
+                               + (f", fp32 bias [{h}, {nn}, {nn}]" if key else ", no bias")
+                               + ", q/k/v and dq/dk/dv strided in fused [B, N, 3HD]",
+                f"{key}max_abs_err": err, f"{key}tolerance": tol, f"{key}ms": ms,
+                f"{key}plain_ms": res[key]["plain"], f"{key}bound_ms": bound,
+                f"{key}bound_by": by, f"{key}library_ms": res[key]["library"],
+                f"{key}pair_ms": res[key]["dq"][1] + res[key]["dkdv"][1],
+                f"{key}pair_bound_ms": pair_bound, f"{key}pair_bound_by": pair_by,
+            })
+        entries.append(entry)
+
+    entry = {
+        "name": "flash_attention_bwd_dbias", "route": "cuda",
+        "source": "layoutdit_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "layoutdit_tpu/ops/flash_attention.py:292",
+        "plain_and_library_compute": "every gradient in one call, the bias's included",
+    }
+    for key, bb, nn in (("", b, n), ("w256_", wb, wn)):
+        w, bias_bytes = work(bb, nn)
+        r = res[key + "bias_"]
+        (err, tol), ms = r["dbias"]
+        # the bias read once and dbias written once
+        bound, by = _bound_ms(w["dbias"][0] + 2 * bias_bytes, w["dbias"][1])
+        entry.update({
+            f"{key}shape": f"B={bb} N={nn} H={h} D={d} bf16, fp32 bias and dbias [{h}, {nn}, "
+                           f"{nn}]",
+            f"{key}max_abs_err": err, f"{key}tolerance": tol, f"{key}ms": ms,
+            f"{key}plain_ms": r["plain"], f"{key}bound_ms": bound, f"{key}bound_by": by,
+            f"{key}library_ms": r["library_dbias"],
         })
+    entries.append(entry)
     return entries
 
 
@@ -484,6 +566,7 @@ def _counters():
         "flash_attention": fa.flash_attention_fwd,
         "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
         "flash_attention_bwd_dkdv": fa.flash_attention_bwd_dkdv,
+        "flash_attention_bwd_dbias": fa.flash_attention_bwd_dbias,
         "roi_align": ra.roi_align_fwd,
         "roi_align_bwd": ra.roi_align_bwd,
     }
@@ -554,7 +637,9 @@ def _gradient_reference(backbone_params: dict, cfg, images: torch.Tensor) -> dic
     (no sampling involved): bf16 with the kernels on the card against
     float32 plain versions on the CPU, same weights, for the patch
     embedding, layer 1's qkv, the first global layer's qkv when windows
-    are on (layer 1 is then windowed), and the last layer's mlp_out."""
+    are on (layer 1 is then windowed), the last layer's mlp_out, and the
+    relative-position tables of the same layers where the encoder has
+    them."""
     from layoutdit_tpu_torch.models.backbone import backbone_forward
     from layoutdit_tpu_torch.models.detection.detector import _normalize
     from layoutdit_tpu_torch.models.weights_io import tree_map
@@ -564,14 +649,17 @@ def _gradient_reference(backbone_params: dict, cfg, images: torch.Tensor) -> dic
     if vit_cfg.window_size > 0:
         layers.append(next(i for i in range(1, vit_cfg.num_hidden_layers + 1)
                            if vit_cfg.is_global_layer(i)))
+    tables = layers if vit_cfg.use_relative_position_bias else []
     names = (["patch_embed"] + [f"layer {i} qkv" for i in layers]
-             + [f"layer {vit_cfg.num_hidden_layers} mlp_out"])
+             + [f"layer {vit_cfg.num_hidden_layers} mlp_out"]
+             + [f"layer {i} rel_pos_table" for i in tables])
 
     def grads(p, x, dtype, cots):
         vit = p["vit"]
         wanted = ([vit["patch_embed"]["weight"]]
                   + [vit["layers"][i - 1]["qkv"]["weight"] for i in layers]
-                  + [vit["layers"][-1]["mlp_out"]["weight"]])
+                  + [vit["layers"][-1]["mlp_out"]["weight"]]
+                  + [vit["layers"][i - 1]["rel_pos_table"] for i in tables])
         feats = backbone_forward(p, x.to(dtype), cfg.backbone, compute_dtype=dtype)
         total = sum((f.float() * c).sum() for f, c in zip(feats, cots))
         return torch.autograd.grad(total, wanted)
@@ -599,8 +687,12 @@ def _gradient_reference(backbone_params: dict, cfg, images: torch.Tensor) -> dic
 def _launches_per_step(cfg) -> dict:
     """Kernel launches one train step makes, from the config: per encoder
     layer one short or one flash attention (N = grid^2 + 1 tokens), or,
-    in a windowed layer, two short ones (the windows and the CLS token),
-    each with its backward; one RoIAlign forward and backward."""
+    in a windowed layer, two attentions (the windows and the CLS token),
+    each with its backward; one RoIAlign forward and backward. Without a
+    relative-position bias the short kernels take N <= 256 (windows
+    included) and the flash kernels longer sequences; with one, every
+    attention but the CLS token's carries a bias and goes to the flash
+    kernels, whose backward then adds the dbias kernel."""
     from layoutdit_tpu_torch.ops.short_attention import MAX_N as SHORT_MAX_N
 
     vit = cfg.backbone.vit
@@ -608,24 +700,29 @@ def _launches_per_step(cfg) -> dict:
     windowed = sum(0 < vit.window_size < g and not vit.is_global_layer(i)
                    for i in range(1, vit.num_hidden_layers + 1))
     full = vit.num_hidden_layers - windowed
-    flash = full if g * g + 1 > SHORT_MAX_N else 0
-    short = full - flash + 2 * windowed
-    if windowed and vit.window_size ** 2 > SHORT_MAX_N:
-        raise RuntimeError("a window is longer than the short kernel takes")
+    if vit.use_relative_position_bias or vit.use_shared_relative_position_bias:
+        flash = dbias = full + windowed
+        short = windowed
+    else:
+        flash, dbias = (full if g * g + 1 > SHORT_MAX_N else 0), 0
+        short = full - flash + 2 * windowed
+        if windowed and vit.window_size ** 2 > SHORT_MAX_N:
+            raise RuntimeError("a window is longer than the short kernel takes")
     return {"short_attention": short, "short_attention_bwd": short, "flash_attention": flash,
             "flash_attention_bwd_dq": flash, "flash_attention_bwd_dkdv": flash,
-            "roi_align": 1, "roi_align_bwd": 1}
+            "flash_attention_bwd_dbias": dbias, "roi_align": 1, "roi_align_bwd": 1}
 
 
 def _train_run(label: str, base, kernels: list[dict], grad_images: int,
-               check_taps: bool) -> dict:
+               check_taps: bool, table_std: float = 0.0) -> dict:
     """A training config at full width (bf16 over fp32 masters, random
-    weights from seed 0) through ``Trainer(config, model).train()`` for
-    one epoch over synthetic pages at its image size in a temp dir, then
-    ``TRAIN_REPEATS`` steps on one repeated batch (timed, losses finite
-    and falling), launch counts per step as the config implies, and the
-    encoder's gradients (and, with ``check_taps``, its taps) against a
-    float32 CPU reference."""
+    weights from seed 0; relative-position tables, which initialise to
+    zero, drawn with std ``table_std`` from seed 1) through
+    ``Trainer(config, model).train()`` for one epoch over synthetic pages
+    at its image size in a temp dir, then ``TRAIN_REPEATS`` steps on one
+    repeated batch (timed, losses finite and falling), launch counts per
+    step as the config implies, and the encoder's gradients (and, with
+    ``check_taps``, its taps) against a float32 CPU reference."""
     from layoutdit_tpu_torch.models.detection.detector import (
         DetectorConfig,
         DetectorModel,
@@ -647,12 +744,23 @@ def _train_run(label: str, base, kernels: list[dict], grad_images: int,
                      image_size=rc.model.image_size)
         cfg = DetectorConfig.from_model_config(rc.model, precision_dtype=rc.compute_dtype)
         gen = torch.Generator(device="cuda").manual_seed(0)
-        model = DetectorModel(init_detector(cfg, gen, device="cuda"), cfg)
+        params = init_detector(cfg, gen, device="cuda")
+        if table_std:  # so that the bias shapes every softmax
+            tgen = torch.Generator(device="cuda").manual_seed(1)
+            for layer in params["backbone"]["vit"]["layers"]:
+                t = layer["rel_pos_table"]
+                t.copy_(table_std * torch.randn(t.shape, generator=tgen, device="cuda"))
+        model = DetectorModel(params, cfg)
         trainer = Trainer(rc, model)
         vit = cfg.backbone.vit
         windows = (f", {vit.window_size} x {vit.window_size} windows, global layers "
                    f"{[i for i in range(1, vit.num_hidden_layers + 1) if vit.is_global_layer(i)]}"
                    if vit.window_size else "")
+        if vit.use_relative_position_bias:
+            shape = list(params["backbone"]["vit"]["layers"][0]["rel_pos_table"].shape)
+            windows += (f", a relative-position table {shape} per layer (std {table_std}), "
+                        f"absolute position embeddings "
+                        f"{'on' if vit.use_absolute_position_embeddings else 'off'}")
         print(f"  dit-base Faster R-CNN, hidden {vit.hidden_size}, {vit.num_hidden_layers} "
               f"layers, {vit.num_attention_heads} heads, MLP {vit.intermediate_size}, image "
               f"{cfg.image_size} px, batch {b}, {rc.compute_dtype} over fp32 parameters, "
@@ -753,6 +861,77 @@ def phase_train_1024(kernels: list[dict]) -> dict:
                       "bf16 over fp32", **out}
 
 
+def _table_gradient(vit, device="cuda") -> dict:
+    """The gradient of a relative-position table, the backward of its
+    gather: one layer's fp32 [H, N, N] dbias summed into the [entries, H]
+    table per offset, at the global layers' index (N = 4097 at 1024 px)
+    and at a window's (N = 256). The port's backward (``_rel_table_grad``:
+    sums over diagonal bands) must give the same bits twice and agree with
+    the scatter it was chosen over, timed beside it: autograd's backward
+    of the plain gather, ``index_put_`` with ``accumulate=True``."""
+    from layoutdit_tpu_torch.models.vit import _gather_rel_bias, _rel_index, _rel_pos_num_entries
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    h, g = vit.num_attention_heads, vit.grid_size
+    out = {}
+    for key, ws in (("global", 0), ("window", vit.window_size)):
+        idx = _rel_index(torch.device(device), g, ws)
+        table = torch.zeros(_rel_pos_num_entries(vit), h, device=device, requires_grad=True)
+        bias = _gather_rel_bias(table, g, ws)
+        plain = table.t()[:, idx]
+        dbias = torch.randn(bias.shape, generator=gen, device=device)
+
+        def port():
+            return torch.autograd.grad(bias, table, dbias, retain_graph=True)[0]
+
+        def sorted_add():
+            return torch.autograd.grad(plain, table, dbias, retain_graph=True)[0]
+
+        first = port()
+        if not torch.equal(first, port()):
+            raise RuntimeError("table gradient: two runs gave different bits")
+        diff = (sorted_add() - first).abs().max().item()
+        if not diff <= 1e-4 * first.abs().max().item():
+            raise RuntimeError(f"table gradient: index_put_ differs by {diff}")
+        n = bias.shape[-1]
+        bound, by = _bound_ms(h * n * n * 4 + first.numel() * 4, 0.0)
+        out[key] = {
+            "shape": f"dbias [{h}, {n}, {n}] fp32 -> table {list(table.shape)}",
+            "ms": _time_ms(port, 5),
+            "index_put_accumulate_ms": _time_ms(sorted_add, 3),
+            "index_put_max_abs_diff": diff,
+            "bound_ms": bound, "bound_by": by,
+        }
+        print(f"  table gradient {key} N={n}: diagonal sums {out[key]['ms']:.4f} ms, index_put_ "
+              f"(sorted) {out[key]['index_put_accumulate_ms']:.4f} ms (max diff {diff:.6g}), "
+              f"bound {bound:.4f} ms")
+        del bias, plain, dbias
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_1024_relpos(kernels: list[dict]) -> dict:
+    """``train_1024_window_relpos.json``: the windowed 1024 px config with
+    a BEiT relative-position table per layer and no absolute position
+    embeddings. The tables start from std 0.5 (not zero), so the bias
+    shapes every softmax; every attention but the CLS token's goes to the
+    flash kernels with its [12, N, N] bias (the global layers over 4097
+    tokens, the windows at B=64 N=256) and back through the dbias kernel;
+    taps and gradients (two layers' tables included) checked on one
+    image; the table gradient timed against autograd's scatter."""
+    from layoutdit_tpu_torch.config import load_run_config
+    from layoutdit_tpu_torch.models.detection.detector import DetectorConfig
+
+    rc = load_run_config(str(RELPOS_CONFIG))
+    out = _train_run("train_1024_relpos", rc, kernels, grad_images=1, check_taps=True,
+                     table_std=0.5)
+    vit = DetectorConfig.from_model_config(rc.model, rc.compute_dtype).backbone.vit
+    return {"config": "configs/train_1024_window_relpos.json: BEiT-base layout (dit-base widths, "
+                      "a relative-position table per layer, no absolute position embeddings), "
+                      "1024 px, batch 4, window 16, bf16 over fp32", **out,
+            "table_gradient": _table_gradient(vit)}
+
+
 def phase_serving(kernels: list[dict]) -> dict:
     from layoutdit_tpu_torch.config import load_config
     from layoutdit_tpu_torch.eval.serving import BatchInferenceEngine
@@ -827,7 +1006,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU")
     if not ((ROOT / "layoutdit_tpu_torch").is_dir() and CONFIG.is_file()
-            and TRAIN_1024_CONFIG.is_file()):
+            and TRAIN_1024_CONFIG.is_file() and RELPOS_CONFIG.is_file()):
         raise SystemExit("chip_smoke: run it from a checkout of the repository")
     sys.path.insert(0, str(ROOT))
     from layoutdit_tpu_torch.ops import _build
@@ -868,12 +1047,20 @@ def main() -> int:
 
     print("phase train_1024")
     train_1024 = phase_train_1024(kernels)
+    torch.cuda.empty_cache()
+
+    print("phase train_1024_relpos")
+    train_1024_relpos = phase_train_1024_relpos(kernels)
+    paths = ("serving", "train", "train_1024", "train_1024_relpos")
     for k in kernels:
-        k["launches"] = sum(k[f"{path}_launches"] for path in ("serving", "train", "train_1024"))
+        k["launches"] = sum(k[f"{path}_launches"] for path in paths)
+        if k["launches"] <= 0:
+            raise RuntimeError(f"{k['name']} was launched on no path")
 
     print(json.dumps({"serving": serving}))
     print(json.dumps({"train": train}))
     print(json.dumps({"train_1024": train_1024}))
+    print(json.dumps({"train_1024_relpos": train_1024_relpos}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

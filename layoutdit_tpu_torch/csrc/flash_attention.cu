@@ -545,6 +545,111 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
   store_rows<D>(dv + b * dvs.b + h * dvs.h, dvs.n, dva, key0, N, quad, 1.f);
 }
 
+// Bias gradient. Replaces layoutdit_tpu/ops/flash_attention.py::_dbias_kernel
+// (via _flash_bwd): dbias[h, i, j] = sum_b dS[b, h, i, j], dS as above, for
+// a bias [H, N, N] shared by the batch (BEiT's relative-position bias). The
+// high-res rel-pos train step runs it at B=4, N=4097 (the global layers) and
+// at B=64, N=256 (16 x 16 windows), H=12, D=64.
+//
+// Bound on the H100: bytes. The fp32 bias read and dbias written are
+// 2*H*N^2*4 = 1.61 GB at N=4097 (0.48 ms at 3.35 TB/s) against 4*B*H*N^2*D
+// = 206 GFLOP for S and dP (0.21 ms at the bf16 peak). The design reads
+// each bias element once and writes each dbias element once: a block owns
+// one 64 x 64 (query, key) tile of one head (4 warps x 16 query rows), holds
+// its bias tile in registers and its dbias tile in fp32 registers, and loops
+// over the batch as the TPU kernel's innermost grid dimension does. For each
+// batch element it stages the Q, dO, K and V tiles in shared memory, forms
+// S = Q K^T and dP = dO V^T with mma.sync (the dq kernel's arithmetic, from
+// the forward's lse and the delta the dq kernel writes, launched before it on
+// the same stream), and adds dS = P o (dP - delta) in fp32. No atomics: the
+// batch sum runs in a fixed order, so dbias is the same bits every run (a
+// dS added from the dq kernel with atomics would not be). Still simple: the
+// Q/dO/K/V tiles are reloaded by every key or query tile that needs them
+// (from L2), and the bias is a materialised [H, N, N] tensor.
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dbias_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, const float* __restrict__ bias,
+    float* __restrict__ dbias, int B, int H, int N, Strides qs, Strides ks, Strides vs,
+    Strides dos, float scale) {
+  constexpr int LD = D + 8;
+  __shared__ __align__(16) bf16 q_s[kBq * LD];
+  __shared__ __align__(16) bf16 do_s[kBq * LD];
+  __shared__ __align__(16) bf16 k_s[kBk * LD];
+  __shared__ __align__(16) bf16 v_s[kBk * LD];
+
+  const int kv0 = blockIdx.x * kBk;
+  const int q0 = blockIdx.y * kBq;
+  const int h = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int quad = lane & 3;
+  const int row0 = q0 + warp * 16 + (lane >> 2);
+  const int row1 = row0 + 8;
+  const float scale2 = scale * kLog2e;
+
+  // this lane's bias (exp2 domain) and dbias accumulators, in the score
+  // accumulators' layout: element e of n-tile j is (row e < 2 ? row0 : row1,
+  // key kv0 + 8j + 2 quad + (e & 1))
+  const float* bias_h = bias + static_cast<long long>(h) * N * N;
+  float bl[kBk / 8][4], acc[kBk / 8][4];
+#pragma unroll
+  for (int j = 0; j < kBk / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = kv0 + j * 8 + 2 * quad + (e & 1);
+      const int row = e < 2 ? row0 : row1;
+      bl[j][e] = (row < N && key < N) ? bias_h[static_cast<long long>(row) * N + key] * kLog2e
+                                      : 0.f;
+      acc[j][e] = 0.f;
+    }
+  }
+
+  for (int b = 0; b < B; ++b) {
+    const long long bh = static_cast<long long>(b) * H + h;
+    __syncthreads();  // previous batch element's tiles fully read
+    load_tile<D>(q_s, q + b * qs.b + h * qs.h, qs.n, q0, N);
+    load_tile<D>(do_s, dout + b * dos.b + h * dos.h, dos.n, q0, N);
+    load_tile<D>(k_s, k + b * ks.b + h * ks.h, ks.n, kv0, N);
+    load_tile<D>(v_s, v + b * vs.b + h * vs.h, vs.n, kv0, N);
+    // lse (exp2 domain) and delta of this lane's two rows; zero past N
+    const float lse0 = row0 < N ? lse[bh * N + row0] * kLog2e : 0.f;
+    const float lse1 = row1 < N ? lse[bh * N + row1] * kLog2e : 0.f;
+    const float dl0 = row0 < N ? delta[bh * N + row0] : 0.f;
+    const float dl1 = row1 < N ? delta[bh * N + row1] : 0.f;
+    __syncthreads();
+
+    uint32_t qf[D / 16][4], df[D / 16][4];
+    load_a_frags<D>(qf, q_s, warp, lane);
+    load_a_frags<D>(df, do_s, warp, lane);
+    float s[kBk / 8][4], dp[kBk / 8][4];
+    mma_abt<D>(s, qf, k_s, lane);   // S = Q K^T
+    mma_abt<D>(dp, df, v_s, lane);  // dP = dO V^T
+#pragma unroll
+    for (int j = 0; j < kBk / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kv0 + j * 8 + 2 * quad + (e & 1);
+        const float p =
+            key < N ? exp2f(s[j][e] * scale2 + bl[j][e] - (e < 2 ? lse0 : lse1)) : 0.f;
+        acc[j][e] += p * (dp[j][e] - (e < 2 ? dl0 : dl1));
+      }
+    }
+  }
+
+  float* dbias_h = dbias + static_cast<long long>(h) * N * N;
+#pragma unroll
+  for (int j = 0; j < kBk / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = kv0 + j * 8 + 2 * quad + (e & 1);
+      const int row = e < 2 ? row0 : row1;
+      if (row < N && key < N) dbias_h[static_cast<long long>(row) * N + key] = acc[j][e];
+    }
+  }
+}
+
 template <int D, bool kBias>
 int launch(const void* q, const void* k, const void* v, const void* bias, void* o, void* lse,
            int B, int N, int H, Strides qs, Strides ks, Strides vs, Strides os, float scale,
@@ -642,6 +747,28 @@ int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v, const 
       static_cast<const float*>(delta), static_cast<const float*>(bias),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, N, s[0], s[1], s[2], s[3], s[4], s[5],
       scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The dbias kernel of the backward, launched after the dq kernel (it reads
+// the delta that one wrote). q, k, v, dout: bf16 [B, N, H, D] with
+// strides[0..11]; lse, delta: fp32 [B*H, N]; bias: fp32 [H, N, N], not
+// null; dbias: fp32 [H, N, N], written. Returns a cudaError_t code.
+int flash_attention_bwd_dbias(const void* q, const void* k, const void* v, const void* dout,
+                              const void* lse, const void* delta, const void* bias, void* dbias,
+                              int B, int N, int H, int D, const long long* strides, float scale,
+                              void* stream) {
+  if (B < 1 || H < 1 || N < 1 || D != 64 || bias == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Strides s[4];
+  for (int t = 0; t < 4; ++t)
+    s[t] = Strides{strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
+  const dim3 grid((N + kBk - 1) / kBk, (N + kBq - 1) / kBq, H);
+  flash_bwd_dbias_kernel<64><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const float*>(bias),
+      static_cast<float*>(dbias), B, H, N, s[0], s[1], s[2], s[3], scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -129,9 +129,10 @@ def init_detector(cfg: DetectorConfig, generator: torch.Generator, device="cuda"
     }
 
 
-# kept in float32: LayerNorm applies them in fp32, and the position
-# embeddings are resampled in fp32 before the cast
-_FP32_PARAMS = ("ln1", "ln2", "pos_embed")
+# kept in float32: LayerNorm applies them in fp32, the position
+# embeddings are resampled in fp32 before the cast, and the
+# relative-position bias enters the scores in fp32
+_FP32_PARAMS = ("ln1", "ln2", "pos_embed", "rel_pos_table", "shared_rel_pos_table")
 
 
 def params_for_inference(params: dict, dtype: torch.dtype) -> dict:

@@ -3,16 +3,27 @@
 Plain functions over a parameter dictionary, as in the JAX package:
 patchify with (c, kh, kw) flattening and a linear over it, a CLS token,
 absolute position embeddings (bicubically resampled for grids other
-than the trained one), pre-LN blocks with eps 1e-12 and fp32 statistics,
-a fused QKV projection whose K part has no bias, layer scale, and
-``hidden_states`` taps (0 = embedding output, i = output of layer i).
+than the trained one) and/or BEiT relative-position bias tables, per
+layer and/or shared (bilinearly resampled), pre-LN blocks with eps 1e-12
+and fp32 statistics, a fused QKV projection whose K part has no bias,
+layer scale, and ``hidden_states`` taps (0 = embedding output, i =
+output of layer i).
 
-Attention goes to the port's kernels: N <= 256 to the short kernel,
-longer sequences to the flash kernel, both differentiable (on the CPU
-both wrappers run their plain versions). That departs on purpose from
-the JAX package's XLA-below-2048-tokens routing, which was measured on a
-TPU. The projection and MLP matmuls stay ``torch`` matmuls, as the JAX
+Attention goes to the port's kernels: without a bias, N <= 256 to the
+short kernel and longer sequences to the flash kernel; with a bias, the
+flash kernel at any N (the short kernels are bias-free, as the JAX
+package's is). All are differentiable, the bias too (on the CPU the
+wrappers run their plain versions). That departs on purpose from the JAX
+package's XLA-below-2048-tokens routing, which was measured on a TPU.
+The projection and MLP matmuls stay ``torch`` matmuls, as the JAX
 package leaves them to XLA.
+
+The relative-position bias is gathered from its [entries, heads] table
+into a contiguous fp32 [H, N, N] tensor per layer (the flash kernels'
+layout). Its gradient, the scatter-add of dbias into the table, is
+computed from the index's structure as sums over diagonal bands
+(``_rel_table_grad``): the same bits on every run, as a sorted
+``index_put_`` would give, without sorting the N^2 indices each step.
 
 ViTDet windows (``window_size`` > 0, ``vit.py:69-108, 192-293`` of the
 JAX package): layers other than the global ones attend within
@@ -28,20 +39,19 @@ cast to ``compute_dtype``, LayerNorm/softmax/GELU statistics in fp32.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from layoutdit_tpu_torch.ops.flash_attention import flash_attention_qkv
-from layoutdit_tpu_torch.ops.interpolate import resize_bicubic
+from layoutdit_tpu_torch.ops.interpolate import resize_bicubic, resize_bilinear
 from layoutdit_tpu_torch.ops.short_attention import MAX_N as SHORT_MAX_N
-from layoutdit_tpu_torch.ops.short_attention import (
-    short_attention_plain,
-    short_attention_qkv,
-    split_qkv,
-)
+from layoutdit_tpu_torch.ops.short_attention import short_attention_qkv, split_qkv
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +66,11 @@ class ViTConfig:
     layer_norm_eps: float = 1e-12
     layer_scale_init_value: float = 0.1
     initializer_range: float = 0.02
+    # microsoft/dit-base: absolute position embeddings, no relative
+    # position bias; BEiT checkpoints: a bias table per layer and/or shared
+    use_absolute_position_embeddings: bool = True
+    use_relative_position_bias: bool = False
+    use_shared_relative_position_bias: bool = False
     # ViTDet windows: 0 = full attention in every layer; W > 0 = W x W
     # patch windows in the layers that are not global. global_attn_layers
     # are 1-based; empty = the tap layers [L/3, L/2, 2L/3, L].
@@ -95,13 +110,120 @@ def _zeros(shape, device) -> torch.Tensor:
     return torch.zeros(shape, dtype=torch.float32, device=device)
 
 
+def _rel_pos_num_entries(cfg: ViTConfig) -> int:
+    """(2g-1)^2 pairwise offsets of the trained grid g + 3 CLS entries
+    (cls->token, token->cls, cls->cls)."""
+    return (2 * cfg.grid_size - 1) ** 2 + 3
+
+
+def relative_position_index(grid: int) -> np.ndarray:
+    """BEiT's relative_position_index for a (grid, grid) patch grid + CLS
+    (HF BeitRelativePositionBias): [1+g^2, 1+g^2] indices into the bias
+    table (JAX ``vit.py:147``)."""
+    num_rel = (2 * grid - 1) ** 2 + 3
+    coords = np.stack(np.meshgrid(np.arange(grid), np.arange(grid), indexing="ij"))
+    coords = coords.reshape(2, -1)  # [2, g^2]
+    rel = (coords[:, :, None] - coords[:, None, :]).transpose(1, 2, 0).astype(np.int64)
+    rel[:, :, 0] += grid - 1
+    rel[:, :, 1] += grid - 1
+    rel[:, :, 0] *= 2 * grid - 1
+    n = grid * grid
+    index = np.zeros((n + 1, n + 1), dtype=np.int64)
+    index[1:, 1:] = rel.sum(-1)
+    index[0, 0:] = num_rel - 3
+    index[0:, 0] = num_rel - 2
+    index[0, 0] = num_rel - 1
+    return index
+
+
+def window_relative_position_index(ws: int, grid: int) -> np.ndarray:
+    """[ws^2, ws^2] indices into the full grid's table for one (ws, ws)
+    window, no CLS entries (JAX ``vit.py:170``): within-window offsets
+    are a subset of the grid's, encoded with the grid's stride 2*grid-1,
+    so windowed layers gather from the same table as the global ones."""
+    if ws > grid:
+        raise ValueError(f"window {ws} larger than grid {grid}")
+    coords = np.stack(np.meshgrid(np.arange(ws), np.arange(ws), indexing="ij"))
+    coords = coords.reshape(2, -1)
+    rel = (coords[:, :, None] - coords[:, None, :]).astype(np.int64)
+    return (rel[0] + grid - 1) * (2 * grid - 1) + (rel[1] + grid - 1)
+
+
+@functools.lru_cache(maxsize=16)
+def _rel_index(device: torch.device, grid: int, ws: int) -> torch.Tensor:
+    """``relative_position_index(grid)`` (ws 0) or
+    ``window_relative_position_index(ws, grid)`` on ``device``, built
+    once per grid (outside inference mode, so that a first call under
+    ``torch.inference_mode`` does not cache a tensor autograd refuses)."""
+    idx = relative_position_index(grid) if ws == 0 else window_relative_position_index(ws, grid)
+    with torch.inference_mode(False):
+        return torch.from_numpy(idx).to(device)
+
+
+def _diagonal_sums(m: torch.Tensor) -> torch.Tensor:
+    """[..., w, w] -> [..., 2w-1]: out[..., i - j + w - 1] is the sum of
+    m[..., i, j] over the diagonal i - j. Row i of the flipped matrix,
+    zero-padded to 2w-1, is shifted right by i through a view whose rows
+    step 2w-2 elements (the elements it reads twice or out of place are
+    padding zeros), then summed over the rows: a copy and a reduction, no
+    scatter."""
+    w = m.shape[-1]
+    lead = m.shape[:-2]
+    p = F.pad(m.flip(-1), (0, w - 1)).contiguous()  # [..., w, 2w-1]
+    strides = p.stride()[:-2]
+    sheared = p.as_strided((*lead, w, 2 * w - 1), (*strides, 2 * w - 2, 1))
+    return sheared.sum(-2)
+
+
+def _rel_table_grad(dbias: torch.Tensor, grid: int, ws: int, entries: int) -> torch.Tensor:
+    """The gradient [entries, H] of ``table.t()[:, _rel_index(grid, ws)]``
+    from its cotangent dbias [H, n, n]: per table entry the sum of dbias
+    over the (query, key) pairs at that offset. The index's structure
+    makes each sum a band of diagonals: over the (x_q, x_k) pairs, then the
+    (y_q, y_k) pairs (``_diagonal_sums``); the grid's 3 CLS entries are
+    dbias's row 0, column 0 and corner. Deterministic (reductions in a
+    fixed order), with no sort of the N^2 indices."""
+    h, w, off = dbias.shape[0], ws or grid, 2 * grid - 1
+    patch = dbias[:, 1:, 1:] if ws == 0 else dbias
+    d = patch.reshape(h, w, w, w, w).transpose(2, 3)  # [H, y_q, y_k, x_q, x_k]
+    d = _diagonal_sums(d).movedim(-1, 1)  # [H, dx, y_q, y_k]
+    d = _diagonal_sums(d).transpose(1, 2)  # [H, dy, dx]
+    grad = dbias.new_zeros(h, entries)
+    c = grid - w  # a window's offsets are the middle of the grid's
+    grad[:, :off * off].view(h, off, off)[:, c:c + 2 * w - 1, c:c + 2 * w - 1] = d
+    if ws == 0:
+        grad[:, -3] = dbias[:, 0, 1:].sum(-1)  # CLS query -> patch keys
+        grad[:, -2] = dbias[:, 1:, 0].sum(-1)  # patch queries -> CLS key
+        grad[:, -1] = dbias[:, 0, 0]
+    return grad.t()
+
+
+class _RelBiasGather(torch.autograd.Function):
+    """bias = table.t()[:, index] for the index of a grid (ws 0) or of one
+    window, contiguous fp32 [H, n, n]; its backward is
+    ``_rel_table_grad``, under the profiler range ``rel_pos_table_grad``."""
+
+    @staticmethod
+    def forward(ctx, table, grid, ws):
+        ctx.grid, ctx.ws, ctx.entries = grid, ws, table.shape[0]
+        return table.t()[:, _rel_index(table.device, grid, ws)]
+
+    @staticmethod
+    def backward(ctx, dbias):
+        with record_function("rel_pos_table_grad"):
+            return _rel_table_grad(dbias, ctx.grid, ctx.ws, ctx.entries), None, None
+
+
 def init_vit_params(cfg: ViTConfig, generator: torch.Generator, device) -> dict:
     """Random init with the JAX package's distributions (trunc-normal
-    0.02 weights, zero biases, zero CLS and position embeddings, layer
-    scale ``layer_scale_init_value``). Linear weights are [out, in]."""
+    0.02 weights, zero biases, zero CLS and position embeddings, zero
+    relative-position tables, layer scale ``layer_scale_init_value``).
+    Linear weights are [out, in]; a table is [entries, heads], as in the
+    JAX package."""
     d, i = cfg.hidden_size, cfg.intermediate_size
     patch_in = cfg.num_channels * cfg.patch_size * cfg.patch_size
     std = cfg.initializer_range
+    table = (_rel_pos_num_entries(cfg), cfg.num_attention_heads)
 
     def lin(n_in, n_out, bias=True):
         p = {"weight": _trunc_normal((n_out, n_in), std, generator, device)}
@@ -111,7 +233,7 @@ def init_vit_params(cfg: ViTConfig, generator: torch.Generator, device) -> dict:
 
     layers = []
     for _ in range(cfg.num_hidden_layers):
-        layers.append({
+        layer = {
             "ln1": {"weight": torch.ones(d, device=device), "bias": _zeros((d,), device)},
             "ln2": {"weight": torch.ones(d, device=device), "bias": _zeros((d,), device)},
             # rows [q; k; v]; the k third of the bias stays zero (BEiT K
@@ -122,13 +244,17 @@ def init_vit_params(cfg: ViTConfig, generator: torch.Generator, device) -> dict:
             "mlp_out": lin(i, d),
             "lambda_1": torch.full((d,), cfg.layer_scale_init_value, device=device),
             "lambda_2": torch.full((d,), cfg.layer_scale_init_value, device=device),
-        })
-    return {
-        "cls_token": _zeros((d,), device),
-        "patch_embed": lin(patch_in, d),
-        "pos_embed": _zeros((cfg.num_patches + 1, d), device),
-        "layers": layers,
-    }
+        }
+        if cfg.use_relative_position_bias:
+            layer["rel_pos_table"] = _zeros(table, device)
+        layers.append(layer)
+    params = {"cls_token": _zeros((d,), device), "patch_embed": lin(patch_in, d)}
+    if cfg.use_absolute_position_embeddings:
+        params["pos_embed"] = _zeros((cfg.num_patches + 1, d), device)
+    if cfg.use_shared_relative_position_bias:
+        params["shared_rel_pos_table"] = _zeros(table, device)
+    params["layers"] = layers
+    return params
 
 
 def _layer_norm(x: torch.Tensor, p: dict, eps: float) -> torch.Tensor:
@@ -151,14 +277,33 @@ def patchify(pixels: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(b, gh * gw, c * patch * patch)
 
 
-def attention_core(
-    qkv: torch.Tensor, heads: int, key_mask: torch.Tensor | None = None
+def _masked_attention_plain(
+    qkv: torch.Tensor, heads: int, scale: float, key_mask: torch.Tensor,
+    bias: torch.Tensor | None,
 ) -> torch.Tensor:
-    """softmax(q k^T / sqrt(D)) v from the fused projection [B, N, 3*H*D]
-    -> [B, N, H, D], differentiable: the short kernels for N <= 256, the
-    flash kernels beyond. ``key_mask`` [B, N] bool drops the False keys
-    from every softmax row (padded window slots); only the plain version
-    takes one, so a CUDA tensor with a mask raises."""
+    """softmax(q k^T * scale + bias) v in fp32 with the False keys of
+    ``key_mask`` [B, N] out of every row (-inf scores), as the JAX
+    encoder's XLA path does for padded window slots (``vit.py:552``)."""
+    q, k, v = split_qkv(qkv, heads)
+    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
+    if bias is not None:
+        s = s + bias.float()
+    s = s.masked_fill(~key_mask[:, None, None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhnm,bmhd->bnhd", p, v.float()).to(qkv.dtype)
+
+
+def attention_core(
+    qkv: torch.Tensor, heads: int, key_mask: torch.Tensor | None = None,
+    bias: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """softmax(q k^T / sqrt(D) + bias) v from the fused projection
+    [B, N, 3*H*D] -> [B, N, H, D], differentiable in qkv and the bias
+    [H, N, N] (shared by the batch): without a bias the short kernels for
+    N <= 256 and the flash kernels beyond; with one, the flash kernels at
+    any N. ``key_mask`` [B, N] bool drops the False keys from every
+    softmax row (padded window slots); only the plain version takes one,
+    so a CUDA tensor with a mask raises."""
     scale = 1.0 / math.sqrt(qkv.shape[-1] // (3 * heads))
     if key_mask is not None:
         if qkv.device.type != "cpu":
@@ -168,18 +313,19 @@ def attention_core(
                 "queue 1: a key mask in the short kernels); use a window size that "
                 "divides the patch grid"
             )
-        return short_attention_plain(*split_qkv(qkv, heads), scale=scale, key_mask=key_mask)
-    if qkv.shape[1] <= SHORT_MAX_N:
+        return _masked_attention_plain(qkv, heads, scale, key_mask, bias)
+    if bias is None and qkv.shape[1] <= SHORT_MAX_N:
         return short_attention_qkv(qkv, heads, scale=scale)
-    return flash_attention_qkv(qkv, heads, scale=scale)
+    return flash_attention_qkv(qkv, heads, scale=scale, bias=bias)
 
 
 def _attention(
-    x: torch.Tensor, layer: dict, cfg: ViTConfig, key_mask: torch.Tensor | None = None
+    x: torch.Tensor, layer: dict, cfg: ViTConfig, key_mask: torch.Tensor | None = None,
+    bias: torch.Tensor | None = None,
 ) -> torch.Tensor:
     b, n, d = x.shape
     qkv = _linear(x, layer["qkv"])  # [B, N, 3D]
-    ctx = attention_core(qkv, cfg.num_attention_heads, key_mask)
+    ctx = attention_core(qkv, cfg.num_attention_heads, key_mask, bias)
     return _linear(ctx.reshape(b, n, d), layer["attn_out"])
 
 
@@ -223,20 +369,23 @@ def _window_key_mask(gh: int, gw: int, ws: int) -> torch.Tensor | None:
 
 
 def _windowed_attention(
-    x: torch.Tensor, layer: dict, cfg: ViTConfig, gh: int, gw: int
+    x: torch.Tensor, layer: dict, cfg: ViTConfig, gh: int, gw: int,
+    bias: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Attention restricted to ws x ws patch windows (JAX ``vit.py:238``).
     x is the post-LN [B, 1+gh*gw, D] stream. The CLS token is in no
     window: it attends to itself alone (a 1-token sequence through the
-    same projections), and patch tokens do not see it. Padded window
-    slots are masked out of the softmax."""
+    same projections, no bias), and patch tokens do not see it. Padded
+    window slots are masked out of the softmax. ``bias`` [H, ws^2, ws^2]
+    (the relative-position bias at within-window offsets) is the same for
+    every window."""
     b = x.shape[0]
     ws = cfg.window_size
     xw, dims = _window_partition(x[:, 1:], gh, gw, ws)
     key_mask = _window_key_mask(gh, gw, ws)
     if key_mask is not None:
         key_mask = key_mask.to(x.device).repeat(b, 1)
-    merged = _window_merge(_attention(xw, layer, cfg, key_mask), b, gh, gw, ws, dims)
+    merged = _window_merge(_attention(xw, layer, cfg, key_mask, bias), b, gh, gw, ws, dims)
     return torch.cat([_attention(x[:, :1], layer, cfg), merged], dim=1)
 
 
@@ -255,17 +404,60 @@ def _pos_embed_for_grid(pos_embed: torch.Tensor, gh: int, gw: int) -> torch.Tens
     return torch.cat([pos_embed[:1], patch], dim=0)
 
 
+def _gather_rel_bias(table: torch.Tensor, grid: int, ws: int) -> torch.Tensor:
+    """Contiguous fp32 bias [heads, n, n] from a table [entries, heads] at
+    the index of a (grid, grid) patch grid + CLS (ws 0) or of one ws x ws
+    window (the flash kernels' layout, so they copy nothing; JAX
+    ``vit.py:595``), differentiable in the table."""
+    return _RelBiasGather.apply(table, grid, ws)
+
+
+def _rel_table_for_grid(table: torch.Tensor, g0: int, g: int) -> torch.Tensor:
+    """A relative-position bias table trained at grid g0 for a (g, g)
+    grid (HF BeitRelativePositionBias interpolation, JAX ``vit.py:601``):
+    the (2g0-1)^2 offset entries bilinearly resized on their
+    (2g0-1, 2g0-1) grid, the 3 CLS entries passed through. The resize
+    runs in float64: ``F.interpolate`` computes its weights in the input's
+    type, and fp32 source coordinates cost up to some 20 ulps of the
+    table (the JAX package builds its weights in float64)."""
+    if g == g0:
+        return table
+    heads = table.shape[1]
+    old, new = 2 * g0 - 1, 2 * g - 1
+    patch = table[:-3].reshape(old, old, heads).permute(2, 0, 1).double()
+    patch = resize_bilinear(patch, new, new).to(table.dtype)
+    patch = patch.permute(1, 2, 0).reshape(new * new, heads)
+    return torch.cat([patch, table[-3:]], dim=0)
+
+
+def _layer_rel_bias(
+    layer: dict, cfg: ViTConfig, grid: int, ws: int, shared_bias: torch.Tensor | None,
+) -> torch.Tensor | None:
+    """A layer's attention bias over the whole grid (ws 0) or one window:
+    its own table, resampled to the grid and gathered, added onto the
+    shared bias, if any (JAX ``vit.py:621``)."""
+    bias = shared_bias
+    if "rel_pos_table" in layer:
+        own = _gather_rel_bias(
+            _rel_table_for_grid(layer["rel_pos_table"], cfg.grid_size, grid), grid, ws)
+        bias = own if bias is None else own + bias
+    return bias
+
+
 def encoder_block(
-    x: torch.Tensor, layer: dict, cfg: ViTConfig, window: tuple[int, int] | None = None
+    x: torch.Tensor, layer: dict, cfg: ViTConfig, window: tuple[int, int] | None = None,
+    bias: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One pre-LN block: attention + MLP with BEiT layer scale.
     ``window`` = the patch grid (gh, gw) restricts the attention to
-    ``cfg.window_size`` windows; None = full attention."""
+    ``cfg.window_size`` windows; None = full attention. ``bias``: the
+    layer's relative-position bias [H, n, n] over the grid + CLS, or over
+    one window, or None."""
     x_ln = _layer_norm(x, layer["ln1"], cfg.layer_norm_eps)
     if window is None:
-        attn = _attention(x_ln, layer, cfg)
+        attn = _attention(x_ln, layer, cfg, bias=bias)
     else:
-        attn = _windowed_attention(x_ln, layer, cfg, *window)
+        attn = _windowed_attention(x_ln, layer, cfg, *window, bias=bias)
     x = x + attn * layer["lambda_1"].to(attn.dtype)
     y = _layer_norm(x, layer["ln2"], cfg.layer_norm_eps)
     y = _linear(y, layer["mlp_in"])
@@ -284,7 +476,10 @@ def vit_forward(
     """Run the encoder on normalized pixels [B, C, H, W] (H, W multiples
     of the patch size); return hidden states [B, 1+P, D] at ``taps``
     (empty -> [final]). Windows apply only where they are smaller than
-    the grid, so a window that covers it changes nothing."""
+    the grid, so a window that covers it changes nothing. Relative-
+    position tables (``rel_pos_table`` per layer, ``shared_rel_pos_table``)
+    need a square grid; the windowed layers gather them at within-window
+    offsets."""
     taps = tuple(taps) or (cfg.num_hidden_layers,)
     _, _, img_h, img_w = pixels.shape
     gh, gw = img_h // cfg.patch_size, img_w // cfg.patch_size
@@ -292,15 +487,32 @@ def vit_forward(
     b = x.shape[0]
     cls = params["cls_token"].to(compute_dtype).expand(b, 1, cfg.hidden_size)
     x = torch.cat([cls, x], dim=1)
-    x = x + _pos_embed_for_grid(params["pos_embed"], gh, gw).to(compute_dtype)
+    if "pos_embed" in params:
+        x = x + _pos_embed_for_grid(params["pos_embed"], gh, gw).to(compute_dtype)
 
     win_active = 0 < cfg.window_size < max(gh, gw)
+    # the window size per layer kind: 0 for the global layers
+    kinds = {li: cfg.window_size if win_active and not cfg.is_global_layer(li) else 0
+             for li in range(1, len(params["layers"]) + 1)}
+    rel_pos = "shared_rel_pos_table" in params or any(
+        "rel_pos_table" in layer for layer in params["layers"])
+    if rel_pos and gh != gw:
+        raise ValueError("relative position bias requires a square patch grid "
+                         f"(got {gh}x{gw}); absolute-pos models handle any grid")
+    shared = {}
+    if "shared_rel_pos_table" in params:  # gathered once per layer kind
+        table = _rel_table_for_grid(params["shared_rel_pos_table"], cfg.grid_size, gh)
+        shared = {ws: _gather_rel_bias(table, gh, ws) for ws in set(kinds.values())}
+
     collected: dict[int, torch.Tensor] = {}
     if 0 in taps:
         collected[0] = x
     for li, layer in enumerate(params["layers"], start=1):
-        windowed = win_active and not cfg.is_global_layer(li)
-        x = encoder_block(x, layer, cfg, (gh, gw) if windowed else None)
+        ws = kinds[li]
+        bias = None
+        if rel_pos:
+            bias = _layer_rel_bias(layer, cfg, gh, ws, shared.get(ws))
+        x = encoder_block(x, layer, cfg, (gh, gw) if ws else None, bias)
         if li in taps:
             collected[li] = x
     return [collected[t] for t in taps]

@@ -62,7 +62,7 @@ def _ln(p: Mapping, device) -> dict:
 def _vit_layer(layer: Mapping, device) -> dict:
     q, k, v = (np.asarray(layer[n]["kernel"]) for n in ("q", "k", "v"))
     bq, bv = np.asarray(layer["q"]["bias"]), np.asarray(layer["v"]["bias"])
-    return {
+    out = {
         "ln1": _ln(layer["ln1"], device),
         "ln2": _ln(layer["ln2"], device),
         "qkv": {
@@ -75,18 +75,29 @@ def _vit_layer(layer: Mapping, device) -> dict:
         "lambda_1": _t(layer["lambda_1"], device),
         "lambda_2": _t(layer["lambda_2"], device),
     }
+    if "rel_pos_table" in layer:
+        out["rel_pos_table"] = _t(layer["rel_pos_table"], device)
+    return out
+
+
+# encoder leaves that pass through unchanged, where the model has them:
+# position embeddings [1 + P, D] and relative-position tables
+# [entries, heads], the same layout in both packages
+_VIT_OPTIONAL = ("pos_embed", "shared_rel_pos_table")
 
 
 def vit_params_from_jax(vit: Mapping, device="cpu") -> dict:
     """JAX ``init_vit_params`` tree (numpy leaves) -> the port's encoder
     params. Windows add no parameters; ``pos_embed`` is [1 + P, D] at the
-    configured grid (e.g. [4097, 768] at 1024 px)."""
-    return {
+    configured grid (e.g. [4097, 768] at 1024 px); a relative-position
+    table is [(2g-1)^2 + 3, heads] (e.g. [16132, 12] at 1024 px)."""
+    out = {
         "cls_token": _t(vit["cls_token"], device),
         "patch_embed": _linear(vit["patch_embed"], device),
-        "pos_embed": _t(vit["pos_embed"], device),
-        "layers": [_vit_layer(layer, device) for layer in vit["layers"]],
     }
+    out.update({k: _t(vit[k], device) for k in _VIT_OPTIONAL if k in vit})
+    out["layers"] = [_vit_layer(layer, device) for layer in vit["layers"]]
+    return out
 
 
 def params_from_jax(tree: Mapping, device="cpu") -> dict:
@@ -147,7 +158,7 @@ def _conv_to_jax(p: dict) -> dict:
 def _vit_layer_to_jax(layer: dict) -> dict:
     w, b = _np(layer["qkv"]["weight"]), _np(layer["qkv"]["bias"])
     d = w.shape[1]
-    return {
+    out = {
         "ln1": {"scale": _np(layer["ln1"]["weight"]), "bias": _np(layer["ln1"]["bias"])},
         "ln2": {"scale": _np(layer["ln2"]["weight"]), "bias": _np(layer["ln2"]["bias"])},
         "q": {"kernel": w[:d].T, "bias": b[:d]},
@@ -159,17 +170,18 @@ def _vit_layer_to_jax(layer: dict) -> dict:
         "lambda_1": _np(layer["lambda_1"]),
         "lambda_2": _np(layer["lambda_2"]),
     }
+    if "rel_pos_table" in layer:
+        out["rel_pos_table"] = _np(layer["rel_pos_table"])
+    return out
 
 
 def vit_params_to_jax(vit: dict) -> dict:
     """The port's encoder params (or their gradients) -> the JAX
     ``init_vit_params`` layout with numpy leaves."""
-    return {
-        "cls_token": _np(vit["cls_token"]),
-        "patch_embed": _linear_to_jax(vit["patch_embed"]),
-        "pos_embed": _np(vit["pos_embed"]),
-        "layers": [_vit_layer_to_jax(layer) for layer in vit["layers"]],
-    }
+    out = {"cls_token": _np(vit["cls_token"]), "patch_embed": _linear_to_jax(vit["patch_embed"])}
+    out.update({k: _np(vit[k]) for k in _VIT_OPTIONAL if k in vit})
+    out["layers"] = [_vit_layer_to_jax(layer) for layer in vit["layers"]]
+    return out
 
 
 def params_to_jax(params: dict) -> dict:

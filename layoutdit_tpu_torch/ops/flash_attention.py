@@ -5,24 +5,27 @@ Port of ``layoutdit_tpu/ops/flash_attention.py``. The kernels
 (``csrc/flash_attention.cu``) replace the Pallas ``_fwd_kernel`` (:64)
 and ``_fwd_kernel_nobias`` (:180, via ``_flash_fwd`` :112): online
 softmax over 64-key tiles with an optional additive bias [H, N, N], the
-ragged edge masked in the kernel, o and a per-row lse [B*H, N] out; and
+ragged edge masked in the kernel, o and a per-row lse [B*H, N] out;
 ``_bwd_dq_kernel`` / ``_bwd_dq_nobias`` (:253, :286) and
 ``_bwd_dkdv_kernel`` / ``_bwd_dkdv_nobias`` (:217, :280, via
 ``_flash_bwd`` :317): dQ sweeping the key tiles, dK and dV sweeping the
-query tiles, P recomputed from lse, no atomics. The plain backward has
-the algebra of the oracle ``_bwd_reference`` (:460). All are bound by
-operations on the H100, so every product runs on the tensor cores
-(mma.sync, bf16 in, fp32 accumulate); see the source for the design. The
-bias gradient (``_dbias_kernel``) is not ported: a bias that requires a
-gradient raises.
+query tiles, P recomputed from lse, no atomics; and ``_dbias_kernel``
+(:292): dbias = sum over the batch of dS, one block per (head, query
+tile, key tile) looping over the batch, no atomics. The plain backward
+has the algebra of the oracle ``_bwd_reference`` (:460). The attention
+kernels are bound by operations on the H100, so every product runs on
+the tensor cores (mma.sync, bf16 in, fp32 accumulate); the dbias kernel
+is bound by the bytes of the bias and its gradient. See the source for
+the design.
 
 ``flash_attention_fwd`` and ``flash_attention_bwd`` launch the kernels
 for CUDA tensors and take the plain versions only for CPU tensors.
 ``flash_attention_qkv`` is the differentiable entry point: a
-``torch.autograd.Function`` from the fused projection [B, N, 3*H*D] to
-the context [B, N, H, D], whose backward writes dq, dk and dv straight
-into one [B, N, 3*H*D] gradient; ``flash_attention`` is the same over
-separate q, k, v.
+``torch.autograd.Function`` from the fused projection [B, N, 3*H*D] and
+the bias to the context [B, N, H, D], whose backward writes dq, dk and
+dv straight into one [B, N, 3*H*D] gradient and, when the bias requires
+a gradient, launches the dbias kernel; ``flash_attention`` is the same
+over separate q, k, v.
 """
 
 from __future__ import annotations
@@ -45,10 +48,7 @@ _BWD_ARGTYPES = (
     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     + [ctypes.c_float, ctypes.c_void_p]
 )
-_DBIAS = (
-    "a bias that requires a gradient needs the flash dbias kernel "
-    "(_dbias_kernel, kernel-table row 6), which is not ported yet"
-)
+_DBIAS_ARGTYPES = _BWD_ARGTYPES[1:]  # one pointer fewer
 
 
 def _scale(q: torch.Tensor, scale: float | None) -> float:
@@ -87,11 +87,13 @@ def flash_attention_bwd_plain(
     do: torch.Tensor,
     bias: torch.Tensor | None = None,
     scale: float | None = None,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) over [B, N, H, D] in fp32 math, out in q.dtype: the
-    algebra of the Pallas backward (and of its oracle ``_bwd_reference``),
-    P = exp(q k^T * scale + bias - lse), D = rowsum(dO o O),
-    dV = P^T dO, dS = P o (dO V^T - D), dQ = dS K s, dK = dS^T Q s."""
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """(dq, dk, dv, dbias): dq, dk, dv over [B, N, H, D] in fp32 math, out
+    in q.dtype, and dbias = sum_b dS, fp32 [H, N, N] (None without a
+    bias): the algebra of the Pallas backward (and of its oracle
+    ``_bwd_reference``), P = exp(q k^T * scale + bias - lse),
+    D = rowsum(dO o O), dV = P^T dO, dS = P o (dO V^T - D),
+    dQ = dS K s, dK = dS^T Q s."""
     b, n, h, _ = q.shape
     scale = _scale(q, scale)
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
@@ -102,7 +104,8 @@ def flash_attention_bwd_plain(
     ds = p * (dp - delta)
     dq = torch.einsum("bhnm,bmhd->bnhd", ds, kf) * scale
     dk = torch.einsum("bhnm,bnhd->bmhd", ds, qf) * scale
-    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+    dbias = None if bias is None else ds.sum(0)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype), dbias
 
 
 def _lib() -> ctypes.CDLL:
@@ -113,6 +116,8 @@ def _lib() -> ctypes.CDLL:
         for fn in (lib.flash_attention_bwd_dq, lib.flash_attention_bwd_dkdv):
             fn.argtypes = _BWD_ARGTYPES
             fn.restype = ctypes.c_int
+        lib.flash_attention_bwd_dbias.argtypes = _DBIAS_ARGTYPES
+        lib.flash_attention_bwd_dbias.restype = ctypes.c_int
     return lib
 
 
@@ -233,6 +238,31 @@ def flash_attention_bwd_dkdv(q, k, v, lse, do, delta, bias, scale, dk, dv) -> No
 flash_attention_bwd_dkdv.launches = 0
 
 
+def flash_attention_bwd_dbias(q, k, v, lse, do, delta, bias, scale, dbias) -> None:
+    """Launch the dbias kernel of ``flash_attention_bwd`` after the dq
+    kernel (it reads that kernel's delta): writes dbias = sum_b dS into
+    ``dbias``, contiguous fp32 [H, N, N]; bias fp32 [H, N, N]."""
+    b, n, h, d = q.shape
+    _check_rows("flash_attention_bwd", q, q=q, k=k, v=v, do=do)
+    _check_lse("flash_attention_bwd", lse, q, "lse")
+    _check_lse("flash_attention_bwd", delta, q, "delta")
+    for name, t in (("bias", bias), ("dbias", dbias)):
+        if (t.shape != (h, n, n) or t.dtype != torch.float32 or not t.is_contiguous()
+                or t.device != q.device):
+            raise ValueError(f"flash_attention_bwd: {name} must be contiguous fp32 [{h}, {n}, {n}]")
+    lib = _lib()
+    code = lib.flash_attention_bwd_dbias(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), bias.data_ptr(), dbias.data_ptr(), b, n, h, d,
+        _strides(q, k, v, do), float(scale), _build.stream_ptr(q),
+    )
+    _build.check(lib, code, "flash_attention_bwd_dbias")
+    flash_attention_bwd_dbias.launches += 1
+
+
+flash_attention_bwd_dbias.launches = 0
+
+
 def flash_attention_bwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -243,19 +273,22 @@ def flash_attention_bwd(
     bias: torch.Tensor | None = None,
     scale: float | None = None,
     out: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of flash attention; [B, N, H, D] each, from the
-    forward's o and lse [B*H, N]. The bias [H, N, N] is a constant here
-    (its own gradient is not ported). On the card ``out`` may name three
-    bf16 [B, N, H, D] views to write into (the slices of a fused QKV
-    gradient); they are returned."""
+    bias_grad: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """(dq, dk, dv, dbias) of flash attention: [B, N, H, D] each, from
+    the forward's o and lse [B*H, N], and, with ``bias_grad``, the bias's
+    gradient sum_b dS as fp32 [H, N, N] (else None). On the card ``out``
+    may name three bf16 [B, N, H, D] views to write into (the slices of a
+    fused QKV gradient); they are returned."""
+    if bias_grad and bias is None:
+        raise ValueError("flash_attention_bwd: bias_grad needs a bias")
     if q.device.type == "cpu":
-        grads = flash_attention_bwd_plain(q, k, v, o, lse, do, bias, scale)
-        if out is None:
-            return grads
-        for dst, src in zip(out, grads):
-            dst.copy_(src)
-        return out
+        *grads, dbias = flash_attention_bwd_plain(q, k, v, o, lse, do, bias, scale)
+        if out is not None:
+            for dst, src in zip(out, grads):
+                dst.copy_(src)
+            grads = out
+        return (*grads, dbias if bias_grad else None)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
     b, n, h, d = q.shape
@@ -267,12 +300,11 @@ def flash_attention_bwd(
     delta = torch.empty((b * h, n), dtype=torch.float32, device=q.device)
     flash_attention_bwd_dq(q, k, v, o, lse, do, bias, scale, dq, delta)
     flash_attention_bwd_dkdv(q, k, v, lse, do, delta, bias, scale, dk, dv)
-    return out
-
-
-def _check_bias_grad(bias: torch.Tensor | None) -> None:
-    if bias is not None and bias.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(_DBIAS)
+    dbias = None
+    if bias_grad:
+        dbias = torch.empty((h, n, n), dtype=torch.float32, device=q.device)
+        flash_attention_bwd_dbias(q, k, v, lse, do, delta, bias, scale, dbias)
+    return (*out, dbias)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -286,8 +318,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse, bias = ctx.saved_tensors
-        return (*flash_attention_bwd(q, k, v, o, lse, do.contiguous(), bias, ctx.scale),
-                None, None)
+        return (*flash_attention_bwd(q, k, v, o, lse, do.contiguous(), bias, ctx.scale,
+                                     bias_grad=ctx.needs_input_grad[3]), None)
 
 
 class _FlashAttentionQKV(torch.autograd.Function):
@@ -302,11 +334,11 @@ class _FlashAttentionQKV(torch.autograd.Function):
     def backward(ctx, do):
         qkv, o, lse, bias = ctx.saved_tensors
         dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
-        flash_attention_bwd(
+        *_, dbias = flash_attention_bwd(
             *split_qkv(qkv, ctx.heads), o, lse, do.contiguous(), bias, ctx.scale,
-            out=tuple(split_qkv(dqkv, ctx.heads)),
+            out=tuple(split_qkv(dqkv, ctx.heads)), bias_grad=ctx.needs_input_grad[3],
         )
-        return dqkv, None, None, None
+        return dqkv, None, None, dbias
 
 
 def flash_attention(
@@ -317,9 +349,8 @@ def flash_attention(
     scale: float | None = None,
 ) -> torch.Tensor:
     """Fused attention; [B, N, H, D] in and out, optional additive bias
-    [H, N, N] (a constant: one that requires a gradient raises).
-    Differentiable in q, k and v."""
-    _check_bias_grad(bias)
+    [H, N, N] shared by the batch. Differentiable in q, k, v and the
+    bias."""
     return _FlashAttention.apply(q, k, v, bias, _scale(q, scale))
 
 
@@ -331,9 +362,8 @@ def flash_attention_qkv(
 ) -> torch.Tensor:
     """Differentiable flash attention from the fused projection
     [B, N, 3*H*D] (rows [q | k | v]) to the context [B, N, H, D];
-    optional constant bias [H, N, N] (one that requires a gradient
-    raises)."""
-    _check_bias_grad(bias)
+    optional additive bias [H, N, N] shared by the batch, differentiable
+    too."""
     if scale is None:
         scale = 1.0 / math.sqrt(qkv.shape[-1] // (3 * heads))
     return _FlashAttentionQKV.apply(qkv, heads, scale, bias)

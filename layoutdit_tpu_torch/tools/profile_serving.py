@@ -63,8 +63,8 @@ def _union_ms(intervals: list[tuple[float, float]]) -> float:
 
 def summarize_trace(trace: dict, stages: tuple[str, ...] = STAGES) -> dict:
     """Stage and device times from a chrome trace of one request (or one
-    train step, with its stage names); microsecond timestamps, categories
-    as torch.profiler writes them."""
+    train step, with its stage names), each summed over the stage's calls;
+    microsecond timestamps, categories as torch.profiler writes them."""
     ev = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
     t0 = min(e["ts"] for e in ev)
     t1 = max(e["ts"] + e["dur"] for e in ev)
@@ -81,11 +81,12 @@ def summarize_trace(trace: dict, stages: tuple[str, ...] = STAGES) -> dict:
         if e["name"] in stages and e.get("cat") in ("user_annotation", "gpu_user_annotation"):
             st = by_stage.setdefault(e["name"], {})
             if e["cat"] == "gpu_user_annotation":
-                st["device_span_ms"] = e["dur"] / 1e3
+                st["device_span_ms"] = st.get("device_span_ms", 0.0) + e["dur"] / 1e3
                 continue
-            st["host_ms"] = e["dur"] / 1e3
+            st["calls"] = st.get("calls", 0) + 1
+            st["host_ms"] = st.get("host_ms", 0.0) + e["dur"] / 1e3
             lo, hi = e["ts"], e["ts"] + e["dur"]
-            st["device_ms"] = sum(
+            st["device_ms"] = st.get("device_ms", 0.0) + sum(
                 w["dur"] for w in work
                 if lo <= launched.get(w.get("args", {}).get("correlation"), -1) <= hi
             ) / 1e3

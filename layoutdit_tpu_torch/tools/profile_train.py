@@ -7,7 +7,9 @@ from ``--seed`` over a temporary fixture of synthetic pages, runs
 and prints, from that step's chrome trace: its wall time, the device's
 busy time (union of kernel and copy intervals) and idle share, host time
 and device work launched in each stage (the ``record_function`` ranges
-``forward``, ``loss``, ``backward``, ``optimizer``), the kernels that
+``forward``, ``loss``, ``backward``, ``optimizer``, and inside the
+backward ``rel_pos_table_grad``, the relative-position tables'
+gradient, summed over its calls), the kernels that
 take the most device time, and the NMS host syncs of the step. The last
 line is one JSON object with the same numbers.
 
@@ -39,7 +41,7 @@ from layoutdit_tpu_torch.tools.make_fixture import make_fixture
 from layoutdit_tpu_torch.tools.profile_serving import summarize_trace
 from layoutdit_tpu_torch.train.trainer import Trainer
 
-STAGES = ("forward", "loss", "backward", "optimizer")
+STAGES = ("forward", "loss", "backward", "optimizer", "rel_pos_table_grad")
 REPO = Path(__file__).resolve().parents[2]
 
 
@@ -100,7 +102,7 @@ def main() -> None:
           f"idle share {r['device_idle_share']:.3f}, NMS host syncs {r['nms_host_syncs']}")
     for name, st in r["stages"].items():
         print(f"  stage {name}: host {st.get('host_ms', 0):.3f} ms, device work launched "
-              f"{st.get('device_ms', 0):.3f} ms")
+              f"{st.get('device_ms', 0):.3f} ms, {st.get('calls', 0)} call(s)")
     for k in r["top_kernels"]:
         print(f"  kernel {k['device_ms']:9.3f} ms  x{k['calls']:<5d} {k['name']}")
     print(json.dumps(out))

@@ -200,27 +200,78 @@ def test_flash_qkv_gradient_matches_pallas(rng, n, with_bias):
 
 
 def test_gradient_through_flash_path_raises(rng):
-    """attention_core gives gradients past 256 tokens (the flash route);
-    what still raises is a gradient asked of the bias, whose kernel
-    (dbias, kernel-table row 6) is not ported."""
+    """attention_core gives gradients past 256 tokens (the flash route),
+    and a bias that requires a gradient gets one (dbias, kernel-table row
+    6), at any N: with a bias attention_core takes the flash route even
+    where the short kernels would serve. The bias gradient is the plain
+    backward's dbias, through both autograd Functions."""
     from layoutdit_tpu_torch.models.vit import attention_core
 
-    qkv = torch.from_numpy(rng.standard_normal((1, 300, 3 * 32)).astype(np.float32))
+    b, n, h, d = 2, 300, 2, 16
+    qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * h * d)).astype(np.float32))
     with torch.no_grad():
-        assert attention_core(qkv, 2).shape == (1, 300, 2, 16)  # forward only is fine
+        assert attention_core(qkv, h).shape == (b, n, h, d)  # forward only is fine
     qkv.requires_grad_(True)
-    ctx = attention_core(qkv, 2)
+    ctx = attention_core(qkv, h)
     (g,) = torch.autograd.grad(ctx.sum(), qkv)
     assert torch.isfinite(g).all() and g.abs().sum() > 0
-    assert attention_core(qkv[:, :200], 2).requires_grad  # the short kernels have one too
-    q = qkv.detach()[..., :32].reshape(1, 300, 2, 16)
-    bias = torch.zeros(2, 300, 300, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="row 6"):
-        port_flash.flash_attention(q, q, q, bias)
-    with pytest.raises(NotImplementedError, match="row 6"):
-        port_flash.flash_attention_qkv(qkv, 2, bias=bias)
+    assert attention_core(qkv[:, :200], h).requires_grad  # the short kernels have one too
+
+    do = torch.from_numpy(rng.standard_normal((b, n, h, d)).astype(np.float32))
+    bias = torch.from_numpy(rng.standard_normal((h, n, n)).astype(np.float32))
+    q, k, v = (x.detach() for x in port_short.split_qkv(qkv, h))
+    o, lse = port_flash.flash_attention_plain(q, k, v, bias)
+    *want, want_dbias = port_flash.flash_attention_bwd_plain(q, k, v, o, lse, do, bias)
+    assert want_dbias.shape == (h, n, n) and want_dbias.abs().sum() > 0
+    torch.testing.assert_close(want_dbias, port_flash.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, bias)[3], rtol=0, atol=0)
+    for nn in (n, 40):  # 40 tokens: the flash route all the same
+        bb = bias[:, :nn, :nn].clone().requires_grad_(True)
+        ctx = attention_core(qkv[:, :nn], h, bias=bb)
+        dqkv, dbias = torch.autograd.grad(ctx, (qkv, bb), do[:, :nn])
+        if nn == n:
+            torch.testing.assert_close(dbias, want_dbias, rtol=0, atol=0)
+            for i, w in enumerate(want):
+                torch.testing.assert_close(dqkv[..., i * h * d:(i + 1) * h * d]
+                                           .reshape(b, n, h, d), w, rtol=TOL, atol=TOL)
+        assert dbias.shape == (h, nn, nn) and dbias.abs().sum() > 0
+    bb = bias.clone().requires_grad_(True)
+    qs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    *grads, dbias = torch.autograd.grad(port_flash.flash_attention(*qs, bb), (*qs, bb), do)
+    torch.testing.assert_close(dbias, want_dbias, rtol=0, atol=0)
+    for got, w in zip(grads, want):
+        torch.testing.assert_close(got, w, rtol=0, atol=0)
     with torch.no_grad():  # no gradient asked: the bias is a constant
-        port_flash.flash_attention(q, q, q, bias)
+        port_flash.flash_attention(q, k, v, bb)
+
+
+@pytest.mark.parametrize("n", [130, 197])  # ragged: both pad to the Pallas blocks
+def test_flash_bwd_plain_dbias_matches_pallas(rng, n):
+    """The plain backward's dbias against the JAX flash attention's bias
+    gradient under ``jax.grad``, which runs ``_dbias_kernel`` in interpret
+    mode; dq, dk and dv beside it."""
+    import jax
+
+    b, h, d = 2, 3, 32
+    q, k, v = _qkv(rng, b, n, h, d)
+    do = rng.standard_normal((b, n, h, d)).astype(np.float32)
+    bias = rng.standard_normal((h, n, n)).astype(np.float32)
+
+    def total(q, k, v, bias):
+        return (jax_flash.flash_attention(q, k, v, bias=bias, interpret=True) * do).sum()
+
+    want = jax.grad(total, argnums=(0, 1, 2, 3))(*map(jnp.asarray, (q, k, v, bias)))
+    tq, tk, tv, tdo, tb = map(torch.from_numpy, (q, k, v, do, bias))
+    o, lse = port_flash.flash_attention_plain(tq, tk, tv, tb)
+    got = port_flash.flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo, tb)
+    assert got[3].dtype == torch.float32 and got[3].shape == (h, n, n)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=TOL, rtol=TOL)
+    # and the oracle of the Pallas backward: dbias = sum over the batch of dS
+    to_bh = lambda x: jnp.asarray(x).transpose(0, 2, 1, 3).reshape(b * h, n, d)  # noqa: E731
+    ref = jax_flash._bwd_reference(to_bh(q), to_bh(k), to_bh(v), jnp.asarray(bias),
+                                   1.0 / np.sqrt(d), to_bh(o.numpy()), to_bh(do), n)
+    np.testing.assert_allclose(got[3].numpy(), np.asarray(ref[3]), atol=TOL, rtol=TOL)
 
 
 def test_cpu_bwd_wrapper_takes_the_plain_version_and_fills_out(rng):
@@ -228,14 +279,22 @@ def test_cpu_bwd_wrapper_takes_the_plain_version_and_fills_out(rng):
     q, k, v, do = (torch.from_numpy(x) for x in _qkv(rng, b, n, h, d) + [
         rng.standard_normal((b, n, h, d)).astype(np.float32)])
     o, lse = port_flash.flash_attention_plain(q, k, v)
-    counters = (port_flash.flash_attention_bwd_dq, port_flash.flash_attention_bwd_dkdv)
+    counters = (port_flash.flash_attention_bwd_dq, port_flash.flash_attention_bwd_dkdv,
+                port_flash.flash_attention_bwd_dbias)
     before = [c.launches for c in counters]
     dqkv = torch.empty(b, n, 3 * h * d)
     out = tuple(port_short.split_qkv(dqkv, h))
     got = port_flash.flash_attention_bwd(q, k, v, o, lse, do, out=out)
-    assert all(g is t for g, t in zip(got, out))
+    assert all(g is t for g, t in zip(got, out)) and got[3] is None
     for g, w in zip(out, port_flash.flash_attention_bwd_plain(q, k, v, o, lse, do)):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+    bias = torch.from_numpy(rng.standard_normal((h, n, n)).astype(np.float32))
+    o, lse = port_flash.flash_attention_plain(q, k, v, bias)
+    dbias = port_flash.flash_attention_bwd(q, k, v, o, lse, do, bias, bias_grad=True)[3]
+    torch.testing.assert_close(
+        dbias, port_flash.flash_attention_bwd_plain(q, k, v, o, lse, do, bias)[3], rtol=0, atol=0)
+    with pytest.raises(ValueError, match="needs a bias"):
+        port_flash.flash_attention_bwd(q, k, v, o, lse, do, bias_grad=True)
     assert [c.launches for c in counters] == before
     with pytest.raises(ValueError, match="unsupported device"):
         m = torch.empty(1, 8, 2, 16, device="meta")
@@ -290,6 +349,36 @@ def test_flash_bwd_kernel_matches_plain(cuda, rng, with_bias):
     assert all(torch.equal(g, s) for g, s in zip(grads, port_short.split_qkv(dqkv, h)))
     for got, w in zip(port_short.split_qkv(dqkv, h), want):
         assert (got.float() - w.float()).abs().max() <= w.float().abs().max() / 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(4, 4097), (64, 256)])  # 1024 px: global layers; 16x16 windows
+def test_flash_dbias_kernel_matches_plain(cuda, b, n):
+    """The dbias kernel through the autograd Function at the rel-pos
+    train step's shapes against the plain backward's dbias, the same bits
+    on a second run (no atomics), one launch per backward. Both compute S,
+    dP and dS in fp32 from the same bf16 inputs, so they differ by fp32
+    summation order only: max |err| <= 1e-4 max |plain| (dbias is
+    heavy-tailed, so the bf16 outputs' max / 64 would pass a tile wrong by
+    a typical value)."""
+    h, d = 12, 64
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    qkv = torch.randn(b, n, 3 * h * d, generator=gen, device=cuda).to(torch.bfloat16)
+    qkv.requires_grad_(True)
+    do = torch.randn(b, n, h, d, generator=gen, device=cuda).to(torch.bfloat16)
+    bias = (0.5 * torch.randn(h, n, n, generator=gen, device=cuda)).requires_grad_(True)
+    ctx = port_flash.flash_attention_qkv(qkv, h, bias=bias)
+    before = port_flash.flash_attention_bwd_dbias.launches
+    _, dbias = torch.autograd.grad(ctx, (qkv, bias), do, retain_graph=True)
+    _, again = torch.autograd.grad(ctx, (qkv, bias), do)
+    assert port_flash.flash_attention_bwd_dbias.launches == before + 2
+    q, k, v = port_short.split_qkv(qkv.detach(), h)
+    _, lse = port_flash.flash_attention_fwd(q, k, v, bias.detach())  # the lse the backward read
+    want = port_flash.flash_attention_bwd_plain(q, k, v, ctx.detach(), lse, do, bias.detach())[3]
+    torch.cuda.synchronize()
+    assert dbias.dtype == torch.float32 and dbias.shape == (h, n, n)
+    assert torch.equal(dbias, again)
+    assert (dbias - want).abs().max() <= 1e-4 * want.abs().max()
 
 
 @pytest.mark.cuda
