@@ -9,7 +9,11 @@ It builds the port's CUDA kernels from ``layoutdit_tpu_torch/csrc`` (one
 nvcc per source, in parallel), holds each forward and backward kernel
 against its plain PyTorch version at the shapes of the serving and
 training paths and times both (phases ``kernels`` and ``kernels_bwd``),
-then serves requests through ``BatchInferenceEngine`` with dit-base
+holds the fused RoIAlign probes' kernels (``ops/roi_fused.py``) to their
+plain versions at the probe's K = 8192, and the fused form to the
+RoIAlign kernel on real RoIs, times them beside the two-GEMM yardstick
+and runs the probe tool as the probe path (phase ``probes``), then
+serves requests through ``BatchInferenceEngine`` with dit-base
 Faster R-CNN at full width (``configs/serving_1024.json``, random weights
 from a seed) in the 224 and 1024 px buckets and checks the detections
 and the encoder against a float32 CPU reference (phase ``serving``),
@@ -24,7 +28,7 @@ windowed high-res config ``configs/train_1024_window.json`` (dit-base,
 every layer: every biased attention on the flash kernels, the bias
 gradient on the dbias kernel; phase ``train_1024_relpos``). It checks
 that every kernel ran on its path, the right number of times a train
-step. It prints JSON lines for serving, training
+step, and the probes' kernels on none but theirs. It prints JSON lines for serving, training
 and the kernels, the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the exit
 code is not 0. It imports nothing of JAX or of ``layoutdit_tpu``, and it
@@ -79,6 +83,11 @@ GRAD_REL_TOL = 5e-2
 # at a time); the spread between runs is printed beside the median
 REQUEST_REPEATS = 5
 SERVING_KERNELS = ("short_attention", "flash_attention", "roi_align")
+# the fused RoIAlign probes' kernels: launched on the probe path only
+PROBE_KERNELS = ("roi_fused_a", "roi_fused_a0", "roi_fused_e")
+# the probe path: RoIs and launches of each kernel's timing
+PROBE_K = 8192
+PROBE_ITERS = 20
 # train phase: one epoch of this many steps through Trainer.train(), then
 # steps on one repeated batch (the first TRAIN_WARMUP not timed), over
 # which the loss must fall by TRAIN_MIN_DROP (the JAX e2e overfit check)
@@ -555,9 +564,175 @@ def phase_roi_bwd(gen) -> dict:
     return entry
 
 
+def _probe_work(k: int, c: int, h: int, w: int) -> dict:
+    """(bytes, operations) of the probes' functions at K RoIs: each input
+    read once (f, and the weights as the bf16 the kernels read), each
+    output written once; the dense products as the function defines them
+    (the first [K * 7, H] x [H, C * W], the second per RoI [7, W] x
+    [W, 7 * C])."""
+    p = 7
+    ins = (c * h * w + k * p * h + k * p * w) * 2
+    first = 2 * k * p * c * h * w
+    second = 2 * k * p * p * c * w
+    return {"fused": (ins + k * p * p * c * 2, first + second),
+            "first": (ins - k * p * w * 2 + k * p * w * c * 2, first)}
+
+
+def phase_probes(gen, kernels: list[dict]) -> list[dict]:
+    """The fused RoIAlign probes (rows 9-11), then their path.
+
+    On the probe's inputs at K = 8192 (``probe_inputs``: 0/1 weights) each
+    kernel against its plain version, timed beside its bound, its plain
+    version and the yardstick (``two_gemm``: two cuBLAS calls, which the
+    port never takes; for row 10, which stops at t, its one matrix
+    product). Row 9 on real RoIs: one 224 px pyramid with 8192 RoIs
+    through ``roi_atlas`` (timed apart) into ``variant_a`` (kb 16),
+    against row 7's ``multiscale_roi_align`` on the same pyramid and
+    RoIs. The atlas form's forward and custom backward
+    (``pooled_from_weights_native``, two matrix products each) at rows
+    7-8's 224 px train shapes (B = 16, K = 512), against rows 7-8. Last,
+    the probe path: the probe tool, ``tools/probe_roi_fused.main``, with the
+    counts set to 0 just before it."""
+    from layoutdit_tpu_torch.ops import roi_align as ra
+    from layoutdit_tpu_torch.ops import roi_fused as rf
+    from layoutdit_tpu_torch.tools import probe_roi_fused as tool
+
+    k = PROBE_K
+    f, wy, wx = tool.probe_inputs(k, "cuda")
+    c, h, w = f.shape
+    shape = f"K={k} P=7 C={c} atlas H={h} W={w} bf16, the probe's 0/1 weights"
+    work = _probe_work(k, c, h, w)
+    two_gemm_ms = _time_ms(lambda: rf.two_gemm(f, wy, wx), PROBE_ITERS)
+    ref = rf.two_gemm(f, wy, wx)
+    plain = rf.variant_a_plain(f, wy, wx)
+    print(f"  two_gemm (yardstick) {two_gemm_ms:.4f} ms")
+
+    def fused(name, fn, plain_fn, line, kbs):
+        """Rows 9 and 11, each kb against row 9's plain version (row 11's
+        is that, laid out as its kernel writes it)."""
+        bound, by = _bound_ms(*work["fused"])
+        entry = {"name": name, "route": "cuda", "source": "layoutdit_tpu_torch/csrc/roi_fused.cu",
+                 "replaces": f"scripts/probe_roi_fused.py:{line}", "shape": f"{shape}, kb={kbs[0]}",
+                 "bound_ms": bound, "bound_by": by,
+                 "plain_ms": _time_ms(lambda: plain_fn(f, wy, wx), 2),
+                 "library_ms": two_gemm_ms,
+                 "library": "two_gemm: two cuBLAS calls, not one PyTorch call"}
+        for kb in kbs:
+            got = fn(f, wy, wx, kb=kb)
+            err, tol = _check_close(f"{name} kb={kb}", got, plain)
+            yard = (got.float() - ref.float()).abs().max().item()
+            print(f"    against two_gemm: max_abs_diff {yard:.6g}")
+            del got
+            key = "" if kb == kbs[0] else f"kb{kb}_"
+            entry.update({f"{key}max_abs_err": err, f"{key}tolerance": tol,
+                          f"{key}two_gemm_max_abs_diff": yard,
+                          f"{key}ms": _time_ms(lambda: fn(f, wy, wx, kb=kb), PROBE_ITERS)})
+        return entry
+
+    a = fused("roi_fused_a", rf.variant_a, rf.variant_a_plain, 101, (8, 16))
+    e = fused("roi_fused_e", rf.variant_e, lambda *x: rf.variant_e_plain(*x, kb=8), 187, (8,))
+    e["kernel_only_ms"] = _time_ms(lambda: rf.variant_e(f, wy, wx, kb=8, kernel_layout=True),
+                                   PROBE_ITERS)
+    del ref, plain
+
+    bound, by = _bound_ms(*work["first"])
+    wy2 = wy.to(torch.bfloat16).reshape(k * 7, h)
+    f2 = f.permute(1, 2, 0).reshape(h, w * c)
+    a0 = {"name": "roi_fused_a0", "route": "cuda", "source": "layoutdit_tpu_torch/csrc/roi_fused.cu",
+          "replaces": "scripts/probe_roi_fused.py:150", "shape": f"{shape}, kb=16",
+          "bound_ms": bound, "bound_by": by,
+          "library_ms": _time_ms(lambda: torch.matmul(wy2, f2), PROBE_ITERS),
+          "library": "torch.matmul [K*7, H] x [H, W*C]: rows (k, py, w), no relayout"}
+    del wy2, f2
+    for relayout in (False, True):
+        want = rf.variant_a0_plain(f, wy, relayout)
+        err, tol = _check_close(f"roi_fused_a0 kb=16 relayout={relayout}",
+                                rf.variant_a0(f, wy, kb=16, relayout=relayout), want)
+        del want
+        key = "relayout_" if relayout else ""
+        a0.update({f"{key}max_abs_err": err, f"{key}tolerance": tol,
+                   f"{key}ms": _time_ms(lambda: rf.variant_a0(f, wy, kb=16, relayout=relayout),
+                                        PROBE_ITERS)})
+    a0["plain_ms"] = _time_ms(lambda: rf.variant_a0_plain(f, wy, False), 2)
+    del f, wy, wx
+    torch.cuda.empty_cache()
+
+    # row 9 on real RoIs against row 7
+    scales = [1 / 4, 1 / 8, 1 / 16, 1 / 32, 1 / 64]
+    feats, rois, mask = _roi_inputs(gen, 224, b=1, k=k)
+    with torch.no_grad():
+        atlas = lambda: ra.roi_atlas(feats, rois, scales, roi_mask=mask)  # noqa: E731
+        f_cat, wy_cat, wx_cat = (t[0] for t in atlas())
+        row7 = lambda: ra.multiscale_roi_align(feats, rois, scales, roi_mask=mask,  # noqa: E731
+                                               native_layout=True)
+        err, tol = _check_close("roi_fused_a kb=16 on real RoIs against roi_align (row 7)",
+                                rf.variant_a(f_cat, wy_cat, wx_cat, kb=16), row7()[0])
+        a.update({
+            "real_rois_shape": f"one 224 px pyramid (C=256, atlas H={f_cat.shape[1]} "
+                               f"W={f_cat.shape[2]}), K={k} RoIs, a fifth masked, kb=16",
+            "real_rois_max_abs_err": err, "real_rois_tolerance": tol,
+            "real_rois_ms": _time_ms(lambda: rf.variant_a(f_cat, wy_cat, wx_cat, kb=16),
+                                     PROBE_ITERS),
+            "real_rois_atlas_ms": _time_ms(atlas, 5),
+            "real_rois_roi_align_ms": _time_ms(row7, PROBE_ITERS),
+            "real_rois_two_gemm_ms": _time_ms(lambda: rf.two_gemm(f_cat, wy_cat, wx_cat),
+                                              PROBE_ITERS),
+        })
+        print(f"  real RoIs: roi_fused_a {a['real_rois_ms']:.4f} ms (atlas and weights "
+              f"{a['real_rois_atlas_ms']:.4f}), roi_align (row 7) "
+              f"{a['real_rois_roi_align_ms']:.4f}, two_gemm {a['real_rois_two_gemm_ms']:.4f}")
+    del feats, rois, mask, f_cat, wy_cat, wx_cat
+    torch.cuda.empty_cache()
+
+    # the atlas form at rows 7-8's 224 px train shapes, against them
+    feats, rois, mask = _roi_inputs(gen, 224, b=16, k=512)
+    levels = ra.roi_levels(rois, 5, 224.0, roi_mask=mask)
+    f_cat, wy_cat, wx_cat = ra.roi_atlas(feats, rois, scales, roi_mask=mask)
+    fwd = lambda: ra.pooled_from_weights_native(f_cat, wy_cat, wx_cat)  # noqa: E731
+    with torch.no_grad():
+        err, tol = _check_close("atlas two-GEMM forward B=16 K=512 against roi_align (row 7)",
+                                fwd(), ra.roi_align_fwd(feats, rois, levels, scales))
+    dout = torch.randn(16, 512, 7, 7, 256, generator=gen, device="cuda").to(torch.bfloat16)
+    bwd = lambda: ra._pooled_native_bwd(dout, wy_cat, wx_cat, f_cat.shape,  # noqa: E731
+                                        f_cat.dtype)
+    df, off, errs = bwd(), 0, []
+    for i, g in enumerate(ra.roi_align_bwd(dout, rois, levels, feats, scales)):
+        hl, wl = g.shape[-2:]
+        errs.append(_check_close(f"atlas two-GEMM backward level {i} against roi_align_bwd "
+                                 "(row 8)", df[..., off:off + hl, :wl], g))
+        off += hl
+    del df
+    note = "atlas two-GEMM (pooled_from_weights_native): two calls; not one PyTorch call"
+    for entry, fn, (e_, t_) in ((_entry(kernels, "roi_align"), fwd, (err, tol)),
+                                (_entry(kernels, "roi_align_bwd"), bwd, max(errs))):
+        entry.update({"b224_atlas_two_gemm_ms": _time_ms(fn, 10), "atlas_two_gemm": note,
+                      "b224_atlas_two_gemm_max_abs_diff": e_})
+    del feats, rois, mask, levels, f_cat, wy_cat, wx_cat, dout
+    torch.cuda.empty_cache()
+
+    # the probe path: the probe tool, as a user runs it
+    _reset_counts()
+    tool.main(["--k", str(k), "--iters", str(PROBE_ITERS)])
+    torch.cuda.synchronize()
+    counts = _counts()
+    print(f"  launches on the probe path: {counts}")
+    entries = [a, a0, e]
+    for entry in kernels + entries:
+        entry["probe_launches"] = counts[entry["name"]]
+    for entry in entries:
+        if entry["probe_launches"] <= 0:
+            raise RuntimeError(f"{entry['name']} was not launched on the probe path")
+    return entries
+
+
+def _entry(kernels: list[dict], name: str) -> dict:
+    return next(k for k in kernels if k["name"] == name)
+
+
 def _counters():
     from layoutdit_tpu_torch.ops import flash_attention as fa
     from layoutdit_tpu_torch.ops import roi_align as ra
+    from layoutdit_tpu_torch.ops import roi_fused as rf
     from layoutdit_tpu_torch.ops import short_attention as sa
 
     return {
@@ -569,6 +744,9 @@ def _counters():
         "flash_attention_bwd_dbias": fa.flash_attention_bwd_dbias,
         "roi_align": ra.roi_align_fwd,
         "roi_align_bwd": ra.roi_align_bwd,
+        "roi_fused_a": rf.variant_a,
+        "roi_fused_a0": rf.variant_a0,
+        "roi_fused_e": rf.variant_e,
     }
 
 
@@ -710,7 +888,8 @@ def _launches_per_step(cfg) -> dict:
             raise RuntimeError("a window is longer than the short kernel takes")
     return {"short_attention": short, "short_attention_bwd": short, "flash_attention": flash,
             "flash_attention_bwd_dq": flash, "flash_attention_bwd_dkdv": flash,
-            "flash_attention_bwd_dbias": dbias, "roi_align": 1, "roi_align_bwd": 1}
+            "flash_attention_bwd_dbias": dbias, "roi_align": 1, "roi_align_bwd": 1,
+            **{name: 0 for name in PROBE_KERNELS}}
 
 
 def _train_run(label: str, base, kernels: list[dict], grad_images: int,
@@ -985,6 +1164,9 @@ def phase_serving(kernels: list[dict]) -> dict:
     for name in SERVING_KERNELS:
         if counts[name] <= 0:
             raise RuntimeError(f"{name} was not launched on the serving path")
+    for name in PROBE_KERNELS:
+        if counts[name]:
+            raise RuntimeError(f"{name} was launched on the serving path")
     for k in kernels:
         k["serving_launches"] = counts[k["name"]]
 
@@ -1036,6 +1218,9 @@ def main() -> int:
     print("phase kernels_bwd")
     kernels += [phase_short_bwd(gen), *phase_flash_bwd(gen), phase_roi_bwd(gen)]
     torch.cuda.empty_cache()
+    print("phase probes")
+    kernels += phase_probes(gen, kernels)
+    torch.cuda.empty_cache()
 
     print("phase serving")
     serving = phase_serving(kernels)
@@ -1051,7 +1236,7 @@ def main() -> int:
 
     print("phase train_1024_relpos")
     train_1024_relpos = phase_train_1024_relpos(kernels)
-    paths = ("serving", "train", "train_1024", "train_1024_relpos")
+    paths = ("probe", "serving", "train", "train_1024", "train_1024_relpos")
     for k in kernels:
         k["launches"] = sum(k[f"{path}_launches"] for path in paths)
         if k["launches"] <= 0:

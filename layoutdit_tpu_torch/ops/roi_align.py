@@ -33,6 +33,16 @@ taps with fp32 atomics, so its sum order, and the last bits of dF, change
 from run to run; its plain version is dF = sum_k Wy^T . dout . Wx over
 ``build_roi_weights``. The RoIs get no gradient, as in the JAX package
 (stop-gradient proposals, zero cotangents for the weights).
+
+The JAX package's own XLA formulation is here too, for the fused-RoIAlign
+probes (``ops/roi_fused.py``) that are measured against it: ``roi_atlas``
+stacks the levels into one atlas along H (W zero-padded to the widest
+level) with level-masked weights, and ``pooled_from_weights_native``
+contracts it in two dense products (fp32 sums, the [K, P, C, W]
+intermediate rounded to the feature dtype; dF only in its backward).
+Those products are plain matrix products (``torch.matmul``), and
+``multiscale_roi_align`` does not route through them: CUDA tensors go to
+the kernels above.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from layoutdit_tpu_torch.ops import _build
 from layoutdit_tpu_torch.ops.boxes import box_area
@@ -103,9 +114,11 @@ def build_roi_weights(
     size_hw: tuple[int, int],
     output_size: int = 7,
     sampling_ratio: int = 2,
+    roi_mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-roi separable bilinear weights (Wy [R, P, H], Wx [R, P, W]) with
-    the g x g within-bin sample average folded in."""
+    the g x g within-bin sample average folded in. Wy rows of RoIs where
+    ``roi_mask`` [R] is False are zero."""
     h, w = size_hw
     p, g = output_size, sampling_ratio
     r = rois.float()
@@ -121,6 +134,8 @@ def build_roi_weights(
     n = r.shape[0]
     wy = _bilinear_weight_matrix(ys, h).reshape(n, p, g, h).mean(dim=2)
     wx = _bilinear_weight_matrix(xs, w).reshape(n, p, g, w).mean(dim=2)
+    if roi_mask is not None:
+        wy = wy * roi_mask[:, None, None].to(wy.dtype)
     return wy, wx
 
 
@@ -353,3 +368,142 @@ def multiscale_roi_align(
     if native_layout:
         return out
     return out.permute(0, 1, 4, 3, 2)
+
+
+# --------------------------------------------------------------- level atlas
+
+
+def _matmul(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """a @ b with fp32 sums, rounded once to ``dtype``: in ``dtype`` on the
+    card (cuBLAS sums bf16 products in fp32), through fp32 on the CPU."""
+    if a.is_cuda:
+        return torch.matmul(a.to(dtype), b.to(dtype))
+    return torch.matmul(a.float(), b.float()).to(dtype)
+
+
+def _pooled_native_fwd(feature: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor) -> torch.Tensor:
+    dtype = feature.dtype
+    *lead, c, h, w = feature.shape
+    k, p = wy.shape[-3:-1]
+    # step 1: t[k, py, c, w] = sum_h wy[k, py, h] f[c, h, w], rounded to dtype
+    f_hcw = feature.transpose(-3, -2).reshape(*lead, h, c * w)
+    t = _matmul(wy.to(dtype).reshape(*lead, k * p, h), f_hcw, dtype)
+    t = t.reshape(*lead, k, p * c, w)
+    # step 2: s[k, px, (py, c)] = sum_w wx[k, px, w] t[k, (py, c), w]
+    s = _matmul(wx.to(dtype), t.transpose(-1, -2), dtype)
+    return s.reshape(*lead, k, p, p, c)
+
+
+def _pooled_native_bwd(ds: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor,
+                       shape: torch.Size, dtype: torch.dtype) -> torch.Tensor:
+    *lead, c, h, w = shape
+    k, p = wy.shape[-3:-1]
+    ds = ds.to(dtype).reshape(*lead, k, p, p * c)  # [.., K, Px, (py, c)]
+    # dt[k, (py, c), w] = sum_px ds[k, px, (py, c)] wx[k, px, w], rounded to dtype
+    dt = _matmul(ds.transpose(-1, -2), wx.to(dtype), dtype)
+    # df[h, (c, w)] = sum_{k, p} wy[(k, p), h] dt[(k, p), (c, w)], fp32 sums
+    wy_t = wy.to(dtype).reshape(*lead, k * p, h).transpose(-1, -2)
+    df = _matmul(wy_t, dt.reshape(*lead, k * p, c * w), dtype)
+    return df.reshape(*lead, h, c, w).transpose(-3, -2).contiguous()
+
+
+class _PooledNative(torch.autograd.Function):
+    """``pooled_from_weights_native`` with the JAX package's custom VJP:
+    dF only, its [K, P, C, W] intermediate in the feature dtype; the
+    weights (from stop-gradient proposals) get none."""
+
+    @staticmethod
+    def forward(ctx, feature, wy, wx):
+        ctx.save_for_backward(wy, wx)
+        ctx.meta = (feature.shape, feature.dtype)
+        return _pooled_native_fwd(feature, wy, wx)
+
+    @staticmethod
+    def backward(ctx, ds):
+        wy, wx = ctx.saved_tensors
+        return _pooled_native_bwd(ds, wy, wx, *ctx.meta), None, None
+
+
+def pooled_from_weights_native(feature: torch.Tensor, wy: torch.Tensor,
+                               wx: torch.Tensor) -> torch.Tensor:
+    """pooled[k, px, py, c] = (Wy[k] F Wx[k]^T) as two dense products.
+
+    Args:
+      feature: [C, H, W], or [B, C, H, W] (a batch of images).
+      wy: [K, P, H] (or [B, K, P, H]); wx: [K, P, W] (or [B, K, P, W]),
+        both cast to the feature dtype.
+
+    Returns: [K, Px, Py, C] (or [B, K, Px, Py, C]) in the feature dtype;
+    each product sums in fp32 and the intermediate [K, Py, C, W] is
+    rounded to the feature dtype. Differentiable in ``feature`` only.
+    """
+    return _PooledNative.apply(feature, wy, wx)
+
+
+def pooled_from_weights(feature: torch.Tensor, wy: torch.Tensor,
+                        wx: torch.Tensor) -> torch.Tensor:
+    """torchvision layout: [..., K, C, Py, Px]."""
+    return pooled_from_weights_native(feature, wy, wx).transpose(-1, -3)
+
+
+def roi_align(
+    feature: torch.Tensor,
+    rois: torch.Tensor,
+    spatial_scale: float,
+    output_size: int = 7,
+    sampling_ratio: int = 2,
+    roi_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """RoIAlign of one level by separable weights: feature [C, H, W] and
+    rois [K, 4] (or [B, C, H, W] and [B, K, 4]) -> [..., K, C, P, P];
+    rows where ``roi_mask`` is False give zeros."""
+    lead = rois.shape[:-2]
+    k = rois.shape[-2]
+    mask = None if roi_mask is None else roi_mask.reshape(-1)
+    wy, wx = build_roi_weights(rois.reshape(-1, 4), spatial_scale, tuple(feature.shape[-2:]),
+                               output_size, sampling_ratio, roi_mask=mask)
+    p = output_size
+    return pooled_from_weights(feature, wy.reshape(*lead, k, p, -1), wx.reshape(*lead, k, p, -1))
+
+
+def roi_atlas(
+    features: list[torch.Tensor],
+    rois: torch.Tensor,
+    spatial_scales: list[float],
+    output_size: int = 7,
+    sampling_ratio: int = 2,
+    canonical_scale: float = 224.0,
+    canonical_level: int = 4,
+    roi_mask: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The level atlas of the JAX package's ``multiscale_roi_align``.
+
+    Args:
+      features: per level [B, C, H_l, W_l].
+      rois: [B, K, 4] xyxy in image coordinates; roi_mask: optional [B, K].
+
+    Returns (f_cat [B, C, sum H_l, W_max], wy_cat [B, K, P, sum H_l],
+    wx_cat [B, K, P, W_max]): the levels stacked along H with W zero-padded
+    to the widest level; each RoI's rows of wy at its assigned level's
+    offset (zero elsewhere), and its wx masked to that level too, since
+    the padded columns of other levels overlap its [0, W_l). So
+    ``pooled_from_weights_native(f_cat, wy_cat, wx_cat)`` is the
+    multiscale RoIAlign.
+    """
+    rois = rois.detach()
+    b, k = rois.shape[:2]
+    p = output_size
+    levels = roi_levels(rois, len(features), canonical_scale, canonical_level,
+                        roi_mask).reshape(-1)
+    w_max = max(f.shape[-1] for f in features)
+    f_cat = torch.cat([F.pad(f, (0, w_max - f.shape[-1])) for f in features], dim=-2)
+    wy_parts, wx_cat = [], None
+    for li, (f, scale) in enumerate(zip(features, spatial_scales)):
+        mask = levels == li
+        wy, wx = build_roi_weights(rois.reshape(-1, 4), scale, tuple(f.shape[-2:]), p,
+                                   sampling_ratio, roi_mask=mask)
+        wx = F.pad(wx * mask[:, None, None].to(wx.dtype), (0, w_max - wx.shape[-1]))
+        wy_parts.append(wy)
+        wx_cat = wx if wx_cat is None else wx_cat + wx
+    wy_cat = torch.cat(wy_parts, dim=-1)
+    return f_cat, wy_cat.reshape(b, k, p, -1), wx_cat.reshape(b, k, p, -1)
