@@ -116,6 +116,33 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+# a spin kernel of this many cycles (tens of ms) holds the stream while
+# the host queues the calls that _device_ms times
+SPIN_CYCLES = 100_000_000
+
+
+def _device_ms(fn, iters: int) -> float:
+    """Device time per call: the calls are queued behind a spin kernel, so
+    the card runs them back to back however long the host takes to launch
+    each (for a kernel of microseconds ``_time_ms`` measures the host).
+    Raises if the host took longer to queue them than the spin lasted."""
+    fn()
+    torch.cuda.synchronize()
+    spin, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    spin.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    if host_ms >= spin.elapsed_time(start):
+        raise RuntimeError("_device_ms: the spin ended before the calls were queued")
+    return start.elapsed_time(end) / iters
+
+
 def _check_close(name: str, got: torch.Tensor, want: torch.Tensor,
                  floor: float = 0.0, rel: float = BF16_REL_TOL) -> tuple[float, float]:
     """-> (max |got - want|, its tolerance); raises past the tolerance,
@@ -126,6 +153,11 @@ def _check_close(name: str, got: torch.Tensor, want: torch.Tensor,
     if not err <= tol:
         raise RuntimeError(f"{name}: kernel disagrees with its plain version")
     return err, tol
+
+
+def _print_share(label: str, ms: float, bound: float, by: str) -> None:
+    print(f"  {label}: {ms:.6g} ms, bound {bound:.6g} ms ({by}), "
+          f"share of the bound {bound / ms:.4f}")
 
 
 def _qkv(gen, b, n, h, d):
@@ -146,13 +178,17 @@ def _short_fwd_case(gen, b, n, h=12, d=64) -> dict:
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     nbytes = 4 * b * n * h * d * 2
     bound, by = _bound_ms(nbytes, 4 * b * h * n * n * d)
+    ms = _device_ms(lambda: sa.short_attention(q, k, v), 50)
+    _print_share(f"short_attention B={b} N={n}", ms, bound, by)
     return {
         "shape": f"B={b} N={n} H={h} D={d} bf16",
         "max_abs_err": err, "tolerance": tol,
-        "ms": _time_ms(lambda: sa.short_attention(q, k, v), 50),
+        "ms": ms,  # the card's time (_device_ms); call_ms with the host's
+        "call_ms": _time_ms(lambda: sa.short_attention(q, k, v), 50),
         "plain_ms": _time_ms(lambda: sa.short_attention_plain(q, k, v), 20),
-        "bound_ms": bound, "bound_by": by,
-        "library_ms": _time_ms(lambda: sdpa(qt, kt, vt), 50),
+        "bound_ms": bound, "bound_by": by, "bound_share": bound / ms,
+        "library_ms": _device_ms(lambda: sdpa(qt, kt, vt), 50),
+        "library_call_ms": _time_ms(lambda: sdpa(qt, kt, vt), 50),
     }
 
 
@@ -322,6 +358,8 @@ def _short_bwd_case(gen, b, n, h=12, d=64) -> dict:
     dqkv = torch.empty(b, n, 3 * h * d, dtype=torch.bfloat16, device="cuda")
     out = tuple(sa.split_qkv(dqkv, h))
     got = sa.short_attention_bwd(q, k, v, o, do, out=out)
+    again = torch.empty_like(dqkv)
+    sa.short_attention_bwd(q, k, v, o, do, out=tuple(sa.split_qkv(again, h)))
     want = sa.short_attention_bwd_plain(q, k, v, o, do)
     # at N=1 the softmax is constant, so dq and dk are 0 in exact
     # arithmetic: both sides give fp32 rounding noise of dO.v - dO.o (terms
@@ -331,6 +369,9 @@ def _short_bwd_case(gen, b, n, h=12, d=64) -> dict:
     errs, tols = zip(*(_check_close(f"short_attention_bwd B={b} N={n} {name}", g, w, floor)
                        for name, g, w in zip(("dq", "dk", "dv"), got, want)))
     del want
+    if not torch.equal(dqkv, again):
+        raise RuntimeError(f"short_attention_bwd B={b} N={n}: two runs gave different gradients")
+    del again
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
@@ -338,14 +379,18 @@ def _short_bwd_case(gen, b, n, h=12, d=64) -> dict:
     dot = do.transpose(1, 2)
     nbytes = 8 * b * n * h * d * 2  # q, k, v, o, dO in; dq, dk, dv out
     bound, by = _bound_ms(nbytes, 10 * b * h * n * n * d)
+    ms = _device_ms(lambda: sa.short_attention_bwd(q, k, v, o, do, out=out), 20)
+    _print_share(f"short_attention_bwd B={b} N={n}", ms, bound, by)
+    grad = lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)  # noqa: E731
     return {
         "shape": f"B={b} N={n} H={h} D={d} bf16, q/k/v and dq/dk/dv strided in fused [B, N, 3HD]",
         "max_abs_err": max(errs), "tolerance": tols[errs.index(max(errs))],
-        "ms": _time_ms(lambda: sa.short_attention_bwd(q, k, v, o, do, out=out), 20),
+        "ms": ms,  # the card's time (_device_ms); call_ms with the host's
+        "call_ms": _time_ms(lambda: sa.short_attention_bwd(q, k, v, o, do, out=out), 20),
         "plain_ms": _time_ms(lambda: sa.short_attention_bwd_plain(q, k, v, o, do), 5),
-        "bound_ms": bound, "bound_by": by,
-        "library_ms": _time_ms(
-            lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True), 20),
+        "bound_ms": bound, "bound_by": by, "bound_share": bound / ms,
+        "library_ms": _device_ms(grad, 20),
+        "library_call_ms": _time_ms(grad, 20),
     }
 
 
@@ -353,7 +398,8 @@ def phase_short_bwd(gen) -> dict:
     """Short attention backward at the 224 px train step's shape, and at
     the windowed 1024 px step's: q, k, v as strided views of one fused
     projection, the gradient written into one fused [B, N, 3*H*D] tensor,
-    against the plain version on the same bf16 inputs."""
+    against the plain version on the same bf16 inputs; a second run must
+    give the same bits (no atomics)."""
     entry = {
         "name": "short_attention_bwd", "route": "cuda",
         "source": "layoutdit_tpu_torch/csrc/short_attention.cu",
@@ -362,6 +408,7 @@ def phase_short_bwd(gen) -> dict:
     }
     for key, (b, n) in WINDOW_SHAPES.items():
         entry.update({f"{key}_{k}": v for k, v in _short_bwd_case(gen, b, n).items()})
+    print("  short_attention_bwd: two runs gave the same bits at every shape")
     return entry
 
 
@@ -1208,7 +1255,7 @@ def main() -> int:
     print(f"  built {list(_build.KERNELS)} in {time.perf_counter() - t0:.1f} s")
     for name in _build.KERNELS:
         for line in logs.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
+            if "Function properties" in line or "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)

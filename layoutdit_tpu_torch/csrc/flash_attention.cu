@@ -25,10 +25,7 @@
 // lse is fp32 [B*H, N]. Still simple: no TMA, no wgmma, no pipelining of
 // the tile loads.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-
-#include <cstdint>
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -36,74 +33,7 @@ constexpr int kBq = 64;
 constexpr int kBk = 64;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-using bf16 = __nv_bfloat16;
-
-struct Strides {
-  long long b, n, h;
-};
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-// c[16x8] += a[16x16] b[16x8], bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// rows [r0, r0 + 64) of a strided [N, D] slice -> smem tile (row pitch
-// D + 8), zero rows >= N
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long stride_n,
-                                          int r0, int n) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < 64 * kChunks; i += kThreads) {
-    const int rr = i / kChunks;
-    const int cc = i - rr * kChunks;
-    const int gr = r0 + rr;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < n) val = *reinterpret_cast<const uint4*>(src + gr * stride_n + cc * 8);
-    *reinterpret_cast<uint4*>(dst + rr * (D + 8) + cc * 8) = val;
-  }
-}
+static_assert(kBq == kChunk && kBk == kChunk, "the helpers' score tiles are kChunk wide");
 
 template <int D, bool kBias>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
@@ -127,7 +57,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const float scale2 = scale * kLog2e;
 
   // Q fragments, staged through k_s
-  load_tile<D>(k_s, q + b * qs.b + h * qs.h, qs.n, q0, N);
+  load_tile<D, kThreads>(k_s, q + b * qs.b + h * qs.h, qs.n, q0, N);
   __syncthreads();
   uint32_t qf[D / 16][4];
 #pragma unroll
@@ -143,8 +73,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const bf16* vb = v + b * vs.b + h * vs.h;
   for (int kv0 = 0; kv0 < N; kv0 += kBk) {
     __syncthreads();  // Q staging / previous tile fully read
-    load_tile<D>(k_s, kb, ks.n, kv0, N);
-    load_tile<D>(v_s, vb, vs.n, kv0, N);
+    load_tile<D, kThreads>(k_s, kb, ks.n, kv0, N);
+    load_tile<D, kThreads>(v_s, vb, vs.n, kv0, N);
     __syncthreads();
 
     // S = Q K^T: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys
@@ -283,109 +213,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 // [B, N, 3*H*D] gradient). The ragged edge is masked as in the forward:
 // key columns past N get P = 0 (the forward's -1e30 score), and query rows
 // past N are zero-filled with lse = delta = 0, so they add nothing. Still
-// simple: no TMA, no wgmma, no pipelining of the tile loads.
-
-// sum over d of a[d] * b[d] for one row of D bf16, split over the four
-// lanes of a quad (D/4 contiguous elements each) and reduced over them;
-// every lane of the warp must call it (zero when !valid)
-template <int D>
-__device__ __forceinline__ float quad_row_dot(const bf16* a, const bf16* b, bool valid,
-                                              int quad) {
-  float s = 0.f;
-  if (valid) {
-#pragma unroll
-    for (int c = 0; c < D / 32; ++c) {
-      const uint4 av = *reinterpret_cast<const uint4*>(a + quad * (D / 4) + c * 8);
-      const uint4 bv = *reinterpret_cast<const uint4*>(b + quad * (D / 4) + c * 8);
-      const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&av);
-      const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&bv);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 x = __bfloat1622float2(a2[e]);
-        const float2 y = __bfloat1622float2(b2[e]);
-        s = fmaf(x.x, y.x, s);
-        s = fmaf(x.y, y.y, s);
-      }
-    }
-  }
-  return quad_sum(s);
-}
-
-// A fragments of a warp's 16 rows of a staged [64, D] tile
-template <int D>
-__device__ __forceinline__ void load_a_frags(uint32_t (&f)[D / 16][4], const bf16* tile,
-                                             int warp, int lane) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldmatrix_x4(f[kk], tile + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
-}
-
-// x[16 x 64] = a[16 x D] t^T, where t is a staged [64, D] tile (rows are
-// the 64 output columns)
-template <int D>
-__device__ __forceinline__ void mma_abt(float (&x)[kBk / 8][4], const uint32_t (&a)[D / 16][4],
-                                        const bf16* t, int lane) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int j = 0; j < kBk / 8; ++j) x[j][0] = x[j][1] = x[j][2] = x[j][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int j = 0; j < kBk / 8; j += 2) {
-      uint32_t bt[4];
-      ldmatrix_x4(bt, t + (j * 8 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
-                          ((lane >> 3) & 1) * 8);
-      mma_bf16(x[j], a[kk], bt[0], bt[1]);
-      mma_bf16(x[j + 1], a[kk], bt[2], bt[3]);
-    }
-  }
-}
-
-// acc[16 x D] += x[16 x 64] t, where x is in score-accumulator layout
-// (rounded to bf16 here) and t is a staged [64, D] tile
-template <int D>
-__device__ __forceinline__ void mma_xt(float (&acc)[D / 8][4], const float (&x)[kBk / 8][4],
-                                       const bf16* t, int lane) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < kBk / 16; ++kk) {
-    const uint32_t xa[4] = {
-        pack_bf16(x[2 * kk][0], x[2 * kk][1]), pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-        pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-        pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-#pragma unroll
-    for (int nt = 0; nt < D / 8; nt += 2) {
-      uint32_t bt[4];
-      ldmatrix_x4_trans(bt, t + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + nt * 8 +
-                                (lane >> 4) * 8);
-      mma_bf16(acc[nt], xa, bt[0], bt[1]);
-      mma_bf16(acc[nt + 1], xa, bt[2], bt[3]);
-    }
-  }
-}
-
-// rows r0 (acc[.][0..1]) and r0 + 8 (acc[.][2..3]) of a warp's 16 x D
-// accumulator, times mul, as bf16 into a strided [N, D] slice
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, long long stride_n,
-                                           const float (&acc)[D / 8][4], int r0, int n, int quad,
-                                           float mul) {
-  if (r0 < n) {
-    bf16* g = dst + r0 * stride_n + 2 * quad;
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-      *reinterpret_cast<__nv_bfloat162*>(g + nt * 8) =
-          __floats2bfloat162_rn(acc[nt][0] * mul, acc[nt][1] * mul);
-  }
-  if (r0 + 8 < n) {
-    bf16* g = dst + (r0 + 8) * stride_n + 2 * quad;
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-      *reinterpret_cast<__nv_bfloat162*>(g + nt * 8) =
-          __floats2bfloat162_rn(acc[nt][2] * mul, acc[nt][3] * mul);
-  }
-}
+// simple: no TMA, no wgmma, no pipelining of the tile loads. The products
+// and tile helpers are in attention_mma.cuh.
 
 template <int D, bool kBias>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
@@ -423,8 +252,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   }
 
   // Q and dO fragments, staged through k_s and v_s
-  load_tile<D>(k_s, q + b * qs.b + h * qs.h, qs.n, q0, N);
-  load_tile<D>(v_s, dout + b * dos.b + h * dos.h, dos.n, q0, N);
+  load_tile<D, kThreads>(k_s, q + b * qs.b + h * qs.h, qs.n, q0, N);
+  load_tile<D, kThreads>(v_s, dout + b * dos.b + h * dos.h, dos.n, q0, N);
   __syncthreads();
   uint32_t qf[D / 16][4], df[D / 16][4];
   load_a_frags<D>(qf, k_s, warp, lane);
@@ -438,8 +267,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const bf16* vb = v + b * vs.b + h * vs.h;
   for (int kv0 = 0; kv0 < N; kv0 += kBk) {
     __syncthreads();  // staging / previous tile fully read
-    load_tile<D>(k_s, kb, ks.n, kv0, N);
-    load_tile<D>(v_s, vb, vs.n, kv0, N);
+    load_tile<D, kThreads>(k_s, kb, ks.n, kv0, N);
+    load_tile<D, kThreads>(v_s, vb, vs.n, kv0, N);
     __syncthreads();
 
     float s[kBk / 8][4], dp[kBk / 8][4];
@@ -490,8 +319,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
   const float scale2 = scale * kLog2e;
 
   // K and V fragments, staged through q_s and do_s
-  load_tile<D>(q_s, k + b * ks.b + h * ks.h, ks.n, k0, N);
-  load_tile<D>(do_s, v + b * vs.b + h * vs.h, vs.n, k0, N);
+  load_tile<D, kThreads>(q_s, k + b * ks.b + h * ks.h, ks.n, k0, N);
+  load_tile<D, kThreads>(do_s, v + b * vs.b + h * vs.h, vs.n, k0, N);
   __syncthreads();
   uint32_t kf[D / 16][4], vf[D / 16][4];
   load_a_frags<D>(kf, q_s, warp, lane);
@@ -510,8 +339,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
   const float* dl_bh = delta + static_cast<long long>(bh) * N;
   for (int q0 = 0; q0 < N; q0 += kBq) {
     __syncthreads();  // staging / previous tile fully read
-    load_tile<D>(q_s, qb, qs.n, q0, N);
-    load_tile<D>(do_s, dob, dos.n, q0, N);
+    load_tile<D, kThreads>(q_s, qb, qs.n, q0, N);
+    load_tile<D, kThreads>(do_s, dob, dos.n, q0, N);
     for (int i = threadIdx.x; i < kBq; i += kThreads) {
       const int r = q0 + i;
       lse_s[i] = r < N ? lse_bh[r] * kLog2e : 0.f;
@@ -609,10 +438,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dbias_kernel(
   for (int b = 0; b < B; ++b) {
     const long long bh = static_cast<long long>(b) * H + h;
     __syncthreads();  // previous batch element's tiles fully read
-    load_tile<D>(q_s, q + b * qs.b + h * qs.h, qs.n, q0, N);
-    load_tile<D>(do_s, dout + b * dos.b + h * dos.h, dos.n, q0, N);
-    load_tile<D>(k_s, k + b * ks.b + h * ks.h, ks.n, kv0, N);
-    load_tile<D>(v_s, v + b * vs.b + h * vs.h, vs.n, kv0, N);
+    load_tile<D, kThreads>(q_s, q + b * qs.b + h * qs.h, qs.n, q0, N);
+    load_tile<D, kThreads>(do_s, dout + b * dos.b + h * dos.h, dos.n, q0, N);
+    load_tile<D, kThreads>(k_s, k + b * ks.b + h * ks.h, ks.n, kv0, N);
+    load_tile<D, kThreads>(v_s, v + b * vs.b + h * vs.h, vs.n, kv0, N);
     // lse (exp2 domain) and delta of this lane's two rows; zero past N
     const float lse0 = row0 < N ? lse[bh * N + row0] * kLog2e : 0.f;
     const float lse1 = row1 < N ? lse[bh * N + row1] * kLog2e : 0.f;

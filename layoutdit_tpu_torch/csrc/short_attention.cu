@@ -1,110 +1,239 @@
 // Short-sequence attention, forward and backward, for Hopper (sm_90a),
-// plain C interface. The backward's notes are above its kernel below.
+// plain C interface, on the tensor cores. The backward's notes are above
+// its kernel below; the products and tile helpers are in attention_mma.cuh,
+// shared with the flash kernels.
 //
-// Replaces layoutdit_tpu/ops/short_attention.py::_fwd_kernel (via
+// Forward. Replaces layoutdit_tpu/ops/short_attention.py::_fwd_kernel (via
 // _short_fwd): softmax(Q K^T * scale) V for one head whose whole sequence
-// fits one tile (N <= 256; the 224 px bucket has N = 197, D = 64).
+// fits on the chip (N <= 256). The paths run it at D = 64 with N = 197 (224
+// px), 256 (16 x 16 windows) and 1 (the CLS token of a windowed layer).
 //
-// Bound on the H100: bytes. At B=4, H=12, N=197, D=64 the function reads
-// 3.6 MB and writes 1.2 MB, while its 0.48 GFLOP are tiny, so it should take
-// microseconds; the cost is launch and latency. The design stages the
-// head's K and V once in shared memory (<= 2 x 33 KB), reads Q/K/V straight
-// from the [B, N, H, D] strides of the fused QKV projection (no transpose
-// copies), and keeps every score in shared memory: one warp per query
-// row, scores in fp32, a single-pass softmax (the row fits, so no running
-// max), then P V. K rows are padded by two elements so lanes reading
-// different keys hit different banks. Output is bf16 [B, N, H, D].
+// Bound on the H100: bytes, barely. At B=64, H=12, N=256, D=64 the function
+// moves 100 MB (Q, K, V in, O out: 0.030 ms at 3.35 TB/s) and does 12.9
+// GFLOP (0.013 ms at the bf16 peak), so it needs the tensor cores at a third
+// of their peak to reach the bytes. The design:
+//   - A block owns 128 query rows of one head (8 warps x 16 rows) and stages
+//     the head's whole K and V once in shared memory (N rounded up to 16
+//     rows, pitch D + 8: 74 KB at N = 256, D = 64) with cp.async, 16 bytes a
+//     thread, one commit group per 64-key chunk, so the first chunk's
+//     products start while the others land. The blocks of one head are
+//     adjacent in the grid and read K and V from L2 after the first. (64
+//     rows a block re-read K and V twice as often and were slower at N =
+//     256; 256 rows, one block a head, were slower at both shapes.)
+//   - Each warp holds its Q fragments (loaded straight from device memory
+//     in mma.sync's A layout), a 16 x 64 fp32 score tile and its 16 x D
+//     fp32 output accumulator in registers. S = Q K^T and O += P V run on
+//     mma.sync m16n8k16 (bf16 in, fp32 accumulate; K and V through
+//     ldmatrix), and P is the score accumulators rounded to bf16 as the A
+//     operand, as in the flash forward. The softmax is the online one over
+//     at most four 64-key chunks of the resident K/V (a single pass over a
+//     16 x 256 fp32 row block would take 128 registers a thread for the
+//     scores alone), in the exp2 domain, with few instructions beside the
+//     products: the scale folded into one FFMA per score, ex2.approx, the
+//     mask only in the chunk that crosses N.
+//   - The ragged edge is masked in the kernel: K/V rows past N are
+//     zero-filled in shared memory and their scores set to -1e30, the TPU
+//     kernel's finite NEG_INF; the products skip the 16-key steps past the
+//     last one holding a key; query rows past N are zero and not written.
+//   - Q, K, V are read through the [B, N, H, D] strides of the fused QKV
+//     projection, O is written in that layout. D is a template parameter:
+//     32, 64 and 128 are compiled.
+// Occupancy (ptxas, D = 64): 125 registers, no spill; two blocks (16 warps)
+// an SM, bound by registers (74 KB of shared memory at N = 256, 60 KB at
+// 197). Not done yet: wgmma, TMA, warp specialisation.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "attention_mma.cuh"
 
 namespace {
 
-constexpr int kRowsPerBlock = 64;
-constexpr int kWarps = 8;
 constexpr int kMaxN = 256;
-constexpr int kMaxD = 128;
+constexpr int kFwdWarps = 8;
+constexpr int kFwdThreads = kFwdWarps * 32;
+constexpr int kFwdRows = kFwdWarps * 16;
+constexpr int kBwdWarps = 4;
+constexpr int kBwdThreads = kBwdWarps * 32;
 
-struct Strides {
-  long long b, n, h;
-};
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  // src-size 0 fills the 16 bytes with zeros and reads nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-__global__ void __launch_bounds__(kWarps * 32) short_attention_fwd_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-    int H, int N, int D, Strides qs, Strides ks, Strides vs, Strides os,
-    float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int kst = D + 2;  // padded K row: conflict-free column reads
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* v_s = k_s + N * kst;
-  float* q_s = reinterpret_cast<float*>(v_s + N * D);  // [kWarps][D]
-  float* p_s = q_s + kWarps * D;                        // [kWarps][N]
-
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x - b * H;
-  const __nv_bfloat16* kb = k + b * ks.b + h * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + h * vs.h;
-  for (int idx = threadIdx.x; idx < N * D; idx += blockDim.x) {
-    const int j = idx / D;
-    const int d = idx - j * D;
-    k_s[j * kst + d] = kb[j * ks.n + d];
-    v_s[j * D + d] = vb[j * vs.n + d];
+// wait until at most `pending` (0-3) of this thread's commit groups are in
+// flight
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
   }
-  __syncthreads();
+}
+
+// 2^x in one MUFU instruction (exp2f adds a denormal range fix); 0 for the
+// -1e30-scaled scores of masked keys
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// rows [r0, r0 + rows) of a strided [N, D] slice -> rows [r0, r0 + rows)
+// of a shared memory buffer (pitch D + 8) with cp.async, zero rows >= n;
+// Threads threads of the block take part
+template <int D, int Threads>
+__device__ __forceinline__ void stage_rows(bf16* buf, const bf16* src, long long stride_n,
+                                           int r0, int rows, int n) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < rows * kChunks; i += Threads) {
+    const int rr = r0 + i / kChunks;
+    const int cc = i % kChunks;
+    const bool valid = rr < n;
+    cp_async16(buf + rr * (D + 8) + cc * 8, src + (valid ? rr * stride_n : 0) + cc * 8, valid);
+  }
+}
+
+// A fragments of rows [r0, r0 + 16) of a strided [N, D] slice, read straight
+// from device memory (zero rows >= n): lane l holds rows r0 + l/4 and
+// r0 + l/4 + 8 at columns 2 (l % 4) and 2 (l % 4) + 8 of each 16 columns
+template <int D>
+__device__ __forceinline__ void load_a_frags_global(uint32_t (&f)[D / 16][4], const bf16* src,
+                                                    long long stride_n, int r0, int n,
+                                                    int lane) {
+  const int ra = r0 + (lane >> 2);
+  const int rb = ra + 8;
+  const uint32_t* pa = reinterpret_cast<const uint32_t*>(src + ra * stride_n + 2 * (lane & 3));
+  const uint32_t* pb = reinterpret_cast<const uint32_t*>(src + rb * stride_n + 2 * (lane & 3));
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    f[kk][0] = ra < n ? pa[kk * 8] : 0u;
+    f[kk][1] = rb < n ? pb[kk * 8] : 0u;
+    f[kk][2] = ra < n ? pa[kk * 8 + 4] : 0u;
+    f[kk][3] = rb < n ? pb[kk * 8 + 4] : 0u;
+  }
+}
+
+// scores of keys >= n in a 64-key chunk from kv0 (score-accumulator
+// layout) -> -1e30, the TPU kernel's finite NEG_INF
+__device__ __forceinline__ void mask_keys(float (&s)[kChunk / 8][4], int kv0, int n, int quad) {
+#pragma unroll
+  for (int j = 0; j < kChunk / 8; ++j) {
+    const int key = kv0 + j * 8 + 2 * quad;
+    if (key >= n) s[j][0] = s[j][2] = kNegInf;
+    if (key + 1 >= n) s[j][1] = s[j][3] = kNegInf;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads) short_attention_fwd_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ o, int H, int N, Strides qs, Strides ks, Strides vs, Strides os,
+    float scale) {
+  constexpr int LD = D + 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n16 = (N + 15) & ~15;
+  bf16* k_s = reinterpret_cast<bf16*>(smem);
+  bf16* v_s = k_s + n16 * LD;
+
+  // the blocks of one head are adjacent: they share K and V through L2
+  const int tiles = (N + kFwdRows - 1) / kFwdRows;
+  const int bh = blockIdx.x / tiles;
+  const int q0 = (blockIdx.x - bh * tiles) * kFwdRows;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const bf16* kb = k + b * ks.b + h * ks.h;
+  const bf16* vb = v + b * vs.b + h * vs.h;
+
+  // K and V of the head, one commit group per 64-key chunk; always four
+  // groups (empty ones complete at once), so chunk c waits for 3 - c
+  const int chunks = (N + kChunk - 1) / kChunk;
+  for (int c = 0; c < kMaxN / kChunk; ++c) {
+    if (c < chunks) {
+      const int rows = min(kChunk, n16 - c * kChunk);
+      stage_rows<D, kFwdThreads>(k_s, kb, ks.n, c * kChunk, rows, N);
+      stage_rows<D, kFwdThreads>(v_s, vb, vs.n, c * kChunk, rows, N);
+    }
+    cp_async_commit();
+  }
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  float* qw = q_s + warp * D;
-  float* pw = p_s + warp * N;
-  const int row_end = min(N, (int)(blockIdx.y + 1) * kRowsPerBlock);
-  for (int r = blockIdx.y * kRowsPerBlock + warp; r < row_end; r += kWarps) {
-    const __nv_bfloat16* qr = q + b * qs.b + r * qs.n + h * qs.h;
-    for (int d = lane; d < D; d += 32) qw[d] = __bfloat162float(qr[d]);
-    __syncwarp();
+  const int quad = lane & 3;
+  const int t0 = q0 + warp * 16;  // this warp's first query row
+  const int row0 = t0 + (lane >> 2);
+  const bool active = t0 < N;
+  const float scale2 = scale * kLog2e;
 
-    float m = -1e30f;
-    for (int j = lane; j < N; j += 32) {
-      const __nv_bfloat162* kr = reinterpret_cast<const __nv_bfloat162*>(k_s + j * kst);
-      float s = 0.f;
-      for (int d2 = 0; d2 < D / 2; ++d2) {
-        const float2 kv = __bfloat1622float2(kr[d2]);
-        s = fmaf(qw[2 * d2], kv.x, s);
-        s = fmaf(qw[2 * d2 + 1], kv.y, s);
-      }
-      s *= scale;
-      pw[j] = s;
-      m = fmaxf(m, s);
-    }
-    m = warp_max(m);
-    float l = 0.f;
-    for (int j = lane; j < N; j += 32) {
-      const float p = expf(pw[j] - m);
-      pw[j] = p;
-      l += p;
-    }
-    l = warp_sum(l);
-    __syncwarp();
+  uint32_t qf[D / 16][4];
+  load_a_frags_global<D>(qf, q + b * qs.b + h * qs.h, qs.n, t0, N, lane);
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
-    const float inv = 1.f / l;
-    __nv_bfloat16* orow = o + b * os.b + r * os.n + h * os.h;
-    for (int d = lane; d < D; d += 32) {
-      float acc = 0.f;
-      for (int j = 0; j < N; ++j) acc = fmaf(pw[j], __bfloat162float(v_s[j * D + d]), acc);
-      orow[d] = __float2bfloat16(acc * inv);
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait(kMaxN / kChunk - 1 - c);
+    __syncthreads();  // chunk c of K and V has landed, from every thread
+    if (!active) continue;
+    const int kv0 = c * kChunk;
+    const int rows = min(kChunk, n16 - kv0);
+
+    float s[kChunk / 8][4];
+    mma_abt<D>(s, qf, k_s + kv0 * LD, lane, rows);  // S = Q K^T
+    // mask the ragged edge (the last chunk only), online softmax in the
+    // exp2 domain with the scale folded into one FFMA (scale > 0, so the
+    // raw scores' max is the scaled scores' max)
+    if (kv0 + kChunk > N) mask_keys(s, kv0, N, quad);
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int j = 0; j < kChunk / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
     }
-    __syncwarp();
+    const float mn0 = fmaxf(m0, quad_max(mx0) * scale2);
+    const float mn1 = fmaxf(m1, quad_max(mx1) * scale2);
+    const float corr0 = ex2(m0 - mn0);
+    const float corr1 = ex2(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < kChunk / 8; ++j) {
+      s[j][0] = ex2(fmaf(s[j][0], scale2, -m0));
+      s[j][1] = ex2(fmaf(s[j][1], scale2, -m0));
+      s[j][2] = ex2(fmaf(s[j][2], scale2, -m1));
+      s[j][3] = ex2(fmaf(s[j][3], scale2, -m1));
+      ps0 += s[j][0] + s[j][1];
+      ps1 += s[j][2] + s[j][3];
+    }
+    l0 = l0 * corr0 + ps0;  // per-lane partial; reduced over the quad at the end
+    l1 = l1 * corr1 + ps1;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      acc[nt][0] *= corr0;
+      acc[nt][1] *= corr0;
+      acc[nt][2] *= corr1;
+      acc[nt][3] *= corr1;
+    }
+    mma_xt<D>(acc, s, v_s + kv0 * LD, lane, rows);  // O += P V
   }
+  if (!active) return;
+
+  const float inv0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
+  const float inv1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+    acc[nt][0] *= inv0;
+    acc[nt][1] *= inv0;
+    acc[nt][2] *= inv1;
+    acc[nt][3] *= inv1;
+  }
+  store_rows<D>(o + b * os.b + h * os.h, os.n, acc, row0, N, quad, 1.f);
 }
 
 // Backward. Replaces layoutdit_tpu/ops/short_attention.py::_bwd_kernel (via
@@ -112,147 +241,239 @@ __global__ void __launch_bounds__(kWarps * 32) short_attention_fwd_kernel(
 // recomputes P = softmax(Q K^T * scale) and emits
 //   dV = P^T dO,  dS = P o (dO V^T - rowsum(dO o O)),
 //   dQ = dS K * scale,  dK = dS^T Q * scale,
-// with every product accumulated in fp32 and no N x N tensor in device
+// with every product on the tensor cores and no N x N tensor in device
 // memory.
 //
-// Bound on the H100: bytes (8 tensors of B*N*H*D bf16 cross device memory,
-// against ~10*N^2*D FLOPs per head). One block per (b, h) stages Q, K, V
-// and dO in shared memory (4 x N x (D+2) bf16, 104 KB at N=197, D=64; rows
-// padded by two elements so lanes reading different rows hit different
-// banks) and runs two phases without atomics or fp32 accumulators in
-// shared memory:
-//   A. one warp per query row i: scores s_i. and dP_i. = dO_i V^T into
-//      per-warp buffers, the row's softmax, delta_i = rowsum(dO_i o O_i),
-//      dS_i., then dQ_i; lse_i and delta_i stay in shared memory;
-//   B. one warp per key row j: P_.j = exp(s_.j - lse) and dS_.j again from
-//      the staged rows, then dV_j = sum_i P_ij dO_i and
-//      dK_j = scale * sum_i dS_ij Q_i.
-// The scores are computed twice (tiny next to the bytes); each gradient row
-// is written once, as bf16, straight into the fused [B, N, 3*H*D] gradient
-// of the QKV projection through the strides given for dq, dk and dv.
-constexpr int kBwdWarps = 16;
-
-__device__ __forceinline__ float dot_row(const float* __restrict__ x,
-                                         const __nv_bfloat16* __restrict__ row, int D) {
-  const __nv_bfloat162* r2 = reinterpret_cast<const __nv_bfloat162*>(row);
-  float s = 0.f;
-  for (int d2 = 0; d2 < D / 2; ++d2) {
-    const float2 v = __bfloat1622float2(r2[d2]);
-    s = fmaf(x[2 * d2], v.x, s);
-    s = fmaf(x[2 * d2 + 1], v.y, s);
-  }
-  return s;
-}
-
-__global__ void __launch_bounds__(kBwdWarps * 32) short_attention_bwd_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
-    const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dq,
-    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int H, int N, int D,
-    Strides qs, Strides ks, Strides vs, Strides os, Strides dos, Strides dqs,
-    Strides dks, Strides dvs, float scale) {
+// Bound on the H100: bytes, barely. At B=64, N=256, H=12, D=64 it moves 8
+// tensors of B*N*H*D bf16 (201 MB: 0.060 ms at 3.35 TB/s) and does 8
+// products of 2*N^2*D a head (51.5 GFLOP: 0.052 ms at the bf16 peak). The
+// design: one block per (b, h), 4 warps, two phases, every gradient row
+// summed in one block and written once as bf16: no atomics, the same bits
+// every run.
+//   Staged once with cp.async (N rounded up to 16 rows, pitch D + 8, rows
+//   past N zero): K, V and Q of the head, 3 x 37 KB at N = 256, D = 64
+//   (plus 2 KB of lse and delta), so two blocks fit an SM; 208 KB at D = 128.
+//   A. per 16-row query tile (a warp each, in turn): Q fragments by
+//      ldmatrix, dO fragments straight from device memory, delta =
+//      rowsum(dO o O) from O and dO rows; a first sweep of the 64-key
+//      chunks forms S = Q K^T for the row's max and sum (lse), a second
+//      forms S and dP = dO V^T again, dS = P o (dP - delta), and
+//      dQ += dS K. lse and delta go to shared memory.
+//   Then dO is staged where V was.
+//   B. per 16-row key tile: K fragments by ldmatrix, V fragments from
+//      device memory; per 64-query chunk S^T = K Q^T and dP^T = V dO^T,
+//      P^T = exp(S^T - lse) and dS^T, dV += P^T dO and dK += dS^T Q.
+// P and dS are rounded to bf16 as A operands, as in the flash backward;
+// the accumulators are fp32 registers. The ragged edge: keys past N get
+// P = 0, query rows past N are zero (dO too, so dS = 0) and masked in B.
+// Q, K, V, O and dO are read through their [B, N, H, D] strides and dq,
+// dk, dv written through the strides given (the slices of one fused
+// [B, N, 3*H*D] gradient). The lse costs an eighth product (the TPU
+// kernel's single-pass softmax keeps the whole [Np, Np] tile in VMEM);
+// taking it from the forward would change the forward's interface.
+// Occupancy (ptxas, D = 64): 224 registers, no spill, and 113 KB of shared
+// memory at N = 256: two blocks (8 warps) an SM. D = 128 keeps twice the
+// fragments and accumulators in phase B and spills (255 registers, a
+// 152-byte stack). Not done yet: wgmma, TMA, warp specialisation, the
+// forward's lse (saves the eighth product), a head split over blocks (at
+// B=16, N=197 the 192 blocks run in one wave, each one head's whole
+// backward).
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads) short_attention_bwd_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ o, const bf16* __restrict__ dout, bf16* __restrict__ dq,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int N, Strides qs, Strides ks,
+    Strides vs, Strides os, Strides dos, Strides dqs, Strides dks, Strides dvs, float scale) {
+  constexpr int LD = D + 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int st = D + 2;  // padded row
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* k_s = q_s + N * st;
-  __nv_bfloat16* v_s = k_s + N * st;
-  __nv_bfloat16* do_s = v_s + N * st;
-  float* lse_s = reinterpret_cast<float*>(do_s + N * st);  // [N]
-  float* delta_s = lse_s + N;                              // [N]
-  float* warp_s = delta_s + N;  // per warp: x0[D], x1[D], b0[N], b1[N]
+  const int n16 = (N + 15) & ~15;
+  bf16* k_s = reinterpret_cast<bf16*>(smem);
+  bf16* v_s = k_s + n16 * LD;  // V in phase A, dO in phase B
+  bf16* q_s = v_s + n16 * LD;
+  // lse (exp2 domain) and delta per query row; kMaxN entries, zero past N,
+  // so a 64-query chunk never indexes past them nor reads garbage
+  float* lse_s = reinterpret_cast<float*>(q_s + n16 * LD);
+  float* dl_s = lse_s + kMaxN;
 
   const int b = blockIdx.x / H;
   const int h = blockIdx.x - b * H;
-  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
-  const __nv_bfloat16* kb = k + b * ks.b + h * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + h * vs.h;
-  const __nv_bfloat16* dob = dout + b * dos.b + h * dos.h;
-  for (int idx = threadIdx.x; idx < N * D; idx += blockDim.x) {
-    const int j = idx / D;
-    const int d = idx - j * D;
-    q_s[j * st + d] = qb[j * qs.n + d];
-    k_s[j * st + d] = kb[j * ks.n + d];
-    v_s[j * st + d] = vb[j * vs.n + d];
-    do_s[j * st + d] = dob[j * dos.n + d];
-  }
-  __syncthreads();
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* kb = k + b * ks.b + h * ks.h;
+  const bf16* vb = v + b * vs.b + h * vs.h;
+  const bf16* ob = o + b * os.b + h * os.h;
+  const bf16* dob = dout + b * dos.b + h * dos.h;
+  stage_rows<D, kBwdThreads>(k_s, kb, ks.n, 0, n16, N);
+  stage_rows<D, kBwdThreads>(v_s, vb, vs.n, 0, n16, N);
+  stage_rows<D, kBwdThreads>(q_s, qb, qs.n, 0, n16, N);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < 2 * kMaxN; i += kBwdThreads) lse_s[i] = 0.f;
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  float* x0 = warp_s + warp * (2 * D + 2 * N);
-  float* x1 = x0 + D;
-  float* b0 = x1 + D;
-  float* b1 = b0 + N;
-
-  // phase A: dQ, lse and delta per query row
-  for (int i = warp; i < N; i += kBwdWarps) {
-    const __nv_bfloat16* orow = o + b * os.b + i * os.n + h * os.h;
-    float dl = 0.f;
-    for (int d = lane; d < D; d += 32) {
-      x0[d] = __bfloat162float(q_s[i * st + d]);
-      const float g = __bfloat162float(do_s[i * st + d]);
-      x1[d] = g;
-      dl = fmaf(g, __bfloat162float(orow[d]), dl);
-    }
-    dl = warp_sum(dl);
-    __syncwarp();
-    float m = -1e30f;
-    for (int j = lane; j < N; j += 32) {
-      const float s = dot_row(x0, k_s + j * st, D) * scale;
-      b0[j] = s;
-      b1[j] = dot_row(x1, v_s + j * st, D);
-      m = fmaxf(m, s);
-    }
-    m = warp_max(m);
-    float l = 0.f;
-    for (int j = lane; j < N; j += 32) l += expf(b0[j] - m);
-    l = warp_sum(l);
-    const float inv = 1.f / l;
-    for (int j = lane; j < N; j += 32) {
-      const float p = expf(b0[j] - m) * inv;
-      b0[j] = p * (b1[j] - dl);  // dS_ij
-    }
-    if (lane == 0) {
-      lse_s[i] = m + logf(l);
-      delta_s[i] = dl;
-    }
-    __syncwarp();
-    __nv_bfloat16* dqrow = dq + b * dqs.b + i * dqs.n + h * dqs.h;
-    for (int d = lane; d < D; d += 32) {
-      float acc = 0.f;
-      for (int j = 0; j < N; ++j) acc = fmaf(b0[j], __bfloat162float(k_s[j * st + d]), acc);
-      dqrow[d] = __float2bfloat16(acc * scale);
-    }
-    __syncwarp();
-  }
+  const int quad = lane & 3;
+  const int tiles = n16 / 16;
+  const float scale2 = scale * kLog2e;
+  cp_async_wait(0);
   __syncthreads();
 
-  // phase B: dK and dV per key row
-  for (int j = warp; j < N; j += kBwdWarps) {
-    for (int d = lane; d < D; d += 32) {
-      x0[d] = __bfloat162float(k_s[j * st + d]);
-      x1[d] = __bfloat162float(v_s[j * st + d]);
-    }
-    __syncwarp();
-    for (int i = lane; i < N; i += 32) {
-      const float p = expf(dot_row(x0, q_s + i * st, D) * scale - lse_s[i]);
-      b0[i] = p;
-      b1[i] = p * (dot_row(x1, do_s + i * st, D) - delta_s[i]);  // dS_ij
-    }
-    __syncwarp();
-    __nv_bfloat16* dvrow = dv + b * dvs.b + j * dvs.n + h * dvs.h;
-    __nv_bfloat16* dkrow = dk + b * dks.b + j * dks.n + h * dks.h;
-    for (int d = lane; d < D; d += 32) {
-      float av = 0.f, ak = 0.f;
-      for (int i = 0; i < N; ++i) {
-        av = fmaf(b0[i], __bfloat162float(do_s[i * st + d]), av);
-        ak = fmaf(b1[i], __bfloat162float(q_s[i * st + d]), ak);
+  // phase A: lse, delta and dQ per 16-row query tile
+  for (int t = warp; t < tiles; t += kBwdWarps) {
+    const int row0 = t * 16 + (lane >> 2);
+    const int row1 = row0 + 8;
+    uint32_t qf[D / 16][4], df[D / 16][4];
+    load_a_frags<D>(qf, q_s, t, lane);
+    load_a_frags_global<D>(df, dob, dos.n, t * 16, N, lane);
+    const float dl0 = quad_row_dot<D>(ob + row0 * os.n, dob + row0 * dos.n, row0 < N, quad);
+    const float dl1 = quad_row_dot<D>(ob + row1 * os.n, dob + row1 * dos.n, row1 < N, quad);
+
+    // the row's max and sum over every key
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+    for (int kv0 = 0; kv0 < n16; kv0 += kChunk) {
+      const int rows = min(kChunk, n16 - kv0);
+      float s[kChunk / 8][4];
+      mma_abt<D>(s, qf, k_s + kv0 * LD, lane, rows);
+      if (kv0 + kChunk > N) mask_keys(s, kv0, N, quad);
+      float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+      for (int j = 0; j < kChunk / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
       }
-      dvrow[d] = __float2bfloat16(av);
-      dkrow[d] = __float2bfloat16(ak * scale);
+      const float mn0 = fmaxf(m0, quad_max(mx0) * scale2);
+      const float mn1 = fmaxf(m1, quad_max(mx1) * scale2);
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < kChunk / 8; ++j) {
+        ps0 += ex2(fmaf(s[j][0], scale2, -mn0)) + ex2(fmaf(s[j][1], scale2, -mn0));
+        ps1 += ex2(fmaf(s[j][2], scale2, -mn1)) + ex2(fmaf(s[j][3], scale2, -mn1));
+      }
+      l0 = l0 * ex2(m0 - mn0) + ps0;
+      l1 = l1 * ex2(m1 - mn1) + ps1;
+      m0 = mn0;
+      m1 = mn1;
     }
-    __syncwarp();
+    const float lse0 = m0 + log2f(quad_sum(l0));
+    const float lse1 = m1 + log2f(quad_sum(l1));
+
+    float acc[D / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+    for (int kv0 = 0; kv0 < n16; kv0 += kChunk) {
+      const int rows = min(kChunk, n16 - kv0);
+      float s[kChunk / 8][4], dp[kChunk / 8][4];
+      mma_abt<D>(s, qf, k_s + kv0 * LD, lane, rows);   // S = Q K^T
+      mma_abt<D>(dp, df, v_s + kv0 * LD, lane, rows);  // dP = dO V^T
+      // dS = P o (dP - delta), P = exp(S * scale - lse), 0 past N
+      if (kv0 + kChunk > N) mask_keys(s, kv0, N, quad);
+#pragma unroll
+      for (int j = 0; j < kChunk / 8; ++j) {
+        s[j][0] = ex2(fmaf(s[j][0], scale2, -lse0)) * (dp[j][0] - dl0);
+        s[j][1] = ex2(fmaf(s[j][1], scale2, -lse0)) * (dp[j][1] - dl0);
+        s[j][2] = ex2(fmaf(s[j][2], scale2, -lse1)) * (dp[j][2] - dl1);
+        s[j][3] = ex2(fmaf(s[j][3], scale2, -lse1)) * (dp[j][3] - dl1);
+      }
+      mma_xt<D>(acc, s, k_s + kv0 * LD, lane, rows);  // dQ += dS K
+    }
+    store_rows<D>(dq + b * dqs.b + h * dqs.h, dqs.n, acc, row0, N, quad, scale);
+    if (quad == 0) {
+      lse_s[row0] = row0 < N ? lse0 : 0.f;
+      lse_s[row1] = row1 < N ? lse1 : 0.f;
+      dl_s[row0] = dl0;  // 0 past N
+      dl_s[row1] = dl1;
+    }
   }
+  __syncthreads();  // lse and delta written; V no longer read
+
+  stage_rows<D, kBwdThreads>(v_s, dob, dos.n, 0, n16, N);  // dO where V was
+  cp_async_commit();
+  cp_async_wait(0);
+  __syncthreads();
+  const bf16* do_s = v_s;
+
+  // phase B: dK and dV per 16-row key tile
+  for (int t = warp; t < tiles; t += kBwdWarps) {
+    const int key0 = t * 16 + (lane >> 2);
+    const int key1 = key0 + 8;
+    uint32_t kf[D / 16][4], vf[D / 16][4];
+    load_a_frags<D>(kf, k_s, t, lane);
+    load_a_frags_global<D>(vf, vb, vs.n, t * 16, N, lane);
+    float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      dka[nt][0] = dka[nt][1] = dka[nt][2] = dka[nt][3] = 0.f;
+      dva[nt][0] = dva[nt][1] = dva[nt][2] = dva[nt][3] = 0.f;
+    }
+    for (int q0 = 0; q0 < n16; q0 += kChunk) {
+      const int rows = min(kChunk, n16 - q0);
+      float s[kChunk / 8][4], dp[kChunk / 8][4];
+      mma_abt<D>(s, kf, q_s + q0 * LD, lane, rows);    // S^T = K Q^T
+      mma_abt<D>(dp, vf, do_s + q0 * LD, lane, rows);  // dP^T = V dO^T
+      // P^T and dS^T = P^T o (dP^T - delta), 0 past N on either side
+      // (queries: the masked chunk; keys: this tile's rows past N)
+      if (q0 + kChunk > N) mask_keys(s, q0, N, quad);
+#pragma unroll
+      for (int j = 0; j < kChunk / 8; ++j) {
+        const int qi = q0 + j * 8 + 2 * quad;
+        const float2 ls = *reinterpret_cast<const float2*>(lse_s + qi);
+        const float2 dl = *reinterpret_cast<const float2*>(dl_s + qi);
+        s[j][0] = key0 < N ? ex2(fmaf(s[j][0], scale2, -ls.x)) : 0.f;
+        s[j][1] = key0 < N ? ex2(fmaf(s[j][1], scale2, -ls.y)) : 0.f;
+        s[j][2] = key1 < N ? ex2(fmaf(s[j][2], scale2, -ls.x)) : 0.f;
+        s[j][3] = key1 < N ? ex2(fmaf(s[j][3], scale2, -ls.y)) : 0.f;
+        dp[j][0] = s[j][0] * (dp[j][0] - dl.x);
+        dp[j][1] = s[j][1] * (dp[j][1] - dl.y);
+        dp[j][2] = s[j][2] * (dp[j][2] - dl.x);
+        dp[j][3] = s[j][3] * (dp[j][3] - dl.y);
+      }
+      mma_xt<D>(dva, s, do_s + q0 * LD, lane, rows);  // dV += P^T dO
+      mma_xt<D>(dka, dp, q_s + q0 * LD, lane, rows);  // dK += dS^T Q
+    }
+    store_rows<D>(dk + b * dks.b + h * dks.h, dks.n, dka, key0, N, quad, scale);
+    store_rows<D>(dv + b * dvs.b + h * dvs.h, dvs.n, dva, key0, N, quad, 1.f);
+  }
+}
+
+size_t fwd_smem(int N, int D) { return 2ull * ((N + 15) & ~15) * (D + 8) * sizeof(bf16); }
+
+size_t bwd_smem(int N, int D) {
+  return 3ull * ((N + 15) & ~15) * (D + 8) * sizeof(bf16) + 2ull * kMaxN * sizeof(float);
+}
+
+template <int D>
+int launch_fwd(const void* q, const void* k, const void* v, void* o, int B, int N, int H,
+               Strides qs, Strides ks, Strides vs, Strides os, float scale,
+               cudaStream_t stream) {
+  const size_t smem = fwd_smem(N, D);
+  const cudaError_t err = cudaFuncSetAttribute(
+      short_attention_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (N + kFwdRows - 1) / kFwdRows;
+  short_attention_fwd_kernel<D><<<B * H * tiles, kFwdThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), H, N, qs, ks, vs, os, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
+               void* dq, void* dk, void* dv, int B, int N, int H, const Strides (&s)[8],
+               float scale, cudaStream_t stream) {
+  const size_t smem = bwd_smem(N, D);
+  const cudaError_t err = cudaFuncSetAttribute(
+      short_attention_bwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  short_attention_bwd_kernel<D><<<B * H, kBwdThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), static_cast<bf16*>(dq),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, N, s[0], s[1], s[2], s[3], s[4], s[5],
+      s[6], s[7], scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool valid_shape(int B, int N, int H, int D) {
+  return B >= 1 && H >= 1 && N >= 1 && N <= kMaxN && (D == 32 || D == 64 || D == 128);
 }
 
 }  // namespace
@@ -263,40 +484,27 @@ const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Shared memory the backward needs for (N, D); the wrapper checks it
-// against the card's limit before launching.
-long long short_attention_bwd_smem(int N, int D) {
-  return 4LL * N * (D + 2) * 2 + 2LL * N * 4 + static_cast<long long>(kBwdWarps) * (2 * D + 2 * N) * 4;
-}
-
 // q, k, v, o, dout: bf16 [B, N, H, D] with the given element strides (last
-// dim contiguous); dq, dk, dv: bf16 [B, N, H, D] outputs, likewise strided
-// (the wrapper points them into one fused [B, N, 3*H*D] gradient). Returns
-// a cudaError_t code.
+// dim contiguous, rows 16-byte aligned); dq, dk, dv: bf16 [B, N, H, D]
+// outputs, likewise strided (the wrapper points them into one fused
+// [B, N, 3*H*D] gradient). strides: three per tensor in that order. D is
+// 32, 64 or 128, N at most 256. Returns a cudaError_t code.
 int short_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                         const void* dout, void* dq, void* dk, void* dv,
                         int B, int N, int H, int D, const long long* strides,
                         float scale, void* stream) {
-  if (B < 1 || H < 1 || N < 1 || N > kMaxN || D < 2 || D > kMaxD || (D & 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(short_attention_bwd_smem(N, D));
-  cudaError_t err = cudaFuncSetAttribute(
-      short_attention_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!valid_shape(B, N, H, D)) return static_cast<int>(cudaErrorInvalidValue);
   Strides s[8];
   for (int t = 0; t < 8; ++t) s[t] = Strides{strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
-  short_attention_bwd_kernel<<<B * H, kBwdWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(o),
-      static_cast<const __nv_bfloat16*>(dout), static_cast<__nv_bfloat16*>(dq),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H, N, D, s[0], s[1],
-      s[2], s[3], s[4], s[5], s[6], s[7], scale);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 32) return launch_bwd<32>(q, k, v, o, dout, dq, dk, dv, B, N, H, s, scale, st);
+  if (D == 64) return launch_bwd<64>(q, k, v, o, dout, dq, dk, dv, B, N, H, s, scale, st);
+  return launch_bwd<128>(q, k, v, o, dout, dq, dk, dv, B, N, H, s, scale, st);
 }
 
 // q, k, v: bf16 [B, N, H, D] with the given element strides (last dim
-// contiguous); o: bf16 [B, N, H, D]. Returns a cudaError_t code.
+// contiguous, rows 16-byte aligned); o: bf16 [B, N, H, D]. D is 32, 64 or
+// 128, N at most 256. Returns a cudaError_t code.
 int short_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int B, int N, int H, int D,
                         long long q_sb, long long q_sn, long long q_sh,
@@ -304,21 +512,13 @@ int short_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         long long v_sb, long long v_sn, long long v_sh,
                         long long o_sb, long long o_sn, long long o_sh,
                         float scale, void* stream) {
-  if (B < 1 || H < 1 || N < 1 || N > kMaxN || D < 2 || D > kMaxD || (D & 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(N) * (D + 2) * 2 + static_cast<size_t>(N) * D * 2 +
-                      static_cast<size_t>(kWarps) * D * 4 + static_cast<size_t>(kWarps) * N * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      short_attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * H, (N + kRowsPerBlock - 1) / kRowsPerBlock);
-  short_attention_fwd_kernel<<<grid, kWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H, N, D,
-      Strides{q_sb, q_sn, q_sh}, Strides{k_sb, k_sn, k_sh}, Strides{v_sb, v_sn, v_sh},
-      Strides{o_sb, o_sn, o_sh}, scale);
-  return static_cast<int>(cudaGetLastError());
+  if (!valid_shape(B, N, H, D)) return static_cast<int>(cudaErrorInvalidValue);
+  const Strides qs{q_sb, q_sn, q_sh}, ks{k_sb, k_sn, k_sh}, vs{v_sb, v_sn, v_sh},
+      os{o_sb, o_sn, o_sh};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 32) return launch_fwd<32>(q, k, v, o, B, N, H, qs, ks, vs, os, scale, st);
+  if (D == 64) return launch_fwd<64>(q, k, v, o, B, N, H, qs, ks, vs, os, scale, st);
+  return launch_fwd<128>(q, k, v, o, B, N, H, qs, ks, vs, os, scale, st);
 }
 
 }  // extern "C"

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and becomes its own
 shared library, compiled for Hopper (``sm_90a``) on first use into
 ``build/kernels/`` at the repository root, under a file name keyed on a
-hash of the source and the flags, so an edited source rebuilds and an
+hash of the source, the headers in ``csrc/`` (``*.cuh``, which the sources
+include) and the flags, so an edited source or header rebuilds and an
 unchanged one loads at once. ``build_all`` starts one nvcc per source,
 all at the same time. Nothing here runs at import: the CPU tests import
 every module of the port on a machine with no nvcc.
@@ -44,9 +45,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> tuple[Path, subprocess.Popen | None]:

@@ -2,12 +2,14 @@
 
 Port of ``layoutdit_tpu/ops/short_attention.py``. The kernels
 (``csrc/short_attention.cu``) replace the Pallas ``_fwd_kernel``
-(``_short_fwd``) and ``_bwd_kernel`` (``_short_bwd``): one head's whole
-sequence (N <= 256) in one block, fp32 scores and a single-pass softmax,
-bf16 out; the backward recomputes P from q and k and emits dq, dk and dv
-with no N x N tensor in device memory. Both are bound by bytes on the
-H100 and read Q/K/V in place from the fused QKV projection's [B, N, H, D]
-strides; see the source for the design.
+(``_short_fwd``) and ``_bwd_kernel`` (``_short_bwd``) on the tensor cores
+(mma.sync, bf16 in, fp32 accumulate): the head's whole K and V (N <= 256)
+staged once in shared memory, an online softmax over 64-key chunks, bf16
+out; the backward, one block per head, recomputes P from q and k and
+emits dq, dk and dv with no N x N tensor in device memory and no atomics.
+Both are bound by bytes on the H100 (barely) and read Q/K/V in place from
+the fused QKV projection's [B, N, H, D] strides; see the source for the
+design. Head dims 32, 64 and 128 are compiled.
 
 ``short_attention`` and ``short_attention_bwd`` launch the kernels for
 CUDA tensors and take the plain versions only for CPU tensors.
@@ -27,9 +29,7 @@ import torch
 from layoutdit_tpu_torch.ops import _build
 
 MAX_N = 256
-MAX_D = 128
-# shared memory a block may use on Hopper (dynamic, after opt-in)
-MAX_SMEM = 232448
+HEAD_DIMS = (32, 64, 128)  # the kernels are compiled for these widths
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 12
@@ -87,26 +87,36 @@ def _lib() -> ctypes.CDLL:
         lib.short_attention_fwd.restype = ctypes.c_int
         lib.short_attention_bwd.argtypes = _BWD_ARGTYPES
         lib.short_attention_bwd.restype = ctypes.c_int
-        lib.short_attention_bwd_smem.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.short_attention_bwd_smem.restype = ctypes.c_longlong
     return lib
 
 
-def _check_heads(what: str, ref: torch.Tensor, **tensors: torch.Tensor) -> None:
-    for name, t in tensors.items():
-        if t.shape != ref.shape or t.dtype != torch.bfloat16 or t.device != ref.device:
-            raise ValueError(
-                f"{what}: {name} must be bf16 {tuple(ref.shape)} on "
-                f"{ref.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
-            )
-        if t.stride(3) != 1:
-            raise ValueError(f"{what}: {name} needs a contiguous last dim")
-    _, n, _, d = ref.shape
-    if n > MAX_N or d > MAX_D or d % 2:
+def _check_heads(what: str, ref: torch.Tensor, **tensors: torch.Tensor) -> tuple[list, list]:
+    """Check that each tensor is bf16 [B, N, H, D] like ``ref`` on its
+    device with contiguous, 16-byte aligned rows (as the fused QKV
+    projection's slices are; cp.async stages them) and that N and D are
+    in the kernels' range -> the tensors' data pointers and their B, N, H
+    element strides, in order."""
+    shape, dev = ref.shape, ref.device
+    _, n, _, d = shape
+    if n > MAX_N or d not in HEAD_DIMS:
         raise ValueError(
-            f"{what}: N={n} D={d} outside the kernel's range "
-            f"(N <= {MAX_N}, even D <= {MAX_D})"
+            f"{what}: N={n} D={d} outside the kernels' range "
+            f"(N <= {MAX_N}, head dim one of {HEAD_DIMS})"
         )
+    ptrs, strides = [], []
+    for name, t in tensors.items():
+        if t.shape != shape or t.dtype != torch.bfloat16 or t.device != dev:
+            raise ValueError(
+                f"{what}: {name} must be bf16 {tuple(shape)} on "
+                f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+        sb, sn, sh, sd = t.stride()
+        ptr = t.data_ptr()
+        if sd != 1 or ptr % 16 or sb % 8 or sn % 8 or sh % 8:
+            raise ValueError(f"{what}: {name} rows must be contiguous and 16-byte aligned")
+        ptrs.append(ptr)
+        strides += (sb, sn, sh)
+    return ptrs, strides
 
 
 def short_attention(
@@ -121,13 +131,11 @@ def short_attention(
     b, n, h, d = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    _check_heads("short_attention", q, q=q, k=k, v=v)
     o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    ptrs, strides = _check_heads("short_attention", q, q=q, k=k, v=v, o=o)
     lib = _lib()
     code = lib.short_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, n, h, d,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        float(scale), _build.stream_ptr(q),
+        *ptrs, b, n, h, d, *strides, float(scale), _build.stream_ptr(q)
     )
     _build.check(lib, code, "short_attention")
     short_attention.launches += 1
@@ -164,21 +172,13 @@ def short_attention_bwd(
     if out is None:
         out = tuple(torch.empty((b, n, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
     dq, dk, dv = out
-    _check_heads("short_attention_bwd", q, q=q, k=k, v=v, o=o, do=do, dq=dq, dk=dk, dv=dv)
-    lib = _lib()
-    smem = lib.short_attention_bwd_smem(n, d)
-    if smem > MAX_SMEM:
-        raise ValueError(
-            f"short_attention_bwd: N={n} D={d} needs {smem} bytes of shared "
-            f"memory, more than a block may use ({MAX_SMEM})"
-        )
-    strides = (ctypes.c_longlong * 24)(
-        *[s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]]
+    ptrs, strides = _check_heads(
+        "short_attention_bwd", q, q=q, k=k, v=v, o=o, do=do, dq=dq, dk=dk, dv=dv
     )
+    lib = _lib()
     code = lib.short_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, h, d, strides,
-        float(scale), _build.stream_ptr(q),
+        *ptrs, b, n, h, d, (ctypes.c_longlong * 24)(*strides), float(scale),
+        _build.stream_ptr(q),
     )
     _build.check(lib, code, "short_attention_bwd")
     short_attention_bwd.launches += 1

@@ -39,6 +39,9 @@ from layoutdit_tpu_torch.models.detection.detector import (
 from layoutdit_tpu_torch.ops import nms
 
 STAGES = ("backbone", "rpn", "roi_heads", "postprocess")
+# kernels listed by device time: enough to reach the short-attention
+# backward of a windowed train step, below the NMS, the copies and the GEMMs
+TOP_KERNELS = 24
 REPO = Path(__file__).resolve().parents[2]
 
 
@@ -63,8 +66,9 @@ def _union_ms(intervals: list[tuple[float, float]]) -> float:
 
 def summarize_trace(trace: dict, stages: tuple[str, ...] = STAGES) -> dict:
     """Stage and device times from a chrome trace of one request (or one
-    train step, with its stage names), each summed over the stage's calls;
-    microsecond timestamps, categories as torch.profiler writes them."""
+    train step, with its stage names), each summed over the stage's calls,
+    and the TOP_KERNELS kernels with the most device time; microsecond
+    timestamps, categories as torch.profiler writes them."""
     ev = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
     t0 = min(e["ts"] for e in ev)
     t1 = max(e["ts"] + e["dur"] for e in ev)
@@ -93,7 +97,7 @@ def summarize_trace(trace: dict, stages: tuple[str, ...] = STAGES) -> dict:
     by_name: dict[str, list[float]] = {}
     for e in work:
         by_name.setdefault(e["name"], []).append(e["dur"] / 1e3)
-    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12]
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:TOP_KERNELS]
     return {
         "span_ms": (t1 - t0) / 1e3,
         "device_busy_ms": busy,

@@ -31,7 +31,8 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n", [7, 197])
+# 1: the CLS token of a windowed layer; 197: 224 px; 256: a 16 x 16 window
+@pytest.mark.parametrize("n", [1, 7, 197, 256])
 def test_short_plain_matches_pallas(rng, n):
     q, k, v = _qkv(rng, 2, n, 3, 64)
     want = np.asarray(jax_short(*map(jnp.asarray, (q, k, v)), interpret=True))
@@ -85,12 +86,29 @@ def test_other_devices_raise():
 
 
 @pytest.mark.cuda
-def test_short_kernel_matches_plain(cuda, rng):
-    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in _qkv(rng, 4, 197, 12, 64))
+@pytest.mark.parametrize("d", port_short.HEAD_DIMS)
+@pytest.mark.parametrize("n", [1, 197, 256])
+def test_short_kernel_matches_plain(cuda, rng, n, d):
+    """q, k, v as strided views of one fused projection, as the encoder
+    makes them."""
+    b, h = 4, 12
+    qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * h * d)).astype(np.float32))
+    q, k, v = port_short.split_qkv(qkv.to(cuda, torch.bfloat16), h)
+    before = port_short.short_attention.launches
     got = port_short.short_attention(q, k, v)
+    assert port_short.short_attention.launches == before + 1
     want = port_short.short_attention_plain(q, k, v)
     torch.cuda.synchronize()
     assert (got.float() - want.float()).abs().max() <= want.float().abs().max() / 64
+
+
+@pytest.mark.cuda
+def test_short_kernels_refuse_other_head_dims(cuda):
+    q = torch.zeros(1, 8, 2, 48, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim one of"):
+        port_short.short_attention(q, q, q)
+    with pytest.raises(ValueError, match="head dim one of"):
+        port_short.short_attention_bwd(q, q, q, q, q)
 
 
 @pytest.mark.cuda
@@ -106,7 +124,9 @@ def test_flash_kernel_matches_plain(cuda, rng, with_bias):
     assert (lse - want_lse).abs().max() <= 1e-2
 
 
-@pytest.mark.parametrize("n", [7, 197])  # below and above 128: both pad in the Pallas kernel
+# 7 and 197, below and above 128: both pad in the Pallas kernel; 1 and 256,
+# the CLS token and a full window
+@pytest.mark.parametrize("n", [1, 7, 197, 256])
 def test_short_bwd_plain_and_function_match_pallas(rng, n):
     import jax
 
@@ -302,8 +322,15 @@ def test_cpu_bwd_wrapper_takes_the_plain_version_and_fills_out(rng):
 
 
 @pytest.mark.cuda
-def test_short_bwd_kernel_matches_plain(cuda, rng):
-    b, n, h, d = 4, 197, 12, 64
+@pytest.mark.parametrize("d", port_short.HEAD_DIMS)
+@pytest.mark.parametrize("n", [1, 197, 256])
+def test_short_bwd_kernel_matches_plain(cuda, rng, n, d):
+    """Through the autograd Function (dq, dk, dv written into one fused
+    gradient), against the plain version; a second run gives the same
+    bits (no atomics). At N=1 dq and dk are 0 in exact arithmetic and both
+    sides give fp32 rounding noise, so the tolerance there has the floor
+    chip_smoke.py gives it (SINGLE_TOKEN_FLOOR, 1e-4)."""
+    b, h = 4, 12
     qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * h * d)).astype(np.float32))
     qkv = qkv.to(cuda, torch.bfloat16).requires_grad_(True)
     do = torch.from_numpy(rng.standard_normal((b, n, h, d)).astype(np.float32)).to(
@@ -313,10 +340,16 @@ def test_short_bwd_kernel_matches_plain(cuda, rng):
     (dqkv,) = torch.autograd.grad(ctx, qkv, do)
     assert port_short.short_attention_bwd.launches == before + 1
     q, k, v = port_short.split_qkv(qkv.detach(), h)
+    again = torch.empty_like(dqkv)
+    port_short.short_attention_bwd(q, k, v, ctx.detach(), do,
+                                   out=tuple(port_short.split_qkv(again, h)))
     want = port_short.short_attention_bwd_plain(q, k, v, ctx.detach(), do)
     torch.cuda.synchronize()
+    assert torch.equal(dqkv, again)
+    floor = 1e-4 if n == 1 else 0.0
     for got, w in zip(port_short.split_qkv(dqkv, h), want):
-        assert (got.float() - w.float()).abs().max() <= w.float().abs().max() / 64
+        tol = max(w.float().abs().max().item() / 64, floor)
+        assert (got.float() - w.float()).abs().max() <= tol
 
 
 @pytest.mark.cuda

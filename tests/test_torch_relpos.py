@@ -260,3 +260,19 @@ def test_profile_summary_sums_a_stage_over_its_calls():
           dict(ph="X", name="k", cat="kernel", ts=50, dur=8, args={"correlation": 3})]
     st = summarize_trace({"traceEvents": ev}, ("rel_pos_table_grad",))["stages"]
     assert st["rel_pos_table_grad"] == {"calls": 2, "host_ms": 0.02, "device_ms": 0.01}
+
+
+
+def test_profile_summary_ranks_kernels_by_device_time():
+    """``summarize_trace`` ranks kernels by device time summed over their
+    calls and keeps the first TOP_KERNELS of them."""
+    from layoutdit_tpu_torch.tools import profile_serving as ps
+
+    ev = [dict(ph="X", name=name, cat="kernel", ts=ts, dur=dur)
+          for name, ts, dur in (("a", 0, 3), ("b", 5, 4), ("a", 10, 3), ("c", 20, 1))]
+    ev += [dict(ph="X", name=f"k{i}", cat="kernel", ts=30 + i, dur=0.5)
+           for i in range(ps.TOP_KERNELS)]
+    ranked = ps.summarize_trace({"traceEvents": ev}, ())["top_kernels"]
+    assert len(ranked) == ps.TOP_KERNELS
+    assert [(k["name"], k["calls"], round(k["device_ms"], 9)) for k in ranked[:3]] == [
+        ("a", 2, 0.006), ("b", 1, 0.004), ("c", 1, 0.001)]
