@@ -8,8 +8,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 It builds the port's CUDA kernels from ``layoutdit_tpu_torch/csrc`` (one
 nvcc per source, in parallel), holds each forward and backward kernel
 against its plain PyTorch version at the shapes of the serving and
-training paths and times both (phases ``kernels`` and ``kernels_bwd``),
-holds the fused RoIAlign probes' kernels (``ops/roi_fused.py``) to their
+training paths (the flash backward also at a ragged N = 65) and times
+both, with each flash backward kernel's share of its bound (phases
+``kernels`` and ``kernels_bwd``), holds the fused RoIAlign probes' kernels (``ops/roi_fused.py``) to their
 plain versions at the probe's K = 8192, and the fused form to the
 RoIAlign kernel on real RoIs, times them beside the two-GEMM yardstick
 and runs the probe tool as the probe path (phase ``probes``), then
@@ -412,16 +413,21 @@ def phase_short_bwd(gen) -> dict:
     return entry
 
 
-def _flash_bwd_case(gen, b: int, n: int, with_bias: bool, h=12, d=64) -> dict:
+# timed launches of each flash backward kernel (rows 4-6)
+FLASH_BWD_ITERS = 20
+
+
+def _flash_bwd_case(gen, b: int, n: int, with_bias: bool, h=12, d=64,
+                    timed: bool = True) -> dict | None:
     """Flash attention backward at one shape: q, k, v as strided views of
     one fused projection, dq, dk, dv written into one fused [B, N, 3*H*D]
     gradient, and with a bias [H, N, N] its fp32 gradient, each against
     the plain version on the same bf16 inputs; a second run must give the
     same bits (no atomics). Each kernel is timed alone (dq first: it
-    writes the delta the others read). The plain version computes every
-    gradient in one call; so does SDPA's backward, the yardstick, timed
-    with the bias as a constant attn_mask and, for dbias, as one that
-    requires a gradient."""
+    writes the delta the others read), unless not ``timed``. The plain
+    version computes every gradient in one call; so does SDPA's backward,
+    the yardstick, timed with the bias as a constant attn_mask and, for
+    dbias, as one that requires a gradient."""
     from layoutdit_tpu_torch.ops import flash_attention as fa
     from layoutdit_tpu_torch.ops import short_attention as sa
 
@@ -448,20 +454,23 @@ def _flash_bwd_case(gen, b: int, n: int, with_bias: bool, h=12, d=64) -> dict:
     if not (torch.equal(dqkv, again) and (not with_bias or torch.equal(dbias, dbias2))):
         raise RuntimeError(f"{label}: two runs gave different gradients")
     del dbias2
+    if not timed:
+        return None
     delta = torch.empty(b * h, n, dtype=torch.float32, device="cuda")
     dq, dk, dv = out
     res = {
         "dq": (errs["dq"], _time_ms(
-            lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do, bias, scale, dq, delta), 5)),
+            lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do, bias, scale, dq, delta),
+            FLASH_BWD_ITERS)),
         "dkdv": (max(errs["dk"], errs["dv"]), _time_ms(
             lambda: fa.flash_attention_bwd_dkdv(q, k, v, lse, do, delta, bias, scale, dk, dv),
-            5)),
+            FLASH_BWD_ITERS)),
         "plain": _time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do, bias), 2),
     }
     if with_bias:
         res["dbias"] = (errs["dbias"], _time_ms(
             lambda: fa.flash_attention_bwd_dbias(q, k, v, lse, do, delta, bias, scale, dbias),
-            5))
+            FLASH_BWD_ITERS))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dot = do.transpose(1, 2)
     masks = {"library": None if bias is None else bias[None].to(torch.bfloat16)}
@@ -471,7 +480,8 @@ def _flash_bwd_case(gen, b: int, n: int, with_bias: bool, h=12, d=64) -> dict:
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
         ot = sdpa(qt, kt, vt, attn_mask=mask)
         wrt = (qt, kt, vt) if mask is None or not mask.requires_grad else (qt, kt, vt, mask)
-        res[key] = _time_ms(lambda: torch.autograd.grad(ot, wrt, dot, retain_graph=True), 5)
+        res[key] = _time_ms(lambda: torch.autograd.grad(ot, wrt, dot, retain_graph=True),
+                            FLASH_BWD_ITERS)
         del ot, qt, kt, vt
     torch.cuda.empty_cache()
     return res
@@ -481,7 +491,11 @@ def phase_flash_bwd(gen) -> list[dict]:
     """The flash backward kernels at the 1024 px train steps' shapes: the
     global layers (B=4, N=4097, H=12, D=64) without and with a bias, and
     the rel-pos step's 16 x 16 windows (B=64, N=256) with one (each
-    ``_flash_bwd_case``): rows dkdv, dq and dbias of the kernel table."""
+    ``_flash_bwd_case``): rows dkdv, dq and dbias of the kernel table.
+    First, untimed, the ragged N = 65 (one valid row in the second tile of
+    64) without and with a bias."""
+    for with_bias in (False, True):
+        _flash_bwd_case(gen, 2, 65, with_bias, timed=False)
     b, n, h, d = 4, 4097, 12, 64
     res = {"": _flash_bwd_case(gen, b, n, False), "bias_": _flash_bwd_case(gen, b, n, True)}
     wb, wn = WINDOW_SHAPES["w256"]
@@ -519,7 +533,10 @@ def phase_flash_bwd(gen) -> list[dict]:
             (err, tol), ms = res[key][part]
             bound, by = _bound_ms(w[part][0] + bias_bytes, w[part][1])
             pair_bound, pair_by = _bound_ms(w["pair"][0] + bias_bytes, w["pair"][1])
+            _print_share(f"flash_attention_bwd_{part} {key or 'nobias_'}B={bb} N={nn}", ms,
+                         bound, by)
             entry.update({
+                f"{key}bound_share": bound / ms,
                 f"{key}shape": f"B={bb} N={nn} H={h} D={d} bf16"
                                + (f", fp32 bias [{h}, {nn}, {nn}]" if key else ", no bias")
                                + ", q/k/v and dq/dk/dv strided in fused [B, N, 3HD]",
@@ -1255,8 +1272,15 @@ def main() -> int:
     print(f"  built {list(_build.KERNELS)} in {time.perf_counter() - t0:.1f} s")
     for name in _build.KERNELS:
         for line in logs.get(name, "").splitlines():
-            if "Function properties" in line or "registers" in line or "spill" in line:
+            if any(w in line for w in ("Function properties", "registers", "spill", "warning",
+                                       "Potential Performance")):
                 print(f"  {name}: {line.strip()}")
+    from layoutdit_tpu_torch.ops import flash_attention as fa
+
+    smem = fa._lib().flash_attention_bwd_smem_bytes
+    print(f"  flash_attention: dynamic shared memory of the backward kernels: dq "
+          f"{smem(0, 0)} / {smem(0, 1)} bytes, dkdv {smem(1, 0)} / {smem(1, 1)} "
+          f"(without / with a bias)")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     print("phase kernels")

@@ -14,9 +14,12 @@ query tiles, P recomputed from lse, no atomics; and ``_dbias_kernel``
 tile, key tile) looping over the batch, no atomics. The plain backward
 has the algebra of the oracle ``_bwd_reference`` (:460). The attention
 kernels are bound by operations on the H100, so every product runs on
-the tensor cores (mma.sync, bf16 in, fp32 accumulate); the dbias kernel
-is bound by the bytes of the bias and its gradient. See the source for
-the design.
+the tensor cores (bf16 in, fp32 accumulate): ``mma.sync`` in the forward
+and the dbias kernel; in the dq and dkdv kernels ``wgmma`` from two
+consumer warpgroups, fed by a producer warpgroup that streams the tiles
+by TMA through a three-stage ring of shared memory guarded by mbarriers
+(``csrc/hopper_mma.cuh``). The dbias kernel is bound by the bytes of the
+bias and its gradient. See the source for the design.
 
 ``flash_attention_fwd`` and ``flash_attention_bwd`` launch the kernels
 for CUDA tensors and take the plain versions only for CPU tensors.
@@ -118,6 +121,8 @@ def _lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.flash_attention_bwd_dbias.argtypes = _DBIAS_ARGTYPES
         lib.flash_attention_bwd_dbias.restype = ctypes.c_int
+        lib.flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -145,6 +150,17 @@ def _check_bias(what: str, bias: torch.Tensor | None, ref: torch.Tensor):
     if bias.shape != (h, n, n) or bias.device != ref.device:
         raise ValueError(f"{what}: bias must be [{h}, {n}, {n}] on {ref.device}")
     return bias.float().contiguous()
+
+
+def _check_square(what: str, ref: torch.Tensor, **tensors: torch.Tensor | None) -> None:
+    """fp32 [H, N, N] contiguous on ``ref``'s device, as the backward
+    kernels read a bias and write its gradient (None passes: no bias)."""
+    _, n, h, _ = ref.shape
+    for name, t in tensors.items():
+        if t is not None and (t.shape != (h, n, n) or t.dtype != torch.float32
+                              or not t.is_contiguous() or t.device != ref.device):
+            raise ValueError(f"{what}: {name} must be contiguous fp32 [{h}, {n}, {n}] "
+                             f"on {ref.device}")
 
 
 def _check_lse(what: str, t: torch.Tensor, ref: torch.Tensor, name: str) -> None:
@@ -203,6 +219,7 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, bias, scale, dq, delta) -> None:
     _check_rows("flash_attention_bwd", q, q=q, k=k, v=v, o=o, do=do, dq=dq)
     _check_lse("flash_attention_bwd", lse, q, "lse")
     _check_lse("flash_attention_bwd", delta, q, "delta")
+    _check_square("flash_attention_bwd", q, bias=bias)
     lib = _lib()
     code = lib.flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
@@ -224,6 +241,7 @@ def flash_attention_bwd_dkdv(q, k, v, lse, do, delta, bias, scale, dk, dv) -> No
     _check_rows("flash_attention_bwd", q, q=q, k=k, v=v, do=do, dk=dk, dv=dv)
     _check_lse("flash_attention_bwd", lse, q, "lse")
     _check_lse("flash_attention_bwd", delta, q, "delta")
+    _check_square("flash_attention_bwd", q, bias=bias)
     lib = _lib()
     code = lib.flash_attention_bwd_dkdv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
@@ -246,10 +264,9 @@ def flash_attention_bwd_dbias(q, k, v, lse, do, delta, bias, scale, dbias) -> No
     _check_rows("flash_attention_bwd", q, q=q, k=k, v=v, do=do)
     _check_lse("flash_attention_bwd", lse, q, "lse")
     _check_lse("flash_attention_bwd", delta, q, "delta")
-    for name, t in (("bias", bias), ("dbias", dbias)):
-        if (t.shape != (h, n, n) or t.dtype != torch.float32 or not t.is_contiguous()
-                or t.device != q.device):
-            raise ValueError(f"flash_attention_bwd: {name} must be contiguous fp32 [{h}, {n}, {n}]")
+    if bias is None:
+        raise ValueError("flash_attention_bwd: the dbias kernel needs a bias")
+    _check_square("flash_attention_bwd", q, bias=bias, dbias=dbias)
     lib = _lib()
     code = lib.flash_attention_bwd_dbias(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),

@@ -321,6 +321,83 @@ def test_cpu_bwd_wrapper_takes_the_plain_version_and_fills_out(rng):
         port_flash.flash_attention_bwd(m, m, m, m, m, m)
 
 
+def _bwd_launch_args(which, n=8, h=2, bias=None, q=None):
+    """CPU arguments of one backward launcher, valid but for what the
+    caller passes: bf16 [1, n, h, 64] rows, fp32 lse/delta [h, n]."""
+    b, d = 1, port_flash.HEAD_DIM
+    q = torch.zeros(b, n, h, d, dtype=torch.bfloat16) if q is None else q
+    t = lambda: torch.zeros(b, n, h, d, dtype=torch.bfloat16)  # noqa: E731
+    vec = lambda: torch.zeros(b * h, n)  # noqa: E731
+    if which == "dq":
+        return port_flash.flash_attention_bwd_dq, (q, t(), t(), t(), vec(), t(), bias, 0.125,
+                                                   t(), vec())
+    if which == "dkdv":
+        return port_flash.flash_attention_bwd_dkdv, (q, t(), t(), vec(), t(), vec(), bias,
+                                                     0.125, t(), t())
+    return port_flash.flash_attention_bwd_dbias, (q, t(), t(), vec(), t(), vec(), bias, 0.125,
+                                                  torch.zeros(h, n, n))
+
+
+@pytest.fixture
+def no_library(monkeypatch):
+    """A launcher that gets past its checks reaches the library: here it
+    raises instead (there is none on the CPU)."""
+    def reached():
+        raise LookupError("reached the library")
+
+    monkeypatch.setattr(port_flash, "_lib", reached)
+
+
+@pytest.mark.parametrize("which", ["dq", "dkdv", "dbias"])
+@pytest.mark.parametrize("bad", ["shape", "dtype", "layout", "none", "good"])
+def test_bwd_launchers_check_the_bias_before_the_library(no_library, which, bad):
+    """The dq, dkdv and dbias launchers take the bias as the kernels read
+    it, fp32 [H, N, N] contiguous, and refuse anything else with a message
+    before they touch the library; dq and dkdv also take no bias."""
+    n, h = 8, 2
+    bias = {
+        "shape": torch.zeros(h, n, n + 1),
+        "dtype": torch.zeros(h, n, n, dtype=torch.bfloat16),
+        "layout": torch.zeros(h, n, n).transpose(1, 2),
+        "none": None,
+        "good": torch.zeros(h, n, n),
+    }[bad]
+    fn, args = _bwd_launch_args(which, n, h, bias)
+    before = fn.launches
+    if bad == "good" or (bad == "none" and which != "dbias"):
+        with pytest.raises(LookupError, match="reached the library"):
+            fn(*args)
+    else:
+        with pytest.raises(ValueError, match="bias"):
+            fn(*args)
+    assert fn.launches == before
+
+
+@pytest.mark.parametrize("which", ["dq", "dkdv", "dbias"])
+@pytest.mark.parametrize("where", ["row stride", "base", "head dim stride"])
+def test_bwd_launchers_refuse_rows_tma_cannot_read(no_library, which, where):
+    """The dq and dkdv kernels read q, k, v and dO by TMA, whose tensor
+    maps need a 16-byte-aligned base and byte strides that are multiples
+    of 16; the launchers refuse other rows with a message before they
+    touch the library. The fused projection's slices pass (row pitch 3 *
+    H * 128 bytes, head offset 128)."""
+    n, h, d = 8, 2, port_flash.HEAD_DIM
+    if where == "row stride":  # a row pitch of h * 64 + 4 elements
+        q = torch.zeros(1, n, h * d + 4, dtype=torch.bfloat16)[..., :h * d].view(1, n, h, d)
+    elif where == "base":  # one element past an aligned base
+        q = torch.zeros(1 + n * h * d, dtype=torch.bfloat16)[1:].view(1, n, h, d)
+    else:  # d not contiguous
+        q = torch.zeros(1, n, d, h, dtype=torch.bfloat16).transpose(2, 3)
+    fn, args = _bwd_launch_args(which, n, h, torch.zeros(h, n, n), q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fn(*args)
+    fused = torch.zeros(1, n, 3 * h * d, dtype=torch.bfloat16)
+    q, _, _ = port_short.split_qkv(fused, h)
+    fn, args = _bwd_launch_args(which, n, h, torch.zeros(h, n, n), q)
+    with pytest.raises(LookupError, match="reached the library"):
+        fn(*args)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", port_short.HEAD_DIMS)
 @pytest.mark.parametrize("n", [1, 197, 256])
@@ -352,14 +429,22 @@ def test_short_bwd_kernel_matches_plain(cuda, rng, n, d):
         assert (got.float() - w.float()).abs().max() <= tol
 
 
+# (B, N, H, bias): ragged N (65: one valid row in the second 64-row
+# tile; 600), the 1024 px train steps' global layers, and the rel-pos
+# step's 16 x 16 windows
+FLASH_BWD_CASES = [
+    *[(2, n, 4, with_bias) for n in (65, 600) for with_bias in (False, True)],
+    (4, 4097, 12, False), (4, 4097, 12, True), (64, 256, 12, True),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("with_bias", [False, True])
-def test_flash_bwd_kernel_matches_plain(cuda, rng, with_bias):
-    """Both backward kernels against the plain version at a ragged N, q/k/v
-    and dq/dk/dv strided in fused [B, N, 3*H*D] tensors, through the
-    autograd Function; the gradients are the same bits on a second run
-    (no atomics)."""
-    b, n, h, d = 2, 600, 4, 64
+@pytest.mark.parametrize("b,n,h,with_bias", FLASH_BWD_CASES)
+def test_flash_bwd_kernel_matches_plain(cuda, rng, b, n, h, with_bias):
+    """Both backward kernels against the plain version, q/k/v and dq/dk/dv
+    strided in fused [B, N, 3*H*D] tensors, through the autograd Function;
+    the gradients are the same bits on a second run (no atomics)."""
+    d = 64
     qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * h * d)).astype(np.float32))
     qkv = qkv.to(cuda, torch.bfloat16).requires_grad_(True)
     do = torch.from_numpy(rng.standard_normal((b, n, h, d)).astype(np.float32)).to(

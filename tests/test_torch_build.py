@@ -70,3 +70,24 @@ def test_every_included_header_is_in_the_digest():
     for header in headers:
         for inc in re.findall(r'#include\s+"([^"]+)"', (_build.CSRC / header).read_text()):
             assert inc in headers, f"{header} includes {inc}, which the digest does not read"
+
+
+@pytest.mark.parametrize("header", ["attention_mma.cuh", "hopper_mma.cuh"])
+def test_editing_a_real_header_rebuilds_the_flash_kernels(tmp_path, monkeypatch, header):
+    """flash_attention.cu includes both attention headers (the Hopper
+    helpers through hopper_mma.cuh): an edit to either names a new
+    library, so a stale build is never loaded."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for p in _build.CSRC.iterdir():
+        if p.suffix in (".cu", ".cuh"):
+            (src / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", src)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    included = set(re.findall(r'#include\s+"([^"]+)"', (src / "flash_attention.cu").read_text()))
+    for h in sorted(included & {p.name for p in src.glob("*.cuh")}):
+        included |= set(re.findall(r'#include\s+"([^"]+)"', (src / h).read_text()))
+    assert header in included
+    before = _build._target("flash_attention")
+    (src / header).write_text((src / header).read_text() + "\n// edited\n")
+    assert _build._target("flash_attention") != before
