@@ -8,9 +8,10 @@ Run from the repository root on a machine with one NVIDIA GPU:
 It builds the port's CUDA kernels from ``layoutdit_tpu_torch/csrc`` (one
 nvcc per source, in parallel), holds each forward and backward kernel
 against its plain PyTorch version at the shapes of the serving and
-training paths (the flash backward also at a ragged N = 65) and times
-both, with each flash backward kernel's share of its bound (phases
-``kernels`` and ``kernels_bwd``), holds the fused RoIAlign probes' kernels (``ops/roi_fused.py``) to their
+training paths (the flash kernels also at a ragged N = 65, and to the
+same bits on a second launch) and times both, with each flash kernel's
+share of its bound (phases ``kernels`` and ``kernels_bwd``), holds the
+fused RoIAlign probes' kernels (``ops/roi_fused.py``) to their
 plain versions at the probe's K = 8192, and the fused form to the
 RoIAlign kernel on real RoIs, times them beside the two-GEMM yardstick
 and runs the probe tool as the probe path (phase ``probes``), then
@@ -210,67 +211,82 @@ def phase_short(gen) -> dict:
     return entry
 
 
-def phase_flash(gen) -> dict:
+# timed launches of the flash forward (row 3) at each shape
+FLASH_FWD_ITERS = 10
+
+
+def _flash_fwd_case(gen, q, k, v, with_bias: bool, timed: bool = True) -> dict | None:
+    """The flash forward at one shape (a random [H, N, N] fp32 bias with
+    ``with_bias``) against its plain version, o and lse, and a second
+    launch giving the same bits; unless not ``timed``, timed per call and
+    on the card alone (``_device_ms``) beside SDPA (the bias as a bf16
+    attn_mask)."""
     from layoutdit_tpu_torch.ops import flash_attention as fa
 
-    b, n, h, d = 4, 4097, 12, 64
-    q, k, v = _qkv(gen, b, n, h, d)
-    o, lse = fa.flash_attention_fwd(q, k, v)
-    o_ref, lse_ref = fa.flash_attention_plain(q, k, v)
-    err, tol = _check_close("flash_attention", o, o_ref)
+    b, n, h, d = q.shape
+    bias = 0.5 * torch.randn(h, n, n, generator=gen, device="cuda") if with_bias else None
+    label = f"flash_attention B={b} N={n}" + (" (bias)" if with_bias else "")
+    o, lse = fa.flash_attention_fwd(q, k, v, bias)
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, bias)
+    err, tol = _check_close(label, o, o_ref)
     lse_err = (lse - lse_ref).abs().max().item()
-    print(f"  flash_attention lse: max_abs_err {lse_err:.6g} (tolerance 0.01)")
+    print(f"  {label} lse: max_abs_err {lse_err:.6g} (tolerance 0.01)")
     if not lse_err <= 1e-2:
-        raise RuntimeError("flash_attention: lse disagrees with its plain version")
-    del o_ref, lse_ref
-
+        raise RuntimeError(f"{label}: lse disagrees with its plain version")
+    again = fa.flash_attention_fwd(q, k, v, bias)
+    if not (torch.equal(o, again[0]) and torch.equal(lse, again[1])):
+        raise RuntimeError(f"{label}: two launches gave different bits")
+    del o_ref, lse_ref, again
+    if not timed:
+        return None
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    bound, by = _bound_ms(4 * b * n * h * d * 2 + b * h * n * 4, 4 * b * h * n * n * d)
+    mask = None if bias is None else bias[None].to(torch.bfloat16)
+    nbytes = 4 * b * n * h * d * 2 + b * h * n * 4 + (0 if bias is None else h * n * n * 4)
+    bound, by = _bound_ms(nbytes, 4 * b * h * n * n * d)
+    kernel = lambda: fa.flash_attention_fwd(q, k, v, bias)  # noqa: E731
+    library = lambda: sdpa(qt, kt, vt, attn_mask=mask)  # noqa: E731
+    device_ms = _device_ms(kernel, FLASH_FWD_ITERS)
+    _print_share(f"{label} on the card", device_ms, bound, by)
+    return {
+        "shape": f"B={b} N={n} H={h} D={d} bf16, q/k/v strided in fused [B, N, 3HD]"
+                 + (f", fp32 bias [{h}, {n}, {n}]" if with_bias else ", no bias"),
+        "max_abs_err": err, "tolerance": tol, "lse_max_abs_err": lse_err,
+        "ms": _time_ms(kernel, FLASH_FWD_ITERS),  # per call; device_ms on the card alone
+        "device_ms": device_ms,
+        "plain_ms": _time_ms(lambda: fa.flash_attention_plain(q, k, v, bias), 2),
+        "bound_ms": bound, "bound_by": by, "bound_share": bound / device_ms,
+        "library_ms": _time_ms(library, FLASH_FWD_ITERS),
+        "library_device_ms": _device_ms(library, FLASH_FWD_ITERS),
+    }
+
+
+def phase_flash(gen) -> dict:
+    """The flash forward (row 3) at the main paths' shapes: B=4 N=4097
+    without a bias (1024 px serving, the windowed step's global layers)
+    and with one (the rel-pos step's global layers), and B=64 N=256 with
+    one (its 16 x 16 windows, one bias for all windows); first, untimed
+    checks at the ragged N = 65 (one valid row in the second 64-row tile)
+    without and with a bias."""
+    h, d = 12, 64
+    for with_bias in (False, True):
+        _flash_fwd_case(gen, *_qkv(gen, 2, 65, h, d), with_bias, timed=False)
+    b, n = 4, 4097
+    q, k, v = _qkv(gen, b, n, h, d)
     entry = {
         "name": "flash_attention", "route": "cuda",
         "source": "layoutdit_tpu_torch/csrc/flash_attention.cu",
         "replaces": "layoutdit_tpu/ops/flash_attention.py:180",
-        "shape": f"B={b} N={n} H={h} D={d} bf16, no bias",
-        "max_abs_err": err, "tolerance": tol,
-        "ms": _time_ms(lambda: fa.flash_attention_fwd(q, k, v), 10),
-        "plain_ms": _time_ms(lambda: fa.flash_attention_plain(q, k, v), 3),
-        "bound_ms": bound, "bound_by": by,
-        "library_ms": _time_ms(lambda: sdpa(qt, kt, vt), 10),
         "bias_replaces": "layoutdit_tpu/ops/flash_attention.py:64",
+        **_flash_fwd_case(gen, q, k, v, False),
     }
-    # with a [12, N, N] bias: the rel-pos step's global layers (B=4 N=4097)
-    # and its 16 x 16 windows (B=64 N=256, one bias for all windows)
-    entry.update({f"bias_{k}": v for k, v in _flash_bias_fwd_case(gen, q, k, v, 5).items()})
+    entry.update({f"bias_{k}": v for k, v in _flash_fwd_case(gen, q, k, v, True).items()})
+    del q, k, v
     wb, wn = WINDOW_SHAPES["w256"]
     entry.update({f"w256_bias_{k}": v for k, v in
-                  _flash_bias_fwd_case(gen, *_qkv(gen, wb, wn, h, d), 20).items()})
+                  _flash_fwd_case(gen, *_qkv(gen, wb, wn, h, d), True).items()})
+    torch.cuda.empty_cache()
     return entry
-
-
-def _flash_bias_fwd_case(gen, q, k, v, iters: int) -> dict:
-    """The flash forward with a random [H, N, N] fp32 bias against its
-    plain version, timed beside SDPA with the bias as a bf16 attn_mask."""
-    from layoutdit_tpu_torch.ops import flash_attention as fa
-
-    b, n, h, d = q.shape
-    bias = 0.5 * torch.randn(h, n, n, generator=gen, device="cuda")
-    o, _ = fa.flash_attention_fwd(q, k, v, bias)
-    err, tol = _check_close(f"flash_attention (bias) B={b} N={n}", o,
-                            fa.flash_attention_plain(q, k, v, bias)[0])
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    mask = bias[None].to(torch.bfloat16)
-    bound, by = _bound_ms(4 * b * n * h * d * 2 + b * h * n * 4 + h * n * n * 4,
-                          4 * b * h * n * n * d)
-    return {
-        "shape": f"B={b} N={n} H={h} D={d} bf16, fp32 bias [{h}, {n}, {n}]",
-        "max_abs_err": err, "tolerance": tol,
-        "ms": _time_ms(lambda: fa.flash_attention_fwd(q, k, v, bias), iters),
-        "plain_ms": _time_ms(lambda: fa.flash_attention_plain(q, k, v, bias), 2),
-        "bound_ms": bound, "bound_by": by,
-        "library_ms": _time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask), iters),
-    }
 
 
 def _roi_inputs(gen, image: int, b=4, k=512, c=256):
@@ -468,9 +484,10 @@ def _flash_bwd_case(gen, b: int, n: int, with_bias: bool, h=12, d=64,
         "plain": _time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do, bias), 2),
     }
     if with_bias:
-        res["dbias"] = (errs["dbias"], _time_ms(
-            lambda: fa.flash_attention_bwd_dbias(q, k, v, lse, do, delta, bias, scale, dbias),
-            FLASH_BWD_ITERS))
+        dbias_fn = lambda: fa.flash_attention_bwd_dbias(  # noqa: E731
+            q, k, v, lse, do, delta, bias, scale, dbias)
+        res["dbias"] = (errs["dbias"], _time_ms(dbias_fn, FLASH_BWD_ITERS))
+        res["dbias_device"] = _device_ms(dbias_fn, FLASH_BWD_ITERS)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dot = do.transpose(1, 2)
     masks = {"library": None if bias is None else bias[None].to(torch.bfloat16)}
@@ -480,9 +497,11 @@ def _flash_bwd_case(gen, b: int, n: int, with_bias: bool, h=12, d=64,
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
         ot = sdpa(qt, kt, vt, attn_mask=mask)
         wrt = (qt, kt, vt) if mask is None or not mask.requires_grad else (qt, kt, vt, mask)
-        res[key] = _time_ms(lambda: torch.autograd.grad(ot, wrt, dot, retain_graph=True),
-                            FLASH_BWD_ITERS)
-        del ot, qt, kt, vt
+        grad = lambda: torch.autograd.grad(ot, wrt, dot, retain_graph=True)  # noqa: E731
+        res[key] = _time_ms(grad, FLASH_BWD_ITERS)
+        if key == "library_dbias":
+            res["library_dbias_device"] = _device_ms(grad, FLASH_BWD_ITERS)
+        del ot, qt, kt, vt, grad
     torch.cuda.empty_cache()
     return res
 
@@ -560,12 +579,18 @@ def phase_flash_bwd(gen) -> list[dict]:
         (err, tol), ms = r["dbias"]
         # the bias read once and dbias written once
         bound, by = _bound_ms(w["dbias"][0] + 2 * bias_bytes, w["dbias"][1])
+        _print_share(f"flash_attention_bwd_dbias B={bb} N={nn} on the card", r["dbias_device"],
+                     bound, by)
         entry.update({
             f"{key}shape": f"B={bb} N={nn} H={h} D={d} bf16, fp32 bias and dbias [{h}, {nn}, "
                            f"{nn}]",
-            f"{key}max_abs_err": err, f"{key}tolerance": tol, f"{key}ms": ms,
-            f"{key}plain_ms": r["plain"], f"{key}bound_ms": bound, f"{key}bound_by": by,
+            f"{key}max_abs_err": err, f"{key}tolerance": tol,
+            f"{key}ms": ms,  # per call; device_ms on the card alone
+            f"{key}device_ms": r["dbias_device"], f"{key}plain_ms": r["plain"],
+            f"{key}bound_ms": bound, f"{key}bound_by": by,
+            f"{key}bound_share": bound / r["dbias_device"],
             f"{key}library_ms": r["library_dbias"],
+            f"{key}library_device_ms": r["library_dbias_device"],
         })
     entries.append(entry)
     return entries
@@ -1277,10 +1302,10 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
     from layoutdit_tpu_torch.ops import flash_attention as fa
 
-    smem = fa._lib().flash_attention_bwd_smem_bytes
-    print(f"  flash_attention: dynamic shared memory of the backward kernels: dq "
-          f"{smem(0, 0)} / {smem(0, 1)} bytes, dkdv {smem(1, 0)} / {smem(1, 1)} "
-          f"(without / with a bias)")
+    smem = fa._lib().flash_attention_smem_bytes
+    print(f"  flash_attention: dynamic shared memory: forward {smem(0, 0)} / {smem(0, 1)} "
+          f"bytes, dq {smem(1, 0)} / {smem(1, 1)}, dkdv {smem(2, 0)} / {smem(2, 1)} (without / "
+          f"with a bias), dbias {smem(3, 4)} (B = 4, rows resident) / {smem(4, 0)} (streamed)")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     print("phase kernels")

@@ -71,22 +71,6 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// rows [r0, r0 + 64) of a strided [N, D] slice -> smem tile (row pitch
-// D + 8), zero rows >= N; Threads threads of the block take part
-template <int D, int Threads>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long stride_n,
-                                          int r0, int n) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < kChunk * kChunks; i += Threads) {
-    const int rr = i / kChunks;
-    const int cc = i - rr * kChunks;
-    const int gr = r0 + rr;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < n) val = *reinterpret_cast<const uint4*>(src + gr * stride_n + cc * 8);
-    *reinterpret_cast<uint4*>(dst + rr * (D + 8) + cc * 8) = val;
-  }
-}
-
 // sum over d of a[d] * b[d] for one row of D bf16, split over the four
 // lanes of a quad (D/4 contiguous elements each) and reduced over them;
 // every lane of the warp must call it (zero when !valid)

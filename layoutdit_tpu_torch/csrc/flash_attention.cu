@@ -1,180 +1,404 @@
 // Blockwise (flash) attention, forward and backward, for Hopper (sm_90a),
-// plain C interface. The backward's notes are above its kernels below.
+// plain C interface: the forward, then the backward's dq, dkdv and dbias
+// kernels. Each kernel's own notes are above it.
 //
-// Forward. Replaces layoutdit_tpu/ops/flash_attention.py::_fwd_kernel and
-// _fwd_kernel_nobias (via _flash_fwd): online-softmax attention over
-// kv tiles with an optional additive bias [H, N, N], emitting o and the
-// per-row log-sum-exp. The 1024 px bucket runs it at B=4, H=12, N=4097,
-// D=64 without bias.
-//
-// Bound on the H100: operations. 4*B*H*N^2*D = 206 GFLOP against 100 MB
-// of Q/K/V/O, so the tensor cores are the limit (0.21 ms at the bf16
-// peak). The design keeps the whole online softmax in registers, in the
-// FlashAttention-2 arrangement: a block owns 64 query rows (4 warps x 16
-// rows) and loops over 64-key tiles of K and V staged in shared memory;
-// each warp holds its Q fragments, its 16x64 fp32 score tile and its
-// 16xD fp32 output accumulator in registers, computes S = Q K^T and
-// O += P V with mma.sync m16n8k16 (bf16 in, fp32 accumulate; operands
-// from ldmatrix, V through its transposing form), and reuses the score
-// accumulators as the bf16 P operand without a trip through shared
-// memory. Softmax runs in the exp2 domain; row max and sum are reduced
-// over the four lanes that share a row. The ragged edge is masked in the
-// kernel (key rows past N are zero-filled and their scores set to -1e30,
-// the TPU kernel's finite NEG_INF), with no padded copies. Q/K/V are read
-// straight from [B, N, H, D] strides, o is written in that layout, and
-// lse is fp32 [B*H, N]. Still simple: no TMA, no wgmma, no pipelining of
-// the tile loads.
+// Every kernel has the same Hopper shape: a block of three warpgroups, two
+// consumers that each own 64 rows of the block's 128 and one producer
+// (setmaxnreg: 232 registers a consumer thread, 40 a producer one). The
+// producer keeps a ring of stages in flight (three; four in the forward
+// without a bias): its first thread loads the streamed bf16 tiles by TMA
+// (4-d tensor maps over the [B, N, H, D] strides, so the fused projection's
+// slices are read in place, 128-byte swizzled, rows past N zero-filled), and
+// its other threads copy the fp32 rows that no tensor map can describe (the
+// [B*H, N] and [H, N, N] rows have an odd pitch at N = 4097) with one bulk
+// copy each, of the 16-byte-aligned span that covers the row (aligned_span);
+// each stage completes on a "full" mbarrier and is handed back on an "empty"
+// one. The consumers run every product as wgmma m64n64k16 or m64n128k16
+// (bf16 in, fp32 accumulate, helpers in hopper_mma.cuh); in the backward
+// they take turns to issue their products (two named barriers), so one
+// warpgroup's elementwise work runs while the other's products do. Sums stay
+// in fp32 registers, each written once: no atomics, so every output is the
+// same bits from run to run. The ragged edge is masked in the kernels, with
+// no padded copies: keys past N get P = 0 (the TPU kernels' finite -1e30
+// score), and query rows past N read as zeros and are never stored.
+
+#include <type_traits>
 
 #include "hopper_mma.cuh"
 
 namespace {
 
-constexpr int kBq = 64;
-constexpr int kBk = 64;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-static_assert(kBq == kChunk && kBk == kChunk, "the helpers' score tiles are kChunk wide");
+constexpr int kStages = 3;
+constexpr int kBlockRows = 2 * kChunk;             // rows of a block: two consumers
+constexpr int kBlockThreads = 3 * 128;             // two consumer warpgroups, one producer
+constexpr int kTileBytes = kChunk * 64 * 2;        // one bf16 [64, 64] tile
+constexpr int kDkdvBiasLd = kBlockRows + 4;        // [64 queries][128 keys], read transposed
+constexpr int kVecLd = kChunk + 8;                 // lse or delta of a query tile, fp32
+constexpr int kDkdvBiasBytes = kChunk * kDkdvBiasLd * 4;
+constexpr int kConsumerRegs = 232;
+constexpr int kProducerRegs = 40;
 
-template <int D, bool kBias>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const float* __restrict__ bias, bf16* __restrict__ o, float* __restrict__ lse,
-    int H, int N, Strides qs, Strides ks, Strides vs, Strides os, float scale) {
-  constexpr int LD = D + 8;  // smem row pitch: ldmatrix rows land on distinct banks
-  __shared__ __align__(16) bf16 k_s[kBk * LD];
-  __shared__ __align__(16) bf16 v_s[kBk * LD];
+// block -> (b, h, row tile), b fastest, then the tile, then the head: the B
+// blocks that read one head's bias tiles run together, and L2 serves all but
+// the first, so the bias crosses HBM about once a kernel
+struct RowBlock {
+  int b, h, tile;
+};
+__device__ __forceinline__ RowBlock row_block(int x, int B, int N) {
+  const int tiles = (N + kBlockRows - 1) / kBlockRows;
+  const int rest = x / B;
+  return RowBlock{x - rest * B, rest / tiles, rest - (rest / tiles) * tiles};
+}
 
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = blockIdx.y * kBq;
+// The two consumers take turns to issue their products (named barriers 1
+// and 2 over both warpgroups), so one runs its elementwise work while the
+// other's products run, rather than both waiting on the tensor cores at
+// once and then both leaving them idle.
+__device__ __forceinline__ void consumer_turn(int c) { named_barrier_sync(1 + c, 256); }
+__device__ __forceinline__ void pass_turn(int c) { named_barrier_arrive(2 - c, 256); }
+
+// The ring of a block that owns 128 query rows and streams key tiles of K
+// and V (the forward, the dq kernel and, without its bias tiles, the dbias
+// kernel): kSt stages, each a K and a V tile of kKeys rows (kKeys / 64 TMA
+// boxes each) and, with a bias, the block's [128, kKeys] bias tile.
+template <int kKeys, int kSt>
+struct KvRing {
+  static_assert(kKeys == 64 || kKeys == 128, "a key tile is one or two TMA boxes");
+  static constexpr int kKeyTile = kKeys;
+  static constexpr int kTile = kKeys * 64 * 2;  // bytes of a K or V tile
+  static constexpr int kBiasLd = kKeys + 8;     // row pitch of the bias tile, floats
+  static constexpr int kBiasBytes = kBlockRows * kBiasLd * 4;
+  static constexpr int kDepth = kSt;
+  static constexpr int bytes(bool bias) { return kSt * (2 * kTile + (bias ? kBiasBytes : 0)); }
+  uint8_t* base;
+  __device__ __forceinline__ bf16* k(int s) const {
+    return reinterpret_cast<bf16*>(base + s * kTile);
+  }
+  __device__ __forceinline__ bf16* v(int s) const {
+    return reinterpret_cast<bf16*>(base + (kSt + s) * kTile);
+  }
+  __device__ __forceinline__ float* bias(int s) const {
+    return reinterpret_cast<float*>(base + 2 * kSt * kTile + s * kBiasBytes);
+  }
+};
+
+// the dq and dbias kernels' ring: 64-key tiles
+using DqRing = KvRing<kChunk, kStages>;
+
+// The producer warpgroup's sweep of that ring over one row block, the ring's
+// count at its first tile it0: thread 0 loads each stage's K and V tiles by
+// TMA (rows past N as zeros); with a bias, thread pt also copies query row
+// r0 + pt of the stage's bias tile, the 16-byte-aligned span around its keys,
+// by one bulk copy (full[s] then expects one arrival per producer warp, else
+// one).
+template <bool kBias, int kKeys, int kSt>
+__device__ __forceinline__ void produce_kv(const CUtensorMap* tk, const CUtensorMap* tv,
+                                           const float* bias, RowBlock blk, int r0, int N,
+                                           KvRing<kKeys, kSt> ring, uint64_t* full,
+                                           uint64_t* empty, int it0, int pt, int lane) {
+  if (!kBias && pt >= 32) return;
+  const int tiles = (N + kKeys - 1) / kKeys;
+  const int qr = r0 + pt;
+  const float* bias_row =
+      kBias && qr < N ? bias + (static_cast<long long>(blk.h) * N + qr) * N : nullptr;
+  for (int t = 0; t < tiles; ++t) {
+    const int it = it0 + t;
+    const int s = it % kSt;
+    mbar_wait(&empty[s], ((it / kSt) & 1) ^ 1);
+    const int kv0 = t * kKeys;
+    Span row{nullptr, 0};
+    if (bias_row != nullptr) row = aligned_span(bias_row + kv0, min(kKeys, N - kv0));
+    warp_expect_tx(&full[s], row.bytes + (pt == 0 ? 2 * ring.kTile : 0), lane);
+    if (pt == 0) {
+#pragma unroll
+      for (int x = 0; x < kKeys; x += kChunk) {
+        tma_load_4d(ring.k(s) + x * 64, tk, 0, blk.h, kv0 + x, blk.b, &full[s]);
+        tma_load_4d(ring.v(s) + x * 64, tv, 0, blk.h, kv0 + x, blk.b, &full[s]);
+      }
+    }
+    if (row.bytes != 0) bulk_load(ring.bias(s) + pt * ring.kBiasLd, row.src, row.bytes, &full[s]);
+  }
+}
+
+// A consumer lane's two query rows of the bias tile in the ring's stage 0
+// (the producer's bulk copy of row r lands span_shift floats in; stage s is
+// ring.bias(s) - ring.bias(0) floats on). Rows past N are not copied: they
+// read stale values, which reach only their own output rows, never stored.
+struct BiasRows {
+  const float* r0;
+  const float* r1;
+};
+template <int kKeys, int kSt>
+__device__ __forceinline__ BiasRows bias_rows(KvRing<kKeys, kSt> ring, const float* bias, int h,
+                                              int N, int lr, int row0) {
+  const float* bias_h = bias + static_cast<long long>(h) * N * N;
+  return BiasRows{ring.bias(0) + lr * ring.kBiasLd +
+                      span_shift(bias_h + static_cast<long long>(row0) * N),
+                  ring.bias(0) + (lr + 8) * ring.kBiasLd +
+                      span_shift(bias_h + static_cast<long long>(row0 + 8) * N)};
+}
+
+// The forward's rings, as measured (PERF.md): without a bias 128 keys a
+// tile (S one m64n128 product) and four stages; with one the dq kernel's
+// ring, 64 keys and three stages (the [128, 64] fp32 bias tile is the larger
+// part of a stage, and 128 keys would leave room for two stages only).
+template <bool kBias>
+using FwdRing = std::conditional_t<kBias, DqRing, KvRing<2 * kChunk, 4>>;
+
+// Forward. Replaces layoutdit_tpu/ops/flash_attention.py::_fwd_kernel and
+// _fwd_kernel_nobias (via _flash_fwd): o = softmax(q k^T * scale (+ bias)) v
+// with an optional additive bias [H, N, N], and the per-row log-sum-exp,
+// fp32 [B*H, N] in the natural-log domain (the backward kernels read it).
+// The 1024 px bucket and the windowed train step run it at B=4, H=12,
+// N=4097, D=64 without a bias; the rel-pos step with one, there and at B=64,
+// N=256 (its 16 x 16 windows).
+//
+// Bound on the H100: operations. 4*B*H*N^2*D = 206 GFLOP against 100 MB of
+// Q/K/V/O (0.21 ms at the bf16 peak); a bias adds 806 MB of fp32 reads
+// (0.24 ms at 3.35 TB/s), which the products could hide, but its copy into
+// shared memory, 128 bulk copies of a row span a stage, bounds the kernel
+// with a bias (PERF.md). At D = 64 the softmax's exponentials cost as much
+// time on the SM's special-function units as the two products on the tensor
+// cores, so the design overlaps them:
+// a block owns 128 query rows (Q loaded once, held by each consumer as its
+// register A operand for the whole sweep) and streams the key tiles of K and
+// V, and with a bias the block's bias tile, through the ring: 128 keys a tile
+// without a bias (S one m64n128 product), 64 with one (its [128, 64] fp32
+// tile is the larger part of a stage, and 128 keys would leave room for two
+// stages only), as measured (PERF.md). Each consumer keeps the
+// online softmax of its 64 rows in registers, in the exp2 domain: S = Q K^T
+// by wgmma, then P = exp2(S * scale (+ bias) - m) with the running max m and
+// sum l, O rescaled, and O += P V with P packed as the register A operand
+// and V read down its rows. Each step issues the next tile's S and this
+// tile's P V together, so the softmax of tile t + 1 runs while P V of tile t
+// is on the tensor cores. At the end each consumer normalises O, writes it as
+// bf16 through the caller's strides and stores lse for rows below N. The
+// grid is persistent, one block an SM looping over the row blocks: the
+// producer loads the next row block's Q as soon as the consumers hold the
+// last one in registers, and the ring runs on from one row block to the
+// next, so each row block's start and end overlap its neighbours' sweeps.
+template <bool kBias>
+__global__ void __launch_bounds__(kBlockThreads, 1) flash_fwd_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const float* __restrict__ bias,
+    bf16* __restrict__ o, float* __restrict__ lse, int B, int H, int N, Strides os,
+    float scale) {
+  using Ring = FwdRing<kBias>;
+  constexpr int kSt = Ring::kDepth;
+  constexpr int kKeys = Ring::kKeyTile;
+  constexpr int kJ = kKeys / 8;  // n-tiles of a score tile
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[kSt], empty[kSt], q_full, q_empty;
+  uint8_t* sm = align1024(smem_raw);
+  bf16* q_s = reinterpret_cast<bf16*>(sm);  // [128, 64]
+  const Ring ring{sm + 2 * kTileBytes};
+
+  // persistent: block x takes the row blocks x, x + gridDim.x, ..., the
+  // ring's stages and phases running on from one to the next
+  const int blocks = B * H * ((N + kBlockRows - 1) / kBlockRows);
+  const int tiles = (N + kKeys - 1) / kKeys;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSt; ++s) {
+      mbar_init(&full[s], kBias ? 4 : 1);  // one arrival per producer warp that copies
+      mbar_init(&empty[s], 8);             // one arrival per consumer warp
+    }
+    mbar_init(&q_full, 1);
+    mbar_init(&q_empty, 8);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int quad = lane & 3;
-  // this lane's two query rows (fragment rows lane/4 and lane/4 + 8)
-  const int row0 = q0 + warp * 16 + (lane >> 2);
-  const int row1 = row0 + 8;
-  const float scale2 = scale * kLog2e;
+  if (warp >= 8) {  // producer warpgroup
+    warpgroup_regs_dec<kProducerRegs>();
+    const int pt = threadIdx.x - 256;
+    for (int x = blockIdx.x, n = 0; x < blocks; x += gridDim.x, ++n) {
+      const RowBlock blk = row_block(x, B, N);
+      const int r0 = blk.tile * kBlockRows;
+      if (pt == 0) {  // Q as soon as the consumers hold the last block's
+        mbar_wait(&q_empty, (n & 1) ^ 1);
+        mbar_expect_tx(&q_full, 2 * kTileBytes);
+        tma_load_4d(q_s, &tq, 0, blk.h, r0, blk.b, &q_full);
+        tma_load_4d(q_s + kChunk * 64, &tq, 0, blk.h, r0 + kChunk, blk.b, &q_full);
+      }
+      produce_kv<kBias>(&tk, &tv, bias, blk, r0, N, ring, full, empty, n * tiles, pt, lane);
+    }
+  } else {  // consumer warpgroups c = 0, 1: query rows r0 + 64 c + [0, 64)
+    warpgroup_regs_inc<kConsumerRegs>();
+    const int c = warp >> 2;
+    const int w = warp & 3;
+    const int quad = lane & 3;
+    const int lr = c * kChunk + w * 16 + (lane >> 2);  // this lane's first row in the block
+    const float scale2 = scale * kLog2e;
+    const bf16* qa = q_s + c * kChunk * 64;  // this warpgroup's Q rows
+    // without a bias and with a positive scale the softmax takes the max of
+    // the raw scores and folds the scale into the exponent's multiply-add
+    const bool fold = !kBias && scale2 > 0.f;
 
-  // Q fragments, staged through k_s
-  load_tile<D, kThreads>(k_s, q + b * qs.b + h * qs.h, qs.n, q0, N);
-  __syncthreads();
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldmatrix_x4(qf[kk], k_s + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+    for (int x = blockIdx.x, n = 0; x < blocks; x += gridDim.x, ++n) {
+      const RowBlock blk = row_block(x, B, N);
+      const int row0 = blk.tile * kBlockRows + lr;
+      const BiasRows br = kBias ? bias_rows(ring, bias, blk.h, N, lr, row0) : BiasRows{};
+      const int it0 = n * tiles;  // the ring's count at this block's first tile
 
-  float acc[D / 8][4];
+      float acc[8][4], sc[kJ][4];
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+      for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+      // running max (exp2 domain) and per-lane partial sum of this lane's rows
+      float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
+      uint32_t qf[4][4], pa[kJ / 2][4];
+      mbar_wait(&q_full, n & 1);
+      // Q into registers, its buffer back to the producer
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) load_a_sw128(qf[kk], qa, w, lane, kk);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&q_empty);
 
-  const bf16* kb = k + b * ks.b + h * ks.h;
-  const bf16* vb = v + b * vs.b + h * vs.h;
-  for (int kv0 = 0; kv0 < N; kv0 += kBk) {
-    __syncthreads();  // Q staging / previous tile fully read
-    load_tile<D, kThreads>(k_s, kb, ks.n, kv0, N);
-    load_tile<D, kThreads>(v_s, vb, vs.n, kv0, N);
-    __syncthreads();
+      // S = Q K^T of the tile in stage s (issued, not waited for)
+      auto issue_s = [&](int s) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs<0>(sc, qf[kk], sw128_desc(ring.k(s) + kk * 16), kk);
+        wgmma_commit();
+      };
+      // the softmax of the tile in stage s, keys from kv0: sc becomes P
+      auto softmax = [&](int s, int kv0) {
+        if (!fold) {
+          const long long boff = ring.bias(s) - ring.bias(0);
+#pragma unroll
+          for (int j = 0; j < kJ; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float v = sc[j][e] * scale2;
+              if (kBias)
+                v = fmaf((e < 2 ? br.r0 : br.r1)[boff + j * 8 + 2 * quad + (e & 1)], kLog2e, v);
+              sc[j][e] = v;
+            }
+          }
+        }
+        if (kv0 + kKeys > N) {  // the last tile: keys past N (a branch of its own)
+#pragma unroll
+          for (int j = 0; j < kJ; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (kv0 + j * 8 + 2 * quad + (e & 1) >= N) sc[j][e] = kNegInf;
+        }
+        float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+        for (int j = 0; j < kJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float mn = fmaxf(m[r], quad_max(mx[r]) * (fold ? scale2 : 1.f));
+          corr[r] = exp2_ftz(m[r] - mn);
+          m[r] = mn;
+        }
+        float ps[2] = {0.f, 0.f};
+        if (fold) {
+#pragma unroll
+          for (int j = 0; j < kJ; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              sc[j][e] = exp2_ftz(fmaf(sc[j][e], scale2, -m[e >> 1]));
+              ps[e >> 1] += sc[j][e];
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < kJ; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              sc[j][e] = exp2_ftz(sc[j][e] - m[e >> 1]);
+              ps[e >> 1] += sc[j][e];
+            }
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + ps[r];
+      };
 
-    // S = Q K^T: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys
-    float s[kBk / 8][4];
+      // O += P V of the tile in stage s (issued, not waited for)
+      auto issue_pv = [&](int s) {
 #pragma unroll
-    for (int j = 0; j < kBk / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        for (int kk = 0; kk < kJ / 2; ++kk)
+          wgmma_rs<1>(acc, pa[kk], sw128_desc(ring.v(s) + kk * 16 * 64));
+        wgmma_commit();
+      };
+      // the registers of the products about to be issued are final before
+      // the fence (else the compiler may move their last writes past it)
+      auto fence_operands = [&] {
+        fence_acc(acc);
+        fence_frag(pa);
+        wgmma_fence();
+      };
+
+      // S of the first tile; then each step issues the next tile's S and
+      // this tile's P V, and the next softmax runs while P V does. The last
+      // tile's P V is issued apart, so every step of the loop commits the
+      // same two groups (the compiler serialises the products when it
+      // cannot tell which group a wait retires).
+      mbar_wait(&full[it0 % kSt], (it0 / kSt) & 1);
+      wgmma_fence();
+      issue_s(it0 % kSt);
+      wgmma_wait<0>();
+      fence_acc(sc);
+      softmax(it0 % kSt, 0);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < kJ / 2; ++kk) pack_a(pa[kk], sc, kk);
+      for (int t = 0; t + 1 < tiles; ++t) {
+        const int it = it0 + t;
+        const int s = it % kSt;
+        const int sn = (it + 1) % kSt;
+        mbar_wait(&full[sn], ((it + 1) / kSt) & 1);
+        fence_operands();
+        issue_s(sn);
+        issue_pv(s);
+        wgmma_wait<1>();
+        fence_acc(sc);
+        softmax(sn, (t + 1) * kKeys);
+        wgmma_wait<0>();
+        fence_acc(acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
 #pragma unroll
-      for (int j = 0; j < kBk / 8; j += 2) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, k_s + (j * 8 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
-                            ((lane >> 3) & 1) * 8);
-        mma_bf16(s[j], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[j + 1], qf[kk], bk[2], bk[3]);
+        for (int j = 0; j < 8; ++j) {
+          acc[j][0] *= corr[0];
+          acc[j][1] *= corr[0];
+          acc[j][2] *= corr[1];
+          acc[j][3] *= corr[1];
+        }
+#pragma unroll
+        for (int kk = 0; kk < kJ / 2; ++kk) pack_a(pa[kk], sc, kk);
+      }
+      const int s_last = (it0 + tiles - 1) % kSt;
+      fence_operands();
+      issue_pv(s_last);
+      wgmma_wait<0>();
+      fence_acc(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s_last]);
+
+      float inv[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] = fmaxf(quad_sum(l[r]), 1e-30f);
+        inv[r] = 1.f / l[r];
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        acc[j][0] *= inv[0];
+        acc[j][1] *= inv[0];
+        acc[j][2] *= inv[1];
+        acc[j][3] *= inv[1];
+      }
+      store_rows<64>(o + blk.b * os.b + blk.h * os.h, os.n, acc, row0, N, quad, 1.f);
+      if (quad == 0) {
+        float* lse_bh = lse + static_cast<long long>(blk.b * H + blk.h) * N;
+        if (row0 < N) lse_bh[row0] = (m[0] + log2f(l[0])) * kLn2;
+        if (row0 + 8 < N) lse_bh[row0 + 8] = (m[1] + log2f(l[1])) * kLn2;
       }
     }
-
-    // scale (+ bias), mask the ragged edge, online softmax (exp2 domain)
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int j = 0; j < kBk / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kv0 + j * 8 + 2 * quad + (e & 1);
-        const int row = e < 2 ? row0 : row1;
-        float x = s[j][e] * scale2;
-        if (kBias && row < N && key < N)
-          x += bias[(static_cast<long long>(h) * N + row) * N + key] * kLog2e;
-        x = key < N ? x : kNegInf;
-        s[j][e] = x;
-        if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
-      }
-    }
-    mx0 = quad_max(mx0);
-    mx1 = quad_max(mx1);
-    const float mn0 = fmaxf(m0, mx0);
-    const float mn1 = fmaxf(m1, mx1);
-    const float corr0 = exp2f(m0 - mn0);
-    const float corr1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < kBk / 8; ++j) {
-      s[j][0] = exp2f(s[j][0] - m0);
-      s[j][1] = exp2f(s[j][1] - m0);
-      s[j][2] = exp2f(s[j][2] - m1);
-      s[j][3] = exp2f(s[j][3] - m1);
-      ps0 += s[j][0] + s[j][1];
-      ps1 += s[j][2] + s[j][3];
-    }
-    l0 = l0 * corr0 + ps0;  // per-lane partial; reduced over the quad at the end
-    l1 = l1 * corr1 + ps1;
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      acc[nt][0] *= corr0;
-      acc[nt][1] *= corr0;
-      acc[nt][2] *= corr1;
-      acc[nt][3] *= corr1;
-    }
-
-    // O += P V: the score accumulators of n-tiles 2kk, 2kk+1 are the A
-    // fragment of keys [16kk, 16kk + 16)
-#pragma unroll
-    for (int kk = 0; kk < kBk / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int nt = 0; nt < D / 8; nt += 2) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, v_s + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                  nt * 8 + (lane >> 4) * 8);
-        mma_bf16(acc[nt], pa, bv[0], bv[1]);
-        mma_bf16(acc[nt + 1], pa, bv[2], bv[3]);
-      }
-    }
-  }
-
-  l0 = fmaxf(quad_sum(l0), 1e-30f);
-  l1 = fmaxf(quad_sum(l1), 1e-30f);
-  const float inv0 = 1.f / l0;
-  const float inv1 = 1.f / l1;
-  if (row0 < N) {
-    bf16* og = o + b * os.b + row0 * os.n + h * os.h + 2 * quad;
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-      *reinterpret_cast<__nv_bfloat162*>(og + nt * 8) =
-          __floats2bfloat162_rn(acc[nt][0] * inv0, acc[nt][1] * inv0);
-    if (quad == 0) lse[static_cast<long long>(bh) * N + row0] = (m0 + log2f(l0)) * kLn2;
-  }
-  if (row1 < N) {
-    bf16* og = o + b * os.b + row1 * os.n + h * os.h + 2 * quad;
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-      *reinterpret_cast<__nv_bfloat162*>(og + nt * 8) =
-          __floats2bfloat162_rn(acc[nt][2] * inv1, acc[nt][3] * inv1);
-    if (quad == 0) lse[static_cast<long long>(bh) * N + row1] = (m1 + log2f(l1)) * kLn2;
   }
 }
 
@@ -193,30 +417,16 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 // (0.52 ms at the bf16 peak); a bias adds its 806 MB of fp32 reads to each
 // kernel (0.24 ms at 3.35 TB/s). Two kernels split the work as the TPU
 // kernels do, so every gradient row is summed inside one block and written
-// once: no atomics, and the gradients are the same bits from run to run. (The
-// FlashAttention-2 single kernel adds dQ across key blocks with fp32
-// atomics, whose order, and so whose last bits, change between runs.) The
-// price is that S and dP are computed in both kernels: 7 products, not 5.
-//
-// Both kernels have the Hopper shape: a block of three warpgroups, two
-// consumers that each own 64 rows of the block's 128 and one producer
-// (setmaxnreg: 232 registers a consumer thread, 40 a producer one). The
-// producer keeps a ring of kBwdStages tiles in flight: its first thread
-// loads the streamed bf16 tiles by TMA (4-d tensor maps over the [B, N, H,
-// D] strides, so the fused projection's slices are read in place, 128-byte
-// swizzled, rows past N zero-filled), and its other threads copy the fp32
-// rows that no tensor map can describe (the [B*H, N] and [H, N, N] rows have
-// an odd pitch at N = 4097) with one bulk copy each, of the 16-byte-aligned
-// span that covers the row (aligned_span); each stage completes on a "full"
-// mbarrier and is handed back on an "empty" one. The consumers run every
-// product as wgmma m64n64k16 (bf16 in, fp32 accumulate): S and dP with the
-// streamed tile as B (the dq kernel holds its Q and dO rows as register A
-// operands for the whole sweep, the dkdv kernel reads K and V from shared
-// memory), then P or dS as the register A operand of the gradient products,
-// the tile as B read down its rows. They overlap the
-// elementwise work of a tile with its products: P is formed while dP runs,
-// and dS while the first gradient product runs. The gradients stay in fp32
-// registers and are rounded to bf16 once, written through the caller's
+// once: no atomics. (The FlashAttention-2 single kernel adds dQ across key
+// blocks with fp32 atomics, whose order, and so whose last bits, change
+// between runs.) The price is that S and dP are computed in both kernels: 7
+// products, not 5. Both run S and dP with the streamed tile as B (the dq
+// kernel holds its Q and dO rows as register A operands for the whole
+// sweep, the dkdv kernel reads K and V from shared memory), then P or dS as
+// the register A operand of the gradient products, the tile as B read down
+// its rows. They overlap the elementwise work of a tile with its products:
+// P is formed while dP runs, and dS while the first gradient product runs.
+// The gradients are rounded to bf16 once, written through the caller's
 // strides (the slices of one fused [B, N, 3*H*D] gradient).
 //   dq kernel: a block owns 128 query rows (Q and dO loaded once) and
 //     streams the 64-key tiles of K and V: S = Q K^T, dP = dO V^T, dS,
@@ -228,82 +438,44 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 //     dP^T = V dO^T, P^T and dS^T, dV += P^T dO, dK += dS^T Q.
 // With a bias, each stage also carries the bias tile the block needs, one
 // row per copy, in a shared-memory pitch that spreads the consumers' reads
-// over the banks (the dkdv kernel reads it transposed). The grid runs b
-// fastest, so the B blocks that read one head's tile run together and L2
-// serves all but the first: the bias crosses HBM about once a kernel. The
-// ragged edge is masked as in the forward: key columns past N get P = 0 (the
-// forward's -1e30 score). Query rows past N read as zeros (TMA): in the dq
-// kernel their dS reaches only their own dQ rows, which are not stored; in
-// the dkdv kernel their P and delta are set to 0, so they add nothing. No
-// other fp32 value a span copies beyond a row is used.
-
-constexpr int kBwdStages = 3;
-constexpr int kBwdRows = 2 * kChunk;               // rows of a block: two consumers
-constexpr int kBwdThreads = 3 * 128;               // two consumer warpgroups, one producer
-constexpr int kTileBytes = kChunk * 64 * 2;        // one bf16 [64, 64] tile
-constexpr int kDqBiasLd = kChunk + 8;              // [128 queries][64 keys] fp32 bias tile
-constexpr int kDkdvBiasLd = kBwdRows + 4;          // [64 queries][128 keys], read transposed
-constexpr int kDqBiasBytes = kBwdRows * kDqBiasLd * 4;
-constexpr int kVecLd = kChunk + 8;                 // lse or delta of a query tile, fp32
-constexpr int kDkdvBiasBytes = kChunk * kDkdvBiasLd * 4;
-constexpr int kConsumerRegs = 232;
-constexpr int kProducerRegs = 40;
+// over the banks (the dkdv kernel reads it transposed). In the dq kernel
+// query rows past N read as zeros and their dS reaches only their own dQ
+// rows, which are not stored; in the dkdv kernel their P and delta are set
+// to 0, so they add nothing. No other fp32 value a span copies beyond a row
+// is used.
 
 // dynamic shared memory of each kernel, 1024 bytes of alignment slack
-// included: the block's own 128 rows of two operands, then the ring
+// included: the block's own 128 rows of one or two operands, then the ring
+constexpr int fwd_smem_bytes(bool bias) {
+  return 1024 + 2 * kTileBytes + (bias ? FwdRing<true>::bytes(true) : FwdRing<false>::bytes(false));
+}
 constexpr int dq_smem_bytes(bool bias) {
-  return 1024 + 4 * kTileBytes + kBwdStages * (2 * kTileBytes + (bias ? kDqBiasBytes : 0));
+  return 1024 + 4 * kTileBytes + DqRing::bytes(bias);
 }
 constexpr int dkdv_smem_bytes(bool bias) {
   return 1024 + 4 * kTileBytes +
-         kBwdStages * (2 * kTileBytes + 2 * kVecLd * 4 + (bias ? kDkdvBiasBytes : 0));
+         kStages * (2 * kTileBytes + 2 * kVecLd * 4 + (bias ? kDkdvBiasBytes : 0));
 }
-
-// block -> (b, h, row tile), b fastest, then the tile, then the head
-struct BwdBlock {
-  int b, h, tile;
-};
-__device__ __forceinline__ BwdBlock bwd_block(int B, int N) {
-  const int tiles = (N + kBwdRows - 1) / kBwdRows;
-  const int x = blockIdx.x;
-  const int rest = x / B;
-  return BwdBlock{x - rest * B, rest / tiles, rest - (rest / tiles) * tiles};
-}
-
-// The two consumers take turns to issue their S and dP products (named
-// barriers 1 and 2 over both warpgroups), so one forms its P and dS while
-// the other's products run, rather than both waiting on the tensor cores at
-// once and then both leaving them idle.
-__device__ __forceinline__ void consumer_turn(int c) { named_barrier_sync(1 + c, 256); }
-__device__ __forceinline__ void pass_turn(int c) { named_barrier_arrive(2 - c, 256); }
 
 template <bool kBias>
-__global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dq_kernel(
+__global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dq_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
     const bf16* __restrict__ o, const bf16* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ bias, float* __restrict__ delta, bf16* __restrict__ dq, int B,
     int H, int N, Strides os, Strides dos, Strides dqs, float scale) {
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t full[kBwdStages], empty[kBwdStages], once;
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages], once;
   uint8_t* sm = align1024(smem_raw);
   bf16* q_s = reinterpret_cast<bf16*>(sm);                   // [128, 64]
   bf16* do_s = reinterpret_cast<bf16*>(sm + 2 * kTileBytes);  // [128, 64]
-  uint8_t* ring = sm + 4 * kTileBytes;
-  // stage s: K tile, V tile, bias tile
-  auto k_s = [&](int s) { return reinterpret_cast<bf16*>(ring + s * kTileBytes); };
-  auto v_s = [&](int s) {
-    return reinterpret_cast<bf16*>(ring + (kBwdStages + s) * kTileBytes);
-  };
-  auto bias_s = [&](int s) {
-    return reinterpret_cast<float*>(ring + 2 * kBwdStages * kTileBytes + s * kDqBiasBytes);
-  };
+  const DqRing ring{sm + 4 * kTileBytes};
 
-  const BwdBlock blk = bwd_block(B, N);
-  const int r0 = blk.tile * kBwdRows;
+  const RowBlock blk = row_block(blockIdx.x, B, N);
+  const int r0 = blk.tile * kBlockRows;
   const int tiles = (N + kChunk - 1) / kChunk;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kBwdStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], kBias ? 4 : 1);  // one arrival per producer warp that copies
       mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
@@ -324,31 +496,14 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dq_kernel(
       tma_load_4d(do_s, &tdo, 0, blk.h, r0, blk.b, &once);
       tma_load_4d(do_s + kChunk * 64, &tdo, 0, blk.h, r0 + kChunk, blk.b, &once);
     }
-    if (kBias || pt < 32) {
-      // with a bias, thread pt also copies query row r0 + pt of each bias tile
-      const int qr = r0 + pt;
-      const float* bias_row =
-          kBias && qr < N ? bias + (static_cast<long long>(blk.h) * N + qr) * N : nullptr;
-      for (int it = 0; it < tiles; ++it) {
-        const int s = it % kBwdStages;
-        mbar_wait(&empty[s], ((it / kBwdStages) & 1) ^ 1);
-        const int kv0 = it * kChunk;
-        Span row{nullptr, 0};
-        if (bias_row != nullptr) row = aligned_span(bias_row + kv0, min(kChunk, N - kv0));
-        warp_expect_tx(&full[s], row.bytes + (pt == 0 ? 2 * kTileBytes : 0), lane);
-        if (pt == 0) {
-          tma_load_4d(k_s(s), &tk, 0, blk.h, kv0, blk.b, &full[s]);
-          tma_load_4d(v_s(s), &tv, 0, blk.h, kv0, blk.b, &full[s]);
-        }
-        if (row.bytes != 0) bulk_load(bias_s(s) + pt * kDqBiasLd, row.src, row.bytes, &full[s]);
-      }
-    }
+    produce_kv<kBias>(&tk, &tv, bias, blk, r0, N, ring, full, empty, 0, pt, lane);
   } else {  // consumer warpgroups c = 0, 1: query rows r0 + 64 c + [0, 64)
     warpgroup_regs_inc<kConsumerRegs>();
     const int c = warp >> 2;
     const int w = warp & 3;
     const int quad = lane & 3;
-    const int row0 = r0 + c * kChunk + w * 16 + (lane >> 2);
+    const int lr = c * kChunk + w * 16 + (lane >> 2);  // this lane's first row in the block
+    const int row0 = r0 + lr;
     const int row1 = row0 + 8;
     const int bh = blk.b * H + blk.h;
     const float scale2 = scale * kLog2e;
@@ -368,19 +523,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dq_kernel(
       if (row1 < N) delta[static_cast<long long>(bh) * N + row1] = dl1;
     }
 
-    // this lane's two rows of each bias tile (the producer's bulk copy of
-    // row r lands span_shift floats in). Rows past N are not copied: they
-    // read stale values, which reach only their own dS and dQ rows, never
-    // stored.
-    const float* brow0 = nullptr;
-    const float* brow1 = nullptr;
-    if (kBias) {
-      const int lr = c * kChunk + w * 16 + (lane >> 2);
-      const float* bias_h = bias + static_cast<long long>(blk.h) * N * N;
-      brow0 = bias_s(0) + lr * kDqBiasLd + span_shift(bias_h + static_cast<long long>(row0) * N);
-      brow1 = bias_s(0) + (lr + 8) * kDqBiasLd +
-              span_shift(bias_h + static_cast<long long>(row1) * N);
-    }
+    const BiasRows br = kBias ? bias_rows(ring, bias, blk.h, N, lr, row0) : BiasRows{};
 
     float acc[8][4];
 #pragma unroll
@@ -396,10 +539,10 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dq_kernel(
     }
     if (c == 1) pass_turn(c);  // consumer 0 issues first
     for (int it = 0; it < tiles; ++it) {
-      const int s = it % kBwdStages;
-      mbar_wait(&full[s], (it / kBwdStages) & 1);
-      const bf16* kt = k_s(s);
-      const bf16* vt = v_s(s);
+      const int s = it % kStages;
+      mbar_wait(&full[s], (it / kStages) & 1);
+      const bf16* kt = ring.k(s);
+      const bf16* vt = ring.v(s);
       float sc[8][4], dp[8][4];
       consumer_turn(c);
       wgmma_fence();
@@ -417,14 +560,14 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dq_kernel(
       wgmma_wait<1>();
       fence_acc(sc);
       const int kv0 = it * kChunk;
-      const long long boff = (bias_s(s) - bias_s(0));
+      const long long boff = ring.bias(s) - ring.bias(0);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int col = j * 8 + 2 * quad + (e & 1);
           float x = sc[j][e] * scale2;
-          if (kBias) x += (e < 2 ? brow0 : brow1)[boff + col] * kLog2e;
+          if (kBias) x += (e < 2 ? br.r0 : br.r1)[boff + col] * kLog2e;
           sc[j][e] = kv0 + col < N ? exp2f(x - (e < 2 ? lse0 : lse1)) : 0.f;
         }
       }
@@ -454,14 +597,14 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dq_kernel(
 }
 
 template <bool kBias>
-__global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dkdv_kernel(
+__global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dkdv_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const float* __restrict__ bias, bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int H,
     int N, Strides dks, Strides dvs, float scale) {
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t full[kBwdStages], empty[kBwdStages], once;
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages], once;
   uint8_t* sm = align1024(smem_raw);
   bf16* k_s = reinterpret_cast<bf16*>(sm);                   // [128, 64]
   bf16* v_s = reinterpret_cast<bf16*>(sm + 2 * kTileBytes);  // [128, 64]
@@ -469,22 +612,22 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dkdv_kernel(
   // stage s: Q tile, dO tile, lse and delta [2][64], bias tile
   auto q_s = [&](int s) { return reinterpret_cast<bf16*>(ring + s * kTileBytes); };
   auto do_s = [&](int s) {
-    return reinterpret_cast<bf16*>(ring + (kBwdStages + s) * kTileBytes);
+    return reinterpret_cast<bf16*>(ring + (kStages + s) * kTileBytes);
   };
   auto vec_s = [&](int s) {
-    return reinterpret_cast<float*>(ring + 2 * kBwdStages * kTileBytes + s * 2 * kVecLd * 4);
+    return reinterpret_cast<float*>(ring + 2 * kStages * kTileBytes + s * 2 * kVecLd * 4);
   };
   auto bias_s = [&](int s) {
-    return reinterpret_cast<float*>(ring + 2 * kBwdStages * kTileBytes +
-                                    kBwdStages * 2 * kVecLd * 4 + s * kDkdvBiasBytes);
+    return reinterpret_cast<float*>(ring + 2 * kStages * kTileBytes +
+                                    kStages * 2 * kVecLd * 4 + s * kDkdvBiasBytes);
   };
 
-  const BwdBlock blk = bwd_block(B, N);
-  const int k0 = blk.tile * kBwdRows;
+  const RowBlock blk = row_block(blockIdx.x, B, N);
+  const int k0 = blk.tile * kBlockRows;
   const int tiles = (N + kChunk - 1) / kChunk;
   const int bh = blk.b * H + blk.h;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kBwdStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], kBias ? 2 : 1);  // one arrival per producer warp that copies
       mbar_init(&empty[s], 8);
     }
@@ -513,12 +656,13 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dkdv_kernel(
       const float* vec = pt == 1 ? lse : pt == 2 ? delta : nullptr;
       if (vec != nullptr) vec += static_cast<long long>(bh) * N;
       for (int it = 0; it < tiles; ++it) {
-        const int s = it % kBwdStages;
-        mbar_wait(&empty[s], ((it / kBwdStages) & 1) ^ 1);
+        const int s = it % kStages;
+        mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
         const int q0 = it * kChunk;
         Span row{nullptr, 0}, vrow{nullptr, 0};
         if (kBias && q0 + pt < N)
-          row = aligned_span(bias_hk + static_cast<long long>(q0 + pt) * N, min(kBwdRows, N - k0));
+          row = aligned_span(bias_hk + static_cast<long long>(q0 + pt) * N,
+                             min(kBlockRows, N - k0));
         if (vec != nullptr) vrow = aligned_span(vec + q0, min(kChunk, N - q0));
         warp_expect_tx(&full[s], row.bytes + vrow.bytes + (pt == 0 ? 2 * kTileBytes : 0), lane);
         if (pt == 0) {
@@ -561,8 +705,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dkdv_kernel(
     const bf16* ka = k_s + c * kChunk * 64;
     const bf16* va = v_s + c * kChunk * 64;
     for (int it = 0; it < tiles; ++it) {
-      const int s = it % kBwdStages;
-      mbar_wait(&full[s], (it / kBwdStages) & 1);
+      const int s = it % kStages;
+      mbar_wait(&full[s], (it / kStages) & 1);
       const bf16* qt = q_s(s);
       const bf16* dt = do_s(s);
       float st[8][4], dpt[8][4];
@@ -662,6 +806,34 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dkdv_kernel(
   }
 }
 
+// Makes the device that holds p current in this thread while the guard
+// lives, and the thread's previous device current again after it, as
+// c10's DeviceGuard does. cudaSetDevice also makes the device's primary
+// context current: cuTensorMapEncodeTiled needs a current context, and a
+// thread may have none yet (autograd's worker thread runs a backward with
+// none where every tensor it allocated came from PyTorch's cache).
+class DeviceOf {
+ public:
+  explicit DeviceOf(const void* p) {
+    cudaPointerAttributes attr;
+    err_ = cudaPointerGetAttributes(&attr, p);
+    if (err_ == cudaSuccess) err_ = cudaGetDevice(&prev_);
+    if (err_ == cudaSuccess) err_ = cudaSetDevice(attr.device);
+    if (err_ == cudaSuccess) device_ = attr.device;
+  }
+  ~DeviceOf() {
+    if (device_ >= 0 && device_ != prev_) cudaSetDevice(prev_);
+  }
+  DeviceOf(const DeviceOf&) = delete;
+  DeviceOf& operator=(const DeviceOf&) = delete;
+  cudaError_t error() const { return err_; }
+
+ private:
+  cudaError_t err_;
+  int prev_ = -1;
+  int device_ = -1;
+};
+
 // cuTensorMapEncodeTiled, a driver function, found through the runtime so
 // the library needs no link against libcuda
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -715,128 +887,245 @@ bool encode_qkvdo(CUtensorMap (&m)[4], const void* q, const void* k, const void*
 
 // Bias gradient. Replaces layoutdit_tpu/ops/flash_attention.py::_dbias_kernel
 // (via _flash_bwd): dbias[h, i, j] = sum_b dS[b, h, i, j], dS as above, for
-// a bias [H, N, N] shared by the batch (BEiT's relative-position bias). The
-// high-res rel-pos train step runs it at B=4, N=4097 (the global layers) and
-// at B=64, N=256 (16 x 16 windows), H=12, D=64.
+// a bias [H, N, N] shared by the batch (BEiT's relative-position bias), from
+// q, k, v, dO, the forward's lse, the delta the dq kernel writes (launched
+// before it on the same stream) and the bias. The high-res rel-pos train
+// step runs it at B=4, N=4097 (the global layers) and at B=64, N=256 (16 x
+// 16 windows), H=12, D=64.
 //
 // Bound on the H100: bytes. The fp32 bias read and dbias written are
 // 2*H*N^2*4 = 1.61 GB at N=4097 (0.48 ms at 3.35 TB/s) against 4*B*H*N^2*D
-// = 206 GFLOP for S and dP (0.21 ms at the bf16 peak). The design reads
-// each bias element once and writes each dbias element once: a block owns
-// one 64 x 64 (query, key) tile of one head (4 warps x 16 query rows), holds
-// its bias tile in registers and its dbias tile in fp32 registers, and loops
-// over the batch as the TPU kernel's innermost grid dimension does. For each
-// batch element it stages the Q, dO, K and V tiles in shared memory, forms
-// S = Q K^T and dP = dO V^T with mma.sync (the dq kernel's arithmetic, from
-// the forward's lse and the delta the dq kernel writes, launched before it on
-// the same stream), and adds dS = P o (dP - delta) in fp32. No atomics: the
-// batch sum runs in a fixed order, so dbias is the same bits every run (a
-// dS added from the dq kernel with atomics would not be). Still simple: the
-// Q/dO/K/V tiles are reloaded by every key or query tile that needs them
-// (from L2), and the bias is a materialised [H, N, N] tensor.
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dbias_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, const float* __restrict__ bias,
-    float* __restrict__ dbias, int B, int H, int N, Strides qs, Strides ks, Strides vs,
-    Strides dos, float scale) {
-  constexpr int LD = D + 8;
-  __shared__ __align__(16) bf16 q_s[kBq * LD];
-  __shared__ __align__(16) bf16 do_s[kBq * LD];
-  __shared__ __align__(16) bf16 k_s[kBk * LD];
-  __shared__ __align__(16) bf16 v_s[kBk * LD];
+// = 206 GFLOP for S and dP (0.21 ms at the bf16 peak). A block owns one
+// head's 128 query rows (64 a consumer) and sweeps one or more 64-key tiles
+// (tiles_per_block: the whole row at N = 4097, one tile at the window
+// shape, so that the grid fills the card) and, inside each key tile, the
+// batch in order. Where the block's Q and dO rows, lse and delta for every b
+// fit in shared memory (kResident: B <= 4, 128 KB at B = 4), they are loaded
+// once and only K_b and V_b stream through the ring (about 1.7 GB through
+// L2 at N = 4097, against 6.6 GB when every tile reloaded all four); else
+// (the window shape, B = 64) Q_b, dO_b, lse_b and delta_b stream with them.
+// The bias tile comes once a key tile, by bulk copies, into a buffer of its
+// own: the consumers take it into registers (exp2 domain) and hand it back
+// at once, so the next tile's copy runs under this tile's batch sweep. Per b
+// each consumer runs S = Q K^T and dP = dO V^T as wgmma with both operands
+// in shared memory, forms P = exp2(S * scale + bias - lse) while dP runs,
+// and adds dS = P o (dP - delta) into fp32 registers, b in a fixed order:
+// no atomics, so dbias is the same bits every run. Each bias element is
+// read once and each dbias element written once, a warp's rows as stores of
+// 128 contiguous bytes (the values handed across the warp by shuffles); the
+// rows and keys past N (zero K rows, stale bias and lse) are never stored.
+constexpr int kVecPitch = kBlockRows + 8;  // lse or delta of a row block, span slack included
+constexpr int kVecBytes = 2 * kVecPitch * 4;
 
-  const int kv0 = blockIdx.x * kBk;
-  const int q0 = blockIdx.y * kBq;
-  const int h = blockIdx.z;
+// dynamic shared memory of the dbias kernel: the Q and dO rows of `slots`
+// batch elements (all B when resident, else one a ring stage), the K and V
+// ring, the bias tile, then lse and delta of each slot
+constexpr int dbias_smem_bytes(int slots) {
+  return 1024 + (4 * slots + 2 * kStages) * kTileBytes + DqRing::kBiasBytes + slots * kVecBytes;
+}
+
+template <bool kResident>
+__global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dbias_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const float* __restrict__ bias, float* __restrict__ dbias, int B, int H, int N,
+    int tiles_per_block, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages], once, bias_full, bias_empty;
+  uint8_t* sm = align1024(smem_raw);
+  const int slots = kResident ? B : kStages;
+  // slot i: Q and dO rows [128, 64] each, lse and delta [2][kVecPitch]
+  auto q_s = [&](int i) { return reinterpret_cast<bf16*>(sm + i * 2 * kTileBytes); };
+  auto do_s = [&](int i) { return reinterpret_cast<bf16*>(sm + (slots + i) * 2 * kTileBytes); };
+  const DqRing ring{sm + 4 * slots * kTileBytes};  // K and V tiles; the bias tile apart
+  constexpr int kBiasLd = DqRing::kBiasLd;
+  float* bias_t = reinterpret_cast<float*>(ring.base + 2 * kStages * kTileBytes);  // [128][kBiasLd]
+  auto vec_s = [&](int i) { return bias_t + kBlockRows * kBiasLd + i * 2 * kVecPitch; };
+
+  // block -> (row block, key group, head), the row block fastest: the
+  // blocks that read one head's K and V run together
+  const int rbs = (N + kBlockRows - 1) / kBlockRows;
+  const int tiles = (N + kChunk - 1) / kChunk;
+  const int groups = (tiles + tiles_per_block - 1) / tiles_per_block;
+  const int rb = blockIdx.x % rbs;
+  const int g = (blockIdx.x / rbs) % groups;
+  const int h = blockIdx.x / (rbs * groups);
+  const int r0 = rb * kBlockRows;
+  const int t0 = g * tiles_per_block;
+  const int t1 = min(tiles, t0 + tiles_per_block);
+  const int nrows = min(kBlockRows, N - r0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    mbar_init(&once, 1);
+    mbar_init(&bias_full, 4);  // one arrival per producer warp
+    mbar_init(&bias_empty, 8);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // the first of this row block's lse (or delta) values of batch element b
+  auto vec_row = [&](const float* vec, int b) {
+    return vec + (static_cast<long long>(b) * H + h) * N + r0;
+  };
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int quad = lane & 3;
-  const int row0 = q0 + warp * 16 + (lane >> 2);
-  const int row1 = row0 + 8;
-  const float scale2 = scale * kLog2e;
-
-  // this lane's bias (exp2 domain) and dbias accumulators, in the score
-  // accumulators' layout: element e of n-tile j is (row e < 2 ? row0 : row1,
-  // key kv0 + 8j + 2 quad + (e & 1))
-  const float* bias_h = bias + static_cast<long long>(h) * N * N;
-  float bl[kBk / 8][4], acc[kBk / 8][4];
-#pragma unroll
-  for (int j = 0; j < kBk / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = kv0 + j * 8 + 2 * quad + (e & 1);
-      const int row = e < 2 ? row0 : row1;
-      bl[j][e] = (row < N && key < N) ? bias_h[static_cast<long long>(row) * N + key] * kLog2e
-                                      : 0.f;
-      acc[j][e] = 0.f;
+  if (warp >= 8) {  // producer warpgroup
+    warpgroup_regs_dec<kProducerRegs>();
+    const int pt = threadIdx.x - 256;
+    // thread 0: the Q and dO rows, lse and delta of batch element b into
+    // slot i, completing on bar (rows_bytes(b) bytes)
+    auto rows_bytes = [&](int b) {
+      return 4 * kTileBytes + aligned_span(vec_row(lse, b), nrows).bytes +
+             aligned_span(vec_row(delta, b), nrows).bytes;
+    };
+    auto load_rows = [&](int b, int i, uint64_t* bar) {
+      tma_load_4d(q_s(i), &tq, 0, h, r0, b, bar);
+      tma_load_4d(q_s(i) + kChunk * 64, &tq, 0, h, r0 + kChunk, b, bar);
+      tma_load_4d(do_s(i), &tdo, 0, h, r0, b, bar);
+      tma_load_4d(do_s(i) + kChunk * 64, &tdo, 0, h, r0 + kChunk, b, bar);
+      const Span ls = aligned_span(vec_row(lse, b), nrows);
+      const Span ds = aligned_span(vec_row(delta, b), nrows);
+      bulk_load(vec_s(i), ls.src, ls.bytes, bar);
+      bulk_load(vec_s(i) + kVecPitch, ds.src, ds.bytes, bar);
+    };
+    if (kResident && pt == 0) {
+      uint32_t bytes = 0;
+      for (int b = 0; b < B; ++b) bytes += rows_bytes(b);
+      mbar_expect_tx(&once, bytes);
+      for (int b = 0; b < B; ++b) load_rows(b, b, &once);
     }
-  }
-
-  for (int b = 0; b < B; ++b) {
-    const long long bh = static_cast<long long>(b) * H + h;
-    __syncthreads();  // previous batch element's tiles fully read
-    load_tile<D, kThreads>(q_s, q + b * qs.b + h * qs.h, qs.n, q0, N);
-    load_tile<D, kThreads>(do_s, dout + b * dos.b + h * dos.h, dos.n, q0, N);
-    load_tile<D, kThreads>(k_s, k + b * ks.b + h * ks.h, ks.n, kv0, N);
-    load_tile<D, kThreads>(v_s, v + b * vs.b + h * vs.h, vs.n, kv0, N);
-    // lse (exp2 domain) and delta of this lane's two rows; zero past N
-    const float lse0 = row0 < N ? lse[bh * N + row0] * kLog2e : 0.f;
-    const float lse1 = row1 < N ? lse[bh * N + row1] * kLog2e : 0.f;
-    const float dl0 = row0 < N ? delta[bh * N + row0] : 0.f;
-    const float dl1 = row1 < N ? delta[bh * N + row1] : 0.f;
-    __syncthreads();
-
-    uint32_t qf[D / 16][4], df[D / 16][4];
-    load_a_frags<D>(qf, q_s, warp, lane);
-    load_a_frags<D>(df, do_s, warp, lane);
-    float s[kBk / 8][4], dp[kBk / 8][4];
-    mma_abt<D>(s, qf, k_s, lane);   // S = Q K^T
-    mma_abt<D>(dp, df, v_s, lane);  // dP = dO V^T
+    // each key tile: every thread copies its query row of the bias tile;
+    // thread 0 then streams K_b and V_b (and, not resident, the rows of b)
+    const int qr = r0 + pt;
+    const float* bias_row = qr < N ? bias + (static_cast<long long>(h) * N + qr) * N : nullptr;
+    int it = 0;
+    for (int t = t0; t < t1; ++t) {
+      const int kv0 = t * kChunk;
+      mbar_wait(&bias_empty, ((t - t0) & 1) ^ 1);
+      Span row{nullptr, 0};
+      if (bias_row != nullptr) row = aligned_span(bias_row + kv0, min(kChunk, N - kv0));
+      warp_expect_tx(&bias_full, row.bytes, lane);
+      if (row.bytes != 0) bulk_load(bias_t + pt * kBiasLd, row.src, row.bytes, &bias_full);
+      if (pt == 0) {
+        for (int b = 0; b < B; ++b, ++it) {
+          const int s = it % kStages;
+          mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+          mbar_expect_tx(&full[s], 2 * kTileBytes + (kResident ? 0 : rows_bytes(b)));
+          tma_load_4d(ring.k(s), &tk, 0, h, kv0, b, &full[s]);
+          tma_load_4d(ring.v(s), &tv, 0, h, kv0, b, &full[s]);
+          if (!kResident) load_rows(b, s, &full[s]);
+        }
+      }
+    }
+  } else {  // consumer warpgroups c = 0, 1: query rows r0 + 64 c + [0, 64)
+    warpgroup_regs_inc<kConsumerRegs>();
+    const int c = warp >> 2;
+    const int w = warp & 3;
+    const int quad = lane & 3;
+    const int lr = c * kChunk + w * 16 + (lane >> 2);  // this lane's first row in the block
+    const int row0 = r0 + lr;
+    const float scale2 = scale * kLog2e;
+    const float* bias_h = bias + static_cast<long long>(h) * N * N;
+    const float* brow[2] = {
+        bias_t + lr * kBiasLd + span_shift(bias_h + static_cast<long long>(row0) * N),
+        bias_t + (lr + 8) * kBiasLd + span_shift(bias_h + static_cast<long long>(row0 + 8) * N)};
+    float* dbias_h = dbias + static_cast<long long>(h) * N * N;
+    if (kResident) mbar_wait(&once, 0);
+    if (c == 1) pass_turn(c);  // consumer 0 issues first
+    int it = 0;
+    for (int t = t0; t < t1; ++t) {
+      const int kv0 = t * kChunk;
+      // this lane's bias (exp2 domain) in the score accumulators' layout,
+      // held for the batch sweep; the tile goes back to the producer
+      mbar_wait(&bias_full, (t - t0) & 1);
+      float bl[8][4], acc[8][4];
 #pragma unroll
-    for (int j = 0; j < kBk / 8; ++j) {
+      for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kv0 + j * 8 + 2 * quad + (e & 1);
-        const float p =
-            key < N ? exp2f(s[j][e] * scale2 + bl[j][e] - (e < 2 ? lse0 : lse1)) : 0.f;
-        acc[j][e] += p * (dp[j][e] - (e < 2 ? dl0 : dl1));
+        for (int e = 0; e < 4; ++e) {
+          bl[j][e] = brow[e >> 1][j * 8 + 2 * quad + (e & 1)] * kLog2e;
+          acc[j][e] = 0.f;
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&bias_empty);
+
+      for (int b = 0; b < B; ++b, ++it) {
+        const int s = it % kStages;
+        const int i = kResident ? b : s;
+        mbar_wait(&full[s], (it / kStages) & 1);
+        const bf16* qa = q_s(i) + c * kChunk * 64;
+        const bf16* da = do_s(i) + c * kChunk * 64;
+        const bf16* kt = ring.k(s);
+        const bf16* vt = ring.v(s);
+        float sc[8][4], dp[8][4];
+        consumer_turn(c);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)  // S = Q K^T
+          wgmma_ss<0>(sc, sw128_desc(qa + kk * 16), sw128_desc(kt + kk * 16), kk);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)  // dP = dO V^T
+          wgmma_ss<0>(dp, sw128_desc(da + kk * 16), sw128_desc(vt + kk * 16), kk);
+        wgmma_commit();
+        pass_turn(c);
+
+        // lse (exp2 domain) and delta of this lane's two rows
+        const float* lse_v = vec_s(i) + span_shift(vec_row(lse, b));
+        const float* dl_v = vec_s(i) + kVecPitch + span_shift(vec_row(delta, b));
+        const float ls[2] = {lse_v[lr] * kLog2e, lse_v[lr + 8] * kLog2e};
+        const float dl[2] = {dl_v[lr], dl_v[lr + 8]};
+        // P = exp2(S * scale + bias - lse) while dP runs
+        wgmma_wait<1>();
+        fence_acc(sc);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[j][e] = exp2_ftz(fmaf(sc[j][e], scale2, bl[j][e]) - ls[e >> 1]);
+        wgmma_wait<0>();
+        fence_acc(dp);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+        // dbias += P o (dP - delta)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][e] = fmaf(sc[j][e], dp[j][e] - dl[e >> 1], acc[j][e]);
+      }
+
+      // this warp's 16 rows of the dbias tile, each as two stores of 32
+      // consecutive floats: lane L takes column 32 h + L from the quad
+      // that holds the row (8 shuffles a half row, one per register the
+      // 32 columns span), so every store writes 128 contiguous bytes
+      const bool all_keys = kv0 + kChunk <= N;
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        const int row = r0 + c * kChunk + w * 16 + r;
+        float* dst = dbias_h + static_cast<long long>(row) * N + kv0;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int col = 32 * hh + lane;
+          const int src = (r & 7) * 4 + ((col & 7) >> 1);  // lane of column col, row r
+          float v = 0.f;
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+#pragma unroll
+            for (int y = 0; y < 2; ++y) {
+              const float t = __shfl_sync(0xffffffffu, acc[4 * hh + x][(r >> 3) * 2 + y], src);
+              if (((col >> 3) & 3) == x && (col & 1) == y) v = t;
+            }
+          }
+          if (row < N && (all_keys || kv0 + col < N)) dst[col] = v;
+        }
       }
     }
   }
-
-  float* dbias_h = dbias + static_cast<long long>(h) * N * N;
-#pragma unroll
-  for (int j = 0; j < kBk / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = kv0 + j * 8 + 2 * quad + (e & 1);
-      const int row = e < 2 ? row0 : row1;
-      if (row < N && key < N) dbias_h[static_cast<long long>(row) * N + key] = acc[j][e];
-    }
-  }
-}
-
-template <int D, bool kBias>
-int launch(const void* q, const void* k, const void* v, const void* bias, void* o, void* lse,
-           int B, int N, int H, Strides qs, Strides ks, Strides vs, Strides os, float scale,
-           cudaStream_t stream) {
-  const dim3 grid(B * H, (N + kBq - 1) / kBq);
-  flash_fwd_kernel<D, kBias><<<grid, kThreads, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const float*>(bias), static_cast<bf16*>(o), static_cast<float*>(lse), H, N,
-      qs, ks, vs, os, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int D>
-int dispatch_bias(const void* q, const void* k, const void* v, const void* bias, void* o,
-                  void* lse, int B, int N, int H, Strides qs, Strides ks, Strides vs, Strides os,
-                  float scale, cudaStream_t stream) {
-  if (bias != nullptr)
-    return launch<D, true>(q, k, v, bias, o, lse, B, N, H, qs, ks, vs, os, scale, stream);
-  return launch<D, false>(q, k, v, bias, o, lse, B, N, H, qs, ks, vs, os, scale, stream);
 }
 
 }  // namespace
@@ -847,22 +1136,39 @@ const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q, k, v: bf16 [B, N, H, D] with the given element strides (last dim
-// contiguous, 16-byte aligned rows); bias: fp32 [H, N, N] or null;
-// o: bf16 [B, N, H, D]; lse: fp32 [B*H, N]. Returns a cudaError_t code.
+// The forward. q, k, v: bf16 [B, N, H, D] with the element strides in
+// strides[0..8] (three each, in that order; last dim contiguous, 16-byte
+// aligned base and strides: they are read by TMA); o: bf16 [B, N, H, D]
+// with strides[9..11]; bias: fp32 [H, N, N] contiguous or null; lse: fp32
+// [B*H, N], written. Returns a cudaError_t code.
 int flash_attention_fwd(const void* q, const void* k, const void* v, const void* bias,
                         void* o, void* lse, int B, int N, int H, int D,
-                        long long q_sb, long long q_sn, long long q_sh,
-                        long long k_sb, long long k_sn, long long k_sh,
-                        long long v_sb, long long v_sn, long long v_sh,
-                        long long o_sb, long long o_sn, long long o_sh,
-                        float scale, void* stream) {
-  if (B < 1 || H < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const Strides qs{q_sb, q_sn, q_sh}, ks{k_sb, k_sn, k_sh}, vs{v_sb, v_sn, v_sh},
-      os{o_sb, o_sn, o_sh};
-  if (D != 64) return static_cast<int>(cudaErrorInvalidValue);  // dit-base's head width
-  return dispatch_bias<64>(q, k, v, bias, o, lse, B, N, H, qs, ks, vs, os, scale,
-                           static_cast<cudaStream_t>(stream));
+                        const long long* strides, float scale, void* stream) {
+  if (B < 1 || H < 1 || N < 1 || D != 64) return static_cast<int>(cudaErrorInvalidValue);
+  const DeviceOf device(q);
+  if (device.error() != cudaSuccess) return static_cast<int>(device.error());
+  Strides s[4];
+  for (int t = 0; t < 4; ++t)
+    s[t] = Strides{strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
+  CUtensorMap maps[3];
+  if (!(encode_rows(&maps[0], q, B, N, H, s[0]) && encode_rows(&maps[1], k, B, N, H, s[1]) &&
+        encode_rows(&maps[2], v, B, N, H, s[2])))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool with_bias = bias != nullptr;
+  const auto kernel = with_bias ? flash_fwd_kernel<true> : flash_fwd_kernel<false>;
+  const int smem = fwd_smem_bytes(with_bias);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // one block an SM, each looping over row blocks
+  const int blocks = min(B * H * ((N + kBlockRows - 1) / kBlockRows), sms);
+  kernel<<<blocks, kBlockThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], static_cast<const float*>(bias), static_cast<bf16*>(o),
+      static_cast<float*>(lse), B, H, N, s[3], scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The dq kernel of the backward. q, k, v, o, dout: bf16 [B, N, H, D] with
@@ -876,6 +1182,8 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const vo
                            void* dq, int B, int N, int H, int D, const long long* strides,
                            float scale, void* stream) {
   if (B < 1 || H < 1 || N < 1 || D != 64) return static_cast<int>(cudaErrorInvalidValue);
+  const DeviceOf device(q);
+  if (device.error() != cudaSuccess) return static_cast<int>(device.error());
   Strides s[6];
   for (int t = 0; t < 6; ++t)
     s[t] = Strides{strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
@@ -888,8 +1196,8 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const vo
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = B * H * ((N + kBwdRows - 1) / kBwdRows);
-  kernel<<<blocks, kBwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int blocks = B * H * ((N + kBlockRows - 1) / kBlockRows);
+  kernel<<<blocks, kBlockThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const bf16*>(o),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(bias), static_cast<float*>(delta), static_cast<bf16*>(dq), B, H,
@@ -907,6 +1215,8 @@ int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v, const 
                              void* dv, int B, int N, int H, int D, const long long* strides,
                              float scale, void* stream) {
   if (B < 1 || H < 1 || N < 1 || D != 64) return static_cast<int>(cudaErrorInvalidValue);
+  const DeviceOf device(q);
+  if (device.error() != cudaSuccess) return static_cast<int>(device.error());
   Strides s[6];
   for (int t = 0; t < 6; ++t)
     s[t] = Strides{strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
@@ -919,40 +1229,71 @@ int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v, const 
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = B * H * ((N + kBwdRows - 1) / kBwdRows);
-  kernel<<<blocks, kBwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int blocks = B * H * ((N + kBlockRows - 1) / kBlockRows);
+  kernel<<<blocks, kBlockThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const float*>(bias), static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), B, H, N, s[4], s[5], scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Dynamic shared memory of the dq (which = 0) or dkdv (1) kernel, with or
-// without a bias, in bytes; for the build report.
-int flash_attention_bwd_smem_bytes(int which, int with_bias) {
-  return which == 0 ? dq_smem_bytes(with_bias != 0) : dkdv_smem_bytes(with_bias != 0);
-}
-
 // The dbias kernel of the backward, launched after the dq kernel (it reads
 // the delta that one wrote). q, k, v, dout: bf16 [B, N, H, D] with
-// strides[0..11]; lse, delta: fp32 [B*H, N]; bias: fp32 [H, N, N], not
-// null; dbias: fp32 [H, N, N], written. Returns a cudaError_t code.
+// strides[0..11] (read by TMA, as above); lse, delta: fp32 [B*H, N]; bias:
+// fp32 [H, N, N], not null; dbias: fp32 [H, N, N], written. Returns a
+// cudaError_t code.
 int flash_attention_bwd_dbias(const void* q, const void* k, const void* v, const void* dout,
                               const void* lse, const void* delta, const void* bias, void* dbias,
                               int B, int N, int H, int D, const long long* strides, float scale,
                               void* stream) {
   if (B < 1 || H < 1 || N < 1 || D != 64 || bias == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
+  const DeviceOf device(q);
+  if (device.error() != cudaSuccess) return static_cast<int>(device.error());
   Strides s[4];
   for (int t = 0; t < 4; ++t)
     s[t] = Strides{strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
-  const dim3 grid((N + kBk - 1) / kBk, (N + kBq - 1) / kBq, H);
-  flash_bwd_dbias_kernel<64><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+  CUtensorMap maps[4];
+  if (!encode_qkvdo(maps, q, k, v, dout, B, N, H, s, 3))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0, max_smem = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool resident = dbias_smem_bytes(B) <= max_smem;
+  const auto kernel = resident ? flash_bwd_dbias_kernel<true> : flash_bwd_dbias_kernel<false>;
+  const int smem = dbias_smem_bytes(resident ? B : kStages);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // split each row block's key tiles into as few groups as give two blocks
+  // an SM (every group reloads the block's Q and dO rows)
+  const int rbs = (N + kBlockRows - 1) / kBlockRows;
+  const int tiles = (N + kChunk - 1) / kChunk;
+  const int want = (2 * sms + H * rbs - 1) / (H * rbs);
+  const int per_block = (tiles + min(max(want, 1), tiles) - 1) / min(max(want, 1), tiles);
+  const int groups = (tiles + per_block - 1) / per_block;
+  kernel<<<H * rbs * groups, kBlockThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const float*>(bias),
-      static_cast<float*>(dbias), B, H, N, s[0], s[1], s[2], s[3], scale);
+      static_cast<float*>(dbias), B, H, N, per_block, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Dynamic shared memory of a kernel, in bytes, for the build report: the
+// forward (which = 0), dq (1) or dkdv (2) without or with a bias (arg 0 or
+// 1); the dbias kernel (3) with the rows of arg batch elements resident, or
+// streamed (4).
+int flash_attention_smem_bytes(int which, int arg) {
+  switch (which) {
+    case 0: return fwd_smem_bytes(arg != 0);
+    case 1: return dq_smem_bytes(arg != 0);
+    case 2: return dkdv_smem_bytes(arg != 0);
+    case 3: return dbias_smem_bytes(arg);
+    default: return dbias_smem_bytes(kStages);
+  }
 }
 
 }  // extern "C"

@@ -1,4 +1,4 @@
-// Hopper (sm_90a) building blocks of the flash-attention backward kernels
+// Hopper (sm_90a) building blocks of the flash-attention kernels
 // (flash_attention.cu): warpgroup products (wgmma.mma_async, bf16 in, fp32
 // accumulate), their shared-memory descriptors for 128-byte-swizzled tiles,
 // TMA tile loads (cp.async.bulk.tensor) and bulk copies of fp32 rows
@@ -11,12 +11,14 @@
 // a 1024-byte boundary, so every group of 8 rows is one swizzle atom of 1024
 // bytes. Such a tile is read by wgmma either K-major (the contraction runs
 // along the row: A = Q or K in S = Q K^T, B = K in the same product) or
-// MN-major (the contraction runs down the rows: B = dO in dV += P^T dO, Q in
-// dK += dS^T Q, K in dQ += dS K); one descriptor form serves both, stepped
-// by 32 bytes per k16 slice along a row and by 16 rows (2048 bytes) down.
+// MN-major (the contraction runs down the rows: B = V in O += P V, dO in
+// dV += P^T dO, Q in dK += dS^T Q, K in dQ += dS K); one descriptor form
+// serves both, stepped by 32 bytes per k16 slice along a row and by 16 rows
+// (2048 bytes) down.
 //
 // Fragments. The accumulator of an m64n64k16 product is float[8][4] a
-// thread: warp w of the warpgroup holds rows 16 w + lane / 4 (elements 0, 1)
+// thread (m64n128k16: float[16][4], n-tiles 8-15 the next 64 columns): warp
+// w of the warpgroup holds rows 16 w + lane / 4 (elements 0, 1)
 // and 16 w + lane / 4 + 8 (elements 2, 3) at columns 8 j + 2 (lane % 4) + {0,
 // 1} of n-tile j, the score-accumulator layout of attention_mma.cuh with
 // four warps stacked. A register A operand of k16 slice kk is the packed
@@ -53,24 +55,56 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // keeps the compiler from moving reads or writes of an accumulator across
 // the asynchronous products that own it
-__device__ __forceinline__ void fence_acc(float (&d)[8][4]) {
+template <int J>
+__device__ __forceinline__ void fence_acc(float (&d)[J][4]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < J; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
 }
 
-#define HOPPER_ACC32(d)                                                                       \
-  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),   \
-      "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]),              \
-      "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),              \
-      "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]),              \
-      "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]),              \
-      "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+// the same for register A operands (the packed bf16 of P or dS)
+template <int K>
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[k][e])::"memory");
+}
 
-#define HOPPER_D32                                                                       \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define HOPPER_ACC32(d) \
+      "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), \
+      "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), \
+      "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), \
+      "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), \
+      "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), \
+      "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), \
+      "+f"(d[7][2]), "+f"(d[7][3])
+
+#define HOPPER_ACC64(d) \
+      "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), \
+      "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), \
+      "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), \
+      "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), \
+      "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), \
+      "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), \
+      "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), \
+      "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), \
+      "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), \
+      "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), \
+      "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), \
+      "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), \
+      "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+
+#define HOPPER_D32 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+#define HOPPER_D64 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, " \
+  "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, " \
+  "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
 
 // d[64 x 64] (+)= a[64 x 16] b[16 x 64], both from shared memory; a is
 // K-major, b K-major (kTransB = 0) or MN-major (1); d is overwritten when
@@ -86,26 +120,49 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t desc_a, uint
       : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransB));
 }
 
-// d[64 x 64] (+)= a[64 x 16] b[16 x 64], a from registers (pack_a or
-// load_a_sw128), b from shared memory, K-major (kTransB = 0) or MN-major
-// (1); d is overwritten when accumulate == 0
-template <int kTransB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4],
+// d[64 x N] (+)= a[64 x 16] b[16 x N], N = 8 J = 64 or 128, a from
+// registers (pack_a or load_a_sw128), b from shared memory, K-major (kTransB
+// = 0) or MN-major (1); d is overwritten when accumulate == 0
+template <int kTransB, int J>
+__device__ __forceinline__ void wgmma_rs(float (&d)[J][4], const uint32_t (&a)[4],
                                          uint64_t desc_b, int accumulate = 1) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"
-      : HOPPER_ACC32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(kTransB),
-        "r"(accumulate));
+  if constexpr (J == 8) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"
+        : HOPPER_ACC32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(kTransB),
+          "r"(accumulate));
+  } else {
+    static_assert(J == 16, "m64n64 or m64n128");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %70, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_D64
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, %69;\n}\n"
+        : HOPPER_ACC64(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(kTransB),
+          "r"(accumulate));
+  }
 }
 
 #undef HOPPER_ACC32
+#undef HOPPER_ACC64
 #undef HOPPER_D32
+#undef HOPPER_D64
+
+// 2^x in one MUFU.EX2, subnormal results flushed to zero (exp2f without
+// fast math adds the instructions that keep them); a probability below
+// 2^-126 is 0 either way once it is rounded to bf16 or added to a row sum
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // the bf16 register A operand of k16 slice kk of an accumulator x
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&x)[8][4], int kk) {
+template <int J>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&x)[J][4], int kk) {
   a[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
   a[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
   a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);

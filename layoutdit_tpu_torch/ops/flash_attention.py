@@ -10,19 +10,22 @@ ragged edge masked in the kernel, o and a per-row lse [B*H, N] out;
 ``_bwd_dkdv_kernel`` / ``_bwd_dkdv_nobias`` (:217, :280, via
 ``_flash_bwd`` :317): dQ sweeping the key tiles, dK and dV sweeping the
 query tiles, P recomputed from lse, no atomics; and ``_dbias_kernel``
-(:292): dbias = sum over the batch of dS, one block per (head, query
-tile, key tile) looping over the batch, no atomics. The plain backward
-has the algebra of the oracle ``_bwd_reference`` (:460). The attention
-kernels are bound by operations on the H100, so every product runs on
-the tensor cores (bf16 in, fp32 accumulate): ``mma.sync`` in the forward
-and the dbias kernel; in the dq and dkdv kernels ``wgmma`` from two
-consumer warpgroups, fed by a producer warpgroup that streams the tiles
-by TMA through a three-stage ring of shared memory guarded by mbarriers
-(``csrc/hopper_mma.cuh``). The dbias kernel is bound by the bytes of the
-bias and its gradient. See the source for the design.
+(:292): dbias = sum over the batch of dS, a block of 128 query rows
+sweeping its key tiles and, inside each, the batch in order, no atomics.
+The plain backward has the algebra of the oracle ``_bwd_reference``
+(:460). All four kernels have one Hopper shape: two consumer
+warpgroups run every product on the tensor cores as ``wgmma`` (bf16 in,
+fp32 accumulate), fed by a producer warpgroup that streams the tiles by
+TMA, and the fp32 bias, lse and delta rows by bulk copy, through a ring
+of three or four stages of shared memory guarded by mbarriers
+(``csrc/hopper_mma.cuh``). The forward, dq and dkdv kernels are bound by
+operations on the H100, the dbias kernel by the bytes of the bias and
+its gradient. See the source for the design.
 
 ``flash_attention_fwd`` and ``flash_attention_bwd`` launch the kernels
-for CUDA tensors and take the plain versions only for CPU tensors.
+for CUDA tensors (through ``flash_attention_fwd_launch`` and the three
+backward launchers, which check what the kernels read) and take the
+plain versions only for CPU tensors.
 ``flash_attention_qkv`` is the differentiable entry point: a
 ``torch.autograd.Function`` from the fused projection [B, N, 3*H*D] and
 the bias to the context [B, N, H, D], whose backward writes dq, dk and
@@ -44,7 +47,7 @@ from layoutdit_tpu_torch.ops.short_attention import split_qkv
 HEAD_DIM = 64  # dit-base; the kernels are compiled for this width only
 
 _ARGTYPES = (
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 12
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     + [ctypes.c_float, ctypes.c_void_p]
 )
 _BWD_ARGTYPES = (
@@ -121,8 +124,8 @@ def _lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.flash_attention_bwd_dbias.argtypes = _DBIAS_ARGTYPES
         lib.flash_attention_bwd_dbias.restype = ctypes.c_int
-        lib.flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_int
+        lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.flash_attention_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -153,8 +156,8 @@ def _check_bias(what: str, bias: torch.Tensor | None, ref: torch.Tensor):
 
 
 def _check_square(what: str, ref: torch.Tensor, **tensors: torch.Tensor | None) -> None:
-    """fp32 [H, N, N] contiguous on ``ref``'s device, as the backward
-    kernels read a bias and write its gradient (None passes: no bias)."""
+    """fp32 [H, N, N] contiguous on ``ref``'s device, as the kernels read
+    a bias and write its gradient (None passes: no bias)."""
     _, n, h, _ = ref.shape
     for name, t in tensors.items():
         if t is not None and (t.shape != (h, n, n) or t.dtype != torch.float32
@@ -167,6 +170,29 @@ def _check_lse(what: str, t: torch.Tensor, ref: torch.Tensor, name: str) -> None
     b, n, h, _ = ref.shape
     if t.shape != (b * h, n) or t.dtype != torch.float32 or not t.is_contiguous():
         raise ValueError(f"{what}: {name} must be contiguous fp32 [{b * h}, {n}]")
+
+
+def _strides(*tensors: torch.Tensor):
+    return (ctypes.c_longlong * (3 * len(tensors)))(*[s for t in tensors for s in t.stride()[:3]])
+
+
+def flash_attention_fwd_launch(q, k, v, bias, scale, o, lse) -> None:
+    """Launch the forward kernel of ``flash_attention_fwd``: writes o
+    (bf16 [B, N, H, D]) and lse (fp32 [B*H, N]). q, k, v and o bf16 rows
+    that TMA can read (as ``flash_attention_bwd`` checks them); bias fp32
+    [H, N, N] contiguous or None. Counts on ``flash_attention_fwd``."""
+    b, n, h, d = q.shape
+    _check_rows("flash_attention", q, q=q, k=k, v=v, o=o)
+    _check_lse("flash_attention", lse, q, "lse")
+    _check_square("flash_attention", q, bias=bias)
+    lib = _lib()
+    code = lib.flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), b, n, h, d, _strides(q, k, v, o), float(scale),
+        _build.stream_ptr(q),
+    )
+    _build.check(lib, code, "flash_attention")
+    flash_attention_fwd.launches += 1
 
 
 def flash_attention_fwd(
@@ -185,29 +211,14 @@ def flash_attention_fwd(
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     b, n, h, d = q.shape
-    scale = _scale(q, scale)
-    _check_rows("flash_attention", q, q=q, k=k, v=v)
-    bias = _check_bias("flash_attention", bias, q)
     o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, n), dtype=torch.float32, device=q.device)
-    lib = _lib()
-    code = lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if bias is None else bias.data_ptr(),
-        o.data_ptr(), lse.data_ptr(), b, n, h, d,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        float(scale), _build.stream_ptr(q),
-    )
-    _build.check(lib, code, "flash_attention")
-    flash_attention_fwd.launches += 1
+    flash_attention_fwd_launch(q, k, v, _check_bias("flash_attention", bias, q), _scale(q, scale),
+                               o, lse)
     return o, lse
 
 
 flash_attention_fwd.launches = 0
-
-
-def _strides(*tensors: torch.Tensor):
-    return (ctypes.c_longlong * (3 * len(tensors)))(*[s for t in tensors for s in t.stride()[:3]])
 
 
 def flash_attention_bwd_dq(q, k, v, o, lse, do, bias, scale, dq, delta) -> None:

@@ -111,15 +111,36 @@ def test_short_kernels_refuse_other_head_dims(cuda):
         port_short.short_attention_bwd(q, q, q, q, q)
 
 
+# (B, N, H, bias, fused): ragged N (65: one valid row in the second 64-row
+# tile; 600) over separate q, k, v and over strided slices of one fused
+# [B, N, 3*H*D] projection, the 1024 px shapes and the rel-pos windows
+FLASH_FWD_CASES = [
+    *[(2, n, 4, with_bias, fused) for n in (65, 600) for with_bias in (False, True)
+      for fused in (False, True)],
+    (4, 4097, 12, False, True), (4, 4097, 12, True, True), (64, 256, 12, True, True),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("with_bias", [False, True])
-def test_flash_kernel_matches_plain(cuda, rng, with_bias):
-    n, h = 600, 4
-    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in _qkv(rng, 2, n, h, 64))
+@pytest.mark.parametrize("b,n,h,with_bias,fused", FLASH_FWD_CASES)
+def test_flash_kernel_matches_plain(cuda, rng, b, n, h, with_bias, fused):
+    """The forward kernel against its plain version (o within max |plain|
+    / 64, lse within 1e-2), one launch a call, and a second launch gives
+    the same bits."""
+    d = 64
+    if fused:
+        qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * h * d)).astype(np.float32))
+        q, k, v = port_short.split_qkv(qkv.to(cuda, torch.bfloat16), h)
+    else:
+        q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in _qkv(rng, b, n, h, d))
     bias = torch.randn(h, n, n, device=cuda) if with_bias else None
+    before = port_flash.flash_attention_fwd.launches
     got, lse = port_flash.flash_attention_fwd(q, k, v, bias)
+    again, lse_again = port_flash.flash_attention_fwd(q, k, v, bias)
+    assert port_flash.flash_attention_fwd.launches == before + 2
     want, want_lse = port_flash.flash_attention_plain(q, k, v, bias)
     torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(lse, lse_again)
     assert (got.float() - want.float()).abs().max() <= want.float().abs().max() / 64
     assert (lse - want_lse).abs().max() <= 1e-2
 
@@ -321,21 +342,28 @@ def test_cpu_bwd_wrapper_takes_the_plain_version_and_fills_out(rng):
         port_flash.flash_attention_bwd(m, m, m, m, m, m)
 
 
-def _bwd_launch_args(which, n=8, h=2, bias=None, q=None):
-    """CPU arguments of one backward launcher, valid but for what the
-    caller passes: bf16 [1, n, h, 64] rows, fp32 lse/delta [h, n]."""
+def _launch_args(which, n=8, h=2, bias=None, q=None):
+    """CPU arguments of one launcher (the forward's or a backward one),
+    valid but for what the caller passes: bf16 [1, n, h, 64] rows, fp32
+    lse/delta [h, n]. -> (launcher, its arguments, the function that
+    counts its launches)."""
     b, d = 1, port_flash.HEAD_DIM
     q = torch.zeros(b, n, h, d, dtype=torch.bfloat16) if q is None else q
     t = lambda: torch.zeros(b, n, h, d, dtype=torch.bfloat16)  # noqa: E731
     vec = lambda: torch.zeros(b * h, n)  # noqa: E731
+    if which == "fwd":
+        return (port_flash.flash_attention_fwd_launch, (q, t(), t(), bias, 0.125, t(), vec()),
+                port_flash.flash_attention_fwd)
     if which == "dq":
-        return port_flash.flash_attention_bwd_dq, (q, t(), t(), t(), vec(), t(), bias, 0.125,
-                                                   t(), vec())
-    if which == "dkdv":
-        return port_flash.flash_attention_bwd_dkdv, (q, t(), t(), vec(), t(), vec(), bias,
-                                                     0.125, t(), t())
-    return port_flash.flash_attention_bwd_dbias, (q, t(), t(), vec(), t(), vec(), bias, 0.125,
-                                                  torch.zeros(h, n, n))
+        fn, args = port_flash.flash_attention_bwd_dq, (q, t(), t(), t(), vec(), t(), bias, 0.125,
+                                                       t(), vec())
+    elif which == "dkdv":
+        fn, args = port_flash.flash_attention_bwd_dkdv, (q, t(), t(), vec(), t(), vec(), bias,
+                                                         0.125, t(), t())
+    else:
+        fn, args = port_flash.flash_attention_bwd_dbias, (q, t(), t(), vec(), t(), vec(), bias,
+                                                          0.125, torch.zeros(h, n, n))
+    return fn, args, fn
 
 
 @pytest.fixture
@@ -348,12 +376,13 @@ def no_library(monkeypatch):
     monkeypatch.setattr(port_flash, "_lib", reached)
 
 
-@pytest.mark.parametrize("which", ["dq", "dkdv", "dbias"])
+@pytest.mark.parametrize("which", ["fwd", "dq", "dkdv", "dbias"])
 @pytest.mark.parametrize("bad", ["shape", "dtype", "layout", "none", "good"])
 def test_bwd_launchers_check_the_bias_before_the_library(no_library, which, bad):
-    """The dq, dkdv and dbias launchers take the bias as the kernels read
-    it, fp32 [H, N, N] contiguous, and refuse anything else with a message
-    before they touch the library; dq and dkdv also take no bias."""
+    """The forward, dq, dkdv and dbias launchers take the bias as the
+    kernels read it, fp32 [H, N, N] contiguous, and refuse anything else
+    with a message before they touch the library; all but dbias also take
+    no bias."""
     n, h = 8, 2
     bias = {
         "shape": torch.zeros(h, n, n + 1),
@@ -362,21 +391,21 @@ def test_bwd_launchers_check_the_bias_before_the_library(no_library, which, bad)
         "none": None,
         "good": torch.zeros(h, n, n),
     }[bad]
-    fn, args = _bwd_launch_args(which, n, h, bias)
-    before = fn.launches
+    fn, args, counter = _launch_args(which, n, h, bias)
+    before = counter.launches
     if bad == "good" or (bad == "none" and which != "dbias"):
         with pytest.raises(LookupError, match="reached the library"):
             fn(*args)
     else:
         with pytest.raises(ValueError, match="bias"):
             fn(*args)
-    assert fn.launches == before
+    assert counter.launches == before
 
 
-@pytest.mark.parametrize("which", ["dq", "dkdv", "dbias"])
+@pytest.mark.parametrize("which", ["fwd", "dq", "dkdv", "dbias"])
 @pytest.mark.parametrize("where", ["row stride", "base", "head dim stride"])
 def test_bwd_launchers_refuse_rows_tma_cannot_read(no_library, which, where):
-    """The dq and dkdv kernels read q, k, v and dO by TMA, whose tensor
+    """The kernels read q, k, v (and the backward dO) by TMA, whose tensor
     maps need a 16-byte-aligned base and byte strides that are multiples
     of 16; the launchers refuse other rows with a message before they
     touch the library. The fused projection's slices pass (row pitch 3 *
@@ -388,12 +417,12 @@ def test_bwd_launchers_refuse_rows_tma_cannot_read(no_library, which, where):
         q = torch.zeros(1 + n * h * d, dtype=torch.bfloat16)[1:].view(1, n, h, d)
     else:  # d not contiguous
         q = torch.zeros(1, n, d, h, dtype=torch.bfloat16).transpose(2, 3)
-    fn, args = _bwd_launch_args(which, n, h, torch.zeros(h, n, n), q)
+    fn, args, _ = _launch_args(which, n, h, torch.zeros(h, n, n), q)
     with pytest.raises(ValueError, match="16-byte aligned"):
         fn(*args)
     fused = torch.zeros(1, n, 3 * h * d, dtype=torch.bfloat16)
     q, _, _ = port_short.split_qkv(fused, h)
-    fn, args = _bwd_launch_args(which, n, h, torch.zeros(h, n, n), q)
+    fn, args, _ = _launch_args(which, n, h, torch.zeros(h, n, n), q)
     with pytest.raises(LookupError, match="reached the library"):
         fn(*args)
 
@@ -469,16 +498,18 @@ def test_flash_bwd_kernel_matches_plain(cuda, rng, b, n, h, with_bias):
         assert (got.float() - w.float()).abs().max() <= w.float().abs().max() / 64
 
 
+# 1024 px: global layers (Q and dO rows held for the sweep); 16 x 16
+# windows (streamed); ragged N = 65 and 600 (several key tiles a block)
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n", [(4, 4097), (64, 256)])  # 1024 px: global layers; 16x16 windows
+@pytest.mark.parametrize("b,n", [(4, 4097), (64, 256), (2, 65), (2, 600)])
 def test_flash_dbias_kernel_matches_plain(cuda, b, n):
     """The dbias kernel through the autograd Function at the rel-pos
-    train step's shapes against the plain backward's dbias, the same bits
-    on a second run (no atomics), one launch per backward. Both compute S,
-    dP and dS in fp32 from the same bf16 inputs, so they differ by fp32
-    summation order only: max |err| <= 1e-4 max |plain| (dbias is
-    heavy-tailed, so the bf16 outputs' max / 64 would pass a tile wrong by
-    a typical value)."""
+    train step's shapes and at ragged N against the plain backward's
+    dbias, the same bits on a second run (no atomics), one launch per
+    backward. Both compute S, dP and dS in fp32 from the same bf16
+    inputs, so they differ by fp32 summation order only: max |err| <=
+    1e-4 max |plain| (dbias is heavy-tailed, so the bf16 outputs' max / 64
+    would pass a tile wrong by a typical value)."""
     h, d = 12, 64
     gen = torch.Generator(device=cuda).manual_seed(0)
     qkv = torch.randn(b, n, 3 * h * d, generator=gen, device=cuda).to(torch.bfloat16)
