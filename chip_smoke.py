@@ -10,7 +10,11 @@ nvcc per source, in parallel), holds each forward and backward kernel
 against its plain PyTorch version at the shapes of the serving and
 training paths (the flash kernels also at a ragged N = 65, and to the
 same bits on a second launch) and times both, with each flash kernel's
-share of its bound (phases ``kernels`` and ``kernels_bwd``), holds the
+share of its bound (phases ``kernels`` and ``kernels_bwd``; the RoIAlign
+pair on the pyramid in the detector's layout, channels-last with the
+fifth level a strided view, also at the (14, 2) size a mask head takes,
+the backward to the same bits on a second run and its footprint pass to
+``roi_footprints``), holds the
 fused RoIAlign probes' kernels (``ops/roi_fused.py``) to their
 plain versions at the probe's K = 8192, and the fused form to the
 RoIAlign kernel on real RoIs, times them beside the two-GEMM yardstick
@@ -30,8 +34,11 @@ windowed high-res config ``configs/train_1024_window.json`` (dit-base,
 every layer: every biased attention on the flash kernels, the bias
 gradient on the dbias kernel; phase ``train_1024_relpos``). It checks
 that every kernel ran on its path, the right number of times a train
-step, and the probes' kernels on none but theirs. It prints JSON lines for serving, training
-and the kernels, the card's name and power limit, and as its last line
+step, and the probes' kernels on none but theirs. One profiled request
+per serving bucket and one profiled 224 px train step print the
+``backbone`` and ``rpn`` stage times, which the pyramid's layout moves.
+It prints JSON lines for serving, training and the kernels, the card's
+name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the exit
 code is not 0. It imports nothing of JAX or of ``layoutdit_tpu``, and it
 exits non-zero without a GPU.
@@ -290,12 +297,14 @@ def phase_flash(gen) -> dict:
 
 
 def _roi_inputs(gen, image: int, b=4, k=512, c=256):
-    """A pyramid of the serving path's shapes and 512 RoIs per image with
+    """A pyramid of the serving path's shapes in the detector's own layout
+    (p2..p5 channels-last, the fifth level the strided view
+    p5[..., ::2, ::2], as the FPN makes it) and 512 RoIs per image with
     log-uniform sizes (all levels used), a fifth of them masked."""
     g = image // 16
-    sizes = (4 * g, 2 * g, g, g // 2, (g // 2 + 1) // 2)
     feats = [torch.randn(b, c, s, s, generator=gen, device="cuda").to(torch.bfloat16)
-             for s in sizes]
+             .contiguous(memory_format=torch.channels_last) for s in (4 * g, 2 * g, g, g // 2)]
+    feats.append(feats[-1][..., ::2, ::2])
     u = lambda *shape: torch.rand(*shape, generator=gen, device="cuda")  # noqa: E731
     wh = torch.exp(math.log(4.0) + u(b, k, 2) * math.log(image / 4.0))
     xy = u(b, k, 2) * image - wh / 2
@@ -324,45 +333,50 @@ def _roi_touched_bytes(feats, rois, levels, scales, p, g) -> int:
     return pixels * c * feats[0].element_size()
 
 
-def phase_roi(gen) -> dict:
+ROI_SCALES = [1 / 4, 1 / 8, 1 / 16, 1 / 32, 1 / 64]
+
+
+def _roi_fwd_case(gen, image: int, b: int, p: int = 7, g: int = 2) -> dict:
+    """Row 7 on the detector's pyramid layout, against its plain version,
+    timed per call (the wrapper included: it copies nothing)."""
     from layoutdit_tpu_torch.ops import roi_align as ra
 
-    p, g = 7, 2
+    feats, rois, mask = _roi_inputs(gen, image, b=b)
+    scales = ROI_SCALES
+    levels = ra.roi_levels(rois, 5, float(image), roi_mask=mask)
+    got = ra.roi_align_fwd(feats, rois, levels, scales, p, g)
+    err, tol = _check_close(f"roi_align {image} px P={p}", got,
+                            ra.roi_align_plain(feats, rois, levels, scales, p, g))
+    b, k = rois.shape[:2]
+    c = feats[0].shape[1]
+    nbytes = (_roi_touched_bytes(feats, rois, levels, scales, p, g)
+              + rois.numel() * 4 + b * k * p * p * c * 2)
+    bound, by = _bound_ms(nbytes, b * k * p * p * c * g * g * 4 * 2)
+    ms = _time_ms(lambda: ra.roi_align_fwd(feats, rois, levels, scales, p, g), 20)
+    _print_share(f"roi_align {image} px P={p}", ms, bound, by)
+    return {
+        "shape": f"B={b} K={k} C={c} P={p} G={g} pyramid {image} px bf16, channels-last, "
+                 "fifth level a strided view",
+        "max_abs_err": err, "tolerance": tol, "ms": ms,
+        "plain_ms": _time_ms(lambda: ra.roi_align_plain(feats, rois, levels, scales, p, g), 2),
+        "bound_ms": bound, "bound_by": by, "bound_share": bound / ms,
+    }
+
+
+def phase_roi(gen) -> dict:
+    """Row 7: 224 px at the train step's B=16 (serving's batch is 4),
+    1024 px at serving's B=4 (the headline), and the (14, 2) instantiation
+    a mask head takes at 1024 px."""
     entry = {
         "name": "roi_align", "route": "cuda",
         "source": "layoutdit_tpu_torch/csrc/roi_align.cu",
         "replaces": "layoutdit_tpu/ops/roi_align_pallas.py:49",
         "library_ms": None,
     }
-    # 224 px at the train step's B=16 (serving's batch is 4), 1024 px at
-    # serving's B=4
-    for image, b in ((224, 16), (1024, 4)):
-        feats, rois, mask = _roi_inputs(gen, image, b=b)
-        scales = [1 / 4, 1 / 8, 1 / 16, 1 / 32, 1 / 64]
-        levels = ra.roi_levels(rois, 5, float(image), roi_mask=mask)
-        got = ra.roi_align_fwd(feats, rois, levels, scales, p, g)
-        err, tol = _check_close(f"roi_align {image} px", got,
-                                ra.roi_align_plain(feats, rois, levels, scales, p, g))
-        b, k = rois.shape[:2]
-        c = feats[0].shape[1]
-        nbytes = (_roi_touched_bytes(feats, rois, levels, scales, p, g)
-                  + rois.numel() * 4 + b * k * p * p * c * 2)
-        bound, by = _bound_ms(nbytes, b * k * p * p * c * g * g * 4 * 2)
-        cl = [f.contiguous(memory_format=torch.channels_last) for f in feats]
-        timing = {
-            "shape": f"B={b} K={k} C={c} P={p} pyramid {image} px bf16",
-            "max_abs_err": err, "tolerance": tol,
-            "ms": _time_ms(lambda: ra.roi_align_fwd(feats, rois, levels, scales, p, g), 20),
-            "kernel_only_ms": _time_ms(
-                lambda: ra.roi_align_fwd(cl, rois, levels, scales, p, g), 20),
-            "plain_ms": _time_ms(
-                lambda: ra.roi_align_plain(feats, rois, levels, scales, p, g), 2),
-            "bound_ms": bound, "bound_by": by,
-        }
-        if image == 1024:
-            entry.update(timing)  # the heavier bucket is the headline
-        else:
-            entry.update({f"b224_{key}": val for key, val in timing.items()})
+    entry.update({f"b224_{k}": v for k, v in _roi_fwd_case(gen, 224, 16).items()})
+    entry.update(_roi_fwd_case(gen, 1024, 4))
+    entry.update({f"p14_{k}": v for k, v in _roi_fwd_case(gen, 1024, 4, p=14).items()})
+    torch.cuda.empty_cache()
     return entry
 
 
@@ -596,23 +610,31 @@ def phase_flash_bwd(gen) -> list[dict]:
     return entries
 
 
-def _roi_bwd_case(gen, image: int, b: int, k: int = 512) -> dict:
+def _roi_bwd_case(gen, image: int, b: int, k: int = 512, p: int = 7) -> dict:
+    """Row 8 on the detector's pyramid layout against its plain version,
+    the same bits on a second run (raises otherwise), its footprint pass
+    against ``roi_footprints``; timed per call, the wrapper included."""
     from layoutdit_tpu_torch.ops import roi_align as ra
 
-    p, g = 7, 2
+    g = 2
     feats, rois, mask = _roi_inputs(gen, image, b=b, k=k)
-    scales = [1 / 4, 1 / 8, 1 / 16, 1 / 32, 1 / 64]
+    scales = ROI_SCALES
     levels = ra.roi_levels(rois, 5, float(image), roi_mask=mask)
     c = feats[0].shape[1]
     dout = torch.randn(b, k, p, p, c, generator=gen, device="cuda").to(torch.bfloat16)
+    label = f"roi_align_bwd {image} px P={p}"
     got = ra.roi_align_bwd(dout, rois, levels, feats, scales, p, g)
     want = ra.roi_align_bwd_plain(dout, rois, levels, feats, scales, p, g)
-    errs, tols = zip(*(_check_close(f"roi_align_bwd {image} px level {i}", gl, wl)
+    errs, tols = zip(*(_check_close(f"{label} level {i}", gl, wl)
                        for i, (gl, wl) in enumerate(zip(got, want))))
-    # a second run must agree within the atomics' reordering
     again = ra.roi_align_bwd(dout, rois, levels, feats, scales, p, g)
-    rerun = max((x.float() - y.float()).abs().max().item() for x, y in zip(got, again))
-    print(f"  roi_align_bwd {image} px: two runs differ by at most {rerun:.6g}")
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise RuntimeError(f"{label}: two runs gave different bits")
+    hw = [tuple(f.shape[-2:]) for f in feats]
+    if not torch.equal(ra.roi_footprints_kernel(rois, levels, hw, scales, p, g),
+                       ra.roi_footprints(rois, levels, hw, scales, p, g)):
+        raise RuntimeError(f"{label}: the footprint pass disagrees with roi_footprints")
+    print(f"  {label}: two runs give the same bits; footprint pass equal to roi_footprints")
     del want, again
 
     n_valid = int((levels >= 0).sum())
@@ -624,24 +646,25 @@ def _roi_bwd_case(gen, image: int, b: int, k: int = 512) -> dict:
     bound, by = _bound_ms(nbytes, 0.0)
     if t_ops > bound:
         bound, by = t_ops, "operations"
+    ms = _time_ms(lambda: ra.roi_align_bwd(dout, rois, levels, feats, scales, p, g), 10)
+    _print_share(label, ms, bound, by)
     return {
-        "shape": f"B={b} K={k} ({n_valid} valid) C={c} P={p} pyramid {image} px bf16",
+        "shape": f"B={b} K={k} ({n_valid} valid) C={c} P={p} G={g} pyramid {image} px bf16, "
+                 "channels-last, fifth level a strided view",
         "max_abs_err": max(errs), "tolerance": tols[errs.index(max(errs))],
-        "rerun_max_abs_diff": rerun,
-        "ms": _time_ms(lambda: ra.roi_align_bwd(dout, rois, levels, feats, scales, p, g), 10),
+        "same_bits_on_rerun": True, "footprints_equal_spec": True, "ms": ms,
         "plain_ms": _time_ms(
             lambda: ra.roi_align_bwd_plain(dout, rois, levels, feats, scales, p, g), 2),
-        "bound_ms": bound, "bound_by": by,
+        "bound_ms": bound, "bound_by": by, "bound_share": bound / ms,
     }
 
 
 def phase_roi_bwd(gen) -> dict:
-    """RoIAlign backward at the 224 px train step's shape (B=16, K=512, a
-    fifth of the RoIs invalid) and at the 1024 px step's (B=4, its
-    pyramid), against the plain version on the same bf16 dout. The kernel
-    adds with fp32 atomics in an order that changes from run to run: that
-    moves the fp32 sum by a few ulps, far inside the one bf16 rounding of
-    the output the tolerance allows."""
+    """RoIAlign backward (row 8) at the 224 px train step's shape (B=16,
+    K=512, a fifth of the RoIs invalid), at the 1024 px step's (B=4, its
+    pyramid) and with the (14, 2) instantiation at 224 px, against the
+    plain version on the same bf16 dout. The kernel sums each dF element
+    in a fixed order, so a second run must give the same bits."""
     entry = {
         "name": "roi_align_bwd", "route": "cuda",
         "source": "layoutdit_tpu_torch/csrc/roi_align.cu",
@@ -650,6 +673,9 @@ def phase_roi_bwd(gen) -> dict:
         "library_ms": None,
     }
     entry.update({f"b1024_{k}": v for k, v in _roi_bwd_case(gen, 1024, 4).items()})
+    torch.cuda.empty_cache()
+    entry.update({f"p14_{k}": v for k, v in _roi_bwd_case(gen, 224, 16, p=14).items()})
+    torch.cuda.empty_cache()
     return entry
 
 
@@ -747,7 +773,7 @@ def phase_probes(gen, kernels: list[dict]) -> list[dict]:
     torch.cuda.empty_cache()
 
     # row 9 on real RoIs against row 7
-    scales = [1 / 4, 1 / 8, 1 / 16, 1 / 32, 1 / 64]
+    scales = ROI_SCALES
     feats, rois, mask = _roi_inputs(gen, 224, b=1, k=k)
     with torch.no_grad():
         atlas = lambda: ra.roi_atlas(feats, rois, scales, roi_mask=mask)  # noqa: E731
@@ -982,7 +1008,7 @@ def _launches_per_step(cfg) -> dict:
 
 
 def _train_run(label: str, base, kernels: list[dict], grad_images: int,
-               check_taps: bool, table_std: float = 0.0) -> dict:
+               check_taps: bool, table_std: float = 0.0, profile_stages: bool = False) -> dict:
     """A training config at full width (bf16 over fp32 masters, random
     weights from seed 0; relative-position tables, which initialise to
     zero, drawn with std ``table_std`` from seed 1) through
@@ -990,7 +1016,9 @@ def _train_run(label: str, base, kernels: list[dict], grad_images: int,
     at its image size in a temp dir, then ``TRAIN_REPEATS`` steps on one
     repeated batch (timed, losses finite and falling), launch counts per
     step as the config implies, and the encoder's gradients (and, with
-    ``check_taps``, its taps) against a float32 CPU reference."""
+    ``check_taps``, its taps) against a float32 CPU reference; with
+    ``profile_stages``, one more step under the profiler, whose backbone
+    and rpn stage times are printed."""
     from layoutdit_tpu_torch.models.detection.detector import (
         DetectorConfig,
         DetectorModel,
@@ -998,6 +1026,7 @@ def _train_run(label: str, base, kernels: list[dict], grad_images: int,
     )
     from layoutdit_tpu_torch.ops import nms
     from layoutdit_tpu_torch.tools.make_fixture import make_fixture
+    from layoutdit_tpu_torch.tools.profile_train import profile_step
     from layoutdit_tpu_torch.train.trainer import Trainer
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1097,7 +1126,12 @@ def _train_run(label: str, base, kernels: list[dict], grad_images: int,
             _encoder_reference(DetectorModel(trainer.params, cfg),
                                {cfg.image_size: batch.images[0]})
         grads = _gradient_reference(trainer.params["backbone"], cfg, batch.images[:grad_images])
+        stages = None
+        if profile_stages:
+            r = profile_step(trainer, 1, Path(tmp) / "train_step.json")
+            stages = _print_stages(f"{label} step, {b} images", r)
     return {
+        "stages": stages,
         "epoch_steps": steps, "epoch_s": epoch_s, "epoch_loss": trainer.loss_history,
         "step_ms": [t * 1e3 for t in times], "median_step_ms": med * 1e3,
         "images_per_s": b / med, "peak_memory_bytes": peak,
@@ -1111,7 +1145,8 @@ def phase_train(kernels: list[dict]) -> dict:
     (``_train_run``; gradients checked on two images)."""
     from layoutdit_tpu_torch.config import RunConfig
 
-    out = _train_run("train", RunConfig(), kernels, grad_images=2, check_taps=False)
+    out = _train_run("train", RunConfig(), kernels, grad_images=2, check_taps=False,
+                     profile_stages=True)
     return {"config": "default RunConfig: dit-base, 224 px, batch 16, bf16 over fp32", **out}
 
 
@@ -1200,6 +1235,21 @@ def phase_train_1024_relpos(kernels: list[dict]) -> dict:
             "table_gradient": _table_gradient(vit)}
 
 
+# stages whose device time the pyramid's layout moves (the convolutions
+# of the backbone's FPN and of the RPN head), printed from one profiled
+# request per bucket and one profiled 224 px train step
+LAYOUT_STAGES = ("backbone", "rpn")
+
+
+def _print_stages(label: str, r: dict) -> dict:
+    """The LAYOUT_STAGES of one profiled request or step (``summarize_trace``)."""
+    out = {name: r["stages"].get(name, {}) for name in LAYOUT_STAGES}
+    print(f"  {label}: device busy {r['device_busy_ms']:.4f} ms, " + ", ".join(
+        f"stage {n} device work {st.get('device_ms', 0.0):.4f} ms (host "
+        f"{st.get('host_ms', 0.0):.4f} ms)" for n, st in out.items()))
+    return out
+
+
 def phase_serving(kernels: list[dict]) -> dict:
     from layoutdit_tpu_torch.config import load_config
     from layoutdit_tpu_torch.eval.serving import BatchInferenceEngine
@@ -1209,6 +1259,7 @@ def phase_serving(kernels: list[dict]) -> dict:
         init_detector,
     )
     from layoutdit_tpu_torch.ops import nms
+    from layoutdit_tpu_torch.tools.profile_serving import profile_bucket
 
     mc, dl = load_config(str(CONFIG))
     cfg = DetectorConfig.from_model_config(mc, precision_dtype="bfloat16")
@@ -1263,8 +1314,13 @@ def phase_serving(kernels: list[dict]) -> dict:
         s: engine._upload_batch([engine._decode_page(p)], s)[0][0]
         for s, p in ((224, small[0]), (1024, large[0]))
     })
+    stages = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for size, pages in ((224, small[:dl.batch_size]), (1024, large[:dl.batch_size])):
+            r = profile_bucket(engine, pages, Path(tmp) / f"serving_{size}.json")
+            stages[size] = _print_stages(f"serving {size} px, {len(pages)} pages", r)
     return {
-        "rounds": REQUEST_REPEATS,
+        "rounds": REQUEST_REPEATS, "stages": stages,
         "latency_ms": {k: sorted(t * 1e3 for t in v) for k, v in latencies.items()},
         "median_pages_per_s": {
             name: len(pages) / float(np.median(latencies[name])) for name, pages in requests

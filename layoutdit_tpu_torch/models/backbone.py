@@ -57,7 +57,9 @@ def backbone_forward(
     cfg: BackboneConfig,
     compute_dtype: torch.dtype = torch.float32,
 ) -> list[torch.Tensor]:
-    """[B, 3, H, W] normalized pixels -> [p2, p3, p4, p5, pool]."""
+    """[B, 3, H, W] normalized pixels -> [p2, p3, p4, p5, pool], each
+    [B, C, H_l, W_l] in channels-last memory (channel stride 1; ``pool``
+    a strided view of p5), the layout the RoIAlign kernels read."""
     b, _, h, w = pixels.shape
     patch = cfg.vit.patch_size
     gh, gw = h // patch, w // patch
@@ -66,7 +68,9 @@ def backbone_forward(
     )
     laterals = []
     for t, scale, inner in zip(hidden, cfg.scales, params["fpn"]["inner"]):
-        x = t[:, 1:, :].transpose(1, 2).reshape(b, cfg.vit.hidden_size, gh, gw)
+        # [B, D, gh, gw] as a view of the tokens: channel stride 1, so the
+        # convolutions, the resizes and the whole pyramid stay channels-last
+        x = t[:, 1:, :].reshape(b, gh, gw, cfg.vit.hidden_size).permute(0, 3, 1, 2)
         x = conv2d(x, inner)
         if scale != 1.0:
             x = resize_bilinear(x, int(gh * scale), int(gw * scale))

@@ -246,17 +246,22 @@ def detector_loss(
     trainer): ``loss_objectness``, ``loss_rpn_box_reg``,
     ``loss_classifier``, ``loss_box_reg``, fp32 scalars.
 
-    The predictions run under a ``record_function("forward")`` range and
-    the two losses under ``"loss"``."""
+    The predictions run under a ``record_function("forward")`` range, with
+    ``"backbone"`` and ``"rpn"`` ranges inside it as in
+    ``detector_predict``, and the two losses under ``"loss"``."""
     anchors, counts = _anchors(cfg, images.device)
     size = (cfg.image_size, cfg.image_size)
     b = images.shape[0]
     with record_function("forward"):
-        x = _normalize(images.float(), cfg).to(cfg.dtype)
-        feats = backbone_forward(params["backbone"], x, cfg.backbone, compute_dtype=cfg.dtype)
-        objectness, deltas = rpn_head_forward(params["rpn_head"], feats, cfg.num_anchors_per_cell)
-        props = filter_proposals(objectness, deltas, anchors, counts, size, cfg.budget,
-                                 training=True)
+        with record_function("backbone"):
+            x = _normalize(images.float(), cfg).to(cfg.dtype)
+            feats = backbone_forward(params["backbone"], x, cfg.backbone,
+                                     compute_dtype=cfg.dtype)
+        with record_function("rpn"):
+            objectness, deltas = rpn_head_forward(params["rpn_head"], feats,
+                                                  cfg.num_anchors_per_cell)
+            props = filter_proposals(objectness, deltas, anchors, counts, size, cfg.budget,
+                                     training=True)
         samples = select_training_samples(
             props.boxes, props.valid, gt_boxes, gt_labels, gt_valid, cfg.budget,
             priorities.roi,

@@ -44,13 +44,15 @@ def init_fpn_params(
 
 def nearest_upsample_to(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """torch F.interpolate(mode='nearest') to an explicit size:
-    src_idx = floor(dst * in / out)."""
+    src_idx = floor(dst * in / out). [..., C, H, W] -> [..., C, out_h,
+    out_w] in channels-last memory: it gathers on the [..., H, W, C] view,
+    so the FPN's top-down sum and its output conv stay channels-last."""
     in_h, in_w = x.shape[-2], x.shape[-1]
     if (in_h, in_w) == (out_h, out_w):
         return x
     rows = (torch.arange(out_h, device=x.device) * in_h) // out_h
     cols = (torch.arange(out_w, device=x.device) * in_w) // out_w
-    return x[..., rows, :][..., cols]
+    return x.movedim(-3, -1)[..., rows, :, :][..., cols, :].movedim(-1, -3)
 
 
 def fpn_forward_from_laterals(

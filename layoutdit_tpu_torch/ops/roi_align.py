@@ -12,12 +12,22 @@ clipped to the levels given; its P x P bins each average
 The kernels (``csrc/roi_align.cu``) replace the Pallas ``_fwd_kernel``
 and ``_bwd_kernel``.
 The TPU kernel multiplies a level atlas by separable, level-masked weight
-matrices; the CUDA kernel samples the assigned level directly (one block
-per RoI, fp32 accumulation), the same function without the atlas, which
-at 1024 px would be 65 MB against 227 KB of shared memory. It is bound
-by bytes on the H100 (the feature pixels the RoIs touch plus the pooled
-output). The plain version keeps the JAX package's separable weight
-formulation (``build_roi_weights``) in fp32.
+matrices; the CUDA forward samples the assigned level directly (a block
+per RoI, a warp per bin column, 16-byte loads of 8 channels a lane, each
+pixel once per bin, fp32 accumulation), the same
+function without the atlas, which at 1024 px would be 65 MB against
+227 KB of shared memory. It is bound by bytes on the H100 (the feature
+pixels the RoIs touch plus the pooled output). The plain version keeps
+the JAX package's separable weight formulation (``build_roi_weights``)
+in fp32.
+
+On a CUDA device both kernels take the pyramid as the detector makes it:
+channels-last (channel stride 1, as the FPN's convolutions write it) with
+any batch, row and column strides that keep 16-byte alignment, so the
+fifth level's strided view ``x[..., ::2, ::2]`` needs no copy either. A
+CUDA feature with another channel stride raises. They are built for
+(output_size, sampling_ratio) (7, 2), the box head, and (14, 2), a mask
+head; another pair raises.
 
 Tolerance between the two on bf16 features: both accumulate in fp32 and
 round once to bf16, so they differ by at most one bf16 rounding of the
@@ -28,11 +38,14 @@ The vmap of the JAX version over images is written out: features are
 [B, C, H, W] and RoIs [B, K, 4].
 
 ``multiscale_roi_align`` is differentiable with respect to the features
-only (``_RoIAlign``): the backward kernel scatters dout through the same
-taps with fp32 atomics, so its sum order, and the last bits of dF, change
-from run to run; its plain version is dF = sum_k Wy^T . dout . Wx over
-``build_roi_weights``. The RoIs get no gradient, as in the JAX package
-(stop-gradient proposals, zero cotangents for the weights).
+only (``_RoIAlign``). The backward kernel gathers: each dF element is
+summed by one thread in fp32, in a fixed order (RoI index, then bin),
+over the RoIs whose footprint (``roi_footprints``) reaches its pixel, and
+written once in bf16, so two runs give the same bits, as the JAX
+kernel's sequential accumulator does; its plain version is
+dF = sum_k Wy^T . dout . Wx over ``build_roi_weights``. The RoIs get no
+gradient, as in the JAX package (stop-gradient proposals, zero
+cotangents for the weights).
 
 The JAX package's own XLA formulation is here too, for the fused-RoIAlign
 probes (``ops/roi_fused.py``) that are measured against it: ``roi_atlas``
@@ -55,18 +68,14 @@ import torch.nn.functional as F
 from layoutdit_tpu_torch.ops import _build
 from layoutdit_tpu_torch.ops.boxes import box_area
 
-_ARGTYPES = [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p,
-]
-_BWD_ARGTYPES = [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p,
-]
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_FOOTPRINT_ARGTYPES = [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P]
+_BWD_ARGTYPES = [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+# (output_size, sampling_ratio) pairs the kernels are instantiated for
+KERNEL_SIZES = ((7, 2), (14, 2))
+_EMPTY_SPAN = (0, -1, 0, -1)
 
 
 def roi_levels(
@@ -139,6 +148,49 @@ def build_roi_weights(
     return wy, wx
 
 
+def roi_footprints(
+    rois: torch.Tensor,  # [..., 4]
+    levels: torch.Tensor,  # [...]
+    level_hw: list[tuple[int, int]],
+    spatial_scales: list[float],
+    output_size: int = 7,
+    sampling_ratio: int = 2,
+) -> torch.Tensor:
+    """int32 [..., 4] (y0, y1, x0, x1): each RoI's footprint on its
+    assigned level, the inclusive row and column span of the pixels its
+    bilinear taps give a non-zero weight (the support of its
+    ``build_roi_weights`` rows and columns); ``(0, -1, 0, -1)``, an empty
+    span, for level -1 or a RoI none of whose samples falls inside the
+    level. The spec of the backward kernel's footprint pass."""
+    shape = rois.shape[:-1]
+    r = rois.reshape(-1, 4).float()
+    lv = levels.reshape(-1).long()
+    li = lv.clamp(min=0)
+    hw = torch.tensor(level_hw, dtype=torch.float32, device=r.device)[li]  # [R, 2]
+    scale = torch.tensor(spatial_scales, dtype=torch.float32, device=r.device)[li]
+    p, g = output_size, sampling_ratio
+    idx = torch.arange(p * g, dtype=torch.float32, device=r.device)
+    grid = torch.div(idx, g, rounding_mode="floor") + (idx % g + 0.5) / g
+    spans, inside = [], lv >= 0
+    for axis, (a0, a1) in enumerate(((1, 3), (0, 2))):  # rows, then columns
+        size = hw[:, axis, None]
+        start = r[:, a0] * scale
+        extent = (r[:, a1] * scale - start).clamp(min=1.0)
+        c = start[:, None] + grid[None, :] * (extent / p)[:, None]
+        in_range = (c >= -1.0) & (c <= size)
+        c = c.clamp(min=0.0)
+        low = torch.floor(c)
+        top = low >= size - 1
+        low = torch.minimum(low, size - 1)
+        last = torch.where(~top & (c - low > 0), low + 1, low)  # the high tap, where weighted
+        spans += [torch.where(in_range, low, size).amin(dim=1),
+                  torch.where(in_range, last, -1.0).amax(dim=1)]
+        inside &= in_range.any(dim=1)
+    out = torch.stack(spans, dim=-1).to(torch.int32)
+    empty = torch.tensor(_EMPTY_SPAN, dtype=torch.int32, device=r.device)
+    return torch.where(inside[:, None], out, empty).reshape(*shape, 4)
+
+
 def roi_align_plain(
     features: list[torch.Tensor],
     rois: torch.Tensor,
@@ -199,11 +251,46 @@ def roi_align_bwd_plain(
 def _lib() -> ctypes.CDLL:
     lib = _build.load("roi_align")
     if lib.roi_align_fwd.argtypes is None:
-        lib.roi_align_fwd.argtypes = _ARGTYPES
-        lib.roi_align_fwd.restype = ctypes.c_int
-        lib.roi_align_bwd.argtypes = _BWD_ARGTYPES
-        lib.roi_align_bwd.restype = ctypes.c_int
+        for fn, args in ((lib.roi_align_fwd, _ARGTYPES),
+                         (lib.roi_align_footprints, _FOOTPRINT_ARGTYPES),
+                         (lib.roi_align_bwd, _BWD_ARGTYPES)):
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
     return lib
+
+
+def _check_sizes(what: str, output_size: int, sampling_ratio: int) -> None:
+    if (output_size, sampling_ratio) not in KERNEL_SIZES:
+        raise ValueError(
+            f"{what}: the CUDA kernels are instantiated for (output_size, sampling_ratio) "
+            f"in {KERNEL_SIZES}, got ({output_size}, {sampling_ratio}); add the pair to "
+            "csrc/roi_align.cu"
+        )
+
+
+def _check_level(what: str, t: torch.Tensor, b: int, c: int, device: torch.device) -> None:
+    """A CUDA level as the kernels read or write it: bf16 [B, C, H, W] on
+    ``device``, channel stride 1, 16-byte aligned (C and the strides of
+    the other dimensions longer than 1 multiples of 8)."""
+    if t.dtype != torch.bfloat16 or t.device != device or t.shape[:2] != (b, c):
+        raise ValueError(f"{what}: levels must be bf16 [{b}, {c}, H, W] on {device}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if t.stride(1) != 1:
+        raise ValueError(
+            f"{what}: a CUDA level must be channels-last (channel stride 1), got strides "
+            f"{t.stride()}; the detector's FPN writes its levels so, and the kernels do not copy"
+        )
+    if c % 8 or t.data_ptr() % 16 or any(
+        t.shape[d] > 1 and t.stride(d) % 8 for d in (0, 2, 3)
+    ):
+        raise ValueError(f"{what}: a CUDA level must be 16-byte aligned (C and its strides "
+                         f"multiples of 8), got C={c}, strides {t.stride()}")
+
+
+def _geometry(features: list[torch.Tensor], spatial_scales: list[float]):
+    n = len(features)
+    hw = (ctypes.c_int * (2 * n))(*[s for f in features for s in f.shape[-2:]])
+    return hw, (ctypes.c_float * n)(*spatial_scales), n
 
 
 def roi_align_fwd(
@@ -215,29 +302,23 @@ def roi_align_fwd(
     sampling_ratio: int = 2,
 ) -> torch.Tensor:
     """-> pooled [B, K, Px, Py, C]: the kernel for CUDA tensors, the plain
-    version for CPU tensors. The kernel takes bf16 features and reads
-    them channels-last (converted here; a no-op when they already are)."""
+    version for CPU tensors. The kernel reads bf16 channels-last levels
+    through their strides, as they are; it raises on any other."""
     if rois.device.type == "cpu":
         return roi_align_plain(
             features, rois, levels, spatial_scales, output_size, sampling_ratio
         )
     if rois.device.type != "cuda":
         raise ValueError(f"roi_align: unsupported device {rois.device}")
+    _check_sizes("roi_align", output_size, sampling_ratio)
     b, k = rois.shape[:2]
     c = features[0].shape[1]
     p = output_size
-    feats = []
     for f in features:
-        if f.dtype != torch.bfloat16 or f.device != rois.device or f.shape[:2] != (b, c):
-            raise ValueError(
-                f"roi_align: features must be bf16 [{b}, {c}, H, W] on {rois.device}"
-            )
-        feats.append(f.contiguous(memory_format=torch.channels_last))
-    n = len(feats)
-    ptrs = (ctypes.c_void_p * n)(*[f.data_ptr() for f in feats])
-    strides = (ctypes.c_longlong * (4 * n))(*[s for f in feats for s in f.stride()])
-    hw = (ctypes.c_int * (2 * n))(*[s for f in feats for s in f.shape[-2:]])
-    scales = (ctypes.c_float * n)(*spatial_scales)
+        _check_level("roi_align", f, b, c, rois.device)
+    hw, scales, n = _geometry(features, spatial_scales)
+    ptrs = (ctypes.c_void_p * n)(*[f.data_ptr() for f in features])
+    strides = (ctypes.c_longlong * (4 * n))(*[s for f in features for s in f.stride()])
     rois_c = rois.float().contiguous()
     levels_c = levels.to(torch.int32).contiguous()
     out = torch.empty((b, k, p, p, c), dtype=torch.bfloat16, device=rois.device)
@@ -254,6 +335,42 @@ def roi_align_fwd(
 roi_align_fwd.launches = 0
 
 
+def _taps_scratch(r: int, p: int, g: int, device: torch.device) -> torch.Tensor:
+    """The backward's per-RoI table of bin taps (pixel, weight bits), 448
+    bytes a RoI at P = 7: its first pass writes it, the gather reads it."""
+    return torch.empty((r, 2, p, 2 * g, 2), dtype=torch.int32, device=device)
+
+
+def roi_footprints_kernel(
+    rois: torch.Tensor,
+    levels: torch.Tensor,
+    level_hw: list[tuple[int, int]],
+    spatial_scales: list[float],
+    output_size: int = 7,
+    sampling_ratio: int = 2,
+) -> torch.Tensor:
+    """The backward kernel's first pass alone, ``roi_footprints`` of [B, K]
+    RoIs on the card -> int32 [B, K, 4]: for checking it against its spec
+    (``roi_align_bwd`` launches the pass itself)."""
+    if rois.device.type != "cuda":
+        raise ValueError(f"roi_footprints_kernel: needs CUDA tensors, got {rois.device}")
+    _check_sizes("roi_footprints_kernel", output_size, sampling_ratio)
+    n = len(level_hw)
+    hw = (ctypes.c_int * (2 * n))(*[s for h_w in level_hw for s in h_w])
+    scales = (ctypes.c_float * n)(*spatial_scales)
+    rois_c = rois.float().contiguous()
+    levels_c = levels.to(torch.int32).contiguous()
+    out = torch.empty((*rois.shape[:-1], 4), dtype=torch.int32, device=rois.device)
+    taps = _taps_scratch(levels_c.numel(), output_size, sampling_ratio, rois.device)
+    lib = _lib()
+    code = lib.roi_align_footprints(
+        hw, scales, n, rois_c.data_ptr(), levels_c.data_ptr(), taps.data_ptr(), out.data_ptr(),
+        levels_c.numel(), output_size, sampling_ratio, _build.stream_ptr(rois),
+    )
+    _build.check(lib, code, "roi_footprints_kernel")
+    return out
+
+
 def roi_align_bwd(
     dout: torch.Tensor,
     rois: torch.Tensor,
@@ -263,17 +380,19 @@ def roi_align_bwd(
     output_size: int = 7,
     sampling_ratio: int = 2,
 ) -> list[torch.Tensor]:
-    """dF per level [B, C, H_l, W_l], each in its feature's dtype and
-    memory format: the kernel for CUDA tensors, the plain version for
-    CPU tensors. The kernel adds into one zeroed fp32 channels-last
-    scratch with atomics (see the source on determinism) and the result
-    is cast once."""
+    """dF per level [B, C, H_l, W_l] in the features' dtype: the kernel for
+    CUDA tensors, the plain version for CPU tensors. The kernel writes
+    every element once, in bf16, into a tensor laid out as its feature
+    (``empty_like``: channels-last; dense for the strided fifth level), the
+    same bits on every run. ``features`` give only shapes, dtypes and
+    layouts."""
     if rois.device.type == "cpu":
         return roi_align_bwd_plain(
             dout, rois, levels, features, spatial_scales, output_size, sampling_ratio
         )
     if rois.device.type != "cuda":
         raise ValueError(f"roi_align_bwd: unsupported device {rois.device}")
+    _check_sizes("roi_align_bwd", output_size, sampling_ratio)
     b, k = rois.shape[:2]
     c = features[0].shape[1]
     p = output_size
@@ -283,34 +402,29 @@ def roi_align_bwd(
             f"roi_align_bwd: dout must be bf16 [{b}, {k}, {p}, {p}, {c}] on {rois.device}, "
             f"got {dout.dtype} {tuple(dout.shape)} on {dout.device}"
         )
+    dout_c = dout.contiguous()
+    if dout_c.data_ptr() % 16:
+        raise ValueError("roi_align_bwd: dout must be 16-byte aligned")
+    grads = []
     for f in features:
-        if f.device != rois.device or f.shape[:2] != (b, c):
-            raise ValueError(f"roi_align_bwd: features must be [{b}, {c}, H, W] on {rois.device}")
-    sizes = [f.shape[-2] * f.shape[-1] for f in features]
-    scratch = torch.zeros(b * c * sum(sizes), dtype=torch.float32, device=rois.device)
-    parts, start = [], 0
-    for f, hw in zip(features, sizes):
-        parts.append(scratch[start:start + b * hw * c].view(b, f.shape[-2], f.shape[-1], c))
-        start += b * hw * c
-    n = len(features)
-    ptrs = (ctypes.c_void_p * n)(*[t.data_ptr() for t in parts])
-    hw = (ctypes.c_int * (2 * n))(*[s for f in features for s in f.shape[-2:]])
-    scales = (ctypes.c_float * n)(*spatial_scales)
+        _check_level("roi_align_bwd", f, b, c, rois.device)
+        grads.append(torch.empty_like(f))
+        _check_level("roi_align_bwd", grads[-1], b, c, rois.device)
+    hw, scales, n = _geometry(features, spatial_scales)
+    ptrs = (ctypes.c_void_p * n)(*[t.data_ptr() for t in grads])
+    strides = (ctypes.c_longlong * (4 * n))(*[s for t in grads for s in t.stride()])
     rois_c = rois.float().contiguous()
     levels_c = levels.to(torch.int32).contiguous()
-    dout_c = dout.contiguous()
+    footprints = torch.empty((b * k, 4), dtype=torch.int32, device=rois.device)
+    taps = _taps_scratch(b * k, p, sampling_ratio, rois.device)
     lib = _lib()
     code = lib.roi_align_bwd(
-        ptrs, hw, scales, n, rois_c.data_ptr(), levels_c.data_ptr(), dout_c.data_ptr(),
-        b * k, k, c, p, sampling_ratio, _build.stream_ptr(rois),
+        ptrs, strides, hw, scales, n, rois_c.data_ptr(), levels_c.data_ptr(),
+        dout_c.data_ptr(), taps.data_ptr(), footprints.data_ptr(), b * k, k, c, p,
+        sampling_ratio, _build.stream_ptr(rois),
     )
     _build.check(lib, code, "roi_align_bwd")
     roi_align_bwd.launches += 1
-    grads = []
-    for f, part in zip(features, parts):
-        df = torch.empty_like(f)
-        df.copy_(part.permute(0, 3, 1, 2))
-        grads.append(df)
     return grads
 
 

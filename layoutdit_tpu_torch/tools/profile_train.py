@@ -7,9 +7,10 @@ from ``--seed`` over a temporary fixture of synthetic pages, runs
 and prints, from that step's chrome trace: its wall time, the device's
 busy time (union of kernel and copy intervals) and idle share, host time
 and device work launched in each stage (the ``record_function`` ranges
-``forward``, ``loss``, ``backward``, ``optimizer``, and inside the
-backward ``rel_pos_table_grad``, the relative-position tables'
-gradient, summed over its calls), the kernels that
+``forward``, ``loss``, ``backward``, ``optimizer``; inside the forward
+``backbone`` and ``rpn``; inside the backward ``rel_pos_table_grad``,
+the relative-position tables' gradient, summed over its calls), the
+kernels that
 take the most device time, and the NMS host syncs of the step. The last
 line is one JSON object with the same numbers.
 
@@ -41,7 +42,7 @@ from layoutdit_tpu_torch.tools.make_fixture import make_fixture
 from layoutdit_tpu_torch.tools.profile_serving import summarize_trace
 from layoutdit_tpu_torch.train.trainer import Trainer
 
-STAGES = ("forward", "loss", "backward", "optimizer", "rel_pos_table_grad")
+STAGES = ("forward", "backbone", "rpn", "loss", "backward", "optimizer", "rel_pos_table_grad")
 REPO = Path(__file__).resolve().parents[2]
 
 

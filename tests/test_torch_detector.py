@@ -118,6 +118,8 @@ def test_vit_and_backbone_match_jax(models, size):
     got = port_backbone.backbone_forward(pm.params["backbone"], torch.from_numpy(x),
                                          pm.cfg.backbone)
     assert [tuple(g.shape) for g in got] == [w.shape for w in want]
+    # five levels in channels-last memory, the layout the RoIAlign kernels read
+    assert len(got) == 5 and all(g.stride(1) == 1 for g in got)
     for w, g in zip(want, got):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4, rtol=1e-4)
 

@@ -276,7 +276,9 @@ def test_launch_counters(cuda):
 @pytest.mark.cuda
 def test_fused_matches_roi_align_kernel_on_real_rois(cuda, rng):
     feats, boxes, mask = _pyramid(rng, k=2048, c=256)
-    tf = [torch.from_numpy(f).to(cuda, torch.bfloat16) for f in feats]
+    # channels-last, the layout the detector's FPN makes and row 7 reads
+    tf = [torch.from_numpy(f).to(cuda, torch.bfloat16).contiguous(memory_format=torch.channels_last)
+          for f in feats]
     rois, m = torch.from_numpy(boxes).to(cuda), torch.from_numpy(mask).to(cuda)
     f_cat, wy, wx = port_ra.roi_atlas(tf, rois, SCALES, roi_mask=m)
     got = rf.variant_a(f_cat[0], wy[0], wx[0], kb=16)
