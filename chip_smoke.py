@@ -32,9 +32,16 @@ windowed high-res config ``configs/train_1024_window.json`` (dit-base,
 ``train_1024``) and with its BEiT-layout variant
 ``configs/train_1024_window_relpos.json`` (a relative-position table in
 every layer: every biased attention on the flash kernels, the bias
-gradient on the dbias kernel; phase ``train_1024_relpos``). It checks
-that every kernel ran on its path, the right number of times a train
-step, and the probes' kernels on none but theirs. One profiled request
+gradient on the dbias kernel; phase ``train_1024_relpos``). Then it runs
+the port's command line, ``layoutdit_tpu_torch.main``, at the default
+config: one epoch with a mid-training COCO eval, the final score of
+held-out pages, ``predictions.json``, ``best.pt`` and the overlays, and
+``best.pt`` scored again to the mAP it records (phase ``main``); and the
+JAX package's flagship convergence recipe through the port in bf16
+(``tools/convergence.py``: the tiny detector, 48 epochs), held to the
+JAX test's held-out mAP and AP50 floors (phase ``convergence``). It
+checks that every kernel ran on its path, the right number of times a
+train step, and the probes' kernels on none but theirs. One profiled request
 per serving bucket and one profiled 224 px train step print the
 ``backbone`` and ``rpn`` stage times, which the pyramid's layout moves.
 It prints JSON lines for serving, training and the kernels, the card's
@@ -205,6 +212,14 @@ def _short_fwd_case(gen, b, n, h=12, d=64) -> dict:
 # 64 windows of 16 x 16 patches (4 images x 16) and the CLS token alone
 WINDOW_SHAPES = {"w256": (64, 256), "n1": (4, 1)}
 
+# the convergence recipe's shapes (write_fixture_config(tiny_model=True)
+# at batch 8, 224 px): 2 heads of 32 over N = 197, an FPN of 64 channels,
+# RoIAlign over box_batch_size_per_image RoIs in training and
+# rpn_post_nms_top_n_test in evaluation; phase_convergence checks the
+# recipe's config against them
+RECIPE = {"batch": 8, "image": 224, "heads": 2, "head_dim": 32, "channels": 64,
+          "train_rois": 128, "eval_rois": 300}
+
 
 def phase_short(gen) -> dict:
     entry = {
@@ -215,6 +230,8 @@ def phase_short(gen) -> dict:
     }
     for key, (b, n) in WINDOW_SHAPES.items():
         entry.update({f"{key}_{k}": v for k, v in _short_fwd_case(gen, b, n).items()})
+    entry.update({f"recipe_{k}": v for k, v in _short_fwd_case(
+        gen, RECIPE["batch"], 197, RECIPE["heads"], RECIPE["head_dim"]).items()})
     return entry
 
 
@@ -336,16 +353,17 @@ def _roi_touched_bytes(feats, rois, levels, scales, p, g) -> int:
 ROI_SCALES = [1 / 4, 1 / 8, 1 / 16, 1 / 32, 1 / 64]
 
 
-def _roi_fwd_case(gen, image: int, b: int, p: int = 7, g: int = 2) -> dict:
+def _roi_fwd_case(gen, image: int, b: int, p: int = 7, g: int = 2, k: int = 512,
+                  c: int = 256) -> dict:
     """Row 7 on the detector's pyramid layout, against its plain version,
     timed per call (the wrapper included: it copies nothing)."""
     from layoutdit_tpu_torch.ops import roi_align as ra
 
-    feats, rois, mask = _roi_inputs(gen, image, b=b)
+    feats, rois, mask = _roi_inputs(gen, image, b=b, k=k, c=c)
     scales = ROI_SCALES
     levels = ra.roi_levels(rois, 5, float(image), roi_mask=mask)
     got = ra.roi_align_fwd(feats, rois, levels, scales, p, g)
-    err, tol = _check_close(f"roi_align {image} px P={p}", got,
+    err, tol = _check_close(f"roi_align {image} px B={b} K={k} C={c} P={p}", got,
                             ra.roi_align_plain(feats, rois, levels, scales, p, g))
     b, k = rois.shape[:2]
     c = feats[0].shape[1]
@@ -353,7 +371,7 @@ def _roi_fwd_case(gen, image: int, b: int, p: int = 7, g: int = 2) -> dict:
               + rois.numel() * 4 + b * k * p * p * c * 2)
     bound, by = _bound_ms(nbytes, b * k * p * p * c * g * g * 4 * 2)
     ms = _time_ms(lambda: ra.roi_align_fwd(feats, rois, levels, scales, p, g), 20)
-    _print_share(f"roi_align {image} px P={p}", ms, bound, by)
+    _print_share(f"roi_align {image} px B={b} K={k} C={c} P={p}", ms, bound, by)
     return {
         "shape": f"B={b} K={k} C={c} P={p} G={g} pyramid {image} px bf16, channels-last, "
                  "fifth level a strided view",
@@ -365,8 +383,9 @@ def _roi_fwd_case(gen, image: int, b: int, p: int = 7, g: int = 2) -> dict:
 
 def phase_roi(gen) -> dict:
     """Row 7: 224 px at the train step's B=16 (serving's batch is 4),
-    1024 px at serving's B=4 (the headline), and the (14, 2) instantiation
-    a mask head takes at 1024 px."""
+    1024 px at serving's B=4 (the headline), the (14, 2) instantiation
+    a mask head takes at 1024 px, and the convergence recipe's training
+    and evaluation shapes (C = 64)."""
     entry = {
         "name": "roi_align", "route": "cuda",
         "source": "layoutdit_tpu_torch/csrc/roi_align.cu",
@@ -376,6 +395,10 @@ def phase_roi(gen) -> dict:
     entry.update({f"b224_{k}": v for k, v in _roi_fwd_case(gen, 224, 16).items()})
     entry.update(_roi_fwd_case(gen, 1024, 4))
     entry.update({f"p14_{k}": v for k, v in _roi_fwd_case(gen, 1024, 4, p=14).items()})
+    for key in ("train", "eval"):
+        entry.update({f"recipe_{key}_{k}": v for k, v in _roi_fwd_case(
+            gen, RECIPE["image"], RECIPE["batch"], k=RECIPE[f"{key}_rois"],
+            c=RECIPE["channels"]).items()})
     torch.cuda.empty_cache()
     return entry
 
@@ -439,6 +462,8 @@ def phase_short_bwd(gen) -> dict:
     }
     for key, (b, n) in WINDOW_SHAPES.items():
         entry.update({f"{key}_{k}": v for k, v in _short_bwd_case(gen, b, n).items()})
+    entry.update({f"recipe_{k}": v for k, v in _short_bwd_case(
+        gen, RECIPE["batch"], 197, RECIPE["heads"], RECIPE["head_dim"]).items()})
     print("  short_attention_bwd: two runs gave the same bits at every shape")
     return entry
 
@@ -610,19 +635,18 @@ def phase_flash_bwd(gen) -> list[dict]:
     return entries
 
 
-def _roi_bwd_case(gen, image: int, b: int, k: int = 512, p: int = 7) -> dict:
+def _roi_bwd_case(gen, image: int, b: int, k: int = 512, p: int = 7, c: int = 256) -> dict:
     """Row 8 on the detector's pyramid layout against its plain version,
     the same bits on a second run (raises otherwise), its footprint pass
     against ``roi_footprints``; timed per call, the wrapper included."""
     from layoutdit_tpu_torch.ops import roi_align as ra
 
     g = 2
-    feats, rois, mask = _roi_inputs(gen, image, b=b, k=k)
+    feats, rois, mask = _roi_inputs(gen, image, b=b, k=k, c=c)
     scales = ROI_SCALES
     levels = ra.roi_levels(rois, 5, float(image), roi_mask=mask)
-    c = feats[0].shape[1]
     dout = torch.randn(b, k, p, p, c, generator=gen, device="cuda").to(torch.bfloat16)
-    label = f"roi_align_bwd {image} px P={p}"
+    label = f"roi_align_bwd {image} px B={b} K={k} C={c} P={p}"
     got = ra.roi_align_bwd(dout, rois, levels, feats, scales, p, g)
     want = ra.roi_align_bwd_plain(dout, rois, levels, feats, scales, p, g)
     errs, tols = zip(*(_check_close(f"{label} level {i}", gl, wl)
@@ -662,7 +686,8 @@ def _roi_bwd_case(gen, image: int, b: int, k: int = 512, p: int = 7) -> dict:
 def phase_roi_bwd(gen) -> dict:
     """RoIAlign backward (row 8) at the 224 px train step's shape (B=16,
     K=512, a fifth of the RoIs invalid), at the 1024 px step's (B=4, its
-    pyramid) and with the (14, 2) instantiation at 224 px, against the
+    pyramid), with the (14, 2) instantiation at 224 px and at the
+    convergence recipe's training shape (B=8, K=128, C=64), against the
     plain version on the same bf16 dout. The kernel sums each dF element
     in a fixed order, so a second run must give the same bits."""
     entry = {
@@ -675,6 +700,9 @@ def phase_roi_bwd(gen) -> dict:
     entry.update({f"b1024_{k}": v for k, v in _roi_bwd_case(gen, 1024, 4).items()})
     torch.cuda.empty_cache()
     entry.update({f"p14_{k}": v for k, v in _roi_bwd_case(gen, 224, 16, p=14).items()})
+    entry.update({f"recipe_{k}": v for k, v in _roi_bwd_case(
+        gen, RECIPE["image"], RECIPE["batch"], k=RECIPE["train_rois"],
+        c=RECIPE["channels"]).items()})
     torch.cuda.empty_cache()
     return entry
 
@@ -1235,6 +1263,272 @@ def phase_train_1024_relpos(kernels: list[dict]) -> dict:
             "table_gradient": _table_gradient(vit)}
 
 
+# main phase: the port's command line over make_fixture pages, a training
+# split and a held-out eval split of these sizes and seeds
+MAIN_TRAIN_PAGES = 32
+MAIN_VAL_PAGES = 16
+MAIN_KERNELS = ("short_attention", "short_attention_bwd", "roi_align", "roi_align_bwd")
+# the main phase's throughput windows: a split of this many pages (seed
+# 778) trained on for THROUGHPUT_EPOCHS epochs (the first not counted)
+# and scored THROUGHPUT_SCORES times, then once more under the profiler
+THROUGHPUT_PAGES = 256
+THROUGHPUT_EPOCHS = 4
+THROUGHPUT_SCORES = 3
+
+
+def _spread(values: list[float]) -> dict:
+    return {"median": float(np.median(values)), "min": min(values), "max": max(values),
+            "n": len(values)}
+
+
+def _throughput(tmp: str, rc) -> dict:
+    """Train images/s and eval pages/s of the main phase's config over
+    THROUGHPUT_PAGES pages, each as median, min and max: the trainer's
+    own per-epoch images/s (the epochs after the first; loader waits
+    included) and the wall time of ``Evaluator.score()`` over the whole
+    split (COCOeval included); then the device's busy time and idle share
+    over one more ``score()`` traced by the profiler (``summarize_trace``;
+    the profiler's own host cost inflates the idle share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from layoutdit_tpu_torch.eval.evaluator import Evaluator
+    from layoutdit_tpu_torch.models.model import build_model
+    from layoutdit_tpu_torch.tools.make_fixture import make_fixture
+    from layoutdit_tpu_torch.tools.profile_serving import summarize_trace
+    from layoutdit_tpu_torch.train.trainer import Trainer
+
+    make_fixture(tmp, n_images=THROUGHPUT_PAGES, split="window", seed=778)
+    wc = dataclasses.replace(
+        rc, run_name="throughput", eval_input="window",
+        train=dataclasses.replace(rc.train, train_input="window", num_epochs=THROUGHPUT_EPOCHS,
+                                  eval_interval=0, checkpoint_interval=THROUGHPUT_EPOCHS + 1))
+    model = build_model(wc, device="cuda")
+    trainer = Trainer(wc, model)
+    trainer.train()
+    train_ips = [r["images_per_sec"] for r in trainer.metrics_history]
+    evaluator = Evaluator(model, wc)
+    score_s = []
+    for _ in range(THROUGHPUT_SCORES):
+        t0 = time.perf_counter()
+        evaluator.score()
+        torch.cuda.synchronize()
+        score_s.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        evaluator.score()
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    trace = Path(tmp) / "score_trace.json"
+    prof.export_chrome_trace(str(trace))
+    with open(trace) as f:
+        summary = summarize_trace(json.load(f))
+    out = {
+        "pages": THROUGHPUT_PAGES, "train_steps_per_epoch": len(trainer.dataloader),
+        "train_epoch_images_per_s": _spread(train_ips[1:]), "train_images_per_s_by_epoch": train_ips,
+        "score_s": _spread(score_s), "eval_pages_per_s": _spread(
+            [THROUGHPUT_PAGES / t for t in score_s]),
+        "traced_score": {"wall_s": traced_s, "span_ms": summary["span_ms"],
+                         "device_busy_ms": summary["device_busy_ms"],
+                         "device_idle_share": summary["device_idle_share"],
+                         "stages": summary["stages"]},
+    }
+    ips, pps = out["train_epoch_images_per_s"], out["eval_pages_per_s"]
+    print(f"  throughput over {THROUGHPUT_PAGES} pages: train {ips['median']:.2f} images/s "
+          f"(median of epochs 2-{THROUGHPUT_EPOCHS}, min {ips['min']:.2f}, max "
+          f"{ips['max']:.2f}; by epoch {train_ips}); score() {pps['median']:.2f} pages/s "
+          f"(median of {THROUGHPUT_SCORES}, min {pps['min']:.2f}, max {pps['max']:.2f})")
+    print(f"  one score() traced: {traced_s:.3f} s wall, device busy "
+          f"{summary['device_busy_ms']:.1f} ms of {summary['span_ms']:.1f} ms, idle share "
+          f"{summary['device_idle_share']:.4f}; " + ", ".join(
+              f"{n} device {st.get('device_ms', 0.0):.1f} ms / host {st.get('host_ms', 0.0):.1f} "
+              f"ms" for n, st in summary["stages"].items()))
+    return out
+
+
+def phase_main(kernels: list[dict], card: str) -> dict:
+    """``python -m layoutdit_tpu_torch.main`` in this process at the
+    default config (dit-base, 224 px, batch 16, bf16, random weights from
+    seed 0): one epoch over 32 pages with a mid-training eval and a
+    checkpoint, then the final COCO score of 16 held-out pages and both
+    overlays. Checks the logged metrics, ``predictions.json``,
+    ``epoch_1.pt`` and ``best.pt`` (which must load, and whose recorded
+    mAP ``metrics.jsonl`` must show), the overlays, and that the run
+    launched the short-attention and RoIAlign pairs and no other kernel;
+    then scores ``best.pt`` again with a new ``build_model`` and
+    ``Evaluator``, which must give the mAP it records."""
+    import logging
+    import os
+
+    from PIL import Image
+
+    from layoutdit_tpu_torch import main as port_main
+    from layoutdit_tpu_torch.config import load_run_config
+    from layoutdit_tpu_torch.eval.coco_eval import COCO_KEYS
+    from layoutdit_tpu_torch.eval.evaluator import Evaluator
+    from layoutdit_tpu_torch.models.model import build_model
+    from layoutdit_tpu_torch.tools.make_fixture import (
+        CATEGORIES,
+        make_fixture,
+        write_fixture_config,
+    )
+    from layoutdit_tpu_torch.train.checkpoint import load_checkpoint
+
+    logged = []
+
+    class FinalMetrics(logging.Handler):
+        def emit(self, record):
+            if record.getMessage().startswith("Final metrics"):
+                logged.append(record.args)
+
+    handler = FinalMetrics()
+    log_root = logging.getLogger("layoutdit_tpu_torch")
+    with tempfile.TemporaryDirectory() as tmp:
+        make_fixture(tmp, n_images=MAIN_TRAIN_PAGES, split="samples", seed=0)
+        make_fixture(tmp, n_images=MAIN_VAL_PAGES, split="val", seed=777)
+        cfg_path = write_fixture_config(tmp, split="samples", epochs=1, batch_size=16)
+        with open(cfg_path) as f:
+            raw = json.load(f)
+        raw["local_mode"] = False
+        raw["eval_config"]["eval_input"] = "val"
+        raw["train_config"].update(eval_interval=1, checkpoint_interval=1)
+        with open(cfg_path, "w") as f:
+            json.dump(raw, f)
+        rc = load_run_config(cfg_path)
+        print(f"  port main, default model config (dit-base, {rc.model.image_size} px), batch "
+              f"{rc.data.batch_size}, {rc.compute_dtype}; {MAIN_TRAIN_PAGES} training pages "
+              f"(seed 0), {MAIN_VAL_PAGES} held-out pages (seed 777), 1 epoch, eval_interval 1")
+
+        saved_env = os.environ.get("LAYOUTDIT_CONFIG")
+        os.environ["LAYOUTDIT_CONFIG"] = cfg_path
+        log_root.addHandler(handler)
+        try:
+            _reset_counts()
+            t0 = time.perf_counter()
+            port_main.main([])
+            torch.cuda.synchronize()
+            main_s = time.perf_counter() - t0
+            counts = _counts()
+        finally:
+            log_root.removeHandler(handler)
+            if saved_env is None:
+                os.environ.pop("LAYOUTDIT_CONFIG")
+            else:
+                os.environ["LAYOUTDIT_CONFIG"] = saved_env
+        print(f"  main: {main_s:.3f} s, launches {counts}")
+        for name, n in counts.items():
+            if (n > 0) != (name in MAIN_KERNELS):
+                raise RuntimeError(f"main: {name} launched {n} times")
+        for k in kernels:
+            k["main_launches"] = counts[k["name"]]
+
+        if len(logged) != 1:
+            raise RuntimeError(f"main: {len(logged)} 'Final metrics' records logged")
+        metrics = logged[0]
+        wanted = list(COCO_KEYS) + [f"AP50-{c['name']}" for c in CATEGORIES]
+        if not all(k in metrics and math.isfinite(metrics[k]) and -1 <= metrics[k] <= 1
+                   for k in wanted):
+            raise RuntimeError(f"main: metrics missing or out of range: {metrics}")
+        print("  final metrics: " + ", ".join(f"{k} {metrics[k]:.4f}" for k in wanted))
+
+        run = Path(rc.artifact_dir)
+        with open(run / "predictions.json") as f:
+            preds = json.load(f)
+        if not preds:
+            raise RuntimeError("main: predictions.json is empty")
+        ckpts = run / "model_checkpoints"
+        with open(run / "metrics" / "metrics.jsonl") as f:
+            records = [json.loads(line) for line in f]
+        best = load_checkpoint(ckpts / "best.pt", map_location="cpu")
+        if not (len(records) == 1 and records[0]["mAP"] == best["extra"]["mAP"]
+                and records[0]["mAP"] == metrics["mAP"]):
+            raise RuntimeError(f"main: best.pt records mAP {best['extra']['mAP']}, "
+                               f"metrics.jsonl {records}, final {metrics['mAP']}")
+        build_model(rc, device="cuda").restore_checkpoint(str(ckpts / "epoch_1.pt"))
+
+        num_images = rc.eval.num_images
+        with open(Path(tmp) / "val.json") as f:
+            gt_pages = {a["image_id"] for a in json.load(f)["annotations"]}
+        for kind, pages in (("preds", {p["image_id"] for p in preds}), ("gt", gt_pages)):
+            out_dir = run / f"{rc.eval.visualize_dirpath_prefix}_{kind}"
+            jpegs = sorted(out_dir.glob("*.jpg"))
+            if len(jpegs) != min(num_images, len(pages)):
+                raise RuntimeError(f"main: {len(jpegs)} {kind} overlays, expected "
+                                   f"{min(num_images, len(pages))}")
+            for jpeg in jpegs:
+                with Image.open(jpeg) as im:
+                    im.load()
+        print(f"  {len(preds)} predictions, epoch_1.pt and best.pt load, "
+              f"{min(num_images, len(gt_pages))} overlays of each kind")
+
+        # the same weights on the same pages: the same mAP
+        model = build_model(rc, device="cuda")
+        model.restore_checkpoint(str(ckpts / "best.pt"))
+        evaluator = Evaluator(model, rc)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = evaluator.score()
+        torch.cuda.synchronize()
+        score_s = time.perf_counter() - t0
+        if again is None or again["mAP"] != best["extra"]["mAP"]:
+            raise RuntimeError(f"main: best.pt scored again gives mAP "
+                               f"{again and again['mAP']}, it records {best['extra']['mAP']}")
+        print(f"  best.pt scored again: mAP {again['mAP']:.6f} (equal to its record); "
+              f"score() {score_s:.3f} s for {MAIN_VAL_PAGES} pages")
+        window = _throughput(tmp, rc)
+    return {
+        "card": card, "main_s": main_s, "rescore_s": score_s, "rescore_pages": MAIN_VAL_PAGES,
+        "throughput": window, "metrics": metrics, "predictions": len(preds),
+    }
+
+
+def phase_convergence(kernels: list[dict], card: str) -> dict:
+    """The JAX package's flagship convergence recipe through the port
+    (``tools/convergence.py``: the tiny detector, 48 epochs on 128
+    pages, scored on 32 held-out ones), in bf16 on the card, whose
+    kernels take bf16 only (the JAX test runs float32 on the CPU). Holds
+    it to the JAX test's floors and prints the curve: the loss per epoch
+    and the mAP at epochs 16, 32 and 48."""
+    from layoutdit_tpu_torch.tools import convergence
+
+    from layoutdit_tpu_torch.config import load_run_config
+    from layoutdit_tpu_torch.models.detection.detector import DetectorConfig
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _reset_counts()
+        result = convergence.run_recipe(tmp, "bfloat16", "cuda", eval_interval=16)
+        counts = _counts()
+        rc = load_run_config(str(Path(tmp) / "cfg.json"))
+    cfg = DetectorConfig.from_model_config(rc.model, rc.compute_dtype)
+    vit = cfg.backbone.vit
+    shapes = {"batch": rc.data.batch_size, "image": cfg.image_size,
+              "heads": vit.num_attention_heads,
+              "head_dim": vit.hidden_size // vit.num_attention_heads,
+              "channels": cfg.backbone.fpn_out_channels,
+              "train_rois": cfg.budget.box_batch_size_per_image,
+              "eval_rois": cfg.budget.rpn_post_nms_top_n_test}
+    if shapes != RECIPE:
+        raise RuntimeError(f"convergence: the recipe's shapes {shapes} are not the ones the "
+                           f"kernels phases checked, {RECIPE}")
+    for name, n in counts.items():
+        if (n > 0) != (name in MAIN_KERNELS):
+            raise RuntimeError(f"convergence: {name} launched {n} times")
+    for k in kernels:
+        k["convergence_launches"] = counts[k["name"]]
+    m = result["metrics"]
+    print(f"  {result['steps']} steps in {result['train_s']:.3f} s "
+          f"({result['steps_per_s']:.3f} steps/s), score {result['score_s']:.3f} s")
+    print("  loss per epoch: " + ", ".join(f"{x:.4f}" for x in result["loss"]))
+    print(f"  mAP at epochs: {result['mAP_at_epoch']}")
+    if m is not None:
+        print(f"  held-out mAP {m['mAP']:.4f}, AP50 {m['AP50']:.4f}; " + ", ".join(
+            f"AP50-{name} {m['AP50-' + name]:.4f}"
+            for name in ("text", "title", "list", "table", "figure")))
+    failures = convergence.floor_failures(result)
+    if failures:
+        raise RuntimeError(f"convergence: the recipe missed its floors: {failures}")
+    return {"card": card, **result}
+
+
 # stages whose device time the pyramid's layout moves (the convolutions
 # of the backbone's FPN and of the RPN head), printed from one profiled
 # request per bucket and one profiled 224 px train step
@@ -1388,7 +1682,16 @@ def main() -> int:
 
     print("phase train_1024_relpos")
     train_1024_relpos = phase_train_1024_relpos(kernels)
-    paths = ("probe", "serving", "train", "train_1024", "train_1024_relpos")
+    torch.cuda.empty_cache()
+
+    print("phase main")
+    main_run = phase_main(kernels, card)
+    torch.cuda.empty_cache()
+
+    print("phase convergence")
+    conv = phase_convergence(kernels, card)
+    paths = ("probe", "serving", "train", "train_1024", "train_1024_relpos", "main",
+             "convergence")
     for k in kernels:
         k["launches"] = sum(k[f"{path}_launches"] for path in paths)
         if k["launches"] <= 0:
@@ -1398,6 +1701,8 @@ def main() -> int:
     print(json.dumps({"train": train}))
     print(json.dumps({"train_1024": train_1024}))
     print(json.dumps({"train_1024_relpos": train_1024_relpos}))
+    print(json.dumps({"main": main_run}))
+    print(json.dumps({"convergence": conv}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

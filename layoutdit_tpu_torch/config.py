@@ -2,20 +2,23 @@
 
 A subset of the JAX package's pydantic schema (``config/constructs.py``)
 with the same defaults: the two-stage ``DetectionBudget``, the serving
-fields of ``ModelConfig`` and ``DataLoaderConfig``, and the training
-fields of ``TrainingConfig``. The machine with the GPU has no pydantic,
-so these are plain frozen dataclasses. ``load_config`` reads
-``detection_model_config`` and ``data_loader_config`` from the same JSON
-files the JAX package reads (e.g. ``configs/serving_1024.json``);
-``load_run_config`` reads a whole training config. A key the port does
-not know raises instead of being dropped, and a JAX field the port does
-not act on yet loads only at its default value.
+fields of ``ModelConfig`` and ``DataLoaderConfig``, the training fields
+of ``TrainingConfig`` and the evaluator's fields of ``EvalConfig``. The
+machine with the GPU has no pydantic, so these are plain frozen
+dataclasses. ``load_config`` reads ``detection_model_config`` and
+``data_loader_config`` from the same JSON files the JAX package reads
+(e.g. ``configs/serving_1024.json``); ``load_run_config`` reads a whole
+training config, and ``get_run_config`` the one ``LAYOUTDIT_CONFIG``
+names. A key the port does not know raises instead of being dropped,
+and a JAX field the port does not act on yet loads only at its default
+value.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from typing import Any, Optional
 
 
@@ -109,10 +112,31 @@ class TrainingConfig:
     grad_clip_norm: float = 0.0
     lr_schedule: str = "step"
     warmup_steps: int = 0
+    # COCO eval of the eval split every N epochs (0 = off), and an early
+    # stop after this many evals without a new best mAP (0 = off)
+    eval_interval: int = 0
+    early_stop_patience: int = 0
 
     def __post_init__(self):
         if self.lr_schedule not in ("step", "cosine"):
             raise ValueError(f"lr_schedule must be 'step' or 'cosine', got {self.lr_schedule!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalConfig:
+    """The evaluator's fields of ``constructs.py::EvalConfig``, same
+    defaults: ``score_thresh`` drops detections below it; the overlays
+    draw the top ``max_per_image`` boxes on up to ``num_images`` pages
+    into ``{visualize_dirpath_prefix}_{preds,gt}/``; ``per_category_metrics``
+    adds ``AP-{name}`` / ``AP50-{name}`` to the 12 COCO metrics.
+    ``eval_input`` and ``eval_base_path``, which the trainer reads too,
+    are fields of ``RunConfig``."""
+
+    score_thresh: float = 0.0
+    max_per_image: int = 10
+    visualize_dirpath_prefix: str = "visualizations"
+    num_images: Optional[int] = 20
+    per_category_metrics: bool = True
 
 
 # Fields of the JAX schema the port reads but does not act on yet: each
@@ -124,6 +148,9 @@ _WAITING = {
     "detection_model_config": {
         "remat": (False, "activation checkpointing of the encoder (" + _LATER + ")"),
         "remat_policy": ("full", "activation checkpointing of the encoder (" + _LATER + ")"),
+        "previous_layout_dit_checkpoint": (
+            None, "warm-starting the encoder from a pretrained DiT checkpoint "
+                  "(tools/convert_hf_checkpoint.py, ROADMAP queue 1 item 6)"),
     },
     "train_config": {
         "device": ("auto", "the port runs on the CUDA card (no device field)"),
@@ -137,8 +164,6 @@ _WAITING = {
         "skip_nonfinite_updates": (0, "non-finite update skipping (" + _LATER + ")"),
         "steps_per_dispatch": (0, "multi-step dispatch (" + _LATER + ")"),
         "grad_accumulation_steps": (1, "gradient accumulation (" + _LATER + ")"),
-        "eval_interval": (0, "mid-training evaluation, which needs the evaluator"),
-        "early_stop_patience": (0, "mid-training evaluation, which needs the evaluator"),
         "ema_decay": (0.0, "parameter EMA (" + _LATER + ")"),
     },
     "precision": {
@@ -146,12 +171,8 @@ _WAITING = {
     },
     "eval_config": {
         "device": ("auto", "the port runs on the CUDA card (no device field)"),
-        "score_thresh": (0.0, "the evaluator (" + _LATER + ")"),
-        "max_per_image": (10, "the evaluator (" + _LATER + ")"),
-        "visualize_dirpath_prefix": ("visualizations", "the evaluator (" + _LATER + ")"),
-        "num_images": (20, "the evaluator (" + _LATER + ")"),
-        "per_category_metrics": (True, "the evaluator (" + _LATER + ")"),
-        "segm_metrics": (True, "the evaluator (" + _LATER + ")"),
+        "segm_metrics": (True, "mask-IoU metrics, which act on a mask model alone "
+                               "(the mask head, ROADMAP queue 1 item 5)"),
     },
 }
 
@@ -216,11 +237,13 @@ class RunConfig:
     ``local_mode`` switches the training data to the eval split, as the
     JAX package's ``resolve_split`` does; artifacts go to
     ``{eval_base_path or "."}/{run_name}`` (``metrics/metrics.jsonl``,
-    ``model_checkpoints/epoch_{n}.pt``)."""
+    ``model_checkpoints/{epoch_n,best}.pt``, ``predictions.json`` and the
+    overlays)."""
 
     model: ModelConfig = ModelConfig()
     data: DataLoaderConfig = DataLoaderConfig()
     train: TrainingConfig = TrainingConfig()
+    eval: EvalConfig = EvalConfig()
     compute_dtype: str = "bfloat16"
     run_name: str = "test"
     local_mode: bool = False
@@ -236,6 +259,12 @@ class RunConfig:
         base = self.train.train_base_path
         segment = self.eval_input if self.local_mode else self.train.train_input
         return f"{base}/{segment}/", f"{base}/{segment}.json"
+
+    def eval_split(self) -> tuple[str, str]:
+        """(images_root, annotations_json) of the eval data: the eval
+        split under the training data's base, as in the JAX evaluator."""
+        base = self.train.train_base_path
+        return f"{base}/{self.eval_input}/", f"{base}/{self.eval_input}.json"
 
 
 _RUN_KEYS = {"train_config", "data_loader_config", "detection_model_config",
@@ -261,18 +290,19 @@ def run_config_from_dict(raw: dict) -> RunConfig:
         )
     precision = raw.get("precision", {})
     _check_keys(precision, {"compute_dtype"}, "precision", _WAITING["precision"])
-    ev = raw.get("eval_config", {})
-    _check_keys(ev, {"eval_input", "eval_base_path"}, "eval_config", _WAITING["eval_config"])
+    ev = dict(raw.get("eval_config", {}))
+    paths = {k: ev.pop(k) for k in ("eval_input", "eval_base_path") if k in ev}
     return RunConfig(
         model=mc,
         data=_build(DataLoaderConfig, raw.get("data_loader_config", {}), "data_loader_config"),
         train=_build(TrainingConfig, raw.get("train_config", {}), "train_config",
                      _WAITING["train_config"]),
+        eval=_build(EvalConfig, ev, "eval_config", _WAITING["eval_config"]),
         compute_dtype=precision.get("compute_dtype", "bfloat16"),
         run_name=raw.get("run_name", "test"),
         local_mode=bool(raw.get("local_mode") or False),
-        eval_input=ev.get("eval_input", "samples"),
-        eval_base_path=ev.get("eval_base_path", "gs://layoutdit"),
+        eval_input=paths.get("eval_input", "samples"),
+        eval_base_path=paths.get("eval_base_path", "gs://layoutdit"),
     )
 
 
@@ -280,4 +310,19 @@ def load_run_config(path: str) -> RunConfig:
     """``run_config_from_dict`` of a config JSON file."""
     with open(path) as f:
         return run_config_from_dict(json.load(f))
+
+
+def get_run_config() -> RunConfig:
+    """The run's config (counterpart of the JAX package's
+    ``get_layout_dit_config``): the local JSON file that the
+    ``LAYOUTDIT_CONFIG`` environment variable names, which must exist,
+    or the defaults when it is unset. There is no remote probe."""
+    path = os.getenv("LAYOUTDIT_CONFIG")
+    if not path:
+        return RunConfig()
+    if "://" in path:
+        raise ValueError(f"LAYOUTDIT_CONFIG={path}: the port reads local config files only")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"LAYOUTDIT_CONFIG={path} does not exist")
+    return load_run_config(path)
 

@@ -3,12 +3,13 @@
 
 Parses the COCO annotations JSON once into ``image_info`` /
 ``annotations`` / ``cat_id_to_label`` (category ids remapped to 1..N in
-file order), converts COCO ``[x, y, w, h]`` boxes to ``[x1, y1, x2, y2]``
-and drops degenerate ones, as the JAX package does. Two differences:
-images decode to uint8 ``[H, W, 3]`` (the loader scales and resizes them
-on the device), and paths are local files only: gs:// paths, fsspec and
-tar shards wait for a later slice. PIL is imported when the first image
-is decoded, never at import.
+file order), keeps the parsed dict as ``coco_data`` (the evaluator's
+ground truth and class names), converts COCO ``[x, y, w, h]`` boxes to
+``[x1, y1, x2, y2]`` and drops degenerate ones, as the JAX package
+does. Two differences: images decode to uint8 ``[H, W, 3]`` (the loader
+scales and resizes them on the device), and paths are local files only:
+gs:// paths, fsspec and tar shards wait for a later slice. PIL is
+imported when the first image is decoded, never at import.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ class PubLayNetDataset:
         with open(annotations_json_path) as f:
             coco = json.load(f)
         self.images_root_dir = images_root_dir
+        self.coco_data = coco
         self.image_info = {img["id"]: img for img in coco["images"]}
         self.annotations: dict[int, list] = {}
         for ann in coco["annotations"]:

@@ -16,6 +16,15 @@ import os
 
 import torch
 
+# a run's checkpoints live under {run_dir}/CHECKPOINT_DIR
+CHECKPOINT_DIR = "model_checkpoints"
+
+
+def checkpoint_file(run_dir: str, epoch: int | None = None, stem: str | None = None) -> str:
+    """A run's checkpoint file: ``{run_dir}/model_checkpoints/epoch_{epoch}.pt``,
+    or ``{stem}.pt`` there when ``stem`` is given (``best``)."""
+    return f"{run_dir}/{CHECKPOINT_DIR}/{stem or f'epoch_{epoch}'}.pt"
+
 
 def save_checkpoint(path: str, params: dict, opt_state: dict, epoch: int,
                     extra: dict) -> str:

@@ -7,7 +7,10 @@ configured learning-rate schedule evaluated per update count
 linear warmup), optional global-norm clipping with optax's formula, the
 sum of the four detector losses, "Epoch i/N, Loss: x" logging, one
 ``metrics.jsonl`` record per epoch with the JAX keys, and a checkpoint
-every ``checkpoint_interval`` epochs.
+every ``checkpoint_interval`` epochs; with ``eval_interval``, a COCO
+evaluation of the eval split every that many epochs whose mAP joins the
+epoch's record, a rolling ``model_checkpoints/best.pt`` at each new best,
+and an early stop after ``early_stop_patience`` evals without one.
 
 Differences from the JAX trainer, on purpose:
   * the train step runs eagerly under ``record_function`` ranges
@@ -20,9 +23,10 @@ Differences from the JAX trainer, on purpose:
     held at zero: its gradient is zeroed before clipping and the update,
     so AdamW never moves it and the clip norm does not count it;
   * checkpoints are ``torch.save`` files (``train/checkpoint.py``).
-Waiting for later slices: EMA, gradient accumulation, multi-step
-dispatch, preemption handling, mid-training evaluation, TensorBoard,
-the loss-curve PNG, profiler upload and LoRA masks.
+Waiting for later slices: EMA (so the raw parameters are scored),
+gradient accumulation, multi-step dispatch, preemption handling and
+mid-epoch resume, data-parallel evaluation, TensorBoard, the loss-curve
+PNG, profiler upload and LoRA masks.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import time
 
 import torch
@@ -44,8 +49,14 @@ from layoutdit_tpu_torch.models.detection.detector import (
     detector_loss,
     draw_priorities,
 )
+from layoutdit_tpu_torch.models.model import LayoutDetectionModel
 from layoutdit_tpu_torch.models.weights_io import k_bias_slots, tree_leaves, tree_map
-from layoutdit_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from layoutdit_tpu_torch.train.checkpoint import (
+    CHECKPOINT_DIR,
+    checkpoint_file,
+    load_checkpoint,
+    save_checkpoint,
+)
 
 logger = get_logger(__name__)
 
@@ -118,26 +129,36 @@ class Trainer:
     Args:
       config: ``RunConfig`` (``config.load_run_config`` of a JAX-layout
         config JSON).
-      model: ``DetectorModel``; its parameters are moved to ``device``,
-        made trainable and updated in place.
+      model: ``LayoutDetectionModel`` or ``DetectorModel`` whose
+        parameters live on ``device``; they are made trainable and
+        updated in place, so after ``train()`` the model holds the
+        trained weights, as the JAX trainer leaves them in its model,
+        and the mid-training evaluator scores the same object.
       device: "cuda" unless the caller asks for the CPU. A CUDA device
-        with no GPU present raises.
+        with no GPU present raises, and so do parameters elsewhere.
     """
 
-    def __init__(self, config: RunConfig, model: DetectorModel,
+    def __init__(self, config: RunConfig, model: LayoutDetectionModel | DetectorModel,
                  device: str | torch.device = "cuda"):
         self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Trainer: no CUDA device is available")
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("Trainer: no CUDA device is available")
+            if self.device.index is None:
+                self.device = torch.device("cuda", torch.cuda.current_device())
         self.config = config
+        self.model = model
         self.cfg = model.cfg
         if config.data.image_shards_dir:
             raise ValueError(
                 "data_loader_config.image_shards_dir: tar shards are not supported by the "
                 "port yet; they wait for a later slice"
             )
-        self.params = tree_map(lambda t: t.to(self.device), model.params)
+        self.params = model.params
         self._leaves = tree_leaves(self.params)
+        if any(t.device != self.device for t in self._leaves):
+            raise ValueError(f"Trainer: the model's parameters must live on {self.device}, "
+                             "the trainer's device")
         for t in self._leaves:
             t.requires_grad_(True)
         self._k_bias = k_bias_slots(self.params)
@@ -163,6 +184,11 @@ class Trainer:
         self.updates = 0
         self.loss_history: list[float] = []
         self.metrics_history: list[dict] = []
+        # mid-training eval (TrainingConfig.eval_interval)
+        self.best_map = float("-inf")
+        self.best_checkpoint_path: str | None = None
+        self._evals_since_best = 0  # mid-evals since the last best mAP
+        self._evaluator = None  # built on the first mid-eval
 
     # ------------------------------------------------------------ step
 
@@ -210,27 +236,72 @@ class Trainer:
                     epoch + 1, tc.num_epochs, avg, n_images / dt)
         return avg
 
+    def _mid_eval(self, epoch: int) -> None:
+        """Score the eval split (``TrainingConfig.eval_interval``): the mAP
+        joins the epoch's ``metrics_history`` record (NaN when there was
+        no prediction), and a new finite best writes
+        ``model_checkpoints/best.pt``. Before the first finite best, a NaN
+        does not count toward the early stop, so a run never stops without
+        a best checkpoint."""
+        if self._evaluator is None:
+            from layoutdit_tpu_torch.eval.evaluator import Evaluator
+
+            self._evaluator = Evaluator(self.model, self.config, device=self.device)
+        metrics = self._evaluator.score()
+        m = float(metrics["mAP"]) if metrics else float("nan")
+        if self.metrics_history:
+            self.metrics_history[-1]["mAP"] = m
+        logger.info("Eval at epoch %d: mAP=%.4f", epoch + 1, m)
+        if math.isfinite(m) and m > self.best_map:
+            self._evals_since_best = 0
+            self.best_map = m
+            self.best_checkpoint_path = self.save_checkpoint(
+                epoch + 1, stem="best", extra={"mAP": m, "epoch": epoch + 1})
+            logger.info("New best mAP %.4f -> %s", m, self.best_checkpoint_path)
+        elif math.isfinite(self.best_map):
+            self._evals_since_best += 1
+
     def train(self) -> None:
         tc = self.config.train
         try:
             for epoch in range(self.epoch, tc.num_epochs):
                 self._run_epoch(epoch)
+                stop_early = False
+                if tc.eval_interval > 0 and (epoch + 1) % tc.eval_interval == 0:
+                    self._mid_eval(epoch)
+                    # the best checkpoint holds the winning weights; the
+                    # remaining epochs would be waste
+                    stop_early = 0 < tc.early_stop_patience <= self._evals_since_best
                 self._save_metrics()
                 if (epoch + 1) % tc.checkpoint_interval == 0:
                     path = self.save_checkpoint(epoch + 1)
                     logger.info("Saved checkpoint to %s", path)
                 self.epoch = epoch + 1
+                if stop_early:
+                    logger.info("Early stop at epoch %d: no mAP improvement in %d evals "
+                                "(best %.4f)", epoch + 1, self._evals_since_best, self.best_map)
+                    break
         finally:
             self.dataloader.close()
 
     # ------------------------------------------------------- artifacts
 
-    def checkpoint_path(self, epoch: int) -> str:
-        return f"{self.config.artifact_dir}/model_checkpoints/epoch_{epoch}.pt"
+    def checkpoint_dir(self) -> str:
+        return f"{self.config.artifact_dir}/{CHECKPOINT_DIR}"
 
-    def save_checkpoint(self, epoch: int) -> str:
+    def checkpoint_path(self, epoch: int) -> str:
+        return checkpoint_file(self.config.artifact_dir, epoch)
+
+    def save_checkpoint(self, epoch: int, stem: str | None = None,
+                        extra: dict | None = None) -> str:
+        """The whole training state at ``epoch_{epoch}.pt`` (or
+        ``{stem}.pt``): parameters, optimizer state, and in the extras the
+        histories, the update count, the sampler generator and the
+        mid-eval trackers, so a resumed run neither overwrites
+        ``best.pt`` with worse weights nor restarts the early-stop clock;
+        ``extra`` adds entries (``best.pt``'s ``mAP`` and ``epoch``)."""
         return save_checkpoint(
-            self.checkpoint_path(epoch),
+            checkpoint_file(self.config.artifact_dir, epoch, stem),
             tree_map(lambda t: t.detach().cpu(), self.params),
             self.optimizer.state_dict(), epoch,
             extra={
@@ -238,13 +309,56 @@ class Trainer:
                 "metrics_history": self.metrics_history,
                 "updates": self.updates,
                 "generator_state": self.generator.get_state(),
+                "best_map": self.best_map if math.isfinite(self.best_map) else None,
+                "best_checkpoint_path": self.best_checkpoint_path,
+                "evals_since_best": self._evals_since_best,
+                **(extra or {}),
             },
         )
 
+    def resume_candidates(self) -> list[str]:
+        """This run's ``epoch_{n}.pt`` checkpoints, newest epoch first
+        (``best.pt`` tracks eval quality, not training progress, and is
+        not one of them); empty when there is none."""
+        try:
+            names = os.listdir(self.checkpoint_dir())
+        except FileNotFoundError:
+            return []
+        epochs = [int(m.group(1)) for m in map(re.compile(r"epoch_(\d+)\.pt").fullmatch, names)
+                  if m]
+        return [self.checkpoint_path(e) for e in sorted(epochs, reverse=True)]
+
     def resume(self, path: str) -> None:
         """Restore parameters (in place), optimizer state, epoch, update
-        count, histories and the sampler generator from a checkpoint."""
-        state = load_checkpoint(path, map_location=self.device)
+        count, histories, the sampler generator and the mid-eval trackers
+        from a checkpoint. ``"auto"`` takes the newest readable
+        ``epoch_{n}.pt`` of this run, falling back to the next-newest when
+        one does not load, and starts fresh when there is none."""
+        if path == "auto":
+            candidates = self.resume_candidates()
+            if not candidates:
+                logger.info("--resume auto: no checkpoint under %s; starting fresh",
+                            self.checkpoint_dir())
+                return
+            state = None
+            for candidate in candidates:
+                try:
+                    state = load_checkpoint(candidate, map_location=self.device)
+                # torch.load raises many types on a truncated or foreign
+                # file (RuntimeError, UnpicklingError, EOFError, IndexError)
+                except Exception as exc:  # noqa: BLE001
+                    logger.warning("--resume auto: %s unreadable (%s); trying next-newest",
+                                   candidate, exc)
+                    continue
+                path = candidate
+                break
+            if state is None:
+                raise RuntimeError(
+                    f"--resume auto: all {len(candidates)} checkpoints under "
+                    f"{self.checkpoint_dir()} are unreadable; refusing to restart from scratch"
+                )
+        else:
+            state = load_checkpoint(path, map_location=self.device)
         with torch.no_grad():
             for dst, src in zip(self._leaves, tree_leaves(state["params"]), strict=True):
                 dst.copy_(src)
@@ -255,6 +369,10 @@ class Trainer:
         self.loss_history = list(extra["loss_history"])
         self.metrics_history = list(extra["metrics_history"])
         self.generator.set_state(extra["generator_state"].cpu())
+        bm = extra.get("best_map")
+        self.best_map = float(bm) if bm is not None else float("-inf")
+        self.best_checkpoint_path = extra.get("best_checkpoint_path")
+        self._evals_since_best = int(extra.get("evals_since_best", 0))
         logger.info("Resumed from %s at epoch %d", path, self.epoch)
 
     def _save_metrics(self) -> None:

@@ -344,8 +344,8 @@ def test_training_config_defaults_and_waiting_fields():
     assert rc.train.num_epochs == 3  # a waiting field at its default loads
     with pytest.raises(ValueError, match="ema_decay.*parameter EMA"):
         run_config_from_dict({"train_config": {"ema_decay": 0.999}})
-    with pytest.raises(ValueError, match="eval_interval.*evaluator"):
-        run_config_from_dict({"train_config": {"eval_interval": 1}})
+    with pytest.raises(ValueError, match="grad_accumulation_steps.*gradient accumulation"):
+        run_config_from_dict({"train_config": {"grad_accumulation_steps": 2}})
     with pytest.raises(ValueError, match="not supported"):
         run_config_from_dict({"train_config": {"no_such_field": 1}})
     with pytest.raises(ValueError, match="lr_schedule"):
