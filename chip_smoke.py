@@ -26,7 +26,14 @@ and the encoder against a float32 CPU reference (phase ``serving``),
 then trains the port's default config (dit-base, 224 px, batch 16) with
 ``Trainer`` over synthetic pages: one epoch, then steps on a repeated
 batch whose loss must fall, and the encoder's gradients against a
-float32 CPU reference (phase ``train``), and does the same with the
+float32 CPU reference (phase ``train``); trains the same config with
+the JAX trainer's run state on (EMA, two micro-batches an update, bf16
+first moments, non-finite skipping, two steps a dispatch, asynchronous
+checkpoints kept two at a time, TensorBoard, a mid-training eval every
+epoch) for 3 epochs, preempts a second run with SIGTERM mid-epoch and
+resumes it to the first run's bits, and checks the accumulated gradient,
+a NaN step, the files kept, the events and ``best.pt`` (phase
+``train_state``); does the same as ``train`` with the
 windowed high-res config ``configs/train_1024_window.json`` (dit-base,
 1024 px, batch 4, 16 x 16 windows, four global layers; phase
 ``train_1024``) and with its BEiT-layout variant
@@ -219,6 +226,9 @@ WINDOW_SHAPES = {"w256": (64, 256), "n1": (4, 1)}
 # recipe's config against them
 RECIPE = {"batch": 8, "image": 224, "heads": 2, "head_dim": 32, "channels": 64,
           "train_rois": 128, "eval_rois": 300}
+# the train_state phase's micro-batch: the default batch of 16 in A = 2
+# micro-batches, at dit-base widths (the "micro_" cases of rows 1, 2, 7, 8)
+MICRO_BATCH = 8
 
 
 def phase_short(gen) -> dict:
@@ -232,6 +242,7 @@ def phase_short(gen) -> dict:
         entry.update({f"{key}_{k}": v for k, v in _short_fwd_case(gen, b, n).items()})
     entry.update({f"recipe_{k}": v for k, v in _short_fwd_case(
         gen, RECIPE["batch"], 197, RECIPE["heads"], RECIPE["head_dim"]).items()})
+    entry.update({f"micro_{k}": v for k, v in _short_fwd_case(gen, MICRO_BATCH, 197).items()})
     return entry
 
 
@@ -399,6 +410,7 @@ def phase_roi(gen) -> dict:
         entry.update({f"recipe_{key}_{k}": v for k, v in _roi_fwd_case(
             gen, RECIPE["image"], RECIPE["batch"], k=RECIPE[f"{key}_rois"],
             c=RECIPE["channels"]).items()})
+    entry.update({f"micro_{k}": v for k, v in _roi_fwd_case(gen, 224, MICRO_BATCH).items()})
     torch.cuda.empty_cache()
     return entry
 
@@ -464,6 +476,7 @@ def phase_short_bwd(gen) -> dict:
         entry.update({f"{key}_{k}": v for k, v in _short_bwd_case(gen, b, n).items()})
     entry.update({f"recipe_{k}": v for k, v in _short_bwd_case(
         gen, RECIPE["batch"], 197, RECIPE["heads"], RECIPE["head_dim"]).items()})
+    entry.update({f"micro_{k}": v for k, v in _short_bwd_case(gen, MICRO_BATCH, 197).items()})
     print("  short_attention_bwd: two runs gave the same bits at every shape")
     return entry
 
@@ -703,6 +716,7 @@ def phase_roi_bwd(gen) -> dict:
     entry.update({f"recipe_{k}": v for k, v in _roi_bwd_case(
         gen, RECIPE["image"], RECIPE["batch"], k=RECIPE["train_rois"],
         c=RECIPE["channels"]).items()})
+    entry.update({f"micro_{k}": v for k, v in _roi_bwd_case(gen, 224, MICRO_BATCH).items()})
     torch.cuda.empty_cache()
     return entry
 
@@ -1529,6 +1543,355 @@ def phase_convergence(kernels: list[dict], card: str) -> dict:
     return {"card": card, **result}
 
 
+# train_state phase: the default config with the JAX trainer's run state
+# turned on, over TRAIN_STATE_PAGES pages (4 updates an epoch at batch 16)
+# and TRAIN_STATE_VAL_PAGES held-out ones; a run that sends itself SIGTERM
+# in epoch TRAIN_STATE_PREEMPT[0], step TRAIN_STATE_PREEMPT[1], then
+# resumes, must end with the uninterrupted run's bits
+TRAIN_STATE = dict(ema_decay=0.999, grad_accumulation_steps=2, adam_mu_dtype="bfloat16",
+                   skip_nonfinite_updates=3, steps_per_dispatch=2, keep_checkpoints=2,
+                   async_checkpoint=True, tensorboard=True, checkpoint_interval=1,
+                   eval_interval=1, num_epochs=3)
+TRAIN_STATE_PAGES = 64
+TRAIN_STATE_VAL_PAGES = 16
+TRAIN_STATE_PREEMPT = (2, 2)
+# steps timed at A = 1 and at A = 2 on one repeated batch (the first one
+# not timed); steps run per variant for the peak memory
+TRAIN_STATE_TIMED = 6
+TRAIN_STATE_PEAK_STEPS = 2
+
+
+class _OneBatch:
+    """A loader of one epoch of one batch (the non-finite step's epoch)."""
+
+    def __init__(self, batch):
+        self.batch = batch
+
+    def __iter__(self):
+        return iter([self.batch])
+
+    def __len__(self):
+        return 1
+
+    def set_epoch(self, epoch):
+        pass
+
+    def skip_batches(self, n):
+        pass
+
+    def close(self):
+        pass
+
+
+def _run_state(trainer, ema: bool = True) -> list:
+    """Parameters, EMA (with ``ema``), moments and counts of a trainer."""
+    from layoutdit_tpu_torch.models.weights_io import tree_leaves
+
+    st = trainer.opt_state
+    return (tree_leaves(trainer.params) + (tree_leaves(trainer.ema_params) if ema else [])
+            + st["mu"] + st["nu"] + [st["count"], st["schedule_count"]]
+            + ([st["notfinite_count"], st["total_notfinite"]] if ema else []))
+
+
+def _same_scalar(a: float, b: float) -> bool:
+    return a == b or (math.isnan(a) and math.isnan(b))
+
+
+def _train_state_checks(rc, kernels) -> dict:
+    """On a trainer of its own: the peak memory of four variants, A = 2
+    against A = 1 step times with the launches per update, the
+    accumulated gradient against its micro-batches' (check 1), a
+    non-finite step (check 2), and a save's blocking time, async and
+    sync."""
+    from layoutdit_tpu_torch.models.detection.detector import detector_loss, draw_priorities
+    from layoutdit_tpu_torch.models.model import build_model
+    from layoutdit_tpu_torch.ops import nms
+    from layoutdit_tpu_torch.train.checkpoint import AsyncCheckpointWriter, host_snapshot
+    from layoutdit_tpu_torch.train.trainer import Trainer
+
+    tc = rc.train
+    model = build_model(rc, device="cuda", seed=1)
+    first = Trainer(dataclasses.replace(rc, train=dataclasses.replace(tc, steps_per_dispatch=1)),
+                    model)
+    it = iter(first.dataloader)
+    batch = next(it)
+    it.close()
+    first.dataloader.close()
+    del first
+    # peak memory of each variant over its first steps, then the step
+    # times of the last two (the same global batch, A = 1 and A = 2)
+    variants = {
+        "A1_fp32_mu": dict(ema_decay=0.0, adam_mu_dtype="float32", grad_accumulation_steps=1),
+        "A1_fp32_mu_ema": dict(adam_mu_dtype="float32", grad_accumulation_steps=1),
+        "A1_bf16_mu_ema": dict(grad_accumulation_steps=1),
+        "A2_bf16_mu_ema": {},
+    }
+    per_update = {name: 0 for name in _counters()}
+    per_update.update(short_attention=24, short_attention_bwd=24, roi_align=2, roi_align_bwd=2)
+    peaks, steps, trainer = {}, {}, None
+    for name, changes in variants.items():
+        del trainer
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(dataclasses.replace(rc, train=dataclasses.replace(tc, **changes)),
+                          model)
+        for _ in range(TRAIN_STATE_PEAK_STEPS):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+        if not name.endswith("bf16_mu_ema"):
+            continue
+        times = []
+        _reset_counts()
+        for _ in range(TRAIN_STATE_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_step(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts, syncs = _counts(), nms.nms_mask.host_syncs / TRAIN_STATE_TIMED
+        steps[name] = {**_spread(times[1:]), "nms_host_syncs_per_update": syncs}
+        print(f"  {name}: step median {steps[name]['median']:.3f} ms (min "
+              f"{steps[name]['min']:.3f}, max {steps[name]['max']:.3f}), NMS host syncs "
+              f"{syncs:.1f} an update")
+    for k, want in per_update.items():  # check 7, over the A = 2 updates
+        if counts[k] != want * TRAIN_STATE_TIMED:
+            raise RuntimeError(f"train_state: {k} launched {counts[k]} times in "
+                               f"{TRAIN_STATE_TIMED} updates, expected {want} an update")
+    print("  peak GiB: " + ", ".join(f"{k} {v:.4f}" for k, v in peaks.items())
+          + f"; launches an update at A = 2: {per_update}")
+
+    # check 1: the accumulated gradient is the mean of the micro-batches'
+    state = trainer.generator.get_state()
+    micro = rc.data.batch_size // tc.grad_accumulation_steps
+    alone = []
+    for a in range(tc.grad_accumulation_steps):
+        rows = slice(a * micro, (a + 1) * micro)
+        pri = draw_priorities(trainer.cfg, micro, batch.gt_labels.shape[1], trainer.generator)
+        losses = detector_loss(trainer.params, batch.images[rows], batch.gt_boxes[rows],
+                               batch.gt_labels[rows], batch.gt_valid[rows], trainer.cfg, pri)
+        grads = torch.autograd.grad(sum(losses.values()), trainer._leaves, allow_unused=True)
+        alone.append([torch.zeros_like(t) if g is None else g
+                      for g, t in zip(grads, trainer._leaves)])
+    mean = [g0 + g1 for g0, g1 in zip(*alone)]
+    torch._foreach_div_(mean, 2.0)
+    for bias, k_slot in trainer._k_bias:
+        mean[next(i for i, t in enumerate(trainer._leaves) if t is bias)][k_slot] = 0.0
+    del alone
+    trainer.generator.set_state(state)
+    seen = {}
+
+    def spy(opt_state, params, grads):
+        seen["grads"] = [g.clone() for g in grads]
+
+    real_update = trainer.optimizer.update
+    trainer.optimizer.update = spy
+    trainer.train_step(batch)
+    trainer.optimizer.update = real_update
+    differing = sum(not torch.equal(a, b) for a, b in zip(seen["grads"], mean))
+    print(f"  check 1: the accumulated gradient against the mean of its 2 micro-batches' "
+          f"computed alone: {differing} of {len(mean)} leaves differ (bit equality required)")
+    if differing:
+        raise RuntimeError("train_state: the accumulated gradient is not the micro-batches' mean")
+    del seen, mean
+
+    # check 2: a batch holding a NaN pixel moves no parameter, moment or
+    # count (the EMA still decays toward the unchanged parameters)
+    before = [t.clone() for t in _run_state(trainer, ema=False)]
+    skipped_before = int(trainer.opt_state["total_notfinite"])
+    bad = dataclasses.replace(batch, images=batch.images.clone())
+    bad.images[0, 0, 0, 0] = float("nan")
+    loader, trainer.dataloader = trainer.dataloader, _OneBatch(bad)
+    trainer._run_epoch(0)
+    trainer.dataloader = loader
+    record = trainer.metrics_history[-1]
+    unchanged = sum(torch.equal(x, y) for x, y in zip(before, _run_state(trainer, ema=False)))
+    print(f"  check 2: a step on a NaN pixel left {unchanged} of {len(before)} parameter, "
+          f"moment and count tensors unchanged; the epoch's record: skipped_nonfinite_steps "
+          f"{record.get('skipped_nonfinite_steps')}")
+    if unchanged != len(before) or record.get("skipped_nonfinite_steps") != skipped_before + 1:
+        raise RuntimeError("train_state: a non-finite step moved the state or was not counted")
+    del before
+
+    # the loop's blocking time per save, async (snapshot) and sync
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer.config = dataclasses.replace(trainer.config, eval_base_path=tmp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host_snapshot((trainer.params, trainer._opt_state_for_checkpoint()))
+        copy_s = time.perf_counter() - t0
+        writer = AsyncCheckpointWriter()
+        t0 = time.perf_counter()
+        trainer.save_checkpoint(1, writer=writer)
+        async_s = time.perf_counter() - t0
+        writer.close()
+        async_total_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        path = trainer.save_checkpoint(2)
+        sync_s = time.perf_counter() - t0
+        size = Path(path).stat().st_size
+    print(f"  a save blocks the loop {async_s:.3f} s async ({async_total_s:.3f} s to disk), "
+          f"{sync_s:.3f} s sync; the device-to-host copy alone {copy_s:.3f} s; "
+          f"{size / 2**30:.3f} GiB a checkpoint")
+    return {
+        "peak_gib": peaks, "step_ms": steps,
+        "step_ratio_A2_to_A1": steps["A2_bf16_mu_ema"]["median"]
+        / steps["A1_bf16_mu_ema"]["median"],
+        "accumulated_gradient_bitwise": True, "nonfinite_step_skipped": True,
+        "save_blocking_s": {"async": async_s, "sync": sync_s, "async_to_disk": async_total_s,
+                            "device_to_host_copy": copy_s},
+        "checkpoint_gib": size / 2**30,
+    }
+
+
+def phase_train_state(kernels: list[dict], card: str) -> dict:
+    """The trainer's run state at full width (the default config, dit-base
+    at 224 px, batch 16, bf16, with EMA 0.999, A = 2 micro-batches, bf16
+    first moments, non-finite skipping, S = 2 steps a dispatch, async
+    checkpoints every epoch, 2 kept, TensorBoard, a mid-eval every
+    epoch; 3 epochs of 4 updates): the uninterrupted run is the path
+    whose launches are counted; then a run preempted by SIGTERM in epoch
+    2, step 2, resumed by a fresh trainer with ``resume("auto")``, must
+    end with its parameters, EMA, moments and counts bit for bit. Checks
+    the files kept, the TensorBoard events against ``metrics.jsonl``,
+    ``best.pt``'s EMA weights, then ``_train_state_checks``."""
+    import os
+    import shutil
+    import signal
+
+    from layoutdit_tpu_torch.config import RunConfig
+    from layoutdit_tpu_torch.models.model import build_model
+    from layoutdit_tpu_torch.tools.make_fixture import make_fixture
+    from layoutdit_tpu_torch.train.checkpoint import load_checkpoint
+    from layoutdit_tpu_torch.models.weights_io import tree_leaves
+    from layoutdit_tpu_torch.train.trainer import Trainer
+    from layoutdit_tpu_torch.utils.tensorboard import read_events
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        make_fixture(tmp, n_images=TRAIN_STATE_PAGES, split="samples", seed=0)
+        make_fixture(tmp, n_images=TRAIN_STATE_VAL_PAGES, split="val", seed=777)
+        base = RunConfig()
+        rc = dataclasses.replace(
+            base, train=dataclasses.replace(base.train, train_base_path=tmp,
+                                            train_input="samples", **TRAIN_STATE),
+            eval_input="val", eval_base_path=tmp)
+        print(f"  default config (dit-base, {rc.model.image_size} px, batch "
+              f"{rc.data.batch_size}, {rc.compute_dtype}) with {TRAIN_STATE}; "
+              f"{TRAIN_STATE_PAGES} training pages, {TRAIN_STATE_VAL_PAGES} held out")
+
+        # the main path: the uninterrupted run
+        model = build_model(dataclasses.replace(rc, run_name="uninterrupted"), device="cuda")
+        uninterrupted = Trainer(dataclasses.replace(rc, run_name="uninterrupted"), model)
+        updates_per_epoch = len(uninterrupted.dataloader)
+        _reset_counts()
+        t0 = time.perf_counter()
+        uninterrupted.train()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = _counts()
+        updates = uninterrupted.updates
+        print(f"  uninterrupted: {updates} updates in {run_s:.3f} s, loss "
+              f"{uninterrupted.loss_history}, launches {counts}")
+        for name, n in counts.items():
+            if name in ("short_attention_bwd", "roi_align_bwd"):
+                want = (24 if name == "short_attention_bwd" else 2) * updates
+                if n != want:
+                    raise RuntimeError(f"train_state: {name} launched {n} times, expected {want}")
+            elif name in ("short_attention", "roi_align"):
+                if n < (24 if name == "short_attention" else 2) * updates:
+                    raise RuntimeError(f"train_state: {name} launched {n} times")
+            elif n:
+                raise RuntimeError(f"train_state: {name} launched {n} times")
+        for k in kernels:
+            k["train_state_launches"] = counts[k["name"]]
+
+        # checks 4-6 on the uninterrupted run's files
+        run = Path(tmp) / "uninterrupted"
+        kept = sorted(p.name for p in (run / "model_checkpoints").iterdir())
+        if kept != ["best.pt", "epoch_2.pt", "epoch_3.pt"]:
+            raise RuntimeError(f"train_state: checkpoints kept {kept}")
+        with open(run / "metrics" / "metrics.jsonl") as f:
+            records = [json.loads(line) for line in f]
+        (events_file,) = (run / "tb").iterdir()
+        events = read_events(str(events_file))[1:]
+        for e, r in zip(events, records, strict=True):
+            want = {f"train/{k}": float(np.float32(v)) for k, v in r.items() if k != "epoch"}
+            if e["step"] != r["epoch"] or set(e["scalars"]) != set(want) or not all(
+                    _same_scalar(e["scalars"][k], v) for k, v in want.items()):
+                raise RuntimeError(f"train_state: TensorBoard event {e} against record {r}")
+        best = load_checkpoint(run / "model_checkpoints" / "best.pt", map_location="cpu")
+        best_epoch = best["extra"]["epoch"]
+        best_is_ema = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(best["params"]), tree_leaves(best["opt_state"]["ema"]), strict=True))
+        raw = load_checkpoint(run / "model_checkpoints" / "epoch_3.pt", map_location="cpu")
+        if not best_is_ema or best["extra"]["ema"] is not True or all(
+                torch.equal(a, b) for a, b in zip(tree_leaves(best["params"]),
+                                                  tree_leaves(raw["params"]))):
+            raise RuntimeError("train_state: best.pt does not hold the EMA weights")
+        del best, raw
+        print(f"  kept {kept}; {len(events)} TensorBoard events equal metrics.jsonl; best.pt "
+              f"(epoch {best_epoch}) holds the EMA; mAP by epoch {[r.get('mAP') for r in records]}; skipped "
+              f"{[r.get('skipped_nonfinite_steps') for r in records]}")
+        shutil.rmtree(run / "model_checkpoints")  # 1.5 GiB a file; the disk need not hold both
+
+        # check 3: preempted in epoch 2, step 2; a fresh trainer resumes
+        prc = dataclasses.replace(rc, run_name="preempted")
+        preempted = Trainer(prc, build_model(prc, device="cuda"))
+        dispatch = preempted._dispatch
+        calls = {"n": 0}
+        epoch, step = TRAIN_STATE_PREEMPT
+        at_call = ((epoch - 1) * updates_per_epoch + step) // rc.train.steps_per_dispatch
+
+        def dispatch_then_sigterm(*a):
+            out = dispatch(*a)
+            calls["n"] += 1
+            if calls["n"] == at_call:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return out
+
+        preempted._dispatch = dispatch_then_sigterm
+        preempted.train()
+        saved = load_checkpoint(Path(tmp) / "preempted" / "model_checkpoints"
+                                / f"epoch_{epoch - 1}_preempt.pt", map_location="cpu")
+        if saved["epoch"] != epoch - 1 or saved["extra"]["step_in_epoch"] != step:
+            raise RuntimeError(f"train_state: the preemption saved epoch {saved['epoch']} step "
+                               f"{saved['extra']['step_in_epoch']}")
+        del saved, preempted
+        torch.cuda.empty_cache()
+        resumed = Trainer(prc, build_model(prc, device="cuda"))
+        t0 = time.perf_counter()
+        resumed.resume("auto")
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        resumed.train()
+        kept_b = sorted(p.name for p in (Path(tmp) / "preempted" / "model_checkpoints").iterdir())
+        if kept_b != ["best.pt", f"epoch_{epoch - 1}_preempt.pt", "epoch_2.pt", "epoch_3.pt"]:
+            raise RuntimeError(f"train_state: the preempted run kept {kept_b}")
+        differing = sum(not torch.equal(a, b) for a, b in zip(
+            _run_state(resumed), _run_state(uninterrupted), strict=True))
+        print(f"  check 3: SIGTERM in epoch {epoch}, step {step}: epoch_{epoch - 1}_preempt.pt "
+              f"at step {step}; resume('auto') in {resume_s:.3f} s; {differing} of "
+              f"{len(_run_state(resumed))} parameter, EMA, moment and count tensors differ from "
+              f"the uninterrupted run's (bit equality required); kept {kept_b}")
+        if differing:
+            raise RuntimeError("train_state: the resumed run differs from the uninterrupted one")
+        num_params = model.num_params()
+        del resumed, uninterrupted, model
+        torch.cuda.empty_cache()
+        checks = _train_state_checks(rc, kernels)
+    out = {
+        "card": card, "config": {"default RunConfig": True, **TRAIN_STATE},
+        "pages": TRAIN_STATE_PAGES, "held_out_pages": TRAIN_STATE_VAL_PAGES,
+        "num_params": num_params, "uninterrupted_s": run_s, "updates": updates,
+        "loss": [r["loss"] for r in records], "mAP": [r.get("mAP") for r in records],
+        "resume_s": resume_s, **checks,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    print(f"  train_state phase: {out['phase_s']:.1f} s, {num_params} parameters")
+    return out
+
+
 # stages whose device time the pyramid's layout moves (the convolutions
 # of the backbone's FPN and of the RPN head), printed from one profiled
 # request per bucket and one profiled 224 px train step
@@ -1676,6 +2039,10 @@ def main() -> int:
     train = phase_train(kernels)
     torch.cuda.empty_cache()
 
+    print("phase train_state")
+    train_state = phase_train_state(kernels, card)
+    torch.cuda.empty_cache()
+
     print("phase train_1024")
     train_1024 = phase_train_1024(kernels)
     torch.cuda.empty_cache()
@@ -1690,8 +2057,8 @@ def main() -> int:
 
     print("phase convergence")
     conv = phase_convergence(kernels, card)
-    paths = ("probe", "serving", "train", "train_1024", "train_1024_relpos", "main",
-             "convergence")
+    paths = ("probe", "serving", "train", "train_state", "train_1024", "train_1024_relpos",
+             "main", "convergence")
     for k in kernels:
         k["launches"] = sum(k[f"{path}_launches"] for path in paths)
         if k["launches"] <= 0:
@@ -1699,6 +2066,7 @@ def main() -> int:
 
     print(json.dumps({"serving": serving}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"train_state": train_state}))
     print(json.dumps({"train_1024": train_1024}))
     print(json.dumps({"train_1024_relpos": train_1024_relpos}))
     print(json.dumps({"main": main_run}))

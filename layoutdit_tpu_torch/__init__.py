@@ -6,7 +6,7 @@ ported path is a CUDA C++ kernel under ``csrc/`` built on first use
 (``ops/_build.py``). Nothing here imports JAX or ``layoutdit_tpu``.
 
 Ported so far, for the ``faster_rcnn`` detector with the DiT encoder:
-the serving path (``eval/serving.py::BatchInferenceEngine``) and the
-train step with its trainer at sequence lengths the short attention
-kernel covers (``train/trainer.py::Trainer``).
+the serving path (``eval/serving.py::BatchInferenceEngine``), the
+trainer with the JAX trainer's run state (``train/trainer.py::Trainer``),
+evaluation and ``main``.
 """

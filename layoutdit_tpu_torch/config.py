@@ -95,7 +95,7 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainingConfig:
-    """The fields of ``constructs.py::TrainingConfig`` the training slice
+    """The fields of ``constructs.py::TrainingConfig`` the trainer
     uses, same defaults. ``train_base_path``/``train_input`` locate the
     data as in the JAX package (``{base}/{input}/`` images,
     ``{base}/{input}.json`` annotations)."""
@@ -116,10 +116,28 @@ class TrainingConfig:
     # stop after this many evals without a new best mAP (0 = off)
     eval_interval: int = 0
     early_stop_patience: int = 0
+    # run state (train/trainer.py, train/optim.py): an EMA of the
+    # parameters (0 = off), micro-batches per update, steps per stacked
+    # batch (0 = auto, 1 on the card), non-finite updates skipped in a row
+    # before they apply (0 = off), Adam's first-moment dtype, periodic
+    # checkpoints kept (0 = all), background checkpoint writes, and
+    # TensorBoard events under {run}/tb
+    ema_decay: float = 0.0
+    grad_accumulation_steps: int = 1
+    steps_per_dispatch: int = 0
+    skip_nonfinite_updates: int = 0
+    adam_mu_dtype: str = "float32"
+    keep_checkpoints: int = 0
+    async_checkpoint: bool = True
+    tensorboard: bool = True
 
     def __post_init__(self):
         if self.lr_schedule not in ("step", "cosine"):
             raise ValueError(f"lr_schedule must be 'step' or 'cosine', got {self.lr_schedule!r}")
+        if self.adam_mu_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"adam_mu_dtype must be 'float32' or 'bfloat16', got {self.adam_mu_dtype!r}"
+            )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,17 +172,9 @@ _WAITING = {
     },
     "train_config": {
         "device": ("auto", "the port runs on the CUDA card (no device field)"),
-        "async_checkpoint": (True, "asynchronous checkpoint writes (" + _LATER + ")"),
-        "keep_checkpoints": (0, "checkpoint retention (" + _LATER + ")"),
         "enable_profile": (False, "tools/profile_train.py; the trainer writes no traces"),
         "trace_log_dir": ("./log/traces", "tools/profile_train.py"),
-        "tensorboard": (True, "TensorBoard output (" + _LATER + ")"),
         "lora_freeze_base": (True, "LoRA training (" + _LATER + ")"),
-        "adam_mu_dtype": ("float32", "bf16 optimizer moments (" + _LATER + ")"),
-        "skip_nonfinite_updates": (0, "non-finite update skipping (" + _LATER + ")"),
-        "steps_per_dispatch": (0, "multi-step dispatch (" + _LATER + ")"),
-        "grad_accumulation_steps": (1, "gradient accumulation (" + _LATER + ")"),
-        "ema_decay": (0.0, "parameter EMA (" + _LATER + ")"),
     },
     "precision": {
         "param_dtype": ("float32", "the port keeps fp32 parameters"),

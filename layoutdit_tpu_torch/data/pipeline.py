@@ -77,6 +77,19 @@ class _HostBatch:
     pixels: torch.Tensor | None  # [n, H, W, 3] uint8 when every page shares a shape
 
 
+def _stack(batches: list[DetectionBatch]) -> DetectionBatch:
+    """S batches as one: device tensors [S, B, ...], host metadata [S*B]."""
+    return DetectionBatch(
+        images=torch.stack([b.images for b in batches]),
+        gt_boxes=torch.stack([b.gt_boxes for b in batches]),
+        gt_labels=torch.stack([b.gt_labels for b in batches]),
+        gt_valid=torch.stack([b.gt_valid for b in batches]),
+        image_ids=np.concatenate([b.image_ids for b in batches]),
+        orig_sizes=np.concatenate([b.orig_sizes for b in batches]),
+        image_valid=np.concatenate([b.image_valid for b in batches]),
+    )
+
+
 class DetectionLoader:
     """Iterable over ``DetectionBatch`` with threaded decode, pinned
     host buffers and device-side resize.
@@ -84,6 +97,8 @@ class DetectionLoader:
     Args:
       dataset: ``PubLayNetDataset`` (anything with ``ids``,
         ``load_image`` and ``load_target``).
+      stack_batches: S > 1 yields S consecutive batches as one (tensors
+        [S, B, ...]) for ``steps_per_dispatch``.
       device: where batches land; "cuda" unless the caller asks for the
         CPU. A CUDA device with no GPU present raises.
     """
@@ -100,6 +115,7 @@ class DetectionLoader:
         drop_last: bool = False,
         prefetch_depth: int = 2,
         augment_hflip: float = 0.0,
+        stack_batches: int = 1,
         device: str | torch.device = "cuda",
     ):
         self.device = torch.device(device)
@@ -115,7 +131,9 @@ class DetectionLoader:
         self.drop_last = drop_last
         self.prefetch_depth = max(1, prefetch_depth)
         self.augment_hflip = augment_hflip
+        self.stack_batches = max(1, stack_batches)
         self._epoch = 0
+        self._start_batch = 0
         self._pool: ThreadPoolExecutor | None = None
 
     def __len__(self) -> int:
@@ -128,6 +146,11 @@ class DetectionLoader:
         """Pin the shuffle/augmentation epoch, so data order is a
         function of (seed, epoch) alone."""
         self._epoch = int(epoch)
+
+    def skip_batches(self, n: int) -> None:
+        """One-shot: the next epoch's iteration starts ``n`` batches into
+        the epoch order (a mid-epoch resume)."""
+        self._start_batch = int(n)
 
     def close(self) -> None:
         """Release the decode threads (recreated on the next epoch)."""
@@ -143,10 +166,11 @@ class DetectionLoader:
 
     def _batches_of_indices(self) -> Iterator[np.ndarray]:
         order = self._epoch_order()
+        start, self._start_batch = self._start_batch, 0
         n_full = len(order) // self.batch_size
-        for i in range(n_full):
+        for i in range(start, n_full):
             yield order[i * self.batch_size:(i + 1) * self.batch_size]
-        if len(order) % self.batch_size and not self.drop_last:
+        if len(order) % self.batch_size and not self.drop_last and start <= n_full:
             yield order[n_full * self.batch_size:]
 
     def _load(self, idx: int):
@@ -239,8 +263,15 @@ class DetectionLoader:
 
         def producer():
             try:
+                group = []
                 for idxs in self._batches_of_indices():
-                    if not put(self._assemble(idxs)):
+                    group.append(self._assemble(idxs))
+                    if len(group) == self.stack_batches:
+                        if not put(group):
+                            return
+                        group = []
+                for hb in group:  # an epoch's remainder: plain batches
+                    if not put([hb]):
                         return
             except Exception as e:  # surfaced to the consumer
                 put(e)
@@ -256,7 +287,8 @@ class DetectionLoader:
                     break
                 if isinstance(item, Exception):
                     raise item
-                yield self._to_device(item)
+                batches = [self._to_device(hb) for hb in item]
+                yield batches[0] if len(batches) == 1 else _stack(batches)
         finally:
             stop.set()
             t.join(timeout=60)

@@ -61,6 +61,10 @@ def main(argv: list[str] | None = None) -> None:
         if args.resume:
             trainer.resume(args.resume)
         trainer.train()  # model.params is the trained tree
+        if trainer.ema_params is not None:
+            # the raw weights stay in the checkpoints' params slot
+            logger.info("Evaluating with EMA parameters (decay=%s)", config.train.ema_decay)
+            model.params = trainer.ema_params
 
     if not args.skip_eval:
         evaluator = Evaluator(model, config, device=args.device)

@@ -17,7 +17,7 @@ import torch
 from layoutdit_tpu_torch.models import vit as vit_mod
 from layoutdit_tpu_torch.models.fpn import conv2d, fpn_forward_from_laterals, init_fpn_params
 from layoutdit_tpu_torch.models.vit import ViTConfig, init_vit_params, vit_forward
-from layoutdit_tpu_torch.ops.interpolate import resize_bilinear
+from layoutdit_tpu_torch.ops.interpolate import resize_bilinear_matmul
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +73,6 @@ def backbone_forward(
         x = t[:, 1:, :].reshape(b, gh, gw, cfg.vit.hidden_size).permute(0, 3, 1, 2)
         x = conv2d(x, inner)
         if scale != 1.0:
-            x = resize_bilinear(x, int(gh * scale), int(gw * scale))
+            x = resize_bilinear_matmul(x, int(gh * scale), int(gw * scale))
         laterals.append(x)
     return fpn_forward_from_laterals(params["fpn"], laterals, extra_max_pool=True)

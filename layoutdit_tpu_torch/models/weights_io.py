@@ -43,6 +43,16 @@ def tree_leaves(tree) -> list[torch.Tensor]:
     return [tree]
 
 
+def tree_paths(tree, prefix: str = "") -> list[str]:
+    """The leaves' paths ("backbone/vit/layers/0/qkv/weight"), in
+    ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in tree_paths(v, f"{prefix}{k}/")]
+    if isinstance(tree, list):
+        return [p for i, v in enumerate(tree) for p in tree_paths(v, f"{prefix}{i}/")]
+    return [prefix.rstrip("/")]
+
+
 def _t(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, order="C")).to(device)
 

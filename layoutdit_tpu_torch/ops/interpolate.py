@@ -2,9 +2,13 @@
 
 Port of ``layoutdit_tpu/ops/interpolate.py``. The JAX package builds
 interpolation matrices to reproduce ``F.interpolate`` exactly; here
-``F.interpolate`` is the function itself. The JAX package's numpy
-``resize_bilinear_np`` (host-side page decode) has no counterpart: the
-port's serving engine resizes pages on the device with
+``F.interpolate`` is the function itself, except in the backbone's
+pyramid, whose resize is differentiated: there ``resize_bilinear_matmul``
+takes the JAX package's two-matmul form, because the backward of
+``F.interpolate``'s bilinear mode sums with atomics on a GPU and gives
+other bits on every run, where a matmul's backward repeats. The JAX
+package's numpy ``resize_bilinear_np`` (host-side page decode) has no
+counterpart: the port's serving engine resizes pages on the device with
 ``resize_bilinear``.
 """
 
@@ -32,6 +36,38 @@ def _resize(x: torch.Tensor, out_h: int, out_w: int, mode: str) -> torch.Tensor:
 def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Resize [..., H, W] -> [..., out_h, out_w], torch bilinear."""
     return _resize(x, out_h, out_w, "bilinear")
+
+
+@functools.lru_cache(maxsize=None)
+def interp_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """[out, in] bilinear interpolation matrix, torch
+    ``align_corners=False``: src = max(0, (dst + 0.5) * in / out - 0.5),
+    weights 1 - t and t on floor(src) and the next index, clamped at the
+    edge."""
+    src = np.maximum(0.0, (np.arange(out_size) + 0.5) * (in_size / out_size) - 0.5)
+    lo = np.minimum(np.floor(src).astype(np.int64), in_size - 1)
+    hi = np.minimum(lo + 1, in_size - 1)
+    t = src - lo
+    m = np.zeros((out_size, in_size), dtype=np.float64)
+    np.add.at(m, (np.arange(out_size), lo), 1.0 - t)
+    np.add.at(m, (np.arange(out_size), hi), t)
+    return m.astype(np.float32)
+
+
+def resize_bilinear_matmul(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """[B, C, H, W] -> [B, C, out_h, out_w], torch bilinear semantics, as
+    two float32 matmuls over the channels-last view (``A_h @ x @ A_w^T``,
+    the JAX package's form), rounded once to ``x``'s dtype; the result is
+    channels-last. Forward and backward are matmuls, so the gradient has
+    the same bits on every run."""
+    b, c, in_h, in_w = x.shape
+    if (in_h, in_w) == (out_h, out_w):
+        return x
+    a_h = torch.from_numpy(interp_matrix(in_h, out_h)).to(x.device)
+    a_w = torch.from_numpy(interp_matrix(in_w, out_w)).to(x.device)
+    y = a_h @ x.permute(0, 2, 3, 1).float().reshape(b, in_h, in_w * c)  # [B, out_h, W*C]
+    y = a_w @ y.reshape(b * out_h, in_w, c)  # [B*out_h, out_w, C]
+    return y.to(x.dtype).reshape(b, out_h, out_w, c).permute(0, 3, 1, 2)
 
 
 @functools.lru_cache(maxsize=None)

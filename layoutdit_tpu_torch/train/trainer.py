@@ -1,16 +1,44 @@
 """Trainer for the ``faster_rcnn`` detector (port of
 ``layoutdit_tpu/train/trainer.py``, single card).
 
-The JAX trainer's recipe: AdamW (b1 0.9, b2 0.999, eps 1e-8) with the
-configured learning-rate schedule evaluated per update count
-(``make_lr_schedule``: StepLR by epoch, or half-cosine, with optional
-linear warmup), optional global-norm clipping with optax's formula, the
-sum of the four detector losses, "Epoch i/N, Loss: x" logging, one
-``metrics.jsonl`` record per epoch with the JAX keys, and a checkpoint
-every ``checkpoint_interval`` epochs; with ``eval_interval``, a COCO
-evaluation of the eval split every that many epochs whose mAP joins the
-epoch's record, a rolling ``model_checkpoints/best.pt`` at each new best,
-and an early stop after ``early_stop_patience`` evals without one.
+The JAX trainer's recipe and run state:
+  * optax's AdamW chain (``train/optim.py``): the configured
+    learning-rate schedule per update, optional global-norm clipping,
+    bf16 first moments (``adam_mu_dtype``) and the skipping of
+    non-finite updates (``skip_nonfinite_updates``), whose count joins
+    each epoch's record as ``skipped_nonfinite_steps``;
+  * gradient accumulation (``grad_accumulation_steps`` = A): the batch
+    splits into A micro-batches, each with its own sampler draws; their
+    gradients are summed in float32 and divided by A, their losses
+    averaged, and one update follows;
+  * an EMA of the parameters (``ema_decay``): a float32 copy updated as
+    ema * d + p * (1 - d) after every step, a skipped one included; the
+    mid-training eval scores it, ``best.pt`` holds it, checkpoints carry
+    ``{"tx": optimizer state, "ema": EMA}``;
+  * ``steps_per_dispatch`` = S: the loader stacks S batches and the
+    trainer runs their S steps in turn. JAX scans them in one device
+    program; here they stay a host loop, because the NMS fixpoint reads
+    the host once a sweep (``ops/nms.py``), which rules out capturing S
+    steps in one CUDA graph. 0 (auto) resolves to 1: the card has no
+    per-dispatch round trip to amortise;
+  * preemption: on SIGTERM the in-flight dispatch finishes, then the
+    whole state goes synchronously to ``epoch_<n>_preempt.pt`` with the
+    step reached in the epoch, and the loop ends; ``resume`` continues
+    that epoch from the next step (single process: no agreement between
+    hosts);
+  * checkpoints every ``checkpoint_interval`` epochs, written off the
+    training thread with ``async_checkpoint``, the newest
+    ``keep_checkpoints`` of them kept; ``resume("auto")`` takes the
+    newest readable one;
+  * the sum of the four detector losses, "Epoch i/N, Loss: x" logging,
+    one ``metrics.jsonl`` record per epoch with the JAX keys, the same
+    scalars in TensorBoard event files under ``{run}/tb`` (``tensorboard``),
+    and the loss curve ``{run}/loss_history/loss_curve.png`` at the end
+    of ``train()``;
+  * with ``eval_interval``, a COCO evaluation of the eval split every
+    that many epochs whose mAP joins the epoch's record, a rolling
+    ``best.pt`` at each new best, and an early stop after
+    ``early_stop_patience`` evals without one.
 
 Differences from the JAX trainer, on purpose:
   * the train step runs eagerly under ``record_function`` ranges
@@ -18,15 +46,16 @@ Differences from the JAX trainer, on purpose:
     ``optimizer`` here), so a profiler trace splits a step by stage;
   * the samplers' priorities come from a ``torch.Generator`` on the
     device seeded from ``train_config.seed`` (JAX draws them with
-    ``jax.random``, which torch cannot reproduce);
+    ``jax.random``, which torch cannot reproduce); its state rides the
+    checkpoints, so a resumed run draws what the uninterrupted one drew;
   * the fused qkv's K-bias slot, which the JAX tree does not have, is
     held at zero: its gradient is zeroed before clipping and the update,
-    so AdamW never moves it and the clip norm does not count it;
-  * checkpoints are ``torch.save`` files (``train/checkpoint.py``).
-Waiting for later slices: EMA (so the raw parameters are scored),
-gradient accumulation, multi-step dispatch, preemption handling and
-mid-epoch resume, data-parallel evaluation, TensorBoard, the loss-curve
-PNG, profiler upload and LoRA masks.
+    so the optimizer never moves it and the clip norm does not count it;
+  * checkpoints are ``torch.save`` files (``train/checkpoint.py``), and
+    the loss curve is skipped, with a warning, where matplotlib is not
+    installed.
+Waiting for later slices: data-parallel evaluation, profiler upload,
+storage URLs and LoRA masks.
 """
 
 from __future__ import annotations
@@ -34,13 +63,13 @@ from __future__ import annotations
 import json
 import math
 import os
-import re
+import signal
 import time
 
 import torch
 from torch.profiler import record_function
 
-from layoutdit_tpu_torch.config import RunConfig, TrainingConfig
+from layoutdit_tpu_torch.config import RunConfig
 from layoutdit_tpu_torch.data.dataset import PubLayNetDataset
 from layoutdit_tpu_torch.data.pipeline import DetectionBatch, DetectionLoader
 from layoutdit_tpu_torch.log import get_logger
@@ -53,73 +82,45 @@ from layoutdit_tpu_torch.models.model import LayoutDetectionModel
 from layoutdit_tpu_torch.models.weights_io import k_bias_slots, tree_leaves, tree_map
 from layoutdit_tpu_torch.train.checkpoint import (
     CHECKPOINT_DIR,
+    AsyncCheckpointWriter,
     checkpoint_file,
+    list_resume_candidates,
     load_checkpoint,
+    prune_checkpoints,
     save_checkpoint,
 )
+from layoutdit_tpu_torch.train.optim import AdamW, make_lr_schedule  # noqa: F401 (re-export)
 
 logger = get_logger(__name__)
 
 
-def make_lr_schedule(train_cfg: TrainingConfig, steps_per_epoch: int):
-    """Update count -> learning rate, the JAX trainer's values:
-    ``step`` = lr * gamma^(epoch // step_size) with epoch = count //
-    steps_per_epoch; ``cosine`` = half-cosine decay to 0 over the run;
-    either times min(1, (count + 1) / warmup_steps) when warming up."""
+class _PreemptionGuard:
+    """SIGTERM -> a graceful stop: the handler only sets a flag, which the
+    epoch loop reads after each dispatch. A handler can be installed from
+    the main thread only; elsewhere the trainer runs without the guard.
+    The previous handler comes back on exit."""
 
-    def lr_schedule(count: int) -> float:
-        if train_cfg.lr_schedule == "cosine":
-            total = max(1, train_cfg.num_epochs * steps_per_epoch)
-            t = min(count, total) / total
-            base = train_cfg.learning_rate * 0.5 * (1 + math.cos(math.pi * t))
-        else:
-            epoch = count // max(1, steps_per_epoch)
-            base = train_cfg.learning_rate * train_cfg.gamma ** (epoch // train_cfg.step_size)
-        if train_cfg.warmup_steps > 0:
-            base *= min(1.0, (count + 1) / train_cfg.warmup_steps)
-        return base
+    def __init__(self):
+        self.preempted = False
+        self._old = None
+        self._installed = False
 
-    return lr_schedule
+    def __enter__(self):
+        try:
+            self._old = signal.signal(signal.SIGTERM, self._handle)
+            self._installed = True
+        except ValueError:  # not the main thread
+            self._installed = False
+        return self
 
+    def _handle(self, signum, frame):
+        self.preempted = True
+        logger.warning("SIGTERM received: will checkpoint and stop after the in-flight step")
 
-def make_optimizer(params: list[torch.Tensor], train_cfg: TrainingConfig) -> torch.optim.AdamW:
-    """AdamW with optax's constants (b1 0.9, b2 0.999, eps 1e-8) and the
-    configured decoupled weight decay; the learning rate is set before
-    each step from ``make_lr_schedule``."""
-    return torch.optim.AdamW(
-        params, lr=train_cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
-        weight_decay=train_cfg.weight_decay,
-    )
-
-
-def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> torch.Tensor:
-    """optax ``clip_by_global_norm``: g * min(1, max_norm / ||g||) over
-    all gradients (no epsilon, unlike ``torch.nn.utils.clip_grad_norm_``).
-    In place, on the device, without a host sync; returns the norm."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-    factor = torch.clamp(max_norm / norm, max=1.0)
-    torch._foreach_mul_(grads, factor)
-    return norm
-
-
-def apply_update(
-    optimizer: torch.optim.Optimizer,
-    leaves: list[torch.Tensor],
-    k_bias: list[tuple[torch.Tensor, slice]],
-    grad_clip_norm: float,
-    lr: float,
-) -> None:
-    """One optimizer update from the leaves' ``.grad``: the K-bias slots
-    (``weights_io.k_bias_slots``) are held at zero gradient first, so the
-    clip norm does not count them and AdamW leaves them at zero, then the
-    optional global-norm clip, then the step at ``lr``."""
-    for bias, k_slot in k_bias:
-        bias.grad[k_slot] = 0.0
-    if grad_clip_norm > 0:
-        clip_by_global_norm([t.grad for t in leaves], grad_clip_norm)
-    for group in optimizer.param_groups:
-        group["lr"] = lr
-    optimizer.step()
+    def __exit__(self, *exc):
+        if self._installed:
+            signal.signal(signal.SIGTERM, self._old)
+        return False
 
 
 class Trainer:
@@ -154,186 +155,327 @@ class Trainer:
                 "data_loader_config.image_shards_dir: tar shards are not supported by the "
                 "port yet; they wait for a later slice"
             )
-        self.params = model.params
-        self._leaves = tree_leaves(self.params)
+        tc = config.train
+        self.accum = max(1, tc.grad_accumulation_steps)
+        if config.data.batch_size % self.accum:
+            raise ValueError(
+                f"data_loader_config.batch_size {config.data.batch_size} is not divisible by "
+                f"train_config.grad_accumulation_steps {self.accum}"
+            )
+        self._leaves = tree_leaves(model.params)
         if any(t.device != self.device for t in self._leaves):
             raise ValueError(f"Trainer: the model's parameters must live on {self.device}, "
                              "the trainer's device")
         for t in self._leaves:
             t.requires_grad_(True)
-        self._k_bias = k_bias_slots(self.params)
-        tc = config.train
-        images_root, ann_json = config.train_split()
-        self.dataloader = DetectionLoader(
-            PubLayNetDataset(images_root, ann_json),
-            batch_size=config.data.batch_size,
-            shuffle=config.data.shuffle,
-            num_workers=config.data.num_workers,
-            image_size=self.cfg.image_size,
-            max_gt=config.data.max_gt_boxes,
-            seed=tc.seed,
-            drop_last=True,  # constant shapes per step
-            prefetch_depth=config.data.prefetch_depth,
-            augment_hflip=config.data.augment_hflip,
-            device=self.device,
-        )
-        self.optimizer = make_optimizer(self._leaves, tc)
-        self.lr_schedule = make_lr_schedule(tc, len(self.dataloader))
+        self._k_bias = k_bias_slots(model.params)
+        if tc.steps_per_dispatch > 0:
+            self.steps_per_dispatch = tc.steps_per_dispatch
+        else:
+            self.steps_per_dispatch = 1
+            logger.info("steps_per_dispatch auto -> 1: steps are dispatched from a host loop "
+                        "on the card, so stacking batches amortises no round trip")
+        self._build_dataloader()
+        self.optimizer = AdamW(tc, len(self.dataloader))
+        self.opt_state = self.optimizer.init(self._leaves)
+        self.lr_schedule = self.optimizer.lr_schedule
+        # EMA of the parameters: its own float32 tensors, never aliasing them
+        self.ema_params = (tree_map(lambda t: t.detach().clone(), model.params)
+                           if tc.ema_decay > 0 else None)
         self.generator = torch.Generator(device=self.device).manual_seed(tc.seed)
         self.epoch = 0
         self.updates = 0
         self.loss_history: list[float] = []
         self.metrics_history: list[dict] = []
+        self._start_step = 0  # mid-epoch resume offset (set by resume())
+        self._partial_steps = 0  # steps done when a preemption cut an epoch
+        self._guard: _PreemptionGuard | None = None
+        self._skipped_logged = 0
         # mid-training eval (TrainingConfig.eval_interval)
         self.best_map = float("-inf")
         self.best_checkpoint_path: str | None = None
         self._evals_since_best = 0  # mid-evals since the last best mAP
         self._evaluator = None  # built on the first mid-eval
 
+    @property
+    def params(self) -> dict:
+        return self.model.params
+
+    def _build_dataloader(self) -> None:
+        images_root, ann_json = self.config.train_split()
+        dl = self.config.data
+        self.dataloader = DetectionLoader(
+            PubLayNetDataset(images_root, ann_json),
+            batch_size=dl.batch_size,
+            shuffle=dl.shuffle,
+            num_workers=dl.num_workers,
+            image_size=self.cfg.image_size,
+            max_gt=dl.max_gt_boxes,
+            seed=self.config.train.seed,
+            drop_last=True,  # constant shapes per step
+            prefetch_depth=dl.prefetch_depth,
+            augment_hflip=dl.augment_hflip,
+            stack_batches=self.steps_per_dispatch,
+            device=self.device,
+        )
+
     # ------------------------------------------------------------ step
 
     def train_step(self, batch: DetectionBatch) -> tuple[torch.Tensor, dict]:
         """One update on ``batch`` -> (total loss, the four losses), device
-        scalars (no host sync)."""
-        b, g = batch.gt_labels.shape
-        priorities = draw_priorities(self.cfg, b, g, self.generator)
-        losses = detector_loss(
-            self.params, batch.images, batch.gt_boxes, batch.gt_labels, batch.gt_valid,
-            self.cfg, priorities,
-        )
-        loss = sum(losses.values())
-        with record_function("backward"):
-            self.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
+        scalars (no host sync). With A micro-batches, each draws its own
+        sampler priorities and the losses are their means."""
+        micro = self.config.data.batch_size // self.accum
+        parts = []
+        for a in range(self.accum):
+            rows = slice(a * micro, (a + 1) * micro)
+            gt_labels = batch.gt_labels[rows]
+            priorities = draw_priorities(self.cfg, micro, gt_labels.shape[1], self.generator)
+            losses = detector_loss(
+                self.model.params, batch.images[rows], batch.gt_boxes[rows], gt_labels,
+                batch.gt_valid[rows], self.cfg, priorities,
+            )
+            loss = sum(losses.values())
+            with record_function("backward"):
+                # the leaves' .grad sums the micro-batches' float32 gradients
+                loss.backward()
+            parts.append((loss.detach(), {k: v.detach() for k, v in losses.items()}))
         with record_function("optimizer"):
-            apply_update(self.optimizer, self._leaves, self._k_bias,
-                         self.config.train.grad_clip_norm, self.lr_schedule(self.updates))
+            grads = [t.grad if t.grad is not None else torch.zeros_like(t)
+                     for t in self._leaves]
+            if self.accum > 1:
+                torch._foreach_div_(grads, float(self.accum))
+            for bias, k_slot in self._k_bias:
+                if bias.grad is not None:
+                    bias.grad[k_slot] = 0.0
+            self.optimizer.update(self.opt_state, self._leaves, grads)
+            for t in self._leaves:
+                t.grad = None
+            if self.ema_params is not None:
+                d = self.config.train.ema_decay
+                ema = tree_leaves(self.ema_params)
+                with torch.no_grad():
+                    torch._foreach_mul_(ema, d)
+                    torch._foreach_add_(ema, torch._foreach_mul(self._leaves, 1 - d))
         self.updates += 1
-        return loss.detach(), {k: v.detach() for k, v in losses.items()}
+        if self.accum == 1:
+            return parts[0]
+        loss = torch.stack([p[0] for p in parts]).mean()
+        return loss, {k: torch.stack([p[1][k] for p in parts]).mean() for k in parts[0][1]}
+
+    def _dispatch(self, batch: DetectionBatch, steps: int) -> list[torch.Tensor]:
+        """The ``steps`` steps of a plain (1) or stacked (S) batch, in turn."""
+        if steps == 1:
+            return [self.train_step(batch)[0]]
+        return [self.train_step(DetectionBatch(
+            images=batch.images[s], gt_boxes=batch.gt_boxes[s], gt_labels=batch.gt_labels[s],
+            gt_valid=batch.gt_valid[s], image_ids=batch.image_ids, orig_sizes=batch.orig_sizes,
+            image_valid=batch.image_valid))[0] for s in range(steps)]
 
     # ------------------------------------------------------------ loops
 
     def _run_epoch(self, epoch: int) -> float:
         tc = self.config.train
         t0 = time.perf_counter()
+        # a mid-epoch resume skips the steps the preempted run made
+        skip, self._start_step = self._start_step, 0
+        self._partial_steps = 0
         self.dataloader.set_epoch(epoch)
-        losses, n_images = [], 0
+        if skip:
+            self.dataloader.skip_batches(skip)
+        n_steps, n_new, n_images = skip, 0, 0
+        losses = []
         for batch in self.dataloader:
-            loss, _ = self.train_step(batch)
-            losses.append(loss)
+            steps = batch.images.shape[0] if batch.images.dim() == 5 else 1
+            losses += self._dispatch(batch, steps)
+            n_steps += steps
+            n_new += steps
             n_images += int(batch.image_valid.sum())
+            if self._guard is not None and self._guard.preempted:
+                self._partial_steps = n_steps
+                break
+        if n_new == 0:
+            logger.info("Epoch %d already complete at the resume point", epoch + 1)
+            return self.loss_history[-1] if self.loss_history else 0.0
         # one host read of the epoch's losses, at its end
-        avg = float(torch.stack(losses).mean()) if losses else 0.0
+        avg = float(torch.stack(losses).mean())
         dt = max(time.perf_counter() - t0, 1e-9)
         self.loss_history.append(avg)
-        self.metrics_history.append({
+        rec = {
             "epoch": epoch + 1,
             "loss": avg,
             "images_per_sec": round(n_images / dt, 2),
             "learning_rate": float(self.lr_schedule(self.updates)),
-        })
+        }
+        if tc.skip_nonfinite_updates > 0:
+            rec["skipped_nonfinite_steps"] = int(self.opt_state["total_notfinite"])
+            if rec["skipped_nonfinite_steps"] > self._skipped_logged:
+                logger.warning("%d non-finite gradient step(s) skipped so far this run "
+                               "(parameters and moments untouched on those)",
+                               rec["skipped_nonfinite_steps"])
+                self._skipped_logged = rec["skipped_nonfinite_steps"]
+        self.metrics_history.append(rec)
         logger.info("Epoch %d/%d, Loss: %.4f (%.1f img/s)",
                     epoch + 1, tc.num_epochs, avg, n_images / dt)
         return avg
 
     def _mid_eval(self, epoch: int) -> None:
-        """Score the eval split (``TrainingConfig.eval_interval``): the mAP
-        joins the epoch's ``metrics_history`` record (NaN when there was
-        no prediction), and a new finite best writes
-        ``model_checkpoints/best.pt``. Before the first finite best, a NaN
-        does not count toward the early stop, so a run never stops without
-        a best checkpoint."""
+        """Score the eval split (``TrainingConfig.eval_interval``), the EMA
+        weights when there are some: the mAP joins the epoch's
+        ``metrics_history`` record (NaN when there was no prediction), and
+        a new finite best writes ``model_checkpoints/best.pt`` with the
+        weights scored. Before the first finite best, a NaN does not
+        count toward the early stop, so a run never stops without a best
+        checkpoint."""
         if self._evaluator is None:
             from layoutdit_tpu_torch.eval.evaluator import Evaluator
 
             self._evaluator = Evaluator(self.model, self.config, device=self.device)
-        metrics = self._evaluator.score()
-        m = float(metrics["mAP"]) if metrics else float("nan")
-        if self.metrics_history:
-            self.metrics_history[-1]["mAP"] = m
-        logger.info("Eval at epoch %d: mAP=%.4f", epoch + 1, m)
-        if math.isfinite(m) and m > self.best_map:
-            self._evals_since_best = 0
-            self.best_map = m
-            self.best_checkpoint_path = self.save_checkpoint(
-                epoch + 1, stem="best", extra={"mAP": m, "epoch": epoch + 1})
-            logger.info("New best mAP %.4f -> %s", m, self.best_checkpoint_path)
-        elif math.isfinite(self.best_map):
-            self._evals_since_best += 1
+        saved = None
+        if self.ema_params is not None:
+            # the evaluator reads model.params at each score()
+            saved, self.model.params = self.model.params, self.ema_params
+        try:
+            metrics = self._evaluator.score()
+            m = float(metrics["mAP"]) if metrics else float("nan")
+            if self.metrics_history:
+                self.metrics_history[-1]["mAP"] = m
+            logger.info("Eval at epoch %d: mAP=%.4f", epoch + 1, m)
+            if math.isfinite(m) and m > self.best_map:
+                self._evals_since_best = 0
+                self.best_map = m
+                self.best_checkpoint_path = self.save_checkpoint(
+                    epoch + 1, stem="best",
+                    extra={"mAP": m, "epoch": epoch + 1, "ema": self.ema_params is not None})
+                logger.info("New best mAP %.4f -> %s", m, self.best_checkpoint_path)
+            elif math.isfinite(self.best_map):
+                self._evals_since_best += 1
+        finally:
+            if saved is not None:
+                self.model.params = saved
 
     def train(self) -> None:
         tc = self.config.train
+        writer = AsyncCheckpointWriter() if tc.async_checkpoint else None
+        tb = None
+        if tc.tensorboard:
+            from layoutdit_tpu_torch.utils.tensorboard import TensorBoardWriter
+
+            tb = TensorBoardWriter(f"{self.config.artifact_dir}/tb")
         try:
-            for epoch in range(self.epoch, tc.num_epochs):
-                self._run_epoch(epoch)
-                stop_early = False
-                if tc.eval_interval > 0 and (epoch + 1) % tc.eval_interval == 0:
-                    self._mid_eval(epoch)
-                    # the best checkpoint holds the winning weights; the
-                    # remaining epochs would be waste
-                    stop_early = 0 < tc.early_stop_patience <= self._evals_since_best
-                self._save_metrics()
-                if (epoch + 1) % tc.checkpoint_interval == 0:
-                    path = self.save_checkpoint(epoch + 1)
-                    logger.info("Saved checkpoint to %s", path)
-                self.epoch = epoch + 1
-                if stop_early:
-                    logger.info("Early stop at epoch %d: no mAP improvement in %d evals "
-                                "(best %.4f)", epoch + 1, self._evals_since_best, self.best_map)
-                    break
+            with _PreemptionGuard() as guard:
+                self._guard = guard
+                for epoch in range(self.epoch, tc.num_epochs):
+                    self._run_epoch(epoch)
+                    if self._partial_steps or guard.preempted:
+                        # cut mid-epoch: resume continues the epoch after its
+                        # last step; a SIGTERM after the epoch's last step
+                        # resumes at the next epoch. Synchronous: the grace
+                        # window may be short.
+                        done_epoch = epoch if self._partial_steps else epoch + 1
+                        if writer is not None:
+                            writer.wait()
+                        path = self.save_checkpoint(
+                            done_epoch, tag="preempt",
+                            extra={"step_in_epoch": self._partial_steps})
+                        self.epoch = done_epoch
+                        logger.warning("Preempted at epoch %d step %d; saved %s; resume with "
+                                       "--resume %s", epoch + 1, self._partial_steps, path, path)
+                        break
+                    stop_early = False
+                    if tc.eval_interval > 0 and (epoch + 1) % tc.eval_interval == 0:
+                        self._mid_eval(epoch)
+                        # the best checkpoint holds the winning weights; the
+                        # remaining epochs would be waste
+                        stop_early = 0 < tc.early_stop_patience <= self._evals_since_best
+                    if tb is not None and self.metrics_history and \
+                            self.metrics_history[-1].get("epoch") == epoch + 1:
+                        tb.scalars({f"train/{k}": v for k, v in self.metrics_history[-1].items()
+                                    if k != "epoch"}, step=epoch + 1)
+                        tb.flush()
+                    self._save_metrics()
+                    if (epoch + 1) % tc.checkpoint_interval == 0:
+                        path = self.save_checkpoint(epoch + 1, writer=writer)
+                        logger.info("Saved checkpoint to %s%s", path,
+                                    " (async)" if writer is not None else "")
+                        prune_checkpoints(self.checkpoint_dir(), tc.keep_checkpoints, epoch + 1)
+                    self.epoch = epoch + 1
+                    if stop_early:
+                        logger.info("Early stop at epoch %d: no mAP improvement in %d evals "
+                                    "(best %.4f)", epoch + 1, self._evals_since_best,
+                                    self.best_map)
+                        break
         finally:
-            self.dataloader.close()
+            self._guard = None
+            try:
+                if writer is not None:
+                    writer.close()  # the checkpoints are on disk when train() returns
+            finally:
+                if tb is not None:
+                    tb.close()
+                self.dataloader.close()
+        self._save_loss()
+        self._save_metrics()
 
     # ------------------------------------------------------- artifacts
 
     def checkpoint_dir(self) -> str:
         return f"{self.config.artifact_dir}/{CHECKPOINT_DIR}"
 
-    def checkpoint_path(self, epoch: int) -> str:
-        return checkpoint_file(self.config.artifact_dir, epoch)
+    def checkpoint_path(self, epoch: int, tag: str | None = None) -> str:
+        return checkpoint_file(self.config.artifact_dir, epoch, tag=tag)
 
-    def save_checkpoint(self, epoch: int, stem: str | None = None,
-                        extra: dict | None = None) -> str:
+    def _opt_state_for_checkpoint(self):
+        if self.ema_params is None:
+            return self.opt_state
+        return {"tx": self.opt_state, "ema": self.ema_params}
+
+    def save_checkpoint(self, epoch: int, stem: str | None = None, tag: str | None = None,
+                        extra: dict | None = None,
+                        writer: AsyncCheckpointWriter | None = None) -> str:
         """The whole training state at ``epoch_{epoch}.pt`` (or
-        ``{stem}.pt``): parameters, optimizer state, and in the extras the
-        histories, the update count, the sampler generator and the
-        mid-eval trackers, so a resumed run neither overwrites
-        ``best.pt`` with worse weights nor restarts the early-stop clock;
-        ``extra`` adds entries (``best.pt``'s ``mAP`` and ``epoch``)."""
-        return save_checkpoint(
-            checkpoint_file(self.config.artifact_dir, epoch, stem),
-            tree_map(lambda t: t.detach().cpu(), self.params),
-            self.optimizer.state_dict(), epoch,
-            extra={
-                "loss_history": self.loss_history,
-                "metrics_history": self.metrics_history,
-                "updates": self.updates,
-                "generator_state": self.generator.get_state(),
-                "best_map": self.best_map if math.isfinite(self.best_map) else None,
-                "best_checkpoint_path": self.best_checkpoint_path,
-                "evals_since_best": self._evals_since_best,
-                **(extra or {}),
-            },
-        )
+        ``epoch_{epoch}_{tag}.pt``, or ``{stem}.pt``): parameters (the EMA
+        weights in ``best.pt``, which holds what the mid-eval scored),
+        optimizer state and EMA, and in the extras the histories, the
+        update count, the sampler generator, the mid-eval trackers (so a
+        resumed run neither overwrites ``best.pt`` with worse weights nor
+        restarts the early-stop clock) and the resolved
+        ``steps_per_dispatch``; ``extra`` adds entries (``best.pt``'s
+        ``mAP``, a preemption's ``step_in_epoch``). With ``writer``, the
+        state is snapshot to the host here and written in the background."""
+        path = checkpoint_file(self.config.artifact_dir, epoch, stem, tag)
+        params = self.ema_params if stem == "best" and self.ema_params is not None \
+            else self.model.params
+        extra = {
+            "loss_history": self.loss_history,
+            "metrics_history": self.metrics_history,
+            "updates": self.updates,
+            "generator_state": self.generator.get_state(),
+            "best_map": self.best_map if math.isfinite(self.best_map) else None,
+            "best_checkpoint_path": self.best_checkpoint_path,
+            "evals_since_best": self._evals_since_best,
+            "steps_per_dispatch": self.steps_per_dispatch,
+            **(extra or {}),
+        }
+        if writer is not None:
+            writer.save(path, params, self._opt_state_for_checkpoint(), epoch, extra)
+            return path
+        return save_checkpoint(path, tree_map(lambda t: t.detach().cpu(), params),
+                               self._opt_state_for_checkpoint(), epoch, extra)
 
     def resume_candidates(self) -> list[str]:
-        """This run's ``epoch_{n}.pt`` checkpoints, newest epoch first
-        (``best.pt`` tracks eval quality, not training progress, and is
-        not one of them); empty when there is none."""
-        try:
-            names = os.listdir(self.checkpoint_dir())
-        except FileNotFoundError:
-            return []
-        epochs = [int(m.group(1)) for m in map(re.compile(r"epoch_(\d+)\.pt").fullmatch, names)
-                  if m]
-        return [self.checkpoint_path(e) for e in sorted(epochs, reverse=True)]
+        """This run's ``epoch_{n}.pt`` and ``epoch_{n}_preempt.pt``
+        checkpoints, best first (``list_resume_candidates``)."""
+        return [p for _, _, p in list_resume_candidates(self.checkpoint_dir())]
 
     def resume(self, path: str) -> None:
-        """Restore parameters (in place), optimizer state, epoch, update
-        count, histories, the sampler generator and the mid-eval trackers
-        from a checkpoint. ``"auto"`` takes the newest readable
-        ``epoch_{n}.pt`` of this run, falling back to the next-newest when
-        one does not load, and starts fresh when there is none."""
+        """Restore parameters (in place), optimizer state and EMA, epoch
+        and step in it, update count, histories, the sampler generator,
+        the mid-eval trackers and the original run's
+        ``steps_per_dispatch`` from a checkpoint. ``"auto"`` takes the
+        newest readable checkpoint of this run (a preemption's save of an
+        epoch after its periodic one), falling back to the next-newest
+        when one does not load, and starts fresh when there is none."""
         if path == "auto":
             candidates = self.resume_candidates()
             if not candidates:
@@ -357,12 +499,35 @@ class Trainer:
                     f"--resume auto: all {len(candidates)} checkpoints under "
                     f"{self.checkpoint_dir()} are unreadable; refusing to restart from scratch"
                 )
+            logger.info("--resume auto: resuming from %s", path)
         else:
             state = load_checkpoint(path, map_location=self.device)
+        opt_state = state["opt_state"]
+        if "param_groups" in opt_state:
+            raise ValueError(
+                f"{path}: its optimizer state is a torch.optim.AdamW state_dict, written by "
+                "an earlier trainer of the port; this trainer resumes only its own optax-"
+                "layout state (train/optim.py). Its weights load with "
+                "LayoutDetectionModel.restore_checkpoint."
+            )
+        if ("ema" in opt_state) != (self.ema_params is not None):
+            raise ValueError(f"{path}: the checkpoint {'has' if 'ema' in opt_state else 'lacks'} "
+                             "an EMA of the parameters and this run's ema_decay disagrees")
+        tx = opt_state["tx"] if self.ema_params is not None else opt_state
+        if set(tx) != set(self.opt_state) or tx["mu"][0].dtype != self.opt_state["mu"][0].dtype:
+            raise ValueError(
+                f"{path}: its optimizer state ({sorted(tx)}, mu {tx['mu'][0].dtype}) does not "
+                "match this run's skip_nonfinite_updates and adam_mu_dtype"
+            )
         with torch.no_grad():
             for dst, src in zip(self._leaves, tree_leaves(state["params"]), strict=True):
                 dst.copy_(src)
-        self.optimizer.load_state_dict(state["opt_state"])
+        if self.ema_params is not None:
+            with torch.no_grad():
+                for dst, src in zip(tree_leaves(self.ema_params),
+                                    tree_leaves(opt_state["ema"]), strict=True):
+                    dst.copy_(src)
+        self.opt_state = tx
         extra = state["extra"]
         self.epoch = state["epoch"]
         self.updates = extra["updates"]
@@ -373,7 +538,38 @@ class Trainer:
         self.best_map = float(bm) if bm is not None else float("-inf")
         self.best_checkpoint_path = extra.get("best_checkpoint_path")
         self._evals_since_best = int(extra.get("evals_since_best", 0))
-        logger.info("Resumed from %s at epoch %d", path, self.epoch)
+        self._start_step = int(extra.get("step_in_epoch", 0))
+        saved_s = int(extra.get("steps_per_dispatch", 0))
+        if saved_s and saved_s != self.steps_per_dispatch:
+            logger.info("Resume: adopting the checkpoint's steps_per_dispatch=%d (this run "
+                        "resolved %d)", saved_s, self.steps_per_dispatch)
+            self.steps_per_dispatch = saved_s
+            self.dataloader.close()
+            self._build_dataloader()
+        logger.info("Resumed from %s at epoch %d%s", path, self.epoch,
+                    f" step {self._start_step}" if self._start_step else "")
+
+    def _save_loss(self) -> None:
+        """The loss curve, ``{run}/loss_history/loss_curve.png``; without
+        matplotlib, a warning and no file."""
+        try:
+            import matplotlib
+        except ImportError:
+            logger.warning("matplotlib is not installed: no loss curve written")
+            return
+        matplotlib.use("Agg")
+        from matplotlib import pyplot as plt
+
+        fig, ax = plt.subplots()
+        ax.plot(range(1, len(self.loss_history) + 1), self.loss_history, marker="o")
+        ax.set_xlabel("Epoch")
+        ax.set_ylabel("Average Loss")
+        ax.set_title("Training Loss per Epoch")
+        path = f"{self.config.artifact_dir}/loss_history/loss_curve.png"
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        logger.info("Saving loss to %s", path)
+        fig.savefig(path, format="png", bbox_inches="tight")
+        plt.close(fig)
 
     def _save_metrics(self) -> None:
         """Rewrite ``metrics/metrics.jsonl`` (one record per epoch)."""
@@ -382,4 +578,3 @@ class Trainer:
         with open(path, "w") as f:
             for rec in self.metrics_history:
                 f.write(json.dumps(rec) + "\n")
-

@@ -396,7 +396,7 @@ def test_eval_config_fields_load_with_jax_defaults():
     ("eval_config", "segm_metrics", False, "mask head"),
     ("eval_config", "device", "cpu", "CUDA card"),
     ("detection_model_config", "previous_layout_dit_checkpoint", "dit.pth", "queue 1 item 6"),
-    ("train_config", "ema_decay", 0.999, "parameter EMA"),
+    ("train_config", "lora_freeze_base", False, "LoRA training"),
 ])
 def test_waiting_fields_are_refused(section, key, value, match):
     with pytest.raises(ValueError, match=f"{key}.*{match}"):

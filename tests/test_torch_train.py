@@ -183,8 +183,10 @@ def assert_loss_grads_and_update_match(jparams, jcfg, pcfg, images, gt_boxes, gt
     cfg = TrainingConfig(**tc)
     k_bias = k_bias_slots(params)
     assert all(float(b.grad[s].abs().max()) < 1e-6 for b, s in k_bias)  # rounding noise
-    port_trainer.apply_update(port_trainer.make_optimizer(leaves, cfg), leaves, k_bias,
-                              cfg.grad_clip_norm, port_trainer.make_lr_schedule(cfg, 4)(0))
+    for b, slot in k_bias:  # as the trainer does before each update
+        b.grad[slot] = 0.0
+    opt = port_trainer.AdamW(cfg, steps_per_epoch=4)
+    opt.update(opt.init(leaves), leaves, [t.grad for t in leaves])
     assert all(not b[s].any() for b, s in k_bias)  # the K-bias slot stays zero
     new = params_to_jax(params)
     for (path, w), g in zip(jax.tree_util.tree_flatten_with_path(jnew)[0],
@@ -340,12 +342,12 @@ def test_training_config_defaults_and_waiting_fields():
     jax_defaults = JaxTrainingConfig()
     for name, value in vars(TrainingConfig()).items():
         assert getattr(jax_defaults, name) == value, name
-    rc = run_config_from_dict({"train_config": {"tensorboard": True, "num_epochs": 3}})
+    rc = run_config_from_dict({"train_config": {"lora_freeze_base": True, "num_epochs": 3}})
     assert rc.train.num_epochs == 3  # a waiting field at its default loads
-    with pytest.raises(ValueError, match="ema_decay.*parameter EMA"):
-        run_config_from_dict({"train_config": {"ema_decay": 0.999}})
-    with pytest.raises(ValueError, match="grad_accumulation_steps.*gradient accumulation"):
-        run_config_from_dict({"train_config": {"grad_accumulation_steps": 2}})
+    with pytest.raises(ValueError, match="remat.*activation checkpointing"):
+        run_config_from_dict({"detection_model_config": {"remat": True}})
+    with pytest.raises(ValueError, match="lora_freeze_base.*LoRA training"):
+        run_config_from_dict({"train_config": {"lora_freeze_base": False}})
     with pytest.raises(ValueError, match="not supported"):
         run_config_from_dict({"train_config": {"no_such_field": 1}})
     with pytest.raises(ValueError, match="lr_schedule"):
@@ -427,11 +429,12 @@ def test_trainer_two_epochs_checkpoint_and_resume(fixture_dir, tmp_path):
     for a, b in zip(tree_leaves(other.params),
                     tree_leaves(trainer.params)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    sa, sb = other.optimizer.state_dict(), trainer.optimizer.state_dict()
-    assert sa["param_groups"] == sb["param_groups"]
-    for i, st in sb["state"].items():
-        for key in ("exp_avg", "exp_avg_sq", "step"):
-            torch.testing.assert_close(sa["state"][i][key], st[key], rtol=0, atol=0)
+    sa, sb = other.opt_state, trainer.opt_state
+    assert set(sa) == set(sb) == {"mu", "nu", "count", "schedule_count"}
+    for key in ("mu", "nu"):
+        for a, b in zip(sa[key], sb[key], strict=True):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert int(sa["count"]) == int(sa["schedule_count"]) == 4
     assert torch.equal(other.generator.get_state(), trainer.generator.get_state())
 
 
