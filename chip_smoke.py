@@ -33,7 +33,13 @@ checkpoints kept two at a time, TensorBoard, a mid-training eval every
 epoch) for 3 epochs, preempts a second run with SIGTERM mid-epoch and
 resumes it to the first run's bits, and checks the accumulated gradient,
 a NaN step, the files kept, the events and ``best.pt`` (phase
-``train_state``); does the same as ``train`` with the
+``train_state``); packs pages into tar shards, requires the native COCO
+parser (built with g++ into ``build/native/``) and times it against
+``json.loads`` on a file of PubLayNet val's size, writes two steps of
+the default config as a JAX-format ``.msgpack`` checkpoint with the
+port's encoder and as a ``.pt``, resumes the first over the shards and
+the second over the files, and holds the two runs to the same bits
+(phase ``io``); does the same as ``train`` with the
 windowed high-res config ``configs/train_1024_window.json`` (dit-base,
 1024 px, batch 4, 16 x 16 windows, four global layers; phase
 ``train_1024``) and with its BEiT-layout variant
@@ -1892,6 +1898,219 @@ def phase_train_state(kernels: list[dict], card: str) -> dict:
     return out
 
 
+# the io phase: make_fixture pages packed into tar shards (at least
+# IO_MIN_SHARDS), the native COCO parser timed on a synthetic file of
+# PubLayNet val's size (IO_PARSE_IMAGES pages, IO_PARSE_BOXES boxes each,
+# with polygons), IO_STEPS train steps of the default config with an EMA,
+# bf16 first moments and non-finite skipping (IO_TRAIN), then that
+# state as a JAX-format msgpack checkpoint and as a .pt, each resumed by a
+# fresh trainer and trained one more epoch: from the shards after the
+# msgpack, from the files after the .pt
+IO_PAGES = 64
+IO_MIN_SHARDS = 2
+IO_PARSE_IMAGES = 11245
+IO_PARSE_BOXES = 20
+IO_STEPS = 2
+IO_TRAIN = dict(ema_decay=0.999, adam_mu_dtype="bfloat16", skip_nonfinite_updates=3)
+
+
+def _synthetic_coco_bytes(n_images: int, boxes: int, seed: int) -> bytes:
+    """A COCO annotations file of ``n_images`` pages with ``boxes`` boxes
+    each (a polygon per box, as PubLayNet's), values from ``seed``."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, 500, (n_images * boxes, 2)).round(2)
+    wh = rng.uniform(5, 300, (n_images * boxes, 2)).round(2)
+    cats = rng.integers(1, 6, n_images * boxes)
+    anns = []
+    for j, ((x, y), (w, h), c) in enumerate(zip(xy.tolist(), wh.tolist(), cats.tolist())):
+        anns.append({"segmentation": [[x, y, x + w, y, x + w, y + h, x, y + h]],
+                     "area": round(w * h, 3), "iscrowd": 0, "image_id": j // boxes,
+                     "bbox": [x, y, w, h], "category_id": c, "id": j})
+    images = [{"file_name": f"PMC{i:07d}_00000{i % 10}.jpg", "height": 792, "width": 612,
+               "id": i} for i in range(n_images)]
+    cats_ = [{"supercategory": "", "id": i, "name": n}
+             for i, n in enumerate(("text", "title", "list", "table", "figure"), 1)]
+    return json.dumps({"images": images, "annotations": anns, "categories": cats_}).encode()
+
+
+def _io_parse(card: str) -> dict:
+    """The native parser against ``json.loads`` on a file of PubLayNet
+    val's size -> both parse times; raises where the parser is missing."""
+    from layoutdit_tpu_torch.native import cocojson
+
+    if not cocojson.available():
+        raise RuntimeError("io: the native COCO parser is not available (g++ build failed)")
+    raw = _synthetic_coco_bytes(IO_PARSE_IMAGES, IO_PARSE_BOXES, seed=5)
+    t0 = time.perf_counter()
+    arr = cocojson.parse_coco_bytes(raw)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    coco = json.loads(raw)
+    json_s = time.perf_counter() - t0
+    if arr is None or len(arr.ann_id) != len(coco["annotations"]) or \
+            not np.array_equal(arr.ann_bbox, np.asarray([a["bbox"] for a in coco["annotations"]])):
+        raise RuntimeError("io: the native parse of the synthetic file differs from json.loads")
+    print(f"  parse of {len(raw) / 2**20:.1f} MiB ({IO_PARSE_IMAGES} pages, "
+          f"{len(coco['annotations'])} boxes with polygons): native {native_s:.3f} s, "
+          f"json.loads {json_s:.3f} s ({json_s / native_s:.1f}x); {card}")
+    return {"mib": len(raw) / 2**20, "images": IO_PARSE_IMAGES,
+            "annotations": len(coco["annotations"]), "native_s": native_s, "json_loads_s": json_s}
+
+
+def _differing(a: list, b: list) -> int:
+    return sum(not torch.equal(x, y) for x, y in zip(a, b, strict=True))
+
+
+def phase_io(kernels: list[dict], card: str) -> dict:
+    """Storage and data I/O at full width (the default config, dit-base at
+    224 px, batch 16, bf16; ``IO_TRAIN``: EMA, bf16 ``mu``, non-finite
+    skipping): ``make_fixture`` pages packed into tar
+    shards by ``data/shards.build_shards``, their annotations read by the native
+    parser (its arrays equal to the ``json.loads`` path's), the parser
+    timed; ``IO_STEPS`` steps, written as ``epoch_1.msgpack`` with the
+    port's encoder of the JAX format and as ``epoch_1.pt``. The main path:
+    a fresh trainer over the shards takes the msgpack with
+    ``resume("auto")`` (its device tensors equal the saved ones bit for
+    bit) and trains an epoch; beside it, a fresh trainer over the files
+    resumes the ``.pt`` and trains the same epoch. Their states after the
+    first step and after the epoch must be the same bits."""
+    import os
+
+    from layoutdit_tpu_torch.config import RunConfig
+    from layoutdit_tpu_torch.data.dataset import PubLayNetDataset, read_bytes
+    from layoutdit_tpu_torch.data.shards import build_shards
+    from layoutdit_tpu_torch.models.model import build_model
+    from layoutdit_tpu_torch.tools.make_fixture import make_fixture
+    from layoutdit_tpu_torch.train.checkpoint import save_as_jax
+    from layoutdit_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    parse = _io_parse(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        make_fixture(tmp, n_images=IO_PAGES, split="samples", seed=0)
+        images, ann = os.path.join(tmp, "samples"), os.path.join(tmp, "samples.json")
+        page_bytes = sum(os.path.getsize(os.path.join(images, n)) for n in os.listdir(images))
+        shards = os.path.join(tmp, "shards")
+        with open(ann) as f:
+            names = [img["file_name"] for img in json.load(f)["images"]]
+        build_shards(names, lambda n: read_bytes(os.path.join(images, n)), shards,
+                     shard_size_bytes=page_bytes // (IO_MIN_SHARDS + 1))
+        with open(os.path.join(shards, "index.json")) as f:
+            n_shards = len(json.load(f)["shards"])
+        if n_shards < IO_MIN_SHARDS:
+            raise RuntimeError(f"io: {n_shards} shard(s), expected at least {IO_MIN_SHARDS}")
+        native = PubLayNetDataset(images, ann)
+        os.environ["LAYOUTDIT_NO_NATIVE_COCO"] = "1"
+        try:
+            plain = PubLayNetDataset(images, ann)
+        finally:
+            del os.environ["LAYOUTDIT_NO_NATIVE_COCO"]
+        if not native.native or plain.native or native.ids != plain.ids or not all(
+                np.array_equal(native.load_target(i)[k], plain.load_target(i)[k])
+                for i in native.ids for k in ("boxes", "labels")):
+            raise RuntimeError("io: the native parse of the pages' annotations differs from "
+                               "json.loads (or was not taken)")
+        print(f"  {IO_PAGES} pages ({page_bytes / 2**20:.2f} MiB) in {n_shards} shards; the "
+              f"native parser's targets equal json.loads'")
+
+        base = RunConfig()
+        rc = dataclasses.replace(base, train=dataclasses.replace(
+            base.train, train_base_path=tmp, train_input="samples", num_epochs=2, **IO_TRAIN),
+            eval_base_path=tmp, run_name="pt")
+        sharded = dataclasses.replace(rc, run_name="jax_format", data=dataclasses.replace(
+            rc.data, image_shards_dir=shards))
+
+        # the state: IO_STEPS steps from the files
+        first = Trainer(rc, build_model(rc, seed=0))
+        it = iter(first.dataloader)
+        for _ in range(IO_STEPS):
+            first.train_step(next(it))
+        it.close()
+        first.dataloader.close()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        msgpack = save_as_jax(f"{sharded.artifact_dir}/model_checkpoints/epoch_1.msgpack",
+                              first.params, first._opt_state_for_checkpoint(), 1,
+                              first.checkpoint_extra(), clip=rc.train.grad_clip_norm > 0)
+        write_s = time.perf_counter() - t0
+        first.save_checkpoint(1)
+        size = os.path.getsize(msgpack)
+        saved = [t.clone() for t in _run_state(first)]
+        num_params = first.model.num_params()
+        del first, it
+        torch.cuda.empty_cache()
+
+        def resumed(config, path):
+            trainer = Trainer(config, build_model(config, seed=1))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.resume(path)
+            torch.cuda.synchronize()
+            return trainer, time.perf_counter() - t0
+
+        def train_epoch(trainer):
+            after_first = {}
+            dispatch = trainer._dispatch
+
+            def spy(*a):
+                out = dispatch(*a)
+                if not after_first:
+                    after_first["state"] = [t.clone() for t in _run_state(trainer)]
+                return out
+
+            trainer._dispatch = spy
+            trainer.train()
+            torch.cuda.synchronize()
+            trainer._dispatch = dispatch
+            return after_first["state"]
+
+        # the main path: resume the msgpack, then an epoch from the shards
+        _reset_counts()
+        from_jax, resume_s = resumed(sharded, "auto")
+        if from_jax.resume_candidates() != [msgpack]:
+            raise RuntimeError(f"io: resume('auto') saw {from_jax.resume_candidates()}")
+        restored = _differing(_run_state(from_jax), saved)
+        if restored or from_jax.epoch != 1 or not from_jax.dataloader.dataset.native:
+            raise RuntimeError(f"io: the msgpack resume differs in {restored} tensors (epoch "
+                               f"{from_jax.epoch})")
+        jax_first = train_epoch(from_jax)
+        counts = _counts()
+        from_pt, pt_resume_s = resumed(rc, "auto")
+        pt_first = train_epoch(from_pt)
+        first_diff = _differing(jax_first, pt_first)
+        epoch_diff = _differing(_run_state(from_jax), _run_state(from_pt))
+        rate = {name: t.metrics_history[-1]["images_per_sec"]
+                for name, t in (("shards", from_jax), ("files", from_pt))}
+        print(f"  {num_params} parameters, EMA, bf16 mu, apply_if_finite: epoch_1.msgpack "
+              f"{size / 2**30:.3f} GiB written in {write_s:.3f} s; resume('auto') took it in "
+              f"{resume_s:.3f} s (the .pt {pt_resume_s:.3f} s), 0 of {len(saved)} tensors "
+              f"differ from the saved state; {card}")
+        print(f"  one step after the msgpack resume (shards) against one after the .pt resume "
+              f"(files): {first_diff} tensors differ; after the epoch {epoch_diff} (bit "
+              f"equality required); epoch images/s from shards {rate['shards']}, from files "
+              f"{rate['files']}; launches {counts}; {card}")
+        if first_diff or epoch_diff or from_jax.loss_history != from_pt.loss_history:
+            raise RuntimeError("io: the run resumed from msgpack over shards differs from the "
+                               "run resumed from .pt over files")
+        steps = len(from_jax.dataloader)
+        del from_jax, from_pt, saved, jax_first, pt_first
+    for name, n in counts.items():
+        want = {"short_attention": 12, "short_attention_bwd": 12, "roi_align": 1,
+                "roi_align_bwd": 1}.get(name, 0) * steps
+        if n != want:
+            raise RuntimeError(f"io: {name} launched {n} times in {steps} steps, "
+                               f"expected {want}")
+    for k in kernels:
+        k["io_launches"] = counts[k["name"]]
+    out = {"card": card, "pages": IO_PAGES, "shards": n_shards, "parse": parse,
+           "num_params": num_params, "msgpack_gib": size / 2**30, "msgpack_write_s": write_s,
+           "msgpack_resume_s": resume_s, "pt_resume_s": pt_resume_s,
+           "epoch_images_per_s": rate, "launches": counts,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"  io phase: {out['phase_s']:.1f} s")
+    return out
+
+
 # stages whose device time the pyramid's layout moves (the convolutions
 # of the backbone's FPN and of the RPN head), printed from one profiled
 # request per bucket and one profiled 224 px train step
@@ -2043,6 +2262,10 @@ def main() -> int:
     train_state = phase_train_state(kernels, card)
     torch.cuda.empty_cache()
 
+    print("phase io")
+    io = phase_io(kernels, card)
+    torch.cuda.empty_cache()
+
     print("phase train_1024")
     train_1024 = phase_train_1024(kernels)
     torch.cuda.empty_cache()
@@ -2057,8 +2280,8 @@ def main() -> int:
 
     print("phase convergence")
     conv = phase_convergence(kernels, card)
-    paths = ("probe", "serving", "train", "train_state", "train_1024", "train_1024_relpos",
-             "main", "convergence")
+    paths = ("probe", "serving", "train", "train_state", "io", "train_1024",
+             "train_1024_relpos", "main", "convergence")
     for k in kernels:
         k["launches"] = sum(k[f"{path}_launches"] for path in paths)
         if k["launches"] <= 0:
@@ -2067,6 +2290,7 @@ def main() -> int:
     print(json.dumps({"serving": serving}))
     print(json.dumps({"train": train}))
     print(json.dumps({"train_state": train_state}))
+    print(json.dumps({"io": io}))
     print(json.dumps({"train_1024": train_1024}))
     print(json.dumps({"train_1024_relpos": train_1024_relpos}))
     print(json.dumps({"main": main_run}))

@@ -21,6 +21,8 @@ import json
 import os
 from typing import Any, Optional
 
+from layoutdit_tpu_torch.utils.paths import fs_for, open_path
+
 
 @dataclasses.dataclass(frozen=True)
 class DetectionBudget:
@@ -317,22 +319,22 @@ def run_config_from_dict(raw: dict) -> RunConfig:
 
 
 def load_run_config(path: str) -> RunConfig:
-    """``run_config_from_dict`` of a config JSON file."""
-    with open(path) as f:
+    """``run_config_from_dict`` of a config JSON file, local or at a
+    ``scheme://`` URL."""
+    with open_path(path, "r") as f:
         return run_config_from_dict(json.load(f))
 
 
 def get_run_config() -> RunConfig:
     """The run's config (counterpart of the JAX package's
-    ``get_layout_dit_config``): the local JSON file that the
-    ``LAYOUTDIT_CONFIG`` environment variable names, which must exist,
-    or the defaults when it is unset. There is no remote probe."""
+    ``get_layout_dit_config``): the JSON file that the ``LAYOUTDIT_CONFIG``
+    environment variable names (local or a ``scheme://`` URL), which must
+    exist, or the defaults when it is unset. There is no probe of the
+    JAX package's default gs:// location."""
     path = os.getenv("LAYOUTDIT_CONFIG")
     if not path:
         return RunConfig()
-    if "://" in path:
-        raise ValueError(f"LAYOUTDIT_CONFIG={path}: the port reads local config files only")
-    if not os.path.isfile(path):
+    if not fs_for(path).exists(path):
         raise FileNotFoundError(f"LAYOUTDIT_CONFIG={path} does not exist")
     return load_run_config(path)
 

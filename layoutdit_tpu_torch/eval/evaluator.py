@@ -1,6 +1,7 @@
 """Evaluator: batch inference over the eval split, COCO metrics, and box
-overlays (port of ``layoutdit_tpu/eval/evaluator.py``, single card,
-local paths).
+overlays (port of ``layoutdit_tpu/eval/evaluator.py``, single card).
+Predictions, page reads and overlays go through ``utils/paths.py``, so
+the data and the run's directory may be ``scheme://`` URLs.
 
   * The eval loader reads the configured eval split in file order
     (``shuffle=False``), keeps the last partial batch (``drop_last=False``)
@@ -23,15 +24,15 @@ branch (pasted instance masks and the segm metrics).
 
 from __future__ import annotations
 
+import io
 import json
-import os
 from typing import Optional
 
 import numpy as np
 import torch
 
 from layoutdit_tpu_torch.config import RunConfig
-from layoutdit_tpu_torch.data.dataset import PubLayNetDataset
+from layoutdit_tpu_torch.data.dataset import PubLayNetDataset, read_bytes
 from layoutdit_tpu_torch.data.pipeline import DetectionLoader
 from layoutdit_tpu_torch.eval.coco_eval import CocoEvaluator
 from layoutdit_tpu_torch.log import get_logger
@@ -41,6 +42,7 @@ from layoutdit_tpu_torch.models.detection.detector import (
     rescale_detections,
 )
 from layoutdit_tpu_torch.models.weights_io import tree_map
+from layoutdit_tpu_torch.utils.paths import fs_for, join_path, open_path
 
 logger = get_logger(__name__)
 
@@ -144,8 +146,7 @@ class Evaluator:
         return metrics
 
     def _save_predictions_json(self, all_predictions: list[dict]) -> None:
-        os.makedirs(os.path.dirname(self.predictions_path) or ".", exist_ok=True)
-        with open(self.predictions_path, "w") as f:
+        with open_path(self.predictions_path, "w") as f:
             json.dump(all_predictions, f)
         logger.info("Saved %d predictions to %s", len(all_predictions), self.predictions_path)
 
@@ -154,8 +155,8 @@ class Evaluator:
     def _load_pil(self, file_name: str):
         from PIL import Image
 
-        path = os.path.join(self.dataloader.dataset.images_root_dir, file_name)
-        with Image.open(path) as im:
+        raw = read_bytes(join_path(self.dataloader.dataset.images_root_dir, file_name))
+        with Image.open(io.BytesIO(raw)) as im:
             return im.convert("RGB")
 
     @staticmethod
@@ -192,9 +193,9 @@ class Evaluator:
             count += 1
             img = self._load_pil(img_rec["file_name"])
             self._draw_boxes(img, by_image[img_id], color)
-            os.makedirs(out_dir, exist_ok=True)
-            out = os.path.join(out_dir, f"{img_id}.jpg")
-            img.save(out, format="JPEG")
+            out = join_path(out_dir, f"{img_id}.jpg")
+            with open_path(out, "wb") as f:
+                img.save(f, format="JPEG")
             logger.info("Saved %s visualization for image %s to %s", what, img_id, out)
 
     def _label(self, cat_id: int) -> str:
@@ -204,10 +205,10 @@ class Evaluator:
         """The top ``max_per_image`` predictions (red), read back from
         ``predictions.json`` as the JAX evaluator does; nothing when
         ``score()`` wrote no file."""
-        if not os.path.exists(self.predictions_path):
+        if not fs_for(self.predictions_path).exists(self.predictions_path):
             logger.warning("No %s; no prediction overlays drawn", self.predictions_path)
             return
-        with open(self.predictions_path) as f:
+        with open_path(self.predictions_path, "r") as f:
             all_preds = json.load(f)
         by_image: dict[int, list] = {}
         for p in all_preds:

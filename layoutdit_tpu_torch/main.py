@@ -4,17 +4,22 @@ then model, then train, then score, then visualize.
     LAYOUTDIT_CONFIG=cfg.json python -m layoutdit_tpu_torch.main [--local_mode]
         [--resume PATH|auto] [--skip-train] [--skip-eval] [--device cuda|cpu]
 
-  * ``LAYOUTDIT_CONFIG`` names a local JSON config (the JAX package's
-    layout); without it the defaults hold.
+  * ``LAYOUTDIT_CONFIG`` names a JSON config (the JAX package's
+    layout), local or at a ``scheme://`` URL; without it the defaults
+    hold. The data and the artifact base (``eval_base_path``) may be
+    URLs too (``utils/paths.py``; fsspec is imported only for them).
   * ``--local_mode`` trains on the eval split, as in the JAX package.
-  * ``--resume`` applies when training: a checkpoint path, or ``auto``
-    for the newest one of the run (a fresh start when there is none).
+  * ``--resume`` applies when training: a checkpoint path (the port's
+    ``.pt`` or the JAX trainer's ``.msgpack``, local or a URL), or
+    ``auto`` for the newest one of the run (a fresh start when there is
+    none).
   * ``--skip-train`` scores the freshly built model; ``--skip-eval``
     trains only.
   * ``--device``: "cuda" (the default) or "cpu".
 
-The JAX flag ``--read_config`` (a probe of a remote config on gs://) is
-refused: the port reads local files only.
+The JAX flag ``--read_config`` (a probe of the fixed remote config
+``gs://layoutdit/layout_dit_config.json``) is refused: name the config
+in ``LAYOUTDIT_CONFIG`` instead.
 """
 
 from __future__ import annotations
@@ -36,17 +41,18 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--local_mode", action="store_true",
                         help="Train on the eval split (the local samples)")
     parser.add_argument("--read_config", action="store_true",
-                        help="Not supported by the port: set LAYOUTDIT_CONFIG to a local file")
+                        help="Not supported by the port: set LAYOUTDIT_CONFIG to the config file")
     parser.add_argument("--resume", default=None,
-                        help="Checkpoint path to resume from, or 'auto' for the newest "
-                             "checkpoint of the run (a fresh start when there is none)")
+                        help="Checkpoint to resume from (.pt, or a JAX .msgpack; local or a "
+                             "URL), or 'auto' for the newest checkpoint of the run (a fresh "
+                             "start when there is none)")
     parser.add_argument("--skip-train", action="store_true", help="Evaluate only")
     parser.add_argument("--skip-eval", action="store_true", help="Train only")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
     if args.read_config:
-        parser.error("--read_config: the port reads no remote config; point "
-                     "LAYOUTDIT_CONFIG at a local JSON file instead")
+        parser.error("--read_config: the port probes no fixed remote config; point "
+                     "LAYOUTDIT_CONFIG at the JSON file (local or a URL) instead")
 
     config = get_run_config()
     if args.local_mode:

@@ -4,7 +4,8 @@ and ``main`` share (port of ``layoutdit_tpu/models/model.py``).
 A thin stateful shell around the detector's parameter tree and its
 ``DetectorConfig`` (``models/detection/detector.py``): random
 initialisation from a seed, ``predict``, ``loss``, and full-state
-checkpoints in the port's ``.pt`` format (``train/checkpoint.py``).
+checkpoints: written in the port's ``.pt`` format, restored from a
+``.pt`` or from the JAX package's ``.msgpack`` (``train/checkpoint.py``).
 
 The JAX model warm-starts the encoder from a local pretrained DiT
 checkpoint when ``LAYOUTDIT_DIT_{BASE,LARGE}_PTH`` names one. Reading
@@ -105,7 +106,9 @@ class LayoutDetectionModel:
     def restore_checkpoint(self, path: str) -> dict:
         """Copy a checkpoint's parameters into this model's tensors (in
         place, so a trainer holding them sees them too) and return the
-        whole state (``params``, ``opt_state``, ``epoch``, ``extra``)."""
+        whole state (``params``, ``opt_state``, ``epoch``, ``extra``). A
+        ``.msgpack`` path is read as the JAX package writes it; a
+        ``.orbax`` one raises (queue 1 item 7)."""
         state = load_checkpoint(path, map_location=self.device)
         with torch.no_grad():
             for dst, src in zip(tree_leaves(self.params), tree_leaves(state["params"]),

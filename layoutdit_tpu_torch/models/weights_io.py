@@ -22,6 +22,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from layoutdit_tpu_torch.utils.flax_msgpack import lists_from_state_dict
+
 
 def tree_map(fn, tree):
     """``fn`` applied to every tensor of a parameter tree (nested dicts
@@ -70,6 +72,11 @@ def _ln(p: Mapping, device) -> dict:
 
 
 def _vit_layer(layer: Mapping, device) -> dict:
+    k_bias = layer["k"].get("bias")
+    if k_bias is not None and np.any(np.asarray(k_bias) != 0):
+        # the fused qkv holds its K-bias slot at zero (k_bias_slots)
+        raise ValueError("params_from_jax: a non-zero K bias has no place in the port's "
+                         "fused qkv, whose K-bias slot is held at zero")
     q, k, v = (np.asarray(layer[n]["kernel"]) for n in ("q", "k", "v"))
     bq, bv = np.asarray(layer["q"]["bias"]), np.asarray(layer["v"]["bias"])
     out = {
@@ -224,3 +231,116 @@ def params_to_jax(params: dict) -> dict:
             n: _linear_to_jax(params["box_predictor"][n]) for n in ("cls", "bbox")
         },
     }
+
+
+# ------------------------------------------------ optimizer state and EMA
+
+
+def _f32(a) -> np.ndarray:
+    """A leaf as a float32 numpy array (a bf16 tensor widens exactly)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().float().cpu().numpy()
+    return np.asarray(a, dtype=np.float32)
+
+
+def _moments_from_jax(tree: Mapping, device) -> list[torch.Tensor]:
+    """A moment tree in the JAX parameter layout -> its leaves in the
+    port's ``tree_leaves`` order, in the tree's dtype (bf16 or float32)."""
+    bf16 = any(isinstance(t, torch.Tensor) and t.dtype == torch.bfloat16
+               for t in tree_leaves(tree))
+    out = tree_leaves(params_from_jax(tree_map(_f32, tree), device))
+    return [t.to(torch.bfloat16) for t in out] if bf16 else out
+
+
+def _count(a, device) -> torch.Tensor:
+    return torch.tensor(int(np.asarray(a)), dtype=torch.int32, device=device)
+
+
+def train_state_from_jax(opt_state: Mapping, device="cpu") -> dict:
+    """The JAX trainer's optimizer slot, as flax's ``to_state_dict`` gives
+    it (numpy leaves, bf16 ones as ``torch.bfloat16``), -> the port's
+    (``train/optim.py``; ``{"tx": ..., "ema": ...}`` with an EMA).
+
+    The JAX slot is optax's chain state: ``adamw`` is ``(adam {count,
+    mu, nu}, {}, schedule {count})``, behind ``({}, ...)`` with gradient
+    clipping, inside ``{notfinite_count, last_finite, total_notfinite,
+    inner_state}`` with ``skip_nonfinite_updates``; the trainer wraps it
+    as ``{"tx": ..., "ema": ...}`` with an EMA
+    (``layoutdit_tpu/train/trainer.py``, ``_ckpt_opt_state``). ``mu`` and
+    ``nu`` share the parameters' tree and map through ``params_from_jax``
+    (``mu`` keeps its dtype); the counts are int32 scalars. The fused
+    qkv's K-bias slot is zero in both moments, as in the parameters
+    (``params_from_jax`` raises on a non-zero K bias)."""
+    opt_state = lists_from_state_dict(opt_state)
+    if isinstance(opt_state, dict) and "ema" in opt_state:
+        return {"tx": train_state_from_jax(opt_state["tx"], device),
+                "ema": params_from_jax(tree_map(_f32, opt_state["ema"]), device)}
+    outer = {}
+    chain = opt_state
+    if isinstance(chain, dict) and "inner_state" in chain:
+        outer = {"notfinite_count": _count(chain["notfinite_count"], device),
+                 "total_notfinite": _count(chain["total_notfinite"], device)}
+        chain = chain["inner_state"]
+    if isinstance(chain, list) and len(chain) == 2 and not chain[0]:
+        chain = chain[1]  # clip_by_global_norm's empty state comes first
+    if (not isinstance(chain, list) or len(chain) != 3
+            or set(chain[0]) != {"count", "mu", "nu"} or chain[1]):
+        raise ValueError("train_state_from_jax: not the JAX trainer's adamw chain state")
+    adam, schedule = chain[0], chain[2]
+    return {
+        "mu": _moments_from_jax(adam["mu"], device),
+        "nu": _moments_from_jax(adam["nu"], device),
+        "count": _count(adam["count"], device),
+        "schedule_count": _count(schedule["count"], device),
+        **outer,
+    }
+
+
+def _unflatten(template, leaves: list):
+    it = iter(leaves)
+    out = tree_map(lambda _: next(it), template)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the template has")
+    return out
+
+
+def _check_k_slots_zero(params: dict, leaves: list[torch.Tensor], what: str) -> None:
+    tree = _unflatten(params, leaves)
+    for i, (bias, k_slot) in enumerate(k_bias_slots(tree)):
+        if torch.any(bias.detach()[k_slot] != 0):
+            raise ValueError(f"{what}: encoder layer {i}'s K-bias slot is not zero; the JAX "
+                             "layout has no K bias to hold it")
+
+
+def train_state_to_jax(opt_state: dict, params: dict, clip: bool) -> dict:
+    """The inverse of ``train_state_from_jax``: the port's optimizer state
+    (with its EMA, when it has one) -> the JAX trainer's slot, as flax's
+    ``to_state_dict`` writes it, lists and tuples as lists. ``params``
+    gives the tree the moments' leaves fill; ``clip`` says whether the
+    chain starts with ``clip_by_global_norm`` (``grad_clip_norm`` > 0),
+    which the port's state does not record. A bf16 ``mu`` stays bf16, as
+    ``torch.bfloat16`` leaves; the counts are int32 0-d arrays."""
+    if "ema" in opt_state:
+        return {"tx": train_state_to_jax(opt_state["tx"], params, clip),
+                "ema": params_to_jax(opt_state["ema"])}
+
+    def moments(leaves, what):
+        _check_k_slots_zero(params, leaves, what)
+        tree = params_to_jax(_unflatten(params, leaves))
+        if leaves[0].dtype == torch.bfloat16:
+            tree = tree_map(lambda a: torch.from_numpy(a).to(torch.bfloat16), tree)
+        return tree
+
+    def count(t):
+        return np.asarray(int(t), dtype=np.int32)
+
+    adam = {"count": count(opt_state["count"]), "mu": moments(opt_state["mu"], "mu"),
+            "nu": moments(opt_state["nu"], "nu")}
+    state = [adam, {}, {"count": count(opt_state["schedule_count"])}]
+    if clip:
+        state = [{}, state]
+    if "notfinite_count" in opt_state:
+        n = int(opt_state["notfinite_count"])
+        state = {"notfinite_count": count(n), "last_finite": np.asarray(n == 0),
+                 "total_notfinite": count(opt_state["total_notfinite"]), "inner_state": state}
+    return state

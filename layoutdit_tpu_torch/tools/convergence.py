@@ -42,8 +42,10 @@ FLOOR_CLASSES = ("text", "title", "list", "figure")
 LOSS_RATIO = 0.4
 
 
-def recipe_config(root: str, compute_dtype: str, eval_interval: int = 0):
-    """Write the recipe's pages and config under ``root`` -> its ``RunConfig``."""
+def recipe_config(root: str, compute_dtype: str, eval_interval: int = 0, seed: int = 0):
+    """Write the recipe's pages and config under ``root`` -> its ``RunConfig``
+    (``seed`` is ``train.seed``: the weights' and the samplers' seed; the
+    pages stay those of seeds 0 and 777)."""
     from layoutdit_tpu_torch.config import load_run_config
     from layoutdit_tpu_torch.tools.make_fixture import make_fixture, write_fixture_config
 
@@ -58,7 +60,7 @@ def recipe_config(root: str, compute_dtype: str, eval_interval: int = 0):
     raw["local_mode"] = False
     raw["train_config"].update(checkpoint_interval=EPOCHS, lr_schedule="cosine",
                                learning_rate=2e-4, warmup_steps=48,
-                               eval_interval=eval_interval)
+                               eval_interval=eval_interval, seed=seed)
     raw["precision"] = {"compute_dtype": compute_dtype}
     with open(path, "w") as f:
         json.dump(raw, f, indent=2)
@@ -66,7 +68,7 @@ def recipe_config(root: str, compute_dtype: str, eval_interval: int = 0):
 
 
 def run_recipe(root: str, compute_dtype: str, device: str = "cuda",
-               eval_interval: int = 0) -> dict:
+               eval_interval: int = 0, seed: int = 0) -> dict:
     """Train and score the recipe under ``root`` -> the loss curve, the
     mid-training mAPs, the held-out metrics, wall times and steps/s."""
     import torch
@@ -75,7 +77,7 @@ def run_recipe(root: str, compute_dtype: str, device: str = "cuda",
     from layoutdit_tpu_torch.models.model import build_model
     from layoutdit_tpu_torch.train.trainer import Trainer
 
-    rc = recipe_config(root, compute_dtype, eval_interval)
+    rc = recipe_config(root, compute_dtype, eval_interval, seed)
     model = build_model(rc, seed=rc.train.seed, device=device)
     trainer = Trainer(rc, model, device=device)
     t0 = time.perf_counter()

@@ -1,24 +1,35 @@
-"""Training checkpoints with ``torch.save``/``torch.load`` (the JAX
-package writes msgpack; loading those waits for a later slice, since it
-needs flax/msgpack), their retention, the resume candidates, and an
+"""Training checkpoints: the port's ``torch.save`` files, the JAX
+package's msgpack files, their retention, the resume candidates, and an
 asynchronous writer (port of ``layoutdit_tpu/train/checkpoint.py``).
 
 A checkpoint holds the parameter tree, the optimizer state (the
 trainer's ``optim.AdamW`` state, or ``{"tx": ..., "ema": ...}`` with an
 EMA of the parameters), the epoch and a dict of extras (histories, the
-sampler generator's state). It is written to a temporary file in the
-same directory and renamed over the target, so a crash mid-write never
-leaves a truncated checkpoint under the final name. Loading uses
-``weights_only=True``: only tensors and plain containers are unpickled.
+sampler generator's state). The trainer writes ``.pt`` files, to a
+temporary file in the same directory renamed over the target, so a
+crash mid-write never leaves a truncated checkpoint under the final
+name. Loading a ``.pt`` uses ``weights_only=True``: only tensors and
+plain containers are unpickled.
 
-File names: ``epoch_<n>.pt`` (periodic), ``epoch_<n>_preempt.pt`` (a
-preemption's save, which may stop mid-epoch) and ``best.pt`` (the best
-mid-training eval).
+``load_checkpoint`` also reads the JAX trainer's ``.msgpack`` files
+(``b"LDTPU1\n"`` then flax msgpack of ``{"params", "opt_state", "meta":
+{"epoch", "extra" (JSON text), "has_opt_state"}}``) with the port's own
+decoder (``utils/flax_msgpack.py``) and maps them onto the port's trees
+(``models/weights_io.py``); ``save_as_jax`` writes that format from the
+port's state. Every path may be local or a ``scheme://`` URL
+(``utils/paths.py``).
+
+File names: ``epoch_<n>.{pt,msgpack}`` (periodic),
+``epoch_<n>_preempt.*`` (a preemption's save, which may stop mid-epoch)
+and ``best.*`` (the best mid-training eval). Loading one of the JAX
+package's sharded ``.orbax`` checkpoints raises: they wait for the
+parallel slice (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
 
 import copy
+import json
 import os
 import re
 from concurrent.futures import Future, ThreadPoolExecutor
@@ -26,12 +37,24 @@ from concurrent.futures import Future, ThreadPoolExecutor
 import torch
 
 from layoutdit_tpu_torch.log import get_logger
+from layoutdit_tpu_torch.models.weights_io import (
+    params_from_jax,
+    params_to_jax,
+    train_state_from_jax,
+    train_state_to_jax,
+)
+from layoutdit_tpu_torch.utils import flax_msgpack
+from layoutdit_tpu_torch.utils.paths import fs_for, open_path, read_bytearray
 
 logger = get_logger(__name__)
 
 # a run's checkpoints live under {run_dir}/CHECKPOINT_DIR
 CHECKPOINT_DIR = "model_checkpoints"
-_NAME = re.compile(r"epoch_(\d+)(?:_([a-z]+))?\.pt$")
+# the JAX package's name pattern (train/checkpoint.py, _list_checkpoints)
+# with the port's .pt beside its .msgpack
+_NAME = re.compile(r"epoch_(\d+)(?:_([a-z]+))?\.(pt|msgpack)$")
+# the JAX package's checkpoint magic
+JAX_MAGIC = b"LDTPU1\n"
 
 
 def checkpoint_file(run_dir: str, epoch: int | None = None, stem: str | None = None,
@@ -43,24 +66,85 @@ def checkpoint_file(run_dir: str, epoch: int | None = None, stem: str | None = N
     return f"{run_dir}/{CHECKPOINT_DIR}/{name}.pt"
 
 
-def save_checkpoint(path: str, params: dict, opt_state, epoch: int, extra: dict) -> str:
-    """Write ``{params, opt_state, epoch, extra}`` to ``path`` atomically."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+def _write_atomic(path: str, write) -> str:
+    """``write(f)`` into a temporary file beside ``path`` (``open_path``
+    makes the directory), then renamed over it (the ``.tmp`` suffix never
+    matches a checkpoint name)."""
+    path = os.fspath(path)
+    fs = fs_for(path)
     tmp = f"{path}.{os.getpid()}.tmp"
-    state = {"params": params, "opt_state": opt_state, "epoch": int(epoch),
-             "extra": extra}
     try:
-        torch.save(state, tmp)
-        os.replace(tmp, path)
+        with open_path(tmp, "wb") as f:
+            write(f)
+        fs.replace(tmp, path)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        if fs.exists(tmp):
+            fs.remove(tmp)
     return path
 
 
-def load_checkpoint(path: str, map_location: str | torch.device) -> dict:
-    """The dict ``save_checkpoint`` wrote, tensors on ``map_location``."""
-    return torch.load(path, map_location=map_location, weights_only=True)
+def save_checkpoint(path: str | os.PathLike, params: dict, opt_state, epoch: int,
+                    extra: dict) -> str:
+    """Write ``{params, opt_state, epoch, extra}`` to ``path`` atomically."""
+    state = {"params": params, "opt_state": opt_state, "epoch": int(epoch),
+             "extra": extra}
+    return _write_atomic(path, lambda f: torch.save(state, f))
+
+
+def save_as_jax(path: str, params: dict, opt_state, epoch: int, extra: dict,
+                clip: bool) -> str:
+    """The port's state as the JAX trainer's ``.msgpack`` checkpoint at
+    ``path``, atomically, written piece by piece: parameters through
+    ``params_to_jax``, the optimizer state (and EMA) through
+    ``train_state_to_jax`` (``clip``: the run clips gradients), tensors
+    in ``extra`` as lists of numbers (JSON)."""
+    extra = {k: v.tolist() if isinstance(v, torch.Tensor) else v for k, v in extra.items()}
+    payload = {
+        "params": params_to_jax(params),
+        "opt_state": {} if opt_state is None else train_state_to_jax(opt_state, params, clip),
+        "meta": {"epoch": int(epoch), "extra": json.dumps(extra),
+                 "has_opt_state": opt_state is not None},
+    }
+    parts = flax_msgpack.dump_parts(flax_msgpack.state_dict(payload))
+
+    def write(f):
+        f.write(JAX_MAGIC)
+        for part in parts:
+            f.write(part)
+
+    return _write_atomic(path, write)
+
+
+def _load_jax(path: str, map_location) -> dict:
+    """A JAX ``.msgpack`` checkpoint as the port's state dict."""
+    buf = read_bytearray(path)
+    if not buf.startswith(JAX_MAGIC):
+        raise ValueError(f"{path} is not a layoutdit_tpu checkpoint")
+    raw = flax_msgpack.lists_from_state_dict(
+        flax_msgpack.loads(memoryview(buf)[len(JAX_MAGIC):]))
+    meta = raw.get("meta", {})
+    opt_state = None
+    if meta.get("has_opt_state"):
+        opt_state = train_state_from_jax(raw["opt_state"], map_location)
+    return {"params": params_from_jax(raw["params"], map_location), "opt_state": opt_state,
+            "epoch": int(meta.get("epoch", 0)), "extra": json.loads(meta.get("extra", "{}"))}
+
+
+def load_checkpoint(path: str | os.PathLike, map_location: str | torch.device) -> dict:
+    """``{params, opt_state, epoch, extra}`` of a checkpoint, tensors on
+    ``map_location``: a ``.pt`` file as ``save_checkpoint`` wrote it, or a
+    JAX ``.msgpack`` file mapped onto the port's trees (``opt_state`` is
+    None when the file has none; its extras are the JAX trainer's)."""
+    path = os.fspath(path)
+    if path.rstrip("/").endswith(".orbax"):
+        raise NotImplementedError(
+            f"{path}: sharded .orbax checkpoints are not supported by the port yet; they wait "
+            "for the parallel slice (ROADMAP queue 1 item 7)"
+        )
+    if path.endswith(".msgpack"):
+        return _load_jax(path, map_location)
+    with open_path(path, "rb") as f:
+        return torch.load(f, map_location=map_location, weights_only=True)
 
 
 def host_snapshot(tree):
@@ -110,10 +194,11 @@ class AsyncCheckpointWriter:
 
 
 def _list_checkpoints(root: str) -> list[tuple[int, str, str]]:
-    """(epoch, tag, path) of every ``epoch_<n>[_tag].pt`` under ``root``
-    (``best.pt`` never matches); empty when the directory is absent."""
+    """(epoch, tag, path) of every ``epoch_<n>[_tag].{pt,msgpack}``
+    under ``root`` (``best.*`` never matches); empty when the directory is
+    absent."""
     try:
-        names = os.listdir(root)
+        names = fs_for(root).listdir(root)
     except FileNotFoundError:
         return []
     return [(int(m.group(1)), m.group(2) or "", f"{root}/{n}")
@@ -122,17 +207,18 @@ def _list_checkpoints(root: str) -> list[tuple[int, str, str]]:
 
 def prune_checkpoints(root: str, keep: int, current_epoch: int) -> list[str]:
     """Keep the newest ``keep`` periodic checkpoints under ``root`` and
-    delete the rest; tagged saves (``*_preempt``) and ``best.pt`` are
+    delete the rest; tagged saves (``*_preempt``) and ``best.*`` are
     never touched. ``current_epoch`` counts as present even while its
     asynchronous write is in flight. Returns the deleted paths."""
     if keep <= 0:
         return []
+    fs = fs_for(root)
     found = [(e, p) for e, tag, p in _list_checkpoints(root) if not tag]
     keep_set = set(sorted({e for e, _ in found} | {current_epoch}, reverse=True)[:keep])
     deleted = []
     for e, path in found:
         if e not in keep_set:
-            os.remove(path)
+            fs.remove(path)
             deleted.append(path)
             logger.info("Pruned checkpoint %s (keep_checkpoints=%d)", path, keep)
     return deleted

@@ -54,15 +54,20 @@ Differences from the JAX trainer, on purpose:
   * checkpoints are ``torch.save`` files (``train/checkpoint.py``), and
     the loss curve is skipped, with a warning, where matplotlib is not
     installed.
-Waiting for later slices: data-parallel evaluation, profiler upload,
-storage URLs and LoRA masks.
+``resume`` also takes the JAX trainer's ``.msgpack`` checkpoints
+(parameters, optimizer state and EMA, epoch, and the extras JAX
+restores; the sampler generator starts from the seed, since a JAX run
+has none). With ``data_loader_config.image_shards_dir`` the pages are
+read out of tar shards (``data/shards.py``). Every artifact path may be
+a ``scheme://`` URL (``utils/paths.py``).
+Waiting for later slices: data-parallel evaluation, profiler upload and
+LoRA masks.
 """
 
 from __future__ import annotations
 
 import json
 import math
-import os
 import signal
 import time
 
@@ -72,6 +77,7 @@ from torch.profiler import record_function
 from layoutdit_tpu_torch.config import RunConfig
 from layoutdit_tpu_torch.data.dataset import PubLayNetDataset
 from layoutdit_tpu_torch.data.pipeline import DetectionBatch, DetectionLoader
+from layoutdit_tpu_torch.data.shards import make_sharded_dataset
 from layoutdit_tpu_torch.log import get_logger
 from layoutdit_tpu_torch.models.detection.detector import (
     DetectorModel,
@@ -90,6 +96,7 @@ from layoutdit_tpu_torch.train.checkpoint import (
     save_checkpoint,
 )
 from layoutdit_tpu_torch.train.optim import AdamW, make_lr_schedule  # noqa: F401 (re-export)
+from layoutdit_tpu_torch.utils.paths import open_path
 
 logger = get_logger(__name__)
 
@@ -150,11 +157,6 @@ class Trainer:
         self.config = config
         self.model = model
         self.cfg = model.cfg
-        if config.data.image_shards_dir:
-            raise ValueError(
-                "data_loader_config.image_shards_dir: tar shards are not supported by the "
-                "port yet; they wait for a later slice"
-            )
         tc = config.train
         self.accum = max(1, tc.grad_accumulation_steps)
         if config.data.batch_size % self.accum:
@@ -204,8 +206,12 @@ class Trainer:
     def _build_dataloader(self) -> None:
         images_root, ann_json = self.config.train_split()
         dl = self.config.data
+        if dl.image_shards_dir:
+            dataset = make_sharded_dataset(dl.image_shards_dir, ann_json)
+        else:
+            dataset = PubLayNetDataset(images_root, ann_json)
         self.dataloader = DetectionLoader(
-            PubLayNetDataset(images_root, ann_json),
+            dataset,
             batch_size=dl.batch_size,
             shuffle=dl.shuffle,
             num_workers=dl.num_workers,
@@ -446,7 +452,17 @@ class Trainer:
         path = checkpoint_file(self.config.artifact_dir, epoch, stem, tag)
         params = self.ema_params if stem == "best" and self.ema_params is not None \
             else self.model.params
-        extra = {
+        extra = self.checkpoint_extra(extra)
+        if writer is not None:
+            writer.save(path, params, self._opt_state_for_checkpoint(), epoch, extra)
+            return path
+        return save_checkpoint(path, tree_map(lambda t: t.detach().cpu(), params),
+                               self._opt_state_for_checkpoint(), epoch, extra)
+
+    def checkpoint_extra(self, extra: dict | None = None) -> dict:
+        """The extras a checkpoint carries (see ``save_checkpoint``), with
+        ``extra``'s entries added."""
+        return {
             "loss_history": self.loss_history,
             "metrics_history": self.metrics_history,
             "updates": self.updates,
@@ -457,15 +473,11 @@ class Trainer:
             "steps_per_dispatch": self.steps_per_dispatch,
             **(extra or {}),
         }
-        if writer is not None:
-            writer.save(path, params, self._opt_state_for_checkpoint(), epoch, extra)
-            return path
-        return save_checkpoint(path, tree_map(lambda t: t.detach().cpu(), params),
-                               self._opt_state_for_checkpoint(), epoch, extra)
 
     def resume_candidates(self) -> list[str]:
-        """This run's ``epoch_{n}.pt`` and ``epoch_{n}_preempt.pt``
-        checkpoints, best first (``list_resume_candidates``)."""
+        """This run's ``epoch_{n}`` and ``epoch_{n}_preempt`` checkpoints
+        (``.pt``, or the JAX trainer's ``.msgpack``), best first
+        (``list_resume_candidates``)."""
         return [p for _, _, p in list_resume_candidates(self.checkpoint_dir())]
 
     def resume(self, path: str) -> None:
@@ -503,43 +515,57 @@ class Trainer:
         else:
             state = load_checkpoint(path, map_location=self.device)
         opt_state = state["opt_state"]
-        if "param_groups" in opt_state:
+        if opt_state is None:
+            # a JAX checkpoint saved without its optimizer state (a
+            # converted model): the weights only, as the JAX trainer does
+            logger.warning("%s has no optimizer state; resuming weights only", path)
+        elif "param_groups" in opt_state:
             raise ValueError(
                 f"{path}: its optimizer state is a torch.optim.AdamW state_dict, written by "
                 "an earlier trainer of the port; this trainer resumes only its own optax-"
                 "layout state (train/optim.py). Its weights load with "
                 "LayoutDetectionModel.restore_checkpoint."
             )
-        if ("ema" in opt_state) != (self.ema_params is not None):
+        elif ("ema" in opt_state) != (self.ema_params is not None):
             raise ValueError(f"{path}: the checkpoint {'has' if 'ema' in opt_state else 'lacks'} "
                              "an EMA of the parameters and this run's ema_decay disagrees")
-        tx = opt_state["tx"] if self.ema_params is not None else opt_state
-        if set(tx) != set(self.opt_state) or tx["mu"][0].dtype != self.opt_state["mu"][0].dtype:
-            raise ValueError(
-                f"{path}: its optimizer state ({sorted(tx)}, mu {tx['mu'][0].dtype}) does not "
-                "match this run's skip_nonfinite_updates and adam_mu_dtype"
-            )
+        tx = None
+        if opt_state is not None:
+            tx = opt_state["tx"] if self.ema_params is not None else opt_state
+            if (set(tx) != set(self.opt_state)
+                    or tx["mu"][0].dtype != self.opt_state["mu"][0].dtype):
+                raise ValueError(
+                    f"{path}: its optimizer state ({sorted(tx)}, mu {tx['mu'][0].dtype}) does "
+                    "not match this run's skip_nonfinite_updates and adam_mu_dtype"
+                )
         with torch.no_grad():
             for dst, src in zip(self._leaves, tree_leaves(state["params"]), strict=True):
                 dst.copy_(src)
-        if self.ema_params is not None:
-            with torch.no_grad():
-                for dst, src in zip(tree_leaves(self.ema_params),
-                                    tree_leaves(opt_state["ema"]), strict=True):
-                    dst.copy_(src)
-        self.opt_state = tx
+        if tx is not None:
+            self.opt_state = tx
+            if self.ema_params is not None:
+                with torch.no_grad():
+                    for dst, src in zip(tree_leaves(self.ema_params),
+                                        tree_leaves(opt_state["ema"]), strict=True):
+                        dst.copy_(src)
         extra = state["extra"]
         self.epoch = state["epoch"]
-        self.updates = extra["updates"]
-        self.loss_history = list(extra["loss_history"])
-        self.metrics_history = list(extra["metrics_history"])
-        self.generator.set_state(extra["generator_state"].cpu())
+        self.loss_history = list(extra.get("loss_history", []))
+        self.metrics_history = list(extra.get("metrics_history", []))
+        # a JAX checkpoint carries no generator: the samplers draw from the
+        # seed's stream (torch cannot reproduce jax.random's anyway)
+        if extra.get("generator_state") is not None:
+            self.generator.set_state(
+                torch.as_tensor(extra["generator_state"], dtype=torch.uint8).cpu())
         bm = extra.get("best_map")
         self.best_map = float(bm) if bm is not None else float("-inf")
         self.best_checkpoint_path = extra.get("best_checkpoint_path")
-        self._evals_since_best = int(extra.get("evals_since_best", 0))
-        self._start_step = int(extra.get("step_in_epoch", 0))
-        saved_s = int(extra.get("steps_per_dispatch", 0))
+        self._evals_since_best = int(extra.get("evals_since_best") or 0)
+        self._start_step = int(extra.get("step_in_epoch") or 0)
+        # JAX counts the updates from the epoch and the step in it
+        self.updates = int(extra.get("updates", self.epoch * len(self.dataloader)
+                                     + self._start_step))
+        saved_s = int(extra.get("steps_per_dispatch") or 0)
         if saved_s and saved_s != self.steps_per_dispatch:
             logger.info("Resume: adopting the checkpoint's steps_per_dispatch=%d (this run "
                         "resolved %d)", saved_s, self.steps_per_dispatch)
@@ -566,15 +592,14 @@ class Trainer:
         ax.set_ylabel("Average Loss")
         ax.set_title("Training Loss per Epoch")
         path = f"{self.config.artifact_dir}/loss_history/loss_curve.png"
-        os.makedirs(os.path.dirname(path), exist_ok=True)
         logger.info("Saving loss to %s", path)
-        fig.savefig(path, format="png", bbox_inches="tight")
+        with open_path(path, "wb") as f:
+            fig.savefig(f, format="png", bbox_inches="tight")
         plt.close(fig)
 
     def _save_metrics(self) -> None:
         """Rewrite ``metrics/metrics.jsonl`` (one record per epoch)."""
         path = f"{self.config.artifact_dir}/metrics/metrics.jsonl"
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        with open(path, "w") as f:
+        with open_path(path, "w") as f:
             for rec in self.metrics_history:
                 f.write(json.dumps(rec) + "\n")

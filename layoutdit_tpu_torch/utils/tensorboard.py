@@ -9,15 +9,18 @@ Events are hand-encoded protobuf (``tensorflow.Event`` with
 
 with masked_crc(x) = rotr15(crc32c(x)) + 0xa282ead8 (mod 2^32). The
 first event of a file carries file_version "brain.Event:2". The writer
-opens files with plain ``open`` (storage URLs wait for a later slice of
-the port); ``read_events`` parses a file back, checking every CRC.
+rewrites the whole file at each flush (no append, which object stores
+lack), through ``utils/paths.open_path``, so the log directory may be a
+``scheme://`` URL; ``read_events`` parses a file back, checking every
+CRC.
 """
 
 from __future__ import annotations
 
-import os
 import struct
 import time
+
+from layoutdit_tpu_torch.utils.paths import open_path
 
 _CRC_TABLE: list[int] = []
 
@@ -128,8 +131,7 @@ class TensorBoardWriter:
     def flush(self) -> None:
         if not self._dirty:
             return
-        os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
-        with open(self.path, "wb") as f:
+        with open_path(self.path, "wb") as f:
             f.write(bytes(self._buf))
         self._dirty = False
 
@@ -175,7 +177,7 @@ def _fields(buf: bytes):
 def read_events(path: str) -> list[dict]:
     """The events of a file: ``{"wall_time", "step", "file_version"?,
     "scalars": {tag: value}}`` each. Raises on a bad length or data CRC."""
-    with open(path, "rb") as f:
+    with open_path(path, "rb") as f:
         data = f.read()
     events, pos = [], 0
     while pos < len(data):

@@ -240,7 +240,8 @@ def _port_sources():
 
 
 def test_port_imports_neither_jax_nor_layoutdit_tpu():
-    banned = {"jax", "jaxlib", "flax", "optax", "layoutdit_tpu"}
+    # msgpack too: the port reads and writes flax's format with its own codec
+    banned = {"jax", "jaxlib", "flax", "optax", "layoutdit_tpu", "msgpack"}
     found = []
     for path in _port_sources():
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -254,13 +255,14 @@ def test_port_imports_neither_jax_nor_layoutdit_tpu():
 
 
 def test_port_imports_with_jax_blocked():
-    # the port must import on a machine without JAX, pydantic, PIL or msgpack
+    # the port must import on a machine without JAX, pydantic, PIL, msgpack
+    # or fsspec (fsspec is imported only for a scheme:// path)
     code = (
         "import importlib, pkgutil, sys\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
         "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'layoutdit_tpu',\n"
-        "                                  'pydantic', 'PIL', 'msgpack'):\n"
+        "                                  'pydantic', 'PIL', 'msgpack', 'fsspec'):\n"
         "            raise ImportError('blocked ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "import layoutdit_tpu_torch\n"
