@@ -45,7 +45,18 @@ windowed high-res config ``configs/train_1024_window.json`` (dit-base,
 ``train_1024``) and with its BEiT-layout variant
 ``configs/train_1024_window_relpos.json`` (a relative-position table in
 every layer: every biased attention on the flash kernels, the bias
-gradient on the dbias kernel; phase ``train_1024_relpos``). Then it runs
+gradient on the dbias kernel; phase ``train_1024_relpos``). Phase
+``encoder`` covers the encoder's options: the short kernels with the
+key mask of ViTDet-L's 14 x 14 windows over a 1024 px page (the grid
+padded, 25 windows of 196 slots), held to their plain versions and, with
+an all-True mask, to the unmasked kernels' bits, and rows 1-5 at
+dit-large's shapes, all beside SDPA; dit-large trained at 1024 px in that
+layout (``configs/train_1024_large_window14.json``) with remat off,
+"full" and "dots" (the same gradient bits from one state, peak memory
+ordered full < dots < off, taps and gradients against float32 plain
+versions on the card); ``configs/fsdp_large.json`` as it is (dit-large,
+224 px, two micro-batches, remat, its mesh on this one card); and
+dit-large serving both buckets. Then it runs
 the port's command line, ``layoutdit_tpu_torch.main``, at the default
 config: one epoch with a mid-training COCO eval, the final score of
 held-out pages, ``predictions.json``, ``best.pt`` and the overlays, and
@@ -67,6 +78,7 @@ exits non-zero without a GPU.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -82,6 +94,8 @@ ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "serving_1024.json"
 TRAIN_1024_CONFIG = ROOT / "configs" / "train_1024_window.json"
 RELPOS_CONFIG = ROOT / "configs" / "train_1024_window_relpos.json"
+LARGE_CONFIG = ROOT / "configs" / "train_1024_large_window14.json"
+FSDP_LARGE_CONFIG = ROOT / "configs" / "fsdp_large.json"
 
 # NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit
 PEAK_BF16_FLOPS = 989e12
@@ -197,27 +211,62 @@ def _qkv(gen, b, n, h, d):
     return [qkv[..., i * hd:(i + 1) * hd].view(b, n, h, d) for i in range(3)]
 
 
-def _short_fwd_case(gen, b, n, h=12, d=64) -> dict:
+def _mask_work(b, n, key_mask) -> tuple[int, int]:
+    """(bytes of the mask, key columns the data needs summed over the
+    batch: N a row without a mask, the kept keys of its row with one)."""
+    from layoutdit_tpu_torch.ops.short_attention import key_mask_rows
+
+    if key_mask is None:
+        return 0, b * n
+    return key_mask.numel(), int(key_mask_rows(key_mask, b).sum())
+
+
+def _sdpa_mask(b, key_mask):
+    """SDPA's boolean attn_mask [B, 1, 1, N] (True takes part) for a key
+    mask read modulo its rows."""
+    from layoutdit_tpu_torch.ops.short_attention import key_mask_rows
+
+    return None if key_mask is None else key_mask_rows(key_mask, b)[:, None, None]
+
+
+def _short_fwd_case(gen, b, n, h=12, d=64, key_mask=None) -> dict:
+    """Row 1 at one shape against its plain version, timed on the card
+    alone and per call, beside SDPA. With a key mask [rows, N]: the mask
+    in the plain version and SDPA too, and the kernel under an all-True
+    mask giving the unmasked kernel's bits. The bound counts Q, K, V, O
+    and the mask once, and the products over the kept keys only."""
     from layoutdit_tpu_torch.ops import short_attention as sa
 
     q, k, v = _qkv(gen, b, n, h, d)
-    err, tol = _check_close(f"short_attention B={b} N={n}", sa.short_attention(q, k, v),
-                            sa.short_attention_plain(q, k, v))
+    label = f"short_attention B={b} N={n} H={h}" + (" (key mask)" if key_mask is not None else "")
+    err, tol = _check_close(label, sa.short_attention(q, k, v, key_mask=key_mask),
+                            sa.short_attention_plain(q, k, v, key_mask=key_mask))
+    if key_mask is not None:
+        everything = torch.ones_like(key_mask)
+        if not torch.equal(sa.short_attention(q, k, v, key_mask=everything),
+                           sa.short_attention(q, k, v)):
+            raise RuntimeError(f"{label}: an all-True mask changed the kernel's bits")
+        print(f"  {label}: an all-True mask gives the unmasked kernel's bits")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    nbytes = 4 * b * n * h * d * 2
-    bound, by = _bound_ms(nbytes, 4 * b * h * n * n * d)
-    ms = _device_ms(lambda: sa.short_attention(q, k, v), 50)
-    _print_share(f"short_attention B={b} N={n}", ms, bound, by)
+    mask_t = _sdpa_mask(b, key_mask)
+    mask_bytes, cols = _mask_work(b, n, key_mask)
+    nbytes = 4 * b * n * h * d * 2 + mask_bytes
+    bound, by = _bound_ms(nbytes, 4 * h * n * cols * d)
+    kernel = lambda: sa.short_attention(q, k, v, key_mask=key_mask)  # noqa: E731
+    library = lambda: sdpa(qt, kt, vt, attn_mask=mask_t)  # noqa: E731
+    ms = _device_ms(kernel, 50)
+    _print_share(label, ms, bound, by)
     return {
-        "shape": f"B={b} N={n} H={h} D={d} bf16",
+        "shape": f"B={b} N={n} H={h} D={d} bf16"
+                 + (f", key mask [{key_mask.shape[0]}, {n}]" if key_mask is not None else ""),
         "max_abs_err": err, "tolerance": tol,
         "ms": ms,  # the card's time (_device_ms); call_ms with the host's
-        "call_ms": _time_ms(lambda: sa.short_attention(q, k, v), 50),
-        "plain_ms": _time_ms(lambda: sa.short_attention_plain(q, k, v), 20),
+        "call_ms": _time_ms(kernel, 50),
+        "plain_ms": _time_ms(lambda: sa.short_attention_plain(q, k, v, key_mask=key_mask), 20),
         "bound_ms": bound, "bound_by": by, "bound_share": bound / ms,
-        "library_ms": _device_ms(lambda: sdpa(qt, kt, vt), 50),
-        "library_call_ms": _time_ms(lambda: sdpa(qt, kt, vt), 50),
+        "library_ms": _device_ms(library, 50),
+        "library_call_ms": _time_ms(library, 50),
     }
 
 
@@ -421,45 +470,64 @@ def phase_roi(gen) -> dict:
     return entry
 
 
-def _short_bwd_case(gen, b, n, h=12, d=64) -> dict:
+def _short_bwd_case(gen, b, n, h=12, d=64, key_mask=None) -> dict:
+    """Row 2 at one shape (see ``_short_fwd_case``; with a key mask also
+    the dropped keys' dk and dv rows exactly 0)."""
     from layoutdit_tpu_torch.ops import short_attention as sa
 
     q, k, v = _qkv(gen, b, n, h, d)
-    o = sa.short_attention(q, k, v)
+    o = sa.short_attention(q, k, v, key_mask=key_mask)
     do = torch.randn(b, n, h, d, generator=gen, device="cuda").to(torch.bfloat16)
     dqkv = torch.empty(b, n, 3 * h * d, dtype=torch.bfloat16, device="cuda")
     out = tuple(sa.split_qkv(dqkv, h))
-    got = sa.short_attention_bwd(q, k, v, o, do, out=out)
+    got = sa.short_attention_bwd(q, k, v, o, do, out=out, key_mask=key_mask)
     again = torch.empty_like(dqkv)
-    sa.short_attention_bwd(q, k, v, o, do, out=tuple(sa.split_qkv(again, h)))
-    want = sa.short_attention_bwd_plain(q, k, v, o, do)
+    sa.short_attention_bwd(q, k, v, o, do, out=tuple(sa.split_qkv(again, h)), key_mask=key_mask)
+    want = sa.short_attention_bwd_plain(q, k, v, o, do, key_mask=key_mask)
+    label = f"short_attention_bwd B={b} N={n} H={h}" + (" (key mask)" if key_mask is not None
+                                                        else "")
     # at N=1 the softmax is constant, so dq and dk are 0 in exact
     # arithmetic: both sides give fp32 rounding noise of dO.v - dO.o (terms
     # of order 10), which the relative tolerance cannot measure; the floor
     # is far below one bf16 ulp of that call's dv (|dv| of order 1)
     floor = SINGLE_TOKEN_FLOOR if n == 1 else 0.0
-    errs, tols = zip(*(_check_close(f"short_attention_bwd B={b} N={n} {name}", g, w, floor)
+    errs, tols = zip(*(_check_close(f"{label} {name}", g, w, floor)
                        for name, g, w in zip(("dq", "dk", "dv"), got, want)))
     del want
     if not torch.equal(dqkv, again):
-        raise RuntimeError(f"short_attention_bwd B={b} N={n}: two runs gave different gradients")
+        raise RuntimeError(f"{label}: two runs gave different gradients")
     del again
+    if key_mask is not None:
+        dropped = ~_sdpa_mask(b, key_mask)[:, 0, 0]  # [B, N]
+        if got[1][dropped].any() or got[2][dropped].any():
+            raise RuntimeError(f"{label}: a dropped key has a non-zero dk or dv row")
+        everything = torch.ones_like(key_mask)
+        if not all(torch.equal(x, y) for x, y in zip(
+                sa.short_attention_bwd(q, k, v, o, do, key_mask=everything),
+                sa.short_attention_bwd(q, k, v, o, do))):
+            raise RuntimeError(f"{label}: an all-True mask changed the kernel's bits")
+        print(f"  {label}: dropped keys' dk, dv rows 0; an all-True mask gives the unmasked "
+              f"kernel's bits")
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-    ot = sdpa(qt, kt, vt)
+    ot = sdpa(qt, kt, vt, attn_mask=_sdpa_mask(b, key_mask))
     dot = do.transpose(1, 2)
-    nbytes = 8 * b * n * h * d * 2  # q, k, v, o, dO in; dq, dk, dv out
-    bound, by = _bound_ms(nbytes, 10 * b * h * n * n * d)
-    ms = _device_ms(lambda: sa.short_attention_bwd(q, k, v, o, do, out=out), 20)
-    _print_share(f"short_attention_bwd B={b} N={n}", ms, bound, by)
+    mask_bytes, cols = _mask_work(b, n, key_mask)
+    nbytes = 8 * b * n * h * d * 2 + mask_bytes  # q, k, v, o, dO in; dq, dk, dv out
+    bound, by = _bound_ms(nbytes, 10 * h * n * cols * d)
+    kernel = lambda: sa.short_attention_bwd(q, k, v, o, do, out=out, key_mask=key_mask)  # noqa
+    ms = _device_ms(kernel, 20)
+    _print_share(label, ms, bound, by)
     grad = lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)  # noqa: E731
     return {
-        "shape": f"B={b} N={n} H={h} D={d} bf16, q/k/v and dq/dk/dv strided in fused [B, N, 3HD]",
+        "shape": f"B={b} N={n} H={h} D={d} bf16, q/k/v and dq/dk/dv strided in fused [B, N, 3HD]"
+                 + (f", key mask [{key_mask.shape[0]}, {n}]" if key_mask is not None else ""),
         "max_abs_err": max(errs), "tolerance": tols[errs.index(max(errs))],
         "ms": ms,  # the card's time (_device_ms); call_ms with the host's
-        "call_ms": _time_ms(lambda: sa.short_attention_bwd(q, k, v, o, do, out=out), 20),
-        "plain_ms": _time_ms(lambda: sa.short_attention_bwd_plain(q, k, v, o, do), 5),
+        "call_ms": _time_ms(kernel, 20),
+        "plain_ms": _time_ms(lambda: sa.short_attention_bwd_plain(q, k, v, o, do,
+                                                                  key_mask=key_mask), 5),
         "bound_ms": bound, "bound_by": by, "bound_share": bound / ms,
         "library_ms": _device_ms(grad, 20),
         "library_call_ms": _time_ms(grad, 20),
@@ -564,6 +632,48 @@ def _flash_bwd_case(gen, b: int, n: int, with_bias: bool, h=12, d=64,
     return res
 
 
+def _flash_bwd_work(b: int, n: int, h: int, d: int = 64):
+    """(bytes, operations) of each flash backward kernel and of the whole
+    backward at one shape, without the bias's bytes; and the bias [H, N, N]
+    fp32's bytes."""
+    row = b * n * h * d * 2  # one bf16 [B, N, H, D] tensor
+    vec = b * h * n * 4  # one fp32 [B*H, N] vector
+    flops = 2 * b * h * n * n * d  # one N x N x D product over all heads
+    # dq: S, dP and dQ from q, k, v, o, dO, lse; out dq and delta.
+    # dkdv: S, dP, dV and dK from q, k, v, dO, lse, delta; out dk and dv.
+    # dbias: S and dP from q, k, v, dO, lse, delta; out dbias (the bias
+    # read and dbias written counted by the caller).
+    return {"dq": (6 * row + 2 * vec, 3 * flops), "dkdv": (6 * row + 2 * vec, 4 * flops),
+            "dbias": (4 * row + 2 * vec, 2 * flops),
+            "pair": (8 * row + vec, 5 * flops)}, h * n * n * 4
+
+
+def _flash_bwd_entry(entry: dict, part: str, key: str, r: dict, b: int, n: int, h: int,
+                     with_bias: bool, d: int = 64) -> None:
+    """``entry`` (row 4 or 5 of the kernels line) gains the ``key``-prefixed
+    numbers of its kernel (``part``: dq or dkdv) from one
+    ``_flash_bwd_case`` result ``r``."""
+    w, bias_bytes = _flash_bwd_work(b, n, h, d)
+    if not with_bias:
+        bias_bytes = 0
+    (err, tol), ms = r[part]
+    bound, by = _bound_ms(w[part][0] + bias_bytes, w[part][1])
+    pair_bound, pair_by = _bound_ms(w["pair"][0] + bias_bytes, w["pair"][1])
+    _print_share(f"flash_attention_bwd_{part} {key or 'nobias_'}B={b} N={n} H={h}", ms,
+                 bound, by)
+    entry.update({
+        f"{key}bound_share": bound / ms,
+        f"{key}shape": f"B={b} N={n} H={h} D={d} bf16"
+                       + (f", fp32 bias [{h}, {n}, {n}]" if with_bias else ", no bias")
+                       + ", q/k/v and dq/dk/dv strided in fused [B, N, 3HD]",
+        f"{key}max_abs_err": err, f"{key}tolerance": tol, f"{key}ms": ms,
+        f"{key}plain_ms": r["plain"], f"{key}bound_ms": bound,
+        f"{key}bound_by": by, f"{key}library_ms": r["library"],
+        f"{key}pair_ms": r["dq"][1] + r["dkdv"][1],
+        f"{key}pair_bound_ms": pair_bound, f"{key}pair_bound_by": pair_by,
+    })
+
+
 def phase_flash_bwd(gen) -> list[dict]:
     """The flash backward kernels at the 1024 px train steps' shapes: the
     global layers (B=4, N=4097, H=12, D=64) without and with a bias, and
@@ -579,20 +689,6 @@ def phase_flash_bwd(gen) -> list[dict]:
     res["w256_bias_"] = _flash_bwd_case(gen, wb, wn, True)
     print("  flash_attention_bwd: two runs gave the same bits, with and without bias")
 
-    def work(b, n):
-        """(bytes, operations) of each kernel and of the whole backward at
-        one shape, without the bias's bytes; the bias [H, N, N] fp32."""
-        row = b * n * h * d * 2  # one bf16 [B, N, H, D] tensor
-        vec = b * h * n * 4  # one fp32 [B*H, N] vector
-        flops = 2 * b * h * n * n * d  # one N x N x D product over all heads
-        # dq: S, dP and dQ from q, k, v, o, dO, lse; out dq and delta.
-        # dkdv: S, dP, dV and dK from q, k, v, dO, lse, delta; out dk and dv.
-        # dbias: S and dP from q, k, v, dO, lse, delta; out dbias (the bias
-        # read and dbias written counted by the caller).
-        return {"dq": (6 * row + 2 * vec, 3 * flops), "dkdv": (6 * row + 2 * vec, 4 * flops),
-                "dbias": (4 * row + 2 * vec, 2 * flops),
-                "pair": (8 * row + vec, 5 * flops)}, h * n * n * 4
-
     entries = []
     # (no-bias kernel body, bias kernel body) lines in the JAX source
     for part, (line, bias_line) in (("dkdv", (280, 217)), ("dq", (286, 253))):
@@ -604,25 +700,7 @@ def phase_flash_bwd(gen) -> list[dict]:
             "plain_and_library_compute": "every gradient in one call (compare with pair_ms)",
         }
         for key, bb, nn in (("", b, n), ("bias_", b, n), ("w256_bias_", wb, wn)):
-            w, bias_bytes = work(bb, nn)
-            if not key:
-                bias_bytes = 0
-            (err, tol), ms = res[key][part]
-            bound, by = _bound_ms(w[part][0] + bias_bytes, w[part][1])
-            pair_bound, pair_by = _bound_ms(w["pair"][0] + bias_bytes, w["pair"][1])
-            _print_share(f"flash_attention_bwd_{part} {key or 'nobias_'}B={bb} N={nn}", ms,
-                         bound, by)
-            entry.update({
-                f"{key}bound_share": bound / ms,
-                f"{key}shape": f"B={bb} N={nn} H={h} D={d} bf16"
-                               + (f", fp32 bias [{h}, {nn}, {nn}]" if key else ", no bias")
-                               + ", q/k/v and dq/dk/dv strided in fused [B, N, 3HD]",
-                f"{key}max_abs_err": err, f"{key}tolerance": tol, f"{key}ms": ms,
-                f"{key}plain_ms": res[key]["plain"], f"{key}bound_ms": bound,
-                f"{key}bound_by": by, f"{key}library_ms": res[key]["library"],
-                f"{key}pair_ms": res[key]["dq"][1] + res[key]["dkdv"][1],
-                f"{key}pair_bound_ms": pair_bound, f"{key}pair_bound_by": pair_by,
-            })
+            _flash_bwd_entry(entry, part, key, res[key], bb, nn, h, with_bias=bool(key))
         entries.append(entry)
 
     entry = {
@@ -632,7 +710,7 @@ def phase_flash_bwd(gen) -> list[dict]:
         "plain_and_library_compute": "every gradient in one call, the bias's included",
     }
     for key, bb, nn in (("", b, n), ("w256_", wb, wn)):
-        w, bias_bytes = work(bb, nn)
+        w, bias_bytes = _flash_bwd_work(bb, nn, h, d)
         r = res[key + "bias_"]
         (err, tol), ms = r["dbias"]
         # the bias read once and dbias written once
@@ -913,8 +991,16 @@ def _counters():
     }
 
 
+# the short kernels' launches with a key mask (padded window slots), a
+# part of their launches
+MASKED = {"short_attention_masked": "short_attention",
+          "short_attention_bwd_masked": "short_attention_bwd"}
+
+
 def _counts() -> dict:
-    return {name: fn.launches for name, fn in _counters().items()}
+    counters = _counters()
+    return {**{name: fn.launches for name, fn in counters.items()},
+            **{name: counters[of].masked_launches for name, of in MASKED.items()}}
 
 
 def _reset_counts() -> None:
@@ -922,6 +1008,8 @@ def _reset_counts() -> None:
 
     for fn in _counters().values():
         fn.launches = 0
+    for of in MASKED.values():
+        _counters()[of].masked_launches = 0
     nms.nms_mask.host_syncs = 0
 
 
@@ -946,37 +1034,57 @@ def _check_pages(pages, results) -> int:
     return n_dets
 
 
-def _encoder_reference(model, images: dict) -> None:
+def _reference(on_card: bool):
+    """Where the float32 reference runs: on the CPU (the wrappers take
+    their plain versions there), or on the card with every attention
+    wrapper swapped for its plain version (``kernel_swap.swapped``, for an
+    encoder too wide for the CPU in the time) -> (device, context)."""
+    import contextlib
+
+    if not on_card:
+        return "cpu", contextlib.nullcontext()
+    from layoutdit_tpu_torch.tools.kernel_swap import swapped
+
+    return "cuda", swapped("plain_attention")
+
+
+def _encoder_reference(model, images: dict, on_card: bool = False) -> None:
     """Encoder taps of one page per bucket: bf16 with the kernels on the
-    card vs float32 plain versions on the CPU, same weights."""
+    card vs float32 plain versions, same weights (``_reference``)."""
     from layoutdit_tpu_torch.models.detection.detector import _normalize
     from layoutdit_tpu_torch.models.vit import vit_forward
     from layoutdit_tpu_torch.models.weights_io import tree_map
 
     cfg = model.cfg
-    vit_cpu = tree_map(lambda t: t.cpu(), model.params["backbone"]["vit"])
+    device, plain = _reference(on_card)
+    vit_ref = tree_map(lambda t: t.to(device, torch.float32), model.params["backbone"]["vit"])
     for size, img in images.items():
-        x = _normalize(img[None].cpu(), cfg)
+        x = _normalize(img[None].float(), cfg)
         with torch.inference_mode():
             got = vit_forward(model.params["backbone"]["vit"], x.cuda().to(torch.bfloat16),
                               cfg.backbone.vit, cfg.backbone.taps, torch.bfloat16)
-            want = vit_forward(vit_cpu, x, cfg.backbone.vit, cfg.backbone.taps, torch.float32)
+            with plain:
+                want = vit_forward(vit_ref, x.to(device), cfg.backbone.vit, cfg.backbone.taps,
+                                   torch.float32)
         for tap, gt, wt in zip(cfg.backbone.taps, got, want):
             rel = _rel_err(gt, wt)
-            print(f"  encoder {size} px tap {tap}: relative error {rel:.4g} "
-                  f"(tolerance {ENCODER_REL_TOL})")
+            print(f"  encoder {size} px tap {tap}: relative error {rel:.4g} against float32 on "
+                  f"the {'card, plain attention' if on_card else 'CPU'} (tolerance "
+                  f"{ENCODER_REL_TOL})")
             if not rel <= ENCODER_REL_TOL:
-                raise RuntimeError("encoder on the card disagrees with the CPU reference")
+                raise RuntimeError("encoder on the card disagrees with the float32 reference")
 
 
 def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
-    return ((got.float().cpu() - want.float()).norm() / want.float().norm()).item()
+    want = want.float()
+    return ((got.float().to(want.device) - want).norm() / want.norm()).item()
 
 
-def _gradient_reference(backbone_params: dict, cfg, images: torch.Tensor) -> dict:
+def _gradient_reference(backbone_params: dict, cfg, images: torch.Tensor,
+                        on_card: bool = False) -> dict:
     """Encoder + FPN gradients under a fixed cotangent on the FPN outputs
     (no sampling involved): bf16 with the kernels on the card against
-    float32 plain versions on the CPU, same weights, for the patch
+    float32 plain versions (``_reference``), same weights, for the patch
     embedding, layer 1's qkv, the first global layer's qkv when windows
     are on (layer 1 is then windowed), the last layer's mlp_out, and the
     relative-position tables of the same layers where the encoder has
@@ -1013,27 +1121,34 @@ def _gradient_reference(backbone_params: dict, cfg, images: torch.Tensor) -> dic
             for h, w in cfg.grid_sizes]
     got = grads(tree_map(lambda t: t.detach().clone().requires_grad_(True), backbone_params),
                 x, torch.bfloat16, [t.cuda() for t in cots])
-    want = grads(tree_map(lambda t: t.detach().cpu().requires_grad_(True), backbone_params),
-                 x.cpu(), torch.float32, cots)
+    device, plain = _reference(on_card)
+    with plain:
+        want = grads(tree_map(lambda t: t.detach().to(device, torch.float32, copy=True)
+                              .requires_grad_(True), backbone_params),
+                     x.to(device), torch.float32, [t.to(device) for t in cots])
     out = {}
     for name, g, w in zip(names, got, want):
         rel = _rel_err(g, w)
         print(f"  gradient of {name}: relative error {rel:.4g} (tolerance {GRAD_REL_TOL})")
         if not rel <= GRAD_REL_TOL:
-            raise RuntimeError(f"gradient of {name} on the card disagrees with the CPU reference")
+            raise RuntimeError(f"gradient of {name} on the card disagrees with the float32 "
+                               "reference")
         out[name] = rel
     return out
 
 
 def _launches_per_step(cfg) -> dict:
-    """Kernel launches one train step makes, from the config: per encoder
-    layer one short or one flash attention (N = grid^2 + 1 tokens), or,
-    in a windowed layer, two attentions (the windows and the CLS token),
-    each with its backward; one RoIAlign forward and backward. Without a
-    relative-position bias the short kernels take N <= 256 (windows
-    included) and the flash kernels longer sequences; with one, every
-    attention but the CLS token's carries a bias and goes to the flash
-    kernels, whose backward then adds the dbias kernel."""
+    """Kernel launches one train step (one micro-batch) makes, from the
+    config: per encoder layer one short or one flash attention (N =
+    grid^2 + 1 tokens), or, in a windowed layer, two attentions (the
+    windows and the CLS token), each with its backward; one RoIAlign
+    forward and backward. Without a relative-position bias the short
+    kernels take N <= 256 (windows included) and the flash kernels longer
+    sequences; with one, every attention but the CLS token's carries a
+    bias and goes to the flash kernels, whose backward then adds the dbias
+    kernel. Windows over a grid they do not divide carry a key mask (the
+    ``_masked`` counts, a part of the short kernels'). With ``remat`` the
+    backward runs each layer's forward again, attention kernels included."""
     from layoutdit_tpu_torch.ops.short_attention import MAX_N as SHORT_MAX_N
 
     vit = cfg.backbone.vit
@@ -1041,7 +1156,10 @@ def _launches_per_step(cfg) -> dict:
     windowed = sum(0 < vit.window_size < g and not vit.is_global_layer(i)
                    for i in range(1, vit.num_hidden_layers + 1))
     full = vit.num_hidden_layers - windowed
+    masked = windowed if windowed and g % vit.window_size else 0
     if vit.use_relative_position_bias or vit.use_shared_relative_position_bias:
+        if masked:
+            raise RuntimeError("a padded window grid with a bias is not a path on the card")
         flash = dbias = full + windowed
         short = windowed
     else:
@@ -1049,10 +1167,12 @@ def _launches_per_step(cfg) -> dict:
         short = full - flash + 2 * windowed
         if windowed and vit.window_size ** 2 > SHORT_MAX_N:
             raise RuntimeError("a window is longer than the short kernel takes")
-    return {"short_attention": short, "short_attention_bwd": short, "flash_attention": flash,
-            "flash_attention_bwd_dq": flash, "flash_attention_bwd_dkdv": flash,
-            "flash_attention_bwd_dbias": dbias, "roi_align": 1, "roi_align_bwd": 1,
-            **{name: 0 for name in PROBE_KERNELS}}
+    fwd = 2 if cfg.remat else 1
+    return {"short_attention": fwd * short, "short_attention_bwd": short,
+            "short_attention_masked": fwd * masked, "short_attention_bwd_masked": masked,
+            "flash_attention": fwd * flash, "flash_attention_bwd_dq": flash,
+            "flash_attention_bwd_dkdv": flash, "flash_attention_bwd_dbias": dbias,
+            "roi_align": 1, "roi_align_bwd": 1, **{name: 0 for name in PROBE_KERNELS}}
 
 
 def _train_run(label: str, base, kernels: list[dict], grad_images: int,
@@ -1073,20 +1193,13 @@ def _train_run(label: str, base, kernels: list[dict], grad_images: int,
         init_detector,
     )
     from layoutdit_tpu_torch.ops import nms
-    from layoutdit_tpu_torch.tools.make_fixture import make_fixture
     from layoutdit_tpu_torch.tools.profile_train import profile_step
     from layoutdit_tpu_torch.train.trainer import Trainer
 
     with tempfile.TemporaryDirectory() as tmp:
-        rc = dataclasses.replace(
-            base,
-            train=dataclasses.replace(base.train, train_base_path=tmp, train_input="samples",
-                                      num_epochs=1, checkpoint_interval=1),
-            run_name="chip_smoke", eval_base_path=tmp,
-        )
+        rc = _fixture_run(base, tmp, TRAIN_EPOCH_STEPS * base.data.batch_size)
+        rc = dataclasses.replace(rc, train=dataclasses.replace(rc.train, checkpoint_interval=1))
         b = rc.data.batch_size
-        make_fixture(tmp, n_images=TRAIN_EPOCH_STEPS * b, split="samples", seed=0,
-                     image_size=rc.model.image_size)
         cfg = DetectorConfig.from_model_config(rc.model, precision_dtype=rc.compute_dtype)
         gen = torch.Generator(device="cuda").manual_seed(0)
         params = init_detector(cfg, gen, device="cuda")
@@ -1124,10 +1237,7 @@ def _train_run(label: str, base, kernels: list[dict], grad_images: int,
         print(f"  Trainer.train(): {steps} steps in {epoch_s:.3f} s (first steps include "
               f"cuBLAS/cuDNN set-up), loss {trainer.loss_history}, launches {counts}, "
               f"NMS host syncs {epoch_syncs}")
-        for name, want in per_step.items():
-            if counts[name] != want * steps:
-                raise RuntimeError(f"{label}: {name} launched {counts[name]} times in {steps} "
-                                   f"steps, expected {want} a step")
+        _check_launches(label, counts, per_step, steps)
         for k in kernels:
             k[f"{label}_launches"] = counts[k["name"]]
         ckpt = Path(trainer.checkpoint_path(1))
@@ -1151,10 +1261,7 @@ def _train_run(label: str, base, kernels: list[dict], grad_images: int,
         peak = torch.cuda.max_memory_allocated()
         counts = _counts()
         syncs = nms.nms_mask.host_syncs / TRAIN_REPEATS
-        for name, want in per_step.items():
-            if counts[name] != want * TRAIN_REPEATS:
-                raise RuntimeError(f"{label}: {name} launched {counts[name]} times in "
-                                   f"{TRAIN_REPEATS} steps, expected {want} a step")
+        _check_launches(label, counts, per_step, TRAIN_REPEATS)
         if not all(np.isfinite(list(h.values())).all() for h in history):
             raise RuntimeError(f"{label}: a non-finite loss: {history}")
         first, last = history[0]["loss"], np.mean([h["loss"] for h in history[-3:]])
@@ -1281,6 +1388,387 @@ def phase_train_1024_relpos(kernels: list[dict]) -> dict:
                       "a relative-position table per layer, no absolute position embeddings), "
                       "1024 px, batch 4, window 16, bf16 over fp32", **out,
             "table_gradient": _table_gradient(vit)}
+
+
+# encoder phase: dit-large at 1024 px in ViTDet-L's window-14 layout
+# (remat off, "full" and "dots"), the repo's dit-large recipe as it is,
+# and dit-large serving; timed steps per arm after untimed ones
+ENCODER_WARMUP = 2
+ENCODER_STEPS = 10
+FSDP_STEPS = 5
+REMAT_ARMS = (("off", False, "full"), ("full", True, "full"), ("dots", True, "dots"))
+# arms' gradients from one state: bit equality expected; a leaf that
+# differs is named and held to this relative Frobenius error
+ARM_GRAD_RTOL = 1e-3
+# the training arms' CLS token and position embeddings, drawn (seed 1)
+# where JAX's init leaves them zero: a zero CLS row stays zero through
+# every layer, a windowed layer isolates it, and each LayerNorm of it
+# (eps 1e-12) scales its gradient by 1e6, so at dit-large's width and
+# depth the CLS path's gradients overflow in both packages
+EMBED_STD = 0.02
+LARGE_SERVING_ROUNDS = 3
+
+
+def _encoder_kernels(gen, kernels: list[dict]) -> None:
+    """(a) Rows 1-2 with the key mask of ViTDet-L's layout at 1024 px (the
+    64 x 64 grid in 14 x 14 windows, padded to 70 x 70: 25 windows of 196
+    slots, the mask [25, 196] read modulo over 4 pages, B = 100, H = 16),
+    held to their plain versions and, under an all-True mask, to the
+    unmasked kernels' bits; rows 1-2 unmasked at dit-large's 224 px shape
+    (B = 16, N = 197, H = 16); rows 3-5 without a bias at its 1024 px
+    global layers (B = 4, N = 4097, H = 16). Each timed beside SDPA (with
+    the mask as a boolean attn_mask). The entries of the kernels line gain
+    the numbers under ``large_*`` keys."""
+    from layoutdit_tpu_torch.models.vit import _window_key_mask
+
+    h = 16
+    mask = _window_key_mask(64, 64, 14).cuda()
+    b = 4 * mask.shape[0]
+    fwd, bwd = _entry(kernels, "short_attention"), _entry(kernels, "short_attention_bwd")
+    for key, case in (("large_w14_masked_", dict(b=b, n=196, key_mask=mask)),
+                      ("large224_", dict(b=16, n=197))):
+        fwd.update({key + k: v for k, v in _short_fwd_case(gen, h=h, **case).items()})
+        bwd.update({key + k: v for k, v in _short_bwd_case(gen, h=h, **case).items()})
+    torch.cuda.empty_cache()
+    q, k, v = _qkv(gen, 4, 4097, h, 64)
+    _entry(kernels, "flash_attention").update(
+        {f"large_{k}": v for k, v in _flash_fwd_case(gen, q, k, v, False).items()})
+    del q, k, v
+    res = _flash_bwd_case(gen, 4, 4097, False, h=h)
+    for part in ("dq", "dkdv"):
+        _flash_bwd_entry(_entry(kernels, f"flash_attention_bwd_{part}"), part, "large_", res,
+                         4, 4097, h, with_bias=False)
+    torch.cuda.empty_cache()
+
+
+def _add_launches(kernels: list[dict], counts: dict) -> None:
+    for k in kernels:
+        k["encoder_launches"] = k.get("encoder_launches", 0) + counts[k["name"]]
+        k["encoder_masked_launches"] = k.get("encoder_masked_launches", 0) + counts.get(
+            k["name"] + "_masked", 0)
+
+
+def _check_launches(label: str, counts: dict, per_step: dict, steps: int) -> None:
+    for name, want in per_step.items():
+        if counts[name] != want * steps:
+            raise RuntimeError(f"{label}: {name} launched {counts[name]} times in {steps} "
+                               f"steps, expected {want} a step")
+
+
+def _fixture_run(base, tmp: str, pages: int):
+    """``base`` with its training data in ``tmp`` (``pages`` synthetic
+    pages at its image size, seed 0) and its artifacts there, one epoch."""
+    from layoutdit_tpu_torch.tools.make_fixture import make_fixture
+
+    rc = dataclasses.replace(
+        base,
+        train=dataclasses.replace(base.train, train_base_path=tmp, train_input="samples",
+                                  num_epochs=1),
+        run_name="chip_smoke", eval_base_path=tmp,
+    )
+    make_fixture(tmp, n_images=pages, split="samples", seed=0, image_size=rc.model.image_size)
+    return rc
+
+
+def _allocated_gib() -> float:
+    """GiB allocated on the card once the garbage of earlier phases is
+    collected: what a peak measured from here starts from."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 2**30
+
+
+def _timed_steps(trainer, batch, steps: int) -> tuple[list[float], list[float]]:
+    """(step ms, losses) of ``steps`` updates on one batch."""
+    times, losses = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    if not np.isfinite(losses).all():
+        raise RuntimeError(f"a non-finite loss: {losses}")
+    return times, losses
+
+
+def _large_window14_train(kernels: list[dict]) -> dict:
+    """(b) ``configs/train_1024_large_window14.json`` at full width in
+    bf16 over fp32 masters (random weights, seed 0), in three arms: remat
+    off, "full" (the config's own) and "dots". First the three arms'
+    gradients from one state, at JAX's init (its non-finite leaves listed;
+    the arms must give the same bits, NaN and inf included) and with the
+    CLS token and position embeddings drawn at EMBED_STD (must be finite
+    and the same bits; a leaf that is not is named and held to
+    ARM_GRAD_RTOL); then per arm a fresh trainer from the drawn state,
+    ENCODER_WARMUP untimed and ENCODER_STEPS timed updates on one batch
+    (the config's own arm first through ``Trainer.train()``, one epoch):
+    step ms, peak GiB, launches per step as the config reckons them (the
+    forward kernels twice under remat, the masked windows among the short
+    kernels' launches). Peak GiB must order full < dots < off. Then the
+    encoder's taps and gradients at one page against float32 plain
+    versions on the card; one profiled step per arm (wall, device busy
+    and idle share, the backbone, rpn and backward stages)."""
+    from layoutdit_tpu_torch.config import load_run_config
+    from layoutdit_tpu_torch.models.detection.detector import (
+        DetectorConfig,
+        DetectorModel,
+        init_detector,
+    )
+    from layoutdit_tpu_torch.models.weights_io import tree_leaves, tree_paths
+    from layoutdit_tpu_torch.tools.profile_train import profile_step
+    from layoutdit_tpu_torch.tools.repeat_step import step_gradients
+    from layoutdit_tpu_torch.train.trainer import Trainer
+
+    base = load_run_config(str(LARGE_CONFIG))
+    out = {"config": "configs/train_1024_large_window14.json: dit-large, 1024 px, batch 4, "
+                     "window 14 (padded grid, key mask), global layers 6/12/18/24, bf16 over "
+                     "fp32", "arms": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        rc = _fixture_run(base, tmp, base.data.batch_size)
+        cfg = DetectorConfig.from_model_config(rc.model, precision_dtype=rc.compute_dtype)
+        vit = cfg.backbone.vit
+        print(f"  dit-large Faster R-CNN, hidden {vit.hidden_size}, {vit.num_hidden_layers} "
+              f"layers, {vit.num_attention_heads} heads, image {cfg.image_size} px, batch "
+              f"{rc.data.batch_size}, window {vit.window_size}, global layers "
+              f"{[i for i in range(1, vit.num_hidden_layers + 1) if vit.is_global_layer(i)]}")
+
+        def fresh(remat, policy, embeddings=True):
+            c = dataclasses.replace(cfg, remat=remat, remat_policy=policy)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            params = init_detector(c, gen, device="cuda")
+            if embeddings:
+                egen = torch.Generator(device="cuda").manual_seed(1)
+                with torch.no_grad():
+                    for key in ("cls_token", "pos_embed"):
+                        t = params["backbone"]["vit"][key]
+                        t.copy_(EMBED_STD * torch.randn(t.shape, generator=egen, device="cuda"))
+            return c, params
+
+        c, params = fresh(False, "full", embeddings=False)
+        probe = Trainer(rc, DetectorModel(params, c))
+        it = iter(probe.dataloader)
+        batch = next(it)
+        it.close()
+        probe.dataloader.close()
+        del probe
+        names = tree_paths(params)
+        for state in ("jax_init", "drawn_embeddings"):
+            if state == "drawn_embeddings":
+                params = fresh(False, "full")[1]
+            for t in tree_leaves(params):
+                t.requires_grad_(True)
+            ref, differing = None, {}
+            for name, remat, policy in REMAT_ARMS:
+                arm_cfg = dataclasses.replace(cfg, remat=remat, remat_policy=policy)
+                grads = step_gradients(params, batch, arm_cfg, seed=0)[1]
+                if ref is None:
+                    ref = grads
+                    nonfinite = [n for n, g in zip(names, grads) if not g.isfinite().all()]
+                    continue
+                for leaf, a, b in zip(names, ref, grads):
+                    if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                        differing[f"{name}:{leaf}"] = _rel_err(b, a)
+            print(f"  gradients from one state ({state}): {len(names)} leaves, non-finite in "
+                  f"remat off: {nonfinite}; {len(differing)} (arm, leaf) pairs differ from "
+                  f"remat off in their bits: {differing}")
+            if any(not r <= ARM_GRAD_RTOL for r in differing.values()):
+                raise RuntimeError(f"remat arms' gradients differ ({state}): {differing}")
+            if state == "drawn_embeddings" and nonfinite:
+                raise RuntimeError(f"non-finite gradients from the drawn state: {nonfinite}")
+            out[state] = {"nonfinite_leaves": nonfinite, "arm_gradients_differing": differing}
+            del grads, ref, params
+            torch.cuda.empty_cache()
+
+        for name, remat, policy in REMAT_ARMS:
+            arm_cfg, params = fresh(remat, policy)
+            arm_rc = dataclasses.replace(rc, model=dataclasses.replace(
+                rc.model, remat=remat, remat_policy=policy))
+            trainer = Trainer(arm_rc, DetectorModel(params, arm_cfg))
+            per_step = _launches_per_step(arm_cfg)
+            arm = {"launches_per_step": per_step}
+            if remat == rc.model.remat and policy == rc.model.remat_policy:
+                _reset_counts()
+                trainer.train()
+                torch.cuda.synchronize()
+                counts = _counts()
+                _check_launches(f"encoder train {name} epoch", counts, per_step,
+                                trainer.updates)
+                _add_launches(kernels, counts)
+                arm["epoch_loss"] = trainer.loss_history
+            _timed_steps(trainer, batch, ENCODER_WARMUP)
+            base = _allocated_gib()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            times, losses = _timed_steps(trainer, batch, ENCODER_STEPS)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            counts = _counts()
+            _check_launches(f"encoder train {name}", counts, per_step, ENCODER_STEPS)
+            _add_launches(kernels, counts)
+            arm.update({"step_ms": times, **_spread(times), "peak_gib": peak, "base_gib": base,
+                        "losses": losses,
+                        "images_per_s": rc.data.batch_size * 1e3 / float(np.median(times))})
+            print(f"  remat {name}: step median {arm['median']:.3f} ms (min {arm['min']:.3f}, "
+                  f"max {arm['max']:.3f}, {ENCODER_STEPS} steps), peak {peak:.4f} GiB ("
+                  f"{base:.4f} allocated before the steps: parameters, AdamW state), launches a "
+                  f"step {per_step}, loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+            r = profile_step(trainer, 0, Path(tmp) / f"large_step_{name}.json")
+            arm["profiled_step"] = {k: r[k] for k in ("wall_ms", "device_busy_ms",
+                                                      "device_idle_share", "stages")}
+            print(f"  remat {name}, one profiled step: wall {r['wall_ms']:.3f} ms, device busy "
+                  f"{r['device_busy_ms']:.3f} ms, idle share {r['device_idle_share']:.4f}; "
+                  + ", ".join(f"{st} host {r['stages'].get(st, {}).get('host_ms', 0.0):.3f} / "
+                              f"device {r['stages'].get(st, {}).get('device_ms', 0.0):.3f} ms"
+                              for st in ("backbone", "rpn", "backward")))
+            if name == REMAT_ARMS[-1][0]:
+                print("  taps and gradients at one page against float32 plain versions on the "
+                      "card (kernel_swap's swap; the CPU would take minutes at this width)")
+                _encoder_reference(DetectorModel(trainer.params, arm_cfg),
+                                   {cfg.image_size: batch.images[0]}, on_card=True)
+                arm["gradient_rel_err"] = _gradient_reference(
+                    trainer.params["backbone"], arm_cfg, batch.images[:1], on_card=True)
+            out["arms"][name] = arm
+            trainer.dataloader.close()
+            del trainer, params
+            torch.cuda.empty_cache()
+    peaks = {name: out["arms"][name]["peak_gib"] for name, _, _ in REMAT_ARMS}
+    if not peaks["full"] < peaks["dots"] < peaks["off"]:
+        raise RuntimeError(f"remat arms' peak GiB not ordered full < dots < off: {peaks}")
+    return out
+
+
+def _fsdp_large(kernels: list[dict]) -> dict:
+    """(c) ``configs/fsdp_large.json`` as it is: dit-large at 224 px, batch
+    16 in A = 2 micro-batches, remat "full", its mesh resolved to this one
+    card; one epoch through ``Trainer.train()``, then FSDP_STEPS timed
+    updates on one batch after one untimed: step ms, peak GiB, finite
+    losses, launches per update."""
+    from layoutdit_tpu_torch.config import load_run_config
+    from layoutdit_tpu_torch.models.detection.detector import (
+        DetectorConfig,
+        DetectorModel,
+        init_detector,
+    )
+    from layoutdit_tpu_torch.train.trainer import Trainer
+
+    base = load_run_config(str(FSDP_LARGE_CONFIG))
+    with tempfile.TemporaryDirectory() as tmp:
+        rc = _fixture_run(base, tmp, base.data.batch_size)
+        cfg = DetectorConfig.from_model_config(rc.model, precision_dtype=rc.compute_dtype)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        trainer = Trainer(rc, DetectorModel(init_detector(cfg, gen, device="cuda"), cfg))
+        accum = rc.train.grad_accumulation_steps
+        per_update = {k: v * accum for k, v in _launches_per_step(cfg).items()}
+        _reset_counts()
+        trainer.train()
+        torch.cuda.synchronize()
+        counts = _counts()
+        _check_launches("encoder fsdp_large epoch", counts, per_update, trainer.updates)
+        _add_launches(kernels, counts)
+        it = iter(trainer.dataloader)
+        batch = next(it)
+        it.close()
+        _timed_steps(trainer, batch, 1)
+        base = _allocated_gib()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        times, losses = _timed_steps(trainer, batch, FSDP_STEPS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        counts = _counts()
+        _check_launches("encoder fsdp_large", counts, per_update, FSDP_STEPS)
+        _add_launches(kernels, counts)
+        trainer.dataloader.close()
+    out = {"config": "configs/fsdp_large.json: dit-large, 224 px, batch 16 as A = 2 "
+                     "micro-batches of 8, remat full, mesh on one card, bf16 over fp32",
+           "epoch_loss": trainer.loss_history, "step_ms": times, **_spread(times),
+           "peak_gib": peak, "base_gib": base, "losses": losses,
+           "launches_per_update": per_update,
+           "images_per_s": rc.data.batch_size * 1e3 / float(np.median(times))}
+    print(f"  fsdp_large.json: update median {out['median']:.3f} ms (min {out['min']:.3f}, max "
+          f"{out['max']:.3f}, {FSDP_STEPS} updates), peak {peak:.4f} GiB ({base:.4f} "
+          f"allocated before), loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, launches an update {per_update}")
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def _large_serving(kernels: list[dict]) -> dict:
+    """(d) dit-large Faster R-CNN behind ``BatchInferenceEngine`` in the 224
+    and 1024 px buckets of ``configs/serving_1024.json`` (backbone_type
+    dit-large, random weights, seed 0): LARGE_SERVING_ROUNDS rounds of one
+    request per bucket after a warm-up, each checked as ``_check_pages``
+    checks them; latency and pages/s per bucket."""
+    from layoutdit_tpu_torch.config import load_config
+    from layoutdit_tpu_torch.eval.serving import BatchInferenceEngine
+    from layoutdit_tpu_torch.models.detection.detector import (
+        DetectorConfig,
+        DetectorModel,
+        init_detector,
+    )
+
+    mc, dl = load_config(str(CONFIG))
+    mc = dataclasses.replace(mc, backbone_type="dit-large")
+    cfg = DetectorConfig.from_model_config(mc, precision_dtype="bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    engine = BatchInferenceEngine(DetectorModel(init_detector(cfg, gen, device="cuda"), cfg),
+                                  image_sizes=(224, 1024), batch_size=dl.batch_size)
+    rng = np.random.default_rng(1)
+    requests = {
+        "224 px bucket": [rng.integers(0, 256, (200 + 3 * i, 160 + 2 * i, 3), dtype=np.uint8)
+                          for i in range(8)],
+        "1024 px bucket": [rng.integers(0, 256, (1000 - 5 * i, 770 + 4 * i, 3), dtype=np.uint8)
+                           for i in range(4)],
+    }
+    engine.predict_pages(requests["224 px bucket"][:4] + requests["1024 px bucket"][:4])
+    torch.cuda.synchronize()
+    _reset_counts()
+    latencies = {name: [] for name in requests}
+    for _ in range(LARGE_SERVING_ROUNDS):
+        for name, pages in requests.items():
+            t0 = time.perf_counter()
+            results = engine.predict_pages(pages)
+            torch.cuda.synchronize()
+            latencies[name].append((time.perf_counter() - t0) * 1e3)
+            _check_pages(pages, results)
+    counts = _counts()
+    for name in SERVING_KERNELS:
+        if counts[name] <= 0:
+            raise RuntimeError(f"{name} was not launched serving dit-large")
+    for name in ("short_attention_bwd", "short_attention_masked", *PROBE_KERNELS):
+        if counts[name]:
+            raise RuntimeError(f"{name} was launched serving dit-large")
+    _add_launches(kernels, counts)
+    out = {}
+    for name, pages in requests.items():
+        out[name] = {**_spread(latencies[name]), "latency_ms": latencies[name],
+                     "pages_per_s": len(pages) * 1e3 / float(np.median(latencies[name]))}
+        print(f"  dit-large request ({name}): {len(pages)} pages, latency median "
+              f"{out[name]['median']:.2f} ms (min {out[name]['min']:.2f}, max "
+              f"{out[name]['max']:.2f}), {out[name]['pages_per_s']:.2f} pages/s")
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_encoder(gen, kernels: list[dict]) -> dict:
+    """Encoder coverage: (a) the masked short kernels and rows 1-5 at
+    dit-large's shapes, (b) the window-14 dit-large config's three remat
+    arms, (c) ``fsdp_large.json``, (d) dit-large serving. The launches of
+    (b)-(d) are the ``encoder`` path's."""
+    t0 = time.perf_counter()
+    for k in kernels:
+        k["encoder_launches"] = k["encoder_masked_launches"] = 0
+    _encoder_kernels(gen, kernels)
+    out = {"train_1024_large_window14": _large_window14_train(kernels),
+           "fsdp_large": _fsdp_large(kernels), "serving": _large_serving(kernels)}
+    for name in ("short_attention", "short_attention_bwd"):
+        if _entry(kernels, name)["encoder_masked_launches"] <= 0:
+            raise RuntimeError(f"{name}: no masked launch on the encoder path")
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"  encoder phase: {out['phase_s']:.1f} s")
+    return out
 
 
 # main phase: the port's command line over make_fixture pages, a training
@@ -2208,8 +2696,9 @@ def phase_serving(kernels: list[dict]) -> dict:
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU")
-    if not ((ROOT / "layoutdit_tpu_torch").is_dir() and CONFIG.is_file()
-            and TRAIN_1024_CONFIG.is_file() and RELPOS_CONFIG.is_file()):
+    if not ((ROOT / "layoutdit_tpu_torch").is_dir() and all(
+            p.is_file() for p in (CONFIG, TRAIN_1024_CONFIG, RELPOS_CONFIG, LARGE_CONFIG,
+                                  FSDP_LARGE_CONFIG))):
         raise SystemExit("chip_smoke: run it from a checkout of the repository")
     sys.path.insert(0, str(ROOT))
     from layoutdit_tpu_torch.ops import _build
@@ -2274,6 +2763,10 @@ def main() -> int:
     train_1024_relpos = phase_train_1024_relpos(kernels)
     torch.cuda.empty_cache()
 
+    print("phase encoder")
+    encoder = phase_encoder(gen, kernels)
+    torch.cuda.empty_cache()
+
     print("phase main")
     main_run = phase_main(kernels, card)
     torch.cuda.empty_cache()
@@ -2281,7 +2774,7 @@ def main() -> int:
     print("phase convergence")
     conv = phase_convergence(kernels, card)
     paths = ("probe", "serving", "train", "train_state", "io", "train_1024",
-             "train_1024_relpos", "main", "convergence")
+             "train_1024_relpos", "encoder", "main", "convergence")
     for k in kernels:
         k["launches"] = sum(k[f"{path}_launches"] for path in paths)
         if k["launches"] <= 0:
@@ -2293,6 +2786,7 @@ def main() -> int:
     print(json.dumps({"io": io}))
     print(json.dumps({"train_1024": train_1024}))
     print(json.dumps({"train_1024_relpos": train_1024_relpos}))
+    print(json.dumps({"encoder": encoder}))
     print(json.dumps({"main": main_run}))
     print(json.dumps({"convergence": conv}))
     print(json.dumps({"kernels": kernels}))

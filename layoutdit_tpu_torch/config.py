@@ -21,6 +21,8 @@ import json
 import os
 from typing import Any, Optional
 
+import torch
+
 from layoutdit_tpu_torch.utils.paths import fs_for, open_path
 
 
@@ -66,6 +68,10 @@ class DataLoaderConfig:
     image_shards_dir: Optional[str] = None
 
 
+# the encoders the port runs (JAX ``BackboneType``: resnet50 waits)
+BACKBONES = ("dit", "dit-large")
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Serving and training fields of ``constructs.py::ModelConfig``,
@@ -75,7 +81,9 @@ class ModelConfig:
     function in the JAX package; the port keeps them for the config
     files' sake and routes by sequence length on the card
     (``models/vit.py``). ``window_size`` and ``window_global_layers``
-    are the ViTDet windows of ``constructs.py:440-443``."""
+    are the ViTDet windows of ``constructs.py:440-443``; ``remat`` and
+    ``remat_policy`` the encoder's activation checkpointing
+    (``constructs.py:455-461``)."""
 
     backbone_type: str = "dit"
     num_classes: int = 5
@@ -92,7 +100,23 @@ class ModelConfig:
     roi_impl: str = "xla"
     window_size: int = 0
     window_global_layers: tuple[int, ...] = ()
+    # activation checkpointing of the encoder's layers (models/vit.py):
+    # "full" saves a layer's input only, "dots" also the outputs of its
+    # projection matmuls
+    remat: bool = False
+    remat_policy: str = "full"
     vit_overrides: Optional[dict] = None
+
+    def __post_init__(self):
+        if self.backbone_type not in BACKBONES:
+            raise ValueError(
+                f"backbone_type {self.backbone_type!r}: the port runs {BACKBONES}; the "
+                "resnet50 backbone waits for models/resnet.py (ROADMAP queue 1 item 6)"
+            )
+        if self.remat_policy not in ("full", "dots"):  # JAX vit.py:893-896
+            raise ValueError(
+                f"unknown remat_policy {self.remat_policy!r}; use 'full' or 'dots'"
+            )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,8 +190,6 @@ class EvalConfig:
 _LATER = "a later slice of the port"
 _WAITING = {
     "detection_model_config": {
-        "remat": (False, "activation checkpointing of the encoder (" + _LATER + ")"),
-        "remat_policy": ("full", "activation checkpointing of the encoder (" + _LATER + ")"),
         "previous_layout_dit_checkpoint": (
             None, "warm-starting the encoder from a pretrained DiT checkpoint "
                   "(tools/convert_hf_checkpoint.py, ROADMAP queue 1 item 6)"),
@@ -231,10 +253,6 @@ def load_config(path: str) -> tuple[ModelConfig, DataLoaderConfig]:
         raw = json.load(f)
     mc = _build(ModelConfig, raw.get("detection_model_config", {}),
                 "detection_model_config", _WAITING["detection_model_config"])
-    if mc.backbone_type != "dit":
-        raise ValueError(
-            f"backbone_type {mc.backbone_type!r}: the port serves dit-base only"
-        )
     dl = _build(DataLoaderConfig, raw.get("data_loader_config", {}),
                 "data_loader_config")
     return mc, dl
@@ -279,8 +297,42 @@ class RunConfig:
         return f"{base}/{self.eval_input}/", f"{base}/{self.eval_input}.json"
 
 
+# the JAX schema's MeshConfig fields (constructs.py) and the values at
+# which its build_mesh resolves to one device (parallel/mesh.py:139):
+# then fsdp shards over one device, which changes nothing
+_MESH_ONE_DEVICE = {"model_parallel": 1, "pipeline_parallel": 1, "dcn_data_parallel": 1,
+                    "sequence_parallel": False, "enable_distributed_init": False}
+_MESH_FREE = {"data_parallel", "fsdp", "axis_names", "pipeline_microbatches",
+              "coordinator_address", "num_processes", "process_id",
+              "heartbeat_timeout_s", "shutdown_timeout_s"}
+
+
+def _check_one_device_mesh(mesh: dict) -> None:
+    """Accept a ``mesh_config`` that resolves to one device, as the JAX
+    package's ``build_mesh`` resolves it on one chip: ``data_parallel`` 1,
+    or -1 (every device) with at most one visible card, and every other
+    axis 1 with no sequence parallelism and no distributed init. Any
+    other mesh raises."""
+    unknown = sorted(set(mesh) - set(_MESH_ONE_DEVICE) - _MESH_FREE)
+    if unknown:
+        raise ValueError(f"mesh_config: keys not supported by the port: {unknown}")
+    waits = ("it waits for the parallelism slice (ROADMAP queue 1 item 7); the port "
+             "trains on one card")
+    for k, one in _MESH_ONE_DEVICE.items():
+        if mesh.get(k, one) != one:
+            raise ValueError(f"mesh_config.{k}={mesh[k]!r}: not supported by the port; {waits}")
+    dp = mesh.get("data_parallel", -1)
+    devices = torch.cuda.device_count() if dp <= 0 else dp  # <= 0: every device
+    if devices > 1:
+        raise ValueError(
+            f"mesh_config.data_parallel={dp!r} resolves to {devices} devices: not supported "
+            f"by the port; {waits}"
+        )
+
+
+# "_comment": the prose some config files carry at the top, read by no one
 _RUN_KEYS = {"train_config", "data_loader_config", "detection_model_config",
-             "precision", "run_name", "local_mode", "eval_config", "mesh_config"}
+             "precision", "run_name", "local_mode", "eval_config", "mesh_config", "_comment"}
 
 
 def run_config_from_dict(raw: dict) -> RunConfig:
@@ -289,17 +341,9 @@ def run_config_from_dict(raw: dict) -> RunConfig:
     unknown = sorted(set(raw) - _RUN_KEYS)
     if unknown:
         raise ValueError(f"keys not supported by the port: {unknown}")
-    if raw.get("mesh_config"):
-        raise ValueError(
-            "mesh_config: not supported by the port yet; it waits for the "
-            "multi-card slice (the port trains on one card)"
-        )
+    _check_one_device_mesh(raw.get("mesh_config") or {})
     mc = _build(ModelConfig, raw.get("detection_model_config", {}), "detection_model_config",
                 _WAITING["detection_model_config"])
-    if mc.backbone_type != "dit":
-        raise ValueError(
-            f"backbone_type {mc.backbone_type!r}: the port runs dit-base only"
-        )
     precision = raw.get("precision", {})
     _check_keys(precision, {"compute_dtype"}, "precision", _WAITING["precision"])
     ev = dict(raw.get("eval_config", {}))

@@ -38,9 +38,25 @@
 //   - Q, K, V are read through the [B, N, H, D] strides of the fused QKV
 //     projection, O is written in that layout. D is a template parameter:
 //     32, 64 and 128 are compiled.
+//   - An optional key mask, uint8 [mask_rows, N] (row b % mask_rows for
+//     batch b, as the JAX encoder tiles its window mask over the pages),
+//     drops the keys it holds 0 for from every softmax row: the padded
+//     slots of windows that do not divide the patch grid, and the padded
+//     tokens of pad_tokens_to (the Pallas _probs masks only keys past
+//     n_valid, the ragged edge). It is a second instantiation
+//     (Masked = true), so the unmasked kernels are unchanged: the head's
+//     row of the mask is staged in shared memory (zero past N, so it
+//     covers the ragged edge too) and every 64-key chunk is masked by it,
+//     to -inf rather than the finite -1e30: the running max then starts at
+//     -1e30 and stays there through a chunk with no real key, which adds
+//     exactly 0, wherever it lies. A masked key has P = 0 exactly. Every
+//     row must keep one real key (a window always does: its padding is
+//     narrower than the window); it is not checked.
 // Occupancy (ptxas, D = 64): 125 registers, no spill; two blocks (16 warps)
 // an SM, bound by registers (74 KB of shared memory at N = 256, 60 KB at
 // 197). Not done yet: wgmma, TMA, warp specialisation.
+
+#include <math_constants.h>
 
 #include "attention_mma.cuh"
 
@@ -129,16 +145,38 @@ __device__ __forceinline__ void mask_keys(float (&s)[kChunk / 8][4], int kv0, in
   }
 }
 
-template <int D>
+// scores of the keys that keep (a staged mask row, 0 past N) holds 0 for
+// in a 64-key chunk from kv0 -> -inf
+__device__ __forceinline__ void mask_keys_by(float (&s)[kChunk / 8][4], const uint8_t* keep,
+                                             int kv0, int quad) {
+#pragma unroll
+  for (int j = 0; j < kChunk / 8; ++j) {
+    const int key = kv0 + j * 8 + 2 * quad;
+    if (!keep[key]) s[j][0] = s[j][2] = -CUDART_INF_F;
+    if (!keep[key + 1]) s[j][1] = s[j][3] = -CUDART_INF_F;
+  }
+}
+
+// row b % mask_rows of a uint8 [mask_rows, N] key mask -> keep[0, kMaxN),
+// zero past N; Threads threads of the block take part
+template <int Threads>
+__device__ __forceinline__ void stage_keep(uint8_t* keep, const uint8_t* mask, int mask_rows,
+                                           int b, int N) {
+  const uint8_t* row = mask + static_cast<long long>(b % mask_rows) * N;
+  for (int i = threadIdx.x; i < kMaxN; i += Threads) keep[i] = i < N ? row[i] : 0;
+}
+
+template <int D, bool Masked>
 __global__ void __launch_bounds__(kFwdThreads) short_attention_fwd_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ o, int H, int N, Strides qs, Strides ks, Strides vs, Strides os,
-    float scale) {
+    bf16* __restrict__ o, const uint8_t* __restrict__ mask, int mask_rows, int H, int N,
+    Strides qs, Strides ks, Strides vs, Strides os, float scale) {
   constexpr int LD = D + 8;
   extern __shared__ __align__(16) unsigned char smem[];
   const int n16 = (N + 15) & ~15;
   bf16* k_s = reinterpret_cast<bf16*>(smem);
   bf16* v_s = k_s + n16 * LD;
+  uint8_t* keep_s = reinterpret_cast<uint8_t*>(v_s + n16 * LD);  // Masked only
 
   // the blocks of one head are adjacent: they share K and V through L2
   const int tiles = (N + kFwdRows - 1) / kFwdRows;
@@ -160,6 +198,7 @@ __global__ void __launch_bounds__(kFwdThreads) short_attention_fwd_kernel(
     }
     cp_async_commit();
   }
+  if constexpr (Masked) stage_keep<kFwdThreads>(keep_s, mask, mask_rows, b, N);
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -185,10 +224,15 @@ __global__ void __launch_bounds__(kFwdThreads) short_attention_fwd_kernel(
 
     float s[kChunk / 8][4];
     mma_abt<D>(s, qf, k_s + kv0 * LD, lane, rows);  // S = Q K^T
-    // mask the ragged edge (the last chunk only), online softmax in the
-    // exp2 domain with the scale folded into one FFMA (scale > 0, so the
-    // raw scores' max is the scaled scores' max)
-    if (kv0 + kChunk > N) mask_keys(s, kv0, N, quad);
+    // mask the ragged edge (the last chunk only) or, Masked, every chunk
+    // by the mask; online softmax in the exp2 domain with the scale folded
+    // into one FFMA (scale > 0, so the raw scores' max is the scaled
+    // scores' max)
+    if constexpr (Masked) {
+      mask_keys_by(s, keep_s, kv0, quad);
+    } else if (kv0 + kChunk > N) {
+      mask_keys(s, kv0, N, quad);
+    }
     float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
     for (int j = 0; j < kChunk / 8; ++j) {
@@ -266,6 +310,9 @@ __global__ void __launch_bounds__(kFwdThreads) short_attention_fwd_kernel(
 // P and dS are rounded to bf16 as A operands, as in the flash backward;
 // the accumulators are fp32 registers. The ragged edge: keys past N get
 // P = 0, query rows past N are zero (dO too, so dS = 0) and masked in B.
+// Masked: the keys the mask drops get P = 0 in both phases (scores -inf
+// in A, the key rows' P^T and dS^T zeroed in B), so their dK and dV rows
+// are 0; the queries the mask drops are real rows in both.
 // Q, K, V, O and dO are read through their [B, N, H, D] strides and dq,
 // dk, dv written through the strides given (the slices of one fused
 // [B, N, 3*H*D] gradient). The lse costs an eighth product (the TPU
@@ -278,12 +325,13 @@ __global__ void __launch_bounds__(kFwdThreads) short_attention_fwd_kernel(
 // forward's lse (saves the eighth product), a head split over blocks (at
 // B=16, N=197 the 192 blocks run in one wave, each one head's whole
 // backward).
-template <int D>
+template <int D, bool Masked>
 __global__ void __launch_bounds__(kBwdThreads) short_attention_bwd_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ o, const bf16* __restrict__ dout, bf16* __restrict__ dq,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int N, Strides qs, Strides ks,
-    Strides vs, Strides os, Strides dos, Strides dqs, Strides dks, Strides dvs, float scale) {
+    bf16* __restrict__ dk, bf16* __restrict__ dv, const uint8_t* __restrict__ mask,
+    int mask_rows, int H, int N, Strides qs, Strides ks, Strides vs, Strides os, Strides dos,
+    Strides dqs, Strides dks, Strides dvs, float scale) {
   constexpr int LD = D + 8;
   extern __shared__ __align__(16) unsigned char smem[];
   const int n16 = (N + 15) & ~15;
@@ -294,6 +342,7 @@ __global__ void __launch_bounds__(kBwdThreads) short_attention_bwd_kernel(
   // so a 64-query chunk never indexes past them nor reads garbage
   float* lse_s = reinterpret_cast<float*>(q_s + n16 * LD);
   float* dl_s = lse_s + kMaxN;
+  uint8_t* keep_s = reinterpret_cast<uint8_t*>(dl_s + kMaxN);  // Masked only
 
   const int b = blockIdx.x / H;
   const int h = blockIdx.x - b * H;
@@ -307,6 +356,7 @@ __global__ void __launch_bounds__(kBwdThreads) short_attention_bwd_kernel(
   stage_rows<D, kBwdThreads>(q_s, qb, qs.n, 0, n16, N);
   cp_async_commit();
   for (int i = threadIdx.x; i < 2 * kMaxN; i += kBwdThreads) lse_s[i] = 0.f;
+  if constexpr (Masked) stage_keep<kBwdThreads>(keep_s, mask, mask_rows, b, N);
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -332,7 +382,11 @@ __global__ void __launch_bounds__(kBwdThreads) short_attention_bwd_kernel(
       const int rows = min(kChunk, n16 - kv0);
       float s[kChunk / 8][4];
       mma_abt<D>(s, qf, k_s + kv0 * LD, lane, rows);
-      if (kv0 + kChunk > N) mask_keys(s, kv0, N, quad);
+      if constexpr (Masked) {
+        mask_keys_by(s, keep_s, kv0, quad);
+      } else if (kv0 + kChunk > N) {
+        mask_keys(s, kv0, N, quad);
+      }
       float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
       for (int j = 0; j < kChunk / 8; ++j) {
@@ -363,8 +417,13 @@ __global__ void __launch_bounds__(kBwdThreads) short_attention_bwd_kernel(
       float s[kChunk / 8][4], dp[kChunk / 8][4];
       mma_abt<D>(s, qf, k_s + kv0 * LD, lane, rows);   // S = Q K^T
       mma_abt<D>(dp, df, v_s + kv0 * LD, lane, rows);  // dP = dO V^T
-      // dS = P o (dP - delta), P = exp(S * scale - lse), 0 past N
-      if (kv0 + kChunk > N) mask_keys(s, kv0, N, quad);
+      // dS = P o (dP - delta), P = exp(S * scale - lse), 0 past N and,
+      // Masked, where the mask drops the key
+      if constexpr (Masked) {
+        mask_keys_by(s, keep_s, kv0, quad);
+      } else if (kv0 + kChunk > N) {
+        mask_keys(s, kv0, N, quad);
+      }
 #pragma unroll
       for (int j = 0; j < kChunk / 8; ++j) {
         s[j][0] = ex2(fmaf(s[j][0], scale2, -lse0)) * (dp[j][0] - dl0);
@@ -394,6 +453,9 @@ __global__ void __launch_bounds__(kBwdThreads) short_attention_bwd_kernel(
   for (int t = warp; t < tiles; t += kBwdWarps) {
     const int key0 = t * 16 + (lane >> 2);
     const int key1 = key0 + 8;
+    // the key rows that take part: below N and, Masked, kept by the mask
+    const bool keep0 = Masked ? keep_s[key0] != 0 : key0 < N;
+    const bool keep1 = Masked ? keep_s[key1] != 0 : key1 < N;
     uint32_t kf[D / 16][4], vf[D / 16][4];
     load_a_frags<D>(kf, k_s, t, lane);
     load_a_frags_global<D>(vf, vb, vs.n, t * 16, N, lane);
@@ -409,17 +471,18 @@ __global__ void __launch_bounds__(kBwdThreads) short_attention_bwd_kernel(
       mma_abt<D>(s, kf, q_s + q0 * LD, lane, rows);    // S^T = K Q^T
       mma_abt<D>(dp, vf, do_s + q0 * LD, lane, rows);  // dP^T = V dO^T
       // P^T and dS^T = P^T o (dP^T - delta), 0 past N on either side
-      // (queries: the masked chunk; keys: this tile's rows past N)
+      // (queries: the masked chunk; keys: this tile's rows past N or
+      // dropped by the mask)
       if (q0 + kChunk > N) mask_keys(s, q0, N, quad);
 #pragma unroll
       for (int j = 0; j < kChunk / 8; ++j) {
         const int qi = q0 + j * 8 + 2 * quad;
         const float2 ls = *reinterpret_cast<const float2*>(lse_s + qi);
         const float2 dl = *reinterpret_cast<const float2*>(dl_s + qi);
-        s[j][0] = key0 < N ? ex2(fmaf(s[j][0], scale2, -ls.x)) : 0.f;
-        s[j][1] = key0 < N ? ex2(fmaf(s[j][1], scale2, -ls.y)) : 0.f;
-        s[j][2] = key1 < N ? ex2(fmaf(s[j][2], scale2, -ls.x)) : 0.f;
-        s[j][3] = key1 < N ? ex2(fmaf(s[j][3], scale2, -ls.y)) : 0.f;
+        s[j][0] = keep0 ? ex2(fmaf(s[j][0], scale2, -ls.x)) : 0.f;
+        s[j][1] = keep0 ? ex2(fmaf(s[j][1], scale2, -ls.y)) : 0.f;
+        s[j][2] = keep1 ? ex2(fmaf(s[j][2], scale2, -ls.x)) : 0.f;
+        s[j][3] = keep1 ? ex2(fmaf(s[j][3], scale2, -ls.y)) : 0.f;
         dp[j][0] = s[j][0] * (dp[j][0] - dl.x);
         dp[j][1] = s[j][1] * (dp[j][1] - dl.y);
         dp[j][2] = s[j][2] * (dp[j][2] - dl.x);
@@ -433,47 +496,58 @@ __global__ void __launch_bounds__(kBwdThreads) short_attention_bwd_kernel(
   }
 }
 
-size_t fwd_smem(int N, int D) { return 2ull * ((N + 15) & ~15) * (D + 8) * sizeof(bf16); }
+// dynamic shared memory: K and V (and Q in the backward) of the head, the
+// backward's lse and delta, and, Masked, the head's mask row
+size_t fwd_smem(int N, int D, bool masked) {
+  return 2ull * ((N + 15) & ~15) * (D + 8) * sizeof(bf16) + (masked ? kMaxN : 0);
+}
 
-size_t bwd_smem(int N, int D) {
-  return 3ull * ((N + 15) & ~15) * (D + 8) * sizeof(bf16) + 2ull * kMaxN * sizeof(float);
+size_t bwd_smem(int N, int D, bool masked) {
+  return 3ull * ((N + 15) & ~15) * (D + 8) * sizeof(bf16) + 2ull * kMaxN * sizeof(float) +
+         (masked ? kMaxN : 0);
 }
 
 template <int D>
-int launch_fwd(const void* q, const void* k, const void* v, void* o, int B, int N, int H,
-               Strides qs, Strides ks, Strides vs, Strides os, float scale,
-               cudaStream_t stream) {
-  const size_t smem = fwd_smem(N, D);
+int launch_fwd(const void* q, const void* k, const void* v, void* o, const void* mask,
+               int mask_rows, int B, int N, int H, Strides qs, Strides ks, Strides vs,
+               Strides os, float scale, cudaStream_t stream) {
+  const bool masked = mask != nullptr;
+  auto kernel = masked ? short_attention_fwd_kernel<D, true>
+                       : short_attention_fwd_kernel<D, false>;
+  const size_t smem = fwd_smem(N, D, masked);
   const cudaError_t err = cudaFuncSetAttribute(
-      short_attention_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (N + kFwdRows - 1) / kFwdRows;
-  short_attention_fwd_kernel<D><<<B * H * tiles, kFwdThreads, smem, stream>>>(
+  kernel<<<B * H * tiles, kFwdThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), H, N, qs, ks, vs, os, scale);
+      static_cast<bf16*>(o), static_cast<const uint8_t*>(mask), mask_rows, H, N, qs, ks, vs, os,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
-               void* dq, void* dk, void* dv, int B, int N, int H, const Strides (&s)[8],
-               float scale, cudaStream_t stream) {
-  const size_t smem = bwd_smem(N, D);
+               void* dq, void* dk, void* dv, const void* mask, int mask_rows, int B, int N,
+               int H, const Strides (&s)[8], float scale, cudaStream_t stream) {
+  const bool masked = mask != nullptr;
+  auto kernel = masked ? short_attention_bwd_kernel<D, true>
+                       : short_attention_bwd_kernel<D, false>;
+  const size_t smem = bwd_smem(N, D, masked);
   const cudaError_t err = cudaFuncSetAttribute(
-      short_attention_bwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  short_attention_bwd_kernel<D><<<B * H, kBwdThreads, smem, stream>>>(
+  kernel<<<B * H, kBwdThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), static_cast<bf16*>(dq),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, N, s[0], s[1], s[2], s[3], s[4], s[5],
-      s[6], s[7], scale);
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<const uint8_t*>(mask),
+      mask_rows, H, N, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-bool valid_shape(int B, int N, int H, int D) {
-  return B >= 1 && H >= 1 && N >= 1 && N <= kMaxN && (D == 32 || D == 64 || D == 128);
+bool valid_shape(int B, int N, int H, int D, const void* mask, int mask_rows) {
+  return B >= 1 && H >= 1 && N >= 1 && N <= kMaxN && (D == 32 || D == 64 || D == 128) &&
+         (mask == nullptr || mask_rows >= 1);
 }
 
 }  // namespace
@@ -487,38 +561,45 @@ const char* kernel_error_string(int code) {
 // q, k, v, o, dout: bf16 [B, N, H, D] with the given element strides (last
 // dim contiguous, rows 16-byte aligned); dq, dk, dv: bf16 [B, N, H, D]
 // outputs, likewise strided (the wrapper points them into one fused
-// [B, N, 3*H*D] gradient). strides: three per tensor in that order. D is
-// 32, 64 or 128, N at most 256. Returns a cudaError_t code.
+// [B, N, 3*H*D] gradient). strides: three per tensor in that order. mask:
+// null, or a contiguous uint8 [mask_rows, N] key mask (row b % mask_rows
+// for batch b; 0 drops the key). D is 32, 64 or 128, N at most 256.
+// Returns a cudaError_t code.
 int short_attention_bwd(const void* q, const void* k, const void* v, const void* o,
-                        const void* dout, void* dq, void* dk, void* dv,
-                        int B, int N, int H, int D, const long long* strides,
+                        const void* dout, void* dq, void* dk, void* dv, const void* mask,
+                        int mask_rows, int B, int N, int H, int D, const long long* strides,
                         float scale, void* stream) {
-  if (!valid_shape(B, N, H, D)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid_shape(B, N, H, D, mask, mask_rows)) return static_cast<int>(cudaErrorInvalidValue);
   Strides s[8];
   for (int t = 0; t < 8; ++t) s[t] = Strides{strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 32) return launch_bwd<32>(q, k, v, o, dout, dq, dk, dv, B, N, H, s, scale, st);
-  if (D == 64) return launch_bwd<64>(q, k, v, o, dout, dq, dk, dv, B, N, H, s, scale, st);
-  return launch_bwd<128>(q, k, v, o, dout, dq, dk, dv, B, N, H, s, scale, st);
+  if (D == 32)
+    return launch_bwd<32>(q, k, v, o, dout, dq, dk, dv, mask, mask_rows, B, N, H, s, scale, st);
+  if (D == 64)
+    return launch_bwd<64>(q, k, v, o, dout, dq, dk, dv, mask, mask_rows, B, N, H, s, scale, st);
+  return launch_bwd<128>(q, k, v, o, dout, dq, dk, dv, mask, mask_rows, B, N, H, s, scale, st);
 }
 
 // q, k, v: bf16 [B, N, H, D] with the given element strides (last dim
-// contiguous, rows 16-byte aligned); o: bf16 [B, N, H, D]. D is 32, 64 or
-// 128, N at most 256. Returns a cudaError_t code.
-int short_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int B, int N, int H, int D,
+// contiguous, rows 16-byte aligned); o: bf16 [B, N, H, D]; mask: as for
+// the backward. D is 32, 64 or 128, N at most 256. Returns a cudaError_t
+// code.
+int short_attention_fwd(const void* q, const void* k, const void* v, void* o, const void* mask,
+                        int mask_rows, int B, int N, int H, int D,
                         long long q_sb, long long q_sn, long long q_sh,
                         long long k_sb, long long k_sn, long long k_sh,
                         long long v_sb, long long v_sn, long long v_sh,
                         long long o_sb, long long o_sn, long long o_sh,
                         float scale, void* stream) {
-  if (!valid_shape(B, N, H, D)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid_shape(B, N, H, D, mask, mask_rows)) return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_sn, q_sh}, ks{k_sb, k_sn, k_sh}, vs{v_sb, v_sn, v_sh},
       os{o_sb, o_sn, o_sh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 32) return launch_fwd<32>(q, k, v, o, B, N, H, qs, ks, vs, os, scale, st);
-  if (D == 64) return launch_fwd<64>(q, k, v, o, B, N, H, qs, ks, vs, os, scale, st);
-  return launch_fwd<128>(q, k, v, o, B, N, H, qs, ks, vs, os, scale, st);
+  if (D == 32)
+    return launch_fwd<32>(q, k, v, o, mask, mask_rows, B, N, H, qs, ks, vs, os, scale, st);
+  if (D == 64)
+    return launch_fwd<64>(q, k, v, o, mask, mask_rows, B, N, H, qs, ks, vs, os, scale, st);
+  return launch_fwd<128>(q, k, v, o, mask, mask_rows, B, N, H, qs, ks, vs, os, scale, st);
 }
 
 }  // extern "C"

@@ -45,6 +45,33 @@ from layoutdit_tpu_torch.ops.roi_align import multiscale_roi_align
 BOX_HEAD_REP = 1024
 
 
+# JAX ViTConfig fields the port's encoder does not have, at the JAX
+# defaults at which they change nothing: score_dtype (bf16 scores), MoE
+# and LoRA (ROADMAP queue 1 item 6)
+_VIT_WAITING = {
+    "score_dtype": "float32", "num_experts": 0, "moe_top_k": 1, "moe_capacity_factor": 1.25,
+    "moe_every_n": 2, "moe_aux_weight": 0.01, "lora_rank": 0, "lora_alpha": 16.0,
+    "lora_targets": ["q", "v"],
+}
+
+
+def _vit_overrides(overrides: dict) -> dict:
+    """``vit_overrides`` as ``ViTConfig`` fields: a key the port's
+    encoder does not have loads at its JAX default (and is dropped), and
+    raises otherwise."""
+    fields = {f.name for f in dataclasses.fields(vit_mod.ViTConfig)}
+    out = {}
+    for k, v in overrides.items():
+        if k in fields:
+            out[k] = tuple(v) if k == "global_attn_layers" else v  # JSON carries a list
+        elif _VIT_WAITING.get(k, ...) != (list(v) if isinstance(v, (list, tuple)) else v):
+            raise ValueError(
+                f"vit_overrides.{k}={v!r}: not supported by the port; bf16 scores, MoE and "
+                "LoRA wait for ROADMAP queue 1 item 6"
+            )
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class DetectorConfig:
     """Static model description (subset of the JAX DetectorConfig)."""
@@ -60,6 +87,8 @@ class DetectorConfig:
     roi_sampling_ratio: int = 2
     budget: DetectionBudget = DetectionBudget()
     compute_dtype: str = "float32"
+    remat: bool = False
+    remat_policy: str = "full"  # "full" | "dots"; see vit_forward
 
     @property
     def num_anchors_per_cell(self) -> int:
@@ -78,16 +107,16 @@ class DetectorConfig:
 
     @classmethod
     def from_model_config(cls, mc: ModelConfig, precision_dtype: str = "float32"):
-        vit_cfg = vit_mod.DIT_BASE
-        overrides = dict(mc.vit_overrides or {})
+        """As JAX ``detector.py:166-194``: the backbone type's preset, then
+        ``vit_overrides``, the image size and the windows over it."""
+        vit_cfg = vit_mod.DIT_LARGE if mc.backbone_type == "dit-large" else vit_mod.DIT_BASE
+        overrides = _vit_overrides(mc.vit_overrides or {})
         ov_size = overrides.pop("image_size", mc.image_size)
         if ov_size != mc.image_size:
             raise ValueError(
                 f"vit_overrides.image_size={ov_size} conflicts with "
                 f"detection_model_config.image_size={mc.image_size}"
             )
-        if "global_attn_layers" in overrides:  # JSON carries a list
-            overrides["global_attn_layers"] = tuple(overrides["global_attn_layers"])
         vit_cfg = dataclasses.replace(vit_cfg, image_size=mc.image_size, **overrides)
         if mc.window_size > 0:  # JAX detector.py:189-194
             vit_cfg = dataclasses.replace(vit_cfg, window_size=mc.window_size,
@@ -104,6 +133,8 @@ class DetectorConfig:
             roi_sampling_ratio=mc.roi_sampling_ratio,
             budget=mc.detection_budget,
             compute_dtype=precision_dtype,
+            remat=mc.remat,
+            remat_policy=mc.remat_policy,
         )
 
 
@@ -256,7 +287,8 @@ def detector_loss(
         with record_function("backbone"):
             x = _normalize(images.float(), cfg).to(cfg.dtype)
             feats = backbone_forward(params["backbone"], x, cfg.backbone,
-                                     compute_dtype=cfg.dtype)
+                                     compute_dtype=cfg.dtype, remat=cfg.remat,
+                                     remat_policy=cfg.remat_policy)
         with record_function("rpn"):
             objectness, deltas = rpn_head_forward(params["rpn_head"], feats,
                                                   cfg.num_anchors_per_cell)

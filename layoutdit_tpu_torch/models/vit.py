@@ -12,11 +12,20 @@ output of layer i).
 Attention goes to the port's kernels: without a bias, N <= 256 to the
 short kernel and longer sequences to the flash kernel; with a bias, the
 flash kernel at any N (the short kernels are bias-free, as the JAX
-package's is). All are differentiable, the bias too (on the CPU the
+package's is). A key mask (padded window slots, ``pad_tokens_to``'s
+padding) goes to the short kernels, which take one; the flash kernels
+take none, so on the card a mask with a bias, or over more than 256
+tokens, raises. All are differentiable, the bias too (on the CPU the
 wrappers run their plain versions). That departs on purpose from the JAX
 package's XLA-below-2048-tokens routing, which was measured on a TPU.
 The projection and MLP matmuls stay ``torch`` matmuls, as the JAX
 package leaves them to XLA.
+
+``remat`` (JAX ``vit.py:876-896``) runs each layer under
+``torch.utils.checkpoint`` while grad is enabled: "full" keeps the
+layer's input only, "dots" also the outputs of its projection matmuls
+(``aten.mm`` / ``aten.addmm``, JAX's ``dots_with_no_batch_dims_saveable``);
+the rest, attention kernels included, runs again in the backward.
 
 The relative-position bias is gathered from its [entries, heads] table
 into a contiguous fp32 [H, N, N] tensor per layer (the flash kernels'
@@ -47,11 +56,20 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from layoutdit_tpu_torch.ops.flash_attention import flash_attention_qkv
 from layoutdit_tpu_torch.ops.interpolate import resize_bicubic, resize_bilinear
 from layoutdit_tpu_torch.ops.short_attention import MAX_N as SHORT_MAX_N
-from layoutdit_tpu_torch.ops.short_attention import short_attention_qkv, split_qkv
+from layoutdit_tpu_torch.ops.short_attention import (
+    key_mask_rows,
+    short_attention_qkv,
+    split_qkv,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +94,10 @@ class ViTConfig:
     # are 1-based; empty = the tap layers [L/3, L/2, 2L/3, L].
     window_size: int = 0
     global_attn_layers: tuple[int, ...] = ()
+    # pad the token axis once at the embedding to this length (0 = off),
+    # the padding masked out of every softmax row and cropped at the taps;
+    # only without windows (JAX vit.py:829-846)
+    pad_tokens_to: int = 0
 
     def is_global_layer(self, layer_idx_1based: int) -> bool:
         if self.window_size <= 0:
@@ -97,6 +119,9 @@ class ViTConfig:
 
 
 DIT_BASE = ViTConfig()
+DIT_LARGE = ViTConfig(
+    hidden_size=1024, num_hidden_layers=24, num_attention_heads=16, intermediate_size=4096,
+)
 
 
 def _trunc_normal(shape, std, generator, device) -> torch.Tensor:
@@ -282,13 +307,14 @@ def _masked_attention_plain(
     bias: torch.Tensor | None,
 ) -> torch.Tensor:
     """softmax(q k^T * scale + bias) v in fp32 with the False keys of
-    ``key_mask`` [B, N] out of every row (-inf scores), as the JAX
-    encoder's XLA path does for padded window slots (``vit.py:552``)."""
+    ``key_mask`` [rows, N] (row b % rows for batch b) out of every row
+    (-inf scores), as the JAX encoder's XLA path does for padded window
+    slots (``vit.py:552``)."""
     q, k, v = split_qkv(qkv, heads)
     s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
     if bias is not None:
         s = s + bias.float()
-    s = s.masked_fill(~key_mask[:, None, None, :], float("-inf"))
+    s = s.masked_fill(~key_mask_rows(key_mask, qkv.shape[0])[:, None, None, :], float("-inf"))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhnm,bmhd->bnhd", p, v.float()).to(qkv.dtype)
 
@@ -301,21 +327,25 @@ def attention_core(
     [B, N, 3*H*D] -> [B, N, H, D], differentiable in qkv and the bias
     [H, N, N] (shared by the batch): without a bias the short kernels for
     N <= 256 and the flash kernels beyond; with one, the flash kernels at
-    any N. ``key_mask`` [B, N] bool drops the False keys from every
-    softmax row (padded window slots); only the plain version takes one,
-    so a CUDA tensor with a mask raises."""
+    any N. ``key_mask`` [rows, N] bool (row b % rows for batch b) drops
+    the False keys from every softmax row (padded window slots,
+    ``pad_tokens_to``'s padding); the short kernels take it. The flash
+    kernels take no mask, so on a CUDA tensor a mask with a bias, or over
+    more than 256 tokens, raises; on the CPU the plain version runs."""
     scale = 1.0 / math.sqrt(qkv.shape[-1] // (3 * heads))
-    if key_mask is not None:
+    short = bias is None and qkv.shape[1] <= SHORT_MAX_N
+    if key_mask is not None and not short:
         if qkv.device.type != "cpu":
             raise NotImplementedError(
-                "windows over a grid the window size does not divide need a key mask in "
-                "the short-attention kernels, which they do not take yet (ROADMAP.md, "
-                "queue 1: a key mask in the short kernels); use a window size that "
-                "divides the patch grid"
+                "a key mask with a relative-position bias, or over more than "
+                f"{SHORT_MAX_N} tokens, needs a key mask in the flash-attention kernels, "
+                "which they do not take yet (ROADMAP.md queue 2: rows 3-6 take no key "
+                "mask); use a window size that divides the patch grid, or no "
+                "pad_tokens_to, with a relative-position bias"
             )
         return _masked_attention_plain(qkv, heads, scale, key_mask, bias)
-    if bias is None and qkv.shape[1] <= SHORT_MAX_N:
-        return short_attention_qkv(qkv, heads, scale=scale)
+    if short:
+        return short_attention_qkv(qkv, heads, scale=scale, key_mask=key_mask)
     return flash_attention_qkv(qkv, heads, scale=scale, bias=bias)
 
 
@@ -368,6 +398,15 @@ def _window_key_mask(gh: int, gw: int, ws: int) -> torch.Tensor | None:
     return valid.reshape(nh, ws, nw, ws).permute(0, 2, 1, 3).reshape(nh * nw, ws * ws)
 
 
+@functools.lru_cache(maxsize=16)
+def _window_key_mask_on(device: torch.device, gh: int, gw: int, ws: int) -> torch.Tensor | None:
+    """``_window_key_mask`` on ``device``, copied once per grid (outside
+    inference mode, as ``_rel_index``)."""
+    mask = _window_key_mask(gh, gw, ws)
+    with torch.inference_mode(False):
+        return None if mask is None else mask.to(device)
+
+
 def _windowed_attention(
     x: torch.Tensor, layer: dict, cfg: ViTConfig, gh: int, gw: int,
     bias: torch.Tensor | None = None,
@@ -376,15 +415,14 @@ def _windowed_attention(
     x is the post-LN [B, 1+gh*gw, D] stream. The CLS token is in no
     window: it attends to itself alone (a 1-token sequence through the
     same projections, no bias), and patch tokens do not see it. Padded
-    window slots are masked out of the softmax. ``bias`` [H, ws^2, ws^2]
-    (the relative-position bias at within-window offsets) is the same for
+    window slots are masked out of the softmax (one mask row per window,
+    read modulo the window count). ``bias`` [H, ws^2, ws^2] (the
+    relative-position bias at within-window offsets) is the same for
     every window."""
     b = x.shape[0]
     ws = cfg.window_size
     xw, dims = _window_partition(x[:, 1:], gh, gw, ws)
-    key_mask = _window_key_mask(gh, gw, ws)
-    if key_mask is not None:
-        key_mask = key_mask.to(x.device).repeat(b, 1)
+    key_mask = _window_key_mask_on(x.device, gh, gw, ws)
     merged = _window_merge(_attention(xw, layer, cfg, key_mask, bias), b, gh, gw, ws, dims)
     return torch.cat([_attention(x[:, :1], layer, cfg), merged], dim=1)
 
@@ -446,16 +484,17 @@ def _layer_rel_bias(
 
 def encoder_block(
     x: torch.Tensor, layer: dict, cfg: ViTConfig, window: tuple[int, int] | None = None,
-    bias: torch.Tensor | None = None,
+    bias: torch.Tensor | None = None, key_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One pre-LN block: attention + MLP with BEiT layer scale.
     ``window`` = the patch grid (gh, gw) restricts the attention to
     ``cfg.window_size`` windows; None = full attention. ``bias``: the
     layer's relative-position bias [H, n, n] over the grid + CLS, or over
-    one window, or None."""
+    one window, or None. ``key_mask`` [rows, n]: the keys full attention
+    drops (``pad_tokens_to``'s padding)."""
     x_ln = _layer_norm(x, layer["ln1"], cfg.layer_norm_eps)
     if window is None:
-        attn = _attention(x_ln, layer, cfg, bias=bias)
+        attn = _attention(x_ln, layer, cfg, key_mask, bias)
     else:
         attn = _windowed_attention(x_ln, layer, cfg, *window, bias=bias)
     x = x + attn * layer["lambda_1"].to(attn.dtype)
@@ -466,12 +505,26 @@ def encoder_block(
     return x + y * layer["lambda_2"].to(y.dtype)
 
 
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """"dots": the outputs of the non-batched matmuls (the layer's qkv,
+    attn_out, mlp_in and mlp_out projections) are saved for the backward;
+    everything else runs again (JAX ``dots_with_no_batch_dims_saveable``)."""
+    if op in _SAVED_BY_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def vit_forward(
     params: dict,
     pixels: torch.Tensor,
     cfg: ViTConfig,
     taps: Sequence[int] = (),
     compute_dtype: torch.dtype = torch.float32,
+    remat: bool = False,
+    remat_policy: str = "full",
 ) -> list[torch.Tensor]:
     """Run the encoder on normalized pixels [B, C, H, W] (H, W multiples
     of the patch size); return hidden states [B, 1+P, D] at ``taps``
@@ -479,7 +532,11 @@ def vit_forward(
     the grid, so a window that covers it changes nothing. Relative-
     position tables (``rel_pos_table`` per layer, ``shared_rel_pos_table``)
     need a square grid; the windowed layers gather them at within-window
-    offsets."""
+    offsets. ``remat``: each layer under ``torch.utils.checkpoint`` while
+    grad is enabled, by ``remat_policy`` ("full" or "dots"); a layer's own
+    bias is gathered inside it, the shared table's outside, as in JAX."""
+    if remat_policy not in ("full", "dots"):  # JAX vit.py:893-896
+        raise ValueError(f"unknown remat_policy {remat_policy!r}; use 'full' or 'dots'")
     taps = tuple(taps) or (cfg.num_hidden_layers,)
     _, _, img_h, img_w = pixels.shape
     gh, gw = img_h // cfg.patch_size, img_w // cfg.patch_size
@@ -504,15 +561,39 @@ def vit_forward(
         table = _rel_table_for_grid(params["shared_rel_pos_table"], cfg.grid_size, gh)
         shared = {ws: _gather_rel_bias(table, gh, ws) for ws in set(kinds.values())}
 
+    # pad_tokens_to (JAX vit.py:829-846): the token axis padded once, the
+    # padding dropped from every softmax row by a key mask [1, n]
+    n_real = x.shape[1]
+    key_mask = None
+    if cfg.pad_tokens_to > n_real and not win_active:
+        x = F.pad(x, (0, 0, 0, cfg.pad_tokens_to - n_real))
+        key_mask = (torch.arange(cfg.pad_tokens_to, device=x.device) < n_real)[None]
+
+    def run_layer(x, layer, ws):
+        bias = None
+        if rel_pos:
+            bias = _layer_rel_bias(layer, cfg, gh, ws, shared.get(ws))
+            if bias is not None and key_mask is not None:  # zeros on the padding
+                pad = key_mask.shape[1] - bias.shape[-1]
+                bias = F.pad(bias, (0, pad, 0, pad))
+        return encoder_block(x, layer, cfg, (gh, gw) if ws else None, bias, key_mask)
+
+    if remat and torch.is_grad_enabled():
+        context = {}
+        if remat_policy == "dots":
+            context["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _dots_policy)
+        layer_fn = functools.partial(checkpoint, run_layer, use_reentrant=False, **context)
+    else:
+        layer_fn = run_layer
+
     collected: dict[int, torch.Tensor] = {}
     if 0 in taps:
         collected[0] = x
     for li, layer in enumerate(params["layers"], start=1):
-        ws = kinds[li]
-        bias = None
-        if rel_pos:
-            bias = _layer_rel_bias(layer, cfg, gh, ws, shared.get(ws))
-        x = encoder_block(x, layer, cfg, (gh, gw) if ws else None, bias)
+        x = layer_fn(x, layer, kinds[li])
         if li in taps:
             collected[li] = x
+    if key_mask is not None:  # crop pad_tokens_to's padding
+        return [collected[t][:, :n_real] for t in taps]
     return [collected[t] for t in taps]

@@ -9,7 +9,11 @@ out; the backward, one block per head, recomputes P from q and k and
 emits dq, dk and dv with no N x N tensor in device memory and no atomics.
 Both are bound by bytes on the H100 (barely) and read Q/K/V in place from
 the fused QKV projection's [B, N, H, D] strides; see the source for the
-design. Head dims 32, 64 and 128 are compiled.
+design. Head dims 32, 64 and 128 are compiled. Both take an optional key
+mask [rows, N] (bool or uint8, row b % rows for batch b, as the JAX
+encoder tiles its window mask over the pages): the keys it holds False
+drop out of every softmax row (padded window slots, ``pad_tokens_to``'s
+padding), in the kernels and in the plain versions alike.
 
 ``short_attention`` and ``short_attention_bwd`` launch the kernels for
 CUDA tensors and take the plain versions only for CPU tensors.
@@ -32,13 +36,31 @@ MAX_N = 256
 HEAD_DIMS = (32, 64, 128)  # the kernels are compiled for these widths
 
 _ARGTYPES = (
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 12
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
     + [ctypes.c_float, ctypes.c_void_p]
 )
 _BWD_ARGTYPES = (
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     + [ctypes.c_float, ctypes.c_void_p]
 )
+
+
+def key_mask_rows(key_mask: torch.Tensor, batch: int) -> torch.Tensor:
+    """A key mask [rows, N] as one bool row per batch element [B, N]: row
+    b % rows for element b (the JAX encoder tiles its window mask over the
+    pages)."""
+    return key_mask.bool()[torch.arange(batch, device=key_mask.device) % key_mask.shape[0]]
+
+
+def _probs(q: torch.Tensor, k: torch.Tensor, scale: float,
+           key_mask: torch.Tensor | None) -> torch.Tensor:
+    """softmax(q k^T * scale) [B, H, N, N] in fp32, the keys ``key_mask``
+    holds False for at -inf, as the JAX encoder's XLA path masks them
+    (``vit.py:552``)."""
+    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
+    if key_mask is not None:
+        s = s.masked_fill(~key_mask_rows(key_mask, q.shape[0])[:, None, None, :], float("-inf"))
+    return torch.softmax(s, dim=-1)
 
 
 def short_attention_plain(
@@ -46,13 +68,15 @@ def short_attention_plain(
     k: torch.Tensor,
     v: torch.Tensor,
     scale: float | None = None,
+    key_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """softmax(q k^T * scale) v over [B, N, H, D], fp32 math, out in
-    q.dtype (the function of the Pallas kernel, without its padding)."""
+    q.dtype (the function of the Pallas kernel, without its padding),
+    the keys ``key_mask`` [rows, N] holds False for dropped from every
+    row."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
-    p = torch.softmax(s, dim=-1)
+    p = _probs(q, k, scale, key_mask)
     return torch.einsum("bhnm,bmhd->bnhd", p, v.float()).to(q.dtype)
 
 
@@ -63,14 +87,17 @@ def short_attention_bwd_plain(
     o: torch.Tensor,
     do: torch.Tensor,
     scale: float | None = None,
+    key_mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) over [B, N, H, D] in fp32 math, out in q.dtype: the
     Pallas ``_bwd_kernel`` algebra, dV = P^T dO,
-    dS = P o (dO V^T - rowsum(dO o O)), dQ = dS K s, dK = dS^T Q s."""
+    dS = P o (dO V^T - rowsum(dO o O)), dQ = dS K s, dK = dS^T Q s, with
+    P as ``short_attention_plain`` masks it (a dropped key's dk and dv
+    rows are 0)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    p = torch.softmax(torch.einsum("bnhd,bmhd->bhnm", qf, kf) * scale, dim=-1)
+    p = _probs(q, k, scale, key_mask)
     dv = torch.einsum("bhnm,bnhd->bmhd", p, dof)
     dp = torch.einsum("bnhd,bmhd->bhnm", dof, vf)
     delta = (dof * o.float()).sum(-1).permute(0, 2, 1)[..., None]  # [B, H, N, 1]
@@ -119,13 +146,31 @@ def _check_heads(what: str, ref: torch.Tensor, **tensors: torch.Tensor) -> tuple
     return ptrs, strides
 
 
+def _check_mask(what: str, ref: torch.Tensor, key_mask: torch.Tensor | None) -> tuple[int, int]:
+    """-> (data pointer, rows) of a key mask for the kernels, (0, 0)
+    without one: bool or uint8 [rows, N], contiguous, on ``ref``'s device."""
+    if key_mask is None:
+        return 0, 0
+    n = ref.shape[1]
+    if (key_mask.dtype not in (torch.bool, torch.uint8) or key_mask.dim() != 2
+            or key_mask.shape[0] < 1 or key_mask.shape[1] != n
+            or key_mask.device != ref.device or not key_mask.is_contiguous()):
+        raise ValueError(
+            f"{what}: key_mask must be a contiguous bool or uint8 [rows, {n}] tensor on "
+            f"{ref.device}, got {key_mask.dtype} {tuple(key_mask.shape)} on {key_mask.device}"
+        )
+    return key_mask.data_ptr(), key_mask.shape[0]
+
+
 def short_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None,
+    key_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Fused short-sequence attention; [B, N, H, D] in and out (bf16 on
-    the card, any float type on the CPU)."""
+    the card, any float type on the CPU); ``key_mask`` [rows, N] drops
+    the keys it holds False for (row b % rows for batch b)."""
     if q.device.type == "cpu":
-        return short_attention_plain(q, k, v, scale)
+        return short_attention_plain(q, k, v, scale, key_mask)
     if q.device.type != "cuda":
         raise ValueError(f"short_attention: unsupported device {q.device}")
     b, n, h, d = q.shape
@@ -133,16 +178,20 @@ def short_attention(
         scale = 1.0 / math.sqrt(d)
     o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     ptrs, strides = _check_heads("short_attention", q, q=q, k=k, v=v, o=o)
+    mask = _check_mask("short_attention", q, key_mask)
     lib = _lib()
     code = lib.short_attention_fwd(
-        *ptrs, b, n, h, d, *strides, float(scale), _build.stream_ptr(q)
+        *ptrs, *mask, b, n, h, d, *strides, float(scale), _build.stream_ptr(q)
     )
     _build.check(lib, code, "short_attention")
     short_attention.launches += 1
+    short_attention.masked_launches += key_mask is not None
     return o
 
 
+# launches of the kernel, and of them those with a key mask
 short_attention.launches = 0
+short_attention.masked_launches = 0
 
 
 def short_attention_bwd(
@@ -153,12 +202,14 @@ def short_attention_bwd(
     do: torch.Tensor,
     scale: float | None = None,
     out: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
+    key_mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of short attention; [B, N, H, D] each. On the card
     ``out`` may name three bf16 [B, N, H, D] views to write into (the
-    slices of a fused QKV gradient); they are returned."""
+    slices of a fused QKV gradient); they are returned. ``key_mask``: as
+    for ``short_attention``."""
     if q.device.type == "cpu":
-        grads = short_attention_bwd_plain(q, k, v, o, do, scale)
+        grads = short_attention_bwd_plain(q, k, v, o, do, scale, key_mask)
         if out is None:
             return grads
         for dst, src in zip(out, grads):
@@ -175,17 +226,20 @@ def short_attention_bwd(
     ptrs, strides = _check_heads(
         "short_attention_bwd", q, q=q, k=k, v=v, o=o, do=do, dq=dq, dk=dk, dv=dv
     )
+    mask = _check_mask("short_attention_bwd", q, key_mask)
     lib = _lib()
     code = lib.short_attention_bwd(
-        *ptrs, b, n, h, d, (ctypes.c_longlong * 24)(*strides), float(scale),
+        *ptrs, *mask, b, n, h, d, (ctypes.c_longlong * 24)(*strides), float(scale),
         _build.stream_ptr(q),
     )
     _build.check(lib, code, "short_attention_bwd")
     short_attention_bwd.launches += 1
+    short_attention_bwd.masked_launches += key_mask is not None
     return out
 
 
 short_attention_bwd.launches = 0
+short_attention_bwd.masked_launches = 0
 
 
 def split_qkv(qkv: torch.Tensor, heads: int) -> list[torch.Tensor]:
@@ -197,27 +251,29 @@ def split_qkv(qkv: torch.Tensor, heads: int) -> list[torch.Tensor]:
 
 class _ShortAttentionQKV(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, qkv, heads, scale):
+    def forward(ctx, qkv, heads, scale, key_mask):
         q, k, v = split_qkv(qkv, heads)
-        o = short_attention(q, k, v, scale)
-        ctx.save_for_backward(qkv, o)
+        o = short_attention(q, k, v, scale, key_mask)
+        ctx.save_for_backward(qkv, o, key_mask)
         ctx.heads, ctx.scale = heads, scale
         return o
 
     @staticmethod
     def backward(ctx, do):
-        qkv, o = ctx.saved_tensors
+        qkv, o, key_mask = ctx.saved_tensors
         dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
         short_attention_bwd(
             *split_qkv(qkv, ctx.heads), o, do.contiguous(), ctx.scale,
-            out=tuple(split_qkv(dqkv, ctx.heads)),
+            out=tuple(split_qkv(dqkv, ctx.heads)), key_mask=key_mask,
         )
-        return dqkv, None, None
+        return dqkv, None, None, None
 
 
-def short_attention_qkv(qkv: torch.Tensor, heads: int, scale: float | None = None) -> torch.Tensor:
+def short_attention_qkv(qkv: torch.Tensor, heads: int, scale: float | None = None,
+                        key_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Differentiable short attention from the fused projection
-    [B, N, 3*H*D] (rows [q | k | v]) to the context [B, N, H, D]."""
+    [B, N, 3*H*D] (rows [q | k | v]) to the context [B, N, H, D];
+    ``key_mask`` [rows, N] as for ``short_attention``."""
     if scale is None:
         scale = 1.0 / math.sqrt(qkv.shape[-1] // (3 * heads))
-    return _ShortAttentionQKV.apply(qkv, heads, scale)
+    return _ShortAttentionQKV.apply(qkv, heads, scale, key_mask)

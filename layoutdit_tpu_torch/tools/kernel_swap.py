@@ -13,7 +13,10 @@ three arms:
 
 The swap is a patch of the wrappers' module names inside this tool only,
 undone after each run; the wrappers themselves still refuse a CUDA
-tensor on their plain path. Each run prints its arm, the swapped
+tensor on their plain path. ``swapped("plain_attention")`` (not an arm
+of the recipe, which has no flash attention) swaps rows 1-6 at once, for
+a float32 reference of a whole encoder on the card (``chip_smoke.py``
+phase ``encoder``). Each run prints its arm, the swapped
 wrappers' launch counts (0 when swapped), the held-out mAP, AP50 and
 per-class AP50. The last line is one JSON object with every run and two
 verdicts on ``table`` AP50:
@@ -47,6 +50,7 @@ import tempfile
 import numpy as np
 import torch
 
+from layoutdit_tpu_torch.ops import flash_attention as flash_mod
 from layoutdit_tpu_torch.ops import roi_align as roi_mod
 from layoutdit_tpu_torch.ops import short_attention as short_mod
 from layoutdit_tpu_torch.tools import convergence
@@ -58,13 +62,22 @@ T_CRIT = {1: 12.706, 2: 4.303, 3: 3.182, 4: 2.776, 5: 2.571, 6: 2.447, 7: 2.365,
           9: 2.262, 10: 2.228, 11: 2.201, 12: 2.179, 13: 2.160, 14: 2.145, 15: 2.131}
 
 
-def _plain_short_bwd(q, k, v, o, do, scale=None, out=None):
-    grads = short_mod.short_attention_bwd_plain(q, k, v, o, do, scale)
+def _plain_short_bwd(q, k, v, o, do, scale=None, out=None, key_mask=None):
+    grads = short_mod.short_attention_bwd_plain(q, k, v, o, do, scale, key_mask)
     if out is None:
         return grads
     for dst, src in zip(out, grads):
         dst.copy_(src)
     return out
+
+
+def _plain_flash_bwd(q, k, v, o, lse, do, bias=None, scale=None, out=None, bias_grad=False):
+    *grads, dbias = flash_mod.flash_attention_bwd_plain(q, k, v, o, lse, do, bias, scale)
+    if out is not None:
+        for dst, src in zip(out, grads):
+            dst.copy_(src)
+        grads = out
+    return (*grads, dbias if bias_grad else None)
 
 
 def _plain_roi_bwd(dout, rois, levels, features, spatial_scales, output_size=7,
@@ -83,6 +96,10 @@ def swapped(arm: str):
                         (short_mod, "short_attention_bwd", _plain_short_bwd)],
         "plain_roi": [(roi_mod, "roi_align_fwd", roi_mod.roi_align_plain),
                       (roi_mod, "roi_align_bwd", _plain_roi_bwd)],
+        "plain_attention": [(short_mod, "short_attention", short_mod.short_attention_plain),
+                            (short_mod, "short_attention_bwd", _plain_short_bwd),
+                            (flash_mod, "flash_attention_fwd", flash_mod.flash_attention_plain),
+                            (flash_mod, "flash_attention_bwd", _plain_flash_bwd)],
     }[arm]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:

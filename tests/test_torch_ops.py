@@ -205,6 +205,9 @@ def test_load_serving_config(tmp_path):
     # windows are ported: the field loads
     bad.write_text(json.dumps({"detection_model_config": {"window_size": 16}}))
     assert port_config.load_config(str(bad))[0].window_size == 16
+    # dit-large is ported; resnet50 waits
     bad.write_text(json.dumps({"detection_model_config": {"backbone_type": "dit-large"}}))
-    with pytest.raises(ValueError, match="dit-base only"):
+    assert port_config.load_config(str(bad))[0].backbone_type == "dit-large"
+    bad.write_text(json.dumps({"detection_model_config": {"backbone_type": "resnet50"}}))
+    with pytest.raises(ValueError, match="resnet50.*queue 1 item 6"):
         port_config.load_config(str(bad))

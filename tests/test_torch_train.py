@@ -344,8 +344,8 @@ def test_training_config_defaults_and_waiting_fields():
         assert getattr(jax_defaults, name) == value, name
     rc = run_config_from_dict({"train_config": {"lora_freeze_base": True, "num_epochs": 3}})
     assert rc.train.num_epochs == 3  # a waiting field at its default loads
-    with pytest.raises(ValueError, match="remat.*activation checkpointing"):
-        run_config_from_dict({"detection_model_config": {"remat": True}})
+    with pytest.raises(ValueError, match="previous_layout_dit_checkpoint.*warm-starting"):
+        run_config_from_dict({"detection_model_config": {"previous_layout_dit_checkpoint": "x"}})
     with pytest.raises(ValueError, match="lora_freeze_base.*LoRA training"):
         run_config_from_dict({"train_config": {"lora_freeze_base": False}})
     with pytest.raises(ValueError, match="not supported"):

@@ -153,13 +153,18 @@ def test_window_covering_the_grid_changes_nothing(rng, ws):
 
 
 def test_padded_window_grid_on_the_card_raises():
-    """The short kernels take no key mask, so a padded window grid on a
-    device that is not the CPU raises instead of reaching a plain
-    version."""
+    """A padded window grid off the CPU never reaches a plain version:
+    without a bias it goes to the short kernels, which take the key mask
+    (on a device that is not CUDA their wrapper refuses it); with a
+    relative-position bias it needs the flash kernels' key mask, which
+    they do not take, and raises."""
     qkv = torch.empty(2, 9, 3 * 64, device="meta")
-    mask = torch.ones(2, 9, dtype=torch.bool, device="meta")
-    with pytest.raises(NotImplementedError, match="key mask in the short kernels"):
+    mask = torch.ones(1, 9, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="short_attention: unsupported device meta"):
         port_vit.attention_core(qkv, 4, key_mask=mask)
+    bias = torch.empty(4, 9, 9, device="meta")
+    with pytest.raises(NotImplementedError, match="rows 3-6 take no key mask"):
+        port_vit.attention_core(qkv, 4, key_mask=mask, bias=bias)
 
 
 # ------------------------------------------------- config, weights, fixture
@@ -191,11 +196,18 @@ def test_load_run_config_train_1024_window():
 
 @pytest.mark.parametrize("field,value", [("remat", True), ("remat_policy", "dots")])
 def test_remat_waits_at_its_default(field, value):
+    """``remat`` and ``remat_policy`` were refused away from their JAX
+    defaults until the encoder took them; now both load at any valid
+    value (``tests/test_torch_remat.py``), and a policy JAX does not know
+    raises with JAX's message."""
     defaults = {"remat": False, "remat_policy": "full"}
     rc = run_config_from_dict({"detection_model_config": {field: defaults[field]}})
     assert rc.model.window_size == 0
-    with pytest.raises(ValueError, match=f"{field}.*activation checkpointing"):
-        run_config_from_dict({"detection_model_config": {field: value}})
+    assert getattr(rc.model, field) == defaults[field]
+    rc = run_config_from_dict({"detection_model_config": {field: value}})
+    assert getattr(rc.model, field) == value
+    with pytest.raises(ValueError, match="unknown remat_policy 'none'; use 'full' or 'dots'"):
+        run_config_from_dict({"detection_model_config": {"remat_policy": "none"}})
 
 
 def test_params_round_trip_at_the_window_config():
