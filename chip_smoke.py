@@ -23,7 +23,14 @@ serves requests through ``BatchInferenceEngine`` with dit-base
 Faster R-CNN at full width (``configs/serving_1024.json``, random weights
 from a seed) in the 224 and 1024 px buckets and checks the detections
 and the encoder against a float32 CPU reference (phase ``serving``),
-then trains the port's default config (dit-base, 224 px, batch 16) with
+then deploys that model: its registered kernel operators' host cost per
+call against their direct launches, a ``torch.export`` artifact of both
+buckets run in a fresh process that imports no model, config or eval
+code (``--exported-child``) and held to the live engine's detections,
+16 concurrent JPEG requests and a corrupt page over HTTP, the predict
+tool with planned buckets, and the native JPEG decode against PIL
+(phase ``deploy``; ``--only deploy`` runs that phase alone after the
+build, without the last lines), then trains the port's default config (dit-base, 224 px, batch 16) with
 ``Trainer`` over synthetic pages: one epoch, then steps on a repeated
 batch whose loss must fall, and the encoder's gradients against a
 float32 CPU reference (phase ``train``); trains the same config with
@@ -2693,6 +2700,465 @@ def phase_serving(kernels: list[dict]) -> dict:
     }
 
 
+# the deploy phase: an exported artifact of serving_1024.json's buckets,
+# loaded in a fresh process, served over HTTP and driven by the predict tool
+DEPLOY_BUCKETS = (224, 1024)
+# exported against live detections on the same pages (labels equal)
+DEPLOY_BOX_TOL = 1e-2  # px, page coordinates
+DEPLOY_SCORE_TOL = 1e-3
+DEPLOY_ROUNDS = 4  # timed rounds of the three requests, live and exported (in round order)
+HTTP_PAGES = 16  # concurrent POSTs, both buckets, plus one corrupt page
+# per-call host cost of an operator against its direct launch: calls
+# queued behind the spin kernel, alternating, median of the rounds
+HOST_COST_CALLS = 200
+HOST_COST_ROUNDS = 5
+# the packages an exported artifact must load and run without
+NOT_IMPORTED = ("layoutdit_tpu_torch.models", "layoutdit_tpu_torch.config",
+                "layoutdit_tpu_torch.eval")
+
+
+def _host_ms(fn, calls: int) -> float:
+    """Host time per call of ``fn`` with the card busy: the calls are queued
+    behind a spin kernel, so the host never waits for the device."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / calls * 1e3
+
+
+def _host_cost(gen) -> dict:
+    """Rows 1, 3 and 7 at their serving shapes: the wrapper through its
+    registered operator against the direct launch (what the wrapper did
+    before the operators: allocate, check, launch), per call, host only."""
+    from layoutdit_tpu_torch.ops import flash_attention as fa
+    from layoutdit_tpu_torch.ops import roi_align as ra
+    from layoutdit_tpu_torch.ops import short_attention as sa
+
+    q, k, v = _qkv(gen, 4, 197, 12, 64)
+    qf, kf, vf = _qkv(gen, 4, 4097, 12, 64)
+    feats, rois, mask = _roi_inputs(gen, 224, b=4)
+    scales = ROI_SCALES
+    levels = ra.roi_levels(rois, 5, 224.0, roi_mask=mask)
+    b, n, h, d = qf.shape
+
+    def flash_direct():
+        o = torch.empty((b, n, h, d), dtype=qf.dtype, device=qf.device)
+        lse = torch.empty((b * h, n), dtype=torch.float32, device=qf.device)
+        fa.flash_attention_fwd_launch(qf, kf, vf, None, 0.125, o, lse)
+
+    pairs = {
+        "short_attention": (lambda: sa.short_attention(q, k, v, 0.125),
+                            lambda: sa.short_attention_launch(q, k, v, 0.125, None)),
+        "flash_attention": (lambda: fa.flash_attention_fwd(qf, kf, vf, None, 0.125),
+                            flash_direct),
+        "roi_align": (lambda: ra.roi_align_fwd(feats, rois, levels, scales),
+                      lambda: ra.roi_align_launch(feats, rois, levels, scales)),
+    }
+    out = {}
+    for name, (op, direct) in pairs.items():
+        ops, directs = [], []
+        for _ in range(HOST_COST_ROUNDS):
+            ops.append(_host_ms(op, HOST_COST_CALLS))
+            directs.append(_host_ms(direct, HOST_COST_CALLS))
+        out[name] = {"operator_ms": float(np.median(ops)), "direct_ms": float(np.median(directs)),
+                     "operator_runs": ops, "direct_runs": directs}
+        print(f"  host cost per call, {name}: operator {out[name]['operator_ms'] * 1e3:.2f} us, "
+              f"direct launch {out[name]['direct_ms'] * 1e3:.2f} us (medians of "
+              f"{HOST_COST_ROUNDS} x {HOST_COST_CALLS} calls)")
+    return out
+
+
+def _match(want, got) -> tuple[float, float]:
+    """Detections of one page as matched sets: the same count, each of
+    ``want`` matched to one of ``got`` with its label, boxes within
+    DEPLOY_BOX_TOL and scores within DEPLOY_SCORE_TOL -> (largest box,
+    largest score difference)."""
+    wb, ws, wl = (np.asarray(x) for x in want)
+    gb, gs, gl = (np.asarray(x) for x in got)
+    if len(wb) != len(gb):
+        raise RuntimeError(f"deploy: {len(gb)} detections against {len(wb)}")
+    used = np.zeros(len(gb), bool)
+    box_err = score_err = 0.0
+    for box, score, label in zip(wb, ws, wl):
+        db = np.abs(gb - box).max(axis=1) if len(gb) else np.zeros(0)
+        ds = np.abs(gs - score)
+        cand = np.nonzero((gl == label) & ~used & (db <= DEPLOY_BOX_TOL)
+                          & (ds <= DEPLOY_SCORE_TOL))[0]
+        if not len(cand):
+            raise RuntimeError(f"deploy: no match for label {label} box {box} score {score}")
+        j = cand[np.argmin(db[cand])]
+        used[j] = True
+        box_err, score_err = max(box_err, float(db[j])), max(score_err, float(ds[j]))
+    return box_err, score_err
+
+
+def _deploy_requests():
+    rng = np.random.default_rng(0)
+    small = [rng.integers(0, 256, (200 + 3 * i, 160 + 2 * i, 3), dtype=np.uint8)
+             for i in range(8)]
+    large = [rng.integers(0, 256, (1000 - 5 * i, 770 + 4 * i, 3), dtype=np.uint8)
+             for i in range(4)]
+    return [("224 px bucket", small), ("1024 px bucket", large),
+            ("both buckets", small[:4] + large[:2])]
+
+
+def exported_child(artifact: str, out_path: str) -> int:
+    """The deploy phase's fresh process: load the artifact with
+    ``ExportedDetector`` (torch, numpy and the port's ops only), serve the
+    three requests through it (routing, device resize and padding as the
+    engine does them) and write the detections, latencies, launch counts
+    and imported modules to ``out_path``."""
+    sys.path.insert(0, str(ROOT))
+    import bisect
+
+    # the numerics of this script's own process (main), so that the two
+    # runs choose the same algorithms
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from layoutdit_tpu_torch.export import ExportedDetector
+    from layoutdit_tpu_torch.ops import nms
+    from layoutdit_tpu_torch.ops.interpolate import resize_bilinear
+
+    t0 = time.perf_counter()
+    det = ExportedDetector(artifact)
+    load_s = time.perf_counter() - t0
+    sizes, batch = sorted(det.image_sizes), int(det.manifest["batch_size"])
+
+    chunk_ms = []  # per chunk of the timed rounds: size, prepare, call, fetch
+
+    def serve(pages):
+        buckets: dict[int, list[int]] = {}
+        for i, p in enumerate(pages):
+            j = bisect.bisect_left(sizes, max(p.shape[:2]))
+            buckets.setdefault(sizes[min(j, len(sizes) - 1)], []).append(i)
+        results = [None] * len(pages)
+        for size, idx in buckets.items():
+            for start in range(0, len(idx), batch):
+                chunk = idx[start:start + batch]
+                t0 = time.perf_counter()
+                images = torch.zeros((batch, 3, size, size), device=det.device)
+                orig = torch.ones((batch, 2), device=det.device)
+                with torch.inference_mode():
+                    for slot, i in enumerate(chunk):
+                        x = torch.from_numpy(pages[i]).to(det.device).float().permute(2, 0, 1)
+                        images[slot] = resize_bilinear(x / 255.0, size, size)
+                        orig[slot] = torch.tensor(pages[i].shape[:2], dtype=torch.float32)
+                    t1 = time.perf_counter()
+                    out = det.predict_async(images, orig)
+                    t2 = time.perf_counter()
+                    out = {k: v.cpu().numpy() for k, v in out.items()}
+                chunk_ms.append((size, (t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                                 (time.perf_counter() - t2) * 1e3))
+                for slot, i in enumerate(chunk):
+                    keep = out["valid"][slot] & (out["scores"][slot] >= 0.05)
+                    results[i] = [out[k][slot][keep].tolist() for k in ("boxes", "scores",
+                                                                         "labels")]
+        return results
+
+    requests = _deploy_requests()
+    serve(requests[0][1][:4] + requests[1][1][:4])  # warm-up, not counted
+    torch.cuda.synchronize()
+    _reset_counts()
+    chunk_ms.clear()
+    latencies = {name: [] for name, _ in requests}
+    syncs = {name: [] for name, _ in requests}
+    dets = {}
+    for _ in range(DEPLOY_ROUNDS):
+        for name, pages in requests:
+            s0 = nms.nms_mask.host_syncs
+            t0 = time.perf_counter()
+            dets[name] = serve(pages)
+            torch.cuda.synchronize()
+            latencies[name].append(time.perf_counter() - t0)
+            syncs[name].append(nms.nms_mask.host_syncs - s0)
+    counts = _counts()
+    imported = sorted(m for m in sys.modules if m.startswith(NOT_IMPORTED))
+    with open(out_path, "w") as f:
+        json.dump({"load_s": load_s, "latency_s": latencies, "detections": dets,
+                   "counts": counts, "imported": imported, "nms_syncs": syncs,
+                   "chunk_ms": chunk_ms, "gc_ms": _full_collection_ms()}, f)
+    return 0
+
+
+def _full_collection_ms() -> dict:
+    """One full collection of Python's cyclic garbage collector, in ms,
+    with the loaded programs frozen (as ``ExportedDetector`` leaves them)
+    and tracked (the collector walks their graphs), and the objects
+    frozen."""
+    import gc
+
+    out = {"frozen_objects": gc.get_freeze_count()}
+    for label in ("frozen", "tracked"):
+        if label == "tracked":
+            gc.unfreeze()
+        t0 = time.perf_counter()
+        gc.collect()
+        out[label] = (time.perf_counter() - t0) * 1e3
+    gc.freeze()
+    return out
+
+
+def phase_deploy(kernels: list[dict], gen) -> dict:
+    """Export ``configs/serving_1024.json``'s model (dit-base, random
+    weights from seed 0) in its 224 and 1024 px buckets on the card, load
+    the artifact in a fresh process that imports no model, config or eval
+    code and hold its detections to the live engine's; serve 16
+    concurrent JPEG POSTs and a corrupt page over HTTP from the artifact;
+    run the predict tool over 16 fixture JPEGs with two planned buckets;
+    time the native JPEG decode against PIL; and measure each serving
+    operator's host cost against its direct launch."""
+    import http.client
+    import io
+    import os
+    import threading
+
+    from PIL import Image
+
+    from layoutdit_tpu_torch.config import load_config
+    from layoutdit_tpu_torch.eval.serving import BatchInferenceEngine
+    from layoutdit_tpu_torch.export import export_detector
+    from layoutdit_tpu_torch.models.detection.detector import (
+        DetectorConfig,
+        DetectorModel,
+        init_detector,
+    )
+    from layoutdit_tpu_torch.native import loader as native_loader
+    from layoutdit_tpu_torch.ops import nms
+    from layoutdit_tpu_torch.tools import predict as predict_tool
+    from layoutdit_tpu_torch.tools.make_fixture import make_page
+    from layoutdit_tpu_torch.tools.serve import detections_to_json, make_server
+    from layoutdit_tpu_torch.train.checkpoint import save_checkpoint
+
+    t_phase = time.perf_counter()
+    out = {"host_cost": _host_cost(gen)}
+    mc, dl = load_config(str(CONFIG))
+    cfg = DetectorConfig.from_model_config(mc, precision_dtype="bfloat16")
+    model = DetectorModel(init_detector(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                        device="cuda"), cfg)
+    engine = BatchInferenceEngine(model, image_sizes=DEPLOY_BUCKETS, batch_size=dl.batch_size)
+    requests = _deploy_requests()
+    engine.predict_pages(requests[0][1][:4] + requests[1][1][:4])  # warm-up
+    live_ms = {name: [] for name, _ in requests}
+    live_syncs = {name: [] for name, _ in requests}
+    live_dets = {}
+    for _ in range(DEPLOY_ROUNDS):  # the exported run's order
+        for name, pages in requests:
+            s0 = nms.nms_mask.host_syncs
+            t0 = time.perf_counter()
+            live_dets[name] = engine.predict_pages(pages)
+            torch.cuda.synchronize()
+            live_ms[name].append((time.perf_counter() - t0) * 1e3)
+            live_syncs[name].append(nms.nms_mask.host_syncs - s0)
+
+    if not native_loader.available():
+        raise RuntimeError("deploy: the native JPEG loader did not build")
+    _reset_counts()
+    native_loader.decode_batch.pages = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        artifact = os.path.join(tmp, "artifact")
+        manifest = export_detector(model.params, cfg, artifact, image_sizes=DEPLOY_BUCKETS,
+                                   batch_size=dl.batch_size, device="cuda")
+        nbytes = sum(os.path.getsize(os.path.join(artifact, f)) for f in os.listdir(artifact))
+        print(f"  export: {manifest['export_seconds']} s per bucket, artifact {nbytes} bytes "
+              f"({sorted(os.listdir(artifact))})")
+
+        # the artifact in a fresh process
+        child_out = os.path.join(tmp, "child.json")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--exported-child",
+                            artifact, child_out], capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise RuntimeError(f"deploy: the exported run failed:\n{r.stderr[-4000:]}")
+        with open(child_out) as f:
+            child = json.load(f)
+        if child["imported"]:
+            raise RuntimeError(f"deploy: the exported run imported {child['imported']}")
+        box_err = score_err = 0.0
+        for name, pages in requests:
+            for want, got in zip(live_dets[name], child["detections"][name]):
+                b_err, s_err = _match((want.boxes, want.scores, want.labels), got)
+                box_err, score_err = max(box_err, b_err), max(score_err, s_err)
+        exported_ms = {k: [t * 1e3 for t in v] for k, v in child["latency_s"].items()}
+        for name, _ in requests:
+            print(f"  request ({name}): median latency live {np.median(live_ms[name]):.3f} ms, "
+                  f"exported {np.median(exported_ms[name]):.3f} ms ({DEPLOY_ROUNDS} runs each; "
+                  f"NMS host syncs live {live_syncs[name]}, exported "
+                  f"{child['nms_syncs'][name]})")
+        print(f"  exported against live: the same labels, largest box difference {box_err:.6g} "
+              f"px, largest score difference {score_err:.6g}; the fresh process loaded the "
+              f"artifact in {child['load_s']:.2f} s ({child_s:.1f} s with its start) and "
+              f"imported none of {NOT_IMPORTED}")
+        print("  exported run, each batch of the timed rounds (size: prepare / program call / "
+              "fetch ms): " + "; ".join(f"{c[0]}: {c[1]:.1f} / {c[2]:.1f} / {c[3]:.1f}"
+                                        for c in child["chunk_ms"]))
+        gc_ms = child["gc_ms"]
+        print(f"  a full garbage collection in the exported run: {gc_ms['frozen']:.3f} ms with "
+              f"the {gc_ms['frozen_objects']} objects alive after the load frozen, "
+              f"{gc_ms['tracked']:.3f} ms with them tracked")
+        counts = child["counts"]
+        print(f"  launches in the exported run: " + ", ".join(
+            f"{n} {counts[n]}" for n in SERVING_KERNELS))
+        for name in SERVING_KERNELS:
+            if counts[name] <= 0:
+                raise RuntimeError(f"deploy: {name} was not launched by the exported programs")
+
+        # HTTP: concurrent JPEG POSTs of both buckets and one corrupt page
+        rng = np.random.default_rng(1)
+        jpegs = []
+        for i in range(HTTP_PAGES):
+            shape = (200 + 3 * i, 160 + 2 * i) if i % 2 else (1000 - 5 * i, 770 + 4 * i)
+            buf = io.BytesIO()
+            Image.fromarray(rng.integers(0, 256, (*shape, 3), dtype=np.uint8)).save(
+                buf, "JPEG", quality=90)
+            jpegs.append(buf.getvalue())
+        httpd, batcher = make_server(None, "127.0.0.1", 0, export_dir=artifact, flush_ms=20.0)
+        server = threading.Thread(target=httpd.serve_forever, daemon=True)
+        server.start()
+        port = httpd.server_address[1]
+
+        def post(body: bytes):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+            t0 = time.perf_counter()
+            conn.request("POST", "/predict", body=body,
+                         headers={"Content-Type": "application/octet-stream"})
+            resp = conn.getresponse()
+            payload = json.loads(resp.read())
+            conn.close()
+            return resp.status, payload, time.perf_counter() - t0
+
+        try:
+            post(jpegs[0]), post(jpegs[1])  # warm-up, not counted
+            before = httpd.metrics.batches
+            results: list = [None] * (HTTP_PAGES + 1)
+
+            def run(i, body):
+                results[i] = post(body)
+
+            threads = [threading.Thread(target=run, args=(i, b))
+                       for i, b in enumerate(jpegs + [b"\xff\xd8 not a page"])]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            batches = httpd.metrics.batches - before
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            conn.request("GET", "/metrics")
+            metrics_text = conn.getresponse().read().decode()
+            conn.close()
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            batcher.stop()
+        # the three requests through the server's exported engine, in this
+        # process, beside the live engine's (same pipeline, same pages)
+        here_ms = {name: [] for name, _ in requests}
+        for _ in range(DEPLOY_ROUNDS):
+            for name, pages in requests:
+                t0 = time.perf_counter()
+                batcher.engine.predict_pages(pages)
+                torch.cuda.synchronize()
+                here_ms[name].append((time.perf_counter() - t0) * 1e3)
+        print("  the exported engine in this process, the three requests (ms, in round "
+              "order): " + "; ".join(f"{k} {[round(t, 3) for t in v]}"
+                                     for k, v in here_ms.items()))
+        codes = [r[0] for r in results]
+        if codes[:-1] != [200] * HTTP_PAGES or codes[-1] != 422:
+            raise RuntimeError(f"deploy: HTTP codes {codes}")
+        if any(not r[1]["boxes"] for r in results[:-1]):
+            raise RuntimeError("deploy: a served page had no detections")
+        if not batches < HTTP_PAGES + 1 or "layoutdit_batches_total" not in metrics_text:
+            raise RuntimeError(f"deploy: {batches} batches for {HTTP_PAGES + 1} pages")
+        lat = sorted(r[2] * 1e3 for r in results)
+        http_ms = {"p50": float(np.percentile(lat, 50)), "p95": float(np.percentile(lat, 95))}
+        print(f"  HTTP: {HTTP_PAGES} concurrent JPEG POSTs + 1 corrupt page: 200 x "
+              f"{HTTP_PAGES}, 422 x 1, {batches} batches; latency p50 {http_ms['p50']:.3f} ms, "
+              f"p95 {http_ms['p95']:.3f} ms; native decode took "
+              f"{native_loader.decode_batch.pages} pages")
+        if native_loader.decode_batch.pages < HTTP_PAGES:
+            raise RuntimeError("deploy: the served pages did not go through the native loader")
+
+        # the predict tool over fixture JPEGs, two planned buckets
+        page_dir = os.path.join(tmp, "pages")
+        os.makedirs(page_dir)
+        for i in range(16):
+            img, _ = make_page(rng, 224 if i % 2 else 896)
+            Image.fromarray((img * 255).astype(np.uint8)).convert("RGB").save(
+                os.path.join(page_dir, f"page_{i:02d}.jpg"), quality=92)
+        ckpt = save_checkpoint(os.path.join(tmp, "model.pt"), model.params, None, 0, {})
+        os.environ["LAYOUTDIT_CONFIG"] = str(CONFIG)
+        try:
+            records = predict_tool.main([
+                "--checkpoint", ckpt, "--input", page_dir, "--auto-buckets", "2",
+                "--batch-size", str(dl.batch_size), "--output", os.path.join(tmp, "d.json")])
+        finally:
+            del os.environ["LAYOUTDIT_CONFIG"]
+        paths = predict_tool.collect_inputs(page_dir)
+        pages = [Path(p).read_bytes() for p in paths]
+        sizes = []
+        for p in paths:
+            with Image.open(p) as im:
+                sizes.append(im.size[::-1])
+        planned = BatchInferenceEngine.from_corpus(model, sizes, max_buckets=2,
+                                                   batch_size=dl.batch_size)
+        names = predict_tool._label_names(cfg.num_classes, None)
+        want = [{"file": p, **detections_to_json(d, names)}
+                for p, d in zip(paths, planned.predict_pages(pages))]
+        if records != want:
+            raise RuntimeError("deploy: the predict tool's records differ from the engine's")
+        print(f"  predict: {len(records)} records over buckets {planned.image_sizes}, equal to "
+              f"the engine's")
+        counts = _counts()
+    for k in kernels:
+        k["deploy_launches"] = counts[k["name"]] + child["counts"][k["name"]]
+
+    # native decode against PIL on pages of about 1000 x 770
+    big = []
+    for i in range(16):
+        buf = io.BytesIO()
+        img, _ = make_page(rng, 1000)
+        Image.fromarray((img[:, :770] * 255).astype(np.uint8)).convert("RGB").save(
+            buf, "JPEG", quality=92)
+        big.append(buf.getvalue())
+    dims = [native_loader.jpeg_dims(b) for b in big]
+    decode = {}
+    for label, fn in (
+        ("native", lambda: native_loader.decode_batch(big, dims, n_threads=engine.decode_workers)),
+        ("native_1_thread", lambda: native_loader.decode_batch(big, dims, n_threads=1)),
+        ("pil", lambda: [np.array(Image.open(io.BytesIO(b)).convert("RGB")) for b in big]),
+    ):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            got = fn()
+        decode[label] = 3 * len(big) / (time.perf_counter() - t0)
+        decode[f"{label}_pages"] = got
+    diff = max(int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+               for a, b in zip(decode.pop("native_pages"), decode.pop("pil_pages")))
+    decode.pop("native_1_thread_pages")
+    print(f"  decode, 16 JPEGs of 1000 x 770: native {decode['native']:.1f} pages/s "
+          f"({engine.decode_workers} threads), {decode['native_1_thread']:.1f} on one, PIL "
+          f"{decode['pil']:.1f}; largest uint8 difference {diff}")
+    out.update({
+        "export_s": manifest["export_seconds"], "artifact_bytes": nbytes,
+        "live_latency_ms": live_ms, "exported_latency_ms": exported_ms,
+        "live_nms_syncs": live_syncs, "exported_nms_syncs": child["nms_syncs"],
+        "exported_here_latency_ms": here_ms,
+        "exported_gc_ms": gc_ms,
+        "exported_load_s": child["load_s"], "max_box_err_px": box_err,
+        "max_score_err": score_err, "exported_launches": child["counts"],
+        "http_ms": http_ms, "http_batches": batches, "decode_pages_per_s": decode,
+        "decode_max_diff": diff, "phase_s": time.perf_counter() - t_phase,
+    })
+    print(f"  phase deploy: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU")
@@ -2729,6 +3195,15 @@ def main() -> int:
           f"with a bias), dbias {smem(3, 4)} (B = 4, rows resident) / {smem(4, 0)} (streamed)")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if "--only" in sys.argv:
+        # a check of some phases alone (no kernels line, no last line)
+        only = sys.argv[sys.argv.index("--only") + 1].split(",")
+        runners = {"serving": lambda: phase_serving([]),
+                   "deploy": lambda: phase_deploy([], gen)}
+        for name in only:
+            print(f"phase {name}")
+            print(json.dumps({name: runners[name]()}))
+        return 0
     print("phase kernels")
     kernels = [phase_short(gen), phase_flash(gen), phase_roi(gen)]
     torch.cuda.empty_cache()
@@ -2741,6 +3216,10 @@ def main() -> int:
 
     print("phase serving")
     serving = phase_serving(kernels)
+    torch.cuda.empty_cache()
+
+    print("phase deploy")
+    deploy = phase_deploy(kernels, gen)
     torch.cuda.empty_cache()
 
     print("phase train")
@@ -2773,7 +3252,7 @@ def main() -> int:
 
     print("phase convergence")
     conv = phase_convergence(kernels, card)
-    paths = ("probe", "serving", "train", "train_state", "io", "train_1024",
+    paths = ("probe", "serving", "deploy", "train", "train_state", "io", "train_1024",
              "train_1024_relpos", "encoder", "main", "convergence")
     for k in kernels:
         k["launches"] = sum(k[f"{path}_launches"] for path in paths)
@@ -2781,6 +3260,7 @@ def main() -> int:
             raise RuntimeError(f"{k['name']} was launched on no path")
 
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"deploy": deploy}))
     print(json.dumps({"train": train}))
     print(json.dumps({"train_state": train_state}))
     print(json.dumps({"io": io}))
@@ -2800,4 +3280,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--exported-child"]:
+        sys.exit(exported_child(*sys.argv[2:4]))
     sys.exit(main())

@@ -112,6 +112,16 @@ class ShardIndex:
             h.seek(offset)
             return h.read(size)
 
+    @retry_io
+    def read_prefix(self, file_name: str, n: int) -> bytes:
+        """A member's first min(n, size) bytes: enough for an image header
+        without reading the whole page."""
+        shard_idx, offset, size = self.entries[file_name]
+        with self._lock:
+            h = self._handle(shard_idx)
+            h.seek(offset)
+            return h.read(min(n, size))
+
     def close(self) -> None:
         with self._lock:
             handles, self._handles = list(self._handles.values()), {}

@@ -13,11 +13,20 @@ and the anchors follow the bucket's size.
 The host pipeline is the JAX engine's: decode workers prepare batches
 ahead, the main thread dispatches, and results are fetched
 ``max_in_flight`` batches behind. One difference: the JAX engine resizes
-pages on the host (numpy), this one uploads each page in its own dtype
-(uint8 for images) and resizes it with ``F.interpolate`` on the device,
-the same bilinear formula (align_corners=False) after the same /255
-scaling; on an H100 host the numpy resize of a 1000 px page took tens
-of milliseconds and serialized on the interpreter lock (PERF.md).
+pages on the host (numpy, or its native loader's decode + resize), this
+one uploads each page in its own dtype (uint8 for images) and resizes it
+with ``F.interpolate`` on the device, the same bilinear formula
+(align_corners=False) after the same /255 scaling; on an H100 host the
+numpy resize of a 1000 px page took tens of milliseconds and serialized
+on the interpreter lock (PERF.md). A chunk of JPEG pages is decoded by
+the native loader's decode-only entry (``native/loader.py``: header
+sizes for routing, then one threaded batch decode into uint8 arrays);
+without the loader (no g++ or libjpeg) PIL decodes, and the engine logs
+once that it does. Other encoded pages (PNG) always go through PIL.
+
+``ExportedInferenceEngine`` runs the same pipeline over an exported
+artifact (``export.py``) instead of the model: its buckets and batch
+size come from the artifact's manifest.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import bisect
 import dataclasses
 import io
 import os
+import types
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Sequence
@@ -41,6 +51,7 @@ from layoutdit_tpu_torch.models.detection.detector import (
     rescale_detections,
 )
 from layoutdit_tpu_torch.models.weights_io import tree_map
+from layoutdit_tpu_torch.native import loader as native_loader
 from layoutdit_tpu_torch.ops.interpolate import resize_bilinear
 
 logger = get_logger(__name__)
@@ -80,6 +91,23 @@ class BatchInferenceEngine:
         the CPU. A CUDA device with no GPU present raises.
     """
 
+    def _init_pipeline_fields(
+        self,
+        score_thresh: float,
+        decode_workers: int | None,
+        max_in_flight: int,
+        device: str | torch.device,
+    ) -> None:
+        """Host-pipeline fields shared by the live and exported engines."""
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"{type(self).__name__}: no CUDA device is available")
+        if decode_workers is None:
+            decode_workers = max(1, min(4, (os.cpu_count() or 2) - 1))
+        self.score_thresh = score_thresh
+        self.decode_workers = decode_workers
+        self.max_in_flight = max(1, max_in_flight)
+
     def __init__(
         self,
         model: DetectorModel,
@@ -90,21 +118,30 @@ class BatchInferenceEngine:
         max_in_flight: int = 2,
         device: str | torch.device = "cuda",
     ):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("BatchInferenceEngine: no CUDA device is available")
-        if decode_workers is None:
-            decode_workers = max(1, min(4, (os.cpu_count() or 2) - 1))
+        self._init_pipeline_fields(score_thresh, decode_workers, max_in_flight, device)
         self.model = model
         self.image_sizes = sorted(image_sizes)
         self.batch_size = batch_size
-        self.score_thresh = score_thresh
-        self.decode_workers = decode_workers
-        self.max_in_flight = max(1, max_in_flight)
         self.params = params_for_inference(
             tree_map(lambda t: t.to(self.device), model.params), model.cfg.dtype
         )
         self._cfgs: dict[int, object] = {}
+
+    @classmethod
+    def from_corpus(
+        cls,
+        model: DetectorModel,
+        page_sizes,
+        max_buckets: int = 3,
+        **kwargs,
+    ) -> "BatchInferenceEngine":
+        """An engine with the cost-optimal buckets for a corpus of
+        (height, width) page sizes (``eval/buckets.py``)."""
+        from layoutdit_tpu_torch.eval.buckets import plan_buckets
+
+        patch = model.cfg.backbone.vit.patch_size
+        sizes = plan_buckets(page_sizes, k=max_buckets, patch=patch)
+        return cls(model, image_sizes=sizes, **kwargs)
 
     def _cfg_for(self, size: int):
         if size not in self._cfgs:
@@ -118,11 +155,12 @@ class BatchInferenceEngine:
 
     def _decode_page(self, page):
         """One page -> (pixels, divide, (h, w)) on a decode worker: JPEG
-        bytes become uint8 [H, W, 3], arrays pass through ([H, W, 3],
-        [3, H, W] or [H, W]); ``divide`` says the values exceed 1.5 and
-        are scaled by 1/255 (the JAX engine's test). A page that fails to
-        decode gives (None, False, (0, 0)), which marks its slot invalid;
-        the rest of the batch proceeds."""
+        bytes become uint8 [H, W, 3] (PIL), arrays pass through ([H, W, 3],
+        [3, H, W] or [H, W]); ``divide`` says the values are scaled by
+        1/255: always for a JPEG, else when they exceed 1.5 (the JAX
+        engine's test). A page that fails to decode gives (None, False,
+        (0, 0)), which marks its slot invalid; the rest of the batch
+        proceeds."""
         if isinstance(page, (bytes, bytearray)):
             try:
                 with _open_jpeg(bytes(page)) as im:
@@ -130,12 +168,32 @@ class BatchInferenceEngine:
             except (OSError, ValueError):
                 logger.warning("a page failed to decode; zeroed")
                 return None, False, (0.0, 0.0)
-        else:
-            arr = np.ascontiguousarray(page)
-            if not arr.flags.writeable:  # torch.from_numpy wants writable memory
-                arr = arr.copy()
+            return arr, True, arr.shape[:2]
+        arr = np.ascontiguousarray(page)
+        if not arr.flags.writeable:  # torch.from_numpy wants writable memory
+            arr = arr.copy()
         hw = arr.shape[:2] if arr.ndim == 3 and arr.shape[-1] == 3 else arr.shape[-2:]
         return arr, float(arr.max()) > 1.5, hw
+
+    def _decode_native(self, jpegs: list[bytes], dims: list[tuple[int, int]]) -> list:
+        """A chunk of JPEG pages through the native loader's decode-only
+        entry (its own threads) -> ``_decode_page``'s triples."""
+        arrays = native_loader.decode_batch(jpegs, dims, n_threads=self.decode_workers)
+        if any(a is None for a in arrays):
+            logger.warning("%d pages failed to decode; zeroed",
+                           sum(a is None for a in arrays))
+        return [(None, False, (0.0, 0.0)) if a is None else (a, True, a.shape[:2])
+                for a in arrays]
+
+    @staticmethod
+    def _page_size(page) -> tuple[int, int]:
+        """(h, w) for routing: an array's shape, an encoded page's header
+        (``header_size``); a page that does not read routes as (1, 1),
+        the smallest bucket, and its slot is zeroed."""
+        if isinstance(page, (bytes, bytearray)):
+            return header_size(page) or (1, 1)
+        arr = np.asarray(page)
+        return arr.shape[-2:] if arr.shape[0] in (1, 3) else arr.shape[:2]
 
     def _upload_batch(self, decoded, size: int):
         """Decoded pages -> (images [batch, 3, S, S] float32 in [0, 1] on
@@ -162,19 +220,8 @@ class BatchInferenceEngine:
 
     def predict_pages(self, pages: Sequence) -> list[PageDetections]:
         """Run detection on a list of pages (one document or many)."""
-        sizes = []
-        for p in pages:
-            if isinstance(p, (bytes, bytearray)):
-                # the header gives the size; pixels decode after bucketing
-                try:
-                    with _open_jpeg(bytes(p)) as im:
-                        w, h = im.size
-                except (OSError, ValueError):
-                    w = h = 1  # corrupt page: smallest bucket, zeroed slot
-            else:
-                arr = np.asarray(p)
-                h, w = arr.shape[-2:] if arr.shape[0] in (1, 3) else arr.shape[:2]
-            sizes.append((h, w))
+        # the headers give the sizes; pixels decode after bucketing
+        sizes = [self._page_size(p) for p in pages]
 
         buckets: dict[int, list[int]] = {}
         for i, (h, w) in enumerate(sizes):
@@ -210,17 +257,23 @@ class BatchInferenceEngine:
 
             def submit_next() -> None:
                 nxt = next(chunk_iter, None)
-                if nxt is not None:
-                    size_, chunk_ = nxt
-                    pending.append((nxt, [
-                        pool.submit(self._decode_page, pages[i]) for i in chunk_
-                    ]))
+                if nxt is None:
+                    return
+                _, chunk_ = nxt
+                if native_loader.available() and all(is_jpeg(pages[i]) for i in chunk_):
+                    # all JPEG: one native batch decode, on its own threads
+                    fut = pool.submit(self._decode_native, [bytes(pages[i]) for i in chunk_],
+                                      [sizes[i] for i in chunk_])
+                    pending.append((nxt, fut.result))
+                else:
+                    futs = [pool.submit(self._decode_page, pages[i]) for i in chunk_]
+                    pending.append((nxt, lambda futs=futs: [f.result() for f in futs]))
 
             for _ in range(ahead):
                 submit_next()
             while pending:
-                (size, chunk), futs = pending.popleft()
-                decoded = [f.result() for f in futs]
+                (size, chunk), decoded = pending.popleft()
+                decoded = decoded()
                 submit_next()
                 with torch.inference_mode():
                     images, orig = self._upload_batch(decoded, size)
@@ -232,3 +285,75 @@ class BatchInferenceEngine:
         for entry in in_flight:
             fetch(*entry)
         return results  # type: ignore[return-value]
+
+    def predict_document(self, pages: Sequence) -> list[PageDetections]:
+        """Alias: a document is a list of pages."""
+        return self.predict_pages(pages)
+
+
+def is_jpeg(page) -> bool:
+    """Whether a page is JPEG bytes (by its SOI marker): those go through
+    the native loader; other encodings (PNG) through PIL."""
+    return isinstance(page, (bytes, bytearray)) and page[:2] == b"\xff\xd8"
+
+
+def header_size(page: bytes) -> tuple[int, int] | None:
+    """(h, w) of an encoded page from its header alone, no pixel decode:
+    the native loader's header read for a JPEG, else PIL's; None when it
+    does not read."""
+    page = bytes(page)
+    if is_jpeg(page) and native_loader.available():
+        return native_loader.jpeg_dims(page)
+    if is_jpeg(page):
+        _warn_pil_once()
+    try:
+        with _open_jpeg(page) as im:
+            w, h = im.size
+    except (OSError, ValueError):
+        return None
+    return h, w
+
+
+def _warn_pil_once() -> None:
+    if not _warn_pil_once.done:
+        _warn_pil_once.done = True
+        logger.warning("native JPEG loader unavailable (g++ or libjpeg missing): "
+                       "decoding JPEG pages with PIL")
+
+
+_warn_pil_once.done = False
+
+
+class ExportedInferenceEngine(BatchInferenceEngine):
+    """The same pipelined serving engine over an exported artifact
+    (``export.py``) instead of the model: bucketing, padded static
+    batches, decode-ahead and the in-flight window are the live engine's,
+    and each bucket runs its exported program. ``batch_size`` and
+    ``image_sizes`` come from the artifact's manifest; ``device`` defaults
+    to the artifact's, and another raises."""
+
+    def __init__(
+        self,
+        exported,
+        score_thresh: float = 0.05,
+        decode_workers: int | None = None,
+        max_in_flight: int = 2,
+        device: str | torch.device | None = None,
+    ):
+        from layoutdit_tpu_torch.export import ExportedDetector
+
+        if isinstance(exported, (str, os.PathLike)):
+            exported = ExportedDetector(os.fspath(exported), device=device)
+        elif device is not None and torch.device(device).type != exported.device.type:
+            raise ValueError(f"the artifact runs on {exported.device.type}, not {device}")
+        self._init_pipeline_fields(score_thresh, decode_workers, max_in_flight,
+                                   exported.device)
+        self.exported = exported
+        self.model = None
+        self.params = None  # the weights are the artifact's
+        self.image_sizes = sorted(exported.image_sizes)
+        self.batch_size = int(exported.manifest["batch_size"])
+
+    def _run(self, size: int, images: torch.Tensor, orig: np.ndarray):
+        # attribute view of the outputs, as predict_pages' fetch reads them
+        return types.SimpleNamespace(**self.exported.predict_async(images, orig))

@@ -11,7 +11,6 @@ the single-stage families are not ported yet.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import NamedTuple
 
 import torch
@@ -41,6 +40,7 @@ from layoutdit_tpu_torch.models.detection.roi_heads import (
 )
 from layoutdit_tpu_torch.models.detection.rpn import filter_proposals, rpn_loss
 from layoutdit_tpu_torch.ops.roi_align import multiscale_roi_align
+from layoutdit_tpu_torch.utils.cache import cached_unless_traced
 
 BOX_HEAD_REP = 1024
 
@@ -185,10 +185,10 @@ def params_for_inference(params: dict, dtype: torch.dtype) -> dict:
 def _normalize(images: torch.Tensor, cfg: DetectorConfig) -> torch.Tensor:
     mean = torch.tensor(cfg.image_mean, dtype=torch.float32, device=images.device)
     std = torch.tensor(cfg.image_std, dtype=torch.float32, device=images.device)
-    return (images - mean[None, :, None, None]) / std[None, :, None, None]
+    return (images - mean.view(1, -1, 1, 1)) / std.view(1, -1, 1, 1)
 
 
-@functools.lru_cache(maxsize=16)
+@cached_unless_traced(maxsize=16)
 def _anchors(cfg: DetectorConfig, device: torch.device) -> tuple[torch.Tensor, tuple[int, ...]]:
     """Anchors of one bucket, copied to the device once."""
     a, counts = grid_anchors(

@@ -70,6 +70,7 @@ from layoutdit_tpu_torch.ops.short_attention import (
     short_attention_qkv,
     split_qkv,
 )
+from layoutdit_tpu_torch.utils.cache import cached_unless_traced
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,7 +175,7 @@ def window_relative_position_index(ws: int, grid: int) -> np.ndarray:
     return (rel[0] + grid - 1) * (2 * grid - 1) + (rel[1] + grid - 1)
 
 
-@functools.lru_cache(maxsize=16)
+@cached_unless_traced(maxsize=16)
 def _rel_index(device: torch.device, grid: int, ws: int) -> torch.Tensor:
     """``relative_position_index(grid)`` (ws 0) or
     ``window_relative_position_index(ws, grid)`` on ``device``, built
@@ -398,7 +399,7 @@ def _window_key_mask(gh: int, gw: int, ws: int) -> torch.Tensor | None:
     return valid.reshape(nh, ws, nw, ws).permute(0, 2, 1, 3).reshape(nh * nw, ws * ws)
 
 
-@functools.lru_cache(maxsize=16)
+@cached_unless_traced(maxsize=16)
 def _window_key_mask_on(device: torch.device, gh: int, gw: int, ws: int) -> torch.Tensor | None:
     """``_window_key_mask`` on ``device``, copied once per grid (outside
     inference mode, as ``_rel_index``)."""

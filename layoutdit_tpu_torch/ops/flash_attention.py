@@ -23,8 +23,12 @@ operations on the H100, the dbias kernel by the bytes of the bias and
 its gradient. See the source for the design.
 
 ``flash_attention_fwd`` and ``flash_attention_bwd`` launch the kernels
-for CUDA tensors (through ``flash_attention_fwd_launch`` and the three
-backward launchers, which check what the kernels read) and take the
+for CUDA tensors through the registered operators
+``layoutdit_torch::flash_attention_fwd``, ``::flash_attention_bwd_dq``,
+``::flash_attention_bwd_dkdv`` and ``::flash_attention_bwd_dbias``
+(``ops/_library.py``), whose CUDA implementations run the direct
+launchers (``flash_attention_fwd_launch`` and the three backward ones,
+which check what the kernels read) and count the launches; they take the
 plain versions only for CPU tensors.
 ``flash_attention_qkv`` is the differentiable entry point: a
 ``torch.autograd.Function`` from the fused projection [B, N, 3*H*D] and
@@ -41,7 +45,7 @@ import math
 
 import torch
 
-from layoutdit_tpu_torch.ops import _build
+from layoutdit_tpu_torch.ops import _build, _library
 from layoutdit_tpu_torch.ops.short_attention import split_qkv
 
 HEAD_DIM = 64  # dit-base; the kernels are compiled for this width only
@@ -180,7 +184,9 @@ def flash_attention_fwd_launch(q, k, v, bias, scale, o, lse) -> None:
     """Launch the forward kernel of ``flash_attention_fwd``: writes o
     (bf16 [B, N, H, D]) and lse (fp32 [B*H, N]). q, k, v and o bf16 rows
     that TMA can read (as ``flash_attention_bwd`` checks them); bias fp32
-    [H, N, N] contiguous or None. Counts on ``flash_attention_fwd``."""
+    [H, N, N] contiguous or None. The direct launch: it counts nothing
+    (the operator ``layoutdit_torch::flash_attention_fwd`` counts on
+    ``flash_attention_fwd``)."""
     b, n, h, d = q.shape
     _check_rows("flash_attention", q, q=q, k=k, v=v, o=o)
     _check_lse("flash_attention", lse, q, "lse")
@@ -192,7 +198,27 @@ def flash_attention_fwd_launch(q, k, v, bias, scale, o, lse) -> None:
         _build.stream_ptr(q),
     )
     _build.check(lib, code, "flash_attention")
+
+
+def _fwd_cuda(q, k, v, bias, scale):
+    b, n, h, d = q.shape
+    o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b * h, n), dtype=torch.float32, device=q.device)
+    flash_attention_fwd_launch(q, k, v, bias, scale, o, lse)
     flash_attention_fwd.launches += 1
+    return o, lse
+
+
+def _fwd_fake(q, k, v, bias, scale):
+    b, n, h, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((b * h, n), dtype=torch.float32)
+
+
+_fwd_op = _library.define(
+    "flash_attention_fwd(Tensor q, Tensor k, Tensor v, Tensor? bias, float scale) "
+    "-> (Tensor, Tensor)",
+    fake=_fwd_fake, cuda=_fwd_cuda,
+)
 
 
 def flash_attention_fwd(
@@ -203,19 +229,15 @@ def flash_attention_fwd(
     scale: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """-> (o [B, N, H, D], lse [B*H, N] fp32). bf16 q/k/v on the card
-    (rows 16-byte aligned, as the fused QKV projection's slices are);
-    any float type on the CPU. Not differentiable by itself on the card:
+    (rows 16-byte aligned, as the fused QKV projection's slices are),
+    through the operator ``layoutdit_torch::flash_attention_fwd``; any
+    float type on the CPU. Not differentiable by itself on the card:
     ``flash_attention`` and ``flash_attention_qkv`` are."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, bias, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    b, n, h, d = q.shape
-    o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b * h, n), dtype=torch.float32, device=q.device)
-    flash_attention_fwd_launch(q, k, v, _check_bias("flash_attention", bias, q), _scale(q, scale),
-                               o, lse)
-    return o, lse
+    return _fwd_op(q, k, v, _check_bias("flash_attention", bias, q), _scale(q, scale))
 
 
 flash_attention_fwd.launches = 0
@@ -239,7 +261,6 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, bias, scale, dq, delta) -> None:
         _build.stream_ptr(q),
     )
     _build.check(lib, code, "flash_attention_bwd_dq")
-    flash_attention_bwd_dq.launches += 1
 
 
 flash_attention_bwd_dq.launches = 0
@@ -261,7 +282,6 @@ def flash_attention_bwd_dkdv(q, k, v, lse, do, delta, bias, scale, dk, dv) -> No
         _build.stream_ptr(q),
     )
     _build.check(lib, code, "flash_attention_bwd_dkdv")
-    flash_attention_bwd_dkdv.launches += 1
 
 
 flash_attention_bwd_dkdv.launches = 0
@@ -285,10 +305,45 @@ def flash_attention_bwd_dbias(q, k, v, lse, do, delta, bias, scale, dbias) -> No
         _strides(q, k, v, do), float(scale), _build.stream_ptr(q),
     )
     _build.check(lib, code, "flash_attention_bwd_dbias")
-    flash_attention_bwd_dbias.launches += 1
 
 
 flash_attention_bwd_dbias.launches = 0
+
+
+def _dq_cuda(q, k, v, o, lse, dout, bias, scale, dq, delta):
+    flash_attention_bwd_dq(q, k, v, o, lse, dout, bias, scale, dq, delta)
+    flash_attention_bwd_dq.launches += 1
+
+
+def _dkdv_cuda(q, k, v, lse, dout, delta, bias, scale, dk, dv):
+    flash_attention_bwd_dkdv(q, k, v, lse, dout, delta, bias, scale, dk, dv)
+    flash_attention_bwd_dkdv.launches += 1
+
+
+def _dbias_cuda(q, k, v, lse, dout, delta, bias, scale, dbias):
+    flash_attention_bwd_dbias(q, k, v, lse, dout, delta, bias, scale, dbias)
+    flash_attention_bwd_dbias.launches += 1
+
+
+def _no_outputs(*args):
+    return None
+
+
+_dq_op = _library.define(
+    "flash_attention_bwd_dq(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, Tensor dout, "
+    "Tensor? bias, float scale, Tensor(a!) dq, Tensor(b!) delta) -> ()",
+    fake=_no_outputs, cuda=_dq_cuda,
+)
+_dkdv_op = _library.define(
+    "flash_attention_bwd_dkdv(Tensor q, Tensor k, Tensor v, Tensor lse, Tensor dout, "
+    "Tensor delta, Tensor? bias, float scale, Tensor(a!) dk, Tensor(b!) dv) -> ()",
+    fake=_no_outputs, cuda=_dkdv_cuda,
+)
+_dbias_op = _library.define(
+    "flash_attention_bwd_dbias(Tensor q, Tensor k, Tensor v, Tensor lse, Tensor dout, "
+    "Tensor delta, Tensor bias, float scale, Tensor(a!) dbias) -> ()",
+    fake=_no_outputs, cuda=_dbias_cuda,
+)
 
 
 def flash_attention_bwd(
@@ -326,12 +381,12 @@ def flash_attention_bwd(
         out = tuple(torch.empty((b, n, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
     dq, dk, dv = out
     delta = torch.empty((b * h, n), dtype=torch.float32, device=q.device)
-    flash_attention_bwd_dq(q, k, v, o, lse, do, bias, scale, dq, delta)
-    flash_attention_bwd_dkdv(q, k, v, lse, do, delta, bias, scale, dk, dv)
+    _dq_op(q, k, v, o, lse, do, bias, scale, dq, delta)
+    _dkdv_op(q, k, v, lse, do, delta, bias, scale, dk, dv)
     dbias = None
     if bias_grad:
         dbias = torch.empty((h, n, n), dtype=torch.float32, device=q.device)
-        flash_attention_bwd_dbias(q, k, v, lse, do, delta, bias, scale, dbias)
+        _dbias_op(q, k, v, lse, do, delta, bias, scale, dbias)
     return (*out, dbias)
 
 

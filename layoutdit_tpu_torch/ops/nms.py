@@ -27,6 +27,8 @@ from __future__ import annotations
 
 import torch
 
+from layoutdit_tpu_torch.ops import _library
+
 FIRST_SWEEPS = 4
 MAX_SWEEPS = 64
 
@@ -50,6 +52,19 @@ def _greedy_fixpoint(overlap: torch.Tensor, alive: torch.Tensor) -> torch.Tensor
         if not bool(((kept != kept0) | (dead != dead0)).any()):
             return kept
         sweeps = min(2 * sweeps, MAX_SWEEPS)
+
+
+# The fixpoint as an operator (``ops/_library.py``) on the CPU and the
+# card alike: its loop reads the host, which a traced program cannot
+# hold, so ``torch.export`` keeps it as one opaque node whose fake
+# implementation gives the keep-mask's shape; an exported program runs
+# the same loop, host reads and ``host_syncs`` included.
+_fixpoint_op = _library.define(
+    "nms_fixpoint(Tensor overlap, Tensor alive) -> Tensor",
+    fake=lambda overlap, alive: torch.empty_like(alive),
+    cuda=_greedy_fixpoint,
+    cpu=_greedy_fixpoint,
+)
 
 
 def nms_mask(
@@ -94,7 +109,7 @@ def nms_mask(
     overlap = inter > iou_threshold * union
     overlap &= torch.ones(n, n, dtype=torch.bool, device=overlap.device).triu(1)
 
-    kept = _greedy_fixpoint(overlap, valid_s)
+    kept = _fixpoint_op(overlap, valid_s)
     keep = torch.zeros_like(kept).scatter(1, order, kept)
     return keep.reshape(*lead, n)
 

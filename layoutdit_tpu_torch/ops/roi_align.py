@@ -47,6 +47,14 @@ dF = sum_k Wy^T . dout . Wx over ``build_roi_weights``. The RoIs get no
 gradient, as in the JAX package (stop-gradient proposals, zero
 cotangents for the weights).
 
+On the card the wrappers ``roi_align_fwd``, ``roi_align_bwd`` and
+``roi_footprints_kernel`` call the registered operators
+``layoutdit_torch::roi_align_fwd``, ``::roi_align_bwd`` and
+``::roi_align_footprints`` (``ops/_library.py``), whose CUDA
+implementations launch the kernels and count the launches;
+``roi_align_launch`` is the forward's direct launch, without the
+dispatcher, for timing the operator's host cost.
+
 The JAX package's own XLA formulation is here too, for the fused-RoIAlign
 probes (``ops/roi_fused.py``) that are measured against it: ``roi_atlas``
 stacks the levels into one atlas along H (W zero-padded to the widest
@@ -65,7 +73,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from layoutdit_tpu_torch.ops import _build
+from layoutdit_tpu_torch.ops import _build, _library
 from layoutdit_tpu_torch.ops.boxes import box_area
 
 _P = ctypes.c_void_p
@@ -293,7 +301,7 @@ def _geometry(features: list[torch.Tensor], spatial_scales: list[float]):
     return hw, (ctypes.c_float * n)(*spatial_scales), n
 
 
-def roi_align_fwd(
+def roi_align_launch(
     features: list[torch.Tensor],
     rois: torch.Tensor,
     levels: torch.Tensor,
@@ -301,15 +309,10 @@ def roi_align_fwd(
     output_size: int = 7,
     sampling_ratio: int = 2,
 ) -> torch.Tensor:
-    """-> pooled [B, K, Px, Py, C]: the kernel for CUDA tensors, the plain
-    version for CPU tensors. The kernel reads bf16 channels-last levels
-    through their strides, as they are; it raises on any other."""
-    if rois.device.type == "cpu":
-        return roi_align_plain(
-            features, rois, levels, spatial_scales, output_size, sampling_ratio
-        )
-    if rois.device.type != "cuda":
-        raise ValueError(f"roi_align: unsupported device {rois.device}")
+    """The direct launch of the forward kernel on CUDA tensors: checks,
+    allocates the pooled [B, K, Px, Py, C], launches; counts nothing (the
+    operator ``layoutdit_torch::roi_align_fwd`` counts on
+    ``roi_align_fwd``)."""
     _check_sizes("roi_align", output_size, sampling_ratio)
     b, k = rois.shape[:2]
     c = features[0].shape[1]
@@ -328,8 +331,48 @@ def roi_align_fwd(
         out.data_ptr(), b * k, k, c, p, sampling_ratio, _build.stream_ptr(rois),
     )
     _build.check(lib, code, "roi_align")
+    return out
+
+
+def _fwd_cuda(features, rois, levels, spatial_scales, output_size, sampling_ratio):
+    out = roi_align_launch(features, rois, levels, spatial_scales, output_size, sampling_ratio)
     roi_align_fwd.launches += 1
     return out
+
+
+def _fwd_fake(features, rois, levels, spatial_scales, output_size, sampling_ratio):
+    b, k = rois.shape[:2]
+    p, c = output_size, features[0].shape[1]
+    return rois.new_empty((b, k, p, p, c), dtype=torch.bfloat16)
+
+
+_fwd_op = _library.define(
+    "roi_align_fwd(Tensor[] features, Tensor rois, Tensor levels, float[] spatial_scales, "
+    "int output_size, int sampling_ratio) -> Tensor",
+    fake=_fwd_fake, cuda=_fwd_cuda,
+)
+
+
+def roi_align_fwd(
+    features: list[torch.Tensor],
+    rois: torch.Tensor,
+    levels: torch.Tensor,
+    spatial_scales: list[float],
+    output_size: int = 7,
+    sampling_ratio: int = 2,
+) -> torch.Tensor:
+    """-> pooled [B, K, Px, Py, C]: the kernel for CUDA tensors (through
+    the operator ``layoutdit_torch::roi_align_fwd``), the plain version
+    for CPU tensors. The kernel reads bf16 channels-last levels through
+    their strides, as they are; it raises on any other."""
+    if rois.device.type == "cpu":
+        return roi_align_plain(
+            features, rois, levels, spatial_scales, output_size, sampling_ratio
+        )
+    if rois.device.type != "cuda":
+        raise ValueError(f"roi_align: unsupported device {rois.device}")
+    return _fwd_op(list(features), rois, levels, [float(x) for x in spatial_scales],
+                   output_size, sampling_ratio)
 
 
 roi_align_fwd.launches = 0
@@ -341,22 +384,10 @@ def _taps_scratch(r: int, p: int, g: int, device: torch.device) -> torch.Tensor:
     return torch.empty((r, 2, p, 2 * g, 2), dtype=torch.int32, device=device)
 
 
-def roi_footprints_kernel(
-    rois: torch.Tensor,
-    levels: torch.Tensor,
-    level_hw: list[tuple[int, int]],
-    spatial_scales: list[float],
-    output_size: int = 7,
-    sampling_ratio: int = 2,
-) -> torch.Tensor:
-    """The backward kernel's first pass alone, ``roi_footprints`` of [B, K]
-    RoIs on the card -> int32 [B, K, 4]: for checking it against its spec
-    (``roi_align_bwd`` launches the pass itself)."""
-    if rois.device.type != "cuda":
-        raise ValueError(f"roi_footprints_kernel: needs CUDA tensors, got {rois.device}")
+def _footprints_cuda(rois, levels, level_hw, spatial_scales, output_size, sampling_ratio):
     _check_sizes("roi_footprints_kernel", output_size, sampling_ratio)
-    n = len(level_hw)
-    hw = (ctypes.c_int * (2 * n))(*[s for h_w in level_hw for s in h_w])
+    n = len(spatial_scales)
+    hw = (ctypes.c_int * (2 * n))(*level_hw)
     scales = (ctypes.c_float * n)(*spatial_scales)
     rois_c = rois.float().contiguous()
     levels_c = levels.to(torch.int32).contiguous()
@@ -371,27 +402,33 @@ def roi_footprints_kernel(
     return out
 
 
-def roi_align_bwd(
-    dout: torch.Tensor,
+_footprints_op = _library.define(
+    "roi_align_footprints(Tensor rois, Tensor levels, int[] level_hw, float[] spatial_scales, "
+    "int output_size, int sampling_ratio) -> Tensor",
+    fake=lambda rois, levels, *args: rois.new_empty((*rois.shape[:-1], 4), dtype=torch.int32),
+    cuda=_footprints_cuda,
+)
+
+
+def roi_footprints_kernel(
     rois: torch.Tensor,
     levels: torch.Tensor,
-    features: list[torch.Tensor],
+    level_hw: list[tuple[int, int]],
     spatial_scales: list[float],
     output_size: int = 7,
     sampling_ratio: int = 2,
-) -> list[torch.Tensor]:
-    """dF per level [B, C, H_l, W_l] in the features' dtype: the kernel for
-    CUDA tensors, the plain version for CPU tensors. The kernel writes
-    every element once, in bf16, into a tensor laid out as its feature
-    (``empty_like``: channels-last; dense for the strided fifth level), the
-    same bits on every run. ``features`` give only shapes, dtypes and
-    layouts."""
-    if rois.device.type == "cpu":
-        return roi_align_bwd_plain(
-            dout, rois, levels, features, spatial_scales, output_size, sampling_ratio
-        )
+) -> torch.Tensor:
+    """The backward kernel's first pass alone, ``roi_footprints`` of [B, K]
+    RoIs on the card -> int32 [B, K, 4]: for checking it against its spec
+    (``roi_align_bwd`` launches the pass itself). Through the operator
+    ``layoutdit_torch::roi_align_footprints``."""
     if rois.device.type != "cuda":
-        raise ValueError(f"roi_align_bwd: unsupported device {rois.device}")
+        raise ValueError(f"roi_footprints_kernel: needs CUDA tensors, got {rois.device}")
+    return _footprints_op(rois, levels, [int(s) for h_w in level_hw for s in h_w],
+                          [float(x) for x in spatial_scales], output_size, sampling_ratio)
+
+
+def _bwd_cuda(dout, rois, levels, features, spatial_scales, output_size, sampling_ratio):
     _check_sizes("roi_align_bwd", output_size, sampling_ratio)
     b, k = rois.shape[:2]
     c = features[0].shape[1]
@@ -426,6 +463,39 @@ def roi_align_bwd(
     _build.check(lib, code, "roi_align_bwd")
     roi_align_bwd.launches += 1
     return grads
+
+
+_bwd_op = _library.define(
+    "roi_align_bwd(Tensor dout, Tensor rois, Tensor levels, Tensor[] features, "
+    "float[] spatial_scales, int output_size, int sampling_ratio) -> Tensor[]",
+    fake=lambda dout, rois, levels, features, *args: [torch.empty_like(f) for f in features],
+    cuda=_bwd_cuda,
+)
+
+
+def roi_align_bwd(
+    dout: torch.Tensor,
+    rois: torch.Tensor,
+    levels: torch.Tensor,
+    features: list[torch.Tensor],
+    spatial_scales: list[float],
+    output_size: int = 7,
+    sampling_ratio: int = 2,
+) -> list[torch.Tensor]:
+    """dF per level [B, C, H_l, W_l] in the features' dtype: the kernel for
+    CUDA tensors, the plain version for CPU tensors. The kernel writes
+    every element once, in bf16, into a tensor laid out as its feature
+    (``empty_like``: channels-last; dense for the strided fifth level), the
+    same bits on every run. ``features`` give only shapes, dtypes and
+    layouts."""
+    if rois.device.type == "cpu":
+        return roi_align_bwd_plain(
+            dout, rois, levels, features, spatial_scales, output_size, sampling_ratio
+        )
+    if rois.device.type != "cuda":
+        raise ValueError(f"roi_align_bwd: unsupported device {rois.device}")
+    return _bwd_op(dout, rois, levels, list(features), [float(x) for x in spatial_scales],
+                   output_size, sampling_ratio)
 
 
 roi_align_bwd.launches = 0

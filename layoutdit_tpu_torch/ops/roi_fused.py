@@ -28,7 +28,9 @@ the TPU compiler and are not carried over. ``kb``, the RoIs a block
 takes, is 8 or 16; ``K % kb != 0`` raises, as the probe's reshapes do.
 The plain versions run the same arithmetic in fp32 with ``t`` rounded to
 bf16; a wrapper takes them for CPU tensors only, and for CUDA tensors
-launches its kernel or raises.
+launches its kernel, through the registered operators
+``layoutdit_torch::roi_fused_a``, ``::roi_fused_a0`` and
+``::roi_fused_e`` (``ops/_library.py``), or raises.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from layoutdit_tpu_torch.ops import _build
+from layoutdit_tpu_torch.ops import _build, _library
 from layoutdit_tpu_torch.ops.roi_align import pooled_from_weights_native
 
 P = 7
@@ -145,6 +147,53 @@ def _cuda_operands(name: str, mode: str, f_chw, wy, wx, kb):
     return kernel_operands(f_chw, wy, wx), wy.shape[0], c, w
 
 
+def _a_cuda(f, wy2, wx2, k, kb, c, w):
+    out = torch.empty((k, P, P, c), dtype=BF16, device=wy2.device)
+    lib = _lib()
+    code = lib.roi_fused_a(f.data_ptr(), wy2.data_ptr(), wx2.data_ptr(), out.data_ptr(), k, kb,
+                           c, w, _build.stream_ptr(wy2))
+    _build.check(lib, code, "variant_a")
+    variant_a.launches += 1
+    return out
+
+
+def _a0_cuda(f, wy2, k, kb, c, w, relayout):
+    out = torch.empty((k * P * w, c), dtype=BF16, device=wy2.device)
+    lib = _lib()
+    code = lib.roi_fused_a0(f.data_ptr(), wy2.data_ptr(), out.data_ptr(), k, kb, c, w,
+                            int(relayout), _build.stream_ptr(wy2))
+    _build.check(lib, code, "variant_a0")
+    variant_a0.launches += 1
+    return out
+
+
+def _e_cuda(f, wy2, wx2, k, kb, c, w):
+    out = torch.empty((k // kb, c, kb * P, P), dtype=BF16, device=wy2.device)
+    lib = _lib()
+    code = lib.roi_fused_e(f.data_ptr(), wy2.data_ptr(), wx2.data_ptr(), out.data_ptr(), k,
+                           kb, c, w, _build.stream_ptr(wy2))
+    _build.check(lib, code, "variant_e")
+    variant_e.launches += 1
+    return out
+
+
+_a_op = _library.define(
+    "roi_fused_a(Tensor f, Tensor wy, Tensor wx, int k, int kb, int c, int w) -> Tensor",
+    fake=lambda f, wy2, wx2, k, kb, c, w: wy2.new_empty((k, P, P, c), dtype=BF16),
+    cuda=_a_cuda,
+)
+_a0_op = _library.define(
+    "roi_fused_a0(Tensor f, Tensor wy, int k, int kb, int c, int w, bool relayout) -> Tensor",
+    fake=lambda f, wy2, k, kb, c, w, relayout: wy2.new_empty((k * P * w, c), dtype=BF16),
+    cuda=_a0_cuda,
+)
+_e_op = _library.define(
+    "roi_fused_e(Tensor f, Tensor wy, Tensor wx, int k, int kb, int c, int w) -> Tensor",
+    fake=lambda f, wy2, wx2, k, kb, c, w: wy2.new_empty((k // kb, c, kb * P, P), dtype=BF16),
+    cuda=_e_cuda,
+)
+
+
 def variant_a(f_chw: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor, kb: int = 8) -> torch.Tensor:
     """Row 9: out [K, Px, Py, C] bf16 in one kernel for CUDA tensors (t
     never leaves the chip), the plain version for CPU tensors."""
@@ -152,13 +201,7 @@ def variant_a(f_chw: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor, kb: int =
     if wy.device.type == "cpu":
         return variant_a_plain(f_chw, wy, wx)
     (f, wy2, wx2), k, c, w = _cuda_operands("variant_a", "a", f_chw, wy, wx, kb)
-    out = torch.empty((k, P, P, c), dtype=BF16, device=wy.device)
-    lib = _lib()
-    code = lib.roi_fused_a(f.data_ptr(), wy2.data_ptr(), wx2.data_ptr(), out.data_ptr(), k, kb,
-                           c, w, _build.stream_ptr(wy))
-    _build.check(lib, code, "variant_a")
-    variant_a.launches += 1
-    return out
+    return _a_op(f, wy2, wx2, k, kb, c, w)
 
 
 variant_a.launches = 0
@@ -173,13 +216,7 @@ def variant_a0(f_chw: torch.Tensor, wy: torch.Tensor, kb: int = 8,
     if wy.device.type == "cpu":
         return variant_a0_plain(f_chw, wy, relayout)
     (f, wy2, _), k, c, w = _cuda_operands("variant_a0", "a0", f_chw, wy, None, kb)
-    out = torch.empty((k * P * w, c), dtype=BF16, device=wy.device)
-    lib = _lib()
-    code = lib.roi_fused_a0(f.data_ptr(), wy2.data_ptr(), out.data_ptr(), k, kb, c, w,
-                            int(relayout), _build.stream_ptr(wy))
-    _build.check(lib, code, "variant_a0")
-    variant_a0.launches += 1
-    return out
+    return _a0_op(f, wy2, k, kb, c, w, relayout)
 
 
 variant_a0.launches = 0
@@ -196,12 +233,7 @@ def variant_e(f_chw: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor, kb: int =
         out = variant_e_plain(f_chw, wy, wx, kb)
     else:
         (f, wy2, wx2), k, c, w = _cuda_operands("variant_e", "e", f_chw, wy, wx, kb)
-        out = torch.empty((k // kb, c, kb * P, P), dtype=BF16, device=wy.device)
-        lib = _lib()
-        code = lib.roi_fused_e(f.data_ptr(), wy2.data_ptr(), wx2.data_ptr(), out.data_ptr(), k,
-                               kb, c, w, _build.stream_ptr(wy))
-        _build.check(lib, code, "variant_e")
-        variant_e.launches += 1
+        out = _e_op(f, wy2, wx2, k, kb, c, w)
     if kernel_layout:
         return out
     return out.reshape(k // kb, c, kb, P, P).permute(0, 2, 3, 4, 1).reshape(k, P, P, c)

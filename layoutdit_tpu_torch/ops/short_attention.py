@@ -16,7 +16,12 @@ drop out of every softmax row (padded window slots, ``pad_tokens_to``'s
 padding), in the kernels and in the plain versions alike.
 
 ``short_attention`` and ``short_attention_bwd`` launch the kernels for
-CUDA tensors and take the plain versions only for CPU tensors.
+CUDA tensors, through the registered operators
+``layoutdit_torch::short_attention`` and ``::short_attention_bwd``
+(``ops/_library.py``; a traced program names them, and their CUDA
+implementations count the launches), and take the plain versions only
+for CPU tensors. ``short_attention_launch`` is the forward's direct
+launch, without the dispatcher, for timing the operator's host cost.
 ``short_attention_qkv`` is the differentiable entry point: a
 ``torch.autograd.Function`` from the fused projection [B, N, 3*H*D] to
 the context [B, N, H, D], whose backward writes dq, dk and dv straight
@@ -30,7 +35,7 @@ import math
 
 import torch
 
-from layoutdit_tpu_torch.ops import _build
+from layoutdit_tpu_torch.ops import _build, _library
 
 MAX_N = 256
 HEAD_DIMS = (32, 64, 128)  # the kernels are compiled for these widths
@@ -162,20 +167,11 @@ def _check_mask(what: str, ref: torch.Tensor, key_mask: torch.Tensor | None) -> 
     return key_mask.data_ptr(), key_mask.shape[0]
 
 
-def short_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None,
-    key_mask: torch.Tensor | None = None,
-) -> torch.Tensor:
-    """Fused short-sequence attention; [B, N, H, D] in and out (bf16 on
-    the card, any float type on the CPU); ``key_mask`` [rows, N] drops
-    the keys it holds False for (row b % rows for batch b)."""
-    if q.device.type == "cpu":
-        return short_attention_plain(q, k, v, scale, key_mask)
-    if q.device.type != "cuda":
-        raise ValueError(f"short_attention: unsupported device {q.device}")
+def short_attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                           key_mask: torch.Tensor | None) -> torch.Tensor:
+    """The direct launch of the forward kernel on CUDA tensors: checks,
+    allocates o, launches; counts nothing (the operator counts)."""
     b, n, h, d = q.shape
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
     o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     ptrs, strides = _check_heads("short_attention", q, q=q, k=k, v=v, o=o)
     mask = _check_mask("short_attention", q, key_mask)
@@ -184,14 +180,67 @@ def short_attention(
         *ptrs, *mask, b, n, h, d, *strides, float(scale), _build.stream_ptr(q)
     )
     _build.check(lib, code, "short_attention")
+    return o
+
+
+def _fwd_cuda(q, k, v, scale, key_mask):
+    o = short_attention_launch(q, k, v, scale, key_mask)
     short_attention.launches += 1
     short_attention.masked_launches += key_mask is not None
     return o
 
 
+_fwd_op = _library.define(
+    "short_attention(Tensor q, Tensor k, Tensor v, float scale, Tensor? key_mask) -> Tensor",
+    fake=lambda q, k, v, scale, key_mask: q.new_empty(q.shape),
+    cuda=_fwd_cuda,
+)
+
+
+def short_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None,
+    key_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Fused short-sequence attention; [B, N, H, D] in and out (bf16 on
+    the card, any float type on the CPU); ``key_mask`` [rows, N] drops
+    the keys it holds False for (row b % rows for batch b). On the card
+    through the operator ``layoutdit_torch::short_attention``."""
+    if q.device.type == "cpu":
+        return short_attention_plain(q, k, v, scale, key_mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"short_attention: unsupported device {q.device}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _fwd_op(q, k, v, float(scale), key_mask)
+
+
 # launches of the kernel, and of them those with a key mask
 short_attention.launches = 0
 short_attention.masked_launches = 0
+
+
+def _bwd_cuda(q, k, v, o, dout, scale, key_mask, dq, dk, dv):
+    b, n, h, d = q.shape
+    ptrs, strides = _check_heads(
+        "short_attention_bwd", q, q=q, k=k, v=v, o=o, do=dout, dq=dq, dk=dk, dv=dv
+    )
+    mask = _check_mask("short_attention_bwd", q, key_mask)
+    lib = _lib()
+    code = lib.short_attention_bwd(
+        *ptrs, *mask, b, n, h, d, (ctypes.c_longlong * 24)(*strides), float(scale),
+        _build.stream_ptr(q),
+    )
+    _build.check(lib, code, "short_attention_bwd")
+    short_attention_bwd.launches += 1
+    short_attention_bwd.masked_launches += key_mask is not None
+
+
+_bwd_op = _library.define(
+    "short_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor o, Tensor dout, float scale, "
+    "Tensor? key_mask, Tensor(a!) dq, Tensor(b!) dk, Tensor(c!) dv) -> ()",
+    fake=lambda *args: None,
+    cuda=_bwd_cuda,
+)
 
 
 def short_attention_bwd(
@@ -207,7 +256,8 @@ def short_attention_bwd(
     """(dq, dk, dv) of short attention; [B, N, H, D] each. On the card
     ``out`` may name three bf16 [B, N, H, D] views to write into (the
     slices of a fused QKV gradient); they are returned. ``key_mask``: as
-    for ``short_attention``."""
+    for ``short_attention``. On the card through the operator
+    ``layoutdit_torch::short_attention_bwd``, which writes ``out``."""
     if q.device.type == "cpu":
         grads = short_attention_bwd_plain(q, k, v, o, do, scale, key_mask)
         if out is None:
@@ -222,19 +272,7 @@ def short_attention_bwd(
         scale = 1.0 / math.sqrt(d)
     if out is None:
         out = tuple(torch.empty((b, n, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
-    dq, dk, dv = out
-    ptrs, strides = _check_heads(
-        "short_attention_bwd", q, q=q, k=k, v=v, o=o, do=do, dq=dq, dk=dk, dv=dv
-    )
-    mask = _check_mask("short_attention_bwd", q, key_mask)
-    lib = _lib()
-    code = lib.short_attention_bwd(
-        *ptrs, *mask, b, n, h, d, (ctypes.c_longlong * 24)(*strides), float(scale),
-        _build.stream_ptr(q),
-    )
-    _build.check(lib, code, "short_attention_bwd")
-    short_attention_bwd.launches += 1
-    short_attention_bwd.masked_launches += key_mask is not None
+    _bwd_op(q, k, v, o, do, float(scale), key_mask, *out)
     return out
 
 

@@ -1,8 +1,13 @@
 """``tools/kernel_swap.py``, the diagnosis of the card's ``table`` gap: its
-swap reaches the autograd functions' lookups and is undone, and its rule
-gives the verdicts recorded in ``PERF.md`` §7 on the thirty recorded
-runs."""
+swap reaches the autograd functions' lookups and is undone, a swapped
+wrapper is the one a traced program calls (fake CUDA inputs: no kernel
+operator of the swapped rows in the graph), and its rule gives the
+verdicts recorded in ``PERF.md`` §7 on the thirty recorded runs."""
 
+import importlib.util
+from pathlib import Path
+
+import pytest
 import torch
 
 from layoutdit_tpu_torch.ops import roi_align as roi_mod
@@ -45,6 +50,43 @@ def test_swap_patches_the_wrappers_and_restores_them():
         assert short_mod.short_attention is originals[0]
     assert (short_mod.short_attention, short_mod.short_attention_bwd, roi_mod.roi_align_fwd,
             roi_mod.roi_align_bwd) == originals
+
+
+def _export_tests():
+    """``tests/test_torch_export.py``, for its tiny detector and its fake
+    CUDA trace."""
+    spec = importlib.util.spec_from_file_location(
+        "port_export_tests", Path(__file__).with_name("test_torch_export.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# the operators each arm leaves in a 224 px trace on the card (the short
+# route), and the ones its swap removes
+ARM_OPS = {
+    "kernels": ({"short", "roi"}, set()),
+    "plain_short": ({"roi"}, {"short"}),
+    "plain_roi": ({"short"}, {"roi"}),
+    "plain_attention": ({"roi"}, {"short", "flash"}),
+}
+
+
+@pytest.mark.parametrize("arm", sorted(ARM_OPS))
+def test_swapped_wrapper_is_the_one_a_traced_program_calls(arm):
+    mod = _export_tests()
+    cfg = mod.port_det.DetectorConfig(
+        backbone=mod.port_backbone.BackboneConfig(vit=mod.port_vit.ViTConfig(**mod.VIT),
+                                                  fpn_out_channels=32),
+        image_size=64, budget=mod.DetectionBudget(**mod.BUDGET))
+    params = mod.port_det.init_detector(cfg, torch.Generator().manual_seed(0), device="cpu")
+    kept, removed = ARM_OPS[arm]
+    with kernel_swap.swapped(arm):
+        targets = mod.fake_cuda_graph_targets(params, cfg, 224)
+    assert {mod.OPS[k] for k in kept} | {mod.OPS["nms"]} <= targets
+    assert not {mod.OPS[k] for k in removed} & targets
+    # the plain versions ran in their place (their einsums are in the graph)
+    assert ("aten.einsum.default" in targets) == bool(removed)
 
 
 def test_rule_on_the_recorded_runs_convicts_no_kernel():
