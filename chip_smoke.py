@@ -70,7 +70,14 @@ held-out pages, ``predictions.json``, ``best.pt`` and the overlays, and
 ``best.pt`` scored again to the mAP it records (phase ``main``); and the
 JAX package's flagship convergence recipe through the port in bf16
 (``tools/convergence.py``: the tiny detector, 48 epochs), held to the
-JAX test's held-out mAP and AP50 floors (phase ``convergence``). It
+JAX test's held-out mAP and AP50 floors (phase ``convergence``). Last,
+phase ``families`` (``--only families`` alone, after the build) holds
+the RoIAlign pair to its plain versions at a mask head's P = 14 shapes
+and on refined cascade boxes with zero-size ones, then serves and trains
+Cascade R-CNN (``configs/cascade_dp.json``, dit-large) and Mask R-CNN
+(``configs/mask_rcnn.json``, dit-base, masks pasted into the pages),
+scores the mask model with the segm metrics, and runs both families'
+convergence recipes in bf16 at the flagship's floors. It
 checks that every kernel ran on its path, the right number of times a
 train step, and the probes' kernels on none but theirs. One profiled request
 per serving bucket and one profiled 224 px train step print the
@@ -3159,12 +3166,371 @@ def phase_deploy(kernels: list[dict], gen) -> dict:
     return out
 
 
+# the families phase: Cascade R-CNN (configs/cascade_dp.json, dit-large)
+# and Mask R-CNN (configs/mask_rcnn.json, dit-base), both at 224 px
+CASCADE_CONFIG = ROOT / "configs" / "cascade_dp.json"
+MASK_CONFIG = ROOT / "configs" / "mask_rcnn.json"
+FAMILY_BATCH = 16  # train steps
+FAMILY_SERVING_BATCH = 4  # serving requests, as the serving phase's
+FAMILY_ROUNDS = 3  # timed rounds of the three requests
+FAMILY_SCORE_PAGES = 64
+# RoIAlign launches a batch (forward) and a step (backward): one per
+# cascade stage; the box head's and the mask head's for a mask model
+FAMILY_ROI = {"cascade": 3, "mask": 2}
+MASK_P = 14
+
+
+def _roi_given_case(label: str, feats, rois, mask, image: int, p: int) -> dict:
+    """Rows 7 and 8 on given RoIs (``mask`` False = an invalid slot, level
+    -1) against their plain versions, the backward to the same bits on a
+    second run; each timed per call, with its bound (inputs read once,
+    outputs written once; row 7's feature bytes those its RoIs touch)."""
+    from layoutdit_tpu_torch.ops import roi_align as ra
+
+    g = 2
+    scales = ROI_SCALES
+    b, k = rois.shape[:2]
+    c = feats[0].shape[1]
+    levels = ra.roi_levels(rois, 5, float(image), roi_mask=mask)
+    n_valid = int((levels >= 0).sum())
+    got = ra.roi_align_fwd(feats, rois, levels, scales, p, g)
+    err, tol = _check_close(f"{label} roi_align", got,
+                            ra.roi_align_plain(feats, rois, levels, scales, p, g))
+    if bool(got[levels < 0].any()):
+        raise RuntimeError(f"{label}: an invalid slot pooled non-zeros")
+    nbytes = (_roi_touched_bytes(feats, rois, levels, scales, p, g) + rois.numel() * 4
+              + b * k * p * p * c * 2)
+    bound, by = _bound_ms(nbytes, n_valid * p * p * c * g * g * 4 * 2)
+    ms = _time_ms(lambda: ra.roi_align_fwd(feats, rois, levels, scales, p, g), 20)
+    _print_share(f"{label} roi_align", ms, bound, by)
+    fwd = {"shape": f"B={b} K={k} ({n_valid} valid) C={c} P={p} G={g} pyramid {image} px",
+           "max_abs_err": err, "tolerance": tol, "ms": ms, "bound_ms": bound, "bound_by": by,
+           "plain_ms": _time_ms(lambda: ra.roi_align_plain(feats, rois, levels, scales, p, g),
+                                2)}
+    dout = torch.randn(b, k, p, p, c, generator=torch.Generator(device="cuda").manual_seed(k),
+                       device="cuda").to(torch.bfloat16)
+    got = ra.roi_align_bwd(dout, rois, levels, feats, scales, p, g)
+    want = ra.roi_align_bwd_plain(dout, rois, levels, feats, scales, p, g)
+    errs, tols = zip(*(_check_close(f"{label} roi_align_bwd level {i}", x, y)
+                       for i, (x, y) in enumerate(zip(got, want))))
+    again = ra.roi_align_bwd(dout, rois, levels, feats, scales, p, g)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise RuntimeError(f"{label} roi_align_bwd: two runs gave different bits")
+    nbytes = (n_valid * p * p * c * 2 + sum(f.numel() for f in feats) * 2 + rois.numel() * 4
+              + levels.numel() * 4)
+    bound, by = _bound_ms(nbytes, 0.0)
+    t_ops = n_valid * p * p * c * g * g * 4 * 2 / PEAK_FP32_FLOPS * 1e3
+    if t_ops > bound:
+        bound, by = t_ops, "operations"
+    ms = _time_ms(lambda: ra.roi_align_bwd(dout, rois, levels, feats, scales, p, g), 10)
+    _print_share(f"{label} roi_align_bwd", ms, bound, by)
+    bwd = {"shape": fwd["shape"], "max_abs_err": max(errs), "tolerance": tols[0],
+           "same_bits_on_rerun": True, "ms": ms, "bound_ms": bound, "bound_by": by,
+           "plain_ms": _time_ms(
+               lambda: ra.roi_align_bwd_plain(dout, rois, levels, feats, scales, p, g), 2)}
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def _families_kernels(gen, kernels: list[dict]) -> dict:
+    """Rows 7-8 at the slice's shapes on a 224 px pyramid (C = 256, the
+    detector's channels-last layout): P = 14 at the mask loss's B = 16,
+    K = 128 positive slots (about a quarter valid, the rest level -1) and
+    at predict's B = 4, D = 100 detections (about half valid); P = 7 on a
+    later cascade stage's refined boxes, clipped to the page, a fifth of
+    them pushed past an edge to zero width or height. Also times the
+    copy that takes the P = 14 pool from the kernel's [B, K, Px, Py, C] to
+    the mask head's [B*K, C, Py, Px]."""
+    from layoutdit_tpu_torch.models.detection.cascade import refine_boxes
+
+    out = {}
+    for label, b, k, keep in (("mask_train", 16, 128, 0.25), ("mask_predict", 4, 100, 0.5)):
+        feats, rois, _ = _roi_inputs(gen, 224, b=b, k=k)
+        mask = torch.rand(b, k, generator=gen, device="cuda") < keep
+        out[label] = _roi_given_case(f"{label} P={MASK_P}", feats, rois, mask, 224, MASK_P)
+    feats, rois, mask = _roi_inputs(gen, 224, b=16, k=512)
+    deltas = torch.randn(16, 512, 4, generator=gen, device="cuda") * 2
+    deltas[:, :64, :2] = 40.0
+    deltas[:, 64:102, :2] = -40.0
+    refined = refine_boxes(rois, deltas, (20.0, 20.0, 10.0, 10.0), (224, 224))
+    span = torch.minimum(refined[..., 2] - refined[..., 0], refined[..., 3] - refined[..., 1])
+    n_flat = int(((span == 0) & mask).sum())
+    if n_flat < 100:
+        raise RuntimeError(f"cascade_degenerate: only {n_flat} valid zero-size boxes")
+    print(f"  cascade_degenerate: {n_flat} valid boxes of zero width or height")
+    out["cascade_degenerate"] = _roi_given_case("cascade_degenerate P=7", feats, refined, mask,
+                                                224, 7)
+    out["cascade_degenerate"]["zero_size_boxes"] = n_flat
+    pooled = torch.randn(16, 128, MASK_P, MASK_P, 256, generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    copy_ms = _time_ms(lambda: pooled.permute(0, 1, 4, 3, 2).reshape(
+        16 * 128, 256, MASK_P, MASK_P).contiguous(), 20)
+    bound, _ = _bound_ms(2 * pooled.numel() * 2, 0.0)
+    print(f"  the mask pool's layout copy, [16, 128, 14, 14, 256] bf16: {copy_ms:.6g} ms "
+          f"(bound {bound:.6g} ms, bytes)")
+    out["mask_pool_copy"] = {"ms": copy_ms, "bound_ms": bound, "shape": "B=16 K=128 C=256 P=14"}
+    for name, part in (("roi_align", "fwd"), ("roi_align_bwd", "bwd")):
+        for entry in (k for k in kernels if k["name"] == name):  # none with --only
+            for label in ("mask_train", "mask_predict", "cascade_degenerate"):
+                entry.update({f"families_{label}_{k}": v for k, v in out[label][part].items()})
+    torch.cuda.empty_cache()
+    return out
+
+
+def _family_cfg(path: Path, batch: int):
+    """A family's run config at ``batch`` and its ``DetectorConfig``."""
+    from layoutdit_tpu_torch.config import load_run_config
+    from layoutdit_tpu_torch.models.detection.detector import DetectorConfig
+
+    rc = load_run_config(str(path))
+    rc = dataclasses.replace(rc, data=dataclasses.replace(rc.data, batch_size=batch),
+                             compute_dtype="bfloat16")
+    return rc, DetectorConfig.from_model_config(rc.model, precision_dtype="bfloat16")
+
+
+def _family_launches(family: str, cfg, batches: int, train: bool) -> dict:
+    """Launches of ``batches`` serving batches or train steps: an attention
+    kernel a layer (and its backward in training), FAMILY_ROI RoIAligns."""
+    n = cfg.backbone.vit.num_hidden_layers
+    out = {name: 0 for name in _counters()}
+    out.update(short_attention=n * batches, roi_align=FAMILY_ROI[family] * batches)
+    if train:
+        out.update(short_attention_bwd=n * batches, roi_align_bwd=FAMILY_ROI[family] * batches)
+    return out
+
+
+def _family_serving(family: str, path: Path, kernels: list[dict]) -> dict:
+    """The serving phase's three requests (8, 4 and 4 + 2 pages of its
+    sizes) through ``BatchInferenceEngine`` with one 224 px bucket, batch
+    4: a warm-up, then FAMILY_ROUNDS timed rounds; the pages checked as
+    ``_check_pages`` checks them and a mask model's masks inside their
+    pages; launches 12 (24) attention and FAMILY_ROI RoIAlign a batch; one
+    profiled request of 4 pages, with its NMS stages' share of the device
+    time."""
+    from layoutdit_tpu_torch.eval.serving import BatchInferenceEngine
+    from layoutdit_tpu_torch.models.detection.detector import DetectorModel, init_detector
+    from layoutdit_tpu_torch.ops import nms
+    from layoutdit_tpu_torch.tools.profile_serving import profile_bucket
+
+    rc, cfg = _family_cfg(path, FAMILY_SERVING_BATCH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = DetectorModel(init_detector(cfg, gen, device="cuda"), cfg)
+    engine = BatchInferenceEngine(model, image_sizes=(224,), batch_size=FAMILY_SERVING_BATCH)
+    requests = _deploy_requests()
+    engine.predict_pages(requests[0][1][:4])  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    engine.paste_seconds = 0.0
+    latencies = {name: [] for name, _ in requests}
+    n_batches = n_masks = 0
+    for _ in range(FAMILY_ROUNDS):
+        for name, pages in requests:
+            t0 = time.perf_counter()
+            results = engine.predict_pages(pages)
+            torch.cuda.synchronize()
+            latencies[name].append((time.perf_counter() - t0) * 1e3)
+            _check_pages(pages, results)
+            n_batches += -(-len(pages) // FAMILY_SERVING_BATCH)
+            for page, r in zip(pages, results):
+                if cfg.with_mask:
+                    if len(r.masks) != len(r.boxes):
+                        raise RuntimeError(f"{family}: a mask per detection expected")
+                    h, w = page.shape[:2]
+                    for x0, y0, bm in r.masks:
+                        if not (0 <= x0 and 0 <= y0 and x0 + bm.shape[1] <= w
+                                and y0 + bm.shape[0] <= h):
+                            raise RuntimeError(f"{family}: a mask window outside its page")
+                    n_masks += len(r.masks)
+                elif r.masks is not None:
+                    raise RuntimeError(f"{family}: masks from a model without the branch")
+    counts = _counts()
+    syncs = nms.nms_mask.host_syncs
+    want = _family_launches(family, cfg, n_batches, train=False)
+    _check_launches(f"{family} serving", counts, want, 1)
+    for k in kernels:
+        k["families_launches"] = k.get("families_launches", 0) + counts[k["name"]]
+    out = {"launches": counts, "nms_host_syncs": syncs, "batches": n_batches}
+    for name, pages in requests:
+        out[name] = {**_spread(latencies[name]),
+                     "pages_per_s": len(pages) * 1e3 / float(np.median(latencies[name]))}
+        print(f"  {family} request ({name}): {len(pages)} pages, latency median "
+              f"{out[name]['median']:.2f} ms (min {out[name]['min']:.2f}, max "
+              f"{out[name]['max']:.2f}), {out[name]['pages_per_s']:.2f} pages/s")
+    if cfg.with_mask:
+        out["masks"] = n_masks
+        out["paste_s"] = engine.paste_seconds
+        print(f"  {family}: {n_masks} masks pasted on the host in {engine.paste_seconds:.4f} s "
+              f"({engine.paste_seconds / max(n_masks, 1) * 1e3:.4f} ms a mask)")
+    with tempfile.TemporaryDirectory() as tmp:
+        r = profile_bucket(engine, requests[0][1][:4], Path(tmp) / f"{family}.json")
+    stages = r["stages"]
+    nms_ms = sum(stages.get(s, {}).get("device_ms", 0.0) for s in ("rpn", "postprocess"))
+    out["profile"] = {"wall_ms": r["wall_ms"], "device_busy_ms": r["device_busy_ms"],
+                      "device_idle_share": r["device_idle_share"], "stages": stages,
+                      "top_kernels": r["top_kernels"][:8]}
+    print(f"  {family} profiled request, 4 pages: wall {r['wall_ms']:.3f} ms, device busy "
+          f"{r['device_busy_ms']:.4f} ms, idle {r['device_idle_share']:.4f}; " + ", ".join(
+              f"{s} {st.get('device_ms', 0.0):.4f} ms" for s, st in stages.items())
+          + f"; rpn + postprocess (both NMS) {nms_ms / r['device_busy_ms']:.3f} of busy")
+    del engine
+    return out, model
+
+
+def _family_train(family: str, path: Path, model, kernels: list[dict]) -> dict:
+    """One epoch of ``Trainer.train()`` over 4 x 16 fixture pages (the
+    launches of the path), then TRAIN_REPEATS steps on one repeated batch:
+    losses finite and falling, median of the last 18 step times with min
+    and max, peak GiB; a mask model's loader rasterises ``gt_masks``."""
+    from layoutdit_tpu_torch.models.detection.detector import DetectorModel
+    from layoutdit_tpu_torch.train.trainer import Trainer
+
+    base, cfg = _family_cfg(path, FAMILY_BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        rc = _fixture_run(base, tmp, TRAIN_EPOCH_STEPS * FAMILY_BATCH)
+        rc = dataclasses.replace(rc, train=dataclasses.replace(
+            rc.train, tensorboard=False, checkpoint_interval=100))
+        model = DetectorModel(model.params, cfg)
+        trainer = Trainer(rc, model)
+        _reset_counts()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        counts, steps = _counts(), trainer.updates
+        _check_launches(f"{family} train", counts,
+                        _family_launches(family, cfg, steps, train=True), 1)
+        for k in kernels:
+            k["families_launches"] = k.get("families_launches", 0) + counts[k["name"]]
+        it = iter(trainer.dataloader)
+        batch = next(it)
+        it.close()
+        if cfg.with_mask and (batch.gt_masks is None or not bool(batch.gt_masks.any())):
+            raise RuntimeError(f"{family}: the batch carries no gt masks")
+        torch.cuda.reset_peak_memory_stats()
+        history, times = [], []
+        for _ in range(TRAIN_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, parts = trainer.train_step(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            history.append({"loss": float(loss), **{k: float(v) for k, v in parts.items()}})
+        peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(list(h.values())).all() for h in history):
+        raise RuntimeError(f"{family}: a non-finite loss: {history}")
+    first, last = history[0]["loss"], float(np.mean([h["loss"] for h in history[-3:]]))
+    if not last <= (1 - TRAIN_MIN_DROP) * first:
+        raise RuntimeError(f"{family}: the loss did not fall on a repeated batch")
+    timed = times[TRAIN_WARMUP:]
+    out = {"epoch_steps": steps, "epoch_s": epoch_s, "epoch_loss": trainer.loss_history,
+           **{f"step_{k}": v for k, v in _spread(timed).items()}, "step_ms": times,
+           "images_per_s": FAMILY_BATCH * 1e3 / float(np.median(timed)),
+           "peak_gib": peak / 2**30, "loss_first": first, "loss_last3_mean": last,
+           "losses_last": history[-1]}
+    print(f"  {family} train: epoch {steps} steps in {epoch_s:.3f} s; {TRAIN_REPEATS} steps "
+          f"at batch {FAMILY_BATCH}: median {out['step_median']:.3f} ms (min "
+          f"{out['step_min']:.3f}, max {out['step_max']:.3f}), {out['images_per_s']:.2f} "
+          f"images/s, peak {out['peak_gib']:.4f} GiB; loss {first:.4f} -> {last:.4f}; "
+          + ", ".join(f"{k} {v:.4f}" for k, v in history[-1].items()))
+    return out, trainer
+
+
+def _family_score(model, kernels: list[dict]) -> dict:
+    """``Evaluator.score()`` of the mask model (after its train steps)
+    over FAMILY_SCORE_PAGES fixture pages at batch 16: bbox and segm
+    metrics, finite; pages/s; the host paste time apart."""
+    from layoutdit_tpu_torch.eval.evaluator import Evaluator
+
+    base, cfg = _family_cfg(MASK_CONFIG, FAMILY_BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        rc = _fixture_run(base, tmp, FAMILY_SCORE_PAGES)
+        rc = dataclasses.replace(rc, eval_input="samples")
+        evaluator = Evaluator(model, rc)
+        evaluator.score()  # warm-up: the first batch's set-up
+        _reset_counts()
+        t0 = time.perf_counter()
+        metrics = evaluator.score()
+        score_s = time.perf_counter() - t0
+        counts = _counts()
+    batches = -(-FAMILY_SCORE_PAGES // FAMILY_BATCH)
+    _check_launches("mask score", counts, _family_launches("mask", cfg, batches, train=False), 1)
+    for k in kernels:
+        k["families_launches"] = k.get("families_launches", 0) + counts[k["name"]]
+    if metrics is None or not all(np.isfinite(v) for v in metrics.values()):
+        raise RuntimeError(f"mask score: metrics {metrics}")
+    if "segm_mAP" not in metrics:
+        raise RuntimeError("mask score: no segm metrics")
+    out = {"pages": FAMILY_SCORE_PAGES, "score_s": score_s,
+           "pages_per_s": FAMILY_SCORE_PAGES / score_s, "paste_s": evaluator.paste_seconds,
+           "metrics": {k: metrics[k] for k in ("mAP", "AP50", "segm_mAP", "segm_AP50")}}
+    print(f"  mask score(): {FAMILY_SCORE_PAGES} pages in {score_s:.3f} s "
+          f"({out['pages_per_s']:.2f} pages/s), of which mask pastes "
+          f"{evaluator.paste_seconds:.4f} s; bbox mAP {metrics['mAP']:.4f}, segm mAP "
+          f"{metrics['segm_mAP']:.4f}")
+    return out
+
+
+def _family_convergence(family: str, kernels: list[dict]) -> dict:
+    """The flagship recipe with the family's overrides
+    (``tools/convergence.py --family``), bf16 on the card, held to the
+    flagship's held-out mAP and AP50 floors (and segm for the masks)."""
+    from layoutdit_tpu_torch.tools import convergence
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _reset_counts()
+        result = convergence.run_recipe(tmp, "bfloat16", "cuda", eval_interval=16,
+                                        family=family)
+        counts = _counts()
+    for name, n in counts.items():
+        if (n > 0) != (name in MAIN_KERNELS):
+            raise RuntimeError(f"{family} convergence: {name} launched {n} times")
+    for k in kernels:
+        k["families_launches"] = k.get("families_launches", 0) + counts[k["name"]]
+    m = result["metrics"]
+    keys = ("mAP", "AP50", "AP75") + (("segm_mAP", "segm_AP50", "segm_AP75")
+                                      if family == "mask" else ())
+    print(f"  {family} recipe: {result['steps']} steps in {result['train_s']:.3f} s, score "
+          f"{result['score_s']:.3f} s; mAP at epochs {result['mAP_at_epoch']}; held-out "
+          + ", ".join(f"{k} {m[k]:.4f}" for k in keys if m))
+    failures = convergence.floor_failures(result)
+    if failures:
+        raise RuntimeError(f"{family} convergence missed its floors: {failures}")
+    return {k: result[k] for k in ("steps", "train_s", "score_s", "loss", "mAP_at_epoch")} | {
+        "metrics": m}
+
+
+def phase_families(gen, kernels: list[dict], card: str) -> dict:
+    """Cascade R-CNN (``configs/cascade_dp.json``: dit-large, three stages
+    at IoU 0.5 / 0.6 / 0.7) and Mask R-CNN (``configs/mask_rcnn.json``:
+    dit-base with the mask branch), both at 224 px, random weights from
+    seed 0, bf16: rows 7-8 at these models' shapes; each model serving the
+    serving phase's requests and training; the mask model scoring bbox and segm;
+    both convergence recipes. The launches of all but the kernel checks
+    are the ``families`` path's."""
+    t0 = time.perf_counter()
+    for k in kernels:
+        k["families_launches"] = 0
+    out = {"card": card, "kernels": _families_kernels(gen, kernels)}
+    for family, path in (("cascade", CASCADE_CONFIG), ("mask", MASK_CONFIG)):
+        serving, model = _family_serving(family, path, kernels)
+        train, trainer = _family_train(family, path, model, kernels)
+        out[family] = {"serving": serving, "train": train}
+        if family == "mask":
+            out[family]["score"] = _family_score(trainer.model, kernels)
+        del model, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[family]["convergence"] = _family_convergence(family, kernels)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"  families phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU")
     if not ((ROOT / "layoutdit_tpu_torch").is_dir() and all(
             p.is_file() for p in (CONFIG, TRAIN_1024_CONFIG, RELPOS_CONFIG, LARGE_CONFIG,
-                                  FSDP_LARGE_CONFIG))):
+                                  FSDP_LARGE_CONFIG, CASCADE_CONFIG, MASK_CONFIG))):
         raise SystemExit("chip_smoke: run it from a checkout of the repository")
     sys.path.insert(0, str(ROOT))
     from layoutdit_tpu_torch.ops import _build
@@ -3199,7 +3565,8 @@ def main() -> int:
         # a check of some phases alone (no kernels line, no last line)
         only = sys.argv[sys.argv.index("--only") + 1].split(",")
         runners = {"serving": lambda: phase_serving([]),
-                   "deploy": lambda: phase_deploy([], gen)}
+                   "deploy": lambda: phase_deploy([], gen),
+                   "families": lambda: phase_families(gen, [], card)}
         for name in only:
             print(f"phase {name}")
             print(json.dumps({name: runners[name]()}))
@@ -3252,8 +3619,12 @@ def main() -> int:
 
     print("phase convergence")
     conv = phase_convergence(kernels, card)
+    torch.cuda.empty_cache()
+
+    print("phase families")
+    families = phase_families(gen, kernels, card)
     paths = ("probe", "serving", "deploy", "train", "train_state", "io", "train_1024",
-             "train_1024_relpos", "encoder", "main", "convergence")
+             "train_1024_relpos", "encoder", "main", "convergence", "families")
     for k in kernels:
         k["launches"] = sum(k[f"{path}_launches"] for path in paths)
         if k["launches"] <= 0:
@@ -3269,6 +3640,7 @@ def main() -> int:
     print(json.dumps({"encoder": encoder}))
     print(json.dumps({"main": main_run}))
     print(json.dumps({"convergence": conv}))
+    print(json.dumps({"families": families}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

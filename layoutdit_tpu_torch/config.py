@@ -106,6 +106,11 @@ class ModelConfig:
     remat: bool = False
     remat_policy: str = "full"
     vit_overrides: Optional[dict] = None
+    # the two modifiers of the faster_rcnn family (constructs.py:381, :449):
+    # Cascade R-CNN's per-stage foreground IoU thresholds (empty = one
+    # box head), and the Mask R-CNN branch
+    cascade_iou_threshs: tuple[float, ...] = ()
+    with_mask: bool = False
 
     def __post_init__(self):
         if self.backbone_type not in BACKBONES:
@@ -181,6 +186,9 @@ class EvalConfig:
     visualize_dirpath_prefix: str = "visualizations"
     num_images: Optional[int] = 20
     per_category_metrics: bool = True
+    # a mask model also pastes its masks and reports the 12 segm metrics
+    # as segm_mAP, segm_AP50, ... beside the bbox ones
+    segm_metrics: bool = True
 
 
 # Fields of the JAX schema the port reads but does not act on yet: each
@@ -188,11 +196,25 @@ class EvalConfig:
 # at its default loads; one that sets it otherwise is refused, naming the
 # work it waits for, rather than silently trained without it.
 _LATER = "a later slice of the port"
+_FAMILIES = ("the RetinaNet, FCOS and DETR families (ROADMAP queue 1 item 5); the port "
+             "runs detector='faster_rcnn' with its cascade and mask modifiers")
 _WAITING = {
     "detection_model_config": {
         "previous_layout_dit_checkpoint": (
             None, "warm-starting the encoder from a pretrained DiT checkpoint "
                   "(tools/convert_hf_checkpoint.py, ROADMAP queue 1 item 6)"),
+        "detector": ("faster_rcnn", _FAMILIES),
+        "retinanet_levels": ([1, 2, 3, 4], _FAMILIES),
+        "fcos_levels": ([1, 2, 3, 4], _FAMILIES),
+        "detr_num_queries": (100, _FAMILIES),
+        "detr_layers": (6, _FAMILIES),
+        "detr_dim": (256, _FAMILIES),
+        "detr_heads": (8, _FAMILIES),
+        "detr_ffn_dim": (2048, _FAMILIES),
+        "detr_eos_coef": (0.1, _FAMILIES),
+        "detr_aux_loss": (True, _FAMILIES),
+        "detr_shared_matching": (False, _FAMILIES),
+        "detr_level": (2, _FAMILIES),
     },
     "train_config": {
         "device": ("auto", "the port runs on the CUDA card (no device field)"),
@@ -205,8 +227,6 @@ _WAITING = {
     },
     "eval_config": {
         "device": ("auto", "the port runs on the CUDA card (no device field)"),
-        "segm_metrics": (True, "mask-IoU metrics, which act on a mask model alone "
-                               "(the mask head, ROADMAP queue 1 item 5)"),
     },
 }
 

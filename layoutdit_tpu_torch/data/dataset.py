@@ -9,7 +9,10 @@ are read with ``retry_io``. The native parser (``native/cocojson.py``)
 takes the annotations when it is available, into packed arrays that the
 targets are cut from; ``coco_data`` (the evaluator's ground truth) and
 ``annotations`` (image id -> its annotation dicts) are then built only
-when asked for. Without it, ``json.loads``.
+when asked for. Without it, ``json.loads``, which also takes the
+annotations when ``with_segmentation`` asks for the segmentations (the
+Mask R-CNN branch): the native parser skips that field. The targets then
+carry ``segmentation``, row-aligned with the kept boxes.
 
 One difference from the JAX package: images decode to uint8
 ``[H, W, 3]`` (the loader scales and resizes them on the device). PIL is
@@ -36,10 +39,13 @@ def read_bytes(path: str) -> bytes:
 
 
 class PubLayNetDataset:
-    def __init__(self, images_root_dir: str, annotations_json_path: str):
+    def __init__(self, images_root_dir: str, annotations_json_path: str,
+                 with_segmentation: bool = False):
         raw = read_bytes(annotations_json_path)
         self.images_root_dir = images_root_dir
-        arr = cocojson.parse_coco_bytes(raw) if cocojson.available() else None
+        self.with_segmentation = with_segmentation
+        arr = (cocojson.parse_coco_bytes(raw)
+               if cocojson.available() and not with_segmentation else None)
         self._arr = arr
         self._coco_data = None
         self._annotations = None
@@ -102,7 +108,9 @@ class PubLayNetDataset:
 
     def load_target(self, img_id) -> dict:
         """Boxes [n, 4] xyxy float32 and labels [n] int64 of one image,
-        degenerate boxes dropped."""
+        degenerate boxes dropped; with ``with_segmentation`` also the kept
+        boxes' ``segmentation`` entries (None where an annotation has
+        none)."""
         if self._arr is not None:
             lo = np.searchsorted(self._ann_img_sorted, img_id, "left")
             hi = np.searchsorted(self._ann_img_sorted, img_id, "right")
@@ -121,8 +129,12 @@ class PubLayNetDataset:
             boxes_np = np.asarray(boxes, dtype=np.float32).reshape(-1, 4)
             labels_np = np.asarray(labels, dtype=np.int64)
         keep = (boxes_np[:, 2] > boxes_np[:, 0]) & (boxes_np[:, 3] > boxes_np[:, 1])
-        return {
+        out = {
             "boxes": boxes_np[keep],
             "labels": labels_np[keep],
             "image_id": np.asarray([img_id]),
         }
+        if self.with_segmentation:  # the json.loads path (__init__)
+            segs = [ann.get("segmentation") for ann in self.annotations.get(img_id, [])]
+            out["segmentation"] = [sg for sg, k in zip(segs, keep) if k]
+        return out

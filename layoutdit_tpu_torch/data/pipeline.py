@@ -10,7 +10,12 @@ with ``non_blocking`` copies. One difference from the JAX loader: pages
 are uploaded as uint8 and resized on the device (``F.interpolate``, the
 same bilinear formula after the same /255 scaling) instead of resized
 on the host in numpy; the flip is applied to the resized image, as in
-the JAX loader.
+the JAX loader. With ``load_masks`` (the Mask R-CNN branch) each batch
+also carries ``gt_masks`` [B, G, M, M] uint8: each kept box's
+segmentation rasterised on the host onto an M x M grid over the whole
+page (``data/masks.py``, from the page's original size, M =
+``mask_size`` or image_size // 2), flipped with the page, and uploaded
+with the batch.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from typing import Iterator, Sequence
 import numpy as np
 import torch
 
+from layoutdit_tpu_torch.data.masks import rasterize_target_masks
 from layoutdit_tpu_torch.log import get_logger
 from layoutdit_tpu_torch.ops.interpolate import resize_bilinear
 
@@ -39,6 +45,7 @@ class DetectionBatch:
     image_ids: np.ndarray  # [B] int64
     orig_sizes: np.ndarray  # [B, 2] float32 (height, width)
     image_valid: np.ndarray  # [B] bool (False = batch padding)
+    gt_masks: torch.Tensor | None = None  # [B, G, M, M] uint8, on the device (load_masks)
 
 
 def prepare_targets(
@@ -75,10 +82,12 @@ class _HostBatch:
     orig_sizes: np.ndarray
     image_valid: np.ndarray
     pixels: torch.Tensor | None  # [n, H, W, 3] uint8 when every page shares a shape
+    gt_masks: torch.Tensor | None = None  # [B, G, M, M] uint8
 
 
 def _stack(batches: list[DetectionBatch]) -> DetectionBatch:
     """S batches as one: device tensors [S, B, ...], host metadata [S*B]."""
+    masks = batches[0].gt_masks
     return DetectionBatch(
         images=torch.stack([b.images for b in batches]),
         gt_boxes=torch.stack([b.gt_boxes for b in batches]),
@@ -87,6 +96,7 @@ def _stack(batches: list[DetectionBatch]) -> DetectionBatch:
         image_ids=np.concatenate([b.image_ids for b in batches]),
         orig_sizes=np.concatenate([b.orig_sizes for b in batches]),
         image_valid=np.concatenate([b.image_valid for b in batches]),
+        gt_masks=None if masks is None else torch.stack([b.gt_masks for b in batches]),
     )
 
 
@@ -99,6 +109,9 @@ class DetectionLoader:
         ``load_image`` and ``load_target``).
       stack_batches: S > 1 yields S consecutive batches as one (tensors
         [S, B, ...]) for ``steps_per_dispatch``.
+      load_masks: also rasterise the gt masks (``gt_masks``); the dataset
+        must keep the segmentations (``with_segmentation``).
+      mask_size: M of the [B, G, M, M] block (0: image_size // 2).
       device: where batches land; "cuda" unless the caller asks for the
         CPU. A CUDA device with no GPU present raises.
     """
@@ -117,7 +130,15 @@ class DetectionLoader:
         augment_hflip: float = 0.0,
         stack_batches: int = 1,
         device: str | torch.device = "cuda",
+        load_masks: bool = False,
+        mask_size: int = 0,
     ):
+        if load_masks and not getattr(dataset, "with_segmentation", False):
+            raise ValueError("load_masks=True needs a dataset constructed with "
+                             "with_segmentation=True (the segmentation field is dropped "
+                             "otherwise)")
+        self.load_masks = load_masks
+        self.mask_size = mask_size or image_size // 2
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("DetectionLoader: no CUDA device is available")
@@ -187,6 +208,8 @@ class DetectionLoader:
         orig_sizes = np.ones((b, 2), np.float32)
         image_valid = np.zeros((b,), bool)
         flip = np.zeros((b,), bool)
+        m = self.mask_size
+        gt_masks = np.zeros((b, g, m, m), np.uint8) if self.load_masks else None
         if self._pool is None:
             self._pool = ThreadPoolExecutor(self.num_workers, thread_name_prefix="ld-decode")
         loaded = list(self._pool.map(self._load, [int(i) for i in idxs]))
@@ -198,6 +221,9 @@ class DetectionLoader:
             orig_sizes[slot] = (h, w)
             image_valid[slot] = True
             pages.append(page)
+            if gt_masks is not None:
+                gt_masks[slot] = rasterize_target_masks(target.get("segmentation", []), h, w,
+                                                        m, g)
             if self.augment_hflip > 0:
                 # the JAX loader's decision: hashed from (seed, epoch,
                 # dataset index), whatever the worker or slot
@@ -209,6 +235,8 @@ class DetectionLoader:
                     x2 = gt_boxes[slot][v, 2].copy()
                     gt_boxes[slot][v, 0] = s - x2
                     gt_boxes[slot][v, 2] = s - x1
+                    if gt_masks is not None:
+                        gt_masks[slot] = gt_masks[slot][:, :, ::-1]
         pin = self.device.type == "cuda"
 
         def host(a: np.ndarray) -> torch.Tensor:
@@ -221,6 +249,7 @@ class DetectionLoader:
             gt_valid=host(gt_valid), image_ids=image_ids, orig_sizes=orig_sizes,
             image_valid=image_valid,
             pixels=host(np.stack(pages)) if same_shape else None,
+            gt_masks=None if gt_masks is None else host(gt_masks),
         )
 
     def _to_device(self, hb: _HostBatch) -> DetectionBatch:
@@ -244,6 +273,7 @@ class DetectionLoader:
             gt_labels=hb.gt_labels.to(dev, non_blocking=True),
             gt_valid=hb.gt_valid.to(dev, non_blocking=True),
             image_ids=hb.image_ids, orig_sizes=hb.orig_sizes, image_valid=hb.image_valid,
+            gt_masks=None if hb.gt_masks is None else hb.gt_masks.to(dev, non_blocking=True),
         )
 
     def __iter__(self) -> Iterator[DetectionBatch]:

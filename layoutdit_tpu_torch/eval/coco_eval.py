@@ -24,12 +24,19 @@ The hot loops are vectorized as in the JAX package:
 The scalar transcription of COCOeval.evaluateImg is kept as
 ``_match_img_ref`` as a differential-test oracle (tests/test_torch_eval.py).
 
-Only ``iou_type="bbox"``: mask IoU (``segm``) waits for the mask head.
+``iou_type="segm"`` scores instance masks (pycocotools' mask IoU over
+box-cropped bitmaps, ``eval/masks.py``): a detection's ``segmentation``
+is a pasted ``(x0, y0, bitmap)`` window (the evaluator's fast path), an
+RLE dict or a polygon list; gt segmentations are rasterised at their
+page's size, and a detection's area is its mask's.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from layoutdit_tpu_torch.data.masks import rasterize_fullsize
+from layoutdit_tpu_torch.eval import masks as emasks
 
 IOU_THRS = np.linspace(0.5, 0.95, 10)
 REC_THRS = np.linspace(0.0, 1.0, 101)
@@ -69,23 +76,45 @@ def _iou_xywh(dt: np.ndarray, gt: np.ndarray, iscrowd: np.ndarray) -> np.ndarray
     return np.where(union > 0, inter / union, 0.0)
 
 
+def _to_window(seg, h: int, w: int):
+    """A detection's or gt's ``segmentation`` in any supported form ->
+    its cropped bitmap window: a pasted ``(x0, y0, bitmap)`` tuple as it
+    is, an RLE dict or a polygon list rasterised at [h, w]."""
+    if isinstance(seg, tuple):
+        return seg
+    return emasks.full_to_window(rasterize_fullsize(seg, h, w))
+
+
 class _Pair:
     """Sorted detections + gt metadata + IoU matrix for one (image, cat),
     shared across the four area ranges."""
 
     __slots__ = ("ious", "scores", "d_areas", "g_areas", "iscrowd")
 
-    def __init__(self, gt: list, dt: list, max_det: int):
+    def __init__(self, gt: list, dt: list, max_det: int,
+                 iou_type: str = "bbox", img_size=None):
         d_order = np.argsort([-d["score"] for d in dt], kind="stable")[:max_det]
         d_boxes = np.array([dt[i]["bbox"] for i in d_order], float).reshape(-1, 4)
         self.scores = np.array([dt[i]["score"] for i in d_order], float)
         self.iscrowd = np.array([bool(g.get("iscrowd", 0)) for g in gt], bool)
-        self.d_areas = d_boxes[:, 2] * d_boxes[:, 3]
-        g_boxes = np.array([g["bbox"] for g in gt], float).reshape(-1, 4)
-        self.g_areas = np.array(
-            [g.get("area", g["bbox"][2] * g["bbox"][3]) for g in gt], float
-        )
-        self.ious = _iou_xywh(d_boxes, g_boxes, self.iscrowd.astype(int))
+        if iou_type == "segm":
+            # mask IoU; the areas are the masks' (a gt keeps its
+            # annotation's "area" when it has one)
+            h, w = img_size
+            d_wins = [_to_window(dt[i]["segmentation"], h, w) for i in d_order]
+            g_wins = [_to_window(g["segmentation"], h, w) for g in gt]
+            self.d_areas = np.array([int(x[2].sum()) for x in d_wins], float)
+            self.g_areas = np.array(
+                [g.get("area", int(x[2].sum())) for g, x in zip(gt, g_wins)], float
+            )
+            self.ious = emasks.mask_iou(d_wins, g_wins, self.iscrowd)
+        else:
+            self.d_areas = d_boxes[:, 2] * d_boxes[:, 3]
+            g_boxes = np.array([g["bbox"] for g in gt], float).reshape(-1, 4)
+            self.g_areas = np.array(
+                [g.get("area", g["bbox"][2] * g["bbox"][3]) for g in gt], float
+            )
+            self.ious = _iou_xywh(d_boxes, g_boxes, self.iscrowd.astype(int))
 
 
 class CocoEvaluator:
@@ -96,18 +125,18 @@ class CocoEvaluator:
     """
 
     def __init__(self, coco_gt: dict, iou_type: str = "bbox"):
-        if iou_type == "segm":
-            raise ValueError(
-                "iou_type='segm': mask IoU is not ported yet; it waits for the mask "
-                "head (ROADMAP queue 1 item 5)"
-            )
-        if iou_type != "bbox":
-            raise ValueError(f"iou_type must be bbox, got {iou_type}")
+        if iou_type not in ("bbox", "segm"):
+            raise ValueError(f"iou_type must be bbox or segm, got {iou_type}")
+        self.iou_type = iou_type
         self.cat_ids = [c["id"] for c in coco_gt["categories"]]
         self.cat_names = {
             c["id"]: str(c.get("name", c["id"])) for c in coco_gt["categories"]
         }
         self.img_ids = [im["id"] for im in coco_gt["images"]]
+        self._img_sizes = {
+            im["id"]: (int(im.get("height", 0)), int(im.get("width", 0)))
+            for im in coco_gt["images"]
+        }
         self._gt: dict[tuple, list] = {
             (i, c): [] for i in self.img_ids for c in self.cat_ids
         }
@@ -361,7 +390,8 @@ class CocoEvaluator:
             for img in self.img_ids:
                 gt_l, dt_l = self._gt[(img, cat)], dt[(img, cat)]
                 if gt_l or dt_l:
-                    pairs.append(_Pair(gt_l, dt_l, max(MAX_DETS)))
+                    pairs.append(_Pair(gt_l, dt_l, max(MAX_DETS), iou_type=self.iou_type,
+                                       img_size=self._img_sizes[img]))
             for ai, a_name in enumerate(a_names):
                 rng = AREA_RNGS[a_name]
                 per_img = self._match_pairs(pairs, rng)

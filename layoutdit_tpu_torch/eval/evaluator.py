@@ -14,18 +14,23 @@ the data and the run's directory may be ``scheme://`` URLs.
     predictions, written to ``{base}/{run}/predictions.json`` and scored
     by ``CocoEvaluator`` (the 12 COCO metrics, and the per-class AP when
     ``per_category_metrics``).
+  * A mask model (``with_mask``, with ``segm_metrics``) also pastes each
+    kept detection's mask into its page on the host (``eval/masks.py``,
+    a cropped window each; the seconds spent are ``paste_seconds``),
+    adds the 12 segm metrics as ``segm_mAP``, ``segm_AP50``, ..., and
+    writes each mask to ``predictions.json`` as COCO uncompressed RLE.
   * ``visualize_preds()`` / ``visualize_gt()``: the top ``max_per_image``
     predictions (red) or the ground truth (green) drawn on up to
     ``num_images`` pages, saved as JPEGs. PIL is imported inside them.
 
-Not ported yet: the data-parallel and multi-host eval, and the mask
-branch (pasted instance masks and the segm metrics).
+Not ported yet: the data-parallel and multi-host eval.
 """
 
 from __future__ import annotations
 
 import io
 import json
+import time
 from typing import Optional
 
 import numpy as np
@@ -35,6 +40,7 @@ from layoutdit_tpu_torch.config import RunConfig
 from layoutdit_tpu_torch.data.dataset import PubLayNetDataset, read_bytes
 from layoutdit_tpu_torch.data.pipeline import DetectionLoader
 from layoutdit_tpu_torch.eval.coco_eval import CocoEvaluator
+from layoutdit_tpu_torch.eval.masks import encode_rle, paste_mask_in_box
 from layoutdit_tpu_torch.log import get_logger
 from layoutdit_tpu_torch.models.detection.detector import (
     detector_predict,
@@ -64,9 +70,12 @@ class Evaluator:
         self.model = model
         self.config = config
         self.eval_config = config.eval
+        # a mask model also pastes its masks and reports the segm metrics
+        self._with_masks = bool(model.cfg.with_mask and self.eval_config.segm_metrics)
         images_root, ann_json = config.eval_split()
         self.dataloader = DetectionLoader(
-            PubLayNetDataset(images_root, ann_json),
+            # segm scoring needs the gt segmentations through the parse
+            PubLayNetDataset(images_root, ann_json, with_segmentation=self._with_masks),
             batch_size=config.data.batch_size,
             shuffle=False,  # deterministic eval order
             num_workers=config.data.num_workers,
@@ -78,6 +87,12 @@ class Evaluator:
         )
         self.coco_data = self.dataloader.dataset.coco_data
         self.coco_eval = CocoEvaluator(self.coco_data)
+        self.segm_eval = CocoEvaluator(self.coco_data, "segm") if self._with_masks else None
+        self._img_sizes = {
+            im["id"]: (int(im.get("height", 0)), int(im.get("width", 0)))
+            for im in self.coco_data["images"]
+        }
+        self.paste_seconds = 0.0  # host time of the last predictions()' mask pastes
         self.id2cat_map = {
             cat["id"]: cat.get("name", str(cat["id"])) for cat in self.coco_data["categories"]
         }
@@ -94,9 +109,11 @@ class Evaluator:
         """Inference over the eval split -> COCO predictions
         ``{image_id, category_id, bbox [x, y, w, h], score}`` in page
         coordinates; ``category_id`` is the model's label, as in the JAX
-        evaluator."""
+        evaluator. A mask model's also carry ``segmentation``, the pasted
+        ``(x0, y0, bitmap)`` window."""
         cfg = self.model.cfg
         out: list[dict] = []
+        self.paste_seconds = 0.0
         try:
             with torch.no_grad():
                 params = params_for_inference(
@@ -104,9 +121,13 @@ class Evaluator:
                 )
                 for batch in self.dataloader:
                     sizes = torch.from_numpy(batch.orig_sizes).to(self.device)
-                    dets = rescale_detections(
-                        detector_predict(params, batch.images, cfg), sizes, cfg.image_size
-                    )
+                    if self._with_masks:
+                        dets, probs = detector_predict(params, batch.images, cfg,
+                                                       with_masks=True)
+                        probs = probs.cpu().numpy()
+                    else:
+                        dets = detector_predict(params, batch.images, cfg)
+                    dets = rescale_detections(dets, sizes, cfg.image_size)
                     boxes = dets.boxes.float().cpu().numpy()
                     scores = dets.scores.float().cpu().numpy()
                     labels = dets.labels.cpu().numpy()
@@ -122,11 +143,19 @@ class Evaluator:
                     kids = batch.image_ids[img_idx]
                     ks = scores[img_idx, det_idx]
                     kc = labels[img_idx, det_idx]
-                    out += [
+                    preds = [
                         {"image_id": int(kids[j]), "category_id": int(kc[j]),
                          "bbox": xywh[j].tolist(), "score": float(ks[j])}
                         for j in range(len(img_idx))
                     ]
+                    if self._with_masks:
+                        t0 = time.perf_counter()
+                        for j, pred in enumerate(preds):
+                            pred["segmentation"] = paste_mask_in_box(
+                                probs[img_idx[j], det_idx[j]], kb[j],
+                                *self._img_sizes[pred["image_id"]])
+                        self.paste_seconds += time.perf_counter() - t0
+                    out += preds
         finally:
             self.dataloader.close()
         return out
@@ -142,10 +171,20 @@ class Evaluator:
         metrics = self.coco_eval.evaluate(
             all_predictions, per_category=self.eval_config.per_category_metrics
         )
+        if self.segm_eval is not None:
+            segm = self.segm_eval.evaluate(all_predictions)
+            metrics.update({f"segm_{k}": v for k, v in segm.items()})
         logger.info("COCO metrics: %s", " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
         return metrics
 
     def _save_predictions_json(self, all_predictions: list[dict]) -> None:
+        if self._with_masks:
+            # the in-memory windows become COCO uncompressed RLE over the page
+            all_predictions = [
+                {**p, "segmentation": encode_rle(p["segmentation"],
+                                                 *self._img_sizes[p["image_id"]])}
+                for p in all_predictions
+            ]
         with open_path(self.predictions_path, "w") as f:
             json.dump(all_predictions, f)
         logger.info("Saved %d predictions to %s", len(all_predictions), self.predictions_path)

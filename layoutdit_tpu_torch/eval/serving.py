@@ -24,9 +24,15 @@ sizes for routing, then one threaded batch decode into uint8 arrays);
 without the loader (no g++ or libjpeg) PIL decodes, and the engine logs
 once that it does. Other encoded pages (PNG) always go through PIL.
 
+A mask model's pages also get ``masks``: each kept detection's mask
+pasted on the host into its page (``eval/masks.py``), a cropped
+``(x0, y0, bitmap)`` window each; ``paste_seconds`` sums the host time
+the pastes take.
+
 ``ExportedInferenceEngine`` runs the same pipeline over an exported
 artifact (``export.py``) instead of the model: its buckets and batch
-size come from the artifact's manifest.
+size come from the artifact's manifest, and it serves boxes only, as the
+JAX package's exported engine does.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import bisect
 import dataclasses
 import io
 import os
+import time
 import types
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -43,6 +50,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from layoutdit_tpu_torch.eval.masks import paste_mask_in_box
 from layoutdit_tpu_torch.log import get_logger
 from layoutdit_tpu_torch.models.detection.detector import (
     DetectorModel,
@@ -62,6 +70,9 @@ class PageDetections:
     boxes: np.ndarray  # [K, 4] xyxy, original page coordinates
     scores: np.ndarray  # [K]
     labels: np.ndarray  # [K] int (1..NC)
+    # a mask model's: per detection an (x0, y0, bitmap uint8 [h, w]) window
+    # in page coordinates (eval/masks.py); None without a mask head
+    masks: list | None = None
 
 
 def _open_jpeg(data: bytes):
@@ -107,6 +118,8 @@ class BatchInferenceEngine:
         self.score_thresh = score_thresh
         self.decode_workers = decode_workers
         self.max_in_flight = max(1, max_in_flight)
+        self._with_masks = False  # the live engine's, for a mask model
+        self.paste_seconds = 0.0  # host time spent pasting masks, summed over requests
 
     def __init__(
         self,
@@ -126,6 +139,7 @@ class BatchInferenceEngine:
             tree_map(lambda t: t.to(self.device), model.params), model.cfg.dtype
         )
         self._cfgs: dict[int, object] = {}
+        self._with_masks = bool(model.cfg.with_mask)
 
     @classmethod
     def from_corpus(
@@ -214,8 +228,13 @@ class BatchInferenceEngine:
         return images, orig
 
     def _run(self, size: int, images: torch.Tensor, orig: np.ndarray):
+        """-> the rescaled detections, and a mask model's mask
+        probabilities [B, D, 2P, 2P] beside them."""
         cfg = self._cfg_for(size)
         o = torch.from_numpy(orig).to(self.device)
+        if self._with_masks:
+            dets, probs = detector_predict(self.params, images, cfg, with_masks=True)
+            return rescale_detections(dets, o, size), probs
         return rescale_detections(detector_predict(self.params, images, cfg), o, size)
 
     def predict_pages(self, pages: Sequence) -> list[PageDetections]:
@@ -229,16 +248,26 @@ class BatchInferenceEngine:
 
         results: list[PageDetections | None] = [None] * len(pages)
 
-        def fetch(chunk, decoded_ok, dets):
+        def fetch(chunk, decoded_ok, orig, out):
+            dets, probs = out if self._with_masks else (out, None)
             boxes = dets.boxes.float().cpu().numpy()
             scores = dets.scores.float().cpu().numpy()
             labels = dets.labels.cpu().numpy()
             valid = dets.valid.cpu().numpy() & (scores >= self.score_thresh)
+            if probs is not None:
+                probs = probs.cpu().numpy()
             for slot, page_idx in enumerate(chunk):
                 keep = valid[slot] & decoded_ok[slot]
+                masks = None
+                if probs is not None:
+                    t0 = time.perf_counter()
+                    im_h, im_w = max(int(orig[slot, 0]), 1), max(int(orig[slot, 1]), 1)
+                    masks = [paste_mask_in_box(probs[slot, di], boxes[slot, di], im_h, im_w)
+                             for di in np.nonzero(keep)[0]]
+                    self.paste_seconds += time.perf_counter() - t0
                 results[page_idx] = PageDetections(
                     boxes=boxes[slot][keep], scores=scores[slot][keep],
-                    labels=labels[slot][keep],
+                    labels=labels[slot][keep], masks=masks,
                 )
 
         chunks = [
@@ -279,7 +308,7 @@ class BatchInferenceEngine:
                     images, orig = self._upload_batch(decoded, size)
                     dets = self._run(size, images, orig)
                 decoded_ok = (orig > 0).all(axis=1)  # (0, 0) = failed slot
-                in_flight.append((chunk, decoded_ok, dets))
+                in_flight.append((chunk, decoded_ok, orig, dets))
                 if len(in_flight) >= self.max_in_flight:
                     fetch(*in_flight.pop(0))
         for entry in in_flight:

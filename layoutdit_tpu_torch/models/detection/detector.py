@@ -1,11 +1,17 @@
 """The DiT + FPN + Faster R-CNN detector (port of the ``faster_rcnn``
-path of ``layoutdit_tpu/models/detection/detector.py``).
+path of ``layoutdit_tpu/models/detection/detector.py``), with its two
+modifiers: the Cascade R-CNN head (``cascade_iou_threshs``: one box head
+and class-agnostic predictor per stage, ``cascade.py``) and the Mask
+R-CNN branch (``with_mask``: ``mask_head.py``).
 
 ``detector_predict(params, images, cfg)``: images [B, 3, S, S] in [0, 1]
--> padded per-image ``Detections`` in S-space; ``rescale_detections``
-maps them back to page coordinates. ``detector_loss(params, images, gt
-..., cfg, priorities)`` -> the four training losses. Cascade, masks and
-the single-stage families are not ported yet.
+-> padded per-image ``Detections`` in S-space, and with
+``with_masks=True`` also each detection's own-class mask probabilities
+[B, D, 2P, 2P]; ``rescale_detections`` maps the boxes back to page
+coordinates. ``detector_loss(params, images, gt ..., cfg, priorities,
+gt_masks)`` -> the four training losses, and ``loss_mask`` for a mask
+model. The single-stage and set-prediction families (RetinaNet, FCOS,
+DETR) wait for ROADMAP queue 1 item 5.
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ from layoutdit_tpu_torch.models.backbone import (
     backbone_forward,
     init_backbone_params,
 )
+from layoutdit_tpu_torch.models.detection import cascade as cascade_mod
+from layoutdit_tpu_torch.models.detection import mask_head as mask_mod
 from layoutdit_tpu_torch.models.detection.anchors import grid_anchors
 from layoutdit_tpu_torch.models.detection.heads import (
     box_head_forward,
@@ -89,10 +97,38 @@ class DetectorConfig:
     compute_dtype: str = "float32"
     remat: bool = False
     remat_policy: str = "full"  # "full" | "dots"; see vit_forward
+    # Cascade R-CNN: per-stage foreground IoU thresholds (empty = one
+    # box head), and per-stage loss weights (empty = the paper's,
+    # cascade.DEFAULT_STAGE_LOSS_WEIGHTS, cut to the stage count)
+    cascade_iou_threshs: tuple[float, ...] = ()
+    cascade_stage_loss_weights: tuple[float, ...] = ()
+    # Mask R-CNN: the branch, its RoI pool size (masks come out at twice
+    # that), and the side M of the [B, G, M, M] gt block (0: image_size // 2)
+    with_mask: bool = False
+    mask_roi_output_size: int = 14
+    mask_gt_size: int = 0
 
     @property
     def num_anchors_per_cell(self) -> int:
         return len(self.anchor_sizes[0]) * len(self.aspect_ratios[0])
+
+    @property
+    def gt_mask_size(self) -> int:
+        return self.mask_gt_size or self.image_size // 2
+
+    @property
+    def cascade_reg_weights(self) -> tuple[tuple[float, float, float, float], ...]:
+        """Per-stage BoxCoder weights: the paper's for the first three
+        stages, the last repeated beyond."""
+        d = cascade_mod.DEFAULT_STAGE_REG_WEIGHTS
+        return tuple(d[min(i, len(d) - 1)] for i in range(len(self.cascade_iou_threshs)))
+
+    @property
+    def cascade_loss_weights(self) -> tuple[float, ...]:
+        if self.cascade_stage_loss_weights:
+            return self.cascade_stage_loss_weights
+        d = cascade_mod.DEFAULT_STAGE_LOSS_WEIGHTS
+        return tuple(d[min(i, len(d) - 1)] for i in range(len(self.cascade_iou_threshs)))
 
     @property
     def grid_sizes(self) -> tuple[tuple[int, int], ...]:
@@ -135,6 +171,8 @@ class DetectorConfig:
             compute_dtype=precision_dtype,
             remat=mc.remat,
             remat_policy=mc.remat_policy,
+            cascade_iou_threshs=tuple(mc.cascade_iou_threshs),
+            with_mask=mc.with_mask,
         )
 
 
@@ -147,17 +185,35 @@ class DetectorModel(NamedTuple):
 
 def init_detector(cfg: DetectorConfig, generator: torch.Generator, device="cuda") -> dict:
     """Random parameters with the JAX package's init distributions,
-    drawn from ``generator`` (which must live on ``device``)."""
+    drawn from ``generator`` (which must live on ``device``). A cascade
+    model has ``cascade_heads/s{i}`` (a box head and a class-agnostic
+    predictor per stage) in place of ``box_head`` and ``box_predictor``;
+    a mask model also has ``mask_head``."""
     c = cfg.backbone.fpn_out_channels
     in_features = c * cfg.roi_output_size ** 2
-    return {
+    params = {
         "backbone": init_backbone_params(cfg.backbone, generator, device),
         "rpn_head": init_rpn_head_params(c, cfg.num_anchors_per_cell, generator, device),
-        "box_head": init_box_head_params(in_features, BOX_HEAD_REP, generator, device),
-        "box_predictor": init_predictor_params(
-            BOX_HEAD_REP, cfg.num_classes + 1, generator, device
-        ),
     }
+    if cfg.cascade_iou_threshs:
+        params["cascade_heads"] = {
+            f"s{i}": {
+                "box_head": init_box_head_params(in_features, BOX_HEAD_REP, generator, device),
+                "box_predictor": init_predictor_params(
+                    BOX_HEAD_REP, cfg.num_classes + 1, generator, device, reg_classes=1
+                ),
+            }
+            for i in range(len(cfg.cascade_iou_threshs))
+        }
+    else:
+        params["box_head"] = init_box_head_params(in_features, BOX_HEAD_REP, generator, device)
+        params["box_predictor"] = init_predictor_params(
+            BOX_HEAD_REP, cfg.num_classes + 1, generator, device
+        )
+    if cfg.with_mask:
+        params["mask_head"] = mask_mod.init_mask_head_params(c, cfg.num_classes + 1, generator,
+                                                             device)
+    return params
 
 
 # kept in float32: LayerNorm applies them in fp32, the position
@@ -198,15 +254,81 @@ def _anchors(cfg: DetectorConfig, device: torch.device) -> tuple[torch.Tensor, t
     return torch.from_numpy(a).to(device), counts
 
 
+def _pool_and_predict(head: dict, feats, rois, roi_valid, cfg: DetectorConfig):
+    """RoIs [B, K, 4] -> (class_logits [B, K, NC+1], box_regression
+    [B, K, R*4]) through one box head (``head``: the model's, or one
+    cascade stage's), pooled at ``roi_output_size`` by RoIAlign."""
+    b, k = rois.shape[:2]
+    pooled = multiscale_roi_align(
+        feats, rois, list(cfg.backbone.spatial_scales),
+        output_size=cfg.roi_output_size,
+        sampling_ratio=cfg.roi_sampling_ratio,
+        canonical_scale=float(cfg.image_size),
+        roi_mask=roi_valid,
+        native_layout=True,
+    )  # [B, K, Px, Py, C]
+    rep = box_head_forward(
+        head["box_head"], pooled.reshape(b * k, *pooled.shape[2:]).to(cfg.dtype)
+    )
+    class_logits, box_regression = predictor_forward(head["box_predictor"], rep)
+    return class_logits.reshape(b, k, -1), box_regression.reshape(b, k, -1)
+
+
+def _base_head(params: dict) -> dict:
+    return {"box_head": params["box_head"], "box_predictor": params["box_predictor"]}
+
+
+def _mask_logits(params: dict, feats, rois, roi_valid, cfg: DetectorConfig) -> torch.Tensor:
+    """RoIs [B, K, 4] -> mask logits [B, K, NC+1, 2P, 2P] (P =
+    ``mask_roi_output_size``): RoIAlign at P, then the mask head, under a
+    ``record_function("mask_head")`` range. The pooled [B, K, Px, Py, C]
+    is copied to [B*K, C, Py, Px] for the convolutions."""
+    with record_function("mask_head"):
+        b, k = rois.shape[:2]
+        pooled = multiscale_roi_align(
+            feats, rois, list(cfg.backbone.spatial_scales),
+            output_size=cfg.mask_roi_output_size,
+            sampling_ratio=cfg.roi_sampling_ratio,
+            canonical_scale=float(cfg.image_size),
+            roi_mask=roi_valid,
+        )  # [B, K, C, Py, Px], a permuted view of the kernel's layout
+        x = pooled.reshape(b * k, *pooled.shape[2:]).to(cfg.dtype).contiguous()
+        logits = mask_mod.mask_head_forward(params["mask_head"], x)
+        return logits.reshape(b, k, *logits.shape[1:])
+
+
+def _cascade_predict(params: dict, feats, props, cfg: DetectorConfig) -> Detections:
+    """Boxes refined through every stage (``roi_heads``); the stages'
+    posteriors averaged, then per-class NMS (``postprocess``)."""
+    size = (cfg.image_size, cfg.image_size)
+    boxes, valid = props.boxes, props.valid
+    per_stage_logits = []
+    with record_function("roi_heads"):
+        for i in range(len(cfg.cascade_iou_threshs)):
+            class_logits, box_reg = _pool_and_predict(
+                params["cascade_heads"][f"s{i}"], feats, boxes, valid, cfg
+            )
+            per_stage_logits.append(class_logits)
+            boxes = cascade_mod.refine_boxes(boxes, box_reg, cfg.cascade_reg_weights[i], size)
+    with record_function("postprocess"):
+        scores = cascade_mod.cascade_mean_scores(per_stage_logits)
+        return cascade_mod.postprocess_cascade(scores, boxes, valid, cfg.budget)
+
+
 def detector_predict(
-    params: dict, images: torch.Tensor, cfg: DetectorConfig
-) -> Detections:
-    """Inference -> padded per-image detections (boxes in S-space).
+    params: dict, images: torch.Tensor, cfg: DetectorConfig, with_masks: bool = False
+):
+    """Inference -> padded per-image detections (boxes in S-space); with
+    ``with_masks`` (a mask model), ``(Detections, mask_probs [B, D, 2P,
+    2P])``: each detection's own-class sigmoid map in box-relative
+    coordinates (``eval/masks.py`` pastes them), 0 for invalid slots.
 
     Its stages run under ``torch.profiler.record_function`` ranges
-    (``backbone``, ``rpn``, ``roi_heads``, ``postprocess``) so a profiler
-    trace splits a request by stage; without a profiler they cost a few
-    microseconds."""
+    (``backbone``, ``rpn``, ``roi_heads``, ``postprocess``, and
+    ``mask_head``) so a profiler trace splits a request by stage; without
+    a profiler they cost a few microseconds."""
+    if with_masks and not cfg.with_mask:
+        raise ValueError("with_masks=True needs a model with the mask branch (with_mask)")
     anchors, counts = _anchors(cfg, images.device)
     size = (cfg.image_size, cfg.image_size)
     with record_function("backbone"):
@@ -219,25 +341,25 @@ def detector_predict(
             params["rpn_head"], feats, cfg.num_anchors_per_cell
         )
         props = filter_proposals(objectness, deltas, anchors, counts, size, cfg.budget)
-    with record_function("roi_heads"):
-        b, k = props.boxes.shape[:2]
-        pooled = multiscale_roi_align(
-            feats, props.boxes, list(cfg.backbone.spatial_scales),
-            output_size=cfg.roi_output_size,
-            sampling_ratio=cfg.roi_sampling_ratio,
-            canonical_scale=float(cfg.image_size),
-            roi_mask=props.valid,
-            native_layout=True,
-        )  # [B, K, Px, Py, C]
-        rep = box_head_forward(
-            params["box_head"], pooled.reshape(b * k, *pooled.shape[2:]).to(cfg.dtype)
-        )
-        class_logits, box_regression = predictor_forward(params["box_predictor"], rep)
-    with record_function("postprocess"):
-        return postprocess_detections(
-            class_logits.reshape(b, k, -1), box_regression.reshape(b, k, -1),
-            props.boxes, props.valid, size, cfg.budget,
-        )
+    if cfg.cascade_iou_threshs:
+        dets = _cascade_predict(params, feats, props, cfg)
+    else:
+        with record_function("roi_heads"):
+            class_logits, box_regression = _pool_and_predict(
+                _base_head(params), feats, props.boxes, props.valid, cfg
+            )
+        with record_function("postprocess"):
+            dets = postprocess_detections(
+                class_logits, box_regression, props.boxes, props.valid, size, cfg.budget,
+            )
+    if not with_masks:
+        return dets
+    logits = _mask_logits(params, feats, dets.boxes, dets.valid, cfg)
+    b, d = logits.shape[:2]
+    probs = mask_mod.mask_probs_for_labels(
+        logits.reshape(b * d, *logits.shape[2:]), dets.labels.reshape(b * d)
+    ).reshape(b, d, *logits.shape[-2:])
+    return dets, torch.where(dets.valid[..., None, None], probs, torch.zeros_like(probs))
 
 
 class SamplerPriorities(NamedTuple):
@@ -271,18 +393,22 @@ def detector_loss(
     gt_valid: torch.Tensor,  # [B, G] bool
     cfg: DetectorConfig,
     priorities: SamplerPriorities,
+    gt_masks: torch.Tensor | None = None,  # [B, G, M, M] {0, 1}, a mask model's
 ) -> dict[str, torch.Tensor]:
-    """Training forward of the ``faster_rcnn`` detector -> the four-loss
-    dict of the JAX package's ``detector_loss`` (and the reference
-    trainer): ``loss_objectness``, ``loss_rpn_box_reg``,
-    ``loss_classifier``, ``loss_box_reg``, fp32 scalars.
+    """Training forward -> the four-loss dict of the JAX package's
+    ``detector_loss`` (and the reference trainer): ``loss_objectness``,
+    ``loss_rpn_box_reg``, ``loss_classifier``, ``loss_box_reg``, fp32
+    scalars; a cascade model sums its stages' losses, weighted, into the
+    last two; a mask model adds ``loss_mask``.
 
     The predictions run under a ``record_function("forward")`` range, with
-    ``"backbone"`` and ``"rpn"`` ranges inside it as in
-    ``detector_predict``, and the two losses under ``"loss"``."""
+    ``"backbone"``, ``"rpn"`` and ``"mask_head"`` ranges inside it as in
+    ``detector_predict``, and the losses under ``"loss"``."""
+    if cfg.with_mask and gt_masks is None:
+        raise ValueError("cfg.with_mask=True requires gt_masks [B, G, M, M] "
+                         "(the data loader's load_masks)")
     anchors, counts = _anchors(cfg, images.device)
     size = (cfg.image_size, cfg.image_size)
-    b = images.shape[0]
     with record_function("forward"):
         with record_function("backbone"):
             x = _normalize(images.float(), cfg).to(cfg.dtype)
@@ -298,32 +424,75 @@ def detector_loss(
             props.boxes, props.valid, gt_boxes, gt_labels, gt_valid, cfg.budget,
             priorities.roi,
         )
-        k = samples.rois.shape[1]
-        pooled = multiscale_roi_align(
-            feats, samples.rois, list(cfg.backbone.spatial_scales),
-            output_size=cfg.roi_output_size,
-            sampling_ratio=cfg.roi_sampling_ratio,
-            canonical_scale=float(cfg.image_size),
-            roi_mask=samples.valid,
-            native_layout=True,
-        )  # [B, K, Px, Py, C]
-        rep = box_head_forward(
-            params["box_head"], pooled.reshape(b * k, *pooled.shape[2:]).to(cfg.dtype)
-        )
-        class_logits, box_regression = predictor_forward(params["box_predictor"], rep)
+        if cfg.cascade_iou_threshs:
+            stages = _cascade_stages(params, feats, samples, gt_boxes, gt_labels, gt_valid, cfg)
+        else:
+            class_logits, box_regression = _pool_and_predict(
+                _base_head(params), feats, samples.rois, samples.valid, cfg
+            )
+        if cfg.with_mask:
+            max_pos = int(cfg.budget.box_batch_size_per_image * cfg.budget.box_positive_fraction)
+            mask_rois = samples.rois[:, :max_pos]
+            mask_labels = samples.labels[:, :max_pos]
+            mask_valid = samples.valid[:, :max_pos] & (mask_labels > 0)
+            mask_logits = _mask_logits(params, feats, mask_rois, mask_valid, cfg)
     with record_function("loss"):
         loss_obj, loss_rpn_box = rpn_loss(
             objectness, deltas, anchors, gt_boxes, gt_valid, cfg.budget, priorities.rpn
         )
-        loss_cls, loss_box = fastrcnn_loss(
-            class_logits.reshape(b, k, -1), box_regression.reshape(b, k, -1), samples
+        if cfg.cascade_iou_threshs:
+            loss_cls = loss_box = 0.0
+            for lw, (class_logits, box_reg, targets) in zip(cfg.cascade_loss_weights, stages):
+                lc, lb = cascade_mod.cascade_stage_loss(class_logits, box_reg, targets.labels,
+                                                        targets.reg_targets, samples.valid)
+                loss_cls = loss_cls + lw * lc
+                loss_box = loss_box + lw * lb
+        else:
+            loss_cls, loss_box = fastrcnn_loss(class_logits, box_regression, samples)
+        losses = {
+            "loss_objectness": loss_obj,
+            "loss_rpn_box_reg": loss_rpn_box,
+            "loss_classifier": loss_cls,
+            "loss_box_reg": loss_box,
+        }
+        if cfg.with_mask:
+            out = 2 * cfg.mask_roi_output_size
+            targets = mask_mod.project_masks_on_boxes(
+                gt_masks, mask_rois, samples.matched_gt[:, :max_pos], cfg.image_size, out
+            )
+            b, k = mask_rois.shape[:2]
+            losses["loss_mask"] = mask_mod.maskrcnn_loss(
+                mask_logits.reshape(b * k, *mask_logits.shape[2:]), mask_labels.reshape(b * k),
+                targets.reshape(b * k, out, out), mask_valid.reshape(b * k),
+            )
+    return losses
+
+
+def _cascade_stages(params, feats, samples, gt_boxes, gt_labels, gt_valid,
+                    cfg: DetectorConfig) -> list:
+    """Each cascade stage's (class_logits, box_regression, its targets)
+    in training: stage 0 on the samples (relabelled only when its
+    BoxCoder weights are not the budget's), each later stage on the
+    previous stage's refined boxes, detached (the paper's section 3.4),
+    relabelled at its own threshold."""
+    size = (cfg.image_size, cfg.image_size)
+    boxes, valid = samples.rois, samples.valid
+    n = len(cfg.cascade_iou_threshs)
+    out = []
+    for i, thresh in enumerate(cfg.cascade_iou_threshs):
+        w_reg = cfg.cascade_reg_weights[i]
+        if i == 0 and tuple(cfg.budget.box_reg_weights) == tuple(w_reg):
+            targets = cascade_mod.StageTargets(samples.labels, samples.reg_targets)
+        else:
+            targets = cascade_mod.match_boxes_to_gt(boxes, valid, gt_boxes, gt_labels,
+                                                    gt_valid, thresh, w_reg)
+        class_logits, box_reg = _pool_and_predict(
+            params["cascade_heads"][f"s{i}"], feats, boxes, valid, cfg
         )
-    return {
-        "loss_objectness": loss_obj,
-        "loss_rpn_box_reg": loss_rpn_box,
-        "loss_classifier": loss_cls,
-        "loss_box_reg": loss_box,
-    }
+        out.append((class_logits, box_reg, targets))
+        if i + 1 < n:
+            boxes = cascade_mod.refine_boxes(boxes, box_reg.detach(), w_reg, size)
+    return out
 
 
 def rescale_detections(

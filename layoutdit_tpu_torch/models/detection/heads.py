@@ -86,10 +86,15 @@ def box_head_forward(params: dict, pooled: torch.Tensor) -> torch.Tensor:
     return F.relu(linear(x, params["fc7"]))
 
 
-def init_predictor_params(rep_size: int, num_classes_bg: int, generator, device) -> dict:
+def init_predictor_params(rep_size: int, num_classes_bg: int, generator, device,
+                          reg_classes: int | None = None) -> dict:
+    """FastRCNNPredictor params; ``reg_classes`` regression branches (the
+    default, ``num_classes_bg``, is per class; a cascade stage passes 1,
+    class-agnostic)."""
+    reg = num_classes_bg if reg_classes is None else reg_classes
     return {
         "cls": _torch_linear(rep_size, num_classes_bg, generator, device),
-        "bbox": _torch_linear(rep_size, num_classes_bg * 4, generator, device),
+        "bbox": _torch_linear(rep_size, reg * 4, generator, device),
     }
 
 

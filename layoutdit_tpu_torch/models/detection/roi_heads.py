@@ -28,6 +28,9 @@ class TrainingSamples(NamedTuple):
     valid: torch.Tensor  # [B, S] bool
     labels: torch.Tensor  # [B, S] int (0 = background)
     reg_targets: torch.Tensor  # [B, S, 4]
+    # the matched gt row of each slot (0 where it is not positive); the
+    # mask branch projects that gt's mask
+    matched_gt: torch.Tensor | None = None  # [B, S] int
 
 
 def select_training_samples(
@@ -42,7 +45,9 @@ def select_training_samples(
     """torchvision RoIHeads.select_training_samples: gt appended to the
     proposals, Matcher(0.5, 0.5) without low-quality matches,
     ``box_batch_size_per_image`` slots of which at most
-    ``box_positive_fraction`` positive, picked by random-priority top-k."""
+    ``box_positive_fraction`` positive, picked by random-priority top-k.
+    The positives fill the first slots, so the first ``max_pos`` slots
+    hold every positive (the mask branch reads only those)."""
     s = budget.box_batch_size_per_image
     max_pos = int(s * budget.box_positive_fraction)
 
@@ -77,7 +82,8 @@ def select_training_samples(
     gt_m = torch.gather(gt_boxes, 1, m[..., None].expand(-1, -1, 4))
     reg_targets = encode_boxes(gt_m, rois, budget.box_reg_weights)
     reg_targets = torch.where(take_pos[..., None], reg_targets, torch.zeros_like(reg_targets))
-    return TrainingSamples(rois=rois, valid=valid, labels=labels, reg_targets=reg_targets)
+    return TrainingSamples(rois=rois, valid=valid, labels=labels, reg_targets=reg_targets,
+                           matched_gt=torch.where(take_pos, m, 0))
 
 
 def fastrcnn_loss(

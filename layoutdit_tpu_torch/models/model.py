@@ -80,15 +80,16 @@ class LayoutDetectionModel:
     # ------------------------------------------------------------ compute
 
     def loss(self, images, gt_boxes, gt_labels, gt_valid,
-             priorities: SamplerPriorities) -> dict[str, torch.Tensor]:
-        """The four training losses (``detector_loss``)."""
+             priorities: SamplerPriorities, gt_masks=None) -> dict[str, torch.Tensor]:
+        """The training losses (``detector_loss``)."""
         return detector_loss(self.params, images, gt_boxes, gt_labels, gt_valid, self.cfg,
-                             priorities)
+                             priorities, gt_masks=gt_masks)
 
-    def predict(self, images: torch.Tensor):
-        """Padded per-image detections in model space (``detector_predict``)."""
+    def predict(self, images: torch.Tensor, with_masks: bool = False):
+        """Padded per-image detections in model space, and a mask model's
+        mask probabilities with ``with_masks`` (``detector_predict``)."""
         with torch.no_grad():
-            return detector_predict(self.params, images, self.cfg)
+            return detector_predict(self.params, images, self.cfg, with_masks=with_masks)
 
     # --------------------------------------------------------- checkpoint
 

@@ -12,7 +12,17 @@ by leaf:
   * separate q / k / v projections become one fused ``qkv`` with a zero
     K bias (BEiT's K has none);
   * fc6 is 4D [Px, Py, C, rep] (RoIAlign's native layout) and becomes
-    [rep, Px*Py*C] in the same (px, py, c) order.
+    [rep, Px*Py*C] in the same (px, py, c) order;
+  * a cascade model's ``cascade_heads/s{i}`` (a box head and a
+    class-agnostic predictor, ``bbox`` [rep, 4] in JAX) map as the box
+    head does;
+  * the mask head's convs (``fcn1-4``, ``logits``) are OIHW and pass
+    through; its transposed conv's JAX kernel [out, in, 2, 2] (OIHW, as
+    JAX's ``conv_transpose`` takes it) becomes torch's ``ConvTranspose2d``
+    weight [in, out, 2, 2] by transposing dims (0, 1) AND flipping both
+    spatial dims: with stride 2, JAX computes out[2i + a] = x[i] W[1 - a]
+    where torch computes x[i] W[a]. The transpose alone is not JAX's
+    function (``tests/test_torch_mask.py``).
 """
 
 from __future__ import annotations
@@ -117,14 +127,40 @@ def vit_params_from_jax(vit: Mapping, device="cpu") -> dict:
     return out
 
 
-def params_from_jax(tree: Mapping, device="cpu") -> dict:
-    """JAX ``init_detector_params`` tree (numpy leaves) -> port params."""
-    fpn = tree["backbone"]["fpn"]
-    fc6 = np.asarray(tree["box_head"]["fc6"]["kernel"])
+def _box_head_from_jax(head: Mapping, device) -> dict:
+    fc6 = np.asarray(head["fc6"]["kernel"])
     if fc6.ndim != 4:
         raise ValueError("params_from_jax expects fc6 in the 4D native layout")
     rep = fc6.shape[-1]
     return {
+        "fc6": {"weight": _t(fc6.reshape(-1, rep).T, device), "bias": _t(head["fc6"]["bias"], device)},
+        "fc7": _linear(head["fc7"], device),
+    }
+
+
+def _predictor_from_jax(pred: Mapping, device) -> dict:
+    return {n: _linear(pred[n], device) for n in ("cls", "bbox")}
+
+
+def _fcn_names(head: Mapping) -> list[str]:
+    """The mask head's conv names in the order ``init_mask_head_params``
+    makes them (a restored tree may hold its keys sorted)."""
+    return [f"fcn{i}" for i in range(1, sum(k.startswith("fcn") for k in head) + 1)]
+
+
+def _mask_head_from_jax(head: Mapping, device) -> dict:
+    out = {k: _conv(head[k], device) for k in _fcn_names(head)}
+    kernel = np.asarray(head["deconv"]["kernel"])  # [out, in, kH, kW]
+    out["deconv"] = {"weight": _t(kernel.transpose(1, 0, 2, 3)[:, :, ::-1, ::-1], device),
+                     "bias": _t(head["deconv"]["bias"], device)}
+    out["logits"] = _conv(head["logits"], device)
+    return out
+
+
+def params_from_jax(tree: Mapping, device="cpu") -> dict:
+    """JAX ``init_detector_params`` tree (numpy leaves) -> port params."""
+    fpn = tree["backbone"]["fpn"]
+    out = {
         "backbone": {
             "vit": vit_params_from_jax(tree["backbone"]["vit"], device),
             "fpn": {
@@ -133,17 +169,19 @@ def params_from_jax(tree: Mapping, device="cpu") -> dict:
             },
         },
         "rpn_head": {n: _conv(tree["rpn_head"][n], device) for n in ("conv", "cls", "bbox")},
-        "box_head": {
-            "fc6": {
-                "weight": _t(fc6.reshape(-1, rep).T, device),
-                "bias": _t(tree["box_head"]["fc6"]["bias"], device),
-            },
-            "fc7": _linear(tree["box_head"]["fc7"], device),
-        },
-        "box_predictor": {
-            n: _linear(tree["box_predictor"][n], device) for n in ("cls", "bbox")
-        },
     }
+    if "cascade_heads" in tree:
+        out["cascade_heads"] = {
+            name: {"box_head": _box_head_from_jax(st["box_head"], device),
+                   "box_predictor": _predictor_from_jax(st["box_predictor"], device)}
+            for name, st in sorted(tree["cascade_heads"].items(), key=lambda kv: int(kv[0][1:]))
+        }
+    else:
+        out["box_head"] = _box_head_from_jax(tree["box_head"], device)
+        out["box_predictor"] = _predictor_from_jax(tree["box_predictor"], device)
+    if "mask_head" in tree:
+        out["mask_head"] = _mask_head_from_jax(tree["mask_head"], device)
+    return out
 
 
 def k_bias_slots(params: dict) -> list[tuple[torch.Tensor, slice]]:
@@ -201,17 +239,33 @@ def vit_params_to_jax(vit: dict) -> dict:
     return out
 
 
+def _box_head_to_jax(head: dict, c: int) -> dict:
+    fc6 = head["fc6"]
+    p = int(round((fc6["weight"].shape[1] // c) ** 0.5))
+    return {
+        "fc6": {"kernel": _np(fc6["weight"]).T.reshape(p, p, c, -1), "bias": _np(fc6["bias"])},
+        "fc7": _linear_to_jax(head["fc7"]),
+    }
+
+
+def _mask_head_to_jax(head: dict) -> dict:
+    out = {k: _conv_to_jax(head[k]) for k in _fcn_names(head)}
+    w = _np(head["deconv"]["weight"])  # [in, out, kH, kW]
+    out["deconv"] = {"kernel": np.ascontiguousarray(w[:, :, ::-1, ::-1].transpose(1, 0, 2, 3)),
+                     "bias": _np(head["deconv"]["bias"])}
+    out["logits"] = _conv_to_jax(head["logits"])
+    return out
+
+
 def params_to_jax(params: dict) -> dict:
     """Port params (or a tree of their gradients, same layout) -> the
     JAX ``init_detector_params`` layout with numpy leaves: the inverse of
     ``params_from_jax``. The fused qkv's K-bias slot has no JAX
-    counterpart and is dropped; fc6 goes back to [Px, Py, C, rep]."""
+    counterpart and is dropped; fc6 goes back to [Px, Py, C, rep], the
+    transposed conv's weight back to JAX's flipped OIHW."""
     fpn = params["backbone"]["fpn"]
-    fc6 = params["box_head"]["fc6"]
     c = fpn["layer"][0]["weight"].shape[0]
-    in_features = fc6["weight"].shape[1]
-    p = int(round((in_features // c) ** 0.5))
-    return {
+    out = {
         "backbone": {
             "vit": vit_params_to_jax(params["backbone"]["vit"]),
             "fpn": {
@@ -220,17 +274,21 @@ def params_to_jax(params: dict) -> dict:
             },
         },
         "rpn_head": {n: _conv_to_jax(params["rpn_head"][n]) for n in ("conv", "cls", "bbox")},
-        "box_head": {
-            "fc6": {
-                "kernel": _np(fc6["weight"]).T.reshape(p, p, c, -1),
-                "bias": _np(fc6["bias"]),
-            },
-            "fc7": _linear_to_jax(params["box_head"]["fc7"]),
-        },
-        "box_predictor": {
-            n: _linear_to_jax(params["box_predictor"][n]) for n in ("cls", "bbox")
-        },
     }
+    if "cascade_heads" in params:
+        out["cascade_heads"] = {
+            name: {"box_head": _box_head_to_jax(st["box_head"], c),
+                   "box_predictor": {n: _linear_to_jax(st["box_predictor"][n])
+                                     for n in ("cls", "bbox")}}
+            for name, st in params["cascade_heads"].items()
+        }
+    else:
+        out["box_head"] = _box_head_to_jax(params["box_head"], c)
+        out["box_predictor"] = {n: _linear_to_jax(params["box_predictor"][n])
+                                for n in ("cls", "bbox")}
+    if "mask_head" in params:
+        out["mask_head"] = _mask_head_to_jax(params["mask_head"])
+    return out
 
 
 # ------------------------------------------------ optimizer state and EMA

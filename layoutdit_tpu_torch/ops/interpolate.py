@@ -7,8 +7,8 @@ pyramid, whose resize is differentiated: there ``resize_bilinear_matmul``
 takes the JAX package's two-matmul form, because the backward of
 ``F.interpolate``'s bilinear mode sums with atomics on a GPU and gives
 other bits on every run, where a matmul's backward repeats. The JAX
-package's numpy ``resize_bilinear_np`` (host-side page decode) has no
-counterpart: the port's serving engine resizes pages on the device with
+package's numpy ``resize_bilinear_np`` serves the host-side mask paste
+(``eval/masks.py``); pages are resized on the device with
 ``resize_bilinear``.
 """
 
@@ -52,6 +52,16 @@ def interp_matrix(in_size: int, out_size: int) -> np.ndarray:
     np.add.at(m, (np.arange(out_size), lo), 1.0 - t)
     np.add.at(m, (np.arange(out_size), hi), t)
     return m.astype(np.float32)
+
+
+def resize_bilinear_np(x: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """Host-side (numpy) resize of [..., H, W], the JAX package's two
+    einsums over ``interp_matrix``."""
+    in_h, in_w = x.shape[-2], x.shape[-1]
+    if (in_h, in_w) == (out_h, out_w):
+        return x
+    y = np.einsum("oh,...hw->...ow", interp_matrix(in_h, out_h), x.astype(np.float32))
+    return np.einsum("...ow,pw->...op", y, interp_matrix(in_w, out_w))
 
 
 def resize_bilinear_matmul(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:

@@ -17,8 +17,16 @@ detector fine-tuned for 48 epochs on 128 synthetic pages and scored on
 The compute dtype is the caller's: ``float32`` as the JAX test runs it,
 ``bfloat16`` on the card, whose kernels take bf16 only.
 
+``--family`` picks the detector as ``scripts/convergence_matrix.py``
+does: ``faster_rcnn`` (the flagship), ``cascade`` (three stages at IoU
+0.5 / 0.6 / 0.7) or ``mask`` (the Mask R-CNN branch, which adds the segm
+metrics). JAX pins no floors for the two modifiers; they are held to the
+flagship's held-out mAP and AP50 floors (the mask family also on its
+segm mAP and AP50), and report the rest.
+
 Usage: python -m layoutdit_tpu_torch.tools.convergence [--device cuda|cpu]
            [--dtype bfloat16|float32] [--eval-interval 16] [--out DIR]
+           [--family faster_rcnn|cascade|mask]
 """
 
 from __future__ import annotations
@@ -40,12 +48,20 @@ FLOOR_AP50 = 0.70
 FLOOR_CLASS_AP50 = 0.3
 FLOOR_CLASSES = ("text", "title", "list", "figure")
 LOSS_RATIO = 0.4
+# scripts/convergence_matrix.py's overrides of the two faster_rcnn modifiers
+FAMILY_KNOBS = {
+    "faster_rcnn": {},
+    "cascade": {"cascade_iou_threshs": [0.5, 0.6, 0.7]},
+    "mask": {"with_mask": True},
+}
 
 
-def recipe_config(root: str, compute_dtype: str, eval_interval: int = 0, seed: int = 0):
+def recipe_config(root: str, compute_dtype: str, eval_interval: int = 0, seed: int = 0,
+                  family: str = "faster_rcnn"):
     """Write the recipe's pages and config under ``root`` -> its ``RunConfig``
     (``seed`` is ``train.seed``: the weights' and the samplers' seed; the
-    pages stay those of seeds 0 and 777)."""
+    pages stay those of seeds 0 and 777; ``family`` a key of
+    ``FAMILY_KNOBS``)."""
     from layoutdit_tpu_torch.config import load_run_config
     from layoutdit_tpu_torch.tools.make_fixture import make_fixture, write_fixture_config
 
@@ -62,13 +78,14 @@ def recipe_config(root: str, compute_dtype: str, eval_interval: int = 0, seed: i
                                learning_rate=2e-4, warmup_steps=48,
                                eval_interval=eval_interval, seed=seed)
     raw["precision"] = {"compute_dtype": compute_dtype}
+    raw["detection_model_config"].update(FAMILY_KNOBS[family])
     with open(path, "w") as f:
         json.dump(raw, f, indent=2)
     return load_run_config(path)
 
 
 def run_recipe(root: str, compute_dtype: str, device: str = "cuda",
-               eval_interval: int = 0, seed: int = 0) -> dict:
+               eval_interval: int = 0, seed: int = 0, family: str = "faster_rcnn") -> dict:
     """Train and score the recipe under ``root`` -> the loss curve, the
     mid-training mAPs, the held-out metrics, wall times and steps/s."""
     import torch
@@ -77,7 +94,7 @@ def run_recipe(root: str, compute_dtype: str, device: str = "cuda",
     from layoutdit_tpu_torch.models.model import build_model
     from layoutdit_tpu_torch.train.trainer import Trainer
 
-    rc = recipe_config(root, compute_dtype, eval_interval, seed)
+    rc = recipe_config(root, compute_dtype, eval_interval, seed, family)
     model = build_model(rc, seed=rc.train.seed, device=device)
     trainer = Trainer(rc, model, device=device)
     t0 = time.perf_counter()
@@ -89,7 +106,7 @@ def run_recipe(root: str, compute_dtype: str, device: str = "cuda",
     metrics = Evaluator(model, rc, device=device).score()
     score_s = time.perf_counter() - t0
     return {
-        "compute_dtype": compute_dtype, "epochs": trainer.epoch, "steps": trainer.updates,
+        "family": family, "compute_dtype": compute_dtype, "epochs": trainer.epoch, "steps": trainer.updates,
         "loss": trainer.loss_history,
         "mAP_at_epoch": {r["epoch"]: r["mAP"] for r in trainer.metrics_history if "mAP" in r},
         "metrics": metrics, "train_s": train_s, "score_s": score_s,
@@ -98,12 +115,15 @@ def run_recipe(root: str, compute_dtype: str, device: str = "cuda",
 
 
 def floor_failures(result: dict) -> list[str]:
-    """The floors ``result`` misses (empty when it meets them all)."""
+    """The floors ``result`` misses (empty when it meets them all): the
+    flagship's all of them; a modifier family's the held-out mAP and AP50
+    (and for ``mask`` the segm mAP and AP50), with finite losses."""
     losses, m = result["loss"], result["metrics"]
+    family = result.get("family", "faster_rcnn")
     out = []
     if len(losses) != EPOCHS or not np.isfinite(losses).all():
         out.append(f"expected {EPOCHS} finite epoch losses, got {losses}")
-    elif not np.mean(losses[-4:]) < LOSS_RATIO * np.mean(losses[:4]):
+    elif family == "faster_rcnn" and not np.mean(losses[-4:]) < LOSS_RATIO * np.mean(losses[:4]):
         out.append(f"last-4 loss {np.mean(losses[-4:]):.4f} not under {LOSS_RATIO} x first-4 "
                    f"{np.mean(losses[:4]):.4f}")
     if m is None:
@@ -112,6 +132,12 @@ def floor_failures(result: dict) -> list[str]:
         out.append(f"mAP {m['mAP']:.4f} < {FLOOR_MAP}")
     if not m["AP50"] >= FLOOR_AP50:
         out.append(f"AP50 {m['AP50']:.4f} < {FLOOR_AP50}")
+    if family == "mask":
+        for key, floor in (("segm_mAP", FLOOR_MAP), ("segm_AP50", FLOOR_AP50)):
+            if not m.get(key, float("nan")) >= floor:
+                out.append(f"{key} {m.get(key)} < {floor}")
+    if family != "faster_rcnn":
+        return out
     out += [f"AP50-{c} {m[f'AP50-{c}']:.4f} < {FLOOR_CLASS_AP50}" for c in FLOOR_CLASSES
             if not m[f"AP50-{c}"] >= FLOOR_CLASS_AP50]
     return out
@@ -123,11 +149,13 @@ def main() -> None:
     ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     ap.add_argument("--eval-interval", type=int, default=16)
     ap.add_argument("--out", default=None, help="keep the run's files here (default: a temp dir)")
+    ap.add_argument("--family", default="faster_rcnn", choices=sorted(FAMILY_KNOBS))
     args = ap.parse_args()
     with tempfile.TemporaryDirectory() as tmp:
         root = args.out or tmp
         os.makedirs(root, exist_ok=True)
-        result = run_recipe(root, args.dtype, args.device, args.eval_interval)
+        result = run_recipe(root, args.dtype, args.device, args.eval_interval,
+                            family=args.family)
     failures = floor_failures(result)
     print(json.dumps({**result, "floor_failures": failures}))
     if failures:

@@ -5,8 +5,9 @@ Loads a checkpoint into the config's model (``LAYOUTDIT_CONFIG``, as
 ``main``), routes the pages through the bucketed ``BatchInferenceEngine``
 (``eval/serving.py``: native JPEG decode, padded static batches per
 bucket) and writes one JSON record per page, the HTTP server's
-``/predict`` payload with the page's file name, plus optional box-overlay
-JPEGs.
+``/predict`` payload with the page's file name (a mask model's with its
+``masks``), plus optional overlay JPEGs (boxes, and a mask model's masks
+in red at 40%).
 
     LAYOUTDIT_CONFIG=cfg.json python -m layoutdit_tpu_torch.tools.predict \\
         --checkpoint runs/x/model_checkpoints/best.pt --input 'pages/*.jpg' \\
@@ -28,6 +29,8 @@ import glob
 import io
 import json
 import os
+
+import numpy as np
 
 from layoutdit_tpu_torch.log import get_logger
 
@@ -89,6 +92,18 @@ def _visualize(src, dets, out_path: str, names: dict) -> None:
         src = io.BytesIO(src)
     with Image.open(src) as im:
         im = im.convert("RGB")
+        if dets.masks is not None:
+            # instance masks: red at 40% over each detection's window
+            arr = np.asarray(im).copy()
+            for x0, y0, bm in dets.masks:
+                h, w = bm.shape
+                y1, x1 = min(y0 + h, arr.shape[0]), min(x0 + w, arr.shape[1])
+                if y1 <= y0 or x1 <= x0:
+                    continue
+                win = arr[y0:y1, x0:x1]
+                sel = bm[: y1 - y0, : x1 - x0].astype(bool)
+                win[sel] = (0.6 * win[sel] + 0.4 * np.array([255.0, 0.0, 0.0])).astype(np.uint8)
+            im = Image.fromarray(arr)
         draw = ImageDraw.Draw(im)
         for box, score, label in zip(dets.boxes, dets.scores, dets.labels):
             x1, y1, x2, y2 = [float(v) for v in box]

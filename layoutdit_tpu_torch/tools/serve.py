@@ -14,8 +14,10 @@ Endpoints:
   POST /predict   -> body = image bytes (JPEG/PNG) ->
                      {"boxes": [[x1,y1,x2,y2]..], "scores": [..],
                       "labels": [..], "label_names": [..]}
-                     (boxes in page coordinates); 422 for a page that
-                     does not decode
+                     (boxes in page coordinates; a mask model adds
+                     "masks", each a COCO uncompressed RLE over the
+                     detection's window with its "offset" [x0, y0]);
+                     422 for a page that does not decode
 
 Usage:
   LAYOUTDIT_CONFIG=cfg.json python -m layoutdit_tpu_torch.tools.serve \\
@@ -26,8 +28,7 @@ Usage:
 SIGTERM stops accepting, lets the requests in flight finish and drains
 the batcher. ``--int8`` waits for ``ops/quant.py`` (ROADMAP queue 1 item
 6); ``--data-parallel`` and ``--model-parallel`` wait for multi-card
-serving (queue 1 item 7): the port serves on one card. Both raise. Mask
-payloads wait for the mask head (queue 1 item 5).
+serving (queue 1 item 7): the port serves on one card. Both raise.
 """
 
 from __future__ import annotations
@@ -211,14 +212,21 @@ class ServerMetrics:
 
 def detections_to_json(dets, names: dict) -> dict:
     """One page's detections as the /predict payload (and the predict
-    tool's record). The JAX server's ``masks`` key waits for the mask head
-    (ROADMAP queue 1 item 5)."""
-    return {
+    tool's record); a mask model's add ``masks``, each COCO uncompressed
+    RLE over the detection's local window, ``{"offset": [x0, y0],
+    "size": [h, w], "counts": [...]}``."""
+    out = {
         "boxes": [[round(float(v), 2) for v in b] for b in dets.boxes],
         "scores": [round(float(s), 4) for s in dets.scores],
         "labels": [int(lb) for lb in dets.labels],
         "label_names": [names.get(int(lb), str(int(lb))) for lb in dets.labels],
     }
+    if getattr(dets, "masks", None) is not None:
+        from layoutdit_tpu_torch.eval.masks import encode_rle
+
+        out["masks"] = [{"offset": [int(x0), int(y0)], **encode_rle((0, 0, bm), *bm.shape)}
+                        for x0, y0, bm in dets.masks]
+    return out
 
 
 def make_handler(batcher: DynamicBatcher, names: dict, info: dict,

@@ -1,5 +1,7 @@
-"""Trainer for the ``faster_rcnn`` detector (port of
-``layoutdit_tpu/train/trainer.py``, single card).
+"""Trainer for the ``faster_rcnn`` detector, with its cascade and mask
+modifiers (port of ``layoutdit_tpu/train/trainer.py``, single card). A
+mask model's loader rasterises the gt masks (``gt_masks``), which reach
+each step; over tar shards it raises, as JAX's.
 
 The JAX trainer's recipe and run state:
   * optax's AdamW chain (``train/optim.py``): the configured
@@ -206,10 +208,14 @@ class Trainer:
     def _build_dataloader(self) -> None:
         images_root, ann_json = self.config.train_split()
         dl = self.config.data
+        with_mask = self.cfg.with_mask
         if dl.image_shards_dir:
+            if with_mask:  # as JAX's trainer
+                raise ValueError("with_mask training is not wired to tar-shard datasets yet; "
+                                 "use the plain images_root/annotations layout")
             dataset = make_sharded_dataset(dl.image_shards_dir, ann_json)
         else:
-            dataset = PubLayNetDataset(images_root, ann_json)
+            dataset = PubLayNetDataset(images_root, ann_json, with_segmentation=with_mask)
         self.dataloader = DetectionLoader(
             dataset,
             batch_size=dl.batch_size,
@@ -223,14 +229,17 @@ class Trainer:
             augment_hflip=dl.augment_hflip,
             stack_batches=self.steps_per_dispatch,
             device=self.device,
+            load_masks=with_mask,
+            mask_size=self.cfg.gt_mask_size,
         )
 
     # ------------------------------------------------------------ step
 
     def train_step(self, batch: DetectionBatch) -> tuple[torch.Tensor, dict]:
-        """One update on ``batch`` -> (total loss, the four losses), device
-        scalars (no host sync). With A micro-batches, each draws its own
-        sampler priorities and the losses are their means."""
+        """One update on ``batch`` -> (total loss, the four losses, and
+        ``loss_mask`` for a mask model), device scalars (no host sync).
+        With A micro-batches, each draws its own sampler priorities and
+        the losses are their means."""
         micro = self.config.data.batch_size // self.accum
         parts = []
         for a in range(self.accum):
@@ -240,6 +249,7 @@ class Trainer:
             losses = detector_loss(
                 self.model.params, batch.images[rows], batch.gt_boxes[rows], gt_labels,
                 batch.gt_valid[rows], self.cfg, priorities,
+                gt_masks=None if batch.gt_masks is None else batch.gt_masks[rows],
             )
             loss = sum(losses.values())
             with record_function("backward"):
@@ -276,7 +286,9 @@ class Trainer:
         return [self.train_step(DetectionBatch(
             images=batch.images[s], gt_boxes=batch.gt_boxes[s], gt_labels=batch.gt_labels[s],
             gt_valid=batch.gt_valid[s], image_ids=batch.image_ids, orig_sizes=batch.orig_sizes,
-            image_valid=batch.image_valid))[0] for s in range(steps)]
+            image_valid=batch.image_valid,
+            gt_masks=None if batch.gt_masks is None else batch.gt_masks[s]))[0]
+            for s in range(steps)]
 
     # ------------------------------------------------------------ loops
 

@@ -98,10 +98,11 @@ def test_coco_evaluator_matches_jax(seed, no_predictions):
 
 
 def test_coco_evaluator_refuses_segm():
+    """segm is ported (mask IoU, tests/test_torch_mask.py); any other
+    iou_type is refused, as JAX's."""
     coco, _ = _random_coco(np.random.default_rng(0))
-    with pytest.raises(ValueError, match="mask head"):
-        CocoEvaluator(coco, iou_type="segm")
-    with pytest.raises(ValueError, match="bbox"):
+    assert CocoEvaluator(coco, iou_type="segm").iou_type == "segm"
+    with pytest.raises(ValueError, match="bbox or segm"):
         CocoEvaluator(coco, iou_type="keypoints")
 
 

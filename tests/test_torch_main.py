@@ -393,7 +393,7 @@ def test_eval_config_fields_load_with_jax_defaults():
 
 
 @pytest.mark.parametrize("section,key,value,match", [
-    ("eval_config", "segm_metrics", False, "mask head"),
+    ("detection_model_config", "detector", "retinanet", "queue 1 item 5"),
     ("eval_config", "device", "cpu", "CUDA card"),
     ("detection_model_config", "previous_layout_dit_checkpoint", "dit.pth", "queue 1 item 6"),
     ("train_config", "lora_freeze_base", False, "LoRA training"),

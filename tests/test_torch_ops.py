@@ -199,8 +199,11 @@ def test_load_serving_config(tmp_path):
     assert dl.batch_size == jax_cfg.data_loader_config.batch_size == 4
 
     bad = tmp_path / "bad.json"
+    # the mask and cascade modifiers are ported; the other families wait
     bad.write_text(json.dumps({"detection_model_config": {"with_mask": True}}))
-    with pytest.raises(ValueError, match="with_mask"):
+    assert port_config.load_config(str(bad))[0].with_mask
+    bad.write_text(json.dumps({"detection_model_config": {"detector": "fcos"}}))
+    with pytest.raises(ValueError, match="detector.*queue 1 item 5"):
         port_config.load_config(str(bad))
     # windows are ported: the field loads
     bad.write_text(json.dumps({"detection_model_config": {"window_size": 16}}))
