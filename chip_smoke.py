@@ -77,7 +77,15 @@ and on refined cascade boxes with zero-size ones, then serves and trains
 Cascade R-CNN (``configs/cascade_dp.json``, dit-large) and Mask R-CNN
 (``configs/mask_rcnn.json``, dit-base, masks pasted into the pages),
 scores the mask model with the segm metrics, and runs both families'
-convergence recipes in bf16 at the flagship's floors. It
+convergence recipes in bf16 at the flagship's floors. Then phase
+``one_stage`` (``--only one_stage`` alone, after the build) serves
+RetinaNet (``configs/retinanet.json``) and FCOS (``configs/fcos.json``),
+dit-base, in the 224 and 1024 px buckets, each request at the config's
+score threshold and at 0 (every candidate into the NMS), profiles a
+request per bucket by stage (``backbone``, ``head``, ``postprocess``),
+trains each, scores 64 pages, exports the 224 px bucket and holds the
+artifact's detections to the live ones, and runs both recipes in bf16 to
+JAX's floors of the two families, with no RoIAlign launch anywhere. It
 checks that every kernel ran on its path, the right number of times a
 train step, and the probes' kernels on none but theirs. One profiled request
 per serving bucket and one profiled 224 px train step print the
@@ -1027,13 +1035,13 @@ def _reset_counts() -> None:
     nms.nms_mask.host_syncs = 0
 
 
-def _check_pages(pages, results) -> int:
+def _check_pages(pages, results, allow_empty: bool = False) -> int:
     if len(results) != len(pages):
         raise RuntimeError("serving: one result per page expected")
     n_dets = 0
     for page, r in zip(pages, results):
         h, w = page.shape[:2]
-        if len(r.boxes) == 0:
+        if len(r.boxes) == 0 and not allow_empty:
             raise RuntimeError(f"serving: no detections on a {h}x{w} page")
         ok = (
             np.isfinite(r.boxes).all() and np.isfinite(r.scores).all()
@@ -3288,13 +3296,15 @@ def _family_cfg(path: Path, batch: int):
 
 
 def _family_launches(family: str, cfg, batches: int, train: bool) -> dict:
-    """Launches of ``batches`` serving batches or train steps: an attention
-    kernel a layer (and its backward in training), FAMILY_ROI RoIAligns."""
+    """Launches of ``batches`` serving batches or train steps at 224 px: a
+    short-attention kernel a layer (and its backward in training),
+    FAMILY_ROI RoIAligns (none for a single-stage family)."""
     n = cfg.backbone.vit.num_hidden_layers
+    roi = FAMILY_ROI.get(family, 0)
     out = {name: 0 for name in _counters()}
-    out.update(short_attention=n * batches, roi_align=FAMILY_ROI[family] * batches)
+    out.update(short_attention=n * batches, roi_align=roi * batches)
     if train:
-        out.update(short_attention_bwd=n * batches, roi_align_bwd=FAMILY_ROI[family] * batches)
+        out.update(short_attention_bwd=n * batches, roi_align_bwd=roi * batches)
     return out
 
 
@@ -3375,7 +3385,8 @@ def _family_serving(family: str, path: Path, kernels: list[dict]) -> dict:
     return out, model
 
 
-def _family_train(family: str, path: Path, model, kernels: list[dict]) -> dict:
+def _family_train(family: str, path: Path, model, kernels: list[dict],
+                  path_key: str = "families") -> dict:
     """One epoch of ``Trainer.train()`` over 4 x 16 fixture pages (the
     launches of the path), then TRAIN_REPEATS steps on one repeated batch:
     losses finite and falling, median of the last 18 step times with min
@@ -3399,7 +3410,7 @@ def _family_train(family: str, path: Path, model, kernels: list[dict]) -> dict:
         _check_launches(f"{family} train", counts,
                         _family_launches(family, cfg, steps, train=True), 1)
         for k in kernels:
-            k["families_launches"] = k.get("families_launches", 0) + counts[k["name"]]
+            k[f"{path_key}_launches"] = k.get(f"{path_key}_launches", 0) + counts[k["name"]]
         it = iter(trainer.dataloader)
         batch = next(it)
         it.close()
@@ -3469,10 +3480,12 @@ def _family_score(model, kernels: list[dict]) -> dict:
     return out
 
 
-def _family_convergence(family: str, kernels: list[dict]) -> dict:
+def _family_convergence(family: str, kernels: list[dict], path_key: str = "families",
+                        launched: tuple[str, ...] = MAIN_KERNELS) -> dict:
     """The flagship recipe with the family's overrides
     (``tools/convergence.py --family``), bf16 on the card, held to the
-    flagship's held-out mAP and AP50 floors (and segm for the masks)."""
+    family's floors (``convergence.floor_failures``); the kernels in
+    ``launched`` and no other must run."""
     from layoutdit_tpu_torch.tools import convergence
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -3481,16 +3494,18 @@ def _family_convergence(family: str, kernels: list[dict]) -> dict:
                                         family=family)
         counts = _counts()
     for name, n in counts.items():
-        if (n > 0) != (name in MAIN_KERNELS):
+        if (n > 0) != (name in launched):
             raise RuntimeError(f"{family} convergence: {name} launched {n} times")
     for k in kernels:
-        k["families_launches"] = k.get("families_launches", 0) + counts[k["name"]]
+        k[f"{path_key}_launches"] = k.get(f"{path_key}_launches", 0) + counts[k["name"]]
     m = result["metrics"]
     keys = ("mAP", "AP50", "AP75") + (("segm_mAP", "segm_AP50", "segm_AP75")
                                       if family == "mask" else ())
+    losses = result["loss"]
     print(f"  {family} recipe: {result['steps']} steps in {result['train_s']:.3f} s, score "
           f"{result['score_s']:.3f} s; mAP at epochs {result['mAP_at_epoch']}; held-out "
-          + ", ".join(f"{k} {m[k]:.4f}" for k in keys if m))
+          + ", ".join(f"{k} {m[k]:.4f}" for k in keys if m)
+          + f"; loss first-4 {np.mean(losses[:4]):.4f}, last-4 {np.mean(losses[-4:]):.4f}")
     failures = convergence.floor_failures(result)
     if failures:
         raise RuntimeError(f"{family} convergence missed its floors: {failures}")
@@ -3525,12 +3540,275 @@ def phase_families(gen, kernels: list[dict], card: str) -> dict:
     return out
 
 
+# phase one_stage: RetinaNet (configs/retinanet.json: 9 anchors a cell)
+# and FCOS (configs/fcos.json), dit-base, levels 1-4 of the pyramid, random
+# weights from seed 0, bf16
+RETINANET_CONFIG = ROOT / "configs" / "retinanet.json"
+FCOS_CONFIG = ROOT / "configs" / "fcos.json"
+ONE_STAGE = (("retinanet", RETINANET_CONFIG), ("fcos", FCOS_CONFIG))
+# the kernels of a single-stage recipe (the tiny detector at 224 px)
+ONE_STAGE_RECIPE_KERNELS = ("short_attention", "short_attention_bwd")
+ONE_STAGE_THRESHOLDS = ("config", "zero")
+
+
+def _score_thresh_zero(cfg):
+    """``cfg`` with its family's score threshold at 0: every candidate goes
+    into the NMS, its worst case (random weights score under the config's
+    threshold everywhere)."""
+    budget = dataclasses.replace(cfg.budget, **{f"{cfg.detector_kind}_score_thresh": 0.0})
+    return dataclasses.replace(cfg, budget=budget)
+
+
+class _CandidateCount:
+    """While active, records the candidates that enter a single-stage
+    family's NMS (the finite scores handed to ``nms_and_top``), one count
+    per image slot of a batch. Each batch reads the host once, so it wraps
+    untimed passes only."""
+
+    def __enter__(self):
+        from layoutdit_tpu_torch.models.detection import fcos, retinanet
+
+        self.per_image: list[int] = []
+        self._mods, self._orig = (retinanet, fcos), retinanet.nms_and_top
+
+        def counted(boxes, scores, labels, *args):
+            self.per_image += torch.isfinite(scores).sum(-1).tolist()
+            return self._orig(boxes, scores, labels, *args)
+
+        for m in self._mods:
+            m.nms_and_top = counted
+        return self
+
+    def __exit__(self, *exc):
+        for m in self._mods:
+            m.nms_and_top = self._orig
+
+
+def _one_stage_serving(family: str, model, kernels: list[dict]) -> dict:
+    """PR 13's three requests (8, 4 and 4 + 2 pages) in one 224 px bucket
+    and one request of its four large pages in one 1024 px bucket, batch 4,
+    FAMILY_ROUNDS timed rounds each, at the config's score threshold and
+    at 0: latency, detections, NMS host syncs; launches 12 of row 1 a 224
+    px batch and 12 of row 3 a 1024 px batch, no other. Then, untimed, the
+    candidates that enter the NMS, and one profiled request per bucket
+    split into the stages ``backbone``, ``head`` and ``postprocess``."""
+    from layoutdit_tpu_torch.eval.serving import BatchInferenceEngine
+    from layoutdit_tpu_torch.models.detection.detector import DetectorModel
+    from layoutdit_tpu_torch.ops import nms
+    from layoutdit_tpu_torch.tools.profile_serving import profile_bucket
+
+    requests = _deploy_requests()
+    large = requests[1][1]
+    # PR 13's requests by their pages, all routed to the one 224 px bucket
+    sizes = ("8 small pages", "4 large pages", "4 small + 2 large pages")
+    reqs = [(224, f"224 px bucket, {d}", pages) for d, (_, pages) in zip(sizes, requests)]
+    reqs.append((1024, "1024 px bucket, 4 large pages", large))
+    n = model.cfg.backbone.vit.num_hidden_layers
+    out = {}
+    for label in ONE_STAGE_THRESHOLDS:
+        cfg = model.cfg if label == "config" else _score_thresh_zero(model.cfg)
+        thresh = getattr(cfg.budget, f"{family}_score_thresh")
+        m = DetectorModel(model.params, cfg)
+        engines = {size: BatchInferenceEngine(m, image_sizes=(size,), score_thresh=0.0,
+                                              batch_size=FAMILY_SERVING_BATCH)
+                   for size in (224, 1024)}
+        engines[224].predict_pages(requests[0][1][:4])  # warm-up, both buckets
+        engines[1024].predict_pages(large)
+        torch.cuda.synchronize()
+        _reset_counts()
+        latencies = {name: [] for _, name, _ in reqs}
+        dets = {}
+        batches = {224: 0, 1024: 0}
+        for _ in range(FAMILY_ROUNDS):
+            for size, name, pages in reqs:
+                t0 = time.perf_counter()
+                results = engines[size].predict_pages(pages)
+                torch.cuda.synchronize()
+                latencies[name].append((time.perf_counter() - t0) * 1e3)
+                dets[name] = _check_pages(pages, results, allow_empty=label == "config")
+                batches[size] += -(-len(pages) // FAMILY_SERVING_BATCH)
+        counts = _counts()
+        syncs = nms.nms_mask.host_syncs
+        want = {name: 0 for name in _counters()}
+        want.update(short_attention=n * batches[224], flash_attention=n * batches[1024])
+        _check_launches(f"{family} serving ({label} threshold)", counts, want, 1)
+        for k in kernels:
+            k["one_stage_launches"] = k.get("one_stage_launches", 0) + counts[k["name"]]
+        cands = {}
+        with _CandidateCount() as cc:
+            for size, name, pages in reqs:
+                cc.per_image = []
+                engines[size].predict_pages(pages)
+                cands[name] = {"per_image_slot_mean": float(np.mean(cc.per_image)),
+                               "max": max(cc.per_image), "slots": len(cc.per_image)}
+        r = {"score_thresh": thresh, "batches": batches, "launches": counts,
+             "nms_host_syncs": syncs, "profile": {}}
+        for size, name, pages in reqs:
+            r[name] = {**_spread(latencies[name]), "detections": dets[name],
+                       "candidates": cands[name]}
+            print(f"  {family} ({label} threshold {thresh}) {name}: latency "
+                  f"median {r[name]['median']:.2f} ms (min {r[name]['min']:.2f}, max "
+                  f"{r[name]['max']:.2f}), {dets[name]} detections, candidates into the NMS "
+                  f"{cands[name]['per_image_slot_mean']:.1f} an image slot (max "
+                  f"{cands[name]['max']})")
+        print(f"  {family} ({label} threshold): NMS host syncs {syncs} over {FAMILY_ROUNDS} "
+              f"rounds, {batches[224]} + {batches[1024]} batches")
+        with tempfile.TemporaryDirectory() as tmp:
+            for size, pages in ((224, requests[0][1][:FAMILY_SERVING_BATCH]), (1024, large)):
+                p = profile_bucket(engines[size], pages, Path(tmp) / f"{family}_{size}.json")
+                st = p["stages"]
+                post = st.get("postprocess", {}).get("device_ms", 0.0)
+                r["profile"][size] = {
+                    "wall_ms": p["wall_ms"], "device_busy_ms": p["device_busy_ms"],
+                    "device_idle_share": p["device_idle_share"], "stages": st,
+                    "nms_host_syncs": p["nms_host_syncs"], "top_kernels": p["top_kernels"][:6],
+                    "postprocess_share_of_busy": post / max(p["device_busy_ms"], 1e-9)}
+                print(f"  {family} ({label} threshold) profiled {size} px request, 4 pages: wall "
+                      f"{p['wall_ms']:.3f} ms, device busy {p['device_busy_ms']:.4f} ms, idle "
+                      f"{p['device_idle_share']:.4f}; " + ", ".join(
+                          f"{s} {st.get(s, {}).get('device_ms', 0.0):.4f} ms (host "
+                          f"{st.get(s, {}).get('host_ms', 0.0):.4f})"
+                          for s in ("backbone", "head", "postprocess"))
+                      + f"; postprocess {r['profile'][size]['postprocess_share_of_busy']:.3f} "
+                      f"of busy, NMS host syncs {p['nms_host_syncs']}")
+        out[label] = r
+        del engines, m
+    return out
+
+
+def _one_stage_export(family: str, model, kernels: list[dict]) -> dict:
+    """The 224 px bucket of the model at score threshold 0 exported on the
+    card, run by ``ExportedInferenceEngine`` over PR 13's three requests:
+    the detections of each page held to the live engine's (labels equal,
+    boxes within DEPLOY_BOX_TOL px, scores within DEPLOY_SCORE_TOL, and
+    the pages whose three arrays are the same bits counted); the exported
+    run's launches, 12 of row 1 a batch, are the path's."""
+    from layoutdit_tpu_torch.eval.serving import BatchInferenceEngine, ExportedInferenceEngine
+    from layoutdit_tpu_torch.export import export_detector
+    from layoutdit_tpu_torch.models.detection.detector import DetectorModel
+
+    cfg = _score_thresh_zero(model.cfg)
+    requests = _deploy_requests()
+    live = BatchInferenceEngine(DetectorModel(model.params, cfg), image_sizes=(224,),
+                                batch_size=FAMILY_SERVING_BATCH, score_thresh=0.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        export_detector(model.params, cfg, tmp, image_sizes=(224,),
+                        batch_size=FAMILY_SERVING_BATCH, device="cuda")
+        export_s = time.perf_counter() - t0
+        engine = ExportedInferenceEngine(tmp, score_thresh=0.0)
+        engine.predict_pages(requests[0][1][:4])  # warm-up
+        torch.cuda.synchronize()
+        _reset_counts()
+        got = [engine.predict_pages(pages) for _, pages in requests]
+        torch.cuda.synchronize()
+        counts = _counts()
+        gc.unfreeze()  # the loader froze every object alive then; these go with the engine
+        del engine
+    batches = sum(-(-len(pages) // FAMILY_SERVING_BATCH) for _, pages in requests)
+    want = {name: 0 for name in _counters()}
+    want.update(short_attention=model.cfg.backbone.vit.num_hidden_layers * batches)
+    _check_launches(f"{family} exported", counts, want, 1)
+    for k in kernels:
+        k["one_stage_launches"] = k.get("one_stage_launches", 0) + counts[k["name"]]
+    box_err = score_err = 0.0
+    pages = same_bits = n_dets = 0
+    for (_, req), results in zip(requests, got):
+        for w, g in zip(live.predict_pages(req), results):
+            b, sc = _match((w.boxes, w.scores, w.labels), (g.boxes, g.scores, g.labels))
+            box_err, score_err = max(box_err, b), max(score_err, sc)
+            same_bits += all(np.array_equal(getattr(w, a), getattr(g, a))
+                             for a in ("boxes", "scores", "labels"))
+            pages += 1
+            n_dets += len(w.boxes)
+    print(f"  {family} export of the 224 px bucket (threshold 0): {export_s:.2f} s; {pages} "
+          f"pages, {n_dets} detections equal to the live engine's (largest box difference "
+          f"{box_err:.6g} px, score {score_err:.6g}), {same_bits} of {pages} pages the same bits")
+    return {"export_s": export_s, "pages": pages, "detections": n_dets,
+            "max_box_err_px": box_err, "max_score_err": score_err,
+            "pages_same_bits": same_bits, "launches": counts}
+
+
+def _one_stage_score(family: str, path: Path, params, kernels: list[dict]) -> dict:
+    """``Evaluator.score()`` of the trained model over FAMILY_SCORE_PAGES
+    fixture pages at batch 16 with the family's score threshold at 0 (at
+    the config's, few trained steps leave no detection): bbox metrics
+    finite, pages/s; launches 12 of row 1 a batch."""
+    from layoutdit_tpu_torch.eval.evaluator import Evaluator
+    from layoutdit_tpu_torch.models.detection.detector import DetectorModel
+
+    base, cfg = _family_cfg(path, FAMILY_BATCH)
+    model = DetectorModel(params, _score_thresh_zero(cfg))
+    with tempfile.TemporaryDirectory() as tmp:
+        rc = dataclasses.replace(_fixture_run(base, tmp, FAMILY_SCORE_PAGES),
+                                 eval_input="samples")
+        evaluator = Evaluator(model, rc)
+        evaluator.score()  # warm-up: the first batch's set-up
+        _reset_counts()
+        t0 = time.perf_counter()
+        metrics = evaluator.score()
+        score_s = time.perf_counter() - t0
+        counts = _counts()
+    batches = -(-FAMILY_SCORE_PAGES // FAMILY_BATCH)
+    _check_launches(f"{family} score", counts,
+                    _family_launches(family, cfg, batches, train=False), 1)
+    for k in kernels:
+        k["one_stage_launches"] = k.get("one_stage_launches", 0) + counts[k["name"]]
+    if metrics is None or not all(np.isfinite(v) for v in metrics.values()):
+        raise RuntimeError(f"{family} score: metrics {metrics}")
+    out = {"pages": FAMILY_SCORE_PAGES, "score_s": score_s,
+           "pages_per_s": FAMILY_SCORE_PAGES / score_s,
+           "metrics": {k: metrics[k] for k in ("mAP", "AP50")}}
+    print(f"  {family} score(): {FAMILY_SCORE_PAGES} pages in {score_s:.3f} s "
+          f"({out['pages_per_s']:.2f} pages/s), mAP {metrics['mAP']:.4f}")
+    return out
+
+
+def phase_one_stage(kernels: list[dict], card: str) -> dict:
+    """RetinaNet and FCOS at full width (dit-base, FPN 256, four 256-wide
+    convs a subnet or tower), 224 px, random weights from seed 0, bf16:
+    each serving both buckets at two score thresholds, exported, trained,
+    scored, and its recipe run to JAX's floors. Rows 7-8 launch nowhere on
+    this path."""
+    from layoutdit_tpu_torch.models.detection.detector import DetectorModel, init_detector
+    from layoutdit_tpu_torch.models.weights_io import tree_leaves
+
+    t0 = time.perf_counter()
+    for k in kernels:
+        k["one_stage_launches"] = 0
+    out = {"card": card}
+    for family, path in ONE_STAGE:
+        _, cfg = _family_cfg(path, FAMILY_SERVING_BATCH)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        model = DetectorModel(init_detector(cfg, gen, device="cuda"), cfg)
+        print(f"  {family}: dit-base hidden {cfg.backbone.vit.hidden_size}, levels "
+              f"{cfg.one_stage_levels}, {cfg.num_anchors_per_cell if family == 'retinanet' else 1}"
+              f" anchors a cell, {sum(t.numel() for t in tree_leaves(model.params)):,} parameters")
+        fam = {"serving": _one_stage_serving(family, model, kernels),
+               "export": _one_stage_export(family, model, kernels)}
+        fam["train"], trainer = _family_train(family, path, model, kernels, path_key="one_stage")
+        fam["score"] = _one_stage_score(family, path, trainer.model.params, kernels)
+        del model, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        fam["convergence"] = _family_convergence(family, kernels, path_key="one_stage",
+                                                 launched=ONE_STAGE_RECIPE_KERNELS)
+        out[family] = fam
+    for k in kernels:
+        if k["name"].startswith("roi_") and k["one_stage_launches"]:
+            raise RuntimeError(f"one_stage: {k['name']} launched {k['one_stage_launches']} times")
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"  one_stage phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU")
     if not ((ROOT / "layoutdit_tpu_torch").is_dir() and all(
             p.is_file() for p in (CONFIG, TRAIN_1024_CONFIG, RELPOS_CONFIG, LARGE_CONFIG,
-                                  FSDP_LARGE_CONFIG, CASCADE_CONFIG, MASK_CONFIG))):
+                                  FSDP_LARGE_CONFIG, CASCADE_CONFIG, MASK_CONFIG,
+                                  RETINANET_CONFIG, FCOS_CONFIG))):
         raise SystemExit("chip_smoke: run it from a checkout of the repository")
     sys.path.insert(0, str(ROOT))
     from layoutdit_tpu_torch.ops import _build
@@ -3566,7 +3844,8 @@ def main() -> int:
         only = sys.argv[sys.argv.index("--only") + 1].split(",")
         runners = {"serving": lambda: phase_serving([]),
                    "deploy": lambda: phase_deploy([], gen),
-                   "families": lambda: phase_families(gen, [], card)}
+                   "families": lambda: phase_families(gen, [], card),
+                   "one_stage": lambda: phase_one_stage([], card)}
         for name in only:
             print(f"phase {name}")
             print(json.dumps({name: runners[name]()}))
@@ -3623,8 +3902,12 @@ def main() -> int:
 
     print("phase families")
     families = phase_families(gen, kernels, card)
+    torch.cuda.empty_cache()
+
+    print("phase one_stage")
+    one_stage = phase_one_stage(kernels, card)
     paths = ("probe", "serving", "deploy", "train", "train_state", "io", "train_1024",
-             "train_1024_relpos", "encoder", "main", "convergence", "families")
+             "train_1024_relpos", "encoder", "main", "convergence", "families", "one_stage")
     for k in kernels:
         k["launches"] = sum(k[f"{path}_launches"] for path in paths)
         if k["launches"] <= 0:
@@ -3641,6 +3924,7 @@ def main() -> int:
     print(json.dumps({"main": main_run}))
     print(json.dumps({"convergence": conv}))
     print(json.dumps({"families": families}))
+    print(json.dumps({"one_stage": one_stage}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

@@ -5,8 +5,9 @@ computes the same functions with PyTorch, and every Pallas kernel on the
 ported path is a CUDA C++ kernel under ``csrc/`` built on first use
 (``ops/_build.py``). Nothing here imports JAX or ``layoutdit_tpu``.
 
-Ported so far, for the ``faster_rcnn`` detector with the DiT encoder:
-the serving path (``eval/serving.py::BatchInferenceEngine``), the
-trainer with the JAX trainer's run state (``train/trainer.py::Trainer``),
-evaluation and ``main``.
+Ported so far, with the DiT encoder, for the ``faster_rcnn`` detector
+(with its cascade and mask modifiers) and the single-stage ``retinanet``
+and ``fcos``: the serving path (``eval/serving.py::BatchInferenceEngine``)
+and its export (``export.py``), the trainer with the JAX trainer's run
+state (``train/trainer.py::Trainer``), evaluation and ``main``.
 """

@@ -1,7 +1,8 @@
 """Configuration for the port: frozen dataclasses and a JSON loader.
 
 A subset of the JAX package's pydantic schema (``config/constructs.py``)
-with the same defaults: the two-stage ``DetectionBudget``, the serving
+with the same defaults: the ``DetectionBudget`` of the two-stage and the
+single-stage families, the serving
 fields of ``ModelConfig`` and ``DataLoaderConfig``, the training fields
 of ``TrainingConfig`` and the evaluator's fields of ``EvalConfig``. The
 machine with the GPU has no pydantic, so these are plain frozen
@@ -28,8 +29,10 @@ from layoutdit_tpu_torch.utils.paths import fs_for, open_path
 
 @dataclasses.dataclass(frozen=True)
 class DetectionBudget:
-    """Static budgets of the two-stage detector (torchvision FasterRCNN
-    defaults; ``constructs.py::DetectionBudget``)."""
+    """Static budgets of the detectors (``constructs.py::DetectionBudget``):
+    the two-stage ones at torchvision FasterRCNN's defaults, the
+    ``retinanet_*`` and ``fcos_*`` ones at torchvision RetinaNet's and
+    FCOS's; each family reads only its own."""
 
     rpn_pre_nms_top_n_train: int = 2000
     rpn_pre_nms_top_n_test: int = 1000
@@ -54,6 +57,20 @@ class DetectionBudget:
     box_detections_per_img: int = 100
     box_nms_tile: int = 512
 
+    retinanet_fg_iou_thresh: float = 0.5
+    retinanet_bg_iou_thresh: float = 0.4
+    retinanet_score_thresh: float = 0.05
+    retinanet_nms_thresh: float = 0.5
+    retinanet_detections_per_img: int = 300
+    retinanet_topk_candidates: int = 1000  # a level's cap before the NMS
+
+    fcos_score_thresh: float = 0.2
+    fcos_nms_thresh: float = 0.6
+    fcos_detections_per_img: int = 100
+    fcos_topk_candidates: int = 1000
+    # cells match a gt only within radius x their stride of its center
+    fcos_center_sampling_radius: float = 1.5
+
 
 @dataclasses.dataclass(frozen=True)
 class DataLoaderConfig:
@@ -70,6 +87,8 @@ class DataLoaderConfig:
 
 # the encoders the port runs (JAX ``BackboneType``: resnet50 waits)
 BACKBONES = ("dit", "dit-large")
+# the detector families the port runs (JAX ``ModelConfig.detector``: detr waits)
+DETECTORS = ("faster_rcnn", "retinanet", "fcos")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,7 +102,11 @@ class ModelConfig:
     (``models/vit.py``). ``window_size`` and ``window_global_layers``
     are the ViTDet windows of ``constructs.py:440-443``; ``remat`` and
     ``remat_policy`` the encoder's activation checkpointing
-    (``constructs.py:455-461``)."""
+    (``constructs.py:455-461``). ``detector`` picks the family:
+    ``faster_rcnn`` (with the cascade and mask modifiers), or the
+    single-stage ``retinanet`` and ``fcos``, whose heads run on the
+    pyramid levels ``retinanet_levels`` / ``fcos_levels`` (indices into
+    p2..p5 + pool)."""
 
     backbone_type: str = "dit"
     num_classes: int = 5
@@ -111,8 +134,16 @@ class ModelConfig:
     # box head), and the Mask R-CNN branch
     cascade_iou_threshs: tuple[float, ...] = ()
     with_mask: bool = False
+    detector: str = "faster_rcnn"
+    retinanet_levels: tuple[int, ...] = (1, 2, 3, 4)
+    fcos_levels: tuple[int, ...] = (1, 2, 3, 4)
 
     def __post_init__(self):
+        if self.detector not in DETECTORS:
+            raise ValueError(
+                f"detector={self.detector!r}: the port runs {DETECTORS}; " + _DETR
+                if self.detector == "detr" else f"unknown detector {self.detector!r}"
+            )
         if self.backbone_type not in BACKBONES:
             raise ValueError(
                 f"backbone_type {self.backbone_type!r}: the port runs {BACKBONES}; the "
@@ -195,17 +226,16 @@ class EvalConfig:
 # maps to (its JAX default, what it waits for). A config that leaves one
 # at its default loads; one that sets it otherwise is refused, naming the
 # work it waits for, rather than silently trained without it.
-_LATER = "a later slice of the port"
-_FAMILIES = ("the RetinaNet, FCOS and DETR families (ROADMAP queue 1 item 5); the port "
-             "runs detector='faster_rcnn' with its cascade and mask modifiers")
+_DETR = ("the DETR family waits for ROADMAP queue 1 item 5 (its set-prediction decoder "
+         "and ops/matching.py)")
+_FAMILIES = ("the DETR family (ROADMAP queue 1 item 5); the port runs faster_rcnn with its "
+             "cascade and mask modifiers, retinanet and fcos")
+_LORA = "LoRA (models/lora.py, ROADMAP queue 1 item 6)"
 _WAITING = {
     "detection_model_config": {
         "previous_layout_dit_checkpoint": (
             None, "warm-starting the encoder from a pretrained DiT checkpoint "
                   "(tools/convert_hf_checkpoint.py, ROADMAP queue 1 item 6)"),
-        "detector": ("faster_rcnn", _FAMILIES),
-        "retinanet_levels": ([1, 2, 3, 4], _FAMILIES),
-        "fcos_levels": ([1, 2, 3, 4], _FAMILIES),
         "detr_num_queries": (100, _FAMILIES),
         "detr_layers": (6, _FAMILIES),
         "detr_dim": (256, _FAMILIES),
@@ -215,12 +245,15 @@ _WAITING = {
         "detr_aux_loss": (True, _FAMILIES),
         "detr_shared_matching": (False, _FAMILIES),
         "detr_level": (2, _FAMILIES),
+        "lora_rank": (0, _LORA),
+        "lora_alpha": (16.0, _LORA),
+        "lora_targets": (["q", "v"], _LORA),
     },
     "train_config": {
         "device": ("auto", "the port runs on the CUDA card (no device field)"),
         "enable_profile": (False, "tools/profile_train.py; the trainer writes no traces"),
         "trace_log_dir": ("./log/traces", "tools/profile_train.py"),
-        "lora_freeze_base": (True, "LoRA training (" + _LATER + ")"),
+        "lora_freeze_base": (True, "LoRA training (ROADMAP queue 1 item 6)"),
     },
     "precision": {
         "param_dtype": ("float32", "the port keeps fp32 parameters"),

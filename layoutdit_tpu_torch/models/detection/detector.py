@@ -1,8 +1,12 @@
-"""The DiT + FPN + Faster R-CNN detector (port of the ``faster_rcnn``
-path of ``layoutdit_tpu/models/detection/detector.py``), with its two
-modifiers: the Cascade R-CNN head (``cascade_iou_threshs``: one box head
-and class-agnostic predictor per stage, ``cascade.py``) and the Mask
-R-CNN branch (``with_mask``: ``mask_head.py``).
+"""The DiT + FPN detector (port of
+``layoutdit_tpu/models/detection/detector.py``) in three families
+(``detector_kind``): Faster R-CNN with its two modifiers, the Cascade
+R-CNN head (``cascade_iou_threshs``: one box head and class-agnostic
+predictor per stage, ``cascade.py``) and the Mask R-CNN branch
+(``with_mask``: ``mask_head.py``); and the single-stage RetinaNet
+(``retinanet.py``) and FCOS (``fcos.py``), whose heads run on a subset of
+the pyramid (``retinanet_levels``, ``fcos_levels``) with no proposal or
+RoI stage.
 
 ``detector_predict(params, images, cfg)``: images [B, 3, S, S] in [0, 1]
 -> padded per-image ``Detections`` in S-space, and with
@@ -10,8 +14,10 @@ R-CNN branch (``with_mask``: ``mask_head.py``).
 [B, D, 2P, 2P]; ``rescale_detections`` maps the boxes back to page
 coordinates. ``detector_loss(params, images, gt ..., cfg, priorities,
 gt_masks)`` -> the four training losses, and ``loss_mask`` for a mask
-model. The single-stage and set-prediction families (RetinaNet, FCOS,
-DETR) wait for ROADMAP queue 1 item 5.
+model; a single-stage model gives torchvision's loss keys
+(``loss_classification``, ``loss_bbox_reg`` and FCOS's
+``loss_bbox_ctrness``). The set-prediction family (DETR) waits for
+ROADMAP queue 1 item 5.
 """
 
 from __future__ import annotations
@@ -30,7 +36,9 @@ from layoutdit_tpu_torch.models.backbone import (
     init_backbone_params,
 )
 from layoutdit_tpu_torch.models.detection import cascade as cascade_mod
+from layoutdit_tpu_torch.models.detection import fcos as fcos_mod
 from layoutdit_tpu_torch.models.detection import mask_head as mask_mod
+from layoutdit_tpu_torch.models.detection import retinanet as retina_mod
 from layoutdit_tpu_torch.models.detection.anchors import grid_anchors
 from layoutdit_tpu_torch.models.detection.heads import (
     box_head_forward,
@@ -107,10 +115,49 @@ class DetectorConfig:
     with_mask: bool = False
     mask_roi_output_size: int = 14
     mask_gt_size: int = 0
+    # the family: "faster_rcnn", or the single-stage "retinanet" and
+    # "fcos", whose heads run on these pyramid levels (indices into
+    # p2..p5 + pool); RetinaNet's anchor rows follow the same indices,
+    # FCOS's reference points are stride-sized squares
+    detector_kind: str = "faster_rcnn"
+    retinanet_levels: tuple[int, ...] = (1, 2, 3, 4)
+    fcos_levels: tuple[int, ...] = (1, 2, 3, 4)
+
+    def __post_init__(self):
+        """JAX's ``__post_init_validate__``: no cascade or mask modifier
+        on a single-stage family, its levels inside the pyramid."""
+        kind = self.detector_kind
+        if kind not in ("faster_rcnn", "retinanet", "fcos"):
+            raise ValueError(f"unknown detector_kind {kind!r}")
+        if kind == "faster_rcnn":
+            return
+        if self.cascade_iou_threshs:
+            raise ValueError("cascade_iou_threshs is a Faster R-CNN modifier; "
+                             f"detector={kind!r} has no cascade variant")
+        if self.with_mask:
+            raise ValueError(f"with_mask requires the RoI pipeline; detector={kind!r} has no "
+                             "mask branch")
+        levels = self.one_stage_levels
+        n_levels = len(self.grid_sizes)
+        if not levels or any(not 0 <= i < n_levels for i in levels):
+            raise ValueError(f"{kind}_levels {levels} out of range for the {n_levels}-level "
+                             "pyramid")
+        if kind == "retinanet" and len({len(self.anchor_sizes[i]) * len(self.aspect_ratios[i])
+                                        for i in levels}) != 1:
+            raise ValueError(f"retinanet_levels {levels}: every level needs the same number "
+                             "of anchors a cell (one shared head)")
+
+    @property
+    def one_stage_levels(self) -> tuple[int, ...]:
+        """The pyramid levels a single-stage head runs on."""
+        return self.retinanet_levels if self.detector_kind == "retinanet" else self.fcos_levels
 
     @property
     def num_anchors_per_cell(self) -> int:
-        return len(self.anchor_sizes[0]) * len(self.aspect_ratios[0])
+        """Anchors a cell: the RPN's (level 0's row), or RetinaNet's over
+        its levels (the same on each)."""
+        lv = self.retinanet_levels[0] if self.detector_kind == "retinanet" else 0
+        return len(self.anchor_sizes[lv]) * len(self.aspect_ratios[lv])
 
     @property
     def gt_mask_size(self) -> int:
@@ -173,6 +220,9 @@ class DetectorConfig:
             remat_policy=mc.remat_policy,
             cascade_iou_threshs=tuple(mc.cascade_iou_threshs),
             with_mask=mc.with_mask,
+            detector_kind=mc.detector,
+            retinanet_levels=tuple(mc.retinanet_levels),
+            fcos_levels=tuple(mc.fcos_levels),
         )
 
 
@@ -188,11 +238,19 @@ def init_detector(cfg: DetectorConfig, generator: torch.Generator, device="cuda"
     drawn from ``generator`` (which must live on ``device``). A cascade
     model has ``cascade_heads/s{i}`` (a box head and a class-agnostic
     predictor per stage) in place of ``box_head`` and ``box_predictor``;
-    a mask model also has ``mask_head``."""
+    a mask model also has ``mask_head``. A single-stage model has the
+    backbone and ``retinanet_head`` or ``fcos_head`` only."""
     c = cfg.backbone.fpn_out_channels
     in_features = c * cfg.roi_output_size ** 2
+    backbone = init_backbone_params(cfg.backbone, generator, device)
+    if cfg.detector_kind == "retinanet":
+        return {"backbone": backbone, "retinanet_head": retina_mod.init_retinanet_head_params(
+            c, cfg.num_anchors_per_cell, cfg.num_classes + 1, generator, device)}
+    if cfg.detector_kind == "fcos":
+        return {"backbone": backbone, "fcos_head": fcos_mod.init_fcos_head_params(
+            c, cfg.num_classes + 1, generator, device)}
     params = {
-        "backbone": init_backbone_params(cfg.backbone, generator, device),
+        "backbone": backbone,
         "rpn_head": init_rpn_head_params(c, cfg.num_anchors_per_cell, generator, device),
     }
     if cfg.cascade_iou_threshs:
@@ -246,11 +304,24 @@ def _normalize(images: torch.Tensor, cfg: DetectorConfig) -> torch.Tensor:
 
 @cached_unless_traced(maxsize=16)
 def _anchors(cfg: DetectorConfig, device: torch.device) -> tuple[torch.Tensor, tuple[int, ...]]:
-    """Anchors of one bucket, copied to the device once."""
-    a, counts = grid_anchors(
-        (cfg.image_size, cfg.image_size), cfg.grid_sizes, cfg.anchor_sizes,
-        cfg.aspect_ratios,
-    )
+    """Anchors of one bucket, copied to the device once: the RPN's over
+    every level; RetinaNet's over its levels, the anchor rows of the same
+    indices (JAX ``_retinanet_anchors``); FCOS's one stride-sized square
+    a cell over its levels, the stride ``image_size // grid`` (JAX
+    ``_fcos_anchors``: 56 px for the pool level at 224 px)."""
+    size = (cfg.image_size, cfg.image_size)
+    if cfg.detector_kind == "faster_rcnn":
+        a, counts = grid_anchors(size, cfg.grid_sizes, cfg.anchor_sizes, cfg.aspect_ratios)
+    else:
+        lv = cfg.one_stage_levels
+        grids = tuple(cfg.grid_sizes[i] for i in lv)
+        if cfg.detector_kind == "retinanet":
+            sizes = tuple(cfg.anchor_sizes[i] for i in lv)
+            ratios = tuple(cfg.aspect_ratios[i] for i in lv)
+        else:
+            sizes = tuple((float(cfg.image_size // g[0]),) for g in grids)
+            ratios = ((1.0,),) * len(lv)
+        a, counts = grid_anchors(size, grids, sizes, ratios)
     return torch.from_numpy(a).to(device), counts
 
 
@@ -315,6 +386,32 @@ def _cascade_predict(params: dict, feats, props, cfg: DetectorConfig) -> Detecti
         return cascade_mod.postprocess_cascade(scores, boxes, valid, cfg.budget)
 
 
+def _one_stage_heads(params: dict, feats, cfg: DetectorConfig) -> tuple:
+    """The single-stage head over its levels: RetinaNet's (cls_logits,
+    deltas), FCOS's (cls_logits, ltrb, ctrness)."""
+    lv = [feats[i] for i in cfg.one_stage_levels]
+    if cfg.detector_kind == "retinanet":
+        return retina_mod.retinanet_head_forward(params["retinanet_head"], lv,
+                                                 cfg.num_anchors_per_cell)
+    return fcos_mod.fcos_head_forward(params["fcos_head"], lv)
+
+
+def _one_stage_predict(params: dict, images: torch.Tensor, cfg: DetectorConfig) -> Detections:
+    """RetinaNet's or FCOS's inference under the ranges ``backbone``,
+    ``head`` and ``postprocess``."""
+    anchors, counts = _anchors(cfg, images.device)
+    size = (cfg.image_size, cfg.image_size)
+    with record_function("backbone"):
+        x = _normalize(images.float(), cfg).to(cfg.dtype)
+        feats = backbone_forward(params["backbone"], x, cfg.backbone, compute_dtype=cfg.dtype)
+    with record_function("head"):
+        out = _one_stage_heads(params, feats, cfg)
+    with record_function("postprocess"):
+        if cfg.detector_kind == "retinanet":
+            return retina_mod.retinanet_postprocess(*out, anchors, counts, size, cfg.budget)
+        return fcos_mod.fcos_postprocess(*out, anchors, counts, size, cfg.budget)
+
+
 def detector_predict(
     params: dict, images: torch.Tensor, cfg: DetectorConfig, with_masks: bool = False
 ):
@@ -323,12 +420,20 @@ def detector_predict(
     2P])``: each detection's own-class sigmoid map in box-relative
     coordinates (``eval/masks.py`` pastes them), 0 for invalid slots.
 
+    A single-stage model gives up to its family's
+    ``{retinanet,fcos}_detections_per_img`` detections an image.
+
     Its stages run under ``torch.profiler.record_function`` ranges
     (``backbone``, ``rpn``, ``roi_heads``, ``postprocess``, and
-    ``mask_head``) so a profiler trace splits a request by stage; without
-    a profiler they cost a few microseconds."""
+    ``mask_head``; a single-stage model's ``backbone``, ``head`` and
+    ``postprocess``) so a profiler trace splits a request by stage;
+    without a profiler they cost a few microseconds."""
     if with_masks and not cfg.with_mask:
+        if cfg.detector_kind != "faster_rcnn":
+            raise ValueError(f"detector={cfg.detector_kind!r} has no mask branch")
         raise ValueError("with_masks=True needs a model with the mask branch (with_mask)")
+    if cfg.detector_kind != "faster_rcnn":
+        return _one_stage_predict(params, images, cfg)
     anchors, counts = _anchors(cfg, images.device)
     size = (cfg.image_size, cfg.image_size)
     with record_function("backbone"):
@@ -372,10 +477,13 @@ class SamplerPriorities(NamedTuple):
 
 def draw_priorities(
     cfg: DetectorConfig, batch: int, max_gt: int, generator: torch.Generator
-) -> SamplerPriorities:
+) -> SamplerPriorities | None:
     """Sampler priorities from ``generator`` (on the device it names).
     The JAX package draws these with ``jax.random.uniform``, which torch
-    cannot reproduce; tests pass JAX's draws in instead."""
+    cannot reproduce; tests pass JAX's draws in instead. A single-stage
+    model samples nothing: None, and no draw."""
+    if cfg.detector_kind != "faster_rcnn":
+        return None
     device = generator.device
     n_anchors = sum(h * w for h, w in cfg.grid_sizes) * cfg.num_anchors_per_cell
     n_cand = cfg.budget.rpn_post_nms_top_n_train + max_gt
@@ -392,21 +500,26 @@ def detector_loss(
     gt_labels: torch.Tensor,  # [B, G] int 1..NC
     gt_valid: torch.Tensor,  # [B, G] bool
     cfg: DetectorConfig,
-    priorities: SamplerPriorities,
+    priorities: SamplerPriorities | None,  # None for a single-stage model
     gt_masks: torch.Tensor | None = None,  # [B, G, M, M] {0, 1}, a mask model's
 ) -> dict[str, torch.Tensor]:
     """Training forward -> the four-loss dict of the JAX package's
     ``detector_loss`` (and the reference trainer): ``loss_objectness``,
     ``loss_rpn_box_reg``, ``loss_classifier``, ``loss_box_reg``, fp32
     scalars; a cascade model sums its stages' losses, weighted, into the
-    last two; a mask model adds ``loss_mask``.
+    last two; a mask model adds ``loss_mask``. A single-stage model gives
+    ``loss_classification`` and ``loss_bbox_reg``, and FCOS
+    ``loss_bbox_ctrness`` too (torchvision's keys, as JAX's).
 
     The predictions run under a ``record_function("forward")`` range, with
-    ``"backbone"``, ``"rpn"`` and ``"mask_head"`` ranges inside it as in
-    ``detector_predict``, and the losses under ``"loss"``."""
+    ``"backbone"``, ``"rpn"`` (a single-stage model's ``"head"``) and
+    ``"mask_head"`` ranges inside it as in ``detector_predict``, and the
+    losses under ``"loss"``."""
     if cfg.with_mask and gt_masks is None:
         raise ValueError("cfg.with_mask=True requires gt_masks [B, G, M, M] "
                          "(the data loader's load_masks)")
+    if cfg.detector_kind != "faster_rcnn":
+        return _one_stage_loss(params, images, gt_boxes, gt_labels, gt_valid, cfg)
     anchors, counts = _anchors(cfg, images.device)
     size = (cfg.image_size, cfg.image_size)
     with record_function("forward"):
@@ -466,6 +579,30 @@ def detector_loss(
                 targets.reshape(b * k, out, out), mask_valid.reshape(b * k),
             )
     return losses
+
+
+def _one_stage_loss(params, images, gt_boxes, gt_labels, gt_valid,
+                    cfg: DetectorConfig) -> dict[str, torch.Tensor]:
+    """RetinaNet's or FCOS's training losses (JAX ``detector_loss``'s
+    single-stage branches)."""
+    anchors, counts = _anchors(cfg, images.device)
+    with record_function("forward"):
+        with record_function("backbone"):
+            x = _normalize(images.float(), cfg).to(cfg.dtype)
+            feats = backbone_forward(params["backbone"], x, cfg.backbone,
+                                     compute_dtype=cfg.dtype, remat=cfg.remat,
+                                     remat_policy=cfg.remat_policy)
+        with record_function("head"):
+            out = _one_stage_heads(params, feats, cfg)
+    with record_function("loss"):
+        if cfg.detector_kind == "retinanet":
+            loss_cls, loss_reg = retina_mod.retinanet_loss(
+                *out, anchors, gt_boxes, gt_labels, gt_valid, cfg.budget)
+            return {"loss_classification": loss_cls, "loss_bbox_reg": loss_reg}
+        loss_cls, loss_reg, loss_ctr = fcos_mod.fcos_loss(
+            *out, anchors, counts, gt_boxes, gt_labels, gt_valid, cfg.budget)
+        return {"loss_classification": loss_cls, "loss_bbox_reg": loss_reg,
+                "loss_bbox_ctrness": loss_ctr}
 
 
 def _cascade_stages(params, feats, samples, gt_boxes, gt_labels, gt_valid,

@@ -2,7 +2,8 @@
 
 ``params_from_jax`` takes the tree that ``init_detector_params``
 (``layoutdit_tpu/models/detection/detector.py``) returns for a
-``faster_rcnn`` DiT detector, as numpy arrays, and builds the port's
+``faster_rcnn``, ``retinanet`` or ``fcos`` DiT detector, as numpy
+arrays, and builds the port's
 parameter dictionary, so both packages compute the same function;
 ``params_to_jax`` maps port parameters, or their gradients, back leaf
 by leaf:
@@ -22,7 +23,12 @@ by leaf:
     weight [in, out, 2, 2] by transposing dims (0, 1) AND flipping both
     spatial dims: with stride 2, JAX computes out[2i + a] = x[i] W[1 - a]
     where torch computes x[i] W[a]. The transpose alone is not JAX's
-    function (``tests/test_torch_mask.py``).
+    function (``tests/test_torch_mask.py``);
+  * a single-stage model has no ``rpn_head``: RetinaNet's
+    ``retinanet_head/{cls,reg}/{conv1..4,final}`` and FCOS's
+    ``fcos_head/{cls_tower,reg_tower}/conv{i}`` (with ``gn_scale`` and
+    ``gn_bias``), ``cls_logits``, ``bbox_reg`` and ``ctrness`` are OIHW
+    convs, as torch's, and pass through with no transpose or flip.
 """
 
 from __future__ import annotations
@@ -142,18 +148,40 @@ def _predictor_from_jax(pred: Mapping, device) -> dict:
     return {n: _linear(pred[n], device) for n in ("cls", "bbox")}
 
 
-def _fcn_names(head: Mapping) -> list[str]:
-    """The mask head's conv names in the order ``init_mask_head_params``
-    makes them (a restored tree may hold its keys sorted)."""
-    return [f"fcn{i}" for i in range(1, sum(k.startswith("fcn") for k in head) + 1)]
+def _numbered(head: Mapping, prefix: str) -> list[str]:
+    """A head's numbered convs (``fcn1``.., ``conv1``..) in the order the
+    init functions make them (a restored tree may hold its keys sorted)."""
+    n = sum(k.startswith(prefix) and k[len(prefix):].isdigit() for k in head)
+    return [f"{prefix}{i}" for i in range(1, n + 1)]
 
 
 def _mask_head_from_jax(head: Mapping, device) -> dict:
-    out = {k: _conv(head[k], device) for k in _fcn_names(head)}
+    out = {k: _conv(head[k], device) for k in _numbered(head, "fcn")}
     kernel = np.asarray(head["deconv"]["kernel"])  # [out, in, kH, kW]
     out["deconv"] = {"weight": _t(kernel.transpose(1, 0, 2, 3)[:, :, ::-1, ::-1], device),
                      "bias": _t(head["deconv"]["bias"], device)}
     out["logits"] = _conv(head["logits"], device)
+    return out
+
+
+def _gn_conv(p: Mapping, device) -> dict:
+    return {**_conv(p, device), "gn_scale": _t(p["gn_scale"], device),
+            "gn_bias": _t(p["gn_bias"], device)}
+
+
+def _retinanet_head_from_jax(head: Mapping, device) -> dict:
+    return {sub: {**{k: _conv(head[sub][k], device) for k in _numbered(head[sub], "conv")},
+                  "final": _conv(head[sub]["final"], device)}
+            for sub in ("cls", "reg")}
+
+
+_FCOS_OUT = ("cls_logits", "bbox_reg", "ctrness")
+
+
+def _fcos_head_from_jax(head: Mapping, device) -> dict:
+    out = {t: {k: _gn_conv(head[t][k], device) for k in _numbered(head[t], "conv")}
+           for t in ("cls_tower", "reg_tower")}
+    out.update({k: _conv(head[k], device) for k in _FCOS_OUT})
     return out
 
 
@@ -168,8 +196,14 @@ def params_from_jax(tree: Mapping, device="cpu") -> dict:
                 "layer": [_conv(p, device) for p in fpn["layer"]],
             },
         },
-        "rpn_head": {n: _conv(tree["rpn_head"][n], device) for n in ("conv", "cls", "bbox")},
     }
+    if "retinanet_head" in tree:
+        out["retinanet_head"] = _retinanet_head_from_jax(tree["retinanet_head"], device)
+        return out
+    if "fcos_head" in tree:
+        out["fcos_head"] = _fcos_head_from_jax(tree["fcos_head"], device)
+        return out
+    out["rpn_head"] = {n: _conv(tree["rpn_head"][n], device) for n in ("conv", "cls", "bbox")}
     if "cascade_heads" in tree:
         out["cascade_heads"] = {
             name: {"box_head": _box_head_from_jax(st["box_head"], device),
@@ -249,7 +283,7 @@ def _box_head_to_jax(head: dict, c: int) -> dict:
 
 
 def _mask_head_to_jax(head: dict) -> dict:
-    out = {k: _conv_to_jax(head[k]) for k in _fcn_names(head)}
+    out = {k: _conv_to_jax(head[k]) for k in _numbered(head, "fcn")}
     w = _np(head["deconv"]["weight"])  # [in, out, kH, kW]
     out["deconv"] = {"kernel": np.ascontiguousarray(w[:, :, ::-1, ::-1].transpose(1, 0, 2, 3)),
                      "bias": _np(head["deconv"]["bias"])}
@@ -273,8 +307,21 @@ def params_to_jax(params: dict) -> dict:
                 "layer": [_conv_to_jax(q) for q in fpn["layer"]],
             },
         },
-        "rpn_head": {n: _conv_to_jax(params["rpn_head"][n]) for n in ("conv", "cls", "bbox")},
     }
+    if "retinanet_head" in params:
+        out["retinanet_head"] = {sub: {k: _conv_to_jax(v) for k, v in p.items()}
+                                 for sub, p in params["retinanet_head"].items()}
+        return out
+    if "fcos_head" in params:
+        head = params["fcos_head"]
+        out["fcos_head"] = {
+            **{t: {k: {**_conv_to_jax(v), "gn_scale": _np(v["gn_scale"]),
+                       "gn_bias": _np(v["gn_bias"])} for k, v in head[t].items()}
+               for t in ("cls_tower", "reg_tower")},
+            **{k: _conv_to_jax(head[k]) for k in _FCOS_OUT},
+        }
+        return out
+    out["rpn_head"] = {n: _conv_to_jax(params["rpn_head"][n]) for n in ("conv", "cls", "bbox")}
     if "cascade_heads" in params:
         out["cascade_heads"] = {
             name: {"box_head": _box_head_to_jax(st["box_head"], c),

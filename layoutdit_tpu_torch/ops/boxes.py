@@ -3,7 +3,9 @@
 Port of ``layoutdit_tpu/ops/boxes.py``: boxes are ``[x1, y1, x2, y2]``
 float tensors; ``encode_boxes``/``decode_boxes`` are torchvision's
 ``BoxCoder.encode_single``/``decode_single``, the latter with the
-``log(1000/16)`` clamp on dw/dh.
+``log(1000/16)`` clamp on dw/dh; ``encode_boxes_linear`` /
+``decode_boxes_linear`` its ``BoxLinearCoder`` (FCOS), and
+``generalized_box_iou`` the elementwise GIoU of FCOS's box loss.
 """
 
 from __future__ import annotations
@@ -32,6 +34,25 @@ def box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     inter = wh[..., 0] * wh[..., 1]
     union = area1[..., :, None] + area2[..., None, :] - inter
     return torch.where(union > 0, inter / union, torch.zeros_like(inter))
+
+
+def generalized_box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """ELEMENTWISE generalized IoU of aligned box sets: [..., 4] x [..., 4]
+    -> [...] (torchvision ``generalized_box_iou_loss``'s pairing: IoU -
+    (enclosure - union) / enclosure); an empty union gives IoU 0, an empty
+    enclosure GIoU = IoU."""
+    area1 = box_area(boxes1)
+    area2 = box_area(boxes2)
+    lt = torch.maximum(boxes1[..., :2], boxes2[..., :2])
+    rb = torch.minimum(boxes1[..., 2:], boxes2[..., 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area1 + area2 - inter
+    iou = torch.where(union > 0, inter / union, torch.zeros_like(inter))
+    wh_e = (torch.maximum(boxes1[..., 2:], boxes2[..., 2:])
+            - torch.minimum(boxes1[..., :2], boxes2[..., :2])).clamp(min=0.0)
+    enclosure = wh_e[..., 0] * wh_e[..., 1]
+    return torch.where(enclosure > 0, iou - (enclosure - union) / enclosure, iou)
 
 
 def clip_boxes_to_image(boxes: torch.Tensor, height: float, width: float) -> torch.Tensor:
@@ -108,3 +129,33 @@ def decode_boxes(
         ],
         dim=-1,
     )
+
+
+def encode_boxes_linear(reference_boxes: torch.Tensor, targets: torch.Tensor,
+                        normalize_by_size: bool = True) -> torch.Tensor:
+    """torchvision ``BoxLinearCoder.encode`` (FCOS): the (l, t, r, b)
+    distances from each reference box's center to its target's sides,
+    divided by the reference box's size with ``normalize_by_size``."""
+    ctr_x = 0.5 * (reference_boxes[..., 0] + reference_boxes[..., 2])
+    ctr_y = 0.5 * (reference_boxes[..., 1] + reference_boxes[..., 3])
+    out = torch.stack([ctr_x - targets[..., 0], ctr_y - targets[..., 1],
+                       targets[..., 2] - ctr_x, targets[..., 3] - ctr_y], dim=-1)
+    if normalize_by_size:
+        w = reference_boxes[..., 2] - reference_boxes[..., 0]
+        h = reference_boxes[..., 3] - reference_boxes[..., 1]
+        out = out / torch.stack([w, h, w, h], dim=-1)
+    return out
+
+
+def decode_boxes_linear(rel_codes: torch.Tensor, boxes: torch.Tensor,
+                        normalize_by_size: bool = True) -> torch.Tensor:
+    """torchvision ``BoxLinearCoder.decode`` (FCOS): the inverse of
+    ``encode_boxes_linear``."""
+    ctr_x = 0.5 * (boxes[..., 0] + boxes[..., 2])
+    ctr_y = 0.5 * (boxes[..., 1] + boxes[..., 3])
+    if normalize_by_size:
+        w = boxes[..., 2] - boxes[..., 0]
+        h = boxes[..., 3] - boxes[..., 1]
+        rel_codes = rel_codes * torch.stack([w, h, w, h], dim=-1)
+    return torch.stack([ctr_x - rel_codes[..., 0], ctr_y - rel_codes[..., 1],
+                        ctr_x + rel_codes[..., 2], ctr_y + rel_codes[..., 3]], dim=-1)

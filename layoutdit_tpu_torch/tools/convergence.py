@@ -19,14 +19,18 @@ The compute dtype is the caller's: ``float32`` as the JAX test runs it,
 
 ``--family`` picks the detector as ``scripts/convergence_matrix.py``
 does: ``faster_rcnn`` (the flagship), ``cascade`` (three stages at IoU
-0.5 / 0.6 / 0.7) or ``mask`` (the Mask R-CNN branch, which adds the segm
-metrics). JAX pins no floors for the two modifiers; they are held to the
-flagship's held-out mAP and AP50 floors (the mask family also on its
-segm mAP and AP50), and report the rest.
+0.5 / 0.6 / 0.7), ``mask`` (the Mask R-CNN branch, which adds the segm
+metrics), or the single-stage ``retinanet`` and ``fcos``. JAX pins no
+floors for the two modifiers; they are held to the flagship's held-out
+mAP and AP50 floors (the mask family also on its segm mAP and AP50), and
+report the rest. The single-stage families are held to JAX's own floors
+(``tests/test_convergence.py::test_family_multiepoch_convergence``):
+RetinaNet mAP >= 0.22, AP50 >= 0.45; FCOS mAP >= 0.55, AP50 >= 0.75;
+both a last-4 loss under 0.6 x the first 4.
 
 Usage: python -m layoutdit_tpu_torch.tools.convergence [--device cuda|cpu]
            [--dtype bfloat16|float32] [--eval-interval 16] [--out DIR]
-           [--family faster_rcnn|cascade|mask]
+           [--family faster_rcnn|cascade|mask|retinanet|fcos]
 """
 
 from __future__ import annotations
@@ -48,12 +52,19 @@ FLOOR_AP50 = 0.70
 FLOOR_CLASS_AP50 = 0.3
 FLOOR_CLASSES = ("text", "title", "list", "figure")
 LOSS_RATIO = 0.4
-# scripts/convergence_matrix.py's overrides of the two faster_rcnn modifiers
+# scripts/convergence_matrix.py's overrides: the two faster_rcnn
+# modifiers and the single-stage families
 FAMILY_KNOBS = {
     "faster_rcnn": {},
     "cascade": {"cascade_iou_threshs": [0.5, 0.6, 0.7]},
     "mask": {"with_mask": True},
+    "retinanet": {"detector": "retinanet"},
+    "fcos": {"detector": "fcos"},
 }
+# JAX's held-out (mAP, AP50) floors of the single-stage families and their
+# loss ratio (tests/test_convergence.py:36-40, :55)
+ONE_STAGE_FLOORS = {"retinanet": (0.22, 0.45), "fcos": (0.55, 0.75)}
+ONE_STAGE_LOSS_RATIO = 0.6
 
 
 def recipe_config(root: str, compute_dtype: str, eval_interval: int = 0, seed: int = 0,
@@ -117,21 +128,25 @@ def run_recipe(root: str, compute_dtype: str, device: str = "cuda",
 def floor_failures(result: dict) -> list[str]:
     """The floors ``result`` misses (empty when it meets them all): the
     flagship's all of them; a modifier family's the held-out mAP and AP50
-    (and for ``mask`` the segm mAP and AP50), with finite losses."""
+    (and for ``mask`` the segm mAP and AP50), with finite losses; a
+    single-stage family's JAX floors and loss ratio."""
     losses, m = result["loss"], result["metrics"]
     family = result.get("family", "faster_rcnn")
+    ratio = {"faster_rcnn": LOSS_RATIO}.get(
+        family, ONE_STAGE_LOSS_RATIO if family in ONE_STAGE_FLOORS else None)
     out = []
     if len(losses) != EPOCHS or not np.isfinite(losses).all():
         out.append(f"expected {EPOCHS} finite epoch losses, got {losses}")
-    elif family == "faster_rcnn" and not np.mean(losses[-4:]) < LOSS_RATIO * np.mean(losses[:4]):
-        out.append(f"last-4 loss {np.mean(losses[-4:]):.4f} not under {LOSS_RATIO} x first-4 "
+    elif ratio is not None and not np.mean(losses[-4:]) < ratio * np.mean(losses[:4]):
+        out.append(f"last-4 loss {np.mean(losses[-4:]):.4f} not under {ratio} x first-4 "
                    f"{np.mean(losses[:4]):.4f}")
     if m is None:
         return out + ["no predictions on the held-out pages"]
-    if not m["mAP"] >= FLOOR_MAP:
-        out.append(f"mAP {m['mAP']:.4f} < {FLOOR_MAP}")
-    if not m["AP50"] >= FLOOR_AP50:
-        out.append(f"AP50 {m['AP50']:.4f} < {FLOOR_AP50}")
+    floor_map, floor_ap50 = ONE_STAGE_FLOORS.get(family, (FLOOR_MAP, FLOOR_AP50))
+    if not m["mAP"] >= floor_map:
+        out.append(f"mAP {m['mAP']:.4f} < {floor_map}")
+    if not m["AP50"] >= floor_ap50:
+        out.append(f"AP50 {m['AP50']:.4f} < {floor_ap50}")
     if family == "mask":
         for key, floor in (("segm_mAP", FLOOR_MAP), ("segm_AP50", FLOOR_AP50)):
             if not m.get(key, float("nan")) >= floor:

@@ -38,7 +38,7 @@ from layoutdit_tpu_torch.models.detection.detector import (
 )
 from layoutdit_tpu_torch.ops import nms
 
-STAGES = ("backbone", "rpn", "roi_heads", "postprocess", "mask_head")
+STAGES = ("backbone", "rpn", "head", "roi_heads", "postprocess", "mask_head")
 # kernels listed by device time: enough to reach the short-attention
 # backward of a windowed train step, below the NMS, the copies and the GEMMs
 TOP_KERNELS = 24

@@ -42,7 +42,7 @@ from layoutdit_tpu_torch.tools.make_fixture import make_fixture
 from layoutdit_tpu_torch.tools.profile_serving import summarize_trace
 from layoutdit_tpu_torch.train.trainer import Trainer
 
-STAGES = ("forward", "backbone", "rpn", "mask_head", "loss", "backward", "optimizer",
+STAGES = ("forward", "backbone", "rpn", "head", "mask_head", "loss", "backward", "optimizer",
           "rel_pos_table_grad")
 REPO = Path(__file__).resolve().parents[2]
 

@@ -1,7 +1,9 @@
 """Trainer for the ``faster_rcnn`` detector, with its cascade and mask
-modifiers (port of ``layoutdit_tpu/train/trainer.py``, single card). A
-mask model's loader rasterises the gt masks (``gt_masks``), which reach
-each step; over tar shards it raises, as JAX's.
+modifiers, and the single-stage ``retinanet`` and ``fcos`` (port of
+``layoutdit_tpu/train/trainer.py``, single card). A mask model's loader
+rasterises the gt masks (``gt_masks``), which reach each step; over tar
+shards it raises, as JAX's. A single-stage model's step draws no sampler
+priorities (``draw_priorities`` gives None).
 
 The JAX trainer's recipe and run state:
   * optax's AdamW chain (``train/optim.py``): the configured
@@ -32,7 +34,7 @@ The JAX trainer's recipe and run state:
     training thread with ``async_checkpoint``, the newest
     ``keep_checkpoints`` of them kept; ``resume("auto")`` takes the
     newest readable one;
-  * the sum of the four detector losses, "Epoch i/N, Loss: x" logging,
+  * the sum of the detector's losses, "Epoch i/N, Loss: x" logging,
     one ``metrics.jsonl`` record per epoch with the JAX keys, the same
     scalars in TensorBoard event files under ``{run}/tb`` (``tensorboard``),
     and the loss curve ``{run}/loss_history/loss_curve.png`` at the end
@@ -236,8 +238,8 @@ class Trainer:
     # ------------------------------------------------------------ step
 
     def train_step(self, batch: DetectionBatch) -> tuple[torch.Tensor, dict]:
-        """One update on ``batch`` -> (total loss, the four losses, and
-        ``loss_mask`` for a mask model), device scalars (no host sync).
+        """One update on ``batch`` -> (total loss, the losses of
+        ``detector_loss``), device scalars (no host sync).
         With A micro-batches, each draws its own sampler priorities and
         the losses are their means."""
         micro = self.config.data.batch_size // self.accum

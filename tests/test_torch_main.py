@@ -393,14 +393,27 @@ def test_eval_config_fields_load_with_jax_defaults():
 
 
 @pytest.mark.parametrize("section,key,value,match", [
-    ("detection_model_config", "detector", "retinanet", "queue 1 item 5"),
+    ("detection_model_config", "detector", "detr", "queue 1 item 5"),
     ("eval_config", "device", "cpu", "CUDA card"),
     ("detection_model_config", "previous_layout_dit_checkpoint", "dit.pth", "queue 1 item 6"),
     ("train_config", "lora_freeze_base", False, "LoRA training"),
+    ("detection_model_config", "lora_rank", 16, "queue 1 item 6"),
 ])
 def test_waiting_fields_are_refused(section, key, value, match):
     with pytest.raises(ValueError, match=f"{key}.*{match}"):
         run_config_from_dict({section: {key: value}})
+
+
+def test_lora_config_is_refused_naming_its_item():
+    """``configs/lora.json``: its LoRA keys are the JAX schema's, refused
+    as waiting for queue 1 item 6 (not as unknown keys); at their JAX
+    defaults they load."""
+    path = os.path.join(os.path.dirname(__file__), os.pardir, "configs", "lora.json")
+    with pytest.raises(ValueError, match="lora_rank=16.*queue 1 item 6"):
+        load_run_config(path)
+    rc = run_config_from_dict({"detection_model_config": {
+        "lora_rank": 0, "lora_alpha": 16.0, "lora_targets": ["q", "v"]}})
+    assert rc.model == run_config_from_dict({}).model
 
 
 def test_get_run_config(tmp_path, monkeypatch):

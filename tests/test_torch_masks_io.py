@@ -7,6 +7,7 @@ epoch (and refusing tar shards, as JAX's does); the serving engine's
 masks and their JSON payload; the two configs of the slice in both
 packages, and the families still refused."""
 
+import dataclasses
 import json
 import os
 
@@ -237,21 +238,41 @@ def test_slice_configs_load_in_both_packages():
 
 @pytest.mark.parametrize("family", ["retinanet", "fcos", "detr"])
 def test_other_families_are_refused(family):
-    with pytest.raises(ValueError, match="detector.*queue 1 item 5"):
-        load_run_config(os.path.join(REPO, "configs", f"{family}.json"))
+    """RetinaNet and FCOS load, with their levels and their budget at
+    JAX's defaults; DETR is refused, naming queue 1 item 5."""
+    path = os.path.join(REPO, "configs", f"{family}.json")
+    if family == "detr":
+        with pytest.raises(ValueError, match="detector.*queue 1 item 5"):
+            load_run_config(path)
+        return
+    from layoutdit_tpu.config.constructs import DetectionBudget as JaxBudget
+
+    mc = load_run_config(path).model
+    assert mc.detector == family
+    assert getattr(mc, f"{family}_levels") == (1, 2, 3, 4)
+    jb = JaxBudget()
+    for k in (f.name for f in dataclasses.fields(mc.detection_budget)):
+        assert getattr(mc.detection_budget, k) == getattr(jb, k), k
+    cfg = DetectorConfig.from_model_config(mc)
+    assert cfg.detector_kind == family
+    assert cfg.num_anchors_per_cell == (9 if family == "retinanet" else 3)
 
 
 def test_convergence_family_floors(tmp_path, monkeypatch):
     """``tools/convergence.py --family``: the family's overrides reach the
     recipe's config, and a modifier family is held to the mAP and AP50
     floors (the mask family to segm's too), not to the flagship's
-    per-class and loss-ratio ones."""
+    per-class and loss-ratio ones; a single-stage family to JAX's own
+    floors (RetinaNet 0.22 / 0.45, FCOS 0.55 / 0.75) and a last-4 loss
+    under 0.6 x the first 4."""
     from layoutdit_tpu_torch.tools import convergence
 
     monkeypatch.setattr("layoutdit_tpu_torch.tools.make_fixture.make_fixture",
                         lambda *a, **k: None)
     for family, check in (("cascade", lambda mc: mc.cascade_iou_threshs == (0.5, 0.6, 0.7)),
-                          ("mask", lambda mc: mc.with_mask)):
+                          ("mask", lambda mc: mc.with_mask),
+                          ("retinanet", lambda mc: mc.detector == "retinanet"),
+                          ("fcos", lambda mc: mc.detector == "fcos")):
         os.makedirs(tmp_path / family)
         rc = convergence.recipe_config(str(tmp_path / family), "float32", family=family)
         assert check(rc.model), family
@@ -259,7 +280,16 @@ def test_convergence_family_floors(tmp_path, monkeypatch):
     metrics = {"mAP": 0.5, "AP50": 0.8, "segm_mAP": 0.3, "segm_AP50": 0.9,
                **{f"AP50-{c}": 0.1 for c in convergence.FLOOR_CLASSES}}
     got = {fam: convergence.floor_failures({"family": fam, "loss": losses, "metrics": metrics})
-           for fam in ("faster_rcnn", "cascade", "mask")}
+           for fam in ("faster_rcnn", "cascade", "mask", "retinanet", "fcos")}
     assert got["cascade"] == []
     assert len(got["mask"]) == 1 and got["mask"][0].startswith("segm_mAP")
+    assert got["retinanet"] == ["last-4 loss 1.0000 not under 0.6 x first-4 1.0000"]
+    assert got["fcos"] == [got["retinanet"][0], "mAP 0.5000 < 0.55"]
+    falling = [1.0] * 4 + [0.8] * (convergence.EPOCHS - 8) + [0.55] * 4  # under 0.6, not 0.4
+    for fam, m in (("retinanet", {"mAP": 0.22, "AP50": 0.45}), ("fcos", {"mAP": 0.55,
+                                                                         "AP50": 0.75})):
+        assert convergence.floor_failures({"family": fam, "loss": falling, "metrics": m}) == []
+        low = {"mAP": m["mAP"] - 0.01, "AP50": m["AP50"] - 0.01}
+        assert len(convergence.floor_failures({"family": fam, "loss": falling,
+                                               "metrics": low})) == 2
     assert len(got["faster_rcnn"]) == 1 + len(convergence.FLOOR_CLASSES)

@@ -182,8 +182,8 @@ def test_config_defaults_match_jax():
             continue
         want = jax_model[f.name]
         got = getattr(port_config.ModelConfig(), f.name)
-        if isinstance(want, list):
-            want = tuple(tuple(w) for w in want)
+        if isinstance(want, list):  # lists of rows (anchor_sizes) or of ints (levels)
+            want = tuple(tuple(w) if isinstance(w, (list, tuple)) else w for w in want)
         assert got == want, f.name
 
 
@@ -199,10 +199,12 @@ def test_load_serving_config(tmp_path):
     assert dl.batch_size == jax_cfg.data_loader_config.batch_size == 4
 
     bad = tmp_path / "bad.json"
-    # the mask and cascade modifiers are ported; the other families wait
+    # the mask and cascade modifiers, RetinaNet and FCOS are ported; DETR waits
     bad.write_text(json.dumps({"detection_model_config": {"with_mask": True}}))
     assert port_config.load_config(str(bad))[0].with_mask
     bad.write_text(json.dumps({"detection_model_config": {"detector": "fcos"}}))
+    assert port_config.load_config(str(bad))[0].detector == "fcos"
+    bad.write_text(json.dumps({"detection_model_config": {"detector": "detr"}}))
     with pytest.raises(ValueError, match="detector.*queue 1 item 5"):
         port_config.load_config(str(bad))
     # windows are ported: the field loads
