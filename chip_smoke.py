@@ -70,22 +70,37 @@ held-out pages, ``predictions.json``, ``best.pt`` and the overlays, and
 ``best.pt`` scored again to the mAP it records (phase ``main``); and the
 JAX package's flagship convergence recipe through the port in bf16
 (``tools/convergence.py``: the tiny detector, 48 epochs), held to the
-JAX test's held-out mAP and AP50 floors (phase ``convergence``). Last,
+JAX test's held-out mAP and AP50 floors (phase ``convergence``). Then
 phase ``families`` (``--only families`` alone, after the build) holds
 the RoIAlign pair to its plain versions at a mask head's P = 14 shapes
 and on refined cascade boxes with zero-size ones, then serves and trains
 Cascade R-CNN (``configs/cascade_dp.json``, dit-large) and Mask R-CNN
 (``configs/mask_rcnn.json``, dit-base, masks pasted into the pages),
-scores the mask model with the segm metrics, and runs both families'
-convergence recipes in bf16 at the flagship's floors. Then phase
+scores the mask model with the segm metrics (both families' recipes run
+in bf16 at the flagship's floors in phase ``recipes``). Then phase
 ``one_stage`` (``--only one_stage`` alone, after the build) serves
 RetinaNet (``configs/retinanet.json``) and FCOS (``configs/fcos.json``),
 dit-base, in the 224 and 1024 px buckets, each request at the config's
 score threshold and at 0 (every candidate into the NMS), profiles a
 request per bucket by stage (``backbone``, ``head``, ``postprocess``),
 trains each, scores 64 pages, exports the 224 px bucket and holds the
-artifact's detections to the live ones, and runs both recipes in bf16 to
-JAX's floors of the two families, with no RoIAlign launch anywhere. It
+artifact's detections to the live ones, with no RoIAlign launch anywhere
+(both recipes run in bf16 to JAX's floors in phase ``recipes``). Then
+phase ``recipes`` runs the four family recipes (cascade, mask, RetinaNet,
+FCOS), each in a fresh process (``--recipe-child``), all at once on the
+card. Last, phase ``detr`` (``--only detr`` alone, after the build) holds
+DETR's
+matcher kernel (row M1, ``csrc/matching.cu``) to its plain version, the
+same indices and step counts, at a train step's problems, and times it
+beside the plain version and scipy; serves ``configs/detr.json``
+(dit-base, 100 queries, 6 decoder layers) in both buckets, 100 detections
+a page, a request per bucket profiled by stage; exports the 224 px bucket
+against the live engine; trains it paper-exact and with shared matching
+(a traced step each, its ``matcher`` range) and scores 64 pages, the
+matcher launched once a train step and never in predict. DETR's two
+recipes (``tools/convergence.py --family
+detr|detr_shared --n-train 1024 --epochs 100``) run outside the default
+run, ``--only detr_recipe``. It
 checks that every kernel ran on its path, the right number of times a
 train step, and the probes' kernels on none but theirs. One profiled request
 per serving bucket and one profiled 224 px train step print the
@@ -994,6 +1009,7 @@ def _entry(kernels: list[dict], name: str) -> dict:
 
 def _counters():
     from layoutdit_tpu_torch.ops import flash_attention as fa
+    from layoutdit_tpu_torch.ops import matching as lsa
     from layoutdit_tpu_torch.ops import roi_align as ra
     from layoutdit_tpu_torch.ops import roi_fused as rf
     from layoutdit_tpu_torch.ops import short_attention as sa
@@ -1010,6 +1026,7 @@ def _counters():
         "roi_fused_a": rf.variant_a,
         "roi_fused_a0": rf.variant_a0,
         "roi_fused_e": rf.variant_e,
+        "linear_sum_assignment": lsa.linear_sum_assignment,
     }
 
 
@@ -3284,13 +3301,15 @@ def _families_kernels(gen, kernels: list[dict]) -> dict:
     return out
 
 
-def _family_cfg(path: Path, batch: int):
-    """A family's run config at ``batch`` and its ``DetectorConfig``."""
+def _family_cfg(path: Path, batch: int, model_overrides: dict | None = None):
+    """A family's run config at ``batch`` (its model fields replaced by
+    ``model_overrides``) and its ``DetectorConfig``."""
     from layoutdit_tpu_torch.config import load_run_config
     from layoutdit_tpu_torch.models.detection.detector import DetectorConfig
 
     rc = load_run_config(str(path))
     rc = dataclasses.replace(rc, data=dataclasses.replace(rc.data, batch_size=batch),
+                             model=dataclasses.replace(rc.model, **(model_overrides or {})),
                              compute_dtype="bfloat16")
     return rc, DetectorConfig.from_model_config(rc.model, precision_dtype="bfloat16")
 
@@ -3298,13 +3317,15 @@ def _family_cfg(path: Path, batch: int):
 def _family_launches(family: str, cfg, batches: int, train: bool) -> dict:
     """Launches of ``batches`` serving batches or train steps at 224 px: a
     short-attention kernel a layer (and its backward in training),
-    FAMILY_ROI RoIAligns (none for a single-stage family)."""
+    FAMILY_ROI RoIAligns (none for a single-stage family or DETR), and a
+    DETR step's one matcher launch."""
     n = cfg.backbone.vit.num_hidden_layers
     roi = FAMILY_ROI.get(family, 0)
     out = {name: 0 for name in _counters()}
     out.update(short_attention=n * batches, roi_align=roi * batches)
     if train:
-        out.update(short_attention_bwd=n * batches, roi_align_bwd=roi * batches)
+        out.update(short_attention_bwd=n * batches, roi_align_bwd=roi * batches,
+                   linear_sum_assignment=batches if cfg.detector_kind == "detr" else 0)
     return out
 
 
@@ -3386,15 +3407,19 @@ def _family_serving(family: str, path: Path, kernels: list[dict]) -> dict:
 
 
 def _family_train(family: str, path: Path, model, kernels: list[dict],
-                  path_key: str = "families") -> dict:
+                  path_key: str = "families", model_overrides: dict | None = None,
+                  profile: bool = False) -> dict:
     """One epoch of ``Trainer.train()`` over 4 x 16 fixture pages (the
     launches of the path), then TRAIN_REPEATS steps on one repeated batch:
     losses finite and falling, median of the last 18 step times with min
-    and max, peak GiB; a mask model's loader rasterises ``gt_masks``."""
+    and max, peak GiB; a mask model's loader rasterises ``gt_masks``. With
+    ``profile``, one more step traced (``tools/profile_train.profile_step``:
+    its stages' host and device ms)."""
     from layoutdit_tpu_torch.models.detection.detector import DetectorModel
+    from layoutdit_tpu_torch.tools.profile_train import profile_step
     from layoutdit_tpu_torch.train.trainer import Trainer
 
-    base, cfg = _family_cfg(path, FAMILY_BATCH)
+    base, cfg = _family_cfg(path, FAMILY_BATCH, model_overrides)
     with tempfile.TemporaryDirectory() as tmp:
         rc = _fixture_run(base, tmp, TRAIN_EPOCH_STEPS * FAMILY_BATCH)
         rc = dataclasses.replace(rc, train=dataclasses.replace(
@@ -3426,6 +3451,7 @@ def _family_train(family: str, path: Path, model, kernels: list[dict],
             times.append((time.perf_counter() - t0) * 1e3)
             history.append({"loss": float(loss), **{k: float(v) for k, v in parts.items()}})
         peak = torch.cuda.max_memory_allocated()
+        traced = profile_step(trainer, 0, Path(tmp) / "step.json") if profile else None
     if not all(np.isfinite(list(h.values())).all() for h in history):
         raise RuntimeError(f"{family}: a non-finite loss: {history}")
     first, last = history[0]["loss"], float(np.mean([h["loss"] for h in history[-3:]]))
@@ -3437,6 +3463,10 @@ def _family_train(family: str, path: Path, model, kernels: list[dict],
            "images_per_s": FAMILY_BATCH * 1e3 / float(np.median(timed)),
            "peak_gib": peak / 2**30, "loss_first": first, "loss_last3_mean": last,
            "losses_last": history[-1]}
+    if traced is not None:
+        out["profile"] = {k: traced[k] for k in ("wall_ms", "device_busy_ms",
+                                                 "device_idle_share", "stages")}
+        out["profile"]["top_kernels"] = traced["top_kernels"][:8]
     print(f"  {family} train: epoch {steps} steps in {epoch_s:.3f} s; {TRAIN_REPEATS} steps "
           f"at batch {FAMILY_BATCH}: median {out['step_median']:.3f} ms (min "
           f"{out['step_min']:.3f}, max {out['step_max']:.3f}), {out['images_per_s']:.2f} "
@@ -3481,17 +3511,18 @@ def _family_score(model, kernels: list[dict]) -> dict:
 
 
 def _family_convergence(family: str, kernels: list[dict], path_key: str = "families",
-                        launched: tuple[str, ...] = MAIN_KERNELS) -> dict:
+                        launched: tuple[str, ...] = MAIN_KERNELS, **recipe) -> dict:
     """The flagship recipe with the family's overrides
-    (``tools/convergence.py --family``), bf16 on the card, held to the
-    family's floors (``convergence.floor_failures``); the kernels in
-    ``launched`` and no other must run."""
+    (``tools/convergence.py --family``; ``recipe`` its ``n_train`` and
+    ``epochs``), bf16 on the card, held to the family's floors
+    (``convergence.floor_failures``); the kernels in ``launched`` and no
+    other must run."""
     from layoutdit_tpu_torch.tools import convergence
 
     with tempfile.TemporaryDirectory() as tmp:
         _reset_counts()
         result = convergence.run_recipe(tmp, "bfloat16", "cuda", eval_interval=16,
-                                        family=family)
+                                        family=family, **recipe)
         counts = _counts()
     for name, n in counts.items():
         if (n > 0) != (name in launched):
@@ -3509,8 +3540,9 @@ def _family_convergence(family: str, kernels: list[dict], path_key: str = "famil
     failures = convergence.floor_failures(result)
     if failures:
         raise RuntimeError(f"{family} convergence missed its floors: {failures}")
-    return {k: result[k] for k in ("steps", "train_s", "score_s", "loss", "mAP_at_epoch")} | {
-        "metrics": m}
+    return {k: result[k] for k in ("n_train", "epochs", "steps", "train_s", "score_s", "loss",
+                                   "mAP_at_epoch", "steps_per_s")} | {"metrics": m,
+                                                                       "launches": counts}
 
 
 def phase_families(gen, kernels: list[dict], card: str) -> dict:
@@ -3518,9 +3550,9 @@ def phase_families(gen, kernels: list[dict], card: str) -> dict:
     at IoU 0.5 / 0.6 / 0.7) and Mask R-CNN (``configs/mask_rcnn.json``:
     dit-base with the mask branch), both at 224 px, random weights from
     seed 0, bf16: rows 7-8 at these models' shapes; each model serving the
-    serving phase's requests and training; the mask model scoring bbox and segm;
-    both convergence recipes. The launches of all but the kernel checks
-    are the ``families`` path's."""
+    serving phase's requests and training; the mask model scoring bbox and
+    segm. The launches of all but the kernel checks are the ``families``
+    path's; both convergence recipes add theirs in phase ``recipes``."""
     t0 = time.perf_counter()
     for k in kernels:
         k["families_launches"] = 0
@@ -3534,7 +3566,6 @@ def phase_families(gen, kernels: list[dict], card: str) -> dict:
         del model, trainer
         gc.collect()
         torch.cuda.empty_cache()
-        out[family]["convergence"] = _family_convergence(family, kernels)
     out["phase_s"] = time.perf_counter() - t0
     print(f"  families phase: {out['phase_s']:.1f} s")
     return out
@@ -3676,9 +3707,11 @@ def _one_stage_serving(family: str, model, kernels: list[dict]) -> dict:
     return out
 
 
-def _one_stage_export(family: str, model, kernels: list[dict]) -> dict:
-    """The 224 px bucket of the model at score threshold 0 exported on the
-    card, run by ``ExportedInferenceEngine`` over PR 13's three requests:
+def _one_stage_export(family: str, model, kernels: list[dict],
+                      path_key: str = "one_stage") -> dict:
+    """The 224 px bucket of the model (a single-stage or DETR one) at score
+    threshold 0 exported on the card, run by ``ExportedInferenceEngine``
+    over the deploy phase's three requests (``_deploy_requests``):
     the detections of each page held to the live engine's (labels equal,
     boxes within DEPLOY_BOX_TOL px, scores within DEPLOY_SCORE_TOL, and
     the pages whose three arrays are the same bits counted); the exported
@@ -3710,7 +3743,7 @@ def _one_stage_export(family: str, model, kernels: list[dict]) -> dict:
     want.update(short_attention=model.cfg.backbone.vit.num_hidden_layers * batches)
     _check_launches(f"{family} exported", counts, want, 1)
     for k in kernels:
-        k["one_stage_launches"] = k.get("one_stage_launches", 0) + counts[k["name"]]
+        k[f"{path_key}_launches"] = k.get(f"{path_key}_launches", 0) + counts[k["name"]]
     box_err = score_err = 0.0
     pages = same_bits = n_dets = 0
     for (_, req), results in zip(requests, got):
@@ -3729,9 +3762,11 @@ def _one_stage_export(family: str, model, kernels: list[dict]) -> dict:
             "pages_same_bits": same_bits, "launches": counts}
 
 
-def _one_stage_score(family: str, path: Path, params, kernels: list[dict]) -> dict:
-    """``Evaluator.score()`` of the trained model over FAMILY_SCORE_PAGES
-    fixture pages at batch 16 with the family's score threshold at 0 (at
+def _one_stage_score(family: str, path: Path, params, kernels: list[dict],
+                     path_key: str = "one_stage") -> dict:
+    """``Evaluator.score()`` of the trained model (a single-stage or DETR
+    one) over FAMILY_SCORE_PAGES fixture pages at batch 16 with the
+    family's score threshold at 0 (at
     the config's, few trained steps leave no detection): bbox metrics
     finite, pages/s; launches 12 of row 1 a batch."""
     from layoutdit_tpu_torch.eval.evaluator import Evaluator
@@ -3753,7 +3788,7 @@ def _one_stage_score(family: str, path: Path, params, kernels: list[dict]) -> di
     _check_launches(f"{family} score", counts,
                     _family_launches(family, cfg, batches, train=False), 1)
     for k in kernels:
-        k["one_stage_launches"] = k.get("one_stage_launches", 0) + counts[k["name"]]
+        k[f"{path_key}_launches"] = k.get(f"{path_key}_launches", 0) + counts[k["name"]]
     if metrics is None or not all(np.isfinite(v) for v in metrics.values()):
         raise RuntimeError(f"{family} score: metrics {metrics}")
     out = {"pages": FAMILY_SCORE_PAGES, "score_s": score_s,
@@ -3767,9 +3802,9 @@ def _one_stage_score(family: str, path: Path, params, kernels: list[dict]) -> di
 def phase_one_stage(kernels: list[dict], card: str) -> dict:
     """RetinaNet and FCOS at full width (dit-base, FPN 256, four 256-wide
     convs a subnet or tower), 224 px, random weights from seed 0, bf16:
-    each serving both buckets at two score thresholds, exported, trained,
-    scored, and its recipe run to JAX's floors. Rows 7-8 launch nowhere on
-    this path."""
+    each serving both buckets at two score thresholds, exported, trained
+    and scored; its recipe runs to JAX's floors in phase ``recipes``. Rows
+    7-8 launch nowhere on this path."""
     from layoutdit_tpu_torch.models.detection.detector import DetectorModel, init_detector
     from layoutdit_tpu_torch.models.weights_io import tree_leaves
 
@@ -3791,8 +3826,6 @@ def phase_one_stage(kernels: list[dict], card: str) -> dict:
         del model, trainer
         gc.collect()
         torch.cuda.empty_cache()
-        fam["convergence"] = _family_convergence(family, kernels, path_key="one_stage",
-                                                 launched=ONE_STAGE_RECIPE_KERNELS)
         out[family] = fam
     for k in kernels:
         if k["name"].startswith("roi_") and k["one_stage_launches"]:
@@ -3802,13 +3835,340 @@ def phase_one_stage(kernels: list[dict], card: str) -> dict:
     return out
 
 
+# phase detr: DETR (configs/detr.json: dit-base, FPN 256, level 2 at stride
+# 16, 100 queries, 6 decoder layers, d 256, 8 heads, FFN 2048, max_gt_boxes
+# 32), 224 px, random weights from seed 0, bf16
+DETR_CONFIG = ROOT / "configs" / "detr.json"
+DETR_SHARED = {"detr_shared_matching": True}
+# the matcher's problems [P, G, Q]: a train step at batch 16 paper-exact
+# (6 layers x 16 images) and shared (the last layer's 16), G = 64, and
+# integer costs with ties and constant padded rows at the first shape
+MATCHER_CASES = (("paper_exact", 96, 32, False), ("shared", 16, 32, False),
+                 ("g64", 96, 64, False), ("ties", 96, 32, True))
+MATCHER_Q = 100
+# fp32 operations a column costs a Dijkstra step: the relaxation's two
+# subtractions and compare, the argmin's compare, the update's subtraction
+MATCHER_OPS_PER_COLUMN = 5
+# the recipe: JAX's DETR record in docs/convergence.md (1,024 train pages,
+# 100 epochs), outside the default run (python3 chip_smoke.py --only
+# detr_recipe); the kernels a DETR recipe launches
+DETR_RECIPE = {"n_train": 1024, "epochs": 100}
+DETR_RECIPE_KERNELS = ("short_attention", "short_attention_bwd", "linear_sum_assignment")
+
+
+def _matcher_entry() -> dict:
+    """The kernels line's entry of the matcher kernel (row M1), filled by
+    phase detr; each path adds its launches to it as to the others'."""
+    return {"name": "linear_sum_assignment", "route": "cuda",
+            "source": "layoutdit_tpu_torch/csrc/matching.cu",
+            "replaces": "layoutdit_tpu/ops/matching.py:28",
+            "note": "no Pallas original: JAX solves with an XLA while_loop (row M1)"}
+
+
+def _matcher_costs(gen, p: int, g: int, ties: bool) -> torch.Tensor:
+    """[p, g, MATCHER_Q] costs as DETR's loss builds them (``match_cost``
+    on random logits and boxes, gt cxcywh in the page, 1 to g valid slots a
+    problem, the padded rows 0), or integer costs in 0..3 with ties and
+    the padded rows (the second half) constant."""
+    from layoutdit_tpu_torch.models.detection import detr
+
+    q = MATCHER_Q
+    if ties:
+        cost = torch.randint(0, 4, (p, g, q), generator=gen, device="cuda").float()
+        cost[:, g // 2:] = 0.0
+        return cost
+    logits = 2.0 * torch.randn((p, q, 6), generator=gen, device="cuda")
+    boxes = torch.sigmoid(torch.randn((p, q, 4), generator=gen, device="cuda"))
+    centre = 0.1 + 0.8 * torch.rand((p, g, 2), generator=gen, device="cuda")
+    size = 0.02 + 0.28 * torch.rand((p, g, 2), generator=gen, device="cuda")
+    labels = torch.randint(1, 6, (p, g), generator=gen, device="cuda")
+    n_valid = torch.randint(1, g + 1, (p, 1), generator=gen, device="cuda")
+    valid = torch.arange(g, device="cuda")[None] < n_valid
+    return detr.match_cost(logits, boxes, torch.cat([centre, size], -1), labels, valid)
+
+
+def _scipy_ms(cost: torch.Tensor, repeats: int = 3) -> tuple[float, np.ndarray]:
+    """Host time of scipy's solver over every problem, the device-to-host
+    copy included (median of ``repeats``), and its totals."""
+    from scipy.optimize import linear_sum_assignment as scipy_lsa
+
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = cost.cpu().numpy()
+        totals = np.array([c[scipy_lsa(c)].sum() for c in a])
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), totals
+
+
+def _matcher_case(gen, label: str, p: int, g: int, ties: bool) -> dict:
+    """Row M1 at one shape against its plain version on the card: the same
+    indices and step counts (exactly), totals against scipy's; timed per
+    call (``ms``) and on the card alone (``device_ms``), the plain version
+    and scipy beside it; the bound: costs read once and indices written
+    once over 3.35 TB/s, or this run's steps x (C + 1) x
+    MATCHER_OPS_PER_COLUMN fp32 operations over 67 TFLOP/s."""
+    from layoutdit_tpu_torch.ops import matching as lsa
+
+    cost = _matcher_costs(gen, p, g, ties)
+    got, steps = lsa.linear_sum_assignment(cost, return_steps=True)
+    want, want_steps = lsa.linear_sum_assignment_plain(cost, return_steps=True)
+    torch.cuda.synchronize()
+    mismatched = int((got != want).sum())
+    if mismatched or not torch.equal(steps, want_steps) or int(steps.min()) < 1:
+        raise RuntimeError(f"matcher {label}: {mismatched} indices and steps "
+                           f"{steps.tolist()} against {want_steps.tolist()} differ from the "
+                           "plain version")
+    ms = _time_ms(lambda: lsa.linear_sum_assignment(cost), 20)
+    device_ms = _device_ms(lambda: lsa.linear_sum_assignment(cost), 20)
+    plain_ms = _time_ms(lambda: lsa.linear_sum_assignment_plain(cost), 2)
+    scipy_ms, totals = _scipy_ms(cost)
+    mine = torch.gather(cost, 2, got[..., None])[..., 0].sum(1).double().cpu().numpy()
+    gap = float(np.abs(mine - totals).max())
+    if gap > 1e-3 * max(1.0, float(np.abs(totals).max())):
+        raise RuntimeError(f"matcher {label}: totals {gap:.3g} from scipy's optimum")
+    nbytes = cost.numel() * 4 + got.numel() * 8
+    flops = int(steps.sum()) * (cost.shape[2] + 1) * MATCHER_OPS_PER_COLUMN
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    r = {"shape": f"P={p} G={g} Q={cost.shape[2]}" + (" integer ties" if ties else ""),
+         "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "scipy_host_ms": scipy_ms,
+         "bound_ms": bound, "bound_by": by, "max_abs_err": float(mismatched),
+         "steps_max": int(steps.max()), "steps_mean": float(steps.float().mean()),
+         "steps_total": int(steps.sum()), "scipy_total_gap": gap}
+    print(f"  matcher {label} [{p}, {g}, {cost.shape[2]}]: indices equal to the plain "
+          f"version's; {ms:.6g} ms a call, {device_ms:.6g} on the card; plain {plain_ms:.6g} ms;"
+          f" scipy with the copy {scipy_ms:.6g} ms; bound {bound:.6g} ms ({by}); serial "
+          f"steps max {r['steps_max']}, mean {r['steps_mean']:.1f}; totals within {gap:.3g} "
+          "of scipy's")
+    return r
+
+
+def _detr_kernels(gen, kernels: list[dict]) -> dict:
+    """Row M1 at MATCHER_CASES; the first case's numbers are its entry's
+    in the kernels line, the others beside them under their labels."""
+    out = {label: _matcher_case(gen, label, p, g, ties) for label, p, g, ties in MATCHER_CASES}
+    for entry in (k for k in kernels if k["name"] == "linear_sum_assignment"):
+        main = out["paper_exact"]
+        entry.update({k: main[k] for k in ("shape", "ms", "device_ms", "plain_ms", "bound_ms",
+                                           "bound_by", "max_abs_err", "steps_max")})
+        entry.update(library_ms=None, scipy_host_ms=main["scipy_host_ms"])
+        for label in ("shared", "g64", "ties"):
+            entry.update({f"{label}_{k}": v for k, v in out[label].items()})
+    return out
+
+
+def _detr_serving(model, kernels: list[dict]) -> dict:
+    """The deploy phase's three requests in one 224 px bucket and its four
+    large pages in one 1024 px bucket, batch 4, FAMILY_ROUNDS timed
+    rounds, every detection kept (engine threshold 0): latency, 100
+    detections a page;
+    launches 12 of row 1 a 224 px batch and 12 of row 3 a 1024 px batch,
+    no other (no RoIAlign, no matcher). Then one profiled request of four
+    pages a bucket by stage (``backbone``, ``head``, ``postprocess``)."""
+    from layoutdit_tpu_torch.eval.serving import BatchInferenceEngine
+    from layoutdit_tpu_torch.tools.profile_serving import profile_bucket
+
+    requests = _deploy_requests()
+    large = requests[1][1]
+    sizes = ("8 small pages", "4 large pages", "4 small + 2 large pages")
+    reqs = [(224, f"224 px bucket, {d}", pages) for d, (_, pages) in zip(sizes, requests)]
+    reqs.append((1024, "1024 px bucket, 4 large pages", large))
+    engines = {size: BatchInferenceEngine(model, image_sizes=(size,), score_thresh=0.0,
+                                          batch_size=FAMILY_SERVING_BATCH)
+               for size in (224, 1024)}
+    engines[224].predict_pages(requests[0][1][:4])  # warm-up, both buckets
+    engines[1024].predict_pages(large)
+    torch.cuda.synchronize()
+    _reset_counts()
+    latencies = {name: [] for _, name, _ in reqs}
+    batches = {224: 0, 1024: 0}
+    queries = model.cfg.detr_num_queries
+    for _ in range(FAMILY_ROUNDS):
+        for size, name, pages in reqs:
+            t0 = time.perf_counter()
+            results = engines[size].predict_pages(pages)
+            torch.cuda.synchronize()
+            latencies[name].append((time.perf_counter() - t0) * 1e3)
+            if _check_pages(pages, results) != queries * len(pages):
+                raise RuntimeError(f"detr serving: not {queries} detections a page")
+            batches[size] += -(-len(pages) // FAMILY_SERVING_BATCH)
+    counts = _counts()
+    n = model.cfg.backbone.vit.num_hidden_layers
+    want = {name: 0 for name in _counters()}
+    want.update(short_attention=n * batches[224], flash_attention=n * batches[1024])
+    _check_launches("detr serving", counts, want, 1)
+    for k in kernels:
+        k["detr_launches"] = k.get("detr_launches", 0) + counts[k["name"]]
+    out = {"batches": batches, "launches": counts, "detections_per_page": queries,
+           "profile": {}}
+    for size, name, pages in reqs:
+        out[name] = {**_spread(latencies[name]),
+                     "pages_per_s": len(pages) * 1e3 / float(np.median(latencies[name]))}
+        print(f"  detr {name}: latency median {out[name]['median']:.2f} ms (min "
+              f"{out[name]['min']:.2f}, max {out[name]['max']:.2f}), "
+              f"{out[name]['pages_per_s']:.2f} pages/s, {queries} detections a page")
+    with tempfile.TemporaryDirectory() as tmp:
+        for size, pages in ((224, requests[0][1][:FAMILY_SERVING_BATCH]), (1024, large)):
+            p = profile_bucket(engines[size], pages, Path(tmp) / f"detr_{size}.json")
+            st = p["stages"]
+            post = st.get("postprocess", {}).get("device_ms", 0.0)
+            out["profile"][size] = {
+                "wall_ms": p["wall_ms"], "device_busy_ms": p["device_busy_ms"],
+                "device_idle_share": p["device_idle_share"], "stages": st,
+                "top_kernels": p["top_kernels"][:6],
+                "postprocess_share_of_busy": post / max(p["device_busy_ms"], 1e-9)}
+            print(f"  detr profiled {size} px request, 4 pages: wall {p['wall_ms']:.3f} ms, "
+                  f"device busy {p['device_busy_ms']:.4f} ms, idle "
+                  f"{p['device_idle_share']:.4f}; " + ", ".join(
+                      f"{s} {st.get(s, {}).get('device_ms', 0.0):.4f} ms (host "
+                      f"{st.get(s, {}).get('host_ms', 0.0):.4f})"
+                      for s in ("backbone", "head", "postprocess"))
+                  + f"; postprocess {out['profile'][size]['postprocess_share_of_busy']:.3f} "
+                  "of busy")
+    return out
+
+
+def phase_detr(gen, kernels: list[dict], card: str) -> dict:
+    """DETR at full width (``configs/detr.json``), 224 px, random weights
+    from seed 0, bf16: row M1 against its plain version at a step's
+    shapes; serving both buckets; the 224 px bucket exported and held to
+    the live engine; one epoch and TRAIN_REPEATS steps at batch 16,
+    paper-exact and with shared matching, each with a traced step (the
+    ``matcher`` range); ``score()`` of 64 pages. Launches: row M1 one a
+    train step and none in predict; rows 7-8 none."""
+    from layoutdit_tpu_torch.models.detection.detector import DetectorModel, init_detector
+    from layoutdit_tpu_torch.models.weights_io import tree_leaves
+
+    t0 = time.perf_counter()
+    for k in kernels:
+        k["detr_launches"] = 0
+    out = {"card": card, "kernels": _detr_kernels(gen, kernels)}
+    _, cfg = _family_cfg(DETR_CONFIG, FAMILY_SERVING_BATCH)
+    model = DetectorModel(init_detector(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                        device="cuda"), cfg)
+    print(f"  detr: dit-base hidden {cfg.backbone.vit.hidden_size}, level {cfg.detr_level}, "
+          f"{cfg.detr_num_queries} queries, {cfg.detr_layers} decoder layers, d "
+          f"{cfg.detr_dim}, {sum(t.numel() for t in tree_leaves(model.params)):,} parameters")
+    out["serving"] = _detr_serving(model, kernels)
+    out["export"] = _one_stage_export("detr", model, kernels, path_key="detr")
+    del model
+    for label, overrides in (("paper_exact", None), ("shared", DETR_SHARED)):
+        model = DetectorModel(init_detector(  # each variant from the same weights
+            cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda"), cfg)
+        train, trainer = _family_train(f"detr {label}", DETR_CONFIG, model, kernels,
+                                       path_key="detr", model_overrides=overrides,
+                                       profile=True)
+        st = train["profile"]["stages"]
+        matcher = st.get("matcher", {}).get("device_ms", 0.0)
+        train["matcher_device_ms"] = matcher
+        train["matcher_share_of_busy"] = matcher / max(train["profile"]["device_busy_ms"], 1e-9)
+        print(f"  detr {label} traced step: wall {train['profile']['wall_ms']:.3f} ms, device "
+              f"busy {train['profile']['device_busy_ms']:.4f} ms, idle "
+              f"{train['profile']['device_idle_share']:.4f}; " + ", ".join(
+                  f"{s} {st.get(s, {}).get('device_ms', 0.0):.4f} ms (host "
+                  f"{st.get(s, {}).get('host_ms', 0.0):.4f})"
+                  for s in ("forward", "loss", "matcher", "backward", "optimizer"))
+              + f"; matcher {train['matcher_share_of_busy']:.4f} of busy")
+        out[label] = train
+        if label == "paper_exact":
+            out["score"] = _one_stage_score("detr", DETR_CONFIG, trainer.model.params, kernels,
+                                            path_key="detr")
+        del trainer, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    for k in kernels:
+        if k["name"].startswith("roi_") and k["detr_launches"]:
+            raise RuntimeError(f"detr: {k['name']} launched {k['detr_launches']} times")
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"  detr phase: {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_detr_recipe(kernels: list[dict]) -> dict:
+    """``tools/convergence.py --family detr`` and ``detr_shared`` at
+    DETR_RECIPE, bf16: the first held to the flagship's mAP and AP50
+    floors, the second reported."""
+    t0 = time.perf_counter()
+    out = {family: _family_convergence(family, kernels, path_key="detr_recipe",
+                                       launched=DETR_RECIPE_KERNELS, **DETR_RECIPE)
+           for family in ("detr", "detr_shared")}
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"  detr_recipe phase: {out['phase_s']:.1f} s")
+    return out
+
+
+# phase recipes: the families' recipes, each family's path and the kernels
+# it launches; each runs in its own process, all at once (``--recipe-child``)
+FAMILY_RECIPES = {"cascade": ("families", MAIN_KERNELS), "mask": ("families", MAIN_KERNELS),
+                  "retinanet": ("one_stage", ONE_STAGE_RECIPE_KERNELS),
+                  "fcos": ("one_stage", ONE_STAGE_RECIPE_KERNELS)}
+RECIPE_TIMEOUT_S = 600
+
+
+def recipe_child(family: str, out_path: str) -> int:
+    """Phase ``recipes``' process of one family: its recipe held to its
+    floors (``_family_convergence``), the result and the launches written
+    to ``out_path``."""
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    path_key, launched = FAMILY_RECIPES[family]
+    result = _family_convergence(family, [], path_key, launched)
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def phase_recipes(kernels: list[dict], families: tuple[str, ...]) -> dict:
+    """The recipes of ``families`` (``tools/convergence.py --family``, bf16,
+    each held to its floors), each in a fresh process, all at once on the
+    card: they are small and host-bound, and one at a time they took most
+    of the script's time. Each adds its launches to its family's path. The
+    recipes' wall times are measured with the others running beside them."""
+    t0 = time.perf_counter()
+    out, procs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for family in families:
+                log = open(Path(tmp) / f"{family}.log", "w")
+                procs[family] = (subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"), "--recipe-child", family,
+                     str(Path(tmp) / f"{family}.json")],
+                    stdout=log, stderr=subprocess.STDOUT), log)
+            for family, (proc, log) in procs.items():
+                rc = proc.wait(timeout=max(1.0, RECIPE_TIMEOUT_S - (time.perf_counter() - t0)))
+                log.close()
+                text = (Path(tmp) / f"{family}.log").read_text()
+                print("\n".join(line for line in text.splitlines() if line.startswith("  ")))
+                if rc != 0:
+                    raise RuntimeError(f"{family} recipe: exit code {rc}\n{text[-3000:]}")
+                with open(Path(tmp) / f"{family}.json") as f:
+                    out[family] = json.load(f)
+        finally:
+            for proc, log in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+    for family, r in out.items():
+        path_key = FAMILY_RECIPES[family][0]
+        for k in kernels:
+            k[f"{path_key}_launches"] = k.get(f"{path_key}_launches", 0) + r["launches"][k["name"]]
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"  recipes phase ({', '.join(families)} at once): {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU")
     if not ((ROOT / "layoutdit_tpu_torch").is_dir() and all(
             p.is_file() for p in (CONFIG, TRAIN_1024_CONFIG, RELPOS_CONFIG, LARGE_CONFIG,
                                   FSDP_LARGE_CONFIG, CASCADE_CONFIG, MASK_CONFIG,
-                                  RETINANET_CONFIG, FCOS_CONFIG))):
+                                  RETINANET_CONFIG, FCOS_CONFIG, DETR_CONFIG))):
         raise SystemExit("chip_smoke: run it from a checkout of the repository")
     sys.path.insert(0, str(ROOT))
     from layoutdit_tpu_torch.ops import _build
@@ -3844,8 +4204,13 @@ def main() -> int:
         only = sys.argv[sys.argv.index("--only") + 1].split(",")
         runners = {"serving": lambda: phase_serving([]),
                    "deploy": lambda: phase_deploy([], gen),
-                   "families": lambda: phase_families(gen, [], card),
-                   "one_stage": lambda: phase_one_stage([], card)}
+                   "families": lambda: {**phase_families(gen, [], card),
+                                        "recipes": phase_recipes([], ("cascade", "mask"))},
+                   "one_stage": lambda: {**phase_one_stage([], card),
+                                         "recipes": phase_recipes([], ("retinanet", "fcos"))},
+                   "detr": lambda: phase_detr(gen, [], card),
+                   "recipes": lambda: phase_recipes([], tuple(FAMILY_RECIPES)),
+                   "detr_recipe": lambda: phase_detr_recipe([])}
         for name in only:
             print(f"phase {name}")
             print(json.dumps({name: runners[name]()}))
@@ -3854,7 +4219,8 @@ def main() -> int:
     kernels = [phase_short(gen), phase_flash(gen), phase_roi(gen)]
     torch.cuda.empty_cache()
     print("phase kernels_bwd")
-    kernels += [phase_short_bwd(gen), *phase_flash_bwd(gen), phase_roi_bwd(gen)]
+    kernels += [phase_short_bwd(gen), *phase_flash_bwd(gen), phase_roi_bwd(gen),
+                _matcher_entry()]
     torch.cuda.empty_cache()
     print("phase probes")
     kernels += phase_probes(gen, kernels)
@@ -3906,8 +4272,20 @@ def main() -> int:
 
     print("phase one_stage")
     one_stage = phase_one_stage(kernels, card)
+    torch.cuda.empty_cache()
+
+    print("phase recipes")
+    recipes = phase_recipes(kernels, tuple(FAMILY_RECIPES))
+    for family in FAMILY_RECIPES:
+        (families if family in ("cascade", "mask") else one_stage)[family]["convergence"] = (
+            recipes[family])
+    torch.cuda.empty_cache()
+
+    print("phase detr")
+    detr = phase_detr(gen, kernels, card)
     paths = ("probe", "serving", "deploy", "train", "train_state", "io", "train_1024",
-             "train_1024_relpos", "encoder", "main", "convergence", "families", "one_stage")
+             "train_1024_relpos", "encoder", "main", "convergence", "families", "one_stage",
+             "detr")
     for k in kernels:
         k["launches"] = sum(k[f"{path}_launches"] for path in paths)
         if k["launches"] <= 0:
@@ -3925,6 +4303,7 @@ def main() -> int:
     print(json.dumps({"convergence": conv}))
     print(json.dumps({"families": families}))
     print(json.dumps({"one_stage": one_stage}))
+    print(json.dumps({"detr": detr}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({
@@ -3938,4 +4317,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--exported-child"]:
         sys.exit(exported_child(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--recipe-child"]:
+        sys.exit(recipe_child(*sys.argv[2:4]))
     sys.exit(main())

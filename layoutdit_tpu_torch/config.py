@@ -1,8 +1,8 @@
 """Configuration for the port: frozen dataclasses and a JSON loader.
 
 A subset of the JAX package's pydantic schema (``config/constructs.py``)
-with the same defaults: the ``DetectionBudget`` of the two-stage and the
-single-stage families, the serving
+with the same defaults: the ``DetectionBudget`` of the two-stage, the
+single-stage and the set-prediction families, the serving
 fields of ``ModelConfig`` and ``DataLoaderConfig``, the training fields
 of ``TrainingConfig`` and the evaluator's fields of ``EvalConfig``. The
 machine with the GPU has no pydantic, so these are plain frozen
@@ -32,7 +32,7 @@ class DetectionBudget:
     """Static budgets of the detectors (``constructs.py::DetectionBudget``):
     the two-stage ones at torchvision FasterRCNN's defaults, the
     ``retinanet_*`` and ``fcos_*`` ones at torchvision RetinaNet's and
-    FCOS's; each family reads only its own."""
+    FCOS's, and DETR's score threshold; each family reads only its own."""
 
     rpn_pre_nms_top_n_train: int = 2000
     rpn_pre_nms_top_n_test: int = 1000
@@ -71,6 +71,9 @@ class DetectionBudget:
     # cells match a gt only within radius x their stride of its center
     fcos_center_sampling_radius: float = 1.5
 
+    # DETR: every query is a detection (no NMS); this gates ``valid`` only
+    detr_score_thresh: float = 0.0
+
 
 @dataclasses.dataclass(frozen=True)
 class DataLoaderConfig:
@@ -87,8 +90,8 @@ class DataLoaderConfig:
 
 # the encoders the port runs (JAX ``BackboneType``: resnet50 waits)
 BACKBONES = ("dit", "dit-large")
-# the detector families the port runs (JAX ``ModelConfig.detector``: detr waits)
-DETECTORS = ("faster_rcnn", "retinanet", "fcos")
+# the detector families the port runs (JAX ``ModelConfig.detector``)
+DETECTORS = ("faster_rcnn", "retinanet", "fcos", "detr")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,10 +106,12 @@ class ModelConfig:
     are the ViTDet windows of ``constructs.py:440-443``; ``remat`` and
     ``remat_policy`` the encoder's activation checkpointing
     (``constructs.py:455-461``). ``detector`` picks the family:
-    ``faster_rcnn`` (with the cascade and mask modifiers), or the
+    ``faster_rcnn`` (with the cascade and mask modifiers), the
     single-stage ``retinanet`` and ``fcos``, whose heads run on the
     pyramid levels ``retinanet_levels`` / ``fcos_levels`` (indices into
-    p2..p5 + pool)."""
+    p2..p5 + pool), or the set-prediction ``detr``, whose decoder
+    (``detr_*``, facebookresearch/detr's defaults as JAX's
+    ``constructs.py:403-418``) cross-attends to level ``detr_level``."""
 
     backbone_type: str = "dit"
     num_classes: int = 5
@@ -137,13 +142,22 @@ class ModelConfig:
     detector: str = "faster_rcnn"
     retinanet_levels: tuple[int, ...] = (1, 2, 3, 4)
     fcos_levels: tuple[int, ...] = (1, 2, 3, 4)
+    detr_num_queries: int = 100
+    detr_layers: int = 6
+    detr_dim: int = 256
+    detr_heads: int = 8
+    detr_ffn_dim: int = 2048
+    # the background ("no object") class weight of the CE loss
+    detr_eos_coef: float = 0.1
+    # a loss per decoder layer, and (shared_matching) one assignment, the
+    # final layer's, reused by every auxiliary loss
+    detr_aux_loss: bool = True
+    detr_shared_matching: bool = False
+    detr_level: int = 2
 
     def __post_init__(self):
         if self.detector not in DETECTORS:
-            raise ValueError(
-                f"detector={self.detector!r}: the port runs {DETECTORS}; " + _DETR
-                if self.detector == "detr" else f"unknown detector {self.detector!r}"
-            )
+            raise ValueError(f"unknown detector {self.detector!r}; the port runs {DETECTORS}")
         if self.backbone_type not in BACKBONES:
             raise ValueError(
                 f"backbone_type {self.backbone_type!r}: the port runs {BACKBONES}; the "
@@ -226,25 +240,12 @@ class EvalConfig:
 # maps to (its JAX default, what it waits for). A config that leaves one
 # at its default loads; one that sets it otherwise is refused, naming the
 # work it waits for, rather than silently trained without it.
-_DETR = ("the DETR family waits for ROADMAP queue 1 item 5 (its set-prediction decoder "
-         "and ops/matching.py)")
-_FAMILIES = ("the DETR family (ROADMAP queue 1 item 5); the port runs faster_rcnn with its "
-             "cascade and mask modifiers, retinanet and fcos")
 _LORA = "LoRA (models/lora.py, ROADMAP queue 1 item 6)"
 _WAITING = {
     "detection_model_config": {
         "previous_layout_dit_checkpoint": (
             None, "warm-starting the encoder from a pretrained DiT checkpoint "
                   "(tools/convert_hf_checkpoint.py, ROADMAP queue 1 item 6)"),
-        "detr_num_queries": (100, _FAMILIES),
-        "detr_layers": (6, _FAMILIES),
-        "detr_dim": (256, _FAMILIES),
-        "detr_heads": (8, _FAMILIES),
-        "detr_ffn_dim": (2048, _FAMILIES),
-        "detr_eos_coef": (0.1, _FAMILIES),
-        "detr_aux_loss": (True, _FAMILIES),
-        "detr_shared_matching": (False, _FAMILIES),
-        "detr_level": (2, _FAMILIES),
         "lora_rank": (0, _LORA),
         "lora_alpha": (16.0, _LORA),
         "lora_targets": (["q", "v"], _LORA),

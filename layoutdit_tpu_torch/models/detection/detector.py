@@ -6,7 +6,9 @@ predictor per stage, ``cascade.py``) and the Mask R-CNN branch
 (``with_mask``: ``mask_head.py``); and the single-stage RetinaNet
 (``retinanet.py``) and FCOS (``fcos.py``), whose heads run on a subset of
 the pyramid (``retinanet_levels``, ``fcos_levels``) with no proposal or
-RoI stage.
+RoI stage; and the set-prediction DETR (``detr.py``), whose decoder
+cross-attends to one level (``detr_level``) and whose loss matches its
+queries to the gt by an exact Hungarian assignment (``ops/matching.py``).
 
 ``detector_predict(params, images, cfg)``: images [B, 3, S, S] in [0, 1]
 -> padded per-image ``Detections`` in S-space, and with
@@ -16,8 +18,10 @@ coordinates. ``detector_loss(params, images, gt ..., cfg, priorities,
 gt_masks)`` -> the four training losses, and ``loss_mask`` for a mask
 model; a single-stage model gives torchvision's loss keys
 (``loss_classification``, ``loss_bbox_reg`` and FCOS's
-``loss_bbox_ctrness``). The set-prediction family (DETR) waits for
-ROADMAP queue 1 item 5.
+``loss_bbox_ctrness``); DETR ``loss_ce``, ``loss_bbox`` and ``loss_giou``,
+and with ``detr_aux_loss`` the same per earlier decoder layer, suffixed
+``_aux{i}``. DETR predicts ``detr_num_queries`` detections an image, with
+no NMS.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from layoutdit_tpu_torch.models.backbone import (
     init_backbone_params,
 )
 from layoutdit_tpu_torch.models.detection import cascade as cascade_mod
+from layoutdit_tpu_torch.models.detection import detr as detr_mod
 from layoutdit_tpu_torch.models.detection import fcos as fcos_mod
 from layoutdit_tpu_torch.models.detection import mask_head as mask_mod
 from layoutdit_tpu_torch.models.detection import retinanet as retina_mod
@@ -122,12 +127,25 @@ class DetectorConfig:
     detector_kind: str = "faster_rcnn"
     retinanet_levels: tuple[int, ...] = (1, 2, 3, 4)
     fcos_levels: tuple[int, ...] = (1, 2, 3, 4)
+    # DETR's decoder (facebookresearch/detr's defaults), its loss's
+    # background weight, auxiliary losses, one shared assignment, and the
+    # pyramid level it cross-attends to (2: stride 16)
+    detr_num_queries: int = 100
+    detr_layers: int = 6
+    detr_dim: int = 256
+    detr_heads: int = 8
+    detr_ffn_dim: int = 2048
+    detr_eos_coef: float = 0.1
+    detr_aux_loss: bool = True
+    detr_level: int = 2
+    detr_shared_matching: bool = False
 
     def __post_init__(self):
         """JAX's ``__post_init_validate__``: no cascade or mask modifier
-        on a single-stage family, its levels inside the pyramid."""
+        on a single-stage or set-prediction family, its levels inside the
+        pyramid, DETR's width a multiple of its heads."""
         kind = self.detector_kind
-        if kind not in ("faster_rcnn", "retinanet", "fcos"):
+        if kind not in ("faster_rcnn", "retinanet", "fcos", "detr"):
             raise ValueError(f"unknown detector_kind {kind!r}")
         if kind == "faster_rcnn":
             return
@@ -137,6 +155,14 @@ class DetectorConfig:
         if self.with_mask:
             raise ValueError(f"with_mask requires the RoI pipeline; detector={kind!r} has no "
                              "mask branch")
+        if kind == "detr":
+            n_levels = len(self.grid_sizes)
+            if not 0 <= self.detr_level < n_levels:
+                raise ValueError(f"detr_level {self.detr_level} out of range for the "
+                                 f"{n_levels}-level pyramid")
+            if self.detr_dim % self.detr_heads:
+                raise ValueError("detr_dim must divide by detr_heads")
+            return
         levels = self.one_stage_levels
         n_levels = len(self.grid_sizes)
         if not levels or any(not 0 <= i < n_levels for i in levels):
@@ -223,6 +249,15 @@ class DetectorConfig:
             detector_kind=mc.detector,
             retinanet_levels=tuple(mc.retinanet_levels),
             fcos_levels=tuple(mc.fcos_levels),
+            detr_num_queries=mc.detr_num_queries,
+            detr_layers=mc.detr_layers,
+            detr_dim=mc.detr_dim,
+            detr_heads=mc.detr_heads,
+            detr_ffn_dim=mc.detr_ffn_dim,
+            detr_eos_coef=mc.detr_eos_coef,
+            detr_aux_loss=mc.detr_aux_loss,
+            detr_level=mc.detr_level,
+            detr_shared_matching=mc.detr_shared_matching,
         )
 
 
@@ -239,7 +274,8 @@ def init_detector(cfg: DetectorConfig, generator: torch.Generator, device="cuda"
     model has ``cascade_heads/s{i}`` (a box head and a class-agnostic
     predictor per stage) in place of ``box_head`` and ``box_predictor``;
     a mask model also has ``mask_head``. A single-stage model has the
-    backbone and ``retinanet_head`` or ``fcos_head`` only."""
+    backbone and ``retinanet_head`` or ``fcos_head`` only, DETR the
+    backbone and ``detr``."""
     c = cfg.backbone.fpn_out_channels
     in_features = c * cfg.roi_output_size ** 2
     backbone = init_backbone_params(cfg.backbone, generator, device)
@@ -249,6 +285,11 @@ def init_detector(cfg: DetectorConfig, generator: torch.Generator, device="cuda"
     if cfg.detector_kind == "fcos":
         return {"backbone": backbone, "fcos_head": fcos_mod.init_fcos_head_params(
             c, cfg.num_classes + 1, generator, device)}
+    if cfg.detector_kind == "detr":
+        return {"backbone": backbone, "detr": detr_mod.init_detr_params(
+            c, cfg.num_classes + 1, generator, device, d_model=cfg.detr_dim,
+            num_layers=cfg.detr_layers, ffn_dim=cfg.detr_ffn_dim,
+            num_queries=cfg.detr_num_queries)}
     params = {
         "backbone": backbone,
         "rpn_head": init_rpn_head_params(c, cfg.num_anchors_per_cell, generator, device),
@@ -274,10 +315,11 @@ def init_detector(cfg: DetectorConfig, generator: torch.Generator, device="cuda"
     return params
 
 
-# kept in float32: LayerNorm applies them in fp32, the position
-# embeddings are resampled in fp32 before the cast, and the
-# relative-position bias enters the scores in fp32
-_FP32_PARAMS = ("ln1", "ln2", "pos_embed", "rel_pos_table", "shared_rel_pos_table")
+# kept in float32: LayerNorm applies them in fp32 (DETR's decoder has
+# ln1-3 and decoder_norm), the position embeddings are resampled in fp32
+# before the cast, and the relative-position bias enters the scores in fp32
+_FP32_PARAMS = ("ln1", "ln2", "ln3", "decoder_norm", "pos_embed", "rel_pos_table",
+                "shared_rel_pos_table")
 
 
 def params_for_inference(params: dict, dtype: torch.dtype) -> dict:
@@ -412,6 +454,20 @@ def _one_stage_predict(params: dict, images: torch.Tensor, cfg: DetectorConfig) 
         return fcos_mod.fcos_postprocess(*out, anchors, counts, size, cfg.budget)
 
 
+def _detr_predict(params: dict, images: torch.Tensor, cfg: DetectorConfig) -> Detections:
+    """DETR's inference under the ranges ``backbone``, ``head`` (the
+    decoder and its heads, the last layer only) and ``postprocess``."""
+    with record_function("backbone"):
+        x = _normalize(images.float(), cfg).to(cfg.dtype)
+        feats = backbone_forward(params["backbone"], x, cfg.backbone, compute_dtype=cfg.dtype)
+    with record_function("head"):
+        logits, boxes01 = detr_mod.detr_forward(params["detr"], feats[cfg.detr_level],
+                                                cfg.detr_heads, return_intermediate=False)
+    with record_function("postprocess"):
+        return detr_mod.detr_postprocess(logits[-1], boxes01[-1], cfg.image_size,
+                                         cfg.budget.detr_score_thresh)
+
+
 def detector_predict(
     params: dict, images: torch.Tensor, cfg: DetectorConfig, with_masks: bool = False
 ):
@@ -421,17 +477,21 @@ def detector_predict(
     coordinates (``eval/masks.py`` pastes them), 0 for invalid slots.
 
     A single-stage model gives up to its family's
-    ``{retinanet,fcos}_detections_per_img`` detections an image.
+    ``{retinanet,fcos}_detections_per_img`` detections an image; DETR one
+    per query, ``detr_num_queries``, sorted by score, those over
+    ``detr_score_thresh`` valid.
 
     Its stages run under ``torch.profiler.record_function`` ranges
     (``backbone``, ``rpn``, ``roi_heads``, ``postprocess``, and
-    ``mask_head``; a single-stage model's ``backbone``, ``head`` and
-    ``postprocess``) so a profiler trace splits a request by stage;
+    ``mask_head``; a single-stage or DETR model's ``backbone``, ``head``
+    and ``postprocess``) so a profiler trace splits a request by stage;
     without a profiler they cost a few microseconds."""
     if with_masks and not cfg.with_mask:
         if cfg.detector_kind != "faster_rcnn":
             raise ValueError(f"detector={cfg.detector_kind!r} has no mask branch")
         raise ValueError("with_masks=True needs a model with the mask branch (with_mask)")
+    if cfg.detector_kind == "detr":
+        return _detr_predict(params, images, cfg)
     if cfg.detector_kind != "faster_rcnn":
         return _one_stage_predict(params, images, cfg)
     anchors, counts = _anchors(cfg, images.device)
@@ -480,8 +540,8 @@ def draw_priorities(
 ) -> SamplerPriorities | None:
     """Sampler priorities from ``generator`` (on the device it names).
     The JAX package draws these with ``jax.random.uniform``, which torch
-    cannot reproduce; tests pass JAX's draws in instead. A single-stage
-    model samples nothing: None, and no draw."""
+    cannot reproduce; tests pass JAX's draws in instead. A single-stage or
+    DETR model samples nothing: None, and no draw."""
     if cfg.detector_kind != "faster_rcnn":
         return None
     device = generator.device
@@ -500,7 +560,7 @@ def detector_loss(
     gt_labels: torch.Tensor,  # [B, G] int 1..NC
     gt_valid: torch.Tensor,  # [B, G] bool
     cfg: DetectorConfig,
-    priorities: SamplerPriorities | None,  # None for a single-stage model
+    priorities: SamplerPriorities | None,  # None for a single-stage or DETR model
     gt_masks: torch.Tensor | None = None,  # [B, G, M, M] {0, 1}, a mask model's
 ) -> dict[str, torch.Tensor]:
     """Training forward -> the four-loss dict of the JAX package's
@@ -509,15 +569,20 @@ def detector_loss(
     scalars; a cascade model sums its stages' losses, weighted, into the
     last two; a mask model adds ``loss_mask``. A single-stage model gives
     ``loss_classification`` and ``loss_bbox_reg``, and FCOS
-    ``loss_bbox_ctrness`` too (torchvision's keys, as JAX's).
+    ``loss_bbox_ctrness`` too (torchvision's keys, as JAX's); DETR
+    ``loss_ce``, ``loss_bbox``, ``loss_giou`` and, with ``detr_aux_loss``,
+    the same for each earlier decoder layer, suffixed ``_aux{i}``.
 
     The predictions run under a ``record_function("forward")`` range, with
-    ``"backbone"``, ``"rpn"`` (a single-stage model's ``"head"``) and
-    ``"mask_head"`` ranges inside it as in ``detector_predict``, and the
-    losses under ``"loss"``."""
+    ``"backbone"``, ``"rpn"`` (a single-stage or DETR model's ``"head"``)
+    and ``"mask_head"`` ranges inside it as in ``detector_predict``, and the
+    losses under ``"loss"``, DETR's cost and assignment under
+    ``"matcher"`` inside it."""
     if cfg.with_mask and gt_masks is None:
         raise ValueError("cfg.with_mask=True requires gt_masks [B, G, M, M] "
                          "(the data loader's load_masks)")
+    if cfg.detector_kind == "detr":
+        return _detr_loss(params, images, gt_boxes, gt_labels, gt_valid, cfg)
     if cfg.detector_kind != "faster_rcnn":
         return _one_stage_loss(params, images, gt_boxes, gt_labels, gt_valid, cfg)
     anchors, counts = _anchors(cfg, images.device)
@@ -603,6 +668,31 @@ def _one_stage_loss(params, images, gt_boxes, gt_labels, gt_valid,
             *out, anchors, counts, gt_boxes, gt_labels, gt_valid, cfg.budget)
         return {"loss_classification": loss_cls, "loss_bbox_reg": loss_reg,
                 "loss_bbox_ctrness": loss_ctr}
+
+
+def _detr_loss(params, images, gt_boxes, gt_labels, gt_valid,
+               cfg: DetectorConfig) -> dict[str, torch.Tensor]:
+    """DETR's training losses (JAX ``detector_loss``'s DETR branch): the
+    Hungarian assignment needs a query for every (padded) gt slot."""
+    if gt_boxes.shape[1] > cfg.detr_num_queries:
+        raise ValueError(
+            f"max_gt_boxes {gt_boxes.shape[1]} exceeds detr_num_queries "
+            f"{cfg.detr_num_queries}: the Hungarian assignment needs a query per (padded) "
+            "gt slot")
+    with record_function("forward"):
+        with record_function("backbone"):
+            x = _normalize(images.float(), cfg).to(cfg.dtype)
+            feats = backbone_forward(params["backbone"], x, cfg.backbone,
+                                     compute_dtype=cfg.dtype, remat=cfg.remat,
+                                     remat_policy=cfg.remat_policy)
+        with record_function("head"):
+            logits, boxes01 = detr_mod.detr_forward(params["detr"], feats[cfg.detr_level],
+                                                    cfg.detr_heads,
+                                                    return_intermediate=cfg.detr_aux_loss)
+    with record_function("loss"):
+        return detr_mod.detr_loss(logits, boxes01, gt_boxes, gt_labels, gt_valid,
+                                  cfg.image_size, cfg.detr_eos_coef, cfg.detr_aux_loss,
+                                  shared_matching=cfg.detr_shared_matching)
 
 
 def _cascade_stages(params, feats, samples, gt_boxes, gt_labels, gt_valid,

@@ -2,8 +2,8 @@
 
 ``params_from_jax`` takes the tree that ``init_detector_params``
 (``layoutdit_tpu/models/detection/detector.py``) returns for a
-``faster_rcnn``, ``retinanet`` or ``fcos`` DiT detector, as numpy
-arrays, and builds the port's
+``faster_rcnn``, ``retinanet``, ``fcos`` or ``detr`` DiT detector, as
+numpy arrays, and builds the port's
 parameter dictionary, so both packages compute the same function;
 ``params_to_jax`` maps port parameters, or their gradients, back leaf
 by leaf:
@@ -28,7 +28,13 @@ by leaf:
     ``retinanet_head/{cls,reg}/{conv1..4,final}`` and FCOS's
     ``fcos_head/{cls_tower,reg_tower}/conv{i}`` (with ``gn_scale`` and
     ``gn_bias``), ``cls_logits``, ``bbox_reg`` and ``ctrness`` are OIHW
-    convs, as torch's, and pass through with no transpose or flip.
+    convs, as torch's, and pass through with no transpose or flip;
+  * DETR has no ``rpn_head`` either: ``detr/`` holds ``proj``,
+    ``query_embed`` [Q, d] (as it is), ``decoder/layer{i}`` (a list in
+    the port) with ``{self_attn,cross_attn}/{in_proj,out_proj}``,
+    ``ln1-3``, ``ffn1-2``, then ``decoder_norm``, ``class_head`` and
+    ``bbox_mlp/fc1-3``; every linear kernel is transposed, the packed
+    ``in_proj`` [d, 3d] becoming [3d, d] with q, k, v in row blocks.
 """
 
 from __future__ import annotations
@@ -185,6 +191,39 @@ def _fcos_head_from_jax(head: Mapping, device) -> dict:
     return out
 
 
+def _detr_from_jax(head: Mapping, device) -> dict:
+    layers = sorted(head["decoder"].items(), key=lambda kv: int(kv[0][len("layer"):]))
+    return {
+        "proj": _linear(head["proj"], device),
+        "query_embed": _t(head["query_embed"], device),
+        "decoder": [{
+            **{a: {n: _linear(layer[a][n], device) for n in ("in_proj", "out_proj")}
+               for a in ("self_attn", "cross_attn")},
+            **{n: _ln(layer[n], device) for n in ("ln1", "ln2", "ln3")},
+            **{n: _linear(layer[n], device) for n in ("ffn1", "ffn2")},
+        } for _, layer in layers],
+        "decoder_norm": _ln(head["decoder_norm"], device),
+        "class_head": _linear(head["class_head"], device),
+        "bbox_mlp": {n: _linear(head["bbox_mlp"][n], device) for n in ("fc1", "fc2", "fc3")},
+    }
+
+
+def _detr_to_jax(head: dict) -> dict:
+    return {
+        "proj": _linear_to_jax(head["proj"]),
+        "query_embed": _np(head["query_embed"]),
+        "decoder": {f"layer{i}": {
+            **{a: {n: _linear_to_jax(layer[a][n]) for n in ("in_proj", "out_proj")}
+               for a in ("self_attn", "cross_attn")},
+            **{n: _ln_to_jax(layer[n]) for n in ("ln1", "ln2", "ln3")},
+            **{n: _linear_to_jax(layer[n]) for n in ("ffn1", "ffn2")},
+        } for i, layer in enumerate(head["decoder"])},
+        "decoder_norm": _ln_to_jax(head["decoder_norm"]),
+        "class_head": _linear_to_jax(head["class_head"]),
+        "bbox_mlp": {n: _linear_to_jax(head["bbox_mlp"][n]) for n in ("fc1", "fc2", "fc3")},
+    }
+
+
 def params_from_jax(tree: Mapping, device="cpu") -> dict:
     """JAX ``init_detector_params`` tree (numpy leaves) -> port params."""
     fpn = tree["backbone"]["fpn"]
@@ -202,6 +241,9 @@ def params_from_jax(tree: Mapping, device="cpu") -> dict:
         return out
     if "fcos_head" in tree:
         out["fcos_head"] = _fcos_head_from_jax(tree["fcos_head"], device)
+        return out
+    if "detr" in tree:
+        out["detr"] = _detr_from_jax(tree["detr"], device)
         return out
     out["rpn_head"] = {n: _conv(tree["rpn_head"][n], device) for n in ("conv", "cls", "bbox")}
     if "cascade_heads" in tree:
@@ -240,6 +282,10 @@ def _linear_to_jax(p: dict) -> dict:
     return {"kernel": _np(p["weight"]).T, "bias": _np(p["bias"])}
 
 
+def _ln_to_jax(p: dict) -> dict:
+    return {"scale": _np(p["weight"]), "bias": _np(p["bias"])}
+
+
 def _conv_to_jax(p: dict) -> dict:
     return {"kernel": _np(p["weight"]), "bias": _np(p["bias"])}
 
@@ -248,8 +294,8 @@ def _vit_layer_to_jax(layer: dict) -> dict:
     w, b = _np(layer["qkv"]["weight"]), _np(layer["qkv"]["bias"])
     d = w.shape[1]
     out = {
-        "ln1": {"scale": _np(layer["ln1"]["weight"]), "bias": _np(layer["ln1"]["bias"])},
-        "ln2": {"scale": _np(layer["ln2"]["weight"]), "bias": _np(layer["ln2"]["bias"])},
+        "ln1": _ln_to_jax(layer["ln1"]),
+        "ln2": _ln_to_jax(layer["ln2"]),
         "q": {"kernel": w[:d].T, "bias": b[:d]},
         "k": {"kernel": w[d:2 * d].T},
         "v": {"kernel": w[2 * d:].T, "bias": b[2 * d:]},
@@ -320,6 +366,9 @@ def params_to_jax(params: dict) -> dict:
                for t in ("cls_tower", "reg_tower")},
             **{k: _conv_to_jax(head[k]) for k in _FCOS_OUT},
         }
+        return out
+    if "detr" in params:
+        out["detr"] = _detr_to_jax(params["detr"])
         return out
     out["rpn_head"] = {n: _conv_to_jax(params["rpn_head"][n]) for n in ("conv", "cls", "bbox")}
     if "cascade_heads" in params:

@@ -4,8 +4,10 @@ Port of ``layoutdit_tpu/ops/boxes.py``: boxes are ``[x1, y1, x2, y2]``
 float tensors; ``encode_boxes``/``decode_boxes`` are torchvision's
 ``BoxCoder.encode_single``/``decode_single``, the latter with the
 ``log(1000/16)`` clamp on dw/dh; ``encode_boxes_linear`` /
-``decode_boxes_linear`` its ``BoxLinearCoder`` (FCOS), and
-``generalized_box_iou`` the elementwise GIoU of FCOS's box loss.
+``decode_boxes_linear`` its ``BoxLinearCoder`` (FCOS),
+``generalized_box_iou`` the elementwise GIoU of FCOS's box loss and of
+DETR's cost and loss, and ``cxcywh_to_xyxy`` / ``xyxy_to_cxcywh`` DETR's
+box formats (JAX ``models/detection/detr.py``'s private pair).
 """
 
 from __future__ import annotations
@@ -53,6 +55,18 @@ def generalized_box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Ten
             - torch.minimum(boxes1[..., :2], boxes2[..., :2])).clamp(min=0.0)
     enclosure = wh_e[..., 0] * wh_e[..., 1]
     return torch.where(enclosure > 0, iou - (enclosure - union) / enclosure, iou)
+
+
+def cxcywh_to_xyxy(b: torch.Tensor) -> torch.Tensor:
+    """[..., 4] (cx, cy, w, h) -> (x1, y1, x2, y2)."""
+    cx, cy, w, h = b.unbind(-1)
+    return torch.stack([cx - 0.5 * w, cy - 0.5 * h, cx + 0.5 * w, cy + 0.5 * h], dim=-1)
+
+
+def xyxy_to_cxcywh(b: torch.Tensor) -> torch.Tensor:
+    """[..., 4] (x1, y1, x2, y2) -> (cx, cy, w, h)."""
+    x1, y1, x2, y2 = b.unbind(-1)
+    return torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1], dim=-1)
 
 
 def clip_boxes_to_image(boxes: torch.Tensor, height: float, width: float) -> torch.Tensor:

@@ -8,7 +8,9 @@ and prints, from that step's chrome trace: its wall time, the device's
 busy time (union of kernel and copy intervals) and idle share, host time
 and device work launched in each stage (the ``record_function`` ranges
 ``forward``, ``loss``, ``backward``, ``optimizer``; inside the forward
-``backbone`` and ``rpn``; inside the backward ``rel_pos_table_grad``,
+``backbone`` and ``rpn`` (a single-stage or DETR model's ``head``);
+inside the loss DETR's ``matcher``, its cost and assignment; inside the
+backward ``rel_pos_table_grad``,
 the relative-position tables' gradient, summed over its calls), the
 kernels that
 take the most device time, and the NMS host syncs of the step. The last
@@ -42,8 +44,8 @@ from layoutdit_tpu_torch.tools.make_fixture import make_fixture
 from layoutdit_tpu_torch.tools.profile_serving import summarize_trace
 from layoutdit_tpu_torch.train.trainer import Trainer
 
-STAGES = ("forward", "backbone", "rpn", "head", "mask_head", "loss", "backward", "optimizer",
-          "rel_pos_table_grad")
+STAGES = ("forward", "backbone", "rpn", "head", "mask_head", "loss", "matcher", "backward",
+          "optimizer", "rel_pos_table_grad")
 REPO = Path(__file__).resolve().parents[2]
 
 

@@ -1,9 +1,11 @@
 """Trainer for the ``faster_rcnn`` detector, with its cascade and mask
-modifiers, and the single-stage ``retinanet`` and ``fcos`` (port of
-``layoutdit_tpu/train/trainer.py``, single card). A mask model's loader
-rasterises the gt masks (``gt_masks``), which reach each step; over tar
-shards it raises, as JAX's. A single-stage model's step draws no sampler
-priorities (``draw_priorities`` gives None).
+modifiers, the single-stage ``retinanet`` and ``fcos``, and the
+set-prediction ``detr`` (port of ``layoutdit_tpu/train/trainer.py``,
+single card). A mask model's loader rasterises the gt masks
+(``gt_masks``), which reach each step; over tar shards it raises, as
+JAX's. A single-stage or DETR model's step draws no sampler priorities
+(``draw_priorities`` gives None); a DETR step solves its assignments in
+one matcher launch.
 
 The JAX trainer's recipe and run state:
   * optax's AdamW chain (``train/optim.py``): the configured

@@ -393,7 +393,7 @@ def test_eval_config_fields_load_with_jax_defaults():
 
 
 @pytest.mark.parametrize("section,key,value,match", [
-    ("detection_model_config", "detector", "detr", "queue 1 item 5"),
+    ("detection_model_config", "backbone_type", "resnet50", "queue 1 item 6"),
     ("eval_config", "device", "cpu", "CUDA card"),
     ("detection_model_config", "previous_layout_dit_checkpoint", "dit.pth", "queue 1 item 6"),
     ("train_config", "lora_freeze_base", False, "LoRA training"),

@@ -238,23 +238,28 @@ def test_slice_configs_load_in_both_packages():
 
 @pytest.mark.parametrize("family", ["retinanet", "fcos", "detr"])
 def test_other_families_are_refused(family):
-    """RetinaNet and FCOS load, with their levels and their budget at
-    JAX's defaults; DETR is refused, naming queue 1 item 5."""
-    path = os.path.join(REPO, "configs", f"{family}.json")
-    if family == "detr":
-        with pytest.raises(ValueError, match="detector.*queue 1 item 5"):
-            load_run_config(path)
-        return
+    """RetinaNet, FCOS and DETR load, with their levels (DETR its
+    ``detr_*`` fields) and their budget at JAX's defaults,
+    ``detr_score_thresh`` included."""
     from layoutdit_tpu.config.constructs import DetectionBudget as JaxBudget
+    from layoutdit_tpu.config.constructs import ModelConfig as JaxModelConfig
 
-    mc = load_run_config(path).model
+    rc = load_run_config(os.path.join(REPO, "configs", f"{family}.json"))
+    mc = rc.model
     assert mc.detector == family
-    assert getattr(mc, f"{family}_levels") == (1, 2, 3, 4)
     jb = JaxBudget()
     for k in (f.name for f in dataclasses.fields(mc.detection_budget)):
         assert getattr(mc.detection_budget, k) == getattr(jb, k), k
     cfg = DetectorConfig.from_model_config(mc)
     assert cfg.detector_kind == family
+    if family == "detr":
+        jm = JaxModelConfig()
+        for k in (f.name for f in dataclasses.fields(mc) if f.name.startswith("detr_")):
+            assert getattr(mc, k) == getattr(jm, k), k
+            assert getattr(cfg, k) == getattr(jm, k), k
+        assert mc.detection_budget.detr_score_thresh == 0.0 and rc.data.max_gt_boxes == 32
+        return
+    assert getattr(mc, f"{family}_levels") == (1, 2, 3, 4)
     assert cfg.num_anchors_per_cell == (9 if family == "retinanet" else 3)
 
 

@@ -199,14 +199,15 @@ def test_load_serving_config(tmp_path):
     assert dl.batch_size == jax_cfg.data_loader_config.batch_size == 4
 
     bad = tmp_path / "bad.json"
-    # the mask and cascade modifiers, RetinaNet and FCOS are ported; DETR waits
+    # the mask and cascade modifiers, RetinaNet, FCOS and DETR are ported
     bad.write_text(json.dumps({"detection_model_config": {"with_mask": True}}))
     assert port_config.load_config(str(bad))[0].with_mask
     bad.write_text(json.dumps({"detection_model_config": {"detector": "fcos"}}))
     assert port_config.load_config(str(bad))[0].detector == "fcos"
-    bad.write_text(json.dumps({"detection_model_config": {"detector": "detr"}}))
-    with pytest.raises(ValueError, match="detector.*queue 1 item 5"):
-        port_config.load_config(str(bad))
+    bad.write_text(json.dumps({"detection_model_config": {"detector": "detr",
+                                                          "detr_shared_matching": True}}))
+    mc = port_config.load_config(str(bad))[0]
+    assert mc.detector == "detr" and mc.detr_shared_matching
     # windows are ported: the field loads
     bad.write_text(json.dumps({"detection_model_config": {"window_size": 16}}))
     assert port_config.load_config(str(bad))[0].window_size == 16
