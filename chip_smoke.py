@@ -87,8 +87,8 @@ trains each, scores 64 pages, exports the 224 px bucket and holds the
 artifact's detections to the live ones, with no RoIAlign launch anywhere
 (both recipes run in bf16 to JAX's floors in phase ``recipes``). Then
 phase ``recipes`` runs the four family recipes (cascade, mask, RetinaNet,
-FCOS), each in a fresh process (``--recipe-child``), all at once on the
-card. Last, phase ``detr`` (``--only detr`` alone, after the build) holds
+FCOS) and the LoRA recipe, each in a fresh process (``--recipe-child``),
+all at once on the card. Last, phase ``detr`` (``--only detr`` alone, after the build) holds
 DETR's
 matcher kernel (row M1, ``csrc/matching.cu``) to its plain version, the
 same indices and step counts, at a train step's problems, and times it
@@ -100,7 +100,25 @@ against the live engine; trains it paper-exact and with shared matching
 matcher launched once a train step and never in predict. DETR's two
 recipes (``tools/convergence.py --family
 detr|detr_shared --n-train 1024 --epochs 100``) run outside the default
-run, ``--only detr_recipe``. It
+run, ``--only detr_recipe``. Then phase ``finetune`` (``--only
+finetune``): a dit-base state_dict made from the manifest's names and
+shapes, converted by ``tools/convert_hf_checkpoint.py`` and warm-started
+by ``previous_layout_dit_checkpoint`` and by ``LAYOUTDIT_DIT_BASE_PTH``
+(the encoder the checkpoint's bits); ``configs/lora.json`` (r16 on q and
+v) trained at 224 px, batch 16, through ``Trainer`` (the first forward
+the adapter-free model's bits, the frozen encoder's bits kept, every
+adapter moved, moments for the trainable leaves only), timed beside the
+full fine-tune; ``tools/merge_lora.py``; the merged model served in bf16
+and int8 in both buckets (the int8 encoder within 0.03 of the bf16 one,
+the same detection counts) and its 224 px bucket exported with
+``--int8``, the artifact's detections the live int8 engine's bits. Then
+phase ``resnet`` (``--only resnet``): the ResNet-50 + FPN Faster R-CNN
+served in both buckets, profiled by stage, trained at 224 px, batch 16,
+scored over 64 pages and exported, with RoIAlign launched and no
+attention kernel. Phase ``recipes`` also runs ``tools/lora_quality.py``
+(the full fine-tune and LoRA r8 from the same pretrained weights, r8 held
+to 0.85 x the full fine-tune's held-out mAP) beside the family recipes;
+``--only lora_recipe`` runs it alone. It
 checks that every kernel ran on its path, the right number of times a
 train step, and the probes' kernels on none but theirs. One profiled request
 per serving bucket and one profiled 224 px train step print the
@@ -3200,8 +3218,9 @@ FAMILY_SERVING_BATCH = 4  # serving requests, as the serving phase's
 FAMILY_ROUNDS = 3  # timed rounds of the three requests
 FAMILY_SCORE_PAGES = 64
 # RoIAlign launches a batch (forward) and a step (backward): one per
-# cascade stage; the box head's and the mask head's for a mask model
-FAMILY_ROI = {"cascade": 3, "mask": 2}
+# cascade stage; the box head's and the mask head's for a mask model; the
+# box head's for the ResNet-50 Faster R-CNN
+FAMILY_ROI = {"cascade": 3, "mask": 2, "resnet": 1}
 MASK_P = 14
 
 
@@ -3316,10 +3335,10 @@ def _family_cfg(path: Path, batch: int, model_overrides: dict | None = None):
 
 def _family_launches(family: str, cfg, batches: int, train: bool) -> dict:
     """Launches of ``batches`` serving batches or train steps at 224 px: a
-    short-attention kernel a layer (and its backward in training),
-    FAMILY_ROI RoIAligns (none for a single-stage family or DETR), and a
-    DETR step's one matcher launch."""
-    n = cfg.backbone.vit.num_hidden_layers
+    short-attention kernel a layer (and its backward in training; none for
+    ResNet-50), FAMILY_ROI RoIAligns (none for a single-stage family or
+    DETR), and a DETR step's one matcher launch."""
+    n = 0 if cfg.backbone_kind == "resnet50" else cfg.backbone.vit.num_hidden_layers
     roi = FAMILY_ROI.get(family, 0)
     out = {name: 0 for name in _counters()}
     out.update(short_attention=n * batches, roi_align=roi * batches)
@@ -3708,28 +3727,30 @@ def _one_stage_serving(family: str, model, kernels: list[dict]) -> dict:
 
 
 def _one_stage_export(family: str, model, kernels: list[dict],
-                      path_key: str = "one_stage") -> dict:
-    """The 224 px bucket of the model (a single-stage or DETR one) at score
-    threshold 0 exported on the card, run by ``ExportedInferenceEngine``
-    over the deploy phase's three requests (``_deploy_requests``):
-    the detections of each page held to the live engine's (labels equal,
-    boxes within DEPLOY_BOX_TOL px, scores within DEPLOY_SCORE_TOL, and
-    the pages whose three arrays are the same bits counted); the exported
-    run's launches, 12 of row 1 a batch, are the path's."""
+                      path_key: str = "one_stage", thresh_zero: bool = True) -> dict:
+    """The 224 px bucket of the model at score threshold 0 (the config's
+    without ``thresh_zero``) exported on the card, run by
+    ``ExportedInferenceEngine`` over the deploy phase's three requests
+    (``_deploy_requests``): the detections of each page held to the live
+    engine's (labels equal, boxes within DEPLOY_BOX_TOL px, scores within
+    DEPLOY_SCORE_TOL, and the pages whose three arrays are the same bits
+    counted); the exported run's launches (``_family_launches``: 12 of
+    row 1 a batch, FAMILY_ROI of row 7) are the path's."""
     from layoutdit_tpu_torch.eval.serving import BatchInferenceEngine, ExportedInferenceEngine
     from layoutdit_tpu_torch.export import export_detector
     from layoutdit_tpu_torch.models.detection.detector import DetectorModel
 
-    cfg = _score_thresh_zero(model.cfg)
+    cfg = _score_thresh_zero(model.cfg) if thresh_zero else model.cfg
+    kw = {"score_thresh": 0.0} if thresh_zero else {}
     requests = _deploy_requests()
     live = BatchInferenceEngine(DetectorModel(model.params, cfg), image_sizes=(224,),
-                                batch_size=FAMILY_SERVING_BATCH, score_thresh=0.0)
+                                batch_size=FAMILY_SERVING_BATCH, **kw)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         export_detector(model.params, cfg, tmp, image_sizes=(224,),
                         batch_size=FAMILY_SERVING_BATCH, device="cuda")
         export_s = time.perf_counter() - t0
-        engine = ExportedInferenceEngine(tmp, score_thresh=0.0)
+        engine = ExportedInferenceEngine(tmp, **kw)
         engine.predict_pages(requests[0][1][:4])  # warm-up
         torch.cuda.synchronize()
         _reset_counts()
@@ -3739,9 +3760,8 @@ def _one_stage_export(family: str, model, kernels: list[dict],
         gc.unfreeze()  # the loader froze every object alive then; these go with the engine
         del engine
     batches = sum(-(-len(pages) // FAMILY_SERVING_BATCH) for _, pages in requests)
-    want = {name: 0 for name in _counters()}
-    want.update(short_attention=model.cfg.backbone.vit.num_hidden_layers * batches)
-    _check_launches(f"{family} exported", counts, want, 1)
+    _check_launches(f"{family} exported", counts,
+                    _family_launches(family, cfg, batches, train=False), 1)
     for k in kernels:
         k[f"{path_key}_launches"] = k.get(f"{path_key}_launches", 0) + counts[k["name"]]
     box_err = score_err = 0.0
@@ -3754,7 +3774,8 @@ def _one_stage_export(family: str, model, kernels: list[dict],
                              for a in ("boxes", "scores", "labels"))
             pages += 1
             n_dets += len(w.boxes)
-    print(f"  {family} export of the 224 px bucket (threshold 0): {export_s:.2f} s; {pages} "
+    print(f"  {family} export of the 224 px bucket (threshold {'0' if thresh_zero else 'the '
+          f'config\'s'}): {export_s:.2f} s; {pages} "
           f"pages, {n_dets} detections equal to the live engine's (largest box difference "
           f"{box_err:.6g} px, score {score_err:.6g}), {same_bits} of {pages} pages the same bits")
     return {"export_s": export_s, "pages": pages, "detections": n_dets,
@@ -3763,17 +3784,18 @@ def _one_stage_export(family: str, model, kernels: list[dict],
 
 
 def _one_stage_score(family: str, path: Path, params, kernels: list[dict],
-                     path_key: str = "one_stage") -> dict:
-    """``Evaluator.score()`` of the trained model (a single-stage or DETR
-    one) over FAMILY_SCORE_PAGES fixture pages at batch 16 with the
-    family's score threshold at 0 (at
-    the config's, few trained steps leave no detection): bbox metrics
-    finite, pages/s; launches 12 of row 1 a batch."""
+                     path_key: str = "one_stage", model_overrides: dict | None = None,
+                     thresh_zero: bool = True) -> dict:
+    """``Evaluator.score()`` of the trained model (the config at ``path``
+    with ``model_overrides``) over FAMILY_SCORE_PAGES fixture pages at
+    batch 16, a single-stage or DETR model's score threshold at 0 (at the
+    config's, few trained steps leave no detection) with ``thresh_zero``:
+    bbox metrics finite, pages/s; launches ``_family_launches``'s."""
     from layoutdit_tpu_torch.eval.evaluator import Evaluator
     from layoutdit_tpu_torch.models.detection.detector import DetectorModel
 
-    base, cfg = _family_cfg(path, FAMILY_BATCH)
-    model = DetectorModel(params, _score_thresh_zero(cfg))
+    base, cfg = _family_cfg(path, FAMILY_BATCH, model_overrides)
+    model = DetectorModel(params, _score_thresh_zero(cfg) if thresh_zero else cfg)
     with tempfile.TemporaryDirectory() as tmp:
         rc = dataclasses.replace(_fixture_run(base, tmp, FAMILY_SCORE_PAGES),
                                  eval_input="samples")
@@ -3960,59 +3982,69 @@ def _detr_kernels(gen, kernels: list[dict]) -> dict:
     return out
 
 
-def _detr_serving(model, kernels: list[dict]) -> dict:
+def _bucket_serving(family: str, model, kernels: list[dict], path_key: str, roi: int = 0,
+                    thresh_zero: bool = True, int8: bool = False,
+                    per_page: int | None = None) -> tuple[dict, dict]:
     """The deploy phase's three requests in one 224 px bucket and its four
     large pages in one 1024 px bucket, batch 4, FAMILY_ROUNDS timed
-    rounds, every detection kept (engine threshold 0): latency, 100
-    detections a page;
-    launches 12 of row 1 a 224 px batch and 12 of row 3 a 1024 px batch,
-    no other (no RoIAlign, no matcher). Then one profiled request of four
-    pages a bucket by stage (``backbone``, ``head``, ``postprocess``)."""
+    rounds: latency, detections (``per_page`` a page, when given); every
+    detection kept (engine threshold 0, the family's at 0 with
+    ``thresh_zero``) or the config's thresholds; an int8 W8A8 encoder with
+    ``int8``. Launches 12 of row 1 a 224 px batch and 12 of row 3 a 1024
+    px batch (none for ResNet-50), ``roi`` of row 7 a batch, no other.
+    Then one profiled request of four pages a bucket by stage
+    (``backbone``, ``head``, ``postprocess``). -> (results, the engine of
+    each bucket)."""
     from layoutdit_tpu_torch.eval.serving import BatchInferenceEngine
+    from layoutdit_tpu_torch.models.detection.detector import DetectorModel
     from layoutdit_tpu_torch.tools.profile_serving import profile_bucket
 
+    cfg = _score_thresh_zero(model.cfg) if thresh_zero else model.cfg
+    model = DetectorModel(model.params, cfg)
     requests = _deploy_requests()
     large = requests[1][1]
     sizes = ("8 small pages", "4 large pages", "4 small + 2 large pages")
     reqs = [(224, f"224 px bucket, {d}", pages) for d, (_, pages) in zip(sizes, requests)]
     reqs.append((1024, "1024 px bucket, 4 large pages", large))
-    engines = {size: BatchInferenceEngine(model, image_sizes=(size,), score_thresh=0.0,
-                                          batch_size=FAMILY_SERVING_BATCH)
+    kw = {"score_thresh": 0.0} if thresh_zero else {}
+    engines = {size: BatchInferenceEngine(model, image_sizes=(size,), int8=int8,
+                                          batch_size=FAMILY_SERVING_BATCH, **kw)
                for size in (224, 1024)}
     engines[224].predict_pages(requests[0][1][:4])  # warm-up, both buckets
     engines[1024].predict_pages(large)
     torch.cuda.synchronize()
     _reset_counts()
     latencies = {name: [] for _, name, _ in reqs}
+    dets = {}
     batches = {224: 0, 1024: 0}
-    queries = model.cfg.detr_num_queries
     for _ in range(FAMILY_ROUNDS):
         for size, name, pages in reqs:
             t0 = time.perf_counter()
             results = engines[size].predict_pages(pages)
             torch.cuda.synchronize()
             latencies[name].append((time.perf_counter() - t0) * 1e3)
-            if _check_pages(pages, results) != queries * len(pages):
-                raise RuntimeError(f"detr serving: not {queries} detections a page")
+            dets[name] = _check_pages(pages, results)
+            if per_page is not None and dets[name] != per_page * len(pages):
+                raise RuntimeError(f"{family} serving: not {per_page} detections a page")
             batches[size] += -(-len(pages) // FAMILY_SERVING_BATCH)
     counts = _counts()
-    n = model.cfg.backbone.vit.num_hidden_layers
+    n = 0 if cfg.backbone_kind == "resnet50" else cfg.backbone.vit.num_hidden_layers
     want = {name: 0 for name in _counters()}
-    want.update(short_attention=n * batches[224], flash_attention=n * batches[1024])
-    _check_launches("detr serving", counts, want, 1)
+    want.update(short_attention=n * batches[224], flash_attention=n * batches[1024],
+                roi_align=roi * (batches[224] + batches[1024]))
+    _check_launches(f"{family} serving", counts, want, 1)
     for k in kernels:
-        k["detr_launches"] = k.get("detr_launches", 0) + counts[k["name"]]
-    out = {"batches": batches, "launches": counts, "detections_per_page": queries,
-           "profile": {}}
+        k[f"{path_key}_launches"] = k.get(f"{path_key}_launches", 0) + counts[k["name"]]
+    out = {"batches": batches, "launches": counts, "profile": {}}
     for size, name, pages in reqs:
-        out[name] = {**_spread(latencies[name]),
+        out[name] = {**_spread(latencies[name]), "detections": dets[name],
                      "pages_per_s": len(pages) * 1e3 / float(np.median(latencies[name]))}
-        print(f"  detr {name}: latency median {out[name]['median']:.2f} ms (min "
+        print(f"  {family} {name}: latency median {out[name]['median']:.2f} ms (min "
               f"{out[name]['min']:.2f}, max {out[name]['max']:.2f}), "
-              f"{out[name]['pages_per_s']:.2f} pages/s, {queries} detections a page")
+              f"{out[name]['pages_per_s']:.2f} pages/s, {dets[name]} detections")
     with tempfile.TemporaryDirectory() as tmp:
         for size, pages in ((224, requests[0][1][:FAMILY_SERVING_BATCH]), (1024, large)):
-            p = profile_bucket(engines[size], pages, Path(tmp) / f"detr_{size}.json")
+            p = profile_bucket(engines[size], pages, Path(tmp) / f"{family}_{size}.json")
             st = p["stages"]
             post = st.get("postprocess", {}).get("device_ms", 0.0)
             out["profile"][size] = {
@@ -4020,7 +4052,7 @@ def _detr_serving(model, kernels: list[dict]) -> dict:
                 "device_idle_share": p["device_idle_share"], "stages": st,
                 "top_kernels": p["top_kernels"][:6],
                 "postprocess_share_of_busy": post / max(p["device_busy_ms"], 1e-9)}
-            print(f"  detr profiled {size} px request, 4 pages: wall {p['wall_ms']:.3f} ms, "
+            print(f"  {family} profiled {size} px request, 4 pages: wall {p['wall_ms']:.3f} ms, "
                   f"device busy {p['device_busy_ms']:.4f} ms, idle "
                   f"{p['device_idle_share']:.4f}; " + ", ".join(
                       f"{s} {st.get(s, {}).get('device_ms', 0.0):.4f} ms (host "
@@ -4028,7 +4060,7 @@ def _detr_serving(model, kernels: list[dict]) -> dict:
                       for s in ("backbone", "head", "postprocess"))
                   + f"; postprocess {out['profile'][size]['postprocess_share_of_busy']:.3f} "
                   "of busy")
-    return out
+    return out, engines
 
 
 def phase_detr(gen, kernels: list[dict], card: str) -> dict:
@@ -4052,7 +4084,8 @@ def phase_detr(gen, kernels: list[dict], card: str) -> dict:
     print(f"  detr: dit-base hidden {cfg.backbone.vit.hidden_size}, level {cfg.detr_level}, "
           f"{cfg.detr_num_queries} queries, {cfg.detr_layers} decoder layers, d "
           f"{cfg.detr_dim}, {sum(t.numel() for t in tree_leaves(model.params)):,} parameters")
-    out["serving"] = _detr_serving(model, kernels)
+    out["serving"], _ = _bucket_serving("detr", model, kernels, "detr",
+                                        per_page=model.cfg.detr_num_queries)
     out["export"] = _one_stage_export("detr", model, kernels, path_key="detr")
     del model
     for label, overrides in (("paper_exact", None), ("shared", DETR_SHARED)):
@@ -4104,7 +4137,8 @@ def phase_detr_recipe(kernels: list[dict]) -> dict:
 # it launches; each runs in its own process, all at once (``--recipe-child``)
 FAMILY_RECIPES = {"cascade": ("families", MAIN_KERNELS), "mask": ("families", MAIN_KERNELS),
                   "retinanet": ("one_stage", ONE_STAGE_RECIPE_KERNELS),
-                  "fcos": ("one_stage", ONE_STAGE_RECIPE_KERNELS)}
+                  "fcos": ("one_stage", ONE_STAGE_RECIPE_KERNELS),
+                  "lora": ("lora_recipe", MAIN_KERNELS)}
 RECIPE_TIMEOUT_S = 600
 
 
@@ -4116,7 +4150,10 @@ def recipe_child(family: str, out_path: str) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     path_key, launched = FAMILY_RECIPES[family]
-    result = _family_convergence(family, [], path_key, launched)
+    if family == "lora":
+        result = phase_lora_recipe([])
+    else:
+        result = _family_convergence(family, [], path_key, launched)
     with open(out_path, "w") as f:
         json.dump(result, f)
     return 0
@@ -4124,7 +4161,8 @@ def recipe_child(family: str, out_path: str) -> int:
 
 def phase_recipes(kernels: list[dict], families: tuple[str, ...]) -> dict:
     """The recipes of ``families`` (``tools/convergence.py --family``, bf16,
-    each held to its floors), each in a fresh process, all at once on the
+    each held to its floors; "lora" is ``tools/lora_quality.py``,
+    ``phase_lora_recipe``), each in a fresh process, all at once on the
     card: they are small and host-bound, and one at a time they took most
     of the script's time. Each adds its launches to its family's path. The
     recipes' wall times are measured with the others running beside them."""
@@ -4162,13 +4200,539 @@ def phase_recipes(kernels: list[dict], families: tuple[str, ...]) -> dict:
     return out
 
 
+# phase finetune: a dit-base encoder warm-started from a converted
+# checkpoint, LoRA training (configs/lora.json), the adapters merged by
+# tools/merge_lora.py, the merged model served in bf16 and int8 in both
+# buckets of configs/serving_1024.json and its 224 px bucket exported
+# with --int8 (tools/export_model.py)
+LORA_CONFIG = ROOT / "configs" / "lora.json"
+FINETUNE_STEPS = 14  # steps on one repeated batch, LoRA and the full fine-tune alike
+FINETUNE_WARMUP = 2  # of them not timed
+# the full fine-tune's learning rate: the port's default recipe's
+# (lora.json's 1e-3 suits adapters; on the whole encoder its loss diverges)
+FULL_FT_LR = 1e-4
+# the stages of a traced step compared between LoRA and the full fine-tune
+STEP_STAGES = ("forward", "loss", "backward", "optimizer")
+# the int8 encoder's taps against the bf16 one's, relative Frobenius (JAX's
+# budget, tests/test_quant.py:45-62)
+INT8_REL_TOL = 0.03
+# the state_dict the warm start reads: the manifest's names and shapes,
+# values from this seed
+MANIFEST_SEED = 11
+
+
+def _manifest_state_dict() -> dict:
+    """A dit-base HF ``BeitModel`` state_dict from the package's copy of
+    the manifest: every name and shape, random values from a seeded
+    ``torch.Generator`` at a pretrained model's scales (weights N(0, 0.02),
+    LayerNorm scales near 1, layer scales near 0.1)."""
+    from layoutdit_tpu_torch.tools.convert_hf_checkpoint import manifest_path
+
+    with open(manifest_path("dit-base")) as f:
+        keys = json.load(f)["keys"]
+    gen = torch.Generator().manual_seed(MANIFEST_SEED)
+    sd = {}
+    for name, shape in keys.items():
+        t = torch.randn(shape, generator=gen)
+        if "layernorm" in name and name.endswith("weight"):
+            t = 1.0 + 0.02 * t
+        elif name.endswith(("lambda_1", "lambda_2")):
+            t = 0.1 + 0.01 * t
+        else:
+            t = 0.02 * t
+        sd[name] = t
+    return sd
+
+
+def _same_encoder(label: str, vit: dict, want: dict) -> None:
+    """The encoder's float32 leaves equal ``want``'s (the state_dict's
+    tensors in the port's layout), bit for bit."""
+    from layoutdit_tpu_torch.models.weights_io import tree_leaves, tree_paths
+
+    got = dict(zip(tree_paths(vit), tree_leaves(vit)))
+    for path, t in zip(tree_paths(want), tree_leaves(want)):
+        if not torch.equal(got[path].cpu(), t):
+            raise RuntimeError(f"finetune: {label}: encoder leaf {path} differs from the "
+                               "checkpoint's")
+
+
+def _opt_bytes(state: dict) -> int:
+    return sum(t.numel() * t.element_size() for key in ("mu", "nu") for t in state[key])
+
+
+def _trace_step(label: str, trainer, batch) -> dict:
+    """One more step on ``batch`` under the profiler
+    (``tools/profile_train.profile_step``): wall, device busy and idle,
+    and the host and device ms of each of STEP_STAGES."""
+    from layoutdit_tpu_torch.tools.profile_train import profile_step
+
+    with tempfile.TemporaryDirectory() as tmp:
+        p = profile_step(trainer, 0, Path(tmp) / "step.json", batch=batch)
+    out = {k: p[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share",
+                             "nms_host_syncs")}
+    out["stages"] = {s: p["stages"].get(s, {}) for s in STEP_STAGES}
+    out["top_kernels"] = p["top_kernels"][:8]
+    print(f"  {label} traced step: wall {p['wall_ms']:.3f} ms, device busy "
+          f"{p['device_busy_ms']:.3f} ms, idle {p['device_idle_share']:.4f}, NMS host syncs "
+          f"{p['nms_host_syncs']}; " + ", ".join(
+              f"{s} device {st.get('device_ms', 0.0):.3f} ms (host {st.get('host_ms', 0.0):.3f})"
+              for s, st in out["stages"].items()))
+    return out
+
+
+def _finetune_steps(label: str, rc, model, batch) -> dict:
+    """A trainer of ``rc`` over ``model`` and FINETUNE_STEPS steps on
+    ``batch``: median and minimum step time (the first FINETUNE_WARMUP
+    not counted), the peak memory over the trainer's life above what was
+    allocated before it, the optimizer state's bytes, the moments' count,
+    the losses (finite), and one more step traced (``_trace_step``)."""
+    from layoutdit_tpu_torch.train.trainer import Trainer
+
+    base = _allocated_gib()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(rc, model)
+    times, losses = _timed_steps(trainer, batch, FINETUNE_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    timed = times[FINETUNE_WARMUP:]
+    out = {**{f"step_{k}": v for k, v in _spread(timed).items()}, "step_ms": timed,
+           "peak_gib_above_start": peak - base, "start_gib": base,
+           "opt_state_bytes": _opt_bytes(trainer.opt_state),
+           "moments": len(trainer.opt_state["mu"]), "losses": losses,
+           "learning_rate": rc.train.learning_rate}
+    print(f"  {label}: lr {rc.train.learning_rate:g}, {len(timed)} timed steps at batch "
+          f"{rc.data.batch_size}, median {out['step_median']:.3f} ms (min "
+          f"{out['step_min']:.3f}, max {out['step_max']:.3f}); "
+          f"peak {out['peak_gib_above_start']:.3f} GiB above the {base:.3f} GiB allocated "
+          f"before; optimizer state {out['opt_state_bytes'] / 2**30:.4f} GiB in "
+          f"{out['moments']} x 2 moments; losses {[round(x, 4) for x in losses]}")
+    out["trace"] = _trace_step(label, trainer, batch)
+    return out, trainer
+
+
+def _serve_merged(merged: str, kernels: list[dict]) -> dict:
+    """The merged checkpoint in ``configs/serving_1024.json``'s model,
+    served in bf16 and with an int8 W8A8 encoder by ``_bucket_serving``
+    (both buckets, batch 4, the config's thresholds, rows 1 and 3 and one
+    RoIAlign a batch); then the valid detections of every page the same
+    in number in both, and the int8 encoder's taps within INT8_REL_TOL of
+    the bf16 one's in each bucket."""
+    from layoutdit_tpu_torch.config import load_config
+    from layoutdit_tpu_torch.models.detection.detector import DetectorModel, _normalize
+    from layoutdit_tpu_torch.models.model import LayoutDetectionModel
+    from layoutdit_tpu_torch.models.vit import vit_forward
+
+    mc, _ = load_config(str(CONFIG))
+    model = LayoutDetectionModel(mc, "bfloat16", device="cuda", warm_start=False)
+    model.restore_checkpoint(merged)
+    dm = DetectorModel(model.params, model.cfg)
+    out, engines = {}, {}
+    for name in ("bf16", "int8"):
+        out[name], engines[name] = _bucket_serving(
+            f"merged {name}", dm, kernels, "finetune", roi=FAMILY_ROI["resnet"],
+            thresh_zero=False, int8=name == "int8")
+    # the detections' counts, page for page, and the int8 encoder's error
+    requests = _deploy_requests()
+    for label, pages in requests:
+        for size in (224, 1024):
+            got = [len(r.boxes) for r in engines["int8"][size].predict_pages(pages)]
+            want = [len(r.boxes) for r in engines["bf16"][size].predict_pages(pages)]
+            if got != want:
+                raise RuntimeError(f"finetune: int8 valid detections {got} against bf16 "
+                                   f"{want} ({label}, {size} px bucket)")
+    errs = {}
+    for size, page in ((224, requests[0][1][0]), (1024, requests[1][1][0])):
+        bf16 = engines["bf16"][size]
+        x = bf16._upload_batch([bf16._decode_page(page)], size)[0][0]
+        x = _normalize(x[None].float(), model.cfg).to(torch.bfloat16)
+        taps = model.cfg.backbone.taps
+        with torch.inference_mode():
+            ref, q = (vit_forward(engines[e][size].params["backbone"]["vit"], x,
+                                  model.cfg.backbone.vit, taps, torch.bfloat16)
+                      for e in ("bf16", "int8"))
+        errs[size] = [_rel_err(g, w) for g, w in zip(q, ref)]
+        print(f"  int8 encoder {size} px: taps {list(taps)} relative error against bf16 "
+              f"{[round(e, 5) for e in errs[size]]} (tolerance {INT8_REL_TOL})")
+        if not max(errs[size]) < INT8_REL_TOL:
+            raise RuntimeError("finetune: the int8 encoder is off the bf16 one")
+    out["int8_tap_rel_err"] = errs
+    out["int8_gemm"] = _int8_breakdown()
+    return out, dm
+
+
+# the 1024 px bucket's encoder linears at batch 4: rows (4 x 4097 tokens),
+# K, and N of the fused qkv and of mlp_in (JAX's default int8 subset)
+INT8_GEMMS = ((4 * 4097, 768, 2304), (4 * 4097, 768, 3072))
+INT8_ITERS = 20
+
+
+def _int8_breakdown() -> dict:
+    """One W8A8 linear's parts against the bf16 linear at the 1024 px
+    bucket's shapes, CUDA events: the activations' quantization, the
+    s8 x s8 -> s32 ``torch._int_mm``, the dequantization with the bias,
+    the whole ``int8_linear``, and ``F.linear`` in bf16. The GEMMs' bounds
+    at the published peaks (int8 1979 TOP/s, bf16 989 TFLOP/s)."""
+    import torch.nn.functional as F
+
+    from layoutdit_tpu_torch.ops import quant
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for m, k, n in INT8_GEMMS:
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        w = 0.02 * torch.randn(n, k, generator=gen, device="cuda")
+        b = torch.zeros(n, device="cuda")
+        p = quant.quantize_linear({"weight": w, "bias": b})
+        wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+        xq, xs = quant.quantize_activations(x)
+        y = quant._int_mm(xq, p["weight_q"])
+        with torch.inference_mode():
+            r = {
+                "quantize_ms": _time_ms(lambda: quant.quantize_activations(x), INT8_ITERS),
+                "int_mm_ms": _time_ms(lambda: quant._int_mm(xq, p["weight_q"]), INT8_ITERS),
+                "dequant_ms": _time_ms(lambda: (y.float() * xs * p["weight_scale"]
+                                                + p["bias"]).to(torch.bfloat16), INT8_ITERS),
+                "int8_linear_ms": _time_ms(lambda: quant.int8_linear(x, p), INT8_ITERS),
+                "bf16_linear_ms": _time_ms(lambda: F.linear(x, wb, bb), INT8_ITERS),
+            }
+        ops = 2.0 * m * k * n
+        r["int8_gemm_bound_ms"] = ops / 1979e12 * 1e3
+        r["bf16_gemm_bound_ms"] = ops / PEAK_BF16_FLOPS * 1e3
+        out[f"{m}x{k}x{n}"] = r
+        print(f"  W8A8 linear [{m}, {k}] x [{k}, {n}]: quantize {r['quantize_ms']:.4f} ms, "
+              f"_int_mm {r['int_mm_ms']:.4f} (bound {r['int8_gemm_bound_ms']:.4f}), dequant "
+              f"{r['dequant_ms']:.4f}, int8_linear {r['int8_linear_ms']:.4f}; bf16 F.linear "
+              f"{r['bf16_linear_ms']:.4f} (bound {r['bf16_gemm_bound_ms']:.4f})")
+    return out
+
+
+def _export_int8(merged: str, dm, kernels: list[dict], tmp: str) -> dict:
+    """``tools/export_model.py --int8`` of the merged checkpoint's 224 px
+    bucket (``configs/serving_1024.json``'s model), run by
+    ``ExportedInferenceEngine`` over the deploy phase's requests: each
+    page's detections the live int8 engine's, bit for bit; the exported
+    run's launches (row 1 twelve times a batch, row 7 once) are the
+    path's."""
+    import os
+
+    from layoutdit_tpu_torch.eval.serving import BatchInferenceEngine, ExportedInferenceEngine
+    from layoutdit_tpu_torch.tools import export_model
+
+    art = f"{tmp}/int8_artifact"
+    old = os.environ.get("LAYOUTDIT_CONFIG")
+    os.environ["LAYOUTDIT_CONFIG"] = str(CONFIG)
+    try:
+        t0 = time.perf_counter()
+        manifest = export_model.main(["--out", art, "--checkpoint", merged, "--sizes", "224",
+                                      "--batch-size", str(FAMILY_SERVING_BATCH), "--int8"])
+        export_s = time.perf_counter() - t0
+    finally:
+        if old is None:
+            os.environ.pop("LAYOUTDIT_CONFIG")
+        else:
+            os.environ["LAYOUTDIT_CONFIG"] = old
+    if "int8" not in manifest["leaf_dtypes"]:
+        raise RuntimeError("finetune: the int8 artifact holds no int8 leaf")
+    live = BatchInferenceEngine(dm, image_sizes=(224,), batch_size=FAMILY_SERVING_BATCH,
+                                int8=True)
+    engine = ExportedInferenceEngine(art)
+    requests = _deploy_requests()
+    engine.predict_pages(requests[0][1][:4])  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    got = [engine.predict_pages(pages) for _, pages in requests]
+    torch.cuda.synchronize()
+    counts = _counts()
+    gc.unfreeze()
+    del engine
+    batches = sum(-(-len(pages) // FAMILY_SERVING_BATCH) for _, pages in requests)
+    want = {k: 0 for k in _counters()}
+    want.update(short_attention=dm.cfg.backbone.vit.num_hidden_layers * batches,
+                roi_align=batches)
+    _check_launches("finetune int8 export", counts, want, 1)
+    for k in kernels:
+        k["finetune_launches"] += counts[k["name"]]
+    pages = n_dets = 0
+    for (label, req), results in zip(requests, got):
+        for w, g in zip(live.predict_pages(req), results):
+            if not all(np.array_equal(getattr(w, a), getattr(g, a))
+                       for a in ("boxes", "scores", "labels")):
+                raise RuntimeError(f"finetune: the int8 artifact's detections differ from the "
+                                   f"live int8 engine's ({label})")
+            pages += 1
+            n_dets += len(w.boxes)
+    print(f"  int8 export of the 224 px bucket: {export_s:.2f} s; {pages} pages, {n_dets} "
+          f"detections, the live int8 engine's bit for bit")
+    return {"export_s": export_s, "pages": pages, "detections": n_dets, "launches": counts}
+
+
+def phase_finetune(kernels: list[dict], card: str) -> dict:
+    """Fine-tune then deploy, dit-base at full width (hidden 768, 12
+    layers): a state_dict from the manifest converted by
+    ``tools/convert_hf_checkpoint.py`` and warm-started twice
+    (``previous_layout_dit_checkpoint`` and ``LAYOUTDIT_DIT_BASE_PTH``,
+    the encoder the checkpoint's bits); ``configs/lora.json`` (r16, alpha
+    16, q and v) trained at 224 px, batch 16, through ``Trainer``: the
+    adapted model's first forward the adapter-free model's bits, the
+    frozen encoder's bits kept, every adapter moved, moments for the
+    trainable leaves only, rows 1, 2, 7 and 8 launched 12, 12, 1 and 1
+    times a step; step time, peak memory and optimizer bytes beside the
+    full fine-tune's; ``tools/merge_lora.py``; the merged model served in
+    bf16 and int8 (``_serve_merged``) and exported with ``--int8``
+    (``_export_int8``)."""
+    import os
+
+    from layoutdit_tpu_torch.config import load_run_config
+    from layoutdit_tpu_torch.models import vit as vit_mod
+    from layoutdit_tpu_torch.models.detection.detector import DetectorModel
+    from layoutdit_tpu_torch.models.lora import merge_lora, num_trainable, trainable_mask
+    from layoutdit_tpu_torch.models.model import LayoutDetectionModel
+    from layoutdit_tpu_torch.models.weights_io import (
+        beit_state_dict_to_params,
+        tree_leaves,
+        tree_map,
+        tree_paths,
+    )
+    from layoutdit_tpu_torch.tools import convert_hf_checkpoint
+    from layoutdit_tpu_torch.tools import merge_lora as merge_cli
+    from layoutdit_tpu_torch.train.checkpoint import load_checkpoint
+    from layoutdit_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    for k in kernels:
+        k["finetune_launches"] = 0
+    out = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. the warm start, by the config's field and by the environment
+        sd = _manifest_state_dict()
+        pth, msgpack = f"{tmp}/dit-base.pth", f"{tmp}/dit-base.msgpack"
+        torch.save(sd, pth)
+        t0 = time.perf_counter()
+        prov = convert_hf_checkpoint.convert(pth, "dit-base", msgpack)
+        convert_s = time.perf_counter() - t0
+        want = beit_state_dict_to_params(sd, vit_mod.DIT_BASE)
+        del sd
+        lora_rc = load_run_config(str(LORA_CONFIG))
+        plain_mc = dataclasses.replace(lora_rc.model, lora_rank=0)
+        t0 = time.perf_counter()
+        full = LayoutDetectionModel(plain_mc, "bfloat16", seed=0, device="cuda",
+                                    previous_layout_dit_checkpoint=msgpack)
+        warm_s = time.perf_counter() - t0
+        _same_encoder("previous_layout_dit_checkpoint", full.params["backbone"]["vit"], want)
+        old = os.environ.get("LAYOUTDIT_DIT_BASE_PTH")
+        os.environ["LAYOUTDIT_DIT_BASE_PTH"] = pth
+        try:
+            t0 = time.perf_counter()
+            env = LayoutDetectionModel(plain_mc, "bfloat16", seed=0, device="cuda")
+            env_s = time.perf_counter() - t0
+        finally:
+            if old is None:
+                os.environ.pop("LAYOUTDIT_DIT_BASE_PTH")
+            else:
+                os.environ["LAYOUTDIT_DIT_BASE_PTH"] = old
+        _same_encoder("LAYOUTDIT_DIT_BASE_PTH", env.params["backbone"]["vit"], want)
+        del env, want
+        out["warm_start"] = {"convert_s": convert_s, "msgpack_warm_start_s": warm_s,
+                             "pth_warm_start_s": env_s, "source_keys": prov["n_source_keys"]}
+        print(f"  converted a {prov['n_source_keys']}-key dit-base state_dict in {convert_s:.2f} "
+              f"s; warm-started from the .msgpack in {warm_s:.2f} s and from "
+              f"LAYOUTDIT_DIT_BASE_PTH (.pth) in {env_s:.2f} s, the encoder the checkpoint's "
+              "bits both ways")
+
+        # 2. LoRA training from the warm start
+        rc = _fixture_run(lora_rc, tmp, TRAIN_EPOCH_STEPS * lora_rc.data.batch_size)
+        rc = dataclasses.replace(rc, compute_dtype="bfloat16", train=dataclasses.replace(
+            rc.train, tensorboard=False, checkpoint_interval=1))
+        lora = LayoutDetectionModel(rc.model, "bfloat16", seed=0, device="cuda",
+                                    previous_layout_dit_checkpoint=msgpack)
+        cfg = lora.cfg
+        mask = trainable_mask(lora.params)
+        n_train, n_total = num_trainable(lora.params)
+        leaves = tree_leaves(lora.params)
+        frozen = [t.detach().clone() for t, m in zip(leaves, mask) if not m]
+        adapters = {p: t.detach().clone() for p, t in zip(tree_paths(lora.params), leaves)
+                    if p.endswith(("lora_a", "lora_b"))}
+        images = torch.rand(4, 3, 224, 224, generator=torch.Generator().manual_seed(3)).cuda()
+        a, b = lora.predict(images), full.predict(images)
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise RuntimeError("finetune: the adapted model's first forward is not the "
+                               "adapter-free model's bits")
+        base = _allocated_gib()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(rc, DetectorModel(lora.params, cfg))
+        per_step = _launches_per_step(cfg)
+        _reset_counts()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        counts, steps = _counts(), trainer.updates
+        _check_launches("finetune LoRA train", counts, per_step, steps)
+        for k in kernels:
+            k["finetune_launches"] += counts[k["name"]]
+        it = iter(trainer.dataloader)
+        batch = next(it)
+        it.close()
+        times, losses = _timed_steps(trainer, batch, FINETUNE_STEPS)
+        lora_peak = torch.cuda.max_memory_allocated() / 2**30 - base
+        leaves = tree_leaves(lora.params)
+        kept = [t for t, m in zip(leaves, mask) if not m]
+        if not all(torch.equal(x, y) for x, y in zip(kept, frozen)):
+            raise RuntimeError("finetune: a frozen encoder leaf changed")
+        moved = [p for p, t in zip(tree_paths(lora.params), leaves)
+                 if p in adapters and not torch.equal(t, adapters[p])]
+        if len(moved) != len(adapters):
+            raise RuntimeError(f"finetune: {len(adapters) - len(moved)} adapters did not move")
+        state = trainer.opt_state
+        train_leaves = [t for t, m in zip(leaves, mask) if m]
+        if len(state["mu"]) != len(train_leaves) or any(
+                m.shape != t.shape for m, t in zip(state["mu"], train_leaves)):
+            raise RuntimeError("finetune: the optimizer holds moments beyond the trainable "
+                               "leaves")
+        timed = times[FINETUNE_WARMUP:]
+        lora_out = {**{f"step_{k}": v for k, v in _spread(timed).items()}, "step_ms": timed,
+                    "learning_rate": rc.train.learning_rate,
+                    "peak_gib_above_start": lora_peak, "start_gib": base,
+                    "opt_state_bytes": _opt_bytes(state), "moments": len(state["mu"]),
+                    "trainable_params": n_train, "total_params": n_total,
+                    "adapters": len(adapters), "frozen_leaves": len(frozen),
+                    "epoch_steps": steps, "epoch_s": epoch_s, "launches": counts,
+                    "losses": losses}
+        print(f"  LoRA r{cfg.backbone.vit.lora_rank} on {list(cfg.backbone.vit.lora_targets)}: "
+              f"{n_train:,} of {n_total:,} parameters trainable; epoch of {steps} steps in "
+              f"{epoch_s:.2f} s, launches {counts}; lr {rc.train.learning_rate:g}, "
+              f"{len(timed)} timed steps median "
+              f"{lora_out['step_median']:.3f} ms (min {lora_out['step_min']:.3f}, max "
+              f"{lora_out['step_max']:.3f}); peak {lora_peak:.3f} GiB above the {base:.3f} "
+              f"GiB allocated before; optimizer state {lora_out['opt_state_bytes'] / 2**30:.4f}"
+              f" GiB in {len(state['mu'])} x 2 moments; {len(frozen)} frozen leaves the same "
+              f"bits, {len(adapters)} adapters moved; losses {[round(x, 4) for x in losses]}")
+        lora_out["trace"] = _trace_step("LoRA", trainer, batch)
+        ckpt = trainer.save_checkpoint(1)
+        del trainer
+        out["lora"] = lora_out
+        full_rc = dataclasses.replace(rc, model=plain_mc, train=dataclasses.replace(
+            rc.train, learning_rate=FULL_FT_LR))
+        out["full_finetune"], ftrainer = _finetune_steps("full fine-tune (no LoRA, same batch)",
+                                                         full_rc, DetectorModel(full.params,
+                                                                                full.cfg), batch)
+        del ftrainer, full
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 3. merge, then bf16 and int8 serving and the int8 export
+        merged = f"{tmp}/merged.msgpack"
+        old = os.environ.get("LAYOUTDIT_CONFIG")
+        os.environ["LAYOUTDIT_CONFIG"] = str(LORA_CONFIG)
+        try:
+            t0 = time.perf_counter()
+            merge_cli.main(["--checkpoint", ckpt, "--out", merged])
+            merge_s = time.perf_counter() - t0
+        finally:
+            if old is None:
+                os.environ.pop("LAYOUTDIT_CONFIG")
+            else:
+                os.environ["LAYOUTDIT_CONFIG"] = old
+        mine = merge_lora(lora.params["backbone"]["vit"], cfg.backbone.vit)
+        written = load_checkpoint(merged, map_location="cuda")["params"]["backbone"]["vit"]
+        _same_encoder("merged", written, tree_map(lambda t: t.detach().cpu(), mine))
+        print(f"  tools/merge_lora.py: {merge_s:.2f} s, the merged encoder merge_lora's bits")
+        out["merge_s"] = merge_s
+        del lora, mine, written
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["serving"], dm = _serve_merged(merged, kernels)
+        out["export"] = _export_int8(merged, dm, kernels, tmp)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  finetune phase: {out['phase_s']:.1f} s")
+    return out
+
+
+# phase resnet: ResNet-50 + FPN Faster R-CNN at full width (FPN 256),
+# configs/serving_1024.json's model with backbone_type resnet50
+RESNET = {"backbone_type": "resnet50"}
+
+
+def phase_resnet(kernels: list[dict], card: str) -> dict:
+    """ResNet-50 + FPN Faster R-CNN, random weights from seed 0, bf16, the
+    config's thresholds: served in the 224 and 1024 px buckets
+    (``_bucket_serving``: batch 4, the deploy phase's requests, a request
+    a bucket profiled by stage); one epoch and TRAIN_REPEATS steps at 224
+    px, batch 16 (``_family_train``); ``score()`` of 64 pages
+    (``_one_stage_score``); the 224 px bucket exported and held to the
+    live engine (``_one_stage_export``). Rows 7-8 launch once a batch; no
+    attention kernel launches anywhere."""
+    from layoutdit_tpu_torch.models.detection.detector import DetectorModel, init_detector
+    from layoutdit_tpu_torch.models.weights_io import tree_leaves
+
+    t_phase = time.perf_counter()
+    for k in kernels:
+        k["resnet_launches"] = 0
+    out = {"card": card}
+    _, cfg = _family_cfg(CONFIG, FAMILY_SERVING_BATCH, RESNET)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = DetectorModel(init_detector(cfg, gen, device="cuda"), cfg)
+    n_params = sum(t.numel() for t in tree_leaves(model.params))
+    print(f"  ResNet-50 + FPN {cfg.backbone.fpn_out_channels} Faster R-CNN, {n_params:,} "
+          f"parameters, buckets 224 / 1024, batch {FAMILY_SERVING_BATCH}, post-NMS "
+          f"{cfg.budget.rpn_post_nms_top_n_test}")
+    out["serving"], _ = _bucket_serving("resnet", model, kernels, "resnet",
+                                        roi=FAMILY_ROI["resnet"], thresh_zero=False)
+    at_224 = {**RESNET, "image_size": 224}
+    out["train"], trainer = _family_train("resnet", CONFIG, model, kernels, path_key="resnet",
+                                          model_overrides=at_224)
+    params = trainer.model.params
+    del trainer
+    out["score"] = _one_stage_score("resnet", CONFIG, params, kernels, path_key="resnet",
+                                    model_overrides=at_224, thresh_zero=False)
+    _, ecfg = _family_cfg(CONFIG, FAMILY_SERVING_BATCH, at_224)
+    out["export"] = _one_stage_export("resnet", DetectorModel(params, ecfg), kernels,
+                                      path_key="resnet", thresh_zero=False)
+    for k in kernels:
+        if not k["name"].startswith("roi_align") and k["resnet_launches"]:
+            raise RuntimeError(f"resnet: {k['name']} launched {k['resnet_launches']} times")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  resnet phase: {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_lora_recipe(kernels: list[dict]) -> dict:
+    """``tools/lora_quality.py`` in bf16 on the card: pretrain, then the
+    full fine-tune and LoRA r8 from the same weights, held to JAX's floors
+    (LoRA r8 >= 0.85 x the full fine-tune's held-out mAP); rows 1, 2, 7
+    and 8 launched, no other."""
+    from layoutdit_tpu_torch.tools import lora_quality
+
+    t0 = time.perf_counter()
+    _reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        result = lora_quality.run(tmp, "cuda", "bfloat16")
+    counts = _counts()
+    for name, n in counts.items():
+        if (n > 0) != (name in MAIN_KERNELS):
+            raise RuntimeError(f"lora_recipe: {name} launched {n} times")
+    for k in kernels:
+        k["lora_recipe_launches"] = counts[k["name"]]
+    result["launches"] = counts
+    fails = lora_quality.floor_failures(result)
+    result["phase_s"] = time.perf_counter() - t0
+    for name in ("pretrain", "full_ft", "lora_r8"):
+        r = result[name]
+        print(f"  lora_recipe {name}: held-out mAP {r['mAP']:.4f}, AP50 {r['AP50']:.4f}, "
+              f"{r['trainable_params']:,} trainable, optimizer {r['opt_state_bytes'] / 2**20:.2f}"
+              f" MiB, {r['steps']} steps in {r['train_s']:.1f} s")
+    print(f"  lora_recipe phase: {result['phase_s']:.1f} s")
+    if fails:
+        raise RuntimeError(f"lora_recipe: {fails}")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU")
     if not ((ROOT / "layoutdit_tpu_torch").is_dir() and all(
             p.is_file() for p in (CONFIG, TRAIN_1024_CONFIG, RELPOS_CONFIG, LARGE_CONFIG,
                                   FSDP_LARGE_CONFIG, CASCADE_CONFIG, MASK_CONFIG,
-                                  RETINANET_CONFIG, FCOS_CONFIG, DETR_CONFIG))):
+                                  RETINANET_CONFIG, FCOS_CONFIG, DETR_CONFIG, LORA_CONFIG))):
         raise SystemExit("chip_smoke: run it from a checkout of the repository")
     sys.path.insert(0, str(ROOT))
     from layoutdit_tpu_torch.ops import _build
@@ -4210,7 +4774,10 @@ def main() -> int:
                                          "recipes": phase_recipes([], ("retinanet", "fcos"))},
                    "detr": lambda: phase_detr(gen, [], card),
                    "recipes": lambda: phase_recipes([], tuple(FAMILY_RECIPES)),
-                   "detr_recipe": lambda: phase_detr_recipe([])}
+                   "detr_recipe": lambda: phase_detr_recipe([]),
+                   "finetune": lambda: phase_finetune([], card),
+                   "resnet": lambda: phase_resnet([], card),
+                   "lora_recipe": lambda: phase_lora_recipe([])}
         for name in only:
             print(f"phase {name}")
             print(json.dumps({name: runners[name]()}))
@@ -4276,16 +4843,24 @@ def main() -> int:
 
     print("phase recipes")
     recipes = phase_recipes(kernels, tuple(FAMILY_RECIPES))
-    for family in FAMILY_RECIPES:
+    for family in ("cascade", "mask", "retinanet", "fcos"):
         (families if family in ("cascade", "mask") else one_stage)[family]["convergence"] = (
             recipes[family])
     torch.cuda.empty_cache()
 
     print("phase detr")
     detr = phase_detr(gen, kernels, card)
+    torch.cuda.empty_cache()
+
+    print("phase finetune")
+    finetune = phase_finetune(kernels, card)
+    torch.cuda.empty_cache()
+
+    print("phase resnet")
+    resnet = phase_resnet(kernels, card)
     paths = ("probe", "serving", "deploy", "train", "train_state", "io", "train_1024",
              "train_1024_relpos", "encoder", "main", "convergence", "families", "one_stage",
-             "detr")
+             "detr", "finetune", "resnet", "lora_recipe")
     for k in kernels:
         k["launches"] = sum(k[f"{path}_launches"] for path in paths)
         if k["launches"] <= 0:
@@ -4304,6 +4879,9 @@ def main() -> int:
     print(json.dumps({"families": families}))
     print(json.dumps({"one_stage": one_stage}))
     print(json.dumps({"detr": detr}))
+    print(json.dumps({"lora_recipe": recipes["lora"]}))
+    print(json.dumps({"finetune": finetune}))
+    print(json.dumps({"resnet": resnet}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

@@ -88,8 +88,8 @@ class DataLoaderConfig:
     image_shards_dir: Optional[str] = None
 
 
-# the encoders the port runs (JAX ``BackboneType``: resnet50 waits)
-BACKBONES = ("dit", "dit-large")
+# the encoders the port runs (JAX ``BackboneType``)
+BACKBONES = ("dit", "dit-large", "resnet50")
 # the detector families the port runs (JAX ``ModelConfig.detector``)
 DETECTORS = ("faster_rcnn", "retinanet", "fcos", "detr")
 
@@ -154,15 +154,19 @@ class ModelConfig:
     detr_aux_loss: bool = True
     detr_shared_matching: bool = False
     detr_level: int = 2
+    # warm start: a DiT/BEiT encoder checkpoint (HF .bin/.pth, or a
+    # converted .msgpack) loaded into the encoder only (models/model.py)
+    previous_layout_dit_checkpoint: Optional[str] = None
+    # LoRA adapters on the encoder's projections (models/lora.py); 0 = off
+    lora_rank: int = 0
+    lora_alpha: float = 16.0
+    lora_targets: tuple[str, ...] = ("q", "v")
 
     def __post_init__(self):
         if self.detector not in DETECTORS:
             raise ValueError(f"unknown detector {self.detector!r}; the port runs {DETECTORS}")
         if self.backbone_type not in BACKBONES:
-            raise ValueError(
-                f"backbone_type {self.backbone_type!r}: the port runs {BACKBONES}; the "
-                "resnet50 backbone waits for models/resnet.py (ROADMAP queue 1 item 6)"
-            )
+            raise ValueError(f"backbone_type {self.backbone_type!r}: the port runs {BACKBONES}")
         if self.remat_policy not in ("full", "dots"):  # JAX vit.py:893-896
             raise ValueError(
                 f"unknown remat_policy {self.remat_policy!r}; use 'full' or 'dots'"
@@ -206,6 +210,9 @@ class TrainingConfig:
     keep_checkpoints: int = 0
     async_checkpoint: bool = True
     tensorboard: bool = True
+    # with lora_rank > 0: train the adapters and the heads only, the rest
+    # of the encoder frozen (no optimizer moments); False trains everything
+    lora_freeze_base: bool = True
 
     def __post_init__(self):
         if self.lr_schedule not in ("step", "cosine"):
@@ -240,21 +247,11 @@ class EvalConfig:
 # maps to (its JAX default, what it waits for). A config that leaves one
 # at its default loads; one that sets it otherwise is refused, naming the
 # work it waits for, rather than silently trained without it.
-_LORA = "LoRA (models/lora.py, ROADMAP queue 1 item 6)"
 _WAITING = {
-    "detection_model_config": {
-        "previous_layout_dit_checkpoint": (
-            None, "warm-starting the encoder from a pretrained DiT checkpoint "
-                  "(tools/convert_hf_checkpoint.py, ROADMAP queue 1 item 6)"),
-        "lora_rank": (0, _LORA),
-        "lora_alpha": (16.0, _LORA),
-        "lora_targets": (["q", "v"], _LORA),
-    },
     "train_config": {
         "device": ("auto", "the port runs on the CUDA card (no device field)"),
         "enable_profile": (False, "tools/profile_train.py; the trainer writes no traces"),
         "trace_log_dir": ("./log/traces", "tools/profile_train.py"),
-        "lora_freeze_base": (True, "LoRA training (ROADMAP queue 1 item 6)"),
     },
     "precision": {
         "param_dtype": ("float32", "the port keeps fp32 parameters"),
@@ -305,8 +302,7 @@ def load_config(path: str) -> tuple[ModelConfig, DataLoaderConfig]:
     config JSON file; absent sections take their defaults."""
     with open(path) as f:
         raw = json.load(f)
-    mc = _build(ModelConfig, raw.get("detection_model_config", {}),
-                "detection_model_config", _WAITING["detection_model_config"])
+    mc = _build(ModelConfig, raw.get("detection_model_config", {}), "detection_model_config")
     dl = _build(DataLoaderConfig, raw.get("data_loader_config", {}),
                 "data_loader_config")
     return mc, dl
@@ -396,8 +392,7 @@ def run_config_from_dict(raw: dict) -> RunConfig:
     if unknown:
         raise ValueError(f"keys not supported by the port: {unknown}")
     _check_one_device_mesh(raw.get("mesh_config") or {})
-    mc = _build(ModelConfig, raw.get("detection_model_config", {}), "detection_model_config",
-                _WAITING["detection_model_config"])
+    mc = _build(ModelConfig, raw.get("detection_model_config", {}), "detection_model_config")
     precision = raw.get("precision", {})
     _check_keys(precision, {"compute_dtype"}, "precision", _WAITING["precision"])
     ev = dict(raw.get("eval_config", {}))

@@ -58,8 +58,10 @@ from layoutdit_tpu_torch.models.detection.detector import (
     params_for_inference,
     rescale_detections,
 )
+from layoutdit_tpu_torch.models.lora import merge_lora_detector
 from layoutdit_tpu_torch.models.weights_io import tree_map
 from layoutdit_tpu_torch.native import loader as native_loader
+from layoutdit_tpu_torch.ops.quant import quantize_detector_params
 from layoutdit_tpu_torch.ops.interpolate import resize_bilinear
 
 logger = get_logger(__name__)
@@ -100,6 +102,9 @@ class BatchInferenceEngine:
       max_in_flight: dispatched batches whose results are fetched later.
       device: where the model runs; "cuda" unless the caller asks for
         the CPU. A CUDA device with no GPU present raises.
+      int8: serve the encoder's linears in W8A8 int8 (``ops/quant.py``,
+        ``VIT_INT8_DEFAULT_KEYS``), LoRA adapters merged first
+        (``models/lora.py``), as the JAX engine does; off by default.
     """
 
     def _init_pipeline_fields(
@@ -130,14 +135,18 @@ class BatchInferenceEngine:
         decode_workers: int | None = None,
         max_in_flight: int = 2,
         device: str | torch.device = "cuda",
+        int8: bool = False,
     ):
         self._init_pipeline_fields(score_thresh, decode_workers, max_in_flight, device)
         self.model = model
         self.image_sizes = sorted(image_sizes)
         self.batch_size = batch_size
-        self.params = params_for_inference(
-            tree_map(lambda t: t.to(self.device), model.params), model.cfg.dtype
-        )
+        params = tree_map(lambda t: t.to(self.device), model.params)
+        if int8:
+            # adapters folded first: quantization refuses unmerged ones
+            params = quantize_detector_params(
+                merge_lora_detector(params, model.cfg.backbone.vit))
+        self.params = params_for_inference(params, model.cfg.dtype)
         self._cfgs: dict[int, object] = {}
         self._with_masks = bool(model.cfg.with_mask)
 

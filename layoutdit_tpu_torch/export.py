@@ -13,7 +13,8 @@ Artifact layout (one directory, local or a ``scheme://`` URL)::
     manifest.json        format, image_sizes, batch_size, num_leaves,
                          num_classes, device, compute_dtype, leaf_dtypes,
                          torch_version, export_seconds
-    params.npz           flat float32 parameter leaves, insertion order
+    params.npz           flat parameter leaves, insertion order: float32,
+                         and an int8 model's int8 codes
     predict_<size>.pt2   one exported program per serving bucket
 
 Each program's signature is ``(leaves: list[Tensor], images:
@@ -21,7 +22,10 @@ f32[B, 3, S, S], orig: f32[B, 2]) -> {"boxes", "scores", "labels",
 "valid"}``, boxes rescaled to page coordinates (``eval/serving.py``). The
 leaves enter in the dtypes the live engine gives them
 (``params_for_inference``: the compute dtype, LayerNorm and position
-tables in float32), listed as ``leaf_dtypes``.
+tables in float32, an int8 linear's codes in int8 with its scales and
+bias in float32), listed as ``leaf_dtypes``. An int8 model
+(``ops/quant.py``, quantized before the trace) exports its W8A8 linears
+as ``aten._int_mm`` calls on those int8 leaves.
 
 Where the JAX package writes StableHLO with ``platforms``, a program
 here is traced for one ``device``: a ``cuda`` artifact is traced on the
@@ -98,7 +102,8 @@ def export_detector(
     from layoutdit_tpu_torch.models.weights_io import tree_leaves, tree_map
 
     device = _device(device)
-    host = tree_map(lambda t: t.detach().to("cpu", torch.float32), params)
+    host = tree_map(lambda t: t.detach().to("cpu", torch.float32 if t.is_floating_point()
+                                            else t.dtype), params)
     live = params_for_inference(tree_map(lambda t: t.to(device), host), cfg.dtype)
     leaves = tree_leaves(live)
     seconds = {}

@@ -22,6 +22,10 @@ model; a single-stage model gives torchvision's loss keys
 and with ``detr_aux_loss`` the same per earlier decoder layer, suffixed
 ``_aux{i}``. DETR predicts ``detr_num_queries`` detections an image, with
 no NMS.
+
+The backbone (``run_backbone``) is the DiT pyramid or, with
+``backbone_kind`` "resnet50", ResNet-50 + FPN (``models/resnet.py``),
+whose RoI heads pool from p2..p5 only, as torchvision's.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import torch
 from torch.profiler import record_function
 
 from layoutdit_tpu_torch.config import DetectionBudget, ModelConfig
+from layoutdit_tpu_torch.models import resnet as resnet_mod
 from layoutdit_tpu_torch.models import vit as vit_mod
 from layoutdit_tpu_torch.models.backbone import (
     BackboneConfig,
@@ -67,12 +72,11 @@ BOX_HEAD_REP = 1024
 
 
 # JAX ViTConfig fields the port's encoder does not have, at the JAX
-# defaults at which they change nothing: score_dtype (bf16 scores), MoE
-# and LoRA (ROADMAP queue 1 item 6)
+# defaults at which they change nothing: score_dtype (bf16 scores) and MoE
+# (ROADMAP queue 1 item 6)
 _VIT_WAITING = {
     "score_dtype": "float32", "num_experts": 0, "moe_top_k": 1, "moe_capacity_factor": 1.25,
-    "moe_every_n": 2, "moe_aux_weight": 0.01, "lora_rank": 0, "lora_alpha": 16.0,
-    "lora_targets": ["q", "v"],
+    "moe_every_n": 2, "moe_aux_weight": 0.01,
 }
 
 
@@ -84,11 +88,12 @@ def _vit_overrides(overrides: dict) -> dict:
     out = {}
     for k, v in overrides.items():
         if k in fields:
-            out[k] = tuple(v) if k == "global_attn_layers" else v  # JSON carries a list
+            # JSON carries lists; the config stays hashable
+            out[k] = tuple(v) if k in ("global_attn_layers", "lora_targets") else v
         elif _VIT_WAITING.get(k, ...) != (list(v) if isinstance(v, (list, tuple)) else v):
             raise ValueError(
-                f"vit_overrides.{k}={v!r}: not supported by the port; bf16 scores, MoE and "
-                "LoRA wait for ROADMAP queue 1 item 6"
+                f"vit_overrides.{k}={v!r}: not supported by the port; bf16 scores and MoE "
+                "wait for ROADMAP queue 1 item 6"
             )
     return out
 
@@ -139,6 +144,9 @@ class DetectorConfig:
     detr_aux_loss: bool = True
     detr_level: int = 2
     detr_shared_matching: bool = False
+    # "dit" (the ViT pyramid) or "resnet50" (models/resnet.py), whose RoI
+    # heads pool from p2..p5 only, no pool level, as torchvision's do
+    backbone_kind: str = "dit"
 
     def __post_init__(self):
         """JAX's ``__post_init_validate__``: no cascade or mask modifier
@@ -230,6 +238,13 @@ class DetectorConfig:
         if mc.window_size > 0:  # JAX detector.py:189-194
             vit_cfg = dataclasses.replace(vit_cfg, window_size=mc.window_size,
                                           global_attn_layers=tuple(mc.window_global_layers))
+        if mc.lora_rank > 0:  # JAX detector.py:195-206
+            if mc.backbone_type == "resnet50":
+                raise ValueError("lora_rank targets the pretrained DiT/BEiT encoder; the "
+                                 "resnet50 backbone has no LoRA support")
+            vit_cfg = dataclasses.replace(vit_cfg, lora_rank=mc.lora_rank,
+                                          lora_alpha=mc.lora_alpha,
+                                          lora_targets=tuple(mc.lora_targets))
         return cls(
             backbone=BackboneConfig(vit=vit_cfg, fpn_out_channels=mc.fpn_out_channels),
             num_classes=mc.num_classes,
@@ -258,7 +273,15 @@ class DetectorConfig:
             detr_aux_loss=mc.detr_aux_loss,
             detr_level=mc.detr_level,
             detr_shared_matching=mc.detr_shared_matching,
+            backbone_kind="resnet50" if mc.backbone_type == "resnet50" else "dit",
         )
+
+    @property
+    def roi_levels(self) -> int:
+        """The pyramid levels the RoI heads pool from: p2..p5 + pool for
+        the DiT pyramid, p2..p5 for ResNet-50 (torchvision's featmap names
+        "0".."3")."""
+        return 4 if self.backbone_kind == "resnet50" else 5
 
 
 class DetectorModel(NamedTuple):
@@ -278,7 +301,10 @@ def init_detector(cfg: DetectorConfig, generator: torch.Generator, device="cuda"
     backbone and ``detr``."""
     c = cfg.backbone.fpn_out_channels
     in_features = c * cfg.roi_output_size ** 2
-    backbone = init_backbone_params(cfg.backbone, generator, device)
+    if cfg.backbone_kind == "resnet50":
+        backbone = resnet_mod.init_resnet_fpn_params(generator, device, c)
+    else:
+        backbone = init_backbone_params(cfg.backbone, generator, device)
     if cfg.detector_kind == "retinanet":
         return {"backbone": backbone, "retinanet_head": retina_mod.init_retinanet_head_params(
             c, cfg.num_anchors_per_cell, cfg.num_classes + 1, generator, device)}
@@ -317,19 +343,24 @@ def init_detector(cfg: DetectorConfig, generator: torch.Generator, device="cuda"
 
 # kept in float32: LayerNorm applies them in fp32 (DETR's decoder has
 # ln1-3 and decoder_norm), the position embeddings are resampled in fp32
-# before the cast, and the relative-position bias enters the scores in fp32
+# before the cast, the relative-position bias enters the scores in fp32,
+# and a ResNet's BatchNorm folds its statistics in fp32
 _FP32_PARAMS = ("ln1", "ln2", "ln3", "decoder_norm", "pos_embed", "rel_pos_table",
-                "shared_rel_pos_table")
+                "shared_rel_pos_table", "bn", "bn1", "bn2", "bn3")
 
 
 def params_for_inference(params: dict, dtype: torch.dtype) -> dict:
     """A copy of ``params`` with every tensor that the forward pass casts
     to the compute dtype at each use already in that dtype (the same
-    rounding, done once instead of per call)."""
+    rounding, done once instead of per call). An int8 linear
+    (``ops/quant.py``) stays as it is: its int8 codes, and its scales and
+    bias, which it applies in float32."""
     def cast(tree, name=""):
         if name in _FP32_PARAMS:
             return tree
         if isinstance(tree, dict):
+            if "weight_q" in tree:
+                return tree
             return {k: cast(v, k) for k, v in tree.items()}
         if isinstance(tree, list):
             return [cast(v, name) for v in tree]
@@ -342,6 +373,19 @@ def _normalize(images: torch.Tensor, cfg: DetectorConfig) -> torch.Tensor:
     mean = torch.tensor(cfg.image_mean, dtype=torch.float32, device=images.device)
     std = torch.tensor(cfg.image_std, dtype=torch.float32, device=images.device)
     return (images - mean.view(1, -1, 1, 1)) / std.view(1, -1, 1, 1)
+
+
+def run_backbone(params: dict, images: torch.Tensor, cfg: DetectorConfig,
+                 remat: bool = False) -> list[torch.Tensor]:
+    """Images [B, 3, S, S] in [0, 1] -> the pyramid [p2, p3, p4, p5, pool],
+    channels-last in the compute dtype, from the DiT encoder or ResNet-50
+    (JAX ``_run_backbone``); ``remat``: the encoder's activation
+    checkpointing, as the config sets it (a ResNet has none)."""
+    x = _normalize(images.float(), cfg).to(cfg.dtype)
+    if cfg.backbone_kind == "resnet50":
+        return resnet_mod.resnet_fpn_forward(params["backbone"], x, compute_dtype=cfg.dtype)
+    return backbone_forward(params["backbone"], x, cfg.backbone, compute_dtype=cfg.dtype,
+                            remat=remat and cfg.remat, remat_policy=cfg.remat_policy)
 
 
 @cached_unless_traced(maxsize=16)
@@ -372,8 +416,9 @@ def _pool_and_predict(head: dict, feats, rois, roi_valid, cfg: DetectorConfig):
     [B, K, R*4]) through one box head (``head``: the model's, or one
     cascade stage's), pooled at ``roi_output_size`` by RoIAlign."""
     b, k = rois.shape[:2]
+    n = cfg.roi_levels
     pooled = multiscale_roi_align(
-        feats, rois, list(cfg.backbone.spatial_scales),
+        feats[:n], rois, list(cfg.backbone.spatial_scales[:n]),
         output_size=cfg.roi_output_size,
         sampling_ratio=cfg.roi_sampling_ratio,
         canonical_scale=float(cfg.image_size),
@@ -398,8 +443,9 @@ def _mask_logits(params: dict, feats, rois, roi_valid, cfg: DetectorConfig) -> t
     is copied to [B*K, C, Py, Px] for the convolutions."""
     with record_function("mask_head"):
         b, k = rois.shape[:2]
+        n = cfg.roi_levels
         pooled = multiscale_roi_align(
-            feats, rois, list(cfg.backbone.spatial_scales),
+            feats[:n], rois, list(cfg.backbone.spatial_scales[:n]),
             output_size=cfg.mask_roi_output_size,
             sampling_ratio=cfg.roi_sampling_ratio,
             canonical_scale=float(cfg.image_size),
@@ -444,8 +490,7 @@ def _one_stage_predict(params: dict, images: torch.Tensor, cfg: DetectorConfig) 
     anchors, counts = _anchors(cfg, images.device)
     size = (cfg.image_size, cfg.image_size)
     with record_function("backbone"):
-        x = _normalize(images.float(), cfg).to(cfg.dtype)
-        feats = backbone_forward(params["backbone"], x, cfg.backbone, compute_dtype=cfg.dtype)
+        feats = run_backbone(params, images, cfg)
     with record_function("head"):
         out = _one_stage_heads(params, feats, cfg)
     with record_function("postprocess"):
@@ -458,8 +503,7 @@ def _detr_predict(params: dict, images: torch.Tensor, cfg: DetectorConfig) -> De
     """DETR's inference under the ranges ``backbone``, ``head`` (the
     decoder and its heads, the last layer only) and ``postprocess``."""
     with record_function("backbone"):
-        x = _normalize(images.float(), cfg).to(cfg.dtype)
-        feats = backbone_forward(params["backbone"], x, cfg.backbone, compute_dtype=cfg.dtype)
+        feats = run_backbone(params, images, cfg)
     with record_function("head"):
         logits, boxes01 = detr_mod.detr_forward(params["detr"], feats[cfg.detr_level],
                                                 cfg.detr_heads, return_intermediate=False)
@@ -497,10 +541,7 @@ def detector_predict(
     anchors, counts = _anchors(cfg, images.device)
     size = (cfg.image_size, cfg.image_size)
     with record_function("backbone"):
-        x = _normalize(images.float(), cfg).to(cfg.dtype)
-        feats = backbone_forward(
-            params["backbone"], x, cfg.backbone, compute_dtype=cfg.dtype
-        )
+        feats = run_backbone(params, images, cfg)
     with record_function("rpn"):
         objectness, deltas = rpn_head_forward(
             params["rpn_head"], feats, cfg.num_anchors_per_cell
@@ -589,10 +630,7 @@ def detector_loss(
     size = (cfg.image_size, cfg.image_size)
     with record_function("forward"):
         with record_function("backbone"):
-            x = _normalize(images.float(), cfg).to(cfg.dtype)
-            feats = backbone_forward(params["backbone"], x, cfg.backbone,
-                                     compute_dtype=cfg.dtype, remat=cfg.remat,
-                                     remat_policy=cfg.remat_policy)
+            feats = run_backbone(params, images, cfg, remat=True)
         with record_function("rpn"):
             objectness, deltas = rpn_head_forward(params["rpn_head"], feats,
                                                   cfg.num_anchors_per_cell)
@@ -653,10 +691,7 @@ def _one_stage_loss(params, images, gt_boxes, gt_labels, gt_valid,
     anchors, counts = _anchors(cfg, images.device)
     with record_function("forward"):
         with record_function("backbone"):
-            x = _normalize(images.float(), cfg).to(cfg.dtype)
-            feats = backbone_forward(params["backbone"], x, cfg.backbone,
-                                     compute_dtype=cfg.dtype, remat=cfg.remat,
-                                     remat_policy=cfg.remat_policy)
+            feats = run_backbone(params, images, cfg, remat=True)
         with record_function("head"):
             out = _one_stage_heads(params, feats, cfg)
     with record_function("loss"):
@@ -681,10 +716,7 @@ def _detr_loss(params, images, gt_boxes, gt_labels, gt_valid,
             "gt slot")
     with record_function("forward"):
         with record_function("backbone"):
-            x = _normalize(images.float(), cfg).to(cfg.dtype)
-            feats = backbone_forward(params["backbone"], x, cfg.backbone,
-                                     compute_dtype=cfg.dtype, remat=cfg.remat,
-                                     remat_policy=cfg.remat_policy)
+            feats = run_backbone(params, images, cfg, remat=True)
         with record_function("head"):
             logits, boxes01 = detr_mod.detr_forward(params["detr"], feats[cfg.detr_level],
                                                     cfg.detr_heads,

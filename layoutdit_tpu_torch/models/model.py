@@ -7,15 +7,22 @@ initialisation from a seed, ``predict``, ``loss``, and full-state
 checkpoints: written in the port's ``.pt`` format, restored from a
 ``.pt`` or from the JAX package's ``.msgpack`` (``train/checkpoint.py``).
 
-The JAX model warm-starts the encoder from a local pretrained DiT
-checkpoint when ``LAYOUTDIT_DIT_{BASE,LARGE}_PTH`` names one. Reading
-those checkpoints is not ported yet, so in the port that variable
-raises instead of falling back to random weights.
+Warm start, as in the JAX model (the reference's ``model.py:65-70``):
+the encoder alone is loaded from ``previous_layout_dit_checkpoint`` (the
+argument or the config's field), or, when neither is set and
+``warm_start`` is true, from the local pretrained checkpoint that
+``LAYOUTDIT_DIT_{BASE,LARGE}_PTH`` names, provided the configured encoder
+is that preset's architecture (image size, windows and LoRA fields
+aside). An HF ``.bin`` / ``.pth`` / ``.safetensors`` state_dict or a
+converted ``.msgpack`` (``models/weights_io.py``); the encoder keeps the
+checkpoint's position embeddings, which the forward resamples to the
+configured grid. A LoRA model gets fresh adapters beside the loaded
+weights (B = 0: the warm-started forward is the pretrained one).
 """
 
 from __future__ import annotations
 
-import os
+import dataclasses
 from typing import Optional
 
 import torch
@@ -29,7 +36,16 @@ from layoutdit_tpu_torch.models.detection.detector import (
     detector_predict,
     init_detector,
 )
-from layoutdit_tpu_torch.models.weights_io import tree_leaves, tree_map
+from layoutdit_tpu_torch.models import vit as vit_mod
+from layoutdit_tpu_torch.models.lora import add_lora_params
+from layoutdit_tpu_torch.models.weights_io import (
+    RESIZABLE_LEAVES,
+    copy_params_,
+    load_beit_checkpoint,
+    tree_leaves,
+    tree_map,
+)
+from layoutdit_tpu_torch.tools.convert_hf_checkpoint import local_checkpoint
 from layoutdit_tpu_torch.train.checkpoint import (
     checkpoint_file,
     load_checkpoint,
@@ -38,9 +54,7 @@ from layoutdit_tpu_torch.train.checkpoint import (
 
 logger = get_logger(__name__)
 
-# the JAX package's warm-start variables (tools/convert_hf_checkpoint.py),
-# with its legacy alias
-WARM_START_ENV = ("LAYOUTDIT_DIT_BASE_PTH", "LAYOUTDIT_DIT_LARGE_PTH", "LAYOUTDIT_DIT_BASE_CKPT")
+_PRESETS = {"dit": ("dit-base", vit_mod.DIT_BASE), "dit-large": ("dit-large", vit_mod.DIT_LARGE)}
 
 
 class LayoutDetectionModel:
@@ -54,25 +68,71 @@ class LayoutDetectionModel:
       seed: seeds the ``torch.Generator`` the weights are drawn from.
       device: where the parameters live; "cuda" unless the caller asks
         for the CPU. A CUDA device with no GPU present raises.
+      previous_layout_dit_checkpoint: an encoder checkpoint to warm-start
+        from (over the config's field).
+      warm_start: probe ``LAYOUTDIT_DIT_{BASE,LARGE}_PTH`` when no
+        checkpoint is given; False for callers that restore a full
+        checkpoint right after (predict, serve, export).
     """
 
     def __init__(self, model_config: ModelConfig, compute_dtype: str = "bfloat16",
-                 seed: int = 0, device: str | torch.device = "cuda"):
-        for name in WARM_START_ENV:
-            if os.environ.get(name):
-                raise RuntimeError(
-                    f"{name} is set: warm-starting the encoder from a pretrained DiT "
-                    "checkpoint is not supported by the port yet; it waits for "
-                    "tools/convert_hf_checkpoint.py (ROADMAP queue 1 item 6). Unset it "
-                    "to train from random weights."
-                )
+                 seed: int = 0, device: str | torch.device = "cuda",
+                 previous_layout_dit_checkpoint: Optional[str] = None,
+                 warm_start: bool = True):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("LayoutDetectionModel: no CUDA device is available")
         self.model_config = model_config
         self.cfg = DetectorConfig.from_model_config(model_config, precision_dtype=compute_dtype)
+        self._seed = seed
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.params = init_detector(self.cfg, gen, device=self.device)
+        ckpt = previous_layout_dit_checkpoint or model_config.previous_layout_dit_checkpoint
+        if not ckpt and warm_start:
+            ckpt = self._local_pretrained()
+        if ckpt:
+            self.load_dit_encoder(ckpt)
+
+    def _local_pretrained(self) -> Optional[str]:
+        """The ``LAYOUTDIT_DIT_*_PTH`` checkpoint of the backbone's preset,
+        when the configured encoder is that preset's architecture with its
+        image size, windows and LoRA fields masked out (JAX
+        ``model.py:58-110``)."""
+        preset = _PRESETS.get(self.model_config.backbone_type)
+        if preset is None:
+            return None
+        name, ref = preset
+        vit = self.cfg.backbone.vit
+        arch_match = dataclasses.replace(
+            vit, image_size=ref.image_size, lora_rank=ref.lora_rank,
+            lora_alpha=ref.lora_alpha, lora_targets=ref.lora_targets,
+            window_size=ref.window_size, global_attn_layers=ref.global_attn_layers,
+        ) == ref
+        path = local_checkpoint(name)
+        if path and arch_match:
+            logger.info("Warm-starting from local pretrained %s checkpoint %s "
+                        "(env LAYOUTDIT_DIT_*_PTH)", name, path)
+            return path
+        if path:
+            logger.warning("Local pretrained %s checkpoint present but the configured encoder "
+                           "architecture differs from the preset (vit_overrides?); training "
+                           "from random init.", name)
+        return None
+
+    def load_dit_encoder(self, path: str) -> None:
+        """Warm-start the encoder alone from ``path`` (the reference's
+        ``strict=False`` load into ``backbone.dit``), then, for a LoRA
+        model, add fresh adapters beside the loaded weights."""
+        if self.cfg.backbone_kind != "dit":
+            raise ValueError("previous_layout_dit_checkpoint warm-starts the DiT encoder; the "
+                             f"{self.cfg.backbone_kind} backbone has none")
+        vit_cfg = self.cfg.backbone.vit
+        vit = load_beit_checkpoint(path, vit_cfg, self.device)
+        if vit_cfg.lora_rank > 0:
+            gen = torch.Generator(device=self.device).manual_seed(self._seed ^ 0x10FA)
+            vit = add_lora_params(vit, vit_cfg, gen)
+        self.params["backbone"]["vit"] = vit
+        logger.info("Warm-started DiT encoder from %s", path)
 
     def num_params(self) -> int:
         return sum(t.numel() for t in tree_leaves(self.params))
@@ -109,17 +169,21 @@ class LayoutDetectionModel:
         place, so a trainer holding them sees them too) and return the
         whole state (``params``, ``opt_state``, ``epoch``, ``extra``). A
         ``.msgpack`` path is read as the JAX package writes it; a
-        ``.orbax`` one raises (queue 1 item 7)."""
+        ``.orbax`` one raises (queue 1 item 7). Leaves match by path and
+        shape; only the encoder's position embeddings and relative-position
+        tables may differ (a model warm-started at another image size keeps
+        the checkpoint's): the tree then holds the checkpoint's tensors
+        there. Any other difference (another ``num_classes``, FPN width or
+        head) raises."""
         state = load_checkpoint(path, map_location=self.device)
-        with torch.no_grad():
-            for dst, src in zip(tree_leaves(self.params), tree_leaves(state["params"]),
-                                strict=True):
-                dst.copy_(src)
+        copy_params_(self.params, state["params"], resizable=RESIZABLE_LEAVES)
         return state
 
 
-def build_model(config: RunConfig, seed: int = 0,
-                device: str | torch.device = "cuda") -> LayoutDetectionModel:
-    """The model of a run's config (``main``'s first step)."""
+def build_model(config: RunConfig, seed: int = 0, device: str | torch.device = "cuda",
+                warm_start: bool = True) -> LayoutDetectionModel:
+    """The model of a run's config (``main``'s first step); ``warm_start``
+    False skips the ``LAYOUTDIT_DIT_*_PTH`` probe, for callers that restore
+    a full checkpoint right after."""
     return LayoutDetectionModel(config.model, compute_dtype=config.compute_dtype, seed=seed,
-                                device=device)
+                                device=device, warm_start=warm_start)

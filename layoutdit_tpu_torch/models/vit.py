@@ -41,6 +41,12 @@ short kernel's range at ws 16) and the CLS token attends to itself alone;
 the global layers (by default the tap layers) attend over the whole
 grid.
 
+LoRA (``models/lora.py``): a projection with ``lora_a`` / ``lora_b``
+adds (alpha/r) x A B; q, k and v's adapters sit beside the fused qkv and
+their deltas join its thirds. An int8 linear (``weight_q``,
+``ops/quant.py``) runs the W8A8 product, the fused qkv over activations
+quantized once (serving only).
+
 Precision policy as in the JAX package: parameters fp32, matmul inputs
 cast to ``compute_dtype``, LayerNorm/softmax/GELU statistics in fp32.
 """
@@ -62,8 +68,10 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from layoutdit_tpu_torch.models.lora import add_lora_params, lora_delta
 from layoutdit_tpu_torch.ops.flash_attention import flash_attention_qkv
 from layoutdit_tpu_torch.ops.interpolate import resize_bicubic, resize_bilinear
+from layoutdit_tpu_torch.ops.quant import int8_linear
 from layoutdit_tpu_torch.ops.short_attention import MAX_N as SHORT_MAX_N
 from layoutdit_tpu_torch.ops.short_attention import (
     key_mask_rows,
@@ -99,6 +107,15 @@ class ViTConfig:
     # the padding masked out of every softmax row and cropped at the taps;
     # only without windows (JAX vit.py:829-846)
     pad_tokens_to: int = 0
+    # LoRA adapters (models/lora.py): 0 = off; r > 0 adds rank-r factors
+    # (y += alpha/r x A B, B zero at init) to the targeted projections
+    lora_rank: int = 0
+    lora_alpha: float = 16.0
+    lora_targets: tuple[str, ...] = ("q", "v")
+
+    @property
+    def lora_scaling(self) -> float:
+        return self.lora_alpha / self.lora_rank if self.lora_rank > 0 else 1.0
 
     def is_global_layer(self, layer_idx_1based: int) -> bool:
         if self.window_size <= 0:
@@ -280,6 +297,12 @@ def init_vit_params(cfg: ViTConfig, generator: torch.Generator, device) -> dict:
     if cfg.use_shared_relative_position_bias:
         params["shared_rel_pos_table"] = _zeros(table, device)
     params["layers"] = layers
+    if cfg.lora_rank > 0:
+        # from a generator of their own: the base weights are the same
+        # draws as without adapters (JAX folds a constant into its key)
+        lora_gen = torch.Generator(device=generator.device).manual_seed(
+            generator.initial_seed() ^ 0x10FA)
+        params = add_lora_params(params, cfg, lora_gen)
     return params
 
 
@@ -288,9 +311,30 @@ def _layer_norm(x: torch.Tensor, p: dict, eps: float) -> torch.Tensor:
     return F.layer_norm(x.float(), x.shape[-1:], p["weight"], p["bias"], eps).to(x.dtype)
 
 
-def _linear(x: torch.Tensor, p: dict) -> torch.Tensor:
+def _linear(x: torch.Tensor, p: dict, lora_scale: float = 1.0) -> torch.Tensor:
+    """x W^T + b; an int8 linear (``weight_q``, ``ops/quant.py``) runs the
+    W8A8 product, and adapters (``lora_a``) add their delta."""
+    if "weight_q" in p:
+        return int8_linear(x, p)
     bias = p.get("bias")
-    return F.linear(x, p["weight"].to(x.dtype), None if bias is None else bias.to(x.dtype))
+    y = F.linear(x, p["weight"].to(x.dtype), None if bias is None else bias.to(x.dtype))
+    if "lora_a" in p:
+        y = y + lora_delta(x, p, lora_scale)
+    return y
+
+
+def _qkv(x: torch.Tensor, layer: dict, cfg: ViTConfig) -> torch.Tensor:
+    """The fused projection [B, N, 3D]: one GEMM (bf16, or W8A8 over
+    activations quantized once, as JAX's fused path does), then each of
+    q / k / v adapters' delta added to its third, where JAX concatenates
+    them (zeros for a projection without one)."""
+    qkv = _linear(x, layer["qkv"])
+    adapters = [layer.get(n, {}) for n in ("q", "k", "v")]
+    if any("lora_a" in p for p in adapters):
+        zeros = qkv.new_zeros(*qkv.shape[:-1], x.shape[-1])
+        qkv = qkv + torch.cat([lora_delta(x, p, cfg.lora_scaling) if "lora_a" in p else zeros
+                               for p in adapters], dim=-1)
+    return qkv
 
 
 def patchify(pixels: torch.Tensor, patch: int) -> torch.Tensor:
@@ -355,9 +399,9 @@ def _attention(
     bias: torch.Tensor | None = None,
 ) -> torch.Tensor:
     b, n, d = x.shape
-    qkv = _linear(x, layer["qkv"])  # [B, N, 3D]
+    qkv = _qkv(x, layer, cfg)  # [B, N, 3D]
     ctx = attention_core(qkv, cfg.num_attention_heads, key_mask, bias)
-    return _linear(ctx.reshape(b, n, d), layer["attn_out"])
+    return _linear(ctx.reshape(b, n, d), layer["attn_out"], cfg.lora_scaling)
 
 
 def _window_partition(
@@ -500,9 +544,9 @@ def encoder_block(
         attn = _windowed_attention(x_ln, layer, cfg, *window, bias=bias)
     x = x + attn * layer["lambda_1"].to(attn.dtype)
     y = _layer_norm(x, layer["ln2"], cfg.layer_norm_eps)
-    y = _linear(y, layer["mlp_in"])
+    y = _linear(y, layer["mlp_in"], cfg.lora_scaling)
     y = F.gelu(y.float()).to(y.dtype)
-    y = _linear(y, layer["mlp_out"])
+    y = _linear(y, layer["mlp_out"], cfg.lora_scaling)
     return x + y * layer["lambda_2"].to(y.dtype)
 
 

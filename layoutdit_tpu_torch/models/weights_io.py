@@ -116,8 +116,21 @@ def _vit_layer(layer: Mapping, device) -> dict:
     }
     if "rel_pos_table" in layer:
         out["rel_pos_table"] = _t(layer["rel_pos_table"], device)
+    # LoRA adapters: [d_in, r] / [r, d_out] in both packages; q/k/v's sit
+    # beside the fused qkv, the others inside their projection
+    for name in LORA_TARGETS:
+        if "lora_a" in layer.get(name, {}):
+            entry = {k: _t(layer[name][k], device) for k in ("lora_a", "lora_b")}
+            if name in ("q", "k", "v"):
+                out[name] = entry
+            else:
+                out[name].update(entry)
     return out
 
+
+# the projections LoRA may target (JAX's names, models/lora.py), in the
+# order a layer holds their adapters
+LORA_TARGETS = ("q", "k", "v", "attn_out", "mlp_in", "mlp_out")
 
 # encoder leaves that pass through unchanged, where the model has them:
 # position embeddings [1 + P, D] and relative-position tables
@@ -224,12 +237,61 @@ def _detr_to_jax(head: dict) -> dict:
     }
 
 
+_BN = ("weight", "bias", "mean", "var")
+
+
+def _resnet_from_jax(tree: Mapping, device) -> dict:
+    """JAX ``init_resnet50_params`` tree -> the port's: OIHW conv kernels
+    (no bias) become ``weight``s, BN statistics pass through."""
+    def conv(p):
+        return {"weight": _t(p["kernel"], device)}
+
+    def bn(p):
+        return {k: _t(p[k], device) for k in _BN}
+
+    def block(b):
+        out = {}
+        for i in (1, 2, 3):
+            out[f"conv{i}"] = conv(b[f"conv{i}"])
+            out[f"bn{i}"] = bn(b[f"bn{i}"])
+        if "downsample" in b:
+            out["downsample"] = {"conv": conv(b["downsample"]["conv"]),
+                                 "bn": bn(b["downsample"]["bn"])}
+        return out
+
+    return {"stem": {"conv": conv(tree["stem"]["conv"]), "bn": bn(tree["stem"]["bn"])},
+            "stages": [[block(b) for b in stage] for stage in tree["stages"]]}
+
+
+def _resnet_to_jax(tree: dict) -> dict:
+    def conv(p):
+        return {"kernel": _np(p["weight"])}
+
+    def bn(p):
+        return {k: _np(p[k]) for k in _BN}
+
+    def block(b):
+        out = {k: conv(v) if k.startswith("conv") else bn(v)
+               for k, v in b.items() if k != "downsample"}
+        if "downsample" in b:
+            out["downsample"] = {"conv": conv(b["downsample"]["conv"]),
+                                 "bn": bn(b["downsample"]["bn"])}
+        return out
+
+    return {"stem": {"conv": conv(tree["stem"]["conv"]), "bn": bn(tree["stem"]["bn"])},
+            "stages": [[block(b) for b in stage] for stage in tree["stages"]]}
+
+
 def params_from_jax(tree: Mapping, device="cpu") -> dict:
-    """JAX ``init_detector_params`` tree (numpy leaves) -> port params."""
-    fpn = tree["backbone"]["fpn"]
+    """JAX ``init_detector_params`` tree (numpy leaves) -> port params.
+    A ResNet-50 backbone is ``backbone/{resnet, fpn}`` in both."""
+    bb = tree["backbone"]
+    fpn = bb["fpn"]
+    trunk = ({"resnet": _resnet_from_jax(bb["resnet"], device)} if "resnet" in bb
+             else {"vit": vit_params_from_jax(bb["vit"], device)})
     out = {
         "backbone": {
-            "vit": vit_params_from_jax(tree["backbone"]["vit"], device),
+            **trunk,
             "fpn": {
                 "inner": [_conv(p, device) for p in fpn["inner"]],
                 "layer": [_conv(p, device) for p in fpn["layer"]],
@@ -267,7 +329,7 @@ def k_bias_slots(params: dict) -> list[tuple[torch.Tensor, slice]]:
     invariant to a row-constant shift of the scores), is rounding noise,
     and the trainer holds it at zero (``train/trainer.py``)."""
     slots = []
-    for layer in params["backbone"]["vit"]["layers"]:
+    for layer in params["backbone"].get("vit", {"layers": []})["layers"]:
         bias = layer["qkv"]["bias"]
         d = bias.shape[0] // 3
         slots.append((bias, slice(d, 2 * d)))
@@ -307,6 +369,9 @@ def _vit_layer_to_jax(layer: dict) -> dict:
     }
     if "rel_pos_table" in layer:
         out["rel_pos_table"] = _np(layer["rel_pos_table"])
+    for name in LORA_TARGETS:
+        if "lora_a" in layer.get(name, {}):
+            out[name].update({k: _np(layer[name][k]) for k in ("lora_a", "lora_b")})
     return out
 
 
@@ -343,11 +408,14 @@ def params_to_jax(params: dict) -> dict:
     ``params_from_jax``. The fused qkv's K-bias slot has no JAX
     counterpart and is dropped; fc6 goes back to [Px, Py, C, rep], the
     transposed conv's weight back to JAX's flipped OIHW."""
-    fpn = params["backbone"]["fpn"]
+    bb = params["backbone"]
+    fpn = bb["fpn"]
     c = fpn["layer"][0]["weight"].shape[0]
+    trunk = ({"resnet": _resnet_to_jax(bb["resnet"])} if "resnet" in bb
+             else {"vit": vit_params_to_jax(bb["vit"])})
     out = {
         "backbone": {
-            "vit": vit_params_to_jax(params["backbone"]["vit"]),
+            **trunk,
             "fpn": {
                 "inner": [_conv_to_jax(q) for q in fpn["inner"]],
                 "layer": [_conv_to_jax(q) for q in fpn["layer"]],
@@ -397,12 +465,31 @@ def _f32(a) -> np.ndarray:
     return np.asarray(a, dtype=np.float32)
 
 
-def _moments_from_jax(tree: Mapping, device) -> list[torch.Tensor]:
+def _fill_masked(tree, like, fill=None):
+    """A moment tree in which optax's ``masked`` left a frozen leaf as
+    ``MaskedNode`` (``{}`` in flax's state dict), with zeros of the
+    parameter's shape there (``like``: the JAX parameter tree); with
+    ``fill``, every leaf becomes ``fill(present)`` of that shape."""
+    if isinstance(like, dict):
+        return {k: _fill_masked(tree[k], v, fill) for k, v in like.items()}
+    if isinstance(like, list):
+        return [_fill_masked(t, v, fill) for t, v in zip(tree, like, strict=True)]
+    present = not isinstance(tree, dict)  # MaskedNode: a frozen leaf has no moment
+    if fill is not None:
+        return np.broadcast_to(np.float32(fill(present)), np.shape(like))
+    return tree if present else np.zeros(np.shape(like), np.float32)
+
+
+def _moments_from_jax(tree: Mapping, device, trainable: list[bool] | None = None
+                      ) -> list[torch.Tensor]:
     """A moment tree in the JAX parameter layout -> its leaves in the
-    port's ``tree_leaves`` order, in the tree's dtype (bf16 or float32)."""
+    port's ``tree_leaves`` order (only the ``trainable`` ones, when given),
+    in the tree's dtype (bf16 or float32)."""
     bf16 = any(isinstance(t, torch.Tensor) and t.dtype == torch.bfloat16
                for t in tree_leaves(tree))
     out = tree_leaves(params_from_jax(tree_map(_f32, tree), device))
+    if trainable is not None:
+        out = [t for t, m in zip(out, trainable, strict=True) if m]
     return [t.to(torch.bfloat16) for t in out] if bf16 else out
 
 
@@ -410,7 +497,18 @@ def _count(a, device) -> torch.Tensor:
     return torch.tensor(int(np.asarray(a)), dtype=torch.int32, device=device)
 
 
-def train_state_from_jax(opt_state: Mapping, device="cpu") -> dict:
+def _unmask(chain):
+    """optax ``chain(masked(set_to_zero), masked(tx))`` (the JAX trainer's
+    LoRA optimizer) -> tx's state, or None when ``chain`` is not that."""
+    if (isinstance(chain, list) and len(chain) == 2
+            and all(isinstance(c, dict) and set(c) == {"inner_state"} for c in chain)
+            and not chain[0]["inner_state"]):
+        return chain[1]["inner_state"]
+    return None
+
+
+def train_state_from_jax(opt_state: Mapping, device="cpu", params: Mapping | None = None
+                         ) -> dict:
     """The JAX trainer's optimizer slot, as flax's ``to_state_dict`` gives
     it (numpy leaves, bf16 ones as ``torch.bfloat16``), -> the port's
     (``train/optim.py``; ``{"tx": ..., "ema": ...}`` with an EMA).
@@ -424,10 +522,17 @@ def train_state_from_jax(opt_state: Mapping, device="cpu") -> dict:
     ``nu`` share the parameters' tree and map through ``params_from_jax``
     (``mu`` keeps its dtype); the counts are int32 scalars. The fused
     qkv's K-bias slot is zero in both moments, as in the parameters
-    (``params_from_jax`` raises on a non-zero K bias)."""
+    (``params_from_jax`` raises on a non-zero K bias).
+
+    A LoRA run's optimizer (``lora_freeze_base``) is ``chain(masked(
+    set_to_zero), masked(adamw chain))``, whose moments hold ``{}`` (optax's
+    ``MaskedNode``) at the frozen leaves: the port keeps the moments of
+    the trainable leaves only, and their mask over all the leaves as
+    ``trainable``. ``params`` (the JAX parameter tree of the same file)
+    gives the frozen leaves' shapes."""
     opt_state = lists_from_state_dict(opt_state)
     if isinstance(opt_state, dict) and "ema" in opt_state:
-        return {"tx": train_state_from_jax(opt_state["tx"], device),
+        return {"tx": train_state_from_jax(opt_state["tx"], device, params),
                 "ema": params_from_jax(tree_map(_f32, opt_state["ema"]), device)}
     outer = {}
     chain = opt_state
@@ -435,19 +540,36 @@ def train_state_from_jax(opt_state: Mapping, device="cpu") -> dict:
         outer = {"notfinite_count": _count(chain["notfinite_count"], device),
                  "total_notfinite": _count(chain["total_notfinite"], device)}
         chain = chain["inner_state"]
+    inner = _unmask(chain)
+    masked = inner is not None
+    if masked:
+        chain = inner
     if isinstance(chain, list) and len(chain) == 2 and not chain[0]:
         chain = chain[1]  # clip_by_global_norm's empty state comes first
     if (not isinstance(chain, list) or len(chain) != 3
             or set(chain[0]) != {"count", "mu", "nu"} or chain[1]):
         raise ValueError("train_state_from_jax: not the JAX trainer's adamw chain state")
     adam, schedule = chain[0], chain[2]
-    return {
-        "mu": _moments_from_jax(adam["mu"], device),
-        "nu": _moments_from_jax(adam["nu"], device),
+    mu, nu, trainable = adam["mu"], adam["nu"], None
+    if masked:
+        if params is None:
+            raise ValueError("train_state_from_jax: a masked (LoRA) optimizer state needs "
+                             "the parameter tree for its frozen leaves' shapes")
+        params = lists_from_state_dict(params)
+        # the file's own mask: a port leaf trains where its JAX leaves hold moments
+        present = params_from_jax(_fill_masked(mu, params, fill=float), "cpu")
+        trainable = [bool(t.any()) for t in tree_leaves(present)]
+        mu, nu = _fill_masked(mu, params), _fill_masked(nu, params)
+    state = {
+        "mu": _moments_from_jax(mu, device, trainable),
+        "nu": _moments_from_jax(nu, device, trainable),
         "count": _count(adam["count"], device),
         "schedule_count": _count(schedule["count"], device),
         **outer,
     }
+    if trainable is not None:
+        state["trainable"] = torch.tensor(trainable, dtype=torch.bool, device=device)
+    return state
 
 
 def _unflatten(template, leaves: list):
@@ -466,6 +588,25 @@ def _check_k_slots_zero(params: dict, leaves: list[torch.Tensor], what: str) -> 
                              "layout has no K bias to hold it")
 
 
+def _mask_jax(tree, keep):
+    """A JAX-layout moment tree with ``{}`` (optax's ``MaskedNode`` in
+    flax's state dict) at the leaves where ``keep`` (the same layout) is
+    false."""
+    if isinstance(tree, dict):
+        return {k: _mask_jax(v, keep[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_mask_jax(v, m) for v, m in zip(tree, keep, strict=True)]
+    return tree if keep else {}
+
+
+def _trainable_to_jax(params: dict, trainable: list[bool]) -> dict:
+    """The port's per-leaf ``trainable`` mask -> one bool per leaf of the
+    JAX layout (a JAX leaf trains where its port leaf does)."""
+    marks = [torch.tensor(float(m)).expand(p.shape)
+             for p, m in zip(tree_leaves(params), trainable, strict=True)]
+    return tree_map(lambda a: bool(np.any(a)), params_to_jax(_unflatten(params, marks)))
+
+
 def train_state_to_jax(opt_state: dict, params: dict, clip: bool) -> dict:
     """The inverse of ``train_state_from_jax``: the port's optimizer state
     (with its EMA, when it has one) -> the JAX trainer's slot, as flax's
@@ -473,17 +614,26 @@ def train_state_to_jax(opt_state: dict, params: dict, clip: bool) -> dict:
     gives the tree the moments' leaves fill; ``clip`` says whether the
     chain starts with ``clip_by_global_norm`` (``grad_clip_norm`` > 0),
     which the port's state does not record. A bf16 ``mu`` stays bf16, as
-    ``torch.bfloat16`` leaves; the counts are int32 0-d arrays."""
+    ``torch.bfloat16`` leaves; the counts are int32 0-d arrays. A state
+    with ``trainable`` (a LoRA run's) becomes JAX's masked chain, ``{}``
+    at the frozen leaves."""
     if "ema" in opt_state:
         return {"tx": train_state_to_jax(opt_state["tx"], params, clip),
                 "ema": params_to_jax(opt_state["ema"])}
+    trainable = opt_state.get("trainable")
+    trainable = None if trainable is None else trainable.tolist()
+    keep = None if trainable is None else _trainable_to_jax(params, trainable)
 
     def moments(leaves, what):
+        if trainable is not None:  # zeros at the frozen leaves, then {}
+            it = iter(leaves)
+            leaves = [next(it) if m else torch.zeros_like(p, dtype=leaves[0].dtype)
+                      for p, m in zip(tree_leaves(params), trainable, strict=True)]
         _check_k_slots_zero(params, leaves, what)
         tree = params_to_jax(_unflatten(params, leaves))
         if leaves[0].dtype == torch.bfloat16:
             tree = tree_map(lambda a: torch.from_numpy(a).to(torch.bfloat16), tree)
-        return tree
+        return _mask_jax(tree, keep) if keep is not None else tree
 
     def count(t):
         return np.asarray(int(t), dtype=np.int32)
@@ -493,8 +643,252 @@ def train_state_to_jax(opt_state: dict, params: dict, clip: bool) -> dict:
     state = [adam, {}, {"count": count(opt_state["schedule_count"])}]
     if clip:
         state = [{}, state]
+    if trainable is not None:
+        state = [{"inner_state": {}}, {"inner_state": state}]
     if "notfinite_count" in opt_state:
         n = int(opt_state["notfinite_count"])
         state = {"notfinite_count": count(n), "last_finite": np.asarray(n == 0),
                  "total_notfinite": count(opt_state["total_notfinite"]), "inner_state": state}
     return state
+
+
+# ------------------------------------------------------ copying by path
+
+
+# the encoder leaves a warm start takes from its checkpoint at the
+# checkpoint's size, which the forward resamples to the configured grid
+RESIZABLE_LEAVES = ("pos_embed", "rel_pos_table", "shared_rel_pos_table")
+
+
+def _set_path(tree, path: str, value) -> None:
+    *parents, last = path.split("/")
+    for k in parents:
+        tree = tree[int(k)] if isinstance(tree, list) else tree[k]
+    tree[int(last) if isinstance(tree, list) else last] = value
+
+
+def copy_params_(dst: dict, src: dict, resizable: tuple[str, ...] = ()) -> None:
+    """Copy ``src``'s tensors into ``dst``'s, in place, matching leaves by
+    path: both trees must hold the same paths and shapes. A leaf whose
+    last path component is in ``resizable`` may differ in shape (a
+    warm-started encoder's position embeddings or relative-position tables
+    at the checkpoint's image size): ``dst``'s dict then takes ``src``'s
+    tensor in its place. Any other difference raises, copying nothing."""
+    dst_leaves = dict(zip(tree_paths(dst), tree_leaves(dst)))
+    src_leaves = dict(zip(tree_paths(src), tree_leaves(src)))
+    if set(dst_leaves) != set(src_leaves):
+        missing = sorted(set(dst_leaves) - set(src_leaves))[:8]
+        extra = sorted(set(src_leaves) - set(dst_leaves))[:8]
+        raise ValueError(f"parameter trees differ: missing {missing}, unexpected {extra}")
+    resized = [k for k, v in src_leaves.items() if dst_leaves[k].shape != v.shape]
+    refused = [k for k in resized if k.rsplit("/", 1)[-1] not in resizable]
+    if refused:
+        raise ValueError("parameter shapes differ: " + ", ".join(
+            f"{k} {tuple(src_leaves[k].shape)} against {tuple(dst_leaves[k].shape)}"
+            for k in refused[:8]))
+    with torch.no_grad():
+        for k, v in src_leaves.items():
+            if k in resized:
+                _set_path(dst, k, v)
+            else:
+                dst_leaves[k].copy_(v)
+
+
+# ----------------------------------------- pretrained DiT/BEiT checkpoints
+
+# HF BeitModel parameter names (prefix-stripped)
+_EMB = "embeddings."
+_LAYER = "encoder.layer.{i}."
+# the prefixes a BEiT state_dict's keys may carry (JAX weights_io.py)
+_PREFIXES = ("beit.", "dit.", "model.", "backbone.backbone.dit.")
+
+
+def _as_np(t) -> np.ndarray:
+    """A torch tensor or array -> float32 numpy."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach().float().cpu().numpy()
+    return np.asarray(t, dtype=np.float32)
+
+
+def beit_state_dict_to_params(state_dict: Mapping, cfg, device="cpu") -> dict:
+    """An HF ``BeitModel`` state_dict -> the port's encoder tree (port of
+    JAX ``beit_state_dict_to_params``): keys with or without a ``beit.`` /
+    ``dit.`` / ``model.`` prefix; pooler, final LayerNorm, mask token and
+    LM-head weights are ignored. ``query`` / ``key`` / ``value`` rows go
+    straight into the fused ``qkv`` weight's rows ([out, in], as torch's);
+    the fused bias is [query bias, 0, value bias] (BEiT's key has none).
+    The patch projection's conv [D, C, p, p] is the linear [D, C*p*p] in
+    ``patchify``'s (c, kh, kw) order. Layer scales and relative-position
+    tables come along where present; a layer without layer scales gets
+    ones (the same function)."""
+    sd = {}
+    for k, v in state_dict.items():
+        for pre in _PREFIXES:
+            if k.startswith(pre):
+                k = k[len(pre):]
+        sd[k] = v
+
+    def take(name: str) -> torch.Tensor:
+        return _t(_as_np(sd[name]), device)
+
+    d = cfg.hidden_size
+    conv_w = take(_EMB + "patch_embeddings.projection.weight")
+    params = {
+        "cls_token": take(_EMB + "cls_token").reshape(d),
+        "patch_embed": {"weight": conv_w.reshape(d, -1).contiguous(),
+                        "bias": take(_EMB + "patch_embeddings.projection.bias")},
+    }
+    if _EMB + "position_embeddings" in sd:
+        params["pos_embed"] = take(_EMB + "position_embeddings").reshape(-1, d)
+    shared = "encoder.relative_position_bias.relative_position_bias_table"
+    if shared in sd:
+        params["shared_rel_pos_table"] = take(shared)
+    layers = []
+    for i in range(cfg.num_hidden_layers):
+        p = _LAYER.format(i=i)
+        att = p + "attention.attention."
+        bq = take(att + "query.bias")
+
+        def lin(name):
+            return {"weight": take(name + ".weight"), "bias": take(name + ".bias")}
+
+        layer = {
+            "ln1": lin(p + "layernorm_before"),
+            "ln2": lin(p + "layernorm_after"),
+            "qkv": {
+                "weight": torch.cat([take(att + "query.weight"), take(att + "key.weight"),
+                                     take(att + "value.weight")], dim=0),
+                "bias": torch.cat([bq, torch.zeros_like(bq), take(att + "value.bias")]),
+            },
+            "attn_out": lin(p + "attention.output.dense"),
+            "mlp_in": lin(p + "intermediate.dense"),
+            "mlp_out": lin(p + "output.dense"),
+        }
+        for lam in ("lambda_1", "lambda_2"):
+            layer[lam] = take(p + lam) if p + lam in sd else torch.ones(d, device=device)
+        rel = att + "relative_position_bias.relative_position_bias_table"
+        if rel in sd:
+            layer["rel_pos_table"] = take(rel)
+        layers.append(layer)
+    params["layers"] = layers
+    return params
+
+
+def load_beit_checkpoint(path: str, cfg, device="cpu") -> dict:
+    """A DiT/BEiT encoder checkpoint (local or a ``scheme://`` URL) -> the
+    port's encoder tree: an HF state_dict as ``.bin`` / ``.pth``
+    (``torch.load(weights_only=True)``) or ``.safetensors`` (needs the
+    ``safetensors`` package), or a converted ``.msgpack`` written by
+    either package's ``tools/convert_hf_checkpoint.py``."""
+    from layoutdit_tpu_torch.utils.paths import open_path, read_bytearray
+
+    if path.endswith(".msgpack"):
+        buf = read_bytearray(path)
+        magic = b"LDTPU1\n"
+        if not buf.startswith(magic):
+            raise ValueError(f"{path} is not a layoutdit_tpu checkpoint")
+        from layoutdit_tpu_torch.utils.flax_msgpack import loads
+
+        raw = lists_from_state_dict(loads(memoryview(buf)[len(magic):]))
+        return vit_params_from_jax(raw["params"], device)
+    if path.endswith(".safetensors"):
+        try:
+            from safetensors.torch import load as st_load
+        except ImportError as e:
+            raise ImportError(f"{path}: reading .safetensors needs the safetensors package; "
+                              "convert the checkpoint to .pth or .msgpack elsewhere") from e
+        sd = st_load(bytes(read_bytearray(path)))
+    else:
+        with open_path(path, "rb") as f:
+            sd = torch.load(f, map_location="cpu", weights_only=True)
+    return beit_state_dict_to_params(sd, cfg, device)
+
+
+# ------------------------------------------- reference detector checkpoints
+
+
+def _ref_conv(sd: Mapping, device, *names: str) -> dict:
+    """The first present conv (torchvision renamed its containers across
+    versions: plain Conv2d vs Conv2dNormActivation's ``.0``)."""
+    for name in names:
+        if name + ".weight" in sd:
+            return {"weight": _t(_as_np(sd[name + ".weight"]), device),
+                    "bias": _t(_as_np(sd[name + ".bias"]), device)}
+    raise KeyError(f"none of {names} in state_dict")
+
+
+def detector_state_dict_to_params(state_dict: Mapping, cfg, device="cpu") -> dict:
+    """A reference full-detector checkpoint (torch ``LayoutDetectionModel.
+    state_dict()``: torchvision FasterRCNN over the DiT + FPN backbone) ->
+    the port's detector tree (port of JAX ``detector_state_dict_to_params``):
+    the encoder under ``backbone.backbone.dit.``, the FPN, the RPN head,
+    the box head and the predictor. Linear weights are [out, in] in both;
+    fc6's columns go from torch's (c, py, px) flattening to the port's
+    (px, py, c). A cascade config is refused (its heads have no source
+    weights); shapes are checked against the config's tree."""
+    from layoutdit_tpu_torch.models.detection.detector import init_detector
+
+    if cfg.cascade_iou_threshs:
+        raise ValueError("reference checkpoints are plain Faster R-CNN; target a non-cascade "
+                         "config (cascade heads have no source weights)")
+    sd = {}
+    for k, v in state_dict.items():
+        for pre in ("module.", "model."):
+            if k.startswith(pre):
+                k = k[len(pre):]
+        sd[k] = v
+    enc = "backbone.backbone.dit."
+    enc_sd = {k[len(enc):]: v for k, v in sd.items() if k.startswith(enc)}
+    if not enc_sd:
+        raise ValueError("no DiT encoder weights under backbone.backbone.dit.* — not a "
+                         "reference detector checkpoint?")
+
+    def lin(name):
+        return {"weight": _t(_as_np(sd[name + ".weight"]), device),
+                "bias": _t(_as_np(sd[name + ".bias"]), device)}
+
+    c = cfg.backbone.fpn_out_channels
+    p = cfg.roi_output_size
+    w6 = _as_np(sd["roi_heads.box_head.fc6.weight"])  # [rep, C*P*P], (c, py, px)
+    rep = w6.shape[0]
+    if w6.shape[1] != c * p * p:
+        raise ValueError(f"fc6 expects {c}x{p}x{p} pooled features (fpn_out_channels x "
+                         f"roi_output_size^2) but the checkpoint has in_features="
+                         f"{w6.shape[1]} — config mismatch")
+    params = {
+        "backbone": {
+            "vit": beit_state_dict_to_params(enc_sd, cfg.backbone.vit, device),
+            "fpn": {
+                "inner": [_ref_conv(sd, device, f"backbone.fpn.inner_blocks.{i}.0",
+                                    f"backbone.fpn.inner_blocks.{i}") for i in range(4)],
+                "layer": [_ref_conv(sd, device, f"backbone.fpn.layer_blocks.{i}.0",
+                                    f"backbone.fpn.layer_blocks.{i}") for i in range(4)],
+            },
+        },
+        "rpn_head": {
+            "conv": _ref_conv(sd, device, "rpn.head.conv.0.0", "rpn.head.conv"),
+            "cls": _ref_conv(sd, device, "rpn.head.cls_logits"),
+            "bbox": _ref_conv(sd, device, "rpn.head.bbox_pred"),
+        },
+        "box_head": {
+            "fc6": {"weight": _t(w6.reshape(rep, c, p, p).transpose(0, 3, 2, 1)
+                                 .reshape(rep, -1), device),
+                    "bias": _t(_as_np(sd["roi_heads.box_head.fc6.bias"]), device)},
+            "fc7": lin("roi_heads.box_head.fc7"),
+        },
+        "box_predictor": {"cls": lin("roi_heads.box_predictor.cls_score"),
+                          "bbox": lin("roi_heads.box_predictor.bbox_pred")},
+    }
+    template = init_detector(cfg, torch.Generator(), device="meta")
+    want = dict(zip(tree_paths(template), tree_leaves(template)))
+    got = dict(zip(tree_paths(params), tree_leaves(params)))
+    errors = [f"missing {k}" for k in want if k not in got]
+    errors += [f"{k}: {tuple(got[k].shape)} != {tuple(v.shape)}" for k, v in want.items()
+               if k in got and got[k].shape != v.shape]
+    errors += [f"unexpected {k}" for k in got if k not in want][:8]
+    if errors:
+        raise ValueError("converted checkpoint does not match the target config: "
+                         + "; ".join(errors[:12])
+                         + (f"; +{len(errors) - 12} more" if len(errors) > 12 else "")
+                         + f" (leaves: {len(got)} vs {len(want)})")
+    return params

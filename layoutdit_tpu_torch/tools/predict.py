@@ -17,8 +17,8 @@ in red at 40%).
 
 ``--checkpoint`` takes the port's ``.pt`` or the JAX trainer's
 ``.msgpack``. ``--device`` is "cuda" (the default) or "cpu". ``--int8``
-is refused: int8 serving waits for ``ops/quant.py`` (ROADMAP queue 1
-item 6).
+serves the encoder in W8A8 int8 (``ops/quant.py``; LoRA adapters are
+merged first).
 """
 
 from __future__ import annotations
@@ -35,10 +35,6 @@ import numpy as np
 from layoutdit_tpu_torch.log import get_logger
 
 logger = get_logger(__name__)
-
-INT8_REFUSED = ("--int8: int8 serving is not supported by the port yet; it waits for "
-                "ops/quant.py (ROADMAP queue 1 item 6)")
-
 
 def _label_names(n_classes: int, dataset: str | None) -> dict:
     """Class id -> name from the dataset inventories (``data/adapters.py``):
@@ -121,7 +117,7 @@ def load_model(checkpoint: str, device: str):
     from layoutdit_tpu_torch.models.model import build_model
 
     config = get_run_config()
-    model = build_model(config, seed=config.train.seed, device=device)
+    model = build_model(config, seed=config.train.seed, device=device, warm_start=False)
     model.restore_checkpoint(checkpoint)
     logger.info("Loaded checkpoint %s", checkpoint)
     return config, model
@@ -132,8 +128,6 @@ def run(args) -> list[dict]:
     from layoutdit_tpu_torch.tools.serve import detections_to_json
     from layoutdit_tpu_torch.utils.paths import open_path
 
-    if args.int8:
-        raise SystemExit(INT8_REFUSED)
     config, model = load_model(args.checkpoint, args.device)
 
     shard_index = None
@@ -165,7 +159,7 @@ def run(args) -> list[dict]:
     logger.info("Predicting %d pages", len(paths))
 
     kwargs = dict(batch_size=args.batch_size, score_thresh=args.score_thresh,
-                  device=args.device)
+                  device=args.device, int8=args.int8)
     if args.auto_buckets:
         engine = BatchInferenceEngine.from_corpus(
             model, _page_sizes(paths, read_head), max_buckets=args.auto_buckets, **kwargs)
@@ -216,7 +210,7 @@ def main(argv=None) -> list[dict]:
     parser.add_argument("--batch-size", type=int, default=8)
     parser.add_argument("--score-thresh", type=float, default=0.05)
     parser.add_argument("--int8", action="store_true",
-                        help="refused: waits for ops/quant.py (ROADMAP queue 1 item 6)")
+                        help="int8 W8A8 encoder (ops/quant.py)")
     parser.add_argument("--dataset", default=None,
                         choices=["publaynet", "doclaynet", "docbank"],
                         help="label-name inventory (default: from the model's class count)")

@@ -49,10 +49,13 @@ STAGES = ("forward", "backbone", "rpn", "head", "mask_head", "loss", "matcher", 
 REPO = Path(__file__).resolve().parents[2]
 
 
-def profile_step(trainer: Trainer, warmup: int, trace: Path) -> dict:
-    it = iter(trainer.dataloader)
-    batch = next(it)
-    it.close()
+def profile_step(trainer: Trainer, warmup: int, trace: Path, batch=None) -> dict:
+    """``warmup`` steps, then one traced, on ``batch`` (default: the
+    loader's first)."""
+    if batch is None:
+        it = iter(trainer.dataloader)
+        batch = next(it)
+        it.close()
     for _ in range(warmup):
         trainer.train_step(batch)
     torch.cuda.synchronize()

@@ -26,9 +26,11 @@ Usage:
   python -m layoutdit_tpu_torch.tools.serve --export-dir artifact/ --port 8000
 
 SIGTERM stops accepting, lets the requests in flight finish and drains
-the batcher. ``--int8`` waits for ``ops/quant.py`` (ROADMAP queue 1 item
-6); ``--data-parallel`` and ``--model-parallel`` wait for multi-card
-serving (queue 1 item 7): the port serves on one card. Both raise.
+the batcher. ``--int8`` serves the encoder in W8A8 int8 (``ops/quant.py``,
+LoRA adapters merged first); with ``--export-dir`` it raises, as in the
+JAX server (bake int8 in at export time). ``--data-parallel`` and
+``--model-parallel`` wait for multi-card serving (queue 1 item 7): the
+port serves on one card; they raise.
 """
 
 from __future__ import annotations
@@ -296,17 +298,19 @@ def make_handler(batcher: DynamicBatcher, names: dict, info: dict,
 def make_server(model, host: str, port: int, *, image_sizes=(224,), batch_size: int = 8,
                 score_thresh: float = 0.05, flush_ms: float = 5.0,
                 max_batch: int | None = None, dataset: str | None = None,
-                export_dir: str | None = None, device: str = "cuda"):
+                export_dir: str | None = None, device: str = "cuda", int8: bool = False):
     """(ThreadingHTTPServer, DynamicBatcher), the batcher started; split
     from ``main`` so that tests and scripts run the server in-process.
     ``model``: anything with ``.params`` and ``.cfg`` (a live model), or
     None with ``export_dir``: then an exported artifact (``export.py``) is
-    served, its buckets and batch size from its manifest."""
+    served, its buckets and batch size from its manifest, and ``int8``
+    does not apply. ``int8``: the live engine's W8A8 encoder."""
     from layoutdit_tpu_torch.tools.predict import _label_names
 
     if export_dir is not None:
-        if model is not None:
-            raise ValueError("--export-dir serves a frozen artifact: pass no model")
+        if model is not None or int8:
+            raise ValueError("--export-dir serves a frozen artifact: model/int8 do not apply "
+                             "(bake them in at export time)")
         from layoutdit_tpu_torch.eval.serving import ExportedInferenceEngine
 
         engine = ExportedInferenceEngine(export_dir, score_thresh=score_thresh, device=device)
@@ -317,7 +321,7 @@ def make_server(model, host: str, port: int, *, image_sizes=(224,), batch_size: 
 
         engine = BatchInferenceEngine(model, image_sizes=tuple(image_sizes),
                                       batch_size=batch_size, score_thresh=score_thresh,
-                                      device=device)
+                                      device=device, int8=int8)
         n_classes = model.cfg.num_classes
     names = _label_names(n_classes, dataset)
     info = {
@@ -368,30 +372,29 @@ def main(argv=None) -> None:
                         choices=["publaynet", "doclaynet", "docbank"])
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--int8", action="store_true",
-                        help="refused: waits for ops/quant.py (ROADMAP queue 1 item 6)")
+                        help="int8 W8A8 encoder (ops/quant.py); not with --export-dir")
     parser.add_argument("--data-parallel", type=int, default=0,
                         help="refused: multi-card serving waits for ROADMAP queue 1 item 7")
     parser.add_argument("--model-parallel", type=int, default=1,
                         help="refused: multi-card serving waits for ROADMAP queue 1 item 7")
     args = parser.parse_args(argv)
 
-    from layoutdit_tpu_torch.tools.predict import INT8_REFUSED, load_model
+    from layoutdit_tpu_torch.tools.predict import load_model
 
-    if args.int8:
-        raise SystemExit(INT8_REFUSED)
     if args.data_parallel or args.model_parallel != 1:
         raise SystemExit(MESH_REFUSED)
     model = None
     if args.checkpoint is not None:
         _, model = load_model(args.checkpoint, args.device)
-    elif args.sizes is not None or args.batch_size is not None:
-        raise SystemExit("--export-dir serves a frozen artifact: --sizes / --batch-size do "
-                         "not apply (buckets and batch size come from its manifest)")
+    elif args.int8 or args.sizes is not None or args.batch_size is not None:
+        raise SystemExit("--export-dir serves a frozen artifact: --int8 / --sizes / "
+                         "--batch-size do not apply (bake int8 in at export time; buckets "
+                         "and batch size come from its manifest)")
     httpd, batcher = make_server(
         model, args.host, args.port, image_sizes=args.sizes or [224],
         batch_size=args.batch_size or 8, score_thresh=args.score_thresh,
         flush_ms=args.flush_ms, max_batch=args.max_batch, dataset=args.dataset,
-        export_dir=args.export_dir, device=args.device,
+        export_dir=args.export_dir, device=args.device, int8=args.int8,
     )
 
     # SIGTERM stops accepting, lets the requests in flight finish and

@@ -91,17 +91,14 @@ def save_checkpoint(path: str | os.PathLike, params: dict, opt_state, epoch: int
     return _write_atomic(path, lambda f: torch.save(state, f))
 
 
-def save_as_jax(path: str, params: dict, opt_state, epoch: int, extra: dict,
-                clip: bool) -> str:
-    """The port's state as the JAX trainer's ``.msgpack`` checkpoint at
-    ``path``, atomically, written piece by piece: parameters through
-    ``params_to_jax``, the optimizer state (and EMA) through
-    ``train_state_to_jax`` (``clip``: the run clips gradients), tensors
-    in ``extra`` as lists of numbers (JSON)."""
+def _write_jax(path: str, params: dict, opt_state, epoch: int, extra: dict) -> str:
+    """``{params, opt_state, meta}`` (JAX-layout trees) as the JAX
+    package's ``.msgpack`` checkpoint at ``path``, atomically, written
+    piece by piece."""
     extra = {k: v.tolist() if isinstance(v, torch.Tensor) else v for k, v in extra.items()}
     payload = {
-        "params": params_to_jax(params),
-        "opt_state": {} if opt_state is None else train_state_to_jax(opt_state, params, clip),
+        "params": params,
+        "opt_state": {} if opt_state is None else opt_state,
         "meta": {"epoch": int(epoch), "extra": json.dumps(extra),
                  "has_opt_state": opt_state is not None},
     }
@@ -115,6 +112,24 @@ def save_as_jax(path: str, params: dict, opt_state, epoch: int, extra: dict,
     return _write_atomic(path, write)
 
 
+def save_as_jax(path: str, params: dict, opt_state, epoch: int, extra: dict,
+                clip: bool) -> str:
+    """The port's state as the JAX trainer's ``.msgpack`` checkpoint at
+    ``path``: parameters through ``params_to_jax``, the optimizer state
+    (and EMA) through ``train_state_to_jax`` (``clip``: the run clips
+    gradients), tensors in ``extra`` as lists of numbers (JSON)."""
+    return _write_jax(path, params_to_jax(params),
+                      None if opt_state is None else train_state_to_jax(opt_state, params, clip),
+                      epoch, extra)
+
+
+def save_jax_params(path: str, params: dict, extra: dict, epoch: int = 0) -> str:
+    """A params-only ``.msgpack`` of a tree already in the JAX layout
+    (numpy leaves): a converted encoder (``tools/convert_hf_checkpoint.py``)
+    or a merged model (``tools/merge_lora.py``)."""
+    return _write_jax(path, params, None, epoch, extra)
+
+
 def _load_jax(path: str, map_location) -> dict:
     """A JAX ``.msgpack`` checkpoint as the port's state dict."""
     buf = read_bytearray(path)
@@ -125,7 +140,7 @@ def _load_jax(path: str, map_location) -> dict:
     meta = raw.get("meta", {})
     opt_state = None
     if meta.get("has_opt_state"):
-        opt_state = train_state_from_jax(raw["opt_state"], map_location)
+        opt_state = train_state_from_jax(raw["opt_state"], map_location, raw["params"])
     return {"params": params_from_jax(raw["params"], map_location), "opt_state": opt_state,
             "epoch": int(meta.get("epoch", 0)), "extra": json.loads(meta.get("extra", "{}"))}
 

@@ -14,7 +14,11 @@ state is a plain dict of tensors on the parameters' device:
   * ``count`` (adam's, for the bias correction) and ``schedule_count``
     (the learning rate's), int32 scalars;
   * ``notfinite_count`` (consecutive non-finite updates) and
-    ``total_notfinite``, int32 scalars, with ``apply_if_finite`` only.
+    ``total_notfinite``, int32 scalars, with ``apply_if_finite`` only;
+  * ``trainable``, a bool per parameter, with a LoRA mask only (JAX's
+    ``optax.masked`` around the chain): the moments, the clip norm and
+    the updates cover the trainable parameters alone; a frozen one has
+    no moments and never changes, weight decay included.
 
 Every count stays on the device and the update reads nothing back to
 the host. The arithmetic follows optax step by step, so that float32
@@ -70,9 +74,11 @@ def make_lr_schedule(train_cfg: TrainingConfig, steps_per_epoch: int):
 
 
 class AdamW:
-    """``make_optimizer`` of the JAX trainer (without its LoRA mask):
-    ``init(params)`` gives the state, ``update(state, params, grads)``
-    applies one step in place (``params`` and the state's tensors)."""
+    """``make_optimizer`` of the JAX trainer: ``init(params, trainable)``
+    gives the state, ``update(state, params, grads)`` applies one step in
+    place (``params`` and the state's tensors). With a ``trainable`` mask
+    (``models/lora.py``), ``update`` takes the trainable parameters and
+    their gradients only, in order."""
 
     def __init__(self, train_cfg: TrainingConfig, steps_per_epoch: int):
         self.clip = train_cfg.grad_clip_norm
@@ -82,8 +88,12 @@ class AdamW:
                          else torch.float32)
         self.lr_schedule = make_lr_schedule(train_cfg, steps_per_epoch)
 
-    def init(self, params: list[torch.Tensor]) -> dict:
+    def init(self, params: list[torch.Tensor], trainable: list[bool] | None = None) -> dict:
         device = params[0].device
+        mask = None
+        if trainable is not None:
+            mask = torch.tensor(trainable, dtype=torch.bool, device=device)
+            params = [p for p, m in zip(params, trainable, strict=True) if m]
 
         def count():
             return torch.zeros((), dtype=torch.int32, device=device)
@@ -96,6 +106,8 @@ class AdamW:
         }
         if self.max_errors > 0:
             state.update(notfinite_count=count(), total_notfinite=count())
+        if mask is not None:
+            state["trainable"] = mask
         return state
 
     @torch.no_grad()

@@ -66,8 +66,13 @@ restores; the sampler generator starts from the seed, since a JAX run
 has none). With ``data_loader_config.image_shards_dir`` the pages are
 read out of tar shards (``data/shards.py``). Every artifact path may be
 a ``scheme://`` URL (``utils/paths.py``).
-Waiting for later slices: data-parallel evaluation, profiler upload and
-LoRA masks.
+A LoRA model (``lora_rank`` > 0) with ``lora_freeze_base`` trains its
+adapters and everything outside the encoder, as JAX's masked optimizer
+does: the frozen encoder's tensors take no gradient (autograd skips
+their weight-gradient products), hold no moments and keep their bits;
+the clip norm covers the trainable gradients only; the EMA, as JAX's,
+covers every parameter.
+Waiting for later slices: data-parallel evaluation and profiler upload.
 """
 
 from __future__ import annotations
@@ -91,7 +96,13 @@ from layoutdit_tpu_torch.models.detection.detector import (
     draw_priorities,
 )
 from layoutdit_tpu_torch.models.model import LayoutDetectionModel
-from layoutdit_tpu_torch.models.weights_io import k_bias_slots, tree_leaves, tree_map
+from layoutdit_tpu_torch.models.lora import num_trainable, trainable_mask
+from layoutdit_tpu_torch.models.weights_io import (
+    copy_params_,
+    k_bias_slots,
+    tree_leaves,
+    tree_map,
+)
 from layoutdit_tpu_torch.train.checkpoint import (
     CHECKPOINT_DIR,
     AsyncCheckpointWriter,
@@ -174,8 +185,17 @@ class Trainer:
         if any(t.device != self.device for t in self._leaves):
             raise ValueError(f"Trainer: the model's parameters must live on {self.device}, "
                              "the trainer's device")
-        for t in self._leaves:
-            t.requires_grad_(True)
+        self._trainable = None
+        if self.cfg.backbone.vit.lora_rank > 0 and tc.lora_freeze_base \
+                and self.cfg.backbone_kind == "dit":
+            self._trainable = trainable_mask(model.params)
+            n_train, n_total = num_trainable(model.params)
+            logger.info("LoRA fine-tune: %d / %d params trainable (%.1f%%); frozen encoder "
+                        "weights get no optimizer moments", n_train, n_total,
+                        100.0 * n_train / max(1, n_total))
+        for t, m in zip(self._leaves, self._trainable or [True] * len(self._leaves)):
+            t.requires_grad_(m)
+        self._train_leaves = [t for t in self._leaves if t.requires_grad]
         self._k_bias = k_bias_slots(model.params)
         if tc.steps_per_dispatch > 0:
             self.steps_per_dispatch = tc.steps_per_dispatch
@@ -185,7 +205,7 @@ class Trainer:
                         "on the card, so stacking batches amortises no round trip")
         self._build_dataloader()
         self.optimizer = AdamW(tc, len(self.dataloader))
-        self.opt_state = self.optimizer.init(self._leaves)
+        self.opt_state = self.optimizer.init(self._leaves, self._trainable)
         self.lr_schedule = self.optimizer.lr_schedule
         # EMA of the parameters: its own float32 tensors, never aliasing them
         self.ema_params = (tree_map(lambda t: t.detach().clone(), model.params)
@@ -262,14 +282,14 @@ class Trainer:
             parts.append((loss.detach(), {k: v.detach() for k, v in losses.items()}))
         with record_function("optimizer"):
             grads = [t.grad if t.grad is not None else torch.zeros_like(t)
-                     for t in self._leaves]
+                     for t in self._train_leaves]
             if self.accum > 1:
                 torch._foreach_div_(grads, float(self.accum))
             for bias, k_slot in self._k_bias:
                 if bias.grad is not None:
                     bias.grad[k_slot] = 0.0
-            self.optimizer.update(self.opt_state, self._leaves, grads)
-            for t in self._leaves:
+            self.optimizer.update(self.opt_state, self._train_leaves, grads)
+            for t in self._train_leaves:
                 t.grad = None
             if self.ema_params is not None:
                 d = self.config.train.ema_decay
@@ -552,18 +572,21 @@ class Trainer:
                     or tx["mu"][0].dtype != self.opt_state["mu"][0].dtype):
                 raise ValueError(
                     f"{path}: its optimizer state ({sorted(tx)}, mu {tx['mu'][0].dtype}) does "
-                    "not match this run's skip_nonfinite_updates and adam_mu_dtype"
+                    "not match this run's skip_nonfinite_updates, adam_mu_dtype and LoRA "
+                    "freezing (lora_freeze_base)"
                 )
-        with torch.no_grad():
-            for dst, src in zip(self._leaves, tree_leaves(state["params"]), strict=True):
-                dst.copy_(src)
+            if "trainable" in tx and not torch.equal(tx["trainable"].cpu(),
+                                                     self.opt_state["trainable"].cpu()):
+                raise ValueError(f"{path}: its optimizer's trainable mask differs from this "
+                                 "run's (another lora_targets?)")
+        try:
+            copy_params_(self.model.params, state["params"])
+            if tx is not None and self.ema_params is not None:
+                copy_params_(self.ema_params, opt_state["ema"])
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from e
         if tx is not None:
             self.opt_state = tx
-            if self.ema_params is not None:
-                with torch.no_grad():
-                    for dst, src in zip(tree_leaves(self.ema_params),
-                                        tree_leaves(opt_state["ema"]), strict=True):
-                        dst.copy_(src)
         extra = state["extra"]
         self.epoch = state["epoch"]
         self.loss_history = list(extra.get("loss_history", []))

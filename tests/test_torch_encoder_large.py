@@ -121,16 +121,20 @@ def test_new_config_is_vitdet_l_window14():
 
 
 def test_config_refusals_name_what_they_wait_for():
-    with pytest.raises(ValueError, match="resnet50.*queue 1 item 6"):
-        run_config_from_dict({"detection_model_config": {"backbone_type": "resnet50"}})
+    # resnet50 is ported (models/resnet.py): it loads
+    assert run_config_from_dict({"detection_model_config": {
+        "backbone_type": "resnet50"}}).model.backbone_type == "resnet50"
     with pytest.raises(ValueError, match="unknown remat_policy 'selective'; use 'full' or 'dots'"):
         ModelConfig(remat=True, remat_policy="selective")
     with pytest.raises(ValueError, match="unknown remat_policy"):
         port_vit.vit_forward({}, torch.zeros(1, 3, 16, 16), port_vit.DIT_BASE, remat_policy="x")
-    for key, value in (("score_dtype", "bfloat16"), ("num_experts", 4), ("lora_rank", 8)):
+    for key, value in (("score_dtype", "bfloat16"), ("num_experts", 4)):
         mc = ModelConfig(vit_overrides={key: value})
         with pytest.raises(ValueError, match=f"{key}.*queue 1 item 6"):
             DetectorConfig.from_model_config(mc)
+    # LoRA is ported: a lora_rank override is an encoder field
+    mc = ModelConfig(vit_overrides={"lora_rank": 8})
+    assert DetectorConfig.from_model_config(mc).backbone.vit.lora_rank == 8
     # at their JAX defaults they change nothing and load
     mc = ModelConfig(vit_overrides={"score_dtype": "float32", "lora_targets": ["q", "v"]})
     assert DetectorConfig.from_model_config(mc).backbone.vit == port_vit.DIT_BASE

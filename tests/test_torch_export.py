@@ -363,8 +363,10 @@ def test_export_tool(tmp_path, monkeypatch):
     det = port_export.ExportedDetector(str(out))
     got = det.predict(*_inputs(0, 64, b=1))
     assert got["boxes"].shape == (1, 50, 4) and np.isfinite(got["boxes"]).all()
-    with pytest.raises(SystemExit, match="queue 1 item 6"):
-        export_model.main(["--out", str(out), "--int8", "--device", "cpu"])
+    # --int8 exports the W8A8 encoder: int8 codes among the leaves
+    manifest = export_model.main(["--out", str(tmp_path / "int8"), "--sizes", "64",
+                                  "--batch-size", "1", "--device", "cpu", "--int8"])
+    assert "int8" in manifest["leaf_dtypes"]
     # the card unless the caller asks for the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -174,8 +174,9 @@ def test_refusals_and_default_device(fixture, monkeypatch):
     root, path, _, ckpt = fixture
     monkeypatch.setenv("LAYOUTDIT_CONFIG", path)
     inputs = ["--checkpoint", ckpt, "--input", os.path.join(root, "samples")]
-    with pytest.raises(SystemExit, match="queue 1 item 6"):
-        port_predict.main(inputs + ["--int8", "--device", "cpu"])
+    # --int8 serves the W8A8 encoder (no longer refused)
+    records = port_predict.main(inputs + ["--int8", "--device", "cpu"])
+    assert len(records) == len(port_predict.collect_inputs(inputs[3]))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_predict.main(inputs)

@@ -401,14 +401,14 @@ def test_serve_from_export_artifact(tiny, artifact):
         batcher.stop()
 
 
-@pytest.mark.parametrize("extra", [["--sizes", "1024"], ["--batch-size", "16"]])
+@pytest.mark.parametrize("extra", [["--sizes", "1024"], ["--batch-size", "16"], ["--int8"]])
 def test_export_dir_rejects_sizes_and_batch_flags(extra):
     with pytest.raises(SystemExit, match="come from its manifest"):
         serve_main(["--export-dir", "/nonexistent", "--device", "cpu"] + extra)
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--int8"], "queue 1 item 6"),
+    (["--int8", "--data-parallel", "2"], "queue 1 item 7"),
     (["--data-parallel", "2"], "queue 1 item 7"),
     (["--data-parallel", "-1"], "queue 1 item 7"),
     (["--model-parallel", "2"], "queue 1 item 7"),

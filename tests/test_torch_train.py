@@ -342,12 +342,14 @@ def test_training_config_defaults_and_waiting_fields():
     jax_defaults = JaxTrainingConfig()
     for name, value in vars(TrainingConfig()).items():
         assert getattr(jax_defaults, name) == value, name
-    rc = run_config_from_dict({"train_config": {"lora_freeze_base": True, "num_epochs": 3}})
+    rc = run_config_from_dict({"train_config": {"enable_profile": False, "num_epochs": 3}})
     assert rc.train.num_epochs == 3  # a waiting field at its default loads
-    with pytest.raises(ValueError, match="previous_layout_dit_checkpoint.*warm-starting"):
-        run_config_from_dict({"detection_model_config": {"previous_layout_dit_checkpoint": "x"}})
-    with pytest.raises(ValueError, match="lora_freeze_base.*LoRA training"):
-        run_config_from_dict({"train_config": {"lora_freeze_base": False}})
+    # warm-starting and LoRA are ported: their fields load at any value
+    rc = run_config_from_dict({"detection_model_config": {"previous_layout_dit_checkpoint": "x"},
+                               "train_config": {"lora_freeze_base": False}})
+    assert rc.model.previous_layout_dit_checkpoint == "x" and not rc.train.lora_freeze_base
+    with pytest.raises(ValueError, match="enable_profile.*profile_train"):
+        run_config_from_dict({"train_config": {"enable_profile": True}})
     with pytest.raises(ValueError, match="not supported"):
         run_config_from_dict({"train_config": {"no_such_field": 1}})
     with pytest.raises(ValueError, match="lr_schedule"):
