@@ -118,7 +118,16 @@ scored over 64 pages and exported, with RoIAlign launched and no
 attention kernel. Phase ``recipes`` also runs ``tools/lora_quality.py``
 (the full fine-tune and LoRA r8 from the same pretrained weights, r8 held
 to 0.85 x the full fine-tune's held-out mAP) beside the family recipes;
-``--only lora_recipe`` runs it alone. It
+``--only lora_recipe`` runs it alone. Last, phase ``moe`` (``--only
+moe``): ``configs/moe.json`` (dit-base, 8 experts in 6 of 12 layers,
+top-1, capacity 1.25) served in the 224 and 1024 px buckets beside the
+dense model, its ``backbone`` device ms against the dense one's and the
+share of tokens dropped at capacity; one epoch and 20 steps at 224 px,
+batch 16, beside the dense flagship step (step ms, images/s, peak GiB);
+two gradients of one state the same bits; a traced step and a traced
+1024 px request split into the MoE ranges (router, dispatch, experts,
+combine); the 224 px bucket exported and held to the live engine; the
+short kernel against the bf16-score plain attention. It
 checks that every kernel ran on its path, the right number of times a
 train step, and the probes' kernels on none but theirs. One profiled request
 per serving bucket and one profiled 224 px train step print the
@@ -3220,7 +3229,7 @@ FAMILY_SCORE_PAGES = 64
 # RoIAlign launches a batch (forward) and a step (backward): one per
 # cascade stage; the box head's and the mask head's for a mask model; the
 # box head's for the ResNet-50 Faster R-CNN
-FAMILY_ROI = {"cascade": 3, "mask": 2, "resnet": 1}
+FAMILY_ROI = {"cascade": 3, "mask": 2, "resnet": 1, "moe": 1, "dense": 1}
 MASK_P = 14
 
 
@@ -3427,13 +3436,14 @@ def _family_serving(family: str, path: Path, kernels: list[dict]) -> dict:
 
 def _family_train(family: str, path: Path, model, kernels: list[dict],
                   path_key: str = "families", model_overrides: dict | None = None,
-                  profile: bool = False) -> dict:
+                  profile: bool = False, after=None) -> dict:
     """One epoch of ``Trainer.train()`` over 4 x 16 fixture pages (the
     launches of the path), then TRAIN_REPEATS steps on one repeated batch:
     losses finite and falling, median of the last 18 step times with min
     and max, peak GiB; a mask model's loader rasterises ``gt_masks``. With
     ``profile``, one more step traced (``tools/profile_train.profile_step``:
-    its stages' host and device ms)."""
+    its stages' host and device ms). ``after(trainer, batch)``, while the
+    fixture still exists, adds its dict to the result."""
     from layoutdit_tpu_torch.models.detection.detector import DetectorModel
     from layoutdit_tpu_torch.tools.profile_train import profile_step
     from layoutdit_tpu_torch.train.trainer import Trainer
@@ -3471,6 +3481,7 @@ def _family_train(family: str, path: Path, model, kernels: list[dict],
             history.append({"loss": float(loss), **{k: float(v) for k, v in parts.items()}})
         peak = torch.cuda.max_memory_allocated()
         traced = profile_step(trainer, 0, Path(tmp) / "step.json") if profile else None
+        extra = after(trainer, batch) if after is not None else {}
     if not all(np.isfinite(list(h.values())).all() for h in history):
         raise RuntimeError(f"{family}: a non-finite loss: {history}")
     first, last = history[0]["loss"], float(np.mean([h["loss"] for h in history[-3:]]))
@@ -3481,7 +3492,7 @@ def _family_train(family: str, path: Path, model, kernels: list[dict],
            **{f"step_{k}": v for k, v in _spread(timed).items()}, "step_ms": times,
            "images_per_s": FAMILY_BATCH * 1e3 / float(np.median(timed)),
            "peak_gib": peak / 2**30, "loss_first": first, "loss_last3_mean": last,
-           "losses_last": history[-1]}
+           "losses_last": history[-1], **extra}
     if traced is not None:
         out["profile"] = {k: traced[k] for k in ("wall_ms", "device_busy_ms",
                                                  "device_idle_share", "stages")}
@@ -4726,13 +4737,229 @@ def phase_lora_recipe(kernels: list[dict]) -> dict:
     return result
 
 
+MOE_CONFIG = ROOT / "configs" / "moe.json"
+MOE_STAGES = ("moe_router", "moe_dispatch", "moe_experts", "moe_combine")
+AT_224 = {"image_size": 224}
+SCORE_B = 16  # the 224 px step's batch, for the bf16-score error
+
+
+class _DropCounter:
+    """Wraps the encoder's ``moe_mlp`` while installed: each MoE layer's
+    share of tokens whose first choice found its expert full."""
+
+    def __init__(self):
+        from layoutdit_tpu_torch.models import vit as vit_mod
+
+        self.vit_mod, self.orig, self.shares = vit_mod, vit_mod.moe_mlp, []
+
+    def __enter__(self):
+        from layoutdit_tpu_torch.ops import moe
+
+        def counted(y, params, e, k, cf):
+            c = moe.moe_capacity(y.shape[1], e, k, cf)
+            with torch.no_grad():
+                kept = moe.route(y, params["router"]["weight"], e, k, c)[3]
+            self.shares.append((~kept[0]).float().mean())  # read after the run
+            return self.orig(y, params, e, k, cf)
+
+        self.vit_mod.moe_mlp = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.vit_mod.moe_mlp = self.orig
+        self.shares = [float(x) for x in self.shares]
+        return False
+
+
+def _add_moe_launches(kernels: list[dict]) -> None:
+    counts = _counts()
+    for k in kernels:
+        k["moe_launches"] = k.get("moe_launches", 0) + counts[k["name"]]
+
+
+def _moe_trace(label: str, fn) -> dict:
+    """One call of ``fn`` under the profiler: the device ms launched in
+    each MoE range (the forward's; autograd launches the backward from
+    its own thread, outside them), the backbone's, the wall and idle."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from layoutdit_tpu_torch.tools.profile_serving import summarize_trace
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        path = Path(tmp) / "moe.json"
+        prof.export_chrome_trace(str(path))
+        with open(path) as f:
+            r = summarize_trace(json.load(f), MOE_STAGES + ("backbone", "forward", "backward"))
+    st = r["stages"]
+    ms = {s: st.get(s, {}).get("device_ms", 0.0) for s in MOE_STAGES + ("backbone", "backward")}
+    moe_ms = sum(ms[s] for s in MOE_STAGES)
+    out = {"wall_ms": wall, "device_busy_ms": r["device_busy_ms"],
+           "device_idle_share": r["device_idle_share"], "device_ms": ms,
+           "calls": {s: st.get(s, {}).get("calls", 0) for s in MOE_STAGES},
+           "moe_ms": moe_ms, "moe_share_of_backbone": moe_ms / max(ms["backbone"], 1e-9),
+           "top_kernels": r["top_kernels"][:8]}
+    print(f"  moe traced {label}: wall {wall:.3f} ms, device busy {r['device_busy_ms']:.3f} ms, "
+          f"idle {r['device_idle_share']:.4f}; backbone {ms['backbone']:.3f} ms, of it the MoE "
+          f"layers' forward {moe_ms:.3f} ms (" + ", ".join(
+              f"{s[4:]} {ms[s]:.3f}" for s in MOE_STAGES)
+          + f"), {out['moe_share_of_backbone']:.3f} of the backbone; top kernels "
+          + ", ".join(f"{k['name'][:48]} {k['device_ms']:.3f}" for k in out["top_kernels"][:5]))
+    return out
+
+
+def _score_dtype_error(kernels: list[dict]) -> dict:
+    """``score_dtype="bfloat16"`` at the 224 px step's shape (B 16, N 197,
+    H 12, D 64): the short kernel, which ignores it (as JAX's kernel
+    routes do), against the bf16-score plain attention and against the
+    fp32 plain attention, on the same inputs."""
+    from layoutdit_tpu_torch.models import vit as vit_mod
+    from layoutdit_tpu_torch.ops import short_attention as sa
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    qkv = torch.randn(SCORE_B, 197, 3 * 768, generator=gen, device="cuda").bfloat16()
+    with torch.no_grad():
+        got = vit_mod.attention_core(qkv, 12, score_dtype="bfloat16")
+        bf16 = vit_mod.bf16_score_attention_plain(qkv, 12)
+        q, k, v = sa.split_qkv(qkv, 12)
+        fp32 = torch.softmax(torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) / 8.0, -1)
+        fp32 = torch.einsum("bhnm,bmhd->bnhd", fp32, v.float())
+    out = {"shape": [SCORE_B, 197, 12, 64],
+           "max_abs_err_vs_bf16_scores": float((got.float() - bf16.float()).abs().max()),
+           "max_abs_err_vs_fp32_scores": float((got.float() - fp32).abs().max()),
+           "bf16_scores_vs_fp32_scores": float((bf16.float() - fp32).abs().max())}
+    print(f"  score_dtype bfloat16 at B={SCORE_B} N=197 H=12 D=64: the short kernel (which "
+          f"ignores it) against the bf16-score plain attention max |err| "
+          f"{out['max_abs_err_vs_bf16_scores']:.6g}, against fp32 scores "
+          f"{out['max_abs_err_vs_fp32_scores']:.6g}; bf16 against fp32 scores "
+          f"{out['bf16_scores_vs_fp32_scores']:.6g}")
+    if out["max_abs_err_vs_bf16_scores"] > 0.05:
+        raise RuntimeError(f"moe: bf16 scores: {out}")
+    return out
+
+
+def phase_moe(kernels: list[dict], card: str) -> dict:
+    """``configs/moe.json`` at full width (dit-base, 8 experts in 6 of 12
+    layers, top-1, capacity 1.25, bf16), random weights from seed 0:
+    served in the 224 and 1024 px buckets beside the dense
+    ``serving_1024.json`` model (``_bucket_serving``: latency, the
+    backbone's device ms), the share of tokens dropped at capacity; one
+    epoch and TRAIN_REPEATS steps at 224 px, batch 16, beside the dense
+    flagship step (``_family_train``: step ms, images/s, peak GiB); two
+    gradients of one state the same bits (``tools/repeat_step``); a traced
+    step and a traced 1024 px request split into the MoE ranges; the 224
+    px bucket exported and held to the live engine; the bf16-score error.
+    Rows 1, 2, 3, 7 and 8 launch on this path."""
+    from layoutdit_tpu_torch.models.detection.detector import DetectorModel, init_detector
+    from layoutdit_tpu_torch.models.weights_io import tree_leaves
+    from layoutdit_tpu_torch.tools.repeat_step import compare_runs
+
+    t_phase = time.perf_counter()
+    for k in kernels:
+        k["moe_launches"] = 0
+    out = {"card": card}
+    _, cfg = _family_cfg(MOE_CONFIG, FAMILY_SERVING_BATCH)
+    _, dense_cfg = _family_cfg(CONFIG, FAMILY_SERVING_BATCH)
+    vit = cfg.backbone.vit
+    moe_layers = [i for i in range(1, vit.num_hidden_layers + 1) if vit.is_moe_layer(i)]
+    if (vit.num_experts, vit.moe_top_k, len(moe_layers)) != (8, 1, 6):
+        raise RuntimeError(f"moe: configs/moe.json is not 8 experts, top-1, 6 layers: {vit}")
+    models = {name: DetectorModel(init_detector(c, torch.Generator(device="cuda").manual_seed(0),
+                                                device="cuda"), c)
+              for name, c in (("moe", cfg), ("dense", dense_cfg))}
+    for name, m in models.items():
+        n = sum(t.numel() for t in tree_leaves(m.params))
+        print(f"  {name}: dit-base Faster R-CNN, {n:,} parameters"
+              + (f", MoE layers {moe_layers}, {vit.num_experts} experts, top-"
+                 f"{vit.moe_top_k}, capacity factor {vit.moe_capacity_factor}"
+                 if name == "moe" else ""))
+    out["serving"] = {}
+    requests = _deploy_requests()
+    for name, m in models.items():
+        out["serving"][name], engines = _bucket_serving(name, m, kernels, "moe",
+                                                        roi=FAMILY_ROI[name], thresh_zero=False)
+        if name == "moe":
+            out["serving_dropped_share"] = {}
+            for size, pages in ((224, requests[0][1][:FAMILY_SERVING_BATCH]),
+                                (1024, requests[1][1])):
+                _reset_counts()
+                with _DropCounter() as drops:
+                    engines[size].predict_pages(pages)
+                _add_moe_launches(kernels)
+                out["serving_dropped_share"][size] = drops.shares
+                print(f"  moe {size} px request: tokens dropped at capacity a layer "
+                      f"{[round(x, 4) for x in drops.shares]}")
+            _reset_counts()
+            out["serving_trace_1024"] = _moe_trace(
+                "1024 px request (4 pages)", lambda: engines[1024].predict_pages(requests[1][1]))
+            _add_moe_launches(kernels)
+        del engines
+    for size in (224, 1024):
+        ms = {n: out["serving"][n]["profile"][size]["stages"]["backbone"]["device_ms"]
+              for n in models}
+        print(f"  {size} px bucket: backbone device {ms['moe']:.3f} ms MoE against "
+              f"{ms['dense']:.3f} ms dense ({ms['moe'] / ms['dense']:.3f}x)")
+    def after_moe(trainer, batch) -> dict:
+        """Two gradients of one state (the same bits), the tokens dropped
+        in them, and a traced step, on the trained state's batch."""
+        _reset_counts()
+        with _DropCounter() as drops:
+            rep = compare_runs(trainer.model.params, batch, trainer.cfg, runs=2, seed=0)
+        _add_moe_launches(kernels)
+        if rep["differing_leaves"] or not rep["losses_equal"]:
+            raise RuntimeError(f"moe: two gradients of one state differ: {rep['backward_order']}")
+        print(f"  moe: two gradients of one state the same bits over {rep['leaves']} leaves; "
+              f"losses {rep['losses'][0]}")
+        shares = drops.shares[:len(moe_layers)]
+        _reset_counts()
+        trace = _moe_trace("224 px train step (batch 16)", lambda: trainer.train_step(batch))
+        _add_moe_launches(kernels)
+        return {"repeat": {"leaves": rep["leaves"], "differing_leaves": 0,
+                           "losses": rep["losses"][0]},
+                "dropped_share": {"median": float(np.median(shares)),
+                                  "max": float(np.max(shares)), "layers": shares},
+                "trace": trace, "params": trainer.model.params}
+
+    out["train"] = {}
+    for name, path in (("moe", MOE_CONFIG), ("dense", CONFIG)):
+        out["train"][name], trainer = _family_train(
+            name, path, models[name], kernels, path_key="moe", model_overrides=AT_224,
+            after=after_moe if name == "moe" else None)
+        del trainer
+    params = out["train"]["moe"].pop("params")
+    t_moe, t_dense = out["train"]["moe"], out["train"]["dense"]
+    print(f"  224 px step at batch {FAMILY_BATCH}: MoE median {t_moe['step_median']:.3f} ms, "
+          f"{t_moe['images_per_s']:.2f} images/s, peak {t_moe['peak_gib']:.3f} GiB; dense "
+          f"{t_dense['step_median']:.3f} ms, {t_dense['images_per_s']:.2f} images/s, peak "
+          f"{t_dense['peak_gib']:.3f} GiB; tokens dropped at capacity a layer: median "
+          f"{t_moe['dropped_share']['median']:.4f}, max {t_moe['dropped_share']['max']:.4f}")
+    _, cfg224 = _family_cfg(MOE_CONFIG, FAMILY_SERVING_BATCH, AT_224)
+    out["export"] = _one_stage_export("moe", DetectorModel(params, cfg224), kernels,
+                                      path_key="moe", thresh_zero=False)
+    out["score_dtype"] = _score_dtype_error(kernels)
+    for k in kernels:
+        if k["name"] not in ("short_attention", "short_attention_bwd", "flash_attention",
+                             "roi_align", "roi_align_bwd") and k["moe_launches"]:
+            raise RuntimeError(f"moe: {k['name']} launched {k['moe_launches']} times")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  moe phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU")
     if not ((ROOT / "layoutdit_tpu_torch").is_dir() and all(
             p.is_file() for p in (CONFIG, TRAIN_1024_CONFIG, RELPOS_CONFIG, LARGE_CONFIG,
                                   FSDP_LARGE_CONFIG, CASCADE_CONFIG, MASK_CONFIG,
-                                  RETINANET_CONFIG, FCOS_CONFIG, DETR_CONFIG, LORA_CONFIG))):
+                                  RETINANET_CONFIG, FCOS_CONFIG, DETR_CONFIG, LORA_CONFIG,
+                                  MOE_CONFIG))):
         raise SystemExit("chip_smoke: run it from a checkout of the repository")
     sys.path.insert(0, str(ROOT))
     from layoutdit_tpu_torch.ops import _build
@@ -4777,7 +5004,8 @@ def main() -> int:
                    "detr_recipe": lambda: phase_detr_recipe([]),
                    "finetune": lambda: phase_finetune([], card),
                    "resnet": lambda: phase_resnet([], card),
-                   "lora_recipe": lambda: phase_lora_recipe([])}
+                   "lora_recipe": lambda: phase_lora_recipe([]),
+                   "moe": lambda: phase_moe([], card)}
         for name in only:
             print(f"phase {name}")
             print(json.dumps({name: runners[name]()}))
@@ -4858,9 +5086,13 @@ def main() -> int:
 
     print("phase resnet")
     resnet = phase_resnet(kernels, card)
+    torch.cuda.empty_cache()
+
+    print("phase moe")
+    moe = phase_moe(kernels, card)
     paths = ("probe", "serving", "deploy", "train", "train_state", "io", "train_1024",
              "train_1024_relpos", "encoder", "main", "convergence", "families", "one_stage",
-             "detr", "finetune", "resnet", "lora_recipe")
+             "detr", "finetune", "resnet", "lora_recipe", "moe")
     for k in kernels:
         k["launches"] = sum(k[f"{path}_launches"] for path in paths)
         if k["launches"] <= 0:
@@ -4882,6 +5114,7 @@ def main() -> int:
     print(json.dumps({"lora_recipe": recipes["lora"]}))
     print(json.dumps({"finetune": finetune}))
     print(json.dumps({"resnet": resnet}))
+    print(json.dumps({"moe": moe}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

@@ -213,6 +213,10 @@ class TrainingConfig:
     # with lora_rank > 0: train the adapters and the heads only, the rest
     # of the encoder frozen (no optimizer moments); False trains everything
     lora_freeze_base: bool = True
+    # Trainer.train() under torch.profiler, its trace written under
+    # trace_log_dir and uploaded to {artifacts}/{run}/profiler/
+    enable_profile: bool = False
+    trace_log_dir: str = "./log/traces"
 
     def __post_init__(self):
         if self.lr_schedule not in ("step", "cosine"):
@@ -250,11 +254,6 @@ class EvalConfig:
 _WAITING = {
     "train_config": {
         "device": ("auto", "the port runs on the CUDA card (no device field)"),
-        "enable_profile": (False, "tools/profile_train.py; the trainer writes no traces"),
-        "trace_log_dir": ("./log/traces", "tools/profile_train.py"),
-    },
-    "precision": {
-        "param_dtype": ("float32", "the port keeps fp32 parameters"),
     },
     "eval_config": {
         "device": ("auto", "the port runs on the CUDA card (no device field)"),
@@ -325,6 +324,9 @@ class RunConfig:
     train: TrainingConfig = TrainingConfig()
     eval: EvalConfig = EvalConfig()
     compute_dtype: str = "bfloat16"
+    # precision.param_dtype: carried as the JAX schema has it, which reads
+    # it nowhere; the parameters stay float32 in both packages
+    param_dtype: str = "float32"
     run_name: str = "test"
     local_mode: bool = False
     eval_input: str = "samples"
@@ -394,7 +396,7 @@ def run_config_from_dict(raw: dict) -> RunConfig:
     _check_one_device_mesh(raw.get("mesh_config") or {})
     mc = _build(ModelConfig, raw.get("detection_model_config", {}), "detection_model_config")
     precision = raw.get("precision", {})
-    _check_keys(precision, {"compute_dtype"}, "precision", _WAITING["precision"])
+    _check_keys(precision, {"compute_dtype", "param_dtype"}, "precision")
     ev = dict(raw.get("eval_config", {}))
     paths = {k: ev.pop(k) for k in ("eval_input", "eval_base_path") if k in ev}
     return RunConfig(
@@ -404,6 +406,7 @@ def run_config_from_dict(raw: dict) -> RunConfig:
                      _WAITING["train_config"]),
         eval=_build(EvalConfig, ev, "eval_config", _WAITING["eval_config"]),
         compute_dtype=precision.get("compute_dtype", "bfloat16"),
+        param_dtype=precision.get("param_dtype", "float32"),
         run_name=raw.get("run_name", "test"),
         local_mode=bool(raw.get("local_mode") or False),
         eval_input=paths.get("eval_input", "samples"),

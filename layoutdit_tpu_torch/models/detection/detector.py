@@ -71,30 +71,16 @@ from layoutdit_tpu_torch.utils.cache import cached_unless_traced
 BOX_HEAD_REP = 1024
 
 
-# JAX ViTConfig fields the port's encoder does not have, at the JAX
-# defaults at which they change nothing: score_dtype (bf16 scores) and MoE
-# (ROADMAP queue 1 item 6)
-_VIT_WAITING = {
-    "score_dtype": "float32", "num_experts": 0, "moe_top_k": 1, "moe_capacity_factor": 1.25,
-    "moe_every_n": 2, "moe_aux_weight": 0.01,
-}
-
-
 def _vit_overrides(overrides: dict) -> dict:
-    """``vit_overrides`` as ``ViTConfig`` fields: a key the port's
-    encoder does not have loads at its JAX default (and is dropped), and
-    raises otherwise."""
+    """``vit_overrides`` as ``ViTConfig`` fields (the MoE keys and
+    ``score_dtype`` among them); a key that is not one raises."""
     fields = {f.name for f in dataclasses.fields(vit_mod.ViTConfig)}
     out = {}
     for k, v in overrides.items():
-        if k in fields:
-            # JSON carries lists; the config stays hashable
-            out[k] = tuple(v) if k in ("global_attn_layers", "lora_targets") else v
-        elif _VIT_WAITING.get(k, ...) != (list(v) if isinstance(v, (list, tuple)) else v):
-            raise ValueError(
-                f"vit_overrides.{k}={v!r}: not supported by the port; bf16 scores and MoE "
-                "wait for ROADMAP queue 1 item 6"
-            )
+        if k not in fields:
+            raise ValueError(f"vit_overrides.{k}={v!r}: not a field of the encoder's config")
+        # JSON carries lists; the config stays hashable
+        out[k] = tuple(v) if k in ("global_attn_layers", "lora_targets") else v
     return out
 
 
@@ -344,9 +330,12 @@ def init_detector(cfg: DetectorConfig, generator: torch.Generator, device="cuda"
 # kept in float32: LayerNorm applies them in fp32 (DETR's decoder has
 # ln1-3 and decoder_norm), the position embeddings are resampled in fp32
 # before the cast, the relative-position bias enters the scores in fp32,
-# and a ResNet's BatchNorm folds its statistics in fp32
+# a ResNet's BatchNorm folds its statistics in fp32, and an MoE router
+# computes its logits in fp32
 _FP32_PARAMS = ("ln1", "ln2", "ln3", "decoder_norm", "pos_embed", "rel_pos_table",
-                "shared_rel_pos_table", "bn", "bn1", "bn2", "bn3")
+                "shared_rel_pos_table", "bn", "bn1", "bn2", "bn3", "router")
+# whose biases stay float32: the experts add them to fp32 accumulators
+_FP32_BIASES = ("moe_in", "moe_out")
 
 
 def params_for_inference(params: dict, dtype: torch.dtype) -> dict:
@@ -361,7 +350,8 @@ def params_for_inference(params: dict, dtype: torch.dtype) -> dict:
         if isinstance(tree, dict):
             if "weight_q" in tree:
                 return tree
-            return {k: cast(v, k) for k, v in tree.items()}
+            return {k: v if k == "bias" and name in _FP32_BIASES else cast(v, k)
+                    for k, v in tree.items()}
         if isinstance(tree, list):
             return [cast(v, name) for v in tree]
         return tree.to(dtype)
@@ -376,16 +366,28 @@ def _normalize(images: torch.Tensor, cfg: DetectorConfig) -> torch.Tensor:
 
 
 def run_backbone(params: dict, images: torch.Tensor, cfg: DetectorConfig,
-                 remat: bool = False) -> list[torch.Tensor]:
+                 remat: bool = False, aux_out: dict | None = None) -> list[torch.Tensor]:
     """Images [B, 3, S, S] in [0, 1] -> the pyramid [p2, p3, p4, p5, pool],
     channels-last in the compute dtype, from the DiT encoder or ResNet-50
     (JAX ``_run_backbone``); ``remat``: the encoder's activation
-    checkpointing, as the config sets it (a ResNet has none)."""
+    checkpointing, as the config sets it (a ResNet has none); ``aux_out``
+    receives the DiT encoder's ``"moe_aux"``."""
     x = _normalize(images.float(), cfg).to(cfg.dtype)
     if cfg.backbone_kind == "resnet50":
         return resnet_mod.resnet_fpn_forward(params["backbone"], x, compute_dtype=cfg.dtype)
     return backbone_forward(params["backbone"], x, cfg.backbone, compute_dtype=cfg.dtype,
-                            remat=remat and cfg.remat, remat_policy=cfg.remat_policy)
+                            remat=remat and cfg.remat, remat_policy=cfg.remat_policy,
+                            aux_out=aux_out)
+
+
+def _with_moe_aux(losses: dict, aux_out: dict, cfg: DetectorConfig) -> dict:
+    """``loss_moe_aux`` = ``moe_aux_weight`` x the encoder's summed
+    load-balance loss, for a DiT backbone with experts (JAX
+    ``detector.py:643-650``); the trainer sums it with the others."""
+    vit = cfg.backbone.vit
+    if cfg.backbone_kind == "dit" and vit.num_experts > 0:
+        losses["loss_moe_aux"] = vit.moe_aux_weight * aux_out["moe_aux"]
+    return losses
 
 
 @cached_unless_traced(maxsize=16)
@@ -618,7 +620,9 @@ def detector_loss(
     ``"backbone"``, ``"rpn"`` (a single-stage or DETR model's ``"head"``)
     and ``"mask_head"`` ranges inside it as in ``detector_predict``, and the
     losses under ``"loss"``, DETR's cost and assignment under
-    ``"matcher"`` inside it."""
+    ``"matcher"`` inside it. A DiT encoder with experts adds
+    ``loss_moe_aux`` (``moe_aux_weight`` x its load-balance loss) to every
+    family's losses."""
     if cfg.with_mask and gt_masks is None:
         raise ValueError("cfg.with_mask=True requires gt_masks [B, G, M, M] "
                          "(the data loader's load_masks)")
@@ -628,9 +632,10 @@ def detector_loss(
         return _one_stage_loss(params, images, gt_boxes, gt_labels, gt_valid, cfg)
     anchors, counts = _anchors(cfg, images.device)
     size = (cfg.image_size, cfg.image_size)
+    aux_out: dict = {}
     with record_function("forward"):
         with record_function("backbone"):
-            feats = run_backbone(params, images, cfg, remat=True)
+            feats = run_backbone(params, images, cfg, remat=True, aux_out=aux_out)
         with record_function("rpn"):
             objectness, deltas = rpn_head_forward(params["rpn_head"], feats,
                                                   cfg.num_anchors_per_cell)
@@ -681,7 +686,7 @@ def detector_loss(
                 mask_logits.reshape(b * k, *mask_logits.shape[2:]), mask_labels.reshape(b * k),
                 targets.reshape(b * k, out, out), mask_valid.reshape(b * k),
             )
-    return losses
+    return _with_moe_aux(losses, aux_out, cfg)
 
 
 def _one_stage_loss(params, images, gt_boxes, gt_labels, gt_valid,
@@ -689,20 +694,23 @@ def _one_stage_loss(params, images, gt_boxes, gt_labels, gt_valid,
     """RetinaNet's or FCOS's training losses (JAX ``detector_loss``'s
     single-stage branches)."""
     anchors, counts = _anchors(cfg, images.device)
+    aux_out: dict = {}
     with record_function("forward"):
         with record_function("backbone"):
-            feats = run_backbone(params, images, cfg, remat=True)
+            feats = run_backbone(params, images, cfg, remat=True, aux_out=aux_out)
         with record_function("head"):
             out = _one_stage_heads(params, feats, cfg)
     with record_function("loss"):
         if cfg.detector_kind == "retinanet":
             loss_cls, loss_reg = retina_mod.retinanet_loss(
                 *out, anchors, gt_boxes, gt_labels, gt_valid, cfg.budget)
-            return {"loss_classification": loss_cls, "loss_bbox_reg": loss_reg}
-        loss_cls, loss_reg, loss_ctr = fcos_mod.fcos_loss(
-            *out, anchors, counts, gt_boxes, gt_labels, gt_valid, cfg.budget)
-        return {"loss_classification": loss_cls, "loss_bbox_reg": loss_reg,
-                "loss_bbox_ctrness": loss_ctr}
+            losses = {"loss_classification": loss_cls, "loss_bbox_reg": loss_reg}
+        else:
+            loss_cls, loss_reg, loss_ctr = fcos_mod.fcos_loss(
+                *out, anchors, counts, gt_boxes, gt_labels, gt_valid, cfg.budget)
+            losses = {"loss_classification": loss_cls, "loss_bbox_reg": loss_reg,
+                      "loss_bbox_ctrness": loss_ctr}
+        return _with_moe_aux(losses, aux_out, cfg)
 
 
 def _detr_loss(params, images, gt_boxes, gt_labels, gt_valid,
@@ -714,17 +722,20 @@ def _detr_loss(params, images, gt_boxes, gt_labels, gt_valid,
             f"max_gt_boxes {gt_boxes.shape[1]} exceeds detr_num_queries "
             f"{cfg.detr_num_queries}: the Hungarian assignment needs a query per (padded) "
             "gt slot")
+    aux_out: dict = {}
     with record_function("forward"):
         with record_function("backbone"):
-            feats = run_backbone(params, images, cfg, remat=True)
+            feats = run_backbone(params, images, cfg, remat=True, aux_out=aux_out)
         with record_function("head"):
             logits, boxes01 = detr_mod.detr_forward(params["detr"], feats[cfg.detr_level],
                                                     cfg.detr_heads,
                                                     return_intermediate=cfg.detr_aux_loss)
     with record_function("loss"):
-        return detr_mod.detr_loss(logits, boxes01, gt_boxes, gt_labels, gt_valid,
-                                  cfg.image_size, cfg.detr_eos_coef, cfg.detr_aux_loss,
-                                  shared_matching=cfg.detr_shared_matching)
+        return _with_moe_aux(
+            detr_mod.detr_loss(logits, boxes01, gt_boxes, gt_labels, gt_valid, cfg.image_size,
+                               cfg.detr_eos_coef, cfg.detr_aux_loss,
+                               shared_matching=cfg.detr_shared_matching),
+            aux_out, cfg)
 
 
 def _cascade_stages(params, feats, samples, gt_boxes, gt_labels, gt_valid,

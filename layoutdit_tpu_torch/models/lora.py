@@ -78,8 +78,8 @@ def add_lora_params(vit_params: dict, cfg, generator: torch.Generator) -> dict:
     for layer in vit_params["layers"]:
         layer = dict(layer)
         for name in LORA_TARGETS:
-            if name not in cfg.lora_targets:
-                continue
+            if name not in cfg.lora_targets or (name not in QKV and name not in layer):
+                continue  # an MoE layer has no mlp_in / mlp_out (as JAX's)
             if "lora_a" in layer.get(name, {}):
                 raise ValueError(f"layer already has LoRA on {name!r}")
             entry = init_lora_entry(*_dims(layer, name), cfg.lora_rank, generator, device)

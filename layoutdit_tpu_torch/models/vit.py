@@ -47,6 +47,19 @@ their deltas join its thirds. An int8 linear (``weight_q``,
 ``ops/quant.py``) runs the W8A8 product, the fused qkv over activations
 quantized once (serving only).
 
+Mixture of experts (``num_experts`` > 0, JAX ``vit.py:50-60``): every
+``moe_every_n``-th layer has a router and ``num_experts`` expert MLPs
+(``ops/moe.py``) in place of ``mlp_in`` / ``mlp_out``; ``vit_forward``
+sums the layers' load-balance losses into ``aux_out["moe_aux"]``, and
+``pad_tokens_to`` stays off, as in JAX (padded tokens would take expert
+capacity).
+
+``score_dtype`` "bfloat16" (JAX ``vit.py:528-550``) is a branch of JAX's
+XLA attention route; its kernel routes ignore it. The port's plain
+attention on the CPU stands in for that route and follows it
+(``bf16_score_attention_plain``); on the card the kernels run at every N,
+as JAX's kernel routes do, and ignore it the same way.
+
 Precision policy as in the JAX package: parameters fp32, matmul inputs
 cast to ``compute_dtype``, LayerNorm/softmax/GELU statistics in fp32.
 """
@@ -71,6 +84,7 @@ from torch.utils.checkpoint import (
 from layoutdit_tpu_torch.models.lora import add_lora_params, lora_delta
 from layoutdit_tpu_torch.ops.flash_attention import flash_attention_qkv
 from layoutdit_tpu_torch.ops.interpolate import resize_bicubic, resize_bilinear
+from layoutdit_tpu_torch.ops.moe import init_moe_mlp_params, moe_mlp, trunc_normal
 from layoutdit_tpu_torch.ops.quant import int8_linear
 from layoutdit_tpu_torch.ops.short_attention import MAX_N as SHORT_MAX_N
 from layoutdit_tpu_torch.ops.short_attention import (
@@ -112,6 +126,20 @@ class ViTConfig:
     lora_rank: int = 0
     lora_alpha: float = 16.0
     lora_targets: tuple[str, ...] = ("q", "v")
+    # Mixture of experts (ops/moe.py): 0 = dense; E > 0 replaces the MLP
+    # of every moe_every_n-th layer (1-based index divisible by it) with E
+    # token-routed experts, top-k routing at capacity factor
+    # moe_capacity_factor, the load-balance loss weighted by
+    # moe_aux_weight in the detector's loss (JAX vit.py:50-60)
+    num_experts: int = 0
+    moe_top_k: int = 1
+    moe_capacity_factor: float = 1.25
+    moe_every_n: int = 2
+    moe_aux_weight: float = 0.01
+    # "bfloat16": the plain attention stores scores and probabilities in
+    # bf16 with an fp32 denominator (JAX vit.py:528-550); the kernels
+    # ignore it, as JAX's kernel routes do
+    score_dtype: str = "float32"
 
     @property
     def lora_scaling(self) -> float:
@@ -122,6 +150,9 @@ class ViTConfig:
             return True
         n = self.num_hidden_layers
         return layer_idx_1based in (self.global_attn_layers or (n // 3, n // 2, 2 * n // 3, n))
+
+    def is_moe_layer(self, layer_idx_1based: int) -> bool:
+        return self.num_experts > 0 and layer_idx_1based % max(1, self.moe_every_n) == 0
 
     @property
     def grid_size(self) -> int:
@@ -140,13 +171,6 @@ DIT_BASE = ViTConfig()
 DIT_LARGE = ViTConfig(
     hidden_size=1024, num_hidden_layers=24, num_attention_heads=16, intermediate_size=4096,
 )
-
-
-def _trunc_normal(shape, std, generator, device) -> torch.Tensor:
-    t = torch.empty(shape, dtype=torch.float32, device=device)
-    return torch.nn.init.trunc_normal_(
-        t, std=std, a=-2.0 * std, b=2.0 * std, generator=generator
-    )
 
 
 def _zeros(shape, device) -> torch.Tensor:
@@ -269,13 +293,13 @@ def init_vit_params(cfg: ViTConfig, generator: torch.Generator, device) -> dict:
     table = (_rel_pos_num_entries(cfg), cfg.num_attention_heads)
 
     def lin(n_in, n_out, bias=True):
-        p = {"weight": _trunc_normal((n_out, n_in), std, generator, device)}
+        p = {"weight": trunc_normal((n_out, n_in), std, generator, device)}
         if bias:
             p["bias"] = _zeros((n_out,), device)
         return p
 
     layers = []
-    for _ in range(cfg.num_hidden_layers):
+    for li in range(1, cfg.num_hidden_layers + 1):
         layer = {
             "ln1": {"weight": torch.ones(d, device=device), "bias": _zeros((d,), device)},
             "ln2": {"weight": torch.ones(d, device=device), "bias": _zeros((d,), device)},
@@ -283,11 +307,14 @@ def init_vit_params(cfg: ViTConfig, generator: torch.Generator, device) -> dict:
             # has no bias)
             "qkv": lin(d, 3 * d),
             "attn_out": lin(d, d),
-            "mlp_in": lin(d, i),
-            "mlp_out": lin(i, d),
-            "lambda_1": torch.full((d,), cfg.layer_scale_init_value, device=device),
-            "lambda_2": torch.full((d,), cfg.layer_scale_init_value, device=device),
         }
+        # an MoE layer has the router and the experts in place of the MLP
+        if cfg.is_moe_layer(li):
+            layer.update(init_moe_mlp_params(d, i, cfg.num_experts, generator, device, std))
+        else:
+            layer.update(mlp_in=lin(d, i), mlp_out=lin(i, d))
+        layer["lambda_1"] = torch.full((d,), cfg.layer_scale_init_value, device=device)
+        layer["lambda_2"] = torch.full((d,), cfg.layer_scale_init_value, device=device)
         if cfg.use_relative_position_bias:
             layer["rel_pos_table"] = _zeros(table, device)
         layers.append(layer)
@@ -364,9 +391,30 @@ def _masked_attention_plain(
     return torch.einsum("bhnm,bmhd->bnhd", p, v.float()).to(qkv.dtype)
 
 
-def attention_core(
+def bf16_score_attention_plain(
     qkv: torch.Tensor, heads: int, key_mask: torch.Tensor | None = None,
     bias: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The JAX encoder's ``score_dtype="bfloat16"`` attention (its XLA
+    route, ``vit.py:528-550``): q k^T stored in bf16 and scaled there, the
+    bias added in bf16, masked keys at -inf, the row max taken without a
+    gradient, the exp in bf16, the denominator summed in fp32, the
+    probabilities cast to the compute dtype and p v accumulated in fp32."""
+    q, k, v = split_qkv(qkv, heads)
+    s = torch.einsum("bnhd,bmhd->bhnm", q, k).to(torch.bfloat16) / math.sqrt(q.shape[-1])
+    if bias is not None:
+        s = s + bias.to(torch.bfloat16)
+    if key_mask is not None:
+        s = s.masked_fill(~key_mask_rows(key_mask, qkv.shape[0])[:, None, None, :],
+                          float("-inf"))
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True).detach())
+    p = (e.float() / e.float().sum(dim=-1, keepdim=True)).to(qkv.dtype)
+    return torch.einsum("bhnm,bmhd->bnhd", p.float(), v.float()).to(qkv.dtype)
+
+
+def attention_core(
+    qkv: torch.Tensor, heads: int, key_mask: torch.Tensor | None = None,
+    bias: torch.Tensor | None = None, score_dtype: str = "float32",
 ) -> torch.Tensor:
     """softmax(q k^T / sqrt(D) + bias) v from the fused projection
     [B, N, 3*H*D] -> [B, N, H, D], differentiable in qkv and the bias
@@ -376,8 +424,13 @@ def attention_core(
     the False keys from every softmax row (padded window slots,
     ``pad_tokens_to``'s padding); the short kernels take it. The flash
     kernels take no mask, so on a CUDA tensor a mask with a bias, or over
-    more than 256 tokens, raises; on the CPU the plain version runs."""
+    more than 256 tokens, raises; on the CPU the plain version runs.
+    ``score_dtype`` "bfloat16": on the CPU, the plain attention with bf16
+    scores (``bf16_score_attention_plain``); the kernels ignore it, as the
+    JAX package's kernel routes do."""
     scale = 1.0 / math.sqrt(qkv.shape[-1] // (3 * heads))
+    if score_dtype == "bfloat16" and qkv.device.type == "cpu":
+        return bf16_score_attention_plain(qkv, heads, key_mask, bias)
     short = bias is None and qkv.shape[1] <= SHORT_MAX_N
     if key_mask is not None and not short:
         if qkv.device.type != "cpu":
@@ -400,7 +453,7 @@ def _attention(
 ) -> torch.Tensor:
     b, n, d = x.shape
     qkv = _qkv(x, layer, cfg)  # [B, N, 3D]
-    ctx = attention_core(qkv, cfg.num_attention_heads, key_mask, bias)
+    ctx = attention_core(qkv, cfg.num_attention_heads, key_mask, bias, cfg.score_dtype)
     return _linear(ctx.reshape(b, n, d), layer["attn_out"], cfg.lora_scaling)
 
 
@@ -530,13 +583,16 @@ def _layer_rel_bias(
 def encoder_block(
     x: torch.Tensor, layer: dict, cfg: ViTConfig, window: tuple[int, int] | None = None,
     bias: torch.Tensor | None = None, key_mask: torch.Tensor | None = None,
-) -> torch.Tensor:
+) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One pre-LN block: attention + MLP with BEiT layer scale.
     ``window`` = the patch grid (gh, gw) restricts the attention to
     ``cfg.window_size`` windows; None = full attention. ``bias``: the
     layer's relative-position bias [H, n, n] over the grid + CLS, or over
     one window, or None. ``key_mask`` [rows, n]: the keys full attention
-    drops (``pad_tokens_to``'s padding)."""
+    drops (``pad_tokens_to``'s padding). The MLP is the dense GELU pair
+    or, for a layer with a router, the mixture of experts (``ops/moe.py``).
+    -> (block output, the MoE load-balance loss (fp32), None for a dense
+    layer)."""
     x_ln = _layer_norm(x, layer["ln1"], cfg.layer_norm_eps)
     if window is None:
         attn = _attention(x_ln, layer, cfg, key_mask, bias)
@@ -544,10 +600,14 @@ def encoder_block(
         attn = _windowed_attention(x_ln, layer, cfg, *window, bias=bias)
     x = x + attn * layer["lambda_1"].to(attn.dtype)
     y = _layer_norm(x, layer["ln2"], cfg.layer_norm_eps)
-    y = _linear(y, layer["mlp_in"], cfg.lora_scaling)
-    y = F.gelu(y.float()).to(y.dtype)
-    y = _linear(y, layer["mlp_out"], cfg.lora_scaling)
-    return x + y * layer["lambda_2"].to(y.dtype)
+    aux = None
+    if "router" in layer:
+        y, aux = moe_mlp(y, layer, cfg.num_experts, cfg.moe_top_k, cfg.moe_capacity_factor)
+    else:
+        y = _linear(y, layer["mlp_in"], cfg.lora_scaling)
+        y = F.gelu(y.float()).to(y.dtype)
+        y = _linear(y, layer["mlp_out"], cfg.lora_scaling)
+    return x + y * layer["lambda_2"].to(y.dtype), aux
 
 
 _SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -555,8 +615,9 @@ _SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
     """"dots": the outputs of the non-batched matmuls (the layer's qkv,
-    attn_out, mlp_in and mlp_out projections) are saved for the backward;
-    everything else runs again (JAX ``dots_with_no_batch_dims_saveable``)."""
+    attn_out, mlp_in and mlp_out projections, an MoE layer's router) are
+    saved for the backward; everything else, the experts' batched
+    products included, runs again (JAX ``dots_with_no_batch_dims_saveable``)."""
     if op in _SAVED_BY_DOTS:
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
@@ -570,6 +631,7 @@ def vit_forward(
     compute_dtype: torch.dtype = torch.float32,
     remat: bool = False,
     remat_policy: str = "full",
+    aux_out: dict | None = None,
 ) -> list[torch.Tensor]:
     """Run the encoder on normalized pixels [B, C, H, W] (H, W multiples
     of the patch size); return hidden states [B, 1+P, D] at ``taps``
@@ -579,7 +641,9 @@ def vit_forward(
     need a square grid; the windowed layers gather them at within-window
     offsets. ``remat``: each layer under ``torch.utils.checkpoint`` while
     grad is enabled, by ``remat_policy`` ("full" or "dots"); a layer's own
-    bias is gathered inside it, the shared table's outside, as in JAX."""
+    bias is gathered inside it, the shared table's outside, as in JAX.
+    ``aux_out``: given a dict, its ``"moe_aux"`` is set to the sum of the
+    MoE layers' load-balance losses (fp32, 0 without one), as JAX's."""
     if remat_policy not in ("full", "dots"):  # JAX vit.py:893-896
         raise ValueError(f"unknown remat_policy {remat_policy!r}; use 'full' or 'dots'")
     taps = tuple(taps) or (cfg.num_hidden_layers,)
@@ -610,7 +674,8 @@ def vit_forward(
     # padding dropped from every softmax row by a key mask [1, n]
     n_real = x.shape[1]
     key_mask = None
-    if cfg.pad_tokens_to > n_real and not win_active:
+    # not with experts: padded tokens would compete for expert capacity
+    if cfg.pad_tokens_to > n_real and not win_active and cfg.num_experts == 0:
         x = F.pad(x, (0, 0, 0, cfg.pad_tokens_to - n_real))
         key_mask = (torch.arange(cfg.pad_tokens_to, device=x.device) < n_real)[None]
 
@@ -635,10 +700,15 @@ def vit_forward(
     collected: dict[int, torch.Tensor] = {}
     if 0 in taps:
         collected[0] = x
+    total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for li, layer in enumerate(params["layers"], start=1):
-        x = layer_fn(x, layer, kinds[li])
+        x, aux = layer_fn(x, layer, kinds[li])
+        if aux is not None:
+            total_aux = total_aux + aux
         if li in taps:
             collected[li] = x
+    if aux_out is not None:
+        aux_out["moe_aux"] = total_aux
     if key_mask is not None:  # crop pad_tokens_to's padding
         return [collected[t][:, :n_real] for t in taps]
     return [collected[t] for t in taps]

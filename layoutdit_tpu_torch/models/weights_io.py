@@ -12,6 +12,9 @@ by leaf:
   * conv kernels are already OIHW and pass through;
   * separate q / k / v projections become one fused ``qkv`` with a zero
     K bias (BEiT's K has none);
+  * an MoE layer's ``router`` [D, E], ``moe_in`` [E, D, F] + [E, F] and
+    ``moe_out`` [E, F, D] + [E, D] keep JAX's layouts (``kernel`` becomes
+    ``weight``), bit for bit;
   * fc6 is 4D [Px, Py, C, rep] (RoIAlign's native layout) and becomes
     [rep, Px*Py*C] in the same (px, py, c) order;
   * a cascade model's ``cascade_heads/s{i}`` (a box head and a
@@ -109,11 +112,17 @@ def _vit_layer(layer: Mapping, device) -> dict:
             "bias": _t(np.concatenate([bq, np.zeros_like(bq), bv]), device),
         },
         "attn_out": _linear(layer["attn_out"], device),
-        "mlp_in": _linear(layer["mlp_in"], device),
-        "mlp_out": _linear(layer["mlp_out"], device),
-        "lambda_1": _t(layer["lambda_1"], device),
-        "lambda_2": _t(layer["lambda_2"], device),
     }
+    if "router" in layer:  # an MoE layer: JAX's layouts, as they are
+        out["router"] = {"weight": _t(layer["router"]["kernel"], device)}
+        for name in ("moe_in", "moe_out"):
+            out[name] = {"weight": _t(layer[name]["kernel"], device),
+                         "bias": _t(layer[name]["bias"], device)}
+    else:
+        out["mlp_in"] = _linear(layer["mlp_in"], device)
+        out["mlp_out"] = _linear(layer["mlp_out"], device)
+    out["lambda_1"] = _t(layer["lambda_1"], device)
+    out["lambda_2"] = _t(layer["lambda_2"], device)
     if "rel_pos_table" in layer:
         out["rel_pos_table"] = _t(layer["rel_pos_table"], device)
     # LoRA adapters: [d_in, r] / [r, d_out] in both packages; q/k/v's sit
@@ -362,11 +371,16 @@ def _vit_layer_to_jax(layer: dict) -> dict:
         "k": {"kernel": w[d:2 * d].T},
         "v": {"kernel": w[2 * d:].T, "bias": b[2 * d:]},
         "attn_out": _linear_to_jax(layer["attn_out"]),
-        "mlp_in": _linear_to_jax(layer["mlp_in"]),
-        "mlp_out": _linear_to_jax(layer["mlp_out"]),
         "lambda_1": _np(layer["lambda_1"]),
         "lambda_2": _np(layer["lambda_2"]),
     }
+    if "router" in layer:
+        out["router"] = {"kernel": _np(layer["router"]["weight"])}
+        for name in ("moe_in", "moe_out"):
+            out[name] = {"kernel": _np(layer[name]["weight"]), "bias": _np(layer[name]["bias"])}
+    else:
+        out["mlp_in"] = _linear_to_jax(layer["mlp_in"])
+        out["mlp_out"] = _linear_to_jax(layer["mlp_out"])
     if "rel_pos_table" in layer:
         out["rel_pos_table"] = _np(layer["rel_pos_table"])
     for name in LORA_TARGETS:
@@ -779,7 +793,10 @@ def load_beit_checkpoint(path: str, cfg, device="cpu") -> dict:
     port's encoder tree: an HF state_dict as ``.bin`` / ``.pth``
     (``torch.load(weights_only=True)``) or ``.safetensors`` (needs the
     ``safetensors`` package), or a converted ``.msgpack`` written by
-    either package's ``tools/convert_hf_checkpoint.py``."""
+    either package's ``tools/convert_hf_checkpoint.py``. Into an encoder
+    with experts (``num_experts`` > 0), as the JAX package's loader: a
+    ``.msgpack`` without them raises; an HF state_dict gives its dense
+    encoder, every layer with ``mlp_in`` / ``mlp_out`` and no router."""
     from layoutdit_tpu_torch.utils.paths import open_path, read_bytearray
 
     if path.endswith(".msgpack"):
@@ -790,7 +807,16 @@ def load_beit_checkpoint(path: str, cfg, device="cpu") -> dict:
         from layoutdit_tpu_torch.utils.flax_msgpack import loads
 
         raw = lists_from_state_dict(loads(memoryview(buf)[len(magic):]))
-        return vit_params_from_jax(raw["params"], device)
+        vit = vit_params_from_jax(raw["params"], device)
+        missing = [i for i, layer in enumerate(vit["layers"], start=1)
+                   if cfg.is_moe_layer(i) and "router" not in layer]
+        if missing:
+            # JAX's loader reads the file into its config's template, which
+            # has the experts: it refuses the file the same way
+            raise ValueError(f"{path}: the encoder checkpoint has no experts in layers "
+                             f"{missing}, where the config (num_experts={cfg.num_experts}) "
+                             "has them")
+        return vit
     if path.endswith(".safetensors"):
         try:
             from safetensors.torch import load as st_load

@@ -71,7 +71,7 @@ _DRAWERS = {1: _draw_text_block, 2: _draw_title, 3: _draw_list,
             4: _draw_table, 5: _draw_figure}
 
 
-def make_page(rng: np.random.Generator, size: int = 224):
+def make_page(rng: np.random.Generator, size: int = 224, num_classes: int = 5):
     """One synthetic page -> (float image [H, W], list of (cat, bbox xywh))."""
     img = np.full((size, size), 1.0, np.float32)
     anns = []
@@ -87,8 +87,12 @@ def make_page(rng: np.random.Generator, size: int = 224):
             widths = [(8, size - 16)]
         for x0, x1 in widths:
             w = x1 - x0
-            cat = int(rng.choice([1, 1, 1, 2, 3, 4, 5]))
-            _DRAWERS[cat](img, x0, y, w, h, rng)
+            if num_classes <= 5:
+                cat = int(rng.choice([1, 1, 1, 2, 3, 4, 5]))
+            else:
+                cat = int(rng.integers(1, num_classes + 1))
+            # visual styles repeat cyclically for transfer-shaped fixtures
+            _DRAWERS[(cat - 1) % 5 + 1](img, x0, y, w, h, rng)
             anns.append((cat, [float(x0), float(y), float(w), float(h)]))
         y += h + int(rng.integers(6, 16))
     return img, anns
@@ -96,9 +100,13 @@ def make_page(rng: np.random.Generator, size: int = 224):
 
 def make_fixture(
     out_dir: str, n_images: int = 16, split: str = "samples",
-    image_size: int = 224, seed: int = 0,
+    image_size: int = 224, seed: int = 0, num_classes: int = 5,
 ) -> str:
-    """Write {out_dir}/{split}/*.jpg + {out_dir}/{split}.json (COCO)."""
+    """Write {out_dir}/{split}/*.jpg + {out_dir}/{split}.json (COCO).
+
+    ``num_classes`` > 5 makes a transfer-dataset-shaped fixture (11 for
+    DocLayNet, 13 for DocBank, ``data/adapters.py``): category ids 1..N,
+    the five visual styles reused cyclically, as the JAX package's."""
     from PIL import Image
 
     rng = np.random.default_rng(seed)
@@ -108,7 +116,7 @@ def make_fixture(
     images, annotations = [], []
     ann_id = 1
     for i in range(n_images):
-        img, anns = make_page(rng, image_size)
+        img, anns = make_page(rng, image_size, num_classes=num_classes)
         fname = f"page_{i:04d}.jpg"
         Image.fromarray((img * 255).astype(np.uint8)).convert("RGB").save(
             os.path.join(img_dir, fname), quality=92
@@ -128,7 +136,9 @@ def make_fixture(
             })
             ann_id += 1
 
-    coco = {"images": images, "annotations": annotations, "categories": CATEGORIES}
+    coco = {"images": images, "annotations": annotations,
+            "categories": CATEGORIES if num_classes <= 5 else [
+                {"id": i + 1, "name": f"class_{i + 1}"} for i in range(num_classes)]}
     json_path = os.path.join(out_dir, f"{split}.json")
     with open(json_path, "w") as f:
         json.dump(coco, f)

@@ -77,9 +77,11 @@ def summarize_trace(trace: dict, stages: tuple[str, ...] = STAGES) -> dict:
     # host time of each launch, by correlation id: a stage's device time is
     # the work launched inside its host range, on any thread (autograd
     # launches the backward's kernels from its own thread, outside the
-    # range's device-side annotation)
+    # range's device-side annotation); cuBLAS launches through the driver
+    # API (cuda_driver), the rest through the runtime
     launched = {e["args"]["correlation"]: e["ts"] for e in ev
-                if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
     by_stage: dict[str, dict] = {}
     for e in ev:
         if e["name"] in stages and e.get("cat") in ("user_annotation", "gpu_user_annotation"):

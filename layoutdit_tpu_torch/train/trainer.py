@@ -72,13 +72,19 @@ does: the frozen encoder's tensors take no gradient (autograd skips
 their weight-gradient products), hold no moments and keep their bits;
 the clip norm covers the trainable gradients only; the EMA, as JAX's,
 covers every parameter.
-Waiting for later slices: data-parallel evaluation and profiler upload.
+With ``enable_profile``, ``train()`` runs under ``torch.profiler`` (CPU
+and CUDA activities on the card, CPU alone on the CPU), writes its chrome
+trace under ``trace_log_dir`` and, from the lead process, uploads that
+directory's files to ``{artifacts}/{run}/profiler/<relative path>``
+(JAX ``_save_traces``).
+Waiting for a later slice: data-parallel evaluation.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
 import signal
 import time
 
@@ -113,7 +119,7 @@ from layoutdit_tpu_torch.train.checkpoint import (
     save_checkpoint,
 )
 from layoutdit_tpu_torch.train.optim import AdamW, make_lr_schedule  # noqa: F401 (re-export)
-from layoutdit_tpu_torch.utils.paths import open_path
+from layoutdit_tpu_torch.utils.paths import join_path, open_path
 
 logger = get_logger(__name__)
 
@@ -398,6 +404,13 @@ class Trainer:
 
     def train(self) -> None:
         tc = self.config.train
+        profiler = None
+        if tc.enable_profile:  # the card's activity too on the card
+            from torch.profiler import ProfilerActivity, profile
+
+            profiler = profile(activities=[ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if self.device.type == "cuda" else []))
+            profiler.start()
         writer = AsyncCheckpointWriter() if tc.async_checkpoint else None
         tb = None
         if tc.tensorboard:
@@ -456,8 +469,32 @@ class Trainer:
                 if tb is not None:
                     tb.close()
                 self.dataloader.close()
+                if profiler is not None:
+                    profiler.stop()
         self._save_loss()
         self._save_metrics()
+        if profiler is not None:
+            os.makedirs(tc.trace_log_dir, exist_ok=True)
+            profiler.export_chrome_trace(os.path.join(
+                tc.trace_log_dir, f"{self.config.run_name}.{time.time_ns()}.pt.trace.json"))
+            self._save_traces()
+
+    def _save_traces(self) -> None:
+        """Upload every file under ``trace_log_dir`` to
+        ``{artifacts}/{run}/profiler/`` keeping its relative path (JAX
+        ``_save_traces``); the lead process only."""
+        if torch.distributed.is_initialized() and torch.distributed.get_rank() != 0:
+            return
+        root = self.config.train.trace_log_dir.rstrip("/")
+        remote_root = f"{self.config.artifact_dir}/profiler"
+        for dirpath, _, filenames in os.walk(root):
+            for name in filenames:
+                local = os.path.join(dirpath, name)
+                rel = os.path.relpath(local, root).replace(os.sep, "/")
+                remote = join_path(remote_root, rel)
+                with open(local, "rb") as src, open_path(remote, "wb") as dst:
+                    dst.write(src.read())
+                logger.info("Uploaded trace %s -> %s", rel, remote)
 
     # ------------------------------------------------------- artifacts
 

@@ -26,6 +26,7 @@ from layoutdit_tpu_torch import config as port_config
 from layoutdit_tpu_torch.config import ModelConfig, run_config_from_dict
 from layoutdit_tpu_torch.models import vit as port_vit
 from layoutdit_tpu_torch.models import weights_io
+from layoutdit_tpu_torch.models.detection import detector as port_det
 from layoutdit_tpu_torch.models.detection.detector import DetectorConfig
 from layoutdit_tpu_torch.ops import short_attention as port_short
 
@@ -128,10 +129,15 @@ def test_config_refusals_name_what_they_wait_for():
         ModelConfig(remat=True, remat_policy="selective")
     with pytest.raises(ValueError, match="unknown remat_policy"):
         port_vit.vit_forward({}, torch.zeros(1, 3, 16, 16), port_vit.DIT_BASE, remat_policy="x")
+    # bf16 scores and MoE are ported: their overrides load and build
     for key, value in (("score_dtype", "bfloat16"), ("num_experts", 4)):
         mc = ModelConfig(vit_overrides={key: value})
-        with pytest.raises(ValueError, match=f"{key}.*queue 1 item 6"):
-            DetectorConfig.from_model_config(mc)
+        cfg = DetectorConfig.from_model_config(mc)
+        assert getattr(cfg.backbone.vit, key) == value
+        layers = port_det.init_detector(cfg, torch.Generator(), "meta")["backbone"]["vit"]
+        assert ("router" in layers["layers"][1]) == (key == "num_experts")
+    with pytest.raises(ValueError, match="vit_overrides.no_such_field"):
+        DetectorConfig.from_model_config(ModelConfig(vit_overrides={"no_such_field": 1}))
     # LoRA is ported: a lora_rank override is an encoder field
     mc = ModelConfig(vit_overrides={"lora_rank": 8})
     assert DetectorConfig.from_model_config(mc).backbone.vit.lora_rank == 8

@@ -404,6 +404,11 @@ def test_eval_config_fields_load_with_jax_defaults():
     ("train_config", "device", "cpu", "CUDA card"),
 ])
 def test_waiting_fields_are_refused(section, key, value, match):
+    if key != "device":
+        # the trainer's profiler and param_dtype are ported: they load
+        rc = run_config_from_dict({section: {key: value}})
+        assert (rc.param_dtype if section == "precision" else getattr(rc.train, key)) == value
+        return
     with pytest.raises(ValueError, match=f"{key}.*{match}"):
         run_config_from_dict({section: {key: value}})
 

@@ -255,11 +255,15 @@ def test_profile_summary_sums_a_stage_over_its_calls():
           dict(ph="X", name="launch", cat="cuda_runtime", ts=5, dur=1, args={"correlation": 1}),
           dict(ph="X", name="launch", cat="cuda_runtime", ts=25, dur=1, args={"correlation": 2}),
           dict(ph="X", name="launch", cat="cuda_runtime", ts=35, dur=1, args={"correlation": 3}),
+          dict(ph="X", name="cuLaunchKernel", cat="cuda_driver", ts=26, dur=1,
+               args={"correlation": 4}),
           dict(ph="X", name="k", cat="kernel", ts=30, dur=4, args={"correlation": 1}),
           dict(ph="X", name="k", cat="kernel", ts=40, dur=6, args={"correlation": 2}),
-          dict(ph="X", name="k", cat="kernel", ts=50, dur=8, args={"correlation": 3})]
+          dict(ph="X", name="k", cat="kernel", ts=50, dur=8, args={"correlation": 3}),
+          dict(ph="X", name="gemm", cat="kernel", ts=60, dur=2, args={"correlation": 4})]
     st = summarize_trace({"traceEvents": ev}, ("rel_pos_table_grad",))["stages"]
-    assert st["rel_pos_table_grad"] == {"calls": 2, "host_ms": 0.02, "device_ms": 0.01}
+    # the driver-API launch (cuBLAS's) counts as the runtime's do
+    assert st["rel_pos_table_grad"] == {"calls": 2, "host_ms": 0.02, "device_ms": 0.012}
 
 
 
