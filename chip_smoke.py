@@ -127,7 +127,14 @@ batch 16, beside the dense flagship step (step ms, images/s, peak GiB);
 two gradients of one state the same bits; a traced step and a traced
 1024 px request split into the MoE ranges (router, dispatch, experts,
 combine); the 224 px bucket exported and held to the live engine; the
-short kernel against the bf16-score plain attention. It
+short kernel against the bf16-score plain attention. Last, phase
+``parallel`` (``--only parallel``): the port's ``main`` under a one-card
+NCCL group against ``main`` alone (the same bits), the plain and the
+NCCL trainer's steps in turns, two ranks sharing the card over gloo
+(``--parallel-child``; NCCL refuses two ranks on one GPU) for the DP and
+FSDP steps' gradients against one process's step, both peaks, and the
+DP eval against one process at the ranks' batch, and two serving
+replicas on the card against one engine. It
 checks that every kernel ran on its path, the right number of times a
 train step, and the probes' kernels on none but theirs. One profiled request
 per serving bucket and one profiled 224 px train step print the
@@ -4952,6 +4959,374 @@ def phase_moe(kernels: list[dict], card: str) -> dict:
     return out
 
 
+
+# phase parallel: data parallelism (layoutdit_tpu_torch/parallel) at the
+# default config (dit-base, 224 px, batch 16, bf16) over PARALLEL_PAGES
+# pages: main under a one-card NCCL group against main alone, two ranks
+# sharing the card over gloo (NCCL refuses two ranks on one GPU) for the
+# DP and FSDP steps and the DP eval, and two serving replicas on the card
+PARALLEL_PAGES = 32
+PARALLEL_TIMEOUT_S = 300
+# each gradient leaf of the two ranks' DP and FSDP steps against the
+# one-process step from the same state: bf16 on the card, each rank's
+# GEMMs at 8 rows where one process runs 16, so cuBLAS may pick other
+# kernels and round otherwise: max |got - ref| <= max |ref| / 64
+PARALLEL_GRAD_TOL = 1.0 / 64
+# timed steps of the plain and the one-card NCCL trainer, in turns
+PARALLEL_TIMED_STEPS = 6
+
+
+def _parallel_fixture(tmp: str, **mesh) -> str:
+    """A config file over ``tmp``'s pages (``write_fixture_config`` at the
+    default model, batch 16, one epoch, local mode), its artifacts under
+    ``tmp/<name>`` named by ``mesh``'s fields; -> its path."""
+    from layoutdit_tpu_torch.tools.make_fixture import write_fixture_config
+
+    with open(write_fixture_config(tmp, split="samples", epochs=1, batch_size=16)) as f:
+        raw = json.load(f)
+    name = "_".join(sorted(mesh)) or "plain"
+    raw["eval_config"]["eval_base_path"] = f"{tmp}/{name}"
+    raw["train_config"]["checkpoint_interval"] = 1
+    if mesh:
+        raw["mesh_config"] = mesh
+    path = f"{tmp}/{name}.json"
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return path
+
+
+def _step_grads(trainer, batch) -> tuple[float, list, float]:
+    """One update on ``batch`` -> (its loss over the ranks, the gradients
+    the optimizer met (this rank's shards under FSDP), peak GiB)."""
+    seen = {}
+    update = trainer.optimizer.update
+
+    def spy(state, params, grads, **kw):
+        seen["grads"] = [g.clone() for g in grads]
+        return update(state, params, grads, **kw)
+
+    trainer.optimizer.update = spy
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    loss, _ = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    trainer.optimizer.update = update
+    mesh = trainer.mesh
+    if mesh.comm is not None and mesh.degree > 1:
+        loss = mesh.comm.all_reduce_(loss.detach().clone()) / mesh.degree
+    return float(loss), seen["grads"], peak
+
+
+def parallel_child(rank: str, port: str, cfg_path: str, out_path: str) -> int:
+    """Phase ``parallel``'s rank ``rank`` of two on the one card, over
+    gloo: the DP step, the FSDP step (each from the seed's weights on the
+    first global batch; rank 0 writes the gathered gradients), the DP
+    eval of the seed's weights; results and launches to ``out_path``."""
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from layoutdit_tpu_torch.config import MeshConfig, load_run_config
+    from layoutdit_tpu_torch.eval.evaluator import Evaluator
+    from layoutdit_tpu_torch.models.model import build_model
+    from layoutdit_tpu_torch.parallel.mesh import maybe_distributed_init
+    from layoutdit_tpu_torch.train.trainer import Trainer
+
+    rank = int(rank)
+    if not maybe_distributed_init(MeshConfig(
+            enable_distributed_init=True, coordinator_address=f"127.0.0.1:{port}",
+            num_processes=2, process_id=rank), device="cuda:0", backend="gloo"):
+        raise RuntimeError("parallel child: no process group started")
+    rc = load_run_config(cfg_path)
+    out = {}
+    _reset_counts()
+    for kind in ("dp", "fsdp"):
+        run = dataclasses.replace(rc, mesh=dataclasses.replace(rc.mesh, fsdp=kind == "fsdp"))
+        trainer = Trainer(run, build_model(run, seed=run.train.seed, device="cuda"))
+        if trainer.mesh.degree != 2 or trainer.mesh.fsdp != (kind == "fsdp"):
+            raise RuntimeError(f"parallel child: mesh {trainer.mesh}")
+        with trainer.sharded():
+            rest = trainer._rest or trainer._leaves
+            state = [*rest, *trainer.opt_state["mu"], *trainer.opt_state["nu"]]
+            out[f"{kind}_rest_gib"] = sum(t.numel() * t.element_size() for t in state) / 2**30
+            batch = next(iter(trainer.dataloader))
+            loss, grads, peak = _step_grads(trainer, batch)
+            if kind == "fsdp":
+                grads = trainer._train_layout.gather(grads)
+            times, _ = _timed_steps(trainer, batch, 3)
+        trainer.dataloader.close()
+        out.update({f"{kind}_loss": loss, f"{kind}_peak_gib": peak,
+                    f"{kind}_step_ms": float(np.median(times))})
+        if rank == 0:
+            torch.save([g.float().cpu() for g in grads], f"{out_path}.{kind}.pt")
+        del trainer, grads, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    metrics = Evaluator(build_model(rc, seed=rc.train.seed, device="cuda"), rc).score()
+    out.update(metrics=metrics, launches=_counts())
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _run_main(cfg_path: str, logs: list | None = None) -> None:
+    """The port's ``main`` in this process on ``cfg_path``; with ``logs``,
+    the root logger's messages appended to it."""
+    import logging
+    import os
+
+    from layoutdit_tpu_torch import main as port_main
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            logs.append(record.getMessage())
+
+    log_root = logging.getLogger("layoutdit_tpu_torch")
+    handler = Keep() if logs is not None else None
+    saved = os.environ.get("LAYOUTDIT_CONFIG")
+    os.environ["LAYOUTDIT_CONFIG"] = cfg_path
+    if handler is not None:
+        log_root.addHandler(handler)
+    try:
+        port_main.main([])
+        torch.cuda.synchronize()
+    finally:
+        if handler is not None:
+            log_root.removeHandler(handler)
+        if saved is None:
+            os.environ.pop("LAYOUTDIT_CONFIG")
+        else:
+            os.environ["LAYOUTDIT_CONFIG"] = saved
+
+
+def _main_run_state(cfg_path: str) -> tuple[list, list, list]:
+    """(epoch_1.pt's parameters and moments, metrics.jsonl, predictions.json)."""
+    from layoutdit_tpu_torch.config import load_run_config
+    from layoutdit_tpu_torch.models.weights_io import tree_leaves
+    from layoutdit_tpu_torch.train.checkpoint import load_checkpoint
+
+    run = Path(load_run_config(cfg_path).artifact_dir)
+    state = load_checkpoint(run / "model_checkpoints" / "epoch_1.pt", map_location="cpu")
+    with open(run / "metrics" / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    with open(run / "predictions.json") as f:
+        preds = json.load(f)
+    tx = state["opt_state"]
+    return [*tree_leaves(state["params"]), *tx["mu"], *tx["nu"]], records, preds
+
+
+def _leaf_errors(label: str, got: list, want: list) -> float:
+    """The worst leaf's max |got - want| / max |want|, raising above
+    ``PARALLEL_GRAD_TOL``."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        ref = float(w.abs().max())
+        err = float((g.float() - w.float()).abs().max())
+        if err > PARALLEL_GRAD_TOL * ref:
+            raise RuntimeError(f"parallel: {label} gradient leaf {i} {tuple(w.shape)}: max err "
+                               f"{err:.3e} > max |ref| {ref:.3e} / 64")
+        worst = max(worst, err / max(ref, 1e-30))
+    return worst
+
+
+def phase_parallel(kernels: list[dict], card: str) -> dict:
+    """Data parallelism through the port's entry points, dit-base at 224 px:
+
+      * ``main`` (one epoch of 2 steps, a checkpoint, the final eval) under
+        a one-card NCCL group started by ``enable_distributed_init`` and
+        the coordinator fields, against ``main`` with no group: the same
+        bits (parameters, moments, loss, predictions); then
+        ``PARALLEL_TIMED_STEPS`` steps of each trainer in turns;
+      * two ranks sharing the card over gloo (``--parallel-child``), global
+        batch 16: the DP and FSDP steps' gradients against one process's
+        step from the same state (``PARALLEL_GRAD_TOL``), both peaks and
+        the state each rank keeps at rest; the DP eval's metrics equal to
+        one process's at the ranks' per-call batch of 8;
+      * two serving replicas on the card (``BatchInferenceEngine(devices=
+        ...)``, batch 8 split 4 + 4) against one engine at batch 4.
+
+    The launches of the NCCL ``main``, the two ranks and the replicas are
+    the phase's."""
+    import os
+
+    import torch.distributed as dist
+
+    from layoutdit_tpu_torch.config import MeshConfig, load_run_config
+    from layoutdit_tpu_torch.eval.evaluator import Evaluator
+    from layoutdit_tpu_torch.eval.serving import BatchInferenceEngine
+    from layoutdit_tpu_torch.models.model import build_model
+    from layoutdit_tpu_torch.parallel.mesh import DataMesh, free_port, maybe_distributed_init
+    from layoutdit_tpu_torch.tools.make_fixture import make_fixture
+    from layoutdit_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    launched = dict.fromkeys(_counts(), 0)
+
+    def add(counts):
+        for name, n in counts.items():
+            launched[name] += n
+
+    out = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        make_fixture(tmp, n_images=PARALLEL_PAGES, split="samples", seed=0)
+        plain_cfg = _parallel_fixture(tmp)
+        port = free_port()
+        nccl_mesh = dict(enable_distributed_init=True, coordinator_address=f"127.0.0.1:{port}",
+                         num_processes=1, process_id=0)
+        nccl_cfg = _parallel_fixture(tmp, **nccl_mesh)
+        rc = load_run_config(plain_cfg)
+
+        # main alone, then under a one-card NCCL group: the same bits
+        t0 = time.perf_counter()
+        _run_main(plain_cfg)
+        plain_s = time.perf_counter() - t0
+        logs = []
+        _reset_counts()
+        t0 = time.perf_counter()
+        _run_main(nccl_cfg, logs)
+        nccl_s = time.perf_counter() - t0
+        add(_counts())
+        if not any(m.startswith("torch.distributed up: rank 0 of 1, backend nccl") for m in logs):
+            raise RuntimeError("parallel: main started no NCCL group")
+        if dist.is_initialized():
+            raise RuntimeError("parallel: main left its process group up")
+        a, b = _main_run_state(plain_cfg), _main_run_state(nccl_cfg)
+        same = (all(torch.equal(x, y) for x, y in zip(a[0], b[0], strict=True))
+                and a[1][0]["loss"] == b[1][0]["loss"] and a[2] == b[2])
+        if not same:
+            raise RuntimeError("parallel: main under a one-card NCCL group differs from main")
+        print(f"  main (2 steps, checkpoint, eval of {PARALLEL_PAGES} pages) alone "
+              f"{plain_s:.3f} s, under a one-card NCCL group {nccl_s:.3f} s: the same bits "
+              "(parameters, moments, "
+              f"loss {a[1][0]['loss']:.6f}, {len(a[2])} predictions)")
+
+        # the plain and the world-1 NCCL step, timed in turns
+        if not maybe_distributed_init(MeshConfig(**nccl_mesh), device="cuda"):
+            raise RuntimeError("parallel: no NCCL group started")
+        try:
+            trainers = {
+                "plain": Trainer(rc, build_model(rc, seed=rc.train.seed, device="cuda"),
+                                 mesh=DataMesh()),
+                "nccl": Trainer(rc, build_model(rc, seed=rc.train.seed, device="cuda")),
+            }
+            if trainers["nccl"].mesh.comm is None:
+                raise RuntimeError("parallel: the NCCL trainer has no group")
+            batch = next(iter(trainers["plain"].dataloader))
+            times = {"plain": [], "nccl": []}
+            for kind in ("plain", "nccl", "nccl", "plain"):
+                times[kind] += _timed_steps(trainers[kind], batch, PARALLEL_TIMED_STEPS)[0][1:]
+            for t in trainers.values():
+                t.dataloader.close()
+            del trainers, batch
+        finally:
+            dist.destroy_process_group()
+        step = {k: _spread(v) for k, v in times.items()}
+        print(f"  step ms at batch 16, in turns: plain {step['plain']}, one-card NCCL group "
+              f"{step['nccl']}")
+
+        # the one-process reference: the step and the eval at batch 8
+        ref_trainer = Trainer(rc, build_model(rc, seed=rc.train.seed, device="cuda"))
+        ref_loss, ref_grads, ref_peak = _step_grads(ref_trainer,
+                                                    next(iter(ref_trainer.dataloader)))
+        ref_grads = [g.float().cpu() for g in ref_grads]
+        ref_trainer.dataloader.close()
+        del ref_trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        rc8 = dataclasses.replace(rc, data=dataclasses.replace(rc.data, batch_size=8))
+        ref_metrics = Evaluator(build_model(rc, seed=rc.train.seed, device="cuda"), rc8).score()
+
+        # two ranks on the card over gloo
+        port = free_port()
+        procs = []
+        try:
+            for rank in range(2):
+                log = open(Path(tmp) / f"rank{rank}.log", "w")
+                procs.append((subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"), "--parallel-child", str(rank),
+                     str(port), plain_cfg, f"{tmp}/rank{rank}.json"],
+                    stdout=log, stderr=subprocess.STDOUT), log))
+            for rank, (proc, log) in enumerate(procs):
+                code = proc.wait(timeout=PARALLEL_TIMEOUT_S)
+                log.close()
+                if code != 0:
+                    text = (Path(tmp) / f"rank{rank}.log").read_text()
+                    raise RuntimeError(f"parallel rank {rank}: exit code {code}\n{text[-3000:]}")
+        finally:
+            for proc, log in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+        ranks = []
+        for rank in range(2):
+            with open(f"{tmp}/rank{rank}.json") as f:
+                ranks.append(json.load(f))
+            add(ranks[-1]["launches"])
+        staged = [line for line in (Path(tmp) / "rank0.log").read_text().splitlines()
+                  if "staged through host memory" in line]
+        print(f"  two ranks on the card over gloo: {staged[0].split(' - ')[-1] if staged else ''}")
+        errs = {}
+        for kind in ("dp", "fsdp"):
+            grads = torch.load(f"{tmp}/rank0.json.{kind}.pt")
+            errs[kind] = _leaf_errors(kind, grads, ref_grads)
+            loss = ranks[0][f"{kind}_loss"]
+            if not abs(loss - ref_loss) <= 1e-2 * abs(ref_loss):
+                raise RuntimeError(f"parallel: {kind} loss {loss} against one process's {ref_loss}")
+            print(f"  {kind.upper()} step (2 ranks x 8): loss {loss:.6f} (one process "
+                  f"{ref_loss:.6f}), worst gradient leaf max err / max |ref| {errs[kind]:.3e}; "
+                  f"peak {ranks[0][f'{kind}_peak_gib']:.3f} / {ranks[1][f'{kind}_peak_gib']:.3f} "
+                  f"GiB (ranks 0 / 1; one process {ref_peak:.3f}), at rest "
+                  f"{ranks[0][f'{kind}_rest_gib']:.3f} GiB a rank, step "
+                  f"{ranks[0][f'{kind}_step_ms']:.3f} ms (gloo through the host; no speed number)")
+        for r in ranks:
+            if r["metrics"] != ref_metrics:
+                raise RuntimeError(f"parallel: DP eval metrics {r['metrics']} against one "
+                                   f"process's {ref_metrics}")
+        print(f"  DP eval ({PARALLEL_PAGES} pages, 2 ranks x 8): mAP {ref_metrics['mAP']:.6f}, "
+              "every metric equal to one process's at batch 8 on both ranks")
+
+        # two serving replicas on the card
+        model = build_model(rc, seed=rc.train.seed, device="cuda")
+        pages = [p.read_bytes() for p in sorted(Path(tmp, "samples").glob("*.jpg"))][:16]
+        one = BatchInferenceEngine(model, image_sizes=(224,), batch_size=4, score_thresh=0.0)
+        two = BatchInferenceEngine(model, image_sizes=(224,), batch_size=8, score_thresh=0.0,
+                                   devices=["cuda:0", "cuda:0"])
+        want = one.predict_pages(pages)
+        _reset_counts()
+        got = two.predict_pages(pages)
+        torch.cuda.synchronize()
+        add(_counts())
+        box_err = score_err = 0.0
+        for g, w in zip(got, want, strict=True):
+            if not np.array_equal(g.labels, w.labels):
+                raise RuntimeError("parallel: the replicas' labels differ from one engine's")
+            box_err = max(box_err, float(np.abs(g.boxes - w.boxes).max(initial=0.0)))
+            score_err = max(score_err, float(np.abs(g.scores - w.scores).max(initial=0.0)))
+        if box_err > 1e-2 or score_err > 1e-3:
+            raise RuntimeError(f"parallel: replicas' boxes {box_err} px, scores {score_err}")
+        print(f"  two serving replicas on the card (batch 8 = 4 + 4): {len(pages)} pages, labels "
+              f"equal to one engine's at batch 4, boxes {box_err:.2e} px, scores {score_err:.2e}")
+    print(f"  parallel launches: {launched}")
+    for name, n in launched.items():
+        if (n > 0) != (name in MAIN_KERNELS):
+            raise RuntimeError(f"parallel: {name} launched {n} times")
+    for k in kernels:
+        k["parallel_launches"] = launched[k["name"]]
+    out.update(
+        main_s={"plain": plain_s, "nccl_world_1": nccl_s}, step_ms=step,
+        grad_err=errs, ref_loss=ref_loss, ref_peak_gib=ref_peak,
+        ranks=[{k: v for k, v in r.items() if k not in ("metrics", "launches")} for r in ranks],
+        eval_map=ref_metrics["mAP"], serving={"box_err": box_err, "score_err": score_err},
+        phase_s=time.perf_counter() - t_phase)
+    print(f"  parallel phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU")
@@ -5005,7 +5380,8 @@ def main() -> int:
                    "finetune": lambda: phase_finetune([], card),
                    "resnet": lambda: phase_resnet([], card),
                    "lora_recipe": lambda: phase_lora_recipe([]),
-                   "moe": lambda: phase_moe([], card)}
+                   "moe": lambda: phase_moe([], card),
+                   "parallel": lambda: phase_parallel([], card)}
         for name in only:
             print(f"phase {name}")
             print(json.dumps({name: runners[name]()}))
@@ -5090,9 +5466,13 @@ def main() -> int:
 
     print("phase moe")
     moe = phase_moe(kernels, card)
+    torch.cuda.empty_cache()
+
+    print("phase parallel")
+    parallel = phase_parallel(kernels, card)
     paths = ("probe", "serving", "deploy", "train", "train_state", "io", "train_1024",
              "train_1024_relpos", "encoder", "main", "convergence", "families", "one_stage",
-             "detr", "finetune", "resnet", "lora_recipe", "moe")
+             "detr", "finetune", "resnet", "lora_recipe", "moe", "parallel")
     for k in kernels:
         k["launches"] = sum(k[f"{path}_launches"] for path in paths)
         if k["launches"] <= 0:
@@ -5115,6 +5495,7 @@ def main() -> int:
     print(json.dumps({"finetune": finetune}))
     print(json.dumps({"resnet": resnet}))
     print(json.dumps({"moe": moe}))
+    print(json.dumps({"parallel": parallel}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({
@@ -5130,4 +5511,6 @@ if __name__ == "__main__":
         sys.exit(exported_child(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--recipe-child"]:
         sys.exit(recipe_child(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--parallel-child"]:
+        sys.exit(parallel_child(*sys.argv[2:6]))
     sys.exit(main())

@@ -22,8 +22,6 @@ import json
 import os
 from typing import Any, Optional
 
-import torch
-
 from layoutdit_tpu_torch.utils.paths import fs_for, open_path
 
 
@@ -258,6 +256,13 @@ _WAITING = {
     "eval_config": {
         "device": ("auto", "the port runs on the CUDA card (no device field)"),
     },
+    # model parallelism: the second half of ROADMAP queue 1 item 7
+    "mesh_config": {
+        k: (v, "model parallelism (ROADMAP queue 1 item 7); the port runs data parallel "
+               "(data_parallel, fsdp) only")
+        for k, v in (("model_parallel", 1), ("pipeline_parallel", 1),
+                     ("sequence_parallel", False), ("dcn_data_parallel", 1))
+    },
 }
 
 
@@ -308,6 +313,30 @@ def load_config(path: str) -> tuple[ModelConfig, DataLoaderConfig]:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The data-parallel fields of ``constructs.py::MeshConfig``, same
+    defaults (``parallel/mesh.py`` acts on them): ``data_parallel`` ranks,
+    one process per card (-1: every process started, clamped to divide
+    the batch); ``fsdp`` shards each large parameter and its AdamW
+    moments over them at rest (``parallel/sharding.py``); the
+    multi-process start (``enable_distributed_init``, the coordinator
+    fields, the two timeouts). ``axis_names`` and
+    ``pipeline_microbatches`` are carried as JAX has them and read by no
+    one (there is no model axis and no pipeline)."""
+
+    data_parallel: int = -1
+    fsdp: bool = False
+    axis_names: tuple[str, str] = ("data", "model")
+    pipeline_microbatches: int = 4
+    enable_distributed_init: bool = False
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
+    heartbeat_timeout_s: Optional[int] = None
+    shutdown_timeout_s: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
 class RunConfig:
     """What the trainer reads from a config file: the model, loader and
     training sections, the compute dtype (``precision.compute_dtype``),
@@ -331,6 +360,7 @@ class RunConfig:
     local_mode: bool = False
     eval_input: str = "samples"
     eval_base_path: Optional[str] = "gs://layoutdit"
+    mesh: MeshConfig = MeshConfig()
 
     @property
     def artifact_dir(self) -> str:
@@ -349,37 +379,13 @@ class RunConfig:
         return f"{base}/{self.eval_input}/", f"{base}/{self.eval_input}.json"
 
 
-# the JAX schema's MeshConfig fields (constructs.py) and the values at
-# which its build_mesh resolves to one device (parallel/mesh.py:139):
-# then fsdp shards over one device, which changes nothing
-_MESH_ONE_DEVICE = {"model_parallel": 1, "pipeline_parallel": 1, "dcn_data_parallel": 1,
-                    "sequence_parallel": False, "enable_distributed_init": False}
-_MESH_FREE = {"data_parallel", "fsdp", "axis_names", "pipeline_microbatches",
-              "coordinator_address", "num_processes", "process_id",
-              "heartbeat_timeout_s", "shutdown_timeout_s"}
-
-
-def _check_one_device_mesh(mesh: dict) -> None:
-    """Accept a ``mesh_config`` that resolves to one device, as the JAX
-    package's ``build_mesh`` resolves it on one chip: ``data_parallel`` 1,
-    or -1 (every device) with at most one visible card, and every other
-    axis 1 with no sequence parallelism and no distributed init. Any
-    other mesh raises."""
-    unknown = sorted(set(mesh) - set(_MESH_ONE_DEVICE) - _MESH_FREE)
-    if unknown:
-        raise ValueError(f"mesh_config: keys not supported by the port: {unknown}")
-    waits = ("it waits for the parallelism slice (ROADMAP queue 1 item 7); the port "
-             "trains on one card")
-    for k, one in _MESH_ONE_DEVICE.items():
-        if mesh.get(k, one) != one:
-            raise ValueError(f"mesh_config.{k}={mesh[k]!r}: not supported by the port; {waits}")
-    dp = mesh.get("data_parallel", -1)
-    devices = torch.cuda.device_count() if dp <= 0 else dp  # <= 0: every device
-    if devices > 1:
-        raise ValueError(
-            f"mesh_config.data_parallel={dp!r} resolves to {devices} devices: not supported "
-            f"by the port; {waits}"
-        )
+def mesh_config_from_dict(mesh: dict) -> MeshConfig:
+    """A ``MeshConfig`` from a ``mesh_config`` section. Data parallelism,
+    FSDP and the multi-process start load; a model-parallel axis
+    (``model_parallel``, ``pipeline_parallel``, ``sequence_parallel``,
+    ``dcn_data_parallel`` off their one-device values) raises, naming
+    ROADMAP queue 1 item 7."""
+    return _build(MeshConfig, mesh, "mesh_config", _WAITING["mesh_config"])
 
 
 # "_comment": the prose some config files carry at the top, read by no one
@@ -393,7 +399,7 @@ def run_config_from_dict(raw: dict) -> RunConfig:
     unknown = sorted(set(raw) - _RUN_KEYS)
     if unknown:
         raise ValueError(f"keys not supported by the port: {unknown}")
-    _check_one_device_mesh(raw.get("mesh_config") or {})
+    mesh = mesh_config_from_dict(raw.get("mesh_config") or {})
     mc = _build(ModelConfig, raw.get("detection_model_config", {}), "detection_model_config")
     precision = raw.get("precision", {})
     _check_keys(precision, {"compute_dtype", "param_dtype"}, "precision")
@@ -411,6 +417,7 @@ def run_config_from_dict(raw: dict) -> RunConfig:
         local_mode=bool(raw.get("local_mode") or False),
         eval_input=paths.get("eval_input", "samples"),
         eval_base_path=paths.get("eval_base_path", "gs://layoutdit"),
+        mesh=mesh,
     )
 
 

@@ -16,6 +16,12 @@ segmentation rasterised on the host onto an M x M grid over the whole
 page (``data/masks.py``, from the page's original size, M =
 ``mask_size`` or image_size // 2), flipped with the page, and uploaded
 with the batch.
+
+Under data parallelism each rank decodes only its rows of every global
+batch (``rows``; ``parallel/mesh.py::DataMesh.rows``), as the JAX
+loader's ``_process_local_rows``: every rank walks the same epoch order
+and takes the same ``skip_batches`` offset, and the ranks' batches,
+concatenated in rank order, are the global batch.
 """
 
 from __future__ import annotations
@@ -114,6 +120,10 @@ class DetectionLoader:
       mask_size: M of the [B, G, M, M] block (0: image_size // 2).
       device: where batches land; "cuda" unless the caller asks for the
         CPU. A CUDA device with no GPU present raises.
+      rows: the slots of each global batch of ``batch_size`` that this
+        loader assembles (a data-parallel rank's); each batch then has
+        ``len(rows)`` rows, row j holding global slot ``rows[j]``, and
+        slots past an epoch's remainder stay padding. None: every slot.
     """
 
     def __init__(
@@ -132,6 +142,7 @@ class DetectionLoader:
         device: str | torch.device = "cuda",
         load_masks: bool = False,
         mask_size: int = 0,
+        rows: Sequence[int] | None = None,
     ):
         if load_masks and not getattr(dataset, "with_segmentation", False):
             raise ValueError("load_masks=True needs a dataset constructed with "
@@ -153,6 +164,7 @@ class DetectionLoader:
         self.prefetch_depth = max(1, prefetch_depth)
         self.augment_hflip = augment_hflip
         self.stack_batches = max(1, stack_batches)
+        self.rows = np.arange(batch_size) if rows is None else np.asarray(rows, np.int64)
         self._epoch = 0
         self._start_batch = 0
         self._pool: ThreadPoolExecutor | None = None
@@ -199,8 +211,9 @@ class DetectionLoader:
         return self.dataset.load_image(img_id), self.dataset.load_target(img_id)
 
     def _assemble(self, idxs: Sequence[int]) -> _HostBatch:
-        """Decode and pad one batch on the host (in the producer thread)."""
-        b, s, g = self.batch_size, self.image_size, self.max_gt
+        """Decode and pad this loader's rows of one global batch on the
+        host (in the producer thread)."""
+        b, s, g = len(self.rows), self.image_size, self.max_gt
         gt_boxes = np.zeros((b, g, 4), np.float32)
         gt_labels = np.zeros((b, g), np.int32)
         gt_valid = np.zeros((b, g), bool)
@@ -212,7 +225,8 @@ class DetectionLoader:
         gt_masks = np.zeros((b, g, m, m), np.uint8) if self.load_masks else None
         if self._pool is None:
             self._pool = ThreadPoolExecutor(self.num_workers, thread_name_prefix="ld-decode")
-        loaded = list(self._pool.map(self._load, [int(i) for i in idxs]))
+        idxs = [int(idxs[r]) for r in self.rows if r < len(idxs)]
+        loaded = list(self._pool.map(self._load, idxs))
         pages = []
         for slot, (idx, (page, target)) in enumerate(zip(idxs, loaded)):
             h, w = page.shape[:2]
@@ -255,7 +269,7 @@ class DetectionLoader:
     def _to_device(self, hb: _HostBatch) -> DetectionBatch:
         """Upload a host batch and resize its pages on the device."""
         s, dev = self.image_size, self.device
-        images = torch.zeros((self.batch_size, 3, s, s), device=dev)
+        images = torch.zeros((len(self.rows), 3, s, s), device=dev)
         n = len(hb.pages)
         if hb.pixels is not None:
             x = hb.pixels.to(dev, non_blocking=True).permute(0, 3, 1, 2).float() / 255.0

@@ -1,5 +1,5 @@
 """Evaluator: batch inference over the eval split, COCO metrics, and box
-overlays (port of ``layoutdit_tpu/eval/evaluator.py``, single card).
+overlays (port of ``layoutdit_tpu/eval/evaluator.py``).
 Predictions, page reads and overlays go through ``utils/paths.py``, so
 the data and the run's directory may be ``scheme://`` URLs.
 
@@ -23,7 +23,13 @@ the data and the run's directory may be ``scheme://`` URLs.
     predictions (red) or the ground truth (green) drawn on up to
     ``num_images`` pages, saved as JPEGs. PIL is imported inside them.
 
-Not ported yet: the data-parallel and multi-host eval.
+Under data parallelism (a ``torch.distributed`` group, or ``comm``), as
+JAX's multi-host eval: each rank predicts its rows of every eval batch,
+the detections are all-gathered back into the one-card order, and rank 0
+writes ``predictions.json``, scores COCO and draws the overlays; every
+rank's ``score()`` returns rank 0's metrics. A batch that the ranks do
+not divide falls back, with JAX's warning, to each rank predicting the
+whole split alone (rank 0 still the only writer).
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from layoutdit_tpu_torch.config import RunConfig
 from layoutdit_tpu_torch.data.dataset import PubLayNetDataset, read_bytes
@@ -48,6 +55,7 @@ from layoutdit_tpu_torch.models.detection.detector import (
     rescale_detections,
 )
 from layoutdit_tpu_torch.models.weights_io import tree_map
+from layoutdit_tpu_torch.parallel.mesh import Comm
 from layoutdit_tpu_torch.utils.paths import fs_for, join_path, open_path
 
 logger = get_logger(__name__)
@@ -63,12 +71,29 @@ class Evaluator:
       config: the run's ``RunConfig``.
       device: where inference runs; "cuda" unless the caller asks for the
         CPU. A CUDA device with no GPU present raises.
+      comm: the data-parallel ranks' collectives (``parallel/mesh.py``);
+        by default the running ``torch.distributed`` group's, if any.
     """
 
-    def __init__(self, model, config: RunConfig, device: str | torch.device = "cuda"):
+    def __init__(self, model, config: RunConfig, device: str | torch.device = "cuda",
+                 comm: Comm | None = None):
         self.device = torch.device(device)
         self.model = model
         self.config = config
+        if comm is None and dist.is_initialized():
+            comm = Comm()
+        self._comm = comm
+        self._lead = comm is None or comm.rank == 0
+        b = config.data.batch_size
+        rows = None  # every row: one process, or the fallback
+        if comm is not None and comm.world > 1:
+            if b % comm.world:
+                logger.warning("eval batch %d does not divide the %d data-parallel ranks; "
+                               "falling back to single-rank eval", b, comm.world)
+            else:
+                k = b // comm.world
+                rows = np.arange(comm.rank * k, (comm.rank + 1) * k)
+        self._sharded = rows is not None
         self.eval_config = config.eval
         # a mask model also pastes its masks and reports the segm metrics
         self._with_masks = bool(model.cfg.with_mask and self.eval_config.segm_metrics)
@@ -84,6 +109,7 @@ class Evaluator:
             drop_last=False,
             prefetch_depth=config.data.prefetch_depth,
             device=self.device,
+            rows=rows,
         )
         self.coco_data = self.dataloader.dataset.coco_data
         self.coco_eval = CocoEvaluator(self.coco_data)
@@ -110,9 +136,10 @@ class Evaluator:
         ``{image_id, category_id, bbox [x, y, w, h], score}`` in page
         coordinates; ``category_id`` is the model's label, as in the JAX
         evaluator. A mask model's also carry ``segmentation``, the pasted
-        ``(x0, y0, bitmap)`` window."""
+        ``(x0, y0, bitmap)`` window. Under data parallelism, every rank's
+        predictions in the one-card order."""
         cfg = self.model.cfg
-        out: list[dict] = []
+        out: list[list[dict]] = []  # per batch
         self.paste_seconds = 0.0
         try:
             with torch.no_grad():
@@ -155,19 +182,28 @@ class Evaluator:
                                 probs[img_idx[j], det_idx[j]], kb[j],
                                 *self._img_sizes[pred["image_id"]])
                         self.paste_seconds += time.perf_counter() - t0
-                    out += preds
+                    out.append(preds)
         finally:
             self.dataloader.close()
-        return out
+        if not self._sharded:
+            return [p for preds in out for p in preds]
+        # batch by batch, the ranks' rows in rank order: the one-card order
+        ranks = self._comm.all_gather_object(out)
+        return [p for i in range(len(out)) for preds in ranks for p in preds[i]]
 
     def score(self) -> Optional[dict]:
         """Predictions over the eval split -> the COCO metrics (None, with
-        a warning, when there is no prediction at all)."""
+        a warning, when there is no prediction at all). Under data
+        parallelism rank 0 scores and every rank returns its metrics;
+        rank 0 alone writes ``predictions.json``."""
         all_predictions = self.predictions()
         if not all_predictions:
             logger.warning("No predictions were generated.")
             return None
-        self._save_predictions_json(all_predictions)
+        if self._sharded and not self._lead:
+            return self._comm.broadcast_object(None)
+        if self._lead:
+            self._save_predictions_json(all_predictions)
         metrics = self.coco_eval.evaluate(
             all_predictions, per_category=self.eval_config.per_category_metrics
         )
@@ -175,7 +211,7 @@ class Evaluator:
             segm = self.segm_eval.evaluate(all_predictions)
             metrics.update({f"segm_{k}": v for k, v in segm.items()})
         logger.info("COCO metrics: %s", " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
-        return metrics
+        return self._comm.broadcast_object(metrics) if self._sharded else metrics
 
     def _save_predictions_json(self, all_predictions: list[dict]) -> None:
         if self._with_masks:
@@ -243,7 +279,9 @@ class Evaluator:
     def visualize_preds(self) -> None:
         """The top ``max_per_image`` predictions (red), read back from
         ``predictions.json`` as the JAX evaluator does; nothing when
-        ``score()`` wrote no file."""
+        ``score()`` wrote no file. Rank 0 only, as ``visualize_gt``."""
+        if not self._lead:
+            return
         if not fs_for(self.predictions_path).exists(self.predictions_path):
             logger.warning("No %s; no prediction overlays drawn", self.predictions_path)
             return
@@ -261,6 +299,8 @@ class Evaluator:
 
     def visualize_gt(self) -> None:
         """The ground-truth boxes (green)."""
+        if not self._lead:
+            return
         by_image: dict[int, list] = {}
         for ann in self.coco_data["annotations"]:
             by_image.setdefault(ann["image_id"], []).append(

@@ -1,5 +1,5 @@
 """Batch inference serving with padded size buckets (port of
-``layoutdit_tpu/eval/serving.py::BatchInferenceEngine``, single device).
+``layoutdit_tpu/eval/serving.py::BatchInferenceEngine``).
 
 Pages (uint8 or float arrays, [H, W, 3] or [3, H, W]; JPEG bytes when
 PIL is installed) are routed to the smallest bucket >= max(h, w),
@@ -29,6 +29,12 @@ pasted on the host into its page (``eval/masks.py``), a cropped
 ``(x0, y0, bitmap)`` window each; ``paste_seconds`` sums the host time
 the pastes take.
 
+Data-parallel serving (``devices``, the JAX engine's ``mesh``): one
+replica of the weights on each of N devices, the static batch split into
+N replica batches of ``batch_size / N`` pages, each chunk of pages sent
+to the next replica in turn, each replica dispatched from a thread of
+its own, so that the cards run side by side.
+
 ``ExportedInferenceEngine`` runs the same pipeline over an exported
 artifact (``export.py``) instead of the model: its buckets and batch
 size come from the artifact's manifest, and it serves boxes only, as the
@@ -38,13 +44,15 @@ JAX package's exported engine does.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import dataclasses
 import io
 import os
+import threading
 import time
 import types
 from collections import deque
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Sequence
 
 import numpy as np
@@ -95,7 +103,8 @@ class BatchInferenceEngine:
       image_sizes: ascending bucket resolutions (multiples of the patch
         size); pages route to the smallest bucket >= max(h, w), the last
         bucket catches everything larger.
-      batch_size: static batch per device call (padded).
+      batch_size: static batch per device call (padded); with ``devices``,
+        per call over all of them, split evenly.
       score_thresh: drop detections below this score.
       decode_workers: host threads decoding pages ahead of the device
         (default cpu_count - 1, at most 4, at least 1).
@@ -105,6 +114,8 @@ class BatchInferenceEngine:
       int8: serve the encoder's linears in W8A8 int8 (``ops/quant.py``,
         ``VIT_INT8_DEFAULT_KEYS``), LoRA adapters merged first
         (``models/lora.py``), as the JAX engine does; off by default.
+      devices: data-parallel serving over these devices, one replica
+        each (``device`` is ignored); ``batch_size`` must divide over them.
     """
 
     def _init_pipeline_fields(
@@ -123,6 +134,7 @@ class BatchInferenceEngine:
         self.score_thresh = score_thresh
         self.decode_workers = decode_workers
         self.max_in_flight = max(1, max_in_flight)
+        self._replicas = [(self.device, None)]  # (device, its weights)
         self._with_masks = False  # the live engine's, for a mask model
         self.paste_seconds = 0.0  # host time spent pasting masks, summed over requests
 
@@ -136,18 +148,31 @@ class BatchInferenceEngine:
         max_in_flight: int = 2,
         device: str | torch.device = "cuda",
         int8: bool = False,
+        devices: Sequence[str | torch.device] | None = None,
     ):
-        self._init_pipeline_fields(score_thresh, decode_workers, max_in_flight, device)
+        devices = [torch.device(d) for d in (devices or [device])]
+        self._init_pipeline_fields(score_thresh, decode_workers, max_in_flight, devices[0])
+        if batch_size % len(devices):
+            raise ValueError(f"batch_size {batch_size} does not divide over the "
+                             f"{len(devices)} serving devices")
         self.model = model
         self.image_sizes = sorted(image_sizes)
         self.batch_size = batch_size
-        params = tree_map(lambda t: t.to(self.device), model.params)
         if int8:
             # adapters folded first: quantization refuses unmerged ones
-            params = quantize_detector_params(
-                merge_lora_detector(params, model.cfg.backbone.vit))
-        self.params = params_for_inference(params, model.cfg.dtype)
+            base = quantize_detector_params(merge_lora_detector(
+                tree_map(lambda t: t.to(devices[0]), model.params), model.cfg.backbone.vit))
+        else:
+            base = model.params
+        weights = {}  # one copy a device, whatever its replicas
+        for dev in devices:
+            if dev not in weights:
+                weights[dev] = params_for_inference(
+                    tree_map(lambda t, dev=dev: t.to(dev), base), model.cfg.dtype)
+        self._replicas = [(dev, weights[dev]) for dev in devices]
+        self.params = weights[devices[0]]
         self._cfgs: dict[int, object] = {}
+        self._cfgs_lock = threading.Lock()  # the replica threads make them
         self._with_masks = bool(model.cfg.with_mask)
 
     @classmethod
@@ -167,10 +192,11 @@ class BatchInferenceEngine:
         return cls(model, image_sizes=sizes, **kwargs)
 
     def _cfg_for(self, size: int):
-        if size not in self._cfgs:
-            self._cfgs[size] = dataclasses.replace(self.model.cfg, image_size=size)
-            logger.info("serving bucket size=%d batch=%d", size, self.batch_size)
-        return self._cfgs[size]
+        with self._cfgs_lock:
+            if size not in self._cfgs:
+                self._cfgs[size] = dataclasses.replace(self.model.cfg, image_size=size)
+                logger.info("serving bucket size=%d batch=%d", size, self.batch_size)
+            return self._cfgs[size]
 
     def _bucket_for(self, h: int, w: int) -> int:
         i = bisect.bisect_left(self.image_sizes, max(h, w))
@@ -218,17 +244,23 @@ class BatchInferenceEngine:
         arr = np.asarray(page)
         return arr.shape[-2:] if arr.shape[0] in (1, 3) else arr.shape[:2]
 
-    def _upload_batch(self, decoded, size: int):
+    @property
+    def replica_batch(self) -> int:
+        """Pages per device call: the static batch over the replicas."""
+        return self.batch_size // len(self._replicas)
+
+    def _upload_batch(self, decoded, size: int, device: torch.device | None = None):
         """Decoded pages -> (images [batch, 3, S, S] float32 in [0, 1] on
-        the device, orig [batch, 2] on the host), padded to the static
-        batch with zero images of size (1, 1)."""
-        images = torch.zeros((self.batch_size, 3, size, size), device=self.device)
-        orig = np.ones((self.batch_size, 2), np.float32)
+        ``device`` (the engine's), orig [batch, 2] on the host), padded to
+        the replica batch with zero images of size (1, 1)."""
+        device = device or self.device
+        images = torch.zeros((self.replica_batch, 3, size, size), device=device)
+        orig = np.ones((self.replica_batch, 2), np.float32)
         for i, (arr, divide, hw) in enumerate(decoded):
             orig[i] = hw
             if arr is None:
                 continue
-            x = torch.from_numpy(arr).to(self.device).float()
+            x = torch.from_numpy(arr).to(device).float()
             if x.dim() == 3 and x.shape[-1] == 3:  # HWC -> CHW
                 x = x.permute(2, 0, 1)
             if divide:
@@ -236,15 +268,25 @@ class BatchInferenceEngine:
             images[i] = resize_bilinear(x, size, size)
         return images, orig
 
-    def _run(self, size: int, images: torch.Tensor, orig: np.ndarray):
+    def _run(self, size: int, images: torch.Tensor, orig: np.ndarray, params=None):
         """-> the rescaled detections, and a mask model's mask
-        probabilities [B, D, 2P, 2P] beside them."""
+        probabilities [B, D, 2P, 2P] beside them (``params``: a
+        replica's weights, the engine's by default)."""
+        params = self.params if params is None else params
         cfg = self._cfg_for(size)
-        o = torch.from_numpy(orig).to(self.device)
+        o = torch.from_numpy(orig).to(images.device)
         if self._with_masks:
-            dets, probs = detector_predict(self.params, images, cfg, with_masks=True)
+            dets, probs = detector_predict(params, images, cfg, with_masks=True)
             return rescale_detections(dets, o, size), probs
-        return rescale_detections(detector_predict(self.params, images, cfg), o, size)
+        return rescale_detections(detector_predict(params, images, cfg), o, size)
+
+    def _dispatch(self, size: int, decoded, replica) -> tuple[np.ndarray, object]:
+        """Upload and run one chunk on ``replica`` -> (orig, detections)."""
+        device, params = replica
+        guard = torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+        with guard, torch.inference_mode():
+            images, orig = self._upload_batch(decoded, size, device)
+            return orig, self._run(size, images, orig, params)
 
     def predict_pages(self, pages: Sequence) -> list[PageDetections]:
         """Run detection on a list of pages (one document or many)."""
@@ -257,7 +299,9 @@ class BatchInferenceEngine:
 
         results: list[PageDetections | None] = [None] * len(pages)
 
-        def fetch(chunk, decoded_ok, orig, out):
+        def fetch(chunk, done):
+            orig, out = done.result() if isinstance(done, Future) else done
+            decoded_ok = (orig > 0).all(axis=1)  # (0, 0) = failed slot
             dets, probs = out if self._with_masks else (out, None)
             boxes = dets.boxes.float().cpu().numpy()
             scores = dets.scores.float().cpu().numpy()
@@ -280,12 +324,17 @@ class BatchInferenceEngine:
                 )
 
         chunks = [
-            (size, indices[start:start + self.batch_size])
+            (size, indices[start:start + self.replica_batch])
             for size, indices in buckets.items()
-            for start in range(0, len(indices), self.batch_size)
+            for start in range(0, len(indices), self.replica_batch)
         ]
         in_flight: list = []
-        with ThreadPoolExecutor(max_workers=self.decode_workers) as pool:
+        n = len(self._replicas)
+        with ThreadPoolExecutor(max_workers=self.decode_workers) as pool, \
+                contextlib.ExitStack() as stack:
+            # one dispatch thread per replica, so that the devices overlap
+            replica_threads = [stack.enter_context(ThreadPoolExecutor(1)) for _ in range(n)
+                               ] if n > 1 else None
             # bounded decode-ahead, counted in batches: enough to keep the
             # workers busy plus the dispatch window; each page is its own
             # task, so one batch's pages decode in parallel
@@ -307,18 +356,22 @@ class BatchInferenceEngine:
                     futs = [pool.submit(self._decode_page, pages[i]) for i in chunk_]
                     pending.append((nxt, lambda futs=futs: [f.result() for f in futs]))
 
-            for _ in range(ahead):
+            for _ in range(ahead * n):
                 submit_next()
+            dispatched = 0
             while pending:
                 (size, chunk), decoded = pending.popleft()
                 decoded = decoded()
                 submit_next()
-                with torch.inference_mode():
-                    images, orig = self._upload_batch(decoded, size)
-                    dets = self._run(size, images, orig)
-                decoded_ok = (orig > 0).all(axis=1)  # (0, 0) = failed slot
-                in_flight.append((chunk, decoded_ok, orig, dets))
-                if len(in_flight) >= self.max_in_flight:
+                r = dispatched % n
+                dispatched += 1
+                if replica_threads is None:
+                    done = self._dispatch(size, decoded, self._replicas[r])
+                else:
+                    done = replica_threads[r].submit(self._dispatch, size, decoded,
+                                                     self._replicas[r])
+                in_flight.append((chunk, done))
+                if len(in_flight) >= self.max_in_flight * n:
                     fetch(*in_flight.pop(0))
         for entry in in_flight:
             fetch(*entry)
@@ -392,6 +445,6 @@ class ExportedInferenceEngine(BatchInferenceEngine):
         self.image_sizes = sorted(exported.image_sizes)
         self.batch_size = int(exported.manifest["batch_size"])
 
-    def _run(self, size: int, images: torch.Tensor, orig: np.ndarray):
+    def _run(self, size: int, images: torch.Tensor, orig: np.ndarray, params=None):
         # attribute view of the outputs, as predict_pages' fetch reads them
         return types.SimpleNamespace(**self.exported.predict_async(images, orig))

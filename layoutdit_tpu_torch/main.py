@@ -20,17 +20,39 @@ then model, then train, then score, then visualize.
 The JAX flag ``--read_config`` (a probe of the fixed remote config
 ``gs://layoutdit/layout_dit_config.json``) is refused: name the config
 in ``LAYOUTDIT_CONFIG`` instead.
+
+Data parallelism (``mesh_config``, ``parallel/mesh.py``), one process
+per card, started before the model is built (JAX ``main.py``):
+
+  * under torchrun the environment decides:
+    ``torchrun --nproc_per_node N -m layoutdit_tpu_torch.main ...``;
+  * with ``enable_distributed_init`` and ``coordinator_address``, one
+    process per card started by the caller, each with its
+    ``process_id`` (multi-host);
+  * otherwise, when ``data_parallel`` resolves to more than one of this
+    host's cards (the default -1 takes every card), ``main`` starts one
+    worker per card itself, as torchrun would, so that the JAX command
+    line trains on every card as JAX does; it exits non-zero if a
+    worker fails, and stops the others then.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import multiprocessing
+import os
+import sys
+import time
 
-from layoutdit_tpu_torch.config import get_run_config
+import torch
+import torch.distributed as dist
+
+from layoutdit_tpu_torch.config import RunConfig, get_run_config
 from layoutdit_tpu_torch.eval.evaluator import Evaluator
 from layoutdit_tpu_torch.log import get_logger
 from layoutdit_tpu_torch.models.model import build_model
+from layoutdit_tpu_torch.parallel.mesh import free_port, maybe_distributed_init, resolve_degree
 from layoutdit_tpu_torch.train.trainer import Trainer
 
 logger = get_logger(__name__)
@@ -57,6 +79,19 @@ def main(argv: list[str] | None = None) -> None:
     config = get_run_config()
     if args.local_mode:
         config = dataclasses.replace(config, local_mode=True)
+    ranks = _ranks_to_spawn(config, args.device)
+    if ranks > 1:
+        spawn_ranks(sys.argv[1:] if argv is None else list(argv), ranks)
+        return
+    started = maybe_distributed_init(config.mesh, args.device)
+    try:
+        _run(config, args)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _run(config: RunConfig, args) -> None:
     logger.info("Starting LayoutDit training (args=%s)", vars(args))
 
     model = build_model(config, seed=config.train.seed, device=args.device)
@@ -79,6 +114,53 @@ def main(argv: list[str] | None = None) -> None:
             logger.info("Final metrics: %s", metrics)
         evaluator.visualize_preds()
         evaluator.visualize_gt()
+
+
+def _ranks_to_spawn(config: RunConfig, device: str) -> int:
+    """The data-parallel ranks ``main`` starts itself: the degree of
+    ``data_parallel`` over this host's cards; 1 on the CPU (or with no
+    card), under torchrun, inside a group, and with a coordinator (the
+    caller starts the processes)."""
+    mesh = config.mesh
+    if (torch.device(device).type != "cuda" or not torch.cuda.is_available()
+            or "WORLD_SIZE" in os.environ or dist.is_initialized()
+            or (mesh.enable_distributed_init and mesh.coordinator_address)):
+        return 1
+    return resolve_degree(mesh.data_parallel, torch.cuda.device_count(),
+                          config.data.batch_size)
+
+
+def _rank_main(argv: list[str], rank: int, world: int, port: int) -> None:
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    main(argv)
+
+
+def spawn_ranks(argv: list[str], world: int) -> None:
+    """Run ``main(argv)`` in ``world`` spawned processes, one per card,
+    with torchrun's environment; raises ``SystemExit`` naming the ranks
+    that failed, after stopping the rest (which would wait in a
+    collective for the failed one)."""
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=_rank_main, args=(argv, r, world, port)) for r in range(world)]
+    for p in procs:
+        p.start()
+    logger.info("started %d data-parallel ranks on 127.0.0.1:%d", world, port)
+    try:
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join()
+    failed = [r for r, p in enumerate(procs) if p.exitcode != 0]
+    if failed:
+        raise SystemExit(f"data-parallel ranks {failed} failed (exit codes "
+                         f"{[procs[r].exitcode for r in failed]})")
 
 
 if __name__ == "__main__":

@@ -28,6 +28,7 @@ from layoutdit_tpu_torch.ops.boxes import (
     small_box_mask,
 )
 from layoutdit_tpu_torch.ops.nms import batched_nms_mask
+from layoutdit_tpu_torch.parallel.mesh import global_count, rank_share
 
 # per-stage defaults of the Cascade R-CNN paper (section 4.2), as
 # detectron2 and mmdetection adopt them
@@ -81,13 +82,13 @@ def cascade_stage_loss(
     """One stage's (loss_cls, loss_box), normalised as ``fastrcnn_loss``
     (CE mean over the sampled slots; smooth-L1 summed over the positives
     / the sampled count) with one regression branch for every class."""
-    num = valid.sum().clamp(min=1)
+    num = global_count(valid.sum()).clamp(min=1)  # over the global batch
     logp = torch.log_softmax(class_logits.float(), dim=-1)
     ce = -torch.gather(logp, -1, labels[..., None])[..., 0]
-    loss_cls = torch.where(valid, ce, torch.zeros_like(ce)).sum() / num
+    loss_cls = rank_share(torch.where(valid, ce, torch.zeros_like(ce)).sum()) / num
     pos = valid & (labels > 0)
     l1 = smooth_l1(box_regression.float() - reg_targets, beta=1.0 / 9).sum(-1)
-    loss_box = torch.where(pos, l1, torch.zeros_like(l1)).sum() / num
+    loss_box = rank_share(torch.where(pos, l1, torch.zeros_like(l1)).sum()) / num
     return loss_cls, loss_box
 
 

@@ -45,6 +45,7 @@ from layoutdit_tpu_torch.ops.boxes import (
     xyxy_to_cxcywh,
 )
 from layoutdit_tpu_torch.ops.matching import linear_sum_assignment
+from layoutdit_tpu_torch.parallel.mesh import global_count, rank_share
 
 CLASS_WEIGHT = 1.0
 BBOX_WEIGHT = 5.0
@@ -224,14 +225,15 @@ def detr_loss_one_level(logits: torch.Tensor, boxes01: torch.Tensor, gt01: torch
     logp = torch.log_softmax(logits, dim=-1)
     ce = -torch.gather(logp, -1, tgt_class[..., None])[..., 0]
     wts = torch.where(tgt_class == 0, eos_coef, 1.0)
-    loss_ce = (wts * ce).sum() / wts.sum()  # torch's weighted-mean CE
+    # torch's weighted-mean CE, over the global batch
+    loss_ce = rank_share((wts * ce).sum()) / global_count(wts.sum())
 
     pred = torch.gather(boxes01, 1, match[..., None].expand(-1, -1, 4))  # [B, G, 4]
     l1 = (pred - gt01).abs().sum(-1)
     giou = generalized_box_iou(cxcywh_to_xyxy(pred), cxcywh_to_xyxy(gt01))
     zero = torch.zeros_like(l1)
-    loss_bbox = torch.where(gt_valid, l1, zero).sum() / num_boxes
-    loss_giou = torch.where(gt_valid, 1.0 - giou, zero).sum() / num_boxes
+    loss_bbox = rank_share(torch.where(gt_valid, l1, zero).sum()) / num_boxes
+    loss_giou = rank_share(torch.where(gt_valid, 1.0 - giou, zero).sum()) / num_boxes
     return {"loss_ce": CLASS_WEIGHT * loss_ce, "loss_bbox": BBOX_WEIGHT * loss_bbox,
             "loss_giou": GIOU_WEIGHT * loss_giou}
 
@@ -264,7 +266,7 @@ def detr_loss(logits: torch.Tensor, boxes01: torch.Tensor, gt_boxes: torch.Tenso
     departure from the paper)."""
     gt01 = xyxy_to_cxcywh(gt_boxes.float()) / image_size
     gt01 = torch.where(gt_valid[..., None], gt01, torch.zeros_like(gt01))
-    num_boxes = gt_valid.sum().clamp(min=1).float()
+    num_boxes = global_count(gt_valid.sum()).clamp(min=1).float()  # over the global batch
     every = aux_loss and not shared_matching
     match = detr_match(logits if every else logits[-1:], boxes01 if every else boxes01[-1:],
                        gt01, gt_labels, gt_valid)

@@ -49,6 +49,7 @@ from layoutdit_tpu_torch.ops.boxes import (
     encode_boxes_linear,
     generalized_box_iou,
 )
+from layoutdit_tpu_torch.parallel.mesh import global_count, rank_share
 
 GN_GROUPS = 32
 
@@ -165,17 +166,17 @@ def fcos_loss(
     matched = fcos_match(anchors, level_counts, gt_boxes, gt_valid,
                          budget.fcos_center_sampling_radius)
     fg = matched >= 0
-    num_fg = fg.sum().clamp(min=1).float()
+    num_fg = global_count(fg.sum()).clamp(min=1).float()  # over the global batch
     safe = matched.clamp(min=0)
     tgt_labels = torch.where(fg, torch.gather(gt_labels, 1, safe).long(), 0)
     anchors_b = anchors.expand(matched.shape[0], -1, -1)
     tgt_boxes = torch.where(fg[..., None], _gather_rows(gt_boxes, safe), anchors_b)
 
     onehot = F.one_hot(tgt_labels, nc_bg) * fg[..., None]
-    loss_cls = sigmoid_focal_loss(cls_logits, onehot).sum() / num_fg
+    loss_cls = rank_share(sigmoid_focal_loss(cls_logits, onehot).sum()) / num_fg
 
     giou = generalized_box_iou(decode_boxes_linear(ltrb.float(), anchors_b), tgt_boxes)
-    loss_reg = torch.where(fg, 1.0 - giou, torch.zeros_like(giou)).sum() / num_fg
+    loss_reg = rank_share(torch.where(fg, 1.0 - giou, torch.zeros_like(giou)).sum()) / num_fg
 
     reg_targets = encode_boxes_linear(anchors_b, tgt_boxes)
     lr, tb = reg_targets[..., 0::2], reg_targets[..., 1::2]
@@ -184,7 +185,7 @@ def fcos_loss(
     ctr_targets = ratio.clamp(min=0.0).sqrt()
     x = ctrness.float()
     bce = x.clamp(min=0) - x * ctr_targets + torch.log1p(torch.exp(-x.abs()))
-    loss_ctr = torch.where(fg, bce, torch.zeros_like(bce)).sum() / num_fg
+    loss_ctr = rank_share(torch.where(fg, bce, torch.zeros_like(bce)).sum()) / num_fg
     return loss_cls, loss_reg, loss_ctr
 
 

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from layoutdit_tpu_torch.models.fpn import conv2d
 from layoutdit_tpu_torch.ops.roi_align import roi_align
+from layoutdit_tpu_torch.parallel.mesh import global_count, rank_share
 
 
 def _kaiming_normal(shape, fan_out: int, generator, device) -> torch.Tensor:
@@ -119,8 +120,8 @@ def maskrcnn_loss(
     logit = _own_class(mask_logits, labels)
     bce = logit.clamp(min=0.0) - logit * targets + torch.log1p(torch.exp(-logit.abs()))
     bce = torch.where(pos_valid[:, None, None], bce, torch.zeros_like(bce))
-    denom = pos_valid.sum().clamp(min=1) * p * p
-    return bce.sum() / denom
+    denom = global_count(pos_valid.sum()).clamp(min=1) * p * p  # over the global batch
+    return rank_share(bce.sum()) / denom
 
 
 def mask_probs_for_labels(mask_logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,7 @@ from layoutdit_tpu_torch.ops.boxes import (
     small_box_mask,
 )
 from layoutdit_tpu_torch.ops.nms import batched_nms_mask
+from layoutdit_tpu_torch.parallel.mesh import global_count, rank_share
 
 
 class TrainingSamples(NamedTuple):
@@ -96,18 +97,18 @@ def fastrcnn_loss(
     matched-class deltas, summed / the sampled count."""
     b, s, nc_bg = class_logits.shape
     valid = samples.valid
-    num = valid.sum().clamp(min=1)
+    num = global_count(valid.sum()).clamp(min=1)  # over the global batch
 
     logp = torch.log_softmax(class_logits.float(), dim=-1)
     ce = -torch.gather(logp, -1, samples.labels[..., None])[..., 0]
-    loss_cls = torch.where(valid, ce, torch.zeros_like(ce)).sum() / num
+    loss_cls = rank_share(torch.where(valid, ce, torch.zeros_like(ce)).sum()) / num
 
     pos = valid & (samples.labels > 0)
     reg = box_regression.float().reshape(b, s, nc_bg, 4)
     cls_idx = samples.labels.clamp(min=0)
     reg_for_label = torch.gather(reg, 2, cls_idx[..., None, None].expand(-1, -1, 1, 4))[:, :, 0]
     l1 = smooth_l1(reg_for_label - samples.reg_targets, beta=1.0 / 9).sum(-1)
-    loss_box = torch.where(pos, l1, torch.zeros_like(l1)).sum() / num
+    loss_box = rank_share(torch.where(pos, l1, torch.zeros_like(l1)).sum()) / num
     return loss_cls, loss_box
 
 

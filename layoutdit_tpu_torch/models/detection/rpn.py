@@ -32,6 +32,7 @@ from layoutdit_tpu_torch.ops.boxes import (
     small_box_mask,
 )
 from layoutdit_tpu_torch.ops.nms import nms_mask
+from layoutdit_tpu_torch.parallel.mesh import global_count, rank_share
 
 
 class Proposals(NamedTuple):
@@ -198,7 +199,8 @@ def rpn_loss(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(loss_objectness, loss_rpn_box_reg), torchvision compute_loss: BCE
     mean over the sampled anchors; smooth_l1(beta=1/9) summed over the
-    sampled positives / the sampled count, both over the whole batch."""
+    sampled positives / the sampled count, both over the whole batch (the
+    global batch under ``parallel.mesh.losses_over``)."""
     midx, labels = match_anchors_to_gt(
         anchors, gt_boxes, gt_valid, budget.rpn_fg_iou_thresh,
         budget.rpn_bg_iou_thresh, allow_low_quality=True,
@@ -217,8 +219,8 @@ def rpn_loss(
     l1 = smooth_l1(dl - reg_targets, beta=1.0 / 9).sum(-1)
     l1_sum = torch.where(pos_take, l1, torch.zeros_like(l1)).sum()
 
-    num_sampled = sampled.sum().clamp(min=1)
+    num_sampled = global_count(sampled.sum()).clamp(min=1)
     ob = objectness.float()
     bce = ob.clamp(min=0) - ob * (labels == 1) + torch.log1p(torch.exp(-ob.abs()))
-    loss_obj = torch.where(sampled, bce, torch.zeros_like(bce)).sum() / num_sampled
-    return loss_obj, l1_sum / num_sampled
+    loss_obj = rank_share(torch.where(sampled, bce, torch.zeros_like(bce)).sum()) / num_sampled
+    return loss_obj, rank_share(l1_sum) / num_sampled

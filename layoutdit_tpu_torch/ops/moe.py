@@ -51,6 +51,8 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from layoutdit_tpu_torch.parallel.mesh import global_mean
+
 
 def moe_capacity(tokens: int, num_experts: int, top_k: int, capacity_factor: float) -> int:
     """Static per-group expert capacity (at least ``top_k`` slots)."""
@@ -116,8 +118,9 @@ def route(y: torch.Tensor, router: torch.Tensor, num_experts: int, top_k: int, c
         slots.append(pos)
         kept.append(keep)
         fill = fill + (oh * keep[:, None, :]).sum(-1)
-    frac = counts.to(probs.dtype) / (b * s)
-    aux = e * torch.sum(frac * probs.reshape(b * s, e).mean(0))
+    # means over every token of the global batch, before their product
+    frac = global_mean(counts.to(probs.dtype) / (b * s))
+    aux = e * torch.sum(frac * global_mean(probs.reshape(b * s, e).mean(0)))
     return experts, gates, slots, kept, aux
 
 

@@ -14,8 +14,10 @@ watchdog (``_with_timeout``), so the doctor always ends. The checks:
     device FAILs, and the CPU is never reported as one;
   * kernels: nvcc is found and ``ops/_build.py`` builds and loads every
     ``csrc/*.cu`` into ``build/kernels``;
-  * mesh: the config's ``mesh_config`` resolves to one device (the port
-    trains on one card; other meshes wait for ROADMAP queue 1 item 7);
+  * mesh: the data degree and backend the config's ``mesh_config``
+    resolves to on this host (``main``'s launcher: one rank per card);
+    a degree this host's cards cannot hold WARNs (it may span hosts), a
+    model-parallel mesh FAILs (ROADMAP queue 1 item 7);
   * native: the JPEG loader and the COCO parser build and load;
   * pretrained: ``LAYOUTDIT_DIT_{BASE,LARGE}_PTH`` name a local checkpoint;
   * kernel-build-dir: ``build/kernels`` is writable (the JAX doctor's
@@ -137,13 +139,26 @@ def check_kernels(timeout_s: float) -> dict:
 
 def check_mesh() -> dict:
     try:
-        from layoutdit_tpu_torch.config import _check_one_device_mesh
+        import torch
 
-        mesh = _raw_config().get("mesh_config") or {}
-        _check_one_device_mesh(mesh)
+        from layoutdit_tpu_torch.config import mesh_config_from_dict
+
+        raw = _raw_config()
+        mesh = mesh_config_from_dict(raw.get("mesh_config") or {})
+        batch = (raw.get("data_loader_config") or {}).get("batch_size", 16)
+        cards = torch.cuda.device_count()
     except Exception as e:
         return _result("mesh", "FAIL", f"{type(e).__name__}: {e}")
-    return _result("mesh", "OK", f"one device ({mesh or 'no mesh_config'})")
+    from layoutdit_tpu_torch.parallel.mesh import resolve_degree
+
+    backend = "nccl" if cards else "gloo (no card)"
+    try:
+        dp = resolve_degree(mesh.data_parallel, max(cards, 1), batch)
+    except ValueError as e:
+        return _result("mesh", "WARN", f"{e} on this host; backend {backend}")
+    fsdp = ", fsdp" if mesh.fsdp and dp > 1 else ""
+    return _result("mesh", "OK", f"data_parallel {dp} (one rank per card{fsdp}), backend "
+                                 f"{backend}")
 
 
 def check_native() -> dict:

@@ -28,9 +28,12 @@ Usage:
 SIGTERM stops accepting, lets the requests in flight finish and drains
 the batcher. ``--int8`` serves the encoder in W8A8 int8 (``ops/quant.py``,
 LoRA adapters merged first); with ``--export-dir`` it raises, as in the
-JAX server (bake int8 in at export time). ``--data-parallel`` and
-``--model-parallel`` wait for multi-card serving (queue 1 item 7): the
-port serves on one card; they raise.
+JAX server (bake int8 in at export time). ``--data-parallel N`` serves
+N replicas of the model on cards 0..N-1 in this one process (-1: every
+card), the batcher's batches split over them (``eval/serving.py``); more
+cards than exist raise and fewer warn, as in the JAX server; on the CPU
+(``--device cpu``) it makes N CPU replicas. ``--model-parallel`` waits
+for model parallelism (queue 1 item 7) and raises.
 """
 
 from __future__ import annotations
@@ -43,13 +46,35 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+import torch
+
 from layoutdit_tpu_torch.log import get_logger
 
 logger = get_logger(__name__)
 
-MESH_REFUSED = ("--data-parallel / --model-parallel: multi-card serving is not supported by "
-                "the port yet; it waits for ROADMAP queue 1 item 7 (the port serves on one "
-                "card)")
+MESH_REFUSED = ("--model-parallel: tensor-parallel serving is not supported by the port yet; "
+                "it waits for model parallelism (ROADMAP queue 1 item 7)")
+
+
+def serving_devices(data_parallel: int, device: str = "cuda") -> list[torch.device]:
+    """The devices of ``--data-parallel`` replicas (JAX ``tools/serve.py``):
+    on the card, N of them from card 0 (-1: every card); more than exist
+    raises ``SystemExit``, fewer warn that the rest are left idle. On the
+    CPU, N replicas of the CPU; -1 (every card) raises there."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        if data_parallel < 1:
+            raise SystemExit("--data-parallel -1 means every card; on the CPU give the number "
+                             "of replicas")
+        return [dev] * data_parallel
+    have = torch.cuda.device_count()
+    n = data_parallel if data_parallel > 0 else have
+    if n > have or n < 1:
+        raise SystemExit(f"requested data_parallel={data_parallel}: {n} cards, but only {have} "
+                         "available")
+    if n < have:
+        logger.warning("serving uses %d of %d cards", n, have)
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 class _Waiter:
@@ -298,19 +323,21 @@ def make_handler(batcher: DynamicBatcher, names: dict, info: dict,
 def make_server(model, host: str, port: int, *, image_sizes=(224,), batch_size: int = 8,
                 score_thresh: float = 0.05, flush_ms: float = 5.0,
                 max_batch: int | None = None, dataset: str | None = None,
-                export_dir: str | None = None, device: str = "cuda", int8: bool = False):
+                export_dir: str | None = None, device: str = "cuda", int8: bool = False,
+                devices: list | None = None):
     """(ThreadingHTTPServer, DynamicBatcher), the batcher started; split
     from ``main`` so that tests and scripts run the server in-process.
     ``model``: anything with ``.params`` and ``.cfg`` (a live model), or
     None with ``export_dir``: then an exported artifact (``export.py``) is
     served, its buckets and batch size from its manifest, and ``int8``
-    does not apply. ``int8``: the live engine's W8A8 encoder."""
+    does not apply. ``int8``: the live engine's W8A8 encoder. ``devices``:
+    one replica of the live model on each (``serving_devices``)."""
     from layoutdit_tpu_torch.tools.predict import _label_names
 
     if export_dir is not None:
-        if model is not None or int8:
-            raise ValueError("--export-dir serves a frozen artifact: model/int8 do not apply "
-                             "(bake them in at export time)")
+        if model is not None or int8 or devices:
+            raise ValueError("--export-dir serves a frozen artifact: model/int8/devices do not "
+                             "apply (bake them in at export time)")
         from layoutdit_tpu_torch.eval.serving import ExportedInferenceEngine
 
         engine = ExportedInferenceEngine(export_dir, score_thresh=score_thresh, device=device)
@@ -321,7 +348,7 @@ def make_server(model, host: str, port: int, *, image_sizes=(224,), batch_size: 
 
         engine = BatchInferenceEngine(model, image_sizes=tuple(image_sizes),
                                       batch_size=batch_size, score_thresh=score_thresh,
-                                      device=device, int8=int8)
+                                      device=device, int8=int8, devices=devices)
         n_classes = model.cfg.num_classes
     names = _label_names(n_classes, dataset)
     info = {
@@ -374,27 +401,31 @@ def main(argv=None) -> None:
     parser.add_argument("--int8", action="store_true",
                         help="int8 W8A8 encoder (ops/quant.py); not with --export-dir")
     parser.add_argument("--data-parallel", type=int, default=0,
-                        help="refused: multi-card serving waits for ROADMAP queue 1 item 7")
+                        help="replicas on cards 0..N-1 (-1: every card); the batches split "
+                             "over them")
     parser.add_argument("--model-parallel", type=int, default=1,
-                        help="refused: multi-card serving waits for ROADMAP queue 1 item 7")
+                        help="refused: waits for model parallelism (ROADMAP queue 1 item 7)")
     args = parser.parse_args(argv)
 
     from layoutdit_tpu_torch.tools.predict import load_model
 
-    if args.data_parallel or args.model_parallel != 1:
+    if args.model_parallel != 1:
         raise SystemExit(MESH_REFUSED)
-    model = None
+    model = devices = None
     if args.checkpoint is not None:
+        if args.data_parallel:
+            devices = serving_devices(args.data_parallel, args.device)
         _, model = load_model(args.checkpoint, args.device)
-    elif args.int8 or args.sizes is not None or args.batch_size is not None:
-        raise SystemExit("--export-dir serves a frozen artifact: --int8 / --sizes / "
-                         "--batch-size do not apply (bake int8 in at export time; buckets "
-                         "and batch size come from its manifest)")
+    elif (args.int8 or args.data_parallel or args.sizes is not None
+          or args.batch_size is not None):
+        raise SystemExit("--export-dir serves a frozen artifact: --int8 / --data-parallel / "
+                         "--sizes / --batch-size do not apply (bake int8 in at export time; "
+                         "buckets and batch size come from its manifest)")
     httpd, batcher = make_server(
         model, args.host, args.port, image_sizes=args.sizes or [224],
         batch_size=args.batch_size or 8, score_thresh=args.score_thresh,
         flush_ms=args.flush_ms, max_batch=args.max_batch, dataset=args.dataset,
-        export_dir=args.export_dir, device=args.device, int8=args.int8,
+        export_dir=args.export_dir, device=args.device, int8=args.int8, devices=devices,
     )
 
     # SIGTERM stops accepting, lets the requests in flight finish and

@@ -6,7 +6,7 @@ Shows what a run would use: the defaults, merged with the JSON file that
 of a default ``gs://`` location, as the port's loader has none), in the
 JAX package's layout (``train_config``, ``data_loader_config``,
 ``detection_model_config``, ``precision``, ``eval_config``,
-``run_name``, ``local_mode``), keys sorted.
+``mesh_config``, ``run_name``, ``local_mode``), keys sorted.
 
     python -m layoutdit_tpu_torch.tools.show_config [--diff]
 
@@ -32,6 +32,7 @@ def run_config_as_dict(rc: RunConfig) -> dict:
         "precision": {"compute_dtype": rc.compute_dtype, "param_dtype": rc.param_dtype},
         "eval_config": {**dataclasses.asdict(rc.eval), "eval_input": rc.eval_input,
                         "eval_base_path": rc.eval_base_path},
+        "mesh_config": dataclasses.asdict(rc.mesh),
         "run_name": rc.run_name,
         "local_mode": rc.local_mode,
     }

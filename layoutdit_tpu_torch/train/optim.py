@@ -41,6 +41,7 @@ import math
 import torch
 
 from layoutdit_tpu_torch.config import TrainingConfig
+from layoutdit_tpu_torch.parallel.sharding import FsdpLayout
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 # b1 as JAX's weak typing meets a bf16 moment: rounded to bf16
@@ -112,15 +113,20 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, state: dict, params: list[torch.Tensor],
-               grads: list[torch.Tensor]) -> None:
+               grads: list[torch.Tensor], sharded: FsdpLayout | None = None) -> None:
         """One step from float32 ``grads``; the parameters change in place
-        and the state's entries are replaced."""
+        and the state's entries are replaced. ``sharded``: under FSDP, the
+        layout of ``params`` and ``grads``, which are this rank's shards
+        (``parallel/sharding.py``); the finite test and the clip norm then
+        cover the whole gradient."""
         accept = None
         if self.max_errors > 0:
             # optax apply_if_finite: every gradient element finite. 0 * g is
             # 0 where g is finite and NaN where it is not, and a sum keeps
             # a NaN, so each norm is 0 exactly when its leaf is finite
             finite = (torch.stack(torch._foreach_norm(torch._foreach_mul(grads, 0.0))) == 0).all()
+            if sharded is not None:
+                finite = sharded.everywhere(finite)
             zero = torch.zeros_like(state["notfinite_count"])
             state["notfinite_count"] = torch.where(finite, zero, state["notfinite_count"] + 1)
             state["total_notfinite"] = torch.where(
@@ -128,7 +134,8 @@ class AdamW:
             accept = finite | (state["notfinite_count"] > self.max_errors)
         if self.clip > 0:
             # optax clip_by_global_norm: t if ||g|| < max else t / ||g|| * max
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            norm = (torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+                    if sharded is None else sharded.global_norm(grads))
             clipped = torch._foreach_mul(torch._foreach_div(grads, norm), self.clip)
             keep = norm < self.clip
             grads = [torch.where(keep, g, c) for g, c in zip(grads, clipped)]

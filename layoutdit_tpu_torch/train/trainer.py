@@ -1,11 +1,10 @@
 """Trainer for the ``faster_rcnn`` detector, with its cascade and mask
 modifiers, the single-stage ``retinanet`` and ``fcos``, and the
-set-prediction ``detr`` (port of ``layoutdit_tpu/train/trainer.py``,
-single card). A mask model's loader rasterises the gt masks
-(``gt_masks``), which reach each step; over tar shards it raises, as
-JAX's. A single-stage or DETR model's step draws no sampler priorities
-(``draw_priorities`` gives None); a DETR step solves its assignments in
-one matcher launch.
+set-prediction ``detr`` (port of ``layoutdit_tpu/train/trainer.py``).
+A mask model's loader rasterises the gt masks (``gt_masks``), which
+reach each step; over tar shards it raises, as JAX's. A single-stage or
+DETR model's step draws no sampler priorities (``draw_priorities`` gives
+None); a DETR step solves its assignments in one matcher launch.
 
 The JAX trainer's recipe and run state:
   * optax's AdamW chain (``train/optim.py``): the configured
@@ -30,8 +29,8 @@ The JAX trainer's recipe and run state:
   * preemption: on SIGTERM the in-flight dispatch finishes, then the
     whole state goes synchronously to ``epoch_<n>_preempt.pt`` with the
     step reached in the epoch, and the loop ends; ``resume`` continues
-    that epoch from the next step (single process: no agreement between
-    hosts);
+    that epoch from the next step. The ranks agree on the stop after
+    every dispatch (a SIGTERM seen by any rank stops all at one step);
   * checkpoints every ``checkpoint_interval`` epochs, written off the
     training thread with ``async_checkpoint``, the newest
     ``keep_checkpoints`` of them kept; ``resume("auto")`` takes the
@@ -72,16 +71,33 @@ does: the frozen encoder's tensors take no gradient (autograd skips
 their weight-gradient products), hold no moments and keep their bits;
 the clip norm covers the trainable gradients only; the EMA, as JAX's,
 covers every parameter.
-With ``enable_profile``, ``train()`` runs under ``torch.profiler`` (CPU
-and CUDA activities on the card, CPU alone on the CPU), writes its chrome
-trace under ``trace_log_dir`` and, from the lead process, uploads that
+With ``enable_profile``, rank 0's ``train()`` runs under
+``torch.profiler`` (CPU and CUDA activities on the card, CPU alone on the
+CPU), writes its chrome trace under ``trace_log_dir`` and uploads that
 directory's files to ``{artifacts}/{run}/profiler/<relative path>``
 (JAX ``_save_traces``).
-Waiting for a later slice: data-parallel evaluation.
+
+Data parallelism (``mesh_config``, ``parallel/``): one process per card
+under ``torch.distributed``; every result is the one of the global batch
+on one card, as JAX's SPMD step gives it. Each rank loads its rows of
+every global batch, draws the global batch's sampler priorities from
+the same generator and keeps its rows of them, computes its losses with
+the batch-wide normalizers taken over the global batch
+(``parallel.mesh.losses_over``) and after the backward the gradients are
+averaged over the ranks in buckets; the K-bias zeroing, the accumulation
+divide, the clip, the finite test and the EMA then see the same global
+gradient everywhere. With ``fsdp`` the parameters, moments and EMA live
+as shards inside ``train()`` (``sharded()``), the parameters gathered
+for each step and the gradients reduce-scattered
+(``parallel/sharding.py``). Rank 0 alone writes the checkpoints (the
+one-card file: they resume at any world size), metrics, TensorBoard
+events and the loss curve; the epoch's loss and images/s are the global
+batch's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -98,11 +114,14 @@ from layoutdit_tpu_torch.data.shards import make_sharded_dataset
 from layoutdit_tpu_torch.log import get_logger
 from layoutdit_tpu_torch.models.detection.detector import (
     DetectorModel,
+    SamplerPriorities,
     detector_loss,
     draw_priorities,
 )
 from layoutdit_tpu_torch.models.model import LayoutDetectionModel
 from layoutdit_tpu_torch.models.lora import num_trainable, trainable_mask
+from layoutdit_tpu_torch.parallel.mesh import build_mesh_for_batch, losses_over, replicate_tree
+from layoutdit_tpu_torch.parallel.sharding import FsdpLayout, all_reduce_
 from layoutdit_tpu_torch.models.weights_io import (
     copy_params_,
     k_bias_slots,
@@ -122,6 +141,12 @@ from layoutdit_tpu_torch.train.optim import AdamW, make_lr_schedule  # noqa: F40
 from layoutdit_tpu_torch.utils.paths import join_path, open_path
 
 logger = get_logger(__name__)
+
+
+def _like(tree, leaves: list) -> dict:
+    """``leaves`` in ``tree``'s structure (``tree_leaves`` order)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
 
 
 class _PreemptionGuard:
@@ -167,10 +192,13 @@ class Trainer:
         and the mid-training evaluator scores the same object.
       device: "cuda" unless the caller asks for the CPU. A CUDA device
         with no GPU present raises, and so do parameters elsewhere.
+      mesh: the data-parallel ranks (``parallel/mesh.py``); by default
+        ``build_mesh_for_batch`` of the config's ``mesh_config`` over the
+        running processes (one process outside a group: no collectives).
     """
 
     def __init__(self, config: RunConfig, model: LayoutDetectionModel | DetectorModel,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh=None):
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -191,6 +219,8 @@ class Trainer:
         if any(t.device != self.device for t in self._leaves):
             raise ValueError(f"Trainer: the model's parameters must live on {self.device}, "
                              "the trainer's device")
+        self.mesh = mesh or build_mesh_for_batch(config.mesh, config.data.batch_size, self.accum)
+        replicate_tree(self._leaves, self.mesh)
         self._trainable = None
         if self.cfg.backbone.vit.lora_rank > 0 and tc.lora_freeze_base \
                 and self.cfg.backbone_kind == "dit":
@@ -203,6 +233,12 @@ class Trainer:
             t.requires_grad_(m)
         self._train_leaves = [t for t in self._leaves if t.requires_grad]
         self._k_bias = k_bias_slots(model.params)
+        # FSDP: the shard dim of every leaf, and of the trainable ones;
+        # _rest holds the leaves' shards inside sharded()
+        self._layout = self._train_layout = self._rest = None
+        if self.mesh.fsdp:
+            self._layout = FsdpLayout([tuple(t.shape) for t in self._leaves], self.mesh)
+            self._train_layout = self._layout.subset([t.requires_grad for t in self._leaves])
         if tc.steps_per_dispatch > 0:
             self.steps_per_dispatch = tc.steps_per_dispatch
         else:
@@ -261,6 +297,7 @@ class Trainer:
             device=self.device,
             load_masks=with_mask,
             mask_size=self.cfg.gt_mask_size,
+            rows=self.mesh.rows(dl.batch_size, self.accum) if self.mesh.degree > 1 else None,
         )
 
     # ------------------------------------------------------------ step
@@ -269,32 +306,55 @@ class Trainer:
         """One update on ``batch`` -> (total loss, the losses of
         ``detector_loss``), device scalars (no host sync).
         With A micro-batches, each draws its own sampler priorities and
-        the losses are their means."""
-        micro = self.config.data.batch_size // self.accum
+        the losses are their means. Under data parallelism ``batch`` holds
+        this rank's rows and so do the losses: their mean over the ranks
+        is the global batch's. Under FSDP it runs inside ``sharded()``."""
+        mesh, fsdp = self.mesh, self._rest is not None
+        if mesh.fsdp and not fsdp:
+            raise RuntimeError("Trainer.train_step under FSDP runs inside trainer.sharded()")
+        if fsdp:
+            for leaf, full, d in zip(self._leaves, self._layout.gather(self._rest),
+                                     self._layout.dims):
+                if d is not None:
+                    leaf.data = full
+        micro = self.config.data.batch_size // self.accum  # of the global batch
+        local = micro // mesh.degree
         parts = []
         for a in range(self.accum):
-            rows = slice(a * micro, (a + 1) * micro)
+            rows = slice(a * local, (a + 1) * local)
             gt_labels = batch.gt_labels[rows]
             priorities = draw_priorities(self.cfg, micro, gt_labels.shape[1], self.generator)
-            losses = detector_loss(
-                self.model.params, batch.images[rows], batch.gt_boxes[rows], gt_labels,
-                batch.gt_valid[rows], self.cfg, priorities,
-                gt_masks=None if batch.gt_masks is None else batch.gt_masks[rows],
-            )
+            if priorities is not None and mesh.degree > 1:
+                mine = slice(mesh.rank * local, (mesh.rank + 1) * local)
+                priorities = SamplerPriorities(*(p[mine] for p in priorities))
+            with losses_over(mesh):
+                losses = detector_loss(
+                    self.model.params, batch.images[rows], batch.gt_boxes[rows], gt_labels,
+                    batch.gt_valid[rows], self.cfg, priorities,
+                    gt_masks=None if batch.gt_masks is None else batch.gt_masks[rows],
+                )
             loss = sum(losses.values())
             with record_function("backward"):
                 # the leaves' .grad sums the micro-batches' float32 gradients
                 loss.backward()
             parts.append((loss.detach(), {k: v.detach() for k, v in losses.items()}))
         with record_function("optimizer"):
-            grads = [t.grad if t.grad is not None else torch.zeros_like(t)
-                     for t in self._train_leaves]
-            if self.accum > 1:
-                torch._foreach_div_(grads, float(self.accum))
             for bias, k_slot in self._k_bias:
                 if bias.grad is not None:
                     bias.grad[k_slot] = 0.0
-            self.optimizer.update(self.opt_state, self._train_leaves, grads)
+            grads = [t.grad if t.grad is not None else torch.zeros_like(t)
+                     for t in self._train_leaves]
+            if fsdp:
+                grads = self._train_layout.reduce_grads(grads)
+            elif mesh.comm is not None:
+                all_reduce_(grads, mesh.comm)
+            # the mean over the ranks and the micro-batches
+            if mesh.degree * self.accum > 1:
+                torch._foreach_div_(grads, float(mesh.degree * self.accum))
+            rest = self._rest if fsdp else self._leaves
+            self.optimizer.update(
+                self.opt_state, [r for r, t in zip(rest, self._leaves) if t.requires_grad],
+                grads, **({"sharded": self._train_layout} if fsdp else {}))
             for t in self._train_leaves:
                 t.grad = None
             if self.ema_params is not None:
@@ -302,12 +362,61 @@ class Trainer:
                 ema = tree_leaves(self.ema_params)
                 with torch.no_grad():
                     torch._foreach_mul_(ema, d)
-                    torch._foreach_add_(ema, torch._foreach_mul(self._leaves, 1 - d))
+                    torch._foreach_add_(ema, torch._foreach_mul(rest, 1 - d))
+        if fsdp:
+            self._release()
         self.updates += 1
         if self.accum == 1:
             return parts[0]
         loss = torch.stack([p[0] for p in parts]).mean()
         return loss, {k: torch.stack([p[1][k] for p in parts]).mean() for k in parts[0][1]}
+
+    # ------------------------------------------------------------- FSDP
+
+    def _release(self) -> None:
+        """Free the full tensors of the sharded leaves (their shards stay)."""
+        for leaf, d in zip(self._leaves, self._layout.dims):
+            if d is not None:
+                leaf.data = leaf.data.new_empty(0)
+
+    @contextlib.contextmanager
+    def sharded(self):
+        """Under FSDP, inside: the parameters, the AdamW moments and the
+        EMA live as this rank's shards (the parameters' full tensors only
+        within a step); on the way out they are gathered back, so that
+        outside the trainer holds the full state, as on one card.
+        Elsewhere, or nested, nothing. ``train()`` runs inside it."""
+        if self._layout is None or self._rest is not None:
+            yield
+            return
+        self._rest = self._layout.shard(self._leaves)
+        self._release()
+        for k in ("mu", "nu"):
+            self.opt_state[k] = self._train_layout.shard(self.opt_state[k])
+        if self.ema_params is not None:
+            self.ema_params = _like(self.ema_params,
+                                    self._layout.shard(tree_leaves(self.ema_params)))
+        try:
+            yield
+        finally:
+            for leaf, full, d in zip(self._leaves, self._layout.gather(self._rest),
+                                     self._layout.dims):
+                if d is not None:
+                    leaf.data = full
+            for k in ("mu", "nu"):
+                self.opt_state[k] = self._train_layout.gather(self.opt_state[k])
+            if self.ema_params is not None:
+                self.ema_params = self._full(self.ema_params)
+            self._rest = None
+
+    def _full(self, tree: dict) -> dict:
+        """A tree of full tensors: ``tree`` itself outside ``sharded()``,
+        else the gather of its shards (collective); the parameters' tree
+        is gathered from their shards."""
+        if self._rest is None:
+            return tree
+        shards = self._rest if tree is self.model.params else tree_leaves(tree)
+        return _like(tree, self._layout.gather(shards))
 
     def _dispatch(self, batch: DetectionBatch, steps: int) -> list[torch.Tensor]:
         """The ``steps`` steps of a plain (1) or stacked (S) batch, in turn."""
@@ -339,14 +448,20 @@ class Trainer:
             n_steps += steps
             n_new += steps
             n_images += int(batch.image_valid.sum())
-            if self._guard is not None and self._guard.preempted:
+            if self._guard is not None and self._preempted():
                 self._partial_steps = n_steps
                 break
         if n_new == 0:
             logger.info("Epoch %d already complete at the resume point", epoch + 1)
             return self.loss_history[-1] if self.loss_history else 0.0
-        # one host read of the epoch's losses, at its end
-        avg = float(torch.stack(losses).mean())
+        # one host read of the epoch's losses, at its end; under data
+        # parallelism the mean over the ranks and the images of all
+        avg = torch.stack(losses).mean()
+        if self.mesh.degree > 1:
+            t = torch.stack([avg.float(), torch.tensor(float(n_images), device=avg.device)])
+            self.mesh.comm.all_reduce_(t)
+            avg, n_images = t[0] / self.mesh.degree, int(t[1])
+        avg = float(avg)
         dt = max(time.perf_counter() - t0, 1e-9)
         self.loss_history.append(avg)
         rec = {
@@ -367,6 +482,13 @@ class Trainer:
                     epoch + 1, tc.num_epochs, avg, n_images / dt)
         return avg
 
+    def _preempted(self) -> bool:
+        """The SIGTERM flag, agreed over the ranks (JAX
+        ``_preempted_everywhere``): a rank that stopped alone would leave
+        the others waiting in the next step's all-reduce."""
+        flag = self._guard is not None and self._guard.preempted
+        return self.mesh.comm.any(flag) if self.mesh.degree > 1 else flag
+
     def _mid_eval(self, epoch: int) -> None:
         """Score the eval split (``TrainingConfig.eval_interval``), the EMA
         weights when there are some: the mAP joins the epoch's
@@ -374,15 +496,18 @@ class Trainer:
         a new finite best writes ``model_checkpoints/best.pt`` with the
         weights scored. Before the first finite best, a NaN does not
         count toward the early stop, so a run never stops without a best
-        checkpoint."""
+        checkpoint. Every rank scores its rows (``Evaluator``) and gets
+        the same metrics, so all take the same decisions."""
         if self._evaluator is None:
             from layoutdit_tpu_torch.eval.evaluator import Evaluator
 
-            self._evaluator = Evaluator(self.model, self.config, device=self.device)
-        saved = None
-        if self.ema_params is not None:
-            # the evaluator reads model.params at each score()
-            saved, self.model.params = self.model.params, self.ema_params
+            self._evaluator = Evaluator(self.model, self.config, device=self.device,
+                                        comm=self.mesh.comm)
+        # the evaluator reads model.params at each score(): the EMA when
+        # there is one; under FSDP a gathered copy
+        saved = self.model.params
+        scored = self.ema_params if self.ema_params is not None else self.model.params
+        self.model.params = self._full(scored)
         try:
             metrics = self._evaluator.score()
             m = float(metrics["mAP"]) if metrics else float("nan")
@@ -399,30 +524,30 @@ class Trainer:
             elif math.isfinite(self.best_map):
                 self._evals_since_best += 1
         finally:
-            if saved is not None:
-                self.model.params = saved
+            self.model.params = saved
 
     def train(self) -> None:
         tc = self.config.train
+        lead = self.mesh.lead
         profiler = None
-        if tc.enable_profile:  # the card's activity too on the card
+        if tc.enable_profile and lead:  # the card's activity too on the card
             from torch.profiler import ProfilerActivity, profile
 
             profiler = profile(activities=[ProfilerActivity.CPU] + (
                 [ProfilerActivity.CUDA] if self.device.type == "cuda" else []))
             profiler.start()
-        writer = AsyncCheckpointWriter() if tc.async_checkpoint else None
+        writer = AsyncCheckpointWriter() if tc.async_checkpoint and lead else None
         tb = None
-        if tc.tensorboard:
+        if tc.tensorboard and lead:
             from layoutdit_tpu_torch.utils.tensorboard import TensorBoardWriter
 
             tb = TensorBoardWriter(f"{self.config.artifact_dir}/tb")
         try:
-            with _PreemptionGuard() as guard:
+            with _PreemptionGuard() as guard, self.sharded():
                 self._guard = guard
                 for epoch in range(self.epoch, tc.num_epochs):
                     self._run_epoch(epoch)
-                    if self._partial_steps or guard.preempted:
+                    if self._partial_steps or self._preempted():
                         # cut mid-epoch: resume continues the epoch after its
                         # last step; a SIGTERM after the epoch's last step
                         # resumes at the next epoch. Synchronous: the grace
@@ -451,9 +576,11 @@ class Trainer:
                     self._save_metrics()
                     if (epoch + 1) % tc.checkpoint_interval == 0:
                         path = self.save_checkpoint(epoch + 1, writer=writer)
-                        logger.info("Saved checkpoint to %s%s", path,
-                                    " (async)" if writer is not None else "")
-                        prune_checkpoints(self.checkpoint_dir(), tc.keep_checkpoints, epoch + 1)
+                        if lead:
+                            logger.info("Saved checkpoint to %s%s", path,
+                                        " (async)" if writer is not None else "")
+                            prune_checkpoints(self.checkpoint_dir(), tc.keep_checkpoints,
+                                              epoch + 1)
                     self.epoch = epoch + 1
                     if stop_early:
                         logger.info("Early stop at epoch %d: no mAP improvement in %d evals "
@@ -482,9 +609,7 @@ class Trainer:
     def _save_traces(self) -> None:
         """Upload every file under ``trace_log_dir`` to
         ``{artifacts}/{run}/profiler/`` keeping its relative path (JAX
-        ``_save_traces``); the lead process only."""
-        if torch.distributed.is_initialized() and torch.distributed.get_rank() != 0:
-            return
+        ``_save_traces``); rank 0 traces and uploads."""
         root = self.config.train.trace_log_dir.rstrip("/")
         remote_root = f"{self.config.artifact_dir}/profiler"
         for dirpath, _, filenames in os.walk(root):
@@ -505,9 +630,12 @@ class Trainer:
         return checkpoint_file(self.config.artifact_dir, epoch, tag=tag)
 
     def _opt_state_for_checkpoint(self):
+        tx = self.opt_state
+        if self._rest is not None:
+            tx = {**tx, **{k: self._train_layout.gather(tx[k]) for k in ("mu", "nu")}}
         if self.ema_params is None:
-            return self.opt_state
-        return {"tx": self.opt_state, "ema": self.ema_params}
+            return tx
+        return {"tx": tx, "ema": self._full(self.ema_params)}
 
     def save_checkpoint(self, epoch: int, stem: str | None = None, tag: str | None = None,
                         extra: dict | None = None,
@@ -521,16 +649,21 @@ class Trainer:
         restarts the early-stop clock) and the resolved
         ``steps_per_dispatch``; ``extra`` adds entries (``best.pt``'s
         ``mAP``, a preemption's ``step_in_epoch``). With ``writer``, the
-        state is snapshot to the host here and written in the background."""
+        state is snapshot to the host here and written in the background.
+        Every rank calls it (under FSDP the shards are gathered first);
+        rank 0 writes the one-card file."""
         path = checkpoint_file(self.config.artifact_dir, epoch, stem, tag)
-        params = self.ema_params if stem == "best" and self.ema_params is not None \
-            else self.model.params
+        params = self._full(self.ema_params if stem == "best" and self.ema_params is not None
+                            else self.model.params)
+        opt_state = self._opt_state_for_checkpoint()
+        if not self.mesh.lead:
+            return path
         extra = self.checkpoint_extra(extra)
         if writer is not None:
-            writer.save(path, params, self._opt_state_for_checkpoint(), epoch, extra)
+            writer.save(path, params, opt_state, epoch, extra)
             return path
         return save_checkpoint(path, tree_map(lambda t: t.detach().cpu(), params),
-                               self._opt_state_for_checkpoint(), epoch, extra)
+                               opt_state, epoch, extra)
 
     def checkpoint_extra(self, extra: dict | None = None) -> dict:
         """The extras a checkpoint carries (see ``save_checkpoint``), with
@@ -652,8 +785,10 @@ class Trainer:
                     f" step {self._start_step}" if self._start_step else "")
 
     def _save_loss(self) -> None:
-        """The loss curve, ``{run}/loss_history/loss_curve.png``; without
-        matplotlib, a warning and no file."""
+        """The loss curve, ``{run}/loss_history/loss_curve.png`` (rank 0);
+        without matplotlib, a warning and no file."""
+        if not self.mesh.lead:
+            return
         try:
             import matplotlib
         except ImportError:
@@ -674,7 +809,9 @@ class Trainer:
         plt.close(fig)
 
     def _save_metrics(self) -> None:
-        """Rewrite ``metrics/metrics.jsonl`` (one record per epoch)."""
+        """Rewrite ``metrics/metrics.jsonl`` (one record per epoch; rank 0)."""
+        if not self.mesh.lead:
+            return
         path = f"{self.config.artifact_dir}/metrics/metrics.jsonl"
         with open_path(path, "w") as f:
             for rec in self.metrics_history:

@@ -40,7 +40,12 @@ from layoutdit_tpu_torch.export import export_detector
 from layoutdit_tpu_torch.models.model import build_model
 from layoutdit_tpu_torch.native import loader as native_loader
 from layoutdit_tpu_torch.tools.make_fixture import make_fixture, write_fixture_config
-from layoutdit_tpu_torch.tools.serve import DynamicBatcher, main as serve_main, make_server
+from layoutdit_tpu_torch.tools.serve import (
+    DynamicBatcher,
+    main as serve_main,
+    make_server,
+    serving_devices,
+)
 
 if os.environ.get("PYTEST_XDIST_WORKER"):
     torch.set_num_threads(1)
@@ -408,14 +413,79 @@ def test_export_dir_rejects_sizes_and_batch_flags(extra):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--int8", "--data-parallel", "2"], "queue 1 item 7"),
-    (["--data-parallel", "2"], "queue 1 item 7"),
-    (["--data-parallel", "-1"], "queue 1 item 7"),
     (["--model-parallel", "2"], "queue 1 item 7"),
 ])
 def test_refused_flags_name_their_queue_items(flags, item):
     with pytest.raises(SystemExit, match=item):
         serve_main(["--checkpoint", "/nonexistent.pt", "--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--int8", "--data-parallel", "2"],
+    ["--data-parallel", "2"],
+    ["--data-parallel", "-1"],
+])
+def test_data_parallel_serves_or_needs_the_cards(flags, tiny, monkeypatch):
+    """``--data-parallel`` (refused before the parallelism slice, naming
+    queue 1 item 7): N replicas on the CPU serve, through the server's
+    batches, the detections of one engine; on the card -1 takes every
+    card, more cards than exist raise, fewer warn."""
+    _, _, model, pages = tiny
+    dp = int(flags[flags.index("--data-parallel") + 1])
+    int8 = "--int8" in flags
+    if dp < 0:
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+        assert serving_devices(dp) == [torch.device("cuda", 0), torch.device("cuda", 1)]
+        assert serving_devices(1) == [torch.device("cuda", 0)]
+        with pytest.raises(SystemExit, match="only 2 available"):
+            serving_devices(3)
+        with pytest.raises(SystemExit, match="on the CPU give the number"):
+            serving_devices(dp, "cpu")
+        return
+    devices = serving_devices(dp, "cpu")
+    assert devices == [torch.device("cpu")] * dp
+    one = BatchInferenceEngine(model, image_sizes=(64,), batch_size=4, score_thresh=0.0,
+                               device="cpu", int8=int8)
+    want = one.predict_pages(pages * 2)
+    httpd, batcher = make_server(model, "127.0.0.1", 0, image_sizes=(64,), batch_size=4,
+                                 score_thresh=0.0, flush_ms=50.0, device="cpu", int8=int8,
+                                 devices=devices)
+    try:
+        engine = batcher.engine
+        assert engine.replica_batch == 2 and len(engine._replicas) == dp
+        got = engine.predict_pages(pages * 2)  # 8 pages: 4 chunks over 2 replicas
+        for g, w in zip(got, want, strict=True):
+            np.testing.assert_array_equal(g.labels, w.labels)
+            np.testing.assert_allclose(g.boxes, w.boxes, rtol=1e-5, atol=1e-4)
+            np.testing.assert_allclose(g.scores, w.scores, rtol=1e-5, atol=1e-6)
+        rec = _post(_serve(httpd), pages[0])
+        assert rec["labels"] == [int(x) for x in want[0].labels]
+        np.testing.assert_allclose(rec["boxes"], want[0].boxes, atol=0.005 + 1e-4)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        batcher.stop()
+
+
+def test_replica_threads_under_a_short_switch_interval(tiny):
+    """Eight CPU replicas, each dispatched from its own thread, under a
+    1 us switch interval: every page gets one engine's detections (the
+    replicas' threads share only the bucket configs, made under a lock)."""
+    _, _, model, pages = tiny
+    want = BatchInferenceEngine(model, image_sizes=(64,), batch_size=1, score_thresh=0.0,
+                                device="cpu").predict_pages(pages * 4)
+    engine = BatchInferenceEngine(model, image_sizes=(64,), batch_size=8, score_thresh=0.0,
+                                  devices=["cpu"] * 8)
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        got = engine.predict_pages(pages * 4)
+    finally:
+        sys.setswitchinterval(old)
+    assert len(engine._cfgs) == 1
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g.labels, w.labels)
+        np.testing.assert_array_equal(g.boxes, w.boxes)
 
 
 def test_serving_defaults_to_the_card(tiny, monkeypatch):
