@@ -134,7 +134,25 @@ NCCL trainer's steps in turns, two ranks sharing the card over gloo
 (``--parallel-child``; NCCL refuses two ranks on one GPU) for the DP and
 FSDP steps' gradients against one process's step, both peaks, and the
 DP eval against one process at the ranks' batch, and two serving
-replicas on the card against one engine. It
+replicas on the card against one engine. Last, phase
+``model_parallel`` (``--only model_parallel``): rows 3-5 with a valid-key
+count, and ``configs/train_tp_sp.json``'s tensor, sequence and expert
+parallelism, ring attention, the TP checkpoint and TP serving on two
+gloo ranks sharing the card (``--model-parallel-child``), against one
+process and a float32 control.
+
+The phases above are described one by one; they run in this order: the
+build, phases ``kernels``, ``kernels_bwd`` and ``probes``, and the timed
+kernel cases of phases ``encoder``, ``families`` and ``detr`` (phase
+``kernels_large``) alone on the card; then the recipes (phase
+``recipes`` and phase ``convergence``'s, ``--recipe-child``) and a
+second process (``--lane-child``: phases ``io``, ``families``,
+``one_stage``, ``detr``, ``finetune``, ``resnet`` and ``moe``, one after
+another) start, and the main process runs ``serving``, ``deploy``,
+``train``, ``train_state``, ``train_1024``, ``train_1024_relpos``,
+``encoder``, ``main`` and ``parallel`` beside them; ``model_parallel``
+runs last, alone. The times of the phases that overlap are taken with
+the others running beside them. It
 checks that every kernel ran on its path, the right number of times a
 train step, and the probes' kernels on none but theirs. One profiled request
 per serving bucket and one profiled 224 px train step print the
@@ -148,10 +166,12 @@ exits non-zero without a GPU.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
 import math
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -195,7 +215,7 @@ ENCODER_REL_TOL = 5e-2
 GRAD_REL_TOL = 5e-2
 # each serving request is timed this many times (host clock, one request
 # at a time); the spread between runs is printed beside the median
-REQUEST_REPEATS = 5
+REQUEST_REPEATS = 3
 SERVING_KERNELS = ("short_attention", "flash_attention", "roi_align")
 # the fused RoIAlign probes' kernels: launched on the probe path only
 PROBE_KERNELS = ("roi_fused_a", "roi_fused_a0", "roi_fused_e")
@@ -1107,43 +1127,37 @@ def _check_pages(pages, results, allow_empty: bool = False) -> int:
     return n_dets
 
 
-def _reference(on_card: bool):
-    """Where the float32 reference runs: on the CPU (the wrappers take
-    their plain versions there), or on the card with every attention
-    wrapper swapped for its plain version (``kernel_swap.swapped``, for an
-    encoder too wide for the CPU in the time) -> (device, context)."""
-    import contextlib
-
-    if not on_card:
-        return "cpu", contextlib.nullcontext()
+def _plain_attention():
+    """The float32 reference's context: every attention wrapper swapped for
+    its plain version on the card (``kernel_swap.swapped``). The CPU's
+    cores are shared with the processes that run beside the main one, and
+    an encoder at 1024 px would take them for tens of seconds."""
     from layoutdit_tpu_torch.tools.kernel_swap import swapped
 
-    return "cuda", swapped("plain_attention")
+    return swapped("plain_attention")
 
 
-def _encoder_reference(model, images: dict, on_card: bool = False) -> None:
+def _encoder_reference(model, images: dict) -> None:
     """Encoder taps of one page per bucket: bf16 with the kernels on the
-    card vs float32 plain versions, same weights (``_reference``)."""
+    card vs float32 plain versions, same weights (``_plain_attention``)."""
     from layoutdit_tpu_torch.models.detection.detector import _normalize
     from layoutdit_tpu_torch.models.vit import vit_forward
     from layoutdit_tpu_torch.models.weights_io import tree_map
 
     cfg = model.cfg
-    device, plain = _reference(on_card)
-    vit_ref = tree_map(lambda t: t.to(device, torch.float32), model.params["backbone"]["vit"])
+    vit_ref = tree_map(lambda t: t.float(), model.params["backbone"]["vit"])
     for size, img in images.items():
-        x = _normalize(img[None].float(), cfg)
+        x = _normalize(img[None].float(), cfg).cuda()
         with torch.inference_mode():
-            got = vit_forward(model.params["backbone"]["vit"], x.cuda().to(torch.bfloat16),
+            got = vit_forward(model.params["backbone"]["vit"], x.to(torch.bfloat16),
                               cfg.backbone.vit, cfg.backbone.taps, torch.bfloat16)
-            with plain:
-                want = vit_forward(vit_ref, x.to(device), cfg.backbone.vit, cfg.backbone.taps,
+            with _plain_attention():
+                want = vit_forward(vit_ref, x, cfg.backbone.vit, cfg.backbone.taps,
                                    torch.float32)
         for tap, gt, wt in zip(cfg.backbone.taps, got, want):
             rel = _rel_err(gt, wt)
             print(f"  encoder {size} px tap {tap}: relative error {rel:.4g} against float32 on "
-                  f"the {'card, plain attention' if on_card else 'CPU'} (tolerance "
-                  f"{ENCODER_REL_TOL})")
+                  f"the card, plain attention (tolerance {ENCODER_REL_TOL})")
             if not rel <= ENCODER_REL_TOL:
                 raise RuntimeError("encoder on the card disagrees with the float32 reference")
 
@@ -1153,11 +1167,10 @@ def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return ((got.float().to(want.device) - want).norm() / want.norm()).item()
 
 
-def _gradient_reference(backbone_params: dict, cfg, images: torch.Tensor,
-                        on_card: bool = False) -> dict:
+def _gradient_reference(backbone_params: dict, cfg, images: torch.Tensor) -> dict:
     """Encoder + FPN gradients under a fixed cotangent on the FPN outputs
     (no sampling involved): bf16 with the kernels on the card against
-    float32 plain versions (``_reference``), same weights, for the patch
+    float32 plain versions (``_plain_attention``), same weights, for the patch
     embedding, layer 1's qkv, the first global layer's qkv when windows
     are on (layer 1 is then windowed), the last layer's mlp_out, and the
     relative-position tables of the same layers where the encoder has
@@ -1194,11 +1207,10 @@ def _gradient_reference(backbone_params: dict, cfg, images: torch.Tensor,
             for h, w in cfg.grid_sizes]
     got = grads(tree_map(lambda t: t.detach().clone().requires_grad_(True), backbone_params),
                 x, torch.bfloat16, [t.cuda() for t in cots])
-    device, plain = _reference(on_card)
-    with plain:
-        want = grads(tree_map(lambda t: t.detach().to(device, torch.float32, copy=True)
+    with _plain_attention():
+        want = grads(tree_map(lambda t: t.detach().to(torch.float32, copy=True)
                               .requires_grad_(True), backbone_params),
-                     x.to(device), torch.float32, [t.to(device) for t in cots])
+                     x.cuda(), torch.float32, [t.cuda() for t in cots])
     out = {}
     for name, g, w in zip(names, got, want):
         rel = _rel_err(g, w)
@@ -1467,8 +1479,8 @@ def phase_train_1024_relpos(kernels: list[dict]) -> dict:
 # (remat off, "full" and "dots"), the repo's dit-large recipe as it is,
 # and dit-large serving; timed steps per arm after untimed ones
 ENCODER_WARMUP = 2
-ENCODER_STEPS = 10
-FSDP_STEPS = 5
+ENCODER_STEPS = 4
+FSDP_STEPS = 2
 REMAT_ARMS = (("off", False, "full"), ("full", True, "full"), ("dots", True, "dots"))
 # arms' gradients from one state: bit equality expected; a leaf that
 # differs is named and held to this relative Frobenius error
@@ -1479,7 +1491,7 @@ ARM_GRAD_RTOL = 1e-3
 # (eps 1e-12) scales its gradient by 1e6, so at dit-large's width and
 # depth the CLS path's gradients overflow in both packages
 EMBED_STD = 0.02
-LARGE_SERVING_ROUNDS = 3
+LARGE_SERVING_ROUNDS = 2
 
 
 def _encoder_kernels(gen, kernels: list[dict]) -> None:
@@ -1696,11 +1708,11 @@ def _large_window14_train(kernels: list[dict]) -> dict:
                               for st in ("backbone", "rpn", "backward")))
             if name == REMAT_ARMS[-1][0]:
                 print("  taps and gradients at one page against float32 plain versions on the "
-                      "card (kernel_swap's swap; the CPU would take minutes at this width)")
+                      "card (kernel_swap's swap)")
                 _encoder_reference(DetectorModel(trainer.params, arm_cfg),
-                                   {cfg.image_size: batch.images[0]}, on_card=True)
+                                   {cfg.image_size: batch.images[0]})
                 arm["gradient_rel_err"] = _gradient_reference(
-                    trainer.params["backbone"], arm_cfg, batch.images[:1], on_card=True)
+                    trainer.params["backbone"], arm_cfg, batch.images[:1])
             out["arms"][name] = arm
             trainer.dataloader.close()
             del trainer, params
@@ -1825,15 +1837,17 @@ def _large_serving(kernels: list[dict]) -> dict:
     return out
 
 
-def phase_encoder(gen, kernels: list[dict]) -> dict:
+def phase_encoder(gen, kernels: list[dict], with_kernels: bool = True) -> dict:
     """Encoder coverage: (a) the masked short kernels and rows 1-5 at
-    dit-large's shapes, (b) the window-14 dit-large config's three remat
-    arms, (c) ``fsdp_large.json``, (d) dit-large serving. The launches of
-    (b)-(d) are the ``encoder`` path's."""
+    dit-large's shapes (without ``with_kernels``, run before by
+    ``_encoder_kernels``), (b) the window-14 dit-large config's three
+    remat arms, (c) ``fsdp_large.json``, (d) dit-large serving. The
+    launches of (b)-(d) are the ``encoder`` path's."""
     t0 = time.perf_counter()
     for k in kernels:
         k["encoder_launches"] = k["encoder_masked_launches"] = 0
-    _encoder_kernels(gen, kernels)
+    if with_kernels:
+        _encoder_kernels(gen, kernels)
     out = {"train_1024_large_window14": _large_window14_train(kernels),
            "fsdp_large": _fsdp_large(kernels), "serving": _large_serving(kernels)}
     for name in ("short_attention", "short_attention_bwd"):
@@ -1852,9 +1866,9 @@ MAIN_KERNELS = ("short_attention", "short_attention_bwd", "roi_align", "roi_alig
 # the main phase's throughput windows: a split of this many pages (seed
 # 778) trained on for THROUGHPUT_EPOCHS epochs (the first not counted)
 # and scored THROUGHPUT_SCORES times, then once more under the profiler
-THROUGHPUT_PAGES = 256
-THROUGHPUT_EPOCHS = 4
-THROUGHPUT_SCORES = 3
+THROUGHPUT_PAGES = 128
+THROUGHPUT_EPOCHS = 3
+THROUGHPUT_SCORES = 2
 
 
 def _spread(values: list[float]) -> dict:
@@ -2107,7 +2121,7 @@ def phase_convergence(kernels: list[dict], card: str) -> dict:
     failures = convergence.floor_failures(result)
     if failures:
         raise RuntimeError(f"convergence: the recipe missed its floors: {failures}")
-    return {"card": card, **result}
+    return {"card": card, **result, "launches": counts}
 
 
 # train_state phase: the default config with the JAX trainer's run state
@@ -2124,7 +2138,7 @@ TRAIN_STATE_VAL_PAGES = 16
 TRAIN_STATE_PREEMPT = (2, 2)
 # steps timed at A = 1 and at A = 2 on one repeated batch (the first one
 # not timed); steps run per variant for the peak memory
-TRAIN_STATE_TIMED = 6
+TRAIN_STATE_TIMED = 3
 TRAIN_STATE_PEAK_STEPS = 2
 
 
@@ -2772,7 +2786,7 @@ DEPLOY_BUCKETS = (224, 1024)
 # exported against live detections on the same pages (labels equal)
 DEPLOY_BOX_TOL = 1e-2  # px, page coordinates
 DEPLOY_SCORE_TOL = 1e-3
-DEPLOY_ROUNDS = 4  # timed rounds of the three requests, live and exported (in round order)
+DEPLOY_ROUNDS = 2  # timed rounds of the three requests, live and exported (in round order)
 HTTP_PAGES = 16  # concurrent POSTs, both buckets, plus one corrupt page
 # per-call host cost of an operator against its direct launch: calls
 # queued behind the spin kernel, alternating, median of the rounds
@@ -3231,7 +3245,7 @@ CASCADE_CONFIG = ROOT / "configs" / "cascade_dp.json"
 MASK_CONFIG = ROOT / "configs" / "mask_rcnn.json"
 FAMILY_BATCH = 16  # train steps
 FAMILY_SERVING_BATCH = 4  # serving requests, as the serving phase's
-FAMILY_ROUNDS = 3  # timed rounds of the three requests
+FAMILY_ROUNDS = 2  # timed rounds of the three requests
 FAMILY_SCORE_PAGES = 64
 # RoIAlign launches a batch (forward) and a step (backward): one per
 # cascade stage; the box head's and the mask head's for a mask model; the
@@ -3582,18 +3596,21 @@ def _family_convergence(family: str, kernels: list[dict], path_key: str = "famil
                                                                        "launches": counts}
 
 
-def phase_families(gen, kernels: list[dict], card: str) -> dict:
+def phase_families(gen, kernels: list[dict], card: str,
+                   kernel_cases: dict | None = None) -> dict:
     """Cascade R-CNN (``configs/cascade_dp.json``: dit-large, three stages
     at IoU 0.5 / 0.6 / 0.7) and Mask R-CNN (``configs/mask_rcnn.json``:
     dit-base with the mask branch), both at 224 px, random weights from
     seed 0, bf16: rows 7-8 at these models' shapes; each model serving the
     serving phase's requests and training; the mask model scoring bbox and
     segm. The launches of all but the kernel checks are the ``families``
-    path's; both convergence recipes add theirs in phase ``recipes``."""
+    path's; both convergence recipes add theirs in phase ``recipes``.
+    ``kernel_cases``: ``_families_kernels``' result when it ran before."""
     t0 = time.perf_counter()
     for k in kernels:
         k["families_launches"] = 0
-    out = {"card": card, "kernels": _families_kernels(gen, kernels)}
+    out = {"card": card, "kernels": (_families_kernels(gen, kernels) if kernel_cases is None
+                                     else kernel_cases)}
     for family, path in (("cascade", CASCADE_CONFIG), ("mask", MASK_CONFIG)):
         serving, model = _family_serving(family, path, kernels)
         train, trainer = _family_train(family, path, model, kernels)
@@ -4081,21 +4098,23 @@ def _bucket_serving(family: str, model, kernels: list[dict], path_key: str, roi:
     return out, engines
 
 
-def phase_detr(gen, kernels: list[dict], card: str) -> dict:
+def phase_detr(gen, kernels: list[dict], card: str, kernel_cases: dict | None = None) -> dict:
     """DETR at full width (``configs/detr.json``), 224 px, random weights
     from seed 0, bf16: row M1 against its plain version at a step's
     shapes; serving both buckets; the 224 px bucket exported and held to
     the live engine; one epoch and TRAIN_REPEATS steps at batch 16,
     paper-exact and with shared matching, each with a traced step (the
     ``matcher`` range); ``score()`` of 64 pages. Launches: row M1 one a
-    train step and none in predict; rows 7-8 none."""
+    train step and none in predict; rows 7-8 none. ``kernel_cases``:
+    ``_detr_kernels``' result when it ran before."""
     from layoutdit_tpu_torch.models.detection.detector import DetectorModel, init_detector
     from layoutdit_tpu_torch.models.weights_io import tree_leaves
 
     t0 = time.perf_counter()
     for k in kernels:
         k["detr_launches"] = 0
-    out = {"card": card, "kernels": _detr_kernels(gen, kernels)}
+    out = {"card": card, "kernels": (_detr_kernels(gen, kernels) if kernel_cases is None
+                                     else kernel_cases)}
     _, cfg = _family_cfg(DETR_CONFIG, FAMILY_SERVING_BATCH)
     model = DetectorModel(init_detector(cfg, torch.Generator(device="cuda").manual_seed(0),
                                         device="cuda"), cfg)
@@ -4152,11 +4171,13 @@ def phase_detr_recipe(kernels: list[dict]) -> dict:
 
 
 # phase recipes: the families' recipes, each family's path and the kernels
-# it launches; each runs in its own process, all at once (``--recipe-child``)
+# it launches; each runs in its own process, all at once (``--recipe-child``).
+# "flagship" is phase convergence's recipe, "lora" phase lora_recipe's.
 FAMILY_RECIPES = {"cascade": ("families", MAIN_KERNELS), "mask": ("families", MAIN_KERNELS),
                   "retinanet": ("one_stage", ONE_STAGE_RECIPE_KERNELS),
                   "fcos": ("one_stage", ONE_STAGE_RECIPE_KERNELS),
-                  "lora": ("lora_recipe", MAIN_KERNELS)}
+                  "lora": ("lora_recipe", MAIN_KERNELS),
+                  "flagship": ("convergence", MAIN_KERNELS)}
 RECIPE_TIMEOUT_S = 600
 
 
@@ -4167,9 +4188,14 @@ def recipe_child(family: str, out_path: str) -> int:
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # one intra-op thread: six of these run beside two busy processes on
+    # the host's cores, and their host work is Python, not CPU kernels
+    torch.set_num_threads(1)
     path_key, launched = FAMILY_RECIPES[family]
     if family == "lora":
         result = phase_lora_recipe([])
+    elif family == "flagship":
+        result = phase_convergence([], "")
     else:
         result = _family_convergence(family, [], path_key, launched)
     with open(out_path, "w") as f:
@@ -4177,45 +4203,69 @@ def recipe_child(family: str, out_path: str) -> int:
     return 0
 
 
-def phase_recipes(kernels: list[dict], families: tuple[str, ...]) -> dict:
-    """The recipes of ``families`` (``tools/convergence.py --family``, bf16,
-    each held to its floors; "lora" is ``tools/lora_quality.py``,
-    ``phase_lora_recipe``), each in a fresh process, all at once on the
+def _start_recipes(families: tuple[str, ...]) -> tuple:
+    """Starts the recipes of ``families`` (``tools/convergence.py
+    --family``, bf16, each held to its floors; "lora" is
+    ``tools/lora_quality.py``, ``phase_lora_recipe``; "flagship" is
+    ``phase_convergence``), each in a fresh process, all at once on the
     card: they are small and host-bound, and one at a time they took most
-    of the script's time. Each adds its launches to its family's path. The
-    recipes' wall times are measured with the others running beside them."""
-    t0 = time.perf_counter()
-    out, procs = {}, {}
-    with tempfile.TemporaryDirectory() as tmp:
-        try:
-            for family in families:
-                log = open(Path(tmp) / f"{family}.log", "w")
-                procs[family] = (subprocess.Popen(
-                    [sys.executable, str(ROOT / "chip_smoke.py"), "--recipe-child", family,
-                     str(Path(tmp) / f"{family}.json")],
-                    stdout=log, stderr=subprocess.STDOUT), log)
-            for family, (proc, log) in procs.items():
-                rc = proc.wait(timeout=max(1.0, RECIPE_TIMEOUT_S - (time.perf_counter() - t0)))
-                log.close()
-                text = (Path(tmp) / f"{family}.log").read_text()
-                print("\n".join(line for line in text.splitlines() if line.startswith("  ")))
-                if rc != 0:
-                    raise RuntimeError(f"{family} recipe: exit code {rc}\n{text[-3000:]}")
-                with open(Path(tmp) / f"{family}.json") as f:
-                    out[family] = json.load(f)
-        finally:
-            for proc, log in procs.values():
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-                log.close()
+    of the script's time. ``_join_recipes`` waits for them."""
+    tmp = tempfile.mkdtemp(prefix="recipes")
+    procs = {}
+    try:
+        for family in families:
+            log = open(Path(tmp) / f"{family}.log", "w")
+            procs[family] = (subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--recipe-child", family,
+                 str(Path(tmp) / f"{family}.json")],
+                stdout=log, stderr=subprocess.STDOUT), log)
+    except BaseException:
+        _stop_recipes((tmp, procs, 0.0))
+        raise
+    return tmp, procs, time.perf_counter()
+
+
+def _stop_recipes(handle: tuple) -> None:
+    """Kills the recipe processes still running and removes their folder."""
+    tmp, procs, _ = handle
+    for proc, log in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _join_recipes(handle: tuple, kernels: list[dict]) -> dict:
+    """Waits for ``_start_recipes``' processes, prints their lines and adds
+    each one's launches to its family's path. The recipes' wall times are
+    measured with the others, and whatever else runs then, beside them."""
+    tmp, procs, t0 = handle
+    out = {}
+    try:
+        for family, (proc, log) in procs.items():
+            rc = proc.wait(timeout=max(1.0, RECIPE_TIMEOUT_S - (time.perf_counter() - t0)))
+            log.close()
+            text = (Path(tmp) / f"{family}.log").read_text()
+            print("\n".join(line for line in text.splitlines() if line.startswith("  ")))
+            if rc != 0:
+                raise RuntimeError(f"{family} recipe: exit code {rc}\n{text[-3000:]}")
+            with open(Path(tmp) / f"{family}.json") as f:
+                out[family] = json.load(f)
+    finally:
+        _stop_recipes(handle)
     for family, r in out.items():
         path_key = FAMILY_RECIPES[family][0]
         for k in kernels:
             k[f"{path_key}_launches"] = k.get(f"{path_key}_launches", 0) + r["launches"][k["name"]]
     out["phase_s"] = time.perf_counter() - t0
-    print(f"  recipes phase ({', '.join(families)} at once): {out['phase_s']:.1f} s")
+    print(f"  recipes ({', '.join(procs)} at once): {out['phase_s']:.1f} s from their start")
     return out
+
+
+def phase_recipes(kernels: list[dict], families: tuple[str, ...]) -> dict:
+    """The recipes of ``families`` at once (``_start_recipes``), waited for."""
+    return _join_recipes(_start_recipes(families), kernels)
 
 
 # phase finetune: a dit-base encoder warm-started from a converted
@@ -4762,12 +4812,12 @@ class _DropCounter:
     def __enter__(self):
         from layoutdit_tpu_torch.ops import moe
 
-        def counted(y, params, e, k, cf):
+        def counted(y, params, e, k, cf, **kw):
             c = moe.moe_capacity(y.shape[1], e, k, cf)
             with torch.no_grad():
                 kept = moe.route(y, params["router"]["weight"], e, k, c)[3]
             self.shares.append((~kept[0]).float().mean())  # read after the run
-            return self.orig(y, params, e, k, cf)
+            return self.orig(y, params, e, k, cf, **kw)
 
         self.vit_mod.moe_mlp = counted
         return self
@@ -4973,7 +5023,7 @@ PARALLEL_TIMEOUT_S = 300
 # kernels and round otherwise: max |got - ref| <= max |ref| / 64
 PARALLEL_GRAD_TOL = 1.0 / 64
 # timed steps of the plain and the one-card NCCL trainer, in turns
-PARALLEL_TIMED_STEPS = 6
+PARALLEL_TIMED_STEPS = 3
 
 
 def _parallel_fixture(tmp: str, **mesh) -> str:
@@ -5327,6 +5377,873 @@ def phase_parallel(kernels: list[dict], card: str) -> dict:
     return out
 
 
+# phase model_parallel: configs/train_tp_sp.json (dit-large, 1024 px,
+# global attention, N = 4097, model_parallel 2 with sequence parallelism)
+# over MP_PAGES make_fixture pages at batch MP_BATCH, on two gloo ranks
+# that share the card (--model-parallel-child); the one-process steps of
+# the same state are the reference, every gradient leaf within
+# PARALLEL_GRAD_TOL of max |ref|; the checked step is the one timed, the
+# first of its trainer (host-staged collectives: a record, not a speed)
+MP_CONFIG = ROOT / "configs" / "train_tp_sp.json"
+MP_BATCH = 2
+MP_PAGES = 4
+MP_TIMEOUT_S = 600
+# serving: the 224 and 1024 px buckets of configs/serving_1024.json, the
+# dit-large model, MP_SERVE_PAGES pages a bucket at batch MP_BATCH
+MP_SERVE_PAGES = 2
+# the rows 3-5 key-count cases: ring attention's block at dit-large 1024
+# px over two ranks (4098 padded tokens, 2049 a rank, rank 1's block 2048
+# valid keys), a smaller count, and the unmasked dit-large shape
+NKEYS_BLOCK = (2, 2049, 8)
+NKEYS_COUNTS = (2048, 1024)
+NKEYS_FULL = (4, 4097, 16)
+
+
+# the steps the phase holds: (config, image size, detector); the TP ranks
+# run "tp" + name, one process "one" + name, the float32 control "f32" +
+# name. Faster R-CNN (train_tp_sp as it is) is the main path, RetinaNet at
+# 224 px runs rows 1-2 under TP. The ranks' partial sums are float32,
+# rounded once after the group's sum, as one process's GEMM rounds its
+# accumulator once (parallel/tensor.py). Against one process's bf16 step
+# the gradients still miss max |ref| / 64 (PARALLEL_GRAD_TOL, reported):
+# bf16 through 24 layers puts each side's leaves a few % from float32,
+# each another way. So each leaf is held against the float32 control, as
+# close as one process's (MP_CONTROL_K), and every loss to one process's
+# (MP_LOSS_RTOL). Faster R-CNN's RoI losses pick proposals by near-tied
+# scores of a random model, which the last bits reorder: the ranks' and
+# the control's checked steps take one process's proposals
+# (_FixedProposals); the RPN's own are held through its losses and leaves.
+MP_STEPS = (("", 1024, "faster_rcnn"), ("224", 224, "retinanet"))
+MP_LOSS_RTOL = 1e-2
+# the control: one process in float32 on the card (_float32_plain). Each
+# leaf's relative Frobenius distance from it, the ranks' within
+# MP_CONTROL_K times one process's bf16 distance + MP_CONTROL_FLOOR (a
+# quarter of a bf16 ulp): a missing or doubled model-group sum moves a
+# leaf by 50-100%, bf16 by a few %
+MP_CONTROL_K = 2.0
+MP_CONTROL_FLOOR = 1e-3
+
+
+def _mp_configs(tmp: str) -> dict:
+    """The config files of the phase over ``tmp``'s pages: ``tp`` (the
+    train_tp_sp mesh and model, batch MP_BATCH, one epoch), ``one`` (the
+    same on one process), ``f32`` (one process in float32 with remat, the
+    control), and the ``MP_STEPS`` variants."""
+    from layoutdit_tpu_torch.tools.make_fixture import write_fixture_config
+
+    with open(write_fixture_config(tmp, split="samples", epochs=1, batch_size=MP_BATCH)) as f:
+        raw = json.load(f)
+    with open(MP_CONFIG) as f:
+        tp = json.load(f)
+    with open(CONFIG) as f:
+        budget = json.load(f)["detection_model_config"]["detection_budget"]
+    raw["detection_model_config"] = {**tp["detection_model_config"],
+                                     "detection_budget": budget}
+    raw["train_config"]["checkpoint_interval"] = 1
+    paths = {}
+    for (key, size, detector), (prefix, mesh) in ((s, m) for s in MP_STEPS for m in (
+            ("tp", tp["mesh_config"]), ("one", {}), ("f32", {}))):
+        name = prefix + key
+        cfg = json.loads(json.dumps(raw))
+        cfg["run_name"] = name
+        cfg["detection_model_config"].update(image_size=size, detector=detector)
+        if mesh:
+            cfg["mesh_config"] = mesh
+        if prefix == "f32":
+            cfg["precision"] = {"compute_dtype": "float32"}
+            cfg["detection_model_config"]["remat"] = True
+        paths[name] = f"{tmp}/{name}.json"
+        with open(paths[name], "w") as f:
+            json.dump(cfg, f)
+    return paths
+
+
+def _mp_pixels(seed: int = 11):
+    """The ring check's pages [2, 3, 1024, 1024] (normalized) and the
+    cotangents of dit-large's four taps, from a seeded CPU generator."""
+    gen = torch.Generator().manual_seed(seed)
+    pixels = torch.rand((MP_BATCH, 3, 1024, 1024), generator=gen) * 2 - 1
+    cots = [torch.randn((MP_BATCH, 4097, 1024), generator=gen) for _ in range(4)]
+    return pixels.cuda(), [c.cuda() for c in cots]
+
+
+def _encoder_taps_grads(vit_params: dict, cfg, tp=None, impl="auto",
+                        dtype: torch.dtype = torch.bfloat16):
+    """dit-large's taps on ``_mp_pixels`` (in ``dtype``; float32 with
+    remat, under ``_float32_plain``) and the gradients of sum tap x
+    cotangent w.r.t. every encoder leaf, in the one-card layout (``tp``:
+    the leaves are this rank's shards, gathered back)."""
+    from layoutdit_tpu_torch.models.vit import vit_forward
+    from layoutdit_tpu_torch.models.weights_io import tree_leaves, tree_map, tree_paths
+    from layoutdit_tpu_torch.parallel.sharding import TpLayout
+
+    # fresh leaves: a replicated leaf's shard is the leaf itself, whose
+    # gradient would otherwise add up over calls
+    tree = tree_map(lambda t: t.detach().clone(), {"backbone": {"vit": vit_params}})
+    layout = None
+    if tp is not None:
+        layout = TpLayout(tree_paths(tree), tp)
+        it = iter(layout.shard(tree_leaves(tree)))
+        tree = tree_map(lambda _: next(it), tree)
+    leaves = tree_leaves(tree)
+    for t in leaves:
+        t.requires_grad_(True)
+    pixels, cots = _mp_pixels()
+    taps = vit_forward(tree["backbone"]["vit"], pixels.to(dtype), cfg.backbone.vit,
+                       taps=cfg.backbone.taps, compute_dtype=dtype, tp=tp,
+                       attention_impl=impl, remat=dtype == torch.float32)
+    sum((t.float() * c).sum() for t, c in zip(taps, cots)).backward()
+    grads = [t.grad if t.grad is not None else torch.zeros_like(t) for t in leaves]
+    if layout is not None:
+        layout.reduce_partial(grads)
+        grads = layout.gather(grads)
+    torch.cuda.synchronize()
+    return [t.detach().float().cpu() for t in taps], [g.float().cpu() for g in grads]
+
+
+def _mp_pages(tmp: str) -> list[bytes]:
+    """MP_SERVE_PAGES pages a bucket: fixture JPEGs (routed to 1024) and
+    the same pages shrunk to 200 px (routed to 224)."""
+    import io
+
+    from PIL import Image
+
+    big = [p.read_bytes() for p in sorted(Path(tmp, "samples").glob("*.jpg"))][:MP_SERVE_PAGES]
+    small = []
+    for page in big:
+        with Image.open(io.BytesIO(page)) as im:
+            buf = io.BytesIO()
+            im.convert("RGB").resize((150, 200)).save(buf, format="JPEG")
+            small.append(buf.getvalue())
+    return small + big
+
+
+def _mp_engine(model, mesh=None):
+    from layoutdit_tpu_torch.eval.serving import BatchInferenceEngine
+
+    return BatchInferenceEngine(model, image_sizes=DEPLOY_BUCKETS, batch_size=MP_BATCH,
+                                score_thresh=0.0, mesh=mesh)
+
+
+def _serve(engine, pages: list[bytes]) -> list:
+    try:
+        return _detections(engine.predict_pages(pages))
+    finally:
+        engine.close()
+
+
+def _detections_err(got: list, want: list) -> tuple[float, float, int]:
+    """Detections ``got`` against ``want``, page by page -> (the worst
+    score, in score order, over max |want score|; the worst box against
+    the nearest box of its label in ``want`` (a random model's near-tied
+    boxes may swap places or lose their NMS tie), over max |want box|;
+    the pages whose counts differ)."""
+    score_err = box_err = 0.0
+    counts = 0
+    for g, w in zip(got, want, strict=True):
+        if len(g["scores"]) != len(w["scores"]):
+            counts += 1
+        n = min(len(g["scores"]), len(w["scores"]))
+        gs, ws = np.sort(g["scores"])[::-1][:n], np.sort(w["scores"])[::-1][:n]
+        ref = max(float(np.abs(ws).max(initial=0.0)), 1e-30)
+        score_err = max(score_err, float(np.abs(gs - ws).max(initial=0.0)) / ref)
+        wb, gb = np.asarray(w["boxes"]).reshape(-1, 4), np.asarray(g["boxes"]).reshape(-1, 4)
+        wl, gl = np.asarray(w["labels"]), np.asarray(g["labels"])
+        scale = max(float(np.abs(wb).max(initial=0.0)), 1e-30)
+        for box, label in zip(gb, gl):
+            cand = wb[wl == label]
+            box_err = max(box_err, float(np.abs(cand - box).max(1).min()) / scale
+                          if len(cand) else 1.0)
+    return score_err, box_err, counts
+
+
+def _detections(results) -> list:
+    return [{"boxes": r.boxes.tolist(), "scores": r.scores.tolist(), "labels": r.labels.tolist()}
+            for r in results]
+
+
+@contextlib.contextmanager
+def _float32_plain():
+    """One process's float32 control on the card: every attention and
+    RoIAlign wrapper swapped for its plain version (``kernel_swap``), TF32
+    off for matmuls and convolutions."""
+    from layoutdit_tpu_torch.tools.kernel_swap import swapped
+
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        with swapped("plain_attention"), swapped("plain_roi"):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+class _FixedProposals:
+    """While installed, the detector's proposals are saved to ``path``
+    (``replay=False``) or taken from it in place of its own: the TP ranks'
+    checked step takes one process's. ``same`` says whether the ranks' own
+    proposals were those bits."""
+
+    def __init__(self, path: str, replay: bool):
+        self.path, self.replay, self.same = path, replay, None
+
+    def __enter__(self):
+        from layoutdit_tpu_torch.models.detection import detector as det
+
+        self.det, self.orig = det, det.filter_proposals
+
+        def fixed(*args, **kw):
+            props = self.orig(*args, **kw)
+            if not self.replay:
+                torch.save([t.cpu() for t in props], self.path)
+                return props
+            saved = [t.to(props.boxes.device) for t in torch.load(self.path)]
+            self.same = all(torch.equal(a, b) for a, b in zip(props, saved, strict=True))
+            return type(props)(*saved)
+
+        det.filter_proposals = fixed
+        return self
+
+    def __exit__(self, *exc):
+        self.det.filter_proposals = self.orig
+        return False
+
+
+def model_parallel_child(rank: str, port: str, cfg_dir: str, out_path: str) -> int:
+    """Phase ``model_parallel``'s rank ``rank`` of a 1 x 2 mesh on the one
+    card, over gloo: ring attention on dit-large's encoder, the TP + SP
+    step at 1024 and at 224 px (rank 0 writes the gathered gradients),
+    the TP checkpoint, then TP serving of both buckets (rank 0 serves,
+    rank 1 follows); results and launches to ``out_path``."""
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from layoutdit_tpu_torch.config import MeshConfig, load_run_config
+    from layoutdit_tpu_torch.models.model import build_model
+    from layoutdit_tpu_torch.models.weights_io import tree_leaves
+    from layoutdit_tpu_torch.parallel.mesh import build_mesh_for_batch, maybe_distributed_init
+    from layoutdit_tpu_torch.train.trainer import Trainer
+
+    rank = int(rank)
+    if not maybe_distributed_init(MeshConfig(
+            enable_distributed_init=True, coordinator_address=f"127.0.0.1:{port}",
+            num_processes=2, process_id=rank), device="cuda:0", backend="gloo"):
+        raise RuntimeError("model_parallel child: no process group started")
+    rc = load_run_config(f"{cfg_dir}/tp.json")
+    out = {}
+    _reset_counts()
+    # ring attention over the two ranks, every encoder leaf's gradient
+    model = build_model(rc, seed=rc.train.seed, device="cuda")
+    mesh = build_mesh_for_batch(rc.mesh, MP_BATCH)
+    if mesh.model is None or mesh.model.size != 2 or not mesh.model.sequence_parallel:
+        raise RuntimeError(f"model_parallel child: mesh {mesh}")
+    t0 = time.perf_counter()
+    taps, grads = _encoder_taps_grads(model.params["backbone"]["vit"], model.cfg, mesh.model,
+                                      "ring")
+    out["ring_s"] = time.perf_counter() - t0
+    if rank == 0:
+        torch.save({"taps": taps, "grads": grads}, f"{out_path}.ring.pt")
+    # the encoder under TP + SP (Megatron: 8 local heads on the gathered
+    # sequence), the same pages and cotangents
+    t0 = time.perf_counter()
+    taps, grads = _encoder_taps_grads(model.params["backbone"]["vit"], model.cfg, mesh.model)
+    out["encoder_s"] = time.perf_counter() - t0
+    if rank == 0:
+        torch.save({"taps": taps, "grads": grads}, f"{out_path}.encoder.pt")
+    del model, taps, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the TP + SP steps at 1024 and 224 px
+    for key in (k for k, _, _ in MP_STEPS):
+        cfg_name = "tp" + key
+        key = f"{key}_" if key else ""
+        run = load_run_config(f"{cfg_dir}/{cfg_name}.json")
+        trainer = Trainer(run, build_model(run, seed=run.train.seed, device="cuda"))
+        if trainer.tp is None:
+            raise RuntimeError("model_parallel child: the trainer has no model group")
+        state = [*trainer._leaves, *trainer.opt_state["mu"], *trainer.opt_state["nu"]]
+        out[f"{key}rest_gib"] = sum(t.numel() * t.element_size() for t in state) / 2**30
+        batch = next(iter(trainer.dataloader))
+        with _FixedProposals(f"{cfg_dir}/props{key}.pt", replay=True) as fixed:
+            loss, comps, grads, peak, ms = _mp_step(trainer, batch)
+        out[f"{key}own_proposals_same"] = fixed.same
+        grads = trainer._train_tp.gather(grads)
+        out.update({f"{key}loss": loss, f"{key}losses": comps, f"{key}peak_gib": peak,
+                    f"{key}step_ms": ms})
+        if rank == 0:
+            torch.save([g.float().cpu() for g in grads], f"{out_path}.{cfg_name}.pt")
+        if not key:  # the TP checkpoint (one-card layout, rank 0 writes)
+            path = trainer.save_checkpoint(1, stem="tp")
+            full = trainer._opt_state_for_checkpoint()
+            state = [t.detach().cpu() for t in [*tree_leaves(trainer._one_card(trainer.params)),
+                                                *full["mu"], *full["nu"]]]
+            if rank == 0:
+                torch.save({"path": path, "state": state}, f"{out_path}.ckpt.pt")
+            del full, state
+        trainer.dataloader.close()
+        del trainer, grads, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    # TP serving: rank 0 runs the pipeline, rank 1 its shards' part
+    model = build_model(rc, seed=rc.train.seed, device="cuda")
+    engine = _mp_engine(model, mesh)
+    del model
+    if rank == 0:
+        pages = _mp_pages(cfg_dir)
+        t0 = time.perf_counter()
+        results = engine.predict_pages(pages)
+        out["serve_s"] = time.perf_counter() - t0
+        engine.close()
+        out["detections"] = _detections(results)
+    else:
+        engine.serve_follower()
+    torch.cuda.synchronize()
+    out["launches"] = _counts()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _mp_leaves(label: str, got: list, want: list, f32: list, failed: list,
+               paths: list | None = None) -> dict:
+    """The ranks' leaves ``got`` against one process's ``want`` (both bf16
+    on the card) and both against the float32 control ``f32``, leaf by
+    leaf: max |got - want| / max |want| against the 1/64 rule
+    (``PARALLEL_GRAD_TOL``), reported; and each leaf's relative Frobenius
+    distance from the control, the ranks' within MP_CONTROL_K times one
+    process's plus MP_CONTROL_FLOOR, held (a leaf that misses is added
+    to ``failed``; ``paths`` name the leaves). -> the readings."""
+    paths = paths or [str(i) for i in range(len(got))]
+    worst = over = 0
+    ratio, ratio_at, tp_all, one_all, ref_all = 0.0, -1, 0.0, 0.0, 0.0
+    for i, (g, w, r) in enumerate(zip(got, want, f32, strict=True)):
+        g, w, r = g.float(), w.float(), r.float()
+        m = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        worst, over = max(worst, m), over + (m > PARALLEL_GRAD_TOL)
+        ref = max(float(r.norm()), 1e-30)
+        tp, one = float((g - r).norm()) / ref, float((w - r).norm()) / ref
+        tp_all, one_all = tp_all + float((g - r).norm()) ** 2, one_all + float((w - r).norm()) ** 2
+        ref_all += float(r.norm()) ** 2
+        if tp / max(one, MP_CONTROL_FLOOR) > ratio:
+            ratio, ratio_at = tp / max(one, MP_CONTROL_FLOOR), i
+        if tp > MP_CONTROL_K * one + MP_CONTROL_FLOOR:
+            failed.append(f"{label} leaf {paths[i]} {tuple(w.shape)}: {tp:.3e} from float32, "
+                          f"one process {one:.3e}")
+    tp_all, one_all = (tp_all / ref_all) ** 0.5, (one_all / ref_all) ** 0.5
+    print(f"  {label}: against one process, worst leaf max err / max |ref| {worst:.3e}, "
+          f"{over} of {len(got)} leaves over 1/64; against float32 (relative Frobenius) all "
+          f"leaves {tp_all:.3e} (one process {one_all:.3e}), the worst leaf's ratio to one "
+          f"process's {ratio:.3f} ({paths[ratio_at]}; held to {MP_CONTROL_K} x one process's "
+          f"+ {MP_CONTROL_FLOOR})")
+    return {"max_ratio": worst, "over_1_64": over, "leaves": len(got), "f32_all": tp_all,
+            "one_f32_all": one_all, "worst_control_ratio": ratio,
+            "worst_control_leaf": paths[ratio_at]}
+
+
+def _mp_step(trainer, batch):
+    """``_step_grads`` with the step's losses and time -> (loss, {name:
+    loss}, gradients, peak GiB, ms: host clock around the step to a
+    synchronize, its gradients' copy included)."""
+    seen = {}
+    update = trainer.optimizer.update
+
+    def spy(state, params, grads, **kw):
+        seen["grads"] = [g.clone() for g in grads]
+        return update(state, params, grads, **kw)
+
+    trainer.optimizer.update = spy
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, losses = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    trainer.optimizer.update = update
+    return float(loss), {k: float(v) for k, v in losses.items()}, seen["grads"], peak, ms
+
+
+def _mp_worst(label, got, want, paths, k=5) -> None:
+    """Print the ``k`` leaves farthest from ``want`` (max err / max |ref|,
+    relative Frobenius beside)."""
+    rows = []
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        g, w = g.float(), w.float()
+        fro = float((g - w).norm() / max(float(w.norm()), 1e-30))
+        mx = float((g - w).abs().max() / max(float(w.abs().max()), 1e-30))
+        rows.append((mx, fro, i))
+    for mx, fro, i in sorted(rows, reverse=True)[:k]:
+        print(f"  {label} leaf {paths[i]} {tuple(want[i].shape)}: max err / max |ref| "
+              f"{mx:.3e}, relative Frobenius {fro:.3e}, max |ref| "
+              f"{float(want[i].abs().max()):.3e}")
+
+
+def _nkeys_case(gen, b: int, n: int, h: int, nk: int, d: int = 64) -> dict:
+    """Rows 3-5 with a valid-key count ``nk`` at [B, N, H, D]: each against
+    its plain version (masked keys' dk and dv exactly 0), timed beside
+    SDPA with the equivalent boolean attn_mask (forward, and its backward
+    for the pair); the bounds count the valid keys' work."""
+    from layoutdit_tpu_torch.ops import flash_attention as fa
+    from layoutdit_tpu_torch.ops import short_attention as sa
+
+    scale = 1.0 / math.sqrt(d)
+    q, k, v = _qkv(gen, b, n, h, d)
+    do = torch.randn(b, n, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+    label = f"flash n_keys={nk} B={b} N={n} H={h}"
+    o, lse = fa.flash_attention_fwd(q, k, v, None, scale, nk)
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, None, scale, nk)
+    err, tol = _check_close(label, o, o_ref)
+    lse_err = (lse - lse_ref).abs().max().item()
+    if not lse_err <= 1e-2:
+        raise RuntimeError(f"{label}: lse {lse_err} from its plain version")
+    dqkv = torch.empty(b, n, 3 * h * d, dtype=torch.bfloat16, device="cuda")
+    dq, dk, dv = sa.split_qkv(dqkv, h)
+    fa.flash_attention_bwd(q, k, v, o, lse, do, None, scale, out=(dq, dk, dv), n_keys=nk)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, None, scale, nk)
+    errs = {name: _check_close(f"{label} {name}", g, w)
+            for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
+    if bool(dk[:, nk:].any()) or bool(dv[:, nk:].any()):
+        raise RuntimeError(f"{label}: masked keys with a nonzero dk or dv")
+    del want, o_ref, lse_ref
+    delta = torch.empty(b * h, n, dtype=torch.float32, device="cuda")
+    row, kv_row, vec = b * n * h * d * 2, b * nk * h * d * 2, b * h * n * 4
+    flops = 2 * b * h * n * nk * d
+    bounds = {"fwd": _bound_ms(2 * row + 2 * kv_row + vec, 2 * flops),
+              "dq": _bound_ms(4 * row + 2 * kv_row + 2 * vec, 3 * flops),
+              "dkdv": _bound_ms(4 * row + 2 * kv_row + 2 * vec, 4 * flops)}
+    ms = {"fwd": _time_ms(lambda: fa.flash_attention_fwd(q, k, v, None, scale, nk),
+                          FLASH_FWD_ITERS),
+          "dq": _time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do, None, scale, dq,
+                                                           delta, nk), FLASH_BWD_ITERS),
+          "dkdv": _time_ms(lambda: fa.flash_attention_bwd_dkdv(q, k, v, lse, do, delta, None,
+                                                               scale, dk, dv, nk),
+                           FLASH_BWD_ITERS)}
+    plain = {"fwd": _time_ms(lambda: fa.flash_attention_plain(q, k, v, None, scale, nk), 2),
+             "bwd": _time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do, None,
+                                                                  scale, nk), 2)}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = (torch.arange(n, device="cuda") < nk).expand(n, n)[None, None]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    library_fwd = _time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask), FLASH_FWD_ITERS)
+    ot = sdpa(qt, kt, vt, attn_mask=mask)
+    dot = do.transpose(1, 2)
+    library_bwd = _time_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True),
+                           FLASH_BWD_ITERS)
+    for part in ("fwd", "dq", "dkdv"):
+        _print_share(f"{label} {part}", ms[part], *bounds[part])
+    out = {"shape": f"B={b} N={n} H={h} D={d} bf16, n_keys={nk}",
+           "max_abs_err": {"o": err, "dq": errs["dq"][0], "dkdv": max(errs["dk"][0],
+                                                                      errs["dv"][0])},
+           "tolerance": tol, "lse_max_abs_err": lse_err,
+           "plain_ms": plain, "library_fwd_ms": library_fwd, "library_bwd_ms": library_bwd}
+    for part in ("fwd", "dq", "dkdv"):
+        out.update({f"{part}_ms": ms[part], f"{part}_bound_ms": bounds[part][0],
+                    f"{part}_bound_by": bounds[part][1]})
+    del qt, kt, vt, ot
+    torch.cuda.empty_cache()
+    return out
+
+
+def _nkeys_full(gen) -> dict:
+    """At dit-large's 1024 px shape, ``n_keys == N`` against the kernels
+    called without it: the same bits (o, lse, dq, dk, dv), both timed."""
+    from layoutdit_tpu_torch.ops import flash_attention as fa
+
+    b, n, h = NKEYS_FULL
+    scale = 1.0 / 8.0
+    q, k, v = _qkv(gen, b, n, h, 64)
+    do = torch.randn(b, n, h, 64, generator=gen, device="cuda").to(torch.bfloat16)
+    o, lse = fa.flash_attention_fwd(q, k, v, None, scale)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, None, scale, n)
+    g1 = fa.flash_attention_bwd(q, k, v, o, lse, do, None, scale)
+    g2 = fa.flash_attention_bwd(q, k, v, o, lse, do, None, scale, n_keys=n)
+    same = (torch.equal(o, o2) and torch.equal(lse, lse2)
+            and all(torch.equal(a, c) for a, c in zip(g1[:3], g2[:3])))
+    if not same:
+        raise RuntimeError("flash n_keys == N: not the bits of the call without it")
+    delta = torch.empty(b * h, n, dtype=torch.float32, device="cuda")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    times = {}
+    for key, nk in (("without", -1), ("with", n)):
+        times[key] = {
+            "fwd": _time_ms(lambda nk=nk: fa._fwd_cuda(q, k, v, None, scale, nk),
+                            FLASH_FWD_ITERS),
+            "dq": _time_ms(lambda nk=nk: fa.flash_attention_bwd_dq(
+                q, k, v, o, lse, do, None, scale, dq, delta, nk), FLASH_BWD_ITERS),
+            "dkdv": _time_ms(lambda nk=nk: fa.flash_attention_bwd_dkdv(
+                q, k, v, lse, do, delta, None, scale, dk, dv, nk), FLASH_BWD_ITERS)}
+    print(f"  flash n_keys == N at B={b} N={n} H={h}: the same bits as without it; ms "
+          f"{times}")
+    del q, k, v, o, lse, o2, lse2, g1, g2
+    torch.cuda.empty_cache()
+    return {"shape": f"B={b} N={n} H={h} D=64 bf16", "same_bits": True, "ms": times}
+
+
+def phase_model_parallel(kernels: list[dict], card: str, gen) -> dict:
+    """Tensor, sequence and expert parallelism and ring attention through
+    the port's entry points, ``configs/train_tp_sp.json`` at full width
+    (dit-large, 24 layers, 1024 px, N = 4097, 8 local heads a rank):
+
+      * rows 3-5 with a valid-key count, alone: ring attention's block
+        (B=2 N=2049 H=8 at 2048 valid keys) and a smaller count against
+        their plain versions, timed beside SDPA with the boolean mask;
+        ``n_keys == N`` at B=4 N=4097 H=16 the bits of the call without it;
+      * two gloo ranks sharing the card (``--model-parallel-child``):
+        dit-large's encoder with ``attention_impl="ring"`` forward and
+        backward against one process's flash path; the TP + SP
+        ``Trainer`` step at 1024 and at 224 px against one process's from
+        the same state (the 1024 px Faster R-CNN step on one process's
+        proposals), step ms and each rank's peak GiB beside one
+        process's; the TP checkpoint restored in one process to the same
+        bits; TP serving of the 224 and 1024 px buckets against one
+        engine (the same detection counts). Taps, every gradient leaf,
+        scores and boxes: against one process's, max |ref| / 64
+        reported; against one process in float32 with the plain versions
+        (the control, ``_float32_plain``), held as close as one
+        process's bf16 (``MP_CONTROL_K``); every loss to one process's.
+
+    Every comparison runs and prints before the phase raises on those
+    that missed.
+
+    The launches of the two ranks are the phase's; the comparisons'
+    (the key-count cases, the one-process references) are not."""
+    from layoutdit_tpu_torch.config import load_run_config
+    from layoutdit_tpu_torch.models.model import build_model
+    from layoutdit_tpu_torch.models.weights_io import tree_leaves, tree_paths
+    from layoutdit_tpu_torch.parallel.mesh import DataMesh, free_port
+    from layoutdit_tpu_torch.tools.make_fixture import make_fixture
+    from layoutdit_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    b, n, h = NKEYS_BLOCK
+    nkeys = {nk: _nkeys_case(gen, b, n, h, nk) for nk in NKEYS_COUNTS}
+    full = _nkeys_full(gen)
+    for name, part in (("flash_attention", "fwd"), ("flash_attention_bwd_dq", "dq"),
+                       ("flash_attention_bwd_dkdv", "dkdv")):
+        e = _entry(kernels, name) if kernels else {}
+        for nk, r in nkeys.items():
+            e.update({f"nkeys{nk}_shape": r["shape"], f"nkeys{nk}_ms": r[f"{part}_ms"],
+                      f"nkeys{nk}_bound_ms": r[f"{part}_bound_ms"],
+                      f"nkeys{nk}_bound_by": r[f"{part}_bound_by"],
+                      f"nkeys{nk}_max_abs_err": r["max_abs_err"]["o" if part == "fwd" else part],
+                      f"nkeys{nk}_plain_ms": r["plain_ms"]["fwd" if part == "fwd" else "bwd"],
+                      f"nkeys{nk}_library_ms": r["library_fwd_ms" if part == "fwd"
+                                                 else "library_bwd_ms"]})
+        e.update({"nkeys_full_same_bits": True, "nkeys_full_ms": full["ms"]["with"][part],
+                  "nkeys_full_without_ms": full["ms"]["without"][part]})
+    out["nkeys"] = {str(k): v for k, v in nkeys.items()}
+    out["nkeys_full"] = full
+
+    with tempfile.TemporaryDirectory() as tmp:
+        make_fixture(tmp, n_images=MP_PAGES, split="samples", seed=0)
+        cfgs = _mp_configs(tmp)
+        refs = {}
+        # one process: the MP_STEPS steps from the seed's state
+        for key, _, _ in MP_STEPS:
+            name = "one" + key
+            rc = load_run_config(cfgs[name])
+            trainer = Trainer(rc, build_model(rc, seed=rc.train.seed, device="cuda"),
+                              mesh=DataMesh())
+            batch = next(iter(trainer.dataloader))
+            rk = f"{key}_" if key else ""
+            with _FixedProposals(f"{tmp}/props{rk}.pt", replay=False):
+                loss, comps, grads, peak, ms = _mp_step(trainer, batch)
+            refs[name] = {"loss": loss, "losses": comps, "grads": [g.float().cpu() for g in grads],
+                          "paths": [p for p, t in zip(tree_paths(trainer.params), trainer._leaves)
+                                    if t.requires_grad],
+                          "peak_gib": peak, "step_ms": ms}
+            trainer.dataloader.close()
+            del trainer, batch, grads
+            gc.collect()
+            torch.cuda.empty_cache()
+        # the control: the same steps on one process in float32, every
+        # kernel swapped for its plain version, on the same proposals
+        t0 = time.perf_counter()
+        with _float32_plain():
+            for key, _, _ in MP_STEPS:
+                rc = load_run_config(cfgs["f32" + key])
+                trainer = Trainer(rc, build_model(rc, seed=rc.train.seed, device="cuda"),
+                                  mesh=DataMesh())
+                batch = next(iter(trainer.dataloader))
+                rk = f"{key}_" if key else ""
+                with _FixedProposals(f"{tmp}/props{rk}.pt", replay=True):
+                    _, comps, grads, _, _ = _mp_step(trainer, batch)
+                refs["one" + key].update(f32_losses=comps,
+                                         f32_grads=[g.float().cpu() for g in grads])
+                trainer.dataloader.close()
+                del trainer, batch, grads
+                gc.collect()
+                torch.cuda.empty_cache()
+        # one process: the encoder's flash path on the ring check's pages,
+        # and its float32 control
+        rc = load_run_config(cfgs["one"])
+        model = build_model(rc, seed=rc.train.seed, device="cuda")
+        vit = model.params["backbone"]["vit"]
+        vit_paths = tree_paths({"backbone": {"vit": vit}})
+        ring_taps, ring_grads = _encoder_taps_grads(vit, model.cfg)
+        with _float32_plain():
+            f32_taps, f32_grads = _encoder_taps_grads(vit, model.cfg, dtype=torch.float32)
+        # one engine on the serving pages, and its float32 control
+        pages = _mp_pages(tmp)
+        want = _serve(_mp_engine(model), pages)
+        del model
+        with _float32_plain():
+            rc = load_run_config(cfgs["f32"])
+            want32 = _serve(_mp_engine(build_model(rc, seed=rc.train.seed, device="cuda")), pages)
+        out["control_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the two ranks
+        _reset_counts()
+        port = free_port()
+        procs = []
+        t0 = time.perf_counter()
+        try:
+            for rank in range(2):
+                log = open(Path(tmp) / f"mp{rank}.log", "w")
+                procs.append((subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"), "--model-parallel-child",
+                     str(rank), str(port), tmp, f"{tmp}/mp{rank}.json"],
+                    stdout=log, stderr=subprocess.STDOUT), log))
+            for rank, (proc, log) in enumerate(procs):
+                code = proc.wait(timeout=MP_TIMEOUT_S)
+                log.close()
+                if code != 0:
+                    text = (Path(tmp) / f"mp{rank}.log").read_text()
+                    raise RuntimeError(f"model_parallel rank {rank}: exit code {code}\n"
+                                       f"{text[-4000:]}")
+        finally:
+            for proc, log in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+        out["ranks_s"] = time.perf_counter() - t0
+        ranks = []
+        launched = dict.fromkeys(_counts(), 0)
+        for rank in range(2):
+            with open(f"{tmp}/mp{rank}.json") as f:
+                ranks.append(json.load(f))
+            for name, c in ranks[-1]["launches"].items():
+                launched[name] += c
+
+        # every comparison below runs and prints before the phase raises
+        # on the ones that missed
+        failed = []
+
+        # the encoder against one process's flash path and the float32
+        # control (_mp_leaves): ring attention rounds each block's output
+        # to bf16 before the merge, TP + SP sums float32 partials
+        for kind, label in (("ring", "ring attention"), ("encoder", "TP + SP encoder")):
+            res = torch.load(f"{tmp}/mp0.json.{kind}.pt")
+            out[f"{kind}_taps"] = _mp_leaves(f"{label} taps", res["taps"], ring_taps, f32_taps,
+                                             failed)
+            out[f"{kind}_grads"] = _mp_leaves(f"{label} gradient", res["grads"], ring_grads,
+                                              f32_grads, failed, vit_paths)
+            print(f"  {label} (2 ranks, 4097 tokens as 2049 + 2048, dit-large) against one "
+                  f"process's flash path ({ranks[0][kind + '_s']:.3f} s a rank, host-staged)")
+        del res, ring_taps, ring_grads, f32_taps, f32_grads
+        for key, size, detector in MP_STEPS:
+            name, r = "tp" + key, refs["one" + key]
+            rk = f"{key}_" if key else ""
+            grads = torch.load(f"{tmp}/mp0.json.{name}.pt")
+            loss, comps = ranks[0][f"{rk}loss"], ranks[0][f"{rk}losses"]
+            _mp_worst(f"TP + SP {name}", grads, r["grads"], r["paths"])
+            err = _mp_leaves(f"TP + SP {name} gradient ({len(grads)} leaves)", grads,
+                             r["grads"], r["f32_grads"], failed, r["paths"])
+            for k, v in comps.items():
+                if not abs(v - r["losses"][k]) <= MP_LOSS_RTOL * abs(r["losses"][k]) + 1e-6:
+                    failed.append(f"{name} {k} {v} against one process's {r['losses'][k]}")
+            own = ranks[0].get(f"{rk}own_proposals_same")
+            props = ("" if own is None else "the ranks' own proposals "
+                     + ("the same bits as" if own else "differ from")
+                     + " one process's (its taken); ")
+            out[f"{name}_step"] = {
+                "size": size, "detector": detector, "loss": loss, "ref_loss": r["loss"],
+                "losses": comps, "ref_losses": r["losses"], "grad_err": err,
+                "own_proposals_same": own,
+                "step_ms": [x[f"{rk}step_ms"] for x in ranks], "ref_step_ms": r["step_ms"],
+                "peak_gib": [x[f"{rk}peak_gib"] for x in ranks], "ref_peak_gib": r["peak_gib"],
+                "rest_gib": [x[f"{rk}rest_gib"] for x in ranks]}
+            print(f"  TP + SP step {name} ({detector}, {size} px, 1 x 2, batch {MP_BATCH}): "
+                  f"losses {comps} (one process {r['losses']}); {props}peak "
+                  f"{ranks[0][f'{rk}peak_gib']:.3f} / {ranks[1][f'{rk}peak_gib']:.3f} "
+                  f"GiB (ranks 0 / 1; one process {r['peak_gib']:.3f}), state at rest "
+                  f"{ranks[0][f'{rk}rest_gib']:.3f} GiB a rank, the checked (first) step "
+                  f"{ranks[0][f'{rk}step_ms']:.3f} ms (one process {r['step_ms']:.3f}; gloo "
+                  "through the host, no speed number)")
+        del refs
+
+        # the TP checkpoint, restored in one process
+        ckpt = torch.load(f"{tmp}/mp0.json.ckpt.pt")
+        rc = load_run_config(cfgs["one"])
+        one = Trainer(rc, build_model(rc, seed=rc.train.seed + 1, device="cuda"),
+                      mesh=DataMesh())
+        one.resume(ckpt["path"])
+        state = [*tree_leaves(one.params), *one.opt_state["mu"], *one.opt_state["nu"]]
+        same = all(torch.equal(a.cpu(), b_) for a, b_ in zip(state, ckpt["state"], strict=True))
+        if not same:
+            failed.append("the TP checkpoint restored in one process differs from the ranks' "
+                          "gathered state")
+        one.dataloader.close()
+        del one, state, ckpt
+        gc.collect()
+        torch.cuda.empty_cache()
+        print("  TP checkpoint (one-card layout, rank 0 wrote) restored in one process: "
+              + ("the same bits as the ranks' gathered parameters and moments" if same
+                 else "differs"))
+
+        # TP serving against one engine: the same detection counts; every
+        # detection's score and box against the float32 control as close
+        # as one engine's (MP_CONTROL_K, MP_CONTROL_FLOOR), and against one
+        # engine, reported beside the 1/64 rule
+        got = ranks[0]["detections"]
+        tp_one = _detections_err(got, want)
+        tp_f32, one_f32 = _detections_err(got, want32), _detections_err(want, want32)
+        if tp_one[2]:
+            failed.append(f"TP serving: {tp_one[2]} pages whose detection count differs from "
+                          "one engine's")
+        for i, what in enumerate(("scores", "boxes")):
+            if tp_f32[i] > MP_CONTROL_K * one_f32[i] + MP_CONTROL_FLOOR:
+                failed.append(f"TP serving {what} {tp_f32[i]:.3e} of max |ref| from float32, "
+                              f"one engine {one_f32[i]:.3e}")
+        print(f"  TP serving (224 and 1024 px buckets, {len(got)} pages, batch {MP_BATCH}): "
+              f"detection counts {'equal to' if not tp_one[2] else 'not'} one engine's; every "
+              f"detection against one engine: scores {tp_one[0]:.3e}, boxes (to their label's "
+              f"nearest) {tp_one[1]:.3e} of max |ref| (the 1/64 rule "
+              f"{'met' if max(tp_one[:2]) <= BF16_REL_TOL else 'missed'}); against float32: "
+              f"scores {tp_f32[0]:.3e} and boxes {tp_f32[1]:.3e}, one engine's {one_f32[0]:.3e} "
+              f"and {one_f32[1]:.3e} ({ranks[0]['serve_s']:.3f} s)")
+        out["serving"] = {"tp_one": tp_one, "tp_f32": tp_f32, "one_f32": one_f32}
+        if failed:
+            raise RuntimeError("model_parallel:\n  " + "\n  ".join(failed))
+        out.update(ranks=[{k: v for k, v in r.items() if k not in ("detections", "launches")}
+                          for r in ranks])
+    print(f"  model_parallel launches: {launched}")
+    for name in ("short_attention", "short_attention_bwd", "flash_attention",
+                 "flash_attention_bwd_dq", "flash_attention_bwd_dkdv", "roi_align",
+                 "roi_align_bwd"):
+        if launched[name] <= 0:
+            raise RuntimeError(f"model_parallel: {name} was not launched")
+    for name in ("flash_attention_bwd_dbias", *PROBE_KERNELS, "linear_sum_assignment"):
+        if launched[name]:
+            raise RuntimeError(f"model_parallel: {name} launched {launched[name]} times")
+    for k in kernels:
+        k["model_parallel_launches"] = launched[k["name"]]
+    out["launches"] = launched
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  model_parallel phase: {out['phase_s']:.1f} s")
+    return out
+
+
+# the phases that run in a second process (``--lane-child``), one after
+# another, beside the main process's serving to parallel and the recipes,
+# once the kernels' timed cases are done: each builds its own models and
+# checks from a seed, and one after another in the main process they took a
+# third of the script's time. Their host and device times are measured with
+# the other processes running beside them.
+LANE_PHASES = ("io", "families", "one_stage", "detr", "finetune", "resnet", "moe")
+LANE_TIMEOUT_S = 900
+
+
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def lane_child(names_path: str, out_path: str) -> int:
+    """The second process: LANE_PHASES over kernel entries named as in
+    ``names_path``; their results and the entries' launches to
+    ``out_path``."""
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)  # it shares the host's cores, as recipe_child does
+    with open(names_path) as f:
+        kernels = [{"name": name} for name in json.load(f)]
+    card = _card()
+    runners = {"io": lambda: phase_io(kernels, card),
+               "families": lambda: phase_families(None, kernels, card, kernel_cases={}),
+               "one_stage": lambda: phase_one_stage(kernels, card),
+               "detr": lambda: phase_detr(None, kernels, card, kernel_cases={}),
+               "finetune": lambda: phase_finetune(kernels, card),
+               "resnet": lambda: phase_resnet(kernels, card),
+               "moe": lambda: phase_moe(kernels, card)}
+    results = {}
+    for name in LANE_PHASES:
+        print(f"phase {name} (second process)", flush=True)
+        t0 = time.perf_counter()
+        results[name] = runners[name]()
+        torch.cuda.empty_cache()
+        print(f"  [{name}: {time.perf_counter() - t0:.1f} s]", flush=True)
+    with open(out_path, "w") as f:
+        json.dump({"results": results, "kernels": kernels}, f)
+    return 0
+
+
+def _start_lane(kernels: list[dict]) -> tuple:
+    """Starts ``lane_child``; ``_join_lane`` waits for it."""
+    tmp = tempfile.mkdtemp(prefix="lane")
+    with open(f"{tmp}/names.json", "w") as f:
+        json.dump([k["name"] for k in kernels], f)
+    out, err = open(f"{tmp}/lane.log", "w"), open(f"{tmp}/lane.err", "w")
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--lane-child",
+                             f"{tmp}/names.json", f"{tmp}/lane.json"], stdout=out, stderr=err)
+    return tmp, proc, (out, err), time.perf_counter()
+
+
+def _stop_lane(handle: tuple) -> None:
+    """Kills the second process if it still runs and removes its folder."""
+    tmp, proc, logs, _ = handle
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    for log in logs:
+        log.close()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _join_lane(handle: tuple, kernels: list[dict]) -> dict:
+    """Waits for the second process, prints its lines (its log lines to
+    stderr), adds its launches to ``kernels``' entries and returns its
+    phases' results by name."""
+    tmp, proc, logs, t0 = handle
+    try:
+        rc = proc.wait(timeout=max(1.0, LANE_TIMEOUT_S - (time.perf_counter() - t0)))
+        for log in logs:
+            log.close()
+        text, err = Path(f"{tmp}/lane.log").read_text(), Path(f"{tmp}/lane.err").read_text()
+        print(text, end="", flush=True)
+        sys.stderr.write(err)
+        if rc != 0:
+            raise RuntimeError(f"the second process: exit code {rc}\n{text[-3000:]}\n"
+                               f"{err[-3000:]}")
+        with open(f"{tmp}/lane.json") as f:
+            data = json.load(f)
+    finally:
+        _stop_lane(handle)
+    lane = {k["name"]: k for k in data["kernels"]}
+    for k in kernels:
+        for key, v in lane[k["name"]].items():
+            if key.endswith("_launches"):
+                k[key] = k.get(key, 0) + v
+            elif key != "name":
+                k[key] = v
+    print(f"  second process ({', '.join(LANE_PHASES)}): {time.perf_counter() - t0:.1f} s "
+          "from its start")
+    return data["results"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU")
@@ -5334,17 +6251,14 @@ def main() -> int:
             p.is_file() for p in (CONFIG, TRAIN_1024_CONFIG, RELPOS_CONFIG, LARGE_CONFIG,
                                   FSDP_LARGE_CONFIG, CASCADE_CONFIG, MASK_CONFIG,
                                   RETINANET_CONFIG, FCOS_CONFIG, DETR_CONFIG, LORA_CONFIG,
-                                  MOE_CONFIG))):
+                                  MOE_CONFIG, MP_CONFIG))):
         raise SystemExit("chip_smoke: run it from a checkout of the repository")
     sys.path.insert(0, str(ROOT))
     from layoutdit_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    card = _card()
     print(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
 
@@ -5381,11 +6295,20 @@ def main() -> int:
                    "resnet": lambda: phase_resnet([], card),
                    "lora_recipe": lambda: phase_lora_recipe([]),
                    "moe": lambda: phase_moe([], card),
-                   "parallel": lambda: phase_parallel([], card)}
+                   "parallel": lambda: phase_parallel([], card),
+                   "model_parallel": lambda: phase_model_parallel([], card, gen)}
         for name in only:
             print(f"phase {name}")
             print(json.dumps({name: runners[name]()}))
         return 0
+    t_start = time.perf_counter()
+
+    def mark(name: str, t0: float) -> None:
+        now = time.perf_counter()
+        print(f"  [{name}: {now - t0:.1f} s, {now - t_start:.1f} s since the kernels]",
+              flush=True)
+
+    t0 = time.perf_counter()
     print("phase kernels")
     kernels = [phase_short(gen), phase_flash(gen), phase_roi(gen)]
     torch.cuda.empty_cache()
@@ -5396,83 +6319,69 @@ def main() -> int:
     print("phase probes")
     kernels += phase_probes(gen, kernels)
     torch.cuda.empty_cache()
-
-    print("phase serving")
-    serving = phase_serving(kernels)
+    # the timed kernel cases of phases encoder, families and detr, here,
+    # before any other process shares the card
+    print("phase kernels_large")
+    _encoder_kernels(gen, kernels)
+    families_cases = _families_kernels(gen, kernels)
+    detr_cases = _detr_kernels(gen, kernels)
     torch.cuda.empty_cache()
+    mark("kernels", t0)
 
-    print("phase deploy")
-    deploy = phase_deploy(kernels, gen)
-    torch.cuda.empty_cache()
-
-    print("phase train")
-    train = phase_train(kernels)
-    torch.cuda.empty_cache()
-
-    print("phase train_state")
-    train_state = phase_train_state(kernels, card)
-    torch.cuda.empty_cache()
-
-    print("phase io")
-    io = phase_io(kernels, card)
-    torch.cuda.empty_cache()
-
-    print("phase train_1024")
-    train_1024 = phase_train_1024(kernels)
-    torch.cuda.empty_cache()
-
-    print("phase train_1024_relpos")
-    train_1024_relpos = phase_train_1024_relpos(kernels)
-    torch.cuda.empty_cache()
-
-    print("phase encoder")
-    encoder = phase_encoder(gen, kernels)
-    torch.cuda.empty_cache()
-
-    print("phase main")
-    main_run = phase_main(kernels, card)
-    torch.cuda.empty_cache()
-
-    print("phase convergence")
-    conv = phase_convergence(kernels, card)
-    torch.cuda.empty_cache()
-
-    print("phase families")
-    families = phase_families(gen, kernels, card)
-    torch.cuda.empty_cache()
-
-    print("phase one_stage")
-    one_stage = phase_one_stage(kernels, card)
-    torch.cuda.empty_cache()
-
-    print("phase recipes")
-    recipes = phase_recipes(kernels, tuple(FAMILY_RECIPES))
+    # beside the main process from here to phase parallel: the recipes
+    # (phases recipes and convergence) and the second process's phases
+    recipes_run = _start_recipes(tuple(FAMILY_RECIPES))
+    lane_run = None
+    try:
+        lane_run = _start_lane(kernels)
+        main_phases = (
+            ("serving", lambda: phase_serving(kernels)),
+            ("deploy", lambda: phase_deploy(kernels, gen)),
+            ("train", lambda: phase_train(kernels)),
+            ("train_state", lambda: phase_train_state(kernels, card)),
+            ("train_1024", lambda: phase_train_1024(kernels)),
+            ("train_1024_relpos", lambda: phase_train_1024_relpos(kernels)),
+            ("encoder", lambda: phase_encoder(gen, kernels, with_kernels=False)),
+            ("main", lambda: phase_main(kernels, card)),
+            ("parallel", lambda: phase_parallel(kernels, card)))
+        res = {}
+        for name, run in main_phases:
+            print(f"phase {name}")
+            t0 = time.perf_counter()
+            res[name] = run()
+            torch.cuda.empty_cache()
+            mark(name, t0)
+        t0 = time.perf_counter()
+        lane = _join_lane(lane_run, kernels)
+        lane_run = None
+        print("phase recipes")
+        recipes = _join_recipes(recipes_run, kernels)
+        recipes_run = None
+        mark("waiting for the other processes", t0)
+    finally:
+        if lane_run is not None:
+            _stop_lane(lane_run)
+        if recipes_run is not None:
+            _stop_recipes(recipes_run)
+    serving, deploy, train, train_state = (res[k] for k in ("serving", "deploy", "train",
+                                                           "train_state"))
+    train_1024, train_1024_relpos, encoder, main_run, parallel = (
+        res[k] for k in ("train_1024", "train_1024_relpos", "encoder", "main", "parallel"))
+    io, families, one_stage, detr, finetune, resnet, moe = (lane[k] for k in LANE_PHASES)
+    families["kernels"], detr["kernels"] = families_cases, detr_cases
+    conv = {**recipes.pop("flagship"), "card": card}
     for family in ("cascade", "mask", "retinanet", "fcos"):
         (families if family in ("cascade", "mask") else one_stage)[family]["convergence"] = (
             recipes[family])
     torch.cuda.empty_cache()
 
-    print("phase detr")
-    detr = phase_detr(gen, kernels, card)
-    torch.cuda.empty_cache()
-
-    print("phase finetune")
-    finetune = phase_finetune(kernels, card)
-    torch.cuda.empty_cache()
-
-    print("phase resnet")
-    resnet = phase_resnet(kernels, card)
-    torch.cuda.empty_cache()
-
-    print("phase moe")
-    moe = phase_moe(kernels, card)
-    torch.cuda.empty_cache()
-
-    print("phase parallel")
-    parallel = phase_parallel(kernels, card)
+    print("phase model_parallel")
+    t0 = time.perf_counter()
+    model_parallel = phase_model_parallel(kernels, card, gen)
+    mark("model_parallel", t0)
     paths = ("probe", "serving", "deploy", "train", "train_state", "io", "train_1024",
              "train_1024_relpos", "encoder", "main", "convergence", "families", "one_stage",
-             "detr", "finetune", "resnet", "lora_recipe", "moe", "parallel")
+             "detr", "finetune", "resnet", "lora_recipe", "moe", "parallel", "model_parallel")
     for k in kernels:
         k["launches"] = sum(k[f"{path}_launches"] for path in paths)
         if k["launches"] <= 0:
@@ -5496,6 +6405,7 @@ def main() -> int:
     print(json.dumps({"resnet": resnet}))
     print(json.dumps({"moe": moe}))
     print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"model_parallel": model_parallel}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({
@@ -5513,4 +6423,8 @@ if __name__ == "__main__":
         sys.exit(recipe_child(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--parallel-child"]:
         sys.exit(parallel_child(*sys.argv[2:6]))
+    if sys.argv[1:2] == ["--model-parallel-child"]:
+        sys.exit(model_parallel_child(*sys.argv[2:6]))
+    if sys.argv[1:2] == ["--lane-child"]:
+        sys.exit(lane_child(*sys.argv[2:4]))
     sys.exit(main())

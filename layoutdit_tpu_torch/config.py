@@ -215,8 +215,12 @@ class TrainingConfig:
     # trace_log_dir and uploaded to {artifacts}/{run}/profiler/
     enable_profile: bool = False
     trace_log_dir: str = "./log/traces"
+    # where main's trainer runs (resolve_device): "auto" keeps the entry
+    # point's device (--device), "cpu", or "gpu" / "cuda"
+    device: str = "auto"
 
     def __post_init__(self):
+        _check_device(self.device, "train_config")
         if self.lr_schedule not in ("step", "cosine"):
             raise ValueError(f"lr_schedule must be 'step' or 'cosine', got {self.lr_schedule!r}")
         if self.adam_mu_dtype not in ("float32", "bfloat16"):
@@ -243,6 +247,11 @@ class EvalConfig:
     # a mask model also pastes its masks and reports the 12 segm metrics
     # as segm_mAP, segm_AP50, ... beside the bbox ones
     segm_metrics: bool = True
+    # where main's final evaluation runs, as train_config.device
+    device: str = "auto"
+
+    def __post_init__(self):
+        _check_device(self.device, "eval_config")
 
 
 # Fields of the JAX schema the port reads but does not act on yet: each
@@ -250,20 +259,42 @@ class EvalConfig:
 # at its default loads; one that sets it otherwise is refused, naming the
 # work it waits for, rather than silently trained without it.
 _WAITING = {
-    "train_config": {
-        "device": ("auto", "the port runs on the CUDA card (no device field)"),
-    },
-    "eval_config": {
-        "device": ("auto", "the port runs on the CUDA card (no device field)"),
-    },
-    # model parallelism: the second half of ROADMAP queue 1 item 7
+    # pipeline stages and the hybrid DCN mesh: ROADMAP queue 1 item 7(b)
     "mesh_config": {
-        k: (v, "model parallelism (ROADMAP queue 1 item 7); the port runs data parallel "
-               "(data_parallel, fsdp) only")
-        for k, v in (("model_parallel", 1), ("pipeline_parallel", 1),
-                     ("sequence_parallel", False), ("dcn_data_parallel", 1))
+        k: (v, "pipeline and multi-slice parallelism (ROADMAP queue 1 item 7); the port runs "
+               "data, tensor, sequence and expert parallelism")
+        for k, v in (("pipeline_parallel", 1), ("dcn_data_parallel", 1))
     },
 }
+
+def _check_device(name: str, where: str) -> None:
+    if name not in DEVICES:
+        raise ValueError(f"{where}.device={name!r}: the port runs on {DEVICES} (a TPU is not "
+                         "this port's device)")
+
+
+# train_config.device / eval_config.device (JAX resolve_device): "auto"
+# keeps the entry point's device, "cpu" runs the plain path on the CPU,
+# "gpu" / "cuda" the card; a TPU is not this machine's
+DEVICES = ("auto", "cpu", "gpu", "cuda")
+
+
+def resolve_device(name: str, default: str = "cuda") -> str:
+    """The torch device of a config's ``device`` field: ``default`` (the
+    entry point's) for "auto", "cpu", and "cuda" for "gpu" or "cuda",
+    which raises when no card is present (no fallback to the CPU)."""
+    if name == "auto":
+        return default
+    if name == "cpu":
+        return "cpu"
+    if name in ("gpu", "cuda"):
+        import torch
+
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device={name!r}: no CUDA device is available")
+        return "cuda"
+    raise ValueError(f"device={name!r}: the port runs on 'cpu' or a CUDA card ('gpu', "
+                     f"'cuda'), or 'auto'")
 
 
 def _tupled(v: Any) -> Any:
@@ -314,17 +345,21 @@ def load_config(path: str) -> tuple[ModelConfig, DataLoaderConfig]:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """The data-parallel fields of ``constructs.py::MeshConfig``, same
-    defaults (``parallel/mesh.py`` acts on them): ``data_parallel`` ranks,
-    one process per card (-1: every process started, clamped to divide
-    the batch); ``fsdp`` shards each large parameter and its AdamW
-    moments over them at rest (``parallel/sharding.py``); the
-    multi-process start (``enable_distributed_init``, the coordinator
-    fields, the two timeouts). ``axis_names`` and
-    ``pipeline_microbatches`` are carried as JAX has them and read by no
-    one (there is no model axis and no pipeline)."""
+    """The fields of ``constructs.py::MeshConfig`` the port acts on, same
+    defaults (``parallel/mesh.py``): ``data_parallel`` ranks (-1: every
+    process started over ``model_parallel``, clamped to divide the
+    batch); ``model_parallel`` ranks a model group (tensor and expert
+    parallelism, ``parallel/tensor.py``), with ``sequence_parallel`` the
+    encoder's tokens sharded over them too; ``fsdp`` shards each large
+    parameter and its AdamW moments over the data ranks at rest
+    (``parallel/sharding.py``); the multi-process start
+    (``enable_distributed_init``, the coordinator fields, the two
+    timeouts). ``axis_names`` and ``pipeline_microbatches`` are carried as
+    JAX has them and read by no one (there is no pipeline yet)."""
 
     data_parallel: int = -1
+    model_parallel: int = 1
+    sequence_parallel: bool = False
     fsdp: bool = False
     axis_names: tuple[str, str] = ("data", "model")
     pipeline_microbatches: int = 4
@@ -334,6 +369,10 @@ class MeshConfig:
     process_id: Optional[int] = None
     heartbeat_timeout_s: Optional[int] = None
     shutdown_timeout_s: Optional[int] = None
+
+    def __post_init__(self):
+        if self.model_parallel < 1:
+            raise ValueError(f"mesh_config.model_parallel must be >= 1, got {self.model_parallel}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -380,11 +419,10 @@ class RunConfig:
 
 
 def mesh_config_from_dict(mesh: dict) -> MeshConfig:
-    """A ``MeshConfig`` from a ``mesh_config`` section. Data parallelism,
-    FSDP and the multi-process start load; a model-parallel axis
-    (``model_parallel``, ``pipeline_parallel``, ``sequence_parallel``,
-    ``dcn_data_parallel`` off their one-device values) raises, naming
-    ROADMAP queue 1 item 7."""
+    """A ``MeshConfig`` from a ``mesh_config`` section. Data, tensor and
+    sequence parallelism, FSDP and the multi-process start load;
+    ``pipeline_parallel`` and ``dcn_data_parallel`` off their one-device
+    values raise, naming ROADMAP queue 1 item 7."""
     return _build(MeshConfig, mesh, "mesh_config", _WAITING["mesh_config"])
 
 
@@ -408,9 +446,8 @@ def run_config_from_dict(raw: dict) -> RunConfig:
     return RunConfig(
         model=mc,
         data=_build(DataLoaderConfig, raw.get("data_loader_config", {}), "data_loader_config"),
-        train=_build(TrainingConfig, raw.get("train_config", {}), "train_config",
-                     _WAITING["train_config"]),
-        eval=_build(EvalConfig, ev, "eval_config", _WAITING["eval_config"]),
+        train=_build(TrainingConfig, raw.get("train_config", {}), "train_config"),
+        eval=_build(EvalConfig, ev, "eval_config"),
         compute_dtype=precision.get("compute_dtype", "bfloat16"),
         param_dtype=precision.get("param_dtype", "float32"),
         run_name=raw.get("run_name", "test"),

@@ -20,7 +20,10 @@
 // in fp32 registers, each written once: no atomics, so every output is the
 // same bits from run to run. The ragged edge is masked in the kernels, with
 // no padded copies: keys past N get P = 0 (the TPU kernels' finite -1e30
-// score), and query rows past N read as zeros and are never stored.
+// score), and query rows past N read as zeros and are never stored. The
+// forward, dq and dkdv kernels take a valid-key count nk <= N (ring
+// attention's last block holds the sequence's padding): keys at index >= nk
+// join that mask, so their dK and dV are 0; nk == N is the unmasked path.
 
 #include <type_traits>
 
@@ -181,7 +184,7 @@ template <bool kBias>
 __global__ void __launch_bounds__(kBlockThreads, 1) flash_fwd_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const float* __restrict__ bias,
-    bf16* __restrict__ o, float* __restrict__ lse, int B, int H, int N, Strides os,
+    bf16* __restrict__ o, float* __restrict__ lse, int B, int H, int N, int nk, Strides os,
     float scale) {
   using Ring = FwdRing<kBias>;
   constexpr int kSt = Ring::kDepth;
@@ -276,12 +279,12 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_fwd_kernel(
             }
           }
         }
-        if (kv0 + kKeys > N) {  // the last tile: keys past N (a branch of its own)
+        if (kv0 + kKeys > nk) {  // the tiles past the valid keys nk <= N (a branch of its own)
 #pragma unroll
           for (int j = 0; j < kJ; ++j)
 #pragma unroll
             for (int e = 0; e < 4; ++e)
-              if (kv0 + j * 8 + 2 * quad + (e & 1) >= N) sc[j][e] = kNegInf;
+              if (kv0 + j * 8 + 2 * quad + (e & 1) >= nk) sc[j][e] = kNegInf;
         }
         float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
@@ -463,7 +466,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dq_kernel(
     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
     const bf16* __restrict__ o, const bf16* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ bias, float* __restrict__ delta, bf16* __restrict__ dq, int B,
-    int H, int N, Strides os, Strides dos, Strides dqs, float scale) {
+    int H, int N, int nk, Strides os, Strides dos, Strides dqs, float scale) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages], once;
   uint8_t* sm = align1024(smem_raw);
@@ -568,7 +571,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dq_kernel(
           const int col = j * 8 + 2 * quad + (e & 1);
           float x = sc[j][e] * scale2;
           if (kBias) x += (e < 2 ? br.r0 : br.r1)[boff + col] * kLog2e;
-          sc[j][e] = kv0 + col < N ? exp2f(x - (e < 2 ? lse0 : lse1)) : 0.f;
+          sc[j][e] = kv0 + col < nk ? exp2f(x - (e < 2 ? lse0 : lse1)) : 0.f;
         }
       }
       // dS = P o (dP - delta)
@@ -602,7 +605,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dkdv_kernel(
     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const float* __restrict__ bias, bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int H,
-    int N, Strides dks, Strides dvs, float scale) {
+    int N, int nk, Strides dks, Strides dvs, float scale) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages], once;
   uint8_t* sm = align1024(smem_raw);
@@ -752,7 +755,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dkdv_kernel(
           const int key = e < 2 ? key0 : key1;
           float x = st[j][e] * scale2;
           if (kBias) x += bs[e & 1][qi * kDkdvBiasLd + (e < 2 ? 0 : 8)] * kLog2e;
-          st[j][e] = (q0 + qi < N && key < N) ? exp2f(x - ls[j][e & 1]) : 0.f;
+          st[j][e] = (q0 + qi < N && key < nk) ? exp2f(x - ls[j][e & 1]) : 0.f;
         }
       }
       uint32_t pa[4][4], da[4][4];
@@ -1140,11 +1143,13 @@ const char* kernel_error_string(int code) {
 // strides[0..8] (three each, in that order; last dim contiguous, 16-byte
 // aligned base and strides: they are read by TMA); o: bf16 [B, N, H, D]
 // with strides[9..11]; bias: fp32 [H, N, N] contiguous or null; lse: fp32
-// [B*H, N], written. Returns a cudaError_t code.
+// [B*H, N], written; keys at index >= nk (1 <= nk <= N) are masked.
+// Returns a cudaError_t code.
 int flash_attention_fwd(const void* q, const void* k, const void* v, const void* bias,
-                        void* o, void* lse, int B, int N, int H, int D,
+                        void* o, void* lse, int B, int N, int H, int D, int nk,
                         const long long* strides, float scale, void* stream) {
-  if (B < 1 || H < 1 || N < 1 || D != 64) return static_cast<int>(cudaErrorInvalidValue);
+  if (B < 1 || H < 1 || N < 1 || D != 64 || nk < 1 || nk > N)
+    return static_cast<int>(cudaErrorInvalidValue);
   const DeviceOf device(q);
   if (device.error() != cudaSuccess) return static_cast<int>(device.error());
   Strides s[4];
@@ -1167,7 +1172,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, const void*
   const int blocks = min(B * H * ((N + kBlockRows - 1) / kBlockRows), sms);
   kernel<<<blocks, kBlockThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], static_cast<const float*>(bias), static_cast<bf16*>(o),
-      static_cast<float*>(lse), B, H, N, s[3], scale);
+      static_cast<float*>(lse), B, H, N, nk, s[3], scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1176,12 +1181,14 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, const void*
 // dim contiguous, 16-byte aligned base and strides: q, k, v and dout are
 // read by TMA); dq: bf16 [B, N, H, D] with strides[15..17]; lse: fp32
 // [B*H, N] from the forward; bias: fp32 [H, N, N] contiguous or null; delta:
-// fp32 [B*H, N], written. Returns a cudaError_t code.
+// fp32 [B*H, N], written; keys at index >= nk masked, as the forward's.
+// Returns a cudaError_t code.
 int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                            const void* dout, const void* lse, const void* bias, void* delta,
-                           void* dq, int B, int N, int H, int D, const long long* strides,
-                           float scale, void* stream) {
-  if (B < 1 || H < 1 || N < 1 || D != 64) return static_cast<int>(cudaErrorInvalidValue);
+                           void* dq, int B, int N, int H, int D, int nk,
+                           const long long* strides, float scale, void* stream) {
+  if (B < 1 || H < 1 || N < 1 || D != 64 || nk < 1 || nk > N)
+    return static_cast<int>(cudaErrorInvalidValue);
   const DeviceOf device(q);
   if (device.error() != cudaSuccess) return static_cast<int>(device.error());
   Strides s[6];
@@ -1201,7 +1208,7 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const vo
       maps[0], maps[1], maps[2], maps[3], static_cast<const bf16*>(o),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(bias), static_cast<float*>(delta), static_cast<bf16*>(dq), B, H,
-      N, s[3], s[4], s[5], scale);
+      N, nk, s[3], s[4], s[5], scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1209,12 +1216,14 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const vo
 // the delta that one wrote). q, k, v, dout: bf16 [B, N, H, D] with
 // strides[0..11] (read by TMA, as above); dk, dv: bf16 [B, N, H, D] with
 // strides[12..17]; lse, delta: fp32 [B*H, N]; bias: fp32 [H, N, N]
-// contiguous or null. Returns a cudaError_t code.
+// contiguous or null; keys at index >= nk masked (their dK and dV 0).
+// Returns a cudaError_t code.
 int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, const void* bias, void* dk,
-                             void* dv, int B, int N, int H, int D, const long long* strides,
-                             float scale, void* stream) {
-  if (B < 1 || H < 1 || N < 1 || D != 64) return static_cast<int>(cudaErrorInvalidValue);
+                             void* dv, int B, int N, int H, int D, int nk,
+                             const long long* strides, float scale, void* stream) {
+  if (B < 1 || H < 1 || N < 1 || D != 64 || nk < 1 || nk > N)
+    return static_cast<int>(cudaErrorInvalidValue);
   const DeviceOf device(q);
   if (device.error() != cudaSuccess) return static_cast<int>(device.error());
   Strides s[6];
@@ -1233,7 +1242,7 @@ int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v, const 
   kernel<<<blocks, kBlockThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const float*>(bias), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), B, H, N, s[4], s[5], scale);
+      static_cast<bf16*>(dv), B, H, N, nk, s[4], s[5], scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -30,6 +30,12 @@ writes ``predictions.json``, scores COCO and draws the overlays; every
 rank's ``score()`` returns rank 0's metrics. A batch that the ranks do
 not divide falls back, with JAX's warning, to each rank predicting the
 whole split alone (rank 0 still the only writer).
+
+Under tensor parallelism (``tp``, a model group, with ``comm`` its data
+group) the ranks of a model group predict the same rows together on
+their shards (``detector_predict(tp=...)``); the detections are gathered
+over the data group, every data group's first rank scores, and the
+lead rank (data and model index 0) alone writes.
 """
 
 from __future__ import annotations
@@ -72,18 +78,24 @@ class Evaluator:
       device: where inference runs; "cuda" unless the caller asks for the
         CPU. A CUDA device with no GPU present raises.
       comm: the data-parallel ranks' collectives (``parallel/mesh.py``);
-        by default the running ``torch.distributed`` group's, if any.
+        by default the running ``torch.distributed`` group's, if any (not
+        with ``tp``: then the data group's, or None for one data rank).
+      tp: this rank's model group (``parallel/mesh.py``), the model's
+        encoder and box-head leaves its shards; None without one.
     """
 
     def __init__(self, model, config: RunConfig, device: str | torch.device = "cuda",
-                 comm: Comm | None = None):
+                 comm: Comm | None = None, tp=None):
         self.device = torch.device(device)
         self.model = model
         self.config = config
-        if comm is None and dist.is_initialized():
+        self.tp = tp if tp is not None and tp.size > 1 else None
+        if comm is None and dist.is_initialized() and self.tp is None:
             comm = Comm()
         self._comm = comm
-        self._lead = comm is None or comm.rank == 0
+        # the data group's first rank scores; the lead rank alone writes
+        self._scorer = comm is None or comm.rank == 0
+        self._lead = self._scorer and (self.tp is None or self.tp.rank == 0)
         b = config.data.batch_size
         rows = None  # every row: one process, or the fallback
         if comm is not None and comm.world > 1:
@@ -150,10 +162,10 @@ class Evaluator:
                     sizes = torch.from_numpy(batch.orig_sizes).to(self.device)
                     if self._with_masks:
                         dets, probs = detector_predict(params, batch.images, cfg,
-                                                       with_masks=True)
+                                                       with_masks=True, tp=self.tp)
                         probs = probs.cpu().numpy()
                     else:
-                        dets = detector_predict(params, batch.images, cfg)
+                        dets = detector_predict(params, batch.images, cfg, tp=self.tp)
                     dets = rescale_detections(dets, sizes, cfg.image_size)
                     boxes = dets.boxes.float().cpu().numpy()
                     scores = dets.scores.float().cpu().numpy()
@@ -200,7 +212,7 @@ class Evaluator:
         if not all_predictions:
             logger.warning("No predictions were generated.")
             return None
-        if self._sharded and not self._lead:
+        if self._sharded and not self._scorer:
             return self._comm.broadcast_object(None)
         if self._lead:
             self._save_predictions_json(all_predictions)

@@ -35,6 +35,16 @@ N replica batches of ``batch_size / N`` pages, each chunk of pages sent
 to the next replica in turn, each replica dispatched from a thread of
 its own, so that the cards run side by side.
 
+Tensor-parallel serving (``mesh``, a ``parallel.mesh.DataMesh`` with a
+model group, JAX ``serving.py:118-190``): every rank of the mesh holds an
+engine over its shards of the weights (``parallel/sharding.py``). Rank 0
+runs the host pipeline; for each padded bucket batch it broadcasts the
+images to every rank (``Comm.broadcast_``), each model group predicts
+its data index's rows of the batch together (``detector_predict(tp=)``),
+and rank 0 gathers the detections of each group's first rank back into
+batch order. The other ranks wait in ``serve_follower`` until rank 0's
+``close()``. int8 with tensor parallelism raises, as JAX's engine does.
+
 ``ExportedInferenceEngine`` runs the same pipeline over an exported
 artifact (``export.py``) instead of the model: its buckets and batch
 size come from the artifact's manifest, and it serves boxes only, as the
@@ -67,7 +77,7 @@ from layoutdit_tpu_torch.models.detection.detector import (
     rescale_detections,
 )
 from layoutdit_tpu_torch.models.lora import merge_lora_detector
-from layoutdit_tpu_torch.models.weights_io import tree_map
+from layoutdit_tpu_torch.models.weights_io import tree_leaves, tree_map, tree_paths
 from layoutdit_tpu_torch.native import loader as native_loader
 from layoutdit_tpu_torch.ops.quant import quantize_detector_params
 from layoutdit_tpu_torch.ops.interpolate import resize_bilinear
@@ -116,6 +126,10 @@ class BatchInferenceEngine:
         (``models/lora.py``), as the JAX engine does; off by default.
       devices: data-parallel serving over these devices, one replica
         each (``device`` is ignored); ``batch_size`` must divide over them.
+      mesh: tensor-parallel serving over a data x model mesh (the module
+        docstring); ``model`` holds the full weights, and the engine keeps
+        this rank's shards. Every rank of the mesh builds its engine;
+        rank 0 serves, the others run ``serve_follower``.
     """
 
     def _init_pipeline_fields(
@@ -149,7 +163,18 @@ class BatchInferenceEngine:
         device: str | torch.device = "cuda",
         int8: bool = False,
         devices: Sequence[str | torch.device] | None = None,
+        mesh=None,
     ):
+        if mesh is not None and (mesh.model is None or mesh.model.size == 1):
+            mesh = None
+        if mesh is not None and (int8 or devices):
+            raise ValueError("tensor-parallel serving: int8 (quantized kernels are not "
+                             "model-sharded; JAX's engine refuses it too) and devices (the "
+                             "mesh places the replicas) do not apply")
+        if mesh is not None and batch_size % mesh.degree:
+            raise ValueError(f"batch_size {batch_size} does not divide over the "
+                             f"{mesh.degree} data-parallel model groups")
+        self._mesh = mesh
         devices = [torch.device(d) for d in (devices or [device])]
         self._init_pipeline_fields(score_thresh, decode_workers, max_in_flight, devices[0])
         if batch_size % len(devices):
@@ -164,6 +189,12 @@ class BatchInferenceEngine:
                 tree_map(lambda t: t.to(devices[0]), model.params), model.cfg.backbone.vit))
         else:
             base = model.params
+        if mesh is not None:  # this rank's shards of the weights
+            from layoutdit_tpu_torch.parallel.sharding import TpLayout
+
+            shards = TpLayout(tree_paths(base), mesh.model).shard(tree_leaves(base))
+            it = iter(shards)
+            base = tree_map(lambda _: next(it), base)
         weights = {}  # one copy a device, whatever its replicas
         for dev in devices:
             if dev not in weights:
@@ -271,14 +302,57 @@ class BatchInferenceEngine:
     def _run(self, size: int, images: torch.Tensor, orig: np.ndarray, params=None):
         """-> the rescaled detections, and a mask model's mask
         probabilities [B, D, 2P, 2P] beside them (``params``: a
-        replica's weights, the engine's by default)."""
-        params = self.params if params is None else params
+        replica's weights, the engine's by default). Under a mesh, rank
+        0's call runs the batch on every rank (``_run_mesh``)."""
+        if self._mesh is not None:
+            return self._run_mesh(size, images, orig)
+        return self._predict(size, images, orig, self.params if params is None else params)
+
+    def _predict(self, size: int, images: torch.Tensor, orig: np.ndarray, params,
+                 tp=None):
         cfg = self._cfg_for(size)
         o = torch.from_numpy(orig).to(images.device)
         if self._with_masks:
-            dets, probs = detector_predict(params, images, cfg, with_masks=True)
+            dets, probs = detector_predict(params, images, cfg, with_masks=True, tp=tp)
             return rescale_detections(dets, o, size), probs
-        return rescale_detections(detector_predict(params, images, cfg), o, size)
+        return rescale_detections(detector_predict(params, images, cfg, tp=tp), o, size)
+
+    def _run_rows(self, size: int, images: torch.Tensor, orig: np.ndarray):
+        """This rank's model group's rows of a broadcast batch, predicted
+        on its shards -> the detections on the host."""
+        k = images.shape[0] // self._mesh.degree
+        rows = slice(self._mesh.rank * k, (self._mesh.rank + 1) * k)
+        out = self._predict(size, images[rows], orig[rows], self.params, self._mesh.model)
+        return _to_host(out)
+
+    def _run_mesh(self, size: int, images: torch.Tensor, orig: np.ndarray):
+        """Rank 0: the batch to every rank, each group's rows predicted
+        there, the groups' first ranks' detections gathered in order."""
+        world = self._mesh.everyone
+        world.broadcast_object(("run", size, tuple(images.shape), orig))
+        world.broadcast_(images.contiguous())
+        parts = world.all_gather_object(self._run_rows(size, images, orig))
+        mp = self._mesh.model.size
+        return _cat_host([parts[d * mp] for d in range(self._mesh.degree)])
+
+    def serve_follower(self) -> None:
+        """A rank other than 0 of a serving mesh: run rank 0's batches on
+        this rank's shards until rank 0's ``close()``."""
+        world = self._mesh.everyone
+        with torch.inference_mode():
+            while True:
+                msg = world.broadcast_object(None)
+                if msg is None or msg[0] != "run":
+                    return
+                _, size, shape, orig = msg
+                images = world.broadcast_(torch.empty(shape, device=self.device))
+                world.all_gather_object(self._run_rows(size, images, orig))
+
+    def close(self) -> None:
+        """Rank 0 of a serving mesh: release the followers (each returns
+        from ``serve_follower``). Nothing without a mesh."""
+        if self._mesh is not None and self._mesh.lead:
+            self._mesh.everyone.broadcast_object(("stop",))
 
     def _dispatch(self, size: int, decoded, replica) -> tuple[np.ndarray, object]:
         """Upload and run one chunk on ``replica`` -> (orig, detections)."""
@@ -380,6 +454,25 @@ class BatchInferenceEngine:
     def predict_document(self, pages: Sequence) -> list[PageDetections]:
         """Alias: a document is a list of pages."""
         return self.predict_pages(pages)
+
+
+def _to_host(out):
+    """Detections (and a mask model's probabilities) on the host."""
+    if isinstance(out, tuple) and not hasattr(out, "_fields"):
+        return tuple(_to_host(o) for o in out)
+    if hasattr(out, "_fields"):
+        return type(out)(*[t.cpu() for t in out])
+    return out.cpu()
+
+
+def _cat_host(parts: list):
+    """The model groups' host detections, concatenated on the batch dim."""
+    first = parts[0]
+    if isinstance(first, tuple) and not hasattr(first, "_fields"):
+        return tuple(_cat_host([p[i] for p in parts]) for i in range(len(first)))
+    if hasattr(first, "_fields"):
+        return type(first)(*[torch.cat(ts) for ts in zip(*parts)])
+    return torch.cat(parts)
 
 
 def is_jpeg(page) -> bool:

@@ -15,7 +15,10 @@ then model, then train, then score, then visualize.
     none).
   * ``--skip-train`` scores the freshly built model; ``--skip-eval``
     trains only.
-  * ``--device``: "cuda" (the default) or "cpu".
+  * ``--device``: "cuda" (the default) or "cpu"; the config's
+    ``train_config.device`` and ``eval_config.device`` ("auto" keeps it,
+    "cpu", "gpu" / "cuda") choose the trainer's and the final
+    evaluation's (``config.resolve_device``).
 
 The JAX flag ``--read_config`` (a probe of the fixed remote config
 ``gs://layoutdit/layout_dit_config.json``) is refused: name the config
@@ -34,6 +37,12 @@ per card, started before the model is built (JAX ``main.py``):
     worker per card itself, as torchrun would, so that the JAX command
     line trains on every card as JAX does; it exits non-zero if a
     worker fails, and stops the others then.
+
+With ``model_parallel`` M > 1 the mesh is data x model: ``main`` starts
+D x M ranks, one a card (D from ``data_parallel`` over the host's cards
+/ M), and each rank's model group trains and scores its rows on its
+shards (``parallel/tensor.py``); under torchrun the environment decides
+the world, which must be D x M.
 """
 
 from __future__ import annotations
@@ -48,12 +57,17 @@ import time
 import torch
 import torch.distributed as dist
 
-from layoutdit_tpu_torch.config import RunConfig, get_run_config
+from layoutdit_tpu_torch.config import RunConfig, get_run_config, resolve_device
 from layoutdit_tpu_torch.eval.evaluator import Evaluator
 from layoutdit_tpu_torch.log import get_logger
 from layoutdit_tpu_torch.models.model import build_model
-from layoutdit_tpu_torch.parallel.mesh import free_port, maybe_distributed_init, resolve_degree
-from layoutdit_tpu_torch.train.trainer import Trainer
+from layoutdit_tpu_torch.parallel.mesh import (
+    build_mesh_for_batch,
+    free_port,
+    maybe_distributed_init,
+    resolve_degree,
+)
+from layoutdit_tpu_torch.train.trainer import Trainer, shard_model_
 
 logger = get_logger(__name__)
 
@@ -79,11 +93,12 @@ def main(argv: list[str] | None = None) -> None:
     config = get_run_config()
     if args.local_mode:
         config = dataclasses.replace(config, local_mode=True)
-    ranks = _ranks_to_spawn(config, args.device)
+    device = resolve_device(config.train.device, args.device)
+    ranks = _ranks_to_spawn(config, device)
     if ranks > 1:
         spawn_ranks(sys.argv[1:] if argv is None else list(argv), ranks)
         return
-    started = maybe_distributed_init(config.mesh, args.device)
+    started = maybe_distributed_init(config.mesh, device)
     try:
         _run(config, args)
     finally:
@@ -94,11 +109,17 @@ def main(argv: list[str] | None = None) -> None:
 def _run(config: RunConfig, args) -> None:
     logger.info("Starting LayoutDit training (args=%s)", vars(args))
 
-    model = build_model(config, seed=config.train.seed, device=args.device)
+    device = resolve_device(config.train.device, args.device)
+    model = build_model(config, seed=config.train.seed, device=device)
     logger.info("Initialized model (%.1fM params)", model.num_params() / 1e6)
+    mesh = None
+    if dist.is_initialized():
+        mesh = build_mesh_for_batch(config.mesh, config.data.batch_size,
+                                    max(1, config.train.grad_accumulation_steps))
+    tp = mesh.model if mesh is not None else None
 
     if not args.skip_train:
-        trainer = Trainer(config, model, device=args.device)
+        trainer = Trainer(config, model, device=device, mesh=mesh)
         if args.resume:
             trainer.resume(args.resume)
         trainer.train()  # model.params is the trained tree
@@ -107,8 +128,12 @@ def _run(config: RunConfig, args) -> None:
             logger.info("Evaluating with EMA parameters (decay=%s)", config.train.ema_decay)
             model.params = trainer.ema_params
 
+    elif tp is not None and tp.size > 1:
+        shard_model_(model, tp)  # the ranks of a model group score on their shards
+
     if not args.skip_eval:
-        evaluator = Evaluator(model, config, device=args.device)
+        evaluator = Evaluator(model, config, device=resolve_device(config.eval.device, device),
+                              comm=mesh.comm if mesh is not None else None, tp=tp)
         metrics = evaluator.score()
         if metrics is not None:
             logger.info("Final metrics: %s", metrics)
@@ -117,17 +142,21 @@ def _run(config: RunConfig, args) -> None:
 
 
 def _ranks_to_spawn(config: RunConfig, device: str) -> int:
-    """The data-parallel ranks ``main`` starts itself: the degree of
-    ``data_parallel`` over this host's cards; 1 on the CPU (or with no
-    card), under torchrun, inside a group, and with a coordinator (the
-    caller starts the processes)."""
+    """The ranks ``main`` starts itself: the data degree of
+    ``data_parallel`` over this host's cards / ``model_parallel``, times
+    ``model_parallel``; 1 on the CPU (or with no card), under torchrun,
+    inside a group, and with a coordinator (the caller starts the
+    processes). More model ranks than cards raise."""
     mesh = config.mesh
     if (torch.device(device).type != "cuda" or not torch.cuda.is_available()
             or "WORLD_SIZE" in os.environ or dist.is_initialized()
             or (mesh.enable_distributed_init and mesh.coordinator_address)):
         return 1
-    return resolve_degree(mesh.data_parallel, torch.cuda.device_count(),
-                          config.data.batch_size)
+    cards, mp = torch.cuda.device_count(), max(1, mesh.model_parallel)
+    if mp > cards:
+        raise ValueError(f"mesh_config.model_parallel={mp} needs {mp} cards, but only "
+                         f"{cards} are available")
+    return mp * resolve_degree(mesh.data_parallel, cards // mp, config.data.batch_size)
 
 
 def _rank_main(argv: list[str], rank: int, world: int, port: int) -> None:
@@ -159,7 +188,7 @@ def spawn_ranks(argv: list[str], world: int) -> None:
             p.join()
     failed = [r for r, p in enumerate(procs) if p.exitcode != 0]
     if failed:
-        raise SystemExit(f"data-parallel ranks {failed} failed (exit codes "
+        raise SystemExit(f"ranks {failed} failed (exit codes "
                          f"{[procs[r].exitcode for r in failed]})")
 
 

@@ -66,6 +66,7 @@ from layoutdit_tpu_torch.models.detection.roi_heads import (
 )
 from layoutdit_tpu_torch.models.detection.rpn import filter_proposals, rpn_loss
 from layoutdit_tpu_torch.ops.roi_align import multiscale_roi_align
+from layoutdit_tpu_torch.parallel.mesh import ModelGroup
 from layoutdit_tpu_torch.utils.cache import cached_unless_traced
 
 BOX_HEAD_REP = 1024
@@ -101,6 +102,9 @@ class DetectorConfig:
     compute_dtype: str = "float32"
     remat: bool = False
     remat_policy: str = "full"  # "full" | "dots"; see vit_forward
+    # "ring": ring attention under sequence parallelism (vit_forward);
+    # every other value routes by sequence length, as "ring" without it
+    attention_impl: str = "auto"
     # Cascade R-CNN: per-stage foreground IoU thresholds (empty = one
     # box head), and per-stage loss weights (empty = the paper's,
     # cascade.DEFAULT_STAGE_LOSS_WEIGHTS, cut to the stage count)
@@ -245,6 +249,7 @@ class DetectorConfig:
             compute_dtype=precision_dtype,
             remat=mc.remat,
             remat_policy=mc.remat_policy,
+            attention_impl=mc.attention_impl,
             cascade_iou_threshs=tuple(mc.cascade_iou_threshs),
             with_mask=mc.with_mask,
             detector_kind=mc.detector,
@@ -366,18 +371,24 @@ def _normalize(images: torch.Tensor, cfg: DetectorConfig) -> torch.Tensor:
 
 
 def run_backbone(params: dict, images: torch.Tensor, cfg: DetectorConfig,
-                 remat: bool = False, aux_out: dict | None = None) -> list[torch.Tensor]:
+                 remat: bool = False, aux_out: dict | None = None,
+                 tp: ModelGroup | None = None) -> list[torch.Tensor]:
     """Images [B, 3, S, S] in [0, 1] -> the pyramid [p2, p3, p4, p5, pool],
     channels-last in the compute dtype, from the DiT encoder or ResNet-50
     (JAX ``_run_backbone``); ``remat``: the encoder's activation
     checkpointing, as the config sets it (a ResNet has none); ``aux_out``
-    receives the DiT encoder's ``"moe_aux"``."""
+    receives the DiT encoder's ``"moe_aux"``; ``tp``: this rank's model
+    group (tensor, sequence and expert parallelism of the encoder,
+    ``models/vit.py``), the pyramid the same on every rank of it."""
     x = _normalize(images.float(), cfg).to(cfg.dtype)
     if cfg.backbone_kind == "resnet50":
+        if tp is not None and tp.size > 1:
+            raise ValueError("model_parallel > 1 shards the DiT encoder; a ResNet-50 "
+                             "backbone has no model-parallel layout")
         return resnet_mod.resnet_fpn_forward(params["backbone"], x, compute_dtype=cfg.dtype)
     return backbone_forward(params["backbone"], x, cfg.backbone, compute_dtype=cfg.dtype,
                             remat=remat and cfg.remat, remat_policy=cfg.remat_policy,
-                            aux_out=aux_out)
+                            aux_out=aux_out, tp=tp, attention_impl=cfg.attention_impl)
 
 
 def _with_moe_aux(losses: dict, aux_out: dict, cfg: DetectorConfig) -> dict:
@@ -413,7 +424,7 @@ def _anchors(cfg: DetectorConfig, device: torch.device) -> tuple[torch.Tensor, t
     return torch.from_numpy(a).to(device), counts
 
 
-def _pool_and_predict(head: dict, feats, rois, roi_valid, cfg: DetectorConfig):
+def _pool_and_predict(head: dict, feats, rois, roi_valid, cfg: DetectorConfig, tp=None):
     """RoIs [B, K, 4] -> (class_logits [B, K, NC+1], box_regression
     [B, K, R*4]) through one box head (``head``: the model's, or one
     cascade stage's), pooled at ``roi_output_size`` by RoIAlign."""
@@ -428,7 +439,7 @@ def _pool_and_predict(head: dict, feats, rois, roi_valid, cfg: DetectorConfig):
         native_layout=True,
     )  # [B, K, Px, Py, C]
     rep = box_head_forward(
-        head["box_head"], pooled.reshape(b * k, *pooled.shape[2:]).to(cfg.dtype)
+        head["box_head"], pooled.reshape(b * k, *pooled.shape[2:]).to(cfg.dtype), tp
     )
     class_logits, box_regression = predictor_forward(head["box_predictor"], rep)
     return class_logits.reshape(b, k, -1), box_regression.reshape(b, k, -1)
@@ -458,7 +469,7 @@ def _mask_logits(params: dict, feats, rois, roi_valid, cfg: DetectorConfig) -> t
         return logits.reshape(b, k, *logits.shape[1:])
 
 
-def _cascade_predict(params: dict, feats, props, cfg: DetectorConfig) -> Detections:
+def _cascade_predict(params: dict, feats, props, cfg: DetectorConfig, tp=None) -> Detections:
     """Boxes refined through every stage (``roi_heads``); the stages'
     posteriors averaged, then per-class NMS (``postprocess``)."""
     size = (cfg.image_size, cfg.image_size)
@@ -467,7 +478,7 @@ def _cascade_predict(params: dict, feats, props, cfg: DetectorConfig) -> Detecti
     with record_function("roi_heads"):
         for i in range(len(cfg.cascade_iou_threshs)):
             class_logits, box_reg = _pool_and_predict(
-                params["cascade_heads"][f"s{i}"], feats, boxes, valid, cfg
+                params["cascade_heads"][f"s{i}"], feats, boxes, valid, cfg, tp
             )
             per_stage_logits.append(class_logits)
             boxes = cascade_mod.refine_boxes(boxes, box_reg, cfg.cascade_reg_weights[i], size)
@@ -486,13 +497,14 @@ def _one_stage_heads(params: dict, feats, cfg: DetectorConfig) -> tuple:
     return fcos_mod.fcos_head_forward(params["fcos_head"], lv)
 
 
-def _one_stage_predict(params: dict, images: torch.Tensor, cfg: DetectorConfig) -> Detections:
+def _one_stage_predict(params: dict, images: torch.Tensor, cfg: DetectorConfig,
+                       tp=None) -> Detections:
     """RetinaNet's or FCOS's inference under the ranges ``backbone``,
     ``head`` and ``postprocess``."""
     anchors, counts = _anchors(cfg, images.device)
     size = (cfg.image_size, cfg.image_size)
     with record_function("backbone"):
-        feats = run_backbone(params, images, cfg)
+        feats = run_backbone(params, images, cfg, tp=tp)
     with record_function("head"):
         out = _one_stage_heads(params, feats, cfg)
     with record_function("postprocess"):
@@ -501,11 +513,12 @@ def _one_stage_predict(params: dict, images: torch.Tensor, cfg: DetectorConfig) 
         return fcos_mod.fcos_postprocess(*out, anchors, counts, size, cfg.budget)
 
 
-def _detr_predict(params: dict, images: torch.Tensor, cfg: DetectorConfig) -> Detections:
+def _detr_predict(params: dict, images: torch.Tensor, cfg: DetectorConfig,
+                  tp=None) -> Detections:
     """DETR's inference under the ranges ``backbone``, ``head`` (the
     decoder and its heads, the last layer only) and ``postprocess``."""
     with record_function("backbone"):
-        feats = run_backbone(params, images, cfg)
+        feats = run_backbone(params, images, cfg, tp=tp)
     with record_function("head"):
         logits, boxes01 = detr_mod.detr_forward(params["detr"], feats[cfg.detr_level],
                                                 cfg.detr_heads, return_intermediate=False)
@@ -515,7 +528,8 @@ def _detr_predict(params: dict, images: torch.Tensor, cfg: DetectorConfig) -> De
 
 
 def detector_predict(
-    params: dict, images: torch.Tensor, cfg: DetectorConfig, with_masks: bool = False
+    params: dict, images: torch.Tensor, cfg: DetectorConfig, with_masks: bool = False,
+    tp: ModelGroup | None = None,
 ):
     """Inference -> padded per-image detections (boxes in S-space); with
     ``with_masks`` (a mask model), ``(Detections, mask_probs [B, D, 2P,
@@ -531,30 +545,34 @@ def detector_predict(
     (``backbone``, ``rpn``, ``roi_heads``, ``postprocess``, and
     ``mask_head``; a single-stage or DETR model's ``backbone``, ``head``
     and ``postprocess``) so a profiler trace splits a request by stage;
-    without a profiler they cost a few microseconds."""
+    without a profiler they cost a few microseconds.
+
+    ``tp``: this rank's model group, ``params``' encoder and box-head
+    leaves its shards (``parallel/sharding.py``); the ranks of a group
+    predict the same images together and get the same detections."""
     if with_masks and not cfg.with_mask:
         if cfg.detector_kind != "faster_rcnn":
             raise ValueError(f"detector={cfg.detector_kind!r} has no mask branch")
         raise ValueError("with_masks=True needs a model with the mask branch (with_mask)")
     if cfg.detector_kind == "detr":
-        return _detr_predict(params, images, cfg)
+        return _detr_predict(params, images, cfg, tp)
     if cfg.detector_kind != "faster_rcnn":
-        return _one_stage_predict(params, images, cfg)
+        return _one_stage_predict(params, images, cfg, tp)
     anchors, counts = _anchors(cfg, images.device)
     size = (cfg.image_size, cfg.image_size)
     with record_function("backbone"):
-        feats = run_backbone(params, images, cfg)
+        feats = run_backbone(params, images, cfg, tp=tp)
     with record_function("rpn"):
         objectness, deltas = rpn_head_forward(
             params["rpn_head"], feats, cfg.num_anchors_per_cell
         )
         props = filter_proposals(objectness, deltas, anchors, counts, size, cfg.budget)
     if cfg.cascade_iou_threshs:
-        dets = _cascade_predict(params, feats, props, cfg)
+        dets = _cascade_predict(params, feats, props, cfg, tp)
     else:
         with record_function("roi_heads"):
             class_logits, box_regression = _pool_and_predict(
-                _base_head(params), feats, props.boxes, props.valid, cfg
+                _base_head(params), feats, props.boxes, props.valid, cfg, tp
             )
         with record_function("postprocess"):
             dets = postprocess_detections(
@@ -605,6 +623,7 @@ def detector_loss(
     cfg: DetectorConfig,
     priorities: SamplerPriorities | None,  # None for a single-stage or DETR model
     gt_masks: torch.Tensor | None = None,  # [B, G, M, M] {0, 1}, a mask model's
+    tp: ModelGroup | None = None,
 ) -> dict[str, torch.Tensor]:
     """Training forward -> the four-loss dict of the JAX package's
     ``detector_loss`` (and the reference trainer): ``loss_objectness``,
@@ -622,20 +641,24 @@ def detector_loss(
     losses under ``"loss"``, DETR's cost and assignment under
     ``"matcher"`` inside it. A DiT encoder with experts adds
     ``loss_moe_aux`` (``moe_aux_weight`` x its load-balance loss) to every
-    family's losses."""
+    family's losses.
+
+    ``tp``: this rank's model group (``detector_predict``'s); the ranks of
+    a group take the same rows and give the same losses, whose gradients
+    the trainer reduces as ``parallel/sharding.py`` says."""
     if cfg.with_mask and gt_masks is None:
         raise ValueError("cfg.with_mask=True requires gt_masks [B, G, M, M] "
                          "(the data loader's load_masks)")
     if cfg.detector_kind == "detr":
-        return _detr_loss(params, images, gt_boxes, gt_labels, gt_valid, cfg)
+        return _detr_loss(params, images, gt_boxes, gt_labels, gt_valid, cfg, tp)
     if cfg.detector_kind != "faster_rcnn":
-        return _one_stage_loss(params, images, gt_boxes, gt_labels, gt_valid, cfg)
+        return _one_stage_loss(params, images, gt_boxes, gt_labels, gt_valid, cfg, tp)
     anchors, counts = _anchors(cfg, images.device)
     size = (cfg.image_size, cfg.image_size)
     aux_out: dict = {}
     with record_function("forward"):
         with record_function("backbone"):
-            feats = run_backbone(params, images, cfg, remat=True, aux_out=aux_out)
+            feats = run_backbone(params, images, cfg, remat=True, aux_out=aux_out, tp=tp)
         with record_function("rpn"):
             objectness, deltas = rpn_head_forward(params["rpn_head"], feats,
                                                   cfg.num_anchors_per_cell)
@@ -646,10 +669,11 @@ def detector_loss(
             priorities.roi,
         )
         if cfg.cascade_iou_threshs:
-            stages = _cascade_stages(params, feats, samples, gt_boxes, gt_labels, gt_valid, cfg)
+            stages = _cascade_stages(params, feats, samples, gt_boxes, gt_labels, gt_valid,
+                                     cfg, tp)
         else:
             class_logits, box_regression = _pool_and_predict(
-                _base_head(params), feats, samples.rois, samples.valid, cfg
+                _base_head(params), feats, samples.rois, samples.valid, cfg, tp
             )
         if cfg.with_mask:
             max_pos = int(cfg.budget.box_batch_size_per_image * cfg.budget.box_positive_fraction)
@@ -690,14 +714,14 @@ def detector_loss(
 
 
 def _one_stage_loss(params, images, gt_boxes, gt_labels, gt_valid,
-                    cfg: DetectorConfig) -> dict[str, torch.Tensor]:
+                    cfg: DetectorConfig, tp=None) -> dict[str, torch.Tensor]:
     """RetinaNet's or FCOS's training losses (JAX ``detector_loss``'s
     single-stage branches)."""
     anchors, counts = _anchors(cfg, images.device)
     aux_out: dict = {}
     with record_function("forward"):
         with record_function("backbone"):
-            feats = run_backbone(params, images, cfg, remat=True, aux_out=aux_out)
+            feats = run_backbone(params, images, cfg, remat=True, aux_out=aux_out, tp=tp)
         with record_function("head"):
             out = _one_stage_heads(params, feats, cfg)
     with record_function("loss"):
@@ -714,7 +738,7 @@ def _one_stage_loss(params, images, gt_boxes, gt_labels, gt_valid,
 
 
 def _detr_loss(params, images, gt_boxes, gt_labels, gt_valid,
-               cfg: DetectorConfig) -> dict[str, torch.Tensor]:
+               cfg: DetectorConfig, tp=None) -> dict[str, torch.Tensor]:
     """DETR's training losses (JAX ``detector_loss``'s DETR branch): the
     Hungarian assignment needs a query for every (padded) gt slot."""
     if gt_boxes.shape[1] > cfg.detr_num_queries:
@@ -725,7 +749,7 @@ def _detr_loss(params, images, gt_boxes, gt_labels, gt_valid,
     aux_out: dict = {}
     with record_function("forward"):
         with record_function("backbone"):
-            feats = run_backbone(params, images, cfg, remat=True, aux_out=aux_out)
+            feats = run_backbone(params, images, cfg, remat=True, aux_out=aux_out, tp=tp)
         with record_function("head"):
             logits, boxes01 = detr_mod.detr_forward(params["detr"], feats[cfg.detr_level],
                                                     cfg.detr_heads,
@@ -739,7 +763,7 @@ def _detr_loss(params, images, gt_boxes, gt_labels, gt_valid,
 
 
 def _cascade_stages(params, feats, samples, gt_boxes, gt_labels, gt_valid,
-                    cfg: DetectorConfig) -> list:
+                    cfg: DetectorConfig, tp=None) -> list:
     """Each cascade stage's (class_logits, box_regression, its targets)
     in training: stage 0 on the samples (relabelled only when its
     BoxCoder weights are not the budget's), each later stage on the
@@ -757,7 +781,7 @@ def _cascade_stages(params, feats, samples, gt_boxes, gt_labels, gt_valid,
             targets = cascade_mod.match_boxes_to_gt(boxes, valid, gt_boxes, gt_labels,
                                                     gt_valid, thresh, w_reg)
         class_logits, box_reg = _pool_and_predict(
-            params["cascade_heads"][f"s{i}"], feats, boxes, valid, cfg
+            params["cascade_heads"][f"s{i}"], feats, boxes, valid, cfg, tp
         )
         out.append((class_logits, box_reg, targets))
         if i + 1 < n:

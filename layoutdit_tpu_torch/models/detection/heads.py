@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 
 from layoutdit_tpu_torch.models.fpn import conv2d
+from layoutdit_tpu_torch.parallel.mesh import ModelGroup
+from layoutdit_tpu_torch.parallel.tensor import column_linear, copy_in, reduce_out, row_linear
 
 
 def _normal_conv(out_ch, in_ch, k, generator, device, std=0.01):
@@ -80,10 +82,21 @@ def init_box_head_params(in_features: int, rep_size: int, generator, device) -> 
     }
 
 
-def box_head_forward(params: dict, pooled: torch.Tensor) -> torch.Tensor:
-    """Pooled RoIs [K, Px, Py, C] -> [K, rep] (TwoMLPHead)."""
-    x = F.relu(linear(pooled.reshape(pooled.shape[0], -1), params["fc6"]))
-    return F.relu(linear(x, params["fc7"]))
+def box_head_forward(params: dict, pooled: torch.Tensor,
+                     tp: ModelGroup | None = None) -> torch.Tensor:
+    """Pooled RoIs [K, Px, Py, C] -> [K, rep] (TwoMLPHead). Under ``tp``
+    (JAX ``sharding.py:124-137``) fc6 is column-parallel and fc7
+    row-parallel, this rank's shards: the ReLU between them runs on
+    [K, rep / mp], one all-reduce of fc7's float32 partials, its bias
+    added once before the one rounding (``parallel/tensor.py``)."""
+    x = pooled.reshape(pooled.shape[0], -1)
+    if tp is None or tp.size == 1:
+        return F.relu(linear(F.relu(linear(x, params["fc6"])), params["fc7"]))
+    dt = x.dtype
+    fc6, fc7 = params["fc6"], params["fc7"]
+    x = F.relu(column_linear(copy_in(x, tp), fc6["weight"].to(dt), fc6["bias"].to(dt)))
+    y = reduce_out(row_linear(x, fc7["weight"].to(dt)), tp)
+    return F.relu((y + fc7["bias"].to(dt).float()).to(dt))
 
 
 def init_predictor_params(rep_size: int, num_classes_bg: int, generator, device,

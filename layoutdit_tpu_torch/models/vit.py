@@ -62,6 +62,26 @@ as JAX's kernel routes do, and ignore it the same way.
 
 Precision policy as in the JAX package: parameters fp32, matmul inputs
 cast to ``compute_dtype``, LayerNorm/softmax/GELU statistics in fp32.
+
+Tensor parallelism (``tp``, a ``parallel.mesh.ModelGroup``, carried
+explicitly down from ``detector_loss`` / ``detector_predict`` as JAX
+carries ``seq_sharding``): the layer's leaves are this rank's shards
+(``parallel/sharding.py``), so the attention runs on H / mp local heads
+and the MLP on I / mp columns (an MoE layer on E / mp local experts). A
+block enters the column-parallel region with ``copy_in`` and leaves the
+row-parallel one with ``reduce_out``, the row-parallel biases added once
+after it; the partial sums on both sides are float32, rounded once after
+the group's sum (``parallel/tensor.py``). With ``sequence_parallel`` the
+residual stream stays token-sharded between blocks (LayerNorms and
+residual adds on shards) and the block is ``gather_tokens`` -> the
+column-parallel GEMM ... the row-parallel GEMM -> ``scatter_tokens``.
+``attention_impl="ring"`` under sequence parallelism keeps the
+attention on the token shards instead (``ops/ring_attention.py``): the
+projections' shards are gathered for the block (their gradients
+reduce-scattered back), every head attends for this rank's queries, and
+K and V rotate around the group. JAX's guards hold: sequence parallelism
+with active windows raises, "ring" without it degrades to the length
+routing, and ``pad_tokens_to`` is off under it.
 """
 
 from __future__ import annotations
@@ -86,11 +106,25 @@ from layoutdit_tpu_torch.ops.flash_attention import flash_attention_qkv
 from layoutdit_tpu_torch.ops.interpolate import resize_bicubic, resize_bilinear
 from layoutdit_tpu_torch.ops.moe import init_moe_mlp_params, moe_mlp, trunc_normal
 from layoutdit_tpu_torch.ops.quant import int8_linear
+from layoutdit_tpu_torch.ops.ring_attention import ring_attention
 from layoutdit_tpu_torch.ops.short_attention import MAX_N as SHORT_MAX_N
 from layoutdit_tpu_torch.ops.short_attention import (
     key_mask_rows,
     short_attention_qkv,
     split_qkv,
+)
+from layoutdit_tpu_torch.parallel.mesh import ModelGroup
+from layoutdit_tpu_torch.parallel.tensor import (
+    collect_tokens,
+    column_linear,
+    copy_in,
+    gather_qkv,
+    gather_tokens,
+    gather_weight,
+    reduce_out,
+    row_linear,
+    scatter_tokens,
+    split_tokens,
 )
 from layoutdit_tpu_torch.utils.cache import cached_unless_traced
 
@@ -350,15 +384,46 @@ def _linear(x: torch.Tensor, p: dict, lora_scale: float = 1.0) -> torch.Tensor:
     return y
 
 
-def _qkv(x: torch.Tensor, layer: dict, cfg: ViTConfig) -> torch.Tensor:
+def _no_int8(p: dict) -> None:
+    if "weight_q" in p:
+        raise ValueError("int8 linears do not run under model parallelism")
+
+
+def _column(x: torch.Tensor, p: dict, dtype: torch.dtype, lora_scale: float = 1.0,
+            ) -> torch.Tensor:
+    """A column-parallel ``_linear`` in ``dtype`` on a region's input ``x``
+    (``_enter``'s float32 carrier), its input gradient a float32 partial
+    (``parallel.tensor.column_linear``)."""
+    _no_int8(p)
+    bias = p.get("bias")
+    y = column_linear(x, p["weight"].to(dtype), None if bias is None else bias.to(dtype))
+    if "lora_a" in p:
+        y = y + lora_delta(x.to(dtype), p, lora_scale)
+    return y
+
+
+def _row(x: torch.Tensor, p: dict, lora_scale: float = 1.0) -> torch.Tensor:
+    """A row-parallel ``_linear`` without its bias: this rank's float32
+    partial sum (``parallel.tensor.row_linear``), for ``_leave``."""
+    _no_int8(p)
+    y = row_linear(x, p["weight"].to(x.dtype))
+    if "lora_a" in p:
+        y = y + lora_delta(x, p, lora_scale).float()
+    return y
+
+
+def _qkv(x: torch.Tensor, layer: dict, cfg: ViTConfig, dtype: torch.dtype | None = None,
+         ) -> torch.Tensor:
     """The fused projection [B, N, 3D]: one GEMM (bf16, or W8A8 over
     activations quantized once, as JAX's fused path does), then each of
     q / k / v adapters' delta added to its third, where JAX concatenates
-    them (zeros for a projection without one)."""
-    qkv = _linear(x, layer["qkv"])
+    them (zeros for a projection without one). ``dtype``: ``x`` is a
+    column-parallel region's float32 carrier of values in ``dtype``."""
+    qkv = _linear(x, layer["qkv"]) if dtype is None else _column(x, layer["qkv"], dtype)
     adapters = [layer.get(n, {}) for n in ("q", "k", "v")]
     if any("lora_a" in p for p in adapters):
-        zeros = qkv.new_zeros(*qkv.shape[:-1], x.shape[-1])
+        x = x if dtype is None else x.to(dtype)
+        zeros = qkv.new_zeros(*qkv.shape[:-1], qkv.shape[-1] // 3)
         qkv = qkv + torch.cat([lora_delta(x, p, cfg.lora_scaling) if "lora_a" in p else zeros
                                for p in adapters], dim=-1)
     return qkv
@@ -447,14 +512,68 @@ def attention_core(
     return flash_attention_qkv(qkv, heads, scale=scale, bias=bias)
 
 
+def local_heads(cfg: ViTConfig, tp: ModelGroup | None) -> int:
+    """The attention heads of one rank of ``tp`` (all without it)."""
+    h = cfg.num_attention_heads
+    if tp is None or tp.size == 1:
+        return h
+    if h % tp.size:
+        raise ValueError(f"num_attention_heads={h} does not split over model_parallel="
+                         f"{tp.size} ranks")
+    return h // tp.size
+
+
 def _attention(
     x: torch.Tensor, layer: dict, cfg: ViTConfig, key_mask: torch.Tensor | None = None,
-    bias: torch.Tensor | None = None,
+    bias: torch.Tensor | None = None, tp: ModelGroup | None = None,
+    dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
-    b, n, d = x.shape
-    qkv = _qkv(x, layer, cfg)  # [B, N, 3D]
-    ctx = attention_core(qkv, cfg.num_attention_heads, key_mask, bias, cfg.score_dtype)
-    return _linear(ctx.reshape(b, n, d), layer["attn_out"], cfg.lora_scaling)
+    """The attention sub-block's projections and core over the post-LN
+    ``x``; under ``tp`` (``x`` the region's float32 carrier of ``dtype``
+    values), this rank's heads and the row-parallel product without its
+    bias (a float32 partial sum)."""
+    b, n, _ = x.shape
+    qkv = _qkv(x, layer, cfg, None if tp is None else dtype)  # [B, N, 3D] (3D / mp under tp)
+    ctx = attention_core(qkv, local_heads(cfg, tp), key_mask, bias, cfg.score_dtype)
+    if tp is None:
+        return _linear(ctx.reshape(b, n, -1), layer["attn_out"], cfg.lora_scaling)
+    return _row(ctx.reshape(b, n, -1), layer["attn_out"], cfg.lora_scaling)
+
+
+def _gathered(p: dict, dim: int, tp: ModelGroup) -> dict:
+    """A projection's shards gathered on ``dim`` (the fused qkv's
+    strided rows when ``dim`` is "qkv"), differentiable; LoRA factors as
+    ``parallel/sharding.py`` lays them out."""
+    out = {}
+    for key, t in p.items():
+        if dim == "qkv":
+            out[key] = gather_qkv(t, tp) if key in ("weight", "bias") else t
+        elif key == "weight":
+            out[key] = gather_weight(t, tp, dim)
+        elif key == "lora_b" and dim == 0:  # column-parallel: B shards d_out
+            out[key] = gather_weight(t, tp, 1)
+        elif key == "lora_a" and dim == 1:  # row-parallel: A shards d_in
+            out[key] = gather_weight(t, tp, 0)
+        else:
+            out[key] = t
+    return out
+
+
+def _ring_attention_block(x: torch.Tensor, layer: dict, cfg: ViTConfig, n: int,
+                          tp: ModelGroup) -> torch.Tensor:
+    """The attention sub-block on this rank's token shard ``x`` [B, k, D]
+    under sequence parallelism with ``attention_impl="ring"``: the
+    projections gathered, every head, K and V rotating over ``tp``
+    (``ops/ring_attention.py``); ``n`` the real tokens of the sequence.
+    -> the sub-block's output on the shard, its bias included."""
+    b, k, d = x.shape
+    full = dict(layer, qkv=_gathered(layer["qkv"], "qkv", tp),
+                **{t: _gathered(layer[t], 0, tp) for t in ("q", "k", "v") if t in layer})
+    qkv = _qkv(x, full, cfg)
+    h = cfg.num_attention_heads
+    q, kk, v = split_qkv(qkv, h)
+    ctx = ring_attention(q, kk, v, tp, n, 1.0 / math.sqrt(d // h))
+    return _linear(ctx.reshape(b, k, d), _gathered(layer["attn_out"], 1, tp), cfg.lora_scaling)
 
 
 def _window_partition(
@@ -507,7 +626,8 @@ def _window_key_mask_on(device: torch.device, gh: int, gw: int, ws: int) -> torc
 
 def _windowed_attention(
     x: torch.Tensor, layer: dict, cfg: ViTConfig, gh: int, gw: int,
-    bias: torch.Tensor | None = None,
+    bias: torch.Tensor | None = None, tp: ModelGroup | None = None,
+    dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Attention restricted to ws x ws patch windows (JAX ``vit.py:238``).
     x is the post-LN [B, 1+gh*gw, D] stream. The CLS token is in no
@@ -521,8 +641,9 @@ def _windowed_attention(
     ws = cfg.window_size
     xw, dims = _window_partition(x[:, 1:], gh, gw, ws)
     key_mask = _window_key_mask_on(x.device, gh, gw, ws)
-    merged = _window_merge(_attention(xw, layer, cfg, key_mask, bias), b, gh, gw, ws, dims)
-    return torch.cat([_attention(x[:, :1], layer, cfg), merged], dim=1)
+    merged = _window_merge(_attention(xw, layer, cfg, key_mask, bias, tp, dtype),
+                           b, gh, gw, ws, dims)
+    return torch.cat([_attention(x[:, :1], layer, cfg, tp=tp, dtype=dtype), merged], dim=1)
 
 
 def _pos_embed_for_grid(pos_embed: torch.Tensor, gh: int, gw: int) -> torch.Tensor:
@@ -566,23 +687,53 @@ def _rel_table_for_grid(table: torch.Tensor, g0: int, g: int) -> torch.Tensor:
     return torch.cat([patch, table[-3:]], dim=0)
 
 
+def _head_columns(table: torch.Tensor, cfg: ViTConfig, tp: ModelGroup | None) -> torch.Tensor:
+    """A relative-position table's columns of ``tp``'s local heads."""
+    h = local_heads(cfg, tp)
+    return table if h == table.shape[1] else table[:, tp.rank * h:(tp.rank + 1) * h]
+
+
 def _layer_rel_bias(
     layer: dict, cfg: ViTConfig, grid: int, ws: int, shared_bias: torch.Tensor | None,
+    tp: ModelGroup | None = None,
 ) -> torch.Tensor | None:
     """A layer's attention bias over the whole grid (ws 0) or one window:
-    its own table, resampled to the grid and gathered, added onto the
-    shared bias, if any (JAX ``vit.py:621``)."""
+    its own table (its local heads' columns under ``tp``), resampled to
+    the grid and gathered, added onto the shared bias, if any (JAX
+    ``vit.py:621``)."""
     bias = shared_bias
     if "rel_pos_table" in layer:
-        own = _gather_rel_bias(
-            _rel_table_for_grid(layer["rel_pos_table"], cfg.grid_size, grid), grid, ws)
+        own = _gather_rel_bias(_rel_table_for_grid(
+            _head_columns(layer["rel_pos_table"], cfg, tp), cfg.grid_size, grid), grid, ws)
         bias = own if bias is None else own + bias
     return bias
+
+
+def _enter(x: torch.Tensor, tp: ModelGroup | None, n: int) -> torch.Tensor:
+    """Into a column-parallel region: the replicated input, or under
+    sequence parallelism the whole sequence of ``n`` tokens, as the
+    float32 carrier of ``parallel.tensor.copy_in``."""
+    if tp is not None and tp.sequence_parallel:
+        return gather_tokens(x, tp, n)
+    return copy_in(x, tp)
+
+
+def _leave(y: torch.Tensor, p: dict, tp: ModelGroup | None, dtype: torch.dtype,
+           ) -> torch.Tensor:
+    """Out of a row-parallel region: the ranks' float32 partial sums summed
+    (onto this rank's token shard under sequence parallelism), the
+    projection's bias ``p["bias"]`` added once, rounded once to
+    ``dtype``."""
+    if tp is None:
+        return y
+    y = scatter_tokens(y, tp) if tp.sequence_parallel else reduce_out(y, tp)
+    return (y + p["bias"].to(dtype).float() if "bias" in p else y).to(dtype)
 
 
 def encoder_block(
     x: torch.Tensor, layer: dict, cfg: ViTConfig, window: tuple[int, int] | None = None,
     bias: torch.Tensor | None = None, key_mask: torch.Tensor | None = None,
+    tp: ModelGroup | None = None, n_tokens: int = 0, ring: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One pre-LN block: attention + MLP with BEiT layer scale.
     ``window`` = the patch grid (gh, gw) restricts the attention to
@@ -591,26 +742,44 @@ def encoder_block(
     one window, or None. ``key_mask`` [rows, n]: the keys full attention
     drops (``pad_tokens_to``'s padding). The MLP is the dense GELU pair
     or, for a layer with a router, the mixture of experts (``ops/moe.py``).
+    ``tp``: this rank's model group, the layer's leaves its shards (see
+    the module docstring); under sequence parallelism ``x`` is this
+    rank's token shard of a sequence of ``n_tokens``, and ``ring`` runs
+    the attention on the shards (``_ring_attention_block``).
     -> (block output, the MoE load-balance loss (fp32), None for a dense
     layer)."""
+    dt = x.dtype
     x_ln = _layer_norm(x, layer["ln1"], cfg.layer_norm_eps)
-    if window is None:
-        attn = _attention(x_ln, layer, cfg, key_mask, bias)
+    if ring:
+        attn = _ring_attention_block(x_ln, layer, cfg, n_tokens, tp)
     else:
-        attn = _windowed_attention(x_ln, layer, cfg, *window, bias=bias)
+        x_in = _enter(x_ln, tp, n_tokens)
+        if window is None:
+            attn = _attention(x_in, layer, cfg, key_mask, bias, tp, dt)
+        else:
+            attn = _windowed_attention(x_in, layer, cfg, *window, bias=bias, tp=tp, dtype=dt)
+        attn = _leave(attn, layer["attn_out"], tp, dt)
     x = x + attn * layer["lambda_1"].to(attn.dtype)
-    y = _layer_norm(x, layer["ln2"], cfg.layer_norm_eps)
+    y = _enter(_layer_norm(x, layer["ln2"], cfg.layer_norm_eps), tp, n_tokens)
     aux = None
     if "router" in layer:
-        y, aux = moe_mlp(y, layer, cfg.num_experts, cfg.moe_top_k, cfg.moe_capacity_factor)
-    else:
+        y, aux = moe_mlp(y, layer, cfg.num_experts, cfg.moe_top_k, cfg.moe_capacity_factor,
+                         tp=tp, dtype=dt)
+        y = _leave(y, {}, tp, dt)
+    elif tp is None:
         y = _linear(y, layer["mlp_in"], cfg.lora_scaling)
         y = F.gelu(y.float()).to(y.dtype)
         y = _linear(y, layer["mlp_out"], cfg.lora_scaling)
+    else:
+        y = _column(y, layer["mlp_in"], dt, cfg.lora_scaling)
+        y = F.gelu(y.float()).to(dt)
+        y = _leave(_row(y, layer["mlp_out"], cfg.lora_scaling), layer["mlp_out"], tp, dt)
     return x + y * layer["lambda_2"].to(y.dtype), aux
 
 
-_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+# (mm.dtype: the float32 partial of a row-parallel product on the card)
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                  torch.ops.aten.mm.dtype)
 
 
 def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
@@ -632,6 +801,8 @@ def vit_forward(
     remat: bool = False,
     remat_policy: str = "full",
     aux_out: dict | None = None,
+    tp: ModelGroup | None = None,
+    attention_impl: str = "auto",
 ) -> list[torch.Tensor]:
     """Run the encoder on normalized pixels [B, C, H, W] (H, W multiples
     of the patch size); return hidden states [B, 1+P, D] at ``taps``
@@ -643,9 +814,17 @@ def vit_forward(
     grad is enabled, by ``remat_policy`` ("full" or "dots"); a layer's own
     bias is gathered inside it, the shared table's outside, as in JAX.
     ``aux_out``: given a dict, its ``"moe_aux"`` is set to the sum of the
-    MoE layers' load-balance losses (fp32, 0 without one), as JAX's."""
+    MoE layers' load-balance losses (fp32, 0 without one), as JAX's.
+    ``tp``: this rank's model group, ``params``'s layer leaves its shards
+    (the module docstring); the taps come back whole on every rank.
+    ``attention_impl``: "ring" runs ring attention under sequence
+    parallelism; any other value, or "ring" without sequence
+    parallelism, the length routing (JAX ``vit.py:742-775``)."""
     if remat_policy not in ("full", "dots"):  # JAX vit.py:893-896
         raise ValueError(f"unknown remat_policy {remat_policy!r}; use 'full' or 'dots'")
+    if tp is not None and tp.size == 1:
+        tp = None
+    sp = tp is not None and tp.sequence_parallel
     taps = tuple(taps) or (cfg.num_hidden_layers,)
     _, _, img_h, img_w = pixels.shape
     gh, gw = img_h // cfg.patch_size, img_w // cfg.patch_size
@@ -657,6 +836,14 @@ def vit_forward(
         x = x + _pos_embed_for_grid(params["pos_embed"], gh, gw).to(compute_dtype)
 
     win_active = 0 < cfg.window_size < max(gh, gw)
+    if win_active and sp:
+        raise ValueError(
+            "windowed attention repartitions the token axis per layer: incompatible with "
+            "sequence parallelism (a token-sharded stream); use data parallelism, or "
+            "window_size=0 with sequence_parallel / ring")
+    # ring needs a token-sharded stream; without one the length routing
+    # (JAX degrades "ring" to "auto" for the evaluator, serving, predict)
+    ring = attention_impl == "ring" and sp
     # the window size per layer kind: 0 for the global layers
     kinds = {li: cfg.window_size if win_active and not cfg.is_global_layer(li) else 0
              for li in range(1, len(params["layers"]) + 1)}
@@ -665,28 +852,37 @@ def vit_forward(
     if rel_pos and gh != gw:
         raise ValueError("relative position bias requires a square patch grid "
                          f"(got {gh}x{gw}); absolute-pos models handle any grid")
+    if rel_pos and ring:
+        raise ValueError("ring attention supports absolute-pos models only (dit); "
+                         "rel-pos-bias checkpoints use the flash / short paths")
     shared = {}
     if "shared_rel_pos_table" in params:  # gathered once per layer kind
-        table = _rel_table_for_grid(params["shared_rel_pos_table"], cfg.grid_size, gh)
+        table = _rel_table_for_grid(_head_columns(params["shared_rel_pos_table"], cfg, tp),
+                                    cfg.grid_size, gh)
         shared = {ws: _gather_rel_bias(table, gh, ws) for ws in set(kinds.values())}
 
     # pad_tokens_to (JAX vit.py:829-846): the token axis padded once, the
     # padding dropped from every softmax row by a key mask [1, n]
     n_real = x.shape[1]
     key_mask = None
-    # not with experts: padded tokens would compete for expert capacity
-    if cfg.pad_tokens_to > n_real and not win_active and cfg.num_experts == 0:
+    # not with experts: padded tokens would compete for expert capacity;
+    # not under sequence parallelism (JAX vit.py:835-836)
+    if cfg.pad_tokens_to > n_real and not win_active and cfg.num_experts == 0 and not sp:
         x = F.pad(x, (0, 0, 0, cfg.pad_tokens_to - n_real))
         key_mask = (torch.arange(cfg.pad_tokens_to, device=x.device) < n_real)[None]
+
+    if sp:  # the token-sharded stream: this rank's ceil(n / mp) tokens
+        x = split_tokens(x, tp)
 
     def run_layer(x, layer, ws):
         bias = None
         if rel_pos:
-            bias = _layer_rel_bias(layer, cfg, gh, ws, shared.get(ws))
+            bias = _layer_rel_bias(layer, cfg, gh, ws, shared.get(ws), tp)
             if bias is not None and key_mask is not None:  # zeros on the padding
                 pad = key_mask.shape[1] - bias.shape[-1]
                 bias = F.pad(bias, (0, pad, 0, pad))
-        return encoder_block(x, layer, cfg, (gh, gw) if ws else None, bias, key_mask)
+        return encoder_block(x, layer, cfg, (gh, gw) if ws else None, bias, key_mask,
+                             tp=tp, n_tokens=n_real, ring=ring)
 
     if remat and torch.is_grad_enabled():
         context = {}
@@ -709,6 +905,8 @@ def vit_forward(
             collected[li] = x
     if aux_out is not None:
         aux_out["moe_aux"] = total_aux
+    if sp:
+        return [collect_tokens(collected[t], tp, n_real) for t in taps]
     if key_mask is not None:  # crop pad_tokens_to's padding
         return [collected[t][:, :n_real] for t in taps]
     return [collected[t] for t in taps]

@@ -36,6 +36,12 @@ the bias to the context [B, N, H, D], whose backward writes dq, dk and
 dv straight into one [B, N, 3*H*D] gradient and, when the bias requires
 a gradient, launches the dbias kernel; ``flash_attention`` is the same
 over separate q, k, v.
+
+The forward, dq and dkdv kernels take a valid-key count ``n_keys <= N``
+(ring attention's blocks, whose last one holds the sequence's padding):
+keys at index >= ``n_keys`` join the ragged edge's mask, out of every
+softmax row, and their dK and dV are 0. ``n_keys == N`` (the default) is
+the unmasked path, the same bits.
 """
 
 from __future__ import annotations
@@ -50,25 +56,43 @@ from layoutdit_tpu_torch.ops.short_attention import split_qkv
 
 HEAD_DIM = 64  # dit-base; the kernels are compiled for this width only
 
+# B, N, H, D, then n_keys (the forward, dq and dkdv kernels)
 _ARGTYPES = (
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     + [ctypes.c_float, ctypes.c_void_p]
 )
 _BWD_ARGTYPES = (
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     + [ctypes.c_float, ctypes.c_void_p]
 )
-_DBIAS_ARGTYPES = _BWD_ARGTYPES[1:]  # one pointer fewer
+_DBIAS_ARGTYPES = (  # one pointer and n_keys fewer
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    + [ctypes.c_float, ctypes.c_void_p]
+)
 
 
 def _scale(q: torch.Tensor, scale: float | None) -> float:
     return 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
 
 
-def _scores(q, k, bias, scale) -> torch.Tensor:
-    """[B, H, N, N] fp32 scores q k^T * scale (+ bias)."""
+def _scores(q, k, bias, scale, n_keys: int | None = None) -> torch.Tensor:
+    """[B, H, N, N] fp32 scores q k^T * scale (+ bias), keys at index >=
+    ``n_keys`` at -inf."""
     s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
-    return s if bias is None else s + bias.float()[None]
+    if bias is not None:
+        s = s + bias.float()[None]
+    if n_keys is not None and n_keys < k.shape[1]:
+        s = s.masked_fill(torch.arange(k.shape[1], device=s.device) >= n_keys, float("-inf"))
+    return s
+
+
+def _n_keys(what: str, n_keys: int | None, n: int) -> int:
+    """The valid-key count the kernels take (N for None); 1..N."""
+    if n_keys is None:
+        return n
+    if not 1 <= n_keys <= n:
+        raise ValueError(f"{what}: n_keys={n_keys} outside 1..{n}")
+    return int(n_keys)
 
 
 def flash_attention_plain(
@@ -77,11 +101,13 @@ def flash_attention_plain(
     v: torch.Tensor,
     bias: torch.Tensor | None = None,
     scale: float | None = None,
+    n_keys: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """softmax(q k^T * scale + bias) v over [B, N, H, D] with fp32 math
-    -> (o [B, N, H, D] in q.dtype, lse [B*H, N] fp32)."""
+    -> (o [B, N, H, D] in q.dtype, lse [B*H, N] fp32); keys at index >=
+    ``n_keys`` (default N) masked."""
     b, n, h, _ = q.shape
-    s = _scores(q, k, bias, _scale(q, scale))
+    s = _scores(q, k, bias, _scale(q, scale), _n_keys("flash_attention", n_keys, n))
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     o = torch.einsum("bhnm,bmhd->bnhd", p, v.float()).to(q.dtype)
@@ -97,17 +123,20 @@ def flash_attention_bwd_plain(
     do: torch.Tensor,
     bias: torch.Tensor | None = None,
     scale: float | None = None,
+    n_keys: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor | None]:
     """(dq, dk, dv, dbias): dq, dk, dv over [B, N, H, D] in fp32 math, out
     in q.dtype, and dbias = sum_b dS, fp32 [H, N, N] (None without a
     bias): the algebra of the Pallas backward (and of its oracle
     ``_bwd_reference``), P = exp(q k^T * scale + bias - lse),
     D = rowsum(dO o O), dV = P^T dO, dS = P o (dO V^T - D),
-    dQ = dS K s, dK = dS^T Q s."""
+    dQ = dS K s, dK = dS^T Q s; keys at index >= ``n_keys`` masked (P 0,
+    so their dK and dV 0)."""
     b, n, h, _ = q.shape
     scale = _scale(q, scale)
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    p = torch.exp(_scores(q, k, bias, scale) - lse.float().reshape(b, h, n, 1))
+    s = _scores(q, k, bias, scale, _n_keys("flash_attention_bwd", n_keys, n))
+    p = torch.exp(s - lse.float().reshape(b, h, n, 1))
     dv = torch.einsum("bhnm,bnhd->bmhd", p, dof)
     dp = torch.einsum("bnhd,bmhd->bhnm", dof, vf)
     delta = (dof * o.float()).sum(-1).permute(0, 2, 1)[..., None]  # [B, H, N, 1]
@@ -180,43 +209,45 @@ def _strides(*tensors: torch.Tensor):
     return (ctypes.c_longlong * (3 * len(tensors)))(*[s for t in tensors for s in t.stride()[:3]])
 
 
-def flash_attention_fwd_launch(q, k, v, bias, scale, o, lse) -> None:
+def flash_attention_fwd_launch(q, k, v, bias, scale, o, lse, n_keys: int = -1) -> None:
     """Launch the forward kernel of ``flash_attention_fwd``: writes o
     (bf16 [B, N, H, D]) and lse (fp32 [B*H, N]). q, k, v and o bf16 rows
     that TMA can read (as ``flash_attention_bwd`` checks them); bias fp32
-    [H, N, N] contiguous or None. The direct launch: it counts nothing
-    (the operator ``layoutdit_torch::flash_attention_fwd`` counts on
+    [H, N, N] contiguous or None; ``n_keys`` the valid keys (-1: N). The
+    direct launch: it counts nothing (the operator
+    ``layoutdit_torch::flash_attention_fwd`` counts on
     ``flash_attention_fwd``)."""
     b, n, h, d = q.shape
+    n_keys = _n_keys("flash_attention", None if n_keys < 0 else n_keys, n)
     _check_rows("flash_attention", q, q=q, k=k, v=v, o=o)
     _check_lse("flash_attention", lse, q, "lse")
     _check_square("flash_attention", q, bias=bias)
     lib = _lib()
     code = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
-        o.data_ptr(), lse.data_ptr(), b, n, h, d, _strides(q, k, v, o), float(scale),
+        o.data_ptr(), lse.data_ptr(), b, n, h, d, n_keys, _strides(q, k, v, o), float(scale),
         _build.stream_ptr(q),
     )
     _build.check(lib, code, "flash_attention")
 
 
-def _fwd_cuda(q, k, v, bias, scale):
+def _fwd_cuda(q, k, v, bias, scale, n_keys=-1):
     b, n, h, d = q.shape
     o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, n), dtype=torch.float32, device=q.device)
-    flash_attention_fwd_launch(q, k, v, bias, scale, o, lse)
+    flash_attention_fwd_launch(q, k, v, bias, scale, o, lse, n_keys)
     flash_attention_fwd.launches += 1
     return o, lse
 
 
-def _fwd_fake(q, k, v, bias, scale):
+def _fwd_fake(q, k, v, bias, scale, n_keys=-1):
     b, n, h, _ = q.shape
     return q.new_empty(q.shape), q.new_empty((b * h, n), dtype=torch.float32)
 
 
 _fwd_op = _library.define(
-    "flash_attention_fwd(Tensor q, Tensor k, Tensor v, Tensor? bias, float scale) "
-    "-> (Tensor, Tensor)",
+    "flash_attention_fwd(Tensor q, Tensor k, Tensor v, Tensor? bias, float scale, "
+    "int n_keys=-1) -> (Tensor, Tensor)",
     fake=_fwd_fake, cuda=_fwd_cuda,
 )
 
@@ -227,28 +258,33 @@ def flash_attention_fwd(
     v: torch.Tensor,
     bias: torch.Tensor | None = None,
     scale: float | None = None,
+    n_keys: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """-> (o [B, N, H, D], lse [B*H, N] fp32). bf16 q/k/v on the card
     (rows 16-byte aligned, as the fused QKV projection's slices are),
     through the operator ``layoutdit_torch::flash_attention_fwd``; any
-    float type on the CPU. Not differentiable by itself on the card:
+    float type on the CPU. Keys at index >= ``n_keys`` (default N) are
+    masked. Not differentiable by itself on the card:
     ``flash_attention`` and ``flash_attention_qkv`` are."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, bias, scale)
+        return flash_attention_plain(q, k, v, bias, scale, n_keys)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    return _fwd_op(q, k, v, _check_bias("flash_attention", bias, q), _scale(q, scale))
+    return _fwd_op(q, k, v, _check_bias("flash_attention", bias, q), _scale(q, scale),
+                   _n_keys("flash_attention", n_keys, q.shape[1]))
 
 
 flash_attention_fwd.launches = 0
 
 
-def flash_attention_bwd_dq(q, k, v, o, lse, do, bias, scale, dq, delta) -> None:
+def flash_attention_bwd_dq(q, k, v, o, lse, do, bias, scale, dq, delta, n_keys=-1) -> None:
     """Launch the dq kernel of ``flash_attention_bwd``: writes dq (bf16
     [B, N, H, D], any row strides) and delta = rowsum(dO o O) (fp32
     [B*H, N], read by ``flash_attention_bwd_dkdv``). CUDA tensors as
-    ``flash_attention_bwd`` checks them; bias fp32 [H, N, N] or None."""
+    ``flash_attention_bwd`` checks them; bias fp32 [H, N, N] or None;
+    ``n_keys`` the valid keys (-1: N)."""
     b, n, h, d = q.shape
+    n_keys = _n_keys("flash_attention_bwd", None if n_keys < 0 else n_keys, n)
     _check_rows("flash_attention_bwd", q, q=q, k=k, v=v, o=o, do=do, dq=dq)
     _check_lse("flash_attention_bwd", lse, q, "lse")
     _check_lse("flash_attention_bwd", delta, q, "delta")
@@ -257,7 +293,7 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, bias, scale, dq, delta) -> None:
     code = lib.flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), None if bias is None else bias.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), b, n, h, d, _strides(q, k, v, o, do, dq), float(scale),
+        dq.data_ptr(), b, n, h, d, n_keys, _strides(q, k, v, o, do, dq), float(scale),
         _build.stream_ptr(q),
     )
     _build.check(lib, code, "flash_attention_bwd_dq")
@@ -266,10 +302,13 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, bias, scale, dq, delta) -> None:
 flash_attention_bwd_dq.launches = 0
 
 
-def flash_attention_bwd_dkdv(q, k, v, lse, do, delta, bias, scale, dk, dv) -> None:
+def flash_attention_bwd_dkdv(q, k, v, lse, do, delta, bias, scale, dk, dv,
+                             n_keys=-1) -> None:
     """Launch the dkdv kernel of ``flash_attention_bwd`` after the dq
-    kernel (it reads that kernel's delta): writes dk and dv."""
+    kernel (it reads that kernel's delta): writes dk and dv (0 for keys
+    at index >= ``n_keys``)."""
     b, n, h, d = q.shape
+    n_keys = _n_keys("flash_attention_bwd", None if n_keys < 0 else n_keys, n)
     _check_rows("flash_attention_bwd", q, q=q, k=k, v=v, do=do, dk=dk, dv=dv)
     _check_lse("flash_attention_bwd", lse, q, "lse")
     _check_lse("flash_attention_bwd", delta, q, "delta")
@@ -278,7 +317,7 @@ def flash_attention_bwd_dkdv(q, k, v, lse, do, delta, bias, scale, dk, dv) -> No
     code = lib.flash_attention_bwd_dkdv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), None if bias is None else bias.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, n, h, d, _strides(q, k, v, do, dk, dv), float(scale),
+        dv.data_ptr(), b, n, h, d, n_keys, _strides(q, k, v, do, dk, dv), float(scale),
         _build.stream_ptr(q),
     )
     _build.check(lib, code, "flash_attention_bwd_dkdv")
@@ -310,13 +349,13 @@ def flash_attention_bwd_dbias(q, k, v, lse, do, delta, bias, scale, dbias) -> No
 flash_attention_bwd_dbias.launches = 0
 
 
-def _dq_cuda(q, k, v, o, lse, dout, bias, scale, dq, delta):
-    flash_attention_bwd_dq(q, k, v, o, lse, dout, bias, scale, dq, delta)
+def _dq_cuda(q, k, v, o, lse, dout, bias, scale, dq, delta, n_keys=-1):
+    flash_attention_bwd_dq(q, k, v, o, lse, dout, bias, scale, dq, delta, n_keys)
     flash_attention_bwd_dq.launches += 1
 
 
-def _dkdv_cuda(q, k, v, lse, dout, delta, bias, scale, dk, dv):
-    flash_attention_bwd_dkdv(q, k, v, lse, dout, delta, bias, scale, dk, dv)
+def _dkdv_cuda(q, k, v, lse, dout, delta, bias, scale, dk, dv, n_keys=-1):
+    flash_attention_bwd_dkdv(q, k, v, lse, dout, delta, bias, scale, dk, dv, n_keys)
     flash_attention_bwd_dkdv.launches += 1
 
 
@@ -331,12 +370,13 @@ def _no_outputs(*args):
 
 _dq_op = _library.define(
     "flash_attention_bwd_dq(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, Tensor dout, "
-    "Tensor? bias, float scale, Tensor(a!) dq, Tensor(b!) delta) -> ()",
+    "Tensor? bias, float scale, Tensor(a!) dq, Tensor(b!) delta, int n_keys=-1) -> ()",
     fake=_no_outputs, cuda=_dq_cuda,
 )
 _dkdv_op = _library.define(
     "flash_attention_bwd_dkdv(Tensor q, Tensor k, Tensor v, Tensor lse, Tensor dout, "
-    "Tensor delta, Tensor? bias, float scale, Tensor(a!) dk, Tensor(b!) dv) -> ()",
+    "Tensor delta, Tensor? bias, float scale, Tensor(a!) dk, Tensor(b!) dv, "
+    "int n_keys=-1) -> ()",
     fake=_no_outputs, cuda=_dkdv_cuda,
 )
 _dbias_op = _library.define(
@@ -357,16 +397,20 @@ def flash_attention_bwd(
     scale: float | None = None,
     out: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
     bias_grad: bool = False,
+    n_keys: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor | None]:
     """(dq, dk, dv, dbias) of flash attention: [B, N, H, D] each, from
     the forward's o and lse [B*H, N], and, with ``bias_grad``, the bias's
     gradient sum_b dS as fp32 [H, N, N] (else None). On the card ``out``
     may name three bf16 [B, N, H, D] views to write into (the slices of a
-    fused QKV gradient); they are returned."""
+    fused QKV gradient); they are returned. ``n_keys``: as the forward's
+    (not with ``bias_grad``: the dbias kernel takes no key count)."""
     if bias_grad and bias is None:
         raise ValueError("flash_attention_bwd: bias_grad needs a bias")
+    if bias_grad and n_keys is not None:
+        raise ValueError("flash_attention_bwd: the dbias kernel takes no n_keys")
     if q.device.type == "cpu":
-        *grads, dbias = flash_attention_bwd_plain(q, k, v, o, lse, do, bias, scale)
+        *grads, dbias = flash_attention_bwd_plain(q, k, v, o, lse, do, bias, scale, n_keys)
         if out is not None:
             for dst, src in zip(out, grads):
                 dst.copy_(src)
@@ -381,8 +425,9 @@ def flash_attention_bwd(
         out = tuple(torch.empty((b, n, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
     dq, dk, dv = out
     delta = torch.empty((b * h, n), dtype=torch.float32, device=q.device)
-    _dq_op(q, k, v, o, lse, do, bias, scale, dq, delta)
-    _dkdv_op(q, k, v, lse, do, delta, bias, scale, dk, dv)
+    n_keys = _n_keys("flash_attention_bwd", n_keys, n)
+    _dq_op(q, k, v, o, lse, do, bias, scale, dq, delta, n_keys)
+    _dkdv_op(q, k, v, lse, do, delta, bias, scale, dk, dv, n_keys)
     dbias = None
     if bias_grad:
         dbias = torch.empty((h, n, n), dtype=torch.float32, device=q.device)

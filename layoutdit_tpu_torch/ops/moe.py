@@ -38,6 +38,16 @@ this is JAX's bf16-in, fp32-accumulate, fp32-bias product. Each stage
 runs under a ``record_function`` range: ``moe_router``, ``moe_dispatch``,
 ``moe_experts`` and ``moe_combine``.
 
+Expert parallelism (``tp``, a model group; JAX shards the stacked
+experts' E dim over the ``model`` axis and lets GSPMD exchange tokens):
+the input is replicated over the group (after the token gather under
+sequence parallelism), so every rank routes every token with the
+replicated router, fills only the slots of its own E / mp experts,
+combines their gated outputs and leaves the sum over the group, in
+float32, to the caller's ``reduce_out``. No all-to-all; the routing, the capacity slots
+and the load-balance loss are the one-process ones, the loss's gradient
+counted once over the group (``parallel.tensor.scale_grad``).
+
 Parameters, in the JAX package's layouts: ``router/weight`` [D, E],
 ``moe_in/{weight [E, D, F], bias [E, F]}``, ``moe_out/{weight [E, F, D],
 bias [E, D]}``.
@@ -51,7 +61,8 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from layoutdit_tpu_torch.parallel.mesh import global_mean
+from layoutdit_tpu_torch.parallel.mesh import ModelGroup, global_mean
+from layoutdit_tpu_torch.parallel.tensor import scale_grad
 
 
 def moe_capacity(tokens: int, num_experts: int, top_k: int, capacity_factor: float) -> int:
@@ -125,20 +136,37 @@ def route(y: torch.Tensor, router: torch.Tensor, num_experts: int, top_k: int, c
 
 
 def moe_mlp(y: torch.Tensor, params: dict, num_experts: int, top_k: int = 1,
-            capacity_factor: float = 1.25) -> tuple[torch.Tensor, torch.Tensor]:
+            capacity_factor: float = 1.25, tp: ModelGroup | None = None,
+            dtype: torch.dtype | None = None,
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Sparse MLP over ``y`` [B, S, D] (the block's post-LN input): each
     token to its top-k experts at static capacity, the experts' GELU MLPs,
-    the gated outputs summed. -> (out [B, S, D] in y's dtype, the fp32
-    load-balance loss)."""
+    the gated outputs summed. -> (out [B, S, D] in the compute dtype
+    ``dtype`` (y's by default), the fp32 load-balance loss). Under ``tp``
+    the experts are this rank's E / mp (``params``' shards), ``y`` the
+    region's float32 carrier of ``dtype`` values
+    (``parallel.tensor.copy_in``: its gradient, this rank's partial, stays
+    float32) and ``out`` their float32 part of the sum."""
+    dtype = y.dtype if dtype is None else dtype
     b, s, d = y.shape
     e, k = num_experts, top_k
     c = moe_capacity(s, e, k, capacity_factor)
+    size = 1 if tp is None else tp.size
+    if e % size:
+        raise ValueError(f"num_experts={e} does not split over model_parallel={size} ranks")
+    local, first = e // size, 0 if tp is None else tp.rank * (e // size)
     with record_function("moe_router"):
         experts, gates, slots, kept, aux = route(y, params["router"]["weight"], e, k, c)
+        aux = scale_grad(aux, 1.0 / size)
     with record_function("moe_dispatch"):
         rows = torch.arange(b, device=y.device)[:, None] * c  # [B, 1]
-        # each kept (token, choice) -> its slot in the [E, B, C] expert batch
-        flat = [torch.where(keep, idx * (b * c) + rows + pos, e * b * c)
+        # each kept (token, choice) of this rank's experts -> its slot in
+        # the [E_local, B, C] expert batch; the rest to the dump slot
+        if size > 1:
+            kept = [keep & (idx >= first) & (idx < first + local)
+                    for idx, keep in zip(experts, kept)]
+        e = local
+        flat = [torch.where(keep, (idx - first) * (b * c) + rows + pos, e * b * c)
                 for idx, pos, keep in zip(experts, slots, kept)]
         token = torch.arange(b * s, device=y.device)
         # the token filling each slot; empty slots (and the dump slot
@@ -149,10 +177,10 @@ def moe_mlp(y: torch.Tensor, params: dict, num_experts: int, top_k: int = 1,
         y_rows = torch.cat([y.reshape(b * s, d), y.new_zeros(1, d)])
         xin = y_rows.index_select(0, source[:-1]).view(e, b * c, d)
     with record_function("moe_experts"):
-        w_in = params["moe_in"]["weight"].to(y.dtype).float()
+        w_in = params["moe_in"]["weight"].to(dtype).float()
         h = torch.baddbmm(params["moe_in"]["bias"].float()[:, None, :], xin.float(), w_in)
-        h = F.gelu(h).to(y.dtype)
-        w_out = params["moe_out"]["weight"].to(y.dtype).float()
+        h = F.gelu(h).to(dtype)
+        w_out = params["moe_out"]["weight"].to(dtype).float()
         out_e = torch.baddbmm(params["moe_out"]["bias"].float()[:, None, :], h.float(), w_out)
     with record_function("moe_combine"):
         out_rows = out_e.reshape(e * b * c, d)
@@ -161,4 +189,4 @@ def moe_mlp(y: torch.Tensor, params: dict, num_experts: int, top_k: int = 1,
             picked = out_rows.index_select(0, f.reshape(-1).clamp(max=e * b * c - 1))
             part = torch.where(keep.reshape(-1, 1), gate.reshape(-1, 1) * picked, 0.0)
             out = part if out is None else out + part
-    return out.view(b, s, d).to(y.dtype), aux
+    return out.view(b, s, d).to(dtype if size == 1 else torch.float32), aux

@@ -1,5 +1,6 @@
-"""Process groups and the data-parallel mesh (port of the data-parallel
-half of ``layoutdit_tpu/parallel/mesh.py``).
+"""Process groups and the data x model mesh (port of
+``layoutdit_tpu/parallel/mesh.py``'s ``build_mesh`` and
+``build_mesh_for_batch`` without the pipeline and DCN axes).
 
 The JAX package shards the batch over a mesh's ``data`` axis and lets
 ``jit`` insert the gradient all-reduce: every loss is then the loss of
@@ -9,10 +10,16 @@ the CPU) and writes those collectives out:
 
   * ``maybe_distributed_init`` starts the process group from torchrun's
     environment or from the config's coordinator fields;
-  * ``build_mesh_for_batch`` resolves ``mesh_config.data_parallel`` into
-    a ``DataMesh``: the degree, this rank's place in it, and the rows of
-    every global batch that this rank loads (``DataMesh.rows``);
-  * ``Comm`` holds the collectives the ranks use;
+  * ``build_mesh_for_batch`` resolves ``mesh_config.data_parallel`` and
+    ``model_parallel`` into a ``DataMesh``: the data degree, this rank's
+    data index, the rows of every global batch that it loads
+    (``DataMesh.rows``) and, with ``model_parallel`` > 1, its model group
+    (``ModelGroup``). Ranks are laid out as JAX lays out the devices of a
+    [data, model] mesh: rank = data index x mp + model index, the model
+    axis innermost; the ranks of a model group share their data index and
+    so load the same rows;
+  * ``Comm`` holds the collectives the ranks use, over the world or over
+    one of its groups, and the ring's point-to-point ``ppermute``;
   * ``losses_over(mesh)`` makes every batch-wide normalizer of the
     losses global (``global_count``, ``rank_share``, ``global_mean``).
 
@@ -182,11 +189,36 @@ class Comm:
         dist.all_reduce(t, op=op, group=self.group)
         return t
 
+    def _global(self, rank: int) -> int:
+        """The world rank of this group's ``rank`` (torch's collectives
+        and point-to-point ops name peers by world rank)."""
+        return rank if self.group is None else dist.get_global_rank(self.group, rank)
+
     def broadcast_(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """``t`` of this group's rank ``src`` on every rank, in place."""
         if self._staged(t):
             return t.copy_(self.broadcast_(t.cpu(), src))
-        dist.broadcast(t, src, group=self.group)
+        dist.broadcast(t, self._global(src), group=self.group)
         return t
+
+    def ppermute(self, t: torch.Tensor, shift: int = 1) -> torch.Tensor:
+        """The ring step (JAX's ``lax.ppermute`` over [(i, i + shift)]):
+        ``t`` goes to rank + shift, and the tensor of rank - shift (its
+        shape and dtype) comes back, new. One ``batch_isend_irecv`` of a
+        send and a receive, on gloo and NCCL alike."""
+        if self.world == 1:
+            return t
+        if self._staged(t):
+            return self.ppermute(t.cpu(), shift).to(t.device)
+        t = t.contiguous()
+        out = torch.empty_like(t)
+        ops = [dist.P2POp(dist.isend, t, self._global((self.rank + shift) % self.world),
+                          self.group),
+               dist.P2POp(dist.irecv, out, self._global((self.rank - shift) % self.world),
+                          self.group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return out
 
     def all_gather(self, shard: torch.Tensor, dim: int) -> torch.Tensor:
         """The ranks' ``shard``s concatenated along ``dim``, in rank order."""
@@ -214,7 +246,7 @@ class Comm:
 
     def broadcast_object(self, obj, src: int = 0):
         box = [obj]
-        dist.broadcast_object_list(box, src, group=self.group)
+        dist.broadcast_object_list(box, self._global(src), group=self.group)
         return box[0]
 
     def any(self, flag: bool) -> bool:
@@ -225,15 +257,46 @@ class Comm:
 
 
 @dataclasses.dataclass(frozen=True)
+class ModelGroup:
+    """The ``size`` model-parallel ranks that share one data index, this
+    one ``rank`` among them, ``comm`` their collectives: the model axis
+    that tensor, sequence and expert parallelism (``parallel/tensor.py``,
+    ``parallel/sharding.py``) work over, and that ring attention rotates
+    K and V around. ``sequence_parallel``: the encoder's residual stream
+    stays token-sharded over the group between blocks."""
+
+    size: int
+    rank: int
+    comm: Comm
+    sequence_parallel: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
 class DataMesh:
-    """``degree`` data-parallel ranks, this one ``rank``; ``comm`` their
-    collectives (None for one process outside a group); ``fsdp`` shards
-    the parameters and moments over them (``parallel/sharding.py``)."""
+    """``degree`` data-parallel ranks, this one's data index ``rank``;
+    ``comm`` their collectives (None for one process outside a group);
+    ``fsdp`` shards the parameters and moments over them
+    (``parallel/sharding.py``). With a model axis, ``model`` is this
+    rank's ``ModelGroup`` (None: no tensor parallelism), ``comm`` the
+    data group of its model index, and ``world`` the collectives of every
+    rank (the agreed stop, the start from one state)."""
 
     degree: int = 1
     rank: int = 0
     comm: Comm | None = None
     fsdp: bool = False
+    model: ModelGroup | None = None
+    world: Comm | None = None
+
+    @property
+    def everyone(self) -> Comm | None:
+        """The collectives of every rank of the mesh."""
+        return self.world if self.world is not None else self.comm
+
+    @property
+    def size(self) -> int:
+        """Every rank of the mesh: the data degree x the model degree."""
+        return self.degree * (self.model.size if self.model is not None else 1)
 
     def rows(self, batch_size: int, accum: int = 1) -> np.ndarray:
         """The rows of a global batch this rank loads, in order. With
@@ -248,38 +311,77 @@ class DataMesh:
 
     @property
     def lead(self) -> bool:
-        return self.rank == 0
+        return self.rank == 0 and (self.model is None or self.model.rank == 0)
 
 
 def build_mesh_for_batch(cfg: MeshConfig, batch_size: int, accum: int = 1,
                          comm: Comm | None = None) -> DataMesh:
     """The ``DataMesh`` of ``cfg`` over the running processes (``comm``'s,
-    else the default group's, else this one): ``resolve_degree``'s rules,
-    and a degree that differs from the number of processes raises (start
-    as many as the degree; the launcher in ``main`` does). Each micro-batch
-    of ``accum`` must split evenly over the ranks."""
+    else the default group's, else this one). The model degree mp is
+    ``model_parallel``; ``resolve_degree``'s rules give the data degree
+    over the world / mp ranks (-1 takes them all, the batch clamps it);
+    a layout that does not use every process raises, as JAX's
+    ``build_mesh(strict=True)`` does (start data x model ranks; the
+    launcher in ``main`` does). Each micro-batch of ``accum`` must split
+    evenly over the data ranks. With mp > 1 every rank creates every
+    model group and every data group, in one order, as ``new_group``
+    requires."""
     if comm is None and dist.is_initialized():
         comm = Comm()
     world = comm.world if comm is not None else 1
-    dp = resolve_degree(cfg.data_parallel, world, batch_size)
-    if dp != world:
-        raise ValueError(f"mesh_config.data_parallel resolves to {dp} ranks for batch_size "
-                         f"{batch_size}, but {world} processes are running; start {dp}")
+    mp = max(1, cfg.model_parallel)
+    if world % mp:
+        raise ValueError(f"mesh_config.model_parallel={mp} does not divide the {world} "
+                         "running processes")
+    dp = resolve_degree(cfg.data_parallel, world // mp, batch_size)
+    if dp * mp != world:
+        raise ValueError(f"mesh {dp}x{mp} (data x model) for batch_size {batch_size} needs "
+                         f"{dp * mp} processes, but {world} processes are running; start "
+                         f"{dp * mp}")
     if (batch_size // accum) % dp:
         raise ValueError(f"the micro-batch of {batch_size // accum} rows (batch_size "
                          f"{batch_size} / grad_accumulation_steps {accum}) does not split "
                          f"over {dp} data-parallel ranks")
-    return DataMesh(degree=dp, rank=comm.rank if comm is not None else 0, comm=comm,
-                    fsdp=cfg.fsdp and dp > 1)
+    rank = comm.rank if comm is not None else 0
+    if mp == 1:
+        return DataMesh(degree=dp, rank=rank, comm=comm, fsdp=cfg.fsdp and dp > 1)
+    if cfg.fsdp and dp > 1:
+        raise NotImplementedError(
+            "mesh_config.fsdp with model_parallel > 1 (FSDP over a tensor-parallel mesh) is "
+            "not supported by the port yet; it waits for ROADMAP queue 1 item 7")
+    groups = mesh_groups(dp, mp, comm)
+    data_index, model_index = divmod(rank, mp)
+    return DataMesh(degree=dp, rank=data_index, comm=groups["data"][model_index],
+                    model=ModelGroup(mp, model_index, groups["model"][data_index],
+                                     sequence_parallel=cfg.sequence_parallel),
+                    world=comm)
+
+
+def mesh_groups(dp: int, mp: int, comm: Comm) -> dict[str, list]:
+    """The ``Comm`` of every group of a dp x mp mesh over ``comm``'s
+    ranks, this rank's filled in (None for the others): ``"model"`` by
+    data index (ranks d*mp .. d*mp + mp-1), ``"data"`` by model index
+    (ranks m, mp + m, ...). Every rank makes every group, in this order."""
+    out: dict[str, list] = {"model": [], "data": []}
+    for d in range(dp):
+        ranks = [comm._global(d * mp + m) for m in range(mp)]
+        g = dist.new_group(ranks)
+        out["model"].append(Comm(g) if comm.rank // mp == d else None)
+    for m in range(mp):
+        ranks = [comm._global(d * mp + m) for d in range(dp)]
+        g = dist.new_group(ranks)
+        out["data"].append(Comm(g) if comm.rank % mp == m else None)
+    return out
 
 
 def replicate_tree(leaves: list[torch.Tensor], mesh: DataMesh) -> None:
     """Every rank takes rank 0's ``leaves`` (in place), so that all start
     from one state."""
-    if mesh.comm is not None and mesh.degree > 1:
+    comm = mesh.everyone
+    if comm is not None and mesh.size > 1:
         with torch.no_grad():
             for t in leaves:
-                mesh.comm.broadcast_(t.data)
+                comm.broadcast_(t.data)
 
 
 # ------------------------------------------------------------ losses

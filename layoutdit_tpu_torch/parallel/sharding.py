@@ -1,5 +1,5 @@
-"""Gradient reduction and FSDP over the port's parameter leaves (port of
-the data-parallel half of ``layoutdit_tpu/parallel/sharding.py``).
+"""Gradient reduction, FSDP and the tensor-parallel leaf layout over the
+port's parameter leaves (port of ``layoutdit_tpu/parallel/sharding.py``).
 
 Data parallelism: every rank holds the whole tree; after the backward
 the gradients are summed over the ranks in buckets (``all_reduce_``) and
@@ -27,8 +27,38 @@ layout (the lead rank gathers, then writes).
 One difference from JAX, where XLA gathers each weight at its use: the
 whole tree is gathered before the forward, so a step's peak holds the
 full parameters and gradients beside the shards; between steps only the
-shards live. The Megatron specs of tensor parallelism wait for the
-model-parallel half of ROADMAP queue 1 item 7.
+shards live.
+
+Tensor parallelism (``TpLayout``, JAX's ``_vit_layer_specs`` and
+``detector_param_specs`` leaf for leaf): the port stores torch's
+[out, in] weights, so JAX's column-parallel ``P(None, model)`` is dim 0
+here and row-parallel ``P(model, None)`` dim 1.
+
+  * column-parallel (dim 0, bias too): the encoder's ``qkv`` and
+    ``mlp_in``, the box head's ``fc6``; row-parallel (dim 1, the bias
+    replicated and added once after the reduce): ``attn_out``,
+    ``mlp_out``, ``fc7``;
+  * the fused ``qkv`` is [q; k; v] rows: model rank m holds
+    ``[q_m; k_m; v_m]``, the same slice of each third (three strided
+    blocks), so its local heads are H / mp and the zero K-bias slot is
+    the middle third of its shard;
+  * LoRA: on a column-parallel projection (the q / k / v adapters beside
+    ``qkv``, ``mlp_in``) A [d_in, r] is replicated and B [r, d_out]
+    shards dim 1; on a row-parallel one A shards dim 0 and B is
+    replicated;
+  * MoE (expert parallelism): ``moe_in`` / ``moe_out`` weights and
+    biases shard dim 0, the expert dim; the router is replicated;
+  * everything else is replicated.
+
+A replicated leaf used inside the model-parallel region has a partial
+gradient on each rank, which the ranks of a model group must sum
+(``TpLayout.partial``): the replicated LoRA factors, the router (each
+rank's experts' part; the load-balance term counted once,
+``tensor.scale_grad``) and the relative-position tables (each rank
+gathers its heads' columns); under sequence parallelism also the
+LayerNorms, the layer scales and the row-parallel biases, which act on
+token shards. The other replicated leaves' gradients are the same on
+every rank of the group.
 """
 
 from __future__ import annotations
@@ -38,7 +68,8 @@ import math
 import torch
 import torch.distributed as dist
 
-from layoutdit_tpu_torch.parallel.mesh import Comm, DataMesh
+from layoutdit_tpu_torch.parallel.mesh import Comm, DataMesh, ModelGroup
+from layoutdit_tpu_torch.parallel.tensor import gather_qkv
 
 # leaves smaller than this stay replicated under FSDP (JAX's
 # _FSDP_MIN_ELEMENTS): sharding a LayerNorm scale saves nothing and costs
@@ -128,15 +159,150 @@ class FsdpLayout:
         """The L2 norm of the whole gradient from this rank's part of it:
         the shards' squares summed over the ranks, the replicated leaves'
         counted once."""
-        def sq(ts):
-            return (torch.stack(torch._foreach_norm(ts)).square().sum() if ts
-                    else torch.zeros((), device=grads[0].device))
-
-        sharded = sq([g for g, d in zip(grads, self.dims, strict=True) if d is not None])
-        replicated = sq([g for g, d in zip(grads, self.dims, strict=True) if d is None])
-        return torch.sqrt(self.comm.all_reduce_(sharded) + replicated)
+        return _global_norm(grads, self.dims, self.comm)
 
     def everywhere(self, flag: torch.Tensor) -> torch.Tensor:
         """A boolean scalar, True where it is True on every rank."""
-        t = flag.to(torch.int32).reshape(1)
-        return self.comm.all_reduce_(t, op=dist.ReduceOp.MIN)[0].bool()
+        return _everywhere(flag, self.comm)
+
+
+def _global_norm(grads: list[torch.Tensor], dims: list, comm: Comm) -> torch.Tensor:
+    """sqrt(the sharded leaves' (dim not None) squares summed over
+    ``comm`` + the replicated leaves' squares, counted once)."""
+    def sq(ts):
+        return (torch.stack(torch._foreach_norm(ts)).square().sum() if ts
+                else torch.zeros((), device=grads[0].device))
+
+    sharded = sq([g for g, d in zip(grads, dims, strict=True) if d is not None])
+    replicated = sq([g for g, d in zip(grads, dims, strict=True) if d is None])
+    return torch.sqrt(comm.all_reduce_(sharded) + replicated)
+
+
+def _everywhere(flag: torch.Tensor, comm: Comm) -> torch.Tensor:
+    t = flag.to(torch.int32).reshape(1)
+    return comm.all_reduce_(t, op=dist.ReduceOp.MIN)[0].bool()
+
+
+# --------------------------------------------------- tensor parallelism
+
+_COL = ("mlp_in", "fc6")
+_ROW = ("attn_out", "mlp_out", "fc7")
+_LORA_COL = ("q", "k", "v", "mlp_in")
+_EXPERTS = ("moe_in", "moe_out")
+_SP_PARTIAL = ("ln1", "ln2", "lambda_1", "lambda_2")
+QKV = "qkv"
+
+
+def tp_spec(path: str) -> int | str | None:
+    """The model-axis layout of the leaf at ``path`` (``tree_paths``): the
+    dim it shards, ``"qkv"`` for the fused projection's strided rows, or
+    None (replicated)."""
+    keys = path.split("/")
+    name, leaf = keys[-2] if len(keys) > 1 else "", keys[-1]
+    in_layers = "vit" in keys and "layers" in keys
+    if not (in_layers or "box_head" in keys):
+        return None
+    if in_layers and name == QKV:
+        return QKV
+    if leaf in ("lora_a", "lora_b"):
+        if not in_layers:
+            return None
+        if name in _LORA_COL:
+            return 1 if leaf == "lora_b" else None
+        return 0 if leaf == "lora_a" and name in _ROW else None
+    if name in _EXPERTS and in_layers:
+        return 0
+    if name in _COL:
+        return 0
+    if name in _ROW and leaf == "weight":
+        return 1
+    return None
+
+
+def tp_partial(path: str, sequence_parallel: bool) -> bool:
+    """Whether the leaf at ``path``, replicated over a model group, gets a
+    partial gradient on each rank (summed over the group)."""
+    keys = path.split("/")
+    if "vit" not in keys:
+        return False
+    name, leaf = keys[-2], keys[-1]
+    if leaf.endswith("rel_pos_table"):
+        return True
+    if "layers" not in keys or tp_spec(path) is not None:
+        return False
+    if leaf in ("lora_a", "lora_b") or name == "router":
+        return True
+    if sequence_parallel:
+        return name in _SP_PARTIAL or leaf in _SP_PARTIAL or (
+            name in _ROW and leaf == "bias")
+    return False
+
+
+def _shard_one(t: torch.Tensor, spec, size: int, rank: int) -> torch.Tensor:
+    if spec is None:
+        return t
+    if spec == QKV:
+        d = t.shape[0] // (3 * size)
+        if d * 3 * size != t.shape[0]:
+            raise ValueError(f"qkv rows {t.shape[0]} do not split into 3 x {size} blocks")
+        return t.detach().unflatten(0, (3, size, d))[:, rank].flatten(0, 1).clone()
+    if t.shape[spec] % size:
+        raise ValueError(f"a leaf of shape {tuple(t.shape)} does not split over {size} "
+                         f"model-parallel ranks on dim {spec}")
+    k = t.shape[spec] // size
+    return t.detach().narrow(spec, rank * k, k).clone()
+
+
+class TpLayout:
+    """The model-axis layout of a list of leaves (their ``tree_paths``)
+    over ``group``: which dim each shards (``specs``) and which
+    replicated ones have partial gradients (``partial``); the moves
+    between full tensors and shards, the gradient sum over the group,
+    and the clip norm and finite test over the whole gradient."""
+
+    def __init__(self, paths: list[str], group: ModelGroup):
+        self.group = group
+        self.comm = group.comm
+        self.specs = [tp_spec(p) for p in paths]
+        self.partial = [tp_partial(p, group.sequence_parallel) for p in paths]
+
+    def subset(self, keep: list[bool]) -> "TpLayout":
+        """The layout of the leaves where ``keep`` is True."""
+        sub = TpLayout([], self.group)
+        sub.specs = [s for s, k in zip(self.specs, keep, strict=True) if k]
+        sub.partial = [p for p, k in zip(self.partial, keep, strict=True) if k]
+        return sub
+
+    def shard(self, tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Full tensors (the same on every rank) -> this rank's shards
+        (new tensors; a replicated one as it is)."""
+        return [_shard_one(t, s, self.group.size, self.group.rank)
+                for t, s in zip(tensors, self.specs, strict=True)]
+
+    @torch.no_grad()
+    def gather(self, shards: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Shards -> the full tensors (a replicated one as it is)."""
+        out = []
+        for t, s in zip(shards, self.specs, strict=True):
+            if s is None:
+                out.append(t)
+            elif s == QKV:
+                out.append(gather_qkv(t.detach(), self.group))
+            else:
+                out.append(self.comm.all_gather(t.detach(), s))
+        return out
+
+    def reduce_partial(self, grads: list[torch.Tensor]) -> None:
+        """The partial gradients summed over the model group, in place."""
+        all_reduce_([g for g, p in zip(grads, self.partial, strict=True) if p], self.comm)
+
+    def global_norm(self, grads: list[torch.Tensor]) -> torch.Tensor:
+        """The L2 norm of the whole gradient from this rank's part of it:
+        the shards' squares summed over the group, the replicated leaves'
+        (the same on every rank by then) counted once."""
+        return _global_norm(grads, self.specs, self.comm)
+
+    def everywhere(self, flag: torch.Tensor) -> torch.Tensor:
+        """A boolean scalar, True where it is True on every rank of the
+        group."""
+        return _everywhere(flag, self.comm)

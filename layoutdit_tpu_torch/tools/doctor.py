@@ -14,10 +14,10 @@ watchdog (``_with_timeout``), so the doctor always ends. The checks:
     device FAILs, and the CPU is never reported as one;
   * kernels: nvcc is found and ``ops/_build.py`` builds and loads every
     ``csrc/*.cu`` into ``build/kernels``;
-  * mesh: the data degree and backend the config's ``mesh_config``
-    resolves to on this host (``main``'s launcher: one rank per card);
-    a degree this host's cards cannot hold WARNs (it may span hosts), a
-    model-parallel mesh FAILs (ROADMAP queue 1 item 7);
+  * mesh: the data x model layout and backend the config's
+    ``mesh_config`` resolves to on this host (``main``'s launcher: one
+    rank per card); a layout this host's cards cannot hold WARNs (it may
+    span hosts); a pipeline or DCN mesh FAILs (ROADMAP queue 1 item 7);
   * native: the JPEG loader and the COCO parser build and load;
   * pretrained: ``LAYOUTDIT_DIT_{BASE,LARGE}_PTH`` name a local checkpoint;
   * kernel-build-dir: ``build/kernels`` is writable (the JAX doctor's
@@ -152,13 +152,23 @@ def check_mesh() -> dict:
     from layoutdit_tpu_torch.parallel.mesh import resolve_degree
 
     backend = "nccl" if cards else "gloo (no card)"
+    mp = max(1, mesh.model_parallel)
     try:
-        dp = resolve_degree(mesh.data_parallel, max(cards, 1), batch)
+        if mp > max(cards, 1):
+            raise ValueError(f"model_parallel {mp} needs {mp} cards")
+        dp = resolve_degree(mesh.data_parallel, max(cards, 1) // mp, batch)
     except ValueError as e:
         return _result("mesh", "WARN", f"{e} on this host; backend {backend}")
     fsdp = ", fsdp" if mesh.fsdp and dp > 1 else ""
-    return _result("mesh", "OK", f"data_parallel {dp} (one rank per card{fsdp}), backend "
-                                 f"{backend}")
+    if mp == 1:
+        return _result("mesh", "OK", f"data_parallel {dp} (one rank per card{fsdp}), backend "
+                                     f"{backend}")
+    if mesh.fsdp and dp > 1:
+        return _result("mesh", "FAIL", "fsdp with model_parallel > 1 waits for ROADMAP queue "
+                                       "1 item 7")
+    sp = ", sequence_parallel" if mesh.sequence_parallel else ""
+    return _result("mesh", "OK", f"data_parallel {dp} x model_parallel {mp}{sp} ({dp * mp} "
+                                 f"ranks, one per card), backend {backend}")
 
 
 def check_native() -> dict:

@@ -32,14 +32,24 @@ JAX server (bake int8 in at export time). ``--data-parallel N`` serves
 N replicas of the model on cards 0..N-1 in this one process (-1: every
 card), the batcher's batches split over them (``eval/serving.py``); more
 cards than exist raise and fewer warn, as in the JAX server; on the CPU
-(``--device cpu``) it makes N CPU replicas. ``--model-parallel`` waits
-for model parallelism (queue 1 item 7) and raises.
+(``--device cpu``) it makes N CPU replicas.
+
+``--model-parallel M`` serves the model tensor-parallel (JAX
+``tools/serve.py:410-455``): this process and M - 1 (or D x M - 1 with
+``--data-parallel D``) rank processes it starts form a data x model
+mesh, one rank a card (gloo ranks on the CPU with ``--device cpu``).
+This process, rank 0, runs the HTTP server and the batcher; each padded
+bucket batch goes to every rank, each model group predicts its rows on
+its shards of the weights, and rank 0 answers (``eval/serving.py``).
+More ranks than cards raise; ``--int8`` and ``--export-dir`` with it
+raise, as in the JAX server. ``--model-parallel 1`` is the plain engine.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing
 import queue
 import signal
 import threading
@@ -51,10 +61,6 @@ import torch
 from layoutdit_tpu_torch.log import get_logger
 
 logger = get_logger(__name__)
-
-MESH_REFUSED = ("--model-parallel: tensor-parallel serving is not supported by the port yet; "
-                "it waits for model parallelism (ROADMAP queue 1 item 7)")
-
 
 def serving_devices(data_parallel: int, device: str = "cuda") -> list[torch.device]:
     """The devices of ``--data-parallel`` replicas (JAX ``tools/serve.py``):
@@ -324,18 +330,21 @@ def make_server(model, host: str, port: int, *, image_sizes=(224,), batch_size: 
                 score_thresh: float = 0.05, flush_ms: float = 5.0,
                 max_batch: int | None = None, dataset: str | None = None,
                 export_dir: str | None = None, device: str = "cuda", int8: bool = False,
-                devices: list | None = None):
+                devices: list | None = None, mesh=None):
     """(ThreadingHTTPServer, DynamicBatcher), the batcher started; split
     from ``main`` so that tests and scripts run the server in-process.
     ``model``: anything with ``.params`` and ``.cfg`` (a live model), or
     None with ``export_dir``: then an exported artifact (``export.py``) is
     served, its buckets and batch size from its manifest, and ``int8``
     does not apply. ``int8``: the live engine's W8A8 encoder. ``devices``:
-    one replica of the live model on each (``serving_devices``)."""
+    one replica of the live model on each (``serving_devices``).
+    ``mesh``: tensor-parallel serving over a data x model mesh, this rank
+    0 (``eval/serving.py``); the engine's ``close()`` releases the other
+    ranks."""
     from layoutdit_tpu_torch.tools.predict import _label_names
 
     if export_dir is not None:
-        if model is not None or int8 or devices:
+        if model is not None or int8 or devices or mesh is not None:
             raise ValueError("--export-dir serves a frozen artifact: model/int8/devices do not "
                              "apply (bake them in at export time)")
         from layoutdit_tpu_torch.eval.serving import ExportedInferenceEngine
@@ -348,7 +357,7 @@ def make_server(model, host: str, port: int, *, image_sizes=(224,), batch_size: 
 
         engine = BatchInferenceEngine(model, image_sizes=tuple(image_sizes),
                                       batch_size=batch_size, score_thresh=score_thresh,
-                                      device=device, int8=int8, devices=devices)
+                                      device=device, int8=int8, devices=devices, mesh=mesh)
         n_classes = model.cfg.num_classes
     names = _label_names(n_classes, dataset)
     info = {
@@ -372,10 +381,74 @@ def make_server(model, host: str, port: int, *, image_sizes=(224,), batch_size: 
     httpd = _Server((host, port), make_handler(batcher, names, info, metrics))
     httpd.metrics = metrics
     httpd.info = info
+    httpd.engine = engine
     return httpd, batcher
 
 
-def main(argv=None) -> None:
+def model_parallel_ranks(model_parallel: int, data_parallel: int, device: str = "cuda") -> int:
+    """The ranks of ``--model-parallel`` M (x ``--data-parallel`` D):
+    D x M, one a card; more than the cards raise ``SystemExit`` (JAX's
+    ``need > len(devices)``), except on the CPU."""
+    if model_parallel < 1:
+        raise SystemExit("--model-parallel must be >= 1")
+    if data_parallel < 0:
+        raise SystemExit("--data-parallel -1 with --model-parallel: give the number of "
+                         "model groups")
+    need = max(1, data_parallel) * model_parallel
+    if torch.device(device).type == "cuda" and need > torch.cuda.device_count():
+        raise SystemExit(f"--model-parallel {model_parallel} x --data-parallel "
+                         f"{max(1, data_parallel)} needs {need} cards, but only "
+                         f"{torch.cuda.device_count()} available")
+    return need
+
+
+def _serving_mesh(args, rank: int, world: int, port: int):
+    """Join the serving ranks' process group (gloo on the CPU, NCCL on
+    the card, one card a rank) -> the data x model mesh."""
+    import torch.distributed as dist
+
+    from layoutdit_tpu_torch.config import MeshConfig
+    from layoutdit_tpu_torch.parallel.mesh import build_mesh_for_batch
+
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank)
+    mp = args.model_parallel
+    return build_mesh_for_batch(MeshConfig(data_parallel=world // mp, model_parallel=mp),
+                                args.batch_size or 8)
+
+
+def _follower(argv: list[str], rank: int, world: int, port: int) -> None:
+    """A rank other than 0: its engine runs rank 0's batches."""
+    import torch.distributed as dist
+
+    from layoutdit_tpu_torch.eval.serving import BatchInferenceEngine
+    from layoutdit_tpu_torch.tools.predict import load_model
+
+    args = _parser().parse_args(argv)
+    mesh = _serving_mesh(args, rank, world, port)
+    try:
+        device = f"cuda:{torch.cuda.current_device()}" if args.device != "cpu" else "cpu"
+        _, model = load_model(args.checkpoint, device)
+        engine = BatchInferenceEngine(model, image_sizes=tuple(args.sizes or [224]),
+                                      batch_size=args.batch_size or 8,
+                                      score_thresh=args.score_thresh, device=device, mesh=mesh)
+        engine.serve_follower()
+    finally:
+        dist.destroy_process_group()
+
+
+def _start_followers(argv: list[str], world: int, port: int) -> list:
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_follower, args=(argv, r, world, port)) for r in range(1, world)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="Layout detection HTTP server")
     src = parser.add_mutually_exclusive_group(required=True)
     src.add_argument("--checkpoint",
@@ -404,15 +477,43 @@ def main(argv=None) -> None:
                         help="replicas on cards 0..N-1 (-1: every card); the batches split "
                              "over them")
     parser.add_argument("--model-parallel", type=int, default=1,
-                        help="refused: waits for model parallelism (ROADMAP queue 1 item 7)")
-    args = parser.parse_args(argv)
+                        help="tensor-parallel ranks a model group (with --data-parallel D: "
+                             "D groups), one a card; this process is rank 0")
+    return parser
+
+
+def main(argv=None) -> None:
+    import sys
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _parser().parse_args(argv)
 
     from layoutdit_tpu_torch.tools.predict import load_model
 
+    model = devices = mesh = None
+    followers: list = []
     if args.model_parallel != 1:
-        raise SystemExit(MESH_REFUSED)
-    model = devices = None
-    if args.checkpoint is not None:
+        if args.export_dir is not None:
+            raise SystemExit("--export-dir with --model-parallel: an exported artifact is "
+                             "one program on one device; serve the checkpoint instead")
+        if args.int8:
+            raise SystemExit("--int8 with --model-parallel: the int8 kernels are not "
+                             "model-sharded (as in the JAX server)")
+        world = model_parallel_ranks(args.model_parallel, args.data_parallel, args.device)
+        from layoutdit_tpu_torch.parallel.mesh import free_port
+
+        port = free_port()
+        followers = _start_followers(argv, world, port)
+        try:
+            mesh = _serving_mesh(args, 0, world, port)
+            if args.device != "cpu":
+                args.device = f"cuda:{torch.cuda.current_device()}"
+            _, model = load_model(args.checkpoint, args.device)
+        except BaseException:
+            for p in followers:
+                p.terminate()
+            raise
+    elif args.checkpoint is not None:
         if args.data_parallel:
             devices = serving_devices(args.data_parallel, args.device)
         _, model = load_model(args.checkpoint, args.device)
@@ -426,6 +527,7 @@ def main(argv=None) -> None:
         batch_size=args.batch_size or 8, score_thresh=args.score_thresh,
         flush_ms=args.flush_ms, max_batch=args.max_batch, dataset=args.dataset,
         export_dir=args.export_dir, device=args.device, int8=args.int8, devices=devices,
+        mesh=mesh,
     )
 
     # SIGTERM stops accepting, lets the requests in flight finish and
@@ -452,6 +554,15 @@ def main(argv=None) -> None:
         httpd.shutdown()  # stop accepting
         httpd.server_close()  # join the handler threads in flight
         batcher.stop()  # then drain the dispatcher
+        if mesh is not None:  # release the other ranks, then wait for them
+            import torch.distributed as dist
+
+            httpd.engine.close()
+            for p in followers:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.terminate()
+            dist.destroy_process_group()
         logger.info("Server stopped cleanly")
 
 

@@ -41,7 +41,7 @@ import math
 import torch
 
 from layoutdit_tpu_torch.config import TrainingConfig
-from layoutdit_tpu_torch.parallel.sharding import FsdpLayout
+from layoutdit_tpu_torch.parallel.sharding import FsdpLayout, TpLayout
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 # b1 as JAX's weak typing meets a bf16 moment: rounded to bf16
@@ -113,12 +113,13 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, state: dict, params: list[torch.Tensor],
-               grads: list[torch.Tensor], sharded: FsdpLayout | None = None) -> None:
+               grads: list[torch.Tensor], sharded: FsdpLayout | TpLayout | None = None) -> None:
         """One step from float32 ``grads``; the parameters change in place
-        and the state's entries are replaced. ``sharded``: under FSDP, the
-        layout of ``params`` and ``grads``, which are this rank's shards
-        (``parallel/sharding.py``); the finite test and the clip norm then
-        cover the whole gradient."""
+        and the state's entries are replaced. ``sharded``: under FSDP or
+        tensor parallelism, the layout of ``params`` and ``grads``, which
+        are this rank's shards (``parallel/sharding.py``'s ``FsdpLayout``
+        or ``TpLayout``); the finite test and the clip norm then cover the
+        whole gradient."""
         accept = None
         if self.max_errors > 0:
             # optax apply_if_finite: every gradient element finite. 0 * g is

@@ -93,6 +93,18 @@ for each step and the gradients reduce-scattered
 one-card file: they resume at any world size), metrics, TensorBoard
 events and the loss curve; the epoch's loss and images/s are the global
 batch's.
+
+Tensor parallelism (``model_parallel`` > 1, ``parallel/sharding.py``):
+the ranks of a model group load the same rows, and each holds its shards
+of the encoder's and box head's leaves (the model's parameters become
+them in place), and so do its AdamW moments and EMA. After the backward
+the replicated leaves whose gradients are partial over the group are
+summed over it (``TpLayout.reduce_partial``), then every gradient is
+averaged over the data group; the clip norm and the finite test cover
+the whole gradient (``TpLayout.global_norm`` / ``everywhere``). The
+checkpoints keep the one-card layout: every rank gathers, rank 0 writes,
+and a resume shards the file. FSDP over a tensor-parallel mesh waits for
+ROADMAP queue 1 item 7 (``build_mesh_for_batch`` refuses it).
 """
 
 from __future__ import annotations
@@ -121,8 +133,9 @@ from layoutdit_tpu_torch.models.detection.detector import (
 from layoutdit_tpu_torch.models.model import LayoutDetectionModel
 from layoutdit_tpu_torch.models.lora import num_trainable, trainable_mask
 from layoutdit_tpu_torch.parallel.mesh import build_mesh_for_batch, losses_over, replicate_tree
-from layoutdit_tpu_torch.parallel.sharding import FsdpLayout, all_reduce_
+from layoutdit_tpu_torch.parallel.sharding import FsdpLayout, TpLayout, all_reduce_
 from layoutdit_tpu_torch.models.weights_io import (
+    tree_paths,
     copy_params_,
     k_bias_slots,
     tree_leaves,
@@ -141,6 +154,18 @@ from layoutdit_tpu_torch.train.optim import AdamW, make_lr_schedule  # noqa: F40
 from layoutdit_tpu_torch.utils.paths import join_path, open_path
 
 logger = get_logger(__name__)
+
+
+def shard_model_(model, group) -> TpLayout:
+    """Replace the model's encoder and box-head leaves, in place, by this
+    rank's shards over the model ``group`` (``parallel/sharding.py``)
+    -> their layout. Every rank must hold the same full tree before."""
+    leaves = tree_leaves(model.params)
+    layout = TpLayout(tree_paths(model.params), group)
+    with torch.no_grad():
+        for leaf, shard in zip(leaves, layout.shard(leaves)):
+            leaf.data = shard
+    return layout
 
 
 def _like(tree, leaves: list) -> dict:
@@ -192,9 +217,11 @@ class Trainer:
         and the mid-training evaluator scores the same object.
       device: "cuda" unless the caller asks for the CPU. A CUDA device
         with no GPU present raises, and so do parameters elsewhere.
-      mesh: the data-parallel ranks (``parallel/mesh.py``); by default
+      mesh: the data x model ranks (``parallel/mesh.py``); by default
         ``build_mesh_for_batch`` of the config's ``mesh_config`` over the
         running processes (one process outside a group: no collectives).
+        With a model group, the model's encoder and box-head leaves are
+        replaced in place by this rank's shards (``tp_layout``).
     """
 
     def __init__(self, config: RunConfig, model: LayoutDetectionModel | DetectorModel,
@@ -221,6 +248,12 @@ class Trainer:
                              "the trainer's device")
         self.mesh = mesh or build_mesh_for_batch(config.mesh, config.data.batch_size, self.accum)
         replicate_tree(self._leaves, self.mesh)
+        # tensor parallelism: the leaves become this rank's shards
+        self.tp = self.mesh.model if self.mesh.model is not None and self.mesh.model.size > 1 \
+            else None
+        self.tp_layout = self._train_tp = None
+        if self.tp is not None:
+            self.tp_layout = shard_model_(model, self.tp)
         self._trainable = None
         if self.cfg.backbone.vit.lora_rank > 0 and tc.lora_freeze_base \
                 and self.cfg.backbone_kind == "dit":
@@ -232,6 +265,8 @@ class Trainer:
         for t, m in zip(self._leaves, self._trainable or [True] * len(self._leaves)):
             t.requires_grad_(m)
         self._train_leaves = [t for t in self._leaves if t.requires_grad]
+        if self.tp_layout is not None:
+            self._train_tp = self.tp_layout.subset([t.requires_grad for t in self._leaves])
         self._k_bias = k_bias_slots(model.params)
         # FSDP: the shard dim of every leaf, and of the trainable ones;
         # _rest holds the leaves' shards inside sharded()
@@ -332,6 +367,7 @@ class Trainer:
                     self.model.params, batch.images[rows], batch.gt_boxes[rows], gt_labels,
                     batch.gt_valid[rows], self.cfg, priorities,
                     gt_masks=None if batch.gt_masks is None else batch.gt_masks[rows],
+                    tp=self.tp,
                 )
             loss = sum(losses.values())
             with record_function("backward"):
@@ -344,9 +380,11 @@ class Trainer:
                     bias.grad[k_slot] = 0.0
             grads = [t.grad if t.grad is not None else torch.zeros_like(t)
                      for t in self._train_leaves]
+            if self._train_tp is not None:
+                self._train_tp.reduce_partial(grads)
             if fsdp:
                 grads = self._train_layout.reduce_grads(grads)
-            elif mesh.comm is not None:
+            elif mesh.comm is not None and mesh.degree > 1:
                 all_reduce_(grads, mesh.comm)
             # the mean over the ranks and the micro-batches
             if mesh.degree * self.accum > 1:
@@ -354,7 +392,8 @@ class Trainer:
             rest = self._rest if fsdp else self._leaves
             self.optimizer.update(
                 self.opt_state, [r for r, t in zip(rest, self._leaves) if t.requires_grad],
-                grads, **({"sharded": self._train_layout} if fsdp else {}))
+                grads, **({"sharded": self._train_layout if fsdp else self._train_tp}
+                          if fsdp or self._train_tp is not None else {}))
             for t in self._train_leaves:
                 t.grad = None
             if self.ema_params is not None:
@@ -487,7 +526,7 @@ class Trainer:
         ``_preempted_everywhere``): a rank that stopped alone would leave
         the others waiting in the next step's all-reduce."""
         flag = self._guard is not None and self._guard.preempted
-        return self.mesh.comm.any(flag) if self.mesh.degree > 1 else flag
+        return self.mesh.everyone.any(flag) if self.mesh.size > 1 else flag
 
     def _mid_eval(self, epoch: int) -> None:
         """Score the eval split (``TrainingConfig.eval_interval``), the EMA
@@ -502,9 +541,10 @@ class Trainer:
             from layoutdit_tpu_torch.eval.evaluator import Evaluator
 
             self._evaluator = Evaluator(self.model, self.config, device=self.device,
-                                        comm=self.mesh.comm)
+                                        comm=self.mesh.comm, tp=self.tp)
         # the evaluator reads model.params at each score(): the EMA when
-        # there is one; under FSDP a gathered copy
+        # there is one; under FSDP a gathered copy, under tensor
+        # parallelism this rank's shards
         saved = self.model.params
         scored = self.ema_params if self.ema_params is not None else self.model.params
         self.model.params = self._full(scored)
@@ -629,13 +669,24 @@ class Trainer:
     def checkpoint_path(self, epoch: int, tag: str | None = None) -> str:
         return checkpoint_file(self.config.artifact_dir, epoch, tag=tag)
 
+    def _one_card(self, tree: dict) -> dict:
+        """A tree of full tensors in the one-card layout: ``_full``'s, and
+        under tensor parallelism the shards gathered over the model group
+        (collective)."""
+        tree = self._full(tree)
+        if self.tp_layout is None:
+            return tree
+        return _like(tree, self.tp_layout.gather(tree_leaves(tree)))
+
     def _opt_state_for_checkpoint(self):
         tx = self.opt_state
         if self._rest is not None:
             tx = {**tx, **{k: self._train_layout.gather(tx[k]) for k in ("mu", "nu")}}
+        if self._train_tp is not None:
+            tx = {**tx, **{k: self._train_tp.gather(tx[k]) for k in ("mu", "nu")}}
         if self.ema_params is None:
             return tx
-        return {"tx": tx, "ema": self._full(self.ema_params)}
+        return {"tx": tx, "ema": self._one_card(self.ema_params)}
 
     def save_checkpoint(self, epoch: int, stem: str | None = None, tag: str | None = None,
                         extra: dict | None = None,
@@ -650,11 +701,11 @@ class Trainer:
         ``steps_per_dispatch``; ``extra`` adds entries (``best.pt``'s
         ``mAP``, a preemption's ``step_in_epoch``). With ``writer``, the
         state is snapshot to the host here and written in the background.
-        Every rank calls it (under FSDP the shards are gathered first);
-        rank 0 writes the one-card file."""
+        Every rank calls it (under FSDP and tensor parallelism the shards
+        are gathered first); rank 0 writes the one-card file."""
         path = checkpoint_file(self.config.artifact_dir, epoch, stem, tag)
-        params = self._full(self.ema_params if stem == "best" and self.ema_params is not None
-                            else self.model.params)
+        params = self._one_card(self.ema_params if stem == "best" and self.ema_params is not None
+                                else self.model.params)
         opt_state = self._opt_state_for_checkpoint()
         if not self.mesh.lead:
             return path
@@ -749,6 +800,12 @@ class Trainer:
                                                      self.opt_state["trainable"].cpu()):
                 raise ValueError(f"{path}: its optimizer's trainable mask differs from this "
                                  "run's (another lora_targets?)")
+        if self.tp_layout is not None:  # the one-card file -> this rank's shards
+            state["params"] = self._tp_shard(state["params"])
+            if tx is not None:
+                tx = {**tx, **{k: self._train_tp.shard(tx[k]) for k in ("mu", "nu")}}
+                if self.ema_params is not None:
+                    opt_state["ema"] = self._tp_shard(opt_state["ema"])
         try:
             copy_params_(self.model.params, state["params"])
             if tx is not None and self.ema_params is not None:
@@ -783,6 +840,13 @@ class Trainer:
             self._build_dataloader()
         logger.info("Resumed from %s at epoch %d%s", path, self.epoch,
                     f" step {self._start_step}" if self._start_step else "")
+
+    def _tp_shard(self, tree: dict) -> dict:
+        """A one-card tree -> this rank's shards, by the model's layout."""
+        try:
+            return _like(tree, self.tp_layout.shard(tree_leaves(tree)))
+        except ValueError as e:
+            raise ValueError(f"a checkpoint tree does not match this model's: {e}") from e
 
     def _save_loss(self) -> None:
         """The loss curve, ``{run}/loss_history/loss_curve.png`` (rank 0);

@@ -162,10 +162,14 @@ def test_one_device_mesh_loads(monkeypatch, mesh, cards):
     ({"data_parallel": 4}, 4),
     ({"enable_distributed_init": True, "coordinator_address": "10.0.0.1:1234",
       "num_processes": 2, "process_id": 1, "heartbeat_timeout_s": 30}, 1),
+    ({"data_parallel": 1, "model_parallel": 2}, 1),
+    ({"sequence_parallel": True}, 1),
 ])
 def test_data_parallel_mesh_loads(monkeypatch, mesh, cards):
     """The data-parallel meshes (refused before the parallelism slice,
-    naming queue 1 item 7) load into ``RunConfig.mesh``."""
+    naming queue 1 item 7) load into ``RunConfig.mesh``, and so do the
+    tensor and sequence parallel fields (refused before the
+    model-parallel slice)."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
     rc = run_config_from_dict({"mesh_config": mesh})
     assert rc.model == ModelConfig()
@@ -173,9 +177,7 @@ def test_data_parallel_mesh_loads(monkeypatch, mesh, cards):
 
 
 @pytest.mark.parametrize("mesh,cards,match", [
-    ({"data_parallel": 1, "model_parallel": 2}, 1, "model_parallel=2"),
     ({"pipeline_parallel": 2}, 1, "pipeline_parallel=2"),
-    ({"sequence_parallel": True}, 1, "sequence_parallel=True"),
     ({"dcn_data_parallel": 2}, 1, "dcn_data_parallel=2"),
     ({"no_such_axis": 1}, 1, "keys not supported"),
 ])

@@ -238,7 +238,7 @@ def test_transfer_finetune_doclaynet_shaped(tmp_path):
     assert metrics is not None and np.isfinite(metrics["mAP"])
 
 
-ITEM_7 = ("train_tp_sp.json", "train_multislice.json")
+ITEM_7 = ("train_multislice.json",)
 
 
 def _jax_view(path, monkeypatch, capsys, argv):
@@ -317,6 +317,9 @@ def test_doctor_on_a_fixture_tree(fixture_cfg, monkeypatch, capsys):
     assert "no CUDA device" in results["backend"]["detail"]
     assert results["kernels"]["status"] == "WARN" and results["mesh"]["status"] == "OK"
     monkeypatch.setenv("LAYOUTDIT_CONFIG", str(REPO / "configs" / "train_tp_sp.json"))
+    assert doctor.check_mesh()["status"] == "WARN"  # model_parallel 2 needs 2 cards
+    assert "model_parallel 2" in doctor.check_mesh()["detail"]
+    monkeypatch.setenv("LAYOUTDIT_CONFIG", str(REPO / "configs" / "train_multislice.json"))
     assert doctor.check_mesh()["status"] == "FAIL"
     assert "item 7" in doctor.check_mesh()["detail"]
 

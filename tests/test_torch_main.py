@@ -402,15 +402,21 @@ def test_eval_config_fields_load_with_jax_defaults():
     ("train_config", "trace_log_dir", "/tmp/traces", "profile_train"),
     ("precision", "param_dtype", "bfloat16", "fp32 parameters"),
     ("train_config", "device", "cpu", "CUDA card"),
+    ("eval_config", "device", "tpu", "TPU"),
 ])
 def test_waiting_fields_are_refused(section, key, value, match):
-    if key != "device":
-        # the trainer's profiler and param_dtype are ported: they load
-        rc = run_config_from_dict({section: {key: value}})
-        assert (rc.param_dtype if section == "precision" else getattr(rc.train, key)) == value
+    """The fields that waited now load: the profiler, param_dtype and
+    the device fields (``config.resolve_device``); a TPU device is still
+    refused."""
+    if value == "tpu":
+        with pytest.raises(ValueError, match=f"{key}.*{match}"):
+            run_config_from_dict({section: {key: value}})
         return
-    with pytest.raises(ValueError, match=f"{key}.*{match}"):
-        run_config_from_dict({section: {key: value}})
+    rc = run_config_from_dict({section: {key: value}})
+    if section == "precision":
+        assert rc.param_dtype == value
+    else:
+        assert getattr(rc.train if section == "train_config" else rc.eval, key) == value
 
 
 def test_lora_config_is_refused_naming_its_item():

@@ -413,9 +413,12 @@ def test_export_dir_rejects_sizes_and_batch_flags(extra):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--model-parallel", "2"], "queue 1 item 7"),
+    (["--model-parallel", "2", "--int8"], "int8 kernels are not model-sharded"),
 ])
 def test_refused_flags_name_their_queue_items(flags, item):
+    """``--model-parallel`` serves now (``tests/test_torch_model_parallel_
+    distributed.py`` serves through it); with ``--int8`` it is refused
+    before any rank starts, as in the JAX server."""
     with pytest.raises(SystemExit, match=item):
         serve_main(["--checkpoint", "/nonexistent.pt", "--device", "cpu"] + flags)
 

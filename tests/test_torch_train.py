@@ -350,8 +350,10 @@ def test_training_config_defaults_and_waiting_fields():
     assert rc.model.previous_layout_dit_checkpoint == "x" and not rc.train.lora_freeze_base
     # the profiler is ported: enable_profile loads at any value
     assert run_config_from_dict({"train_config": {"enable_profile": True}}).train.enable_profile
-    with pytest.raises(ValueError, match="device.*CUDA card"):
-        run_config_from_dict({"train_config": {"device": "cpu"}})
+    # the device field is ported (config.resolve_device); a TPU is refused
+    assert run_config_from_dict({"train_config": {"device": "cpu"}}).train.device == "cpu"
+    with pytest.raises(ValueError, match="device.*TPU"):
+        run_config_from_dict({"train_config": {"device": "tpu"}})
     with pytest.raises(ValueError, match="not supported"):
         run_config_from_dict({"train_config": {"no_such_field": 1}})
     with pytest.raises(ValueError, match="lr_schedule"):
