@@ -6143,6 +6143,405 @@ def phase_model_parallel(kernels: list[dict], card: str, gen) -> dict:
     return out
 
 
+# phase pipeline: configs/train_pipeline.json (dit-large, 1024 px, global
+# attention, N = 4097; two GPipe stages of 12 layers, 2 microbatches) on
+# two gloo ranks sharing the card (--pipeline-child pp), batch PIPE_BATCH,
+# one checked step (one process's proposals, _FixedProposals) and one
+# timed; FSDP over a model axis on a 2 x 2 mesh of four gloo ranks
+# (--pipeline-child ft: the default dit-base as RetinaNet at 224 px, batch
+# FT_BATCH); both groups start together. Each against one process's bf16
+# step (losses MP_LOSS_RTOL, the pipelined taps BF16_REL_TOL of max |ref|)
+# and each gradient leaf against one process's float32 control as close
+# as one process's bf16 (MP_CONTROL_K, MP_CONTROL_FLOOR). Then JAX's
+# committed .orbax fixture loads onto the card with the port's reader
+# (its zstd is the system libzstd.so.1), leaf hashes equal to the file's.
+PIPE_CONFIG = ROOT / "configs" / "train_pipeline.json"
+PIPE_BATCH = 2
+PIPE_PAGES = 4
+PIPE_TIMEOUT_S = 600
+FT_BATCH = 4
+FT_MESH = {"data_parallel": 2, "model_parallel": 2, "fsdp": True}
+ORBAX_FIXTURE = ROOT / "tests" / "fixtures" / "retinanet_tp.orbax"
+ORBAX_HASHES = ROOT / "tests" / "fixtures" / "retinanet_tp.sha256.json"
+# the pipelined path's kernels, launched on every stage rank
+PIPE_KERNELS = ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkdv",
+                "roi_align", "roi_align_bwd")
+
+
+def _pipeline_kernels(gen, kernels: list[dict]) -> None:
+    """Rows 3-5 at a pipeline stage's microbatch (B = 1, N = 4097, H = 16,
+    dit-large at 1024 px without windows) and rows 7-8 at the pipelined
+    Faster R-CNN step's (1024 px pyramid, B = 2, K = 512), against their
+    plain versions and timed (phase ``kernels_large``); the entries gain
+    ``pipeline_*`` keys."""
+    h = 16
+    q, k, v = _qkv(gen, 1, 4097, h, 64)
+    _entry(kernels, "flash_attention").update(
+        {f"pipeline_{k}": v for k, v in _flash_fwd_case(gen, q, k, v, False).items()})
+    del q, k, v
+    res = _flash_bwd_case(gen, 1, 4097, False, h=h)
+    for part in ("dq", "dkdv"):
+        _flash_bwd_entry(_entry(kernels, f"flash_attention_bwd_{part}"), part, "pipeline_", res,
+                         1, 4097, h, with_bias=False)
+    _entry(kernels, "roi_align").update(
+        {f"pipeline_{k}": v for k, v in _roi_fwd_case(gen, 1024, PIPE_BATCH).items()})
+    _entry(kernels, "roi_align_bwd").update(
+        {f"pipeline_{k}": v for k, v in _roi_bwd_case(gen, 1024, PIPE_BATCH).items()})
+    torch.cuda.empty_cache()
+
+
+def _pipe_configs(tmp: str) -> dict:
+    """The phase's config files over ``tmp``'s pages: ``pp`` (the
+    train_pipeline mesh and model, batch PIPE_BATCH), ``onepp`` (one
+    process), ``f32pp`` (one process in float32 with remat, the control);
+    ``ft`` (RetinaNet at 224 px on the FT_MESH, batch FT_BATCH), ``oneft``,
+    ``f32ft``."""
+    from layoutdit_tpu_torch.tools.make_fixture import write_fixture_config
+
+    with open(write_fixture_config(tmp, split="samples", epochs=1, batch_size=PIPE_BATCH)) as f:
+        raw = json.load(f)
+    with open(PIPE_CONFIG) as f:
+        pipe = json.load(f)
+    with open(CONFIG) as f:
+        budget = json.load(f)["detection_model_config"]["detection_budget"]
+    models = {"pp": ({**pipe["detection_model_config"], "detection_budget": budget},
+                     pipe["mesh_config"], PIPE_BATCH),
+              "ft": ({"detector": "retinanet", "image_size": 224, "detection_budget": budget},
+                     FT_MESH, FT_BATCH)}
+    paths = {}
+    for key, (model, mesh, batch) in models.items():
+        for prefix in ("", "one", "f32"):
+            cfg = json.loads(json.dumps(raw))
+            cfg["run_name"] = prefix + key
+            cfg["detection_model_config"] = json.loads(json.dumps(model))
+            cfg["data_loader_config"]["batch_size"] = batch
+            if not prefix:
+                cfg["mesh_config"] = mesh
+            if prefix == "f32":
+                cfg["precision"] = {"compute_dtype": "float32"}
+                cfg["detection_model_config"]["remat"] = True
+            paths[prefix + key] = f"{tmp}/{prefix + key}.json"
+            with open(paths[prefix + key], "w") as f:
+                json.dump(cfg, f)
+    return paths
+
+
+class _TapSpy:
+    """While installed, the encoder's first call's taps are kept (float32,
+    on the host) in ``taps``."""
+
+    def __enter__(self):
+        from layoutdit_tpu_torch.models import backbone
+
+        self.mod, self.orig, self.taps = backbone, backbone.vit_forward, None
+
+        def spy(*args, **kw):
+            out = self.orig(*args, **kw)
+            if self.taps is None:
+                self.taps = [t.detach().float().cpu() for t in out]
+            return out
+
+        backbone.vit_forward = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.vit_forward = self.orig
+        return False
+
+
+def _state_gib(tensors) -> float:
+    return sum(t.numel() * t.element_size() for t in tensors) / 2**30
+
+
+def pipeline_child(mode: str, rank: str, world: str, port: str, cfg_dir: str,
+                   out_path: str) -> int:
+    """Phase ``pipeline``'s rank ``rank`` of ``world`` on the one card, over
+    gloo: ``mode`` "pp", a stage of the pipelined dit-large step (the
+    checked step on one process's proposals, then a timed one); "ft", a
+    rank of the FSDP x TP RetinaNet step (the checked step, then a timed
+    one). Rank 0 writes the one-card gradients (and the taps); every rank
+    its readings and launches to ``out_path``."""
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from layoutdit_tpu_torch.config import MeshConfig, load_run_config
+    from layoutdit_tpu_torch.models.model import build_model
+    from layoutdit_tpu_torch.parallel.mesh import maybe_distributed_init
+    from layoutdit_tpu_torch.train.trainer import Trainer
+
+    rank, world = int(rank), int(world)
+    if not maybe_distributed_init(MeshConfig(
+            enable_distributed_init=True, coordinator_address=f"127.0.0.1:{port}",
+            num_processes=world, process_id=rank), device="cuda:0", backend="gloo"):
+        raise RuntimeError("pipeline child: no process group started")
+    rc = load_run_config(f"{cfg_dir}/{mode}.json")
+    trainer = Trainer(rc, build_model(rc, seed=rc.train.seed, device="cuda"))
+    mesh = trainer.mesh
+    if mode == "pp" and (trainer.pipe is None or trainer.pipe.n_stages != world):
+        raise RuntimeError(f"pipeline child: mesh {mesh}")
+    if mode == "ft" and not (mesh.fsdp and trainer.tp is not None):
+        raise RuntimeError(f"pipeline child: mesh {mesh}")
+    out = {"tp_rest_gib": _state_gib([*trainer._leaves, *trainer.opt_state["mu"],
+                                      *trainer.opt_state["nu"]])}
+    batch = next(iter(trainer.dataloader))
+    _reset_counts()
+    with trainer.sharded():
+        if trainer._rest is not None:
+            out["rest_gib"] = _state_gib([*trainer._rest, *trainer.opt_state["mu"],
+                                          *trainer.opt_state["nu"]])
+        else:
+            out["rest_gib"] = out["tp_rest_gib"]
+        with contextlib.ExitStack() as stack:
+            spy = stack.enter_context(_TapSpy())
+            fixed = (stack.enter_context(_FixedProposals(f"{cfg_dir}/props_pp.pt", replay=True))
+                     if mode == "pp" else None)
+            loss, comps, grads, peak, ms = _mp_step(trainer, batch)
+        out["own_proposals_same"] = None if fixed is None else fixed.same
+        if trainer._rest is not None:
+            grads = trainer._train_layout.gather(grads)
+        if trainer._train_tp is not None:
+            grads = trainer._train_tp.gather(grads)
+        _, _, _, peak2, ms2 = _mp_step(trainer, batch)
+    out.update(loss=loss, losses=comps, peak_gib=max(peak, peak2), step_ms=ms,
+               timed_step_ms=ms2, launches=_counts())
+    if rank == 0:
+        torch.save({"grads": [g.float().cpu() for g in grads], "taps": spy.taps},
+                   f"{out_path}.pt")
+    if mode == "pp":  # every stage holds the same reduced gradients
+        dist.barrier()
+        if rank:
+            ref = torch.load(f"{cfg_dir}/pp0.json.pt")["grads"]
+            out["same_grads_as_rank0"] = all(torch.equal(a, g.float().cpu())
+                                             for a, g in zip(ref, grads, strict=True))
+    trainer.dataloader.close()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _orbax_on_card() -> dict:
+    """JAX's committed ``.orbax`` fixture (a TP-sharded RetinaNet state
+    with its AdamW chain and EMA, ``tests/fixtures/orbax_fixture.py``)
+    loaded onto the card by the port's reader: every tensor on the card,
+    each leaf's SHA-256 the committed one."""
+    import hashlib
+
+    from layoutdit_tpu_torch.train.checkpoint import load_checkpoint
+
+    t0 = time.perf_counter()
+    state = load_checkpoint(str(ORBAX_FIXTURE), map_location="cuda")
+    load_s = time.perf_counter() - t0
+    got = {}
+
+    def walk(prefix, x):
+        if isinstance(x, torch.Tensor):
+            if not x.is_cuda:
+                raise RuntimeError(f"orbax fixture: {prefix} not on the card")
+            t = x.detach().cpu().contiguous()
+            raw = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+            got[prefix] = hashlib.sha256(raw.numpy().tobytes()).hexdigest() + f":{t.dtype}"
+        elif isinstance(x, dict):
+            for k, v in x.items():
+                walk(f"{prefix}/{k}", v)
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(f"{prefix}/{i}", v)
+
+    walk("", {"params": state["params"], "opt_state": state["opt_state"]})
+    want = json.loads(ORBAX_HASHES.read_text())
+    if got != want:
+        bad = sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))
+        raise RuntimeError(f"orbax fixture: {len(bad)} leaves differ from the committed "
+                           f"hashes, e.g. {bad[:3]}")
+    print(f"  .orbax fixture ({ORBAX_FIXTURE.name}): {len(got)} leaves on the card, every "
+          f"hash the committed one, epoch {state['epoch']} ({load_s:.3f} s, zstd from the "
+          "system libzstd.so.1)")
+    return {"leaves": len(got), "epoch": state["epoch"], "load_s": load_s}
+
+
+def _pipe_ref(cfgs: dict, name: str, tmp: str, fixed: bool, f32: bool) -> dict:
+    """One process's checked step of config ``name`` (float32 control with
+    ``f32``) -> its losses, gradients (host), taps, peak, time and state."""
+    from layoutdit_tpu_torch.config import load_run_config
+    from layoutdit_tpu_torch.models.model import build_model
+    from layoutdit_tpu_torch.models.weights_io import tree_paths
+    from layoutdit_tpu_torch.parallel.mesh import DataMesh
+    from layoutdit_tpu_torch.train.trainer import Trainer
+
+    rc = load_run_config(cfgs[name])
+    trainer = Trainer(rc, build_model(rc, seed=rc.train.seed, device="cuda"), mesh=DataMesh())
+    rest = _state_gib([*trainer._leaves, *trainer.opt_state["mu"], *trainer.opt_state["nu"]])
+    batch = next(iter(trainer.dataloader))
+    with contextlib.ExitStack() as stack:
+        spy = stack.enter_context(_TapSpy())
+        if fixed:
+            stack.enter_context(_FixedProposals(f"{tmp}/props_pp.pt", replay=f32))
+        loss, comps, grads, peak, ms = _mp_step(trainer, batch)
+    out = {"loss": loss, "losses": comps, "grads": [g.float().cpu() for g in grads],
+           "taps": spy.taps, "peak_gib": peak, "step_ms": ms, "rest_gib": rest,
+           "paths": [p for p, t in zip(tree_paths(trainer.params), trainer._leaves)
+                     if t.requires_grad]}
+    trainer.dataloader.close()
+    del trainer, batch, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_pipeline(kernels: list[dict], card: str) -> dict:
+    """GPipe stages, FSDP over a model axis and JAX's ``.orbax`` reader
+    through the port's entry points:
+
+      * ``configs/train_pipeline.json`` at full width (dit-large, 24
+        layers as two stages of 12, 1024 px, N = 4097, 2 microbatches) on
+        two gloo ranks sharing the card (``--pipeline-child pp``): the
+        checked step against one process's (losses, the four taps, each
+        gradient leaf) and against one process's float32 control (each
+        leaf as close as one process's bf16); peak and at-rest GiB a rank
+        beside one process's; the timed step; rows 3-5, 7 and 8 launched
+        on each stage (held to their plain versions at these shapes in
+        ``kernels_large``);
+      * FSDP x TP (2 x 2, four gloo ranks, ``--pipeline-child ft``) on
+        RetinaNet at 224 px, by the same rules, its at-rest GiB a rank
+        against TP alone's;
+      * the committed ``.orbax`` fixture onto the card (``_orbax_on_card``).
+
+    Every comparison runs and prints before the phase raises on those
+    that missed. The launches of the six ranks are the phase's."""
+    from layoutdit_tpu_torch.parallel.mesh import free_port
+    from layoutdit_tpu_torch.parallel.pipeline import bubble
+    from layoutdit_tpu_torch.tools.make_fixture import make_fixture
+
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    groups = {"pp": 2, "ft": 4}
+    procs = []
+
+    def start(mode: str) -> None:
+        port = free_port()
+        for rank in range(groups[mode]):
+            log = open(Path(tmp) / f"{mode}{rank}.log", "w")
+            procs.append((mode, rank, subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--pipeline-child", mode,
+                 str(rank), str(groups[mode]), str(port), tmp, f"{tmp}/{mode}{rank}.json"],
+                stdout=log, stderr=subprocess.STDOUT), log))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        make_fixture(tmp, n_images=PIPE_PAGES, split="samples", seed=0)
+        cfgs = _pipe_configs(tmp)
+        refs = {}
+        try:
+            # the FSDP x TP ranks need nothing of this process: they start
+            # first; the stages once one process's step wrote its proposals
+            start("ft")
+            t0 = time.perf_counter()
+            for key in ("pp", "ft"):
+                refs[key] = _pipe_ref(cfgs, "one" + key, tmp, fixed=key == "pp", f32=False)
+                if key == "pp":  # its proposals are written: the stages start
+                    start("pp")
+                with _float32_plain():
+                    f32 = _pipe_ref(cfgs, "f32" + key, tmp, fixed=key == "pp", f32=True)
+                refs[key].update(f32_grads=f32["grads"], f32_losses=f32["losses"])
+                del f32
+            out["references_s"] = time.perf_counter() - t0
+            for mode, rank, proc, log in procs:
+                code = proc.wait(timeout=PIPE_TIMEOUT_S)
+                log.close()
+                if code != 0:
+                    text = (Path(tmp) / f"{mode}{rank}.log").read_text()
+                    raise RuntimeError(f"pipeline {mode} rank {rank}: exit code {code}\n"
+                                       f"{text[-4000:]}")
+        finally:
+            for _, _, proc, log in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+        out["ranks_s"] = time.perf_counter() - t_phase
+        print(f"  references {out['references_s']:.1f} s (beside the ranks), the ranks done "
+              f"{out['ranks_s']:.1f} s into the phase")
+        ranks = {mode: [json.loads(Path(f"{tmp}/{mode}{r}.json").read_text())
+                        for r in range(world)] for mode, world in groups.items()}
+
+        failed = []
+        for mode, label in (("pp", "pipelined dit-large 1024 px (2 stages x 12 layers)"),
+                            ("ft", "FSDP x TP RetinaNet 224 px (2 x 2)")):
+            r, got = refs[mode], torch.load(f"{tmp}/{mode}0.json.pt")
+            first = dict(ranks[mode][0])
+            # a rank's losses are its data index's rows': their mean over
+            # the ranks is the global batch's (every data index has as
+            # many model and pipe ranks)
+            first["losses"] = {k: float(np.mean([x["losses"][k] for x in ranks[mode]]))
+                               for k in first["losses"]}
+            first["loss"] = float(np.mean([x["loss"] for x in ranks[mode]]))
+            _mp_worst(label, got["grads"], r["grads"], r["paths"])
+            err = _mp_leaves(f"{label} gradient ({len(got['grads'])} leaves)", got["grads"],
+                             r["grads"], r["f32_grads"], failed, r["paths"])
+            for k, v in first["losses"].items():
+                if not abs(v - r["losses"][k]) <= MP_LOSS_RTOL * abs(r["losses"][k]) + 1e-6:
+                    failed.append(f"{mode} {k} {v} against one process's {r['losses'][k]}")
+            res = {"loss": first["loss"], "ref_loss": r["loss"], "losses": first["losses"],
+                   "ref_losses": r["losses"], "grad_err": err,
+                   "step_ms": [x["step_ms"] for x in ranks[mode]],
+                   "timed_step_ms": [x["timed_step_ms"] for x in ranks[mode]],
+                   "ref_step_ms": r["step_ms"], "peak_gib": [x["peak_gib"] for x in ranks[mode]],
+                   "ref_peak_gib": r["peak_gib"], "rest_gib": [x["rest_gib"] for x in ranks[mode]],
+                   "ref_rest_gib": r["rest_gib"],
+                   "tp_rest_gib": [x["tp_rest_gib"] for x in ranks[mode]]}
+            if mode == "pp":
+                taps = [_check_tap(i, g, w, failed) for i, (g, w) in
+                        enumerate(zip(got["taps"], r["taps"], strict=True))]
+                res.update(taps_max_ratio=taps, bubble=bubble(2, 2),
+                           own_proposals_same=first["own_proposals_same"],
+                           same_grads_on_ranks=all(x.get("same_grads_as_rank0", True)
+                                                   for x in ranks[mode]))
+                if not res["same_grads_on_ranks"]:
+                    failed.append("pipeline: the stages' reduced gradients differ")
+            out[mode] = res
+            print(f"  {label}: losses {first['losses']} (one process {r['losses']}); peak "
+                  f"{res['peak_gib']} GiB a rank (one process {r['peak_gib']:.3f}), at rest "
+                  f"{res['rest_gib']} GiB a rank (one process {r['rest_gib']:.3f}"
+                  + (f", TP alone {res['tp_rest_gib']}" if mode == "ft" else "")
+                  + f"); checked step {res['step_ms']} ms, timed step {res['timed_step_ms']} ms "
+                  f"a rank (one process's checked step {r['step_ms']:.3f}; gloo through the "
+                  "host, the six ranks and the references together: a record, not a speed)")
+        del refs
+        out["orbax"] = _orbax_on_card()
+        if failed:
+            raise RuntimeError("pipeline:\n  " + "\n  ".join(failed))
+    launched = {mode: [x["launches"] for x in ranks[mode]] for mode in ranks}
+    print(f"  pipeline launches: stages {launched['pp']}; FSDP x TP ranks {launched['ft']}")
+    for rank, counts in enumerate(launched["pp"]):
+        for name in PIPE_KERNELS:
+            if counts[name] <= 0:
+                raise RuntimeError(f"pipeline: stage {rank} did not launch {name}")
+        for name in ("short_attention", "short_attention_bwd", "flash_attention_bwd_dbias",
+                     *PROBE_KERNELS, "linear_sum_assignment"):
+            if counts[name]:
+                raise RuntimeError(f"pipeline: stage {rank} launched {name} {counts[name]} "
+                                   "times")
+    total = {name: sum(c[name] for m in launched.values() for c in m) for name in _counts()}
+    for k in kernels:
+        k["pipeline_launches"] = total[k["name"]]
+    out["launches"] = launched
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  pipeline phase: {out['phase_s']:.1f} s")
+    return out
+
+
+def _check_tap(i: int, got: torch.Tensor, want: torch.Tensor, failed: list) -> float:
+    """A pipelined tap against one process's: max |got - want| within
+    BF16_REL_TOL of max |want| (else added to ``failed``)."""
+    ratio = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+    print(f"  pipelined tap {i}: max err / max |ref| {ratio:.3e} (held to {BF16_REL_TOL:.4g})")
+    if not ratio <= BF16_REL_TOL:
+        failed.append(f"pipelined tap {i}: {ratio:.3e} of max |ref|")
+    return ratio
+
+
 # the phases that run in a second process (``--lane-child``), one after
 # another, beside the main process's serving to parallel and the recipes,
 # once the kernels' timed cases are done: each builds its own models and
@@ -6251,7 +6650,7 @@ def main() -> int:
             p.is_file() for p in (CONFIG, TRAIN_1024_CONFIG, RELPOS_CONFIG, LARGE_CONFIG,
                                   FSDP_LARGE_CONFIG, CASCADE_CONFIG, MASK_CONFIG,
                                   RETINANET_CONFIG, FCOS_CONFIG, DETR_CONFIG, LORA_CONFIG,
-                                  MOE_CONFIG, MP_CONFIG))):
+                                  MOE_CONFIG, MP_CONFIG, PIPE_CONFIG, ORBAX_HASHES))):
         raise SystemExit("chip_smoke: run it from a checkout of the repository")
     sys.path.insert(0, str(ROOT))
     from layoutdit_tpu_torch.ops import _build
@@ -6296,7 +6695,8 @@ def main() -> int:
                    "lora_recipe": lambda: phase_lora_recipe([]),
                    "moe": lambda: phase_moe([], card),
                    "parallel": lambda: phase_parallel([], card),
-                   "model_parallel": lambda: phase_model_parallel([], card, gen)}
+                   "model_parallel": lambda: phase_model_parallel([], card, gen),
+                   "pipeline": lambda: phase_pipeline([], card)}
         for name in only:
             print(f"phase {name}")
             print(json.dumps({name: runners[name]()}))
@@ -6323,6 +6723,7 @@ def main() -> int:
     # before any other process shares the card
     print("phase kernels_large")
     _encoder_kernels(gen, kernels)
+    _pipeline_kernels(gen, kernels)
     families_cases = _families_kernels(gen, kernels)
     detr_cases = _detr_kernels(gen, kernels)
     torch.cuda.empty_cache()
@@ -6343,7 +6744,8 @@ def main() -> int:
             ("train_1024_relpos", lambda: phase_train_1024_relpos(kernels)),
             ("encoder", lambda: phase_encoder(gen, kernels, with_kernels=False)),
             ("main", lambda: phase_main(kernels, card)),
-            ("parallel", lambda: phase_parallel(kernels, card)))
+            ("parallel", lambda: phase_parallel(kernels, card)),
+            ("pipeline", lambda: phase_pipeline(kernels, card)))
         res = {}
         for name, run in main_phases:
             print(f"phase {name}")
@@ -6365,8 +6767,9 @@ def main() -> int:
             _stop_recipes(recipes_run)
     serving, deploy, train, train_state = (res[k] for k in ("serving", "deploy", "train",
                                                            "train_state"))
-    train_1024, train_1024_relpos, encoder, main_run, parallel = (
-        res[k] for k in ("train_1024", "train_1024_relpos", "encoder", "main", "parallel"))
+    train_1024, train_1024_relpos, encoder, main_run, parallel, pipeline = (
+        res[k] for k in ("train_1024", "train_1024_relpos", "encoder", "main", "parallel",
+                         "pipeline"))
     io, families, one_stage, detr, finetune, resnet, moe = (lane[k] for k in LANE_PHASES)
     families["kernels"], detr["kernels"] = families_cases, detr_cases
     conv = {**recipes.pop("flagship"), "card": card}
@@ -6381,7 +6784,8 @@ def main() -> int:
     mark("model_parallel", t0)
     paths = ("probe", "serving", "deploy", "train", "train_state", "io", "train_1024",
              "train_1024_relpos", "encoder", "main", "convergence", "families", "one_stage",
-             "detr", "finetune", "resnet", "lora_recipe", "moe", "parallel", "model_parallel")
+             "detr", "finetune", "resnet", "lora_recipe", "moe", "parallel", "model_parallel",
+             "pipeline")
     for k in kernels:
         k["launches"] = sum(k[f"{path}_launches"] for path in paths)
         if k["launches"] <= 0:
@@ -6406,6 +6810,7 @@ def main() -> int:
     print(json.dumps({"moe": moe}))
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"model_parallel": model_parallel}))
+    print(json.dumps({"pipeline": pipeline}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({
@@ -6427,4 +6832,6 @@ if __name__ == "__main__":
         sys.exit(model_parallel_child(*sys.argv[2:6]))
     if sys.argv[1:2] == ["--lane-child"]:
         sys.exit(lane_child(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--pipeline-child"]:
+        sys.exit(pipeline_child(*sys.argv[2:8]))
     sys.exit(main())

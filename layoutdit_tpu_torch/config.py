@@ -254,19 +254,6 @@ class EvalConfig:
         _check_device(self.device, "eval_config")
 
 
-# Fields of the JAX schema the port reads but does not act on yet: each
-# maps to (its JAX default, what it waits for). A config that leaves one
-# at its default loads; one that sets it otherwise is refused, naming the
-# work it waits for, rather than silently trained without it.
-_WAITING = {
-    # pipeline stages and the hybrid DCN mesh: ROADMAP queue 1 item 7(b)
-    "mesh_config": {
-        k: (v, "pipeline and multi-slice parallelism (ROADMAP queue 1 item 7); the port runs "
-               "data, tensor, sequence and expert parallelism")
-        for k, v in (("pipeline_parallel", 1), ("dcn_data_parallel", 1))
-    },
-}
-
 def _check_device(name: str, where: str) -> None:
     if name not in DEVICES:
         raise ValueError(f"{where}.device={name!r}: the port runs on {DEVICES} (a TPU is not "
@@ -347,22 +334,27 @@ def load_config(path: str) -> tuple[ModelConfig, DataLoaderConfig]:
 class MeshConfig:
     """The fields of ``constructs.py::MeshConfig`` the port acts on, same
     defaults (``parallel/mesh.py``): ``data_parallel`` ranks (-1: every
-    process started over ``model_parallel``, clamped to divide the
-    batch); ``model_parallel`` ranks a model group (tensor and expert
+    process started over ``model_parallel`` x ``pipeline_parallel``,
+    clamped to divide the batch); ``model_parallel`` ranks a model group (tensor and expert
     parallelism, ``parallel/tensor.py``), with ``sequence_parallel`` the
     encoder's tokens sharded over them too; ``fsdp`` shards each large
     parameter and its AdamW moments over the data ranks at rest
-    (``parallel/sharding.py``); the multi-process start
-    (``enable_distributed_init``, the coordinator fields, the two
-    timeouts). ``axis_names`` and ``pipeline_microbatches`` are carried as
-    JAX has them and read by no one (there is no pipeline yet)."""
+    (``parallel/sharding.py``), over a model axis too; ``pipeline_parallel``
+    GPipe stages of the encoder over ``pipeline_microbatches``
+    microbatches (``parallel/pipeline.py``); ``dcn_data_parallel``
+    granules (hosts) laid outermost on the data axis (the hybrid mesh);
+    the multi-process start (``enable_distributed_init``, the coordinator
+    fields, the two timeouts). ``axis_names`` is carried as JAX has it:
+    the port's axes are the data, model and pipe groups."""
 
     data_parallel: int = -1
     model_parallel: int = 1
+    pipeline_parallel: int = 1
+    pipeline_microbatches: int = 4
+    dcn_data_parallel: int = 1
     sequence_parallel: bool = False
     fsdp: bool = False
     axis_names: tuple[str, str] = ("data", "model")
-    pipeline_microbatches: int = 4
     enable_distributed_init: bool = False
     coordinator_address: Optional[str] = None
     num_processes: Optional[int] = None
@@ -419,11 +411,9 @@ class RunConfig:
 
 
 def mesh_config_from_dict(mesh: dict) -> MeshConfig:
-    """A ``MeshConfig`` from a ``mesh_config`` section. Data, tensor and
-    sequence parallelism, FSDP and the multi-process start load;
-    ``pipeline_parallel`` and ``dcn_data_parallel`` off their one-device
-    values raise, naming ROADMAP queue 1 item 7."""
-    return _build(MeshConfig, mesh, "mesh_config", _WAITING["mesh_config"])
+    """A ``MeshConfig`` from a ``mesh_config`` section: every field of
+    JAX's loads."""
+    return _build(MeshConfig, mesh, "mesh_config")
 
 
 # "_comment": the prose some config files carry at the top, read by no one

@@ -10,7 +10,7 @@ then model, then train, then score, then visualize.
     URLs too (``utils/paths.py``; fsspec is imported only for them).
   * ``--local_mode`` trains on the eval split, as in the JAX package.
   * ``--resume`` applies when training: a checkpoint path (the port's
-    ``.pt`` or the JAX trainer's ``.msgpack``, local or a URL), or
+    ``.pt``, or the JAX trainer's ``.msgpack`` or ``.orbax``, local or a URL), or
     ``auto`` for the newest one of the run (a fresh start when there is
     none).
   * ``--skip-train`` scores the freshly built model; ``--skip-eval``
@@ -38,11 +38,14 @@ per card, started before the model is built (JAX ``main.py``):
     line trains on every card as JAX does; it exits non-zero if a
     worker fails, and stops the others then.
 
-With ``model_parallel`` M > 1 the mesh is data x model: ``main`` starts
-D x M ranks, one a card (D from ``data_parallel`` over the host's cards
-/ M), and each rank's model group trains and scores its rows on its
-shards (``parallel/tensor.py``); under torchrun the environment decides
-the world, which must be D x M.
+With ``model_parallel`` M > 1 or ``pipeline_parallel`` P > 1 the mesh is
+data x model x pipe: ``main`` starts D x M x P ranks, one a card (D from
+``data_parallel`` over the host's cards / (M P)); each rank's model group
+trains and scores its rows on its shards (``parallel/tensor.py``), and
+each pipe group trains them through the encoder's GPipe stages
+(``parallel/pipeline.py``); under torchrun the environment decides the
+world, which must be D x M x P. With ``dcn_data_parallel`` the hosts'
+torchrun ranks form the hybrid mesh (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -79,8 +82,8 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--read_config", action="store_true",
                         help="Not supported by the port: set LAYOUTDIT_CONFIG to the config file")
     parser.add_argument("--resume", default=None,
-                        help="Checkpoint to resume from (.pt, or a JAX .msgpack; local or a "
-                             "URL), or 'auto' for the newest checkpoint of the run (a fresh "
+                        help="Checkpoint to resume from (.pt, or a JAX .msgpack or .orbax; local "
+                             "or a URL), or 'auto' for the newest checkpoint of the run (a fresh "
                              "start when there is none)")
     parser.add_argument("--skip-train", action="store_true", help="Evaluate only")
     parser.add_argument("--skip-eval", action="store_true", help="Train only")
@@ -143,19 +146,21 @@ def _run(config: RunConfig, args) -> None:
 
 def _ranks_to_spawn(config: RunConfig, device: str) -> int:
     """The ranks ``main`` starts itself: the data degree of
-    ``data_parallel`` over this host's cards / ``model_parallel``, times
-    ``model_parallel``; 1 on the CPU (or with no card), under torchrun,
-    inside a group, and with a coordinator (the caller starts the
-    processes). More model ranks than cards raise."""
+    ``data_parallel`` over this host's cards / (``model_parallel`` x
+    ``pipeline_parallel``), times both; 1 on the CPU (or with no card),
+    under torchrun, inside a group, and with a coordinator (the caller
+    starts the processes). More model x pipe ranks than cards raise."""
     mesh = config.mesh
     if (torch.device(device).type != "cuda" or not torch.cuda.is_available()
             or "WORLD_SIZE" in os.environ or dist.is_initialized()
             or (mesh.enable_distributed_init and mesh.coordinator_address)):
         return 1
-    cards, mp = torch.cuda.device_count(), max(1, mesh.model_parallel)
+    cards = torch.cuda.device_count()
+    mp = max(1, mesh.model_parallel) * max(1, mesh.pipeline_parallel)
     if mp > cards:
-        raise ValueError(f"mesh_config.model_parallel={mp} needs {mp} cards, but only "
-                         f"{cards} are available")
+        raise ValueError(f"mesh_config.model_parallel={mesh.model_parallel} x "
+                         f"pipeline_parallel={mesh.pipeline_parallel} needs {mp} cards, but "
+                         f"only {cards} are available")
     return mp * resolve_degree(mesh.data_parallel, cards // mp, config.data.batch_size)
 
 

@@ -61,21 +61,22 @@ def backbone_forward(
     aux_out: dict | None = None,
     tp=None,
     attention_impl: str = "auto",
+    pipeline=None,
 ) -> list[torch.Tensor]:
     """[B, 3, H, W] normalized pixels -> [p2, p3, p4, p5, pool], each
     [B, C, H_l, W_l] in channels-last memory (channel stride 1; ``pool``
     a strided view of p5), the layout the RoIAlign kernels read.
     ``remat``/``remat_policy``: the encoder's activation checkpointing
     (``vit_forward``); ``aux_out`` receives the encoder's ``"moe_aux"``;
-    ``tp`` (a model group) and ``attention_impl``: ``vit_forward``'s, the
-    pyramid replicated over the group.""" 
+    ``tp`` (a model group), ``attention_impl`` and ``pipeline`` (GPipe
+    stages): ``vit_forward``'s, the pyramid replicated over the groups.""" 
     b, _, h, w = pixels.shape
     patch = cfg.vit.patch_size
     gh, gw = h // patch, w // patch
     hidden = vit_forward(
         params["vit"], pixels, cfg.vit, taps=cfg.taps, compute_dtype=compute_dtype,
         remat=remat, remat_policy=remat_policy, aux_out=aux_out, tp=tp,
-        attention_impl=attention_impl,
+        attention_impl=attention_impl, pipeline=pipeline,
     )
     laterals = []
     for t, scale, inner in zip(hidden, cfg.scales, params["fpn"]["inner"]):

@@ -372,23 +372,28 @@ def _normalize(images: torch.Tensor, cfg: DetectorConfig) -> torch.Tensor:
 
 def run_backbone(params: dict, images: torch.Tensor, cfg: DetectorConfig,
                  remat: bool = False, aux_out: dict | None = None,
-                 tp: ModelGroup | None = None) -> list[torch.Tensor]:
+                 tp: ModelGroup | None = None, pipeline=None) -> list[torch.Tensor]:
     """Images [B, 3, S, S] in [0, 1] -> the pyramid [p2, p3, p4, p5, pool],
     channels-last in the compute dtype, from the DiT encoder or ResNet-50
     (JAX ``_run_backbone``); ``remat``: the encoder's activation
     checkpointing, as the config sets it (a ResNet has none); ``aux_out``
     receives the DiT encoder's ``"moe_aux"``; ``tp``: this rank's model
     group (tensor, sequence and expert parallelism of the encoder,
-    ``models/vit.py``), the pyramid the same on every rank of it."""
+    ``models/vit.py``), the pyramid the same on every rank of it;
+    ``pipeline``: the encoder's GPipe stages (``vit_forward``)."""
     x = _normalize(images.float(), cfg).to(cfg.dtype)
     if cfg.backbone_kind == "resnet50":
         if tp is not None and tp.size > 1:
             raise ValueError("model_parallel > 1 shards the DiT encoder; a ResNet-50 "
                              "backbone has no model-parallel layout")
+        if pipeline is not None:
+            raise ValueError("pipeline_parallel > 1 stages the DiT encoder's layers; a "
+                             "ResNet-50 backbone has no pipeline layout")
         return resnet_mod.resnet_fpn_forward(params["backbone"], x, compute_dtype=cfg.dtype)
     return backbone_forward(params["backbone"], x, cfg.backbone, compute_dtype=cfg.dtype,
                             remat=remat and cfg.remat, remat_policy=cfg.remat_policy,
-                            aux_out=aux_out, tp=tp, attention_impl=cfg.attention_impl)
+                            aux_out=aux_out, tp=tp, attention_impl=cfg.attention_impl,
+                            pipeline=pipeline)
 
 
 def _with_moe_aux(losses: dict, aux_out: dict, cfg: DetectorConfig) -> dict:
@@ -624,6 +629,7 @@ def detector_loss(
     priorities: SamplerPriorities | None,  # None for a single-stage or DETR model
     gt_masks: torch.Tensor | None = None,  # [B, G, M, M] {0, 1}, a mask model's
     tp: ModelGroup | None = None,
+    pipeline=None,
 ) -> dict[str, torch.Tensor]:
     """Training forward -> the four-loss dict of the JAX package's
     ``detector_loss`` (and the reference trainer): ``loss_objectness``,
@@ -645,20 +651,26 @@ def detector_loss(
 
     ``tp``: this rank's model group (``detector_predict``'s); the ranks of
     a group take the same rows and give the same losses, whose gradients
-    the trainer reduces as ``parallel/sharding.py`` says."""
+    the trainer reduces as ``parallel/sharding.py`` says. ``pipeline``: a
+    ``parallel.pipeline.PipelineConfig``, the encoder run as GPipe stages
+    (JAX ``detector_loss(..., pipeline=)``); every stage then runs the
+    head on the gathered taps, and the trainer reduces the gradients over
+    the pipe group (``parallel.pipeline.reduce_pipe_grads``)."""
     if cfg.with_mask and gt_masks is None:
         raise ValueError("cfg.with_mask=True requires gt_masks [B, G, M, M] "
                          "(the data loader's load_masks)")
     if cfg.detector_kind == "detr":
-        return _detr_loss(params, images, gt_boxes, gt_labels, gt_valid, cfg, tp)
+        return _detr_loss(params, images, gt_boxes, gt_labels, gt_valid, cfg, tp, pipeline)
     if cfg.detector_kind != "faster_rcnn":
-        return _one_stage_loss(params, images, gt_boxes, gt_labels, gt_valid, cfg, tp)
+        return _one_stage_loss(params, images, gt_boxes, gt_labels, gt_valid, cfg, tp,
+                               pipeline)
     anchors, counts = _anchors(cfg, images.device)
     size = (cfg.image_size, cfg.image_size)
     aux_out: dict = {}
     with record_function("forward"):
         with record_function("backbone"):
-            feats = run_backbone(params, images, cfg, remat=True, aux_out=aux_out, tp=tp)
+            feats = run_backbone(params, images, cfg, remat=True, aux_out=aux_out, tp=tp,
+                                     pipeline=pipeline)
         with record_function("rpn"):
             objectness, deltas = rpn_head_forward(params["rpn_head"], feats,
                                                   cfg.num_anchors_per_cell)
@@ -714,14 +726,15 @@ def detector_loss(
 
 
 def _one_stage_loss(params, images, gt_boxes, gt_labels, gt_valid,
-                    cfg: DetectorConfig, tp=None) -> dict[str, torch.Tensor]:
+                    cfg: DetectorConfig, tp=None, pipeline=None) -> dict[str, torch.Tensor]:
     """RetinaNet's or FCOS's training losses (JAX ``detector_loss``'s
     single-stage branches)."""
     anchors, counts = _anchors(cfg, images.device)
     aux_out: dict = {}
     with record_function("forward"):
         with record_function("backbone"):
-            feats = run_backbone(params, images, cfg, remat=True, aux_out=aux_out, tp=tp)
+            feats = run_backbone(params, images, cfg, remat=True, aux_out=aux_out, tp=tp,
+                                     pipeline=pipeline)
         with record_function("head"):
             out = _one_stage_heads(params, feats, cfg)
     with record_function("loss"):
@@ -738,7 +751,7 @@ def _one_stage_loss(params, images, gt_boxes, gt_labels, gt_valid,
 
 
 def _detr_loss(params, images, gt_boxes, gt_labels, gt_valid,
-               cfg: DetectorConfig, tp=None) -> dict[str, torch.Tensor]:
+               cfg: DetectorConfig, tp=None, pipeline=None) -> dict[str, torch.Tensor]:
     """DETR's training losses (JAX ``detector_loss``'s DETR branch): the
     Hungarian assignment needs a query for every (padded) gt slot."""
     if gt_boxes.shape[1] > cfg.detr_num_queries:
@@ -749,7 +762,8 @@ def _detr_loss(params, images, gt_boxes, gt_labels, gt_valid,
     aux_out: dict = {}
     with record_function("forward"):
         with record_function("backbone"):
-            feats = run_backbone(params, images, cfg, remat=True, aux_out=aux_out, tp=tp)
+            feats = run_backbone(params, images, cfg, remat=True, aux_out=aux_out, tp=tp,
+                                     pipeline=pipeline)
         with record_function("head"):
             logits, boxes01 = detr_mod.detr_forward(params["detr"], feats[cfg.detr_level],
                                                     cfg.detr_heads,

@@ -168,8 +168,8 @@ class LayoutDetectionModel:
         """Copy a checkpoint's parameters into this model's tensors (in
         place, so a trainer holding them sees them too) and return the
         whole state (``params``, ``opt_state``, ``epoch``, ``extra``). A
-        ``.msgpack`` path is read as the JAX package writes it; a
-        ``.orbax`` one raises (queue 1 item 7). Leaves match by path and
+        ``.msgpack`` file or ``.orbax`` directory is read as the JAX package
+        writes it. Leaves match by path and
         shape; only the encoder's position embeddings and relative-position
         tables may differ (a model warm-started at another image size keeps
         the checkpoint's): the tree then holds the checkpoint's tensors

@@ -803,6 +803,7 @@ def vit_forward(
     aux_out: dict | None = None,
     tp: ModelGroup | None = None,
     attention_impl: str = "auto",
+    pipeline=None,
 ) -> list[torch.Tensor]:
     """Run the encoder on normalized pixels [B, C, H, W] (H, W multiples
     of the patch size); return hidden states [B, 1+P, D] at ``taps``
@@ -819,15 +820,33 @@ def vit_forward(
     (the module docstring); the taps come back whole on every rank.
     ``attention_impl``: "ring" runs ring attention under sequence
     parallelism; any other value, or "ring" without sequence
-    parallelism, the length routing (JAX ``vit.py:742-775``)."""
+    parallelism, the length routing (JAX ``vit.py:742-775``).
+    ``pipeline``: a ``parallel.pipeline.PipelineConfig``, the layers run
+    as GPipe stages over its pipe group (``parallel/pipeline.py``), whole
+    on every rank of ``tp``; JAX's guards: no sequence parallelism, no
+    windowed and no MoE layers, ``pad_tokens_to`` off. Inside a stage the
+    attention keeps this routing to the hand kernels (JAX forces XLA's)."""
     if remat_policy not in ("full", "dots"):  # JAX vit.py:893-896
         raise ValueError(f"unknown remat_policy {remat_policy!r}; use 'full' or 'dots'")
     if tp is not None and tp.size == 1:
         tp = None
     sp = tp is not None and tp.sequence_parallel
+    if pipeline is not None and sp:
+        raise ValueError("pipeline and seq_sharding are mutually exclusive")
     taps = tuple(taps) or (cfg.num_hidden_layers,)
     _, _, img_h, img_w = pixels.shape
     gh, gw = img_h // cfg.patch_size, img_w // cfg.patch_size
+    if pipeline is not None:  # JAX vit.py:741-760
+        if 0 < cfg.window_size < max(gh, gw):
+            raise ValueError(
+                "windowed attention layers are heterogeneous (windowed vs global) - "
+                "incompatible with the GPipe stage body's stacked homogeneous layers; use "
+                "window_size=0 with pipeline")
+        if cfg.num_experts > 0:
+            raise ValueError(
+                "pipeline parallelism does not support MoE layers (the GPipe stage body "
+                "stacks homogeneous dense layers); shard experts over the 'model' axis "
+                "instead (expert parallelism)")
     x = _linear(patchify(pixels, cfg.patch_size).to(compute_dtype), params["patch_embed"])
     b = x.shape[0]
     cls = params["cls_token"].to(compute_dtype).expand(b, 1, cfg.hidden_size)
@@ -855,9 +874,11 @@ def vit_forward(
     if rel_pos and ring:
         raise ValueError("ring attention supports absolute-pos models only (dit); "
                          "rel-pos-bias checkpoints use the flash / short paths")
+    # a pipelined stage holds its layers whole, every head on every rank
+    head_tp = None if pipeline is not None else tp
     shared = {}
     if "shared_rel_pos_table" in params:  # gathered once per layer kind
-        table = _rel_table_for_grid(_head_columns(params["shared_rel_pos_table"], cfg, tp),
+        table = _rel_table_for_grid(_head_columns(params["shared_rel_pos_table"], cfg, head_tp),
                                     cfg.grid_size, gh)
         shared = {ws: _gather_rel_bias(table, gh, ws) for ws in set(kinds.values())}
 
@@ -867,12 +888,29 @@ def vit_forward(
     key_mask = None
     # not with experts: padded tokens would compete for expert capacity;
     # not under sequence parallelism (JAX vit.py:835-836)
-    if cfg.pad_tokens_to > n_real and not win_active and cfg.num_experts == 0 and not sp:
+    if (cfg.pad_tokens_to > n_real and not win_active and cfg.num_experts == 0 and not sp
+            and pipeline is None):
         x = F.pad(x, (0, 0, 0, cfg.pad_tokens_to - n_real))
         key_mask = (torch.arange(cfg.pad_tokens_to, device=x.device) < n_real)[None]
 
     if sp:  # the token-sharded stream: this rank's ceil(n / mp) tokens
         x = split_tokens(x, tp)
+
+    if pipeline is not None:  # JAX vit.py:874-893
+        from layoutdit_tpu_torch.parallel.pipeline import pipeline_encoder
+
+        def block(h, layer, shared_bias):
+            bias = _layer_rel_bias(layer, cfg, gh, 0, shared_bias) if rel_pos else None
+            return encoder_block(h, layer, cfg, None, bias)[0]
+
+        hs = pipeline_encoder(
+            params["layers"], x, dataclasses.replace(pipeline, remat=pipeline.remat or remat),
+            block, tuple(t for t in dict.fromkeys(taps) if t > 0), shared.get(0), tp)
+        if aux_out is not None:
+            aux_out["moe_aux"] = torch.zeros((), dtype=torch.float32, device=x.device)
+        # the embedding's gradient is stage 0's alone (summed over the stages)
+        x0 = x if pipeline.stage == 0 else x.detach()
+        return [x0 if t == 0 else hs[t] for t in taps]
 
     def run_layer(x, layer, ws):
         bias = None

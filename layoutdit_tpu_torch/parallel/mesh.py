@@ -1,6 +1,7 @@
-"""Process groups and the data x model mesh (port of
-``layoutdit_tpu/parallel/mesh.py``'s ``build_mesh`` and
-``build_mesh_for_batch`` without the pipeline and DCN axes).
+"""Process groups and the data x model x pipe mesh (port of
+``layoutdit_tpu/parallel/mesh.py``'s ``build_mesh``,
+``build_mesh_for_batch``, the hybrid DCN layout and
+``pipeline_config``).
 
 The JAX package shards the batch over a mesh's ``data`` axis and lets
 ``jit`` insert the gradient all-reduce: every loss is then the loss of
@@ -10,14 +11,16 @@ the CPU) and writes those collectives out:
 
   * ``maybe_distributed_init`` starts the process group from torchrun's
     environment or from the config's coordinator fields;
-  * ``build_mesh_for_batch`` resolves ``mesh_config.data_parallel`` and
-    ``model_parallel`` into a ``DataMesh``: the data degree, this rank's
-    data index, the rows of every global batch that it loads
-    (``DataMesh.rows``) and, with ``model_parallel`` > 1, its model group
-    (``ModelGroup``). Ranks are laid out as JAX lays out the devices of a
-    [data, model] mesh: rank = data index x mp + model index, the model
-    axis innermost; the ranks of a model group share their data index and
-    so load the same rows;
+  * ``build_mesh_for_batch`` resolves ``mesh_config.data_parallel``,
+    ``model_parallel`` and ``pipeline_parallel`` into a ``DataMesh``: the
+    data degree, this rank's data index, the rows of every global batch
+    that it loads (``DataMesh.rows``), with ``model_parallel`` > 1 its
+    model group (``ModelGroup``) and with ``pipeline_parallel`` > 1 its
+    pipe group (``PipeGroup``). Ranks are laid out as JAX lays out the
+    devices of a [data, model, pipe] mesh: rank = (d x mp + m) x pp + p,
+    the pipe axis innermost (``rank_layout``; with ``dcn_data_parallel``
+    the hosts outermost on the data axis); the ranks of a model or pipe
+    group share their data index and so load the same rows;
   * ``Comm`` holds the collectives the ranks use, over the world or over
     one of its groups, and the ring's point-to-point ``ppermute``;
   * ``losses_over(mesh)`` makes every batch-wide normalizer of the
@@ -272,14 +275,26 @@ class ModelGroup:
 
 
 @dataclasses.dataclass(frozen=True)
+class PipeGroup:
+    """The ``size`` pipeline stages that share one (data, model) index,
+    this one ``rank`` (its stage) among them, ``comm`` their collectives
+    and point-to-point sends (``parallel/pipeline.py``)."""
+
+    size: int
+    rank: int
+    comm: Comm
+
+
+@dataclasses.dataclass(frozen=True)
 class DataMesh:
     """``degree`` data-parallel ranks, this one's data index ``rank``;
     ``comm`` their collectives (None for one process outside a group);
     ``fsdp`` shards the parameters and moments over them
     (``parallel/sharding.py``). With a model axis, ``model`` is this
-    rank's ``ModelGroup`` (None: no tensor parallelism), ``comm`` the
-    data group of its model index, and ``world`` the collectives of every
-    rank (the agreed stop, the start from one state)."""
+    rank's ``ModelGroup`` (None: no tensor parallelism); with a pipe
+    axis, ``pipe`` its ``PipeGroup``; ``comm`` is then the data group of
+    its (model, pipe) index, and ``world`` the collectives of every rank
+    (the agreed stop, the start from one state)."""
 
     degree: int = 1
     rank: int = 0
@@ -287,6 +302,7 @@ class DataMesh:
     fsdp: bool = False
     model: ModelGroup | None = None
     world: Comm | None = None
+    pipe: PipeGroup | None = None
 
     @property
     def everyone(self) -> Comm | None:
@@ -295,8 +311,9 @@ class DataMesh:
 
     @property
     def size(self) -> int:
-        """Every rank of the mesh: the data degree x the model degree."""
-        return self.degree * (self.model.size if self.model is not None else 1)
+        """Every rank of the mesh: data x model x pipe degrees."""
+        return (self.degree * (self.model.size if self.model is not None else 1)
+                * (self.pipe.size if self.pipe is not None else 1))
 
     def rows(self, batch_size: int, accum: int = 1) -> np.ndarray:
         """The rows of a global batch this rank loads, in order. With
@@ -311,66 +328,162 @@ class DataMesh:
 
     @property
     def lead(self) -> bool:
-        return self.rank == 0 and (self.model is None or self.model.rank == 0)
+        return (self.rank == 0 and (self.model is None or self.model.rank == 0)
+                and (self.pipe is None or self.pipe.rank == 0))
+
+
+def granule_keys(comm: Comm) -> list:
+    """Each rank's DCN granule, its host: torchrun's node index
+    (``GROUP_RANK``) where every rank has one, else its host name,
+    gathered over ``comm`` (collective)."""
+    mine = (os.environ.get("GROUP_RANK"), socket.gethostname())
+    keys = comm.all_gather_object(mine)
+    if all(k[0] is not None for k in keys):
+        return [int(k[0]) for k in keys]
+    return [k[1] for k in keys]
+
+
+def _granules(keys: list, dcn: int, min_size: int) -> list[list[int]]:
+    """The ranks grouped by granule key into exactly ``dcn`` granules of
+    at least ``min_size`` ranks each, ordered by key (JAX ``_granules``)."""
+    groups: dict = {}
+    for rank, key in enumerate(keys):
+        groups.setdefault(key, []).append(rank)
+    if len(groups) != dcn:
+        raise ValueError(f"dcn_data_parallel={dcn} but the ranks form {len(groups)} granules "
+                         f"({sorted(groups)}) - one granule per host")
+    sizes = {k: len(v) for k, v in groups.items()}
+    if any(n < min_size for n in sizes.values()):
+        raise ValueError(f"hybrid mesh needs >= {min_size} ranks per granule, got {sizes}")
+    return [groups[k] for k in sorted(groups)]
+
+
+def rank_layout(world: int, dp: int, mp: int, pp: int, dcn: int = 1,
+                keys: list | None = None) -> np.ndarray:
+    """The world rank at each (data, model, pipe) coordinate, [dp, mp, pp].
+    Flat: rank = (d * mp + m) * pp + p, the pipe axis innermost, as JAX
+    reshapes its devices. Hybrid (``dcn`` > 1, ``keys`` each rank's
+    granule): a granule's ranks, in order, fill a [dp / dcn, mp, pp] block
+    and the blocks stack on the data axis by granule key (JAX
+    ``_hybrid_device_array``), so every model and pipe group lies inside
+    one granule and only the data axis crosses hosts."""
+    if dcn <= 1:
+        return np.arange(world).reshape(dp, mp, pp)
+    if dp % dcn:
+        raise ValueError(f"dcn_data_parallel={dcn} must divide data_parallel={dp}")
+    per = dp // dcn * mp * pp
+    groups = _granules(keys, dcn, per)
+    if any(len(g) != per for g in groups):
+        raise ValueError(f"hybrid mesh needs exactly {per} ranks per granule (dp_ici="
+                         f"{dp // dcn} x mp={mp} x pp={pp}), got {[len(g) for g in groups]}")
+    return np.concatenate([np.asarray(g).reshape(dp // dcn, mp, pp) for g in groups])
 
 
 def build_mesh_for_batch(cfg: MeshConfig, batch_size: int, accum: int = 1,
-                         comm: Comm | None = None) -> DataMesh:
+                         comm: Comm | None = None, granule_fn=None) -> DataMesh:
     """The ``DataMesh`` of ``cfg`` over the running processes (``comm``'s,
     else the default group's, else this one). The model degree mp is
-    ``model_parallel``; ``resolve_degree``'s rules give the data degree
-    over the world / mp ranks (-1 takes them all, the batch clamps it);
-    a layout that does not use every process raises, as JAX's
-    ``build_mesh(strict=True)`` does (start data x model ranks; the
-    launcher in ``main`` does). Each micro-batch of ``accum`` must split
-    evenly over the data ranks. With mp > 1 every rank creates every
-    model group and every data group, in one order, as ``new_group``
-    requires."""
+    ``model_parallel``, the pipe degree pp ``pipeline_parallel``;
+    ``resolve_degree``'s rules give the data degree over the world /
+    (mp x pp) ranks (-1 takes them all, the batch clamps it, in whole
+    granules on a hybrid mesh); a layout that does not use every process
+    raises, as JAX's ``build_mesh(strict=True)`` does (start data x model
+    x pipe ranks; the launcher in ``main`` does). Each micro-batch of
+    ``accum`` must split evenly over the data ranks.
+
+    ``dcn_data_parallel`` > 1 lays the ranks out as JAX's hybrid mesh
+    (``rank_layout``): one granule a host (``granule_keys``, or
+    ``granule_fn(rank)``, the test hook), the granule outermost on the
+    data axis. The gradient reduction stays one all-reduce over each data
+    group: NCCL's own topology detection runs it as rings or trees inside
+    each host and across the hosts, so no second, hand-rolled hierarchy
+    is written here.
+
+    With mp or pp > 1 every rank creates every group (``mesh_groups``), in
+    one order, as ``new_group`` requires."""
     if comm is None and dist.is_initialized():
         comm = Comm()
     world = comm.world if comm is not None else 1
-    mp = max(1, cfg.model_parallel)
-    if world % mp:
-        raise ValueError(f"mesh_config.model_parallel={mp} does not divide the {world} "
-                         "running processes")
-    dp = resolve_degree(cfg.data_parallel, world // mp, batch_size)
-    if dp * mp != world:
-        raise ValueError(f"mesh {dp}x{mp} (data x model) for batch_size {batch_size} needs "
-                         f"{dp * mp} processes, but {world} processes are running; start "
-                         f"{dp * mp}")
+    mp, pp = max(1, cfg.model_parallel), max(1, cfg.pipeline_parallel)
+    dcn = max(1, cfg.dcn_data_parallel)
+    if world % (mp * pp):
+        raise ValueError(f"mesh_config.model_parallel={mp} x pipeline_parallel={pp} does not "
+                         f"divide the {world} running processes")
+    available = world // (mp * pp)
+    if dcn == 1:
+        dp = resolve_degree(cfg.data_parallel, available, batch_size)
+    else:
+        dp_max = cfg.data_parallel if cfg.data_parallel > 0 else available
+        if cfg.data_parallel > 0 and dp_max % dcn:  # JAX build_mesh's check
+            raise ValueError(f"dcn_data_parallel={dcn} must divide data_parallel={dp_max}")
+        if dp_max > available:
+            raise ValueError(f"mesh_config.data_parallel={cfg.data_parallel} asks for {dp_max} "
+                             f"ranks, but only {available} are available")
+        candidates = [d for d in range(dcn, dp_max + 1, dcn) if batch_size % d == 0]
+        if not candidates:
+            raise ValueError(f"batch_size={batch_size} has no data-parallel degree that is a "
+                             f"multiple of dcn_data_parallel={dcn} (<= {dp_max})")
+        dp = max(candidates)
+        if dp != dp_max:
+            logger.warning("data_parallel clamped %d -> %d to divide batch_size=%d", dp_max, dp,
+                           batch_size)
+    if dp * mp * pp != world:
+        raise ValueError(f"mesh {dp}x{mp}x{pp} (data x model x pipe) for batch_size "
+                         f"{batch_size} needs {dp * mp * pp} processes, but {world} processes "
+                         f"are running; start {dp * mp * pp}")
     if (batch_size // accum) % dp:
         raise ValueError(f"the micro-batch of {batch_size // accum} rows (batch_size "
                          f"{batch_size} / grad_accumulation_steps {accum}) does not split "
                          f"over {dp} data-parallel ranks")
     rank = comm.rank if comm is not None else 0
-    if mp == 1:
-        return DataMesh(degree=dp, rank=rank, comm=comm, fsdp=cfg.fsdp and dp > 1)
-    if cfg.fsdp and dp > 1:
-        raise NotImplementedError(
-            "mesh_config.fsdp with model_parallel > 1 (FSDP over a tensor-parallel mesh) is "
-            "not supported by the port yet; it waits for ROADMAP queue 1 item 7")
-    groups = mesh_groups(dp, mp, comm)
-    data_index, model_index = divmod(rank, mp)
-    return DataMesh(degree=dp, rank=data_index, comm=groups["data"][model_index],
-                    model=ModelGroup(mp, model_index, groups["model"][data_index],
-                                     sequence_parallel=cfg.sequence_parallel),
-                    world=comm)
+    fsdp = cfg.fsdp and dp > 1
+    keys = None
+    if dcn > 1:
+        keys = ([granule_fn(r) for r in range(world)] if granule_fn is not None
+                else granule_keys(comm) if comm is not None else [0])
+    layout = rank_layout(world, dp, mp, pp, dcn, keys)
+    if mp == 1 and pp == 1 and dcn == 1:
+        return DataMesh(degree=dp, rank=rank, comm=comm, fsdp=fsdp)
+    groups = mesh_groups(layout, comm)
+    d, m, p = (int(i[0]) for i in np.nonzero(layout == rank))
+    model = (ModelGroup(mp, m, groups["model"], sequence_parallel=cfg.sequence_parallel)
+             if mp > 1 else None)
+    pipe = PipeGroup(pp, p, groups["pipe"]) if pp > 1 else None
+    return DataMesh(degree=dp, rank=d, comm=groups["data"], fsdp=fsdp, model=model,
+                    world=comm, pipe=pipe)
 
 
-def mesh_groups(dp: int, mp: int, comm: Comm) -> dict[str, list]:
-    """The ``Comm`` of every group of a dp x mp mesh over ``comm``'s
-    ranks, this rank's filled in (None for the others): ``"model"`` by
-    data index (ranks d*mp .. d*mp + mp-1), ``"data"`` by model index
-    (ranks m, mp + m, ...). Every rank makes every group, in this order."""
-    out: dict[str, list] = {"model": [], "data": []}
-    for d in range(dp):
-        ranks = [comm._global(d * mp + m) for m in range(mp)]
-        g = dist.new_group(ranks)
-        out["model"].append(Comm(g) if comm.rank // mp == d else None)
-    for m in range(mp):
-        ranks = [comm._global(d * mp + m) for d in range(dp)]
-        g = dist.new_group(ranks)
-        out["data"].append(Comm(g) if comm.rank % mp == m else None)
+def pipeline_config(mesh: DataMesh, cfg: MeshConfig):
+    """The encoder's ``parallel.pipeline.PipelineConfig`` on a mesh with a
+    pipe group of more than one stage, else None (JAX ``pipeline_config``);
+    callers pass it straight to ``detector_loss``'s ``pipeline``."""
+    if mesh.pipe is None or mesh.pipe.size <= 1:
+        return None
+    from layoutdit_tpu_torch.parallel.pipeline import PipelineConfig
+
+    return PipelineConfig(group=mesh.pipe, n_microbatches=max(1, cfg.pipeline_microbatches))
+
+
+def mesh_groups(layout: np.ndarray, comm: Comm) -> dict[str, Comm]:
+    """This rank's ``Comm`` of each axis of the [dp, mp, pp] ``layout``
+    (world ranks of ``comm``): ``"model"``, the ranks of its (data, pipe)
+    index; ``"data"``, of its (model, pipe) index; ``"pipe"``, of its
+    (data, model) index. Every rank makes every group of every axis, in
+    one order, as ``new_group`` requires; a model or pipe axis of size 1
+    makes none (the data groups are made at any size)."""
+    dp, mp, pp = layout.shape
+    me = comm.rank
+    out: dict[str, Comm] = {}
+    axes = {"model": layout.transpose(0, 2, 1).reshape(-1, mp),
+            "data": layout.transpose(1, 2, 0).reshape(-1, dp),
+            "pipe": layout.reshape(-1, pp)}
+    for name, rows in axes.items():
+        if rows.shape[1] == 1 and name != "data":
+            continue
+        for row in rows:
+            g = dist.new_group([comm._global(int(r)) for r in row])
+            if me in row:
+                out[name] = Comm(g)
     return out
 
 

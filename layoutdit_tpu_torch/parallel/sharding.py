@@ -7,9 +7,10 @@ divided by the degree, so every rank applies the same update.
 
 FSDP, JAX's ``_fsdp_spec`` rule: a leaf of at least ``FSDP_MIN_ELEMENTS``
 elements shards its largest dim that the degree divides (the first of
-equal ones); smaller leaves, and those with no such dim, stay
-replicated. At rest the parameters, both AdamW moments and the EMA are
-shards (``FsdpLayout.shard``); before the step the parameters are
+equal ones) and that the model axis leaves unsharded; smaller leaves,
+and those with no such dim, stay replicated. At rest the parameters,
+both AdamW moments and the EMA are shards (``FsdpLayout.shard``);
+before the step the parameters are
 all-gathered (``gather``); after the backward the gradients are
 reduce-scattered back to shards (``reduce_grads``), and the optimizer
 updates the shards, its clip norm and finite test taken over the whole
@@ -102,31 +103,56 @@ def all_reduce_(tensors: list[torch.Tensor], comm: Comm) -> None:
     flush()
 
 
-def fsdp_dim(shape: tuple[int, ...], degree: int) -> int | None:
-    """The dim a leaf of ``shape`` shards over ``degree`` ranks, or None
-    (replicated): JAX's ``_fsdp_spec`` on a leaf with no model-axis
-    spec."""
+def fsdp_dim(shape: tuple[int, ...], degree: int, tp_dim: int | None = None) -> int | None:
+    """The dim a leaf of (full) ``shape`` shards over ``degree`` ranks, or
+    None (replicated): JAX's ``_fsdp_spec``, the largest dim that the
+    degree divides (the first of equal ones), skipping ``tp_dim``, the dim
+    the model axis already shards (FSDP over a tensor-parallel mesh)."""
     if math.prod(shape or (0,)) < FSDP_MIN_ELEMENTS:
         return None
     for i in sorted(range(len(shape)), key=lambda i: -shape[i]):
-        if shape[i] % degree == 0:
+        if i != tp_dim and shape[i] % degree == 0:
             return i
     return None
 
 
+def _tp_dim(spec) -> int | None:
+    """The dim a ``tp_spec`` shards (the fused qkv's strided rows: dim 0)."""
+    return 0 if spec == QKV else spec
+
+
 class FsdpLayout:
     """The shard dim of each of a list of leaves (None: replicated) over
-    ``mesh``'s ranks, and the moves between full tensors and shards."""
+    ``mesh``'s data ranks, and the moves between full tensors and shards.
 
-    def __init__(self, shapes: list[tuple[int, ...]], mesh: DataMesh):
+    Over a tensor-parallel mesh (``tp``, the leaves' ``TpLayout``; their
+    ``shapes`` are this rank's TP shards) a leaf's FSDP dim is chosen on
+    its full shape, skipping the dim the model axis shards, as JAX's
+    ``_fsdp_spec`` extends the TP spec; the rank's TP shard is then
+    sharded over its data group. The gather thus runs before the TP
+    operators see their shards, and the reduce-scatter after the model
+    group's partial sums (``TpLayout.reduce_partial``). The clip norm sums
+    a leaf's squares over the axes that shard it, each leaf counted once."""
+
+    def __init__(self, shapes: list[tuple[int, ...]], mesh: DataMesh,
+                 tp: "TpLayout | None" = None):
         self.mesh = mesh
         self.comm = mesh.comm
-        self.dims = [fsdp_dim(tuple(s), mesh.degree) for s in shapes]
+        self.tp = tp
+        specs = tp.specs if tp is not None else [None] * len(shapes)
+        size = tp.group.size if tp is not None else 1
+        self.dims = []
+        for shape, spec in zip(shapes, specs, strict=True):
+            full, d = list(shape), _tp_dim(spec)
+            if d is not None:
+                full[d] *= size
+            self.dims.append(fsdp_dim(tuple(full), mesh.degree, d))
 
     def subset(self, keep: list[bool]) -> "FsdpLayout":
         """The layout of the leaves where ``keep`` is True."""
         sub = FsdpLayout([], self.mesh)
         sub.dims = [d for d, k in zip(self.dims, keep, strict=True) if k]
+        sub.tp = None if self.tp is None else self.tp.subset(keep)
         return sub
 
     def shard(self, tensors: list[torch.Tensor]) -> list[torch.Tensor]:
@@ -158,12 +184,27 @@ class FsdpLayout:
     def global_norm(self, grads: list[torch.Tensor]) -> torch.Tensor:
         """The L2 norm of the whole gradient from this rank's part of it:
         the shards' squares summed over the ranks, the replicated leaves'
-        counted once."""
-        return _global_norm(grads, self.dims, self.comm)
+        counted once; over a model axis too, each leaf's squares summed
+        over the data and model groups that shard it."""
+        if self.tp is None:
+            return _global_norm(grads, self.dims, self.comm)
+        tp = [s is not None for s in self.tp.specs]
+        fsdp = [d is not None for d in self.dims]
+
+        def sq(keep):
+            ts = [g for g, k in zip(grads, keep) if k]
+            return (torch.stack(torch._foreach_norm(ts)).square().sum() if ts
+                    else torch.zeros((), device=grads[0].device))
+
+        both = self.comm.all_reduce_(sq([a and b for a, b in zip(tp, fsdp)]))
+        data_only = self.comm.all_reduce_(sq([b and not a for a, b in zip(tp, fsdp)]))
+        model_only = sq([a and not b for a, b in zip(tp, fsdp)])
+        neither = sq([not a and not b for a, b in zip(tp, fsdp)])
+        return torch.sqrt(self.tp.comm.all_reduce_(both + model_only) + data_only + neither)
 
     def everywhere(self, flag: torch.Tensor) -> torch.Tensor:
         """A boolean scalar, True where it is True on every rank."""
-        return _everywhere(flag, self.comm)
+        return _everywhere(flag, self.mesh.everyone)
 
 
 def _global_norm(grads: list[torch.Tensor], dims: list, comm: Comm) -> torch.Tensor:
@@ -219,11 +260,13 @@ def tp_spec(path: str) -> int | str | None:
     return None
 
 
-def tp_partial(path: str, sequence_parallel: bool) -> bool:
+def tp_partial(path: str, sequence_parallel: bool, pipelined: bool = False) -> bool:
     """Whether the leaf at ``path``, replicated over a model group, gets a
-    partial gradient on each rank (summed over the group)."""
+    partial gradient on each rank (summed over the group). A ``pipelined``
+    encoder runs whole on every rank of the group (``parallel/pipeline.py``),
+    so none of its leaves does."""
     keys = path.split("/")
-    if "vit" not in keys:
+    if "vit" not in keys or pipelined:
         return False
     name, leaf = keys[-2], keys[-1]
     if leaf.endswith("rel_pos_table"):
@@ -260,11 +303,11 @@ class TpLayout:
     between full tensors and shards, the gradient sum over the group,
     and the clip norm and finite test over the whole gradient."""
 
-    def __init__(self, paths: list[str], group: ModelGroup):
+    def __init__(self, paths: list[str], group: ModelGroup, pipelined: bool = False):
         self.group = group
         self.comm = group.comm
         self.specs = [tp_spec(p) for p in paths]
-        self.partial = [tp_partial(p, group.sequence_parallel) for p in paths]
+        self.partial = [tp_partial(p, group.sequence_parallel, pipelined) for p in paths]
 
     def subset(self, keep: list[bool]) -> "TpLayout":
         """The layout of the leaves where ``keep`` is True."""

@@ -14,10 +14,11 @@ watchdog (``_with_timeout``), so the doctor always ends. The checks:
     device FAILs, and the CPU is never reported as one;
   * kernels: nvcc is found and ``ops/_build.py`` builds and loads every
     ``csrc/*.cu`` into ``build/kernels``;
-  * mesh: the data x model layout and backend the config's
+  * mesh: the data x model x pipe layout and backend the config's
     ``mesh_config`` resolves to on this host (``main``'s launcher: one
     rank per card); a layout this host's cards cannot hold WARNs (it may
-    span hosts); a pipeline or DCN mesh FAILs (ROADMAP queue 1 item 7);
+    span hosts, as a DCN mesh does); a data degree that the granules do
+    not divide FAILs;
   * native: the JPEG loader and the COCO parser build and load;
   * pretrained: ``LAYOUTDIT_DIT_{BASE,LARGE}_PTH`` name a local checkpoint;
   * kernel-build-dir: ``build/kernels`` is writable (the JAX doctor's
@@ -138,6 +139,10 @@ def check_kernels(timeout_s: float) -> dict:
 
 
 def check_mesh() -> dict:
+    """The config's mesh against this host's cards: data x model x pipe
+    ranks (JAX ``doctor.py`` multiplies ``pipeline_parallel`` in), one a
+    card, and the hybrid mesh's granules. A host with too few cards for
+    the mesh WARNs: the mesh may span hosts, which this host cannot see."""
     try:
         import torch
 
@@ -152,23 +157,28 @@ def check_mesh() -> dict:
     from layoutdit_tpu_torch.parallel.mesh import resolve_degree
 
     backend = "nccl" if cards else "gloo (no card)"
-    mp = max(1, mesh.model_parallel)
+    mp, pp = max(1, mesh.model_parallel), max(1, mesh.pipeline_parallel)
+    dcn = max(1, mesh.dcn_data_parallel)
     try:
-        if mp > max(cards, 1):
-            raise ValueError(f"model_parallel {mp} needs {mp} cards")
-        dp = resolve_degree(mesh.data_parallel, max(cards, 1) // mp, batch)
+        if mesh.data_parallel > 0 and mesh.data_parallel % dcn:
+            return _result("mesh", "FAIL", f"dcn_data_parallel={dcn} must divide "
+                                           f"data_parallel={mesh.data_parallel}")
+        need = max(mesh.data_parallel, 1) * mp * pp
+        if need > max(cards, 1):
+            raise ValueError(f"data_parallel {max(mesh.data_parallel, 1)} x model_parallel "
+                             f"{mp} x pipeline_parallel {pp} needs {need} cards")
+        dp = resolve_degree(mesh.data_parallel, max(cards, 1) // (mp * pp), batch)
     except ValueError as e:
         return _result("mesh", "WARN", f"{e} on this host; backend {backend}")
     fsdp = ", fsdp" if mesh.fsdp and dp > 1 else ""
-    if mp == 1:
+    if mp == 1 and pp == 1:
         return _result("mesh", "OK", f"data_parallel {dp} (one rank per card{fsdp}), backend "
                                      f"{backend}")
-    if mesh.fsdp and dp > 1:
-        return _result("mesh", "FAIL", "fsdp with model_parallel > 1 waits for ROADMAP queue "
-                                       "1 item 7")
     sp = ", sequence_parallel" if mesh.sequence_parallel else ""
-    return _result("mesh", "OK", f"data_parallel {dp} x model_parallel {mp}{sp} ({dp * mp} "
-                                 f"ranks, one per card), backend {backend}")
+    pipe = (f" x pipeline_parallel {pp} ({mesh.pipeline_microbatches} microbatches)"
+            if pp > 1 else "")
+    return _result("mesh", "OK", f"data_parallel {dp} x model_parallel {mp}{pipe}{sp}{fsdp} "
+                                 f"({dp * mp * pp} ranks, one per card), backend {backend}")
 
 
 def check_native() -> dict:

@@ -24,7 +24,7 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description="Export a detector to a serving artifact")
     ap.add_argument("--out", required=True, help="artifact directory (local or a URL)")
     ap.add_argument("--checkpoint", default=None,
-                    help="checkpoint to export (.pt or a JAX .msgpack); default: the "
+                    help="checkpoint to export (.pt, or a JAX .msgpack or .orbax); default: the "
                          "config's model drawn from train.seed")
     ap.add_argument("--sizes", default="224", help="comma-separated serving bucket sizes")
     ap.add_argument("--batch-size", type=int, default=8)

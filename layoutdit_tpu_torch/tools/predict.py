@@ -195,7 +195,7 @@ def run(args) -> list[dict]:
 def main(argv=None) -> list[dict]:
     parser = argparse.ArgumentParser(description="Run layout detection on page images")
     parser.add_argument("--checkpoint", required=True,
-                        help="checkpoint: the port's .pt or a JAX .msgpack")
+                        help="checkpoint: the port's .pt, or a JAX .msgpack or .orbax")
     parser.add_argument("--input", default=None,
                         help="image file, directory, or glob (with --shards: optional "
                              "member-name filter)")

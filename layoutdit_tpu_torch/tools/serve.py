@@ -452,7 +452,7 @@ def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="Layout detection HTTP server")
     src = parser.add_mutually_exclusive_group(required=True)
     src.add_argument("--checkpoint",
-                     help="checkpoint to serve (the port's .pt or a JAX .msgpack), into "
+                     help="checkpoint to serve (the port's .pt, or a JAX .msgpack or .orbax), into "
                           "the model of LAYOUTDIT_CONFIG")
     src.add_argument("--export-dir",
                      help="serve an exported artifact (tools/export_model.py); buckets and "

@@ -19,11 +19,18 @@ decoder (``utils/flax_msgpack.py``) and maps them onto the port's trees
 port's state. Every path may be local or a ``scheme://`` URL
 (``utils/paths.py``).
 
-File names: ``epoch_<n>.{pt,msgpack}`` (periodic),
+It reads the JAX package's sharded ``.orbax`` checkpoint directories
+too (``save_checkpoint_sharded``: what JAX writes whenever its
+parameters are sharded, under tensor parallelism, FSDP or on several
+hosts) through ``train/orbax_read.py``, which needs neither orbax nor
+JAX; their trees map through the same ``params_from_jax`` /
+``train_state_from_jax`` as the msgpack's, so both give the port the
+same state. The port writes ``.pt`` only.
+
+File names: ``epoch_<n>.{pt,msgpack,orbax}`` (periodic),
 ``epoch_<n>_preempt.*`` (a preemption's save, which may stop mid-epoch)
-and ``best.*`` (the best mid-training eval). Loading one of the JAX
-package's sharded ``.orbax`` checkpoints raises: they wait for the
-parallel slice (ROADMAP queue 1 item 7).
+and ``best.*`` (the best mid-training eval). An ``.orbax`` checkpoint is
+a directory with a ``<name>.meta.json`` beside it.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import copy
 import json
 import os
 import re
+import shutil
 from concurrent.futures import Future, ThreadPoolExecutor
 
 import torch
@@ -43,16 +51,17 @@ from layoutdit_tpu_torch.models.weights_io import (
     train_state_from_jax,
     train_state_to_jax,
 )
+from layoutdit_tpu_torch.train import orbax_read
 from layoutdit_tpu_torch.utils import flax_msgpack
-from layoutdit_tpu_torch.utils.paths import fs_for, open_path, read_bytearray
+from layoutdit_tpu_torch.utils.paths import LocalFS, fs_for, open_path, read_bytearray
 
 logger = get_logger(__name__)
 
 # a run's checkpoints live under {run_dir}/CHECKPOINT_DIR
 CHECKPOINT_DIR = "model_checkpoints"
 # the JAX package's name pattern (train/checkpoint.py, _list_checkpoints)
-# with the port's .pt beside its .msgpack
-_NAME = re.compile(r"epoch_(\d+)(?:_([a-z]+))?\.(pt|msgpack)$")
+# with the port's .pt beside its .msgpack and .orbax
+_NAME = re.compile(r"epoch_(\d+)(?:_([a-z]+))?\.(pt|msgpack|orbax)$")
 # the JAX package's checkpoint magic
 JAX_MAGIC = b"LDTPU1\n"
 
@@ -138,24 +147,40 @@ def _load_jax(path: str, map_location) -> dict:
     raw = flax_msgpack.lists_from_state_dict(
         flax_msgpack.loads(memoryview(buf)[len(JAX_MAGIC):]))
     meta = raw.get("meta", {})
+    return _from_jax(raw, bool(meta.get("has_opt_state")), int(meta.get("epoch", 0)),
+                     json.loads(meta.get("extra", "{}")), map_location)
+
+
+def _from_jax(raw: dict, has_opt_state: bool, epoch: int, extra: dict, map_location) -> dict:
+    """JAX's ``{params, opt_state}`` trees (flax's state-dict form) -> the
+    port's state dict."""
     opt_state = None
-    if meta.get("has_opt_state"):
+    if has_opt_state:
         opt_state = train_state_from_jax(raw["opt_state"], map_location, raw["params"])
     return {"params": params_from_jax(raw["params"], map_location), "opt_state": opt_state,
-            "epoch": int(meta.get("epoch", 0)), "extra": json.loads(meta.get("extra", "{}"))}
+            "epoch": epoch, "extra": extra}
+
+
+def _load_orbax(path: str, map_location) -> dict:
+    """A JAX ``.orbax`` checkpoint directory as the port's state dict
+    (``train/orbax_read.py``; epoch, extras and ``has_opt_state`` from
+    the sibling ``.meta.json``, as JAX's ``load_checkpoint_sharded``)."""
+    raw = flax_msgpack.lists_from_state_dict(orbax_read.read_tree(path))
+    meta = orbax_read.read_meta(path)
+    has_opt = bool(meta.get("has_opt_state", "opt_state" in raw))
+    return _from_jax(raw, has_opt and "opt_state" in raw, int(meta.get("epoch", 0)),
+                     meta.get("extra") or {}, map_location)
 
 
 def load_checkpoint(path: str | os.PathLike, map_location: str | torch.device) -> dict:
     """``{params, opt_state, epoch, extra}`` of a checkpoint, tensors on
     ``map_location``: a ``.pt`` file as ``save_checkpoint`` wrote it, or a
-    JAX ``.msgpack`` file mapped onto the port's trees (``opt_state`` is
-    None when the file has none; its extras are the JAX trainer's)."""
+    JAX ``.msgpack`` file or ``.orbax`` directory mapped onto the port's
+    trees (``opt_state`` is None when it has none; its extras are the JAX
+    trainer's)."""
     path = os.fspath(path)
     if path.rstrip("/").endswith(".orbax"):
-        raise NotImplementedError(
-            f"{path}: sharded .orbax checkpoints are not supported by the port yet; they wait "
-            "for the parallel slice (ROADMAP queue 1 item 7)"
-        )
+        return _load_orbax(path.rstrip("/"), map_location)
     if path.endswith(".msgpack"):
         return _load_jax(path, map_location)
     with open_path(path, "rb") as f:
@@ -209,7 +234,7 @@ class AsyncCheckpointWriter:
 
 
 def _list_checkpoints(root: str) -> list[tuple[int, str, str]]:
-    """(epoch, tag, path) of every ``epoch_<n>[_tag].{pt,msgpack}``
+    """(epoch, tag, path) of every ``epoch_<n>[_tag].{pt,msgpack,orbax}``
     under ``root`` (``best.*`` never matches); empty when the directory is
     absent."""
     try:
@@ -220,11 +245,21 @@ def _list_checkpoints(root: str) -> list[tuple[int, str, str]]:
             for n in names for m in [_NAME.fullmatch(n)] if m]
 
 
+def _remove_tree(fs, path: str) -> None:
+    """A directory and everything under it."""
+    if isinstance(fs, LocalFS):
+        shutil.rmtree(path)
+    else:
+        fs.fs.rm(path, recursive=True)
+
+
 def prune_checkpoints(root: str, keep: int, current_epoch: int) -> list[str]:
     """Keep the newest ``keep`` periodic checkpoints under ``root`` and
     delete the rest; tagged saves (``*_preempt``) and ``best.*`` are
     never touched. ``current_epoch`` counts as present even while its
-    asynchronous write is in flight. Returns the deleted paths."""
+    asynchronous write is in flight. An ``.orbax`` directory goes with its
+    files and its ``.meta.json``, as JAX prunes it. Returns the deleted
+    paths."""
     if keep <= 0:
         return []
     fs = fs_for(root)
@@ -233,7 +268,12 @@ def prune_checkpoints(root: str, keep: int, current_epoch: int) -> list[str]:
     deleted = []
     for e, path in found:
         if e not in keep_set:
-            fs.remove(path)
+            if path.endswith(".orbax"):
+                _remove_tree(fs, path)
+                if fs.exists(f"{path}.meta.json"):
+                    fs.remove(f"{path}.meta.json")
+            else:
+                fs.remove(path)
             deleted.append(path)
             logger.info("Pruned checkpoint %s (keep_checkpoints=%d)", path, keep)
     return deleted

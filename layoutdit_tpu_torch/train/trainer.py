@@ -103,8 +103,18 @@ summed over it (``TpLayout.reduce_partial``), then every gradient is
 averaged over the data group; the clip norm and the finite test cover
 the whole gradient (``TpLayout.global_norm`` / ``everywhere``). The
 checkpoints keep the one-card layout: every rank gathers, rank 0 writes,
-and a resume shards the file. FSDP over a tensor-parallel mesh waits for
-ROADMAP queue 1 item 7 (``build_mesh_for_batch`` refuses it).
+and a resume shards the file. With ``fsdp`` too, each rank's TP shards
+are sharded again over its data group (``FsdpLayout`` over the
+``TpLayout``).
+
+Pipeline parallelism (``pipeline_parallel`` > 1, ``parallel/pipeline.py``):
+the ranks of a pipe group load the same rows; each holds the whole
+parameter tree and runs its stage of the encoder's layers in the GPipe
+schedule and the head on the gathered taps. After the backward the
+gradients are reduced over the pipe group first
+(``reduce_pipe_grads``: the encoder's summed, the rest the last stage's),
+then as above, so every stage applies the same update. Mid-training
+evaluation runs the model unpipelined, as JAX's evaluator does.
 """
 
 from __future__ import annotations
@@ -132,7 +142,13 @@ from layoutdit_tpu_torch.models.detection.detector import (
 )
 from layoutdit_tpu_torch.models.model import LayoutDetectionModel
 from layoutdit_tpu_torch.models.lora import num_trainable, trainable_mask
-from layoutdit_tpu_torch.parallel.mesh import build_mesh_for_batch, losses_over, replicate_tree
+from layoutdit_tpu_torch.parallel.mesh import (
+    build_mesh_for_batch,
+    losses_over,
+    pipeline_config,
+    replicate_tree,
+)
+from layoutdit_tpu_torch.parallel.pipeline import reduce_pipe_grads
 from layoutdit_tpu_torch.parallel.sharding import FsdpLayout, TpLayout, all_reduce_
 from layoutdit_tpu_torch.models.weights_io import (
     tree_paths,
@@ -156,12 +172,13 @@ from layoutdit_tpu_torch.utils.paths import join_path, open_path
 logger = get_logger(__name__)
 
 
-def shard_model_(model, group) -> TpLayout:
+def shard_model_(model, group, pipelined: bool = False) -> TpLayout:
     """Replace the model's encoder and box-head leaves, in place, by this
     rank's shards over the model ``group`` (``parallel/sharding.py``)
-    -> their layout. Every rank must hold the same full tree before."""
+    -> their layout (``pipelined``: the encoder runs as pipeline stages,
+    whole on every rank). Every rank must hold the same full tree before."""
     leaves = tree_leaves(model.params)
-    layout = TpLayout(tree_paths(model.params), group)
+    layout = TpLayout(tree_paths(model.params), group, pipelined)
     with torch.no_grad():
         for leaf, shard in zip(leaves, layout.shard(leaves)):
             leaf.data = shard
@@ -248,12 +265,14 @@ class Trainer:
                              "the trainer's device")
         self.mesh = mesh or build_mesh_for_batch(config.mesh, config.data.batch_size, self.accum)
         replicate_tree(self._leaves, self.mesh)
+        # pipeline parallelism: the encoder's GPipe stages over the pipe group
+        self.pipe = pipeline_config(self.mesh, config.mesh)
         # tensor parallelism: the leaves become this rank's shards
         self.tp = self.mesh.model if self.mesh.model is not None and self.mesh.model.size > 1 \
             else None
         self.tp_layout = self._train_tp = None
         if self.tp is not None:
-            self.tp_layout = shard_model_(model, self.tp)
+            self.tp_layout = shard_model_(model, self.tp, pipelined=self.pipe is not None)
         self._trainable = None
         if self.cfg.backbone.vit.lora_rank > 0 and tc.lora_freeze_base \
                 and self.cfg.backbone_kind == "dit":
@@ -265,6 +284,8 @@ class Trainer:
         for t, m in zip(self._leaves, self._trainable or [True] * len(self._leaves)):
             t.requires_grad_(m)
         self._train_leaves = [t for t in self._leaves if t.requires_grad]
+        self._train_paths = [p for p, t in zip(tree_paths(model.params), self._leaves)
+                             if t.requires_grad]
         if self.tp_layout is not None:
             self._train_tp = self.tp_layout.subset([t.requires_grad for t in self._leaves])
         self._k_bias = k_bias_slots(model.params)
@@ -272,7 +293,8 @@ class Trainer:
         # _rest holds the leaves' shards inside sharded()
         self._layout = self._train_layout = self._rest = None
         if self.mesh.fsdp:
-            self._layout = FsdpLayout([tuple(t.shape) for t in self._leaves], self.mesh)
+            self._layout = FsdpLayout([tuple(t.shape) for t in self._leaves], self.mesh,
+                                      self.tp_layout)
             self._train_layout = self._layout.subset([t.requires_grad for t in self._leaves])
         if tc.steps_per_dispatch > 0:
             self.steps_per_dispatch = tc.steps_per_dispatch
@@ -367,7 +389,7 @@ class Trainer:
                     self.model.params, batch.images[rows], batch.gt_boxes[rows], gt_labels,
                     batch.gt_valid[rows], self.cfg, priorities,
                     gt_masks=None if batch.gt_masks is None else batch.gt_masks[rows],
-                    tp=self.tp,
+                    tp=self.tp, pipeline=self.pipe,
                 )
             loss = sum(losses.values())
             with record_function("backward"):
@@ -380,6 +402,8 @@ class Trainer:
                     bias.grad[k_slot] = 0.0
             grads = [t.grad if t.grad is not None else torch.zeros_like(t)
                      for t in self._train_leaves]
+            if self.pipe is not None:
+                reduce_pipe_grads(grads, self._train_paths, self.pipe)
             if self._train_tp is not None:
                 self._train_tp.reduce_partial(grads)
             if fsdp:

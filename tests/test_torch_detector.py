@@ -240,8 +240,10 @@ def _port_sources():
 
 
 def test_port_imports_neither_jax_nor_layoutdit_tpu():
-    # msgpack too: the port reads and writes flax's format with its own codec
-    banned = {"jax", "jaxlib", "flax", "optax", "layoutdit_tpu", "msgpack"}
+    # msgpack too: the port reads and writes flax's format with its own
+    # codec; and orbax's stack: it reads JAX's .orbax directories itself
+    banned = {"jax", "jaxlib", "flax", "optax", "layoutdit_tpu", "msgpack", "orbax",
+              "tensorstore", "zstandard"}
     found = []
     for path in _port_sources():
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -262,7 +264,8 @@ def test_port_imports_with_jax_blocked():
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
         "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'layoutdit_tpu',\n"
-        "                                  'pydantic', 'PIL', 'msgpack', 'fsspec'):\n"
+        "                                  'pydantic', 'PIL', 'msgpack', 'fsspec', 'orbax',\n"
+        "                                  'tensorstore', 'zstandard'):\n"
         "            raise ImportError('blocked ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "import layoutdit_tpu_torch\n"

@@ -177,16 +177,21 @@ def test_data_parallel_mesh_loads(monkeypatch, mesh, cards):
 
 
 @pytest.mark.parametrize("mesh,cards,match", [
-    ({"pipeline_parallel": 2}, 1, "pipeline_parallel=2"),
-    ({"dcn_data_parallel": 2}, 1, "dcn_data_parallel=2"),
+    ({"pipeline_parallel": 2}, 1, None),
+    ({"dcn_data_parallel": 2}, 1, None),
     ({"no_such_axis": 1}, 1, "keys not supported"),
 ])
 def test_multi_device_mesh_raises(monkeypatch, mesh, cards, match):
+    """The pipeline and DCN fields (refused, naming queue 1 item 7, before
+    the slice that ported them) load into ``RunConfig.mesh``; an unknown
+    key still raises."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
-    with pytest.raises(ValueError, match=match) as err:
+    if match is None:
+        rc = run_config_from_dict({"mesh_config": mesh})
+        assert dataclasses.asdict(rc.mesh) == {**dataclasses.asdict(MeshConfig()), **mesh}
+        return
+    with pytest.raises(ValueError, match=match):
         run_config_from_dict({"mesh_config": mesh})
-    if match != "keys not supported":
-        assert "queue 1 item 7" in str(err.value)
 
 
 # ----------------------------------------------- encoder against JAX

@@ -575,10 +575,11 @@ def test_checkpoints_across_model_degrees(fixture_dir, tmp_path):  # noqa: F811
         assert all(torch.equal(a, b) for a, b in zip(state, tp_state, strict=True))
 
 
-def test_mesh_rules():
+def test_mesh_rules(monkeypatch):
     """JAX's ``build_mesh(strict=True)``: rank = data x mp + model, -1
     takes the world over mp, a layout that leaves processes out raises;
-    FSDP over a model axis waits for queue 1 item 7."""
+    FSDP over a model axis (refused, naming queue 1 item 7, before the
+    slice that ported it) builds, its data group FSDP-sharded."""
     from layoutdit_tpu_torch.config import MeshConfig
 
     class World:
@@ -590,8 +591,11 @@ def test_mesh_rules():
     with pytest.raises(ValueError, match="needs 2 processes"):
         pmesh.build_mesh_for_batch(MeshConfig(data_parallel=1, model_parallel=2), 8,
                                    comm=World(4))
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        pmesh.build_mesh_for_batch(MeshConfig(model_parallel=2, fsdp=True), 8, comm=World(4))
+    monkeypatch.setattr(pmesh, "mesh_groups", lambda layout, comm: {
+        "data": World(layout.shape[0]), "model": World(layout.shape[1])})
+    fsdp_tp = pmesh.build_mesh_for_batch(MeshConfig(model_parallel=2, fsdp=True), 8,
+                                         comm=World(4))
+    assert (fsdp_tp.degree, fsdp_tp.fsdp, fsdp_tp.model.size) == (2, True, 2)
     got = run_mesh(lambda m: (m.rank, m.model.rank, m.rows(8).tolist(), m.lead, m.size), 2, 2)
     assert [g[:2] for g in got] == [(0, 0), (0, 1), (1, 0), (1, 1)]
     assert got[0][2] == got[1][2] == [0, 1, 2, 3] and got[2][2] == [4, 5, 6, 7]
