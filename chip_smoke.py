@@ -222,6 +222,9 @@ PROBE_KERNELS = ("roi_fused_a", "roi_fused_a0", "roi_fused_e")
 # the probe path: RoIs and launches of each kernel's timing
 PROBE_K = 8192
 PROBE_ITERS = 20
+# launches of each probe kernel held to the first one's bits: a race
+# shows in some launches only
+PROBE_REPEATS = 10
 # train phase: one epoch of this many steps through Trainer.train(), then
 # steps on one repeated batch (the first TRAIN_WARMUP not timed), over
 # which the loss must fall by TRAIN_MIN_DROP (the JAX e2e overfit check)
@@ -910,21 +913,30 @@ def _probe_work(k: int, c: int, h: int, w: int) -> dict:
             "first": (ins - k * p * w * 2 + k * p * w * c * 2, first)}
 
 
+def _same_bits(name: str, first: torch.Tensor, fn) -> None:
+    """Raise unless PROBE_REPEATS more launches give ``first``'s bits."""
+    for i in range(PROBE_REPEATS):
+        if not torch.equal(fn(), first):
+            raise RuntimeError(f"{name}: launch {i + 2} differs from the first")
+
+
 def phase_probes(gen, kernels: list[dict]) -> list[dict]:
     """The fused RoIAlign probes (rows 9-11), then their path.
 
     On the probe's inputs at K = 8192 (``probe_inputs``: 0/1 weights) each
-    kernel against its plain version, timed beside its bound, its plain
-    version and the yardstick (``two_gemm``: two cuBLAS calls, which the
-    port never takes; for row 10, which stops at t, its one matrix
-    product). Row 9 on real RoIs: one 224 px pyramid with 8192 RoIs
-    through ``roi_atlas`` (timed apart) into ``variant_a`` (kb 16),
-    against row 7's ``multiscale_roi_align`` on the same pyramid and
-    RoIs. The atlas form's forward and custom backward
-    (``pooled_from_weights_native``, two matrix products each) at rows
-    7-8's 224 px train shapes (B = 16, K = 512), against rows 7-8. Last,
-    the probe path: the probe tool, ``tools/probe_roi_fused.main``, with the
-    counts set to 0 just before it."""
+    kernel against its plain version and against itself on PROBE_REPEATS
+    more launches (the same bits), timed beside its bound
+    (``bound_share``), its plain version and the yardstick (``two_gemm``:
+    two cuBLAS calls, which the port never takes; for row 10, which stops
+    at t, its one matrix product, and ``fill_`` of t's bytes). Row 9 on
+    real RoIs: one 224 px pyramid with 8192 RoIs through ``roi_atlas``
+    (timed apart) into ``variant_a`` (kb 16), against row 7's
+    ``multiscale_roi_align`` on the same pyramid and RoIs. The atlas
+    form's forward and custom backward (``pooled_from_weights_native``,
+    two matrix products each) at rows 7-8's 224 px train shapes (B = 16,
+    K = 512), against rows 7-8. Last, the probe path: the probe tool,
+    ``tools/probe_roi_fused.main``, with the counts set to 0 just before
+    it."""
     from layoutdit_tpu_torch.ops import roi_align as ra
     from layoutdit_tpu_torch.ops import roi_fused as rf
     from layoutdit_tpu_torch.tools import probe_roi_fused as tool
@@ -954,11 +966,14 @@ def phase_probes(gen, kernels: list[dict]) -> list[dict]:
             err, tol = _check_close(f"{name} kb={kb}", got, plain)
             yard = (got.float() - ref.float()).abs().max().item()
             print(f"    against two_gemm: max_abs_diff {yard:.6g}")
+            _same_bits(f"{name} kb={kb}", got, lambda: fn(f, wy, wx, kb=kb))
             del got
             key = "" if kb == kbs[0] else f"kb{kb}_"
+            ms = _time_ms(lambda: fn(f, wy, wx, kb=kb), PROBE_ITERS)
+            _print_share(f"{name} kb={kb}", ms, bound, by)
             entry.update({f"{key}max_abs_err": err, f"{key}tolerance": tol,
-                          f"{key}two_gemm_max_abs_diff": yard,
-                          f"{key}ms": _time_ms(lambda: fn(f, wy, wx, kb=kb), PROBE_ITERS)})
+                          f"{key}two_gemm_max_abs_diff": yard, f"{key}ms": ms,
+                          f"{key}bound_share": bound / ms})
         return entry
 
     a = fused("roi_fused_a", rf.variant_a, rf.variant_a_plain, 101, (8, 16))
@@ -976,15 +991,23 @@ def phase_probes(gen, kernels: list[dict]) -> list[dict]:
           "library_ms": _time_ms(lambda: torch.matmul(wy2, f2), PROBE_ITERS),
           "library": "torch.matmul [K*7, H] x [H, W*C]: rows (k, py, w), no relayout"}
     del wy2, f2
+    # the card's rate for t's bytes written alone: fill_ of a tensor of t's size
+    t_out = torch.empty(k * 7 * w, c, dtype=torch.bfloat16, device="cuda")
+    a0["fill_ms"] = _time_ms(lambda: t_out.fill_(1.0), PROBE_ITERS)
+    print(f"  fill_ of t's {t_out.numel() * 2 / 1e9:.4f} GB: {a0['fill_ms']:.4f} ms")
+    del t_out
     for relayout in (False, True):
         want = rf.variant_a0_plain(f, wy, relayout)
-        err, tol = _check_close(f"roi_fused_a0 kb=16 relayout={relayout}",
-                                rf.variant_a0(f, wy, kb=16, relayout=relayout), want)
-        del want
+        got = rf.variant_a0(f, wy, kb=16, relayout=relayout)
+        err, tol = _check_close(f"roi_fused_a0 kb=16 relayout={relayout}", got, want)
+        _same_bits(f"roi_fused_a0 relayout={relayout}", got,
+                   lambda: rf.variant_a0(f, wy, kb=16, relayout=relayout))
+        del want, got
         key = "relayout_" if relayout else ""
-        a0.update({f"{key}max_abs_err": err, f"{key}tolerance": tol,
-                   f"{key}ms": _time_ms(lambda: rf.variant_a0(f, wy, kb=16, relayout=relayout),
-                                        PROBE_ITERS)})
+        ms = _time_ms(lambda: rf.variant_a0(f, wy, kb=16, relayout=relayout), PROBE_ITERS)
+        _print_share(f"roi_fused_a0 relayout={relayout}", ms, bound, by)
+        a0.update({f"{key}max_abs_err": err, f"{key}tolerance": tol, f"{key}ms": ms,
+                   f"{key}bound_share": bound / ms})
     a0["plain_ms"] = _time_ms(lambda: rf.variant_a0_plain(f, wy, False), 2)
     del f, wy, wx
     torch.cuda.empty_cache()

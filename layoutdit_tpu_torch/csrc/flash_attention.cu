@@ -809,59 +809,6 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dkdv_kernel(
   }
 }
 
-// Makes the device that holds p current in this thread while the guard
-// lives, and the thread's previous device current again after it, as
-// c10's DeviceGuard does. cudaSetDevice also makes the device's primary
-// context current: cuTensorMapEncodeTiled needs a current context, and a
-// thread may have none yet (autograd's worker thread runs a backward with
-// none where every tensor it allocated came from PyTorch's cache).
-class DeviceOf {
- public:
-  explicit DeviceOf(const void* p) {
-    cudaPointerAttributes attr;
-    err_ = cudaPointerGetAttributes(&attr, p);
-    if (err_ == cudaSuccess) err_ = cudaGetDevice(&prev_);
-    if (err_ == cudaSuccess) err_ = cudaSetDevice(attr.device);
-    if (err_ == cudaSuccess) device_ = attr.device;
-  }
-  ~DeviceOf() {
-    if (device_ >= 0 && device_ != prev_) cudaSetDevice(prev_);
-  }
-  DeviceOf(const DeviceOf&) = delete;
-  DeviceOf& operator=(const DeviceOf&) = delete;
-  cudaError_t error() const { return err_; }
-
- private:
-  cudaError_t err_;
-  int prev_ = -1;
-  int device_ = -1;
-};
-
-// cuTensorMapEncodeTiled, a driver function, found through the runtime so
-// the library needs no link against libcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A 4-d tensor map over a bf16 [B, N, H, 64] tensor with element strides s
 // (dims innermost first: d, h, n, b), box one head's [64 rows, 64], 128-byte
 // swizzle, zeros past the extent. TMA needs a 16-byte-aligned base and byte

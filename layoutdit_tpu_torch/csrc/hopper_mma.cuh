@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels
-// (flash_attention.cu): warpgroup products (wgmma.mma_async, bf16 in, fp32
-// accumulate), their shared-memory descriptors for 128-byte-swizzled tiles,
-// TMA tile loads (cp.async.bulk.tensor) and bulk copies of fp32 rows
-// (cp.async.bulk) completing on mbarriers, and the register split between
-// a producer warpgroup and its consumers (setmaxnreg).
+// (flash_attention.cu) and the fused RoIAlign kernels (roi_fused.cu):
+// warpgroup products (wgmma.mma_async, bf16 in, fp32 accumulate), their
+// shared-memory descriptors for 128-byte-swizzled tiles, TMA tile loads
+// (cp.async.bulk.tensor) and bulk copies of fp32 rows (cp.async.bulk)
+// completing on mbarriers, TMA tile stores in bulk groups, the register
+// split between a producer warpgroup and its consumers (setmaxnreg), and on
+// the host the tensor maps' encoder and a device guard.
 //
 // Tiles. Every bf16 tile in shared memory is [rows][64] with 128-byte rows
 // (one D = 64 head row), written by TMA with CU_TENSOR_MAP_SWIZZLE_128B:
@@ -284,6 +286,82 @@ __device__ __forceinline__ int span_shift(const float* p) {
   return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3u);
 }
 
+// TMA: the box at coordinates (c0, c1) of a 2-d tensor map, or (c0, c1, c2)
+// of a 3-d one, into shared memory, completing `bar`'s transactions;
+// coordinates past the tensor's extent read as zeros
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// an L2 policy that evicts first what it covers (1.0: everything), for
+// stores that stream past L2 and should not push out what is read again
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+// TMA store: a shared-memory tile to the box at (c0, c1, c2) of a 3-d tensor
+// map, or (c0, c1, c2, c3) of a 4-d one, in this thread's bulk group, under
+// an L2 cache policy (l2_evict_first); elements past the tensor's extent
+// are not written. The threads that wrote the tile call fence_proxy_async
+// first, and a barrier orders them before the one thread that stores.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group.L2::cache_hint "
+      "[%0, {%2, %3, %4}], [%1], %5;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "l"(policy)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group.L2::cache_hint "
+      "[%0, {%2, %3, %4, %5}], [%1], %6;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "l"(policy)
+      : "memory");
+}
+
+// makes this thread's writes to shared memory visible to the async proxy
+// (the TMA store that reads them)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// closes this thread's bulk group of TMA stores
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of this thread's bulk groups are still reading
+// shared memory (their tiles may then be overwritten) ...
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// ... or are still incomplete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // the registers of every thread of this warpgroup, from here on
 template <int N>
 __device__ __forceinline__ void warpgroup_regs_inc() {
@@ -299,4 +377,72 @@ __device__ __forceinline__ void warpgroup_regs_dec() {
 // swizzle repeats every 1024 bytes, and wgmma's descriptors assume it)
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
   return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+// Makes the device that holds p current in this thread while the guard
+// lives, and the thread's previous device current again after it, as
+// c10's DeviceGuard does. cudaSetDevice also makes the device's primary
+// context current: cuTensorMapEncodeTiled needs a current context, and a
+// thread may have none yet (autograd's worker thread runs a backward with
+// none where every tensor it allocated came from PyTorch's cache).
+class DeviceOf {
+ public:
+  explicit DeviceOf(const void* p) {
+    cudaPointerAttributes attr;
+    err_ = cudaPointerGetAttributes(&attr, p);
+    if (err_ == cudaSuccess) err_ = cudaGetDevice(&prev_);
+    if (err_ == cudaSuccess) err_ = cudaSetDevice(attr.device);
+    if (err_ == cudaSuccess) device_ = attr.device;
+  }
+  ~DeviceOf() {
+    if (device_ >= 0 && device_ != prev_) cudaSetDevice(prev_);
+  }
+  DeviceOf(const DeviceOf&) = delete;
+  DeviceOf& operator=(const DeviceOf&) = delete;
+  cudaError_t error() const { return err_; }
+
+ private:
+  cudaError_t err_;
+  int prev_ = -1;
+  int device_ = -1;
+};
+
+// cuTensorMapEncodeTiled, a driver function, found through the runtime so
+// the library needs no link against libcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A tiled bf16 tensor map over `rank` dims (innermost first) with byte
+// strides of dims 1..rank-1, box `box`, zeros past the extent. TMA needs a
+// 16-byte-aligned base and strides that are multiples of 16 bytes, and with
+// a swizzle a box row of at most its span (128 bytes).
+inline bool encode_bf16(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                        const cuuint64_t* strides, const cuuint32_t* box,
+                        CUtensorMapSwizzle swizzle, CUtensorMapL2promotion promotion) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
+            const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            swizzle, promotion, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

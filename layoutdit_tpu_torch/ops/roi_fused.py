@@ -24,8 +24,11 @@ with f, wy and wx cast to bf16 first, as the probe does:
 
 The kernels (``csrc/roi_fused.cu``) take the real wx [K, P, W]: the
 probe's block-diagonal ``wxb`` and selector ``r`` were workarounds for
-the TPU compiler and are not carried over. ``kb``, the RoIs a block
-takes, is 8 or 16; ``K % kb != 0`` raises, as the probe's reshapes do.
+the TPU compiler and are not carried over. ``kb`` is 8 or 16 and
+``K % kb != 0`` raises, as the probe's reshapes do; row 11's kernel
+takes kb RoIs a block, while rows 9 and 10 (Hopper kernels: TMA, an
+mbarrier ring, wgmma, TMA stores) group 18 RoIs a block whatever kb is,
+the last group ragged.
 The plain versions run the same arithmetic in fp32 with ``t`` rounded to
 bf16; a wrapper takes them for CPU tensors only, and for CUDA tensors
 launches its kernel, through the registered operators
@@ -53,6 +56,7 @@ KBS = (8, 16)
 CHANNEL_TILE = {"a": 16, "e": 16, "a0": 64}
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_A_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _A0_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
@@ -121,11 +125,19 @@ def kernel_operands(f_chw: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor | No
     return f, wy2, wx2
 
 
+def wx_rows(wx2: torch.Tensor) -> torch.Tensor:
+    """Row 9's wx operand: bf16 [K * P, W rounded up to 8], zero past W,
+    so that its row pitch is a multiple of 16 bytes, as TMA needs."""
+    w = wx2.shape[-1]
+    return F.pad(wx2.reshape(-1, w), (0, -w % 8)).contiguous()
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("roi_fused")
     if lib.roi_fused_a.argtypes is None:
+        lib.roi_fused_a.argtypes = _A_ARGTYPES
+        lib.roi_fused_e.argtypes = _ARGTYPES
         for fn in (lib.roi_fused_a, lib.roi_fused_e):
-            fn.argtypes = _ARGTYPES
             fn.restype = ctypes.c_int
         lib.roi_fused_a0.argtypes = _A0_ARGTYPES
         lib.roi_fused_a0.restype = ctypes.c_int
@@ -144,14 +156,18 @@ def _cuda_operands(name: str, mode: str, f_chw, wy, wx, kb):
     if kb not in KBS or h > H_PAD or w > W_MAX or c % ct:
         raise ValueError(f"{name}: the kernel takes kb in {KBS}, H <= {H_PAD}, W <= {W_MAX} "
                          f"and C a multiple of {ct}; got kb={kb}, C={c}, H={h}, W={w}")
-    return kernel_operands(f_chw, wy, wx), wy.shape[0], c, w
+    f, wy2, wx2 = kernel_operands(f_chw, wy, wx)
+    if mode == "a":
+        wx2 = wx_rows(wx2)
+    return (f, wy2, wx2), wy.shape[0], c, w
 
 
 def _a_cuda(f, wy2, wx2, k, kb, c, w):
+    # wx2: [K * P, pitch] from wx_rows
     out = torch.empty((k, P, P, c), dtype=BF16, device=wy2.device)
     lib = _lib()
     code = lib.roi_fused_a(f.data_ptr(), wy2.data_ptr(), wx2.data_ptr(), out.data_ptr(), k, kb,
-                           c, w, _build.stream_ptr(wy2))
+                           c, w, wx2.shape[-1], _build.stream_ptr(wy2))
     _build.check(lib, code, "variant_a")
     variant_a.launches += 1
     return out

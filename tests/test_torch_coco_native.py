@@ -3,7 +3,10 @@ cases of ``tests/test_coco_native.py`` through the port, and the port's
 arrays against the JAX package's ``parse_coco_bytes`` on the same
 bytes, hostile inputs included (both must return None on each of them).
 The port builds its library under ``build/native/``, never beside the
-source."""
+source. The JAX package's library is built for this module alone, in a
+directory of its own (``jax_native``): its own build writes straight to
+the file it then opens beside its source, so a test process that opens
+it while another process is still writing it would load nothing."""
 
 import importlib.util
 import json
@@ -23,8 +26,29 @@ FIELDS = ("img_id", "img_w", "img_h", "ann_id", "ann_img", "ann_cat", "ann_crowd
 
 
 @pytest.fixture(scope="module")
-def native():
-    """The port's parser, built here (g++ is on this machine)."""
+def jax_native(tmp_path_factory):
+    """The JAX package's parser, built by its own ``_build`` into a
+    directory that belongs to this module, never at the shared path
+    beside its source, and loaded; its module state is put back after the
+    module. Fails, rather than comparing None with None, if it does not
+    build."""
+    so = str(tmp_path_factory.mktemp("jax_native_coco") / os.path.basename(jax_coco._so_path()))
+    saved = (jax_coco._lib, jax_coco._build_failed)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_coco, "_so_path", lambda: so)
+        jax_coco._lib, jax_coco._build_failed = None, False
+        try:
+            assert jax_coco._load() is not None, \
+                f"the JAX package's COCO parser did not build at {so}"
+            yield jax_coco
+        finally:
+            jax_coco._lib, jax_coco._build_failed = saved
+
+
+@pytest.fixture(scope="module")
+def native(jax_native):
+    """The port's parser, built here (g++ is on this machine), beside the
+    JAX package's (``jax_native``)."""
     if not cocojson.available():
         pytest.skip("the native COCO parser did not build (no g++)")
     return cocojson
@@ -59,6 +83,7 @@ def _coco_json(n_img=7, n_ann=23, seed=0, **extras):
 def _same_as_jax(raw: bytes):
     """The port's arrays of ``raw``, asserted equal to the JAX parser's
     (None on both sides, or every field bit for bit)."""
+    assert jax_coco._lib is not None, "the JAX package's COCO parser is not loaded"
     got, want = cocojson.parse_coco_bytes(raw), jax_coco.parse_coco_bytes(raw)
     assert (got is None) == (want is None)
     if want is None:

@@ -226,6 +226,102 @@ def test_kernel_operands_hold_the_same_function():
     torch.testing.assert_close(t.reshape(8, 7, C, W), rf.t_plain(f, wy), atol=0, rtol=0)
 
 
+def test_wx_rows_hold_the_same_function(rng):
+    # row 9's wx operand, each row padded to a multiple of 8 w for TMA, with
+    # the padded atlas and wy, gives the plain version's out bit for bit
+    for w in (56, 61, 100):
+        f = torch.from_numpy(rng.standard_normal((16, H, w)).astype(np.float32))
+        wy = torch.from_numpy(rng.uniform(size=(8, 7, H)).astype(np.float32))
+        wx = torch.from_numpy(rng.uniform(size=(8, 7, w)).astype(np.float32))
+        fk, wyk, wxk = rf.kernel_operands(f, wy, wx)
+        rows = rf.wx_rows(wxk)
+        pitch = -(-w // 8) * 8
+        assert rows.shape == (8 * 7, pitch) and rows.is_contiguous()
+        assert not rows[:, w:].any()
+        torch.testing.assert_close(rows[:, :w], wxk.reshape(-1, w), atol=0, rtol=0)
+        t = torch.einsum("mh,cwh->mcw", wyk.float(), fk.float()).to(torch.bfloat16)
+        out = torch.einsum("kqw,kpcw->kqpc", rows.float().reshape(8, 7, pitch)[..., :w],
+                           t.float().reshape(8, 7, 16, w)).to(torch.bfloat16)
+        torch.testing.assert_close(out, rf.variant_a_plain(f, wy, wx), atol=0, rtol=0)
+
+
+def _hopper_tiling(f_chw, wy, wx, row, relayout=False):
+    """Rows 9 and 10 computed as their Hopper kernel tiles them
+    (``csrc/roi_fused.cu``, ``roi_hopper_kernel``), in fp32 with t rounded
+    to bf16: RoI blocks of 18, 9 a warpgroup as one 64-row tile (63 rows
+    (k, py) and one row past them), the boxes' zeros past every extent
+    (h to 128, w to 64 a chunk, rows past K * 7), row 10 a unit per (w,
+    128 channels), row 9 a unit per 16 channels in pairs with its second
+    product over 64 x 64 tiles of (k, py) x (k', px) of which only the
+    diagonal blocks are kept, and the stores clipped at K."""
+    fk, wyk, wxk = rf.kernel_operands(f_chw, wy, wx)
+    c, w = fk.shape[0], fk.shape[1]
+    k = wy.shape[0]
+    nrb = -(-k // 18)
+    rows = nrb * 18 * 7 + 64
+    wyp = torch.zeros(rows, 128)
+    wyp[:k * 7, :rf.H_PAD] = wyk.float()
+    fp = torch.zeros(-(-c // 128) * 128, -(-w // 64) * 64, 128)
+    fp[:c, :w, :rf.H_PAD] = fk.float()
+    if row == 10:
+        out = torch.zeros(k, 7, w, c) if not relayout else torch.zeros(k, w, 7, c)
+    else:
+        out = torch.zeros(k, 7, 7, c)
+        wxp = torch.zeros(rows, fp.shape[1])
+        wxr = rf.wx_rows(wxk)
+        wxp[:k * 7, :wxr.shape[1]] = wxr.float()
+    for rb in range(nrb):
+        for g in range(2):
+            k0 = rb * 18 + g * 9
+            m0 = k0 * 7
+            a = wyp[m0:m0 + 64]  # the warpgroup's A operand, 64 rows
+            n_rois = min(9, k - k0)
+            if n_rois <= 0:  # the warpgroup's store is skipped
+                continue
+            if row == 10:
+                for wi in range(w):
+                    for ct in range(0, c, 128):
+                        t = (a @ fp[ct:ct + 128, wi].T).to(torch.bfloat16).float()[:63]
+                        t = t[:n_rois * 7, :min(128, c - ct)].reshape(n_rois, 7, -1)
+                        if relayout:
+                            out[k0:k0 + n_rois, wi, :, ct:ct + 128] = t
+                        else:
+                            out[k0:k0 + n_rois, :, wi, ct:ct + 128] = t
+                continue
+            # the diagonal blocks: row r = (k, py), column n = (k', px), k' == k
+            r, n = torch.meshgrid(torch.arange(63), torch.arange(63), indexing="ij")
+            keep = (n // 7 == r // 7) & (r // 7 < n_rois)
+            r, n = r[keep], n[keep]
+            for cp in range(0, c, 2):
+                d2 = [torch.zeros(64, 64), torch.zeros(64, 64)]
+                for w0 in range(0, fp.shape[1], 64):
+                    b = fp[cp:cp + 2, w0:w0 + 64].reshape(128, 128)  # rows (c, w)
+                    ta = (a @ b.T).to(torch.bfloat16).float()
+                    for ci in range(2):
+                        d2[ci] += ta[:, 64 * ci:64 * ci + 64] @ wxp[m0:m0 + 64, w0:w0 + 64].T
+                for ci in range(2):
+                    out[k0 + r // 7, n % 7, r % 7, cp + ci] = d2[ci][r, n]
+    out = out.to(torch.bfloat16)
+    return out if row == 9 else out.reshape(-1, c)
+
+
+@pytest.mark.parametrize("k,w,c", [(40, W, 32), (18, 100, 16), (7 * 8, 30, 192)])
+def test_hopper_tiling_matches_plain(rng, k, w, c):
+    # K not a multiple of the 18-RoI block, one and two 64-w chunks, a
+    # 128-channel tile past C (row 10 at C = 192)
+    f = torch.from_numpy(rng.standard_normal((c, H, w)).astype(np.float32))
+    wy = torch.from_numpy(rng.uniform(size=(k, 7, H)).astype(np.float32) / 8)
+    wx = torch.from_numpy(rng.uniform(size=(k, 7, w)).astype(np.float32) / 8)
+    for relayout in (False, True):
+        want = rf.variant_a0_plain(f, wy, relayout)
+        got = _hopper_tiling(f, wy, None, 10, relayout)
+        assert (got.float() - want.float()).abs().max() <= want.float().abs().max() / 64
+    if c % 16 == 0:
+        want = rf.variant_a_plain(f, wy, wx)
+        got = _hopper_tiling(f, wy, wx, 9)
+        assert (got.float() - want.float()).abs().max() <= want.float().abs().max() / 64
+
+
 def test_probe_tool_runs_on_cpu(capsys):
     assert tool.main(["--device", "cpu", "--k", "16", "--iters", "1"]) == 0
     out = capsys.readouterr().out
@@ -247,6 +343,8 @@ def test_probe_tool_refuses_cuda_without_gpu(monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["variant_a", "variant_a0", "variant_e"])
 def test_kernel_matches_plain(cuda, name):
+    # and the same bits over 10 more launches: a race shows in some
+    # launches only
     f, wy, wx = tool.probe_inputs(8192, "cuda")
     for kb in (8, 16):
         if name == "variant_a0":
@@ -254,11 +352,46 @@ def test_kernel_matches_plain(cuda, name):
                 got = rf.variant_a0(f, wy, kb=kb, relayout=relayout)
                 want = rf.variant_a0_plain(f, wy, relayout)
                 assert (got.float() - want.float()).abs().max() <= want.float().abs().max() / 64
+                for _ in range(10):
+                    assert torch.equal(rf.variant_a0(f, wy, kb=kb, relayout=relayout), got)
             continue
         got = getattr(rf, name)(f, wy, wx, kb=kb)
         want = rf.variant_a_plain(f, wy, wx)
         torch.cuda.synchronize()
         assert (got.float() - want.float()).abs().max() <= want.float().abs().max() / 64
+        for _ in range(10):
+            assert torch.equal(getattr(rf, name)(f, wy, wx, kb=kb), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,w,c", [(8 * 37, W, 256), (16 * 5, 100, 64), (8, 30, 192)])
+def test_hopper_kernels_ragged(cuda, rng, k, w, c):
+    """Rows 9-10 at small ragged shapes (K not a multiple of the kernels'
+    18-RoI block, W = 56, two 64-w chunks, C past a 128-channel tile) and
+    on a 224 px pyramid's atlas (H = 109, W = 56), against their plain
+    versions, and the same bits on a second launch."""
+    cases = [tuple(torch.from_numpy(a).to(cuda) for a in (
+        rng.standard_normal((c, H, w)).astype(np.float32),
+        rng.uniform(size=(k, 7, H)).astype(np.float32) / 8,
+        rng.uniform(size=(k, 7, w)).astype(np.float32) / 8))]
+    feats, boxes, mask = _pyramid(rng, k=k, c=c if c % 16 == 0 else 64)
+    cases.append(tuple(t[0] for t in port_ra.roi_atlas(
+        [torch.from_numpy(x).to(cuda) for x in feats], torch.from_numpy(boxes).to(cuda),
+        SCALES, roi_mask=torch.from_numpy(mask).to(cuda))))
+    for f, wy, wx in cases:
+        for kb in (8, 16):
+            if k % kb:
+                continue
+            if f.shape[0] % 16 == 0:
+                got = rf.variant_a(f, wy, wx, kb=kb)
+                want = rf.variant_a_plain(f, wy, wx)
+                assert (got.float() - want.float()).abs().max() <= want.float().abs().max() / 64
+                assert torch.equal(got, rf.variant_a(f, wy, wx, kb=kb))
+            for relayout in (False, True):
+                got = rf.variant_a0(f, wy, kb=kb, relayout=relayout)
+                want = rf.variant_a0_plain(f, wy, relayout)
+                assert (got.float() - want.float()).abs().max() <= want.float().abs().max() / 64
+                assert torch.equal(got, rf.variant_a0(f, wy, kb=kb, relayout=relayout))
 
 
 @pytest.mark.cuda
