@@ -913,6 +913,22 @@ def _probe_work(k: int, c: int, h: int, w: int) -> dict:
             "first": (ins - k * p * w * 2 + k * p * w * c * 2, first)}
 
 
+def _einsum_order(eq: str, names: list[str], *operands) -> str:
+    """The contraction order ``torch.einsum`` takes for these operands, as
+    nested pairs of their ``names``: opt_einsum's path where PyTorch uses
+    it, else left to right."""
+    oe = torch.backends.opt_einsum
+    if not (oe.enabled and oe.is_available()):
+        return "left to right (no opt_einsum)"
+    terms = list(names)
+    for pair in oe.get_opt_einsum().contract_path(eq, *operands, optimize=oe.strategy)[0]:
+        picked = [terms[i] for i in sorted(pair)]
+        for i in sorted(pair, reverse=True):
+            del terms[i]
+        terms.append(f"({' x '.join(picked)})")
+    return f"opt_einsum {oe.strategy}: {terms[0]}"
+
+
 def _same_bits(name: str, first: torch.Tensor, fn) -> None:
     """Raise unless PROBE_REPEATS more launches give ``first``'s bits."""
     for i in range(PROBE_REPEATS):
@@ -924,11 +940,16 @@ def phase_probes(gen, kernels: list[dict]) -> list[dict]:
     """The fused RoIAlign probes (rows 9-11), then their path.
 
     On the probe's inputs at K = 8192 (``probe_inputs``: 0/1 weights) each
-    kernel against its plain version and against itself on PROBE_REPEATS
-    more launches (the same bits), timed beside its bound
-    (``bound_share``), its plain version and the yardstick (``two_gemm``:
-    two cuBLAS calls, which the port never takes; for row 10, which stops
-    at t, its one matrix product, and ``fill_`` of t's bytes). Row 9 on
+    kernel (rows 9 and 11 at kb 8 and 16) against its plain version and
+    against itself on PROBE_REPEATS more launches (the same bits), timed
+    beside its bound (``bound_share``), its plain version, one PyTorch
+    call of the same function (rows 9 and 11: ``torch.einsum``, checked
+    like a kernel, its contraction order printed) and the yardstick
+    (``two_gemm``: two cuBLAS calls, which the port never takes; for row
+    10, which stops at t, its one matrix product, and ``fill_`` of t's
+    bytes). Row 11's ``ms`` is its kernel alone, ``relayout_ms`` the call
+    with the wrapper's relayout to [K, 7, 7, C], ``row9_ratio`` its
+    kernel against row 9 in the same phase. Row 9 on
     real RoIs: one 224 px pyramid with 8192 RoIs through ``roi_atlas``
     (timed apart) into ``variant_a`` (kb 16), against row 7's
     ``multiscale_roi_align`` on the same pyramid and RoIs. The atlas
@@ -950,17 +971,32 @@ def phase_probes(gen, kernels: list[dict]) -> list[dict]:
     ref = rf.two_gemm(f, wy, wx)
     plain = rf.variant_a_plain(f, wy, wx)
     print(f"  two_gemm (yardstick) {two_gemm_ms:.4f} ms")
+    # one PyTorch call of rows 9 and 11's function, on bf16 weights cast
+    # before the timing; checked like a kernel
+    eq = "kph,chw,kqw->kqpc"
+    wyb, wxb = wy.to(torch.bfloat16), wx.to(torch.bfloat16)
+    one_call = lambda: torch.einsum(eq, wyb, f, wxb)  # noqa: E731
+    einsum_err, einsum_tol = _check_close("torch.einsum (one call)", one_call(), plain)
+    einsum_ms = _time_ms(one_call, PROBE_ITERS)
+    order = _einsum_order(eq, ["wy", "f", "wx"], wyb, f, wxb)
+    print(f"  torch.einsum {eq} {einsum_ms:.4f} ms, contraction order {order}")
+    del wyb, wxb
 
-    def fused(name, fn, plain_fn, line, kbs):
+    def fused(name, fn, timed, plain_fn, line, kbs):
         """Rows 9 and 11, each kb against row 9's plain version (row 11's
-        is that, laid out as its kernel writes it)."""
+        is that, laid out as its kernel writes it); ``timed`` is the call
+        timed as the kernel's ``ms``."""
         bound, by = _bound_ms(*work["fused"])
         entry = {"name": name, "route": "cuda", "source": "layoutdit_tpu_torch/csrc/roi_fused.cu",
                  "replaces": f"scripts/probe_roi_fused.py:{line}", "shape": f"{shape}, kb={kbs[0]}",
                  "bound_ms": bound, "bound_by": by,
                  "plain_ms": _time_ms(lambda: plain_fn(f, wy, wx), 2),
-                 "library_ms": two_gemm_ms,
-                 "library": "two_gemm: two cuBLAS calls, not one PyTorch call"}
+                 "library_ms": einsum_ms,
+                 "library": f"torch.einsum {eq}: one call on bf16 operands, contraction "
+                            f"order {order}",
+                 "library_max_abs_err": einsum_err, "library_tolerance": einsum_tol,
+                 "two_gemm_ms": two_gemm_ms,
+                 "two_gemm": "two cuBLAS calls (pooled_from_weights_native)"}
         for kb in kbs:
             got = fn(f, wy, wx, kb=kb)
             err, tol = _check_close(f"{name} kb={kb}", got, plain)
@@ -969,17 +1005,24 @@ def phase_probes(gen, kernels: list[dict]) -> list[dict]:
             _same_bits(f"{name} kb={kb}", got, lambda: fn(f, wy, wx, kb=kb))
             del got
             key = "" if kb == kbs[0] else f"kb{kb}_"
-            ms = _time_ms(lambda: fn(f, wy, wx, kb=kb), PROBE_ITERS)
+            ms = _time_ms(lambda: timed(f, wy, wx, kb=kb), PROBE_ITERS)
             _print_share(f"{name} kb={kb}", ms, bound, by)
             entry.update({f"{key}max_abs_err": err, f"{key}tolerance": tol,
                           f"{key}two_gemm_max_abs_diff": yard, f"{key}ms": ms,
                           f"{key}bound_share": bound / ms})
         return entry
 
-    a = fused("roi_fused_a", rf.variant_a, rf.variant_a_plain, 101, (8, 16))
-    e = fused("roi_fused_e", rf.variant_e, lambda *x: rf.variant_e_plain(*x, kb=8), 187, (8,))
-    e["kernel_only_ms"] = _time_ms(lambda: rf.variant_e(f, wy, wx, kb=8, kernel_layout=True),
-                                   PROBE_ITERS)
+    a = fused("roi_fused_a", rf.variant_a, rf.variant_a, rf.variant_a_plain, 101, (8, 16))
+    # row 11: ms is the kernel alone (its channel-major layout), relayout_ms
+    # the wrapper's default call with the relayout to [K, 7, 7, C]
+    e = fused("roi_fused_e", rf.variant_e,
+              lambda *x, kb: rf.variant_e(*x, kb=kb, kernel_layout=True),
+              lambda *x: rf.variant_e_plain(*x, kb=8), 187, (8, 16))
+    for kb, key in ((8, ""), (16, "kb16_")):
+        e[f"{key}relayout_ms"] = _time_ms(lambda: rf.variant_e(f, wy, wx, kb=kb), PROBE_ITERS)
+        e[f"{key}row9_ratio"] = e[f"{key}ms"] / a[f"{key}ms"]
+        print(f"  roi_fused_e kb={kb}: with the relayout {e[f'{key}relayout_ms']:.6g} ms; "
+              f"kernel alone / row 9 {e[f'{key}row9_ratio']:.4f}")
     del ref, plain
 
     bound, by = _bound_ms(*work["first"])
@@ -6719,7 +6762,8 @@ def main() -> int:
                    "moe": lambda: phase_moe([], card),
                    "parallel": lambda: phase_parallel([], card),
                    "model_parallel": lambda: phase_model_parallel([], card, gen),
-                   "pipeline": lambda: phase_pipeline([], card)}
+                   "pipeline": lambda: phase_pipeline([], card),
+                   "probes": lambda: phase_probes(gen, [phase_roi(gen), phase_roi_bwd(gen)])}
         for name in only:
             print(f"phase {name}")
             print(json.dumps({name: runners[name]()}))

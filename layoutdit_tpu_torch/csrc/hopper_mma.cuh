@@ -74,6 +74,19 @@ __device__ __forceinline__ void fence_frag(uint32_t (&a)[K][4]) {
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[k][e])::"memory");
 }
 
+#define HOPPER_ACC28(d) \
+      "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), \
+      "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), \
+      "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), \
+      "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), \
+      "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), \
+      "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), \
+      "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3])
+
+#define HOPPER_D28 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27}"
+
 #define HOPPER_ACC32(d) \
       "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), \
       "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), \
@@ -122,13 +135,21 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t desc_a, uint
       : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransB));
 }
 
-// d[64 x N] (+)= a[64 x 16] b[16 x N], N = 8 J = 64 or 128, a from
+// d[64 x N] (+)= a[64 x 16] b[16 x N], N = 8 J = 56, 64 or 128, a from
 // registers (pack_a or load_a_sw128), b from shared memory, K-major (kTransB
 // = 0) or MN-major (1); d is overwritten when accumulate == 0
 template <int kTransB, int J>
 __device__ __forceinline__ void wgmma_rs(float (&d)[J][4], const uint32_t (&a)[4],
                                          uint64_t desc_b, int accumulate = 1) {
-  if constexpr (J == 8) {
+  if constexpr (J == 7) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 " HOPPER_D28
+        ", {%28, %29, %30, %31}, %32, p, 1, 1, %33;\n}\n"
+        : HOPPER_ACC28(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(kTransB),
+          "r"(accumulate));
+  } else if constexpr (J == 8) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32
@@ -137,7 +158,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[J][4], const uint32_t (&a)[4
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(kTransB),
           "r"(accumulate));
   } else {
-    static_assert(J == 16, "m64n64 or m64n128");
+    static_assert(J == 16, "m64n56, m64n64 or m64n128");
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %70, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_D64
@@ -148,8 +169,10 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[J][4], const uint32_t (&a)[4
   }
 }
 
+#undef HOPPER_ACC28
 #undef HOPPER_ACC32
 #undef HOPPER_ACC64
+#undef HOPPER_D28
 #undef HOPPER_D32
 #undef HOPPER_D64
 

@@ -22,13 +22,15 @@ with f, wy and wx cast to bf16 first, as the probe does:
   [K / kb, C, kb * P, P] (channel-major), relaid out to [K, Px, Py, C]
   outside the kernel.
 
-The kernels (``csrc/roi_fused.cu``) take the real wx [K, P, W]: the
-probe's block-diagonal ``wxb`` and selector ``r`` were workarounds for
-the TPU compiler and are not carried over. ``kb`` is 8 or 16 and
-``K % kb != 0`` raises, as the probe's reshapes do; row 11's kernel
-takes kb RoIs a block, while rows 9 and 10 (Hopper kernels: TMA, an
-mbarrier ring, wgmma, TMA stores) group 18 RoIs a block whatever kb is,
-the last group ragged.
+The kernels (``csrc/roi_fused.cu``) of rows 9 and 11 take the real wx,
+its rows padded to a multiple of 8 w (``wx_rows``): the probe's block-diagonal ``wxb``
+and selector ``r`` were workarounds for the TPU compiler and are not
+carried over. ``kb`` is 8 or 16 and ``K % kb != 0`` raises, as the
+probe's reshapes do. All three rows run one Hopper kernel (a persistent
+grid, TMA loads through an mbarrier ring, wgmma, TMA stores) that groups
+RoIs whatever kb is: 18 a block for rows 9 and 10, the last group
+ragged; 16 for row 11, 8 a warpgroup, so that none straddles a kb block
+of its channel-major out.
 The plain versions run the same arithmetic in fp32 with ``t`` rounded to
 bf16; a wrapper takes them for CPU tensors only, and for CUDA tensors
 launches its kernel, through the registered operators
@@ -55,8 +57,8 @@ W_MAX = 128
 KBS = (8, 16)
 CHANNEL_TILE = {"a": 16, "e": 16, "a0": 64}
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_A_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# rows 9 and 11: f, wy, wx, out, K, kb, C, W, wx pitch, stream
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _A0_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
@@ -126,8 +128,9 @@ def kernel_operands(f_chw: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor | No
 
 
 def wx_rows(wx2: torch.Tensor) -> torch.Tensor:
-    """Row 9's wx operand: bf16 [K * P, W rounded up to 8], zero past W,
-    so that its row pitch is a multiple of 16 bytes, as TMA needs."""
+    """Rows 9 and 11's wx operand: bf16 [K * P, W rounded up to 8], zero
+    past W, so that its row pitch is a multiple of 16 bytes, as TMA
+    needs."""
     w = wx2.shape[-1]
     return F.pad(wx2.reshape(-1, w), (0, -w % 8)).contiguous()
 
@@ -135,9 +138,8 @@ def wx_rows(wx2: torch.Tensor) -> torch.Tensor:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("roi_fused")
     if lib.roi_fused_a.argtypes is None:
-        lib.roi_fused_a.argtypes = _A_ARGTYPES
-        lib.roi_fused_e.argtypes = _ARGTYPES
         for fn in (lib.roi_fused_a, lib.roi_fused_e):
+            fn.argtypes = _ARGTYPES
             fn.restype = ctypes.c_int
         lib.roi_fused_a0.argtypes = _A0_ARGTYPES
         lib.roi_fused_a0.restype = ctypes.c_int
@@ -157,7 +159,7 @@ def _cuda_operands(name: str, mode: str, f_chw, wy, wx, kb):
         raise ValueError(f"{name}: the kernel takes kb in {KBS}, H <= {H_PAD}, W <= {W_MAX} "
                          f"and C a multiple of {ct}; got kb={kb}, C={c}, H={h}, W={w}")
     f, wy2, wx2 = kernel_operands(f_chw, wy, wx)
-    if mode == "a":
+    if mode in ("a", "e"):
         wx2 = wx_rows(wx2)
     return (f, wy2, wx2), wy.shape[0], c, w
 
@@ -184,10 +186,11 @@ def _a0_cuda(f, wy2, k, kb, c, w, relayout):
 
 
 def _e_cuda(f, wy2, wx2, k, kb, c, w):
+    # wx2: [K * P, pitch] from wx_rows
     out = torch.empty((k // kb, c, kb * P, P), dtype=BF16, device=wy2.device)
     lib = _lib()
     code = lib.roi_fused_e(f.data_ptr(), wy2.data_ptr(), wx2.data_ptr(), out.data_ptr(), k,
-                           kb, c, w, _build.stream_ptr(wy2))
+                           kb, c, w, wx2.shape[-1], _build.stream_ptr(wy2))
     _build.check(lib, code, "variant_e")
     variant_e.launches += 1
     return out

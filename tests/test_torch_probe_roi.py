@@ -322,6 +322,72 @@ def test_hopper_tiling_matches_plain(rng, k, w, c):
         assert (got.float() - want.float()).abs().max() <= want.float().abs().max() / 64
 
 
+def _row11_tiling(f_chw, wy, wx, kb):
+    """Row 11 computed as its Hopper kernel tiles it (``csrc/roi_fused.cu``,
+    ``roi_hopper_kernel<11>``), in fp32 with t rounded to bf16: RoI blocks
+    of 16, 8 a warpgroup as one 64-row tile (56 rows (k, py), then the next
+    8 RoIs' rows or zeros), the boxes' zeros past every extent (h to 128, w
+    to 64 a chunk, wx's rows padded by ``wx_rows``, rows past K * 7), the
+    second product over 64 x 56 tiles of (k, py) x (k', px) (m64n56: the 8
+    RoIs' columns) of which only the diagonal blocks are kept, written
+    transposed into a [16 c][8 k][7 px][7 py] tile a unit, each tile
+    stored at kb block k0 // kb, offset (k0 % kb) * 49 of its channels'
+    runs, and the store skipped past K. Every out element must be written
+    once: NaN marks the unwritten."""
+    fk, wyk, wxk = rf.kernel_operands(f_chw, wy, wx)
+    c, w = fk.shape[0], fk.shape[1]
+    k = wy.shape[0]
+    nrb = -(-k // 16)
+    rows = nrb * 16 * 7 + 64
+    wp = -(-w // 64) * 64
+    wyp = torch.zeros(rows, 128)
+    wyp[:k * 7, :rf.H_PAD] = wyk.float()
+    fp = torch.zeros(c, wp, 128)
+    fp[:, :w, :rf.H_PAD] = fk.float()
+    wxr = rf.wx_rows(wxk)
+    wxp = torch.zeros(rows, wp)
+    wxp[:k * 7, :wxr.shape[1]] = wxr.float()
+    out = torch.full((k // kb, c, kb * 49), float("nan"))
+    r, n = torch.meshgrid(torch.arange(64), torch.arange(56), indexing="ij")
+    keep = n // 7 == r // 7
+    r, n = r[keep], n[keep]
+    for rb in range(nrb):
+        for g in range(2):
+            k0 = rb * 16 + g * 8
+            if k0 >= k:  # the warpgroup's store is skipped
+                continue
+            m0 = k0 * 7
+            a = wyp[m0:m0 + 64]  # the warpgroup's A operand, 64 rows
+            d2 = torch.zeros(c, 64, 56)
+            for w0 in range(0, wp, 64):
+                # each channel's [64 w][128 h] slice: t rows (k, py), columns w
+                t = torch.einsum("mh,cwh->cmw", a, fp[:, w0:w0 + 64])
+                d2 += t.to(torch.bfloat16).float() @ wxp[m0:m0 + 56, w0:w0 + 64].T
+            off = (k0 % kb) * 49
+            for cg in range(0, c, 16):  # a unit: 16 channels, one tile
+                tile = torch.zeros(16, 8 * 49)
+                tile[:, n * 7 + r % 7] = d2[cg:cg + 16, r, n]
+                out[k0 // kb, cg:cg + 16, off:off + 8 * 49] = tile
+    assert not out.isnan().any()
+    return out.to(torch.bfloat16).reshape(k // kb, c, kb * 7, 7)
+
+
+@pytest.mark.parametrize("kb", [8, 16])
+@pytest.mark.parametrize("n,w,c", [(5, W, 256), (3, 100, 64), (1, 30, 16)])
+def test_row11_tiling_matches_plain(rng, kb, n, w, c):
+    # K = n kb: at kb 8 not a multiple of the 16-RoI block (the last
+    # block's second warpgroup past K), one and two 64-w chunks, C from one
+    # 16-channel unit to 16 of them
+    k = kb * n
+    f = torch.from_numpy(rng.standard_normal((c, H, w)).astype(np.float32))
+    wy = torch.from_numpy(rng.uniform(size=(k, 7, H)).astype(np.float32) / 8)
+    wx = torch.from_numpy(rng.uniform(size=(k, 7, w)).astype(np.float32) / 8)
+    want = rf.variant_e_plain(f, wy, wx, kb)
+    got = _row11_tiling(f, wy, wx, kb)
+    assert got.shape == want.shape == (k // kb, c, kb * 7, 7)
+    assert (got.float() - want.float()).abs().max() <= want.float().abs().max() / 64
+
+
 def test_probe_tool_runs_on_cpu(capsys):
     assert tool.main(["--device", "cpu", "--k", "16", "--iters", "1"]) == 0
     out = capsys.readouterr().out
@@ -366,10 +432,10 @@ def test_kernel_matches_plain(cuda, name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,w,c", [(8 * 37, W, 256), (16 * 5, 100, 64), (8, 30, 192)])
 def test_hopper_kernels_ragged(cuda, rng, k, w, c):
-    """Rows 9-10 at small ragged shapes (K not a multiple of the kernels'
-    18-RoI block, W = 56, two 64-w chunks, C past a 128-channel tile) and
-    on a 224 px pyramid's atlas (H = 109, W = 56), against their plain
-    versions, and the same bits on a second launch."""
+    """Rows 9-11 at small ragged shapes (K not a multiple of the kernels'
+    18- or 16-RoI block, W = 56, two 64-w chunks, C past a 128-channel
+    tile) and on a 224 px pyramid's atlas (H = 109, W = 56), against their
+    plain versions, and the same bits on a second launch."""
     cases = [tuple(torch.from_numpy(a).to(cuda) for a in (
         rng.standard_normal((c, H, w)).astype(np.float32),
         rng.uniform(size=(k, 7, H)).astype(np.float32) / 8,
@@ -387,6 +453,10 @@ def test_hopper_kernels_ragged(cuda, rng, k, w, c):
                 want = rf.variant_a_plain(f, wy, wx)
                 assert (got.float() - want.float()).abs().max() <= want.float().abs().max() / 64
                 assert torch.equal(got, rf.variant_a(f, wy, wx, kb=kb))
+                got = rf.variant_e(f, wy, wx, kb=kb, kernel_layout=True)
+                want = rf.variant_e_plain(f, wy, wx, kb)
+                assert (got.float() - want.float()).abs().max() <= want.float().abs().max() / 64
+                assert torch.equal(got, rf.variant_e(f, wy, wx, kb=kb, kernel_layout=True))
             for relayout in (False, True):
                 got = rf.variant_a0(f, wy, kb=kb, relayout=relayout)
                 want = rf.variant_a0_plain(f, wy, relayout)
