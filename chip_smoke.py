@@ -325,16 +325,25 @@ def _sdpa_mask(b, key_mask):
 
 def _short_fwd_case(gen, b, n, h=12, d=64, key_mask=None) -> dict:
     """Row 1 at one shape against its plain version, timed on the card
-    alone and per call, beside SDPA. With a key mask [rows, N]: the mask
-    in the plain version and SDPA too, and the kernel under an all-True
-    mask giving the unmasked kernel's bits. The bound counts Q, K, V, O
-    and the mask once, and the products over the kept keys only."""
+    alone and per call, beside SDPA. The training form (o and lse) gives
+    the inference form's bits and the plain lse within 1e-2. With a key
+    mask [rows, N]: the mask in the plain version and SDPA too, and the
+    kernel under an all-True mask giving the unmasked kernel's bits. The
+    bound counts Q, K, V, O and the mask once, and the products over the
+    kept keys only."""
     from layoutdit_tpu_torch.ops import short_attention as sa
 
     q, k, v = _qkv(gen, b, n, h, d)
     label = f"short_attention B={b} N={n} H={h}" + (" (key mask)" if key_mask is not None else "")
-    err, tol = _check_close(label, sa.short_attention(q, k, v, key_mask=key_mask),
-                            sa.short_attention_plain(q, k, v, key_mask=key_mask))
+    o = sa.short_attention(q, k, v, key_mask=key_mask)
+    want, want_lse = sa.short_attention_plain(q, k, v, key_mask=key_mask, return_lse=True)
+    err, tol = _check_close(label, o, want)
+    o_train, lse = sa.short_attention(q, k, v, key_mask=key_mask, return_lse=True)
+    lse_err = (lse - want_lse).abs().max().item()
+    if not (torch.equal(o_train, o) and lse_err <= 1e-2):
+        raise RuntimeError(f"{label}: the lse form gave other bits or an lse off by {lse_err}")
+    print(f"  {label}: the lse form gives the same o, lse max_abs_err {lse_err:.6g}")
+    del o, want, want_lse, o_train, lse
     if key_mask is not None:
         everything = torch.ones_like(key_mask)
         if not torch.equal(sa.short_attention(q, k, v, key_mask=everything),
@@ -358,6 +367,7 @@ def _short_fwd_case(gen, b, n, h=12, d=64, key_mask=None) -> dict:
         "ms": ms,  # the card's time (_device_ms); call_ms with the host's
         "call_ms": _time_ms(kernel, 50),
         "plain_ms": _time_ms(lambda: sa.short_attention_plain(q, k, v, key_mask=key_mask), 20),
+        "lse_err": lse_err,
         "bound_ms": bound, "bound_by": by, "bound_share": bound / ms,
         "library_ms": _device_ms(library, 50),
         "library_call_ms": _time_ms(library, 50),
@@ -570,13 +580,14 @@ def _short_bwd_case(gen, b, n, h=12, d=64, key_mask=None) -> dict:
     from layoutdit_tpu_torch.ops import short_attention as sa
 
     q, k, v = _qkv(gen, b, n, h, d)
-    o = sa.short_attention(q, k, v, key_mask=key_mask)
+    o, lse = sa.short_attention(q, k, v, key_mask=key_mask, return_lse=True)
     do = torch.randn(b, n, h, d, generator=gen, device="cuda").to(torch.bfloat16)
     dqkv = torch.empty(b, n, 3 * h * d, dtype=torch.bfloat16, device="cuda")
     out = tuple(sa.split_qkv(dqkv, h))
-    got = sa.short_attention_bwd(q, k, v, o, do, out=out, key_mask=key_mask)
+    got = sa.short_attention_bwd(q, k, v, o, do, out=out, key_mask=key_mask, lse=lse)
     again = torch.empty_like(dqkv)
-    sa.short_attention_bwd(q, k, v, o, do, out=tuple(sa.split_qkv(again, h)), key_mask=key_mask)
+    sa.short_attention_bwd(q, k, v, o, do, out=tuple(sa.split_qkv(again, h)), key_mask=key_mask,
+                           lse=lse)
     want = sa.short_attention_bwd_plain(q, k, v, o, do, key_mask=key_mask)
     label = f"short_attention_bwd B={b} N={n} H={h}" + (" (key mask)" if key_mask is not None
                                                         else "")
@@ -597,8 +608,8 @@ def _short_bwd_case(gen, b, n, h=12, d=64, key_mask=None) -> dict:
             raise RuntimeError(f"{label}: a dropped key has a non-zero dk or dv row")
         everything = torch.ones_like(key_mask)
         if not all(torch.equal(x, y) for x, y in zip(
-                sa.short_attention_bwd(q, k, v, o, do, key_mask=everything),
-                sa.short_attention_bwd(q, k, v, o, do))):
+                sa.short_attention_bwd(q, k, v, o, do, key_mask=everything, lse=lse),
+                sa.short_attention_bwd(q, k, v, o, do, lse=lse))):
             raise RuntimeError(f"{label}: an all-True mask changed the kernel's bits")
         print(f"  {label}: dropped keys' dk, dv rows 0; an all-True mask gives the unmasked "
               f"kernel's bits")
@@ -610,7 +621,8 @@ def _short_bwd_case(gen, b, n, h=12, d=64, key_mask=None) -> dict:
     mask_bytes, cols = _mask_work(b, n, key_mask)
     nbytes = 8 * b * n * h * d * 2 + mask_bytes  # q, k, v, o, dO in; dq, dk, dv out
     bound, by = _bound_ms(nbytes, 10 * h * n * cols * d)
-    kernel = lambda: sa.short_attention_bwd(q, k, v, o, do, out=out, key_mask=key_mask)  # noqa
+    kernel = lambda: sa.short_attention_bwd(q, k, v, o, do, out=out, key_mask=key_mask,  # noqa
+                                            lse=lse)
     ms = _device_ms(kernel, 20)
     _print_share(label, ms, bound, by)
     grad = lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)  # noqa: E731
@@ -6737,11 +6749,15 @@ def main() -> int:
                                        "Potential Performance")):
                 print(f"  {name}: {line.strip()}")
     from layoutdit_tpu_torch.ops import flash_attention as fa
+    from layoutdit_tpu_torch.ops import short_attention as sa
 
     smem = fa._lib().flash_attention_smem_bytes
     print(f"  flash_attention: dynamic shared memory: forward {smem(0, 0)} / {smem(0, 1)} "
           f"bytes, dq {smem(1, 0)} / {smem(1, 1)}, dkdv {smem(2, 0)} / {smem(2, 1)} (without / "
           f"with a bias), dbias {smem(3, 4)} (B = 4, rows resident) / {smem(4, 0)} (streamed)")
+    smem = sa._lib().short_attention_smem_bytes
+    print(f"  short_attention: dynamic shared memory at D = 64: forward {smem(0)} bytes, dq and "
+          f"dkdv {smem(1)} each")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     if "--only" in sys.argv:

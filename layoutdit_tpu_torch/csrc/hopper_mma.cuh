@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks of the flash-attention kernels
-// (flash_attention.cu) and the fused RoIAlign kernels (roi_fused.cu):
+// Hopper (sm_90a) building blocks of the attention kernels
+// (flash_attention.cu, short_attention.cu at D = 64) and the fused RoIAlign
+// kernels (roi_fused.cu):
 // warpgroup products (wgmma.mma_async, bf16 in, fp32 accumulate), their
 // shared-memory descriptors for 128-byte-swizzled tiles, TMA tile loads
 // (cp.async.bulk.tensor) and bulk copies of fp32 rows (cp.async.bulk)
@@ -132,6 +133,18 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t desc_a, uint
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32
       ", %32, %33, p, 1, 1, 0, %35;\n}\n"
       : HOPPER_ACC32(d)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransB));
+}
+
+// the same at N = 128: d[64 x 128] (+)= a[64 x 16] b[16 x 128]
+template <int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16][4], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_D64
+      ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : HOPPER_ACC64(d)
       : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransB));
 }
 
@@ -423,6 +436,7 @@ class DeviceOf {
   DeviceOf(const DeviceOf&) = delete;
   DeviceOf& operator=(const DeviceOf&) = delete;
   cudaError_t error() const { return err_; }
+  int device() const { return device_; }  // the device of p; -1 on an error
 
  private:
   cudaError_t err_;

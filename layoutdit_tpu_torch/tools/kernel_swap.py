@@ -62,8 +62,8 @@ T_CRIT = {1: 12.706, 2: 4.303, 3: 3.182, 4: 2.776, 5: 2.571, 6: 2.447, 7: 2.365,
           9: 2.262, 10: 2.228, 11: 2.201, 12: 2.179, 13: 2.160, 14: 2.145, 15: 2.131}
 
 
-def _plain_short_bwd(q, k, v, o, do, scale=None, out=None, key_mask=None):
-    grads = short_mod.short_attention_bwd_plain(q, k, v, o, do, scale, key_mask)
+def _plain_short_bwd(q, k, v, o, do, scale=None, out=None, key_mask=None, lse=None):
+    grads = short_mod.short_attention_bwd_plain(q, k, v, o, do, scale, key_mask, lse)
     if out is None:
         return grads
     for dst, src in zip(out, grads):

@@ -90,16 +90,21 @@ def test_other_devices_raise():
 @pytest.mark.parametrize("n", [1, 197, 256])
 def test_short_kernel_matches_plain(cuda, rng, n, d):
     """q, k, v as strided views of one fused projection, as the encoder
-    makes them."""
+    makes them; the training form (o and the rows' lse, one launch too)
+    gives the inference form's bits and the plain lse within 1e-2."""
     b, h = 4, 12
     qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * h * d)).astype(np.float32))
     q, k, v = port_short.split_qkv(qkv.to(cuda, torch.bfloat16), h)
     before = port_short.short_attention.launches
     got = port_short.short_attention(q, k, v)
     assert port_short.short_attention.launches == before + 1
-    want = port_short.short_attention_plain(q, k, v)
+    again, lse = port_short.short_attention(q, k, v, return_lse=True)
+    assert port_short.short_attention.launches == before + 2
+    want, want_lse = port_short.short_attention_plain(q, k, v, return_lse=True)
     torch.cuda.synchronize()
     assert (got.float() - want.float()).abs().max() <= want.float().abs().max() / 64
+    assert torch.equal(again, got) and lse.shape == (b, h, n)
+    assert (lse - want_lse).abs().max() <= 1e-2
 
 
 @pytest.mark.cuda
@@ -108,6 +113,11 @@ def test_short_kernels_refuse_other_head_dims(cuda):
     with pytest.raises(ValueError, match="head dim one of"):
         port_short.short_attention(q, q, q)
     with pytest.raises(ValueError, match="head dim one of"):
+        port_short.short_attention(q, q, q, return_lse=True)
+    lse = torch.zeros(1, 2, 8, device=cuda)
+    with pytest.raises(ValueError, match="head dim one of"):
+        port_short.short_attention_bwd(q, q, q, q, q, lse=lse)
+    with pytest.raises(ValueError, match="lse"):  # the kernels read the forward's lse
         port_short.short_attention_bwd(q, q, q, q, q)
 
 
@@ -446,9 +456,10 @@ def test_short_bwd_kernel_matches_plain(cuda, rng, n, d):
     (dqkv,) = torch.autograd.grad(ctx, qkv, do)
     assert port_short.short_attention_bwd.launches == before + 1
     q, k, v = port_short.split_qkv(qkv.detach(), h)
+    _, lse = port_short.short_attention(q, k, v, return_lse=True)
     again = torch.empty_like(dqkv)
     port_short.short_attention_bwd(q, k, v, ctx.detach(), do,
-                                   out=tuple(port_short.split_qkv(again, h)))
+                                   out=tuple(port_short.split_qkv(again, h)), lse=lse)
     want = port_short.short_attention_bwd_plain(q, k, v, ctx.detach(), do)
     torch.cuda.synchronize()
     assert torch.equal(dqkv, again)
@@ -538,12 +549,17 @@ def test_short_kernels_at_window_shapes(cuda, rng, b, n):
     qkv = qkv.to(cuda, torch.bfloat16).requires_grad_(True)
     do = torch.from_numpy(rng.standard_normal((b, n, h, d)).astype(np.float32)).to(
         cuda, torch.bfloat16)
+    counters = (port_short.short_attention, port_short.short_attention_bwd)
+    before = [c.launches for c in counters]
     ctx = port_short.short_attention_qkv(qkv, h)
-    (dqkv,) = torch.autograd.grad(ctx, qkv, do)
+    (dqkv,) = torch.autograd.grad(ctx, qkv, do, retain_graph=True)
+    (again,) = torch.autograd.grad(ctx, qkv, do)
+    assert [c.launches - c0 for c, c0 in zip(counters, before)] == [1, 2]
     q, k, v = port_short.split_qkv(qkv.detach(), h)
     want_o = port_short.short_attention_plain(q, k, v)
     want = port_short.short_attention_bwd_plain(q, k, v, ctx.detach(), do)
     torch.cuda.synchronize()
+    assert torch.equal(dqkv, again)
     assert (ctx.float() - want_o.float()).abs().max() <= want_o.float().abs().max() / 64
     # at N=1 dq and dk are 0 in exact arithmetic (fp32 rounding noise of
     # dO.v - dO.o on both sides): an absolute floor far below a bf16 ulp of dv

@@ -433,11 +433,11 @@ def test_masked_short_kernels_match_plain(cuda, rng, case):
     q, k, v = port_short.split_qkv(qkv.to(cuda, torch.bfloat16), h)
     do = torch.from_numpy(rng.standard_normal((b, n, h, d)).astype(np.float32)).to(
         cuda, torch.bfloat16)
-    o = port_short.short_attention(q, k, v, key_mask=mask)
+    o, lse = port_short.short_attention(q, k, v, key_mask=mask, return_lse=True)
     want = port_short.short_attention_plain(q, k, v, key_mask=mask)
     tol = want.float().abs().max().item() / 64
     assert (o.float() - want.float()).abs().max().item() <= tol
-    grads = port_short.short_attention_bwd(q, k, v, o, do, key_mask=mask)
+    grads = port_short.short_attention_bwd(q, k, v, o, do, key_mask=mask, lse=lse)
     wants = port_short.short_attention_bwd_plain(q, k, v, o, do, key_mask=mask)
     for g, w in zip(grads, wants):
         assert (g.float() - w.float()).abs().max().item() <= w.float().abs().max().item() / 64
@@ -447,6 +447,6 @@ def test_masked_short_kernels_match_plain(cuda, rng, case):
     everything = torch.ones_like(mask)
     assert torch.equal(port_short.short_attention(q, k, v, key_mask=everything),
                        port_short.short_attention(q, k, v))
-    for g, w in zip(port_short.short_attention_bwd(q, k, v, o, do, key_mask=everything),
-                    port_short.short_attention_bwd(q, k, v, o, do)):
+    for g, w in zip(port_short.short_attention_bwd(q, k, v, o, do, key_mask=everything, lse=lse),
+                    port_short.short_attention_bwd(q, k, v, o, do, lse=lse)):
         assert torch.equal(g, w)
