@@ -52,7 +52,21 @@ windowed high-res config ``configs/train_1024_window.json`` (dit-base,
 ``train_1024``) and with its BEiT-layout variant
 ``configs/train_1024_window_relpos.json`` (a relative-position table in
 every layer: every biased attention on the flash kernels, the bias
-gradient on the dbias kernel; phase ``train_1024_relpos``). Phase
+gradient on the dbias kernel; phase ``train_1024_relpos``), and with
+that file's window set to 14: ViTDet's layout at 1024 px, the 64 x 64
+grid padded to 70 x 70, each windowed layer's attention on the masked
+flash kernels with its bias and the [25, 196] key mask, an epoch of
+three steps and one served 1024 px batch counted, taps and gradients
+(the tables' among them) against the float32 plain path (phase
+``train_1024_w14``, also ``--only train_1024_w14`` after the build).
+Phase ``flash_masked`` (also ``--only flash_masked`` after the build)
+holds rows 3-6 with a key mask to their plain versions at that
+window shape, at 224 px with ``pad_tokens_to`` 256 and a bias and at
+1024 px with ``pad_tokens_to`` 4224 (rows 3-5), directly and through
+``attention_core`` with autograd: the same bits on a second run, the
+dropped keys' dk and dv 0, an all-True mask the unmasked kernels'
+bits, times beside SDPA with the mask (and, for dbias, SDPA's backward
+with the bias as a mask that requires a gradient). Phase
 ``encoder`` covers the encoder's options: the short kernels with the
 key mask of ViTDet-L's 14 x 14 windows over a 1024 px page (the grid
 padded, 25 windows of 196 slots), held to their plain versions and, with
@@ -142,7 +156,7 @@ gloo ranks sharing the card (``--model-parallel-child``), against one
 process and a float32 control.
 
 The phases above are described one by one; they run in this order: the
-build, phases ``kernels``, ``kernels_bwd`` and ``probes``, and the timed
+build, phases ``kernels``, ``kernels_bwd``, ``flash_masked`` and ``probes``, and the timed
 kernel cases of phases ``encoder``, ``families`` and ``detr`` (phase
 ``kernels_large``) alone on the card; then the recipes (phase
 ``recipes`` and phase ``convergence``'s, ``--recipe-child``) and a
@@ -150,7 +164,7 @@ second process (``--lane-child``: phases ``io``, ``families``,
 ``one_stage``, ``detr``, ``finetune``, ``resnet`` and ``moe``, one after
 another) start, and the main process runs ``serving``, ``deploy``,
 ``train``, ``train_state``, ``train_1024``, ``train_1024_relpos``,
-``encoder``, ``main`` and ``parallel`` beside them; ``model_parallel``
+``train_1024_w14``, ``encoder``, ``main`` and ``parallel`` beside them; ``model_parallel``
 runs last, alone. The times of the phases that overlap are taken with
 the others running beside them. It
 checks that every kernel ran on its path, the right number of times a
@@ -838,6 +852,267 @@ def phase_flash_bwd(gen) -> list[dict]:
     return entries
 
 
+# The masked flash kernels' shapes (rows 3-6 with a key mask, read modulo
+# its rows): dit-base at 1024 px in 14 x 14 windows, the 64 x 64 grid
+# padded to 70 x 70 (25 windows of 196 slots, the mask [25, 196] over four
+# pages, a [12, 196, 196] relative-position bias); 224 px with
+# pad_tokens_to=256 and a bias (197 real tokens, the bias zero on the
+# padding, as the encoder pads it), at the train step's batch of 16; 1024
+# px with pad_tokens_to=4224 and no bias (4097 real tokens; rows 3-5)
+FLASH_MASKED_CASES = {"w14": dict(b=100, n=196, grid=64, ws=14, bias=True),
+                      "pad224": dict(b=16, n=256, real=197, bias=True),
+                      "pad4224": dict(b=4, n=4224, real=4097, bias=False)}
+
+
+def _flash_masked_mask(case: dict) -> torch.Tensor:
+    """The key mask [rows, N] of a FLASH_MASKED_CASES entry, on the card:
+    the window mask of ``models/vit.py`` or a prefix of the real tokens."""
+    from layoutdit_tpu_torch.models.vit import _window_key_mask
+
+    if "ws" in case:
+        return _window_key_mask(case["grid"], case["grid"], case["ws"]).cuda()
+    return (torch.arange(case["n"], device="cuda") < case["real"])[None]
+
+
+def _flash_masked_case(gen, b: int, n: int, key_mask: torch.Tensor, with_bias: bool,
+                       h: int = 12, d: int = 64) -> dict:
+    """Rows 3-6 with a key mask at one shape, against their plain
+    versions on the same bf16 inputs (o, lse; dq, dk, dv; dbias with a
+    bias); a second run must give the same bits, the dropped keys' dk and
+    dv rows must be exactly 0, and an all-True mask must give the
+    unmasked kernels' bits (forward and backward). Each kernel is timed on
+    the card alone (``_device_ms``) beside SDPA with the mask (boolean, or
+    with a bias the bias with the dropped keys at -inf, bf16); with a bias
+    the dbias kernel beside SDPA's whole backward with the bias (bf16)
+    as a mask that requires a gradient, plus a constant [B, 1, 1, N] mask
+    of 0 and -inf: autograd sums dS over the batch, as the kernel does.
+    The bounds count the kept keys' work: K and V rows, products and bias
+    columns a kept key needs (as ``n_keys``'s)."""
+    from layoutdit_tpu_torch.ops import flash_attention as fa
+    from layoutdit_tpu_torch.ops import short_attention as sa
+
+    scale = 1.0 / math.sqrt(d)
+    rows = key_mask.shape[0]
+    label = (f"flash masked B={b} N={n} H={h} mask [{rows}, {n}]"
+             + (" (bias)" if with_bias else ""))
+    q, k, v = _qkv(gen, b, n, h, d)
+    do = torch.randn(b, n, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+    bias = None
+    if with_bias:
+        bias = 0.5 * torch.randn(h, n, n, generator=gen, device="cuda")
+        if rows == 1:  # pad_tokens_to: zeros on the padded entries
+            real = key_mask[0]
+            bias = bias * (real[:, None] & real[None, :])
+    keep = sa.key_mask_rows(key_mask, b)  # [B, N]
+    everything = torch.ones_like(key_mask)
+
+    o, lse = fa.flash_attention_fwd(q, k, v, bias, scale, key_mask=key_mask)
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, bias, scale, key_mask=key_mask)
+    errs = {"o": _check_close(f"{label} o", o, o_ref)}
+    lse_err = (lse - lse_ref).abs().max().item()
+    print(f"  {label} lse: max_abs_err {lse_err:.6g} (tolerance 0.01)")
+    if not lse_err <= 1e-2:
+        raise RuntimeError(f"{label}: lse disagrees with its plain version")
+    del o_ref, lse_ref
+    again = fa.flash_attention_fwd(q, k, v, bias, scale, key_mask=key_mask)
+    if not (torch.equal(o, again[0]) and torch.equal(lse, again[1])):
+        raise RuntimeError(f"{label}: two forward launches gave different bits")
+    unmasked = fa.flash_attention_fwd(q, k, v, bias, scale)
+    if not all(torch.equal(x, y) for x, y in zip(
+            unmasked, fa.flash_attention_fwd(q, k, v, bias, scale, key_mask=everything))):
+        raise RuntimeError(f"{label}: an all-True mask changed the forward's bits")
+    del again
+
+    dqkv = torch.empty(b, n, 3 * h * d, dtype=torch.bfloat16, device="cuda")
+    again = torch.empty_like(dqkv)
+    out = tuple(sa.split_qkv(dqkv, h))
+    dbias = fa.flash_attention_bwd(q, k, v, o, lse, do, bias, scale, out=out,
+                                   bias_grad=with_bias, key_mask=key_mask)[3]
+    dbias2 = fa.flash_attention_bwd(q, k, v, o, lse, do, bias, scale,
+                                    out=tuple(sa.split_qkv(again, h)), bias_grad=with_bias,
+                                    key_mask=key_mask)[3]
+    if not (torch.equal(dqkv, again) and (not with_bias or torch.equal(dbias, dbias2))):
+        raise RuntimeError(f"{label}: two backward runs gave different bits")
+    del again, dbias2
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, bias, scale, key_mask=key_mask)
+    for name, g, w in zip(("dq", "dk", "dv"), out, want):
+        errs[name] = _check_close(f"{label} {name}", g, w)
+    if with_bias:
+        errs["dbias"] = _check_close(f"{label} dbias", dbias, want[3], rel=DBIAS_REL_TOL)
+    del want
+    if out[1][~keep].any() or out[2][~keep].any():
+        raise RuntimeError(f"{label}: a dropped key with a nonzero dk or dv")
+    plain_grads = fa.flash_attention_bwd(q, k, v, *unmasked, do, bias, scale, bias_grad=with_bias)
+    all_grads = fa.flash_attention_bwd(q, k, v, *unmasked, do, bias, scale, bias_grad=with_bias,
+                                       key_mask=everything)
+    if not all(x is y or torch.equal(x, y) for x, y in zip(plain_grads, all_grads)):
+        raise RuntimeError(f"{label}: an all-True mask changed the backward's bits")
+    del plain_grads, all_grads, unmasked
+    print(f"  {label}: the same bits on a second run, the dropped keys' dk and dv 0, an "
+          "all-True mask the unmasked kernels' bits")
+
+    # the work the data needs: per batch element its row's kept keys
+    kept = int(keep.sum())
+    mask_bytes = key_mask.numel()
+    row, kv_row, vec = b * n * h * d * 2, kept * h * d * 2, b * h * n * 4
+    flops = 2 * h * n * kept * d  # one product over the kept keys
+    bias_bytes = h * n * int(keep.any(0).sum()) * 4 if with_bias else 0
+    bounds = {"fwd": _bound_ms(2 * row + 2 * kv_row + vec + bias_bytes + mask_bytes, 2 * flops),
+              "dq": _bound_ms(4 * row + 2 * kv_row + 2 * vec + bias_bytes + mask_bytes,
+                              3 * flops),
+              "dkdv": _bound_ms(4 * row + 2 * kv_row + 2 * vec + bias_bytes + mask_bytes,
+                                4 * flops)}
+    delta = torch.empty(b * h, n, dtype=torch.float32, device="cuda")
+    dq, dk, dv = out
+    calls = {
+        "fwd": lambda: fa.flash_attention_fwd(q, k, v, bias, scale, key_mask=key_mask),
+        "dq": lambda: fa.flash_attention_bwd_dq(q, k, v, o, lse, do, bias, scale, dq, delta, -1,
+                                                key_mask),
+        "dkdv": lambda: fa.flash_attention_bwd_dkdv(q, k, v, lse, do, delta, bias, scale, dk, dv,
+                                                    -1, key_mask),
+    }
+    if with_bias:
+        # the bias read and dbias written, the kept columns' S and dP
+        bounds["dbias"] = _bound_ms(2 * row + 2 * kv_row + 2 * vec + 2 * bias_bytes + mask_bytes,
+                                    2 * flops)
+        calls["dbias"] = lambda: fa.flash_attention_bwd_dbias(q, k, v, lse, do, delta, bias,
+                                                              scale, dbias, key_mask)
+    res = {"shape": f"B={b} N={n} H={h} D={d} bf16, key mask [{rows}, {n}] ({kept} of {b * n} "
+                    "keys kept)" + (f", fp32 bias [{h}, {n}, {n}]" if with_bias else ", no bias"),
+           "lse_max_abs_err": lse_err}
+    for part, fn in calls.items():
+        ms = _device_ms(fn, FLASH_BWD_ITERS)
+        err, tol = errs["o"] if part == "fwd" else (
+            max(errs["dk"], errs["dv"]) if part == "dkdv" else errs[part])
+        bound, by = bounds[part]
+        _print_share(f"{label} {part} on the card", ms, bound, by)
+        res[part] = {"ms": ms, "max_abs_err": err, "tolerance": tol, "bound_ms": bound,
+                     "bound_by": by, "bound_share": bound / ms}
+    res["plain_ms"] = {
+        "fwd": _time_ms(lambda: fa.flash_attention_plain(q, k, v, bias, scale,
+                                                         key_mask=key_mask), 2),
+        "bwd": _time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do, bias, scale,
+                                                             key_mask=key_mask), 2)}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    attn = keep[:, None, None, :]  # [B, 1, 1, N]
+    if with_bias:
+        attn = torch.where(attn, bias[None], float("-inf")).to(torch.bfloat16)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    ot = sdpa(qt, kt, vt, attn_mask=attn)
+    dot = do.transpose(1, 2)
+    res["library_ms"] = {
+        "fwd": _device_ms(lambda: sdpa(qt, kt, vt, attn_mask=attn), FLASH_BWD_ITERS),
+        "bwd": _device_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True),
+                          FLASH_BWD_ITERS)}
+    del qt, kt, vt, ot, attn
+    if with_bias:
+        shared = bias.to(torch.bfloat16).requires_grad_()
+        drop = torch.zeros(b, 1, 1, n, dtype=torch.bfloat16, device="cuda").masked_fill(
+            ~keep[:, None, None, :], float("-inf"))
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        ot = sdpa(qt, kt, vt, attn_mask=shared[None] + drop)
+        wrt = (qt, kt, vt, shared)
+        lib_dbias = torch.autograd.grad(ot, wrt, dot, retain_graph=True)[3].float()
+        fro = ((lib_dbias - dbias).norm() / dbias.norm()).item()
+        print(f"  {label}: SDPA's dbias against the kernel's: relative Frobenius {fro:.6g}")
+        res["library_dbias_rel_frobenius"] = fro
+        res["library_ms"]["dbias"] = _device_ms(
+            lambda: torch.autograd.grad(ot, wrt, dot, retain_graph=True), FLASH_BWD_ITERS)
+        del qt, kt, vt, ot, wrt, shared, drop, lib_dbias
+    print(f"  {label}: SDPA with the mask {res['library_ms']}, plain {res['plain_ms']}")
+    torch.cuda.empty_cache()
+    return res
+
+
+def _masked_core_case(gen, b: int, n: int, key_mask: torch.Tensor, with_bias: bool,
+                      h: int = 12, d: int = 64) -> dict:
+    """``models/vit.py``'s ``attention_core`` with a key mask (and a bias
+    that requires a gradient) on the card, forward and backward through
+    autograd: it must launch each masked flash kernel once (dbias with a
+    bias) and agree with the plain versions (the bf16 rule; dbias 1e-4),
+    the plain backward at the kernels' o (delta = rowsum(dO o O) comes
+    from it)."""
+    from layoutdit_tpu_torch.models.vit import attention_core
+    from layoutdit_tpu_torch.ops import flash_attention as fa
+    from layoutdit_tpu_torch.ops import short_attention as sa
+
+    label = f"attention_core B={b} N={n} mask [{key_mask.shape[0]}, {n}]" + (
+        " (bias)" if with_bias else "")
+    qkv = torch.randn(b, n, 3 * h * d, generator=gen, device="cuda").to(torch.bfloat16)
+    bias = 0.5 * torch.randn(h, n, n, generator=gen, device="cuda") if with_bias else None
+    cot = torch.randn(b, n, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+    names = ("flash_attention_masked", "flash_attention_bwd_dq_masked",
+             "flash_attention_bwd_dkdv_masked", "flash_attention_bwd_dbias_masked")
+    before = _counts()
+    x = qkv.clone().requires_grad_()
+    bb = None if bias is None else bias.clone().requires_grad_()
+    out = attention_core(x, h, key_mask=key_mask, bias=bb)
+    out.backward(cot)
+    launched = {name: _counts()[name] - before[name] for name in names}
+    if launched != dict(zip(names, (1, 1, 1, int(with_bias)))):
+        raise RuntimeError(f"{label}: masked flash launches {launched}")
+    q, k, v = sa.split_qkv(qkv, h)
+    o, lse = fa.flash_attention_plain(q, k, v, bias, key_mask=key_mask)
+    errs = {"o": _check_close(f"{label} o", out, o)[0]}
+    dq, dk, dv, dbias = fa.flash_attention_bwd_plain(q, k, v, out.detach(), lse, cot, bias,
+                                                     key_mask=key_mask)
+    errs["dqkv"] = _check_close(f"{label} dqkv", x.grad, torch.cat(
+        [t.reshape(b, n, -1) for t in (dq, dk, dv)], dim=-1))[0]
+    if with_bias:
+        errs["dbias"] = _check_close(f"{label} dbias", bb.grad, dbias, rel=DBIAS_REL_TOL)[0]
+    del qkv, x, bb, out, o, lse, dq, dk, dv, dbias
+    torch.cuda.empty_cache()
+    return {"launches": launched, "max_abs_err": errs}
+
+
+def phase_flash_masked(gen) -> list[dict]:
+    """Rows 3-6 with a key mask (``_flash_masked_case``) at the three
+    FLASH_MASKED_CASES shapes, one kernels-line entry a masked kernel (the
+    dbias kernel's without the bias-free case), and each shape through
+    ``attention_core`` (``_masked_core_case``)."""
+    res = {}
+    for key, case in FLASH_MASKED_CASES.items():
+        mask = _flash_masked_mask(case)
+        res[key] = _flash_masked_case(gen, case["b"], case["n"], mask, case["bias"])
+        res[key]["attention_core"] = _masked_core_case(gen, case["b"], case["n"], mask,
+                                                       case["bias"])
+    # the kernel bodies in the JAX source: with a bias (the slice's path),
+    # without one
+    jax_src = "layoutdit_tpu/ops/flash_attention.py"
+    parts = {"fwd": ("flash_attention_masked", {"replaces": f"{jax_src}:64",
+                                                "nobias_replaces": f"{jax_src}:180"}),
+             "dkdv": ("flash_attention_bwd_dkdv_masked", {"replaces": f"{jax_src}:217",
+                                                          "nobias_replaces": f"{jax_src}:280"}),
+             "dq": ("flash_attention_bwd_dq_masked", {"replaces": f"{jax_src}:253",
+                                                      "nobias_replaces": f"{jax_src}:286"}),
+             "dbias": ("flash_attention_bwd_dbias_masked", {"replaces": f"{jax_src}:292"})}
+    entries = []
+    for part, (name, replaces) in parts.items():
+        entry = {"name": name, "route": "cuda",
+                 "source": "layoutdit_tpu_torch/csrc/flash_attention.cu", **replaces}
+        first = True
+        for key, r in res.items():
+            if part not in r:
+                continue
+            numbers = {**r[part], "shape": r["shape"],
+                       "attention_core": r["attention_core"],
+                       "plain_ms": r["plain_ms"]["fwd" if part == "fwd" else "bwd"],
+                       "library_ms": r["library_ms"][part if part in ("fwd", "dbias")
+                                                     else "bwd"]}
+            if part == "dbias":
+                numbers["plain_and_library_compute"] = ("every gradient in one call, the "
+                                                        "bias's included")
+                numbers["library_dbias_rel_frobenius"] = r["library_dbias_rel_frobenius"]
+            elif part != "fwd":
+                numbers["plain_and_library_compute"] = "every gradient in one call"
+            if first:  # the window shape: the slice's main path
+                entry.update(numbers)
+                first = False
+            entry.update({f"{key}_{k}": v for k, v in numbers.items()})
+        entries.append(entry)
+    return entries
+
+
 def _roi_bwd_case(gen, image: int, b: int, k: int = 512, p: int = 7, c: int = 256) -> dict:
     """Row 8 on the detector's pyramid layout against its plain version,
     the same bits on a second run (raises otherwise), its footprint pass
@@ -1162,10 +1437,15 @@ def _counters():
     }
 
 
-# the short kernels' launches with a key mask (padded window slots), a
-# part of their launches
+# the attention kernels' launches with a key mask (padded window slots,
+# pad_tokens_to's padding), a part of their launches; the flash kernels'
+# masked forms have entries of their own in the kernels line
 MASKED = {"short_attention_masked": "short_attention",
-          "short_attention_bwd_masked": "short_attention_bwd"}
+          "short_attention_bwd_masked": "short_attention_bwd",
+          "flash_attention_masked": "flash_attention",
+          "flash_attention_bwd_dq_masked": "flash_attention_bwd_dq",
+          "flash_attention_bwd_dkdv_masked": "flash_attention_bwd_dkdv",
+          "flash_attention_bwd_dbias_masked": "flash_attention_bwd_dbias"}
 
 
 def _counts() -> dict:
@@ -1310,8 +1590,9 @@ def _launches_per_step(cfg) -> dict:
     sequences; with one, every attention but the CLS token's carries a
     bias and goes to the flash kernels, whose backward then adds the dbias
     kernel. Windows over a grid they do not divide carry a key mask (the
-    ``_masked`` counts, a part of the short kernels'). With ``remat`` the
-    backward runs each layer's forward again, attention kernels included."""
+    ``_masked`` counts, a part of the short kernels', or with a bias of
+    the flash kernels'). With ``remat`` the backward runs each layer's
+    forward again, attention kernels included."""
     from layoutdit_tpu_torch.ops.short_attention import MAX_N as SHORT_MAX_N
 
     vit = cfg.backbone.vit
@@ -1321,20 +1602,25 @@ def _launches_per_step(cfg) -> dict:
     full = vit.num_hidden_layers - windowed
     masked = windowed if windowed and g % vit.window_size else 0
     if vit.use_relative_position_bias or vit.use_shared_relative_position_bias:
-        if masked:
-            raise RuntimeError("a padded window grid with a bias is not a path on the card")
         flash = dbias = full + windowed
         short = windowed
+        flash_masked, short_masked = masked, 0
     else:
         flash, dbias = (full if g * g + 1 > SHORT_MAX_N else 0), 0
         short = full - flash + 2 * windowed
         if windowed and vit.window_size ** 2 > SHORT_MAX_N:
             raise RuntimeError("a window is longer than the short kernel takes")
+        flash_masked, short_masked = 0, masked
     fwd = 2 if cfg.remat else 1
     return {"short_attention": fwd * short, "short_attention_bwd": short,
-            "short_attention_masked": fwd * masked, "short_attention_bwd_masked": masked,
+            "short_attention_masked": fwd * short_masked,
+            "short_attention_bwd_masked": short_masked,
             "flash_attention": fwd * flash, "flash_attention_bwd_dq": flash,
             "flash_attention_bwd_dkdv": flash, "flash_attention_bwd_dbias": dbias,
+            "flash_attention_masked": fwd * flash_masked,
+            "flash_attention_bwd_dq_masked": flash_masked,
+            "flash_attention_bwd_dkdv_masked": flash_masked,
+            "flash_attention_bwd_dbias_masked": flash_masked,
             "roi_align": 1, "roi_align_bwd": 1, **{name: 0 for name in PROBE_KERNELS}}
 
 
@@ -1551,6 +1837,106 @@ def phase_train_1024_relpos(kernels: list[dict]) -> dict:
                       "a relative-position table per layer, no absolute position embeddings), "
                       "1024 px, batch 4, window 16, bf16 over fp32", **out,
             "table_gradient": _table_gradient(vit)}
+
+
+# the train_1024_w14 path: an epoch of this many steps at batch 4
+W14_STEPS = 3
+W14_WINDOW = 14
+
+
+def phase_train_1024_w14(kernels: list[dict]) -> dict:
+    """``train_1024_window_relpos.json`` with ``window_size`` 14 (the file
+    as it is, the window overridden): ViTDet's layout at 1024 px, the 64 x
+    64 grid padded to 70 x 70 (25 windows of 196 slots), with a BEiT
+    relative-position table per layer (drawn at std 0.5 from seed 1, as
+    ``train_1024_relpos``'s), so that every windowed layer's attention goes
+    to the masked flash kernels with its [12, 196, 196] bias and the
+    [25, 196] key mask (100 windows a batch of 4): forward, dq, dkdv and
+    dbias; the global layers to the unmasked flash kernels and the CLS
+    token to the short ones. The path: ``Trainer.train()`` for one epoch of
+    W14_STEPS steps over synthetic pages, launches per step from the
+    config, then one 1024 px batch of the trained model served through
+    ``BatchInferenceEngine`` (the masked forward again); both are counted.
+    Checked beside it: the encoder's taps and gradients of one image (two
+    layers' tables among them) against the port's float32 plain path on
+    the card."""
+    from layoutdit_tpu_torch.config import load_run_config
+    from layoutdit_tpu_torch.eval.serving import BatchInferenceEngine
+    from layoutdit_tpu_torch.models.detection.detector import (
+        DetectorConfig,
+        DetectorModel,
+        init_detector,
+    )
+    from layoutdit_tpu_torch.train.trainer import Trainer
+
+    label = "train_1024_w14"
+    base = load_run_config(str(RELPOS_CONFIG))
+    base = dataclasses.replace(base, model=dataclasses.replace(base.model,
+                                                               window_size=W14_WINDOW))
+    with tempfile.TemporaryDirectory() as tmp:
+        rc = _fixture_run(base, tmp, W14_STEPS * base.data.batch_size)
+        b = rc.data.batch_size
+        cfg = DetectorConfig.from_model_config(rc.model, precision_dtype=rc.compute_dtype)
+        vit = cfg.backbone.vit
+        params = init_detector(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+        tgen = torch.Generator(device="cuda").manual_seed(1)
+        for layer in params["backbone"]["vit"]["layers"]:
+            t = layer["rel_pos_table"]
+            t.copy_(0.5 * torch.randn(t.shape, generator=tgen, device="cuda"))
+        trainer = Trainer(rc, DetectorModel(params, cfg))
+        per_step = _launches_per_step(cfg)
+        print(f"  dit-base Faster R-CNN, {vit.num_hidden_layers} layers, image {cfg.image_size} "
+              f"px, batch {b}, {vit.window_size} x {vit.window_size} windows over the "
+              f"{vit.grid_size} x {vit.grid_size} grid, a relative-position table "
+              f"{list(params['backbone']['vit']['layers'][0]['rel_pos_table'].shape)} per "
+              f"layer; launches a step {per_step}")
+        if not per_step["flash_attention_bwd_dbias_masked"]:
+            raise RuntimeError(f"{label}: the config gives the masked flash kernels no work")
+
+        _reset_counts()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        counts, steps = _counts(), trainer.updates
+        print(f"  Trainer.train(): {steps} steps in {epoch_s:.3f} s, loss "
+              f"{trainer.loss_history}, launches {counts}")
+        _check_launches(label, counts, per_step, steps)
+        if not np.isfinite(trainer.loss_history).all():
+            raise RuntimeError(f"{label}: a non-finite epoch loss")
+
+        model = DetectorModel(trainer.params, cfg)
+        engine = BatchInferenceEngine(model, image_sizes=(cfg.image_size,), batch_size=b)
+        rng = np.random.default_rng(2)
+        pages = [rng.integers(0, 256, (1000 - 5 * i, 770 + 4 * i, 3), dtype=np.uint8)
+                 for i in range(b)]
+        _reset_counts()
+        t0 = time.perf_counter()
+        results = engine.predict_pages(pages)
+        torch.cuda.synchronize()
+        serve_ms = (time.perf_counter() - t0) * 1e3
+        served = _counts()
+        n_dets = _check_pages(pages, results)
+        print(f"  one {cfg.image_size} px batch of {b} pages served: {n_dets} detections in "
+              f"{serve_ms:.1f} ms (the first, not warmed up), launches {served}")
+        if served["flash_attention_masked"] != per_step["flash_attention_masked"]:
+            raise RuntimeError(f"{label}: serving launched the masked flash forward "
+                               f"{served['flash_attention_masked']} times")
+        for k in kernels:
+            k[f"{label}_launches"] = counts[k["name"]] + served[k["name"]]
+
+        it = iter(trainer.dataloader)
+        batch = next(it)
+        it.close()
+        _encoder_reference(model, {cfg.image_size: batch.images[0]})
+        grads = _gradient_reference(trainer.params["backbone"], cfg, batch.images[:1])
+    return {"config": "configs/train_1024_window_relpos.json with window_size 14: BEiT-base "
+                      "layout, 1024 px, batch 4, 14 x 14 windows over a padded grid, bf16 over "
+                      "fp32",
+            "epoch_steps": steps, "epoch_s": epoch_s, "epoch_loss": trainer.loss_history,
+            "launches_per_step": per_step, "serving_launches": served,
+            "serving_first_batch_ms": serve_ms, "serving_detections": n_dets,
+            "gradient_rel_err": grads}
 
 
 # encoder phase: dit-large at 1024 px in ViTDet-L's window-14 layout
@@ -6752,9 +7138,12 @@ def main() -> int:
     from layoutdit_tpu_torch.ops import short_attention as sa
 
     smem = fa._lib().flash_attention_smem_bytes
-    print(f"  flash_attention: dynamic shared memory: forward {smem(0, 0)} / {smem(0, 1)} "
-          f"bytes, dq {smem(1, 0)} / {smem(1, 1)}, dkdv {smem(2, 0)} / {smem(2, 1)} (without / "
-          f"with a bias), dbias {smem(3, 4)} (B = 4, rows resident) / {smem(4, 0)} (streamed)")
+    for masked in (0, 1):
+        print(f"  flash_attention{' masked' if masked else ''}: dynamic shared memory: forward "
+              f"{smem(0, 0, masked)} / {smem(0, 1, masked)} bytes, dq {smem(1, 0, masked)} / "
+              f"{smem(1, 1, masked)}, dkdv {smem(2, 0, masked)} / {smem(2, 1, masked)} (without "
+              f"/ with a bias), dbias {smem(3, 4, masked)} (B = 4, rows resident) / "
+              f"{smem(4, 0, masked)} (streamed)")
     smem = sa._lib().short_attention_smem_bytes
     print(f"  short_attention: dynamic shared memory at D = 64: forward {smem(0)} bytes, dq and "
           f"dkdv {smem(1)} each")
@@ -6779,7 +7168,9 @@ def main() -> int:
                    "parallel": lambda: phase_parallel([], card),
                    "model_parallel": lambda: phase_model_parallel([], card, gen),
                    "pipeline": lambda: phase_pipeline([], card),
-                   "probes": lambda: phase_probes(gen, [phase_roi(gen), phase_roi_bwd(gen)])}
+                   "probes": lambda: phase_probes(gen, [phase_roi(gen), phase_roi_bwd(gen)]),
+                   "flash_masked": lambda: phase_flash_masked(gen),
+                   "train_1024_w14": lambda: phase_train_1024_w14([])}
         for name in only:
             print(f"phase {name}")
             print(json.dumps({name: runners[name]()}))
@@ -6799,6 +7190,11 @@ def main() -> int:
     kernels += [phase_short_bwd(gen), *phase_flash_bwd(gen), phase_roi_bwd(gen),
                 _matcher_entry()]
     torch.cuda.empty_cache()
+    print("phase flash_masked")
+    t1 = time.perf_counter()
+    kernels += phase_flash_masked(gen)
+    torch.cuda.empty_cache()
+    mark("flash_masked", t1)
     print("phase probes")
     kernels += phase_probes(gen, kernels)
     torch.cuda.empty_cache()
@@ -6825,6 +7221,7 @@ def main() -> int:
             ("train_state", lambda: phase_train_state(kernels, card)),
             ("train_1024", lambda: phase_train_1024(kernels)),
             ("train_1024_relpos", lambda: phase_train_1024_relpos(kernels)),
+            ("train_1024_w14", lambda: phase_train_1024_w14(kernels)),
             ("encoder", lambda: phase_encoder(gen, kernels, with_kernels=False)),
             ("main", lambda: phase_main(kernels, card)),
             ("parallel", lambda: phase_parallel(kernels, card)),
@@ -6850,9 +7247,9 @@ def main() -> int:
             _stop_recipes(recipes_run)
     serving, deploy, train, train_state = (res[k] for k in ("serving", "deploy", "train",
                                                            "train_state"))
-    train_1024, train_1024_relpos, encoder, main_run, parallel, pipeline = (
-        res[k] for k in ("train_1024", "train_1024_relpos", "encoder", "main", "parallel",
-                         "pipeline"))
+    train_1024, train_1024_relpos, train_1024_w14, encoder, main_run, parallel, pipeline = (
+        res[k] for k in ("train_1024", "train_1024_relpos", "train_1024_w14", "encoder", "main",
+                         "parallel", "pipeline"))
     io, families, one_stage, detr, finetune, resnet, moe = (lane[k] for k in LANE_PHASES)
     families["kernels"], detr["kernels"] = families_cases, detr_cases
     conv = {**recipes.pop("flagship"), "card": card}
@@ -6866,9 +7263,9 @@ def main() -> int:
     model_parallel = phase_model_parallel(kernels, card, gen)
     mark("model_parallel", t0)
     paths = ("probe", "serving", "deploy", "train", "train_state", "io", "train_1024",
-             "train_1024_relpos", "encoder", "main", "convergence", "families", "one_stage",
-             "detr", "finetune", "resnet", "lora_recipe", "moe", "parallel", "model_parallel",
-             "pipeline")
+             "train_1024_relpos", "train_1024_w14", "encoder", "main", "convergence", "families",
+             "one_stage", "detr", "finetune", "resnet", "lora_recipe", "moe", "parallel",
+             "model_parallel", "pipeline")
     for k in kernels:
         k["launches"] = sum(k[f"{path}_launches"] for path in paths)
         if k["launches"] <= 0:
@@ -6881,6 +7278,7 @@ def main() -> int:
     print(json.dumps({"io": io}))
     print(json.dumps({"train_1024": train_1024}))
     print(json.dumps({"train_1024_relpos": train_1024_relpos}))
+    print(json.dumps({"train_1024_w14": train_1024_w14}))
     print(json.dumps({"encoder": encoder}))
     print(json.dumps({"main": main_run}))
     print(json.dumps({"convergence": conv}))

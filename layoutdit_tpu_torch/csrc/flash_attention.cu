@@ -24,6 +24,33 @@
 // forward, dq and dkdv kernels take a valid-key count nk <= N (ring
 // attention's last block holds the sequence's padding): keys at index >= nk
 // join that mask, so their dK and dV are 0; nk == N is the unmasked path.
+//
+// Key mask. Every kernel has a kMasked form that takes a key mask, uint8
+// [mask_rows, N] with row b % mask_rows for batch element b (one row a
+// window, as the encoder tiles its window mask over the pages, or one row
+// for pad_tokens_to's padding): a key the row holds 0 for drops out of every
+// softmax row. Its score is -inf, so its P is exactly 0 in the forward and
+// in the dq, dkdv and dbias kernels; its dK and dV rows are exactly 0, and
+// the dbias entries of its column get nothing from the batch elements whose
+// row drops it. The host wrappers refuse a mask with nk < N, so a masked
+// launch has nk == N. Every row must keep at least one key (a window always does:
+// its padding band is narrower than the window); it is not checked. The
+// mask's bytes under a key tile come with that tile: the producer's TMA
+// thread copies their 16-byte-aligned span (byte_span) by one bulk copy into
+// the tile's ring stage, and each consumer warp turns them into words of
+// kept keys, one ballot per 32 keys (kept_words), where the ragged edge is
+// masked. In the dkdv kernel the keys are the block's own 128 rows, so each
+// consumer lane reads its two keys' bytes once. A product whose A operand a
+// loop reuses reads it from shared memory in the masked forms (Q in the
+// forward, Q and dO in the dq kernel; the forward keeps two Q buffers, so the
+// next row block's Q still loads under this one's sweep): with the mask read
+// in the loop, A operands held in registers across it gave a wrong dq on the
+// card in the short kernels (short_attention.cu). Unmasked calls compile to
+// the kernels without a mask, and a mask that keeps every key gives their
+// bits: a tile that drops nothing is not touched. Fully dropped key tiles are
+// not skipped: they cost what a kept tile costs.
+
+#include <math_constants.h>
 
 #include <type_traits>
 
@@ -71,8 +98,11 @@ struct KvRing {
   static constexpr int kTile = kKeys * 64 * 2;  // bytes of a K or V tile
   static constexpr int kBiasLd = kKeys + 8;     // row pitch of the bias tile, floats
   static constexpr int kBiasBytes = kBlockRows * kBiasLd * 4;
+  static constexpr int kMaskBytes = kKeys + 32;  // the 16-byte span around a tile's mask bytes
   static constexpr int kDepth = kSt;
-  static constexpr int bytes(bool bias) { return kSt * (2 * kTile + (bias ? kBiasBytes : 0)); }
+  static constexpr int bytes(bool bias, bool masked = false) {
+    return kSt * (2 * kTile + (bias ? kBiasBytes : 0) + (masked ? kMaskBytes : 0));
+  }
   uint8_t* base;
   __device__ __forceinline__ bf16* k(int s) const {
     return reinterpret_cast<bf16*>(base + s * kTile);
@@ -83,20 +113,38 @@ struct KvRing {
   __device__ __forceinline__ float* bias(int s) const {
     return reinterpret_cast<float*>(base + 2 * kSt * kTile + s * kBiasBytes);
   }
+  // the mask span of stage s, after the bias tiles where there are any
+  __device__ __forceinline__ uint8_t* mask(int s, bool with_bias) const {
+    return base + kSt * (2 * kTile + (with_bias ? kBiasBytes : 0)) + s * kMaskBytes;
+  }
 };
+
+// Masked: the kept-key words (kept_words) of the key tile kv0 + [0, 32
+// kWords) from its mask span staged at `staged` (the copy of row mrow's
+// bytes from kv0 lands (mrow + kv0) & 15 bytes in); keys at >= nk drop out
+// too. -> whether any key of the tile drops out.
+template <int kWords>
+__device__ __forceinline__ bool tile_words(uint32_t (&w)[kWords], const uint8_t* staged,
+                                           const uint8_t* mrow, int kv0, int nk, int lane,
+                                           int quad) {
+  const uint8_t* keep = staged + (reinterpret_cast<uintptr_t>(mrow + kv0) & 15u);
+  return kept_words(w, keep, true, 0, nk - kv0, lane, quad);
+}
 
 // the dq and dbias kernels' ring: 64-key tiles
 using DqRing = KvRing<kChunk, kStages>;
 
 // The producer warpgroup's sweep of that ring over one row block, the ring's
 // count at its first tile it0: thread 0 loads each stage's K and V tiles by
-// TMA (rows past N as zeros); with a bias, thread pt also copies query row
-// r0 + pt of the stage's bias tile, the 16-byte-aligned span around its keys,
-// by one bulk copy (full[s] then expects one arrival per producer warp, else
-// one).
-template <bool kBias, int kKeys, int kSt>
+// TMA (rows past N as zeros) and, kMasked, the tile's bytes of the block's
+// mask row mrow by one bulk copy; with a bias, thread pt also copies query
+// row r0 + pt of the stage's bias tile, the 16-byte-aligned span around its
+// keys, by one bulk copy (full[s] then expects one arrival per producer
+// warp, else one).
+template <bool kBias, bool kMasked, int kKeys, int kSt>
 __device__ __forceinline__ void produce_kv(const CUtensorMap* tk, const CUtensorMap* tv,
-                                           const float* bias, RowBlock blk, int r0, int N,
+                                           const float* bias, const uint8_t* mrow,
+                                           RowBlock blk, int r0, int N,
                                            KvRing<kKeys, kSt> ring, uint64_t* full,
                                            uint64_t* empty, int it0, int pt, int lane) {
   if (!kBias && pt >= 32) return;
@@ -109,15 +157,17 @@ __device__ __forceinline__ void produce_kv(const CUtensorMap* tk, const CUtensor
     const int s = it % kSt;
     mbar_wait(&empty[s], ((it / kSt) & 1) ^ 1);
     const int kv0 = t * kKeys;
-    Span row{nullptr, 0};
+    Span row{nullptr, 0}, keep{nullptr, 0};
     if (bias_row != nullptr) row = aligned_span(bias_row + kv0, min(kKeys, N - kv0));
-    warp_expect_tx(&full[s], row.bytes + (pt == 0 ? 2 * ring.kTile : 0), lane);
+    if (kMasked && pt == 0) keep = byte_span(mrow + kv0, min(kKeys, N - kv0));
+    warp_expect_tx(&full[s], row.bytes + (pt == 0 ? 2 * ring.kTile + keep.bytes : 0), lane);
     if (pt == 0) {
 #pragma unroll
       for (int x = 0; x < kKeys; x += kChunk) {
         tma_load_4d(ring.k(s) + x * 64, tk, 0, blk.h, kv0 + x, blk.b, &full[s]);
         tma_load_4d(ring.v(s) + x * 64, tv, 0, blk.h, kv0 + x, blk.b, &full[s]);
       }
+      if (kMasked) bulk_load(ring.mask(s, kBias), keep.src, keep.bytes, &full[s]);
     }
     if (row.bytes != 0) bulk_load(ring.bias(s) + pt * ring.kBiasLd, row.src, row.bytes, &full[s]);
   }
@@ -180,21 +230,25 @@ using FwdRing = std::conditional_t<kBias, DqRing, KvRing<2 * kChunk, 4>>;
 // producer loads the next row block's Q as soon as the consumers hold the
 // last one in registers, and the ring runs on from one row block to the
 // next, so each row block's start and end overlap its neighbours' sweeps.
-template <bool kBias>
+template <bool kBias, bool kMasked>
 __global__ void __launch_bounds__(kBlockThreads, 1) flash_fwd_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const float* __restrict__ bias,
-    bf16* __restrict__ o, float* __restrict__ lse, int B, int H, int N, int nk, Strides os,
-    float scale) {
+    const uint8_t* __restrict__ mask, int mask_rows, bf16* __restrict__ o,
+    float* __restrict__ lse, int B, int H, int N, int nk, Strides os, float scale) {
   using Ring = FwdRing<kBias>;
   constexpr int kSt = Ring::kDepth;
   constexpr int kKeys = Ring::kKeyTile;
   constexpr int kJ = kKeys / 8;  // n-tiles of a score tile
+  // Q buffers: masked, S reads Q from shared memory for the whole sweep, so
+  // the next row block's Q lands in the other buffer
+  constexpr int kQBufs = kMasked ? 2 : 1;
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t full[kSt], empty[kSt], q_full, q_empty;
+  __shared__ __align__(8) uint64_t full[kSt], empty[kSt], q_full[kQBufs], q_empty[kQBufs];
   uint8_t* sm = align1024(smem_raw);
-  bf16* q_s = reinterpret_cast<bf16*>(sm);  // [128, 64]
-  const Ring ring{sm + 2 * kTileBytes};
+  // the [128, 64] Q rows of the block's n-th row block
+  auto q_s = [&](int n) { return reinterpret_cast<bf16*>(sm + (n % kQBufs) * 2 * kTileBytes); };
+  const Ring ring{sm + kQBufs * 2 * kTileBytes};
 
   // persistent: block x takes the row blocks x, x + gridDim.x, ..., the
   // ring's stages and phases running on from one to the next
@@ -205,8 +259,10 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_fwd_kernel(
       mbar_init(&full[s], kBias ? 4 : 1);  // one arrival per producer warp that copies
       mbar_init(&empty[s], 8);             // one arrival per consumer warp
     }
-    mbar_init(&q_full, 1);
-    mbar_init(&q_empty, 8);
+    for (int i = 0; i < kQBufs; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], 8);
+    }
     mbar_init_fence();
   }
   __syncthreads();
@@ -219,13 +275,16 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_fwd_kernel(
     for (int x = blockIdx.x, n = 0; x < blocks; x += gridDim.x, ++n) {
       const RowBlock blk = row_block(x, B, N);
       const int r0 = blk.tile * kBlockRows;
-      if (pt == 0) {  // Q as soon as the consumers hold the last block's
-        mbar_wait(&q_empty, (n & 1) ^ 1);
-        mbar_expect_tx(&q_full, 2 * kTileBytes);
-        tma_load_4d(q_s, &tq, 0, blk.h, r0, blk.b, &q_full);
-        tma_load_4d(q_s + kChunk * 64, &tq, 0, blk.h, r0 + kChunk, blk.b, &q_full);
+      if (pt == 0) {  // Q as soon as the consumers are done with its buffer
+        const int qb = n % kQBufs;
+        mbar_wait(&q_empty[qb], ((n / kQBufs) & 1) ^ 1);
+        mbar_expect_tx(&q_full[qb], 2 * kTileBytes);
+        tma_load_4d(q_s(n), &tq, 0, blk.h, r0, blk.b, &q_full[qb]);
+        tma_load_4d(q_s(n) + kChunk * 64, &tq, 0, blk.h, r0 + kChunk, blk.b, &q_full[qb]);
       }
-      produce_kv<kBias>(&tk, &tv, bias, blk, r0, N, ring, full, empty, n * tiles, pt, lane);
+      const uint8_t* mrow = kMasked ? mask_row(mask, mask_rows, blk.b, N) : nullptr;
+      produce_kv<kBias, kMasked>(&tk, &tv, bias, mrow, blk, r0, N, ring, full, empty, n * tiles,
+                                 pt, lane);
     }
   } else {  // consumer warpgroups c = 0, 1: query rows r0 + 64 c + [0, 64)
     warpgroup_regs_inc<kConsumerRegs>();
@@ -234,7 +293,6 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_fwd_kernel(
     const int quad = lane & 3;
     const int lr = c * kChunk + w * 16 + (lane >> 2);  // this lane's first row in the block
     const float scale2 = scale * kLog2e;
-    const bf16* qa = q_s + c * kChunk * 64;  // this warpgroup's Q rows
     // without a bias and with a positive scale the softmax takes the max of
     // the raw scores and folds the scale into the exponent's multiply-add
     const bool fold = !kBias && scale2 > 0.f;
@@ -244,6 +302,8 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_fwd_kernel(
       const int row0 = blk.tile * kBlockRows + lr;
       const BiasRows br = kBias ? bias_rows(ring, bias, blk.h, N, lr, row0) : BiasRows{};
       const int it0 = n * tiles;  // the ring's count at this block's first tile
+      const bf16* qa = q_s(n) + c * kChunk * 64;  // this warpgroup's Q rows
+      const uint8_t* mrow = kMasked ? mask_row(mask, mask_rows, blk.b, N) : nullptr;
 
       float acc[8][4], sc[kJ][4];
 #pragma unroll
@@ -251,17 +311,24 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_fwd_kernel(
       // running max (exp2 domain) and per-lane partial sum of this lane's rows
       float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
       uint32_t qf[4][4], pa[kJ / 2][4];
-      mbar_wait(&q_full, n & 1);
-      // Q into registers, its buffer back to the producer
+      mbar_wait(&q_full[n % kQBufs], (n / kQBufs) & 1);
+      if constexpr (!kMasked) {
+        // Q into registers, its buffer back to the producer
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) load_a_sw128(qf[kk], qa, w, lane, kk);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&q_empty);
+        for (int kk = 0; kk < 4; ++kk) load_a_sw128(qf[kk], qa, w, lane, kk);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&q_empty[0]);
+      }
 
       // S = Q K^T of the tile in stage s (issued, not waited for)
       auto issue_s = [&](int s) {
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_rs<0>(sc, qf[kk], sw128_desc(ring.k(s) + kk * 16), kk);
+        for (int kk = 0; kk < 4; ++kk) {
+          if constexpr (kMasked)
+            wgmma_ss<0>(sc, sw128_desc(qa + kk * 16), sw128_desc(ring.k(s) + kk * 16), kk);
+          else
+            wgmma_rs<0>(sc, qf[kk], sw128_desc(ring.k(s) + kk * 16), kk);
+        }
         wgmma_commit();
       };
       // the softmax of the tile in stage s, keys from kv0: sc becomes P
@@ -279,7 +346,16 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_fwd_kernel(
             }
           }
         }
-        if (kv0 + kKeys > nk) {  // the tiles past the valid keys nk <= N (a branch of its own)
+        if constexpr (kMasked) {  // dropped keys and keys past nk at -inf
+          uint32_t kw[kKeys / 32];
+          if (tile_words(kw, ring.mask(s, kBias), mrow, kv0, nk, lane, quad)) {
+#pragma unroll
+            for (int j = 0; j < kJ; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                if (!kept_bit(kw, j, e)) sc[j][e] = -CUDART_INF_F;
+          }
+        } else if (kv0 + kKeys > nk) {  // the tiles past nk <= N (a branch of its own)
 #pragma unroll
           for (int j = 0; j < kJ; ++j)
 #pragma unroll
@@ -380,7 +456,10 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_fwd_kernel(
       wgmma_wait<0>();
       fence_acc(acc);
       __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[s_last]);
+      if (lane == 0) {
+        mbar_arrive(&empty[s_last]);
+        if (kMasked) mbar_arrive(&q_empty[n % kQBufs]);  // the sweep's last S has been read
+      }
 
       float inv[2];
 #pragma unroll
@@ -449,24 +528,26 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_fwd_kernel(
 
 // dynamic shared memory of each kernel, 1024 bytes of alignment slack
 // included: the block's own 128 rows of one or two operands, then the ring
-constexpr int fwd_smem_bytes(bool bias) {
-  return 1024 + 2 * kTileBytes + (bias ? FwdRing<true>::bytes(true) : FwdRing<false>::bytes(false));
+constexpr int fwd_smem_bytes(bool bias, bool masked) {
+  return 1024 + (masked ? 2 : 1) * 2 * kTileBytes +
+         (bias ? FwdRing<true>::bytes(true, masked) : FwdRing<false>::bytes(false, masked));
 }
-constexpr int dq_smem_bytes(bool bias) {
-  return 1024 + 4 * kTileBytes + DqRing::bytes(bias);
+constexpr int dq_smem_bytes(bool bias, bool masked) {
+  return 1024 + 4 * kTileBytes + DqRing::bytes(bias, masked);
 }
 constexpr int dkdv_smem_bytes(bool bias) {
   return 1024 + 4 * kTileBytes +
          kStages * (2 * kTileBytes + 2 * kVecLd * 4 + (bias ? kDkdvBiasBytes : 0));
 }
 
-template <bool kBias>
+template <bool kBias, bool kMasked>
 __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dq_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
     const bf16* __restrict__ o, const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ bias, float* __restrict__ delta, bf16* __restrict__ dq, int B,
-    int H, int N, int nk, Strides os, Strides dos, Strides dqs, float scale) {
+    const float* __restrict__ bias, const uint8_t* __restrict__ mask, int mask_rows,
+    float* __restrict__ delta, bf16* __restrict__ dq, int B, int H, int N, int nk, Strides os,
+    Strides dos, Strides dqs, float scale) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages], once;
   uint8_t* sm = align1024(smem_raw);
@@ -477,6 +558,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dq_kernel(
   const RowBlock blk = row_block(blockIdx.x, B, N);
   const int r0 = blk.tile * kBlockRows;
   const int tiles = (N + kChunk - 1) / kChunk;
+  const uint8_t* mrow = kMasked ? mask_row(mask, mask_rows, blk.b, N) : nullptr;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], kBias ? 4 : 1);  // one arrival per producer warp that copies
@@ -499,7 +581,8 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dq_kernel(
       tma_load_4d(do_s, &tdo, 0, blk.h, r0, blk.b, &once);
       tma_load_4d(do_s + kChunk * 64, &tdo, 0, blk.h, r0 + kChunk, blk.b, &once);
     }
-    produce_kv<kBias>(&tk, &tv, bias, blk, r0, N, ring, full, empty, 0, pt, lane);
+    produce_kv<kBias, kMasked>(&tk, &tv, bias, mrow, blk, r0, N, ring, full, empty, 0, pt,
+                               lane);
   } else {  // consumer warpgroups c = 0, 1: query rows r0 + 64 c + [0, 64)
     warpgroup_regs_inc<kConsumerRegs>();
     const int c = warp >> 2;
@@ -531,14 +614,19 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dq_kernel(
     float acc[8][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    // this warpgroup's Q and dO rows as register A operands, for the whole
-    // sweep (S and dP then read only K and V from shared memory)
+    // this warpgroup's Q and dO rows, as register A operands for the whole
+    // sweep (S and dP then read only K and V from shared memory); masked,
+    // both products read them from shared memory
     mbar_wait(&once, 0);
+    const bf16* qa = q_s + c * kChunk * 64;
+    const bf16* da = do_s + c * kChunk * 64;
     uint32_t qf[4][4], df[4][4];
+    if constexpr (!kMasked) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      load_a_sw128(qf[kk], q_s + c * kChunk * 64, w, lane, kk);
-      load_a_sw128(df[kk], do_s + c * kChunk * 64, w, lane, kk);
+      for (int kk = 0; kk < 4; ++kk) {
+        load_a_sw128(qf[kk], qa, w, lane, kk);
+        load_a_sw128(df[kk], da, w, lane, kk);
+      }
     }
     if (c == 1) pass_turn(c);  // consumer 0 issues first
     for (int it = 0; it < tiles; ++it) {
@@ -550,19 +638,30 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dq_kernel(
       consumer_turn(c);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)  // S = Q K^T
-        wgmma_rs<0>(sc, qf[kk], sw128_desc(kt + kk * 16), kk);
+      for (int kk = 0; kk < 4; ++kk) {  // S = Q K^T
+        if constexpr (kMasked)
+          wgmma_ss<0>(sc, sw128_desc(qa + kk * 16), sw128_desc(kt + kk * 16), kk);
+        else
+          wgmma_rs<0>(sc, qf[kk], sw128_desc(kt + kk * 16), kk);
+      }
       wgmma_commit();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)  // dP = dO V^T
-        wgmma_rs<0>(dp, df[kk], sw128_desc(vt + kk * 16), kk);
+      for (int kk = 0; kk < 4; ++kk) {  // dP = dO V^T
+        if constexpr (kMasked)
+          wgmma_ss<0>(dp, sw128_desc(da + kk * 16), sw128_desc(vt + kk * 16), kk);
+        else
+          wgmma_rs<0>(dp, df[kk], sw128_desc(vt + kk * 16), kk);
+      }
       wgmma_commit();
       pass_turn(c);
 
-      // P = exp(S * scale (+ bias) - lse), 0 past N, while dP runs
+      // P = exp(S * scale (+ bias) - lse), 0 past N (and, masked, for the
+      // dropped keys), while dP runs
+      const int kv0 = it * kChunk;
+      uint32_t kw[2];
+      if constexpr (kMasked) tile_words(kw, ring.mask(s, kBias), mrow, kv0, nk, lane, quad);
       wgmma_wait<1>();
       fence_acc(sc);
-      const int kv0 = it * kChunk;
       const long long boff = ring.bias(s) - ring.bias(0);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -571,7 +670,12 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dq_kernel(
           const int col = j * 8 + 2 * quad + (e & 1);
           float x = sc[j][e] * scale2;
           if (kBias) x += (e < 2 ? br.r0 : br.r1)[boff + col] * kLog2e;
-          sc[j][e] = kv0 + col < nk ? exp2f(x - (e < 2 ? lse0 : lse1)) : 0.f;
+          bool kept;
+          if constexpr (kMasked)
+            kept = kept_bit(kw, j, e);
+          else
+            kept = kv0 + col < nk;
+          sc[j][e] = kept ? exp2f(x - (e < 2 ? lse0 : lse1)) : 0.f;
         }
       }
       // dS = P o (dP - delta)
@@ -599,13 +703,14 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dq_kernel(
   }
 }
 
-template <bool kBias>
+template <bool kBias, bool kMasked>
 __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dkdv_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    const float* __restrict__ bias, bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int H,
-    int N, int nk, Strides dks, Strides dvs, float scale) {
+    const float* __restrict__ bias, const uint8_t* __restrict__ mask, int mask_rows,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int H, int N, int nk, Strides dks,
+    Strides dvs, float scale) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages], once;
   uint8_t* sm = align1024(smem_raw);
@@ -687,6 +792,13 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dkdv_kernel(
     const int key0 = k0 + c * kChunk + w * 16 + (lane >> 2);
     const int key1 = key0 + 8;
     const float scale2 = scale * kLog2e;
+    // masked: do they take part (below nk and kept by the batch element's row)?
+    bool keep0 = false, keep1 = false;
+    if constexpr (kMasked) {
+      const uint8_t* mrow = mask_row(mask, mask_rows, blk.b, N);
+      keep0 = key0 < nk && mrow[key0] != 0;
+      keep1 = key1 < nk && mrow[key1] != 0;
+    }
 
     float dka[8][4], dva[8][4];
 #pragma unroll
@@ -744,7 +856,8 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dkdv_kernel(
         ls[j][1] = lse_v[j * 8 + 2 * quad + 1] * kLog2e;
       }
 
-      // P^T, 0 past N on either side, while dP^T runs; then dV += P^T dO
+      // P^T, 0 past N on either side (and, masked, for a dropped key), while
+      // dP^T runs; then dV += P^T dO
       wgmma_wait<1>();
       fence_acc(st);
 #pragma unroll
@@ -752,10 +865,14 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dkdv_kernel(
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int qi = j * 8 + 2 * quad + (e & 1);
-          const int key = e < 2 ? key0 : key1;
           float x = st[j][e] * scale2;
           if (kBias) x += bs[e & 1][qi * kDkdvBiasLd + (e < 2 ? 0 : 8)] * kLog2e;
-          st[j][e] = (q0 + qi < N && key < nk) ? exp2f(x - ls[j][e & 1]) : 0.f;
+          bool key_in;
+          if constexpr (kMasked)
+            key_in = e < 2 ? keep0 : keep1;
+          else
+            key_in = (e < 2 ? key0 : key1) < nk;
+          st[j][e] = (q0 + qi < N && key_in) ? exp2f(x - ls[j][e & 1]) : 0.f;
         }
       }
       uint32_t pa[4][4], da[4][4];
@@ -869,18 +986,20 @@ constexpr int kVecBytes = 2 * kVecPitch * 4;
 
 // dynamic shared memory of the dbias kernel: the Q and dO rows of `slots`
 // batch elements (all B when resident, else one a ring stage), the K and V
-// ring, the bias tile, then lse and delta of each slot
-constexpr int dbias_smem_bytes(int slots) {
-  return 1024 + (4 * slots + 2 * kStages) * kTileBytes + DqRing::kBiasBytes + slots * kVecBytes;
+// ring, the bias tile, lse and delta of each slot, then (masked) each ring
+// stage's mask span
+constexpr int dbias_smem_bytes(int slots, bool masked) {
+  return 1024 + (4 * slots + 2 * kStages) * kTileBytes + DqRing::kBiasBytes + slots * kVecBytes +
+         (masked ? kStages * DqRing::kMaskBytes : 0);
 }
 
-template <bool kResident>
+template <bool kResident, bool kMasked>
 __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dbias_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    const float* __restrict__ bias, float* __restrict__ dbias, int B, int H, int N,
-    int tiles_per_block, float scale) {
+    const float* __restrict__ bias, const uint8_t* __restrict__ mask, int mask_rows,
+    float* __restrict__ dbias, int B, int H, int N, int tiles_per_block, float scale) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages], once, bias_full, bias_empty;
   uint8_t* sm = align1024(smem_raw);
@@ -892,6 +1011,11 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dbias_kernel(
   constexpr int kBiasLd = DqRing::kBiasLd;
   float* bias_t = reinterpret_cast<float*>(ring.base + 2 * kStages * kTileBytes);  // [128][kBiasLd]
   auto vec_s = [&](int i) { return bias_t + kBlockRows * kBiasLd + i * 2 * kVecPitch; };
+  // ring stage s's mask span (kMasked): the bytes of batch element b's row
+  // under its key tile
+  auto mask_s = [&](int s) {
+    return reinterpret_cast<uint8_t*>(vec_s(slots)) + s * DqRing::kMaskBytes;
+  };
 
   // block -> (row block, key group, head), the row block fastest: the
   // blocks that read one head's K and V run together
@@ -964,10 +1088,14 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dbias_kernel(
         for (int b = 0; b < B; ++b, ++it) {
           const int s = it % kStages;
           mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
-          mbar_expect_tx(&full[s], 2 * kTileBytes + (kResident ? 0 : rows_bytes(b)));
+          Span keep{nullptr, 0};
+          if (kMasked)
+            keep = byte_span(mask_row(mask, mask_rows, b, N) + kv0, min(kChunk, N - kv0));
+          mbar_expect_tx(&full[s], 2 * kTileBytes + (kResident ? 0 : rows_bytes(b)) + keep.bytes);
           tma_load_4d(ring.k(s), &tk, 0, h, kv0, b, &full[s]);
           tma_load_4d(ring.v(s), &tv, 0, h, kv0, b, &full[s]);
           if (!kResident) load_rows(b, s, &full[s]);
+          if (kMasked) bulk_load(mask_s(s), keep.src, keep.bytes, &full[s]);
         }
       }
     }
@@ -1030,14 +1158,24 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dbias_kernel(
         const float* dl_v = vec_s(i) + kVecPitch + span_shift(vec_row(delta, b));
         const float ls[2] = {lse_v[lr] * kLog2e, lse_v[lr + 8] * kLog2e};
         const float dl[2] = {dl_v[lr], dl_v[lr + 8]};
-        // P = exp2(S * scale + bias - lse) while dP runs
+        uint32_t kw[2];
+        if constexpr (kMasked)
+          tile_words(kw, mask_s(s), mask_row(mask, mask_rows, b, N), kv0, N, lane, quad);
+        // P = exp2(S * scale + bias - lse) while dP runs (masked: 0 for the
+        // keys b's row drops)
         wgmma_wait<1>();
         fence_acc(sc);
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < 8; ++j) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            sc[j][e] = exp2_ftz(fmaf(sc[j][e], scale2, bl[j][e]) - ls[e >> 1]);
+          for (int e = 0; e < 4; ++e) {
+            const float p = exp2_ftz(fmaf(sc[j][e], scale2, bl[j][e]) - ls[e >> 1]);
+            if constexpr (kMasked)
+              sc[j][e] = kept_bit(kw, j, e) ? p : 0.f;
+            else
+              sc[j][e] = p;
+          }
+        }
         wgmma_wait<0>();
         fence_acc(dp);
         __syncwarp();
@@ -1078,6 +1216,14 @@ __global__ void __launch_bounds__(kBlockThreads, 1) flash_bwd_dbias_kernel(
   }
 }
 
+// the kernel of a template over (kBias or kResident, kMasked)
+template <typename Kernel>
+Kernel pick(bool first, bool masked, Kernel ff, Kernel ft, Kernel tf, Kernel tt) {
+  return first ? (masked ? tt : tf) : (masked ? ft : ff);
+}
+
+bool bad_mask(const void* mask, int mask_rows) { return mask != nullptr && mask_rows < 1; }
+
 }  // namespace
 
 extern "C" {
@@ -1089,13 +1235,14 @@ const char* kernel_error_string(int code) {
 // The forward. q, k, v: bf16 [B, N, H, D] with the element strides in
 // strides[0..8] (three each, in that order; last dim contiguous, 16-byte
 // aligned base and strides: they are read by TMA); o: bf16 [B, N, H, D]
-// with strides[9..11]; bias: fp32 [H, N, N] contiguous or null; lse: fp32
-// [B*H, N], written; keys at index >= nk (1 <= nk <= N) are masked.
-// Returns a cudaError_t code.
+// with strides[9..11]; bias: fp32 [H, N, N] contiguous or null; mask: uint8
+// [mask_rows, N] contiguous (row b % mask_rows for batch b) or null; lse:
+// fp32 [B*H, N], written; keys at index >= nk (1 <= nk <= N) or dropped by
+// the mask are masked. Returns a cudaError_t code.
 int flash_attention_fwd(const void* q, const void* k, const void* v, const void* bias,
-                        void* o, void* lse, int B, int N, int H, int D, int nk,
-                        const long long* strides, float scale, void* stream) {
-  if (B < 1 || H < 1 || N < 1 || D != 64 || nk < 1 || nk > N)
+                        const void* mask, void* o, void* lse, int B, int N, int H, int D, int nk,
+                        int mask_rows, const long long* strides, float scale, void* stream) {
+  if (B < 1 || H < 1 || N < 1 || D != 64 || nk < 1 || nk > N || bad_mask(mask, mask_rows))
     return static_cast<int>(cudaErrorInvalidValue);
   const DeviceOf device(q);
   if (device.error() != cudaSuccess) return static_cast<int>(device.error());
@@ -1106,9 +1253,11 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, const void*
   if (!(encode_rows(&maps[0], q, B, N, H, s[0]) && encode_rows(&maps[1], k, B, N, H, s[1]) &&
         encode_rows(&maps[2], v, B, N, H, s[2])))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool with_bias = bias != nullptr;
-  const auto kernel = with_bias ? flash_fwd_kernel<true> : flash_fwd_kernel<false>;
-  const int smem = fwd_smem_bytes(with_bias);
+  const bool with_bias = bias != nullptr, masked = mask != nullptr;
+  const auto kernel = pick(with_bias, masked, flash_fwd_kernel<false, false>,
+                           flash_fwd_kernel<false, true>, flash_fwd_kernel<true, false>,
+                           flash_fwd_kernel<true, true>);
+  const int smem = fwd_smem_bytes(with_bias, masked);
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -1118,7 +1267,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, const void*
   // one block an SM, each looping over row blocks
   const int blocks = min(B * H * ((N + kBlockRows - 1) / kBlockRows), sms);
   kernel<<<blocks, kBlockThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      maps[0], maps[1], maps[2], static_cast<const float*>(bias), static_cast<bf16*>(o),
+      maps[0], maps[1], maps[2], static_cast<const float*>(bias),
+      static_cast<const uint8_t*>(mask), mask_rows, static_cast<bf16*>(o),
       static_cast<float*>(lse), B, H, N, nk, s[3], scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1127,14 +1277,15 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, const void*
 // the element strides in strides[0..14] (three each, in that order; last
 // dim contiguous, 16-byte aligned base and strides: q, k, v and dout are
 // read by TMA); dq: bf16 [B, N, H, D] with strides[15..17]; lse: fp32
-// [B*H, N] from the forward; bias: fp32 [H, N, N] contiguous or null; delta:
-// fp32 [B*H, N], written; keys at index >= nk masked, as the forward's.
-// Returns a cudaError_t code.
+// [B*H, N] from the forward; bias: fp32 [H, N, N] contiguous or null; mask
+// as the forward's; delta: fp32 [B*H, N], written; keys at index >= nk or
+// dropped by the mask are masked, as the forward's. Returns a cudaError_t
+// code.
 int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const void* o,
-                           const void* dout, const void* lse, const void* bias, void* delta,
-                           void* dq, int B, int N, int H, int D, int nk,
-                           const long long* strides, float scale, void* stream) {
-  if (B < 1 || H < 1 || N < 1 || D != 64 || nk < 1 || nk > N)
+                           const void* dout, const void* lse, const void* bias, const void* mask,
+                           void* delta, void* dq, int B, int N, int H, int D, int nk,
+                           int mask_rows, const long long* strides, float scale, void* stream) {
+  if (B < 1 || H < 1 || N < 1 || D != 64 || nk < 1 || nk > N || bad_mask(mask, mask_rows))
     return static_cast<int>(cudaErrorInvalidValue);
   const DeviceOf device(q);
   if (device.error() != cudaSuccess) return static_cast<int>(device.error());
@@ -1144,9 +1295,11 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const vo
   CUtensorMap maps[4];
   if (!encode_qkvdo(maps, q, k, v, dout, B, N, H, s, 4))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool with_bias = bias != nullptr;
-  const auto kernel = with_bias ? flash_bwd_dq_kernel<true> : flash_bwd_dq_kernel<false>;
-  const int smem = dq_smem_bytes(with_bias);
+  const bool with_bias = bias != nullptr, masked = mask != nullptr;
+  const auto kernel = pick(with_bias, masked, flash_bwd_dq_kernel<false, false>,
+                           flash_bwd_dq_kernel<false, true>, flash_bwd_dq_kernel<true, false>,
+                           flash_bwd_dq_kernel<true, true>);
+  const int smem = dq_smem_bytes(with_bias, masked);
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1154,8 +1307,8 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const vo
   kernel<<<blocks, kBlockThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const bf16*>(o),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(bias), static_cast<float*>(delta), static_cast<bf16*>(dq), B, H,
-      N, nk, s[3], s[4], s[5], scale);
+      static_cast<const float*>(bias), static_cast<const uint8_t*>(mask), mask_rows,
+      static_cast<float*>(delta), static_cast<bf16*>(dq), B, H, N, nk, s[3], s[4], s[5], scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1163,13 +1316,14 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const vo
 // the delta that one wrote). q, k, v, dout: bf16 [B, N, H, D] with
 // strides[0..11] (read by TMA, as above); dk, dv: bf16 [B, N, H, D] with
 // strides[12..17]; lse, delta: fp32 [B*H, N]; bias: fp32 [H, N, N]
-// contiguous or null; keys at index >= nk masked (their dK and dV 0).
-// Returns a cudaError_t code.
+// contiguous or null; mask as the forward's; keys at index >= nk or dropped
+// by the mask are masked (their dK and dV 0). Returns a cudaError_t code.
 int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
-                             const void* lse, const void* delta, const void* bias, void* dk,
-                             void* dv, int B, int N, int H, int D, int nk,
-                             const long long* strides, float scale, void* stream) {
-  if (B < 1 || H < 1 || N < 1 || D != 64 || nk < 1 || nk > N)
+                             const void* lse, const void* delta, const void* bias,
+                             const void* mask, void* dk, void* dv, int B, int N, int H, int D,
+                             int nk, int mask_rows, const long long* strides, float scale,
+                             void* stream) {
+  if (B < 1 || H < 1 || N < 1 || D != 64 || nk < 1 || nk > N || bad_mask(mask, mask_rows))
     return static_cast<int>(cudaErrorInvalidValue);
   const DeviceOf device(q);
   if (device.error() != cudaSuccess) return static_cast<int>(device.error());
@@ -1179,8 +1333,10 @@ int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v, const 
   CUtensorMap maps[4];
   if (!encode_qkvdo(maps, q, k, v, dout, B, N, H, s, 3))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool with_bias = bias != nullptr;
-  const auto kernel = with_bias ? flash_bwd_dkdv_kernel<true> : flash_bwd_dkdv_kernel<false>;
+  const bool with_bias = bias != nullptr, masked = mask != nullptr;
+  const auto kernel = pick(with_bias, masked, flash_bwd_dkdv_kernel<false, false>,
+                           flash_bwd_dkdv_kernel<false, true>, flash_bwd_dkdv_kernel<true, false>,
+                           flash_bwd_dkdv_kernel<true, true>);
   const int smem = dkdv_smem_bytes(with_bias);
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1188,7 +1344,8 @@ int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v, const 
   const int blocks = B * H * ((N + kBlockRows - 1) / kBlockRows);
   kernel<<<blocks, kBlockThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const float*>(bias), static_cast<bf16*>(dk),
+      static_cast<const float*>(delta), static_cast<const float*>(bias),
+      static_cast<const uint8_t*>(mask), mask_rows, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), B, H, N, nk, s[4], s[5], scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1196,13 +1353,15 @@ int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v, const 
 // The dbias kernel of the backward, launched after the dq kernel (it reads
 // the delta that one wrote). q, k, v, dout: bf16 [B, N, H, D] with
 // strides[0..11] (read by TMA, as above); lse, delta: fp32 [B*H, N]; bias:
-// fp32 [H, N, N], not null; dbias: fp32 [H, N, N], written. Returns a
-// cudaError_t code.
+// fp32 [H, N, N], not null; mask as the forward's (batch element b adds
+// nothing to the columns of the keys its row drops); dbias: fp32 [H, N, N],
+// written. Returns a cudaError_t code.
 int flash_attention_bwd_dbias(const void* q, const void* k, const void* v, const void* dout,
-                              const void* lse, const void* delta, const void* bias, void* dbias,
-                              int B, int N, int H, int D, const long long* strides, float scale,
+                              const void* lse, const void* delta, const void* bias,
+                              const void* mask, void* dbias, int B, int N, int H, int D,
+                              int mask_rows, const long long* strides, float scale,
                               void* stream) {
-  if (B < 1 || H < 1 || N < 1 || D != 64 || bias == nullptr)
+  if (B < 1 || H < 1 || N < 1 || D != 64 || bias == nullptr || bad_mask(mask, mask_rows))
     return static_cast<int>(cudaErrorInvalidValue);
   const DeviceOf device(q);
   if (device.error() != cudaSuccess) return static_cast<int>(device.error());
@@ -1219,9 +1378,12 @@ int flash_attention_bwd_dbias(const void* q, const void* k, const void* v, const
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bool resident = dbias_smem_bytes(B) <= max_smem;
-  const auto kernel = resident ? flash_bwd_dbias_kernel<true> : flash_bwd_dbias_kernel<false>;
-  const int smem = dbias_smem_bytes(resident ? B : kStages);
+  const bool masked = mask != nullptr;
+  const bool resident = dbias_smem_bytes(B, masked) <= max_smem;
+  const auto kernel = pick(resident, masked, flash_bwd_dbias_kernel<false, false>,
+                           flash_bwd_dbias_kernel<false, true>, flash_bwd_dbias_kernel<true, false>,
+                           flash_bwd_dbias_kernel<true, true>);
+  const int smem = dbias_smem_bytes(resident ? B : kStages, masked);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   // split each row block's key tiles into as few groups as give two blocks
@@ -1234,21 +1396,22 @@ int flash_attention_bwd_dbias(const void* q, const void* k, const void* v, const
   kernel<<<H * rbs * groups, kBlockThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const float*>(bias),
-      static_cast<float*>(dbias), B, H, N, per_block, scale);
+      static_cast<const uint8_t*>(mask), mask_rows, static_cast<float*>(dbias), B, H, N,
+      per_block, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Dynamic shared memory of a kernel, in bytes, for the build report: the
 // forward (which = 0), dq (1) or dkdv (2) without or with a bias (arg 0 or
 // 1); the dbias kernel (3) with the rows of arg batch elements resident, or
-// streamed (4).
-int flash_attention_smem_bytes(int which, int arg) {
+// streamed (4); each without a key mask, or with one (masked 1).
+int flash_attention_smem_bytes(int which, int arg, int masked) {
   switch (which) {
-    case 0: return fwd_smem_bytes(arg != 0);
-    case 1: return dq_smem_bytes(arg != 0);
+    case 0: return fwd_smem_bytes(arg != 0, masked != 0);
+    case 1: return dq_smem_bytes(arg != 0, masked != 0);
     case 2: return dkdv_smem_bytes(arg != 0);
-    case 3: return dbias_smem_bytes(arg);
-    default: return dbias_smem_bytes(kStages);
+    case 3: return dbias_smem_bytes(arg, masked != 0);
+    default: return dbias_smem_bytes(kStages, masked != 0);
   }
 }
 

@@ -322,6 +322,48 @@ __device__ __forceinline__ int span_shift(const float* p) {
   return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3u);
 }
 
+// The 16-byte-aligned span of global memory that covers n bytes from p (a
+// key mask's row, or the part of it under a key tile), for one bulk copy; it
+// lands the bytes (p & 15) into its destination, and reads at most 15 bytes
+// on either side inside the 16-byte chunks that hold the first and the last
+// byte.
+__device__ __forceinline__ Span byte_span(const uint8_t* p, int n) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const uintptr_t lo = a & ~uintptr_t{15};
+  const uintptr_t hi = (a + static_cast<uintptr_t>(n) + 15u) & ~uintptr_t{15};
+  return Span{reinterpret_cast<const void*>(lo), static_cast<uint32_t>(hi - lo)};
+}
+
+// The keys kv0 + 32 i + [0, 32) that take part (below N and, with use_mask,
+// kept by the mask: keep[key] != 0), one ballot a word, each word shifted
+// right by 2 quad: then bit 8 (j % 4) + e of word j / 4 is this lane's key
+// kv0 + 8 j + 2 quad + e (the score-accumulator layout's columns). Every lane
+// of the warp calls it; keep[key] is read for keys below N only. -> whether
+// any of the 32 kWords keys drops out (the same answer in every lane).
+template <int kWords>
+__device__ __forceinline__ bool kept_words(uint32_t (&w)[kWords], const uint8_t* keep,
+                                           bool use_mask, int kv0, int N, int lane, int quad) {
+  uint32_t all = 0xffffffffu;
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    const int key = kv0 + 32 * i + lane;
+    const uint32_t word = __ballot_sync(0xffffffffu, key < N && (!use_mask || keep[key]));
+    all &= word;
+    w[i] = word >> (2 * quad);
+  }
+  return all != 0xffffffffu;
+}
+
+__device__ __forceinline__ bool kept_bit(const uint32_t* w, int j, int e) {
+  return (w[j >> 2] >> (8 * (j & 3) + (e & 1))) & 1u;
+}
+
+// the row of batch element b in a key mask [mask_rows, N] (row b % mask_rows)
+__device__ __forceinline__ const uint8_t* mask_row(const uint8_t* mask, int mask_rows, int b,
+                                                   int N) {
+  return mask + static_cast<long long>(b % mask_rows) * N;
+}
+
 // TMA: the box at coordinates (c0, c1) of a 2-d tensor map, or (c0, c1, c2)
 // of a 3-d one, into shared memory, completing `bar`'s transactions;
 // coordinates past the tensor's extent read as zeros

@@ -184,22 +184,6 @@ __device__ __forceinline__ Units block_units(int B, int H, int N) {
                static_cast<int>(units * (blockIdx.x + 1) / gridDim.x), pairs};
 }
 
-// The 16-byte-aligned span of global memory that covers n bytes from p (the
-// mask row), for one bulk copy; it lands the bytes (p & 15) into its
-// destination, and reads at most 15 bytes on either side inside the 16-byte
-// chunks that hold the first and the last byte.
-__device__ __forceinline__ Span byte_span(const uint8_t* p, int n) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
-  const uintptr_t lo = a & ~uintptr_t{15};
-  const uintptr_t hi = (a + static_cast<uintptr_t>(n) + 15u) & ~uintptr_t{15};
-  return Span{reinterpret_cast<const void*>(lo), static_cast<uint32_t>(hi - lo)};
-}
-
-__device__ __forceinline__ const uint8_t* mask_row(const uint8_t* mask, int mask_rows, int b,
-                                                   int N) {
-  return mask + static_cast<long long>(b % mask_rows) * N;
-}
-
 // Masked: does the staged mask row drop any key below N? (one answer for the
 // whole warp, from at most eight loads a lane; a row that drops none takes the
 // unmasked kernels' path, so an all-True mask gives their bits)
@@ -207,25 +191,6 @@ __device__ __forceinline__ bool drops_keys(const uint8_t* keep, int N, int lane)
   bool all = true;
   for (int i = lane; i < N; i += 32) all = all && keep[i] != 0;
   return !__all_sync(0xffffffffu, all);
-}
-
-// The keys kv0 + 32 i + [0, 32) that take part (below N and, with use_mask,
-// kept by the mask), one ballot a word, each word shifted right by 2 quad:
-// then bit 8 (j % 4) + e of word j / 4 is this lane's key kv0 + 8 j + 2 quad
-// + e (the score-accumulator layout's columns). Every lane of the warp calls
-// it.
-template <int kWords>
-__device__ __forceinline__ void kept_words(uint32_t (&w)[kWords], const uint8_t* keep,
-                                           bool use_mask, int kv0, int N, int lane, int quad) {
-#pragma unroll
-  for (int i = 0; i < kWords; ++i) {
-    const int key = kv0 + 32 * i + lane;
-    w[i] = __ballot_sync(0xffffffffu, key < N && (!use_mask || keep[key])) >> (2 * quad);
-  }
-}
-
-__device__ __forceinline__ bool kept_bit(const uint32_t* w, int j, int e) {
-  return (w[j >> 2] >> (8 * (j & 3) + (e & 1))) & 1u;
 }
 
 // What the producer copies beside the tiles: the key mask, or the head's lse

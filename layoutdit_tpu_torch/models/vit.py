@@ -13,10 +13,10 @@ Attention goes to the port's kernels: without a bias, N <= 256 to the
 short kernel and longer sequences to the flash kernel; with a bias, the
 flash kernel at any N (the short kernels are bias-free, as the JAX
 package's is). A key mask (padded window slots, ``pad_tokens_to``'s
-padding) goes to the short kernels, which take one; the flash kernels
-take none, so on the card a mask with a bias, or over more than 256
-tokens, raises. All are differentiable, the bias too (on the CPU the
-wrappers run their plain versions). That departs on purpose from the JAX
+padding) goes with the attention to whichever kernels it takes: both
+take one, the flash kernels with a bias and over any N. All are
+differentiable, the bias too (on the CPU the wrappers run their plain
+versions). That departs on purpose from the JAX
 package's XLA-below-2048-tokens routing, which was measured on a TPU.
 The projection and MLP matmuls stay ``torch`` matmuls, as the JAX
 package leaves them to XLA.
@@ -439,23 +439,6 @@ def patchify(pixels: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(b, gh * gw, c * patch * patch)
 
 
-def _masked_attention_plain(
-    qkv: torch.Tensor, heads: int, scale: float, key_mask: torch.Tensor,
-    bias: torch.Tensor | None,
-) -> torch.Tensor:
-    """softmax(q k^T * scale + bias) v in fp32 with the False keys of
-    ``key_mask`` [rows, N] (row b % rows for batch b) out of every row
-    (-inf scores), as the JAX encoder's XLA path does for padded window
-    slots (``vit.py:552``)."""
-    q, k, v = split_qkv(qkv, heads)
-    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
-    if bias is not None:
-        s = s + bias.float()
-    s = s.masked_fill(~key_mask_rows(key_mask, qkv.shape[0])[:, None, None, :], float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhnm,bmhd->bnhd", p, v.float()).to(qkv.dtype)
-
-
 def bf16_score_attention_plain(
     qkv: torch.Tensor, heads: int, key_mask: torch.Tensor | None = None,
     bias: torch.Tensor | None = None,
@@ -487,29 +470,17 @@ def attention_core(
     N <= 256 and the flash kernels beyond; with one, the flash kernels at
     any N. ``key_mask`` [rows, N] bool (row b % rows for batch b) drops
     the False keys from every softmax row (padded window slots,
-    ``pad_tokens_to``'s padding); the short kernels take it. The flash
-    kernels take no mask, so on a CUDA tensor a mask with a bias, or over
-    more than 256 tokens, raises; on the CPU the plain version runs.
+    ``pad_tokens_to``'s padding), on either route: both kinds of kernel
+    take it, as do their plain versions, which run for CPU tensors.
     ``score_dtype`` "bfloat16": on the CPU, the plain attention with bf16
     scores (``bf16_score_attention_plain``); the kernels ignore it, as the
     JAX package's kernel routes do."""
     scale = 1.0 / math.sqrt(qkv.shape[-1] // (3 * heads))
     if score_dtype == "bfloat16" and qkv.device.type == "cpu":
         return bf16_score_attention_plain(qkv, heads, key_mask, bias)
-    short = bias is None and qkv.shape[1] <= SHORT_MAX_N
-    if key_mask is not None and not short:
-        if qkv.device.type != "cpu":
-            raise NotImplementedError(
-                "a key mask with a relative-position bias, or over more than "
-                f"{SHORT_MAX_N} tokens, needs a key mask in the flash-attention kernels, "
-                "which they do not take yet (ROADMAP.md queue 2: rows 3-6 take no key "
-                "mask); use a window size that divides the patch grid, or no "
-                "pad_tokens_to, with a relative-position bias"
-            )
-        return _masked_attention_plain(qkv, heads, scale, key_mask, bias)
-    if short:
+    if bias is None and qkv.shape[1] <= SHORT_MAX_N:
         return short_attention_qkv(qkv, heads, scale=scale, key_mask=key_mask)
-    return flash_attention_qkv(qkv, heads, scale=scale, bias=bias)
+    return flash_attention_qkv(qkv, heads, scale=scale, bias=bias, key_mask=key_mask)
 
 
 def local_heads(cfg: ViTConfig, tp: ModelGroup | None) -> int:

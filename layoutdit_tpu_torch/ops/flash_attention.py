@@ -42,6 +42,22 @@ The forward, dq and dkdv kernels take a valid-key count ``n_keys <= N``
 keys at index >= ``n_keys`` join the ragged edge's mask, out of every
 softmax row, and their dK and dV are 0. ``n_keys == N`` (the default) is
 the unmasked path, the same bits.
+
+All four kernels, and the plain versions, take a key mask as the short
+kernels do (``ops/short_attention.py``): ``key_mask`` [rows, N], bool or
+uint8, contiguous, row b % rows for batch element b (a window mask has
+one row a window, as ``models/vit.py`` builds it; ``pad_tokens_to``'s
+padding one row). A key its row holds False for drops out of every
+softmax row (score -inf, after the bias is added, as the JAX encoder's
+masked XLA attention does): its P is exactly 0 in the forward and every
+backward kernel, its dK and dV rows are exactly 0, and its dbias column
+gets nothing from the batch elements whose row drops it. Every row must
+keep at least one key (a window's padding band is narrower than the
+window); it is not checked. ``n_keys`` and a mask exclude each other:
+a call with a mask and ``n_keys`` < N raises (ring attention's blocks
+take no mask, the encoder's masks no ``n_keys``). A mask that keeps every key
+gives the unmasked kernels' bits. The masked kernels' launches are also
+counted apart (``masked_launches``, a part of ``launches``).
 """
 
 from __future__ import annotations
@@ -52,21 +68,22 @@ import math
 import torch
 
 from layoutdit_tpu_torch.ops import _build, _library
-from layoutdit_tpu_torch.ops.short_attention import split_qkv
+from layoutdit_tpu_torch.ops.short_attention import _check_mask, key_mask_rows, split_qkv
 
 HEAD_DIM = 64  # dit-base; the kernels are compiled for this width only
 
-# B, N, H, D, then n_keys (the forward, dq and dkdv kernels)
+# the tensors (the key mask's among them), then B, N, H, D, n_keys and the
+# mask's rows; the strides, scale and stream
 _ARGTYPES = (
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     + [ctypes.c_float, ctypes.c_void_p]
 )
 _BWD_ARGTYPES = (
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     + [ctypes.c_float, ctypes.c_void_p]
 )
 _DBIAS_ARGTYPES = (  # one pointer and n_keys fewer
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     + [ctypes.c_float, ctypes.c_void_p]
 )
 
@@ -75,23 +92,31 @@ def _scale(q: torch.Tensor, scale: float | None) -> float:
     return 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
 
 
-def _scores(q, k, bias, scale, n_keys: int | None = None) -> torch.Tensor:
+def _scores(q, k, bias, scale, n_keys: int | None = None,
+            key_mask: torch.Tensor | None = None) -> torch.Tensor:
     """[B, H, N, N] fp32 scores q k^T * scale (+ bias), keys at index >=
-    ``n_keys`` at -inf."""
+    ``n_keys`` and the keys ``key_mask`` [rows, N] holds False for (row
+    b % rows for batch b) at -inf."""
     s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
     if bias is not None:
         s = s + bias.float()[None]
     if n_keys is not None and n_keys < k.shape[1]:
         s = s.masked_fill(torch.arange(k.shape[1], device=s.device) >= n_keys, float("-inf"))
+    if key_mask is not None:
+        s = s.masked_fill(~key_mask_rows(key_mask, q.shape[0])[:, None, None, :], float("-inf"))
     return s
 
 
-def _n_keys(what: str, n_keys: int | None, n: int) -> int:
-    """The valid-key count the kernels take (N for None); 1..N."""
+def _n_keys(what: str, n_keys: int | None, n: int, key_mask: torch.Tensor | None) -> int:
+    """The valid-key count the kernels take (N for None); 1..N, and N
+    with a key mask."""
     if n_keys is None:
         return n
     if not 1 <= n_keys <= n:
         raise ValueError(f"{what}: n_keys={n_keys} outside 1..{n}")
+    if key_mask is not None and n_keys < n:
+        raise ValueError(f"{what}: n_keys={n_keys} < N={n} with a key mask; mask those keys "
+                         "in the mask instead")
     return int(n_keys)
 
 
@@ -102,12 +127,14 @@ def flash_attention_plain(
     bias: torch.Tensor | None = None,
     scale: float | None = None,
     n_keys: int | None = None,
+    key_mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """softmax(q k^T * scale + bias) v over [B, N, H, D] with fp32 math
     -> (o [B, N, H, D] in q.dtype, lse [B*H, N] fp32); keys at index >=
-    ``n_keys`` (default N) masked."""
+    ``n_keys`` (default N) and the keys ``key_mask`` drops masked."""
     b, n, h, _ = q.shape
-    s = _scores(q, k, bias, _scale(q, scale), _n_keys("flash_attention", n_keys, n))
+    s = _scores(q, k, bias, _scale(q, scale), _n_keys("flash_attention", n_keys, n, key_mask),
+                key_mask)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     o = torch.einsum("bhnm,bmhd->bnhd", p, v.float()).to(q.dtype)
@@ -124,18 +151,20 @@ def flash_attention_bwd_plain(
     bias: torch.Tensor | None = None,
     scale: float | None = None,
     n_keys: int | None = None,
+    key_mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor | None]:
     """(dq, dk, dv, dbias): dq, dk, dv over [B, N, H, D] in fp32 math, out
     in q.dtype, and dbias = sum_b dS, fp32 [H, N, N] (None without a
     bias): the algebra of the Pallas backward (and of its oracle
     ``_bwd_reference``), P = exp(q k^T * scale + bias - lse),
     D = rowsum(dO o O), dV = P^T dO, dS = P o (dO V^T - D),
-    dQ = dS K s, dK = dS^T Q s; keys at index >= ``n_keys`` masked (P 0,
-    so their dK and dV 0)."""
+    dQ = dS K s, dK = dS^T Q s; keys at index >= ``n_keys`` and those
+    ``key_mask`` drops masked (P 0, so their dK and dV 0, and nothing of
+    theirs in dbias)."""
     b, n, h, _ = q.shape
     scale = _scale(q, scale)
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    s = _scores(q, k, bias, scale, _n_keys("flash_attention_bwd", n_keys, n))
+    s = _scores(q, k, bias, scale, _n_keys("flash_attention_bwd", n_keys, n, key_mask), key_mask)
     p = torch.exp(s - lse.float().reshape(b, h, n, 1))
     dv = torch.einsum("bhnm,bnhd->bmhd", p, dof)
     dp = torch.einsum("bnhd,bmhd->bhnm", dof, vf)
@@ -157,7 +186,7 @@ def _lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.flash_attention_bwd_dbias.argtypes = _DBIAS_ARGTYPES
         lib.flash_attention_bwd_dbias.restype = ctypes.c_int
-        lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.flash_attention_smem_bytes.restype = ctypes.c_int
     return lib
 
@@ -209,45 +238,54 @@ def _strides(*tensors: torch.Tensor):
     return (ctypes.c_longlong * (3 * len(tensors)))(*[s for t in tensors for s in t.stride()[:3]])
 
 
-def flash_attention_fwd_launch(q, k, v, bias, scale, o, lse, n_keys: int = -1) -> None:
+def flash_attention_fwd_launch(q, k, v, bias, scale, o, lse, n_keys: int = -1,
+                               key_mask: torch.Tensor | None = None) -> None:
     """Launch the forward kernel of ``flash_attention_fwd``: writes o
     (bf16 [B, N, H, D]) and lse (fp32 [B*H, N]). q, k, v and o bf16 rows
     that TMA can read (as ``flash_attention_bwd`` checks them); bias fp32
-    [H, N, N] contiguous or None; ``n_keys`` the valid keys (-1: N). The
-    direct launch: it counts nothing (the operator
+    [H, N, N] contiguous or None; ``n_keys`` the valid keys (-1: N);
+    ``key_mask`` a contiguous bool or uint8 [rows, N] on q's device, or
+    None. The direct launch: it counts nothing (the operator
     ``layoutdit_torch::flash_attention_fwd`` counts on
     ``flash_attention_fwd``)."""
     b, n, h, d = q.shape
-    n_keys = _n_keys("flash_attention", None if n_keys < 0 else n_keys, n)
+    n_keys = _n_keys("flash_attention", None if n_keys < 0 else n_keys, n, key_mask)
     _check_rows("flash_attention", q, q=q, k=k, v=v, o=o)
     _check_lse("flash_attention", lse, q, "lse")
     _check_square("flash_attention", q, bias=bias)
+    mask, rows = _check_mask("flash_attention", q, key_mask)
     lib = _lib()
     code = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
-        o.data_ptr(), lse.data_ptr(), b, n, h, d, n_keys, _strides(q, k, v, o), float(scale),
-        _build.stream_ptr(q),
+        mask, o.data_ptr(), lse.data_ptr(), b, n, h, d, n_keys, rows, _strides(q, k, v, o),
+        float(scale), _build.stream_ptr(q),
     )
     _build.check(lib, code, "flash_attention")
 
 
-def _fwd_cuda(q, k, v, bias, scale, n_keys=-1):
+def _count(fn, key_mask) -> None:
+    """One launch of ``fn``'s kernel: its count, and the masked form's."""
+    fn.launches += 1
+    fn.masked_launches += key_mask is not None
+
+
+def _fwd_cuda(q, k, v, bias, scale, n_keys=-1, key_mask=None):
     b, n, h, d = q.shape
     o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, n), dtype=torch.float32, device=q.device)
-    flash_attention_fwd_launch(q, k, v, bias, scale, o, lse, n_keys)
-    flash_attention_fwd.launches += 1
+    flash_attention_fwd_launch(q, k, v, bias, scale, o, lse, n_keys, key_mask)
+    _count(flash_attention_fwd, key_mask)
     return o, lse
 
 
-def _fwd_fake(q, k, v, bias, scale, n_keys=-1):
+def _fwd_fake(q, k, v, bias, scale, n_keys=-1, key_mask=None):
     b, n, h, _ = q.shape
     return q.new_empty(q.shape), q.new_empty((b * h, n), dtype=torch.float32)
 
 
 _fwd_op = _library.define(
     "flash_attention_fwd(Tensor q, Tensor k, Tensor v, Tensor? bias, float scale, "
-    "int n_keys=-1) -> (Tensor, Tensor)",
+    "int n_keys=-1, Tensor? key_mask=None) -> (Tensor, Tensor)",
     fake=_fwd_fake, cuda=_fwd_cuda,
 )
 
@@ -259,77 +297,88 @@ def flash_attention_fwd(
     bias: torch.Tensor | None = None,
     scale: float | None = None,
     n_keys: int | None = None,
+    key_mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """-> (o [B, N, H, D], lse [B*H, N] fp32). bf16 q/k/v on the card
     (rows 16-byte aligned, as the fused QKV projection's slices are),
     through the operator ``layoutdit_torch::flash_attention_fwd``; any
-    float type on the CPU. Keys at index >= ``n_keys`` (default N) are
-    masked. Not differentiable by itself on the card:
-    ``flash_attention`` and ``flash_attention_qkv`` are."""
+    float type on the CPU. Keys at index >= ``n_keys`` (default N) and
+    those ``key_mask`` [rows, N] holds False for are masked. Not
+    differentiable by itself on the card: ``flash_attention`` and
+    ``flash_attention_qkv`` are."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, bias, scale, n_keys)
+        return flash_attention_plain(q, k, v, bias, scale, n_keys, key_mask)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     return _fwd_op(q, k, v, _check_bias("flash_attention", bias, q), _scale(q, scale),
-                   _n_keys("flash_attention", n_keys, q.shape[1]))
+                   _n_keys("flash_attention", n_keys, q.shape[1], key_mask), key_mask)
 
 
+# launches of the kernel, and of them those of its masked form
 flash_attention_fwd.launches = 0
+flash_attention_fwd.masked_launches = 0
 
 
-def flash_attention_bwd_dq(q, k, v, o, lse, do, bias, scale, dq, delta, n_keys=-1) -> None:
+def flash_attention_bwd_dq(q, k, v, o, lse, do, bias, scale, dq, delta, n_keys=-1,
+                           key_mask=None) -> None:
     """Launch the dq kernel of ``flash_attention_bwd``: writes dq (bf16
     [B, N, H, D], any row strides) and delta = rowsum(dO o O) (fp32
     [B*H, N], read by ``flash_attention_bwd_dkdv``). CUDA tensors as
     ``flash_attention_bwd`` checks them; bias fp32 [H, N, N] or None;
-    ``n_keys`` the valid keys (-1: N)."""
+    ``n_keys`` the valid keys (-1: N); ``key_mask`` as the forward's."""
     b, n, h, d = q.shape
-    n_keys = _n_keys("flash_attention_bwd", None if n_keys < 0 else n_keys, n)
+    n_keys = _n_keys("flash_attention_bwd", None if n_keys < 0 else n_keys, n, key_mask)
     _check_rows("flash_attention_bwd", q, q=q, k=k, v=v, o=o, do=do, dq=dq)
     _check_lse("flash_attention_bwd", lse, q, "lse")
     _check_lse("flash_attention_bwd", delta, q, "delta")
     _check_square("flash_attention_bwd", q, bias=bias)
+    mask, rows = _check_mask("flash_attention_bwd", q, key_mask)
     lib = _lib()
     code = lib.flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), None if bias is None else bias.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), b, n, h, d, n_keys, _strides(q, k, v, o, do, dq), float(scale),
+        lse.data_ptr(), None if bias is None else bias.data_ptr(), mask, delta.data_ptr(),
+        dq.data_ptr(), b, n, h, d, n_keys, rows, _strides(q, k, v, o, do, dq), float(scale),
         _build.stream_ptr(q),
     )
     _build.check(lib, code, "flash_attention_bwd_dq")
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.masked_launches = 0
 
 
 def flash_attention_bwd_dkdv(q, k, v, lse, do, delta, bias, scale, dk, dv,
-                             n_keys=-1) -> None:
+                             n_keys=-1, key_mask=None) -> None:
     """Launch the dkdv kernel of ``flash_attention_bwd`` after the dq
     kernel (it reads that kernel's delta): writes dk and dv (0 for keys
-    at index >= ``n_keys``)."""
+    at index >= ``n_keys`` and those ``key_mask`` drops)."""
     b, n, h, d = q.shape
-    n_keys = _n_keys("flash_attention_bwd", None if n_keys < 0 else n_keys, n)
+    n_keys = _n_keys("flash_attention_bwd", None if n_keys < 0 else n_keys, n, key_mask)
     _check_rows("flash_attention_bwd", q, q=q, k=k, v=v, do=do, dk=dk, dv=dv)
     _check_lse("flash_attention_bwd", lse, q, "lse")
     _check_lse("flash_attention_bwd", delta, q, "delta")
     _check_square("flash_attention_bwd", q, bias=bias)
+    mask, rows = _check_mask("flash_attention_bwd", q, key_mask)
     lib = _lib()
     code = lib.flash_attention_bwd_dkdv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), None if bias is None else bias.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, n, h, d, n_keys, _strides(q, k, v, do, dk, dv), float(scale),
+        delta.data_ptr(), None if bias is None else bias.data_ptr(), mask, dk.data_ptr(),
+        dv.data_ptr(), b, n, h, d, n_keys, rows, _strides(q, k, v, do, dk, dv), float(scale),
         _build.stream_ptr(q),
     )
     _build.check(lib, code, "flash_attention_bwd_dkdv")
 
 
 flash_attention_bwd_dkdv.launches = 0
+flash_attention_bwd_dkdv.masked_launches = 0
 
 
-def flash_attention_bwd_dbias(q, k, v, lse, do, delta, bias, scale, dbias) -> None:
+def flash_attention_bwd_dbias(q, k, v, lse, do, delta, bias, scale, dbias,
+                              key_mask=None) -> None:
     """Launch the dbias kernel of ``flash_attention_bwd`` after the dq
     kernel (it reads that kernel's delta): writes dbias = sum_b dS into
-    ``dbias``, contiguous fp32 [H, N, N]; bias fp32 [H, N, N]."""
+    ``dbias``, contiguous fp32 [H, N, N]; bias fp32 [H, N, N];
+    ``key_mask`` as the forward's."""
     b, n, h, d = q.shape
     _check_rows("flash_attention_bwd", q, q=q, k=k, v=v, do=do)
     _check_lse("flash_attention_bwd", lse, q, "lse")
@@ -337,31 +386,33 @@ def flash_attention_bwd_dbias(q, k, v, lse, do, delta, bias, scale, dbias) -> No
     if bias is None:
         raise ValueError("flash_attention_bwd: the dbias kernel needs a bias")
     _check_square("flash_attention_bwd", q, bias=bias, dbias=dbias)
+    mask, rows = _check_mask("flash_attention_bwd", q, key_mask)
     lib = _lib()
     code = lib.flash_attention_bwd_dbias(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), bias.data_ptr(), dbias.data_ptr(), b, n, h, d,
+        delta.data_ptr(), bias.data_ptr(), mask, dbias.data_ptr(), b, n, h, d, rows,
         _strides(q, k, v, do), float(scale), _build.stream_ptr(q),
     )
     _build.check(lib, code, "flash_attention_bwd_dbias")
 
 
 flash_attention_bwd_dbias.launches = 0
+flash_attention_bwd_dbias.masked_launches = 0
 
 
-def _dq_cuda(q, k, v, o, lse, dout, bias, scale, dq, delta, n_keys=-1):
-    flash_attention_bwd_dq(q, k, v, o, lse, dout, bias, scale, dq, delta, n_keys)
-    flash_attention_bwd_dq.launches += 1
+def _dq_cuda(q, k, v, o, lse, dout, bias, scale, dq, delta, n_keys=-1, key_mask=None):
+    flash_attention_bwd_dq(q, k, v, o, lse, dout, bias, scale, dq, delta, n_keys, key_mask)
+    _count(flash_attention_bwd_dq, key_mask)
 
 
-def _dkdv_cuda(q, k, v, lse, dout, delta, bias, scale, dk, dv, n_keys=-1):
-    flash_attention_bwd_dkdv(q, k, v, lse, dout, delta, bias, scale, dk, dv, n_keys)
-    flash_attention_bwd_dkdv.launches += 1
+def _dkdv_cuda(q, k, v, lse, dout, delta, bias, scale, dk, dv, n_keys=-1, key_mask=None):
+    flash_attention_bwd_dkdv(q, k, v, lse, dout, delta, bias, scale, dk, dv, n_keys, key_mask)
+    _count(flash_attention_bwd_dkdv, key_mask)
 
 
-def _dbias_cuda(q, k, v, lse, dout, delta, bias, scale, dbias):
-    flash_attention_bwd_dbias(q, k, v, lse, dout, delta, bias, scale, dbias)
-    flash_attention_bwd_dbias.launches += 1
+def _dbias_cuda(q, k, v, lse, dout, delta, bias, scale, dbias, key_mask=None):
+    flash_attention_bwd_dbias(q, k, v, lse, dout, delta, bias, scale, dbias, key_mask)
+    _count(flash_attention_bwd_dbias, key_mask)
 
 
 def _no_outputs(*args):
@@ -370,18 +421,19 @@ def _no_outputs(*args):
 
 _dq_op = _library.define(
     "flash_attention_bwd_dq(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, Tensor dout, "
-    "Tensor? bias, float scale, Tensor(a!) dq, Tensor(b!) delta, int n_keys=-1) -> ()",
+    "Tensor? bias, float scale, Tensor(a!) dq, Tensor(b!) delta, int n_keys=-1, "
+    "Tensor? key_mask=None) -> ()",
     fake=_no_outputs, cuda=_dq_cuda,
 )
 _dkdv_op = _library.define(
     "flash_attention_bwd_dkdv(Tensor q, Tensor k, Tensor v, Tensor lse, Tensor dout, "
     "Tensor delta, Tensor? bias, float scale, Tensor(a!) dk, Tensor(b!) dv, "
-    "int n_keys=-1) -> ()",
+    "int n_keys=-1, Tensor? key_mask=None) -> ()",
     fake=_no_outputs, cuda=_dkdv_cuda,
 )
 _dbias_op = _library.define(
     "flash_attention_bwd_dbias(Tensor q, Tensor k, Tensor v, Tensor lse, Tensor dout, "
-    "Tensor delta, Tensor bias, float scale, Tensor(a!) dbias) -> ()",
+    "Tensor delta, Tensor bias, float scale, Tensor(a!) dbias, Tensor? key_mask=None) -> ()",
     fake=_no_outputs, cuda=_dbias_cuda,
 )
 
@@ -398,19 +450,22 @@ def flash_attention_bwd(
     out: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
     bias_grad: bool = False,
     n_keys: int | None = None,
+    key_mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor | None]:
     """(dq, dk, dv, dbias) of flash attention: [B, N, H, D] each, from
     the forward's o and lse [B*H, N], and, with ``bias_grad``, the bias's
     gradient sum_b dS as fp32 [H, N, N] (else None). On the card ``out``
     may name three bf16 [B, N, H, D] views to write into (the slices of a
-    fused QKV gradient); they are returned. ``n_keys``: as the forward's
-    (not with ``bias_grad``: the dbias kernel takes no key count)."""
+    fused QKV gradient); they are returned. ``n_keys`` and ``key_mask``:
+    as the forward's (``n_keys`` not with ``bias_grad``: the dbias kernel
+    takes no key count)."""
     if bias_grad and bias is None:
         raise ValueError("flash_attention_bwd: bias_grad needs a bias")
     if bias_grad and n_keys is not None:
         raise ValueError("flash_attention_bwd: the dbias kernel takes no n_keys")
     if q.device.type == "cpu":
-        *grads, dbias = flash_attention_bwd_plain(q, k, v, o, lse, do, bias, scale, n_keys)
+        *grads, dbias = flash_attention_bwd_plain(q, k, v, o, lse, do, bias, scale, n_keys,
+                                                  key_mask)
         if out is not None:
             for dst, src in zip(out, grads):
                 dst.copy_(src)
@@ -425,48 +480,50 @@ def flash_attention_bwd(
         out = tuple(torch.empty((b, n, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
     dq, dk, dv = out
     delta = torch.empty((b * h, n), dtype=torch.float32, device=q.device)
-    n_keys = _n_keys("flash_attention_bwd", n_keys, n)
-    _dq_op(q, k, v, o, lse, do, bias, scale, dq, delta, n_keys)
-    _dkdv_op(q, k, v, lse, do, delta, bias, scale, dk, dv, n_keys)
+    n_keys = _n_keys("flash_attention_bwd", n_keys, n, key_mask)
+    _dq_op(q, k, v, o, lse, do, bias, scale, dq, delta, n_keys, key_mask)
+    _dkdv_op(q, k, v, lse, do, delta, bias, scale, dk, dv, n_keys, key_mask)
     dbias = None
     if bias_grad:
         dbias = torch.empty((h, n, n), dtype=torch.float32, device=q.device)
-        _dbias_op(q, k, v, lse, do, delta, bias, scale, dbias)
+        _dbias_op(q, k, v, lse, do, delta, bias, scale, dbias, key_mask)
     return (*out, dbias)
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, bias, scale):
-        o, lse = flash_attention_fwd(q, k, v, bias, scale)
-        ctx.save_for_backward(q, k, v, o, lse, bias)
+    def forward(ctx, q, k, v, bias, scale, key_mask):
+        o, lse = flash_attention_fwd(q, k, v, bias, scale, key_mask=key_mask)
+        ctx.save_for_backward(q, k, v, o, lse, bias, key_mask)
         ctx.scale = scale
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse, bias = ctx.saved_tensors
+        q, k, v, o, lse, bias, key_mask = ctx.saved_tensors
         return (*flash_attention_bwd(q, k, v, o, lse, do.contiguous(), bias, ctx.scale,
-                                     bias_grad=ctx.needs_input_grad[3]), None)
+                                     bias_grad=ctx.needs_input_grad[3], key_mask=key_mask),
+                None, None)
 
 
 class _FlashAttentionQKV(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, qkv, heads, scale, bias):
-        o, lse = flash_attention_fwd(*split_qkv(qkv, heads), bias, scale)
-        ctx.save_for_backward(qkv, o, lse, bias)
+    def forward(ctx, qkv, heads, scale, bias, key_mask):
+        o, lse = flash_attention_fwd(*split_qkv(qkv, heads), bias, scale, key_mask=key_mask)
+        ctx.save_for_backward(qkv, o, lse, bias, key_mask)
         ctx.heads, ctx.scale = heads, scale
         return o
 
     @staticmethod
     def backward(ctx, do):
-        qkv, o, lse, bias = ctx.saved_tensors
+        qkv, o, lse, bias, key_mask = ctx.saved_tensors
         dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
         *_, dbias = flash_attention_bwd(
             *split_qkv(qkv, ctx.heads), o, lse, do.contiguous(), bias, ctx.scale,
             out=tuple(split_qkv(dqkv, ctx.heads)), bias_grad=ctx.needs_input_grad[3],
+            key_mask=key_mask,
         )
-        return dqkv, None, None, dbias
+        return dqkv, None, None, dbias, None
 
 
 def flash_attention(
@@ -475,11 +532,13 @@ def flash_attention(
     v: torch.Tensor,
     bias: torch.Tensor | None = None,
     scale: float | None = None,
+    key_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Fused attention; [B, N, H, D] in and out, optional additive bias
-    [H, N, N] shared by the batch. Differentiable in q, k, v and the
-    bias."""
-    return _FlashAttention.apply(q, k, v, bias, _scale(q, scale))
+    [H, N, N] shared by the batch, optional ``key_mask`` [rows, N] (row
+    b % rows for batch b) dropping the keys it holds False for.
+    Differentiable in q, k, v and the bias."""
+    return _FlashAttention.apply(q, k, v, bias, _scale(q, scale), key_mask)
 
 
 def flash_attention_qkv(
@@ -487,11 +546,12 @@ def flash_attention_qkv(
     heads: int,
     scale: float | None = None,
     bias: torch.Tensor | None = None,
+    key_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Differentiable flash attention from the fused projection
     [B, N, 3*H*D] (rows [q | k | v]) to the context [B, N, H, D];
     optional additive bias [H, N, N] shared by the batch, differentiable
-    too."""
+    too; optional ``key_mask`` [rows, N] as ``flash_attention``'s."""
     if scale is None:
         scale = 1.0 / math.sqrt(qkv.shape[-1] // (3 * heads))
-    return _FlashAttentionQKV.apply(qkv, heads, scale, bias)
+    return _FlashAttentionQKV.apply(qkv, heads, scale, bias, key_mask)

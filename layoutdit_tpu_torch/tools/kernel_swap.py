@@ -71,8 +71,10 @@ def _plain_short_bwd(q, k, v, o, do, scale=None, out=None, key_mask=None, lse=No
     return out
 
 
-def _plain_flash_bwd(q, k, v, o, lse, do, bias=None, scale=None, out=None, bias_grad=False):
-    *grads, dbias = flash_mod.flash_attention_bwd_plain(q, k, v, o, lse, do, bias, scale)
+def _plain_flash_bwd(q, k, v, o, lse, do, bias=None, scale=None, out=None, bias_grad=False,
+                     n_keys=None, key_mask=None):
+    *grads, dbias = flash_mod.flash_attention_bwd_plain(q, k, v, o, lse, do, bias, scale,
+                                                        n_keys, key_mask)
     if out is not None:
         for dst, src in zip(out, grads):
             dst.copy_(src)

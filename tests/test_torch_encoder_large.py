@@ -348,15 +348,17 @@ def test_pad_tokens_to_matches_jax(rng, rel_pos):
 
 
 def test_pad_tokens_to_with_a_bias_on_the_card_raises():
-    """With a bias the padding needs the flash kernels' key mask, which
-    they do not take: off the CPU it raises, naming the queue entry."""
+    """With a bias, or over more than 256 tokens, the padding's key mask
+    goes to the flash kernels, which take it: off the CPU a masked call
+    reaches the flash kernel wrapper, never a plain version, and on a
+    device that is not CUDA that wrapper refuses it."""
     qkv = torch.empty(2, 256, 3 * 64, device="meta")
     mask = torch.ones(1, 256, dtype=torch.bool, device="meta")
     bias = torch.empty(4, 256, 256, device="meta")
-    with pytest.raises(NotImplementedError, match="rows 3-6 take no key mask"):
+    with pytest.raises(ValueError, match="flash_attention: unsupported device meta"):
         port_vit.attention_core(qkv, 4, key_mask=mask, bias=bias)
     long_qkv = torch.empty(1, 300, 3 * 64, device="meta")
-    with pytest.raises(NotImplementedError, match="rows 3-6 take no key mask"):
+    with pytest.raises(ValueError, match="flash_attention: unsupported device meta"):
         port_vit.attention_core(long_qkv, 4, key_mask=torch.ones(1, 300, dtype=torch.bool,
                                                                    device="meta"))
 

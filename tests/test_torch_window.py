@@ -154,16 +154,15 @@ def test_window_covering_the_grid_changes_nothing(rng, ws):
 
 def test_padded_window_grid_on_the_card_raises():
     """A padded window grid off the CPU never reaches a plain version:
-    without a bias it goes to the short kernels, which take the key mask
-    (on a device that is not CUDA their wrapper refuses it); with a
-    relative-position bias it needs the flash kernels' key mask, which
-    they do not take, and raises."""
+    without a bias it goes to the short kernels, with a relative-position
+    bias to the flash kernels, both of which take the key mask; on a
+    device that is not CUDA the kernel wrapper it reaches refuses it."""
     qkv = torch.empty(2, 9, 3 * 64, device="meta")
     mask = torch.ones(1, 9, dtype=torch.bool, device="meta")
     with pytest.raises(ValueError, match="short_attention: unsupported device meta"):
         port_vit.attention_core(qkv, 4, key_mask=mask)
     bias = torch.empty(4, 9, 9, device="meta")
-    with pytest.raises(NotImplementedError, match="rows 3-6 take no key mask"):
+    with pytest.raises(ValueError, match="flash_attention: unsupported device meta"):
         port_vit.attention_core(qkv, 4, key_mask=mask, bias=bias)
 
 
