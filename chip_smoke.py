@@ -30,7 +30,17 @@ code (``--exported-child``) and held to the live engine's detections,
 16 concurrent JPEG requests and a corrupt page over HTTP, the predict
 tool with planned buckets, and the native JPEG decode against PIL
 (phase ``deploy``; ``--only deploy`` runs that phase alone after the
-build, without the last lines), then trains the port's default config (dit-base, 224 px, batch 16) with
+build, without the last lines), then serves the same model in float32
+(``precision.compute_dtype`` "float32" in the config's raw dict) in
+both buckets beside the bf16 engine of the same weights, holds its
+detections to a float32 control whose wrappers are all plain versions
+(every page the same count, scores and boxes within 1e-4 of max |ref|)
+and scores 8 fixture pages in float32, the float32 forms of rows 1, 3
+and 7 launched and no plain version (phase ``serve_f32``; its kernel
+cases, each float32 form against its plain version at the serving
+shapes and the main paths' others beside SDPA with fp32 inputs, run
+alone on the card after phase ``flash_masked``; ``--only serve_f32`` runs
+both after the build), then trains the port's default config (dit-base, 224 px, batch 16) with
 ``Trainer`` over synthetic pages: one epoch, then steps on a repeated
 batch whose loss must fall, and the encoder's gradients against a
 float32 CPU reference (phase ``train``); trains the same config with
@@ -156,14 +166,15 @@ gloo ranks sharing the card (``--model-parallel-child``), against one
 process and a float32 control.
 
 The phases above are described one by one; they run in this order: the
-build, phases ``kernels``, ``kernels_bwd``, ``flash_masked`` and ``probes``, and the timed
+build, phases ``kernels``, ``kernels_bwd``, ``flash_masked``, the kernel cases of
+``serve_f32`` and ``probes``, and the timed
 kernel cases of phases ``encoder``, ``families`` and ``detr`` (phase
 ``kernels_large``) alone on the card; then the recipes (phase
 ``recipes`` and phase ``convergence``'s, ``--recipe-child``) and a
 second process (``--lane-child``: phases ``io``, ``families``,
 ``one_stage``, ``detr``, ``finetune``, ``resnet`` and ``moe``, one after
 another) start, and the main process runs ``serving``, ``deploy``,
-``train``, ``train_state``, ``train_1024``, ``train_1024_relpos``,
+``serve_f32``, ``train``, ``train_state``, ``train_1024``, ``train_1024_relpos``,
 ``train_1024_w14``, ``encoder``, ``main`` and ``parallel`` beside them; ``model_parallel``
 runs last, alone. The times of the phases that overlap are taken with
 the others running beside them. It
@@ -248,9 +259,9 @@ TRAIN_WARMUP = 2
 TRAIN_MIN_DROP = 0.10
 
 
-def _bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def _bound_ms(nbytes: float, flops: float, peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -311,10 +322,10 @@ def _print_share(label: str, ms: float, bound: float, by: str) -> None:
           f"share of the bound {bound / ms:.4f}")
 
 
-def _qkv(gen, b, n, h, d):
+def _qkv(gen, b, n, h, d, dtype=torch.bfloat16):
     """q, k, v as the encoder makes them: strided views of one fused
-    [B, N, 3*H*D] bf16 projection."""
-    qkv = torch.randn(b, n, 3 * h * d, generator=gen, device="cuda").to(torch.bfloat16)
+    [B, N, 3*H*D] projection in ``dtype``."""
+    qkv = torch.randn(b, n, 3 * h * d, generator=gen, device="cuda").to(dtype)
     hd = h * d
     return [qkv[..., i * hd:(i + 1) * hd].view(b, n, h, d) for i in range(3)]
 
@@ -497,13 +508,14 @@ def phase_flash(gen) -> dict:
     return entry
 
 
-def _roi_inputs(gen, image: int, b=4, k=512, c=256):
+def _roi_inputs(gen, image: int, b=4, k=512, c=256, dtype=torch.bfloat16):
     """A pyramid of the serving path's shapes in the detector's own layout
     (p2..p5 channels-last, the fifth level the strided view
-    p5[..., ::2, ::2], as the FPN makes it) and 512 RoIs per image with
-    log-uniform sizes (all levels used), a fifth of them masked."""
+    p5[..., ::2, ::2], as the FPN makes it), in ``dtype``, and 512 RoIs
+    per image with log-uniform sizes (all levels used), a fifth of them
+    masked."""
     g = image // 16
-    feats = [torch.randn(b, c, s, s, generator=gen, device="cuda").to(torch.bfloat16)
+    feats = [torch.randn(b, c, s, s, generator=gen, device="cuda").to(dtype)
              .contiguous(memory_format=torch.channels_last) for s in (4 * g, 2 * g, g, g // 2)]
     feats.append(feats[-1][..., ::2, ::2])
     u = lambda *shape: torch.rand(*shape, generator=gen, device="cuda")  # noqa: E731
@@ -1437,6 +1449,13 @@ def _counters():
     }
 
 
+# the float32 forms of rows 1, 3 and 7 (float32 serving), a part of their
+# kernels' launches, each with an entry of its own in the kernels line
+F32 = {"short_attention_f32": "short_attention",
+       "flash_attention_f32": "flash_attention",
+       "roi_align_f32": "roi_align"}
+
+
 # the attention kernels' launches with a key mask (padded window slots,
 # pad_tokens_to's padding), a part of their launches; the flash kernels'
 # masked forms have entries of their own in the kernels line
@@ -1451,7 +1470,8 @@ MASKED = {"short_attention_masked": "short_attention",
 def _counts() -> dict:
     counters = _counters()
     return {**{name: fn.launches for name, fn in counters.items()},
-            **{name: counters[of].masked_launches for name, of in MASKED.items()}}
+            **{name: counters[of].masked_launches for name, of in MASKED.items()},
+            **{name: counters[of].f32_launches for name, of in F32.items()}}
 
 
 def _reset_counts() -> None:
@@ -1461,6 +1481,8 @@ def _reset_counts() -> None:
         fn.launches = 0
     for of in MASKED.values():
         _counters()[of].masked_launches = 0
+    for of in F32.values():
+        _counters()[of].f32_launches = 0
     nms.nms_mask.host_syncs = 0
 
 
@@ -3165,6 +3187,17 @@ def _print_stages(label: str, r: dict) -> dict:
     return out
 
 
+def _serving_pages() -> tuple[list, list]:
+    """The serving phases' pages, from seed 0: eight small pages for the
+    224 px bucket and four large ones for the 1024 px bucket."""
+    rng = np.random.default_rng(0)
+    small = [rng.integers(0, 256, (200 + 3 * i, 160 + 2 * i, 3), dtype=np.uint8)
+             for i in range(8)]
+    large = [rng.integers(0, 256, (1000 - 5 * i, 770 + 4 * i, 3), dtype=np.uint8)
+             for i in range(4)]
+    return small, large
+
+
 def phase_serving(kernels: list[dict]) -> dict:
     from layoutdit_tpu_torch.config import load_config
     from layoutdit_tpu_torch.eval.serving import BatchInferenceEngine
@@ -3185,11 +3218,7 @@ def phase_serving(kernels: list[dict]) -> dict:
           f"{cfg.backbone.vit.num_hidden_layers} layers, buckets {engine.image_sizes}, "
           f"batch {engine.batch_size}, post-NMS {cfg.budget.rpn_post_nms_top_n_test}")
 
-    rng = np.random.default_rng(0)
-    small = [rng.integers(0, 256, (200 + 3 * i, 160 + 2 * i, 3), dtype=np.uint8)
-             for i in range(8)]
-    large = [rng.integers(0, 256, (1000 - 5 * i, 770 + 4 * i, 3), dtype=np.uint8)
-             for i in range(4)]
+    small, large = _serving_pages()
     requests = [("224 px bucket", small), ("1024 px bucket", large),
                 ("both buckets", small[:4] + large[:2])]
 
@@ -7006,6 +7035,352 @@ def _check_tap(i: int, got: torch.Tensor, want: torch.Tensor, failed: list) -> f
     return ratio
 
 
+# float32 serving (phase serve_f32): the float32 forms of rows 1, 3 and 7
+# against their plain versions on the same fp32 inputs (the plain versions
+# compute in fp32 too, with cuBLAS in full fp32: TF32 is off in this
+# script): o within F32_O_TOL of max |plain| (the same fp32 math summed in
+# another order, IEEE expf), the lse within F32_LSE_TOL absolute,
+# RoIAlign within F32_ROI_TOL of max |plain| (fp32 sums of the same taps)
+F32_O_TOL = 2e-5
+F32_LSE_TOL = 1e-5
+F32_ROI_TOL = 1e-5
+# the float32 engine's detections against the float32 control
+# (``_float32_plain``) on the same weights and pages: every page the same
+# count, scores and boxes within F32_DET_TOL of max |ref| (``_detections_err``)
+F32_DET_TOL = 1e-4
+F32_ROUNDS = 2  # timed rounds of each bucket's request, float32 and bf16 engines in turn
+F32_SCORE_PAGES = 8
+F32_ITERS = 10  # timed launches of a float32 kernel case
+
+
+def _sdpa_backend(q, k, v, mask) -> str:
+    """The backend SDPA picks for these inputs (``torch._fused_sdp_choice``)."""
+    from torch.nn.attention import SDPBackend
+
+    names = {int(m): name for name, m in SDPBackend.__members__.items()}
+    return names.get(int(torch._fused_sdp_choice(q, k, v, mask, 0.0, False)), "unknown")
+
+
+def _f32_attention_case(label: str, kernel, plain, sdpa_mask, q, k, v, kept: int,
+                        extra_bytes: int, lse_form=None) -> dict:
+    """One float32 attention case: the kernel's o (and lse) against the
+    plain version's, a second launch the same bits, times on the card alone
+    beside the plain version and SDPA with fp32 inputs (its backend
+    printed). The bound: q and o rows once, k and v rows of the kept keys,
+    ``extra_bytes`` (lse, bias, mask), and 4 D flops a kept (query, key)
+    pair, at the fp32 rate."""
+    b, n, h, d = q.shape
+    got = kernel()
+    want = plain()
+    o, lse = got if isinstance(got, tuple) else (got, None)
+    o_ref, lse_ref = want
+    err, tol = _check_close(label, o, o_ref, rel=F32_O_TOL)
+    res = {"max_abs_err": err, "tolerance": tol}
+    if lse_form is not None:  # the training form: o's bits, and the lse
+        o_lse, lse = lse_form()
+        if not torch.equal(o_lse, o):
+            raise RuntimeError(f"{label}: the lse form gave other bits")
+    lse_err = (lse - lse_ref.reshape(lse.shape)).abs().max().item()
+    print(f"  {label} lse: max_abs_err {lse_err:.6g} (tolerance {F32_LSE_TOL})")
+    if not lse_err <= F32_LSE_TOL:
+        raise RuntimeError(f"{label}: lse disagrees with its plain version")
+    res["lse_max_abs_err"] = lse_err
+    again = kernel()
+    if not torch.equal(o, again[0] if isinstance(again, tuple) else again):
+        raise RuntimeError(f"{label}: two launches gave different bits")
+    del got, want, o, o_ref, lse, lse_ref, again
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    backend = _sdpa_backend(qt, kt, vt, sdpa_mask)
+    bound, by = _bound_ms(2 * b * n * h * d * 4 + 2 * kept * h * d * 4 + extra_bytes,
+                          4 * h * n * kept * d, PEAK_FP32_FLOPS)
+    ms = _device_ms(kernel, F32_ITERS)
+    _print_share(f"{label} on the card", ms, bound, by)
+    res.update(ms=ms, call_ms=_time_ms(kernel, F32_ITERS), plain_ms=_time_ms(plain, 2),
+               bound_ms=bound, bound_by=by, bound_share=bound / ms,
+               library_ms=_device_ms(lambda: sdpa(qt, kt, vt, attn_mask=sdpa_mask), F32_ITERS),
+               library_backend=backend)
+    if lse_form is not None:
+        res["lse_form_ms"] = _device_ms(lse_form, F32_ITERS)
+    print(f"  {label}: plain {res['plain_ms']:.6g} ms, SDPA ({backend}) "
+          f"{res['library_ms']:.6g} ms on the card")
+    return res
+
+
+def _short_f32_case(gen, b, n, h=12, d=64, key_mask=None) -> dict:
+    """Row 1's float32 form at one shape (``_f32_attention_case``), the
+    inference form and the training form (o and lse)."""
+    from layoutdit_tpu_torch.ops import short_attention as sa
+
+    q, k, v = _qkv(gen, b, n, h, d, torch.float32)
+    mask_bytes, cols = _mask_work(b, n, key_mask)
+    masked = f", key mask [{key_mask.shape[0]}, {n}]" if key_mask is not None else ""
+    res = _f32_attention_case(
+        f"short_attention fp32 B={b} N={n} H={h} D={d}{masked}",
+        lambda: sa.short_attention(q, k, v, key_mask=key_mask),
+        lambda: sa.short_attention_plain(q, k, v, key_mask=key_mask, return_lse=True),
+        _sdpa_mask(b, key_mask), q, k, v, cols, mask_bytes,
+        lse_form=lambda: sa.short_attention(q, k, v, key_mask=key_mask, return_lse=True))
+    res["shape"] = f"B={b} N={n} H={h} D={d} fp32, q/k/v strided in fused [B, N, 3HD]{masked}"
+    torch.cuda.empty_cache()
+    return res
+
+
+def _flash_f32_case(gen, b, n, h=12, with_bias=False, key_mask=None, n_keys=None) -> dict:
+    """Row 3's float32 form at one shape (``_f32_attention_case``): o and
+    lse; SDPA gets the bias as a float mask (the dropped keys at -inf) or
+    the kept keys as a boolean one."""
+    from layoutdit_tpu_torch.ops import flash_attention as fa
+    from layoutdit_tpu_torch.ops import short_attention as sa
+
+    d = 64
+    q, k, v = _qkv(gen, b, n, h, d, torch.float32)
+    bias = 0.5 * torch.randn(h, n, n, generator=gen, device="cuda") if with_bias else None
+    keep = (sa.key_mask_rows(key_mask, b) if key_mask is not None else
+            (torch.arange(n, device="cuda") < (n_keys or n))[None].expand(b, n))
+    extra = b * h * n * 4 + (0 if key_mask is None else key_mask.numel())
+    mask = None
+    if with_bias:
+        extra += h * n * int(keep.any(0).sum()) * 4
+        mask = torch.where(keep[:, None, None, :], bias[None], float("-inf"))
+    elif key_mask is not None or n_keys is not None:
+        mask = keep[:, None, None, :]
+    what = ((f", fp32 bias [{h}, {n}, {n}]" if with_bias else ", no bias")
+            + (f", key mask [{key_mask.shape[0]}, {n}]" if key_mask is not None else "")
+            + (f", n_keys {n_keys}" if n_keys else ""))
+    res = _f32_attention_case(
+        f"flash_attention fp32 B={b} N={n} H={h}{what}",
+        lambda: fa.flash_attention_fwd(q, k, v, bias, None, n_keys, key_mask),
+        lambda: fa.flash_attention_plain(q, k, v, bias, None, n_keys, key_mask),
+        mask, q, k, v, int(keep.sum()), extra)
+    res["shape"] = f"B={b} N={n} H={h} D={d} fp32, q/k/v strided in fused [B, N, 3HD]{what}"
+    del q, k, v, bias, mask
+    torch.cuda.empty_cache()
+    return res
+
+
+def _roi_f32_case(gen, image: int, b: int, k: int, p: int = 7, c: int = 256) -> dict:
+    """Row 7's float32 form on an fp32 pyramid in the detector's layout,
+    against its plain version, timed on the card alone beside it."""
+    from layoutdit_tpu_torch.ops import roi_align as ra
+
+    feats, rois, mask = _roi_inputs(gen, image, b=b, k=k, c=c, dtype=torch.float32)
+    levels = ra.roi_levels(rois, 5, float(image), roi_mask=mask)
+    label = f"roi_align fp32 {image} px B={b} K={k} C={c} P={p}"
+    kernel = lambda: ra.roi_align_fwd(feats, rois, levels, ROI_SCALES, p, 2)  # noqa: E731
+    plain = lambda: ra.roi_align_plain(feats, rois, levels, ROI_SCALES, p, 2)  # noqa: E731
+    got = kernel()
+    err, tol = _check_close(label, got, plain(), rel=F32_ROI_TOL)
+    if not torch.equal(got, kernel()):
+        raise RuntimeError(f"{label}: two launches gave different bits")
+    nbytes = (_roi_touched_bytes(feats, rois, levels, ROI_SCALES, p, 2) + rois.numel() * 4
+              + b * k * p * p * c * 4)
+    bound, by = _bound_ms(nbytes, b * k * p * p * c * 2 * 2 * 4 * 2, PEAK_FP32_FLOPS)
+    ms = _device_ms(kernel, F32_ITERS)
+    _print_share(f"{label} on the card", ms, bound, by)
+    return {"shape": f"B={b} K={k} C={c} P={p} G=2 pyramid {image} px fp32, channels-last, "
+                     "fifth level a strided view",
+            "max_abs_err": err, "tolerance": tol, "ms": ms, "call_ms": _time_ms(kernel, F32_ITERS),
+            "plain_ms": _time_ms(plain, 2), "bound_ms": bound, "bound_by": by,
+            "bound_share": bound / ms}
+
+
+def _serve_f32_kernels(gen, kernels: list[dict]) -> list[dict]:
+    """The kernel half of phase serve_f32, timed alone on the card (after
+    phase ``flash_masked``): the float32 forms of rows 1, 3 and 7 at the
+    float32 serving path's shapes and the main paths' others, each against
+    its plain version; their entries are added to ``kernels``."""
+    from layoutdit_tpu_torch.models.vit import _window_key_mask
+
+    print("  float32 forms of rows 1, 3 and 7 (TF32 off) against their plain versions")
+    w14 = _window_key_mask(64, 64, 14).cuda()  # [25, 196]: dit-base's 14 x 14 windows
+    short = {"name": "short_attention_f32", "route": "cuda",
+             "source": "layoutdit_tpu_torch/csrc/attention_f32.cuh",
+             "replaces": "layoutdit_tpu/ops/short_attention.py:79",
+             **_short_f32_case(gen, 4, 197)}
+    for key, case in (("d32", dict(b=8, n=197, h=2, d=32)),
+                      ("d128", dict(b=4, n=197, h=6, d=128)),
+                      ("masked", dict(b=100, n=196, h=16, key_mask=w14))):
+        short.update({f"{key}_{k}": v for k, v in _short_f32_case(gen, **case).items()})
+    flash = {"name": "flash_attention_f32", "route": "cuda",
+             "source": "layoutdit_tpu_torch/csrc/attention_f32.cuh",
+             "replaces": "layoutdit_tpu/ops/flash_attention.py:180",
+             "bias_replaces": "layoutdit_tpu/ops/flash_attention.py:64",
+             **_flash_f32_case(gen, 4, 4097)}
+    for key, case in (("w256_bias", dict(b=64, n=256, with_bias=True)),
+                      ("w14", dict(b=100, n=196, with_bias=True, key_mask=w14)),
+                      ("nkeys", dict(b=2, n=2049, h=8, n_keys=1024))):
+        flash.update({f"{key}_{k}": v for k, v in _flash_f32_case(gen, **case).items()})
+    roi = {"name": "roi_align_f32", "route": "cuda",
+           "source": "layoutdit_tpu_torch/csrc/roi_align.cu",
+           "replaces": "layoutdit_tpu/ops/roi_align_pallas.py:49", "library_ms": None,
+           **_roi_f32_case(gen, 1024, 4, 512)}
+    roi.update({f"b224_{k}": v for k, v in _roi_f32_case(gen, 224, 4, 512).items()})
+    roi.update({f"p14_{k}": v for k, v in _roi_f32_case(gen, 224, 4, 100, p=14).items()})
+    kernels += [short, flash, roi]
+    torch.cuda.empty_cache()
+    return [short, flash, roi]
+
+
+@contextlib.contextmanager
+def _plain_spy():
+    """Within the block, calls of the plain versions of rows 1, 3 and 7
+    (which the wrappers make only for CPU tensors) are counted by name."""
+    from layoutdit_tpu_torch.ops import flash_attention as fa
+    from layoutdit_tpu_torch.ops import roi_align as ra
+    from layoutdit_tpu_torch.ops import short_attention as sa
+
+    calls = {}
+    saved = [(mod, name, getattr(mod, name)) for mod, name in (
+        (sa, "short_attention_plain"), (fa, "flash_attention_plain"), (ra, "roi_align_plain"))]
+
+    def spy(name, fn):
+        def counted(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        return counted
+
+    try:
+        for mod, name, fn in saved:
+            setattr(mod, name, spy(name, fn))
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _bucket_requests(engine, requests: dict, rounds: int) -> dict:
+    """Each bucket's request ``rounds`` times -> its latencies (host clock
+    to a synchronize), peak GiB allocated and the last round's results."""
+    out = {}
+    for name, pages in requests.items():
+        lat, peak = [], 0.0
+        for _ in range(rounds):
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            results = engine.predict_pages(pages)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+            peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)
+            _check_pages(pages, results, allow_empty=True)
+        out[name] = {"latency_ms": sorted(t * 1e3 for t in lat),
+                     "pages_per_s": len(pages) / float(np.median(lat)), "peak_gib": peak,
+                     "results": results}
+    return out
+
+
+def phase_serve_f32(kernels: list[dict]) -> dict:
+    """Float32 serving on the card: ``configs/serving_1024.json`` with
+    ``precision.compute_dtype`` "float32" in its raw dict (dit-base Faster
+    R-CNN at full width, random weights from seed 0), served in its 224
+    and 1024 px buckets through ``BatchInferenceEngine``, each bucket's
+    request in rounds, beside the bf16 engine of the same weights on the
+    same pages (latency, pages/s, peak GiB); the float32 engine's
+    detections against the float32 control (``_float32_plain``: every
+    wrapper's plain version, TF32 off) on the same weights and pages; one
+    float32 ``Evaluator.score()`` over F32_SCORE_PAGES fixture pages. The
+    float32 forms of rows 1, 3 and 7 must run (launches > 0) and no plain
+    version may (a spy counts their calls) outside the control."""
+    from layoutdit_tpu_torch.config import run_config_from_dict
+    from layoutdit_tpu_torch.eval.evaluator import Evaluator
+    from layoutdit_tpu_torch.eval.serving import BatchInferenceEngine
+    from layoutdit_tpu_torch.models.detection.detector import (
+        DetectorConfig,
+        DetectorModel,
+        init_detector,
+    )
+
+    raw = json.loads(CONFIG.read_text())
+    raw["precision"] = {"compute_dtype": "float32"}
+    rc = run_config_from_dict(raw)
+    cfg = DetectorConfig.from_model_config(rc.model, precision_dtype=rc.compute_dtype)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_detector(cfg, gen, device="cuda")
+    models = {"float32": DetectorModel(params, cfg),
+              "bfloat16": DetectorModel(params,
+                                        dataclasses.replace(cfg, compute_dtype="bfloat16"))}
+    b = rc.data.batch_size
+    engines = {dt: BatchInferenceEngine(m, image_sizes=(224, 1024), batch_size=b)
+               for dt, m in models.items()}
+    small, large = _serving_pages()
+    requests = {"224 px bucket": small, "1024 px bucket": large}
+    print(f"  dit-base Faster R-CNN in {rc.compute_dtype}, hidden {cfg.backbone.vit.hidden_size}, "
+          f"{cfg.backbone.vit.num_hidden_layers} layers, buckets (224, 1024), batch {b}; the "
+          "bf16 engine of the same weights beside it")
+    for engine in engines.values():  # warm-up, not counted
+        engine.predict_pages(small[:b] + large)
+    torch.cuda.synchronize()
+
+    _reset_counts()
+    served = {}
+    with _plain_spy() as plain_calls:
+        for dt in ("float32", "bfloat16"):
+            served[dt] = _bucket_requests(engines[dt], requests, F32_ROUNDS)
+        f32_counts = {name: _counts()[name] for name in F32}
+        with tempfile.TemporaryDirectory() as tmp:
+            score_rc = dataclasses.replace(_fixture_run(rc, tmp, F32_SCORE_PAGES),
+                                           eval_input="samples")
+            t0 = time.perf_counter()
+            metrics = Evaluator(models["float32"], score_rc).score()
+            score_s = time.perf_counter() - t0
+    counts = _counts()
+    print(f"  launches (float32 and bf16 requests, float32 score()): {counts}")
+    if plain_calls:
+        raise RuntimeError(f"serve_f32: a plain version ran on the card: {plain_calls}")
+    for name in F32:
+        if f32_counts[name] <= 0:
+            raise RuntimeError(f"serve_f32: {name} was not launched by the float32 engine")
+    if metrics is None or not all(np.isfinite(v) for v in metrics.values()):
+        raise RuntimeError(f"serve_f32: score() metrics {metrics}")
+    for k in kernels:
+        k["serve_f32_launches"] = counts[k["name"]]
+
+    t0 = time.perf_counter()
+    with _float32_plain():
+        control = BatchInferenceEngine(models["float32"], image_sizes=(224, 1024), batch_size=b)
+        want = {name: _detections(control.predict_pages(pages))
+                for name, pages in requests.items()}
+    control_s = time.perf_counter() - t0
+    out = {"config": str(CONFIG.relative_to(ROOT)), "compute_dtype": rc.compute_dtype,
+           "rounds": F32_ROUNDS, "control_s": control_s, "buckets": {}}
+    failed = []
+    for name, pages in requests.items():
+        got = _detections(served["float32"][name]["results"])
+        score_err, box_err, differ = _detections_err(got, want[name])
+        dets = sum(len(r["scores"]) for r in got)
+        row = {"pages": len(pages), "detections": dets, "score_err": score_err,
+               "box_err": box_err, "pages_count_differs": differ}
+        for dt in ("float32", "bfloat16"):
+            r = served[dt][name]
+            row[dt] = {key: r[key] for key in ("latency_ms", "pages_per_s", "peak_gib")}
+            print(f"  {name}, {dt}: {len(pages)} pages, latency "
+                  f"{', '.join(f'{t:.2f}' for t in r['latency_ms'])} ms, "
+                  f"{r['pages_per_s']:.2f} pages/s, peak {r['peak_gib']:.3f} GiB")
+        print(f"  {name}: float32 against the float32 control: {dets} detections, scores "
+              f"{score_err:.3e} and boxes {box_err:.3e} of max |ref| (tolerance "
+              f"{F32_DET_TOL}), {differ} pages with another count")
+        if differ or not (score_err <= F32_DET_TOL and box_err <= F32_DET_TOL):
+            failed.append(name)
+        out["buckets"][name] = row
+    if failed:
+        raise RuntimeError(f"serve_f32: the float32 engine disagrees with the float32 control "
+                           f"in {failed}")
+    out.update(score={"pages": F32_SCORE_PAGES, "score_s": score_s,
+                      "metrics": {k: metrics[k] for k in ("mAP", "AP50")}},
+               launches={name: counts[name] for name in (*F32, *SERVING_KERNELS)},
+               f32_request_launches=f32_counts)
+    print(f"  float32 score(): {F32_SCORE_PAGES} pages at {cfg.image_size} px in {score_s:.3f} "
+          f"s, mAP {metrics['mAP']:.4f}; float32 launches (requests) {f32_counts}; the "
+          f"control {control_s:.1f} s")
+    for engine in engines.values():
+        engine.close()
+    del engines, control, models, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # the phases that run in a second process (``--lane-child``), one after
 # another, beside the main process's serving to parallel and the recipes,
 # once the kernels' timed cases are done: each builds its own models and
@@ -7170,6 +7545,8 @@ def main() -> int:
                    "pipeline": lambda: phase_pipeline([], card),
                    "probes": lambda: phase_probes(gen, [phase_roi(gen), phase_roi_bwd(gen)]),
                    "flash_masked": lambda: phase_flash_masked(gen),
+                   "serve_f32": lambda: {"kernels": _serve_f32_kernels(gen, []),
+                                         **phase_serve_f32([])},
                    "train_1024_w14": lambda: phase_train_1024_w14([])}
         for name in only:
             print(f"phase {name}")
@@ -7195,6 +7572,9 @@ def main() -> int:
     kernels += phase_flash_masked(gen)
     torch.cuda.empty_cache()
     mark("flash_masked", t1)
+    # the float32 forms' cases (phase serve_f32's), before the probe path
+    # counts every entry's launches
+    _serve_f32_kernels(gen, kernels)
     print("phase probes")
     kernels += phase_probes(gen, kernels)
     torch.cuda.empty_cache()
@@ -7217,6 +7597,7 @@ def main() -> int:
         main_phases = (
             ("serving", lambda: phase_serving(kernels)),
             ("deploy", lambda: phase_deploy(kernels, gen)),
+            ("serve_f32", lambda: phase_serve_f32(kernels)),
             ("train", lambda: phase_train(kernels)),
             ("train_state", lambda: phase_train_state(kernels, card)),
             ("train_1024", lambda: phase_train_1024(kernels)),
@@ -7245,8 +7626,8 @@ def main() -> int:
             _stop_lane(lane_run)
         if recipes_run is not None:
             _stop_recipes(recipes_run)
-    serving, deploy, train, train_state = (res[k] for k in ("serving", "deploy", "train",
-                                                           "train_state"))
+    serving, deploy, serve_f32, train, train_state = (
+        res[k] for k in ("serving", "deploy", "serve_f32", "train", "train_state"))
     train_1024, train_1024_relpos, train_1024_w14, encoder, main_run, parallel, pipeline = (
         res[k] for k in ("train_1024", "train_1024_relpos", "train_1024_w14", "encoder", "main",
                          "parallel", "pipeline"))
@@ -7262,10 +7643,10 @@ def main() -> int:
     t0 = time.perf_counter()
     model_parallel = phase_model_parallel(kernels, card, gen)
     mark("model_parallel", t0)
-    paths = ("probe", "serving", "deploy", "train", "train_state", "io", "train_1024",
-             "train_1024_relpos", "train_1024_w14", "encoder", "main", "convergence", "families",
-             "one_stage", "detr", "finetune", "resnet", "lora_recipe", "moe", "parallel",
-             "model_parallel", "pipeline")
+    paths = ("probe", "serving", "deploy", "serve_f32", "train", "train_state", "io",
+             "train_1024", "train_1024_relpos", "train_1024_w14", "encoder", "main",
+             "convergence", "families", "one_stage", "detr", "finetune", "resnet", "lora_recipe",
+             "moe", "parallel", "model_parallel", "pipeline")
     for k in kernels:
         k["launches"] = sum(k[f"{path}_launches"] for path in paths)
         if k["launches"] <= 0:
@@ -7273,6 +7654,7 @@ def main() -> int:
 
     print(json.dumps({"serving": serving}))
     print(json.dumps({"deploy": deploy}))
+    print(json.dumps({"serve_f32": serve_f32}))
     print(json.dumps({"train": train}))
     print(json.dumps({"train_state": train_state}))
     print(json.dumps({"io": io}))

@@ -54,6 +54,7 @@
 
 #include <type_traits>
 
+#include "attention_f32.cuh"
 #include "hopper_mma.cuh"
 
 namespace {
@@ -1271,6 +1272,18 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, const void*
       static_cast<const uint8_t*>(mask), mask_rows, static_cast<bf16*>(o),
       static_cast<float*>(lse), B, H, N, nk, s[3], scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The float32 forward (attention_f32.cuh, FFMA): the arguments of
+// flash_attention_fwd with fp32 q, k, v and o (element strides multiples of
+// 4, the data 16-byte aligned). Returns a cudaError_t code.
+int flash_attention_fwd_f32(const void* q, const void* k, const void* v, const void* bias,
+                            const void* mask, void* o, void* lse, int B, int N, int H, int D,
+                            int nk, int mask_rows, const long long* strides, float scale,
+                            void* stream) {
+  if (D != 64) return static_cast<int>(cudaErrorInvalidValue);
+  return attention_f32::forward(q, k, v, bias, mask, mask_rows, o, lse, B, N, H, D, nk, strides,
+                                scale, stream);
 }
 
 // The dq kernel of the backward. q, k, v, o, dout: bf16 [B, N, H, D] with

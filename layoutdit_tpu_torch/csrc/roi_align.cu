@@ -36,6 +36,12 @@
 // constants, so the inner loops unroll and no division or 64-bit multiply
 // is left in them; taps with zero weight are neither loaded nor added.
 //
+// The forward is also instantiated over fp32 levels and output
+// (roi_align_fwd_f32, a float32 compute dtype): the same kernel with 4
+// channels in a lane's 16-byte access (128 a warp), the same fp32 sums, no
+// rounding at the store, twice the bytes. The bf16 instantiation is the
+// same code as before the template.
+//
 // Backward. Replaces layoutdit_tpu/ops/roi_align_pallas.py::_bwd_kernel
 // (via _bwd): dF_l = sum over the RoIs assigned to level l of
 // Wy^T . dout . Wx. The TPU kernel carries an fp32 VMEM accumulator across
@@ -75,7 +81,7 @@ namespace {
 
 constexpr int kMaxLevels = 8;
 constexpr int kVec = 8;              // bf16 channels a lane: one 16-byte access
-constexpr int kChunk = 32 * kVec;    // channels a warp covers
+constexpr int kChunk = 32 * kVec;    // channels a warp covers (the backward's)
 constexpr int kFwdWarps = 4;         // forward: warps a RoI
 constexpr int kStrip = 4;            // backward: pixels of one row a warp owns
 constexpr int kTileY = 4;            // backward: pixel rows of a tile
@@ -85,17 +91,30 @@ constexpr int kBwdThreads = 32 * kBwdWarps;
 
 using bf16 = __nv_bfloat16;
 
-struct Level {
-  const bf16* data;  // [B, C, H, W], channel stride 1, other strides below
+// channels of element type E in one 16-byte access: 8 bf16, 4 fp32
+template <typename E>
+struct Vec {
+  static constexpr int n = 16 / static_cast<int>(sizeof(E));
+};
+
+// a level of element type E (the forward reads bf16 or fp32 levels; the
+// backward bf16 ones)
+template <typename E>
+struct LevelOf {
+  const E* data;  // [B, C, H, W], channel stride 1, other strides below
   long long sb, sy, sx;
   int h, w;
   float scale;
 };
 
-struct Levels {
-  Level l[kMaxLevels];
+template <typename E>
+struct LevelsOf {
+  LevelOf<E> l[kMaxLevels];
   int n;
 };
+
+using Level = LevelOf<bf16>;
+using Levels = LevelsOf<bf16>;
 
 struct GradLevels {
   bf16* data[kMaxLevels];  // dF [B, C, H_l, W_l], channel stride 1
@@ -113,8 +132,9 @@ struct Tap {
 // contraction, to keep the coordinates of build_roi_weights. The single
 // source of the taps: the forward gathers through them, the footprint pass
 // bounds them and the backward's weights sum them.
-template <int P, int G>
-__device__ __forceinline__ Tap compute_taps(const Level& L, const float* box, int axis, int i) {
+template <int P, int G, typename E>
+__device__ __forceinline__ Tap compute_taps(const LevelOf<E>& L, const float* box, int axis,
+                                            int i) {
   const float start = __fmul_rn(box[axis ? 0 : 1], L.scale);
   const float end = __fmul_rn(box[axis ? 2 : 3], L.scale);
   const float extent = fmaxf(__fsub_rn(end, start), 1.f);
@@ -137,7 +157,8 @@ __device__ __forceinline__ Tap compute_taps(const Level& L, const float* box, in
   return t;
 }
 
-__device__ __forceinline__ uint4 load16(const bf16* p) {
+template <typename E>
+__device__ __forceinline__ uint4 load16(const E* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
@@ -159,12 +180,25 @@ __device__ __forceinline__ uint4 pack(const float (&f)[kVec]) {
   return v;
 }
 
+// the fp32 forms: 4 channels in 16 bytes, no rounding
+__device__ __forceinline__ void unpack(const uint4& v, float (&f)[4]) {
+  f[0] = __uint_as_float(v.x);
+  f[1] = __uint_as_float(v.y);
+  f[2] = __uint_as_float(v.z);
+  f[3] = __uint_as_float(v.w);
+}
+
+__device__ __forceinline__ uint4 pack(const float (&f)[4]) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                    __float_as_uint(f[3]));
+}
+
 // The 2G taps of bin row (axis 0) or column (axis 1) p: its G samples'
 // taps (compute_taps) in sample order, a tap on the pixel of an earlier
 // one with a weight folded into that one (its own weight left 0), so each
 // pixel appears once, with the bin's summed weight.
-template <int P, int G>
-__device__ __forceinline__ void bin_taps(const Level& L, const float* box, int axis, int p,
+template <int P, int G, typename E>
+__device__ __forceinline__ void bin_taps(const LevelOf<E>& L, const float* box, int axis, int p,
                                          int (&id)[2 * G], float (&w)[2 * G]) {
 #pragma unroll
   for (int g = 0; g < G; ++g) {
@@ -186,10 +220,13 @@ __device__ __forceinline__ void bin_taps(const Level& L, const float* box, int a
   }
 }
 
-template <int P, int G>
+// E: the levels' and the output's element type, bf16 or fp32 (V channels
+// a lane, 32 V a warp); the sums are fp32 for both
+template <int P, int G, typename E>
 __global__ void __launch_bounds__(32 * kFwdWarps) roi_align_fwd_kernel(
-    Levels levels, const float* __restrict__ rois, const int* __restrict__ roi_level,
-    bf16* __restrict__ out, int K, int C) {
+    LevelsOf<E> levels, const float* __restrict__ rois, const int* __restrict__ roi_level,
+    E* __restrict__ out, int K, int C) {
+  constexpr int V = Vec<E>::n;    // channels a lane
   constexpr int T = 2 * G;        // taps of one bin row or column: 2 a sample
   __shared__ int off[2][P][T];    // [axis][bin row / column][tap]: element offset
   __shared__ float wt[2][P][T];   // its weight summed over the bin's samples; 0 = skip
@@ -198,13 +235,13 @@ __global__ void __launch_bounds__(32 * kFwdWarps) roi_align_fwd_kernel(
   const int lvl = roi_level[r];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  bf16* o = out + static_cast<long long>(r) * (P * P) * C;
+  E* o = out + static_cast<long long>(r) * (P * P) * C;
   if (lvl < 0) {
     uint4* ov = reinterpret_cast<uint4*>(o);
-    for (int i = threadIdx.x; i < P * P * C / kVec; i += blockDim.x) ov[i] = make_uint4(0, 0, 0, 0);
+    for (int i = threadIdx.x; i < P * P * C / V; i += blockDim.x) ov[i] = make_uint4(0, 0, 0, 0);
     return;
   }
-  const Level L = levels.l[lvl];
+  const LevelOf<E> L = levels.l[lvl];
   if (threadIdx.x < 2 * P) {
     const int axis = threadIdx.x >= P;
     const int p = threadIdx.x - axis * P;
@@ -221,7 +258,7 @@ __global__ void __launch_bounds__(32 * kFwdWarps) roi_align_fwd_kernel(
   __syncthreads();
 
   constexpr float norm = 1.f / static_cast<float>(G * G);
-  const bf16* f = L.data + static_cast<long long>(r / K) * L.sb;
+  const E* f = L.data + static_cast<long long>(r / K) * L.sb;
   // each warp takes bin columns px = warp, warp + kFwdWarps, .. with their
   // taps in registers, and walks the bin rows
   for (int px = warp; px < P; px += kFwdWarps) {
@@ -233,37 +270,37 @@ __global__ void __launch_bounds__(32 * kFwdWarps) roi_align_fwd_kernel(
       xw[j] = wt[1][px][j];
     }
     for (int py = 0; py < P; ++py) {
-      bf16* ob = o + (px * P + py) * C;
-      for (int c = lane * kVec; c < C; c += kChunk) {
+      E* ob = o + (px * P + py) * C;
+      for (int c = lane * V; c < C; c += 32 * V) {
         // every weighted tap's load issued before the sums
         uint4 v[T][T];
 #pragma unroll
         for (int i = 0; i < T; ++i) {
-          const bf16* row = f + off[0][py][i] + c;
+          const E* row = f + off[0][py][i] + c;
           const bool yi = wt[0][py][i] != 0.f;
 #pragma unroll
           for (int j = 0; j < T; ++j)
             v[i][j] = yi && xw[j] != 0.f ? load16(row + xo[j]) : make_uint4(0, 0, 0, 0);
         }
-        float acc[kVec] = {};
+        float acc[V] = {};
 #pragma unroll
         for (int i = 0; i < T; ++i) {
           const float wy = wt[0][py][i];
           if (wy == 0.f) continue;
-          float sum[kVec] = {};
+          float sum[V] = {};
 #pragma unroll
           for (int j = 0; j < T; ++j) {
             if (xw[j] == 0.f) continue;
-            float a[kVec];
+            float a[V];
             unpack(v[i][j], a);
 #pragma unroll
-            for (int k = 0; k < kVec; ++k) sum[k] = fmaf(xw[j], a[k], sum[k]);
+            for (int k = 0; k < V; ++k) sum[k] = fmaf(xw[j], a[k], sum[k]);
           }
 #pragma unroll
-          for (int k = 0; k < kVec; ++k) acc[k] = fmaf(wy, sum[k], acc[k]);
+          for (int k = 0; k < V; ++k) acc[k] = fmaf(wy, sum[k], acc[k]);
         }
 #pragma unroll
-        for (int k = 0; k < kVec; ++k) acc[k] *= norm;
+        for (int k = 0; k < V; ++k) acc[k] *= norm;
         *reinterpret_cast<uint4*>(ob + c) = pack(acc);
       }
     }
@@ -461,7 +498,9 @@ __global__ void __launch_bounds__(kBwdThreads) roi_align_bwd_kernel(
   }
 }
 
-int fill_levels(Levels& levels, const int* level_hw, const float* level_scales, int num_levels) {
+template <typename E>
+int fill_levels(LevelsOf<E>& levels, const int* level_hw, const float* level_scales,
+                int num_levels) {
   if (num_levels < 1 || num_levels > kMaxLevels) return 1;
   levels.n = num_levels;
   for (int l = 0; l < num_levels; ++l) {
@@ -476,16 +515,52 @@ int fill_levels(Levels& levels, const int* level_hw, const float* level_scales, 
 bool supported(int P, int G) { return (P == 7 || P == 14) && G == 2; }
 
 // 16-byte accesses: the data aligned, and the batch, row and column strides
-// of dimensions longer than 1 multiples of 8 elements
-bool aligned(const void* data, long long sb, long long sy, long long sx, int b, int h, int w) {
-  return reinterpret_cast<unsigned long long>(data) % 16 == 0 && (b == 1 || sb % kVec == 0) &&
-         (h == 1 || sy % kVec == 0) && (w == 1 || sx % kVec == 0);
+// of dimensions longer than 1 multiples of vec elements (8 bf16, 4 fp32)
+bool aligned(const void* data, long long sb, long long sy, long long sx, int b, int h, int w,
+             int vec = kVec) {
+  return reinterpret_cast<unsigned long long>(data) % 16 == 0 && (b == 1 || sb % vec == 0) &&
+         (h == 1 || sy % vec == 0) && (w == 1 || sx % vec == 0);
 }
 
-template <int P, int G>
-void launch_fwd(const Levels& levels, const float* rois, const int* roi_level, bf16* out, int R,
+template <int P, int G, typename E>
+void launch_fwd(const LevelsOf<E>& levels, const float* rois, const int* roi_level, E* out, int R,
                 int K, int C, cudaStream_t stream) {
-  roi_align_fwd_kernel<P, G><<<R, 32 * kFwdWarps, 0, stream>>>(levels, rois, roi_level, out, K, C);
+  roi_align_fwd_kernel<P, G, E><<<R, 32 * kFwdWarps, 0, stream>>>(levels, rois, roi_level, out,
+                                                                  K, C);
+}
+
+// The forward's host side for levels and output of element type E (the
+// arguments of roi_align_fwd below). Returns a cudaError_t code.
+template <typename E>
+int fwd(const void* const* level_ptrs, const long long* level_strides, const int* level_hw,
+        const float* level_scales, int num_levels, const void* rois, const void* roi_level,
+        void* out, int R, int K, int C, int P, int G, void* stream) {
+  constexpr int V = Vec<E>::n;
+  LevelsOf<E> levels{};
+  if (fill_levels(levels, level_hw, level_scales, num_levels) || R < 0 || K < 1 || R % K ||
+      C < 1 || C % V || !supported(P, G))
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int l = 0; l < num_levels; ++l) {
+    LevelOf<E>& L = levels.l[l];
+    L.data = static_cast<const E*>(level_ptrs[l]);
+    L.sb = level_strides[4 * l + 0];
+    L.sy = level_strides[4 * l + 2];
+    L.sx = level_strides[4 * l + 3];
+    // the taps' offsets within one image's level are 32-bit
+    if (level_strides[4 * l + 1] != 1 || !aligned(L.data, L.sb, L.sy, L.sx, R / K, L.h, L.w, V) ||
+        (L.h - 1) * L.sy + (L.w - 1) * L.sx + C > static_cast<long long>(INT_MAX))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (R == 0) return 0;
+  const auto* r = static_cast<const float*>(rois);
+  const auto* lv = static_cast<const int*>(roi_level);
+  auto* o = static_cast<E*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (P == 7)
+    launch_fwd<7, 2>(levels, r, lv, o, R, K, C, s);
+  else
+    launch_fwd<14, 2>(levels, r, lv, o, R, K, C, s);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int P, int G>
@@ -524,31 +599,19 @@ int roi_align_fwd(const void* const* level_ptrs, const long long* level_strides,
                   const int* level_hw, const float* level_scales, int num_levels,
                   const void* rois, const void* roi_level, void* out, int R, int K, int C,
                   int P, int G, void* stream) {
-  Levels levels{};
-  if (fill_levels(levels, level_hw, level_scales, num_levels) || R < 0 || K < 1 || R % K ||
-      C < 1 || C % kVec || !supported(P, G))
-    return static_cast<int>(cudaErrorInvalidValue);
-  for (int l = 0; l < num_levels; ++l) {
-    Level& L = levels.l[l];
-    L.data = static_cast<const bf16*>(level_ptrs[l]);
-    L.sb = level_strides[4 * l + 0];
-    L.sy = level_strides[4 * l + 2];
-    L.sx = level_strides[4 * l + 3];
-    // the taps' offsets within one image's level are 32-bit
-    if (level_strides[4 * l + 1] != 1 || !aligned(L.data, L.sb, L.sy, L.sx, R / K, L.h, L.w) ||
-        (L.h - 1) * L.sy + (L.w - 1) * L.sx + C > static_cast<long long>(INT_MAX))
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (R == 0) return 0;
-  const auto* r = static_cast<const float*>(rois);
-  const auto* lv = static_cast<const int*>(roi_level);
-  auto* o = static_cast<bf16*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (P == 7)
-    launch_fwd<7, 2>(levels, r, lv, o, R, K, C, s);
-  else
-    launch_fwd<14, 2>(levels, r, lv, o, R, K, C, s);
-  return static_cast<int>(cudaGetLastError());
+  return fwd<bf16>(level_ptrs, level_strides, level_hw, level_scales, num_levels, rois, roi_level,
+                   out, R, K, C, P, G, stream);
+}
+
+// The float32 forward: the arguments of roi_align_fwd with fp32 levels and
+// output, C a multiple of 4 and the level strides (other than the
+// channel's) multiples of 4 elements. Returns a cudaError_t code.
+int roi_align_fwd_f32(const void* const* level_ptrs, const long long* level_strides,
+                      const int* level_hw, const float* level_scales, int num_levels,
+                      const void* rois, const void* roi_level, void* out, int R, int K, int C,
+                      int P, int G, void* stream) {
+  return fwd<float>(level_ptrs, level_strides, level_hw, level_scales, num_levels, rois,
+                    roi_level, out, R, K, C, P, G, stream);
 }
 
 // The backward's first pass alone: taps: int32 [R, 2, P, 2G, 2] scratch,

@@ -120,6 +120,7 @@
 #include <set>
 #include <utility>
 
+#include "attention_f32.cuh"
 #include "hopper_mma.cuh"
 
 namespace {
@@ -1375,6 +1376,17 @@ int short_attention_fwd(const void* q, const void* k, const void* v, void* o, vo
   if (D == 32)
     return launch_fwd_mma<32>(q, k, v, o, lse, mask, mask_rows, B, N, H, s, scale, st);
   return launch_fwd_mma<128>(q, k, v, o, lse, mask, mask_rows, B, N, H, s, scale, st);
+}
+
+// The float32 forward (attention_f32.cuh, FFMA): the arguments of
+// short_attention_fwd with fp32 q, k, v and o (element strides multiples of
+// 4, the data 16-byte aligned). Returns a cudaError_t code.
+int short_attention_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse,
+                            const void* mask, int mask_rows, int B, int N, int H, int D,
+                            const long long* strides, float scale, void* stream) {
+  if (!valid_shape(B, N, H, D, mask, mask_rows)) return static_cast<int>(cudaErrorInvalidValue);
+  return attention_f32::forward(q, k, v, nullptr, mask, mask_rows, o, lse, B, N, H, D, N,
+                                strides, scale, stream);
 }
 
 // The backward: at D = 64 the dq kernel, then the dkdv kernel on the same

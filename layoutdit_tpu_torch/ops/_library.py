@@ -30,6 +30,33 @@ import torch
 NAMESPACE = "layoutdit_torch"
 _LIB = torch.library.Library(NAMESPACE, "FRAGMENT")
 
+# the forward kernels' element types (the backward kernels': bf16), each
+# with its name and its elements in one 16-byte access
+KERNEL_DTYPES = {torch.bfloat16: ("bf16", 8), torch.float32: ("fp32", 4)}
+
+
+def kernel_dtype(t: torch.Tensor) -> torch.dtype:
+    """The type a forward kernel reads ``t`` in: its own where a kernel
+    takes it, else bf16, whose check then refuses ``t``."""
+    return t.dtype if t.dtype in KERNEL_DTYPES else torch.bfloat16
+
+
+# the refusal of the backward kernels' launchers, and of the trainer, on a
+# float32 CUDA tensor: the forward kernels of rows 1, 3 and 7 have float32
+# forms (serving), the backward kernels take bf16 only
+FLOAT32_TRAINING = (
+    "float32 training on the card waits for the fp32 backward kernels (kernel-table rows 2, "
+    "4-6 and 8, PERF.md); on the card float32 serves only: train in bfloat16 there, or in "
+    "float32 on the CPU"
+)
+
+
+def refuse_float32_backward(what: str, *tensors: torch.Tensor) -> None:
+    """Raise ``FLOAT32_TRAINING`` where a backward kernel would be given a
+    float32 tensor of ``tensors``."""
+    if any(t.dtype == torch.float32 for t in tensors):
+        raise ValueError(f"{what}: {FLOAT32_TRAINING}")
+
 
 def define(schema: str, fake: Callable, cuda: Callable | None = None,
            cpu: Callable | None = None) -> torch._ops.OpOverload:

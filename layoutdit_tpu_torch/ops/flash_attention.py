@@ -58,6 +58,15 @@ a call with a mask and ``n_keys`` < N raises (ring attention's blocks
 take no mask, the encoder's masks no ``n_keys``). A mask that keeps every key
 gives the unmasked kernels' bits. The masked kernels' launches are also
 counted apart (``masked_launches``, a part of ``launches``).
+
+Float32 tensors (a float32 compute dtype) take the forward's float32
+form: an FFMA kernel shared with the short forward
+(``csrc/attention_f32.cuh``; D = 64, the bias, key mask, ``n_keys`` and
+lse as in bf16, full fp32 arithmetic), counted apart too
+(``flash_attention_fwd.f32_launches``, a part of its launches). The
+backward kernels take bf16 only: ``flash_attention_bwd`` and its
+launchers refuse a float32 tensor with a message (float32 training on the
+card waits for their fp32 forms).
 """
 
 from __future__ import annotations
@@ -68,7 +77,11 @@ import math
 import torch
 
 from layoutdit_tpu_torch.ops import _build, _library
-from layoutdit_tpu_torch.ops.short_attention import _check_mask, key_mask_rows, split_qkv
+from layoutdit_tpu_torch.ops.short_attention import (
+    _check_mask,
+    key_mask_rows,
+    split_qkv,
+)
 
 HEAD_DIM = 64  # dit-base; the kernels are compiled for this width only
 
@@ -179,8 +192,9 @@ def flash_attention_bwd_plain(
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     if lib.flash_attention_fwd.argtypes is None:
-        lib.flash_attention_fwd.argtypes = _ARGTYPES
-        lib.flash_attention_fwd.restype = ctypes.c_int
+        for fn in (lib.flash_attention_fwd, lib.flash_attention_fwd_f32):
+            fn.argtypes = _ARGTYPES
+            fn.restype = ctypes.c_int
         for fn in (lib.flash_attention_bwd_dq, lib.flash_attention_bwd_dkdv):
             fn.argtypes = _BWD_ARGTYPES
             fn.restype = ctypes.c_int
@@ -192,18 +206,23 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check_rows(what: str, ref: torch.Tensor, **tensors: torch.Tensor) -> None:
-    """bf16 [B, N, H, D] like ``ref`` on its device, rows contiguous and
-    16-byte aligned (as the fused QKV projection's slices are)."""
+    """[B, N, H, D] in ``ref``'s dtype, bf16 or fp32, like ``ref`` on its
+    device, rows contiguous and 16-byte aligned: base and B, N, H strides
+    multiples of 16 bytes, 8 bf16 or 4 fp32 elements (as the fused QKV
+    projection's slices are)."""
     d = ref.shape[-1]
     if d != HEAD_DIM:
         raise ValueError(f"{what}: head dim {d}, the kernels take {HEAD_DIM}")
+    dtype = _library.kernel_dtype(ref)
+    type_name, vec = _library.KERNEL_DTYPES[dtype]
     for name, t in tensors.items():
-        if t.shape != ref.shape or t.dtype != torch.bfloat16 or t.device != ref.device:
+        if t.shape != ref.shape or t.dtype != dtype or t.device != ref.device:
             raise ValueError(
-                f"{what}: {name} must be bf16 {tuple(ref.shape)} on "
-                f"{ref.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+                f"{what}: {name} must be {type_name} {tuple(ref.shape)} on "
+                f"{ref.device} (the kernels take bf16 or fp32, all alike), got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}"
             )
-        if t.stride(3) != 1 or t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+        if t.stride(3) != 1 or t.data_ptr() % 16 or any(s % vec for s in t.stride()[:3]):
             raise ValueError(f"{what}: {name} rows must be contiguous and 16-byte aligned")
 
 
@@ -241,8 +260,9 @@ def _strides(*tensors: torch.Tensor):
 def flash_attention_fwd_launch(q, k, v, bias, scale, o, lse, n_keys: int = -1,
                                key_mask: torch.Tensor | None = None) -> None:
     """Launch the forward kernel of ``flash_attention_fwd``: writes o
-    (bf16 [B, N, H, D]) and lse (fp32 [B*H, N]). q, k, v and o bf16 rows
-    that TMA can read (as ``flash_attention_bwd`` checks them); bias fp32
+    ([B, N, H, D] in q's dtype) and lse (fp32 [B*H, N]). q, k, v and o
+    bf16 rows that TMA can read (as ``flash_attention_bwd`` checks them),
+    or fp32 rows as aligned (the float32 form); bias fp32
     [H, N, N] contiguous or None; ``n_keys`` the valid keys (-1: N);
     ``key_mask`` a contiguous bool or uint8 [rows, N] on q's device, or
     None. The direct launch: it counts nothing (the operator
@@ -255,7 +275,8 @@ def flash_attention_fwd_launch(q, k, v, bias, scale, o, lse, n_keys: int = -1,
     _check_square("flash_attention", q, bias=bias)
     mask, rows = _check_mask("flash_attention", q, key_mask)
     lib = _lib()
-    code = lib.flash_attention_fwd(
+    fwd = lib.flash_attention_fwd_f32 if q.dtype == torch.float32 else lib.flash_attention_fwd
+    code = fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
         mask, o.data_ptr(), lse.data_ptr(), b, n, h, d, n_keys, rows, _strides(q, k, v, o),
         float(scale), _build.stream_ptr(q),
@@ -275,6 +296,7 @@ def _fwd_cuda(q, k, v, bias, scale, n_keys=-1, key_mask=None):
     lse = torch.empty((b * h, n), dtype=torch.float32, device=q.device)
     flash_attention_fwd_launch(q, k, v, bias, scale, o, lse, n_keys, key_mask)
     _count(flash_attention_fwd, key_mask)
+    flash_attention_fwd.f32_launches += q.dtype == torch.float32
     return o, lse
 
 
@@ -299,8 +321,8 @@ def flash_attention_fwd(
     n_keys: int | None = None,
     key_mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """-> (o [B, N, H, D], lse [B*H, N] fp32). bf16 q/k/v on the card
-    (rows 16-byte aligned, as the fused QKV projection's slices are),
+    """-> (o [B, N, H, D], lse [B*H, N] fp32). bf16 or fp32 q/k/v on the
+    card (rows 16-byte aligned, as the fused QKV projection's slices are),
     through the operator ``layoutdit_torch::flash_attention_fwd``; any
     float type on the CPU. Keys at index >= ``n_keys`` (default N) and
     those ``key_mask`` [rows, N] holds False for are masked. Not
@@ -314,9 +336,11 @@ def flash_attention_fwd(
                    _n_keys("flash_attention", n_keys, q.shape[1], key_mask), key_mask)
 
 
-# launches of the kernel, and of them those of its masked form
+# launches of the kernel, and of them those of its masked form and those
+# of its float32 form
 flash_attention_fwd.launches = 0
 flash_attention_fwd.masked_launches = 0
+flash_attention_fwd.f32_launches = 0
 
 
 def flash_attention_bwd_dq(q, k, v, o, lse, do, bias, scale, dq, delta, n_keys=-1,
@@ -327,6 +351,7 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, bias, scale, dq, delta, n_keys=-
     ``flash_attention_bwd`` checks them; bias fp32 [H, N, N] or None;
     ``n_keys`` the valid keys (-1: N); ``key_mask`` as the forward's."""
     b, n, h, d = q.shape
+    _library.refuse_float32_backward("flash_attention_bwd", q)
     n_keys = _n_keys("flash_attention_bwd", None if n_keys < 0 else n_keys, n, key_mask)
     _check_rows("flash_attention_bwd", q, q=q, k=k, v=v, o=o, do=do, dq=dq)
     _check_lse("flash_attention_bwd", lse, q, "lse")
@@ -353,6 +378,7 @@ def flash_attention_bwd_dkdv(q, k, v, lse, do, delta, bias, scale, dk, dv,
     kernel (it reads that kernel's delta): writes dk and dv (0 for keys
     at index >= ``n_keys`` and those ``key_mask`` drops)."""
     b, n, h, d = q.shape
+    _library.refuse_float32_backward("flash_attention_bwd", q)
     n_keys = _n_keys("flash_attention_bwd", None if n_keys < 0 else n_keys, n, key_mask)
     _check_rows("flash_attention_bwd", q, q=q, k=k, v=v, do=do, dk=dk, dv=dv)
     _check_lse("flash_attention_bwd", lse, q, "lse")
@@ -380,6 +406,7 @@ def flash_attention_bwd_dbias(q, k, v, lse, do, delta, bias, scale, dbias,
     ``dbias``, contiguous fp32 [H, N, N]; bias fp32 [H, N, N];
     ``key_mask`` as the forward's."""
     b, n, h, d = q.shape
+    _library.refuse_float32_backward("flash_attention_bwd", q)
     _check_rows("flash_attention_bwd", q, q=q, k=k, v=v, do=do)
     _check_lse("flash_attention_bwd", lse, q, "lse")
     _check_lse("flash_attention_bwd", delta, q, "delta")
@@ -458,7 +485,8 @@ def flash_attention_bwd(
     may name three bf16 [B, N, H, D] views to write into (the slices of a
     fused QKV gradient); they are returned. ``n_keys`` and ``key_mask``:
     as the forward's (``n_keys`` not with ``bias_grad``: the dbias kernel
-    takes no key count)."""
+    takes no key count). The kernels take bf16 only: a float32 CUDA
+    tensor raises ``_library.FLOAT32_TRAINING``."""
     if bias_grad and bias is None:
         raise ValueError("flash_attention_bwd: bias_grad needs a bias")
     if bias_grad and n_keys is not None:

@@ -27,7 +27,12 @@ any batch, row and column strides that keep 16-byte alignment, so the
 fifth level's strided view ``x[..., ::2, ::2]`` needs no copy either. A
 CUDA feature with another channel stride raises. They are built for
 (output_size, sampling_ratio) (7, 2), the box head, and (14, 2), a mask
-head; another pair raises.
+head; another pair raises. The forward also takes fp32 levels (a float32
+compute dtype), the same kernel instantiated over fp32 (4 channels in a
+lane's 16-byte load, C and the strides multiples of 4), counted apart
+too (``roi_align_fwd.f32_launches``, a part of its launches); the
+backward takes bf16 only and refuses fp32 with a message (float32
+training on the card waits for its fp32 kernels).
 
 Tolerance between the two on bf16 features: both accumulate in fp32 and
 round once to bf16, so they differ by at most one bf16 rounding of the
@@ -106,6 +111,15 @@ def roi_levels(
     return lvl
 
 
+def _bin_size(extent: torch.Tensor, p: int) -> torch.Tensor:
+    """extent / p, the true quotient on every device. A CUDA tensor
+    divided by a Python number is multiplied by its reciprocal, often one
+    rounding away from the quotient, which moves a bilinear weight
+    by an ulp of the sample's coordinate (3e-5 at a 1024 px page's
+    256-pixel level); the CPU, the JAX package and the kernels divide."""
+    return extent / torch.full_like(extent, float(p))
+
+
 def _bilinear_weight_matrix(coords: torch.Tensor, size: int) -> torch.Tensor:
     """[..., S] sample coords -> [..., S, size] bilinear row weights
     (torchvision bilinear_interpolate: samples outside [-1, size] give 0,
@@ -146,8 +160,8 @@ def build_roi_weights(
 
     idx = torch.arange(p * g, dtype=torch.float32, device=r.device)
     grid = torch.div(idx, g, rounding_mode="floor") + (idx % g + 0.5) / g
-    ys = start_h[:, None] + grid[None, :] * (roi_h / p)[:, None]
-    xs = start_w[:, None] + grid[None, :] * (roi_w / p)[:, None]
+    ys = start_h[:, None] + grid[None, :] * _bin_size(roi_h, p)[:, None]
+    xs = start_w[:, None] + grid[None, :] * _bin_size(roi_w, p)[:, None]
     n = r.shape[0]
     wy = _bilinear_weight_matrix(ys, h).reshape(n, p, g, h).mean(dim=2)
     wx = _bilinear_weight_matrix(xs, w).reshape(n, p, g, w).mean(dim=2)
@@ -184,7 +198,7 @@ def roi_footprints(
         size = hw[:, axis, None]
         start = r[:, a0] * scale
         extent = (r[:, a1] * scale - start).clamp(min=1.0)
-        c = start[:, None] + grid[None, :] * (extent / p)[:, None]
+        c = start[:, None] + grid[None, :] * _bin_size(extent, p)[:, None]
         in_range = (c >= -1.0) & (c <= size)
         c = c.clamp(min=0.0)
         low = torch.floor(c)
@@ -259,7 +273,7 @@ def roi_align_bwd_plain(
 def _lib() -> ctypes.CDLL:
     lib = _build.load("roi_align")
     if lib.roi_align_fwd.argtypes is None:
-        for fn, args in ((lib.roi_align_fwd, _ARGTYPES),
+        for fn, args in ((lib.roi_align_fwd, _ARGTYPES), (lib.roi_align_fwd_f32, _ARGTYPES),
                          (lib.roi_align_footprints, _FOOTPRINT_ARGTYPES),
                          (lib.roi_align_bwd, _BWD_ARGTYPES)):
             fn.argtypes = args
@@ -276,23 +290,27 @@ def _check_sizes(what: str, output_size: int, sampling_ratio: int) -> None:
         )
 
 
-def _check_level(what: str, t: torch.Tensor, b: int, c: int, device: torch.device) -> None:
-    """A CUDA level as the kernels read or write it: bf16 [B, C, H, W] on
-    ``device``, channel stride 1, 16-byte aligned (C and the strides of
-    the other dimensions longer than 1 multiples of 8)."""
-    if t.dtype != torch.bfloat16 or t.device != device or t.shape[:2] != (b, c):
-        raise ValueError(f"{what}: levels must be bf16 [{b}, {c}, H, W] on {device}, "
-                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+def _check_level(what: str, t: torch.Tensor, b: int, c: int, device: torch.device,
+                 dtype: torch.dtype = torch.bfloat16) -> None:
+    """A CUDA level as the kernels read or write it: [B, C, H, W] in
+    ``dtype`` (bf16, or fp32 for the forward) on ``device``, channel
+    stride 1, 16-byte aligned (C and the strides of the other dimensions
+    longer than 1 multiples of 8 bf16 or 4 fp32 elements)."""
+    name, vec = _library.KERNEL_DTYPES[dtype]
+    if t.dtype != dtype or t.device != device or t.shape[:2] != (b, c):
+        raise ValueError(f"{what}: levels must be {name} [{b}, {c}, H, W] on {device} (all "
+                         f"alike; the forward takes bf16 or fp32, the backward bf16), got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
     if t.stride(1) != 1:
         raise ValueError(
             f"{what}: a CUDA level must be channels-last (channel stride 1), got strides "
             f"{t.stride()}; the detector's FPN writes its levels so, and the kernels do not copy"
         )
-    if c % 8 or t.data_ptr() % 16 or any(
-        t.shape[d] > 1 and t.stride(d) % 8 for d in (0, 2, 3)
+    if c % vec or t.data_ptr() % 16 or any(
+        t.shape[d] > 1 and t.stride(d) % vec for d in (0, 2, 3)
     ):
         raise ValueError(f"{what}: a CUDA level must be 16-byte aligned (C and its strides "
-                         f"multiples of 8), got C={c}, strides {t.stride()}")
+                         f"multiples of {vec}), got C={c}, strides {t.stride()}")
 
 
 def _geometry(features: list[torch.Tensor], spatial_scales: list[float]):
@@ -309,24 +327,27 @@ def roi_align_launch(
     output_size: int = 7,
     sampling_ratio: int = 2,
 ) -> torch.Tensor:
-    """The direct launch of the forward kernel on CUDA tensors: checks,
-    allocates the pooled [B, K, Px, Py, C], launches; counts nothing (the
+    """The direct launch of the forward kernel on CUDA tensors (bf16
+    levels, or fp32: the float32 form): checks, allocates the pooled
+    [B, K, Px, Py, C] in the levels' dtype, launches; counts nothing (the
     operator ``layoutdit_torch::roi_align_fwd`` counts on
     ``roi_align_fwd``)."""
     _check_sizes("roi_align", output_size, sampling_ratio)
     b, k = rois.shape[:2]
     c = features[0].shape[1]
     p = output_size
+    dtype = _library.kernel_dtype(features[0])
     for f in features:
-        _check_level("roi_align", f, b, c, rois.device)
+        _check_level("roi_align", f, b, c, rois.device, dtype)
     hw, scales, n = _geometry(features, spatial_scales)
     ptrs = (ctypes.c_void_p * n)(*[f.data_ptr() for f in features])
     strides = (ctypes.c_longlong * (4 * n))(*[s for f in features for s in f.stride()])
     rois_c = rois.float().contiguous()
     levels_c = levels.to(torch.int32).contiguous()
-    out = torch.empty((b, k, p, p, c), dtype=torch.bfloat16, device=rois.device)
+    out = torch.empty((b, k, p, p, c), dtype=dtype, device=rois.device)
     lib = _lib()
-    code = lib.roi_align_fwd(
+    fwd = lib.roi_align_fwd_f32 if dtype == torch.float32 else lib.roi_align_fwd
+    code = fwd(
         ptrs, strides, hw, scales, n, rois_c.data_ptr(), levels_c.data_ptr(),
         out.data_ptr(), b * k, k, c, p, sampling_ratio, _build.stream_ptr(rois),
     )
@@ -337,13 +358,14 @@ def roi_align_launch(
 def _fwd_cuda(features, rois, levels, spatial_scales, output_size, sampling_ratio):
     out = roi_align_launch(features, rois, levels, spatial_scales, output_size, sampling_ratio)
     roi_align_fwd.launches += 1
+    roi_align_fwd.f32_launches += out.dtype == torch.float32
     return out
 
 
 def _fwd_fake(features, rois, levels, spatial_scales, output_size, sampling_ratio):
     b, k = rois.shape[:2]
     p, c = output_size, features[0].shape[1]
-    return rois.new_empty((b, k, p, p, c), dtype=torch.bfloat16)
+    return rois.new_empty((b, k, p, p, c), dtype=features[0].dtype)
 
 
 _fwd_op = _library.define(
@@ -363,8 +385,8 @@ def roi_align_fwd(
 ) -> torch.Tensor:
     """-> pooled [B, K, Px, Py, C]: the kernel for CUDA tensors (through
     the operator ``layoutdit_torch::roi_align_fwd``), the plain version
-    for CPU tensors. The kernel reads bf16 channels-last levels through
-    their strides, as they are; it raises on any other."""
+    for CPU tensors. The kernel reads bf16 or fp32 channels-last levels
+    through their strides, as they are; it raises on any other."""
     if rois.device.type == "cpu":
         return roi_align_plain(
             features, rois, levels, spatial_scales, output_size, sampling_ratio
@@ -375,7 +397,9 @@ def roi_align_fwd(
                    output_size, sampling_ratio)
 
 
+# launches of the kernel, and of them those of its float32 form
 roi_align_fwd.launches = 0
+roi_align_fwd.f32_launches = 0
 
 
 def _taps_scratch(r: int, p: int, g: int, device: torch.device) -> torch.Tensor:
@@ -429,6 +453,7 @@ def roi_footprints_kernel(
 
 
 def _bwd_cuda(dout, rois, levels, features, spatial_scales, output_size, sampling_ratio):
+    _library.refuse_float32_backward("roi_align_bwd", dout, *features)
     _check_sizes("roi_align_bwd", output_size, sampling_ratio)
     b, k = rois.shape[:2]
     c = features[0].shape[1]
@@ -486,8 +511,9 @@ def roi_align_bwd(
     CUDA tensors, the plain version for CPU tensors. The kernel writes
     every element once, in bf16, into a tensor laid out as its feature
     (``empty_like``: channels-last; dense for the strided fifth level), the
-    same bits on every run. ``features`` give only shapes, dtypes and
-    layouts."""
+    same bits on every run; it takes bf16 only (a float32 level or dout
+    raises ``_library.FLOAT32_TRAINING``). ``features`` give only shapes,
+    dtypes and layouts."""
     if rois.device.type == "cpu":
         return roi_align_bwd_plain(
             dout, rois, levels, features, spatial_scales, output_size, sampling_ratio

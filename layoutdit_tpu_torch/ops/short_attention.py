@@ -28,7 +28,13 @@ exported programs hold), ``::short_attention_lse`` (training: o and lse)
 and ``::short_attention_bwd`` (``ops/_library.py``; a traced program
 names them, and their CUDA implementations count the launches: one for
 a forward, one for a backward, whose D = 64 form is two kernels), and
-take the plain versions only for CPU tensors. ``short_attention_launch``
+take the plain versions only for CPU tensors. Float32 tensors (a float32
+compute dtype) take the forward's float32 form, an FFMA kernel shared with
+the flash forward (``csrc/attention_f32.cuh``, N <= 256, D 32, 64 or 128,
+the key mask and the lse as in bf16), counted apart too
+(``short_attention.f32_launches``, a part of its launches); the backward
+takes bf16 only and refuses a float32 tensor with a message (float32
+training on the card waits for its fp32 kernels). ``short_attention_launch``
 and ``short_attention_bwd_launch`` are the direct launches, without the
 dispatcher (the first for timing the operator's host cost).
 ``short_attention_qkv`` is the differentiable entry point: a
@@ -133,8 +139,9 @@ def short_attention_bwd_plain(
 def _lib() -> ctypes.CDLL:
     lib = _build.load("short_attention")
     if lib.short_attention_fwd.argtypes is None:
-        lib.short_attention_fwd.argtypes = _ARGTYPES
-        lib.short_attention_fwd.restype = ctypes.c_int
+        for fn in (lib.short_attention_fwd, lib.short_attention_fwd_f32):
+            fn.argtypes = _ARGTYPES
+            fn.restype = ctypes.c_int
         lib.short_attention_bwd.argtypes = _BWD_ARGTYPES
         lib.short_attention_bwd.restype = ctypes.c_int
         lib.short_attention_smem_bytes.argtypes = [ctypes.c_int]
@@ -143,13 +150,14 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check_heads(what: str, ref: torch.Tensor, **tensors: torch.Tensor) -> tuple[list, list]:
-    """Check that each tensor is bf16 [B, N, H, D] like ``ref`` on its
-    device with contiguous rows, a 16-byte-aligned base and B, N, H
-    strides that are multiples of 16 bytes (as the fused QKV projection's
-    slices are: TMA's tensor maps need them at D = 64, cp.async's 16-byte
-    copies at D = 32 and 128) and that N and D are in the kernels' range
-    -> the tensors' data pointers and their B, N, H element strides, in
-    order."""
+    """Check that each tensor is [B, N, H, D] in ``ref``'s dtype, bf16 or
+    fp32, like ``ref`` on its device with contiguous rows, a
+    16-byte-aligned base and B, N, H strides that are multiples of 16
+    bytes, 8 bf16 or 4 fp32 elements (as the fused QKV projection's slices
+    are: TMA's tensor maps need them at D = 64, cp.async's 16-byte copies
+    at D = 32 and 128, the float32 kernel's float4 loads at any D) and
+    that N and D are in the kernels' range -> the tensors' data pointers
+    and their B, N, H element strides, in order."""
     shape, dev = ref.shape, ref.device
     _, n, _, d = shape
     if n > MAX_N or d not in HEAD_DIMS:
@@ -157,16 +165,19 @@ def _check_heads(what: str, ref: torch.Tensor, **tensors: torch.Tensor) -> tuple
             f"{what}: N={n} D={d} outside the kernels' range "
             f"(N <= {MAX_N}, head dim one of {HEAD_DIMS})"
         )
+    dtype = _library.kernel_dtype(ref)
+    type_name, vec = _library.KERNEL_DTYPES[dtype]
     ptrs, strides = [], []
     for name, t in tensors.items():
-        if t.shape != shape or t.dtype != torch.bfloat16 or t.device != dev:
+        if t.shape != shape or t.dtype != dtype or t.device != dev:
             raise ValueError(
-                f"{what}: {name} must be bf16 {tuple(shape)} on "
-                f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+                f"{what}: {name} must be {type_name} {tuple(shape)} on "
+                f"{dev} (the kernels take bf16 or fp32, all alike), got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}"
             )
         sb, sn, sh, sd = t.stride()
         ptr = t.data_ptr()
-        if sd != 1 or ptr % 16 or sb % 8 or sn % 8 or sh % 8:
+        if sd != 1 or ptr % 16 or sb % vec or sn % vec or sh % vec:
             raise ValueError(f"{what}: {name} rows must be contiguous and 16-byte aligned")
         ptrs.append(ptr)
         strides += (sb, sn, sh)
@@ -203,16 +214,18 @@ def _check_mask(what: str, ref: torch.Tensor, key_mask: torch.Tensor | None) -> 
 
 def short_attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
                            key_mask: torch.Tensor | None, with_lse: bool = False):
-    """The direct launch of the forward kernel on CUDA tensors: checks,
-    allocates o (and with ``with_lse`` the lse, fp32 [B, H, N]), launches
-    -> o, or (o, lse); counts nothing (the operators count)."""
+    """The direct launch of the forward kernel on CUDA tensors (bf16, or
+    fp32: the float32 form): checks, allocates o (and with ``with_lse`` the
+    lse, fp32 [B, H, N]), launches -> o, or (o, lse); counts nothing (the
+    operators count)."""
     b, n, h, d = q.shape
     o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if with_lse else None
     ptrs, strides = _check_heads("short_attention", q, q=q, k=k, v=v, o=o)
     mask = _check_mask("short_attention", q, key_mask)
     lib = _lib()
-    code = lib.short_attention_fwd(
+    fwd = lib.short_attention_fwd_f32 if q.dtype == torch.float32 else lib.short_attention_fwd
+    code = fwd(
         *ptrs, None if lse is None else lse.data_ptr(), *mask, b, n, h, d,
         (ctypes.c_longlong * 12)(*strides), float(scale), _build.stream_ptr(q)
     )
@@ -220,20 +233,21 @@ def short_attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sc
     return (o, lse) if with_lse else o
 
 
-def _count_fwd(key_mask) -> None:
+def _count_fwd(q, key_mask) -> None:
     short_attention.launches += 1
     short_attention.masked_launches += key_mask is not None
+    short_attention.f32_launches += q.dtype == torch.float32
 
 
 def _fwd_cuda(q, k, v, scale, key_mask):
     o = short_attention_launch(q, k, v, scale, key_mask)
-    _count_fwd(key_mask)
+    _count_fwd(q, key_mask)
     return o
 
 
 def _fwd_lse_cuda(q, k, v, scale, key_mask):
     o, lse = short_attention_launch(q, k, v, scale, key_mask, with_lse=True)
-    _count_fwd(key_mask)
+    _count_fwd(q, key_mask)
     return o, lse
 
 
@@ -256,8 +270,8 @@ def short_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None,
     key_mask: torch.Tensor | None = None, return_lse: bool = False,
 ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
-    """Fused short-sequence attention; [B, N, H, D] in and out (bf16 on
-    the card, any float type on the CPU); ``key_mask`` [rows, N] drops
+    """Fused short-sequence attention; [B, N, H, D] in and out (bf16 or
+    fp32 on the card, any float type on the CPU); ``key_mask`` [rows, N] drops
     the keys it holds False for (row b % rows for batch b). With
     ``return_lse`` -> (o, lse [B, H, N] fp32), the lse the backward reads.
     On the card through the operator ``layoutdit_torch::short_attention``
@@ -273,16 +287,21 @@ def short_attention(
     return _fwd_op(q, k, v, float(scale), key_mask)
 
 
-# launches of the kernel, and of them those with a key mask
+# launches of the kernel, and of them those with a key mask and those of
+# the float32 form
 short_attention.launches = 0
 short_attention.masked_launches = 0
+short_attention.f32_launches = 0
 
 
 def short_attention_bwd_launch(q, k, v, o, dout, lse, scale, key_mask, dq, dk, dv) -> None:
     """The direct launch of the backward on CUDA tensors (at D = 64 the dq
     kernel, then the dkdv kernel, with a delta buffer allocated here):
-    checks, launches; counts nothing (the operator counts)."""
+    checks (bf16 only: a float32 tensor is refused with
+    ``_library.FLOAT32_TRAINING``), launches; counts nothing (the operator
+    counts)."""
     b, n, h, d = q.shape
+    _library.refuse_float32_backward("short_attention_bwd", q)
     ptrs, strides = _check_heads(
         "short_attention_bwd", q, q=q, k=k, v=v, o=o, do=dout, dq=dq, dk=dk, dv=dv
     )
@@ -323,6 +342,7 @@ def short_attention_bwd(
     lse: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of short attention; [B, N, H, D] each. On the card
+    (bf16 only: a float32 tensor raises ``_library.FLOAT32_TRAINING``)
     ``out`` may name three bf16 [B, N, H, D] views to write into (the
     slices of a fused QKV gradient); they are returned. ``key_mask``: as
     for ``short_attention``. ``lse``: the forward's, fp32 [B, H, N]

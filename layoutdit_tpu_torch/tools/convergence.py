@@ -15,7 +15,10 @@ detector fine-tuned for 48 epochs on 128 synthetic pages and scored on
     0.4 x that of the first 4.
 
 The compute dtype is the caller's: ``float32`` as the JAX test runs it,
-``bfloat16`` on the card, whose kernels take bf16 only.
+on the CPU; ``bfloat16`` on the card, where float32 serves (the forward
+kernels have float32 forms) but does not train (the backward kernels
+take bf16 only: the trainer refuses a float32 model on a CUDA device
+whose backward reaches one, as every DiT recipe's does).
 
 ``--family`` picks the detector as ``scripts/convergence_matrix.py``
 does: ``faster_rcnn`` (the flagship), ``cascade`` (three stages at IoU

@@ -42,6 +42,7 @@ Needs a CUDA device; raises without one.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import subprocess
@@ -88,6 +89,16 @@ def _plain_roi_bwd(dout, rois, levels, features, spatial_scales, output_size=7,
                                        output_size, sampling_ratio)
 
 
+# the wrappers that blocks of ``swapped`` hold swapped now, by name
+_PLAIN: collections.Counter = collections.Counter()
+
+
+def plain(*names: str) -> bool:
+    """Whether each wrapper of ``names`` (``"roi_align_bwd"``, ...) is its
+    plain version now, inside a block of ``swapped``."""
+    return all(_PLAIN[name] for name in names)
+
+
 @contextlib.contextmanager
 def swapped(arm: str):
     """Within the block, the arm's kernel wrappers are their plain versions
@@ -104,6 +115,7 @@ def swapped(arm: str):
                             (flash_mod, "flash_attention_bwd", _plain_flash_bwd)],
     }[arm]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    _PLAIN.update(name for _, name, _ in swaps)
     try:
         for mod, name, fn in swaps:
             setattr(mod, name, fn)
@@ -111,6 +123,7 @@ def swapped(arm: str):
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+        _PLAIN.subtract(name for _, name, _ in swaps)
 
 
 def _wrappers():

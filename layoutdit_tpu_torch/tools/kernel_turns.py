@@ -28,6 +28,11 @@ runs (default: all):
   forward's o and lse and the backward's dq, dk, dv and dbias, through
   the public functions every version has: two trees whose digests agree
   give those calls the same bits.
+- ``short_bits``, ``roi_bits``: the same for the bf16 forwards of rows 1
+  and 7 (``short_attention`` at head dims 32, 64 and 128 with and
+  without the lse and a key mask, the shapes of ``SHORT_BITS_CASES``;
+  ``roi_align_fwd`` at P = 7 and 14 on a channels-last pyramid with a
+  strided fifth level, ``ROI_BITS_CASES``).
 
 Run it by path:
 
@@ -61,7 +66,15 @@ HOST_SPIN_CYCLES = 400_000_000
 BITS_CASES = ((2, 65, 12, False, None), (2, 65, 12, True, None), (8, 256, 12, True, None),
               (2, 2049, 8, False, 1024), (2, 2049, 8, False, 2048), (2, 300, 4, False, 257))
 
-PHASES = ("short", "flash", "flash_bwd", "flash_bits")
+# the calls short_bits fingerprints: (B, N, H, D, a window key mask); the
+# 224 px shape, the recipe's D = 32, D = 128, the CLS token and dit-large's
+# 14 x 14 windows at 1024 px with their mask
+SHORT_BITS_CASES = ((4, 197, 12, 64, False), (8, 197, 2, 32, False), (4, 197, 6, 128, False),
+                    (4, 1, 12, 64, False), (100, 196, 16, 64, True))
+# the calls roi_bits fingerprints: (image px, B, K, P)
+ROI_BITS_CASES = ((224, 16, 512, 7), (1024, 4, 512, 7), (224, 4, 100, 14))
+
+PHASES = ("short", "flash", "flash_bwd", "flash_bits", "short_bits", "roi_bits")
 
 
 def _host_ms(torch, fn) -> float:
@@ -158,6 +171,48 @@ def flash_bits(torch, fa, sa) -> str:
     return digest.hexdigest()
 
 
+def short_bits(torch, sa) -> str:
+    """sha256 (hex) of row 1's bf16 outputs over SHORT_BITS_CASES, on the
+    card: o, then the training form's o and lse, from inputs drawn by
+    numpy (seed 0) and rounded to bf16 on the host."""
+    from layoutdit_tpu_torch.models.vit import _window_key_mask
+
+    rng = np.random.default_rng(0)
+    digest = hashlib.sha256()
+    for b, n, h, d, masked in SHORT_BITS_CASES:
+        qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * h * d)).astype(np.float32))
+        q, k, v = sa.split_qkv(qkv.to(torch.bfloat16).cuda(), h)
+        mask = _window_key_mask(64, 64, 14).cuda() if masked else None
+        outs = (sa.short_attention(q, k, v, key_mask=mask),
+                *sa.short_attention(q, k, v, key_mask=mask, return_lse=True))
+        for t in outs:
+            digest.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def roi_bits(torch, ra) -> str:
+    """sha256 (hex) of row 7's bf16 outputs over ROI_BITS_CASES, on the
+    card, from a pyramid (p2..p5 channels-last, the fifth level the
+    strided view p5[..., ::2, ::2]) and RoIs drawn by numpy (seed 0)."""
+    rng = np.random.default_rng(0)
+    digest = hashlib.sha256()
+    scales = [1 / 4, 1 / 8, 1 / 16, 1 / 32, 1 / 64]
+    for image, b, k, p in ROI_BITS_CASES:
+        g = image // 16
+        feats = [torch.from_numpy(rng.standard_normal((b, 256, s, s)).astype(np.float32))
+                 .to(torch.bfloat16).cuda().contiguous(memory_format=torch.channels_last)
+                 for s in (4 * g, 2 * g, g, g // 2)]
+        feats.append(feats[-1][..., ::2, ::2])
+        boxes = rng.uniform(-10, image, (b, k, 4)).astype(np.float32)
+        boxes[..., 2:] = boxes[..., :2] + rng.uniform(1.0, image / 2, (b, k, 2))
+        rois = torch.from_numpy(boxes).cuda()
+        mask = torch.from_numpy(rng.uniform(size=(b, k)) < 0.8).cuda()
+        levels = ra.roi_levels(rois, 5, float(image), roi_mask=mask)
+        out = ra.roi_align_fwd(feats, rois, levels, scales, p, 2)
+        digest.update(out.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
@@ -173,13 +228,15 @@ def main() -> int:
     import chip_smoke as cs
     from layoutdit_tpu_torch.ops import _build
     from layoutdit_tpu_torch.ops import flash_attention as fa
+    from layoutdit_tpu_torch.ops import roi_align as ra
     from layoutdit_tpu_torch.ops import short_attention as sa
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     _build.build_all(tuple(dict.fromkeys(
-        "short_attention" if p == "short" else "flash_attention" for p in args.phases)))
+        {"short": "short_attention", "short_bits": "short_attention",
+         "roi_bits": "roi_align"}.get(p, "flash_attention") for p in args.phases)))
     card = cs._card()
     print(f"root {root}: built in {time.perf_counter() - t0:.1f} s; {card}", flush=True)
     out = {"root": str(root), "card": card}
@@ -192,9 +249,11 @@ def main() -> int:
         elif phase == "flash_bwd":
             out["flash_bwd"] = cs.phase_flash_bwd(gen)
         else:
-            out["flash_bits_sha256"] = flash_bits(torch, fa, sa)
-            print(f"root {root}: unmasked and n_keys bits sha256 {out['flash_bits_sha256']}",
-                  flush=True)
+            digest = {"flash_bits": lambda: flash_bits(torch, fa, sa),
+                      "short_bits": lambda: short_bits(torch, sa),
+                      "roi_bits": lambda: roi_bits(torch, ra)}[phase]()
+            out[f"{phase}_sha256"] = digest
+            print(f"root {root}: {phase} sha256 {digest}", flush=True)
         torch.cuda.empty_cache()
     print(json.dumps(out))
     return 0

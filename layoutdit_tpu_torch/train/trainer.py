@@ -135,6 +135,7 @@ from layoutdit_tpu_torch.data.pipeline import DetectionBatch, DetectionLoader
 from layoutdit_tpu_torch.data.shards import make_sharded_dataset
 from layoutdit_tpu_torch.log import get_logger
 from layoutdit_tpu_torch.models.detection.detector import (
+    DetectorConfig,
     DetectorModel,
     SamplerPriorities,
     detector_loss,
@@ -185,6 +186,28 @@ def shard_model_(model, group, pipelined: bool = False) -> TpLayout:
     return layout
 
 
+def refuse_float32_on_card(device: torch.device, cfg: DetectorConfig) -> None:
+    """Raise ``FLOAT32_TRAINING`` where a float32 model of ``cfg`` would
+    train on ``device``, a CUDA device, through a backward kernel (they
+    take bf16 only): the DiT encoder's attention (rows 2, 4-6) or the RoI
+    heads' RoIAlign (row 8). A ResNet-50 backbone under a single-stage or
+    DETR head reaches neither and passes; so does a float32 control whose
+    wrappers of those kernels are their plain versions
+    (``tools/kernel_swap.plain``)."""
+    if device.type != "cuda" or cfg.dtype != torch.float32:
+        return
+    from layoutdit_tpu_torch.ops import _library
+    from layoutdit_tpu_torch.tools import kernel_swap
+
+    reached = []
+    if cfg.backbone_kind == "dit":
+        reached += ["short_attention_bwd", "flash_attention_bwd"]
+    if cfg.detector_kind == "faster_rcnn":
+        reached.append("roi_align_bwd")
+    if not kernel_swap.plain(*reached):
+        raise ValueError(f"Trainer: {_library.FLOAT32_TRAINING}")
+
+
 def _like(tree, leaves: list) -> dict:
     """``leaves`` in ``tree``'s structure (``tree_leaves`` order)."""
     it = iter(leaves)
@@ -233,7 +256,9 @@ class Trainer:
         trained weights, as the JAX trainer leaves them in its model,
         and the mid-training evaluator scores the same object.
       device: "cuda" unless the caller asks for the CPU. A CUDA device
-        with no GPU present raises, and so do parameters elsewhere.
+        with no GPU present raises, and so do parameters elsewhere, and
+        so does a float32 model on a CUDA device whose backward reaches
+        a kernel (``refuse_float32_on_card``: they take bf16).
       mesh: the data x model ranks (``parallel/mesh.py``); by default
         ``build_mesh_for_batch`` of the config's ``mesh_config`` over the
         running processes (one process outside a group: no collectives).
@@ -252,6 +277,7 @@ class Trainer:
         self.config = config
         self.model = model
         self.cfg = model.cfg
+        refuse_float32_on_card(self.device, self.cfg)
         tc = config.train
         self.accum = max(1, tc.grad_accumulation_steps)
         if config.data.batch_size % self.accum:
